@@ -8,22 +8,36 @@ Phases (each raises on failure, so the script exits non-zero):
    sm_90a, one nvcc per source, all at once.
 2. Kernels against their plain PyTorch versions on the card, at the
    shapes the main path gives them (llama-2-7b widths, B = 32, the cache
-   extent and trunk of phase 3's dispatches), plus GQA (mistral-7b), MQA
-   (falcon-7b) and ALiBi (bloom-7b1) shapes: bf16 kernel output against
-   the float32 plain version of the same bf16 inputs, atol = rtol = 1e-2
-   (bf16 output rounding); the trunk decode kernel bitwise equal to the
-   flat one. Times by CUDA events after warm-up, the L2 cache flushed
-   before every launch; the SDPA yardstick (``library_ms``) is timed
-   beside them and used nowhere in the port. Then the whole slice at a
-   small float32 size on the card against the same slice on the CPU
-   (plain versions).
+   extents and trunks of phase 3's dispatches; the verify window's
+   S = spec_k = 4 queries a row for the multi-query kernels), plus GQA
+   (mistral-7b), MQA (falcon-7b) and ALiBi (bloom-7b1) shapes: bf16
+   kernel output against the float32 plain version of the same bf16
+   inputs, atol = rtol = 1e-2 (bf16 output rounding); the trunk kernels
+   bitwise equal to the flat ones, and query j of the multi-query kernel
+   bitwise the single-query kernel at its position. Times by CUDA events
+   after warm-up, the L2 cache flushed before every launch; the SDPA
+   yardstick (``library_ms``) is timed beside them and used nowhere in
+   the port. Then the whole slice at a small float32 size: the cascade
+   and the speculative dispatch on the card against the same on the CPU
+   (plain versions), the speculative dispatch against the sequential one
+   on the card (ids exact, position-0 readouts bitwise), and a
+   speculative run given the sequential stream as its drafts. Last, at
+   llama-2-7b width, one decode step against one verify window from the
+   same cache: their logit difference, and the step's top-2 gap where
+   their argmax differs (printed, not asserted).
 3. The slice at full width: llama-2-7b with seeded random bf16 weights
-   made on the card, the word-meaning sweep over the 50 questions
-   (dense prefill + the flat decode kernel), one shared dispatch of 32
-   cells sharing a ~430-token legal trunk (cascade prefill + the trunk
-   decode kernel) and one shared dispatch with no common trunk (dense
-   shared prefill + the flat kernel). Launch counts are reset just
-   before and read just after; every kernel must have launched.
+   made on the card, three engines sharing them. The word-meaning sweep
+   over the 50 questions (dense prefill + the flat decode kernel); one
+   shared dispatch of 32 cells sharing a ~430-token legal trunk (cascade
+   prefill + the trunk decode kernel); the 32 cells with no common trunk
+   on the sequential engine (dense shared prefill + the flat kernel)
+   and on the default engine (the speculative verify loop on the
+   multi-query kernel); the trunk cells on the sequential engine and on
+   an engine with the cascade prefill off (the verify loop on the
+   trunk-aware multi-query kernel). Each phase resets the launch counts
+   just before it and reads them just after, and fails if a kernel of
+   its path never launched; the speculative dispatches' position-0
+   readouts must be bitwise the sequential ones on the same cells.
 4. The ``{"kernels": [...]}`` summary, the card's name and power limit,
    and the last line ``{"ok": true, "device": {...}}``.
 """
@@ -44,11 +58,13 @@ from lir_tpu_torch.backends.fake import FakeTokenizer
 from lir_tpu_torch.config import RuntimeConfig
 from lir_tpu_torch.data import (LEGAL_PROMPTS, WORD_MEANING_QUESTIONS,
                                 format_base_prompt)
-from lir_tpu_torch.engine import sweep, tokens as tok
+from lir_tpu_torch.engine import generate, sweep, tokens as tok
 from lir_tpu_torch.engine.runner import SFX_BUCKETS, ScoringEngine
 from lir_tpu_torch.models import decoder, registry
 from lir_tpu_torch.ops import _build
-from lir_tpu_torch.ops.flash_decode import (flash_decode_plain,
+from lir_tpu_torch.ops.flash_decode import (flash_decode_mq_plain,
+                                            flash_decode_mq_trunk_plain,
+                                            flash_decode_plain,
                                             flash_decode_trunk_plain,
                                             trunk_splits, DECODE_SPLIT)
 from lir_tpu_torch.ops.cascade_prefill import cascade_attention_plain
@@ -60,14 +76,28 @@ BATCH = 32
 DEV = "cuda"
 # SDPA groups query heads itself where this PyTorch supports it (2.5+).
 _SDPA_GQA = "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or "")
+# Each kernel's source, the TPU kernel it replaces, and the phase-2 case
+# whose shape is its main-path shape in the summary line.
 SOURCES = {
     "flash_decode": ("lir_tpu_torch/csrc/flash_decode.cu",
-                     "lir_tpu/ops/flash_decode.py:65"),
+                     "lir_tpu/ops/flash_decode.py:65",
+                     "llama2-7b/cascade-dispatch"),
     "flash_decode_trunk": ("lir_tpu_torch/csrc/flash_decode.cu",
-                           "lir_tpu/ops/flash_decode.py:179"),
+                           "lir_tpu/ops/flash_decode.py:179",
+                           "llama2-7b/cascade-dispatch"),
     "cascade_attention": ("lir_tpu_torch/csrc/cascade_prefill.cu",
-                          "lir_tpu/ops/cascade_prefill.py:204"),
+                          "lir_tpu/ops/cascade_prefill.py:204",
+                          "llama2-7b/cascade-dispatch"),
+    "flash_decode_mq": ("lir_tpu_torch/csrc/flash_decode.cu",
+                        "lir_tpu/ops/flash_decode.py:348",
+                        "llama2-7b/spec-dispatch"),
+    "flash_decode_mq_trunk": ("lir_tpu_torch/csrc/flash_decode.cu",
+                              "lir_tpu/ops/flash_decode.py:464",
+                              "llama2-7b/spec-trunk-dispatch"),
 }
+# Position-0 readouts of a shared dispatch, held bitwise between the
+# speculative and the sequential route.
+POS0_FIELDS = ("topk_logprobs", "topk_ids", "weighted_confidence")
 
 
 def log(*args):
@@ -96,7 +126,8 @@ def legal_cells(shared_trunk: bool):
 
 
 def plan_shared(engine: ScoringEngine, cells, rt: RuntimeConfig):
-    """The bucket, trunk and cache extent decode_fused_shared will use."""
+    """The bucket, trunk and cache extents decode_fused_shared will use:
+    T0 for the sequential loop, T_spec for the speculative one."""
     t = engine.tokenizer
     bins = [t(b).input_ids for b, _, _ in cells]
     confs = [t(c).input_ids for _, c, _ in cells]
@@ -108,7 +139,10 @@ def plan_shared(engine: ScoringEngine, cells, rt: RuntimeConfig):
                                      len(cells), bucket)
     T0 = bucket + max(ba + rt.sweep_decode_tokens,
                       bb + rt.sweep_confidence_tokens)
-    return dict(bucket=bucket, trunk=trunk, T0=T0, lcp=lcp)
+    T_spec = generate.spec_total_len(bucket, ba, bb, rt.sweep_decode_tokens,
+                                     rt.sweep_confidence_tokens, rt.spec_k)
+    return dict(bucket=bucket, trunk=trunk, T0=T0, T_spec=T_spec, lcp=lcp,
+                prefix_rows=[a[:n] for a, n in zip(bins, lcp)])
 
 
 # ---------------------------------------------------------------------------
@@ -164,9 +198,13 @@ def check_close(name, got, ref):
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def decode_inputs(gen, B, H, K, hd, T, trunk_len):
+def decode_inputs(gen, B, H, K, hd, T, trunk_len, S=None):
+    """Decode-step inputs at the main path's shapes: q (B, H, hd) and
+    q_positions (B,), or with ``S`` a verify window, q (B, S, H, hd) and
+    q_positions (B, S) at the row's last S valid slots."""
     dev = DEV
-    q = torch.randn((B, H, hd), generator=gen, device=dev).to(torch.bfloat16)
+    qshape = (B, H, hd) if S is None else (B, S, H, hd)
+    q = torch.randn(qshape, generator=gen, device=dev).to(torch.bfloat16)
     k = torch.randn((K, T, B, hd), generator=gen, device=dev).to(torch.bfloat16)
     v = torch.randn((K, T, B, hd), generator=gen, device=dev).to(torch.bfloat16)
     if trunk_len:
@@ -181,23 +219,32 @@ def decode_inputs(gen, B, H, K, hd, T, trunk_len):
     mask[:, T - 3:] = 0                     # decode slots not yet written
     kpos = torch.clamp_min(torch.cumsum(mask, -1, dtype=torch.int32) - 1, 0)
     qpos = kpos.max(dim=-1).values.to(torch.int32)
+    if S is not None:
+        qpos = (qpos[:, None] - (S - 1)
+                + torch.arange(S, device=dev)[None, :]).to(torch.int32)
     return q, k, v, qpos, mask, kpos
 
 
-def decode_work(q, k, mask, trunk_len, hd):
+def decode_work(q, k, mask, trunk_len, hd, kpos=None, qpos=None):
     """Bytes and flops the decode function needs on these inputs: q, the
     valid-or-not K/V slots (each row's own, the trunk's once), the int
     arrays, the output; two flops per multiply-add of QK^T and PV over
-    the valid keys."""
-    B, H, _ = q.shape
+    the keys each query may see. q is (B, H, hd), or (B, S, H, hd) with
+    ``kpos``/``qpos`` for a verify window (each query its own keys)."""
+    q4 = q if q.dim() == 4 else q[:, None]
+    B, S, H, _ = q4.shape
     K, T = k.shape[0], k.shape[1]
     tk = trunk_splits(trunk_len, T) * DECODE_SPLIT
     kv_slots = tk + (T - tk) * B
     kv_bytes = 2 * K * kv_slots * hd * k.element_size()
-    int_bytes = 4 * (2 * B * T + B)
+    int_bytes = 4 * (2 * B * T + B * S)
     byts = nbytes(q) * 2 + kv_bytes + int_bytes
-    flops = 4.0 * H * hd * float(mask.sum())
-    return byts, flops
+    if qpos is None:
+        pairs = float(mask.sum())
+    else:
+        pairs = float(((mask > 0)[:, None, :]
+                       & (kpos[:, None, :] <= qpos[:, :, None])).sum())
+    return byts, 4.0 * H * hd * pairs
 
 
 def _gqa(grouped: bool) -> dict:
@@ -263,6 +310,71 @@ def check_decode(gen, label, B, H, K, hd, T, trunk_len, alibi, results):
         results.append(row)
 
 
+def check_decode_mq(gen, label, B, S, H, K, hd, T, trunk_len, alibi,
+                    results):
+    """The multi-query kernels at a verify window's shape: against their
+    plain versions, query j bitwise the single-query kernel, and the
+    trunk kernel (at ``trunk_len``) bitwise the flat one."""
+    q, k, v, qpos, mask, kpos = decode_inputs(gen, B, H, K, hd, T, trunk_len,
+                                              S=S)
+    slopes = decoder.alibi_slopes(H, DEV) if alibi else None
+    args = (q, k, v, qpos, mask)
+    kw = dict(key_positions=kpos, alibi_slopes=slopes)
+    mq = ops.flash_decode_mq(*args, **kw)
+    ref = flash_decode_mq_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = check_close(f"flash_decode_mq[{label}]", mq, ref)
+    for j in range(S):
+        one = ops.flash_decode(q[:, j].contiguous(), k, v,
+                               qpos[:, j].contiguous(), mask, **kw)
+        if not torch.equal(one, mq[:, j]):
+            raise AssertionError(f"flash_decode_mq[{label}] query {j} is not "
+                                 f"bitwise the single-query kernel")
+    valid = ((mask > 0)[:, None, :]
+             & (kpos[:, None, :] <= qpos[:, :, None]))          # (B, S, T)
+    bias = torch.where(valid[:, None], 0.0, float("-inf"))
+    if alibi:
+        bias = bias + slopes[None, :, None, None] * kpos.float()[:, None, None, :]
+    bias = bias.to(q.dtype)
+    kb, vb = _sdpa_kv(k.permute(2, 0, 1, 3), v.permute(2, 0, 1, 3), H // K)
+    qh = q.permute(0, 2, 1, 3)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qh, kb, vb, attn_mask=bias,
+                                              **_gqa(K != H))
+
+    lib_ms = time_ms(sdpa)
+    rows = []
+    byts, flops = decode_work(q, k, mask, 0, hd, kpos, qpos)
+    b_ms, b_by = bound(byts, flops)
+    rows.append(dict(
+        kernel="flash_decode_mq", case=label, B=B, S=S, H=H, K=K, hd=hd, T=T,
+        max_abs_err=err, bitwise_equal_single_query=True,
+        kernel_ms=time_ms(lambda: ops.flash_decode_mq(*args, **kw)),
+        plain_ms=time_ms(lambda: flash_decode_mq_plain(*args, **kw)),
+        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+    tkw = dict(kw, trunk_len=trunk_len)
+    trunk = ops.flash_decode_mq_trunk(*args, **tkw)
+    tref = flash_decode_mq_trunk_plain(*args, **tkw)
+    torch.cuda.synchronize()
+    err_trunk = check_close(f"flash_decode_mq_trunk[{label}]", trunk, tref)
+    if not torch.equal(trunk, mq):
+        raise AssertionError(f"flash_decode_mq_trunk[{label}] is not bitwise "
+                             f"flash_decode_mq")
+    byts, flops = decode_work(q, k, mask, trunk_len, hd, kpos, qpos)
+    b_ms, b_by = bound(byts, flops)
+    rows.append(dict(
+        kernel="flash_decode_mq_trunk", case=label, B=B, S=S, H=H, K=K,
+        hd=hd, T=T, trunk_len=trunk_len, max_abs_err=err_trunk,
+        bitwise_equal_flat=True,
+        kernel_ms=time_ms(lambda: ops.flash_decode_mq_trunk(*args, **tkw)),
+        plain_ms=time_ms(lambda: flash_decode_mq_trunk_plain(*args, **tkw)),
+        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+    for row in rows:
+        log(json.dumps(row))
+        results.append(row)
+
+
 def check_cascade(gen, label, B, R, H, K, hd, Tt, alibi, results):
     dev = DEV
     bf = torch.bfloat16
@@ -322,10 +434,91 @@ def check_cascade(gen, label, B, R, H, K, hd, Tt, alibi, results):
     results.append(row)
 
 
+def _shared_dispatch(eng, rows, bucket):
+    """One shared dispatch of the small slice: each row's binary and
+    confidence prompts differ in their last two tokens."""
+    n = len(rows)
+    return eng.decode_fused_shared(
+        [""] * n, [""] * n, np.full(n, 5, np.int32), np.full(n, 9, np.int32),
+        new_tokens=3, conf_tokens=4, pretokenized_a=[r + [5, 6] for r in rows],
+        pretokenized_b=[r + [7, 8] for r in rows], bucket=bucket,
+        reuse_cache=True, n_real=n)
+
+
+def compare_pos0(label, spec_outs, seq_outs):
+    """The speculative route against the sequential one on the same
+    cells: the first generated id and the position-0 readouts bitwise.
+    Returns the share of the later generated ids that agree, and per
+    branch the share of rows whose ids still all agree up to each
+    position (a near-tie flip at one position changes every later id of
+    its row)."""
+    agree = total = 0
+    prefix_agree = {}
+    for fmt, a, b in zip(("binary", "confidence"), spec_outs, seq_outs):
+        for name in POS0_FIELDS:
+            if not torch.equal(getattr(a, name), getattr(b, name)):
+                raise AssertionError(f"{label}/{fmt}: {name} is not bitwise "
+                                     f"the sequential route's")
+        for name in ("p_yes", "p_no", "generated"):
+            if not torch.equal(getattr(a, name)[:, 0], getattr(b, name)[:, 0]):
+                raise AssertionError(f"{label}/{fmt}: {name}[:, 0] is not "
+                                     f"bitwise the sequential route's")
+        same = a.generated[:, 1:] == b.generated[:, 1:]
+        agree += int(same.sum())
+        total += same.numel()
+        rows_ok = torch.cumprod((a.generated == b.generated).int(), dim=1)
+        prefix_agree[fmt] = rows_ok.float().mean(dim=0).tolist()
+    return agree / max(total, 1), prefix_agree
+
+
+def full_accept_check(params, cfg):
+    """generate.greedy_decode_fused_shared_spec given the sequential
+    stream as its drafts: the same ids, in ceil(T / k) windows or fewer
+    a branch."""
+    rng = np.random.default_rng(2)
+    B, k, Ta, Tb = 4, 4, 4, 8
+    rows = [[int(x) for x in rng.integers(3, 900, 20 + r)] for r in range(B)]
+    prefix, prefix_mask = tok.right_pad_ids(rows, 32, 0)
+    sfx_a, sfx_a_mask = tok.right_pad_ids([[5, 6]] * B, 8, 0)
+    sfx_b, sfx_b_mask = tok.right_pad_ids([[7, 8]] * B, 8, 0)
+    def t(a, dt=torch.int32):
+        return torch.as_tensor(np.asarray(a), dtype=dt, device=DEV)
+
+    args = (params, cfg, t(prefix), t(prefix_mask), t(sfx_a), t(sfx_a_mask),
+            t(sfx_b), t(sfx_b_mask), t([5] * B), t([9] * B), t([10, 11, 12]),
+            t([1.0, 2.0, 3.0], torch.float32))
+    seq_a, seq_b = generate.greedy_decode_fused_shared(
+        *args, max_new_a=Ta, max_new_b=Tb)
+    spec_args = []
+    for sfx, seq, T in ((sfx_a, seq_a, Ta), (sfx_b, seq_b, Tb)):
+        ctx = [r + list(map(int, s[:np.count_nonzero(s)])) for r, s in
+               zip(rows, sfx)]
+        width = 32 + 8 + T
+        c = np.zeros((B, width), np.int32)
+        for r, row in enumerate(ctx):
+            c[r, :len(row)] = row
+        spec_args += [t(c), t([len(r) for r in ctx]), seq.generated,
+                      t([T] * B)]
+    out_a, out_b, sp_a, sp_b = generate.greedy_decode_fused_shared_spec(
+        *args, *spec_args, max_new_a=Ta, max_new_b=Tb, spec_k=k)
+    for name, out, seq, sp, T in (("binary", out_a, seq_a, sp_a, Ta),
+                                  ("confidence", out_b, seq_b, sp_b, Tb)):
+        if not torch.equal(out.generated, seq.generated):
+            raise AssertionError(f"full-accept {name}: ids differ from the "
+                                 f"sequential stream")
+        if int(sp.chunks) > -(-T // k):
+            raise AssertionError(f"full-accept {name}: {int(sp.chunks)} "
+                                 f"windows for {T} tokens at k = {k}")
+    return int(sp_a.chunks), int(sp_b.chunks)
+
+
 def small_slice_check():
     """The whole slice at a small float32 size: the engine on the card
     (kernels) against the engine on the CPU (plain versions), same
-    params. Token ids exact, probabilities within 1e-4."""
+    params, through a cascade dispatch and a speculative one (token ids
+    exact, floats within 1e-4); on the card, the speculative dispatch
+    against the sequential one (ids exact, position-0 readouts bitwise)
+    and a speculative run given the sequential stream as its drafts."""
     cfg = registry.ModelConfig(name="smoke-tiny", vocab_size=1000,
                                hidden_size=128, n_layers=2, n_heads=4,
                                n_kv_heads=2, intermediate_size=256,
@@ -338,28 +531,90 @@ def small_slice_check():
     rt = RuntimeConfig(batch_size=4, max_new_tokens=6)
     rng = np.random.default_rng(0)
     head = [int(x) for x in rng.integers(3, 900, 80)]
-    rows = [head + [int(x) for x in rng.integers(3, 900, 5 + r)]
-            for r in range(4)]
+    trunk_rows = [head + [int(x) for x in rng.integers(3, 900, 5 + r)]
+                  for r in range(4)]
+    flat_rows = [[int(x) for x in rng.integers(3, 900, 40 + r)]
+                 for r in range(4)]
     outs = []
-    for params, dev in ((params_gpu, "cuda"), (params_cpu, "cpu")):
+    for params, dev in ((params_gpu, DEV), (params_cpu, "cpu")):
         eng = ScoringEngine(params, cfg, FakeTokenizer(), rt, device=dev)
-        out = eng.decode_fused_shared(
-            [""] * 4, [""] * 4, np.full(4, 5, np.int32),
-            np.full(4, 9, np.int32), new_tokens=3, conf_tokens=4,
-            pretokenized_a=[r + [5, 6] for r in rows],
-            pretokenized_b=[r + [7, 8] for r in rows], bucket=96,
-            reuse_cache=True, n_real=4)
+        casc = _shared_dispatch(eng, trunk_rows, 96)
         if eng.cascade_stats["cascade_dispatches"] != 1:
             raise AssertionError("small slice did not take the cascade")
-        outs.append(out)
-    for a, b in zip(*outs):
-        if not torch.equal(a.generated.cpu(), b.generated):
-            raise AssertionError("small slice: generated ids differ card vs CPU")
-        for name in ("p_yes", "p_no", "topk_logprobs"):
-            diff = (getattr(a, name).cpu() - getattr(b, name)).abs().max()
-            if not diff <= 1e-4:
-                raise AssertionError(f"small slice: {name} differs by {diff}")
-    log(json.dumps({"phase": "small_slice_vs_cpu", "ok": True}))
+        spec = _shared_dispatch(eng, flat_rows, 64)
+        if eng.spec_stats["spec_dispatches"] != 1:
+            raise AssertionError("small slice did not take the spec route")
+        outs.append((casc, spec))
+    for route, card, cpu in zip(("cascade", "spec"), *outs):
+        for a, b in zip(card, cpu):
+            if not torch.equal(a.generated.cpu(), b.generated):
+                raise AssertionError(f"small slice {route}: generated ids "
+                                     f"differ card vs CPU")
+            for name in ("p_yes", "p_no", "topk_logprobs",
+                         "weighted_confidence"):
+                diff = (getattr(a, name).cpu() - getattr(b, name)).abs().max()
+                if not diff <= 1e-4:
+                    raise AssertionError(f"small slice {route}: {name} "
+                                         f"differs by {diff}")
+    seq_eng = ScoringEngine(params_gpu, cfg, FakeTokenizer(),
+                            RuntimeConfig(batch_size=4, max_new_tokens=6,
+                                          spec_decode=False), device=DEV)
+    seq = _shared_dispatch(seq_eng, flat_rows, 64)
+    spec_card = outs[0][1]
+    agree, _ = compare_pos0("small slice", spec_card, seq)
+    if agree != 1.0 or not all(torch.equal(a.generated, b.generated)
+                               for a, b in zip(spec_card, seq)):
+        raise AssertionError("small slice: spec ids differ from sequential")
+    chunks = full_accept_check(params_gpu, cfg)
+    log(json.dumps({"phase": "small_slice", "ok": True,
+                    "cascade_and_spec_vs_cpu": True,
+                    "spec_vs_sequential_bitwise_pos0": True,
+                    "full_accept_windows": {"binary": chunks[0],
+                                            "confidence": chunks[1]}}))
+
+
+def verify_step_check(params, cfg, spec_k: int):
+    """At full width in bf16: one decode step and one verify window from
+    the same cache, the window's first query the step's token at the
+    step's slot (its other positions random drafts). The two compute the
+    same function; they differ only in rounding (the projections run as
+    products of B * spec_k rows instead of B). Reports the largest
+    difference of the position's logits and, for the rows whose argmax
+    differs, the step logits' top-1 minus top-2 gap: flips at near-ties
+    explain the full-width id disagreement that phase 3 prints."""
+    rng = np.random.default_rng(3)
+    B, S0 = BATCH, 64
+    toks = torch.as_tensor(rng.integers(3, cfg.vocab_size, (B, S0)),
+                           dtype=torch.int32, device=DEV)
+    mask = torch.ones((B, S0), dtype=torch.int32, device=DEV)
+    drafts = torch.as_tensor(rng.integers(3, cfg.vocab_size, (B, spec_k - 1)),
+                             dtype=torch.int32, device=DEV)
+    cm = F.pad(mask, (0, spec_k))
+    cm_step, cm_ver = cm.clone(), cm.clone()
+    cm_step[:, S0] = 1
+    cm_ver[:, S0:] = 1
+    with torch.inference_mode():
+        logits0, cache, pos = decoder.prefill(params, cfg, toks, mask,
+                                              S0 + spec_k)
+        tok0 = torch.argmax(logits0, dim=-1).to(torch.int32)
+        cache_v = (cache[0].clone(), cache[1].clone())
+        step, _ = decoder.decode_step(params, cfg, cache, tok0, pos, S0,
+                                      cm_step)
+        V, _ = decoder.verify_extend(params, cfg, cache_v,
+                                     torch.cat([tok0[:, None], drafts], 1),
+                                     cm_ver, S0)
+    v0 = V[:, 0]
+    top2 = torch.topk(step, 2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    flips = torch.argmax(v0, dim=-1) != torch.argmax(step, dim=-1)
+    row = {"phase": "verify_vs_step", "B": B, "S": spec_k,
+           "max_abs_logit_diff": float((v0 - step).abs().max()),
+           "rows_argmax_differ": int(flips.sum()),
+           "max_top2_gap_where_differ": (float(gap[flips].max())
+                                         if bool(flips.any()) else None),
+           "median_top2_gap": float(gap.median())}
+    log(json.dumps(row))
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -380,59 +635,119 @@ def check_scores(name, arrs):
         raise AssertionError(f"{name}: p_yes + p_no > 1")
 
 
-def run_slice(engine, cells_trunk, cells_flat, rt):
-    stats = {}
-    # Word-meaning sweep: 50 D1 rows, 50 decode steps, the flat kernel.
+def run_word_meaning(engine):
+    """Word-meaning sweep: 50 D1 rows, 50 decode steps, the flat kernel.
+    Launch counts reset just before, read just after."""
     torch.cuda.synchronize()
+    ops.reset_launches()
     t0 = time.perf_counter()
     rows = sweep.run_word_meaning_sweep(
         engine, "llama-2-7b (seeded random weights)", "base",
         WORD_MEANING_QUESTIONS, format_base_prompt)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    launches = ops.launch_counts()
     if len(rows) != len(WORD_MEANING_QUESTIONS):
         raise AssertionError("word-meaning sweep lost rows")
     check_scores("word_meaning", {
         "p_yes": [r.yes_prob for r in rows], "p_no": [r.no_prob for r in rows]})
-    stats["word_meaning"] = dict(rows=len(rows), seconds=dt,
-                                 rows_per_s=len(rows) / dt)
-    log(json.dumps({"phase": "word_meaning_sweep", **stats["word_meaning"]}))
-
-    for label, cells in (("cascade_dispatch", cells_trunk),
-                         ("dense_shared_dispatch", cells_flat)):
-        t = engine.tokenizer
-        yes = np.asarray([tok.first_token_id(t, " " + a) for _, _, (a, _) in cells],
-                         np.int32)
-        no = np.asarray([tok.first_token_id(t, " " + b) for _, _, (_, b) in cells],
-                        np.int32)
-        before = dict(engine.cascade_stats)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out_a, out_b = engine.decode_fused_shared(
-            [c[0] for c in cells], [c[1] for c in cells], yes, no,
-            new_tokens=rt.sweep_decode_tokens,
-            conf_tokens=rt.sweep_confidence_tokens, reuse_cache=True,
-            n_real=len(cells))
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        moved = {k: v - before.get(k, 0) for k, v in engine.cascade_stats.items()
-                 if v != before.get(k, 0)}
-        for out, fmt in ((out_a, "binary"), (out_b, "confidence")):
-            check_scores(f"{label}/{fmt}", {
-                "p_yes": out.p_yes, "p_no": out.p_no,
-                "topk_logprobs": out.topk_logprobs,
-                "weighted_confidence": out.weighted_confidence})
-            if out.generated.shape[0] != len(cells):
-                raise AssertionError(f"{label}: wrong batch")
-        stats[label] = dict(rows=len(cells), ms_per_dispatch=dt * 1e3,
-                            rows_per_s=len(cells) / dt, routing=moved)
-        log(json.dumps({"phase": label, **stats[label]}))
-    if stats["cascade_dispatch"]["routing"].get("cascade_dispatches") != 1:
-        raise AssertionError("the trunk dispatch did not take the cascade")
-    if stats["dense_shared_dispatch"]["routing"].get(
-            "dense_shared_dispatches") != 1:
-        raise AssertionError("the untrunked dispatch did not run dense")
+    if launches["flash_decode"] <= 0:
+        raise AssertionError("word_meaning: flash_decode never launched")
+    stats = dict(rows=len(rows), seconds=dt, rows_per_s=len(rows) / dt,
+                 launches=launches)
+    log(json.dumps({"phase": "word_meaning_sweep", **stats}))
     return stats
+
+
+def run_dispatch(label, engine, cells, rt, kernels, routing):
+    """One 32-cell shared dispatch through ``decode_fused_shared``, the
+    launch counts reset just before and read just after. Fails unless
+    every kernel in ``kernels`` launched and every counter in ``routing``
+    moved by exactly one."""
+    t = engine.tokenizer
+    yes = np.asarray([tok.first_token_id(t, " " + a) for _, _, (a, _) in cells],
+                     np.int32)
+    no = np.asarray([tok.first_token_id(t, " " + b) for _, _, (_, b) in cells],
+                    np.int32)
+    casc0, spec0 = dict(engine.cascade_stats), dict(engine.spec_stats)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    outs = engine.decode_fused_shared(
+        [c[0] for c in cells], [c[1] for c in cells], yes, no,
+        new_tokens=rt.sweep_decode_tokens,
+        conf_tokens=rt.sweep_confidence_tokens, reuse_cache=True,
+        n_real=len(cells))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    engine.spec_flush()
+    moved = {k: v - casc0.get(k, 0) for k, v in engine.cascade_stats.items()
+             if v != casc0.get(k, 0)}
+    spec = {k: v - spec0.get(k, 0) for k, v in engine.spec_stats.items()
+            if v != spec0.get(k, 0)}
+    for out, fmt in zip(outs, ("binary", "confidence")):
+        check_scores(f"{label}/{fmt}", {
+            "p_yes": out.p_yes, "p_no": out.p_no,
+            "topk_logprobs": out.topk_logprobs,
+            "weighted_confidence": out.weighted_confidence})
+        if out.generated.shape[0] != len(cells):
+            raise AssertionError(f"{label}: wrong batch")
+    missing = [k for k in kernels if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"{label}: kernels never launched: {missing}")
+    wrong = {k: moved.get(k, spec.get(k, 0)) for k in routing
+             if moved.get(k, spec.get(k, 0)) != 1}
+    if wrong:
+        raise AssertionError(f"{label}: routing counters {wrong}, expected 1")
+    stats = dict(rows=len(cells), ms_per_dispatch=dt * 1e3,
+                 rows_per_s=len(cells) / dt, routing=moved, spec_stats=spec,
+                 launches=launches)
+    log(json.dumps({"phase": label, **stats}))
+    return outs, stats
+
+
+def run_slice(params, cfg, tokenizer, engine, cells_trunk, cells_flat, rt):
+    """Phase 3: every path of the slice at full width, each with its own
+    launch counts. Returns (per-phase stats, launches summed over the
+    phases)."""
+    seq_engine = ScoringEngine(
+        params, cfg, tokenizer,
+        RuntimeConfig(batch_size=BATCH, spec_decode=False,
+                      cascade_prefill=False), device=DEV)
+    spec_trunk_engine = ScoringEngine(
+        params, cfg, tokenizer,
+        RuntimeConfig(batch_size=BATCH, cascade_prefill=False), device=DEV)
+    stats = {"word_meaning": run_word_meaning(engine)}
+    _, stats["cascade_dispatch"] = run_dispatch(
+        "cascade_dispatch", engine, cells_trunk, rt,
+        ("cascade_attention", "flash_decode_trunk"),
+        ("cascade_dispatches", "cascade_decode_dispatches"))
+    seq_out, stats["sequential_dispatch"] = run_dispatch(
+        "sequential_dispatch", seq_engine, cells_flat, rt, ("flash_decode",),
+        ("dense_shared_dispatches",))
+    spec_out, stats["spec_dispatch"] = run_dispatch(
+        "spec_dispatch", engine, cells_flat, rt, ("flash_decode_mq",),
+        ("spec_dispatches",))
+    seq_t_out, stats["sequential_trunk_dispatch"] = run_dispatch(
+        "sequential_trunk_dispatch", seq_engine, cells_trunk, rt,
+        ("flash_decode_trunk",),
+        ("dense_shared_dispatches", "cascade_decode_dispatches"))
+    spec_t_out, stats["spec_trunk_dispatch"] = run_dispatch(
+        "spec_trunk_dispatch", spec_trunk_engine, cells_trunk, rt,
+        ("flash_decode_mq_trunk",),
+        ("spec_dispatches", "cascade_decode_dispatches"))
+    for label, spec, seq in (("spec_dispatch", spec_out, seq_out),
+                             ("spec_trunk_dispatch", spec_t_out, seq_t_out)):
+        agree, by_position = compare_pos0(label, spec, seq)
+        stats[label]["later_ids_agree_share"] = agree
+        log(json.dumps({"phase": f"{label}_vs_sequential",
+                        "position0_bitwise": True,
+                        "later_ids_agree_share": agree,
+                        "rows_agreeing_through_position": by_position}))
+    total = {name: sum(st["launches"][name] for st in stats.values())
+             for name in ops.KERNELS}
+    return stats, total
 
 
 def profile_scoring(engine, rt):
@@ -520,14 +835,16 @@ def main() -> int:
     cells_trunk, cells_flat = legal_cells(True), legal_cells(False)
     plan_t = plan_shared(engine, cells_trunk, rt)
     plan_f = plan_shared(engine, cells_flat, rt)
+    dtrunk = engine.decode_trunk_for(plan_t["prefix_rows"], BATCH,
+                                     plan_t["bucket"])
     wm_len = max(len(tokenizer(format_base_prompt(q)).input_ids)
                  for q in WORD_MEANING_QUESTIONS)
     wm_T = tok.pick_bucket([wm_len], engine.buckets) + rt.max_new_tokens
-    log(json.dumps({"phase": "plan", "cascade": {k: plan_t[k] for k in
-                                                 ("bucket", "trunk", "T0")},
-                    "dense": {k: plan_f[k] for k in ("bucket", "trunk", "T0")},
-                    "word_meaning_T": wm_T}))
-    if not plan_t["trunk"] or plan_f["trunk"]:
+    keys = ("bucket", "trunk", "T0", "T_spec")
+    log(json.dumps({"phase": "plan", "cascade": {k: plan_t[k] for k in keys},
+                    "dense": {k: plan_f[k] for k in keys},
+                    "spec_decode_trunk": dtrunk, "word_meaning_T": wm_T}))
+    if not plan_t["trunk"] or plan_f["trunk"] or dtrunk != plan_t["trunk"]:
         raise AssertionError(f"unexpected trunk plan {plan_t} / {plan_f}")
 
     # Phase 2: each kernel against its plain version on the card.
@@ -548,6 +865,20 @@ def main() -> int:
                  results)
     check_decode(gen, "bloom-7b1/alibi", BATCH, 32, 32, 128, T0, trunk, True,
                  results)
+    S, Ts, Tf = rt.spec_k, plan_t["T_spec"], plan_f["T_spec"]
+    # The untrunked spec dispatch has no trunk; its shape checks the trunk
+    # kernel against the flat one at half its extent.
+    check_decode_mq(gen, "llama2-7b/spec-dispatch", BATCH, S, H, K, hd, Tf,
+                    DECODE_SPLIT * max(1, Tf // 2 // DECODE_SPLIT), False,
+                    results)
+    check_decode_mq(gen, "llama2-7b/spec-trunk-dispatch", BATCH, S, H, K, hd,
+                    Ts, dtrunk, False, results)
+    check_decode_mq(gen, "mistral-7b/gqa", BATCH, S, 32, 8, 128, Ts, dtrunk,
+                    False, results)
+    check_decode_mq(gen, "falcon-7b/mqa", BATCH, S, 71, 1, 64, Ts, dtrunk,
+                    False, results)
+    check_decode_mq(gen, "bloom-7b1/alibi", BATCH, S, 32, 32, 128, Ts, dtrunk,
+                    True, results)
     R = plan_t["bucket"] - trunk
     check_cascade(gen, "llama2-7b/cascade-dispatch", BATCH, R, H, K, hd, trunk,
                   False, results)
@@ -558,12 +889,12 @@ def main() -> int:
     check_cascade(gen, "bloom-7b1/alibi", BATCH, R, 32, 32, 128, trunk, True,
                   results)
     small_slice_check()
+    verify_step_check(params, engine.cfg, rt.spec_k)
 
-    # Phase 3: the slice at full width through the engine.
+    # Phase 3: the slice at full width through the engines.
     torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
-    stats = run_slice(engine, cells_trunk, cells_flat, rt)
-    launches = ops.launch_counts()
+    stats, launches = run_slice(params, cfg, tokenizer, engine, cells_trunk,
+                                cells_flat, rt)
     log(json.dumps({"phase": "slice", "launches": launches,
                     "max_memory_allocated_bytes":
                         torch.cuda.max_memory_allocated()}))
@@ -572,11 +903,11 @@ def main() -> int:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     profile_scoring(engine, rt)
 
-    # Summary: the main-path shape of each kernel (first row per kernel).
+    # Summary: each kernel at its main-path shape.
     kernels = []
-    for name, (source, replaces) in SOURCES.items():
+    for name, (source, replaces, case) in SOURCES.items():
         rows = [r for r in results if r["kernel"] == name]
-        main_row = rows[0]
+        main_row = next(r for r in rows if r["case"] == case)
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches[name],

@@ -1,10 +1,10 @@
 """Runtime configuration of the PyTorch scoring engine.
 
-A copy of the part of the JAX package's ``RuntimeConfig`` and
-``CascadeConfig`` that this port implements. A flag of the JAX engine
-that the port does not implement yet (speculative decode, piggyback
-prefill, the prefix cache, int8) is absent here, so that no caller can
-set it and have it ignored.
+A copy of the part of the JAX package's ``RuntimeConfig``,
+``SpecConfig`` and ``CascadeConfig`` that this port implements. A flag
+of the JAX engine that the port does not implement yet (fleet or
+radix-tree drafting, piggyback prefill, the prefix cache, int8) is
+absent here, so that no caller can set it and have it ignored.
 """
 
 from __future__ import annotations
@@ -35,6 +35,21 @@ class RuntimeConfig:
     # keeps the powers-of-two set.
     ragged_scheduler: bool = True
 
+    # Speculative scoring decode (engine/spec.py + generate.
+    # greedy_decode_fused_shared_spec). ON: shared-path dispatches that
+    # do not take the cascade draft up to spec_k tokens ahead (n-gram
+    # self-lookup over the dispatch's own prompt and emissions) and
+    # VERIFY them in one multi-query pass through the decode attention
+    # path (ops.flash_decode_mq / flash_decode_mq_trunk) — the ≤10-token
+    # sequential scan collapses to ~T/k verify forwards when drafts
+    # land. Greedy acceptance keeps every consumed result (generated
+    # ids, position-0 readouts) identical to the sequential scan; a
+    # rejected draft only costs re-verification.
+    spec_decode: bool = True
+    # Verify window: tokens checked per verify forward (1 emission + up
+    # to spec_k-1 accepted drafts). < 2 disables speculation.
+    spec_k: int = 4
+
     # Decode steps through the flash-decode kernel (ops/flash_decode);
     # off restores the dense decode path. Mirrored into
     # ModelConfig.fused_decode.
@@ -52,6 +67,19 @@ class RuntimeConfig:
     # kernel. Off runs the two-leg version, whose trunk-leg kernel is not
     # ported yet: on a CUDA tensor it raises.
     cascade_fused_suffix: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class SpecConfig:
+    """Speculative-decode DRAFTING policy (engine/spec.py). It can change
+    speed, never results (greedy acceptance keeps every accepted token
+    identical to the sequential scan's). The on/off switch and the
+    verify-window size live on RuntimeConfig."""
+
+    # N-gram match length for the prompt-lookup drafter: the verify scan
+    # drafts the tokens that followed the most recent earlier occurrence
+    # of the last `ngram` context tokens (prompt + accepted emissions).
+    ngram: int = 2
 
 
 @dataclasses.dataclass(frozen=True)

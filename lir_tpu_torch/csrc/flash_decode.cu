@@ -1,28 +1,37 @@
-// Split-K flash decode for Hopper (sm_90a): one decode step of
-// single-query attention over the KV cache, plus its trunk-aware sibling.
+// Split-K flash decode for Hopper (sm_90a): single-query and multi-query
+// attention over the KV cache, plus their trunk-aware siblings.
 //
-// Replaces lir_tpu/ops/flash_decode.py: _decode_kernel (flash_decode) and
-// _trunk_decode_kernel (flash_decode_trunk), and the merge_partials call
-// that follows both.
+// Replaces lir_tpu/ops/flash_decode.py: _decode_kernel (flash_decode),
+// _trunk_decode_kernel (flash_decode_trunk), _decode_kernel_mq
+// (flash_decode_mq, and the tail leg of flash_decode_mq_trunk),
+// _trunk_decode_kernel_mq (the trunk leg of flash_decode_mq_trunk), and
+// the merge_partials call that follows each of them.
 //
-// Layout (the JAX package's public shapes): q (B, H, hd); k, v in the
+// Layout (the JAX package's public shapes, with the query axis S made
+// explicit; single-query decode is S = 1): q (B, S, H, hd); k, v in the
 // cache layout (K, T, B, hd), head-major and batch-minor, un-repeated for
-// GQA/MQA (query head h = kh * G + g reads kv head kh); q_pos (B,) int32;
-// mask and kpos (B, T) int32; slopes (H,) float32 or null (ALiBi).
-// A key is valid iff mask > 0 and kpos <= q_pos.
+// GQA/MQA (query head h = kh * G + g reads kv head kh); q_pos (B, S)
+// int32, one mask-aware position per query; mask and kpos (B, T) int32;
+// slopes (H,) float32 or null (ALiBi). A key is valid for query s iff
+// mask > 0 and kpos <= q_pos[s].
 //
 // What bounds it on the H100: the bytes of the cache. One step at
 // llama-2-7b width (K = 32, hd = 128), B = 32, T = 552 streams
 // 2 * 32 * 552 * 32 * 128 * 2 B = 289 MB per layer and does about
-// 4 * B * H * T * hd = 289 MFLOP, two orders under the ridge point. The
-// design therefore reads every K/V element once, with neighbouring
-// threads on neighbouring elements of a key's hd vector (one key row of
-// one batch row is contiguous; the next key of that row is B * hd
-// elements on). Parallelism comes from the key axis: the cache splits
-// into fixed-width splits (the last one ragged and masked), one block
-// per (split, kv head, row), each block reducing its split for the G
-// queries of its group into a partial (o, m, l) in float32. A second
-// kernel merges the partials in split order, as merge_partials does.
+// 4 * B * H * T * hd = 289 MFLOP, two orders under the ridge point; a
+// speculative verify window (S = 4) at T = 576 reads 302 MB for four
+// times the FLOPs, still far under it. The design therefore reads every
+// K/V element once, with neighbouring threads on neighbouring elements of
+// a key's hd vector (one key row of one batch row is contiguous; the next
+// key of that row is B * hd elements on). Parallelism comes from the key
+// axis: the cache splits into fixed-width splits (the last one ragged and
+// masked), one block per (split, kv head, row). The block loads its K/V
+// tile once and reduces every query of its row against it, one query at
+// a time (S * G query rows: the shared memory holds one query's G rows,
+// so MQA at falcon-7b width, G = 71, needs the same 69 KB at S = 4 as at
+// S = 1), each into a partial (o, m, l) in float32. A second kernel
+// merges the partials in split order, as merge_partials does, and writes
+// the output straight in (B, S, H, hd).
 //
 // The trunk kernel reads a split that lies inside the shared trunk from
 // cache row 0 once per (kv head, split, group of rows) and reduces the
@@ -30,11 +39,13 @@
 // per step, not once per row. It calls the same split_partial() as the
 // flat kernel, with the same thread mapping, and writes into the same
 // partial buffer; the tail splits run the flat kernel at a split offset.
-// Each (row, group, split) partial is therefore computed by the same
-// instructions on the same values, and the merged output is bitwise the
-// flat kernel's. The
-// arithmetic uses the _rn intrinsics, so no contraction choice of the
-// compiler can differ between the two kernels.
+// Each (row, query, group, split) partial is therefore computed by the
+// same instructions on the same values whatever kernel, S or trunk
+// extent produced it: the trunk kernels' output is bitwise the flat
+// kernels', and query s of a multi-query launch is bitwise a
+// single-query launch with q_pos[:, s]. The arithmetic uses the _rn
+// intrinsics, so no contraction choice of the compiler can differ
+// between the kernels.
 //
 // Simple on purpose: float32 FMA on CUDA cores, no tensor cores, no TMA.
 // The score and probability tiles live in shared memory and never reach
@@ -228,17 +239,17 @@ __device__ void split_partial(const float* qs, const float* ks,
 }
 
 struct Args {
-  const void* q;
+  const void* q;    // (B, S, H, hd)
   const void* k;
   const void* v;
-  const int* qpos;
+  const int* qpos;  // (B, S)
   const int* mask;
   const int* kpos;
   const float* slopes;
-  float* o_p;  // (B, K, NS, G, hd)
-  float* m_p;  // (B, K, NS, G)
+  float* o_p;  // (B, K, NS, S, G, hd)
+  float* m_p;  // (B, K, NS, S, G)
   float* l_p;
-  int B, H, K, T, hd, W, NS;
+  int B, S, H, K, T, hd, W, NS;
   float sm_scale;
 };
 
@@ -247,7 +258,32 @@ __host__ __device__ inline size_t smem_floats(int G, int hd, int W) {
          size_t(G) * W;
 }
 
-// Grid (splits - offset, K, B): one block per (split, kv head, row).
+// The S queries of row b against the K/V tile of split j in ks/vs, one
+// query at a time: its G rows into qs, then split_partial() into the
+// partial slot (b, kh, j, s). split_partial() ends in a barrier, so the
+// next query may overwrite qs.
+template <typename T>
+__device__ void row_partials(const Args& a, float* qs, const float* ks,
+                             const float* vs, float* ss, int b, int kh,
+                             int j) {
+  const int G = a.H / a.K;
+  const T* q = static_cast<const T*>(a.q);
+  for (int s = 0; s < a.S; ++s) {
+    const size_t qrow = size_t(b) * a.S + s;
+    load_query<T>(q + (qrow * a.H + size_t(kh) * G) * a.hd, qs, G * a.hd,
+                  a.sm_scale);
+    __syncthreads();
+    const size_t part = ((size_t(b) * a.K + kh) * a.NS + j) * a.S + s;
+    split_partial(qs, ks, vs, ss, a.mask + size_t(b) * a.T,
+                  a.kpos + size_t(b) * a.T, a.qpos[qrow],
+                  a.slopes ? a.slopes + size_t(kh) * G : nullptr, j * a.W,
+                  a.W, a.T, G, a.hd, a.o_p + part * G * a.hd,
+                  a.m_p + part * G, a.l_p + part * G);
+  }
+}
+
+// Grid (splits - offset, K, B): one block per (split, kv head, row). The
+// tile is loaded once; the row's S queries reduce against it in turn.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     decode_split_kernel(Args a, int split_offset) {
@@ -260,23 +296,14 @@ __global__ void __launch_bounds__(kThreads)
   float* ks = qs + G * a.hd;
   float* vs = ks + a.W * (a.hd + 1);
   float* ss = vs + a.W * a.hd;
-  const T* q = static_cast<const T*>(a.q);
-  load_query<T>(q + (size_t(b) * a.H + size_t(kh) * G) * a.hd, qs, G * a.hd,
-                a.sm_scale);
   load_tile<T>(static_cast<const T*>(a.k), static_cast<const T*>(a.v), ks, vs,
                kh, b, j * a.W, a.W, a.T, a.B, a.hd);
-  __syncthreads();
-  const size_t part = (size_t(b) * a.K + kh) * a.NS + j;
-  split_partial(qs, ks, vs, ss, a.mask + size_t(b) * a.T,
-                a.kpos + size_t(b) * a.T, a.qpos[b],
-                a.slopes ? a.slopes + size_t(kh) * G : nullptr, j * a.W, a.W,
-                a.T, G, a.hd, a.o_p + part * G * a.hd, a.m_p + part * G,
-                a.l_p + part * G);
+  row_partials<T>(a, qs, ks, vs, ss, b, kh, j);
 }
 
 // Grid (nt, K, row groups): one block per (trunk split, kv head, group
 // of rows_per_block rows). The K/V tile comes from cache row 0 once per
-// block; every row of the group reduces its queries against it.
+// block; every query of every row of the group reduces against it.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     decode_trunk_kernel(Args a, int rows_per_block) {
@@ -290,46 +317,40 @@ __global__ void __launch_bounds__(kThreads)
   float* ks = qs + G * a.hd;
   float* vs = ks + a.W * (a.hd + 1);
   float* ss = vs + a.W * a.hd;
-  const T* q = static_cast<const T*>(a.q);
   load_tile<T>(static_cast<const T*>(a.k), static_cast<const T*>(a.v), ks, vs,
                kh, 0, j * a.W, a.W, a.T, a.B, a.hd);
-  for (int b = b0; b < b1; ++b) {
-    load_query<T>(q + (size_t(b) * a.H + size_t(kh) * G) * a.hd, qs,
-                  G * a.hd, a.sm_scale);
-    __syncthreads();
-    const size_t part = (size_t(b) * a.K + kh) * a.NS + j;
-    split_partial(qs, ks, vs, ss, a.mask + size_t(b) * a.T,
-                  a.kpos + size_t(b) * a.T, a.qpos[b],
-                  a.slopes ? a.slopes + size_t(kh) * G : nullptr, j * a.W,
-                  a.W, a.T, G, a.hd, a.o_p + part * G * a.hd,
-                  a.m_p + part * G, a.l_p + part * G);
-  }
+  for (int b = b0; b < b1; ++b) row_partials<T>(a, qs, ks, vs, ss, b, kh, j);
 }
 
-// out[b, h, d] = merge over splits in order (merge_partials).
+// out[b, s, h, d] = merge over splits in order (merge_partials).
 template <typename T>
 __global__ void merge_kernel(const float* __restrict__ o_p,
                              const float* __restrict__ m_p,
                              const float* __restrict__ l_p, T* __restrict__ out,
-                             int B, int H, int K, int NS, int hd) {
+                             int B, int S, int H, int K, int NS, int hd) {
   const size_t idx = size_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  const size_t total = size_t(B) * H * hd;
+  const size_t total = size_t(B) * S * H * hd;
   if (idx >= total) return;
   const int d = int(idx % hd);
   const int h = int((idx / hd) % H);
-  const int b = int(idx / (size_t(hd) * H));
+  const size_t bs = idx / (size_t(hd) * H);
+  const int s = int(bs % S);
+  const int b = int(bs / S);
   const int G = H / K;
   const int kh = h / G;
   const int g = h - kh * G;
+  // Partial (b, kh, j, s, g) sits at ((base + j) * S + s) * G + g.
   const size_t base = (size_t(b) * K + kh) * NS;
   float m = -CUDART_INF_F;
-  for (int j = 0; j < NS; ++j) m = fmaxf(m, m_p[(base + j) * G + g]);
+  for (int j = 0; j < NS; ++j)
+    m = fmaxf(m, m_p[((base + j) * S + s) * G + g]);
   float l = 0.f, o = 0.f;
   for (int j = 0; j < NS; ++j) {
-    const float mj = m_p[(base + j) * G + g];
+    const size_t p = ((base + j) * S + s) * G + g;
+    const float mj = m_p[p];
     const float w = isfinite(mj) ? expf(__fsub_rn(mj, m)) : 0.f;
-    l = __fadd_rn(l, __fmul_rn(w, l_p[(base + j) * G + g]));
-    o = __fadd_rn(o, __fmul_rn(w, o_p[((base + j) * G + g) * hd + d]));
+    l = __fadd_rn(l, __fmul_rn(w, l_p[p]));
+    o = __fadd_rn(o, __fmul_rn(w, o_p[p * hd + d]));
   }
   out[idx] = from_f32<T>(__fdiv_rn(o, fmaxf(l, 1e-30f)));
 }
@@ -378,21 +399,21 @@ cudaError_t launch_trunk(const Args& a, int nt, cudaStream_t st) {
 
 template <typename T>
 cudaError_t launch_merge(const float* o_p, const float* m_p, const float* l_p,
-                         void* out, int B, int H, int K, int NS, int hd,
+                         void* out, int B, int S, int H, int K, int NS, int hd,
                          cudaStream_t st) {
-  const size_t total = size_t(B) * H * hd;
+  const size_t total = size_t(B) * S * H * hd;
   const int threads = 256;
   const unsigned blocks = unsigned((total + threads - 1) / threads);
   merge_kernel<T><<<blocks, threads, 0, st>>>(o_p, m_p, l_p,
-                                              static_cast<T*>(out), B, H, K,
-                                              NS, hd);
+                                              static_cast<T*>(out), B, S, H,
+                                              K, NS, hd);
   return cudaGetLastError();
 }
 
 Args make_args(const void* q, const void* k, const void* v, const void* qpos,
                const void* mask, const void* kpos, const void* slopes,
-               void* o_p, void* m_p, void* l_p, int B, int H, int K, int T,
-               int hd, int W, int NS) {
+               void* o_p, void* m_p, void* l_p, int B, int S, int H, int K,
+               int T, int hd, int W, int NS) {
   Args a;
   a.q = q;
   a.k = k;
@@ -405,6 +426,7 @@ Args make_args(const void* q, const void* k, const void* v, const void* qpos,
   a.m_p = static_cast<float*>(m_p);
   a.l_p = static_cast<float*>(l_p);
   a.B = B;
+  a.S = S;
   a.H = H;
   a.K = K;
   a.T = T;
@@ -418,16 +440,18 @@ Args make_args(const void* q, const void* k, const void* v, const void* qpos,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Every function returns cudaGetLastError()
-// (or the error of a refused attribute), 0 on success.
+// dtype: 0 = float32, 1 = bfloat16. S: queries per row (1 for a decode
+// step, spec_k for a verify window). Every function returns
+// cudaGetLastError() (or the error of a refused attribute), 0 on success.
 extern "C" int lir_flash_decode_splits(
     const void* q, const void* k, const void* v, const void* qpos,
     const void* mask, const void* kpos, const void* slopes, void* o_p,
-    void* m_p, void* l_p, int B, int H, int K, int T, int hd, int W, int NS,
+    void* m_p, void* l_p, int B, int S, int H, int K, int T, int hd, int W,
+    int NS,
     int split_offset, int dtype, void* stream) {
   if (split_offset >= NS) return int(cudaErrorInvalidValue);
-  Args a = make_args(q, k, v, qpos, mask, kpos, slopes, o_p, m_p, l_p, B, H,
-                     K, T, hd, W, NS);
+  Args a = make_args(q, k, v, qpos, mask, kpos, slopes, o_p, m_p, l_p, B, S,
+                     H, K, T, hd, W, NS);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return int(launch_splits<float>(a, split_offset, st));
   if (dtype == 1) return int(launch_splits<__nv_bfloat16>(a, split_offset, st));
@@ -437,11 +461,12 @@ extern "C" int lir_flash_decode_splits(
 extern "C" int lir_flash_decode_trunk_splits(
     const void* q, const void* k, const void* v, const void* qpos,
     const void* mask, const void* kpos, const void* slopes, void* o_p,
-    void* m_p, void* l_p, int B, int H, int K, int T, int hd, int W, int NS,
+    void* m_p, void* l_p, int B, int S, int H, int K, int T, int hd, int W,
+    int NS,
     int nt, int dtype, void* stream) {
   if (nt <= 0 || nt > NS) return int(cudaErrorInvalidValue);
-  Args a = make_args(q, k, v, qpos, mask, kpos, slopes, o_p, m_p, l_p, B, H,
-                     K, T, hd, W, NS);
+  Args a = make_args(q, k, v, qpos, mask, kpos, slopes, o_p, m_p, l_p, B, S,
+                     H, K, T, hd, W, NS);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return int(launch_trunk<float>(a, nt, st));
   if (dtype == 1) return int(launch_trunk<__nv_bfloat16>(a, nt, st));
@@ -449,15 +474,17 @@ extern "C" int lir_flash_decode_trunk_splits(
 }
 
 extern "C" int lir_flash_decode_merge(const void* o_p, const void* m_p,
-                                      const void* l_p, void* out, int B, int H,
-                                      int K, int NS, int hd, int dtype,
+                                      const void* l_p, void* out, int B, int S,
+                                      int H, int K, int NS, int hd, int dtype,
                                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* o = static_cast<const float*>(o_p);
   const float* m = static_cast<const float*>(m_p);
   const float* l = static_cast<const float*>(l_p);
-  if (dtype == 0) return int(launch_merge<float>(o, m, l, out, B, H, K, NS, hd, st));
+  if (dtype == 0)
+    return int(launch_merge<float>(o, m, l, out, B, S, H, K, NS, hd, st));
   if (dtype == 1)
-    return int(launch_merge<__nv_bfloat16>(o, m, l, out, B, H, K, NS, hd, st));
+    return int(
+        launch_merge<__nv_bfloat16>(o, m, l, out, B, S, H, K, NS, hd, st));
   return int(cudaErrorInvalidValue);
 }

@@ -8,6 +8,12 @@ then a Python loop on the device runs the greedy steps, capturing only
 what the sweeps read (no (B, T_new, V) logit stack). The JAX package's
 ``lax.scan`` is this loop; its all-rows-done ``lax.cond`` is a host check
 once per step when an early stop is armed.
+
+The speculative variant (:func:`greedy_decode_fused_shared_spec`)
+replaces each branch's sequential loop by a loop over verify WINDOWS of
+``spec_k`` teacher-forced positions (:func:`_spec_tail`); its
+``lax.cond`` skip of the spent windows is a host check once per window
+that ends the loop.
 """
 
 from __future__ import annotations
@@ -47,6 +53,39 @@ def _small_readout(logits: torch.Tensor, yes_ids: torch.Tensor,
     return torch.exp(l_yes - lse), torch.exp(l_no - lse), top2
 
 
+def _position0(logits0: torch.Tensor, digit_ids: torch.Tensor,
+               digit_vals: torch.Tensor, topk: int):
+    """The readouts taken at the first generated position only: the
+    top-k log-prob map and the weighted confidence over the digit ids.
+    Shared by the sequential and the speculative loop, so the two compute
+    them with the same operations."""
+    logp0 = logits0 - torch.logsumexp(logits0, dim=-1, keepdim=True)
+    tk = torch.topk(logp0, topk, dim=-1)
+    p_digits = torch.exp(logp0[:, digit_ids.long()])          # (B, K)
+    mass = torch.clamp_min(p_digits.sum(dim=-1), 1e-10)
+    wconf = (p_digits * digit_vals[None, :]).sum(dim=-1) / mass
+    return tk.values, tk.indices.to(torch.int32), wconf
+
+
+def _stop_transition(emit, done, digit_run, prev_ew, stop_mask, eos_id: int):
+    """One emission's stop-state transition: a row is DONE once it emits
+    EOS, or once a standalone digit run is followed by a non-gluing
+    token. Shared by the sequential and the speculative loop, so their
+    done/digit-run evolution cannot drift."""
+    cls = stop_mask[emit.long()]
+    pure = (cls & _tok.STOP_PURE) != 0
+    prefix = (cls & _tok.STOP_PREFIX) != 0
+    glue = (cls & _tok.STOP_STARTS_WORD) != 0
+    ends_w = (cls & _tok.STOP_ENDS_WORD) != 0
+    transp = (cls & _tok.STOP_TRANSPARENT) != 0
+    new_done = done | (emit == int(eos_id)) | (digit_run & ~glue & ~transp)
+    new_run = torch.where(
+        transp, digit_run,
+        (pure & (prefix | ~prev_ew)) | (digit_run & pure & ~prefix))
+    new_ew = torch.where(transp, prev_ew, ends_w)
+    return new_done, new_run, new_ew
+
+
 def _fused_tail(params, cfg: ModelConfig, logits0: torch.Tensor, cache,
                 cache_mask0: torch.Tensor, pos0: torch.Tensor, slot0: int,
                 yes_ids: torch.Tensor, no_ids: torch.Tensor,
@@ -54,8 +93,6 @@ def _fused_tail(params, cfg: ModelConfig, logits0: torch.Tensor, cache,
                 max_new_tokens: int, topk: int,
                 stop_mask: Optional[torch.Tensor] = None,
                 eos_id: Optional[int] = None,
-                stop_mask2: Optional[torch.Tensor] = None,
-                stop_sel: Optional[torch.Tensor] = None,
                 decode_trunk: int = 0):
     """The fused greedy loop shared by the full-prompt and shared-prefix
     paths: start from ``logits0`` (the first generated position), write
@@ -72,15 +109,9 @@ def _fused_tail(params, cfg: ModelConfig, logits0: torch.Tensor, cache,
     step, and once EVERY row is done the remaining steps skip the model
     forward. That all-done test reads the device once per step on the
     host (the JAX package keeps it on the device in a ``lax.cond``).
-    ``stop_mask2`` + ``stop_sel`` ((B,) bool) select a second class table
-    per row.
     """
     early_stop = stop_mask is not None and eos_id is not None
-    logp0 = logits0 - torch.logsumexp(logits0, dim=-1, keepdim=True)
-    tk = torch.topk(logp0, topk, dim=-1)
-    p_digits = torch.exp(logp0[:, digit_ids.long()])          # (B, K)
-    mass = torch.clamp_min(p_digits.sum(dim=-1), 1e-10)
-    wconf = (p_digits * digit_vals[None, :]).sum(dim=-1) / mass
+    tk_vals, tk_ids, wconf = _position0(logits0, digit_ids, digit_vals, topk)
 
     B = logits0.shape[0]
     dev = logits0.device
@@ -95,19 +126,8 @@ def _fused_tail(params, cfg: ModelConfig, logits0: torch.Tensor, cache,
         p_yes, p_no, top2 = _small_readout(logits, yes_ids, no_ids)
         if early_stop:
             emit = torch.where(done, torch.full_like(nxt, int(eos_id)), nxt)
-            cls = stop_mask[emit.long()]
-            if stop_mask2 is not None:
-                cls = torch.where(stop_sel, stop_mask2[emit.long()], cls)
-            pure = (cls & _tok.STOP_PURE) != 0
-            prefix = (cls & _tok.STOP_PREFIX) != 0
-            glue = (cls & _tok.STOP_STARTS_WORD) != 0
-            ends_w = (cls & _tok.STOP_ENDS_WORD) != 0
-            transp = (cls & _tok.STOP_TRANSPARENT) != 0
-            done = done | (emit == int(eos_id)) | (digit_run & ~glue & ~transp)
-            digit_run = torch.where(
-                transp, digit_run,
-                (pure & (prefix | ~prev_ew)) | (digit_run & pure & ~prefix))
-            prev_ew = torch.where(transp, prev_ew, ends_w)
+            done, digit_run, prev_ew = _stop_transition(
+                emit, done, digit_run, prev_ew, stop_mask, eos_id)
             # Host check of the all-rows-done stop (one sync per step).
             if not bool(done.all()):
                 cache_mask[:, slot0 + t] = 1
@@ -130,8 +150,8 @@ def _fused_tail(params, cfg: ModelConfig, logits0: torch.Tensor, cache,
         p_yes=torch.stack(p_yess, dim=1),
         p_no=torch.stack(p_nos, dim=1),
         top2_ids=torch.stack(top2s, dim=1),
-        topk_logprobs=tk.values,
-        topk_ids=tk.indices.to(torch.int32),
+        topk_logprobs=tk_vals,
+        topk_ids=tk_ids,
         weighted_confidence=wconf,
     ), cache
 
@@ -263,3 +283,331 @@ def greedy_decode_fused_shared_cascade(params, cfg: ModelConfig, prefix,
                              sfx_b_mask, yes_ids, no_ids, digit_ids,
                              digit_vals, max_new_a, max_new_b, topk,
                              stop_mask_b, stop_mask_a, eos_id)
+
+
+# ---------------------------------------------------------------------------
+# Speculative scoring decode (n-gram drafting, one fused verify a window)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class SpecOut:
+    """Per-branch speculative-decode accounting, folded into the engine's
+    ``spec_stats`` at flush time (engine/spec.flush_pending).
+    ``drafted``/``accepted`` are (3,) int32 token counts by draft source,
+    the JAX package's lanes: 0 = radix-tree continuation (here: drafts
+    given to :func:`greedy_decode_fused_shared_spec`), 1 = n-gram prompt
+    lookup (including the zero filler), 2 = fleet draft model (not
+    ported); the engine drafts from lane 1. ``chunks`` counts the verify
+    forwards run; ``seq_steps`` the forwards the sequential loop would
+    have run on the same rows (its all-done early exit included)."""
+
+    drafted: torch.Tensor    # (3,) int32
+    accepted: torch.Tensor   # (3,) int32
+    chunks: torch.Tensor     # () int32
+    seq_steps: torch.Tensor  # () int32
+
+
+def _spec_tail(params, cfg: ModelConfig, logits0: torch.Tensor, cache,
+               cache_mask0: torch.Tensor, slot0: int,
+               yes_ids: torch.Tensor, no_ids: torch.Tensor,
+               digit_ids: torch.Tensor, digit_vals: torch.Tensor,
+               max_new_tokens: int, topk: int, spec_k: int,
+               ctx0: torch.Tensor, ctx0_len: torch.Tensor,
+               draft_tokens: torch.Tensor, draft_len: torch.Tensor,
+               stop_mask: Optional[torch.Tensor] = None,
+               eos_id: Optional[int] = None, ngram: int = 2,
+               decode_trunk: int = 0):
+    """The speculative counterpart of :func:`_fused_tail`: instead of T
+    sequential decode steps, run up to T verify WINDOWS of ``spec_k``
+    teacher-forced positions each — [pending emission, draft, draft, ...]
+    — through ONE multi-query forward (decoder.verify_extend), then
+    greedily accept the draft prefix the verifier's own argmax confirms.
+    A window emits between 1 and spec_k tokens and consumes exactly
+    spec_k cache slots (rejected tails stay mask-0 garbage), so the cache
+    is sized slot0 + T * spec_k.
+
+    Every consumed result is the sequential loop's: an accepted draft is
+    accepted BECAUSE it equals the verifier's argmax at its position, so
+    the emitted tokens and the top-2 stream match, and the position-0
+    readouts are computed from the same logits by the same operations.
+    Interior per-step probabilities come from the verify forward and
+    match decode_step's within float tolerance (the window cache groups
+    the keys into other splits). Done rows advance on forced-EOS drafts,
+    reproducing the sequential loop's EOS-fed evolution, and once every
+    row is done the positions past the global stop step are rewritten
+    with the stop step's values — the sequential loop's all-done freeze.
+
+    Drafts come from ``draft_tokens`` (B, T), valid below ``draft_len``
+    (zero length from the engine: the port has no radix tree), else from
+    an ``ngram``-gram lookup over ``ctx0`` (each row's compacted prompt,
+    right-padded to a width >= prompt + T) extended with the accepted
+    emissions. The JAX package's ``lax.scan`` over the windows is a
+    Python loop; its ``lax.cond`` skip of spent windows is one host test
+    a window that ends the loop (once false it stays false: nothing
+    changes in a skipped window). Returns (FusedDecodeOut, cache,
+    SpecOut)."""
+    assert spec_k >= 2, "speculation needs a draft window of >= 2"
+    early = stop_mask is not None and eos_id is not None
+    T = max_new_tokens
+    B = logits0.shape[0]
+    W = ctx0.shape[1]
+    dev = logits0.device
+    i32 = torch.int32
+    tk_vals, tk_ids, wconf = _position0(logits0, digit_ids, digit_vals, topk)
+
+    rows = torch.arange(B, device=dev)
+    eos = (torch.full((B,), int(eos_id), dtype=i32, device=dev)
+           if early else None)
+    logits = logits0
+    cache_mask = cache_mask0.clone()
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    digit_run = torch.zeros_like(done)
+    prev_ew = torch.zeros_like(done)
+    filled = torch.zeros((B,), dtype=i32, device=dev)
+    done_step = torch.full((B,), T, dtype=i32, device=dev)
+    # Each buffer carries one trash column (index T, or W for ctx) that
+    # the writes of rows not taking part land in (the JAX mode="drop").
+    ctx = torch.zeros((B, W + 1), dtype=i32, device=dev)
+    ctx[:, :W] = ctx0
+    ctx_n = ctx0_len.to(i32)
+    gen = torch.zeros((B, T + 1), dtype=i32, device=dev)
+    p_yes = torch.zeros((B, T + 1), dtype=torch.float32, device=dev)
+    p_no = torch.zeros_like(p_yes)
+    top2 = torch.zeros((B, T + 1, 2), dtype=i32, device=dev)
+    drafted = torch.zeros((3,), dtype=i32, device=dev)
+    accepted = torch.zeros((3,), dtype=i32, device=dev)
+    chunks = 0
+
+    def put(buf, idx, val, ok, trash: int):
+        buf[rows, torch.where(ok, idx, trash).long()] = val
+
+    def ctx_at(idx):
+        return ctx[rows, idx.clamp(0, W - 1).long()]
+
+    n_pos = W - ngram + 1
+    pidx = torch.arange(n_pos, device=dev)
+    for c in range(T):
+        # The window runs while some live row still has positions to
+        # fill (up to the global stop step once every row is done).
+        needed = torch.where(done.all(),
+                             torch.clamp_max(done_step.max() + 1, T), T)
+        if not bool(filled.min() < needed):
+            break
+        base = slot0 + c * spec_k
+        live0 = filled < T
+        done0 = done
+
+        # -- emission 0: the pending token, from the carried logits.
+        nxt = torch.argmax(logits, dim=-1).to(i32)
+        e0 = torch.where(done, eos, nxt) if early else nxt
+        py0, pn0, t20 = _small_readout(logits, yes_ids, no_ids)
+        put(gen, filled, e0, live0, T)
+        put(p_yes, filled, py0, live0, T)
+        put(p_no, filled, pn0, live0, T)
+        put(top2, filled, t20, live0, T)
+        if early:
+            nd, nr, ne = _stop_transition(e0, done, digit_run, prev_ew,
+                                          stop_mask, eos_id)
+            done_step = torch.where(live0 & nd & ~done, filled, done_step)
+            done = torch.where(live0, nd, done)
+            digit_run = torch.where(live0, nr, digit_run)
+            prev_ew = torch.where(live0, ne, prev_ew)
+        put(ctx, ctx_n.clamp(0, W - 1), e0, live0, W)
+        ctx_n = ctx_n + live0.to(i32)
+
+        # -- drafts for window positions 1..spec_k-1: the given draft
+        # where valid, else the tokens that followed the latest earlier
+        # occurrence of the last `ngram` context tokens (e0 included).
+        eq = torch.ones((B, n_pos), dtype=torch.bool, device=dev)
+        for m in range(ngram):
+            pat = ctx_at(ctx_n - ngram + m)
+            eq &= ctx[:, m:m + n_pos] == pat[:, None]
+        ok_pos = ((pidx[None, :] + ngram <= ctx_n[:, None] - 1)
+                  & (ctx_n >= ngram)[:, None])
+        best = torch.where(eq & ok_pos, pidx[None, :], -1).amax(dim=1)
+        drafts, src_tree = [], []
+        for j in range(1, spec_k):
+            t_idx = filled + j
+            tval = draft_tokens.gather(
+                1, t_idx.clamp(0, T - 1).long()[:, None])[:, 0]
+            t_ok = t_idx < draft_len
+            ng_idx = best + ngram + (j - 1)
+            ng_ok = (best >= 0) & (ng_idx < ctx_n)
+            d = torch.where(t_ok, tval, torch.where(ng_ok, ctx_at(ng_idx), 0))
+            if early:
+                d = torch.where(done, eos, d)
+            drafts.append(d.to(i32))
+            src_tree.append(t_ok & ~done)
+
+        # -- ONE fused verify over [e0, drafts...]
+        X = torch.stack([e0] + drafts, dim=1)              # (B, spec_k)
+        cm_run = cache_mask.clone()
+        cm_run[:, base:base + spec_k] = 1
+        V, cache = decoder.verify_extend(params, cfg, cache, X, cm_run, base,
+                                         trunk_len=decode_trunk)
+
+        # -- greedy acceptance + per-position emissions
+        acc = live0
+        n_new = live0.to(i32)
+        d_state, r_state, e_state = done, digit_run, prev_ew
+        for j in range(1, spec_k):
+            Vj = V[:, j - 1]
+            rj = torch.argmax(Vj, dim=-1).to(i32)
+            if early:
+                rj = torch.where(d_state, eos, rj)
+            can = acc & (filled + j < T)
+            ok = can & (X[:, j] == rj)
+            pyj, pnj, t2j = _small_readout(Vj, yes_ids, no_ids)
+            put(gen, filled + j, rj, ok, T)
+            put(p_yes, filled + j, pyj, ok, T)
+            put(p_no, filled + j, pnj, ok, T)
+            put(top2, filled + j, t2j, ok, T)
+            put(ctx, (ctx_n - 1 + j).clamp(0, W - 1), rj, ok, W)
+            if early:
+                nd, nr, ne = _stop_transition(rj, d_state, r_state, e_state,
+                                              stop_mask, eos_id)
+                done_step = torch.where(ok & nd & ~d_state, filled + j,
+                                        done_step)
+                d_state = torch.where(ok, nd, d_state)
+                r_state = torch.where(ok, nr, r_state)
+                e_state = torch.where(ok, ne, e_state)
+            counted = can & ~done0
+            tr = src_tree[j - 1]
+            zero = torch.zeros((), dtype=torch.int64, device=dev)
+            drafted += torch.stack([(counted & tr).sum(),
+                                    (counted & ~tr).sum(), zero]).to(i32)
+            accepted += torch.stack([(ok & ~done0 & tr).sum(),
+                                     (ok & ~done0 & ~tr).sum(),
+                                     zero]).to(i32)
+            n_new = n_new + ok.to(i32)
+            acc = ok
+
+        # Next pending logits: after the LAST emitted token. The window's
+        # validity shrinks to the emitted prefix.
+        last = torch.clamp(n_new - 1, 0, spec_k - 1).long()
+        logits = torch.where(live0[:, None], V[rows, last], logits)
+        cm_run[:, base:base + spec_k] = (
+            torch.arange(spec_k, device=dev)[None, :] < n_new[:, None]
+        ).to(cm_run.dtype)
+        cache_mask = cm_run
+        done, digit_run, prev_ew = d_state, r_state, e_state
+        filled = filled + n_new
+        ctx_n = ctx_n + (n_new - live0.to(i32))
+        chunks += 1
+
+    gen, p_yes = gen[:, :T], p_yes[:, :T]
+    p_no, top2 = p_no[:, :T], top2[:, :T]
+    if early:
+        # The sequential loop's all-done freeze: once EVERY row is done
+        # (global stop step t*), it skips the model forward and repeats
+        # the t*-step values to the end of the budget.
+        all_done = done.all()
+        tstar = done_step.max()
+        fr = torch.clamp(tstar, 0, T - 1).long().reshape(1)
+        tail = all_done & (torch.arange(T, device=dev)[None, :] > tstar)
+        gen = torch.where(tail, int(eos_id), gen)
+        p_yes = torch.where(tail, p_yes.index_select(1, fr), p_yes)
+        p_no = torch.where(tail, p_no.index_select(1, fr), p_no)
+        top2 = torch.where(tail[..., None], top2.index_select(1, fr), top2)
+        seq_steps = torch.where(all_done, torch.clamp_max(tstar, T), T)
+    else:
+        seq_steps = torch.tensor(T, device=dev)
+
+    out = FusedDecodeOut(
+        generated=gen.contiguous(), p_yes=p_yes.contiguous(),
+        p_no=p_no.contiguous(), top2_ids=top2.contiguous(),
+        topk_logprobs=tk_vals, topk_ids=tk_ids, weighted_confidence=wconf)
+    spec = SpecOut(drafted=drafted, accepted=accepted,
+                   chunks=torch.tensor(chunks, dtype=i32, device=dev),
+                   seq_steps=seq_steps.to(i32))
+    return out, cache, spec
+
+
+def _shared_spec_branches(params, cfg: ModelConfig, cache, prefix_mask,
+                          sfx_a, sfx_a_mask, sfx_b, sfx_b_mask, yes_ids,
+                          no_ids, digit_ids, digit_vals, ctx_a, ctx_a_len,
+                          draft_a, draft_a_len, ctx_b, ctx_b_len, draft_b,
+                          draft_b_len, T0: int, max_new_a: int,
+                          max_new_b: int, spec_k: int, ngram: int, topk: int,
+                          stop_mask_a, stop_mask_b, eos_id,
+                          decode_trunk: int = 0):
+    """Both format branches of a shared-prefix dispatch through the
+    speculative tail; branch B reuses branch A's cache, as the sequential
+    path does (masks keep the branches disjoint).
+
+    The suffix extension that produces each branch's position-0 logits
+    runs over a view of the cache cut to the SEQUENTIAL path's extent
+    (``T0_seq``): the dense products reduce over the attention extent,
+    so extending at the longer speculative extent would move the low
+    bits of the position-0 readouts. The view shares the cache's storage
+    and the extension writes only the suffix slots, so those are the only
+    slots written back. Returns (binary out, confidence out, binary
+    SpecOut, confidence SpecOut)."""
+    B, S = prefix_mask.shape
+    dev = prefix_mask.device
+    empty_ids = torch.zeros((0,), dtype=torch.int32, device=dev)
+    empty_vals = torch.zeros((0,), dtype=torch.float32, device=dev)
+    T0_seq = S + max(sfx_a.shape[1] + max_new_a, sfx_b.shape[1] + max_new_b)
+
+    def cache_mask(sfx_mask, extent):
+        S2 = sfx_mask.shape[1]
+        return torch.cat([prefix_mask, sfx_mask,
+                          torch.zeros((B, extent - S - S2),
+                                      dtype=prefix_mask.dtype, device=dev)],
+                         dim=1)
+
+    def branch(cache_in, sfx, sfx_mask, new_tokens, d_ids, d_vals, ctx,
+               ctx_len, dr, dr_len, stop_mask):
+        S2 = sfx.shape[1]
+        view = tuple(c[:, :, :T0_seq] for c in cache_in)
+        logits_l, _, _ = decoder.extend(params, cfg, view, sfx, sfx_mask,
+                                        cache_mask(sfx_mask, T0_seq), S)
+        return _spec_tail(
+            params, cfg, logits_l, cache_in, cache_mask(sfx_mask, T0), S + S2, yes_ids, no_ids, d_ids, d_vals, new_tokens, topk, spec_k,
+            ctx, ctx_len, dr, dr_len, stop_mask=stop_mask, eos_id=eos_id,
+            ngram=ngram, decode_trunk=decode_trunk)
+
+    out_a, cache_a, spec_a = branch(
+        cache, sfx_a, sfx_a_mask, max_new_a, empty_ids, empty_vals, ctx_a,
+        ctx_a_len, draft_a, draft_a_len, stop_mask_a)
+    out_b, _, spec_b = branch(
+        cache_a, sfx_b, sfx_b_mask, max_new_b, digit_ids, digit_vals, ctx_b,
+        ctx_b_len, draft_b, draft_b_len, stop_mask_b)
+    return out_a, out_b, spec_a, spec_b
+
+
+def spec_total_len(bucket: int, sfx_a: int, sfx_b: int, max_new_a: int,
+                   max_new_b: int, spec_k: int) -> int:
+    """Cache length a speculative shared dispatch allocates: each of the
+    T decode windows owns spec_k slots (rejected tails stay masked), so
+    the decode region is budget * spec_k instead of budget."""
+    return bucket + max(sfx_a + max_new_a * spec_k,
+                        sfx_b + max_new_b * spec_k)
+
+
+@torch.inference_mode()
+def greedy_decode_fused_shared_spec(
+        params, cfg: ModelConfig, prefix, prefix_mask, sfx_a, sfx_a_mask,
+        sfx_b, sfx_b_mask, yes_ids, no_ids, digit_ids, digit_vals, ctx_a,
+        ctx_a_len, draft_a, draft_a_len, ctx_b, ctx_b_len, draft_b,
+        draft_b_len, max_new_a: int, max_new_b: int, spec_k: int,
+        ngram: int = 2, topk: int = 20, stop_mask_b=None, stop_mask_a=None,
+        eos_id=None, decode_trunk: int = 0):
+    """:func:`greedy_decode_fused_shared` with SPECULATIVE decode tails:
+    one shared-prefix prefill, two suffix extensions, then each branch's
+    sequential greedy loop is replaced by the draft-and-verify window
+    loop (:func:`_spec_tail`). ``ctx_*`` carry each branch's compacted
+    prompt tokens for the n-gram drafter, ``draft_*`` given drafts.
+    ``decode_trunk`` > 0 runs every verify window's trunk splits through
+    the trunk-aware kernel. Returns (binary out, confidence out, binary
+    SpecOut, confidence SpecOut)."""
+    B, S = prefix.shape
+    T0 = spec_total_len(S, sfx_a.shape[1], sfx_b.shape[1], max_new_a,
+                        max_new_b, spec_k)
+    _, cache, _ = decoder.prefill(params, cfg, prefix, prefix_mask, T0)
+    return _shared_spec_branches(
+        params, cfg, cache, prefix_mask, sfx_a, sfx_a_mask, sfx_b,
+        sfx_b_mask, yes_ids, no_ids, digit_ids, digit_vals, ctx_a, ctx_a_len,
+        draft_a, draft_a_len, ctx_b, ctx_b_len, draft_b, draft_b_len, T0,
+        max_new_a, max_new_b, spec_k, ngram, topk, stop_mask_a, stop_mask_b,
+        eos_id, decode_trunk=decode_trunk)

@@ -6,9 +6,12 @@ packed into fixed-shape padded batches bucketed by token length, one
 greedy decode with the readouts fused into the loop runs per batch, and
 the C13 readout applies vectorised over the batch.
 
-Routing is the JAX engine's: a shared dispatch whose rows share a trunk
-takes the cascade prefill and the trunk-aware decode kernel, any other
-shared dispatch the dense shared prefill and the flat decode kernel. The
+Routing is the JAX engine's default: a shared dispatch whose rows share
+a trunk takes the cascade prefill and the trunk-aware decode kernel; any
+other shared dispatch of the ragged sweep takes the dense shared prefill
+and then the speculative verify loop (engine/spec.py, the multi-query
+decode kernels, trunk-aware where its rows share a trunk), or with
+``spec_decode`` off the sequential loop on the single-query kernels. The
 kernels run on CUDA tensors and their plain PyTorch versions on CPU
 tensors, so the engine routes the same way on both; the JAX engine
 routes to its kernels only on a TPU (or under its interpreter hooks).
@@ -24,9 +27,9 @@ from typing import Any, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..config import CascadeConfig, RuntimeConfig
+from ..config import CascadeConfig, RuntimeConfig, SpecConfig
 from ..device import resolve_device
-from . import generate, score, tokens as tok
+from . import generate, score, spec as spec_mod, tokens as tok
 
 log = logging.getLogger(__name__)
 
@@ -67,6 +70,7 @@ class ScoringEngine:
     def __init__(self, params: Any, cfg: Any, tokenizer: Any,
                  runtime: Optional[RuntimeConfig] = None,
                  cascade_config: Optional[CascadeConfig] = None,
+                 spec_config: Optional[SpecConfig] = None,
                  device="cuda"):
         self.device = resolve_device(device)
         first = params["tok_embed"]
@@ -77,15 +81,23 @@ class ScoringEngine:
         self.tokenizer = tokenizer
         self.rt = runtime or RuntimeConfig()
         self.cascade_cfg = cascade_config or CascadeConfig()
+        self.spec_cfg = spec_config or SpecConfig()
         # Kernel choices are runtime flags mirrored into the model config,
         # as in the JAX engine.
         self.cfg = dataclasses.replace(
             cfg, fused_decode=self.rt.fused_decode,
             cascade_decode=self.rt.cascade_decode,
             cascade_fused_suffix=self.rt.cascade_fused_suffix)
-        # Routing counters: cascade_dispatches, dense_shared_dispatches,
-        # dense_fallbacks, cascade_decode_dispatches.
+        # Routing counters: cascade_dispatches, dense_shared_dispatches
+        # (dense shared prefill + the sequential loop), dense_fallbacks,
+        # cascade_decode_dispatches.
         self.cascade_stats = collections.Counter()
+        # Speculative-decode counters, the JAX SpecStats field names:
+        # spec_dispatches, spec_rows (counted at dispatch); drafted_tokens,
+        # accepted_tokens, draft_ngram, accepted_ngram, decode_forwards,
+        # seq_forwards (folded from the pending SpecOuts by spec_flush).
+        self.spec_stats = collections.Counter()
+        self._spec_pending: List[Tuple[Any, Any]] = []
         self.yes_id, self.no_id = tok.yes_no_ids(tokenizer)
         self.eos_id = getattr(tokenizer, "eos_token_id", None)
         if self.rt.ragged_scheduler:
@@ -155,6 +167,16 @@ class ScoringEngine:
         if not self.cascade_decode_supported() or not prefix_ids:
             return 0
         return self._lcp_trunk(prefix_ids, n_real, bucket)
+
+    def spec_supported(self) -> bool:
+        """Engine-level gate of speculative decode: on by config with a
+        verify window of at least 2."""
+        return self.rt.spec_decode and self.rt.spec_k >= 2
+
+    def spec_flush(self) -> None:
+        """Fold the pending device-side SpecOut counters into spec_stats
+        (one copy to the host for all of them; spec.flush_pending)."""
+        spec_mod.flush_pending(self)
 
     # -- token tables -------------------------------------------------------
 
@@ -238,10 +260,12 @@ class ScoringEngine:
         each format's suffix into a small suffix bucket. ``reuse_cache``
         marks a dispatch of the ragged sweep (the JAX engine threads its
         cache buffer through the dispatch chain there): it is where the
-        cascade routing applies — a dispatch whose rows share a trunk
-        takes the cascade prefill and the trunk-aware decode, any other
-        the dense shared prefill with the decode trunk of its rows' LCP.
-        Returns (binary FusedDecodeOut, confidence FusedDecodeOut)."""
+        cascade and speculative routing applies — a dispatch whose rows
+        share a trunk takes the cascade prefill and the trunk-aware
+        decode; any other the dense shared prefill, then the speculative
+        verify loop (the sequential loop with ``spec_decode`` off), both
+        with the decode trunk of its rows' LCP. Returns (binary
+        FusedDecodeOut, confidence FusedDecodeOut)."""
         if pretokenized_a is not None:
             bin_ids = [list(i) for i in pretokenized_a]
             conf_ids = [list(i) for i in pretokenized_b]
@@ -314,10 +338,33 @@ class ScoringEngine:
             dtrunk = self.decode_trunk_for(prefix_rows, n_real, bucket)
             if dtrunk:
                 self.cascade_stats["cascade_decode_dispatches"] += 1
+            splan = spec_mod.build_plan(self, bin_ids, conf_ids, bucket, ba,
+                                        bb, new_tokens, conf_tokens)
+            if splan is not None:
+                return self._dispatch_shared_spec(
+                    splan, args, new_tokens, conf_tokens, stops, dtrunk,
+                    len(bin_ids) if n_real is None else n_real)
         self.cascade_stats["dense_shared_dispatches"] += 1
         return generate.greedy_decode_fused_shared(
             *args, max_new_a=new_tokens, max_new_b=conf_tokens,
             decode_trunk=dtrunk, **stops)
+
+    def _dispatch_shared_spec(self, splan, args, new_tokens: int,
+                              conf_tokens: int, stops: dict, dtrunk: int,
+                              rows: int):
+        """One SPECULATIVE shared dispatch, cold and unpaged: the dense
+        shared prefill, then both branches' draft-and-verify loops
+        (generate.greedy_decode_fused_shared_spec), every verify window
+        on the multi-query kernel — trunk-aware when ``dtrunk`` > 0. The
+        dispatch's SpecOuts stay on the device until spec_flush()."""
+        spec_args = tuple(self._t(a) for a in splan.dyn_args())
+        fused, cfused, spec_a, spec_b = generate.greedy_decode_fused_shared_spec(
+            *args, *spec_args, max_new_a=new_tokens, max_new_b=conf_tokens,
+            spec_k=splan.k, ngram=splan.ngram, decode_trunk=dtrunk, **stops)
+        self._spec_pending.append((spec_a, spec_b))
+        self.spec_stats["spec_dispatches"] += 1
+        self.spec_stats["spec_rows"] += rows
+        return fused, cfused
 
     def _dispatch_shared_cascade(self, trunk: int, args, new_tokens: int,
                                  conf_tokens: int, stops: dict):

@@ -1,0 +1,108 @@
+"""Speculative scoring decode: the host half.
+
+Port of ``lir_tpu/engine/spec.py`` without the radix-tree probe, the
+fleet draft model and the fault hooks (the port has no prefix cache, no
+fleet and no fault plan yet). The device half is
+``generate.greedy_decode_fused_shared_spec``: draft up to ``spec_k - 1``
+tokens a window, verify the window in one multi-query forward, accept
+greedily, so every emitted token is the sequential loop's.
+
+This module builds one dispatch's :class:`SpecPlan` — each branch's
+compacted prompt for the in-loop n-gram drafter, and draft arrays of
+length 0 (so the n-gram drafter drafts alone, as in the JAX engine
+without a prefix cache) — and folds the dispatches' device-side
+``SpecOut`` counters into the engine's ``spec_stats`` at flush time
+(:func:`flush_pending`), with one device-to-host copy for all of them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from . import tokens as tok
+
+
+@dataclasses.dataclass
+class SpecPlan:
+    """One shared dispatch's drafting inputs. Arrays are host numpy; the
+    runner lifts them to the device with the dispatch. ``ctx_*`` are each
+    branch's compacted full prompts right-padded to bucket + suffix
+    bucket + decode budget; ``draft_*`` the given drafts, padded to the
+    decode budget (all of length 0 here)."""
+
+    k: int
+    ngram: int
+    ctx_a: np.ndarray
+    ctx_a_len: np.ndarray
+    draft_a: np.ndarray
+    draft_a_len: np.ndarray
+    ctx_b: np.ndarray
+    ctx_b_len: np.ndarray
+    draft_b: np.ndarray
+    draft_b_len: np.ndarray
+
+    def dyn_args(self) -> Tuple[np.ndarray, ...]:
+        """The eight drafting arrays in generate.*_spec argument order."""
+        return (self.ctx_a, self.ctx_a_len, self.draft_a, self.draft_a_len,
+                self.ctx_b, self.ctx_b_len, self.draft_b, self.draft_b_len)
+
+
+def _ctx_arrays(ids_rows: Sequence[Sequence[int]], width: int,
+                pad_id: int) -> Tuple[np.ndarray, np.ndarray]:
+    B = len(ids_rows)
+    ctx = np.full((B, width), pad_id, np.int32)
+    lens = np.zeros((B,), np.int32)
+    for r, ids in enumerate(ids_rows):
+        n = min(len(ids), width)
+        ctx[r, :n] = np.asarray(ids[:n], np.int32)
+        lens[r] = n
+    return ctx, lens
+
+
+def build_plan(engine, bin_ids: Sequence[Sequence[int]],
+               conf_ids: Sequence[Sequence[int]], bucket: int, ba: int,
+               bb: int, new_tokens: int,
+               conf_tokens: int) -> Optional[SpecPlan]:
+    """One shared dispatch's SpecPlan, or None when speculation is off
+    for this engine (the runner then runs the sequential loop)."""
+    if not engine.spec_supported():
+        return None
+    pad_id = tok.pad_token_id(engine.tokenizer)
+    ctx_a, len_a = _ctx_arrays(bin_ids, bucket + ba + new_tokens, pad_id)
+    ctx_b, len_b = _ctx_arrays(conf_ids, bucket + bb + conf_tokens, pad_id)
+    B = len(bin_ids)
+    zeros = np.zeros((B,), np.int32)
+    return SpecPlan(k=int(engine.rt.spec_k), ngram=int(engine.spec_cfg.ngram),
+                    ctx_a=ctx_a, ctx_a_len=len_a,
+                    draft_a=np.zeros((B, new_tokens), np.int32),
+                    draft_a_len=zeros,
+                    ctx_b=ctx_b, ctx_b_len=len_b,
+                    draft_b=np.zeros((B, conf_tokens), np.int32),
+                    draft_b_len=zeros)
+
+
+def flush_pending(engine) -> None:
+    """Fold every pending (binary, confidence) SpecOut pair into
+    ``engine.spec_stats``. Deferred off the dispatch path on purpose: a
+    copy to the host at dispatch time would wait for the dispatch's
+    device work. All pending counters come over in one copy."""
+    pending = engine._spec_pending
+    if not pending:
+        return
+    engine._spec_pending = []
+    host = torch.stack([
+        torch.cat([so.drafted, so.accepted, so.chunks.reshape(1),
+                   so.seq_steps.reshape(1)])
+        for pair in pending for so in pair]).cpu().numpy()
+    st = engine.spec_stats
+    for drafted0, drafted1, drafted2, acc0, acc1, acc2, chunks, seq in host:
+        st["drafted_tokens"] += int(drafted0 + drafted1 + drafted2)
+        st["accepted_tokens"] += int(acc0 + acc1 + acc2)
+        st["draft_ngram"] += int(drafted1)
+        st["accepted_ngram"] += int(acc1)
+        st["decode_forwards"] += int(chunks)
+        st["seq_forwards"] += int(seq)

@@ -16,10 +16,12 @@ selected by ``registry.ModelConfig`` knobs.
   updates the cache IN PLACE (slot writes into the preallocated tensor)
   where the JAX package returns a new array: one cache per dispatch,
   never a copy of it.
-- Decode steps route through ``ops.flash_decode`` / ``flash_decode_trunk``
-  and the shared-trunk prefill through ``ops.cascade_attention``. On a
-  CUDA tensor those launch the hand-written kernels; on a CPU tensor they
-  run their plain versions, so the routing is the same on both.
+- Decode steps route through ``ops.flash_decode`` / ``flash_decode_trunk``,
+  speculative verify windows through ``ops.flash_decode_mq`` /
+  ``flash_decode_mq_trunk``, and the shared-trunk prefill through
+  ``ops.cascade_attention``. On a CUDA tensor those launch the
+  hand-written kernels; on a CPU tensor they run their plain versions,
+  so the routing is the same on both.
 """
 
 from __future__ import annotations
@@ -214,6 +216,37 @@ def _attention_cached_flash(q, k, v, cfg: ModelConfig, fused_ctx,
     return out.reshape(B, S, H * hd)
 
 
+def _fused_decode_mq_ok(cfg: ModelConfig, S: int, fused_ctx) -> bool:
+    """The multi-query flash-decode route: a verify window of S > 1
+    teacher-forced queries whose fused_ctx positions are (B, S). As for
+    :func:`_fused_decode_ok`, no backend enters the decision."""
+    return (cfg.fused_decode and fused_ctx is not None and S > 1
+            and fused_ctx[0].dim() == 2)
+
+
+def _attention_cached_flash_mq(q, k, v, cfg: ModelConfig, fused_ctx,
+                               trunk_len: int = 0) -> torch.Tensor:
+    """Verify-window attention through the multi-query kernels: S
+    queries per row over the cache (the window's own k/v already
+    written) in one launch, each query's reduction bitwise the
+    single-query kernel's. ``trunk_len`` > 0 routes the trunk-aware
+    sibling, bitwise the flat one."""
+    B, S, H, hd = q.shape
+    q_pos, key_mask, key_positions = fused_ctx
+    slopes = _slopes_or_none(cfg, q.device)
+    q = q.contiguous()
+    if trunk_len > 0:
+        out = ops.flash_decode_mq_trunk(q, k, v, q_pos, key_mask,
+                                        key_positions=key_positions,
+                                        alibi_slopes=slopes,
+                                        trunk_len=trunk_len)
+    else:
+        out = ops.flash_decode_mq(q, k, v, q_pos, key_mask,
+                                  key_positions=key_positions,
+                                  alibi_slopes=slopes)
+    return out.reshape(B, S, H * hd)
+
+
 def _attention_cascade(q, k, v, trunk_kv, suffix_mask, q_positions,
                        cfg: ModelConfig) -> torch.Tensor:
     """Shared-trunk prefill window through the cascade kernel. q:
@@ -230,11 +263,14 @@ def _attention_cascade(q, k, v, trunk_kv, suffix_mask, q_positions,
 
 def _attention_cached(q, k, v, bias, cfg: ModelConfig) -> torch.Tensor:
     """Dense attention of S queries over the CACHE layout (K, T, B, hd):
-    the chunked extension (``extend``) and the decode step with the
-    flash route off."""
+    the chunked extension (``extend``), the decode step and the verify
+    window with the flash route off. A view of the cache cut to a shorter
+    extent is made contiguous first, so that the products see the same
+    layout, and round the same way, as on a cache of that extent."""
     B, S, H, hd = q.shape
     K = k.shape[0]
     G = H // K
+    k, v = k.contiguous(), v.contiguous()
     qg = q.reshape(B, S, K, G, hd)
     scores = torch.einsum("bskgd,ktbd->bkgst", qg, k).float()
     scores = scores.reshape(B, H, S, -1) / math.sqrt(hd) + bias
@@ -280,6 +316,9 @@ def _block(x, lp: Params, cfg: ModelConfig, sin, cos, bias, cache_kv,
         if _fused_decode_ok(cfg, S, fused_ctx):
             attn = _attention_cached_flash(q, ck, cv, cfg, fused_ctx,
                                            trunk_len=trunk_len)
+        elif _fused_decode_mq_ok(cfg, S, fused_ctx):
+            attn = _attention_cached_flash_mq(q, ck, cv, cfg, fused_ctx,
+                                              trunk_len=trunk_len)
         else:
             attn = _attention_cached(q, ck, cv, bias, cfg)
     elif attn_impl is not None:
@@ -516,3 +555,38 @@ def decode_step(params: Params, cfg: ModelConfig, cache, token: torch.Tensor,
                     trunk_len=int(trunk_len) if cfg.cascade_decode else 0)
     logits = _unembed(params, cfg, x)[:, 0, :]
     return logits, cache
+
+
+def verify_extend(params: Params, cfg: ModelConfig, cache,
+                  chunk_tokens: torch.Tensor, cache_mask: torch.Tensor,
+                  start_index: int, trunk_len: int = 0):
+    """Teacher-forced VERIFY window (speculative decode): run the S-token
+    draft window [current emission, drafts...] through the layers in one
+    forward, writing its k/v at cache slots [start_index, start_index+S)
+    in place and returning the logits at EVERY window position — the
+    multi-query sibling of :func:`decode_step`.
+
+    ``cache_mask`` is the FULL cache validity with the window's S slots
+    already set (rejected slots of earlier windows stay 0). Positions
+    derive from the mask's cumsum, so each query sits at its row's next
+    logical position, and causality compares positions, so a query never
+    sees a later draft. With ``cfg.fused_decode`` the window goes through
+    the multi-query kernels (``trunk_len`` > 0 and ``cfg.cascade_decode``:
+    the trunk-aware one); otherwise through the dense route, with the
+    causal bias built here. Returns (logits (B, S, V) float32, cache)."""
+    B, S2 = chunk_tokens.shape
+    key_positions = mask_positions(cache_mask)
+    qpos = key_positions[:, start_index:start_index + S2]
+    x = _embed(params, cfg, chunk_tokens, qpos)
+    sin = cos = None
+    if cfg.pos_embedding == "rotary":
+        sin, cos = _rope_sincos(qpos, cfg.rotary_dim, cfg.rope_theta)
+    bias = None
+    if not cfg.fused_decode:
+        ones = torch.ones((B, S2), dtype=torch.int32, device=x.device)
+        bias = _causal_bias(ones, qpos, cfg, key_positions=key_positions,
+                            key_mask=cache_mask)
+    x = _run_blocks(params, cfg, x, sin, cos, bias, cache, start_index,
+                    fused_ctx=(qpos, cache_mask, key_positions),
+                    trunk_len=int(trunk_len) if cfg.cascade_decode else 0)
+    return _unembed(params, cfg, x), cache

@@ -5,6 +5,10 @@
 - ``flash_decode_trunk``: the trunk-aware decode step of shared-trunk
   dispatches (the same source: trunk kernel + row-split kernel over the
   tail + merge), bitwise the flat kernel.
+- ``flash_decode_mq`` / ``flash_decode_mq_trunk``: the speculative
+  verify window, S queries per row (the same source and kernels, which
+  take S queries a row); query j bitwise ``flash_decode``, the trunk
+  variant bitwise the flat one.
 - ``cascade_attention``: the fused shared-trunk prefill
   (``csrc/cascade_prefill.cu``).
 - ``merge_partials``: the log-sum-exp merge of partials (plain PyTorch;
@@ -20,7 +24,9 @@ from __future__ import annotations
 from typing import Dict
 
 from .cascade_prefill import cascade_attention, cascade_attention_plain
-from .flash_decode import (DECODE_SPLIT, flash_decode, flash_decode_plain,
+from .flash_decode import (DECODE_SPLIT, flash_decode, flash_decode_mq,
+                           flash_decode_mq_plain, flash_decode_mq_trunk,
+                           flash_decode_mq_trunk_plain, flash_decode_plain,
                            flash_decode_trunk, flash_decode_trunk_plain)
 from .lse import merge_partials
 
@@ -28,6 +34,8 @@ KERNELS = {
     "flash_decode": flash_decode,
     "flash_decode_trunk": flash_decode_trunk,
     "cascade_attention": cascade_attention,
+    "flash_decode_mq": flash_decode_mq,
+    "flash_decode_mq_trunk": flash_decode_mq_trunk,
 }
 
 
@@ -42,7 +50,8 @@ def launch_counts() -> Dict[str, int]:
 
 __all__ = [
     "DECODE_SPLIT", "KERNELS", "cascade_attention", "cascade_attention_plain",
-    "flash_decode", "flash_decode_plain", "flash_decode_trunk",
-    "flash_decode_trunk_plain", "launch_counts", "merge_partials",
-    "reset_launches",
+    "flash_decode", "flash_decode_mq", "flash_decode_mq_plain",
+    "flash_decode_mq_trunk", "flash_decode_mq_trunk_plain",
+    "flash_decode_plain", "flash_decode_trunk", "flash_decode_trunk_plain",
+    "launch_counts", "merge_partials", "reset_launches",
 ]

@@ -8,7 +8,8 @@ the test, never at import). Run on the card with
 (``--noconftest``: the suite's conftest imports JAX, which the card's
 machine need not have). bf16 kernel output against the float32 plain
 version of the same bf16 inputs, atol = rtol = 1e-2 (bf16 output
-rounding); the trunk kernel bitwise the flat one.
+rounding); the trunk kernels bitwise the flat ones, and query j of the
+multi-query kernel bitwise the single-query kernel at its position.
 """
 
 import pytest
@@ -59,6 +60,35 @@ def test_flash_decode_kernels_match_plain(gen, H, K, hd, alibi):
 
 @pytest.mark.parametrize("H,K,hd,alibi", [(8, 8, 128, False), (8, 2, 128, False),
                                           (71, 1, 64, False), (8, 8, 64, True)])
+def test_flash_decode_mq_kernels_match_plain(gen, H, K, hd, alibi):
+    B, S, T, trunk = 4, 4, 300, 200
+    q = _rnd(gen, B, S, H, hd)
+    k, v = _rnd(gen, K, T, B, hd), _rnd(gen, K, T, B, hd)
+    k[:, :trunk] = k[:, :trunk, :1]
+    v[:, :trunk] = v[:, :trunk, :1]
+    mask = torch.ones((B, T), dtype=torch.int32, device="cuda")
+    mask[1, 220:260] = 0
+    mask[:, T - 2:] = 0
+    kpos = torch.clamp_min(torch.cumsum(mask, -1, dtype=torch.int32) - 1, 0)
+    top = kpos.max(-1).values
+    qpos = (top[:, None] - (S - 1)
+            + torch.arange(S, device="cuda")[None]).to(torch.int32)
+    slopes = alibi_slopes(H, "cuda") if alibi else None
+    kw = dict(key_positions=kpos, alibi_slopes=slopes)
+    mq = ops.flash_decode_mq(q, k, v, qpos, mask, **kw)
+    ref = ops.flash_decode_mq_plain(q, k, v, qpos, mask, **kw)
+    torch.testing.assert_close(mq.float(), ref.float(), **TOL)
+    for j in range(S):
+        one = ops.flash_decode(q[:, j].contiguous(), k, v,
+                               qpos[:, j].contiguous(), mask, **kw)
+        assert torch.equal(mq[:, j], one)
+    trunk_out = ops.flash_decode_mq_trunk(q, k, v, qpos, mask,
+                                          trunk_len=trunk, **kw)
+    assert torch.equal(trunk_out, mq)
+
+
+@pytest.mark.parametrize("H,K,hd,alibi", [(8, 8, 128, False), (8, 2, 128, False),
+                                          (71, 1, 64, False), (8, 8, 64, True)])
 def test_cascade_kernel_matches_plain(gen, H, K, hd, alibi):
     B, R, Tt = 3, 40, 100
     q = _rnd(gen, B, R, H, hd)
@@ -84,3 +114,9 @@ def test_wrapper_counts_launches(gen):
     qpos = torch.full((2,), 69, dtype=torch.int32, device="cuda")
     ops.flash_decode(q, k, k, qpos, mask)
     assert ops.launch_counts()["flash_decode"] == 1
+    ops.flash_decode_mq(q[:, None], k, k, qpos[:, None], mask)
+    ops.flash_decode_mq_trunk(q[:, None], k, k, qpos[:, None], mask,
+                              trunk_len=64)
+    counts = ops.launch_counts()
+    assert (counts["flash_decode"], counts["flash_decode_mq"],
+            counts["flash_decode_mq_trunk"]) == (1, 1, 1)

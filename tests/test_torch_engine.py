@@ -60,7 +60,8 @@ def engines():
     teng = ScoringEngine(
         params_from_jax(tree, ModelConfig(**CFG), device="cpu"),
         ModelConfig(**CFG), FakeTokenizer(),
-        RuntimeConfig(batch_size=4, max_new_tokens=12), device="cpu")
+        RuntimeConfig(batch_size=4, max_new_tokens=12, spec_decode=False),
+        device="cpu")
     yield jeng, teng
     jdec.CASCADE_INTERPRET_ON_CPU, jdec.FUSED_DECODE_INTERPRET_ON_CPU = old
 

@@ -16,6 +16,7 @@ import lir_tpu_torch
 import lir_tpu_torch.config, lir_tpu_torch.data, lir_tpu_torch.ops
 import lir_tpu_torch.backends.fake, lir_tpu_torch.models.convert
 import lir_tpu_torch.engine.runner, lir_tpu_torch.engine.sweep
+import lir_tpu_torch.engine.spec
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
@@ -78,6 +79,15 @@ def test_cuda_wrappers_refuse_non_cuda_tensors():
     p = torch.zeros((1,), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         ops.flash_decode(q, k, k, p, m)
+    q2 = torch.zeros((1, 3, 2, 4), device="meta")
+    p2 = torch.zeros((1, 3), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.flash_decode_mq(q2, k, k, p2, m)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.flash_decode_mq_trunk(q2, torch.zeros((2, 80, 1, 4), device="meta"),
+                                  torch.zeros((2, 80, 1, 4), device="meta"), p2,
+                                  torch.ones((1, 80), dtype=torch.int32,
+                                             device="meta"), trunk_len=70)
     with pytest.raises(ValueError, match="CUDA"):
         ops.cascade_attention(torch.zeros((1, 2, 2, 4), device="meta"),
                               torch.zeros((1, 2, 2, 4), device="meta"),

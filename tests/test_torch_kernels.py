@@ -177,5 +177,12 @@ def test_wrappers_count_only_kernel_launches():
     _, targs, _, tkp, _, _ = _run_both(DECODE_CASES["mha"], 0, T=80)
     ops.flash_decode(*targs, key_positions=tkp)
     ops.flash_decode_trunk(*targs, key_positions=tkp, trunk_len=70)
+    q, k, v, qpos, mask = targs
+    q2, qpos2 = q[:, None].repeat(1, 2, 1, 1), qpos[:, None].repeat(1, 2)
+    ops.flash_decode_mq(q2, k, v, qpos2, mask, key_positions=tkp)
+    ops.flash_decode_mq_trunk(q2, k, v, qpos2, mask, key_positions=tkp,
+                              trunk_len=70)
     assert ops.launch_counts() == {"flash_decode": 0, "flash_decode_trunk": 0,
-                                   "cascade_attention": 0}
+                                   "cascade_attention": 0,
+                                   "flash_decode_mq": 0,
+                                   "flash_decode_mq_trunk": 0}
