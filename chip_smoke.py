@@ -9,41 +9,59 @@ Phases (each raises on failure, so the script exits non-zero):
 2. Kernels against their plain PyTorch versions on the card, at the
    shapes the main path gives them (llama-2-7b widths, B = 32, the cache
    extents and trunks of phase 3's dispatches; the verify window's
-   S = spec_k = 4 queries a row for the multi-query kernels), plus GQA
+   S = spec_k = 4 queries a row for the multi-query kernels; the trunk
+   leg at the cascade dispatch's shape, float32 and int8 QK^T; the
+   prefill flash kernel at buckets 64, 128 and 512), plus GQA
    (mistral-7b), MQA (falcon-7b) and ALiBi (bloom-7b1) shapes: bf16
    kernel output against the float32 plain version of the same bf16
-   inputs, atol = rtol = 1e-2 (bf16 output rounding); the trunk kernels
-   bitwise equal to the flat ones, and query j of the multi-query kernel
-   bitwise the single-query kernel at its position. Times by CUDA events
-   after warm-up, the L2 cache flushed before every launch; the SDPA
-   yardstick (``library_ms``) is timed beside them and used nowhere in
-   the port. Then the whole slice at a small float32 size: the cascade
-   and the speculative dispatch on the card against the same on the CPU
-   (plain versions), the speculative dispatch against the sequential one
-   on the card (ids exact, position-0 readouts bitwise), and a
-   speculative run given the sequential stream as its drafts. Last, at
-   llama-2-7b width, one decode step against one verify window from the
-   same cache: their logit difference, and the step's top-2 gap where
-   their argmax differs (printed, not asserted).
+   inputs, atol = rtol = 1e-2 (bf16 output rounding; the trunk leg's
+   float32 partials to the same bar); the trunk decode kernels bitwise
+   the flat ones, query j of the multi-query kernel bitwise the
+   single-query kernel at its position, and the int8 trunk leg's row max
+   bitwise its plain twin's (the int8 payloads and s32 dots are exact).
+   Times by CUDA events after warm-up, the L2 cache flushed before every
+   launch; the SDPA yardstick (``library_ms``) is timed beside the float
+   kernels and used nowhere in the port (no PyTorch call computes the
+   int8-QK^T trunk leg). Then the whole slice at a small float32 size:
+   the cascade and the speculative dispatch on the card against the same
+   on the CPU (plain versions), the speculative dispatch against the
+   sequential one on the card (ids exact, position-0 readouts bitwise),
+   a speculative run given the sequential stream as its drafts, and the
+   8-bit engine (dynamic int8 weights, int8 QK^T, flash prefill) on the
+   card against the same on the CPU (ids exact, floats within 1e-2).
+   Last, at llama-2-7b width, one decode step against one verify window
+   from the same cache: their logit difference, and the step's top-2 gap
+   where their argmax differs (printed, not asserted).
 3. The slice at full width: llama-2-7b with seeded random bf16 weights
-   made on the card, three engines sharing them. The word-meaning sweep
+   made on the card, four engines sharing them. The word-meaning sweep
    over the 50 questions (dense prefill + the flat decode kernel); one
    shared dispatch of 32 cells sharing a ~430-token legal trunk (cascade
-   prefill + the trunk decode kernel); the 32 cells with no common trunk
-   on the sequential engine (dense shared prefill + the flat kernel)
-   and on the default engine (the speculative verify loop on the
-   multi-query kernel); the trunk cells on the sequential engine and on
-   an engine with the cascade prefill off (the verify loop on the
-   trunk-aware multi-query kernel). Each phase resets the launch counts
-   just before it and reads them just after, and fails if a kernel of
-   its path never launched; the speculative dispatches' position-0
-   readouts must be bitwise the sequential ones on the same cells.
+   prefill + the trunk decode kernel), and the same on an engine with
+   the fused cascade off (the float trunk-leg kernel; its position-0
+   yes>no decisions must equal the fused route's, its position-0
+   probabilities within 1e-3); the 32 cells with no common trunk on the
+   sequential engine (dense shared prefill + the flat kernel) and on the
+   default engine (the speculative verify loop on the multi-query
+   kernel); the trunk cells on the sequential engine and on an engine
+   with the cascade prefill off (the verify loop on the trunk-aware
+   multi-query kernel). Then the 8-bit engine at the same width, its
+   int8 weights born on the card (``init_quantized_params``, dynamic):
+   the word-meaning sweep (flash prefill + flat decode), the trunk
+   dispatch (int8 trunk-leg kernel + trunk decode) and the no-trunk
+   dispatch (flash prefill at bucket 128 + the verify loop), with rows/s
+   and peak memory beside the bf16 engine's, and a profile of one of its
+   word-meaning batches beside the bf16 one's. Each phase resets the
+   launch counts just before it and reads them just after, and fails if
+   a kernel of its path never launched; the speculative dispatches'
+   position-0 readouts must be bitwise the sequential ones on the same
+   cells.
 4. The ``{"kernels": [...]}`` summary, the card's name and power limit,
    and the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -55,22 +73,26 @@ import torch.nn.functional as F
 
 from lir_tpu_torch import ops
 from lir_tpu_torch.backends.fake import FakeTokenizer
-from lir_tpu_torch.config import RuntimeConfig
+from lir_tpu_torch.config import CascadeConfig, RuntimeConfig
 from lir_tpu_torch.data import (LEGAL_PROMPTS, WORD_MEANING_QUESTIONS,
                                 format_base_prompt)
 from lir_tpu_torch.engine import generate, sweep, tokens as tok
 from lir_tpu_torch.engine.runner import SFX_BUCKETS, ScoringEngine
-from lir_tpu_torch.models import decoder, registry
+from lir_tpu_torch.models import decoder, quant, registry
 from lir_tpu_torch.ops import _build
 from lir_tpu_torch.ops.flash_decode import (flash_decode_mq_plain,
                                             flash_decode_mq_trunk_plain,
                                             flash_decode_plain,
                                             flash_decode_trunk_plain,
                                             trunk_splits, DECODE_SPLIT)
-from lir_tpu_torch.ops.cascade_prefill import cascade_attention_plain
+from lir_tpu_torch.ops.cascade_prefill import (cascade_attention_plain,
+                                               prefix_partials,
+                                               prefix_partials_int8)
+from lir_tpu_torch.ops.flash_attention import flash_attention_plain
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
 BF16_FLOP_PER_S = 989e12         # H100 SXM dense bf16 tensor cores, published
+INT8_OP_PER_S = 1979e12          # H100 SXM dense int8 tensor cores, published
 ATOL = RTOL = 1e-2
 BATCH = 32
 DEV = "cuda"
@@ -94,7 +116,25 @@ SOURCES = {
     "flash_decode_mq_trunk": ("lir_tpu_torch/csrc/flash_decode.cu",
                               "lir_tpu/ops/flash_decode.py:464",
                               "llama2-7b/spec-trunk-dispatch"),
+    "cascade_prefix": ("lir_tpu_torch/csrc/cascade_prefill.cu",
+                       "lir_tpu/ops/cascade_prefill.py:68",
+                       "llama2-7b/cascade-dispatch"),
+    "cascade_prefix_int8": ("lir_tpu_torch/csrc/cascade_prefill.cu",
+                            "lir_tpu/ops/cascade_prefill.py:68",
+                            "llama2-7b/cascade-dispatch"),
+    "flash_attention": ("lir_tpu_torch/csrc/flash_attention.cu",
+                        "lir_tpu/ops/flash_attention.py:41",
+                        "llama2-7b/spec-dispatch"),
 }
+# The two-leg cascade against the fused one at full width (bf16): the
+# position-0 probabilities of both branches within this absolute bound.
+POS0_PROB_ATOL = 1e-3
+# The 8-bit small slice on the card against the CPU: floats within this
+# bound. The two devices' activations differ by ~1e-7 (other summation
+# orders); where that crosses a rounding boundary of the per-token
+# quantization one int8 payload moves by a step, which moves a logit by
+# a few 1e-3 at this size (3.5e-3 seen in a top-k log-prob).
+INT8_SLICE_TOL = 1e-2
 # Position-0 readouts of a shared dispatch, held bitwise between the
 # speculative and the sequential route.
 POS0_FIELDS = ("topk_logprobs", "topk_ids", "weighted_confidence")
@@ -173,9 +213,11 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return total / iters
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, int8_ops: float = 0.0):
+    """The least time for the work: bytes over the memory rate against
+    bf16-rate FLOPs plus int8-rate operations."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_ops = (flops / BF16_FLOP_PER_S + int8_ops / INT8_OP_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -434,6 +476,110 @@ def check_cascade(gen, label, B, R, H, K, hd, Tt, alibi, results):
     results.append(row)
 
 
+def check_prefix(gen, label, B, R, H, K, hd, Tt, alibi, results):
+    """The trunk-leg kernels (float32 and int8 QK^T) against their plain
+    versions: (o, m, l) within atol = rtol = 1e-2, and with int8 the row
+    max m bitwise (the payloads and s32 dots are exact and fold in the
+    same order). SDPA over the trunk with the same ALiBi bias is the
+    float kernel's yardstick; no PyTorch call computes int8 QK^T."""
+    dev = DEV
+    bf = torch.bfloat16
+    q = torch.randn((B, R, H, hd), generator=gen, device=dev).to(bf)
+    tk = torch.randn((K, Tt, hd), generator=gen, device=dev).to(bf)
+    tv = torch.randn((K, Tt, hd), generator=gen, device=dev).to(bf)
+    slopes = decoder.alibi_slopes(H, dev) if alibi else None
+    G = H // K
+    bias = None
+    if alibi:
+        bias = (slopes[:, None, None]
+                * torch.arange(Tt, device=dev).float()[None, None, :]
+                ).to(bf)[None].expand(B, -1, R, -1)
+    qh = q.permute(0, 2, 1, 3)
+    keys, vals = _sdpa_kv(tk[None].expand(B, -1, -1, -1),
+                          tv[None].expand(B, -1, -1, -1), G)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qh, keys, vals, attn_mask=bias,
+                                              **_gqa(G > 1))
+
+    lib_ms = time_ms(sdpa)
+    n_q = B * R * H
+    out_bytes = n_q * (hd + 2) * 4
+    byts = nbytes(q, tk, tv, slopes) + out_bytes
+    for name, kernel, plain in (
+            ("cascade_prefix", ops.cascade_prefix, prefix_partials),
+            ("cascade_prefix_int8", ops.cascade_prefix_int8,
+             prefix_partials_int8)):
+        got = kernel(q, tk, tv, slopes)
+        ref = plain(q, tk, tv, slopes)
+        torch.cuda.synchronize()
+        err = max(check_close(f"{name}[{label}]/{part}", g, r)
+                  for part, g, r in zip("oml", got, ref))
+        int8 = name.endswith("int8")
+        if int8 and not torch.equal(got[1], ref[1]):
+            raise AssertionError(f"{name}[{label}]: row max is not bitwise "
+                                 f"the plain twin's")
+        pair_ops = 2.0 * n_q * Tt * hd                 # one product of QK^T or PV
+        b_ms, b_by = bound(byts, pair_ops if int8 else 2 * pair_ops,
+                           pair_ops if int8 else 0.0)
+        row = dict(kernel=name, case=label, B=B, R=R, H=H, K=K, hd=hd, Tt=Tt,
+                   max_abs_err=err, row_max_bitwise=int8 or None,
+                   kernel_ms=time_ms(lambda: kernel(q, tk, tv, slopes)),
+                   plain_ms=time_ms(lambda: plain(q, tk, tv, slopes), iters=3),
+                   library_ms=None if int8 else lib_ms, bound_ms=b_ms,
+                   bound_by=b_by)
+        log(json.dumps(row))
+        results.append(row)
+
+
+def check_flash_attention(gen, label, B, S, H, K, hd, alibi, results):
+    """The prefill flash kernel against its plain version at a bucket's
+    shape: each row left-padded by its own amount (as the sweep pads
+    prompts), one row with a hole. SDPA with the same causal mask, key
+    mask and ALiBi bias is the yardstick."""
+    dev = DEV
+    bf = torch.bfloat16
+    q = torch.randn((B, S, H, hd), generator=gen, device=dev).to(bf)
+    k = torch.randn((B, S, K, hd), generator=gen, device=dev).to(bf)
+    v = torch.randn((B, S, K, hd), generator=gen, device=dev).to(bf)
+    mask = torch.ones((B, S), dtype=torch.int32, device=dev)
+    for b in range(B):
+        mask[b, :(b * 7) % max(S // 2, 1)] = 0
+    mask[1, S // 2:S // 2 + 3] = 0
+    kpos = torch.clamp_min(torch.cumsum(mask, -1, dtype=torch.int32) - 1, 0)
+    slopes = decoder.alibi_slopes(H, dev) if alibi else None
+    kw = dict(key_mask=mask, alibi_slopes=slopes,
+              key_positions=kpos if alibi else None)
+    got = ops.flash_attention(q, k, v, **kw)
+    ref = flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = check_close(f"flash_attention[{label}]", got, ref)
+    idx = torch.arange(S, device=dev)
+    allowed = (mask[:, None, :] > 0) & (idx[None, None, :] <= idx[None, :, None])
+    bias = torch.where(allowed[:, None], 0.0, float("-inf"))
+    if alibi:
+        bias = bias + slopes[None, :, None, None] * kpos.float()[:, None, None, :]
+    bias = bias.to(bf)
+    kb, vb = _sdpa_kv(k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3), H // K)
+    qh = q.permute(0, 2, 1, 3)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qh, kb, vb, attn_mask=bias,
+                                              **_gqa(K != H))
+
+    pairs = float(allowed.sum())
+    byts = nbytes(q, k, v, mask, kpos if alibi else None, slopes) + nbytes(q)
+    b_ms, b_by = bound(byts, 4.0 * H * hd * pairs)
+    row = dict(kernel="flash_attention", case=label, B=B, S=S, H=H, K=K,
+               hd=hd, max_abs_err=err,
+               kernel_ms=time_ms(lambda: ops.flash_attention(q, k, v, **kw)),
+               plain_ms=time_ms(lambda: flash_attention_plain(q, k, v, **kw),
+                                iters=3),
+               library_ms=time_ms(sdpa), bound_ms=b_ms, bound_by=b_by)
+    log(json.dumps(row))
+    results.append(row)
+
+
 def _shared_dispatch(eng, rows, bucket):
     """One shared dispatch of the small slice: each row's binary and
     confidence prompts differ in their last two tokens."""
@@ -566,11 +712,64 @@ def small_slice_check():
                                for a, b in zip(spec_card, seq)):
         raise AssertionError("small slice: spec ids differ from sequential")
     chunks = full_accept_check(params_gpu, cfg)
+    int8_diff, int8_launches = small_int8_check(cfg, params_cpu, trunk_rows,
+                                                flat_rows)
     log(json.dumps({"phase": "small_slice", "ok": True,
                     "cascade_and_spec_vs_cpu": True,
                     "spec_vs_sequential_bitwise_pos0": True,
                     "full_accept_windows": {"binary": chunks[0],
-                                            "confidence": chunks[1]}}))
+                                            "confidence": chunks[1]},
+                    "int8_vs_cpu_max_float_diff": int8_diff,
+                    "int8_launches": int8_launches}))
+
+
+def small_int8_check(cfg, params_cpu, trunk_rows, flat_rows):
+    """The 8-bit engine at the small size: dynamic int8 weights, the
+    two-leg cascade with int8 QK^T, flash prefill. On the card against
+    the same engine on the CPU: ids exact, floats within INT8_SLICE_TOL.
+    Returns the largest float difference and the card's launch counts,
+    which must include every kernel of the 8-bit path."""
+    cfg8 = dataclasses.replace(cfg, use_flash_attention=True)
+    q_cpu = quant.quantize_decoder_params(params_cpu, dynamic=True)
+    q_gpu = _to_device(q_cpu, DEV)
+    rt = RuntimeConfig(batch_size=4, max_new_tokens=6,
+                       cascade_fused_suffix=False)
+    outs, launches = [], None
+    for params, dev in ((q_gpu, DEV), (q_cpu, "cpu")):
+        eng = ScoringEngine(params, cfg8, FakeTokenizer(), rt,
+                            cascade_config=CascadeConfig(int8_qk=True),
+                            device=dev)
+        if dev == DEV:
+            torch.cuda.synchronize()
+            ops.reset_launches()
+        outs.append((_shared_dispatch(eng, trunk_rows, 96),
+                     _shared_dispatch(eng, flat_rows, 64)))
+        if dev == DEV:
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()
+        if (eng.cascade_stats["cascade_dispatches"] != 1
+                or eng.spec_stats["spec_dispatches"] != 1):
+            raise AssertionError("8-bit small slice did not route as planned")
+    missing = [k for k in ("flash_attention", "cascade_prefix_int8",
+                           "flash_decode_trunk", "flash_decode_mq")
+               if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"8-bit small slice: never launched {missing}")
+    worst = {}
+    for route, card, cpu in zip(("cascade", "spec"), *outs):
+        for a, b in zip(card, cpu):
+            if not torch.equal(a.generated.cpu(), b.generated):
+                raise AssertionError(f"8-bit small slice {route}: generated "
+                                     f"ids differ card vs CPU")
+            for name in ("p_yes", "p_no", "topk_logprobs",
+                         "weighted_confidence"):
+                diff = float((getattr(a, name).cpu()
+                              - getattr(b, name)).abs().max())
+                worst[name] = max(worst.get(name, 0.0), diff)
+                if not diff <= INT8_SLICE_TOL:
+                    raise AssertionError(f"8-bit small slice {route}: {name} "
+                                         f"differs by {diff}")
+    return worst, launches
 
 
 def verify_step_check(params, cfg, spec_k: int):
@@ -635,9 +834,11 @@ def check_scores(name, arrs):
         raise AssertionError(f"{name}: p_yes + p_no > 1")
 
 
-def run_word_meaning(engine):
-    """Word-meaning sweep: 50 D1 rows, 50 decode steps, the flat kernel.
-    Launch counts reset just before, read just after."""
+def run_word_meaning(engine, label="word_meaning_sweep",
+                     kernels=("flash_decode",)):
+    """Word-meaning sweep: 50 D1 rows, 50 decode steps. Launch counts
+    reset just before, read just after; fails unless every kernel in
+    ``kernels`` launched."""
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -649,13 +850,14 @@ def run_word_meaning(engine):
     launches = ops.launch_counts()
     if len(rows) != len(WORD_MEANING_QUESTIONS):
         raise AssertionError("word-meaning sweep lost rows")
-    check_scores("word_meaning", {
+    check_scores(label, {
         "p_yes": [r.yes_prob for r in rows], "p_no": [r.no_prob for r in rows]})
-    if launches["flash_decode"] <= 0:
-        raise AssertionError("word_meaning: flash_decode never launched")
+    missing = [k for k in kernels if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"{label}: kernels never launched: {missing}")
     stats = dict(rows=len(rows), seconds=dt, rows_per_s=len(rows) / dt,
                  launches=launches)
-    log(json.dumps({"phase": "word_meaning_sweep", **stats}))
+    log(json.dumps({"phase": label, **stats}))
     return stats
 
 
@@ -707,6 +909,80 @@ def run_dispatch(label, engine, cells, rt, kernels, routing):
     return outs, stats
 
 
+def compare_two_leg(two_leg, fused):
+    """The two-leg cascade dispatch against the fused one on the same
+    cells: every row's position-0 yes>no decision equal, the position-0
+    probabilities within POS0_PROB_ATOL; the largest differences of the
+    position-0 readouts are printed beside them."""
+    row = {"phase": "two_leg_vs_fused", "decisions_equal": True}
+    for fmt, a, b in zip(("binary", "confidence"), two_leg, fused):
+        da = a.p_yes[:, 0] > a.p_no[:, 0]
+        db = b.p_yes[:, 0] > b.p_no[:, 0]
+        margin = (torch.log(b.p_yes[:, 0]) - torch.log(b.p_no[:, 0])).abs()
+        row[f"{fmt}_min_abs_log_odds"] = float(margin.min())
+        if not torch.equal(da, db):
+            row["decisions_equal"] = False
+            log(json.dumps(row))
+            raise AssertionError(f"two-leg vs fused {fmt}: yes>no decision "
+                                 f"differs on rows "
+                                 f"{torch.nonzero(da != db).flatten().tolist()}")
+        for name in ("p_yes", "p_no"):
+            diff = float((getattr(a, name)[:, 0]
+                          - getattr(b, name)[:, 0]).abs().max())
+            row[f"{fmt}_{name}0_max_diff"] = diff
+            if not diff <= POS0_PROB_ATOL:
+                raise AssertionError(f"two-leg vs fused {fmt}: {name}[:, 0] "
+                                     f"differs by {diff}")
+        row[f"{fmt}_topk_logprobs_max_diff"] = float(
+            (a.topk_logprobs - b.topk_logprobs).abs().max())
+        row[f"{fmt}_weighted_confidence_max_diff"] = float(
+            (a.weighted_confidence - b.weighted_confidence).abs().max())
+        row[f"{fmt}_generated_ids_agree_share"] = float(
+            (a.generated == b.generated).float().mean())
+    log(json.dumps(row))
+    return row
+
+
+def run_int8_slice(cfg, tokenizer, cells_trunk, cells_flat, rt):
+    """The 8-bit engine at llama-2-7b width: dynamic int8 weights born on
+    the card, flash prefill, the two-leg cascade with int8 QK^T. Its
+    phases: the word-meaning sweep, the trunk dispatch and the no-trunk
+    dispatch, each with its own launch counts. Returns (per-phase stats,
+    param bytes, peak memory over these phases)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params8 = quant.init_quantized_params(cfg, seed=0, device=DEV,
+                                          dtype=torch.bfloat16, dynamic=True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg8 = dataclasses.replace(cfg, use_flash_attention=True)
+    engine8 = ScoringEngine(
+        params8, cfg8, tokenizer,
+        RuntimeConfig(batch_size=BATCH, cascade_fused_suffix=False),
+        cascade_config=CascadeConfig(int8_qk=True), device=DEV)
+    stats = {"int8_word_meaning": run_word_meaning(
+        engine8, "int8_word_meaning_sweep",
+        ("flash_attention", "flash_decode"))}
+    _, stats["int8_cascade_dispatch"] = run_dispatch(
+        "int8_cascade_dispatch", engine8, cells_trunk, rt,
+        ("cascade_prefix_int8", "flash_decode_trunk"),
+        ("cascade_dispatches", "cascade_decode_dispatches"))
+    _, stats["int8_spec_dispatch"] = run_dispatch(
+        "int8_spec_dispatch", engine8, cells_flat, rt,
+        ("flash_attention", "flash_decode_mq"), ("spec_dispatches",))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    profile_scoring(engine8, rt, "int8_profile")
+    nbytes8 = quant.param_bytes(params8)
+    log(json.dumps({"phase": "int8_slice", "init_seconds": init_s,
+                    "param_bytes": nbytes8,
+                    "max_memory_allocated_bytes": peak}))
+    del engine8, params8
+    torch.cuda.empty_cache()
+    return stats, nbytes8, peak
+
+
 def run_slice(params, cfg, tokenizer, engine, cells_trunk, cells_flat, rt):
     """Phase 3: every path of the slice at full width, each with its own
     launch counts. Returns (per-phase stats, launches summed over the
@@ -718,11 +994,23 @@ def run_slice(params, cfg, tokenizer, engine, cells_trunk, cells_flat, rt):
     spec_trunk_engine = ScoringEngine(
         params, cfg, tokenizer,
         RuntimeConfig(batch_size=BATCH, cascade_prefill=False), device=DEV)
+    two_leg_engine = ScoringEngine(
+        params, cfg, tokenizer,
+        RuntimeConfig(batch_size=BATCH, cascade_fused_suffix=False),
+        device=DEV)
     stats = {"word_meaning": run_word_meaning(engine)}
-    _, stats["cascade_dispatch"] = run_dispatch(
+    fused_out, stats["cascade_dispatch"] = run_dispatch(
         "cascade_dispatch", engine, cells_trunk, rt,
         ("cascade_attention", "flash_decode_trunk"),
         ("cascade_dispatches", "cascade_decode_dispatches"))
+    two_leg_out, stats["two_leg_cascade_dispatch"] = run_dispatch(
+        "two_leg_cascade_dispatch", two_leg_engine, cells_trunk, rt,
+        ("cascade_prefix", "flash_decode_trunk"),
+        ("cascade_dispatches", "cascade_decode_dispatches"))
+    if stats["two_leg_cascade_dispatch"]["launches"]["cascade_attention"]:
+        raise AssertionError("two-leg dispatch launched the fused kernel")
+    stats["two_leg_cascade_dispatch"]["vs_fused"] = compare_two_leg(
+        two_leg_out, fused_out)
     seq_out, stats["sequential_dispatch"] = run_dispatch(
         "sequential_dispatch", seq_engine, cells_flat, rt, ("flash_decode",),
         ("dense_shared_dispatches",))
@@ -750,7 +1038,7 @@ def run_slice(params, cfg, tokenizer, engine, cells_trunk, cells_flat, rt):
     return stats, total
 
 
-def profile_scoring(engine, rt):
+def profile_scoring(engine, rt, label="profile"):
     """Where one word-meaning batch's time goes: a torch.profiler trace
     of ``decode_fused`` (prefill + the 50 greedy steps) at B = 32. The
     device-busy time is the union of the CUDA kernel intervals; it is
@@ -774,7 +1062,7 @@ def profile_scoring(engine, rt):
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        log(json.dumps({"phase": "profile", "device_busy": "not measured",
+        log(json.dumps({"phase": label, "device_busy": "not measured",
                         "wall_ms": wall * 1e3}))
         return
     busy, end = 0.0, float("-inf")
@@ -788,7 +1076,7 @@ def profile_scoring(engine, rt):
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     log(json.dumps({
-        "phase": "profile", "call": "decode_fused, B=32, 50 steps",
+        "phase": label, "call": "decode_fused, B=32, 50 steps",
         "wall_ms": wall * 1e3, "device_busy_ms": busy / 1e3,
         "device_busy_share": busy / 1e3 / (wall * 1e3),
         "kernel_launches": len(kernels),
@@ -829,7 +1117,7 @@ def main() -> int:
                                  dtype=torch.bfloat16)
     torch.cuda.synchronize()
     log(json.dumps({"phase": "init_params", "seconds": time.perf_counter() - t0,
-                    "param_bytes": sum(nbytes(t) for t in _leaves(params))}))
+                    "param_bytes": quant.param_bytes(params)}))
     tokenizer = FakeTokenizer(vocab=cfg.vocab_size)
     engine = ScoringEngine(params, cfg, tokenizer, rt, device="cuda")
     cells_trunk, cells_flat = legal_cells(True), legal_cells(False)
@@ -888,6 +1176,25 @@ def main() -> int:
                   results)
     check_cascade(gen, "bloom-7b1/alibi", BATCH, R, 32, 32, 128, trunk, True,
                   results)
+    check_prefix(gen, "llama2-7b/cascade-dispatch", BATCH, R, H, K, hd, trunk,
+                 False, results)
+    check_prefix(gen, "mistral-7b/gqa", BATCH, R, 32, 8, 128, trunk, False,
+                 results)
+    check_prefix(gen, "falcon-7b/mqa", BATCH, R, 71, 1, 64, trunk, False,
+                 results)
+    check_prefix(gen, "bloom-7b1/alibi", BATCH, R, 32, 32, 128, trunk, True,
+                 results)
+    Sf = plan_f["bucket"]
+    for label, S in (("word-meaning", wm_T - rt.max_new_tokens),
+                     ("spec-dispatch", Sf), ("bucket-512", 512)):
+        check_flash_attention(gen, f"llama2-7b/{label}", BATCH, S, H, K, hd,
+                              False, results)
+    check_flash_attention(gen, "mistral-7b/gqa", BATCH, Sf, 32, 8, 128, False,
+                          results)
+    check_flash_attention(gen, "falcon-7b/mqa", BATCH, Sf, 71, 1, 64, False,
+                          results)
+    check_flash_attention(gen, "bloom-7b1/alibi", BATCH, Sf, 32, 32, 128, True,
+                          results)
     small_slice_check()
     verify_step_check(params, engine.cfg, rt.spec_k)
 
@@ -895,13 +1202,37 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     stats, launches = run_slice(params, cfg, tokenizer, engine, cells_trunk,
                                 cells_flat, rt)
+    bf16_peak = torch.cuda.max_memory_allocated()
     log(json.dumps({"phase": "slice", "launches": launches,
-                    "max_memory_allocated_bytes":
-                        torch.cuda.max_memory_allocated()}))
+                    "max_memory_allocated_bytes": bf16_peak}))
+    profile_scoring(engine, rt)
+    stats8, bytes8, peak8 = run_int8_slice(cfg, tokenizer, cells_trunk,
+                                           cells_flat, rt)
+    for st in stats8.values():
+        for name, n in st["launches"].items():
+            launches[name] += n
+    log(json.dumps({
+        "phase": "int8_vs_bf16",
+        "param_bytes": {"bf16": quant.param_bytes(params),
+                        "int8": bytes8},
+        "max_memory_allocated_bytes": {"bf16_phases": bf16_peak,
+                                       "int8_phases_both_param_sets": peak8},
+        "rows_per_s": {
+            "word_meaning": [stats["word_meaning"]["rows_per_s"],
+                             stats8["int8_word_meaning"]["rows_per_s"]],
+            "cascade_dispatch": [stats["cascade_dispatch"]["rows_per_s"],
+                                 stats8["int8_cascade_dispatch"]["rows_per_s"]],
+            "spec_dispatch": [stats["spec_dispatch"]["rows_per_s"],
+                              stats8["int8_spec_dispatch"]["rows_per_s"]]},
+        "ms_per_dispatch": {
+            "cascade_dispatch": [stats["cascade_dispatch"]["ms_per_dispatch"],
+                                 stats8["int8_cascade_dispatch"]["ms_per_dispatch"]],
+            "spec_dispatch": [stats["spec_dispatch"]["ms_per_dispatch"],
+                              stats8["int8_spec_dispatch"]["ms_per_dispatch"]]},
+        "order": ["bf16", "int8"]}))
     missing = [k for k, n in launches.items() if n <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
-    profile_scoring(engine, rt)
 
     # Summary: each kernel at its main-path shape.
     kernels = []
@@ -923,17 +1254,13 @@ def main() -> int:
     return 0
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, quant.QuantTensor):
+        return quant.QuantTensor(q=tree.q.to(device),
+                                 scale=tree.scale.to(device),
+                                 dynamic=tree.dynamic)
     return tree.to(device)
 
 

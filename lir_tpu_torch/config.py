@@ -3,8 +3,11 @@
 A copy of the part of the JAX package's ``RuntimeConfig``,
 ``SpecConfig`` and ``CascadeConfig`` that this port implements. A flag
 of the JAX engine that the port does not implement yet (fleet or
-radix-tree drafting, piggyback prefill, the prefix cache, int8) is
-absent here, so that no caller can set it and have it ignored.
+radix-tree drafting, piggyback prefill, the prefix cache, the int8 KV
+cache) is absent here, so that no caller can set it and have it
+ignored. int8 weights are not a flag: they are a param tree of
+``models.quant.QuantTensor`` leaves (``quantize_decoder_params`` or
+``init_quantized_params``).
 """
 
 from __future__ import annotations
@@ -64,8 +67,10 @@ class RuntimeConfig:
     # read K/V from cache row 0 once per kv head, bitwise the flat kernel.
     cascade_decode: bool = True
     # Fused cascade prefill: trunk leg, suffix leg and merge in one
-    # kernel. Off runs the two-leg version, whose trunk-leg kernel is not
-    # ported yet: on a CUDA tensor it raises.
+    # kernel. Off runs the two-leg route: the trunk-leg kernel
+    # (ops.cascade_prefix), then the suffix leg and the merge. The
+    # int8-QK^T cascade (CascadeConfig.int8_qk) takes the two-leg route
+    # whatever this says.
     cascade_fused_suffix: bool = True
 
 
@@ -94,3 +99,8 @@ class CascadeConfig:
     trunk_quantum: int = 16
     # Minimum REAL rows in the dispatch: one row has nothing to dedup.
     min_rows: int = 2
+    # int8 QK^T inside the trunk-leg kernel (ops.cascade_prefix_int8):
+    # each query row and trunk key row quantized by models/quant.py's
+    # dynamic rule, s8 x s8 -> s32, softmax and PV in float32. Scores
+    # are tolerance-bound; off keeps float32 scores.
+    int8_qk: bool = False

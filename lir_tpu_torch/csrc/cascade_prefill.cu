@@ -39,6 +39,31 @@
 // One block per (query tile of QB flattened rows, batch row, kv head);
 // its queries, the K/V tile, the score tile and both legs' accumulators
 // live in shared memory, so no partial reaches device memory.
+//
+// The same file holds the trunk-leg kernels of the TWO-LEG route
+// (lir_cascade_prefix below), which replace
+// lir_tpu/ops/cascade_prefill.py:_prefix_kernel (reached from
+// _prefix_partials): the (o, m, l) partials of every flattened query
+// n = (b * R + r) * G + g of kv head kh against the whole trunk, in
+// float32 QK^T or with in-kernel int8 QK^T (each query row and each trunk
+// key row quantized by models/quant.py's dynamic rule, s8 x s8 -> s32
+// with __dp4a, s = f32(s32) * (q_scale * sm_scale) * k_scale). The suffix
+// leg and the merge of that route are plain PyTorch, as they are XLA in
+// the JAX package.
+//
+// What bounds the trunk leg on the H100: bytes. At the cascade dispatch's
+// shape (llama-2-7b, B = 32, R = 80, Tt = 432) it must read q (21 MB) and
+// the trunk (7 MB) and write float32 partials (43 MB) against 18 GFLOP:
+// ~0.021 ms of bytes, ~0.018 ms of bf16 tensor-core time. This first
+// kernel multiplies on CUDA cores (float32 FMA or __dp4a) from shared
+// memory tiles (attn_tile.cuh: 64 queries x 64 keys a tile, a 4 x 4
+// register micro-tile a thread), so operations bound it in practice; mma
+// or wgmma with TMA loads is later work. The TPU holds the whole trunk in
+// one VMEM block; here a 432-slot trunk does not fit in shared memory
+// beside the queries, so the kernel loops over key tiles with an online
+// softmax. Its final m is the row max over the whole trunk and l, o are
+// rescaled to it, so the merge sees what the TPU partial gives, within
+// float tolerance (the sum runs in another order).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,37 +72,18 @@
 
 #include <cmath>
 
+#include "attn_tile.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kQB = 32;  // flattened query rows per block
 constexpr int kW = 32;   // keys per tile
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int off = 16; off > 0; off >>= 1)
-    x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
+using attn_tile::from_f32;
+using attn_tile::to_f32;
+using attn_tile::warp_max;
+using attn_tile::warp_sum;
 
 struct Args {
   const void* q;
@@ -342,5 +348,225 @@ extern "C" int lir_cascade_attention(const void* q, const void* sk,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return int(launch<float>(a, st));
   if (dtype == 1) return int(launch<__nv_bfloat16>(a, st));
+  return int(cudaErrorInvalidValue);
+}
+
+// ---------------------------------------------------------------------------
+// Trunk leg of the two-leg route: cascade_prefix (float32 QK^T) and
+// cascade_prefix_int8 (in-kernel int8 QK^T).
+// ---------------------------------------------------------------------------
+
+namespace {
+
+namespace tile = attn_tile;
+
+struct PrefixArgs {
+  const void* q;           // (B, R, H, hd)
+  const void* tk;          // (K, Tt, hd)
+  const void* tv;          // (K, Tt, hd)
+  const float* slopes;     // (H,) or null
+  float* o;                // (B, K, R, G, hd)
+  float* m;                // (B, K, R, G)
+  float* l;                // (B, K, R, G)
+  int B, R, H, K, Tt;
+  float sm_scale;
+};
+
+template <int HD, bool INT8>
+struct PrefixSmem {
+  using D = tile::Dims<HD>;
+  // float: q tile, one K-then-V tile; int8: q and k payloads + scales and
+  // a V tile. Then the probability tile and the row statistics.
+  static constexpr size_t kQ = INT8 ? tile::kQB * D::kLd8 * 4 + tile::kQB * 4
+                                    : tile::kQB * D::kLd * 4;
+  static constexpr size_t kK = INT8 ? tile::kKB * D::kLd8 * 4 + tile::kKB * 4 : 0;
+  static constexpr size_t kV = tile::kKB * D::kLd * 4;
+  static constexpr size_t kP = tile::kQB * tile::kLdP * 4;
+  static constexpr size_t kStats = 3 * tile::kQB * 4;
+  static constexpr size_t kBytes = kQ + kK + kV + kP + kStats;
+};
+
+// Grid (ceil(N / kQB), K) with N = B * R * G flattened queries; the tail
+// tile's rows past N are masked (never loaded, never written).
+template <typename T, int HD, bool INT8>
+__global__ void __launch_bounds__(tile::kThreads) prefix_kernel(PrefixArgs a) {
+  using D = tile::Dims<HD>;
+  using S = PrefixSmem<HD, INT8>;
+  extern __shared__ __align__(16) unsigned char prefix_smem[];
+  const int kh = blockIdx.y;
+  const int n0 = blockIdx.x * tile::kQB;
+  const int G = a.H / a.K;
+  const int RG = a.R * G;
+  const int N = a.B * RG;
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+
+  unsigned char* p = prefix_smem;
+  float* qf = reinterpret_cast<float*>(p);         // float variant
+  int* q8 = reinterpret_cast<int*>(p);             // int8 variant
+  float* qsc = reinterpret_cast<float*>(p + tile::kQB * D::kLd8 * 4);
+  p += S::kQ;
+  int* k8 = reinterpret_cast<int*>(p);
+  float* ksc = reinterpret_cast<float*>(p + tile::kKB * D::kLd8 * 4);
+  p += S::kK;
+  float* vs = reinterpret_cast<float*>(p);         // float: K, then V
+  p += S::kV;
+  float* ps = reinterpret_cast<float*>(p);
+  p += S::kP;
+  float* m = reinterpret_cast<float*>(p);
+  float* l = m + tile::kQB;
+  float* sc = l + tile::kQB;
+
+  const T* q = static_cast<const T*>(a.q);
+  const T* tk = static_cast<const T*>(a.tk);
+  const T* tv = static_cast<const T*>(a.tv);
+  // Flattened query n is q[b, r, kh * G + g] with b * R + r = n / G.
+  auto q_off = [&](int r) {
+    const int n = n0 + r;
+    return (size_t(n / G) * a.H + size_t(kh) * G + n % G) * HD;
+  };
+  auto q_ok = [&](int r) { return n0 + r < N; };
+  if constexpr (INT8) {
+    // Payloads of the raw query row; its scale carries sm_scale, folded
+    // as the TPU kernel folds it: (q_scale * sm_scale).
+    tile::load_tile_int8<HD>(q8, qsc, q, tile::kQB, a.sm_scale, q_off, q_ok);
+  } else {
+    tile::load_tile<HD>(qf, q, tile::kQB, a.sm_scale, q_off, q_ok);
+  }
+  for (int i = threadIdx.x; i < tile::kQB; i += blockDim.x) {
+    m[i] = -CUDART_INF_F;
+    l[i] = 0.f;
+  }
+  float slope[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int n = n0 + ty + 16 * i;
+    slope[i] = (a.slopes != nullptr && n < N) ? a.slopes[kh * G + n % G] : 0.f;
+  }
+  float acc[4][D::kCols];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < D::kCols; ++c) acc[i][c] = 0.f;
+
+  for (int t0 = 0; t0 < a.Tt; t0 += tile::kKB) {
+    __syncthreads();  // the previous tile's PV is done with vs and ps
+    auto k_off = [&](int r) { return (size_t(kh) * a.Tt + t0 + r) * HD; };
+    auto k_ok = [&](int r) { return t0 + r < a.Tt; };
+    if constexpr (INT8) {
+      tile::load_tile_int8<HD>(k8, ksc, tk, tile::kKB, 1.f, k_off, k_ok);
+      tile::load_tile<HD>(vs, tv, tile::kKB, 1.f, k_off, k_ok);
+    } else {
+      tile::load_tile<HD>(vs, tk, tile::kKB, 1.f, k_off, k_ok);
+    }
+    __syncthreads();
+    float s[4][4];
+    if constexpr (INT8) {
+      int s32[4][4];
+      tile::score_s8<HD>(q8, k8, s32);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          s[i][j] = __fmul_rn(__fmul_rn(float(s32[i][j]), qsc[ty + 16 * i]),
+                              ksc[tx + 16 * j]);
+    } else {
+      tile::score_f32<HD>(qf, vs, s);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int t = t0 + tx + 16 * j;
+        float x = s[i][j];
+        if (a.slopes != nullptr) x = __fadd_rn(x, __fmul_rn(slope[i], float(t)));
+        ps[(ty + 16 * i) * tile::kLdP + tx + 16 * j] =
+            t < a.Tt ? x : -CUDART_INF_F;
+      }
+    __syncthreads();
+    if constexpr (!INT8) {
+      tile::load_tile<HD>(vs, tv, tile::kKB, 1.f, k_off, k_ok);
+    }
+    tile::online_softmax(ps, m, l, sc);
+    __syncthreads();
+    tile::pv_update<HD>(ps, vs, sc, acc);
+  }
+  __syncthreads();
+
+  // Partials in the (B, K, R, G) layout of the plain twin: flattened
+  // query n of batch row b sits at (b * K + kh) * R * G + n % (R * G).
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int n = n0 + ty + 16 * i;
+    if (n >= N) continue;
+    const size_t row = size_t(n / RG) * a.K * RG + size_t(kh) * RG + n % RG;
+#pragma unroll
+    for (int c = 0; c < D::kCols; ++c) a.o[row * HD + tx + 16 * c] = acc[i][c];
+  }
+  for (int i = threadIdx.x; i < tile::kQB; i += blockDim.x) {
+    const int n = n0 + i;
+    if (n >= N) continue;
+    const size_t row = size_t(n / RG) * a.K * RG + size_t(kh) * RG + n % RG;
+    a.m[row] = m[i];
+    a.l[row] = l[i];
+  }
+}
+
+template <typename T, int HD, bool INT8>
+cudaError_t launch_prefix(const PrefixArgs& a, cudaStream_t st) {
+  const int smem = int(PrefixSmem<HD, INT8>::kBytes);
+  cudaError_t e = cudaFuncSetAttribute(
+      prefix_kernel<T, HD, INT8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return e;
+  const long long N = (long long)a.B * a.R * (a.H / a.K);
+  dim3 grid(unsigned((N + tile::kQB - 1) / tile::kQB), a.K);
+  prefix_kernel<T, HD, INT8><<<grid, tile::kThreads, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T, bool INT8>
+cudaError_t prefix_by_hd(const PrefixArgs& a, int hd, cudaStream_t st) {
+  switch (hd) {
+    case 32: return launch_prefix<T, 32, INT8>(a, st);
+    case 64: return launch_prefix<T, 64, INT8>(a, st);
+    case 80: return launch_prefix<T, 80, INT8>(a, st);
+    case 96: return launch_prefix<T, 96, INT8>(a, st);
+    case 128: return launch_prefix<T, 128, INT8>(a, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// Trunk-leg partials of the two-leg cascade. dtype: 0 = float32,
+// 1 = bfloat16; int8_qk: 0 = float32 QK^T, 1 = int8 QK^T. hd one of 32,
+// 64, 80, 96, 128. Returns cudaGetLastError() (or the error of a refused
+// attribute), 0 on success.
+extern "C" int lir_cascade_prefix(const void* q, const void* tk, const void* tv,
+                                  const void* slopes, void* o, void* m, void* l,
+                                  int B, int R, int H, int K, int Tt, int hd,
+                                  int dtype, int int8_qk, void* stream) {
+  PrefixArgs a;
+  a.q = q;
+  a.tk = tk;
+  a.tv = tv;
+  a.slopes = static_cast<const float*>(slopes);
+  a.o = static_cast<float*>(o);
+  a.m = static_cast<float*>(m);
+  a.l = static_cast<float*>(l);
+  a.B = B;
+  a.R = R;
+  a.H = H;
+  a.K = K;
+  a.Tt = Tt;
+  a.sm_scale = float(1.0 / sqrt(double(hd)));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return int(int8_qk ? prefix_by_hd<float, true>(a, hd, st)
+                       : prefix_by_hd<float, false>(a, hd, st));
+  if (dtype == 1)
+    return int(int8_qk ? prefix_by_hd<__nv_bfloat16, true>(a, hd, st)
+                       : prefix_by_hd<__nv_bfloat16, false>(a, hd, st));
   return int(cudaErrorInvalidValue);
 }

@@ -244,17 +244,18 @@ def _cascade_branches(params, cfg: ModelConfig, tcache, trunk_len: int,
                       prefix, prefix_mask, sfx_a, sfx_a_mask, sfx_b,
                       sfx_b_mask, yes_ids, no_ids, digit_ids, digit_vals,
                       max_new_a: int, max_new_b: int, topk: int,
-                      stop_mask_b, stop_mask_a, eos_id):
+                      stop_mask_b, stop_mask_a, eos_id, int8_qk: bool = False):
     """Cascade-extend the per-row remainders over the (L, K, trunk_len,
-    1, hd) trunk cache, then run the two format branches as the dense
-    shared path's own code, their decode steps on the trunk kernel."""
+    1, hd) trunk cache (``int8_qk``: the trunk leg's QK^T in int8), then
+    run the two format branches as the dense shared path's own code,
+    their decode steps on the trunk kernel."""
     B, S = prefix.shape
     S2a, S2b = sfx_a.shape[1], sfx_b.shape[1]
     T0 = S + max(S2a + max_new_a, S2b + max_new_b)
     rem = prefix[:, trunk_len:]
     rem_mask = prefix_mask[:, trunk_len:]
     cache = decoder.cascade_extend(params, cfg, tcache, rem, rem_mask,
-                                   trunk_len, T0)
+                                   trunk_len, T0, int8_qk=int8_qk)
     return _branches(params, cfg, cache, T0, prefix_mask, sfx_a, sfx_a_mask,
                      sfx_b, sfx_b_mask, yes_ids, no_ids, digit_ids,
                      digit_vals, max_new_a, max_new_b, topk, stop_mask_b,
@@ -267,13 +268,15 @@ def greedy_decode_fused_shared_cascade(params, cfg: ModelConfig, prefix,
                                        sfx_b_mask, yes_ids, no_ids,
                                        digit_ids, digit_vals, max_new_a: int,
                                        max_new_b: int, trunk_len: int,
-                                       topk: int = 20, stop_mask_b=None,
-                                       stop_mask_a=None, eos_id=None):
+                                       topk: int = 20, int8_qk: bool = False,
+                                       stop_mask_b=None, stop_mask_a=None,
+                                       eos_id=None):
     """:func:`greedy_decode_fused_shared` with the SHARED-TRUNK prefill
     decomposed: every row shares its first ``trunk_len`` tokens, so the
     trunk prefill runs ONCE at batch 1 (mask all ones, slot t is position
-    t), the per-row remainders extend over it through the cascade kernel,
-    and the two format branches are the dense path's own code."""
+    t), the per-row remainders extend over it through the cascade
+    kernels (``int8_qk``: int8 QK^T in the trunk leg), and the two format
+    branches are the dense path's own code."""
     ones = torch.ones((1, trunk_len), dtype=prefix_mask.dtype,
                       device=prefix_mask.device)
     _, tcache, _ = decoder.prefill(params, cfg, prefix[:1, :trunk_len], ones,
@@ -282,7 +285,7 @@ def greedy_decode_fused_shared_cascade(params, cfg: ModelConfig, prefix,
                              prefix_mask, sfx_a, sfx_a_mask, sfx_b,
                              sfx_b_mask, yes_ids, no_ids, digit_ids,
                              digit_vals, max_new_a, max_new_b, topk,
-                             stop_mask_b, stop_mask_a, eos_id)
+                             stop_mask_b, stop_mask_a, eos_id, int8_qk)
 
 
 # ---------------------------------------------------------------------------

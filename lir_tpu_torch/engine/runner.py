@@ -15,6 +15,13 @@ decode kernels, trunk-aware where its rows share a trunk), or with
 kernels run on CUDA tensors and their plain PyTorch versions on CPU
 tensors, so the engine routes the same way on both; the JAX engine
 routes to its kernels only on a TPU (or under its interpreter hooks).
+
+The 8-bit path is the same engine with int8 params
+(``models.quant.quantize_decoder_params`` or ``init_quantized_params``),
+``ModelConfig.use_flash_attention`` (prefill flash kernel),
+``RuntimeConfig.cascade_fused_suffix=False`` and
+``CascadeConfig(int8_qk=True)`` (the two-leg cascade, int8 QK^T in its
+trunk leg).
 """
 
 from __future__ import annotations
@@ -369,15 +376,16 @@ class ScoringEngine:
     def _dispatch_shared_cascade(self, trunk: int, args, new_tokens: int,
                                  conf_tokens: int, stops: dict):
         """One CASCADE shared dispatch, cold: the batch-1 trunk prefill,
-        the per-row cascade remainder extension and both branches' fused
-        loops on the trunk-aware decode kernel
+        the per-row cascade remainder extension (its trunk leg in int8
+        QK^T with ``cascade_cfg.int8_qk``) and both branches' fused loops
+        on the trunk-aware decode kernel
         (generate.greedy_decode_fused_shared_cascade)."""
         self.cascade_stats["cascade_dispatches"] += 1
         if self.cascade_decode_supported():
             self.cascade_stats["cascade_decode_dispatches"] += 1
         return generate.greedy_decode_fused_shared_cascade(
             *args, max_new_a=new_tokens, max_new_b=conf_tokens,
-            trunk_len=trunk, **stops)
+            trunk_len=trunk, int8_qk=bool(self.cascade_cfg.int8_qk), **stops)
 
     # -- prompts -> rows ----------------------------------------------------
 

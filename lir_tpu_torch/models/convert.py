@@ -3,9 +3,10 @@
 ``params_from_jax`` takes the tree ``lir_tpu.models.decoder.init_params``
 (or its checkpoint loader) produces — given as nested dicts of numpy
 arrays, never as JAX arrays, so this module needs no JAX — and returns
-the port's parameter dict with the same layout on ``device``. The two
-packages then compute the same function, which is how the tests hold
-the port against the reference.
+the port's parameter dict with the same layout on ``device``; int8
+trees (``quantize_decoder_params``) convert too. The two packages then
+compute the same function, which is how the tests hold the port against
+the reference.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from .quant import QuantTensor
 from .registry import ModelConfig
 
 
@@ -54,12 +56,22 @@ def _to_tensor(arr, device, dtype) -> torch.Tensor:
     return t.to(device)
 
 
+def _is_quant(node) -> bool:
+    """A quantized leaf of the JAX package (its ``QuantTensor``, numpy
+    payload and scales), recognised by its attributes."""
+    return all(hasattr(node, a) for a in ("q", "scale", "dynamic"))
+
+
 def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig, device="cuda",
                     dtype: Optional[torch.dtype] = None):
     """Convert a JAX-layout param tree of numpy arrays to the port's params.
 
-    ``dtype`` casts every leaf (None keeps each array's own dtype). Raises
-    when the tree's keys do not match what ``cfg`` needs.
+    ``dtype`` casts every float leaf (None keeps each array's own dtype).
+    A quantized leaf (the JAX ``QuantTensor`` with numpy ``q``/``scale``,
+    as ``jax.tree.map(np.asarray, tree)`` leaves it) becomes the port's
+    :class:`~lir_tpu_torch.models.quant.QuantTensor` with its int8
+    payload, float32 scales and ``dynamic`` tag unchanged. Raises when
+    the tree's keys do not match what ``cfg`` needs.
     """
     dev = resolve_device(device)
     top, layers = _expected_keys(cfg)
@@ -71,6 +83,11 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig, device="cuda",
     def conv(node):
         if isinstance(node, Mapping):
             return {k: conv(v) for k, v in node.items()}
+        if _is_quant(node):
+            # int8 payload and float32 scales keep their dtypes.
+            return QuantTensor(q=_to_tensor(node.q, dev, None),
+                               scale=_to_tensor(node.scale, dev, None),
+                               dynamic=bool(node.dynamic))
         return _to_tensor(node, dev, dtype)
 
     out = conv(tree)

@@ -18,10 +18,14 @@ selected by ``registry.ModelConfig`` knobs.
   never a copy of it.
 - Decode steps route through ``ops.flash_decode`` / ``flash_decode_trunk``,
   speculative verify windows through ``ops.flash_decode_mq`` /
-  ``flash_decode_mq_trunk``, and the shared-trunk prefill through
-  ``ops.cascade_attention``. On a CUDA tensor those launch the
-  hand-written kernels; on a CPU tensor they run their plain versions,
-  so the routing is the same on both.
+  ``flash_decode_mq_trunk``, the shared-trunk prefill through
+  ``ops.cascade_attention`` (fused, or two-leg with a float or int8
+  QK^T trunk leg), and with ``cfg.use_flash_attention`` the prompt
+  prefill through ``ops.flash_attention``. On a CUDA tensor those launch
+  the hand-written kernels; on a CPU tensor they run their plain
+  versions, so the routing is the same on both.
+- The linear layers take dense or int8 weights (``models/quant.py``
+  QuantTensor leaves: weight-only, or dynamic s8 x s8 -> s32).
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ import torch.nn.functional as F
 
 from .. import ops
 from ..device import resolve_device
-from .quant import matmul as _mm, shared_quant as _shared_quant
+from .quant import QuantTensor, matmul as _mm, shared_quant as _shared_quant
 from .registry import ModelConfig
 
 Params = Dict[str, Any]
@@ -45,6 +49,56 @@ Params = Dict[str, Any]
 # Param init (random weights; the tree layout of the JAX package)
 # ---------------------------------------------------------------------------
 
+def param_tree(cfg: ModelConfig, leaf) -> Params:
+    """The JAX package's param tree layout, each leaf made by
+    ``leaf(name, shape, kind)`` in a fixed order (``kind`` is "normal",
+    "ones" or "zeros"; ``name`` the leaf's key, "scale"/"bias" inside a
+    norm)."""
+    D, H, K, hd, F_, L = (cfg.hidden_size, cfg.n_heads, cfg.n_kv_heads,
+                          cfg.head_dim, cfg.intermediate_size, cfg.n_layers)
+
+    def norm_p(*lead) -> Params:
+        p = {"scale": leaf("scale", (*lead, D), "ones")}
+        if cfg.norm == "layernorm":
+            p["bias"] = leaf("bias", (*lead, D), "zeros")
+        return p
+
+    layers: Params = {"ln1": norm_p(L)}
+    for name, shape in (("wq", (L, D, H * hd)), ("wk", (L, D, K * hd)),
+                        ("wv", (L, D, K * hd)), ("wo", (L, H * hd, D)),
+                        ("w_up", (L, D, F_)), ("w_down", (L, F_, D))):
+        layers[name] = leaf(name, shape, "normal")
+    if not cfg.shared_block_ln:
+        layers["ln2"] = norm_p(L)
+    if cfg.gated_mlp:
+        layers["w_gate"] = leaf("w_gate", (L, D, F_), "normal")
+    biases = []
+    if cfg.qkv_bias:
+        biases += [("bq", (L, H * hd)), ("bk", (L, K * hd)), ("bv", (L, K * hd))]
+    if cfg.attn_out_bias:
+        biases.append(("bo", (L, D)))
+    if cfg.mlp_bias:
+        biases += [("b_up", (L, F_)), ("b_down", (L, D))]
+    for name, shape in biases:
+        layers[name] = leaf(name, shape, "zeros")
+
+    params: Params = {"tok_embed": leaf("tok_embed", (cfg.vocab_size, D),
+                                        "normal"),
+                      "layers": layers}
+    if cfg.pos_embedding == "learned":
+        params["pos_embed"] = leaf(
+            "pos_embed", (cfg.max_seq_len + cfg.learned_pos_offset, D),
+            "normal")
+    if cfg.embedding_norm:
+        params["embed_ln"] = {"scale": leaf("scale", (D,), "ones"),
+                              "bias": leaf("bias", (D,), "zeros")}
+    if cfg.final_norm:
+        params["final_ln"] = norm_p()
+    if not cfg.tie_embeddings:
+        params["lm_head"] = leaf("lm_head", (D, cfg.vocab_size), "normal")
+    return params
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
                 dtype=torch.float32) -> Params:
     """Random-normal init (scale 0.02) made on ``device`` from a seeded
@@ -52,57 +106,20 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
-    D, H, K, hd, F_, L = (cfg.hidden_size, cfg.n_heads, cfg.n_kv_heads,
-                          cfg.head_dim, cfg.intermediate_size, cfg.n_layers)
 
-    def w(*shape, scale=0.02):
-        x = torch.randn(shape, generator=gen, device=dev, dtype=dtype)
-        return x.mul_(scale)
+    def leaf(name, shape, kind):
+        if kind == "normal":
+            x = torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+            return x.mul_(0.02)
+        fill = torch.ones if kind == "ones" else torch.zeros
+        return fill(shape, device=dev, dtype=dtype)
 
-    def zeros(*shape):
-        return torch.zeros(shape, device=dev, dtype=dtype)
-
-    def norm_p(*lead) -> Params:
-        p = {"scale": torch.ones((*lead, D), device=dev, dtype=dtype)}
-        if cfg.norm == "layernorm":
-            p["bias"] = zeros(*lead, D)
-        return p
-
-    layers: Params = {
-        "ln1": norm_p(L),
-        "wq": w(L, D, H * hd), "wk": w(L, D, K * hd), "wv": w(L, D, K * hd),
-        "wo": w(L, H * hd, D),
-        "w_up": w(L, D, F_), "w_down": w(L, F_, D),
-    }
-    if not cfg.shared_block_ln:
-        layers["ln2"] = norm_p(L)
-    if cfg.gated_mlp:
-        layers["w_gate"] = w(L, D, F_)
-    if cfg.qkv_bias:
-        layers["bq"] = zeros(L, H * hd)
-        layers["bk"] = zeros(L, K * hd)
-        layers["bv"] = zeros(L, K * hd)
-    if cfg.attn_out_bias:
-        layers["bo"] = zeros(L, D)
-    if cfg.mlp_bias:
-        layers["b_up"] = zeros(L, F_)
-        layers["b_down"] = zeros(L, D)
-
-    params: Params = {"tok_embed": w(cfg.vocab_size, D), "layers": layers}
-    if cfg.pos_embedding == "learned":
-        params["pos_embed"] = w(cfg.max_seq_len + cfg.learned_pos_offset, D)
-    if cfg.embedding_norm:
-        params["embed_ln"] = {"scale": torch.ones((D,), device=dev, dtype=dtype),
-                              "bias": zeros(D)}
-    if cfg.final_norm:
-        params["final_ln"] = norm_p()
-    if not cfg.tie_embeddings:
-        params["lm_head"] = w(D, cfg.vocab_size)
-    return params
+    return param_tree(cfg, leaf)
 
 
 def _layer(tree, i: int):
-    """Layer ``i`` of the stacked layer tree (views, no copies)."""
+    """Layer ``i`` of the stacked layer tree (views, no copies); a
+    QuantTensor slices payload and scales together."""
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
@@ -174,13 +191,39 @@ def _slopes_or_none(cfg: ModelConfig, device) -> Optional[torch.Tensor]:
     return None
 
 
+# Block edge of the JAX prefill flash kernel: a length is flash-routed when
+# it is at most one block or a multiple of it.
+FLASH_BLOCK = 128
+
+
+def _flash_ok(cfg: ModelConfig, S: int, T: int, key_mask) -> bool:
+    """The prefill flash route, the JAX gate exactly: the flag on, a key
+    mask, full self-attention (T == S) and a length of at most one block
+    or a multiple of it. Ragged lengths stay dense. As for the decode
+    kernels, no backend enters the decision."""
+    return (cfg.use_flash_attention and key_mask is not None and T == S
+            and (S % FLASH_BLOCK == 0 or S <= FLASH_BLOCK))
+
+
 def _attention(q, k, v, bias, cfg: ModelConfig, key_mask=None) -> torch.Tensor:
-    """Dense prefill attention. q: (B,S,H,hd); k,v: (B,T,K,hd); bias:
-    (B,H|1,S,T) additive float32. GQA/MQA contracts grouped query heads
-    against the un-repeated k/v (h = k*G + g)."""
+    """Prefill self-attention. q: (B,S,H,hd); k,v: (B,T,K,hd); bias:
+    (B,H|1,S,T) additive float32, or None on the flash route.
+
+    With :func:`_flash_ok` it runs ``ops.flash_attention``: causal, keys
+    masked by ``key_mask`` (any pattern), ALiBi on mask-aware key
+    positions, a query row with no valid key giving 0. Otherwise dense;
+    GQA/MQA contracts grouped query heads against the un-repeated k/v
+    (h = k*G + g), as the flash kernel indexes kv head h // G."""
     B, S, H, hd = q.shape
     K, T = k.shape[2], k.shape[1]
     G = H // K
+    if _flash_ok(cfg, S, T, key_mask):
+        slopes = _slopes_or_none(cfg, q.device)
+        kpos = mask_positions(key_mask) if slopes is not None else None
+        out = ops.flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), key_mask=key_mask,
+                                  alibi_slopes=slopes, key_positions=kpos)
+        return out.reshape(B, S, H * hd)
     qg = q.reshape(B, S, K, G, hd)
     scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float()
     scores = scores.reshape(B, H, S, T) / math.sqrt(hd) + bias
@@ -248,15 +291,18 @@ def _attention_cached_flash_mq(q, k, v, cfg: ModelConfig, fused_ctx,
 
 
 def _attention_cascade(q, k, v, trunk_kv, suffix_mask, q_positions,
-                       cfg: ModelConfig) -> torch.Tensor:
-    """Shared-trunk prefill window through the cascade kernel. q:
+                       cfg: ModelConfig, int8_qk: bool = False) -> torch.Tensor:
+    """Shared-trunk prefill window through the cascade kernels. q:
     (B, R, H, hd); k/v: (B, R, K, hd) the window's own post-RoPE k/v;
-    trunk_kv: (K, Tt, hd) pair."""
+    trunk_kv: (K, Tt, hd) pair. ``cfg.cascade_fused_suffix`` without
+    ``int8_qk`` takes the fused kernel; otherwise the two-leg route, its
+    trunk leg in float or (``int8_qk``) int8 QK^T."""
     B, R, H, hd = q.shape
     tk, tv = trunk_kv
     out = ops.cascade_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                 tk, tv, suffix_mask, q_positions,
                                 alibi_slopes=_slopes_or_none(cfg, q.device),
+                                int8_qk=int8_qk,
                                 fused_suffix=cfg.cascade_fused_suffix)
     return out.reshape(B, R, H * hd)
 
@@ -374,7 +420,10 @@ def _unembed(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.final_norm:
         x = _norm(x, params["final_ln"], cfg)
     head = params["tok_embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = torch.einsum("bsd,dv->bsv", x.float(), head.float())
+    if isinstance(head, QuantTensor):
+        logits = _mm(x.float(), head)               # weight-only int8 head
+    else:
+        logits = torch.einsum("bsd,dv->bsv", x.float(), head.float())
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return logits
@@ -444,7 +493,9 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     sin = cos = None
     if cfg.pos_embedding == "rotary":
         sin, cos = _rope_sincos(positions, cfg.rotary_dim, cfg.rope_theta)
-    bias = _causal_bias(attn_mask, positions, cfg)
+    # The flash route masks inside the kernel: no (B, H|1, S, S) bias.
+    bias = (None if _flash_ok(cfg, S, S, attn_mask)
+            else _causal_bias(attn_mask, positions, cfg))
     shape = (cfg.n_layers, cfg.n_kv_heads, max_len, B, cfg.head_dim)
     ck = torch.zeros(shape, dtype=x.dtype, device=x.device)
     cv = torch.zeros(shape, dtype=x.dtype, device=x.device)
@@ -488,16 +539,17 @@ def extend(params: Params, cfg: ModelConfig, cache, suffix_tokens: torch.Tensor,
 
 def cascade_extend(params: Params, cfg: ModelConfig, trunk_cache,
                    rem_tokens: torch.Tensor, rem_mask: torch.Tensor,
-                   trunk_len: int, total_len: int):
+                   trunk_len: int, total_len: int, int8_qk: bool = False):
     """Shared-trunk cascade prefill: build a B-row cache from ONE trunk.
 
     ``trunk_cache`` is a (L, K, Tt, 1, hd) pair computed once at batch 1
     (every slot real, slot == position). Each row's remainder
     ``rem_tokens``/``rem_mask`` (B, R), RIGHT-padded, runs through the
-    layers attending via the cascade kernel (trunk leg + causal suffix
-    leg, merged exactly). The returned cache broadcasts the trunk at
-    slots [0, trunk_len), holds the remainder k/v at
-    [trunk_len, trunk_len + R) and zeros up to ``total_len``.
+    layers attending via the cascade kernels (trunk leg + causal suffix
+    leg, merged exactly; ``int8_qk`` quantizes the trunk leg's QK^T).
+    The returned cache broadcasts the trunk at slots [0, trunk_len),
+    holds the remainder k/v at [trunk_len, trunk_len + R) and zeros up
+    to ``total_len``.
     """
     B, R = rem_tokens.shape
     L, K, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
@@ -517,7 +569,8 @@ def cascade_extend(params: Params, cfg: ModelConfig, trunk_cache,
         tv = tcv[i, :, :, 0].contiguous()
 
         def impl(q, k, v, key_mask, tk=tk, tv=tv):
-            return _attention_cascade(q, k, v, (tk, tv), rem_mask, qpos, cfg)
+            return _attention_cascade(q, k, v, (tk, tv), rem_mask, qpos, cfg,
+                                      int8_qk)
 
         x, (k, v) = _block(x, _layer(params["layers"], i), cfg, sin, cos,
                            None, None, None, key_mask=rem_mask,

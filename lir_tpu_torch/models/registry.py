@@ -61,9 +61,9 @@ class ModelConfig:
     tie_embeddings: bool = False
     logit_softcap: Optional[float] = None
 
-    # Full-sequence prefill through a flash kernel. The port has no
-    # prefill flash kernel yet, so prefill runs dense whatever this says
-    # (every 7B preset leaves it off).
+    # Full-sequence prefill through the flash kernel (ops/flash_attention)
+    # for lengths of at most 128 or multiples of 128; others stay dense.
+    # Every 7B preset leaves it off, as in the JAX package.
     use_flash_attention: bool = False
 
     # Decode attention backend: single-query cached decode steps run the

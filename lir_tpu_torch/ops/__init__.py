@@ -9,8 +9,13 @@
   verify window, S queries per row (the same source and kernels, which
   take S queries a row); query j bitwise ``flash_decode``, the trunk
   variant bitwise the flat one.
-- ``cascade_attention``: the fused shared-trunk prefill
-  (``csrc/cascade_prefill.cu``).
+- ``cascade_attention``: the shared-trunk prefill window. Its fused
+  route is one kernel (``csrc/cascade_prefill.cu``); its two-leg route
+  runs the trunk-leg kernels ``cascade_prefix`` (float32 QK^T) or
+  ``cascade_prefix_int8`` (int8 QK^T) of the same source, then the
+  suffix leg and the merge in plain PyTorch.
+- ``flash_attention``: prefill self-attention, causal with a key mask
+  of any pattern (``csrc/flash_attention.cu``).
 - ``merge_partials``: the log-sum-exp merge of partials (plain PyTorch;
   the kernels run it in device code).
 
@@ -23,7 +28,10 @@ from __future__ import annotations
 
 from typing import Dict
 
-from .cascade_prefill import cascade_attention, cascade_attention_plain
+from .cascade_prefill import (cascade_attention, cascade_attention_plain,
+                              cascade_prefix, cascade_prefix_int8,
+                              prefix_partials, prefix_partials_int8)
+from .flash_attention import flash_attention, flash_attention_plain
 from .flash_decode import (DECODE_SPLIT, flash_decode, flash_decode_mq,
                            flash_decode_mq_plain, flash_decode_mq_trunk,
                            flash_decode_mq_trunk_plain, flash_decode_plain,
@@ -36,6 +44,9 @@ KERNELS = {
     "cascade_attention": cascade_attention,
     "flash_decode_mq": flash_decode_mq,
     "flash_decode_mq_trunk": flash_decode_mq_trunk,
+    "cascade_prefix": cascade_prefix,
+    "cascade_prefix_int8": cascade_prefix_int8,
+    "flash_attention": flash_attention,
 }
 
 
@@ -50,8 +61,10 @@ def launch_counts() -> Dict[str, int]:
 
 __all__ = [
     "DECODE_SPLIT", "KERNELS", "cascade_attention", "cascade_attention_plain",
-    "flash_decode", "flash_decode_mq", "flash_decode_mq_plain",
-    "flash_decode_mq_trunk", "flash_decode_mq_trunk_plain",
-    "flash_decode_plain", "flash_decode_trunk", "flash_decode_trunk_plain",
-    "launch_counts", "merge_partials", "reset_launches",
+    "cascade_prefix", "cascade_prefix_int8", "flash_attention",
+    "flash_attention_plain", "flash_decode", "flash_decode_mq",
+    "flash_decode_mq_plain", "flash_decode_mq_trunk",
+    "flash_decode_mq_trunk_plain", "flash_decode_plain", "flash_decode_trunk",
+    "flash_decode_trunk_plain", "launch_counts", "merge_partials",
+    "prefix_partials", "prefix_partials_int8", "reset_launches",
 ]

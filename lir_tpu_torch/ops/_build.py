@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels.
 
-Each source ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into
-a shared library with a plain C interface, loaded with ``ctypes``. The
-library lands in ``build/lir_tpu_torch/`` at the root of the checkout,
-under a name keyed on a hash of its source and flags, so an edited
-source rebuilds and an unchanged one is reused. A failed compile raises:
-there is no fallback.
+Each source ``csrc/<name>.cu`` (with the shared ``csrc/*.cuh`` headers)
+compiles with ``nvcc`` for ``sm_90a`` into a shared library with a plain
+C interface, loaded with ``ctypes``. The library lands in
+``build/lir_tpu_torch/`` at the root of the checkout, under a name keyed
+on a hash of its source, the headers and the flags, so an edited source
+rebuilds and an unchanged one is reused. A failed compile raises: there
+is no fallback.
 """
 
 from __future__ import annotations
@@ -21,7 +22,9 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lir_tpu_torch"
-SOURCES = ("flash_decode", "cascade_prefill")
+SOURCES = ("flash_decode", "cascade_prefill", "flash_attention")
+# Head dims the tile kernels of csrc/attn_tile.cuh are instantiated for.
+TILE_HEAD_DIMS = (32, 64, 80, 96, 128)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,7 +47,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # The key covers the shared headers too: an edited header rebuilds.
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -9,8 +9,13 @@ the test, never at import). Run on the card with
 machine need not have). bf16 kernel output against the float32 plain
 version of the same bf16 inputs, atol = rtol = 1e-2 (bf16 output
 rounding); the trunk kernels bitwise the flat ones, and query j of the
-multi-query kernel bitwise the single-query kernel at its position.
+multi-query kernel bitwise the single-query kernel at its position. The
+trunk-leg kernels' float32 partials against their plain versions'
+within 1e-3 (sums of ~100 terms in another order); with int8 QK^T the
+row max bitwise (the scores are).
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -120,3 +125,109 @@ def test_wrapper_counts_launches(gen):
     counts = ops.launch_counts()
     assert (counts["flash_decode"], counts["flash_decode_mq"],
             counts["flash_decode_mq_trunk"]) == (1, 1, 1)
+
+
+@pytest.mark.parametrize("H,K,hd,alibi", [(8, 8, 128, False), (8, 2, 128, False),
+                                          (71, 1, 64, False), (8, 8, 64, True)])
+@pytest.mark.parametrize("int8_qk", [False, True])
+def test_cascade_prefix_kernels_match_plain(gen, H, K, hd, alibi, int8_qk):
+    """The trunk-leg kernels (a ragged last tile of flattened queries and
+    of trunk keys) against their plain versions, and the two-leg route
+    through them against its plain two-leg function."""
+    B, R, Tt = 3, 21, 100
+    q = _rnd(gen, B, R, H, hd)
+    sk, sv = _rnd(gen, B, R, K, hd), _rnd(gen, B, R, K, hd)
+    tk, tv = _rnd(gen, K, Tt, hd), _rnd(gen, K, Tt, hd)
+    slopes = alibi_slopes(H, "cuda") if alibi else None
+    kernel = ops.cascade_prefix_int8 if int8_qk else ops.cascade_prefix
+    plain = ops.prefix_partials_int8 if int8_qk else ops.prefix_partials
+    got = kernel(q, tk, tv, slopes)
+    ref = plain(q, tk, tv, slopes)
+    if int8_qk:
+        # Bitwise payloads and exact s32 dots, folded in the same order:
+        # the scores, and so their row max, are the plain version's.
+        assert torch.equal(got[1], ref[1])
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, atol=1e-3, rtol=1e-3)
+    mask = torch.ones((B, R), dtype=torch.int32, device="cuda")
+    mask[1, 15:] = 0
+    qpos = (Tt + torch.clamp_min(torch.cumsum(mask, -1, dtype=torch.int32) - 1,
+                                 0)).to(torch.int32)
+    out = ops.cascade_attention(q, sk, sv, tk, tv, mask, qpos,
+                                alibi_slopes=slopes, int8_qk=int8_qk,
+                                fused_suffix=False)
+    ref_out = ops.cascade_attention(q.cpu(), sk.cpu(), sv.cpu(), tk.cpu(),
+                                    tv.cpu(), mask.cpu(), qpos.cpu(),
+                                    alibi_slopes=None if slopes is None
+                                    else slopes.cpu(), int8_qk=int8_qk,
+                                    fused_suffix=False)
+    torch.testing.assert_close(out.float().cpu(), ref_out.float(), **TOL)
+
+
+@pytest.mark.parametrize("S", [48, 128, 256])
+@pytest.mark.parametrize("H,K,hd,alibi", [(8, 8, 128, False), (8, 2, 128, False),
+                                          (71, 1, 64, False), (8, 8, 64, True)])
+def test_flash_attention_kernel_matches_plain(gen, H, K, hd, alibi, S):
+    B = 3
+    q = _rnd(gen, B, S, H, hd)
+    k, v = _rnd(gen, B, S, K, hd), _rnd(gen, B, S, K, hd)
+    mask = torch.ones((B, S), dtype=torch.int32, device="cuda")
+    mask[0, :S // 3] = 0                      # left pad
+    mask[1, 5:9] = 0                          # a hole
+    mask[2, :] = 0                            # no valid key: zeros
+    kpos = torch.clamp_min(torch.cumsum(mask, -1, dtype=torch.int32) - 1, 0)
+    slopes = alibi_slopes(H, "cuda") if alibi else None
+    kw = dict(key_mask=mask, alibi_slopes=slopes,
+              key_positions=kpos if alibi else None)
+    got = ops.flash_attention(q, k, v, **kw)
+    ref = ops.flash_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), ref.float(), **TOL)
+    assert bool((got[2] == 0).all())
+
+
+def test_new_wrappers_count_launches(gen):
+    ops.reset_launches()
+    q = _rnd(gen, 2, 8, 4, 64)
+    tk = _rnd(gen, 4, 70, 64)
+    ops.cascade_prefix(q, tk, tk)
+    ops.cascade_prefix_int8(q, tk, tk)
+    k = _rnd(gen, 2, 8, 2, 64)
+    ops.flash_attention(q, k, k)
+    counts = ops.launch_counts()
+    assert (counts["cascade_prefix"], counts["cascade_prefix_int8"],
+            counts["flash_attention"]) == (1, 1, 1)
+
+
+def test_quantization_on_card_is_bitwise_the_cpu_rule(gen):
+    """dynamic_quant and quantize on the card: payloads and scales
+    bitwise the CPU's (which the CPU tests hold bitwise to the JAX
+    package's): IEEE division, round half to even."""
+    from lir_tpu_torch.models import quant
+
+    x = torch.randn((64, 4096), generator=gen, device="cuda") * 3
+    q_card, s_card = quant.dynamic_quant(x)
+    q_cpu, s_cpu = quant.dynamic_quant(x.cpu())
+    assert torch.equal(s_card.cpu(), s_cpu) and torch.equal(q_card.cpu(), q_cpu)
+    w = quant.quantize(x)
+    w_cpu = quant.quantize(x.cpu())
+    assert torch.equal(w.scale.cpu(), w_cpu.scale)
+    assert torch.equal(w.q.cpu(), w_cpu.q)
+
+
+@pytest.mark.parametrize("rows", [3, 16, 17, 40])
+def test_int8_matmul_on_card_matches_cpu(gen, rows):
+    """The dynamic route on the card (torch._int_mm, rows padded past 16)
+    against the CPU's int32 product: the s32 products exact, so the
+    float32 outputs bitwise."""
+    from lir_tpu_torch.models import quant
+
+    x = torch.randn((rows, 256), generator=gen, device="cuda")
+    w = torch.randn((256, 96), generator=gen, device="cuda") * 0.02
+    wq = dataclasses.replace(quant.quantize(w), dynamic=True)
+    got = quant.matmul(x, wq)
+    ref = quant.matmul(x.cpu(), dataclasses.replace(
+        quant.quantize(w.cpu()), dynamic=True))
+    assert torch.equal(got.cpu(), ref)
+    with pytest.raises(ValueError, match="multiples"):
+        quant.int8_dot(torch.zeros((20, 12), dtype=torch.int8, device="cuda"),
+                       torch.zeros((12, 8), dtype=torch.int8, device="cuda"))

@@ -17,6 +17,8 @@ import lir_tpu_torch.config, lir_tpu_torch.data, lir_tpu_torch.ops
 import lir_tpu_torch.backends.fake, lir_tpu_torch.models.convert
 import lir_tpu_torch.engine.runner, lir_tpu_torch.engine.sweep
 import lir_tpu_torch.engine.spec
+import lir_tpu_torch.models.quant, lir_tpu_torch.ops.flash_attention
+import lir_tpu_torch.ops.cascade_prefill
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
@@ -88,11 +90,39 @@ def test_cuda_wrappers_refuse_non_cuda_tensors():
                                   torch.zeros((2, 80, 1, 4), device="meta"), p2,
                                   torch.ones((1, 80), dtype=torch.int32,
                                              device="meta"), trunk_len=70)
+    cascade_args = (torch.zeros((1, 2, 2, 4), device="meta"),
+                    torch.zeros((1, 2, 2, 4), device="meta"),
+                    torch.zeros((1, 2, 2, 4), device="meta"),
+                    torch.zeros((2, 3, 4), device="meta"),
+                    torch.zeros((2, 3, 4), device="meta"),
+                    torch.ones((1, 2), dtype=torch.int32, device="meta"),
+                    torch.ones((1, 2), dtype=torch.int32, device="meta"))
     with pytest.raises(ValueError, match="CUDA"):
-        ops.cascade_attention(torch.zeros((1, 2, 2, 4), device="meta"),
-                              torch.zeros((1, 2, 2, 4), device="meta"),
-                              torch.zeros((1, 2, 2, 4), device="meta"),
-                              torch.zeros((2, 3, 4), device="meta"),
-                              torch.zeros((2, 3, 4), device="meta"),
-                              torch.ones((1, 2), dtype=torch.int32, device="meta"),
-                              torch.ones((1, 2), dtype=torch.int32, device="meta"))
+        ops.cascade_attention(*cascade_args)
+    for int8_qk in (False, True):
+        with pytest.raises(ValueError, match="CUDA"):
+            ops.cascade_attention(*cascade_args, int8_qk=int8_qk,
+                                  fused_suffix=False)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.flash_attention(torch.zeros((1, 4, 2, 32), device="meta"),
+                            torch.zeros((1, 4, 1, 32), device="meta"),
+                            torch.zeros((1, 4, 1, 32), device="meta"))
+
+
+def test_int8_product_refuses_non_cuda_tensors():
+    """The s8 x s8 product has the CPU's int32 matmul and the card's
+    torch._int_mm, and nothing else: no float fallback."""
+    from lir_tpu_torch.models.quant import int8_dot
+
+    x = torch.zeros((4, 8), dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        int8_dot(x, torch.zeros((8, 8), dtype=torch.int8, device="meta"))
+
+
+@pytest.mark.parametrize("entry", ["init_quantized_params"])
+def test_quantized_init_defaults_to_cuda(monkeypatch, entry):
+    from lir_tpu_torch.models import quant, registry
+
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        quant.init_quantized_params(registry.tiny("llama"))

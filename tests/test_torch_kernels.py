@@ -185,4 +185,7 @@ def test_wrappers_count_only_kernel_launches():
     assert ops.launch_counts() == {"flash_decode": 0, "flash_decode_trunk": 0,
                                    "cascade_attention": 0,
                                    "flash_decode_mq": 0,
-                                   "flash_decode_mq_trunk": 0}
+                                   "flash_decode_mq_trunk": 0,
+                                   "cascade_prefix": 0,
+                                   "cascade_prefix_int8": 0,
+                                   "flash_attention": 0}
