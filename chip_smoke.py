@@ -5,7 +5,11 @@
 Phases (each raises on failure, so the script exits non-zero):
 
 1. Build: compile every kernel of ``lir_tpu_torch/csrc`` with nvcc for
-   sm_90a, one nvcc per source, all at once.
+   sm_90a, one nvcc per source, all at once; print ptxas's registers,
+   shared memory and spills per kernel, and the count of tensor-core
+   instructions (HMMA, or HGMMA for wgmma) in each instantiation of the
+   bf16 cascade kernels (``cascade_mma_kernel``, ``prefix_mma_kernel``)
+   from ``cuobjdump -sass`` of the built library; fail if one has none.
 2. Kernels against their plain PyTorch versions on the card, at the
    shapes the main path gives them (llama-2-7b widths, B = 32, the cache
    extents and trunks of phase 3's dispatches; the verify window's
@@ -63,6 +67,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -1083,6 +1088,51 @@ def profile_scoring(engine, rt, label="profile"):
         "top_kernels_ms": {name[:80]: us / 1e3 for name, us in top}}))
 
 
+def kernel_label(mangled: str) -> str:
+    """A kernel's name and raw template arguments from its mangled name,
+    e.g. ``prefix_mma_kernel<Li128>``."""
+    for m in re.finditer(r"\d+", mangled):
+        name = mangled[m.end():m.end() + int(m.group())]
+        if name.endswith("kernel"):
+            args = re.match(r"I(.*?)EE", mangled[m.end() + len(name):])
+            return f"{name}<{args.group(1)}>" if args else name
+    return mangled
+
+
+def ptxas_report(name: str, text: str):
+    """The register, shared-memory and spill lines of one build's ptxas
+    report, each with the kernel it belongs to."""
+    kernel = "?"
+    for line in text.splitlines():
+        found = re.search(r"(?:entry function|Function properties for) '?(\w+)", line)
+        if found:
+            kernel = kernel_label(found.group(1))
+        elif "registers" in line or "smem" in line or "spill" in line:
+            log(f"ptxas[{name}] {kernel}: {line.strip()}")
+
+
+def tensor_core_counts(name: str, kernels) -> dict:
+    """Tensor-core instructions (HMMA, or HGMMA for wgmma) in each
+    instantiation of ``kernels`` in the built library of ``csrc/<name>.cu``,
+    counted in its ``cuobjdump -sass``. Fails if any has none."""
+    counts, fn = {}, None
+    for line in _build.sass(name).splitlines():
+        found = re.search(r"Function : (\w+)", line)
+        if found:
+            fn = kernel_label(found.group(1))
+            if any(k in fn for k in kernels):
+                counts[fn] = 0
+        elif fn in counts and re.search(r"\bH(G)?MMA\b", line):
+            counts[fn] += 1
+    log(json.dumps({"phase": "sass", "source": f"{name}.cu",
+                    "tensor_core_instructions": counts}))
+    missing = [k for k in kernels if not any(k in fn for fn in counts)]
+    if missing or min(counts.values()) == 0:
+        raise AssertionError(f"{name}: no tensor-core instructions in some "
+                             f"of {kernels}: {counts}")
+    return counts
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1105,9 +1155,10 @@ def main() -> int:
     log(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                     "per_source_seconds": secs}))
     for name, text in _build.BUILD_LOGS.items():
-        for line in text.splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
-                log(f"ptxas[{name}]: {line.strip()}")
+        ptxas_report(name, text)
+    # The bf16 cascade kernels run on tensor cores: HMMA in their SASS.
+    tensor_core_counts("cascade_prefill",
+                       ("cascade_mma_kernel", "prefix_mma_kernel"))
 
     # Phase 3's shapes, planned up front.
     cfg = registry.llama2_7b()

@@ -1,69 +1,82 @@
-// Fused shared-trunk cascade attention for Hopper (sm_90a): one layer's
-// remainder-window prefill on a shared-trunk dispatch.
+// Shared-trunk cascade prefill for Hopper (sm_90a): one layer's
+// remainder-window prefill on a shared-trunk dispatch, on both routes of
+// ops/cascade_prefill.py.
 //
-// Replaces lir_tpu/ops/cascade_prefill.py:_fused_cascade_kernel (the
-// default route of cascade_attention, _cascade_fused): every query of a
-// row's remainder window attends the ONE shared trunk (the trunk leg: no
-// mask, no causality, ALiBi on slot positions 0..Tt-1) and its row's own
-// window (the suffix leg: mask-aware and causal on q_positions, ALiBi on
-// q_positions), and the two partials merge by the log-sum-exp rule of
-// merge_partials, trunk first.
+// lir_cascade_attention replaces lir_tpu/ops/cascade_prefill.py:
+// _fused_cascade_kernel (the default route, _cascade_fused): every query
+// of a row's remainder window attends the ONE shared trunk (the trunk leg:
+// no mask, no causality, ALiBi on slot positions 0..Tt-1) and its row's
+// own window (the suffix leg: mask-aware and causal on q_positions, ALiBi
+// on q_positions); the result is the softmax over trunk + window keys.
+// lir_cascade_prefix replaces _prefix_kernel (reached from
+// _prefix_partials, the TWO-LEG route): the (o, m, l) partials of every
+// flattened query n = (b * R + r) * G + g of kv head kh against the whole
+// trunk, float32, in the (B, K, R, G) layout merge_partials expects; with
+// int8_qk the QK^T is quantized in the kernel (each query row and trunk
+// key row by models/quant.py's dynamic rule, s8 x s8 -> s32 with __dp4a,
+// s = f32(s32) * (q_scale * sm_scale) * k_scale). That route's suffix leg
+// and merge are plain PyTorch, as they are XLA in the JAX package.
 //
 // Layout (the JAX package's public shapes): q (B, R, H, hd); window k, v
 // (B, R, K, hd); trunk k, v (K, Tt, hd); suffix_mask and q_positions
-// (B, R) int32; slopes_rg (K, R * G) float32 or null: the per-flattened-
-// row ALiBi slopes, built on the host as the JAX wrapper builds them
-// (flattened query n = r * G + g of kv head kh uses head kh * G + g).
-// Output (B, R, H, hd) in q's dtype.
+// (B, R) int32; fused ALiBi slopes_rg (K, R * G) float32 (flattened row
+// n = r * G + g of kv head kh uses head kh * G + g, built on the host as
+// the JAX wrapper builds them), trunk-leg slopes (H,). Output (B, R, H, hd)
+// in q's dtype; partials o (B, K, R, G, hd), m and l (B, K, R, G).
 //
-// What bounds it on the H100: bytes, at this slice's shapes. At
-// llama-2-7b width, B = 32, R = 80 and Tt = 432 it must read q, the window
-// K/V and the trunk K/V and write the output, ~91 MB against ~20 GFLOP:
-// ~220 FLOP per byte, under the card's bf16 tensor-core ridge (~295), so
-// the least time is the bytes over the memory rate (~27 us). This first
-// kernel is the simple one and runs two orders of magnitude over that:
-// its products are float32 FMA on CUDA cores fed from shared memory, which
-// tensor cores (wgmma, with TMA loads) would close. Its time stands beside
-// the bound in PERF.md; the tensor-core rewrite is later work.
+// What bounds them on the H100: bytes, at the cascade dispatch's shape
+// (llama-2-7b, B = 32, R = 80, Tt = 432). The fused kernel reads q, the
+// window K/V and the trunk K/V and writes the output, ~91 MB against
+// ~20 GFLOP of the model's work (~27 us of bytes); the trunk leg reads q
+// (21 MB) and the trunk (7 MB) and writes 43 MB of float32 partials
+// against 18 GFLOP (~21 us of bytes, ~18 us of bf16 tensor-core time).
+// Both sit at or under the card's bf16 ridge (~295 FLOP per byte).
 //
-// Where it differs from the TPU kernel: the TPU keeps the whole trunk in
-// VMEM as one block. Here a 512-slot trunk at hd 128 is 128 KB per side
-// in bf16 (256 KB in float32) and does not fit in 227 KB of shared
-// memory, so the trunk leg loops over tiles of W keys with an online
-// softmax (running max and rescaled accumulator). The suffix leg runs the
-// same loop over the window. The sum of the trunk leg is therefore taken
-// in another order than the single-block prefix leg of the plain two-leg
-// version: the kernel equals the plain version within float tolerance,
-// not bitwise.
+// The bf16 route (the main path's dtype) runs on tensor cores, from the
+// tile code of attn_mma.cuh (cascade_mma_kernel, prefix_mma_kernel):
+// mma.sync m16n8k16 with ldmatrix operands, raw bf16 q and k summed in
+// float32 and then scaled, a 3-stage cp.async ring of 64-key K/V tiles
+// (tiles i + 1 and i + 2 in flight while tile i multiplies), Q held in
+// registers, the online softmax in registers, and P V in two passes over
+// P = bf16 hi + bf16 lo, which keeps the float32 partials within 1e-3 of
+// the float32 reference (one bf16 P misses that by an order of
+// magnitude). mma.sync rather than wgmma: at these intensities a well-fed
+// mma.sync kernel should come within a small factor of the byte bound;
+// wgmma with TMA is the lever where it does not.
+// - Both kernels tile the queries the same way: flattened rows
+//   n = (b * R + r) * G + g of one kv head over ALL batch rows, 16 a warp,
+//   four warps a block (the last tile's rows past N = B * R * G are
+//   zero-filled and never written). A block of one batch row's R * G = 80
+//   rows would have five warps on the SM's four schedulers, and its
+//   barriers would wait on the scheduler that holds two.
+// - Trunk leg: each block walks the whole trunk of its kv head, the last
+//   key tile masked past Tt. Its final m is the row max over the trunk and
+//   l, o are rescaled to it; o leaves the accumulator fragments as 16-byte
+//   stores (two neighbouring lanes trade halves so each holds four
+//   columns of one row).
+// - Fused: each block walks one sequence of keys, the trunk (no mask,
+//   ALiBi on slot t) and then the windows of the batch rows its queries
+//   belong to (mask-aware, causal, ALiBi on the key's position; a row sees
+//   only its own batch row's window), under ONE running (m, l, o) a row:
+//   the same softmax over trunk + window keys that the merge of two
+//   partials gives, in another order of summation, so it equals the plain
+//   two-leg version within float tolerance, not bitwise. Every trunk key
+//   is valid, so no row is empty. The output is normalized and stored as
+//   bf16 in q's layout.
+// - Each block reads its head's trunk (221 KB at hd 128, Tt 432) from L2;
+//   only q, the windows and the outputs come from or go to device memory
+//   once.
 //
-// One block per (query tile of QB flattened rows, batch row, kv head);
-// its queries, the K/V tile, the score tile and both legs' accumulators
-// live in shared memory, so no partial reaches device memory.
-//
-// The same file holds the trunk-leg kernels of the TWO-LEG route
-// (lir_cascade_prefix below), which replace
-// lir_tpu/ops/cascade_prefill.py:_prefix_kernel (reached from
-// _prefix_partials): the (o, m, l) partials of every flattened query
-// n = (b * R + r) * G + g of kv head kh against the whole trunk, in
-// float32 QK^T or with in-kernel int8 QK^T (each query row and each trunk
-// key row quantized by models/quant.py's dynamic rule, s8 x s8 -> s32
-// with __dp4a, s = f32(s32) * (q_scale * sm_scale) * k_scale). The suffix
-// leg and the merge of that route are plain PyTorch, as they are XLA in
-// the JAX package.
-//
-// What bounds the trunk leg on the H100: bytes. At the cascade dispatch's
-// shape (llama-2-7b, B = 32, R = 80, Tt = 432) it must read q (21 MB) and
-// the trunk (7 MB) and write float32 partials (43 MB) against 18 GFLOP:
-// ~0.021 ms of bytes, ~0.018 ms of bf16 tensor-core time. This first
-// kernel multiplies on CUDA cores (float32 FMA or __dp4a) from shared
-// memory tiles (attn_tile.cuh: 64 queries x 64 keys a tile, a 4 x 4
-// register micro-tile a thread), so operations bound it in practice; mma
-// or wgmma with TMA loads is later work. The TPU holds the whole trunk in
-// one VMEM block; here a 432-slot trunk does not fit in shared memory
-// beside the queries, so the kernel loops over key tiles with an online
-// softmax. Its final m is the row max over the whole trunk and l, o are
-// rescaled to it, so the merge sees what the TPU partial gives, within
-// float tolerance (the sum runs in another order).
+// Float32 inputs (the small float32 slice of chip_smoke.py, any float32
+// caller) take the float32-exact CUDA-core kernels instead, chosen by the
+// dtype argument: cascade_kernel (float32 FMA over shared-memory tiles
+// with an online softmax per leg, merged trunk first) and prefix_kernel
+// (attn_tile.cuh's 64 x 64 tiles with 4 x 4 register micro-tiles). This
+// is a dispatch on the input type, not a fallback: a bf16 call never
+// reaches that code, and a bf16 call with a head dim outside 32, 64, 80,
+// 96, 128 is refused (the wrapper raises before the launch; the entry
+// point returns cudaErrorInvalidValue). The int8-QK^T trunk leg keeps the
+// same CUDA-core tiles in both dtypes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,6 +85,7 @@
 
 #include <cmath>
 
+#include "attn_mma.cuh"
 #include "attn_tile.cuh"
 
 namespace {
@@ -150,7 +164,7 @@ __device__ void online_update(float* ss, const float* vs, float* acc,
   __syncthreads();
 }
 
-// Grid (ceil(R * G / kQB), B, K).
+// The float32 route on CUDA cores. Grid (ceil(R * G / kQB), B, K).
 template <typename T>
 __global__ void __launch_bounds__(kThreads) cascade_kernel(Args a) {
   extern __shared__ float smem[];
@@ -317,10 +331,197 @@ cudaError_t launch(const Args& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+namespace am = attn_mma;
+
+// The bf16 route on tensor cores. Its query tiles are those of the trunk
+// leg: flattened rows n = (b * R + r) * G + g of kv head kh over all batch
+// rows, 16 a warp, so every block has the same few warps (a block of
+// R * G = 80 rows would put five warps on four schedulers). A block's rows
+// span batch rows b_lo .. b_lo + nb - 1; it walks one sequence of
+// Tt + nb * R keys: key k < Tt is the trunk's slot k, and key Tt + w is
+// row w % R of batch row b_lo + w / R's window. A 64-key tile may hold
+// the trunk's last keys and a window's first.
+
+// Q row i of a block of either bf16 kernel: flattened query n = n0 + i of
+// kv head kh is q[b, r, kh * G + g] with b * R + r = n / G.
+struct FlatQ {
+  const am::bf16* q;
+  int n0, N, kh, G, H, hd;
+  __device__ __forceinline__ am::Row operator()(int i) const {
+    const int n = n0 + i;
+    const bool ok = n < N;
+    const int m = ok ? n : n0;
+    return {q + (size_t(m / G) * H + size_t(kh) * G + m % G) * hd, ok};
+  }
+};
+
+// Launch of either bf16 kernel: grid (ceil(N / rows), K) over N flattened
+// queries of K kv heads, am::warps_for(N) warps of 16 rows a block.
+template <int HD, typename A>
+cudaError_t launch_flat(void (*kernel)(A), const A& a, long long N, int K, cudaStream_t st) {
+  const int warps = am::warps_for(N);
+  const int rows = warps * 16;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       int(am::Dims<HD>::kBytes));
+  if (e != cudaSuccess) return e;
+  dim3 grid(unsigned((N + rows - 1) / rows), K);
+  kernel<<<grid, warps * 32, am::Dims<HD>::kBytes, st>>>(a);
+  return cudaGetLastError();
+}
+
+// Key k of a block's sequence: the trunk's slot k, then window row k - Tt.
+struct FusedKV {
+  const am::bf16 *tk, *tv, *sk, *sv;
+  int b_lo, n_win, kh, Tt, R, K, hd;
+  __device__ __forceinline__ am::KVRow operator()(int key) const {
+    if (key < Tt) {
+      const size_t off = (size_t(kh) * Tt + key) * hd;
+      return {tk + off, tv + off, true};
+    }
+    const int w = key - Tt;
+    const bool ok = w < n_win;
+    // Window row w of the block is row b_lo * R + w of (B * R, K, hd).
+    const size_t off = ((size_t(b_lo) * R + (ok ? w : 0)) * K + kh) * hd;
+    return {sk + off, sv + off, ok};
+  }
+};
+
+// Scores of one warp's tile: scale, ALiBi on the key's position (slot t on
+// the trunk, q_positions in a window), and -inf where masked: the trunk is
+// all valid; a window key counts for a row of its own batch row where it
+// is real, unmasked and not after the row's position.
+struct FusedFix {
+  const int* qpos;   // (B, R), the block's window rows from b_lo * R on
+  const int* smask;  // (B, R), the same
+  float sm_scale;
+  bool alibi;
+  int Tt, R, n_win, c0;
+  float slope[2];
+  int qp[2];         // the rows' query positions
+  int wb[2];         // the rows' batch rows, counted from b_lo
+  __device__ __forceinline__ void operator()(int t, float (&s)[8][4]) const {
+    const int k0 = t * am::kKeys;
+    if (k0 + am::kKeys <= Tt) {  // a tile of trunk keys only
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = __fmul_rn(s[j][e], sm_scale);
+          if (alibi) x = __fadd_rn(x, __fmul_rn(slope[e >> 1], float(k0 + 8 * j + c0 + (e & 1))));
+          s[j][e] = x;
+        }
+      return;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int key = k0 + 8 * j + c0 + c;
+        const bool trunk = key < Tt;
+        const int w = key - Tt;
+        const bool in = !trunk && w < n_win;
+        const int kp = trunk ? key : (in ? qpos[w] : 0);
+        const bool live = in && smask[w] > 0;
+        const int kb = in ? w / R : -1;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int e = 2 * h + c;
+          float x = __fmul_rn(s[j][e], sm_scale);
+          if (alibi) x = __fadd_rn(x, __fmul_rn(slope[h], float(kp)));
+          s[j][e] = (trunk || (live && kb == wb[h] && kp <= qp[h])) ? x : -CUDART_INF_F;
+        }
+      }
+  }
+};
+
+// Normalized output of one lane's four columns of row half h, as bf16 in
+// q's (B, R, H, hd) layout.
+struct FusedStore {
+  am::bf16* out;
+  int N, kh, G, H, hd, nr;
+  float l[2];
+  __device__ __forceinline__ void operator()(int h, int col, float4 v) const {
+    const int n = nr + 8 * h;
+    if (n >= N) return;
+    const float lh = h ? l[1] : l[0];
+    uint2 pk;
+    pk.x = am::as_u32(__floats2bfloat162_rn(__fdiv_rn(v.x, lh), __fdiv_rn(v.y, lh)));
+    pk.y = am::as_u32(__floats2bfloat162_rn(__fdiv_rn(v.z, lh), __fdiv_rn(v.w, lh)));
+    *reinterpret_cast<uint2*>(out + (size_t(n / G) * H + size_t(kh) * G + n % G) * hd + col) = pk;
+  }
+};
+
+// Grid (ceil(N / rows), K) with N = B * R * G flattened queries,
+// rows = 16 * blockDim.x / 32.
+template <int HD>
+__global__ void __launch_bounds__(am::kWarps * 32) cascade_mma_kernel(Args a) {
+  using am::bf16;
+  extern __shared__ __align__(16) unsigned char cascade_mma_smem[];
+  bf16* ring = reinterpret_cast<bf16*>(cascade_mma_smem);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int kh = blockIdx.y;
+  const int G = a.H / a.K;
+  const int RG = a.R * G;
+  const int N = a.B * RG;
+  const int rows = (blockDim.x >> 5) * 16;
+  const int n0 = blockIdx.x * rows;
+  am::load_rows<HD>(am::q_stage<HD>(ring), rows,
+                    FlatQ{static_cast<const bf16*>(a.q), n0, N, kh, G, a.H, HD});
+  // The batch rows of the block's queries, and their window keys.
+  const int b_lo = n0 / RG;
+  const int n_win = ((min(n0 + rows, N) - 1) / RG - b_lo + 1) * a.R;
+  const FusedKV key{static_cast<const bf16*>(a.tk), static_cast<const bf16*>(a.tv),
+                    static_cast<const bf16*>(a.sk), static_cast<const bf16*>(a.sv),
+                    b_lo, n_win, kh, a.Tt, a.R, a.K, HD};
+
+  // This lane's two rows (half h is row g + 8 h of the warp's tile): their
+  // ALiBi slope, query position and batch row.
+  const int nr = n0 + warp * 16 + (lane >> 2);
+  FusedFix fix{a.qpos + size_t(b_lo) * a.R, a.smask + size_t(b_lo) * a.R, a.sm_scale,
+               a.slopes_rg != nullptr, a.Tt, a.R, n_win, 2 * (lane & 3),
+               {0.f, 0.f}, {0, 0}, {-2, -2}};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int n = nr + 8 * h;
+    if (n >= N) continue;
+    const int b = n / RG;
+    const int r = (n - b * RG) / G;
+    if (fix.alibi) fix.slope[h] = a.slopes_rg[size_t(kh) * RG + (n - b * RG)];
+    fix.qp[h] = a.qpos[size_t(b) * a.R + r];
+    fix.wb[h] = b - b_lo;
+  }
+
+  am::Acc<HD> acc;
+  am::acc_init<HD>(acc);
+  const bool active = n0 + warp * 16 < N;
+  am::key_loop<HD>(ring, (a.Tt + n_win + am::kKeys - 1) / am::kKeys, active, key, fix, acc);
+  if (!active) return;
+  am::store_rows<HD>(acc, FusedStore{static_cast<bf16*>(a.out), N, kh, G, a.H, HD, nr,
+                                     {fmaxf(acc.l[0], 1e-30f), fmaxf(acc.l[1], 1e-30f)}});
+}
+
+template <int HD>
+cudaError_t launch_mma(const Args& a, cudaStream_t st) {
+  return launch_flat<HD>(cascade_mma_kernel<HD>, a, (long long)a.B * a.R * (a.H / a.K), a.K, st);
+}
+
+cudaError_t launch_mma_by_hd(const Args& a, cudaStream_t st) {
+  switch (a.hd) {
+    case 32: return launch_mma<32>(a, st);
+    case 64: return launch_mma<64>(a, st);
+    case 80: return launch_mma<80>(a, st);
+    case 96: return launch_mma<96>(a, st);
+    case 128: return launch_mma<128>(a, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() (or the
-// error of a refused attribute), 0 on success.
+// dtype: 0 = float32 (CUDA cores, any hd), 1 = bfloat16 (tensor cores, hd
+// one of 32, 64, 80, 96, 128). Returns cudaGetLastError() (or the error
+// of a refused attribute or head dim), 0 on success.
 extern "C" int lir_cascade_attention(const void* q, const void* sk,
                                      const void* sv, const void* tk,
                                      const void* tv, const void* smask,
@@ -347,7 +548,7 @@ extern "C" int lir_cascade_attention(const void* q, const void* sk,
   a.sm_scale = float(1.0 / sqrt(double(hd)));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return int(launch<float>(a, st));
-  if (dtype == 1) return int(launch<__nv_bfloat16>(a, st));
+  if (dtype == 1) return int(launch_mma_by_hd(a, st));
   return int(cudaErrorInvalidValue);
 }
 
@@ -386,6 +587,7 @@ struct PrefixSmem {
   static constexpr size_t kBytes = kQ + kK + kV + kP + kStats;
 };
 
+// CUDA-core trunk leg: float32 inputs, and int8 QK^T in both dtypes.
 // Grid (ceil(N / kQB), K) with N = B * R * G flattened queries; the tail
 // tile's rows past N are masked (never loaded, never written).
 template <typename T, int HD, bool INT8>
@@ -537,12 +739,119 @@ cudaError_t prefix_by_hd(const PrefixArgs& a, int hd, cudaStream_t st) {
   }
 }
 
+// Key k of the trunk (rows past Tt zero-filled).
+struct PrefixKV {
+  const am::bf16 *tk, *tv;
+  int kh, Tt, hd;
+  __device__ __forceinline__ am::KVRow operator()(int key) const {
+    const bool ok = key < Tt;
+    const size_t off = (size_t(kh) * Tt + (ok ? key : 0)) * hd;
+    return {tk + off, tv + off, ok};
+  }
+};
+
+// Scores of one warp's tile: scale, ALiBi on slot positions, -inf past Tt.
+struct PrefixFix {
+  float sm_scale;
+  bool alibi;
+  int Tt, c0;
+  float slope[2];
+  __device__ __forceinline__ void operator()(int t, float (&s)[8][4]) const {
+    const int k0 = t * am::kKeys;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 8 * j + c0 + (e & 1);
+        float x = __fmul_rn(s[j][e], sm_scale);
+        if (alibi) x = __fadd_rn(x, __fmul_rn(slope[e >> 1], float(key)));
+        s[j][e] = key < Tt ? x : -CUDART_INF_F;
+      }
+  }
+};
+
+// The partials of one lane's four columns of row half h, in the (B, K, R,
+// G) layout of the plain twin: flattened query n of batch row b sits at
+// (b * K + kh) * R * G + n % (R * G).
+struct PrefixStore {
+  float* o;
+  int N, RG, K, kh, hd, nr;
+  __device__ __forceinline__ size_t row(int n) const {
+    return size_t(n / RG) * K * RG + size_t(kh) * RG + n % RG;
+  }
+  __device__ __forceinline__ void operator()(int h, int col, float4 v) const {
+    const int n = nr + 8 * h;
+    if (n < N) *reinterpret_cast<float4*>(o + row(n) * hd + col) = v;
+  }
+};
+
+// The bf16 trunk leg on tensor cores. Grid (ceil(N / rows), K) with
+// N = B * R * G flattened queries, rows = 16 * blockDim.x / 32.
+template <int HD>
+__global__ void __launch_bounds__(am::kWarps * 32) prefix_mma_kernel(PrefixArgs a) {
+  using am::bf16;
+  extern __shared__ __align__(16) unsigned char prefix_mma_smem[];
+  bf16* ring = reinterpret_cast<bf16*>(prefix_mma_smem);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int kh = blockIdx.y;
+  const int G = a.H / a.K;
+  const int RG = a.R * G;
+  const int N = a.B * RG;
+  const int n0 = blockIdx.x * (blockDim.x >> 5) * 16;
+  am::load_rows<HD>(am::q_stage<HD>(ring), (blockDim.x >> 5) * 16,
+                    FlatQ{static_cast<const bf16*>(a.q), n0, N, kh, G, a.H, HD});
+  const PrefixKV key{static_cast<const bf16*>(a.tk), static_cast<const bf16*>(a.tv), kh, a.Tt,
+                     HD};
+  PrefixFix fix{a.sm_scale, a.slopes != nullptr, a.Tt, 2 * (lane & 3), {0.f, 0.f}};
+  const int nr = n0 + warp * 16 + (lane >> 2);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int n = nr + 8 * h;
+    if (fix.alibi && n < N) fix.slope[h] = a.slopes[kh * G + n % G];
+  }
+
+  am::Acc<HD> acc;
+  am::acc_init<HD>(acc);
+  const bool active = n0 + warp * 16 < N;
+  am::key_loop<HD>(ring, (a.Tt + am::kKeys - 1) / am::kKeys, active, key, fix, acc);
+  if (!active) return;
+  const PrefixStore store{a.o, N, RG, a.K, kh, HD, nr};
+  am::store_rows<HD>(acc, store);
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = nr + 8 * h;
+      if (n >= N) continue;
+      a.m[store.row(n)] = acc.m[h];
+      a.l[store.row(n)] = acc.l[h];
+    }
+  }
+}
+
+template <int HD>
+cudaError_t launch_prefix_mma(const PrefixArgs& a, cudaStream_t st) {
+  return launch_flat<HD>(prefix_mma_kernel<HD>, a, (long long)a.B * a.R * (a.H / a.K), a.K,
+                         st);
+}
+
+cudaError_t prefix_mma_by_hd(const PrefixArgs& a, int hd, cudaStream_t st) {
+  switch (hd) {
+    case 32: return launch_prefix_mma<32>(a, st);
+    case 64: return launch_prefix_mma<64>(a, st);
+    case 80: return launch_prefix_mma<80>(a, st);
+    case 96: return launch_prefix_mma<96>(a, st);
+    case 128: return launch_prefix_mma<128>(a, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // Trunk-leg partials of the two-leg cascade. dtype: 0 = float32,
-// 1 = bfloat16; int8_qk: 0 = float32 QK^T, 1 = int8 QK^T. hd one of 32,
-// 64, 80, 96, 128. Returns cudaGetLastError() (or the error of a refused
-// attribute), 0 on success.
+// 1 = bfloat16; int8_qk: 0 = float32 QK^T (bf16: on tensor cores), 1 =
+// int8 QK^T. hd one of 32, 64, 80, 96, 128. Returns cudaGetLastError() (or
+// the error of a refused attribute or head dim), 0 on success.
 extern "C" int lir_cascade_prefix(const void* q, const void* tk, const void* tv,
                                   const void* slopes, void* o, void* m, void* l,
                                   int B, int R, int H, int K, int Tt, int hd,
@@ -567,6 +876,6 @@ extern "C" int lir_cascade_prefix(const void* q, const void* tk, const void* tv,
                        : prefix_by_hd<float, false>(a, hd, st));
   if (dtype == 1)
     return int(int8_qk ? prefix_by_hd<__nv_bfloat16, true>(a, hd, st)
-                       : prefix_by_hd<__nv_bfloat16, false>(a, hd, st));
+                       : prefix_mma_by_hd(a, hd, st));
   return int(cudaErrorInvalidValue);
 }

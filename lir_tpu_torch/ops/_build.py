@@ -23,7 +23,8 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lir_tpu_torch"
 SOURCES = ("flash_decode", "cascade_prefill", "flash_attention")
-# Head dims the tile kernels of csrc/attn_tile.cuh are instantiated for.
+# Head dims the tile kernels of csrc/attn_tile.cuh and csrc/attn_mma.cuh
+# are instantiated for.
 TILE_HEAD_DIMS = (32, 64, 80, 96, 128)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -96,6 +97,16 @@ def library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _LIBS[name] = lib
     return lib
+
+
+def sass(name: str) -> str:
+    """The SASS of the built library of ``csrc/<name>.cu``, by
+    ``cuobjdump -sass`` from the toolkit of the nvcc that built it."""
+    build([name])
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(library_path(name))],
+                         capture_output=True, text=True, check=True)
+    return out.stdout
 
 
 def check(err: int, what: str) -> None:

@@ -16,10 +16,14 @@ its routes, chosen as the JAX function chooses them:
 
 On a CPU tensor each wrapper runs its plain version: :func:`prefix_partials`
 or :func:`prefix_partials_int8` for the trunk leg, and for the fused
-route :func:`cascade_attention_plain` (the two-leg float function). The
-source notes in ``csrc/cascade_prefill.cu`` say what bounds the kernels
-on the H100 and why they match their plain versions within float
-tolerance rather than bitwise.
+route :func:`cascade_attention_plain` (the two-leg float function). On
+bf16 tensors the fused kernel and the float-QK^T trunk leg run on tensor
+cores (``csrc/attn_mma.cuh``), for the head dims of
+``_build.TILE_HEAD_DIMS`` (another raises); float32 tensors take their
+float32-exact CUDA-core kernels. The source notes in
+``csrc/cascade_prefill.cu`` say what bounds the kernels on the H100 and
+why they match their plain versions within float tolerance rather than
+bitwise.
 
 Layout (the JAX package's public shapes): q (B, R, H, hd); window k, v
 (B, R, K, hd); trunk k, v (K, Tt, hd), one row, slot t is position t;
@@ -174,6 +178,17 @@ def _cascade_cuda(q, sfx_k, sfx_v, trunk_k, trunk_v, suffix_mask,
             raise ValueError(f"cascade kernel needs a contiguous {name}")
     if not q.is_contiguous():
         raise ValueError("cascade kernel needs a contiguous q")
+    if q.dtype == torch.bfloat16:
+        # The tensor-core route: tiles built for these head dims, rows
+        # copied 16 bytes at a time.
+        if hd not in _build.TILE_HEAD_DIMS:
+            raise ValueError(f"bf16 cascade kernel is built for head dims "
+                             f"{_build.TILE_HEAD_DIMS}, got {hd}")
+        for name, t in (("q", q), ("sfx_k", sfx_k), ("sfx_v", sfx_v),
+                        ("trunk_k", trunk_k), ("trunk_v", trunk_v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"bf16 cascade kernel needs a 16-byte "
+                                 f"aligned {name}")
     for name, t in (("suffix_mask", suffix_mask), ("q_positions", q_positions)):
         if tuple(t.shape) != (B, R) or t.device != q.device:
             raise ValueError(f"{name} is {tuple(t.shape)} on {t.device}, "

@@ -12,7 +12,11 @@ rounding); the trunk kernels bitwise the flat ones, and query j of the
 multi-query kernel bitwise the single-query kernel at its position. The
 trunk-leg kernels' float32 partials against their plain versions'
 within 1e-3 (sums of ~100 terms in another order); with int8 QK^T the
-row max bitwise (the scores are).
+row max bitwise (the scores are). The cascade cases cover the tile
+edges of the bf16 tensor-core kernels (R * G not a multiple of 16, a
+ragged last key tile, every head dim they are built for, a batch row
+whose window is fully masked, ALiBi) and one float32 case each, which
+takes the CUDA-core kernels.
 """
 
 import dataclasses
@@ -36,8 +40,29 @@ def gen():
     return g
 
 
-def _rnd(gen, *shape):
-    return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+def _rnd(gen, *shape, dtype=torch.bfloat16):
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+# (H, K, hd, alibi, R, Tt, dtype) of the cascade kernels' cases: the
+# llama-2-7b main-path shape (R = 80, Tt = 432), R = 81 and a last key
+# tile of 1 or 0 extra keys (Tt = 65, 64), falcon-7b's G = 71 with R = 3
+# (R * G = 213), head dims 32, 80 and 96 beside 64 and 128, and float32.
+BF16, F32 = torch.bfloat16, torch.float32
+CASCADE_CASES = [
+    (8, 8, 128, False, None, None, BF16), (8, 2, 128, False, None, None, BF16),
+    (71, 1, 64, False, None, None, BF16), (8, 8, 64, True, None, None, BF16),
+    (32, 32, 128, False, 80, 432, BF16), (8, 8, 128, False, 81, 64, BF16),
+    (8, 2, 128, True, 80, 65, BF16), (71, 1, 64, False, 3, 432, BF16),
+    (8, 8, 32, False, 80, 65, BF16), (8, 8, 80, True, 81, 100, BF16),
+    (8, 8, 96, False, None, 432, BF16), (8, 2, 64, True, None, None, F32),
+]
+
+
+def _case_id(case):
+    H, K, hd, alibi, R, Tt, dtype = case
+    return (f"H{H}K{K}hd{hd}{'-alibi' if alibi else ''}-R{R or 'd'}-Tt{Tt or 'd'}"
+            f"{'-f32' if dtype == F32 else ''}")
 
 
 @pytest.mark.parametrize("H,K,hd,alibi", [(8, 8, 128, False), (8, 2, 128, False),
@@ -92,16 +117,16 @@ def test_flash_decode_mq_kernels_match_plain(gen, H, K, hd, alibi):
     assert torch.equal(trunk_out, mq)
 
 
-@pytest.mark.parametrize("H,K,hd,alibi", [(8, 8, 128, False), (8, 2, 128, False),
-                                          (71, 1, 64, False), (8, 8, 64, True)])
-def test_cascade_kernel_matches_plain(gen, H, K, hd, alibi):
-    B, R, Tt = 3, 40, 100
-    q = _rnd(gen, B, R, H, hd)
-    sk, sv = _rnd(gen, B, R, K, hd), _rnd(gen, B, R, K, hd)
-    tk, tv = _rnd(gen, K, Tt, hd), _rnd(gen, K, Tt, hd)
+@pytest.mark.parametrize("H,K,hd,alibi,R,Tt,dtype", CASCADE_CASES,
+                         ids=[_case_id(c) for c in CASCADE_CASES])
+def test_cascade_kernel_matches_plain(gen, H, K, hd, alibi, R, Tt, dtype):
+    B, R, Tt = 3, R or 40, Tt or 100
+    q = _rnd(gen, B, R, H, hd, dtype=dtype)
+    sk, sv = _rnd(gen, B, R, K, hd, dtype=dtype), _rnd(gen, B, R, K, hd, dtype=dtype)
+    tk, tv = _rnd(gen, K, Tt, hd, dtype=dtype), _rnd(gen, K, Tt, hd, dtype=dtype)
     mask = torch.ones((B, R), dtype=torch.int32, device="cuda")
-    mask[1, 30:] = 0
-    mask[2, :] = 0
+    mask[1, (3 * R) // 4:] = 0
+    mask[2, :] = 0                       # a fully masked window
     qpos = (Tt + torch.clamp_min(torch.cumsum(mask, -1, dtype=torch.int32) - 1,
                                  0)).to(torch.int32)
     slopes = alibi_slopes(H, "cuda") if alibi else None
@@ -109,6 +134,19 @@ def test_cascade_kernel_matches_plain(gen, H, K, hd, alibi):
     got = ops.cascade_attention(*args, alibi_slopes=slopes)
     ref = ops.cascade_attention_plain(*args, alibi_slopes=slopes)
     torch.testing.assert_close(got.float(), ref.float(), **TOL)
+
+
+def test_bf16_cascade_kernels_refuse_untiled_head_dim(gen):
+    """bf16 on the card runs only on the tensor-core tiles: a head dim
+    they are not built for raises, and never reaches the CUDA-core code."""
+    q = _rnd(gen, 1, 4, 2, 48)
+    k = _rnd(gen, 1, 4, 2, 48)
+    tk = _rnd(gen, 2, 70, 48)
+    mask = torch.ones((1, 4), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="head dims"):
+        ops.cascade_attention(q, k, k, tk, tk, mask, mask)
+    with pytest.raises(ValueError, match="head dims"):
+        ops.cascade_prefix(q, tk, tk)
 
 
 def test_wrapper_counts_launches(gen):
@@ -127,17 +165,18 @@ def test_wrapper_counts_launches(gen):
             counts["flash_decode_mq_trunk"]) == (1, 1, 1)
 
 
-@pytest.mark.parametrize("H,K,hd,alibi", [(8, 8, 128, False), (8, 2, 128, False),
-                                          (71, 1, 64, False), (8, 8, 64, True)])
+@pytest.mark.parametrize("H,K,hd,alibi,R,Tt,dtype", CASCADE_CASES,
+                         ids=[_case_id(c) for c in CASCADE_CASES])
 @pytest.mark.parametrize("int8_qk", [False, True])
-def test_cascade_prefix_kernels_match_plain(gen, H, K, hd, alibi, int8_qk):
+def test_cascade_prefix_kernels_match_plain(gen, H, K, hd, alibi, R, Tt, dtype,
+                                            int8_qk):
     """The trunk-leg kernels (a ragged last tile of flattened queries and
     of trunk keys) against their plain versions, and the two-leg route
     through them against its plain two-leg function."""
-    B, R, Tt = 3, 21, 100
-    q = _rnd(gen, B, R, H, hd)
-    sk, sv = _rnd(gen, B, R, K, hd), _rnd(gen, B, R, K, hd)
-    tk, tv = _rnd(gen, K, Tt, hd), _rnd(gen, K, Tt, hd)
+    B, R, Tt = 3, R or 21, Tt or 100
+    q = _rnd(gen, B, R, H, hd, dtype=dtype)
+    sk, sv = _rnd(gen, B, R, K, hd, dtype=dtype), _rnd(gen, B, R, K, hd, dtype=dtype)
+    tk, tv = _rnd(gen, K, Tt, hd, dtype=dtype), _rnd(gen, K, Tt, hd, dtype=dtype)
     slopes = alibi_slopes(H, "cuda") if alibi else None
     kernel = ops.cascade_prefix_int8 if int8_qk else ops.cascade_prefix
     plain = ops.prefix_partials_int8 if int8_qk else ops.prefix_partials
@@ -150,7 +189,8 @@ def test_cascade_prefix_kernels_match_plain(gen, H, K, hd, alibi, int8_qk):
     for g, r in zip(got, ref):
         torch.testing.assert_close(g, r, atol=1e-3, rtol=1e-3)
     mask = torch.ones((B, R), dtype=torch.int32, device="cuda")
-    mask[1, 15:] = 0
+    mask[1, (3 * R) // 4:] = 0
+    mask[2, :] = 0                       # a fully masked window
     qpos = (Tt + torch.clamp_min(torch.cumsum(mask, -1, dtype=torch.int32) - 1,
                                  0)).to(torch.int32)
     out = ops.cascade_attention(q, sk, sv, tk, tv, mask, qpos,

@@ -109,6 +109,23 @@ def test_cuda_wrappers_refuse_non_cuda_tensors():
                             torch.zeros((1, 4, 1, 32), device="meta"))
 
 
+@pytest.mark.parametrize("hd", [48, 144])
+def test_bf16_cascade_kernel_refuses_untiled_head_dims(hd):
+    """The bf16 fused cascade runs on the tensor-core tiles, built for
+    _build.TILE_HEAD_DIMS; another head dim raises before any launch (no
+    float32 CUDA-core route for bf16 inputs)."""
+    from lir_tpu_torch.ops import cascade_prefill
+
+    bf = dict(dtype=torch.bfloat16, device="meta")
+    ints = dict(dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="head dims"):
+        cascade_prefill._cascade_cuda(
+            torch.zeros((1, 2, 2, hd), **bf), torch.zeros((1, 2, 2, hd), **bf),
+            torch.zeros((1, 2, 2, hd), **bf), torch.zeros((2, 3, hd), **bf),
+            torch.zeros((2, 3, hd), **bf), torch.ones((1, 2), **ints),
+            torch.ones((1, 2), **ints), None)
+
+
 def test_int8_product_refuses_non_cuda_tensors():
     """The s8 x s8 product has the CPU's int32 matmul and the card's
     torch._int_mm, and nothing else: no float fallback."""
