@@ -8,8 +8,9 @@ Phases (each raises on failure, so the script exits non-zero):
    sm_90a, one nvcc per source, all at once; print ptxas's registers,
    shared memory and spills per kernel, and the count of tensor-core
    instructions (HMMA, or HGMMA for wgmma) in each instantiation of the
-   bf16 cascade kernels (``cascade_mma_kernel``, ``prefix_mma_kernel``)
-   from ``cuobjdump -sass`` of the built library; fail if one has none.
+   bf16 tensor-core kernels (``cascade_mma_kernel``, ``prefix_mma_kernel``,
+   ``flash_mma_kernel``) from ``cuobjdump -sass`` of the built library;
+   fail if one has none.
 2. Kernels against their plain PyTorch versions on the card, at the
    shapes the main path gives them (llama-2-7b widths, B = 32, the cache
    extents and trunks of phase 3's dispatches; the verify window's
@@ -24,9 +25,12 @@ Phases (each raises on failure, so the script exits non-zero):
    single-query kernel at its position, and the int8 trunk leg's row max
    bitwise its plain twin's (the int8 payloads and s32 dots are exact).
    Times by CUDA events after warm-up, the L2 cache flushed before every
-   launch; the SDPA yardstick (``library_ms``) is timed beside the float
+   launch and the stream held by a spin kernel while the host enqueues it
+   (device time, without the host's launch time); the SDPA yardstick (``library_ms``) is timed beside the float
    kernels and used nowhere in the port (no PyTorch call computes the
-   int8-QK^T trunk leg). Then the whole slice at a small float32 size:
+   int8-QK^T trunk leg); the two legs of ``flash_decode_mq_trunk`` and its
+   merge are also timed one launch at a time. Then the whole slice at a
+   small float32 size:
    the cascade and the speculative dispatch on the card against the same
    on the CPU (plain versions), the speculative dispatch against the
    sequential one on the card (ids exact, position-0 readouts bitwise),
@@ -85,7 +89,8 @@ from lir_tpu_torch.engine import generate, sweep, tokens as tok
 from lir_tpu_torch.engine.runner import SFX_BUCKETS, ScoringEngine
 from lir_tpu_torch.models import decoder, quant, registry
 from lir_tpu_torch.ops import _build
-from lir_tpu_torch.ops.flash_decode import (flash_decode_mq_plain,
+from lir_tpu_torch.ops.flash_decode import (decode_legs,
+                                            flash_decode_mq_plain,
                                             flash_decode_mq_trunk_plain,
                                             flash_decode_plain,
                                             flash_decode_trunk_plain,
@@ -197,9 +202,16 @@ def plan_shared(engine: ScoringEngine, cells, rt: RuntimeConfig):
 _FLUSH = None
 
 
+# Cycles of the spin kernel that holds the stream before each timed launch
+# (~0.5 ms): longer than the host takes to enqueue a wrapper's launches.
+SPIN_CYCLES = 1_000_000
+
+
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     """Mean device ms of ``fn`` over ``iters`` launches, each after an L2
-    flush (a 64 MB write), by CUDA events."""
+    flush (a 64 MB write), by CUDA events. A spin kernel between the flush
+    and the start event keeps the stream busy while the host enqueues
+    ``fn``, so the reading is device time, not the host's launch time."""
     global _FLUSH
     if _FLUSH is None:
         _FLUSH = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -208,6 +220,7 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     total = 0.0
     for _ in range(iters):
         _FLUSH.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -216,6 +229,16 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         total += start.elapsed_time(end)
     return total / iters
+
+
+def warm_up(seconds: float = 2.0) -> None:
+    """Run the card at full load for ``seconds`` (bf16 products), so that
+    the first timing does not read it at the idle clocks of the build."""
+    x = torch.randn((8192, 8192), device="cuda", dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        x @ x
+        torch.cuda.synchronize()
 
 
 def bound(nbytes: float, flops: float, int8_ops: float = 0.0):
@@ -416,10 +439,48 @@ def check_decode_mq(gen, label, B, S, H, K, hd, T, trunk_len, alibi,
         bitwise_equal_flat=True,
         kernel_ms=time_ms(lambda: ops.flash_decode_mq_trunk(*args, **tkw)),
         plain_ms=time_ms(lambda: flash_decode_mq_trunk_plain(*args, **tkw)),
-        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+        **mq_trunk_legs(args, kw, trunk_len, bias)))
     for row in rows:
         log(json.dumps(row))
         results.append(row)
+
+
+def mq_trunk_legs(args, kw, trunk_len, bias):
+    """The launches of ``flash_decode_mq_trunk`` timed one at a time: the
+    trunk leg, the row leg over the tail splits, the merge. The tail leg
+    beside its own bound (q, the tail's K/V slots of every row, the int
+    arrays, the partials it writes; the products over the tail keys each
+    query may see) and beside the plain multi-query function and SDPA on
+    the tail keys alone."""
+    q, k, v, qpos, mask = args
+    kpos = kw["key_positions"]
+    _, legs = decode_legs(*args, trunk_len=trunk_len, **kw)
+    key = {"trunk": "trunk_leg_ms", "rows": "tail_leg_ms", "merge": "merge_ms"}
+    times = {key[name]: time_ms(fn) for name, fn in legs.items()}
+    tk = trunk_splits(trunk_len, k.shape[1]) * DECODE_SPLIT
+    B, S, H, hd = q.shape
+    K, T = k.shape[0], k.shape[1]
+    kt, vt = k[:, tk:].contiguous(), v[:, tk:].contiguous()
+    mt, pt = mask[:, tk:].contiguous(), kpos[:, tk:].contiguous()
+    ns_tail = -(-(T - tk) // DECODE_SPLIT)
+    partial_bytes = B * K * ns_tail * S * (H // K) * (hd + 2) * 4
+    pairs = float(((mt > 0)[:, None, :] & (pt[:, None, :] <= qpos[:, :, None])).sum())
+    byts = (nbytes(q, kt, vt, qpos) + 4 * 2 * mt.numel() + partial_bytes)
+    b_ms, b_by = bound(byts, 4.0 * H * hd * pairs)
+    tkw = dict(key_positions=pt, alibi_slopes=kw["alibi_slopes"])
+    bt = bias[..., tk:].contiguous()
+    kb, vb = _sdpa_kv(kt.permute(2, 0, 1, 3), vt.permute(2, 0, 1, 3), H // K)
+    qh = q.permute(0, 2, 1, 3)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qh, kb, vb, attn_mask=bt,
+                                              **_gqa(K != H))
+
+    return dict(times, tail_leg_bound_ms=b_ms, tail_leg_bound_by=b_by,
+                tail_leg_plain_ms=time_ms(lambda: flash_decode_mq_plain(
+                    q, kt, vt, qpos, mt, **tkw)),
+                tail_leg_library_ms=time_ms(sdpa))
 
 
 def check_cascade(gen, label, B, R, H, K, hd, Tt, alibi, results):
@@ -1091,11 +1152,15 @@ def profile_scoring(engine, rt, label="profile"):
 def kernel_label(mangled: str) -> str:
     """A kernel's name and raw template arguments from its mangled name,
     e.g. ``prefix_mma_kernel<Li128>``."""
-    for m in re.finditer(r"\d+", mangled):
-        name = mangled[m.end():m.end() + int(m.group())]
-        if name.endswith("kernel"):
-            args = re.match(r"I(.*?)EE", mangled[m.end() + len(name):])
-            return f"{name}<{args.group(1)}>" if args else name
+    # Every start of a digit run: a length prefix may follow other digits
+    # (an anonymous namespace's hash ends in digits).
+    for m in re.finditer(r"(?=(\d+))", mangled):
+        for n in range(len(m.group(1)), 0, -1):
+            end = m.start() + n
+            name = mangled[end:end + int(m.group(1)[:n])]
+            if name.endswith("kernel") and name.isidentifier():
+                args = re.match(r"I(.*?)EE", mangled[end + len(name):])
+                return f"{name}<{args.group(1)}>" if args else name
     return mangled
 
 
@@ -1159,6 +1224,7 @@ def main() -> int:
     # The bf16 cascade kernels run on tensor cores: HMMA in their SASS.
     tensor_core_counts("cascade_prefill",
                        ("cascade_mma_kernel", "prefix_mma_kernel"))
+    tensor_core_counts("flash_attention", ("flash_mma_kernel",))
 
     # Phase 3's shapes, planned up front.
     cfg = registry.llama2_7b()
@@ -1187,6 +1253,7 @@ def main() -> int:
         raise AssertionError(f"unexpected trunk plan {plan_t} / {plan_f}")
 
     # Phase 2: each kernel against its plain version on the card.
+    warm_up()
     gen = torch.Generator(device=DEV)
     gen.manual_seed(1234)
     results = []

@@ -1,0 +1,154 @@
+"""Time the port's decode and prefill flash kernels against another copy
+of their sources, in one process on one card.
+
+    python3 kernel_ab.py OTHER_CSRC [--rounds 2]
+
+OTHER_CSRC is a directory holding ``flash_decode.cu`` and
+``flash_attention.cu`` (with the headers they include) that have the same
+C entry points as ``lir_tpu_torch/csrc``: for example the sources of an
+earlier commit, unpacked with ``git archive``. Both copies are built with
+the flags of ``lir_tpu_torch/ops/_build.py`` into ``build/kernel_ab/``,
+then timed in turns (other, this, this, other in each round) through the
+port's wrappers, by ``chip_smoke.time_ms`` (L2 flushed, device time), at
+the main path's shapes of ``chip_smoke.py`` at llama-2-7b width, B = 32:
+the decode step at T = 552 (flat and with a 432-slot trunk) and T = 114,
+the verify window (S = 4) at T = 192 and at T = 576 with a 432-slot trunk
+(its two legs and the merge also timed apart), and prefill flash
+attention at buckets 64, 128 and 512. Whether the two copies' outputs are
+bitwise equal is printed per case (with the flash outputs' largest
+difference). Prints one JSON line per reading, a summary line per case,
+then the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+import chip_smoke as cs
+from lir_tpu_torch import ops
+from lir_tpu_torch.ops import _build
+
+# The modules behind ops' wrappers (ops re-exports functions of the same
+# names), whose _LIB each copy's library replaces in turn.
+_FD = sys.modules["lir_tpu_torch.ops.flash_decode"]
+_FA = sys.modules["lir_tpu_torch.ops.flash_attention"]
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    "flash_decode": {"lir_flash_decode_splits": [_P] * 10 + [_I] * 10 + [_P],
+                     "lir_flash_decode_trunk_splits": [_P] * 10 + [_I] * 10 + [_P],
+                     "lir_flash_decode_merge": [_P] * 4 + [_I] * 7 + [_P]},
+    "flash_attention": {"lir_flash_attention": [_P] * 7 + [_I] * 6 + [_P]},
+}
+# (label, S, T, trunk_len): S = 1 is the decode step.
+DECODE_CASES = [("flash_decode/T552", 1, 552, 0),
+                ("flash_decode_trunk/T552/trunk432", 1, 552, 432),
+                ("flash_decode/T114", 1, 114, 0),
+                ("flash_decode_mq/S4/T192", 4, 192, 0),
+                ("flash_decode_mq_trunk/S4/T576/trunk432", 4, 576, 432)]
+FLASH_BUCKETS = (64, 128, 512)
+
+
+def build(tag: str, csrc: Path) -> dict:
+    """Both libraries of one copy of the sources, loaded."""
+    out_dir = Path(_build.BUILD_DIR).parent / "kernel_ab" / tag
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in _ARGTYPES:
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out_dir / f"lib{name}.so"),
+               str(csrc / f"{name}.cu")]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {csrc / name}.cu:\n{log}")
+        lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
+        for fn, types in _ARGTYPES[name].items():
+            getattr(lib, fn).argtypes = types
+            getattr(lib, fn).restype = _I
+        libs[name] = lib
+    return libs
+
+
+def use(libs: dict) -> None:
+    _FD._LIB = libs["flash_decode"]
+    _FA._LIB = libs["flash_attention"]
+
+
+def decode_case(gen, S, T, trunk):
+    """The wrapper call of one decode case, and for the trunk-aware verify
+    window a maker of its separate launches."""
+    q, k, v, qpos, mask, kpos = cs.decode_inputs(gen, cs.BATCH, 32, 32, 128, T, trunk,
+                                                 S=None if S == 1 else S)
+    args = (q, k, v, qpos, mask)
+    kw = dict(key_positions=kpos, **({"trunk_len": trunk} if trunk else {}))
+    if S == 1:
+        fn = ops.flash_decode_trunk if trunk else ops.flash_decode
+    else:
+        fn = ops.flash_decode_mq_trunk if trunk else ops.flash_decode_mq
+    legs = None
+    if S > 1 and trunk:
+        def legs():
+            return _FD.decode_legs(*args, **kw)[1]
+    return (lambda: fn(*args, **kw)), legs
+
+
+def flash_case(gen, S):
+    shape = (cs.BATCH, S, 32, 128)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    mask = torch.ones((cs.BATCH, S), dtype=torch.int32, device="cuda")
+    for b in range(cs.BATCH):
+        mask[b, :(b * 7) % max(S // 2, 1)] = 0
+    return lambda: ops.flash_attention(q, k, v, key_mask=mask)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("other_csrc", type=Path)
+    ap.add_argument("--rounds", type=int, default=2)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device; nothing measured", file=sys.stderr)
+        return 1
+    copies = {"other": build("other", args.other_csrc), "this": build("this", _build.CSRC)}
+    cs.warm_up()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    cases = [(label, *decode_case(gen, S, T, trunk)) for label, S, T, trunk in DECODE_CASES]
+    cases += [(f"flash_attention/S{S}", flash_case(gen, S), None) for S in FLASH_BUCKETS]
+    order = ["other", "this", "this", "other"] * args.rounds
+    summary = {}
+    for label, fn, legs in cases:
+        outs = {}
+        for tag in order:
+            use(copies[tag])
+            outs.setdefault(tag, fn())
+            row = {"case": label, "copy": tag, "ms": cs.time_ms(fn, iters=20)}
+            if legs is not None:
+                row["legs_ms"] = {name: cs.time_ms(leg, iters=20)
+                                  for name, leg in legs().items()}
+            summary.setdefault((label, tag), []).append(row["ms"])
+            print(json.dumps(row), flush=True)
+        a, b = outs["other"].float(), outs["this"].float()
+        same = {"bitwise_equal": bool(torch.equal(a, b))}
+        if label.startswith("flash_attention"):
+            same["max_abs_diff"] = float((a - b).abs().max())
+        print(json.dumps({"case": label, **same}), flush=True)
+    for (label, tag), ms in summary.items():
+        print(json.dumps({"summary": label, "copy": tag, "ms": ms,
+                          "mean_ms": sum(ms) / len(ms)}), flush=True)
+    print(cs.card_line())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

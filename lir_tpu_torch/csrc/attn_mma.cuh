@@ -1,6 +1,7 @@
-// Tensor-core tile code for the bf16 cascade-prefill kernels on Hopper
-// (sm_90a): the fused cascade kernel and the two-leg route's trunk leg
-// (cascade_prefill.cu, cascade_mma_kernel and prefix_mma_kernel).
+// Tensor-core tile code for the bf16 prefill kernels on Hopper (sm_90a):
+// the fused cascade kernel and the two-leg route's trunk leg
+// (cascade_prefill.cu, cascade_mma_kernel and prefix_mma_kernel) and the
+// prefill flash kernel (flash_attention.cu, flash_mma_kernel).
 //
 // A block owns a query tile of 16 rows a warp (1 to kWarps warps) and
 // walks key tiles of kKeys = 64 with an online softmax, as FlashAttention-2
@@ -8,9 +9,10 @@
 //
 // - Tiles live in shared memory as bf16 rows padded to HD + 8 elements (an
 //   odd number of 16-byte chunks, so the eight row addresses of an
-//   ldmatrix land on distinct banks). A ring of kStages = 3 K/V tiles is
-//   filled by cp.async.cg 16-byte copies: the copies of tiles i + 1 and
-//   i + 2 are in flight while tile i multiplies. Rows past the end of the
+//   ldmatrix land on distinct banks). A ring of kSt K/V tiles (kStages = 3
+//   in the cascade kernels, 2 in the flash kernel) is filled by cp.async.cg
+//   16-byte copies: the copies of tiles i + 1 .. i + kSt - 1 are in flight
+//   while tile i multiplies. Rows past the end of the
 //   keys (or queries) are zero-filled by the copy itself (src-size 0), so
 //   no garbage reaches a product. The Q tile is staged in the ring's last
 //   stage and kept in registers as A fragments for the whole key walk.
@@ -25,13 +27,15 @@
 //   (the sums as pairwise trees); a row that has seen no valid key keeps
 //   factor 0. exp(x - m) is taken as 2^((x - m) log2 e) by ex2.approx.ftz,
 //   within ~1e-6 of expf relative and cheaper than its range handling.
-// - P V in two passes: P splits into hi = bf16(p) and lo = bf16(p - hi) and
-//   both multiply the same V fragments (ldmatrix.trans), accumulating in
-//   float32. A single bf16 P is off by up to ~3e-2 in the float32 trunk
-//   partials at llama-2-7b width (tests/test_torch_cascade_mma_numerics.py
-//   emulates both); the split keeps them within 1e-3 for 1.5x the
-//   tensor-core work of the model's FLOPs, which these byte-bound shapes
-//   have to spare.
+// - P V with P as bf16, accumulating in float32 over V fragments read by
+//   ldmatrix.trans. kSplitP (the cascade kernels) takes it in two passes:
+//   P splits into hi = bf16(p) and lo = bf16(p - hi), both over the same V
+//   fragments. A single bf16 P is off by up to ~3e-2 in the float32 trunk
+//   partials at llama-2-7b width; the split keeps them within 1e-3 for
+//   1.5x the tensor-core work of the model's FLOPs. The prefill flash
+//   kernel writes bf16 and takes one pass: its single bf16 P stays under
+//   0.6 of the 1e-2 bar of its plain version
+//   (tests/test_torch_cascade_mma_numerics.py emulates every case).
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16): in a warp, lane l
 // holds rows g = l / 4 and g + 8 of its 16-row tile and, of each 8-column
@@ -51,7 +55,7 @@ namespace attn_mma {
 using bf16 = __nv_bfloat16;
 
 constexpr int kKeys = 64;      // keys per tile
-constexpr int kStages = 3;     // K/V tiles in the cp.async ring
+constexpr int kStages = 3;     // K/V tiles in the cp.async ring (by default)
 constexpr int kWarps = 4;      // warps (16 query rows each) a block, at most
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -64,17 +68,21 @@ struct Dims {
   static constexpr int kNT = HD / 8;        // 8-column n-tiles of the output
   static constexpr int kKS = HD / 16;       // 16-deep k-steps of Q K^T
   static constexpr int kTile = kKeys * kLd; // elements of one K or V tile
-  // Shared memory of a block: the K/V ring. The Q tile (at most
-  // 16 * kWarps rows) is staged in the ring's last stage and read into
-  // registers before that stage takes its first key tile.
-  static constexpr size_t kBytes = size_t(2) * kStages * kTile * sizeof(bf16);
+  // Shared memory of a block: a K/V ring of ``stages`` tiles. The Q tile
+  // (at most 16 * kWarps rows) is staged in the ring's last stage and read
+  // into registers before that stage takes its first key tile.
+  static constexpr size_t ring_bytes(int stages) {
+    return size_t(2) * stages * kTile * sizeof(bf16);
+  }
+  static constexpr size_t kBytes = ring_bytes(kStages);
 };
 static_assert(16 * kWarps <= 2 * kKeys, "the Q tile fits one ring stage");
 
-// Where the caller stages its Q tile (row r of the block at r * kLd).
-template <int HD>
+// Where the caller stages its Q tile (row r of the block at r * kLd) in a
+// ring of kSt stages.
+template <int HD, int kSt = kStages>
 __device__ __forceinline__ bf16* q_stage(bf16* ring) {
-  return ring + (kStages - 1) * 2 * Dims<HD>::kTile;
+  return ring + (kSt - 1) * 2 * Dims<HD>::kTile;
 }
 
 // Source of one K/V row of a tile: its K and V rows, or ok == false for a
@@ -238,9 +246,9 @@ __device__ __forceinline__ void qk_tile(const uint32_t (&qf)[Dims<HD>::kKS][4],
 }
 
 // Online-softmax update of one warp's rows with a fixed-up score tile
-// (-inf where masked), then acc.o = acc.o * factor + P V with P split in
-// hi + lo over the same V fragments.
-template <int HD>
+// (-inf where masked), then acc.o = acc.o * factor + P V, with P split in
+// hi + lo over the same V fragments where kSplitP.
+template <int HD, bool kSplitP>
 __device__ __forceinline__ void softmax_pv(float (&s)[8][4], const bf16* vs, Acc<HD>& acc) {
   constexpr int kLd = Dims<HD>::kLd;
   const int lane = threadIdx.x & 31;
@@ -311,47 +319,52 @@ __device__ __forceinline__ void softmax_pv(float (&s)[8][4], const bf16* vs, Acc
       mma_bf16(acc.o[2 * dd], hi, b[dd][0], b[dd][1]);
       mma_bf16(acc.o[2 * dd + 1], hi, b[dd][2], b[dd][3]);
     }
+    if (kSplitP) {
 #pragma unroll
-    for (int dd = 0; dd < HD / 16; ++dd) {
-      mma_bf16(acc.o[2 * dd], lo, b[dd][0], b[dd][1]);
-      mma_bf16(acc.o[2 * dd + 1], lo, b[dd][2], b[dd][3]);
+      for (int dd = 0; dd < HD / 16; ++dd) {
+        mma_bf16(acc.o[2 * dd], lo, b[dd][0], b[dd][1]);
+        mma_bf16(acc.o[2 * dd + 1], lo, b[dd][2], b[dd][3]);
+      }
     }
   }
 }
 
-// The block's walk over n_tiles key tiles. The caller has issued (not
-// committed) the cp.async copies of its Q tile into q_stage(ring); key(k)
+// The block's walk over n_tiles key tiles through a ring of kSt (2 or
+// more) stages. The caller has issued (not committed) the cp.async copies
+// of its Q tile into q_stage<HD, kSt>(ring); key(k)
 // is the KVRow of key k of the block's key sequence; fix(t, s) turns one
 // warp's raw Q K^T tile into scores (scale, ALiBi, -inf where masked). A
 // warp whose rows all lie past the queries (!active) joins the copies and
-// barriers only.
-template <int HD, typename Key, typename Fix>
+// barriers only. kSplitP: P V from P = bf16 hi + lo (two passes) or from
+// one bf16 P.
+template <int HD, bool kSplitP = true, int kSt = kStages, typename Key, typename Fix>
 __device__ __forceinline__ void key_loop(bf16* ring, int n_tiles, bool active,
                                          const Key& key, const Fix& fix, Acc<HD>& acc) {
+  static_assert(kSt >= 2, "a ring of two stages or more");
   constexpr int kTile = Dims<HD>::kTile;
-  auto stage = [ring](int t) { return ring + (t % kStages) * 2 * kTile; };
-  // Tiles 0 .. kStages - 2 in flight (the Q copies join tile 0's group).
+  auto stage = [ring](int t) { return ring + (t % kSt) * 2 * kTile; };
+  // Tiles 0 .. kSt - 2 in flight (the Q copies join tile 0's group).
 #pragma unroll
-  for (int t = 0; t < kStages - 1; ++t) {
+  for (int t = 0; t < kSt - 1; ++t) {
     if (t < n_tiles) load_kv<HD>(stage(t), stage(t) + kTile, key, t * kKeys);
     cp_async_commit();
   }
-  cp_async_wait<kStages - 2>();
+  cp_async_wait<kSt - 2>();
   __syncthreads();
   uint32_t qf[Dims<HD>::kKS][4];
-  if (active) load_q<HD>(q_stage<HD>(ring) + (threadIdx.x >> 5) * 16 * Dims<HD>::kLd, qf);
+  if (active) load_q<HD>(q_stage<HD, kSt>(ring) + (threadIdx.x >> 5) * 16 * Dims<HD>::kLd, qf);
   __syncthreads();  // Q's stage is free for key tiles
   for (int t = 0; t < n_tiles; ++t) {
-    const int ahead = t + kStages - 1;
+    const int ahead = t + kSt - 1;
     if (ahead < n_tiles) load_kv<HD>(stage(ahead), stage(ahead) + kTile, key, ahead * kKeys);
     cp_async_commit();
-    cp_async_wait<kStages - 1>();  // tile t has landed
+    cp_async_wait<kSt - 1>();  // tile t has landed
     __syncthreads();
     if (active) {
       float s[8][4];
       qk_tile<HD>(qf, stage(t), s);
       fix(t, s);
-      softmax_pv<HD>(s, stage(t) + kTile, acc);
+      softmax_pv<HD, kSplitP>(s, stage(t) + kTile, acc);
     }
     __syncthreads();  // the next copies reuse this stage
   }

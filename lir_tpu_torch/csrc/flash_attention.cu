@@ -14,17 +14,43 @@
 // (the same function). key_mask, key_positions (B, S) int32; slopes (H,)
 // float32 or null. Output (B, S, H, hd) in q's dtype.
 //
-// What bounds it on the H100: bytes. At bucket 512, B = 32, llama-2-7b
-// width it must read q, k, v and write the output, 537 MB, against 68.7
-// causal GFLOP: ~0.160 ms of bytes, ~0.069 ms of bf16 tensor-core time.
-// This first kernel multiplies on CUDA cores in float32 from shared
-// memory tiles (attn_tile.cuh: 64 queries x 64 keys, a 4 x 4 register
-// micro-tile a thread, the accumulator in registers), so operations bound
-// it in practice; mma or wgmma with TMA loads is later work. One block
-// per (query tile, head, batch row); a GQA group's blocks read their kv
-// head's tiles through L2. The key tiles are summed in another order than
-// the plain version's single softmax, so the two match within float
-// tolerance, not bitwise.
+// What bounds it on the H100. At bucket 512, B = 32, llama-2-7b width it
+// must read q, k, v and write the output, 537 MB (~0.160 ms at 3.35 TB/s),
+// against 68.7 causal GFLOP (~0.069 ms of bf16 tensor-core time): bytes,
+// by a factor of two, if the products run on tensor cores. On CUDA cores
+// in float32 the same work takes over 1 ms whatever else is done, which is
+// what bounded the first kernel (flash_kernel below, still the float32
+// route): 64 x 64 float32 tiles in shared memory, K and V loaded into one
+// buffer with a barrier between each load and its use.
+//
+// bf16 inputs take flash_mma_kernel, built on attn_mma.cuh as the cascade
+// kernels are:
+// - A block owns 64 query rows (four warps of 16) of one (batch row, query
+//   head) and reads kv head h / G. Stacking a GQA group's G heads as rows
+//   would not read fewer key tiles: a 64-row tile would then span 64 / G
+//   query positions, so as many blocks walk as many tiles, and the causal
+//   bound of a tile would loosen; the group's blocks share their kv head's
+//   tiles through L2 instead.
+// - The key walk starts at the tile of the batch row's first valid key (a
+//   scan of the key mask) and stops at the causal diagonal; key_loop feeds
+//   it through a 2-stage cp.async ring, the walk's first slot in the Key
+//   functor. Rows with no valid key walk nothing and write 0. Two stages
+//   (not the cascade kernels' three) and a cap of 168 registers let three
+//   blocks share an SM: at these prompt lengths a block walks few tiles,
+//   so more blocks in flight beat a deeper ring.
+// - S = Q K^T by mma.sync from raw bf16 q and k, summed in float32, then
+//   x sm_scale in float32 (q is never pre-scaled into bf16), + ALiBi
+//   slope_h * kpos in float32, -inf where the key mask is 0 or kj > qi.
+// - P V from one bf16 P: the output is bf16, and the CPU emulation of this
+//   arithmetic (tests/test_torch_cascade_mma_numerics.py) stays under 0.6
+//   of the card's 1e-2 bar of flash_attention_plain, so the cascade kernels'
+//   hi + lo split, which their float32 partials need, is not taken.
+// - The grid's slowest axis is the query tile, reversed: the tiles nearest
+//   the end of the prompt walk the most keys and are scheduled first.
+// What is left: wgmma with TMA loads (a warpgroup's 64 rows, softmax
+// overlapped with the next tile's products), as FlashAttention-3 does.
+// The key tiles are summed in another order than the plain version's
+// single softmax, so the two match within bf16 tolerance, not bitwise.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -33,6 +59,7 @@
 
 #include <cmath>
 
+#include "attn_mma.cuh"
 #include "attn_tile.cuh"
 
 namespace {
@@ -181,6 +208,154 @@ cudaError_t launch(const FlashArgs& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+namespace am = attn_mma;
+
+// Q row r of a block: query i0 + r of batch row b, head h (past the
+// queries: zero-filled).
+struct FlashQ {
+  const am::bf16* q;
+  int b, S, H, h, i0, hd;
+  __device__ __forceinline__ am::Row operator()(int r) const {
+    const int i = i0 + r;
+    const bool ok = i < S;
+    return {q + ((size_t(b) * S + (ok ? i : i0)) * H + h) * hd, ok};
+  }
+};
+
+// Key k of a block's walk: slot lower + k of batch row b, kv head kh.
+struct FlashKV {
+  const am::bf16 *k, *v;
+  int b, S, K, kh, lower, hd;
+  __device__ __forceinline__ am::KVRow operator()(int key) const {
+    const int j = lower + key;
+    const bool ok = j < S;
+    const size_t off = ((size_t(b) * S + (ok ? j : 0)) * K + kh) * hd;
+    return {k + off, v + off, ok};
+  }
+};
+
+// Scores of one warp's tile: x sm_scale, ALiBi on the key's mask-aware
+// position, -inf where the key is masked, past S or after the row's query.
+struct FlashFix {
+  const int* mask;  // the batch row's (S,)
+  const int* kpos;  // the batch row's (S,), or null (no ALiBi)
+  float sm_scale, slope;
+  int S, lower, c0;
+  int qi[2];        // the lane's two query rows (row g, row g + 8)
+  __device__ __forceinline__ void operator()(int t, float (&s)[8][4]) const {
+    const int k0 = lower + t * am::kKeys;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int kj = k0 + 8 * j + c0 + c;
+        const bool in = kj < S;
+        const bool live = in && __ldg(mask + kj) > 0;
+        const float kp = (kpos != nullptr && in) ? float(__ldg(kpos + kj)) : 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float x = __fmul_rn(s[j][2 * h + c], sm_scale);
+          if (kpos != nullptr) x = __fadd_rn(x, __fmul_rn(slope, kp));
+          s[j][2 * h + c] = (live && kj <= qi[h]) ? x : -CUDART_INF_F;
+        }
+      }
+  }
+};
+
+// The normalized output of one lane's four columns of row half h, bf16.
+struct FlashStore {
+  am::bf16* out;
+  int b, S, H, h, hd, qi;
+  float l[2];
+  __device__ __forceinline__ void operator()(int half, int col, float4 v) const {
+    const int i = qi + 8 * half;
+    if (i >= S) return;
+    const float lh = half ? l[1] : l[0];
+    uint2 pk;
+    pk.x = am::as_u32(__floats2bfloat162_rn(__fdiv_rn(v.x, lh), __fdiv_rn(v.y, lh)));
+    pk.y = am::as_u32(__floats2bfloat162_rn(__fdiv_rn(v.z, lh), __fdiv_rn(v.w, lh)));
+    *reinterpret_cast<uint2*>(out + ((size_t(b) * S + i) * H + h) * hd + col) = pk;
+  }
+};
+
+// Stages of the flash kernel's K/V ring: two, so that three blocks fit an
+// SM (3 x 69,632 B at hd 128, and at most 168 registers a thread).
+constexpr int kFlashStages = 2;
+
+// bf16 on tensor cores. Grid (H, B, ceil(S / 64)); blockIdx.z counts query
+// tiles from the last one down.
+template <int HD>
+__global__ void __launch_bounds__(am::kWarps * 32, 3) flash_mma_kernel(FlashArgs a) {
+  using am::bf16;
+  extern __shared__ __align__(16) unsigned char flash_mma_smem[];
+  __shared__ int first_valid;
+  bf16* ring = reinterpret_cast<bf16*>(flash_mma_smem);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int i0 = (gridDim.z - 1 - blockIdx.z) * 16 * am::kWarps;
+  const int S = a.S;
+  const int kh = h / (a.H / a.K);
+  am::load_rows<HD>(am::q_stage<HD, kFlashStages>(ring), 16 * am::kWarps,
+                    FlashQ{static_cast<const bf16*>(a.q), b, S, a.H, h, i0, HD});
+
+  // The row's first valid key: the walk starts at its tile.
+  const int* mask_b = a.mask + size_t(b) * S;
+  if (threadIdx.x == 0) first_valid = S;
+  __syncthreads();
+  int mine = S;
+  for (int j = threadIdx.x; j < S; j += blockDim.x)
+    if (mask_b[j] > 0) {
+      mine = j;
+      break;
+    }
+  mine = __reduce_min_sync(am::kFull, mine);
+  if (lane == 0) atomicMin(&first_valid, mine);
+  __syncthreads();
+  const int lower = first_valid / am::kKeys * am::kKeys;
+  const int upper = min(S, i0 + 16 * am::kWarps);  // the causal diagonal
+  const int n_tiles = first_valid < S && upper > lower
+                          ? (upper - lower + am::kKeys - 1) / am::kKeys : 0;
+
+  const FlashKV key{static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
+                    b, S, a.K, kh, lower, HD};
+  const int qi = i0 + warp * 16 + (lane >> 2);
+  const FlashFix fix{mask_b, a.kpos != nullptr ? a.kpos + size_t(b) * S : nullptr,
+                     a.sm_scale, a.slopes != nullptr ? a.slopes[h] : 0.f,
+                     S, lower, 2 * (lane & 3), {qi, qi + 8}};
+  am::Acc<HD> acc;
+  am::acc_init<HD>(acc);
+  const bool active = i0 + warp * 16 < S;
+  am::key_loop<HD, false, kFlashStages>(ring, n_tiles, active, key, fix, acc);
+  if (!active) return;
+  am::store_rows<HD>(acc, FlashStore{static_cast<bf16*>(a.out), b, S, a.H, h, HD, qi,
+                                     {fmaxf(acc.l[0], 1e-30f), fmaxf(acc.l[1], 1e-30f)}});
+}
+
+template <int HD>
+cudaError_t launch_mma(const FlashArgs& a, cudaStream_t st) {
+  const int smem = int(am::Dims<HD>::ring_bytes(kFlashStages));
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const int rows = 16 * am::kWarps;
+  dim3 grid(a.H, a.B, (a.S + rows - 1) / rows);
+  flash_mma_kernel<HD><<<grid, am::kWarps * 32, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+cudaError_t mma_by_hd(const FlashArgs& a, int hd, cudaStream_t st) {
+  switch (hd) {
+    case 32: return launch_mma<32>(a, st);
+    case 64: return launch_mma<64>(a, st);
+    case 80: return launch_mma<80>(a, st);
+    case 96: return launch_mma<96>(a, st);
+    case 128: return launch_mma<128>(a, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T>
 cudaError_t by_hd(const FlashArgs& a, int hd, cudaStream_t st) {
   switch (hd) {
@@ -195,7 +370,8 @@ cudaError_t by_hd(const FlashArgs& a, int hd, cudaStream_t st) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; hd one of 32, 64, 80, 96, 128.
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores); hd one
+// of 32, 64, 80, 96, 128.
 // Returns cudaGetLastError() (or the error of a refused attribute), 0 on
 // success.
 extern "C" int lir_flash_attention(const void* q, const void* k, const void* v,
@@ -219,6 +395,6 @@ extern "C" int lir_flash_attention(const void* q, const void* k, const void* v,
   a.sm_scale = float(1.0 / sqrt(double(hd)));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return int(by_hd<float>(a, hd, st));
-  if (dtype == 1) return int(by_hd<__nv_bfloat16>(a, hd, st));
+  if (dtype == 1) return int(mma_by_hd(a, hd, st));
   return int(cudaErrorInvalidValue);
 }

@@ -175,6 +175,10 @@ def _prepare(q, k, v, q_positions, key_mask, key_positions, alibi_slopes):
                             f"{q.dtype} on {q.device}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash decode kernel needs contiguous q, k, v")
+    if hd % 8 or any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"flash decode kernel needs a head dim that is a "
+                         f"multiple of 8 and 16-byte aligned q, k, v; got hd "
+                         f"{hd}")
     if key_positions is None:
         key_positions = _default_positions(key_mask)
     ints = []
@@ -198,11 +202,14 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _decode_cuda(q, k, v, q_positions, key_mask, key_positions,
-                 alibi_slopes, trunk_len: int) -> torch.Tensor:
-    """The kernels on q (B, S, H, hd): the trunk kernel over the full
-    trunk splits (when there are any), the row-split kernel over the
-    rest, then the merge. Returns (B, S, H, hd)."""
+def decode_legs(q, k, v, q_positions, key_mask, key_positions=None,
+                alibi_slopes=None, trunk_len: int = 0):
+    """The kernel launches for q (B, S, H, hd) on CUDA tensors, each a
+    callable of no arguments: ``"trunk"`` (the trunk leg over the full
+    trunk splits, only where there is one), ``"rows"`` (the row leg over
+    the rest) and ``"merge"``. Run in that order, they fill ``out``
+    (B, S, H, hd). Returns ``(out, legs)``. The wrappers below run them;
+    they count no launch, so they can also be timed one by one."""
     (qpos, mask, kpos), slopes = _prepare(q, k, v, q_positions, key_mask,
                                           key_positions, alibi_slopes)
     B, S, H, hd = q.shape
@@ -222,14 +229,29 @@ def _decode_cuda(q, k, v, q_positions, key_mask, key_positions,
             m_p.data_ptr(), l_p.data_ptr(), B, S, H, K, T, hd, DECODE_SPLIT,
             ns)
     code = _DTYPES[q.dtype]
+    legs = {}
     if nt:
-        _build.check(lib.lir_flash_decode_trunk_splits(*args, nt, code, stream),
-                     "flash decode (trunk splits)")
-    _build.check(lib.lir_flash_decode_splits(*args, nt, code, stream),
-                 "flash decode (row splits)")
-    _build.check(lib.lir_flash_decode_merge(
+        legs["trunk"] = lambda: _build.check(
+            lib.lir_flash_decode_trunk_splits(*args, nt, code, stream),
+            "flash decode (trunk splits)")
+    legs["rows"] = lambda: _build.check(
+        lib.lir_flash_decode_splits(*args, nt, code, stream),
+        "flash decode (row splits)")
+    legs["merge"] = lambda: _build.check(lib.lir_flash_decode_merge(
         o_p.data_ptr(), m_p.data_ptr(), l_p.data_ptr(), out.data_ptr(),
         B, S, H, K, ns, hd, code, stream), "flash decode (merge)")
+    return out, legs
+
+
+def _decode_cuda(q, k, v, q_positions, key_mask, key_positions,
+                 alibi_slopes, trunk_len: int) -> torch.Tensor:
+    """The kernels on q (B, S, H, hd): the trunk leg over the full trunk
+    splits (when there are any), the row leg over the rest, then the
+    merge. Returns (B, S, H, hd)."""
+    out, legs = decode_legs(q, k, v, q_positions, key_mask, key_positions,
+                            alibi_slopes, trunk_len)
+    for launch in legs.values():
+        launch()
     return out
 
 
@@ -237,8 +259,8 @@ def flash_decode(q, k, v, q_positions, key_mask, key_positions=None,
                  alibi_slopes=None) -> torch.Tensor:
     """One decode step of attention. Returns (B, H, hd) in q's dtype.
 
-    CUDA tensors launch ``csrc/flash_decode.cu`` (row-split kernel, then
-    the merge kernel); CPU tensors run :func:`flash_decode_plain`."""
+    CUDA tensors launch ``csrc/flash_decode.cu`` (the row leg, then the
+    merge); CPU tensors run :func:`flash_decode_plain`."""
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, q_positions, key_mask,
                                   key_positions, alibi_slopes)
@@ -255,9 +277,8 @@ def flash_decode_trunk(q, k, v, q_positions, key_mask, key_positions=None,
                        alibi_slopes=None, trunk_len: int = 0) -> torch.Tensor:
     """Trunk-aware decode step for shared-trunk dispatches: the cache's
     leading ``trunk_len`` slots are identical across rows, so the full
-    splits inside the trunk read K/V from row 0 once per kv head for all
-    rows (the trunk kernel); the tail splits run the flat kernel. Bitwise
-    the flat kernel. With no full trunk split it is :func:`flash_decode`.
+    splits inside the trunk read K/V from row 0 for all rows (the trunk
+    leg); the tail splits run the row leg. Bitwise the flat kernel. With no full trunk split it is :func:`flash_decode`.
 
     CUDA tensors launch ``csrc/flash_decode.cu``; CPU tensors run
     :func:`flash_decode_trunk_plain`."""
@@ -287,9 +308,9 @@ def flash_decode_mq(q, k, v, q_positions, key_mask, key_positions=None,
     later drafts. Returns (B, S, H, hd) in q's dtype; query j is bitwise
     :func:`flash_decode` with ``q_positions[:, j]``.
 
-    CUDA tensors launch ``csrc/flash_decode.cu`` (row-split kernel over
-    all S queries of a row per tile, then the merge kernel); CPU tensors
-    run :func:`flash_decode_mq_plain`."""
+    CUDA tensors launch ``csrc/flash_decode.cu`` (the row leg, all S
+    queries of a row reduced together against each tile, then the merge);
+    CPU tensors run :func:`flash_decode_mq_plain`."""
     if q.device.type == "cpu":
         return flash_decode_mq_plain(q, k, v, q_positions, key_mask,
                                      key_positions, alibi_slopes)
@@ -311,8 +332,8 @@ def flash_decode_mq_trunk(q, k, v, q_positions, key_mask, key_positions=None,
     :func:`flash_decode_mq`. With no full trunk split it is
     :func:`flash_decode_mq`.
 
-    CUDA tensors launch ``csrc/flash_decode.cu`` (trunk kernel, row-split
-    kernel over the tail splits, merge); CPU tensors run
+    CUDA tensors launch ``csrc/flash_decode.cu`` (trunk leg, row leg over
+    the tail splits, merge); CPU tensors run
     :func:`flash_decode_mq_trunk_plain`."""
     if trunk_splits(trunk_len, k.shape[1]) == 0:
         return flash_decode_mq(q, k, v, q_positions, key_mask, key_positions,

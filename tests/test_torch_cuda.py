@@ -9,14 +9,16 @@ the test, never at import). Run on the card with
 machine need not have). bf16 kernel output against the float32 plain
 version of the same bf16 inputs, atol = rtol = 1e-2 (bf16 output
 rounding); the trunk kernels bitwise the flat ones, and query j of the
-multi-query kernel bitwise the single-query kernel at its position. The
+multi-query kernel bitwise the single-query kernel at its position, at
+the decode kernels' block edges too. The
 trunk-leg kernels' float32 partials against their plain versions'
 within 1e-3 (sums of ~100 terms in another order); with int8 QK^T the
 row max bitwise (the scores are). The cascade cases cover the tile
 edges of the bf16 tensor-core kernels (R * G not a multiple of 16, a
 ragged last key tile, every head dim they are built for, a batch row
 whose window is fully masked, ALiBi) and one float32 case each, which
-takes the CUDA-core kernels.
+takes the CUDA-core kernels; the prefill flash cases cover every head
+dim of its bf16 tensor-core kernel, S up to 512, GQA, MQA and ALiBi.
 """
 
 import dataclasses
@@ -117,6 +119,66 @@ def test_flash_decode_mq_kernels_match_plain(gen, H, K, hd, alibi):
     assert torch.equal(trunk_out, mq)
 
 
+# (B, S, H, K, hd, T, trunk_len, alibi, dtype) at the edges of the decode
+# kernels' blocking: batch rows that the trunk leg's row blocks do not
+# divide (B * S * G rows in blocks of at most 32, spread evenly), a trunk
+# that ends inside a split, no trunk, a ragged last split (T % 64 of 44,
+# 1 and 8), falcon-7b's G = 71 (284 rows of a batch row, nine blocks),
+# ALiBi, and float32 tiles.
+DECODE_EDGE_CASES = [
+    (9, 4, 8, 2, 128, 300, 200, False, BF16), (5, 4, 8, 8, 128, 257, 0, False, BF16),
+    (3, 4, 71, 1, 64, 300, 130, False, BF16), (33, 4, 32, 32, 128, 576, 432, False, BF16),
+    (7, 2, 8, 8, 64, 200, 191, True, BF16), (4, 3, 8, 2, 32, 150, 100, False, F32),
+]
+
+
+@pytest.mark.parametrize("B,S,H,K,hd,T,trunk,alibi,dtype", DECODE_EDGE_CASES,
+                         ids=[f"B{c[0]}S{c[1]}H{c[2]}K{c[3]}hd{c[4]}T{c[5]}t{c[6]}"
+                              f"{'-alibi' if c[7] else ''}{'-f32' if c[8] == F32 else ''}"
+                              for c in DECODE_EDGE_CASES])
+def test_flash_decode_mq_trunk_bitwise_at_block_edges(gen, B, S, H, K, hd, T, trunk,
+                                                      alibi, dtype):
+    """The multi-query kernels against their plain versions, mq_trunk
+    bitwise mq, query j of mq bitwise the single-query kernel, and the
+    single-query trunk kernel bitwise the flat one."""
+    q = _rnd(gen, B, S, H, hd, dtype=dtype)
+    k, v = _rnd(gen, K, T, B, hd, dtype=dtype), _rnd(gen, K, T, B, hd, dtype=dtype)
+    k[:, :trunk] = k[:, :trunk, :1]
+    v[:, :trunk] = v[:, :trunk, :1]
+    mask = torch.ones((B, T), dtype=torch.int32, device="cuda")
+    for b in range(B):
+        lo = max(trunk, T // 2) + (b * 7) % max(T // 4, 1)
+        mask[b, lo:lo + 3 + b % 5] = 0
+    mask[:, T - 2:] = 0
+    kpos = torch.clamp_min(torch.cumsum(mask, -1, dtype=torch.int32) - 1, 0)
+    qpos = (kpos.max(-1).values[:, None] - (S - 1)
+            + torch.arange(S, device="cuda")[None]).to(torch.int32)
+    slopes = alibi_slopes(H, "cuda") if alibi else None
+    kw = dict(key_positions=kpos, alibi_slopes=slopes)
+    mq = ops.flash_decode_mq(q, k, v, qpos, mask, **kw)
+    ref = ops.flash_decode_mq_plain(q, k, v, qpos, mask, **kw)
+    torch.testing.assert_close(mq.float(), ref.float(), **TOL)
+    assert torch.equal(ops.flash_decode_mq_trunk(q, k, v, qpos, mask, trunk_len=trunk,
+                                                 **kw), mq)
+    for j in range(S):
+        qj, pj = q[:, j].contiguous(), qpos[:, j].contiguous()
+        one = ops.flash_decode(qj, k, v, pj, mask, **kw)
+        assert torch.equal(mq[:, j], one)
+        assert torch.equal(ops.flash_decode_trunk(qj, k, v, pj, mask, trunk_len=trunk,
+                                                  **kw), one)
+
+
+def test_flash_decode_refuses_head_dim_off_the_tile_rows(gen):
+    """The decode kernels copy 16-byte tile rows: a head dim that is not a
+    multiple of 8 raises before any launch."""
+    q = _rnd(gen, 2, 4, 12)
+    k = _rnd(gen, 4, 70, 2, 12)
+    mask = torch.ones((2, 70), dtype=torch.int32, device="cuda")
+    qpos = torch.full((2,), 69, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ops.flash_decode(q, k, k, qpos, mask)
+
+
 @pytest.mark.parametrize("H,K,hd,alibi,R,Tt,dtype", CASCADE_CASES,
                          ids=[_case_id(c) for c in CASCADE_CASES])
 def test_cascade_kernel_matches_plain(gen, H, K, hd, alibi, R, Tt, dtype):
@@ -204,13 +266,24 @@ def test_cascade_prefix_kernels_match_plain(gen, H, K, hd, alibi, R, Tt, dtype,
     torch.testing.assert_close(out.float().cpu(), ref_out.float(), **TOL)
 
 
-@pytest.mark.parametrize("S", [48, 128, 256])
-@pytest.mark.parametrize("H,K,hd,alibi", [(8, 8, 128, False), (8, 2, 128, False),
-                                          (71, 1, 64, False), (8, 8, 64, True)])
-def test_flash_attention_kernel_matches_plain(gen, H, K, hd, alibi, S):
+# (H, K, hd, alibi, dtype) of the prefill flash kernel's cases: MHA, GQA,
+# falcon-7b's MQA (71 / 1), ALiBi, every head dim of the bf16 tensor-core
+# kernel, and float32 (the CUDA-core kernel).
+FLASH_CASES = [
+    (8, 8, 128, False, BF16), (8, 2, 128, False, BF16), (71, 1, 64, False, BF16),
+    (8, 8, 64, True, BF16), (8, 8, 32, False, BF16), (8, 2, 80, True, BF16),
+    (8, 8, 96, False, BF16), (8, 2, 64, True, F32),
+]
+
+
+@pytest.mark.parametrize("S", [48, 128, 256, 512])
+@pytest.mark.parametrize("H,K,hd,alibi,dtype", FLASH_CASES,
+                         ids=[f"H{c[0]}K{c[1]}hd{c[2]}{'-alibi' if c[3] else ''}"
+                              f"{'-f32' if c[4] == F32 else ''}" for c in FLASH_CASES])
+def test_flash_attention_kernel_matches_plain(gen, H, K, hd, alibi, dtype, S):
     B = 3
-    q = _rnd(gen, B, S, H, hd)
-    k, v = _rnd(gen, B, S, K, hd), _rnd(gen, B, S, K, hd)
+    q = _rnd(gen, B, S, H, hd, dtype=dtype)
+    k, v = _rnd(gen, B, S, K, hd, dtype=dtype), _rnd(gen, B, S, K, hd, dtype=dtype)
     mask = torch.ones((B, S), dtype=torch.int32, device="cuda")
     mask[0, :S // 3] = 0                      # left pad
     mask[1, 5:9] = 0                          # a hole
