@@ -6,63 +6,73 @@ Phases (each raises on failure, so the script exits non-zero):
 
 1. Build: compile every kernel of ``lir_tpu_torch/csrc`` with nvcc for
    sm_90a, one nvcc per source, all at once; print ptxas's registers,
-   shared memory and spills per kernel, and the count of tensor-core
-   instructions (HMMA, or HGMMA for wgmma) in each instantiation of the
-   bf16 tensor-core kernels (``cascade_mma_kernel``, ``prefix_mma_kernel``,
-   ``flash_mma_kernel``) from ``cuobjdump -sass`` of the built library;
-   fail if one has none.
+   shared memory and spills per kernel, and from ``cuobjdump -sass`` of
+   the built libraries the tensor-core instructions of each
+   instantiation: HMMA (or HGMMA for wgmma) in the bf16 kernels
+   (``cascade_mma_kernel``, ``prefix_mma_kernel``, ``prefix_imma_kernel``,
+   ``flash_mma_kernel``, ``row_gemm_kernel``), IMMA in
+   ``prefix_imma_kernel``; fail if one has none.
 2. Kernels against their plain PyTorch versions on the card, at the
    shapes the main path gives them (llama-2-7b widths, B = 32, the cache
    extents and trunks of phase 3's dispatches; the verify window's
    S = spec_k = 4 queries a row for the multi-query kernels; the trunk
    leg at the cascade dispatch's shape, float32 and int8 QK^T; the
-   prefill flash kernel at buckets 64, 128 and 512), plus GQA
-   (mistral-7b), MQA (falcon-7b) and ALiBi (bloom-7b1) shapes: bf16
-   kernel output against the float32 plain version of the same bf16
-   inputs, atol = rtol = 1e-2 (bf16 output rounding; the trunk leg's
-   float32 partials to the same bar); the trunk decode kernels bitwise
-   the flat ones, query j of the multi-query kernel bitwise the
-   single-query kernel at its position, and the int8 trunk leg's row max
-   bitwise its plain twin's (the int8 payloads and s32 dots are exact).
+   prefill flash kernel at buckets 64, 128 and 512; the row-invariant
+   projections at M = B and B * spec_k for wq, w_up and w_down, and the
+   norm), plus GQA (mistral-7b), MQA (falcon-7b) and ALiBi (bloom-7b1)
+   shapes: bf16 kernel output against the float32 plain version of the
+   same bf16 inputs, atol = rtol = 1e-2 (bf16 output rounding; the trunk
+   leg's float32 partials to the same bar). Bitwise: the trunk decode
+   kernels against the flat ones, query j of the multi-query kernel
+   against the single-query kernel at its position, the int8 trunk
+   leg's row max against its plain twin's, the trunk keys' quantization
+   pass against ``dynamic_quant``, the fused cascade against
+   ``cascade_prefix`` + ``cascade_suffix_merge`` at every cascade case,
+   and the row kernels' first rows against the same rows alone.
    Times by CUDA events after warm-up, the L2 cache flushed before every
    launch and the stream held by a spin kernel while the host enqueues it
-   (device time, without the host's launch time); the SDPA yardstick (``library_ms``) is timed beside the float
-   kernels and used nowhere in the port (no PyTorch call computes the
-   int8-QK^T trunk leg); the two legs of ``flash_decode_mq_trunk`` and its
-   merge are also timed one launch at a time. Then the whole slice at a
-   small float32 size:
-   the cascade and the speculative dispatch on the card against the same
-   on the CPU (plain versions), the speculative dispatch against the
-   sequential one on the card (ids exact, position-0 readouts bitwise),
-   a speculative run given the sequential stream as its drafts, and the
-   8-bit engine (dynamic int8 weights, int8 QK^T, flash prefill) on the
-   card against the same on the CPU (ids exact, floats within 1e-2).
-   Last, at llama-2-7b width, one decode step against one verify window
-   from the same cache: their logit difference, and the step's top-2 gap
-   where their argmax differs (printed, not asserted).
+   (device time, without the host's launch time); the library yardstick
+   (``library_ms``: SDPA, torch.matmul, F.rms_norm) is timed beside the
+   kernels and used nowhere in the port; the two legs of
+   ``flash_decode_mq_trunk`` and its merge are also timed one launch at
+   a time. Then the whole slice at a small float32 size: the cascade and
+   the speculative dispatch on the card against the same on the CPU
+   (plain versions), the speculative dispatch against the sequential one
+   on the card (ids exact, position-0 readouts bitwise), a speculative
+   run given the sequential stream as its drafts, and the 8-bit engine
+   (dynamic int8 weights, int8 QK^T, flash prefill) on the card against
+   the same on the CPU (ids exact, floats within 1e-2). Last, at
+   llama-2-7b width, spec_k decode steps against one verify window fed
+   the steps' tokens, on the flat and the trunk kernels: window position
+   j's logits must be bitwise step j's (and the same on the 8-bit engine
+   in phase 3); beside it, whether the library ops the row kernels
+   replaced give a row the same bits at B and B * spec_k rows (printed).
 3. The slice at full width: llama-2-7b with seeded random bf16 weights
    made on the card, four engines sharing them. The word-meaning sweep
    over the 50 questions (dense prefill + the flat decode kernel); one
    shared dispatch of 32 cells sharing a ~430-token legal trunk (cascade
    prefill + the trunk decode kernel), and the same on an engine with
-   the fused cascade off (the float trunk-leg kernel; its position-0
-   yes>no decisions must equal the fused route's, its position-0
-   probabilities within 1e-3); the 32 cells with no common trunk on the
-   sequential engine (dense shared prefill + the flat kernel) and on the
-   default engine (the speculative verify loop on the multi-query
-   kernel); the trunk cells on the sequential engine and on an engine
-   with the cascade prefill off (the verify loop on the trunk-aware
-   multi-query kernel). Then the 8-bit engine at the same width, its
-   int8 weights born on the card (``init_quantized_params``, dynamic):
-   the word-meaning sweep (flash prefill + flat decode), the trunk
-   dispatch (int8 trunk-leg kernel + trunk decode) and the no-trunk
-   dispatch (flash prefill at bucket 128 + the verify loop), with rows/s
-   and peak memory beside the bf16 engine's, and a profile of one of its
-   word-meaning batches beside the bf16 one's. Each phase resets the
-   launch counts just before it and reads them just after, and fails if
-   a kernel of its path never launched; the speculative dispatches'
-   position-0 readouts must be bitwise the sequential ones on the same
-   cells.
+   the fused cascade off (the trunk-leg kernel + the suffix merge), whose
+   every readout and generated id must be bitwise the fused route's; the
+   32 cells with no common trunk on the sequential engine (dense shared
+   prefill + the flat kernel) and on the default engine (the speculative
+   verify loop on the multi-query kernel); the trunk cells on the
+   sequential engine and on an engine with the cascade prefill off (the
+   verify loop on the trunk-aware multi-query kernel). Each speculative
+   dispatch must be bitwise the sequential one on every readout (later
+   ids agreeing with share 1.0). The cost of the row kernels: ms per
+   no-trunk dispatch on both routes with them and with the library calls
+   patched back in, in turns. Then the 8-bit engine at the same width,
+   its int8 weights born on the card (``init_quantized_params``,
+   dynamic): the verify-vs-step check, the word-meaning sweep (flash
+   prefill + flat decode), the trunk dispatch (key quantization pass +
+   int8 trunk-leg kernel + suffix merge + trunk decode), and the no-trunk
+   dispatch on the sequential and the speculative route (flash prefill
+   at bucket 128), bitwise alike, with rows/s and peak memory beside the
+   bf16 engine's, and a profile of one of its word-meaning batches beside
+   the bf16 one's. Each phase resets the launch counts just before it and
+   reads them just after, and fails if a kernel of its path never
+   launched.
 4. The ``{"kernels": [...]}`` summary, the card's name and power limit,
    and the last line ``{"ok": true, "device": {...}}``.
 """
@@ -97,7 +107,9 @@ from lir_tpu_torch.ops.flash_decode import (decode_legs,
                                             trunk_splits, DECODE_SPLIT)
 from lir_tpu_torch.ops.cascade_prefill import (cascade_attention_plain,
                                                prefix_partials,
-                                               prefix_partials_int8)
+                                               prefix_partials_int8,
+                                               suffix_merge_plain)
+from lir_tpu_torch.ops.row_gemm import row_gemm_plain, row_norm_plain
 from lir_tpu_torch.ops.flash_attention import flash_attention_plain
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
@@ -135,10 +147,21 @@ SOURCES = {
     "flash_attention": ("lir_tpu_torch/csrc/flash_attention.cu",
                         "lir_tpu/ops/flash_attention.py:41",
                         "llama2-7b/spec-dispatch"),
+    # Launches without a Pallas original: "replaces" names the JAX code
+    # they stand in for (XLA there).
+    "row_gemm": ("lir_tpu_torch/csrc/row_gemm.cu",
+                 "lir_tpu/models/decoder.py:439 (XLA dot)",
+                 "llama2-7b/w_up/M32"),
+    "row_norm": ("lir_tpu_torch/csrc/row_gemm.cu",
+                 "lir_tpu/models/decoder.py:114 (XLA)",
+                 "llama2-7b/M32"),
+    "cascade_suffix_merge": ("lir_tpu_torch/csrc/cascade_prefill.cu",
+                             "lir_tpu/ops/cascade_prefill.py:174 (XLA)",
+                             "llama2-7b/cascade-dispatch"),
+    "quantize_rows": ("lir_tpu_torch/csrc/cascade_prefill.cu",
+                      "lir_tpu/ops/cascade_prefill.py:86 (in-kernel)",
+                      "llama2-7b/cascade-dispatch"),
 }
-# The two-leg cascade against the fused one at full width (bf16): the
-# position-0 probabilities of both branches within this absolute bound.
-POS0_PROB_ATOL = 1e-3
 # The 8-bit small slice on the card against the CPU: floats within this
 # bound. The two devices' activations differ by ~1e-7 (other summation
 # orders); where that crosses a rounding boundary of the per-token
@@ -208,16 +231,18 @@ SPIN_CYCLES = 1_000_000
 
 
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Mean device ms of ``fn`` over ``iters`` launches, each after an L2
+    """Median device ms of ``fn`` over ``iters`` launches, each after an L2
     flush (a 64 MB write), by CUDA events. A spin kernel between the flush
     and the start event keeps the stream busy while the host enqueues
-    ``fn``, so the reading is device time, not the host's launch time."""
+    ``fn``, so the reading is device time, not the host's launch time.
+    The median, not the mean: one stalled launch among ten can move a
+    mean several-fold."""
     global _FLUSH
     if _FLUSH is None:
         _FLUSH = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
-    total = 0.0
+    times = []
     for _ in range(iters):
         _FLUSH.zero_()
         torch.cuda._sleep(SPIN_CYCLES)
@@ -227,8 +252,8 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
         fn()
         end.record()
         end.synchronize()
-        total += start.elapsed_time(end)
-    return total / iters
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
 
 
 def warm_up(seconds: float = 2.0) -> None:
@@ -368,13 +393,16 @@ def check_decode(gen, label, B, H, K, hd, T, trunk_len, alibi, results):
                                  f"the flat kernel")
         byts, flops = decode_work(q, k, mask, trunk_len, hd)
         b_ms, b_by = bound(byts, flops)
+        # Its legs one launch at a time, the tail leg beside its own bound.
+        legs = mq_trunk_legs((q[:, None], k, v, qpos[:, None], mask), kw,
+                             trunk_len, bias)
         rows.append(dict(
             kernel="flash_decode_trunk", case=label, B=B, H=H, K=K, hd=hd,
             T=T, trunk_len=trunk_len, max_abs_err=err_trunk,
             bitwise_equal_flat=True,
             kernel_ms=time_ms(lambda: ops.flash_decode_trunk(*args, **tkw)),
             plain_ms=time_ms(lambda: flash_decode_trunk_plain(*args, **tkw)),
-            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, **legs))
     for row in rows:
         log(json.dumps(row))
         results.append(row)
@@ -503,6 +531,16 @@ def check_cascade(gen, label, B, R, H, K, hd, Tt, alibi, results):
     ref = cascade_attention_plain(*args, alibi_slopes=slopes)
     torch.cuda.synchronize()
     err = check_close(f"cascade_attention[{label}]", got, ref)
+    # Fused == two-leg, bitwise: the trunk leg's partials, then the
+    # suffix merge, give the fused kernel's bits.
+    o_t, m_t, l_t = ops.cascade_prefix(q, tk, tv, slopes)
+    sm_args = (q, sk, sv, o_t, m_t, l_t, mask, qpos, slopes)
+    pair = ops.cascade_suffix_merge(*sm_args)
+    if not torch.equal(got, pair):
+        raise AssertionError(f"cascade_attention[{label}]: fused is not bitwise "
+                             f"cascade_prefix + cascade_suffix_merge")
+    err_sm = check_close(f"cascade_suffix_merge[{label}]", pair,
+                         suffix_merge_plain(*sm_args))
 
     # Yardstick: SDPA over trunk + window keys under the same mask.
     G = H // K
@@ -537,7 +575,19 @@ def check_cascade(gen, label, B, R, H, K, hd, Tt, alibi, results):
                    *args, alibi_slopes=slopes)),
                plain_ms=time_ms(lambda: cascade_attention_plain(
                    *args, alibi_slopes=slopes), iters=3),
-               library_ms=time_ms(sdpa), bound_ms=b_ms, bound_by=b_by)
+               library_ms=time_ms(sdpa), bound_ms=b_ms, bound_by=b_by,
+               fused_bitwise_two_leg=True)
+    log(json.dumps(row))
+    results.append(row)
+    sm_flops = 4.0 * H * hd * float(causal.sum())
+    sm_bytes = (nbytes(q, sk, sv, o_t, m_t, l_t, mask, qpos, slopes)
+                + nbytes(q))
+    b_ms, b_by = bound(sm_bytes, sm_flops)
+    row = dict(kernel="cascade_suffix_merge", case=label, B=B, R=R, H=H, K=K,
+               hd=hd, max_abs_err=err_sm,
+               kernel_ms=time_ms(lambda: ops.cascade_suffix_merge(*sm_args)),
+               plain_ms=time_ms(lambda: suffix_merge_plain(*sm_args), iters=3),
+               library_ms=None, bound_ms=b_ms, bound_by=b_by)
     log(json.dumps(row))
     results.append(row)
 
@@ -596,6 +646,63 @@ def check_prefix(gen, label, B, R, H, K, hd, Tt, alibi, results):
                    bound_by=b_by)
         log(json.dumps(row))
         results.append(row)
+    kq, ks = ops.quantize_rows(tk)
+    rq, rs = quant.dynamic_quant(tk)
+    torch.cuda.synchronize()
+    if not (torch.equal(kq, rq) and torch.equal(ks, rs)):
+        raise AssertionError(f"quantize_rows[{label}]: not bitwise dynamic_quant")
+    b_ms, b_by = bound(nbytes(tk, kq, ks), 0.0)
+    row = dict(kernel="quantize_rows", case=label, rows=K * Tt, hd=hd,
+               max_abs_err=0.0, bitwise=True,
+               kernel_ms=time_ms(lambda: ops.quantize_rows(tk)),
+               plain_ms=time_ms(lambda: quant.dynamic_quant(tk), iters=3),
+               library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    log(json.dumps(row))
+    results.append(row)
+
+
+def check_row_gemm(gen, label, M, K, N, results):
+    """The row-invariant projection against torch.matmul (its plain
+    version, and the library call) at a decode step's (M = B) or a verify
+    window's (M = B * spec_k) rows: within bf16 rounding of the float32
+    product, and the first rows bitwise the same rows taken alone."""
+    x = torch.randn((M, K), generator=gen, device=DEV).to(torch.bfloat16)
+    w = (torch.randn((K, N), generator=gen, device=DEV) * 0.02).to(torch.bfloat16)
+    got = ops.row_gemm(x, w)
+    err = check_close(f"row_gemm[{label}]", got, x.float() @ w.float())
+    if not torch.equal(ops.row_gemm(x[:8], w), got[:8]):
+        raise AssertionError(f"row_gemm[{label}]: rows depend on the row count")
+    b_ms, b_by = bound(nbytes(x, w, got), 2.0 * M * K * N)
+    row = dict(kernel="row_gemm", case=label, M=M, K=K, N=N, max_abs_err=err,
+               splits=ops.gemm_splits(N, K),
+               kernel_ms=time_ms(lambda: ops.row_gemm(x, w)),
+               plain_ms=time_ms(lambda: row_gemm_plain(x, w)),
+               library_ms=time_ms(lambda: torch.matmul(x, w)),
+               bound_ms=b_ms, bound_by=b_by)
+    log(json.dumps(row))
+    results.append(row)
+
+
+def check_row_norm(gen, label, M, D, results):
+    """The row-invariant RMSNorm against the decoder's plain norm; the
+    library yardstick is F.rms_norm where this PyTorch has it."""
+    x = (torch.randn((M, D), generator=gen, device=DEV) * 2).to(torch.bfloat16)
+    scale = torch.randn((D,), generator=gen, device=DEV).to(torch.bfloat16)
+    eps = 1e-5
+    got = ops.row_norm(x, scale, None, eps)
+    err = check_close(f"row_norm[{label}]", got, row_norm_plain(x, scale, None, eps))
+    if not torch.equal(ops.row_norm(x[:3], scale, None, eps), got[:3]):
+        raise AssertionError(f"row_norm[{label}]: rows depend on the row count")
+    lib = getattr(F, "rms_norm", None)
+    b_ms, b_by = bound(nbytes(x, scale, got), 0.0)
+    row = dict(kernel="row_norm", case=label, M=M, D=D, max_abs_err=err,
+               kernel_ms=time_ms(lambda: ops.row_norm(x, scale, None, eps)),
+               plain_ms=time_ms(lambda: row_norm_plain(x, scale, None, eps)),
+               library_ms=(time_ms(lambda: lib(x, (D,), scale, eps))
+                           if lib is not None else None),
+               bound_ms=b_ms, bound_by=b_by)
+    log(json.dumps(row))
+    results.append(row)
 
 
 def check_flash_attention(gen, label, B, S, H, K, hd, alibi, results):
@@ -838,47 +945,92 @@ def small_int8_check(cfg, params_cpu, trunk_rows, flat_rows):
     return worst, launches
 
 
-def verify_step_check(params, cfg, spec_k: int):
-    """At full width in bf16: one decode step and one verify window from
-    the same cache, the window's first query the step's token at the
-    step's slot (its other positions random drafts). The two compute the
-    same function; they differ only in rounding (the projections run as
-    products of B * spec_k rows instead of B). Reports the largest
-    difference of the position's logits and, for the rows whose argmax
-    differs, the step logits' top-1 minus top-2 gap: flips at near-ties
-    explain the full-width id disagreement that phase 3 prints."""
+def library_row_invariance(params, cfg, B: int, spec_k: int) -> dict:
+    """Whether the library ops the row kernels replaced give a row the
+    same bits at B rows as at B * spec_k: PyTorch's norm (its row
+    reduction), the bf16 projection through torch.matmul (cuBLAS), the
+    float32 head, and the 8-bit engine's dynamic s8 product. Measured,
+    not asserted: it records why the decode path takes the row kernels."""
+    g = torch.Generator(device=DEV)
+    g.manual_seed(7)
+    D = cfg.hidden_size
+    x = (torch.randn((B, spec_k, D), generator=g, device=DEV) * 2
+         ).to(torch.bfloat16)
+    lp = decoder._layer(params["layers"], 0)
+    first = x[:, :1].contiguous()
+
+    def same(fn):
+        return bool(torch.equal(fn(x)[:, :1], fn(first)))
+
+    w8 = dataclasses.replace(quant.quantize(lp["w_up"]), dynamic=True)
+    head = decoder._head_weight(params, cfg)
+    return {
+        "norm": same(lambda t: decoder._norm(t, lp["ln1"], cfg)),
+        "row_norm": same(lambda t: decoder._row_norm(t, lp["ln1"], cfg)),
+        "matmul_bf16": same(lambda t: torch.matmul(t, lp["w_up"])),
+        "row_gemm": same(lambda t: ops.row_gemm(t, lp["w_up"])),
+        "head_f32": same(lambda t: decoder._head(cfg, t, head)),
+        "int8_dynamic_matmul": same(lambda t: quant.matmul(t, w8)),
+    }
+
+
+def verify_step_check(params, cfg, spec_k: int, label: str = "bf16",
+                      measure_library: bool = False):
+    """At full width: spec_k sequential decode steps against ONE verify
+    window fed the tokens the steps emit, from the same prefilled cache;
+    the steps' cache at the sequential extent, the window's at a longer
+    one (trailing splits with no valid key), as the two routes of a
+    shared dispatch allocate them. The rows share a 64-token head and
+    their prompts end ragged (a split of masked slots before the decode
+    slots in some rows). Asserts that window position j's logits are
+    bitwise step j's at every j, on the flat kernels and, with the head
+    as a shared trunk, on the trunk kernels."""
     rng = np.random.default_rng(3)
-    B, S0 = BATCH, 64
-    toks = torch.as_tensor(rng.integers(3, cfg.vocab_size, (B, S0)),
-                           dtype=torch.int32, device=DEV)
-    mask = torch.ones((B, S0), dtype=torch.int32, device=DEV)
-    drafts = torch.as_tensor(rng.integers(3, cfg.vocab_size, (B, spec_k - 1)),
-                             dtype=torch.int32, device=DEV)
-    cm = F.pad(mask, (0, spec_k))
-    cm_step, cm_ver = cm.clone(), cm.clone()
-    cm_step[:, S0] = 1
-    cm_ver[:, S0:] = 1
+    B, S0, trunk = BATCH, 128, 64
+    T_seq, T_spec = S0 + 16, S0 + 16 + 8 * spec_k + 64
+    toks = rng.integers(3, cfg.vocab_size, (B, S0))
+    toks[:, :trunk] = toks[:1, :trunk]
+    mask = np.ones((B, S0), np.int64)
+    for b in range(B):
+        mask[b, S0 - (b * 13) % 70:] = 0
+    toks = torch.as_tensor(toks, dtype=torch.int32, device=DEV)
+    mask = torch.as_tensor(mask, dtype=torch.int32, device=DEV)
+    row = {"phase": "verify_vs_step", "engine": label, "B": B, "S": spec_k,
+           "T_seq": T_seq, "T_spec": T_spec}
     with torch.inference_mode():
-        logits0, cache, pos = decoder.prefill(params, cfg, toks, mask,
-                                              S0 + spec_k)
-        tok0 = torch.argmax(logits0, dim=-1).to(torch.int32)
-        cache_v = (cache[0].clone(), cache[1].clone())
-        step, _ = decoder.decode_step(params, cfg, cache, tok0, pos, S0,
-                                      cm_step)
-        V, _ = decoder.verify_extend(params, cfg, cache_v,
-                                     torch.cat([tok0[:, None], drafts], 1),
-                                     cm_ver, S0)
-    v0 = V[:, 0]
-    top2 = torch.topk(step, 2, dim=-1).values
-    gap = top2[:, 0] - top2[:, 1]
-    flips = torch.argmax(v0, dim=-1) != torch.argmax(step, dim=-1)
-    row = {"phase": "verify_vs_step", "B": B, "S": spec_k,
-           "max_abs_logit_diff": float((v0 - step).abs().max()),
-           "rows_argmax_differ": int(flips.sum()),
-           "max_top2_gap_where_differ": (float(gap[flips].max())
-                                         if bool(flips.any()) else None),
-           "median_top2_gap": float(gap.median())}
+        for trunk_len in (0, trunk):
+            logits0, cache, pos = decoder.prefill(params, cfg, toks, mask,
+                                                  T_spec)
+            cache_seq = tuple(c[:, :, :T_seq].contiguous() for c in cache)
+            cm = F.pad(mask, (0, T_seq - S0))
+            tok = torch.argmax(logits0, dim=-1).to(torch.int32)
+            fed, steps = [], []
+            for j in range(spec_k):
+                cm[:, S0 + j] = 1
+                lj, _ = decoder.decode_step(params, cfg, cache_seq, tok,
+                                            pos + j, S0 + j, cm,
+                                            trunk_len=trunk_len)
+                fed.append(tok)
+                steps.append(lj)
+                tok = torch.argmax(lj, dim=-1).to(torch.int32)
+            cmw = F.pad(mask, (0, T_spec - S0))
+            cmw[:, S0:S0 + spec_k] = 1
+            start = torch.full((B,), S0, dtype=torch.int32, device=DEV)
+            V, _ = decoder.verify_extend(params, cfg, cache,
+                                         torch.stack(fed, dim=1), cmw, start,
+                                         trunk_len=trunk_len)
+            diffs = [float((V[:, j] - steps[j]).abs().max())
+                     for j in range(spec_k)]
+            row[f"trunk{trunk_len}_max_abs_logit_diff"] = diffs
+            row[f"trunk{trunk_len}_bitwise"] = all(
+                torch.equal(V[:, j], steps[j]) for j in range(spec_k))
+        if measure_library:
+            row["same_bits_at_B_and_B_times_spec_k"] = library_row_invariance(
+                params, cfg, B, spec_k)
     log(json.dumps(row))
+    if not (row["trunk0_bitwise"] and row[f"trunk{trunk}_bitwise"]):
+        raise AssertionError(f"verify_vs_step[{label}]: window logits are not "
+                             f"bitwise the steps' ({row})")
     return row
 
 
@@ -927,25 +1079,65 @@ def run_word_meaning(engine, label="word_meaning_sweep",
     return stats
 
 
-def run_dispatch(label, engine, cells, rt, kernels, routing):
-    """One 32-cell shared dispatch through ``decode_fused_shared``, the
-    launch counts reset just before and read just after. Fails unless
-    every kernel in ``kernels`` launched and every counter in ``routing``
-    moved by exactly one."""
+def _dispatch_call(engine, cells, rt):
+    """The call of one 32-cell shared dispatch, ready to run."""
     t = engine.tokenizer
     yes = np.asarray([tok.first_token_id(t, " " + a) for _, _, (a, _) in cells],
                      np.int32)
     no = np.asarray([tok.first_token_id(t, " " + b) for _, _, (_, b) in cells],
                     np.int32)
-    casc0, spec0 = dict(engine.cascade_stats), dict(engine.spec_stats)
-    torch.cuda.synchronize()
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    outs = engine.decode_fused_shared(
+    return lambda: engine.decode_fused_shared(
         [c[0] for c in cells], [c[1] for c in cells], yes, no,
         new_tokens=rt.sweep_decode_tokens,
         conf_tokens=rt.sweep_confidence_tokens, reuse_cache=True,
         n_real=len(cells))
+
+
+def route_cost(engine, seq_engine, cells, rt, rounds: int = 2) -> dict:
+    """What the row-invariant projections and norms cost a dispatch: ms
+    per no-trunk shared dispatch on the sequential and the speculative
+    route, with the decoder's row kernels and with the library calls they
+    replaced patched back in for the step and the window (torch.matmul
+    and PyTorch's norm; the compacted slots and the per-position head
+    stay), in turns within this call (library, row kernels, row kernels,
+    library)."""
+    row_ops = (decoder._row_mm, decoder._row_norm)
+    library = (decoder._mm, decoder._norm)
+    calls = {"sequential": _dispatch_call(seq_engine, cells, rt),
+             "speculative": _dispatch_call(engine, cells, rt)}
+    ms = {}
+    try:
+        for _ in range(rounds):
+            for name, fns in (("library", library), ("row_kernels", row_ops),
+                              ("row_kernels", row_ops), ("library", library)):
+                decoder._row_mm, decoder._row_norm = fns
+                for route, call in calls.items():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    call()
+                    torch.cuda.synchronize()
+                    ms.setdefault(f"{route}/{name}", []).append(
+                        (time.perf_counter() - t0) * 1e3)
+    finally:
+        decoder._row_mm, decoder._row_norm = row_ops
+    engine.spec_flush()
+    row = {"phase": "route_cost", "ms_per_dispatch": ms,
+           "mean_ms": {k: sum(v) / len(v) for k, v in ms.items()}}
+    log(json.dumps(row))
+    return row
+
+
+def run_dispatch(label, engine, cells, rt, kernels, routing):
+    """One 32-cell shared dispatch through ``decode_fused_shared``, the
+    launch counts reset just before and read just after. Fails unless
+    every kernel in ``kernels`` launched and every counter in ``routing``
+    moved by exactly one."""
+    call = _dispatch_call(engine, cells, rt)
+    casc0, spec0 = dict(engine.cascade_stats), dict(engine.spec_stats)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    outs = call()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = ops.launch_counts()
@@ -975,38 +1167,49 @@ def run_dispatch(label, engine, cells, rt, kernels, routing):
     return outs, stats
 
 
+OUT_FIELDS = ("generated", "p_yes", "p_no", "top2_ids", "topk_logprobs",
+              "topk_ids", "weighted_confidence")
+
+
+def compare_outs(label, outs_a, outs_b, what: str) -> dict:
+    """Two routes of one shared dispatch on the same cells: every readout
+    of both format branches (the generated ids and the per-position
+    p_yes, p_no and top-2 at every position, the position-0 top-k and
+    weighted confidence) bitwise equal. The share of equal later ids and
+    the largest float differences are printed before a failure."""
+    row = {"phase": f"{label}_vs_{what}"}
+    bad = []
+    for fmt, a, b in zip(("binary", "confidence"), outs_a, outs_b):
+        same = a.generated[:, 1:] == b.generated[:, 1:]
+        row[f"{fmt}_later_ids_agree_share"] = float(same.float().mean())
+        for name in OUT_FIELDS:
+            x, y = getattr(a, name), getattr(b, name)
+            if not torch.equal(x, y):
+                bad.append(f"{fmt}.{name}")
+                if x.is_floating_point():
+                    row[f"{fmt}_{name}_max_diff"] = float((x - y).abs().max())
+    row["bitwise"] = not bad
+    log(json.dumps(row))
+    if bad:
+        raise AssertionError(f"{label} vs {what}: not bitwise on {bad}")
+    return row
+
+
+def compare_routes(label, spec_outs, seq_outs) -> dict:
+    """The speculative route against the sequential one: every readout
+    bitwise (the reference's contract, lir_tpu/engine/generate.py:694-712),
+    so the later ids agree with share 1.0."""
+    row = compare_outs(label, spec_outs, seq_outs, "sequential")
+    row["later_ids_agree_share"] = min(
+        row[f"{fmt}_later_ids_agree_share"] for fmt in ("binary", "confidence"))
+    return row
+
+
 def compare_two_leg(two_leg, fused):
     """The two-leg cascade dispatch against the fused one on the same
-    cells: every row's position-0 yes>no decision equal, the position-0
-    probabilities within POS0_PROB_ATOL; the largest differences of the
-    position-0 readouts are printed beside them."""
-    row = {"phase": "two_leg_vs_fused", "decisions_equal": True}
-    for fmt, a, b in zip(("binary", "confidence"), two_leg, fused):
-        da = a.p_yes[:, 0] > a.p_no[:, 0]
-        db = b.p_yes[:, 0] > b.p_no[:, 0]
-        margin = (torch.log(b.p_yes[:, 0]) - torch.log(b.p_no[:, 0])).abs()
-        row[f"{fmt}_min_abs_log_odds"] = float(margin.min())
-        if not torch.equal(da, db):
-            row["decisions_equal"] = False
-            log(json.dumps(row))
-            raise AssertionError(f"two-leg vs fused {fmt}: yes>no decision "
-                                 f"differs on rows "
-                                 f"{torch.nonzero(da != db).flatten().tolist()}")
-        for name in ("p_yes", "p_no"):
-            diff = float((getattr(a, name)[:, 0]
-                          - getattr(b, name)[:, 0]).abs().max())
-            row[f"{fmt}_{name}0_max_diff"] = diff
-            if not diff <= POS0_PROB_ATOL:
-                raise AssertionError(f"two-leg vs fused {fmt}: {name}[:, 0] "
-                                     f"differs by {diff}")
-        row[f"{fmt}_topk_logprobs_max_diff"] = float(
-            (a.topk_logprobs - b.topk_logprobs).abs().max())
-        row[f"{fmt}_weighted_confidence_max_diff"] = float(
-            (a.weighted_confidence - b.weighted_confidence).abs().max())
-        row[f"{fmt}_generated_ids_agree_share"] = float(
-            (a.generated == b.generated).float().mean())
-    log(json.dumps(row))
-    return row
+    cells: every readout and generated id bitwise (the reference's
+    fused == two-leg invariant)."""
+    return compare_outs("two_leg_cascade_dispatch", two_leg, fused, "fused")
 
 
 def run_int8_slice(cfg, tokenizer, cells_trunk, cells_flat, rt):
@@ -1027,16 +1230,29 @@ def run_int8_slice(cfg, tokenizer, cells_trunk, cells_flat, rt):
         params8, cfg8, tokenizer,
         RuntimeConfig(batch_size=BATCH, cascade_fused_suffix=False),
         cascade_config=CascadeConfig(int8_qk=True), device=DEV)
-    stats = {"int8_word_meaning": run_word_meaning(
+    stats = {"int8_verify_vs_step": verify_step_check(params8, cfg8, rt.spec_k,
+                                                      "int8")}
+    stats["int8_word_meaning"] = run_word_meaning(
         engine8, "int8_word_meaning_sweep",
-        ("flash_attention", "flash_decode"))}
+        ("flash_attention", "flash_decode", "row_norm"))
     _, stats["int8_cascade_dispatch"] = run_dispatch(
         "int8_cascade_dispatch", engine8, cells_trunk, rt,
-        ("cascade_prefix_int8", "flash_decode_trunk"),
+        ("quantize_rows", "cascade_prefix_int8", "cascade_suffix_merge",
+         "flash_decode_trunk"),
         ("cascade_dispatches", "cascade_decode_dispatches"))
-    _, stats["int8_spec_dispatch"] = run_dispatch(
+    seq8 = ScoringEngine(
+        params8, cfg8, tokenizer,
+        RuntimeConfig(batch_size=BATCH, cascade_fused_suffix=False,
+                      spec_decode=False),
+        cascade_config=CascadeConfig(int8_qk=True), device=DEV)
+    seq_out, stats["int8_sequential_dispatch"] = run_dispatch(
+        "int8_sequential_dispatch", seq8, cells_flat, rt,
+        ("flash_attention", "flash_decode"), ("dense_shared_dispatches",))
+    spec_out, stats["int8_spec_dispatch"] = run_dispatch(
         "int8_spec_dispatch", engine8, cells_flat, rt,
         ("flash_attention", "flash_decode_mq"), ("spec_dispatches",))
+    stats["int8_spec_dispatch"]["vs_sequential"] = compare_routes(
+        "int8_spec_dispatch", spec_out, seq_out)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     profile_scoring(engine8, rt, "int8_profile")
@@ -1044,7 +1260,7 @@ def run_int8_slice(cfg, tokenizer, cells_trunk, cells_flat, rt):
     log(json.dumps({"phase": "int8_slice", "init_seconds": init_s,
                     "param_bytes": nbytes8,
                     "max_memory_allocated_bytes": peak}))
-    del engine8, params8
+    del engine8, seq8, params8
     torch.cuda.empty_cache()
     return stats, nbytes8, peak
 
@@ -1064,42 +1280,41 @@ def run_slice(params, cfg, tokenizer, engine, cells_trunk, cells_flat, rt):
         params, cfg, tokenizer,
         RuntimeConfig(batch_size=BATCH, cascade_fused_suffix=False),
         device=DEV)
-    stats = {"word_meaning": run_word_meaning(engine)}
+    row_kernels = ("row_gemm", "row_norm")
+    stats = {"word_meaning": run_word_meaning(
+        engine, kernels=("flash_decode",) + row_kernels)}
     fused_out, stats["cascade_dispatch"] = run_dispatch(
         "cascade_dispatch", engine, cells_trunk, rt,
-        ("cascade_attention", "flash_decode_trunk"),
+        ("cascade_attention", "flash_decode_trunk") + row_kernels,
         ("cascade_dispatches", "cascade_decode_dispatches"))
     two_leg_out, stats["two_leg_cascade_dispatch"] = run_dispatch(
         "two_leg_cascade_dispatch", two_leg_engine, cells_trunk, rt,
-        ("cascade_prefix", "flash_decode_trunk"),
+        ("cascade_prefix", "cascade_suffix_merge", "flash_decode_trunk"),
         ("cascade_dispatches", "cascade_decode_dispatches"))
     if stats["two_leg_cascade_dispatch"]["launches"]["cascade_attention"]:
         raise AssertionError("two-leg dispatch launched the fused kernel")
     stats["two_leg_cascade_dispatch"]["vs_fused"] = compare_two_leg(
         two_leg_out, fused_out)
     seq_out, stats["sequential_dispatch"] = run_dispatch(
-        "sequential_dispatch", seq_engine, cells_flat, rt, ("flash_decode",),
-        ("dense_shared_dispatches",))
+        "sequential_dispatch", seq_engine, cells_flat, rt,
+        ("flash_decode",) + row_kernels, ("dense_shared_dispatches",))
     spec_out, stats["spec_dispatch"] = run_dispatch(
-        "spec_dispatch", engine, cells_flat, rt, ("flash_decode_mq",),
-        ("spec_dispatches",))
+        "spec_dispatch", engine, cells_flat, rt,
+        ("flash_decode_mq",) + row_kernels, ("spec_dispatches",))
     seq_t_out, stats["sequential_trunk_dispatch"] = run_dispatch(
         "sequential_trunk_dispatch", seq_engine, cells_trunk, rt,
-        ("flash_decode_trunk",),
+        ("flash_decode_trunk",) + row_kernels,
         ("dense_shared_dispatches", "cascade_decode_dispatches"))
     spec_t_out, stats["spec_trunk_dispatch"] = run_dispatch(
         "spec_trunk_dispatch", spec_trunk_engine, cells_trunk, rt,
-        ("flash_decode_mq_trunk",),
+        ("flash_decode_mq_trunk",) + row_kernels,
         ("spec_dispatches", "cascade_decode_dispatches"))
     for label, spec, seq in (("spec_dispatch", spec_out, seq_out),
                              ("spec_trunk_dispatch", spec_t_out, seq_t_out)):
-        agree, by_position = compare_pos0(label, spec, seq)
-        stats[label]["later_ids_agree_share"] = agree
-        log(json.dumps({"phase": f"{label}_vs_sequential",
-                        "position0_bitwise": True,
-                        "later_ids_agree_share": agree,
-                        "rows_agreeing_through_position": by_position}))
-    total = {name: sum(st["launches"][name] for st in stats.values())
+        stats[label]["vs_sequential"] = compare_routes(label, spec, seq)
+    stats["route_cost"] = route_cost(engine, seq_engine, cells_flat, rt)
+    total = {name: sum(st["launches"][name] for st in stats.values()
+                       if "launches" in st)
              for name in ops.KERNELS}
     return stats, total
 
@@ -1176,10 +1391,12 @@ def ptxas_report(name: str, text: str):
             log(f"ptxas[{name}] {kernel}: {line.strip()}")
 
 
-def tensor_core_counts(name: str, kernels) -> dict:
-    """Tensor-core instructions (HMMA, or HGMMA for wgmma) in each
-    instantiation of ``kernels`` in the built library of ``csrc/<name>.cu``,
-    counted in its ``cuobjdump -sass``. Fails if any has none."""
+def tensor_core_counts(name: str, kernels, op: str = "HMMA") -> dict:
+    """Tensor-core instructions in each instantiation of ``kernels`` in
+    the built library of ``csrc/<name>.cu``, counted in its
+    ``cuobjdump -sass``: ``op`` HMMA (bf16; HGMMA for wgmma counts too) or
+    IMMA (s8). Fails if any has none."""
+    pattern = r"\bH(G)?MMA\b" if op == "HMMA" else rf"\b{op}\b"
     counts, fn = {}, None
     for line in _build.sass(name).splitlines():
         found = re.search(r"Function : (\w+)", line)
@@ -1187,13 +1404,13 @@ def tensor_core_counts(name: str, kernels) -> dict:
             fn = kernel_label(found.group(1))
             if any(k in fn for k in kernels):
                 counts[fn] = 0
-        elif fn in counts and re.search(r"\bH(G)?MMA\b", line):
+        elif fn in counts and re.search(pattern, line):
             counts[fn] += 1
-    log(json.dumps({"phase": "sass", "source": f"{name}.cu",
+    log(json.dumps({"phase": "sass", "source": f"{name}.cu", "op": op,
                     "tensor_core_instructions": counts}))
     missing = [k for k in kernels if not any(k in fn for fn in counts)]
     if missing or min(counts.values()) == 0:
-        raise AssertionError(f"{name}: no tensor-core instructions in some "
+        raise AssertionError(f"{name}: no {op} instructions in some "
                              f"of {kernels}: {counts}")
     return counts
 
@@ -1221,10 +1438,14 @@ def main() -> int:
                     "per_source_seconds": secs}))
     for name, text in _build.BUILD_LOGS.items():
         ptxas_report(name, text)
-    # The bf16 cascade kernels run on tensor cores: HMMA in their SASS.
+    # The bf16 kernels run on tensor cores: HMMA in their SASS; the bf16
+    # int8 trunk leg's QK^T on IMMA.
     tensor_core_counts("cascade_prefill",
-                       ("cascade_mma_kernel", "prefix_mma_kernel"))
+                       ("cascade_mma_kernel", "prefix_mma_kernel",
+                        "prefix_imma_kernel"))
+    tensor_core_counts("cascade_prefill", ("prefix_imma_kernel",), op="IMMA")
     tensor_core_counts("flash_attention", ("flash_mma_kernel",))
+    tensor_core_counts("row_gemm", ("row_gemm_kernel",))
 
     # Phase 3's shapes, planned up front.
     cfg = registry.llama2_7b()
@@ -1313,8 +1534,15 @@ def main() -> int:
                           results)
     check_flash_attention(gen, "bloom-7b1/alibi", BATCH, Sf, 32, 32, 128, True,
                           results)
+    D, F_ = cfg.hidden_size, cfg.intermediate_size
+    for M in (BATCH, BATCH * rt.spec_k):
+        for name, K_, N_ in (("wq", D, H * hd), ("w_up", D, F_),
+                             ("w_down", F_, D)):
+            check_row_gemm(gen, f"llama2-7b/{name}/M{M}", M, K_, N_, results)
+        check_row_norm(gen, f"llama2-7b/M{M}", M, D, results)
     small_slice_check()
-    verify_step_check(params, engine.cfg, rt.spec_k)
+    verify_step_check(params, engine.cfg, rt.spec_k, "bf16",
+                      measure_library=True)
 
     # Phase 3: the slice at full width through the engines.
     torch.cuda.reset_peak_memory_stats()
@@ -1327,7 +1555,7 @@ def main() -> int:
     stats8, bytes8, peak8 = run_int8_slice(cfg, tokenizer, cells_trunk,
                                            cells_flat, rt)
     for st in stats8.values():
-        for name, n in st["launches"].items():
+        for name, n in st.get("launches", {}).items():
             launches[name] += n
     log(json.dumps({
         "phase": "int8_vs_bf16",

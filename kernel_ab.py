@@ -1,23 +1,29 @@
-"""Time the port's decode and prefill flash kernels against another copy
-of their sources, in one process on one card.
+"""Time the port's decode, prefill flash and int8 trunk-leg kernels
+against another copy of their sources, in one process on one card.
 
     python3 kernel_ab.py OTHER_CSRC [--rounds 2]
 
-OTHER_CSRC is a directory holding ``flash_decode.cu`` and
-``flash_attention.cu`` (with the headers they include) that have the same
-C entry points as ``lir_tpu_torch/csrc``: for example the sources of an
-earlier commit, unpacked with ``git archive``. Both copies are built with
-the flags of ``lir_tpu_torch/ops/_build.py`` into ``build/kernel_ab/``,
-then timed in turns (other, this, this, other in each round) through the
-port's wrappers, by ``chip_smoke.time_ms`` (L2 flushed, device time), at
-the main path's shapes of ``chip_smoke.py`` at llama-2-7b width, B = 32:
-the decode step at T = 552 (flat and with a 432-slot trunk) and T = 114,
-the verify window (S = 4) at T = 192 and at T = 576 with a 432-slot trunk
-(its two legs and the merge also timed apart), and prefill flash
-attention at buckets 64, 128 and 512. Whether the two copies' outputs are
-bitwise equal is printed per case (with the flash outputs' largest
-difference). Prints one JSON line per reading, a summary line per case,
-then the card's name and power limit.
+OTHER_CSRC is a directory holding ``flash_decode.cu``,
+``flash_attention.cu`` and ``cascade_prefill.cu`` (with the headers they
+include): for example the sources of an earlier commit, unpacked with
+``git archive``. The decode and flash sources must have the C entry
+points of ``lir_tpu_torch/csrc``; ``cascade_prefill.cu``'s int8 trunk
+leg is called through either entry it has had (with the trunk keys'
+quantization pass, ``lir_quantize_rows``, or quantizing inside the
+kernel). Both copies are built with the flags of
+``lir_tpu_torch/ops/_build.py`` into ``build/kernel_ab/``, then timed in
+turns (other, this, this, other in each round), by ``chip_smoke.time_ms``
+(L2 flushed, device time), at the main path's shapes of ``chip_smoke.py``
+at llama-2-7b width, B = 32: the decode step at T = 552 (flat and with a
+432-slot trunk) and T = 114, the verify window (S = 4) at T = 192 and at
+T = 576 with a 432-slot trunk (its two legs and the merge also timed
+apart), prefill flash attention at buckets 64, 128 and 512, and the bf16
+int8-QK^T trunk leg at the cascade dispatch's shape (R = 80, Tt = 432;
+with the quantization pass where the copy has one). Whether the two
+copies' outputs are bitwise equal is printed per case (with the largest
+difference; for the trunk leg, whether the row max is). Prints one JSON
+line per reading, a summary line per case, then the card's name and
+power limit.
 """
 
 from __future__ import annotations
@@ -45,7 +51,14 @@ _ARGTYPES = {
                      "lir_flash_decode_trunk_splits": [_P] * 10 + [_I] * 10 + [_P],
                      "lir_flash_decode_merge": [_P] * 4 + [_I] * 7 + [_P]},
     "flash_attention": {"lir_flash_attention": [_P] * 7 + [_I] * 6 + [_P]},
+    # The trunk leg's entry with the quantization pass; without it (the
+    # older entry) lir_cascade_prefix takes no scales pointer.
+    "cascade_prefill": {"lir_quantize_rows": [_P] * 3 + [_I] * 2 + [_P],
+                        "lir_cascade_prefix": [_P] * 8 + [_I] * 8 + [_P]},
 }
+_OLD_PREFIX_ARGTYPES = [_P] * 7 + [_I] * 8 + [_P]
+# The copy whose libraries the cases run now.
+_CURRENT = {}
 # (label, S, T, trunk_len): S = 1 is the decode step.
 DECODE_CASES = [("flash_decode/T552", 1, 552, 0),
                 ("flash_decode_trunk/T552/trunk432", 1, 552, 432),
@@ -56,7 +69,7 @@ FLASH_BUCKETS = (64, 128, 512)
 
 
 def build(tag: str, csrc: Path) -> dict:
-    """Both libraries of one copy of the sources, loaded."""
+    """The libraries of one copy of the sources, loaded."""
     out_dir = Path(_build.BUILD_DIR).parent / "kernel_ab" / tag
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -72,8 +85,12 @@ def build(tag: str, csrc: Path) -> dict:
             raise RuntimeError(f"nvcc failed for {csrc / name}.cu:\n{log}")
         lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
         for fn, types in _ARGTYPES[name].items():
+            if not hasattr(lib, fn):
+                continue
             getattr(lib, fn).argtypes = types
             getattr(lib, fn).restype = _I
+        if name == "cascade_prefill" and not hasattr(lib, "lir_quantize_rows"):
+            lib.lir_cascade_prefix.argtypes = _OLD_PREFIX_ARGTYPES
         libs[name] = lib
     return libs
 
@@ -81,6 +98,43 @@ def build(tag: str, csrc: Path) -> dict:
 def use(libs: dict) -> None:
     _FD._LIB = libs["flash_decode"]
     _FA._LIB = libs["flash_attention"]
+    _CURRENT.update(libs)
+
+
+def prefix_int8_case(gen, R=80, Tt=432):
+    """The bf16 int8-QK^T trunk leg at the cascade dispatch's shape through
+    the current copy's C entry: (o, m, l)."""
+    B, H, K, hd = cs.BATCH, 32, 32, 128
+    bf = torch.bfloat16
+    q = torch.randn((B, R, H, hd), generator=gen, device="cuda").to(bf)
+    tk = torch.randn((K, Tt, hd), generator=gen, device="cuda").to(bf)
+    tv = torch.randn((K, Tt, hd), generator=gen, device="cuda").to(bf)
+    f32 = dict(dtype=torch.float32, device="cuda")
+    o = torch.empty((B, K, R, H // K, hd), **f32)
+    m = torch.empty((B, K, R, H // K), **f32)
+    l = torch.empty_like(m)
+    k8 = torch.empty(tk.shape, dtype=torch.int8, device="cuda")
+    ks = torch.empty((K, Tt), **f32)
+
+    def run():
+        lib = _CURRENT["cascade_prefill"]
+        st = torch.cuda.current_stream().cuda_stream
+        dims = (B, R, H, K, Tt, hd, 1, 1, st)
+        if hasattr(lib, "lir_quantize_rows"):
+            _build.check(lib.lir_quantize_rows(tk.data_ptr(), k8.data_ptr(),
+                                               ks.data_ptr(), K * Tt, hd, st),
+                         "quantize_rows")
+            err = lib.lir_cascade_prefix(q.data_ptr(), k8.data_ptr(), ks.data_ptr(),
+                                         tv.data_ptr(), None, o.data_ptr(),
+                                         m.data_ptr(), l.data_ptr(), *dims)
+        else:
+            err = lib.lir_cascade_prefix(q.data_ptr(), tk.data_ptr(), tv.data_ptr(),
+                                         None, o.data_ptr(), m.data_ptr(),
+                                         l.data_ptr(), *dims)
+        _build.check(err, "cascade_prefix_int8")
+        return o.clone(), m.clone(), l.clone()
+
+    return run
 
 
 def decode_case(gen, S, T, trunk):
@@ -125,6 +179,7 @@ def main() -> int:
     gen.manual_seed(7)
     cases = [(label, *decode_case(gen, S, T, trunk)) for label, S, T, trunk in DECODE_CASES]
     cases += [(f"flash_attention/S{S}", flash_case(gen, S), None) for S in FLASH_BUCKETS]
+    cases.append(("cascade_prefix_int8/R80/Tt432", prefix_int8_case(gen), None))
     order = ["other", "this", "this", "other"] * args.rounds
     summary = {}
     for label, fn, legs in cases:
@@ -138,10 +193,16 @@ def main() -> int:
                                   for name, leg in legs().items()}
             summary.setdefault((label, tag), []).append(row["ms"])
             print(json.dumps(row), flush=True)
-        a, b = outs["other"].float(), outs["this"].float()
-        same = {"bitwise_equal": bool(torch.equal(a, b))}
-        if label.startswith("flash_attention"):
-            same["max_abs_diff"] = float((a - b).abs().max())
+        if isinstance(outs["other"], tuple):
+            (oa, ma, la), (ob, mb, lb) = outs["other"], outs["this"]
+            same = {"row_max_bitwise_equal": bool(torch.equal(ma, mb)),
+                    "o_max_abs_diff": float((oa - ob).abs().max()),
+                    "l_max_abs_diff": float((la - lb).abs().max())}
+        else:
+            a, b = outs["other"].float(), outs["this"].float()
+            same = {"bitwise_equal": bool(torch.equal(a, b))}
+            if label.startswith("flash_attention"):
+                same["max_abs_diff"] = float((a - b).abs().max())
         print(json.dumps({"case": label, **same}), flush=True)
     for (label, tag), ms in summary.items():
         print(json.dumps({"summary": label, "copy": tag, "ms": ms,

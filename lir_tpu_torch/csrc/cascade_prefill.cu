@@ -12,17 +12,36 @@
 // _prefix_partials, the TWO-LEG route): the (o, m, l) partials of every
 // flattened query n = (b * R + r) * G + g of kv head kh against the whole
 // trunk, float32, in the (B, K, R, G) layout merge_partials expects; with
-// int8_qk the QK^T is quantized in the kernel (each query row and trunk
-// key row by models/quant.py's dynamic rule, s8 x s8 -> s32 with __dp4a,
-// s = f32(s32) * (q_scale * sm_scale) * k_scale). That route's suffix leg
-// and merge are plain PyTorch, as they are XLA in the JAX package.
+// int8_qk the QK^T runs s8 x s8 -> s32 on payloads quantized by
+// models/quant.py's dynamic rule (each query row and trunk key row),
+// s = f32(s32) * (q_scale * sm_scale) * k_scale.
+// lir_cascade_suffix_merge is the two-leg route's suffix leg and merge
+// (XLA in the JAX package), lir_quantize_rows the trunk keys' int8
+// quantization that the bf16 int8 trunk leg reads.
+//
+// Fused == two-leg, bitwise (the JAX package's "BITWISE the two-leg path",
+// lir_tpu/ops/cascade_prefill.py:204-215). The fused kernel runs the
+// two-leg arithmetic in the two-leg order, from one template per dtype:
+// (1) the trunk walk alone, the trunk leg's own code (the last trunk tile
+// masked past Tt, no window key in it), giving the bits cascade_prefix
+// writes as (o_t, m_t, l_t); (2) the window walk under a fresh
+// accumulator (m_s = -inf, l_s = 0 for a row with no valid key); (3) the
+// merge in merge_partials' order with _rn intrinsics (nothing contracts
+// into an FMA): m = max(m_t, m_s), w = isfinite(m_p) ? exp(m_p - m) : 0,
+// l = w_t l_t + w_s l_s, o = (w_t o_t + w_s o_s) / max(l, 1e-30). The
+// suffix-merge launch is the same template with step (1) replaced by a
+// read of (o_t, m_t, l_t) from device memory, so cascade_prefix (or
+// cascade_prefix_int8) followed by it gives the fused kernel's bits. A
+// row's trunk walk depends on nothing else of its block; its window walk
+// groups the window keys of the block's batch rows into 64-key tiles, so
+// the fused and suffix-merge launches tile their queries alike.
 //
 // Layout (the JAX package's public shapes): q (B, R, H, hd); window k, v
 // (B, R, K, hd); trunk k, v (K, Tt, hd); suffix_mask and q_positions
-// (B, R) int32; fused ALiBi slopes_rg (K, R * G) float32 (flattened row
-// n = r * G + g of kv head kh uses head kh * G + g, built on the host as
-// the JAX wrapper builds them), trunk-leg slopes (H,). Output (B, R, H, hd)
-// in q's dtype; partials o (B, K, R, G, hd), m and l (B, K, R, G).
+// (B, R) int32; ALiBi slopes (H,) float32 (flattened row n of kv head kh
+// uses head kh * G + n % G). Output (B, R, H, hd) in q's dtype; partials
+// o (B, K, R, G, hd), m and l (B, K, R, G); int8 trunk payload (K, Tt, hd)
+// with float32 scales (K, Tt).
 //
 // What bounds them on the H100: bytes, at the cascade dispatch's shape
 // (llama-2-7b, B = 32, R = 80, Tt = 432). The fused kernel reads q, the
@@ -33,50 +52,43 @@
 // Both sit at or under the card's bf16 ridge (~295 FLOP per byte).
 //
 // The bf16 route (the main path's dtype) runs on tensor cores, from the
-// tile code of attn_mma.cuh (cascade_mma_kernel, prefix_mma_kernel):
-// mma.sync m16n8k16 with ldmatrix operands, raw bf16 q and k summed in
-// float32 and then scaled, a 3-stage cp.async ring of 64-key K/V tiles
-// (tiles i + 1 and i + 2 in flight while tile i multiplies), Q held in
-// registers, the online softmax in registers, and P V in two passes over
-// P = bf16 hi + bf16 lo, which keeps the float32 partials within 1e-3 of
-// the float32 reference (one bf16 P misses that by an order of
-// magnitude). mma.sync rather than wgmma: at these intensities a well-fed
-// mma.sync kernel should come within a small factor of the byte bound;
-// wgmma with TMA is the lever where it does not.
-// - Both kernels tile the queries the same way: flattened rows
+// tile code of attn_mma.cuh (cascade_mma_kernel, prefix_mma_kernel,
+// prefix_imma_kernel): mma.sync with ldmatrix operands, a cp.async ring of
+// 64-key K/V tiles, Q held in registers, the online softmax in registers,
+// and P V in two passes over P = bf16 hi + bf16 lo, which keeps the
+// float32 partials within 1e-3 of the float32 reference.
+// - The kernels tile the queries the same way: flattened rows
 //   n = (b * R + r) * G + g of one kv head over ALL batch rows, 16 a warp,
 //   four warps a block (the last tile's rows past N = B * R * G are
-//   zero-filled and never written). A block of one batch row's R * G = 80
-//   rows would have five warps on the SM's four schedulers, and its
-//   barriers would wait on the scheduler that holds two.
-// - Trunk leg: each block walks the whole trunk of its kv head, the last
-//   key tile masked past Tt. Its final m is the row max over the trunk and
-//   l, o are rescaled to it; o leaves the accumulator fragments as 16-byte
-//   stores (two neighbouring lanes trade halves so each holds four
-//   columns of one row).
-// - Fused: each block walks one sequence of keys, the trunk (no mask,
-//   ALiBi on slot t) and then the windows of the batch rows its queries
+//   zero-filled and never written).
+// - Trunk leg (prefix_mma_kernel, and step (1) of the fused kernel): each
+//   block walks the whole trunk of its kv head, the last key tile masked
+//   past Tt; o leaves the accumulator fragments as 16-byte stores.
+// - Window walk: a block walks the windows of the batch rows its queries
 //   belong to (mask-aware, causal, ALiBi on the key's position; a row sees
-//   only its own batch row's window), under ONE running (m, l, o) a row:
-//   the same softmax over trunk + window keys that the merge of two
-//   partials gives, in another order of summation, so it equals the plain
-//   two-leg version within float tolerance, not bitwise. Every trunk key
-//   is valid, so no row is empty. The output is normalized and stored as
-//   bf16 in q's layout.
-// - Each block reads its head's trunk (221 KB at hd 128, Tt 432) from L2;
-//   only q, the windows and the outputs come from or go to device memory
-//   once.
+//   only its own batch row's window).
+// - The fused kernel keeps (o_t) in shared memory between the walks (two
+//   accumulators of 64 floats a thread would spill) and runs a 2-stage
+//   ring, which fits two blocks an SM beside that stash.
+// - int8 trunk leg (prefix_imma_kernel): the trunk keys are quantized once
+//   per (kv head, key) by lir_quantize_rows, not once per block of query
+//   rows (about 80 blocks a kv head at N = 2,560); each block quantizes its
+//   query rows once at load, the scale carrying sm_scale; QK^T runs on
+//   IMMA (mma.sync m16n8k32 s8 x s8 -> s32, exact), the scores fold as
+//   f32(s32) * (q_scale * sm_scale) * k_scale, so they and the row max are
+//   bitwise the plain twin's; P V is the bf16 split-P pass over bf16 V.
+//   Head dims that are not a multiple of 32 (80) run with zero-padded
+//   depth, which adds exact zeros.
 //
-// Float32 inputs (the small float32 slice of chip_smoke.py, any float32
-// caller) take the float32-exact CUDA-core kernels instead, chosen by the
-// dtype argument: cascade_kernel (float32 FMA over shared-memory tiles
-// with an online softmax per leg, merged trunk first) and prefix_kernel
-// (attn_tile.cuh's 64 x 64 tiles with 4 x 4 register micro-tiles). This
-// is a dispatch on the input type, not a fallback: a bf16 call never
-// reaches that code, and a bf16 call with a head dim outside 32, 64, 80,
-// 96, 128 is refused (the wrapper raises before the launch; the entry
-// point returns cudaErrorInvalidValue). The int8-QK^T trunk leg keeps the
-// same CUDA-core tiles in both dtypes.
+// Float32 inputs take float32-exact CUDA-core kernels, chosen by the dtype
+// argument: prefix_kernel (attn_tile.cuh's 64 x 64 tiles with 4 x 4
+// register micro-tiles; also the float32 int8-QK^T trunk leg with __dp4a)
+// and cascade_tile_kernel (the same trunk walk, then the window walk and
+// the merge, for the fused route and the suffix merge). This is a
+// dispatch on the input type, not a fallback: a bf16 call never reaches
+// that code. Every kernel is built for head dims 32, 64, 80, 96 and 128;
+// another is refused (the wrapper raises before the launch; the entry
+// point returns cudaErrorInvalidValue).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -90,535 +102,116 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kQB = 32;  // flattened query rows per block
-constexpr int kW = 32;   // keys per tile
-
-using attn_tile::from_f32;
-using attn_tile::to_f32;
-using attn_tile::warp_max;
-using attn_tile::warp_sum;
-
-struct Args {
-  const void* q;
-  const void* sk;
-  const void* sv;
-  const void* tk;
-  const void* tv;
-  const int* smask;
-  const int* qpos;
-  const float* slopes_rg;
-  void* out;
-  int B, R, H, K, Tt, hd;
-  float sm_scale;
-};
-
-__host__ __device__ inline size_t smem_floats(int hd) {
-  return size_t(kQB) * hd          // queries
-         + size_t(kW) * (hd + 1)   // K tile (padded rows)
-         + size_t(kW) * hd         // V tile
-         + size_t(kQB) * kW        // scores / probabilities
-         + 2 * size_t(kQB) * hd    // trunk and suffix accumulators
-         + 5 * size_t(kQB);        // m, l of both legs + rescale factor
-}
-
-// Online-softmax update of one leg with the probabilities of one tile:
-// ss holds the tile's scores (-inf where masked), vs its values.
-__device__ void online_update(float* ss, const float* vs, float* acc,
-                              float* m, float* l, float* sc, int hd) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  for (int n = warp; n < kQB; n += nwarps) {
-    float* sn = ss + n * kW;
-    const float m_old = m[n];
-    float tmax = -CUDART_INF_F;
-    for (int t = lane; t < kW; t += 32) tmax = fmaxf(tmax, sn[t]);
-    tmax = warp_max(tmax);
-    const float m_new = fmaxf(m_old, tmax);
-    float lt = 0.f;
-    for (int t = lane; t < kW; t += 32) {
-      const float s = sn[t];
-      const float p = (s == -CUDART_INF_F) ? 0.f : expf(__fsub_rn(s, m_new));
-      sn[t] = p;
-      lt = __fadd_rn(lt, p);
-    }
-    lt = warp_sum(lt);
-    if (lane == 0) {
-      const float scale =
-          (m_old == -CUDART_INF_F) ? 0.f : expf(__fsub_rn(m_old, m_new));
-      sc[n] = scale;
-      l[n] = __fadd_rn(__fmul_rn(l[n], scale), lt);
-      m[n] = m_new;
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kQB * hd; i += blockDim.x) {
-    const int n = i / hd;
-    const int d = i - n * hd;
-    const float* pn = ss + n * kW;
-    float a = 0.f;
-    for (int t = 0; t < kW; ++t) a = __fmaf_rn(pn[t], vs[t * hd + d], a);
-    acc[i] = __fadd_rn(__fmul_rn(acc[i], sc[n]), a);
-  }
-  __syncthreads();
-}
-
-// The float32 route on CUDA cores. Grid (ceil(R * G / kQB), B, K).
-template <typename T>
-__global__ void __launch_bounds__(kThreads) cascade_kernel(Args a) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.y;
-  const int kh = blockIdx.z;
-  const int G = a.H / a.K;
-  const int RG = a.R * G;
-  const int n0 = blockIdx.x * kQB;
-  const int hd = a.hd;
-
-  float* qs = smem;
-  float* ks = qs + kQB * hd;
-  float* vs = ks + kW * (hd + 1);
-  float* ss = vs + kW * hd;
-  float* ot = ss + kQB * kW;
-  float* os = ot + kQB * hd;
-  float* mt = os + kQB * hd;
-  float* lt = mt + kQB;
-  float* ms = lt + kQB;
-  float* ls = ms + kQB;
-  float* sc = ls + kQB;
-
-  const T* q = static_cast<const T*>(a.q);
-  const T* sk = static_cast<const T*>(a.sk);
-  const T* sv = static_cast<const T*>(a.sv);
-  const T* tk = static_cast<const T*>(a.tk);
-  const T* tv = static_cast<const T*>(a.tv);
-  const int* qpos_b = a.qpos + size_t(b) * a.R;
-  const int* smask_b = a.smask + size_t(b) * a.R;
-  const float* slope_k =
-      a.slopes_rg ? a.slopes_rg + size_t(kh) * RG : nullptr;
-
-  for (int i = threadIdx.x; i < kQB * hd; i += blockDim.x) {
-    const int n = i / hd;
-    const int d = i - n * hd;
-    const int ng = n0 + n;
-    float x = 0.f;
-    if (ng < RG) {
-      const int r = ng / G;
-      const int g = ng - r * G;
-      x = __fmul_rn(
-          to_f32(q[((size_t(b) * a.R + r) * a.H + size_t(kh) * G + g) * hd + d]),
-          a.sm_scale);
-    }
-    qs[i] = x;
-    ot[i] = 0.f;
-    os[i] = 0.f;
-  }
-  for (int i = threadIdx.x; i < kQB; i += blockDim.x) {
-    mt[i] = -CUDART_INF_F;
-    lt[i] = 0.f;
-    ms[i] = -CUDART_INF_F;
-    ls[i] = 0.f;
-  }
-  __syncthreads();
-
-  // Trunk leg: every slot real, slot t is position t.
-  for (int t0 = 0; t0 < a.Tt; t0 += kW) {
-    for (int i = threadIdx.x; i < kW * hd; i += blockDim.x) {
-      const int t = i / hd;
-      const int d = i - t * hd;
-      const int tg = t0 + t;
-      float kv = 0.f, vv = 0.f;
-      if (tg < a.Tt) {
-        const size_t off = (size_t(kh) * a.Tt + tg) * hd + d;
-        kv = to_f32(tk[off]);
-        vv = to_f32(tv[off]);
-      }
-      ks[t * (hd + 1) + d] = kv;
-      vs[t * hd + d] = vv;
-    }
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < kQB * kW; idx += blockDim.x) {
-      const int n = idx / kW;
-      const int t = idx - n * kW;
-      const int tg = t0 + t;
-      const int ng = n0 + n;
-      float s = -CUDART_INF_F;
-      if (tg < a.Tt && ng < RG) {
-        const float* qn = qs + n * hd;
-        const float* kt = ks + t * (hd + 1);
-        float acc = 0.f;
-        for (int d = 0; d < hd; ++d) acc = __fmaf_rn(qn[d], kt[d], acc);
-        if (slope_k != nullptr)
-          acc = __fadd_rn(acc, __fmul_rn(slope_k[ng], float(tg)));
-        s = acc;
-      }
-      ss[idx] = s;
-    }
-    __syncthreads();
-    online_update(ss, vs, ot, mt, lt, sc, hd);
-  }
-
-  // Suffix leg: the row's own window, mask-aware and causal.
-  for (int t0 = 0; t0 < a.R; t0 += kW) {
-    for (int i = threadIdx.x; i < kW * hd; i += blockDim.x) {
-      const int t = i / hd;
-      const int d = i - t * hd;
-      const int tg = t0 + t;
-      float kv = 0.f, vv = 0.f;
-      if (tg < a.R) {
-        const size_t off = ((size_t(b) * a.R + tg) * a.K + kh) * hd + d;
-        kv = to_f32(sk[off]);
-        vv = to_f32(sv[off]);
-      }
-      ks[t * (hd + 1) + d] = kv;
-      vs[t * hd + d] = vv;
-    }
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < kQB * kW; idx += blockDim.x) {
-      const int n = idx / kW;
-      const int t = idx - n * kW;
-      const int tg = t0 + t;
-      const int ng = n0 + n;
-      float s = -CUDART_INF_F;
-      if (tg < a.R && ng < RG) {
-        const int kp = qpos_b[tg];
-        const int qp = qpos_b[ng / G];
-        if (smask_b[tg] > 0 && kp <= qp) {
-          const float* qn = qs + n * hd;
-          const float* kt = ks + t * (hd + 1);
-          float acc = 0.f;
-          for (int d = 0; d < hd; ++d) acc = __fmaf_rn(qn[d], kt[d], acc);
-          if (slope_k != nullptr)
-            acc = __fadd_rn(acc, __fmul_rn(slope_k[ng], float(kp)));
-          s = acc;
-        }
-      }
-      ss[idx] = s;
-    }
-    __syncthreads();
-    online_update(ss, vs, os, ms, ls, sc, hd);
-  }
-
-  // Merge the two partials, trunk first, as merge_partials does.
-  T* out = static_cast<T*>(a.out);
-  for (int i = threadIdx.x; i < kQB * hd; i += blockDim.x) {
-    const int n = i / hd;
-    const int d = i - n * hd;
-    const int ng = n0 + n;
-    if (ng >= RG) continue;
-    const float m = fmaxf(mt[n], ms[n]);
-    const float wt = isfinite(mt[n]) ? expf(__fsub_rn(mt[n], m)) : 0.f;
-    const float ws = isfinite(ms[n]) ? expf(__fsub_rn(ms[n], m)) : 0.f;
-    const float l = __fadd_rn(__fmul_rn(wt, lt[n]), __fmul_rn(ws, ls[n]));
-    const float o = __fadd_rn(__fmul_rn(wt, ot[i]), __fmul_rn(ws, os[i]));
-    const int r = ng / G;
-    const int g = ng - r * G;
-    out[((size_t(b) * a.R + r) * a.H + size_t(kh) * G + g) * hd + d] =
-        from_f32<T>(__fdiv_rn(o, fmaxf(l, 1e-30f)));
-  }
-}
-
-template <typename T>
-cudaError_t launch(const Args& a, cudaStream_t st) {
-  const size_t smem = smem_floats(a.hd) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      cascade_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
-  if (e != cudaSuccess) return e;
-  const int G = a.H / a.K;
-  dim3 grid((a.R * G + kQB - 1) / kQB, a.B, a.K);
-  cascade_kernel<T><<<grid, kThreads, smem, st>>>(a);
-  return cudaGetLastError();
-}
-
 namespace am = attn_mma;
-
-// The bf16 route on tensor cores. Its query tiles are those of the trunk
-// leg: flattened rows n = (b * R + r) * G + g of kv head kh over all batch
-// rows, 16 a warp, so every block has the same few warps (a block of
-// R * G = 80 rows would put five warps on four schedulers). A block's rows
-// span batch rows b_lo .. b_lo + nb - 1; it walks one sequence of
-// Tt + nb * R keys: key k < Tt is the trunk's slot k, and key Tt + w is
-// row w % R of batch row b_lo + w / R's window. A 64-key tile may hold
-// the trunk's last keys and a window's first.
-
-// Q row i of a block of either bf16 kernel: flattened query n = n0 + i of
-// kv head kh is q[b, r, kh * G + g] with b * R + r = n / G.
-struct FlatQ {
-  const am::bf16* q;
-  int n0, N, kh, G, H, hd;
-  __device__ __forceinline__ am::Row operator()(int i) const {
-    const int n = n0 + i;
-    const bool ok = n < N;
-    const int m = ok ? n : n0;
-    return {q + (size_t(m / G) * H + size_t(kh) * G + m % G) * hd, ok};
-  }
-};
-
-// Launch of either bf16 kernel: grid (ceil(N / rows), K) over N flattened
-// queries of K kv heads, am::warps_for(N) warps of 16 rows a block.
-template <int HD, typename A>
-cudaError_t launch_flat(void (*kernel)(A), const A& a, long long N, int K, cudaStream_t st) {
-  const int warps = am::warps_for(N);
-  const int rows = warps * 16;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       int(am::Dims<HD>::kBytes));
-  if (e != cudaSuccess) return e;
-  dim3 grid(unsigned((N + rows - 1) / rows), K);
-  kernel<<<grid, warps * 32, am::Dims<HD>::kBytes, st>>>(a);
-  return cudaGetLastError();
-}
-
-// Key k of a block's sequence: the trunk's slot k, then window row k - Tt.
-struct FusedKV {
-  const am::bf16 *tk, *tv, *sk, *sv;
-  int b_lo, n_win, kh, Tt, R, K, hd;
-  __device__ __forceinline__ am::KVRow operator()(int key) const {
-    if (key < Tt) {
-      const size_t off = (size_t(kh) * Tt + key) * hd;
-      return {tk + off, tv + off, true};
-    }
-    const int w = key - Tt;
-    const bool ok = w < n_win;
-    // Window row w of the block is row b_lo * R + w of (B * R, K, hd).
-    const size_t off = ((size_t(b_lo) * R + (ok ? w : 0)) * K + kh) * hd;
-    return {sk + off, sv + off, ok};
-  }
-};
-
-// Scores of one warp's tile: scale, ALiBi on the key's position (slot t on
-// the trunk, q_positions in a window), and -inf where masked: the trunk is
-// all valid; a window key counts for a row of its own batch row where it
-// is real, unmasked and not after the row's position.
-struct FusedFix {
-  const int* qpos;   // (B, R), the block's window rows from b_lo * R on
-  const int* smask;  // (B, R), the same
-  float sm_scale;
-  bool alibi;
-  int Tt, R, n_win, c0;
-  float slope[2];
-  int qp[2];         // the rows' query positions
-  int wb[2];         // the rows' batch rows, counted from b_lo
-  __device__ __forceinline__ void operator()(int t, float (&s)[8][4]) const {
-    const int k0 = t * am::kKeys;
-    if (k0 + am::kKeys <= Tt) {  // a tile of trunk keys only
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = __fmul_rn(s[j][e], sm_scale);
-          if (alibi) x = __fadd_rn(x, __fmul_rn(slope[e >> 1], float(k0 + 8 * j + c0 + (e & 1))));
-          s[j][e] = x;
-        }
-      return;
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int key = k0 + 8 * j + c0 + c;
-        const bool trunk = key < Tt;
-        const int w = key - Tt;
-        const bool in = !trunk && w < n_win;
-        const int kp = trunk ? key : (in ? qpos[w] : 0);
-        const bool live = in && smask[w] > 0;
-        const int kb = in ? w / R : -1;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int e = 2 * h + c;
-          float x = __fmul_rn(s[j][e], sm_scale);
-          if (alibi) x = __fadd_rn(x, __fmul_rn(slope[h], float(kp)));
-          s[j][e] = (trunk || (live && kb == wb[h] && kp <= qp[h])) ? x : -CUDART_INF_F;
-        }
-      }
-  }
-};
-
-// Normalized output of one lane's four columns of row half h, as bf16 in
-// q's (B, R, H, hd) layout.
-struct FusedStore {
-  am::bf16* out;
-  int N, kh, G, H, hd, nr;
-  float l[2];
-  __device__ __forceinline__ void operator()(int h, int col, float4 v) const {
-    const int n = nr + 8 * h;
-    if (n >= N) return;
-    const float lh = h ? l[1] : l[0];
-    uint2 pk;
-    pk.x = am::as_u32(__floats2bfloat162_rn(__fdiv_rn(v.x, lh), __fdiv_rn(v.y, lh)));
-    pk.y = am::as_u32(__floats2bfloat162_rn(__fdiv_rn(v.z, lh), __fdiv_rn(v.w, lh)));
-    *reinterpret_cast<uint2*>(out + (size_t(n / G) * H + size_t(kh) * G + n % G) * hd + col) = pk;
-  }
-};
-
-// Grid (ceil(N / rows), K) with N = B * R * G flattened queries,
-// rows = 16 * blockDim.x / 32.
-template <int HD>
-__global__ void __launch_bounds__(am::kWarps * 32) cascade_mma_kernel(Args a) {
-  using am::bf16;
-  extern __shared__ __align__(16) unsigned char cascade_mma_smem[];
-  bf16* ring = reinterpret_cast<bf16*>(cascade_mma_smem);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int kh = blockIdx.y;
-  const int G = a.H / a.K;
-  const int RG = a.R * G;
-  const int N = a.B * RG;
-  const int rows = (blockDim.x >> 5) * 16;
-  const int n0 = blockIdx.x * rows;
-  am::load_rows<HD>(am::q_stage<HD>(ring), rows,
-                    FlatQ{static_cast<const bf16*>(a.q), n0, N, kh, G, a.H, HD});
-  // The batch rows of the block's queries, and their window keys.
-  const int b_lo = n0 / RG;
-  const int n_win = ((min(n0 + rows, N) - 1) / RG - b_lo + 1) * a.R;
-  const FusedKV key{static_cast<const bf16*>(a.tk), static_cast<const bf16*>(a.tv),
-                    static_cast<const bf16*>(a.sk), static_cast<const bf16*>(a.sv),
-                    b_lo, n_win, kh, a.Tt, a.R, a.K, HD};
-
-  // This lane's two rows (half h is row g + 8 h of the warp's tile): their
-  // ALiBi slope, query position and batch row.
-  const int nr = n0 + warp * 16 + (lane >> 2);
-  FusedFix fix{a.qpos + size_t(b_lo) * a.R, a.smask + size_t(b_lo) * a.R, a.sm_scale,
-               a.slopes_rg != nullptr, a.Tt, a.R, n_win, 2 * (lane & 3),
-               {0.f, 0.f}, {0, 0}, {-2, -2}};
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int n = nr + 8 * h;
-    if (n >= N) continue;
-    const int b = n / RG;
-    const int r = (n - b * RG) / G;
-    if (fix.alibi) fix.slope[h] = a.slopes_rg[size_t(kh) * RG + (n - b * RG)];
-    fix.qp[h] = a.qpos[size_t(b) * a.R + r];
-    fix.wb[h] = b - b_lo;
-  }
-
-  am::Acc<HD> acc;
-  am::acc_init<HD>(acc);
-  const bool active = n0 + warp * 16 < N;
-  am::key_loop<HD>(ring, (a.Tt + n_win + am::kKeys - 1) / am::kKeys, active, key, fix, acc);
-  if (!active) return;
-  am::store_rows<HD>(acc, FusedStore{static_cast<bf16*>(a.out), N, kh, G, a.H, HD, nr,
-                                     {fmaxf(acc.l[0], 1e-30f), fmaxf(acc.l[1], 1e-30f)}});
-}
-
-template <int HD>
-cudaError_t launch_mma(const Args& a, cudaStream_t st) {
-  return launch_flat<HD>(cascade_mma_kernel<HD>, a, (long long)a.B * a.R * (a.H / a.K), a.K, st);
-}
-
-cudaError_t launch_mma_by_hd(const Args& a, cudaStream_t st) {
-  switch (a.hd) {
-    case 32: return launch_mma<32>(a, st);
-    case 64: return launch_mma<64>(a, st);
-    case 80: return launch_mma<80>(a, st);
-    case 96: return launch_mma<96>(a, st);
-    case 128: return launch_mma<128>(a, st);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-}  // namespace
-
-// dtype: 0 = float32 (CUDA cores, any hd), 1 = bfloat16 (tensor cores, hd
-// one of 32, 64, 80, 96, 128). Returns cudaGetLastError() (or the error
-// of a refused attribute or head dim), 0 on success.
-extern "C" int lir_cascade_attention(const void* q, const void* sk,
-                                     const void* sv, const void* tk,
-                                     const void* tv, const void* smask,
-                                     const void* qpos, const void* slopes_rg,
-                                     void* out, int B, int R, int H, int K,
-                                     int Tt, int hd, int dtype, void* stream) {
-  Args a;
-  a.q = q;
-  a.sk = sk;
-  a.sv = sv;
-  a.tk = tk;
-  a.tv = tv;
-  a.smask = static_cast<const int*>(smask);
-  a.qpos = static_cast<const int*>(qpos);
-  a.slopes_rg = static_cast<const float*>(slopes_rg);
-  a.out = out;
-  a.B = B;
-  a.R = R;
-  a.H = H;
-  a.K = K;
-  a.Tt = Tt;
-  a.hd = hd;
-  // 1/sqrt(hd) rounded once from double, as the JAX package computes it.
-  a.sm_scale = float(1.0 / sqrt(double(hd)));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return int(launch<float>(a, st));
-  if (dtype == 1) return int(launch_mma_by_hd(a, st));
-  return int(cudaErrorInvalidValue);
-}
-
-// ---------------------------------------------------------------------------
-// Trunk leg of the two-leg route: cascade_prefix (float32 QK^T) and
-// cascade_prefix_int8 (in-kernel int8 QK^T).
-// ---------------------------------------------------------------------------
-
-namespace {
-
 namespace tile = attn_tile;
 
-struct PrefixArgs {
-  const void* q;           // (B, R, H, hd)
-  const void* tk;          // (K, Tt, hd)
-  const void* tv;          // (K, Tt, hd)
-  const float* slopes;     // (H,) or null
-  float* o;                // (B, K, R, G, hd)
-  float* m;                // (B, K, R, G)
-  float* l;                // (B, K, R, G)
+struct Args {
+  const void* q;        // (B, R, H, hd)
+  const void* sk;       // (B, R, K, hd) window keys
+  const void* sv;
+  const void* tk;       // (K, Tt, hd) trunk (or, int8: the s8 payload)
+  const void* tv;
+  const float* tks;     // (K, Tt) int8 trunk key scales
+  const int* smask;     // (B, R)
+  const int* qpos;      // (B, R)
+  const float* slopes;  // (H,) or null
+  void* out;            // (B, R, H, hd)
+  float* o;             // trunk partials: written by the trunk leg, read by
+  float* m;             // the suffix merge
+  float* l;
   int B, R, H, K, Tt;
   float sm_scale;
 };
 
+// Partials of flattened query n (of N = B * R * G) of kv head kh sit at row
+// (b * K + kh) * R * G + n % (R * G) of the (B, K, R, G) layout.
+__device__ __forceinline__ size_t part_row(int n, int RG, int K, int kh) {
+  return size_t(n / RG) * K * RG + size_t(kh) * RG + n % RG;
+}
+
+// The log-sum-exp merge of a row's trunk partial (o_t, m_t, l_t) and
+// window partial (o_s, m_s, l_s), in merge_partials' order: the row's
+// weights once, then each output element (w_t o_t + w_s o_s) / max(l, 1e-30).
+struct Merge {
+  float w_t, w_s, den;
+  __device__ __forceinline__ Merge(float m_t, float l_t, float m_s, float l_s) {
+    const float m = fmaxf(m_t, m_s);
+    w_t = isfinite(m_t) ? expf(__fsub_rn(m_t, m)) : 0.f;
+    w_s = isfinite(m_s) ? expf(__fsub_rn(m_s, m)) : 0.f;
+    den = fmaxf(__fadd_rn(__fmul_rn(w_t, l_t), __fmul_rn(w_s, l_s)), 1e-30f);
+  }
+  __device__ __forceinline__ float operator()(float o_t, float o_s) const {
+    return __fdiv_rn(__fadd_rn(__fmul_rn(w_t, o_t), __fmul_rn(w_s, o_s)), den);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Float32 inputs: CUDA-core tiles of attn_tile.cuh.
+// ---------------------------------------------------------------------------
+
 template <int HD, bool INT8>
-struct PrefixSmem {
+struct TileSmem {
   using D = tile::Dims<HD>;
   // float: q tile, one K-then-V tile; int8: q and k payloads + scales and
-  // a V tile. Then the probability tile and the row statistics.
+  // a V tile. Then the probability tile and the row statistics of two
+  // partials (m, l, rescale factor; m_s, l_s).
   static constexpr size_t kQ = INT8 ? tile::kQB * D::kLd8 * 4 + tile::kQB * 4
                                     : tile::kQB * D::kLd * 4;
   static constexpr size_t kK = INT8 ? tile::kKB * D::kLd8 * 4 + tile::kKB * 4 : 0;
   static constexpr size_t kV = tile::kKB * D::kLd * 4;
   static constexpr size_t kP = tile::kQB * tile::kLdP * 4;
-  static constexpr size_t kStats = 3 * tile::kQB * 4;
+  static constexpr size_t kStats = 5 * tile::kQB * 4;
   static constexpr size_t kBytes = kQ + kK + kV + kP + kStats;
 };
 
-// CUDA-core trunk leg: float32 inputs, and int8 QK^T in both dtypes.
-// Grid (ceil(N / kQB), K) with N = B * R * G flattened queries; the tail
-// tile's rows past N are masked (never loaded, never written).
+template <int HD, bool INT8>
+struct TileView {
+  float* qf;   // float query tile
+  int* q8;     // int8 query payloads
+  float* qsc;  // their scales (times sm_scale)
+  int* k8;
+  float* ksc;
+  float* vs;   // float: K, then V
+  float* ps;
+  float* m;
+  float* l;
+  float* sc;
+  float* ms;
+  float* ls;
+  __device__ explicit TileView(unsigned char* p) {
+    using S = TileSmem<HD, INT8>;
+    using D = tile::Dims<HD>;
+    qf = reinterpret_cast<float*>(p);
+    q8 = reinterpret_cast<int*>(p);
+    qsc = reinterpret_cast<float*>(p + tile::kQB * D::kLd8 * 4);
+    p += S::kQ;
+    k8 = reinterpret_cast<int*>(p);
+    ksc = reinterpret_cast<float*>(p + tile::kKB * D::kLd8 * 4);
+    p += S::kK;
+    vs = reinterpret_cast<float*>(p);
+    p += S::kV;
+    ps = reinterpret_cast<float*>(p);
+    p += S::kP;
+    m = reinterpret_cast<float*>(p);
+    l = m + tile::kQB;
+    sc = l + tile::kQB;
+    ms = sc + tile::kQB;
+    ls = ms + tile::kQB;
+  }
+};
+
+// The trunk leg of one block of kQB flattened queries against the whole
+// trunk of kv head kh: loads the block's query tile (kept in shared memory
+// for a later window walk), leaves the running (m, l) in smem and the PV
+// accumulator of the thread's rows ty + 16 i and columns tx + 16 c in acc.
 template <typename T, int HD, bool INT8>
-__global__ void __launch_bounds__(tile::kThreads) prefix_kernel(PrefixArgs a) {
+__device__ __forceinline__ void trunk_walk(const Args& a, const TileView<HD, INT8>& v, int n0,
+                                           int kh, float (&acc)[4][tile::Dims<HD>::kCols]) {
   using D = tile::Dims<HD>;
-  using S = PrefixSmem<HD, INT8>;
-  extern __shared__ __align__(16) unsigned char prefix_smem[];
-  const int kh = blockIdx.y;
-  const int n0 = blockIdx.x * tile::kQB;
   const int G = a.H / a.K;
-  const int RG = a.R * G;
-  const int N = a.B * RG;
+  const int N = a.B * a.R * G;
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
-
-  unsigned char* p = prefix_smem;
-  float* qf = reinterpret_cast<float*>(p);         // float variant
-  int* q8 = reinterpret_cast<int*>(p);             // int8 variant
-  float* qsc = reinterpret_cast<float*>(p + tile::kQB * D::kLd8 * 4);
-  p += S::kQ;
-  int* k8 = reinterpret_cast<int*>(p);
-  float* ksc = reinterpret_cast<float*>(p + tile::kKB * D::kLd8 * 4);
-  p += S::kK;
-  float* vs = reinterpret_cast<float*>(p);         // float: K, then V
-  p += S::kV;
-  float* ps = reinterpret_cast<float*>(p);
-  p += S::kP;
-  float* m = reinterpret_cast<float*>(p);
-  float* l = m + tile::kQB;
-  float* sc = l + tile::kQB;
-
   const T* q = static_cast<const T*>(a.q);
   const T* tk = static_cast<const T*>(a.tk);
   const T* tv = static_cast<const T*>(a.tv);
@@ -631,13 +224,13 @@ __global__ void __launch_bounds__(tile::kThreads) prefix_kernel(PrefixArgs a) {
   if constexpr (INT8) {
     // Payloads of the raw query row; its scale carries sm_scale, folded
     // as the TPU kernel folds it: (q_scale * sm_scale).
-    tile::load_tile_int8<HD>(q8, qsc, q, tile::kQB, a.sm_scale, q_off, q_ok);
+    tile::load_tile_int8<HD>(v.q8, v.qsc, q, tile::kQB, a.sm_scale, q_off, q_ok);
   } else {
-    tile::load_tile<HD>(qf, q, tile::kQB, a.sm_scale, q_off, q_ok);
+    tile::load_tile<HD>(v.qf, q, tile::kQB, a.sm_scale, q_off, q_ok);
   }
   for (int i = threadIdx.x; i < tile::kQB; i += blockDim.x) {
-    m[i] = -CUDART_INF_F;
-    l[i] = 0.f;
+    v.m[i] = -CUDART_INF_F;
+    v.l[i] = 0.f;
   }
   float slope[4];
 #pragma unroll
@@ -645,7 +238,6 @@ __global__ void __launch_bounds__(tile::kThreads) prefix_kernel(PrefixArgs a) {
     const int n = n0 + ty + 16 * i;
     slope[i] = (a.slopes != nullptr && n < N) ? a.slopes[kh * G + n % G] : 0.f;
   }
-  float acc[4][D::kCols];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -656,24 +248,24 @@ __global__ void __launch_bounds__(tile::kThreads) prefix_kernel(PrefixArgs a) {
     auto k_off = [&](int r) { return (size_t(kh) * a.Tt + t0 + r) * HD; };
     auto k_ok = [&](int r) { return t0 + r < a.Tt; };
     if constexpr (INT8) {
-      tile::load_tile_int8<HD>(k8, ksc, tk, tile::kKB, 1.f, k_off, k_ok);
-      tile::load_tile<HD>(vs, tv, tile::kKB, 1.f, k_off, k_ok);
+      tile::load_tile_int8<HD>(v.k8, v.ksc, tk, tile::kKB, 1.f, k_off, k_ok);
+      tile::load_tile<HD>(v.vs, tv, tile::kKB, 1.f, k_off, k_ok);
     } else {
-      tile::load_tile<HD>(vs, tk, tile::kKB, 1.f, k_off, k_ok);
+      tile::load_tile<HD>(v.vs, tk, tile::kKB, 1.f, k_off, k_ok);
     }
     __syncthreads();
     float s[4][4];
     if constexpr (INT8) {
       int s32[4][4];
-      tile::score_s8<HD>(q8, k8, s32);
+      tile::score_s8<HD>(v.q8, v.k8, s32);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          s[i][j] = __fmul_rn(__fmul_rn(float(s32[i][j]), qsc[ty + 16 * i]),
-                              ksc[tx + 16 * j]);
+          s[i][j] = __fmul_rn(__fmul_rn(float(s32[i][j]), v.qsc[ty + 16 * i]),
+                              v.ksc[tx + 16 * j]);
     } else {
-      tile::score_f32<HD>(qf, vs, s);
+      tile::score_f32<HD>(v.qf, v.vs, s);
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -682,66 +274,219 @@ __global__ void __launch_bounds__(tile::kThreads) prefix_kernel(PrefixArgs a) {
         const int t = t0 + tx + 16 * j;
         float x = s[i][j];
         if (a.slopes != nullptr) x = __fadd_rn(x, __fmul_rn(slope[i], float(t)));
-        ps[(ty + 16 * i) * tile::kLdP + tx + 16 * j] =
-            t < a.Tt ? x : -CUDART_INF_F;
+        v.ps[(ty + 16 * i) * tile::kLdP + tx + 16 * j] = t < a.Tt ? x : -CUDART_INF_F;
       }
     __syncthreads();
     if constexpr (!INT8) {
-      tile::load_tile<HD>(vs, tv, tile::kKB, 1.f, k_off, k_ok);
+      tile::load_tile<HD>(v.vs, tv, tile::kKB, 1.f, k_off, k_ok);
     }
-    tile::online_softmax(ps, m, l, sc);
+    tile::online_softmax(v.ps, v.m, v.l, v.sc);
     __syncthreads();
-    tile::pv_update<HD>(ps, vs, sc, acc);
+    tile::pv_update<HD>(v.ps, v.vs, v.sc, acc);
   }
   __syncthreads();
+}
 
-  // Partials in the (B, K, R, G) layout of the plain twin: flattened
-  // query n of batch row b sits at (b * K + kh) * R * G + n % (R * G).
+// CUDA-core trunk leg: float32 inputs, float or int8 QK^T. Grid
+// (ceil(N / kQB), K); the tail tile's rows past N are never written.
+template <typename T, int HD, bool INT8>
+__global__ void __launch_bounds__(tile::kThreads) prefix_kernel(Args a) {
+  using D = tile::Dims<HD>;
+  extern __shared__ __align__(16) unsigned char prefix_smem[];
+  const TileView<HD, INT8> v(prefix_smem);
+  const int kh = blockIdx.y;
+  const int n0 = blockIdx.x * tile::kQB;
+  const int RG = a.R * (a.H / a.K);
+  const int N = a.B * RG;
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  float acc[4][D::kCols];
+  trunk_walk<T, HD, INT8>(a, v, n0, kh, acc);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int n = n0 + ty + 16 * i;
     if (n >= N) continue;
-    const size_t row = size_t(n / RG) * a.K * RG + size_t(kh) * RG + n % RG;
+    const size_t row = part_row(n, RG, a.K, kh);
 #pragma unroll
     for (int c = 0; c < D::kCols; ++c) a.o[row * HD + tx + 16 * c] = acc[i][c];
   }
   for (int i = threadIdx.x; i < tile::kQB; i += blockDim.x) {
     const int n = n0 + i;
     if (n >= N) continue;
-    const size_t row = size_t(n / RG) * a.K * RG + size_t(kh) * RG + n % RG;
-    a.m[row] = m[i];
-    a.l[row] = l[i];
+    const size_t row = part_row(n, RG, a.K, kh);
+    a.m[row] = v.m[i];
+    a.l[row] = v.l[i];
   }
 }
 
-template <typename T, int HD, bool INT8>
-cudaError_t launch_prefix(const PrefixArgs& a, cudaStream_t st) {
-  const int smem = int(PrefixSmem<HD, INT8>::kBytes);
-  cudaError_t e = cudaFuncSetAttribute(
-      prefix_kernel<T, HD, INT8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+// Float32 fused cascade (kFused: the trunk walk of prefix_kernel) or suffix
+// merge (the trunk partials read from a.o, a.m, a.l), then the window walk
+// and the merge. Grid (ceil(N / kQB), K).
+template <typename T, int HD, bool kFused>
+__global__ void __launch_bounds__(tile::kThreads) cascade_tile_kernel(Args a) {
+  using D = tile::Dims<HD>;
+  extern __shared__ __align__(16) unsigned char cascade_tile_smem[];
+  const TileView<HD, false> v(cascade_tile_smem);
+  const int kh = blockIdx.y;
+  const int n0 = blockIdx.x * tile::kQB;
+  const int G = a.H / a.K;
+  const int RG = a.R * G;
+  const int N = a.B * RG;
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+
+  // Step 1: the trunk partial, into registers (o_t) and v.m / v.l.
+  float acc_t[4][D::kCols];
+  if constexpr (kFused) {
+    trunk_walk<T, HD, false>(a, v, n0, kh, acc_t);
+  } else {
+    const T* q = static_cast<const T*>(a.q);
+    tile::load_tile<HD>(
+        v.qf, q, tile::kQB, a.sm_scale,
+        [&](int r) {
+          const int n = n0 + r;
+          return (size_t(n / G) * a.H + size_t(kh) * G + n % G) * HD;
+        },
+        [&](int r) { return n0 + r < N; });
+    for (int i = threadIdx.x; i < tile::kQB; i += blockDim.x) {
+      const int n = n0 + i;
+      const size_t row = n < N ? part_row(n, RG, a.K, kh) : 0;
+      v.m[i] = n < N ? a.m[row] : -CUDART_INF_F;
+      v.l[i] = n < N ? a.l[row] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int n = n0 + ty + 16 * i;
+      const size_t row = n < N ? part_row(n, RG, a.K, kh) : 0;
+#pragma unroll
+      for (int c = 0; c < D::kCols; ++c)
+        acc_t[i][c] = n < N ? a.o[row * HD + tx + 16 * c] : 0.f;
+    }
+    __syncthreads();
+  }
+
+  // Step 2: the window walk under a fresh accumulator. The block's rows
+  // span batch rows b_lo ..; their windows are rows b_lo * R + w of the
+  // (B * R, K, hd) window k/v, w < n_win.
+  const T* sk = static_cast<const T*>(a.sk);
+  const T* sv = static_cast<const T*>(a.sv);
+  const int b_lo = n0 / RG;
+  const int n_win = ((min(n0 + tile::kQB, N) - 1) / RG - b_lo + 1) * a.R;
+  const int* qpos = a.qpos + size_t(b_lo) * a.R;
+  const int* smask = a.smask + size_t(b_lo) * a.R;
+  for (int i = threadIdx.x; i < tile::kQB; i += blockDim.x) {
+    v.ms[i] = -CUDART_INF_F;
+    v.ls[i] = 0.f;
+  }
+  float slope[4];
+  int qp[4], wb[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int n = n0 + ty + 16 * i;
+    const bool ok = n < N;
+    slope[i] = (a.slopes != nullptr && ok) ? a.slopes[kh * G + n % G] : 0.f;
+    const int b = ok ? n / RG : 0;
+    qp[i] = ok ? a.qpos[size_t(b) * a.R + (n - b * RG) / G] : 0;
+    wb[i] = ok ? b - b_lo : -2;
+  }
+  float acc_s[4][D::kCols];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < D::kCols; ++c) acc_s[i][c] = 0.f;
+  for (int w0 = 0; w0 < n_win; w0 += tile::kKB) {
+    __syncthreads();  // the previous tile's PV is done with vs and ps
+    auto k_off = [&](int r) { return ((size_t(b_lo) * a.R + w0 + r) * a.K + kh) * HD; };
+    auto k_ok = [&](int r) { return w0 + r < n_win; };
+    tile::load_tile<HD>(v.vs, sk, tile::kKB, 1.f, k_off, k_ok);
+    __syncthreads();
+    float s[4][4];
+    tile::score_f32<HD>(v.qf, v.vs, s);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int w = w0 + tx + 16 * j;
+      const bool in = w < n_win;
+      const int kp = in ? qpos[w] : 0;
+      const bool live = in && smask[w] > 0;
+      const int kb = in ? w / a.R : -1;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float x = s[i][j];
+        if (a.slopes != nullptr) x = __fadd_rn(x, __fmul_rn(slope[i], float(kp)));
+        v.ps[(ty + 16 * i) * tile::kLdP + tx + 16 * j] =
+            (live && kb == wb[i] && kp <= qp[i]) ? x : -CUDART_INF_F;
+      }
+    }
+    __syncthreads();
+    tile::load_tile<HD>(v.vs, sv, tile::kKB, 1.f, k_off, k_ok);
+    tile::online_softmax(v.ps, v.ms, v.ls, v.sc);
+    __syncthreads();
+    tile::pv_update<HD>(v.ps, v.vs, v.sc, acc_s);
+  }
+  __syncthreads();
+
+  // Step 3: the merge, written in q's layout.
+  T* out = static_cast<T*>(a.out);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+    const int n = n0 + r;
+    if (n >= N) continue;
+    T* dst = out + (size_t(n / G) * a.H + size_t(kh) * G + n % G) * HD;
+    const Merge merge(v.m[r], v.l[r], v.ms[r], v.ls[r]);
+#pragma unroll
+    for (int c = 0; c < D::kCols; ++c)
+      dst[tx + 16 * c] = tile::from_f32<T>(merge(acc_t[i][c], acc_s[i][c]));
+  }
+}
+
+template <int HD, bool INT8>
+cudaError_t launch_tile(void (*kernel)(Args), const Args& a, cudaStream_t st) {
+  const int smem = int(TileSmem<HD, INT8>::kBytes);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   const long long N = (long long)a.B * a.R * (a.H / a.K);
   dim3 grid(unsigned((N + tile::kQB - 1) / tile::kQB), a.K);
-  prefix_kernel<T, HD, INT8><<<grid, tile::kThreads, smem, st>>>(a);
+  kernel<<<grid, tile::kThreads, smem, st>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, bool INT8>
-cudaError_t prefix_by_hd(const PrefixArgs& a, int hd, cudaStream_t st) {
-  switch (hd) {
-    case 32: return launch_prefix<T, 32, INT8>(a, st);
-    case 64: return launch_prefix<T, 64, INT8>(a, st);
-    case 80: return launch_prefix<T, 80, INT8>(a, st);
-    case 96: return launch_prefix<T, 96, INT8>(a, st);
-    case 128: return launch_prefix<T, 128, INT8>(a, st);
-    default: return cudaErrorInvalidValue;
+// ---------------------------------------------------------------------------
+// bf16 inputs: tensor cores (attn_mma.cuh).
+// ---------------------------------------------------------------------------
+
+using am::bf16;
+
+// Q row i of a block of the bf16 kernels: flattened query n = n0 + i of
+// kv head kh is q[b, r, kh * G + g] with b * R + r = n / G.
+struct FlatQ {
+  const bf16* q;
+  int n0, N, kh, G, H, hd;
+  __device__ __forceinline__ am::Row operator()(int i) const {
+    const int n = n0 + i;
+    const bool ok = n < N;
+    const int m = ok ? n : n0;
+    return {q + (size_t(m / G) * H + size_t(kh) * G + m % G) * hd, ok};
   }
+};
+
+// Launch of a bf16 kernel: grid (ceil(N / rows), K) over N flattened
+// queries of K kv heads, am::warps_for(N) warps of 16 rows a block.
+cudaError_t launch_flat(void (*kernel)(Args), const Args& a, size_t smem, cudaStream_t st) {
+  const long long N = (long long)a.B * a.R * (a.H / a.K);
+  const int warps = am::warps_for(N);
+  const int rows = warps * 16;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return e;
+  dim3 grid(unsigned((N + rows - 1) / rows), a.K);
+  kernel<<<grid, warps * 32, smem, st>>>(a);
+  return cudaGetLastError();
 }
 
 // Key k of the trunk (rows past Tt zero-filled).
 struct PrefixKV {
-  const am::bf16 *tk, *tv;
+  const bf16 *tk, *tv;
   int kh, Tt, hd;
   __device__ __forceinline__ am::KVRow operator()(int key) const {
     const bool ok = key < Tt;
@@ -770,28 +515,318 @@ struct PrefixFix {
   }
 };
 
-// The partials of one lane's four columns of row half h, in the (B, K, R,
-// G) layout of the plain twin: flattened query n of batch row b sits at
-// (b * K + kh) * R * G + n % (R * G).
+// The partials of one lane's four columns of row half h.
 struct PrefixStore {
   float* o;
   int N, RG, K, kh, hd, nr;
-  __device__ __forceinline__ size_t row(int n) const {
-    return size_t(n / RG) * K * RG + size_t(kh) * RG + n % RG;
-  }
   __device__ __forceinline__ void operator()(int h, int col, float4 v) const {
     const int n = nr + 8 * h;
-    if (n < N) *reinterpret_cast<float4*>(o + row(n) * hd + col) = v;
+    if (n < N) *reinterpret_cast<float4*>(o + part_row(n, RG, K, kh) * hd + col) = v;
   }
 };
+
+// This lane's two rows (half h is row g + 8 h of the warp's tile) in a
+// block of the bf16 kernels.
+struct LaneRows {
+  int nr;          // flattened query of half 0
+  float slope[2];  // their ALiBi slopes
+};
+
+__device__ __forceinline__ LaneRows lane_rows(const Args& a, int n0) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int G = a.H / a.K;
+  const int N = a.B * a.R * G;
+  LaneRows lr{n0 + warp * 16 + (lane >> 2), {0.f, 0.f}};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int n = lr.nr + 8 * h;
+    if (a.slopes != nullptr && n < N) lr.slope[h] = a.slopes[blockIdx.y * G + n % G];
+  }
+  return lr;
+}
+
+// The bf16 trunk leg's walk (kSt ring stages), prefix_mma_kernel's and the
+// fused kernel's step (1): Q tile copies issued, then the trunk.
+template <int HD, int kSt>
+__device__ __forceinline__ void trunk_walk_mma(const Args& a, bf16* ring, int n0, bool active,
+                                               const LaneRows& lr, am::Acc<HD>& acc) {
+  const int kh = blockIdx.y;
+  const int G = a.H / a.K;
+  const int N = a.B * a.R * G;
+  am::load_rows<HD>(am::q_stage<HD, kSt>(ring), (blockDim.x >> 5) * 16,
+                    FlatQ{static_cast<const bf16*>(a.q), n0, N, kh, G, a.H, HD});
+  const PrefixKV key{static_cast<const bf16*>(a.tk), static_cast<const bf16*>(a.tv), kh, a.Tt,
+                     HD};
+  const PrefixFix fix{a.sm_scale, a.slopes != nullptr, a.Tt, 2 * int(threadIdx.x & 3),
+                      {lr.slope[0], lr.slope[1]}};
+  am::acc_init<HD>(acc);
+  am::key_loop<HD, true, kSt>(ring, (a.Tt + am::kKeys - 1) / am::kKeys, active, key, fix, acc);
+}
 
 // The bf16 trunk leg on tensor cores. Grid (ceil(N / rows), K) with
 // N = B * R * G flattened queries, rows = 16 * blockDim.x / 32.
 template <int HD>
-__global__ void __launch_bounds__(am::kWarps * 32) prefix_mma_kernel(PrefixArgs a) {
-  using am::bf16;
+__global__ void __launch_bounds__(am::kWarps * 32) prefix_mma_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char prefix_mma_smem[];
   bf16* ring = reinterpret_cast<bf16*>(prefix_mma_smem);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int G = a.H / a.K;
+  const int RG = a.R * G;
+  const int N = a.B * RG;
+  const int n0 = blockIdx.x * (blockDim.x >> 5) * 16;
+  const LaneRows lr = lane_rows(a, n0);
+  const bool active = n0 + warp * 16 < N;
+  am::Acc<HD> acc;
+  trunk_walk_mma<HD, am::kStages>(a, ring, n0, active, lr, acc);
+  if (!active) return;
+  const PrefixStore store{a.o, N, RG, a.K, int(blockIdx.y), HD, lr.nr};
+  am::store_rows<HD>(acc, store);
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = lr.nr + 8 * h;
+      if (n >= N) continue;
+      a.m[part_row(n, RG, a.K, blockIdx.y)] = acc.m[h];
+      a.l[part_row(n, RG, a.K, blockIdx.y)] = acc.l[h];
+    }
+  }
+}
+
+// Window row w of a block is row b_lo * R + w of (B * R, K, hd).
+struct WindowKV {
+  const bf16 *sk, *sv;
+  int b_lo, n_win, kh, R, K, hd;
+  __device__ __forceinline__ am::KVRow operator()(int w) const {
+    const bool ok = w < n_win;
+    const size_t off = ((size_t(b_lo) * R + (ok ? w : 0)) * K + kh) * hd;
+    return {sk + off, sv + off, ok};
+  }
+};
+
+// Window scores of one warp's tile: scale, ALiBi on the key's position, and
+// -inf unless the key is real, unmasked, of the row's own batch row and
+// not after the row's position.
+struct WindowFix {
+  const int* qpos;   // (B, R), from the block's first window row on
+  const int* smask;  // the same
+  float sm_scale;
+  bool alibi;
+  int R, n_win, c0;
+  float slope[2];
+  int qp[2];  // the rows' query positions
+  int wb[2];  // the rows' batch rows, counted from b_lo
+  __device__ __forceinline__ void operator()(int t, float (&s)[8][4]) const {
+    const int k0 = t * am::kKeys;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int w = k0 + 8 * j + c0 + c;
+        const bool in = w < n_win;
+        const int kp = in ? qpos[w] : 0;
+        const bool live = in && smask[w] > 0;
+        const int kb = in ? w / R : -1;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int e = 2 * h + c;
+          float x = __fmul_rn(s[j][e], sm_scale);
+          if (alibi) x = __fadd_rn(x, __fmul_rn(slope[h], float(kp)));
+          s[j][e] = (live && kb == wb[h] && kp <= qp[h]) ? x : -CUDART_INF_F;
+        }
+      }
+  }
+};
+
+// Ring stages of the fused kernel and the suffix merge: two, which leave
+// room for the fused kernel's (o_t) stash at two blocks an SM and fit
+// three suffix-merge blocks an SM (its walk is two or three tiles). The
+// depth of the ring moves no bit.
+constexpr int kCascadeStages = 2;
+
+template <int HD, bool kFused>
+constexpr size_t cascade_mma_smem() {
+  return am::Dims<HD>::ring_bytes(kCascadeStages) +
+         (kFused ? size_t(am::kWarps) * 32 * am::Dims<HD>::kNT * 4 * sizeof(float) : 0);
+}
+
+// Fused cascade (kFused: step (1) is the trunk walk) or suffix merge (step
+// (1) reads the trunk partials), then the window walk and the merge. Grid
+// (ceil(N / rows), K) with N = B * R * G flattened queries.
+template <int HD, bool kFused>
+__global__ void __launch_bounds__(am::kWarps * 32) cascade_mma_kernel(Args a) {
+  using D = am::Dims<HD>;
+  extern __shared__ __align__(16) unsigned char cascade_mma_smem[];
+  bf16* ring = reinterpret_cast<bf16*>(cascade_mma_smem);
+  constexpr int kSt = kCascadeStages;
+  constexpr size_t kRing = size_t(2) * kSt * D::kTile * sizeof(bf16);
+  float* stash = reinterpret_cast<float*>(cascade_mma_smem + kRing);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int kh = blockIdx.y;
+  const int G = a.H / a.K;
+  const int RG = a.R * G;
+  const int N = a.B * RG;
+  const int rows = (blockDim.x >> 5) * 16;
+  const int n0 = blockIdx.x * rows;
+  const LaneRows lr = lane_rows(a, n0);
+  const bool active = n0 + warp * 16 < N;
+
+  // Step 1: the trunk partial. Fused: the trunk leg's walk, its o_t
+  // stashed lane by lane (fragment j, element e at ((warp * kNT + j) * 4 +
+  // e) * 32 + lane); suffix merge: read at the merge.
+  am::Acc<HD> acc;
+  float m_t[2], l_t[2];
+  if constexpr (kFused) {
+    trunk_walk_mma<HD, kSt>(a, ring, n0, active, lr, acc);
+    float* st = stash + size_t(warp) * D::kNT * 4 * 32 + lane;
+#pragma unroll
+    for (int j = 0; j < D::kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[(j * 4 + e) * 32] = acc.o[j][e];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m_t[h] = acc.m[h];
+      l_t[h] = acc.l[h];
+    }
+  } else {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = lr.nr + 8 * h;
+      const size_t row = n < N ? part_row(n, RG, a.K, kh) : 0;
+      m_t[h] = n < N ? a.m[row] : -CUDART_INF_F;
+      l_t[h] = n < N ? a.l[row] : 0.f;
+    }
+  }
+
+  // Step 2: the window walk under a fresh accumulator.
+  const int b_lo = n0 / RG;
+  const int n_win = ((min(n0 + rows, N) - 1) / RG - b_lo + 1) * a.R;
+  am::load_rows<HD>(am::q_stage<HD, kSt>(ring), rows,
+                    FlatQ{static_cast<const bf16*>(a.q), n0, N, kh, G, a.H, HD});
+  const WindowKV key{static_cast<const bf16*>(a.sk), static_cast<const bf16*>(a.sv),
+                     b_lo, n_win, kh, a.R, a.K, HD};
+  WindowFix fix{a.qpos + size_t(b_lo) * a.R, a.smask + size_t(b_lo) * a.R, a.sm_scale,
+                a.slopes != nullptr, a.R, n_win, 2 * (lane & 3),
+                {lr.slope[0], lr.slope[1]}, {0, 0}, {-2, -2}};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int n = lr.nr + 8 * h;
+    if (n >= N) continue;
+    const int b = n / RG;
+    fix.qp[h] = a.qpos[size_t(b) * a.R + (n - b * RG) / G];
+    fix.wb[h] = b - b_lo;
+  }
+  am::acc_init<HD>(acc);
+  am::key_loop<HD, true, kSt>(ring, (n_win + am::kKeys - 1) / am::kKeys, active, key, fix,
+                              acc);
+  if (!active) return;
+
+  // Step 3: the merge of the lane's fragments, then bf16 stores. The
+  // suffix merge reads each row half's two columns of an n-tile as one
+  // float2 of the partials.
+  const float* st = stash + size_t(warp) * D::kNT * 4 * 32 + lane;
+  const float* ot_row[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int n = lr.nr + 8 * h;
+    ot_row[h] = n < N ? a.o + part_row(n, RG, a.K, kh) * HD + 2 * (lane & 3) : nullptr;
+  }
+  const Merge merge[2] = {Merge(m_t[0], l_t[0], acc.m[0], acc.l[0]),
+                          Merge(m_t[1], l_t[1], acc.m[1], acc.l[1])};
+#pragma unroll
+  for (int j = 0; j < D::kNT; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float2 o_t = make_float2(0.f, 0.f);
+      if constexpr (kFused) {
+        o_t = make_float2(st[(j * 4 + 2 * h) * 32], st[(j * 4 + 2 * h + 1) * 32]);
+      } else {
+        if (ot_row[h] != nullptr) o_t = *reinterpret_cast<const float2*>(ot_row[h] + 8 * j);
+      }
+      acc.o[j][2 * h] = merge[h](o_t.x, acc.o[j][2 * h]);
+      acc.o[j][2 * h + 1] = merge[h](o_t.y, acc.o[j][2 * h + 1]);
+    }
+  bf16* out = static_cast<bf16*>(a.out);
+  am::store_rows<HD>(acc, [&](int h, int col, float4 v) {
+    const int n = lr.nr + 8 * h;
+    if (n >= N) return;
+    uint2 pk;
+    pk.x = am::as_u32(__floats2bfloat162_rn(v.x, v.y));
+    pk.y = am::as_u32(__floats2bfloat162_rn(v.z, v.w));
+    *reinterpret_cast<uint2*>(out + (size_t(n / G) * a.H + size_t(kh) * G + n % G) * HD + col) =
+        pk;
+  });
+}
+
+// ---------------------------------------------------------------------------
+// The int8 trunk leg on IMMA (bf16 inputs).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One row of hd bf16 (lane l holds elements 4 l .. 4 l + 3 where 4 l < hd)
+// quantized by models/quant.py's dynamic rule (attn_tile::load_tile_int8's
+// device arithmetic): scale = max(amax, 1e-8) / 127 by IEEE division,
+// payload = clip(rint(x / scale), +-127). Returns the packed payload word
+// (0 for lanes past hd) and the scale (the same in every lane).
+__device__ __forceinline__ uint32_t quant_row(const bf16* row, int hd, bool ok, float& scale) {
+  const int lane = threadIdx.x & 31;
+  float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (ok && 4 * lane < hd) x = tile::load4(row + 4 * lane);
+  float amax = fmaxf(fmaxf(fabsf(x.x), fabsf(x.y)), fmaxf(fabsf(x.z), fabsf(x.w)));
+  amax = tile::warp_max(amax);
+  scale = __fdiv_rn(fmaxf(amax, 1e-8f), 127.f);
+  if (4 * lane >= hd) return 0u;
+  return uint32_t(tile::quant8(x.x, scale) | (tile::quant8(x.y, scale) << 8) |
+                  (tile::quant8(x.z, scale) << 16) | (tile::quant8(x.w, scale) << 24));
+}
+
+// The trunk keys' quantization: one warp a row of (rows, hd) bf16 into the
+// (rows, hd) s8 payload and (rows,) float32 scales.
+__global__ void __launch_bounds__(128) quant_rows_kernel(const bf16* __restrict__ x,
+                                                         int8_t* __restrict__ q,
+                                                         float* __restrict__ scales, int rows,
+                                                         int hd) {
+  const int row = blockIdx.x * 4 + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  float s;
+  const uint32_t w = quant_row(x + size_t(row) * hd, hd, true, s);
+  const int lane = threadIdx.x & 31;
+  if (4 * lane < hd) reinterpret_cast<uint32_t*>(q + size_t(row) * hd)[lane] = w;
+  if (lane == 0) scales[row] = s;
+}
+
+template <int HD>
+struct Imma {
+  static constexpr int kKS = (HD + 31) / 32;    // 32-deep k-steps of Q K^T
+  static constexpr int kRow = kKS * 32 + 16;    // s8 row stride (bytes): odd 16-byte chunks
+  static constexpr int kK8 = am::kKeys * kRow;  // bytes of one s8 key tile
+  static constexpr int kV = am::kKeys * am::Dims<HD>::kLd * 2;  // bytes of a bf16 V tile
+  static constexpr int kStage = kK8 + kV;
+  static constexpr int kStages = am::kStages;
+  static constexpr size_t kBytes =
+      size_t(kStages) * kStage + size_t(16 * am::kWarps) * kRow + 16 * am::kWarps * 4;
+};
+
+// The int8 trunk leg on tensor cores: S = Q K^T on IMMA from the block's
+// query payloads and the trunk payload, then attn_mma's online softmax and
+// split-P PV over bf16 V. Grid (ceil(N / rows), K), rows = 16 * warps.
+template <int HD>
+__global__ void __launch_bounds__(am::kWarps * 32) prefix_imma_kernel(Args a) {
+  using I = Imma<HD>;
+  extern __shared__ __align__(16) unsigned char prefix_imma_smem[];
+  unsigned char* ring = prefix_imma_smem;
+  unsigned char* q8 = ring + I::kStages * I::kStage;
+  float* qsc = reinterpret_cast<float*>(q8 + 16 * am::kWarps * I::kRow);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int kh = blockIdx.y;
@@ -799,83 +834,255 @@ __global__ void __launch_bounds__(am::kWarps * 32) prefix_mma_kernel(PrefixArgs 
   const int RG = a.R * G;
   const int N = a.B * RG;
   const int n0 = blockIdx.x * (blockDim.x >> 5) * 16;
-  am::load_rows<HD>(am::q_stage<HD>(ring), (blockDim.x >> 5) * 16,
-                    FlatQ{static_cast<const bf16*>(a.q), n0, N, kh, G, a.H, HD});
-  const PrefixKV key{static_cast<const bf16*>(a.tk), static_cast<const bf16*>(a.tv), kh, a.Tt,
-                     HD};
-  PrefixFix fix{a.sm_scale, a.slopes != nullptr, a.Tt, 2 * (lane & 3), {0.f, 0.f}};
-  const int nr = n0 + warp * 16 + (lane >> 2);
+  const int n_tiles = (a.Tt + am::kKeys - 1) / am::kKeys;
+  const LaneRows lr = lane_rows(a, n0);
+  const bool active = n0 + warp * 16 < N;
+  const int8_t* tk8 = static_cast<const int8_t*>(a.tk);
+  const bf16* tv = static_cast<const bf16*>(a.tv);
+  const float* tks = a.tks + size_t(kh) * a.Tt;
+
+  // Copies of key tile t into its stage: s8 rows (depth past hd
+  // zero-filled) and bf16 V rows; keys past Tt zero-filled.
+  auto load = [&](int t) {
+    unsigned char* k8 = ring + (t % I::kStages) * I::kStage;
+    bf16* vs = reinterpret_cast<bf16*>(k8 + I::kK8);
+    const int k0 = t * am::kKeys;
+    for (int i = threadIdx.x; i < am::kKeys * I::kKS * 2; i += blockDim.x) {
+      const int r = i / (I::kKS * 2);
+      const int c = i - r * I::kKS * 2;
+      const bool ok = k0 + r < a.Tt && c * 16 < HD;
+      am::cp_async16(k8 + r * I::kRow + c * 16,
+                     ok ? tk8 + (size_t(kh) * a.Tt + k0 + r) * HD + c * 16 : tk8, ok);
+    }
+    for (int i = threadIdx.x; i < am::kKeys * (HD / 8); i += blockDim.x) {
+      const int r = i / (HD / 8);
+      const int c = i - r * (HD / 8);
+      const bool ok = k0 + r < a.Tt;
+      am::cp_async16(vs + r * am::Dims<HD>::kLd + c * 8,
+                     ok ? tv + (size_t(kh) * a.Tt + k0 + r) * HD + c * 8 : tv, ok);
+    }
+  };
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int n = nr + 8 * h;
-    if (fix.alibi && n < N) fix.slope[h] = a.slopes[kh * G + n % G];
+  for (int t = 0; t < I::kStages - 1; ++t) {
+    if (t < n_tiles) load(t);
+    am::cp_async_commit();
   }
+
+  // The warp's 16 query rows, quantized while the first tiles land.
+  const bf16* q = static_cast<const bf16*>(a.q);
+  for (int rr = 0; rr < 16; ++rr) {
+    const int r = warp * 16 + rr;
+    const int n = n0 + r;
+    const bool ok = n < N;
+    const bf16* row = q + (size_t((ok ? n : n0) / G) * a.H + size_t(kh) * G + (ok ? n : n0) % G) *
+                              HD;
+    float s;
+    const uint32_t w = quant_row(row, HD, ok, s);
+    if (4 * lane < I::kKS * 32) reinterpret_cast<uint32_t*>(q8 + r * I::kRow)[lane] = w;
+    if (lane == 0) qsc[r] = __fmul_rn(s, a.sm_scale);
+  }
+  __syncwarp();
+  uint32_t qf[I::kKS][4];
+  {
+    const unsigned char* qa = q8 + (warp * 16 + (lane & 15)) * I::kRow + (lane >> 4) * 16;
+#pragma unroll
+    for (int kk = 0; kk < I::kKS; ++kk)
+      am::ldmatrix_x4(qf[kk], reinterpret_cast<const bf16*>(qa + kk * 32));
+  }
+  const float q_scale[2] = {qsc[warp * 16 + (lane >> 2)], qsc[warp * 16 + (lane >> 2) + 8]};
+  const int c0 = 2 * (lane & 3);
 
   am::Acc<HD> acc;
   am::acc_init<HD>(acc);
-  const bool active = n0 + warp * 16 < N;
-  am::key_loop<HD>(ring, (a.Tt + am::kKeys - 1) / am::kKeys, active, key, fix, acc);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int ahead = t + I::kStages - 1;
+    if (ahead < n_tiles) load(ahead);
+    am::cp_async_commit();
+    am::cp_async_wait<I::kStages - 1>();  // tile t has landed
+    __syncthreads();
+    if (active) {
+      const unsigned char* k8 = ring + (t % I::kStages) * I::kStage;
+      int s32[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s32[j][e] = 0;
+      // B from key rows (lane & 7) + 8 (lane / 16), depth half (lane / 8) & 1.
+      const unsigned char* ka =
+          k8 + ((lane & 7) + ((lane >> 4) << 3)) * I::kRow + ((lane >> 3) & 1) * 16;
+#pragma unroll
+      for (int kk = 0; kk < I::kKS; ++kk) {
+        uint32_t b[4][4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          am::ldmatrix_x4(b[jj], reinterpret_cast<const bf16*>(ka + jj * 16 * I::kRow + kk * 32));
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          mma_s8(s32[2 * jj], qf[kk], b[jj][0], b[jj][1]);
+          mma_s8(s32[2 * jj + 1], qf[kk], b[jj][2], b[jj][3]);
+        }
+      }
+      // Scores in the plain twin's order: (f32(s32) * q_scale) * k_scale,
+      // then + slope * t; -inf past Tt.
+      float s[8][4];
+      const int k0 = t * am::kKeys;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * j + c0 + (e & 1);
+          const bool in = key < a.Tt;
+          float x = __fmul_rn(__fmul_rn(float(s32[j][e]), q_scale[e >> 1]),
+                              in ? __ldg(tks + key) : 0.f);
+          if (a.slopes != nullptr) x = __fadd_rn(x, __fmul_rn(lr.slope[e >> 1], float(key)));
+          s[j][e] = in ? x : -CUDART_INF_F;
+        }
+      am::softmax_pv<HD, true>(s, reinterpret_cast<const bf16*>(k8 + I::kK8), acc);
+    }
+    __syncthreads();  // the next copies reuse this stage
+  }
   if (!active) return;
-  const PrefixStore store{a.o, N, RG, a.K, kh, HD, nr};
+  const PrefixStore store{a.o, N, RG, a.K, kh, HD, lr.nr};
   am::store_rows<HD>(acc, store);
   if ((lane & 3) == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int n = nr + 8 * h;
+      const int n = lr.nr + 8 * h;
       if (n >= N) continue;
-      a.m[store.row(n)] = acc.m[h];
-      a.l[store.row(n)] = acc.l[h];
+      a.m[part_row(n, RG, a.K, kh)] = acc.m[h];
+      a.l[part_row(n, RG, a.K, kh)] = acc.l[h];
     }
   }
 }
 
+// ---------------------------------------------------------------------------
+// Dispatch by head dim.
+// ---------------------------------------------------------------------------
+
+enum class Op { kFused, kSuffixMerge, kPrefix, kPrefixInt8 };
+
 template <int HD>
-cudaError_t launch_prefix_mma(const PrefixArgs& a, cudaStream_t st) {
-  return launch_flat<HD>(prefix_mma_kernel<HD>, a, (long long)a.B * a.R * (a.H / a.K), a.K,
-                         st);
+cudaError_t launch_hd(Op op, int dtype, const Args& a, cudaStream_t st) {
+  if (dtype == 0) {
+    switch (op) {
+      case Op::kFused:
+        return launch_tile<HD, false>(cascade_tile_kernel<float, HD, true>, a, st);
+      case Op::kSuffixMerge:
+        return launch_tile<HD, false>(cascade_tile_kernel<float, HD, false>, a, st);
+      case Op::kPrefix:
+        return launch_tile<HD, false>(prefix_kernel<float, HD, false>, a, st);
+      case Op::kPrefixInt8:
+        return launch_tile<HD, true>(prefix_kernel<float, HD, true>, a, st);
+    }
+  }
+  switch (op) {
+    case Op::kFused:
+      return launch_flat(cascade_mma_kernel<HD, true>, a, cascade_mma_smem<HD, true>(), st);
+    case Op::kSuffixMerge:
+      return launch_flat(cascade_mma_kernel<HD, false>, a, cascade_mma_smem<HD, false>(), st);
+    case Op::kPrefix:
+      return launch_flat(prefix_mma_kernel<HD>, a, am::Dims<HD>::kBytes, st);
+    case Op::kPrefixInt8:
+      return launch_flat(prefix_imma_kernel<HD>, a, Imma<HD>::kBytes, st);
+  }
+  return cudaErrorInvalidValue;
 }
 
-cudaError_t prefix_mma_by_hd(const PrefixArgs& a, int hd, cudaStream_t st) {
+cudaError_t launch_op(Op op, int dtype, int hd, const Args& a, cudaStream_t st) {
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
   switch (hd) {
-    case 32: return launch_prefix_mma<32>(a, st);
-    case 64: return launch_prefix_mma<64>(a, st);
-    case 80: return launch_prefix_mma<80>(a, st);
-    case 96: return launch_prefix_mma<96>(a, st);
-    case 128: return launch_prefix_mma<128>(a, st);
+    case 32: return launch_hd<32>(op, dtype, a, st);
+    case 64: return launch_hd<64>(op, dtype, a, st);
+    case 80: return launch_hd<80>(op, dtype, a, st);
+    case 96: return launch_hd<96>(op, dtype, a, st);
+    case 128: return launch_hd<128>(op, dtype, a, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
-}  // namespace
-
-// Trunk-leg partials of the two-leg cascade. dtype: 0 = float32,
-// 1 = bfloat16; int8_qk: 0 = float32 QK^T (bf16: on tensor cores), 1 =
-// int8 QK^T. hd one of 32, 64, 80, 96, 128. Returns cudaGetLastError() (or
-// the error of a refused attribute or head dim), 0 on success.
-extern "C" int lir_cascade_prefix(const void* q, const void* tk, const void* tv,
-                                  const void* slopes, void* o, void* m, void* l,
-                                  int B, int R, int H, int K, int Tt, int hd,
-                                  int dtype, int int8_qk, void* stream) {
-  PrefixArgs a;
+Args make_args(const void* q, int B, int R, int H, int K, int Tt, int hd) {
+  Args a{};
   a.q = q;
-  a.tk = tk;
-  a.tv = tv;
-  a.slopes = static_cast<const float*>(slopes);
-  a.o = static_cast<float*>(o);
-  a.m = static_cast<float*>(m);
-  a.l = static_cast<float*>(l);
   a.B = B;
   a.R = R;
   a.H = H;
   a.K = K;
   a.Tt = Tt;
+  // 1/sqrt(hd) rounded once from double, as the JAX package computes it.
   a.sm_scale = float(1.0 / sqrt(double(hd)));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return int(int8_qk ? prefix_by_hd<float, true>(a, hd, st)
-                       : prefix_by_hd<float, false>(a, hd, st));
-  if (dtype == 1)
-    return int(int8_qk ? prefix_by_hd<__nv_bfloat16, true>(a, hd, st)
-                       : prefix_mma_by_hd(a, hd, st));
-  return int(cudaErrorInvalidValue);
+  return a;
+}
+
+}  // namespace
+
+// Every entry point: dtype 0 = float32 (CUDA cores), 1 = bfloat16 (tensor
+// cores); hd one of 32, 64, 80, 96, 128. Returns cudaGetLastError() (or the
+// error of a refused attribute, dtype or head dim), 0 on success.
+
+// The fused cascade: softmax over trunk + window keys, out (B, R, H, hd).
+extern "C" int lir_cascade_attention(const void* q, const void* sk, const void* sv,
+                                     const void* tk, const void* tv, const void* smask,
+                                     const void* qpos, const void* slopes, void* out, int B,
+                                     int R, int H, int K, int Tt, int hd, int dtype,
+                                     void* stream) {
+  Args a = make_args(q, B, R, H, K, Tt, hd);
+  a.sk = sk;
+  a.sv = sv;
+  a.tk = tk;
+  a.tv = tv;
+  a.smask = static_cast<const int*>(smask);
+  a.qpos = static_cast<const int*>(qpos);
+  a.slopes = static_cast<const float*>(slopes);
+  a.out = out;
+  return int(launch_op(Op::kFused, dtype, hd, a, static_cast<cudaStream_t>(stream)));
+}
+
+// The two-leg route's suffix leg and merge over given trunk partials.
+extern "C" int lir_cascade_suffix_merge(const void* q, const void* sk, const void* sv,
+                                        const void* o_t, const void* m_t, const void* l_t,
+                                        const void* smask, const void* qpos, const void* slopes,
+                                        void* out, int B, int R, int H, int K, int hd, int dtype,
+                                        void* stream) {
+  Args a = make_args(q, B, R, H, K, 0, hd);
+  a.sk = sk;
+  a.sv = sv;
+  a.o = static_cast<float*>(const_cast<void*>(o_t));
+  a.m = static_cast<float*>(const_cast<void*>(m_t));
+  a.l = static_cast<float*>(const_cast<void*>(l_t));
+  a.smask = static_cast<const int*>(smask);
+  a.qpos = static_cast<const int*>(qpos);
+  a.slopes = static_cast<const float*>(slopes);
+  a.out = out;
+  return int(launch_op(Op::kSuffixMerge, dtype, hd, a, static_cast<cudaStream_t>(stream)));
+}
+
+// Trunk-leg partials of the two-leg cascade. int8_qk 0: float QK^T of the
+// trunk keys tk; 1: int8 QK^T, where a float32 call quantizes tk in the
+// kernel and a bf16 call reads tk as the s8 payload and tks as its scales
+// (lir_quantize_rows).
+extern "C" int lir_cascade_prefix(const void* q, const void* tk, const void* tks,
+                                  const void* tv, const void* slopes, void* o, void* m, void* l,
+                                  int B, int R, int H, int K, int Tt, int hd, int dtype,
+                                  int int8_qk, void* stream) {
+  Args a = make_args(q, B, R, H, K, Tt, hd);
+  a.tk = tk;
+  a.tks = static_cast<const float*>(tks);
+  a.tv = tv;
+  a.slopes = static_cast<const float*>(slopes);
+  a.o = static_cast<float*>(o);
+  a.m = static_cast<float*>(m);
+  a.l = static_cast<float*>(l);
+  return int(launch_op(int8_qk ? Op::kPrefixInt8 : Op::kPrefix, dtype, hd, a,
+                       static_cast<cudaStream_t>(stream)));
+}
+
+// (rows, hd) bf16 -> s8 payload (rows, hd) and float32 scales (rows,) by
+// the dynamic rule; hd a multiple of 4 up to 128.
+extern "C" int lir_quantize_rows(const void* x, void* q, void* scales, int rows, int hd,
+                                 void* stream) {
+  if (rows <= 0 || hd <= 0 || hd > 128 || hd % 4) return int(cudaErrorInvalidValue);
+  quant_rows_kernel<<<(rows + 3) / 4, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<int8_t*>(q), static_cast<float*>(scales), rows,
+      hd);
+  return int(cudaGetLastError());
 }

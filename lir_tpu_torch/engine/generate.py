@@ -13,7 +13,11 @@ The speculative variant (:func:`greedy_decode_fused_shared_spec`)
 replaces each branch's sequential loop by a loop over verify WINDOWS of
 ``spec_k`` teacher-forced positions (:func:`_spec_tail`); its
 ``lax.cond`` skip of the spent windows is a host check once per window
-that ends the loop.
+that ends the loop. One departure from the JAX package: each row's
+window starts at the row's next free cache slot instead of a fixed
+``spec_k`` slots a window, so the cache holds each row's keys where the
+sequential loop holds them and the two routes agree bitwise on the card
+(:func:`_spec_tail`).
 """
 
 from __future__ import annotations
@@ -325,20 +329,33 @@ def _spec_tail(params, cfg: ModelConfig, logits0: torch.Tensor, cache,
     teacher-forced positions each — [pending emission, draft, draft, ...]
     — through ONE multi-query forward (decoder.verify_extend), then
     greedily accept the draft prefix the verifier's own argmax confirms.
-    A window emits between 1 and spec_k tokens and consumes exactly
-    spec_k cache slots (rejected tails stay mask-0 garbage), so the cache
-    is sized slot0 + T * spec_k.
+    A window emits between 1 and spec_k tokens.
+
+    Slots are COMPACTED per row, where the JAX package gives window c the
+    fixed slots slot0 + c * spec_k: row b's window starts at its next free
+    slot, slot0 + filled_b, so its accepted tokens land exactly where the
+    sequential loop puts them, the slots past its new fill go back to
+    mask 0, and the next window overwrites the rejected tail. The JAX
+    package keeps spec_k slots a window because XLA needs static shapes
+    (and accepts regrouped keys); the port runs eagerly. With the same
+    valid keys at the same slots, the decode kernels' fixed 64-slot
+    splits group them as the sequential step does, and a trailing split
+    that holds no valid key adds exact zeros in the split-order merge, so
+    the cache's larger extent (``spec_total_len``, which still bounds
+    every window) moves no bit.
 
     Every consumed result is the sequential loop's: an accepted draft is
     accepted BECAUSE it equals the verifier's argmax at its position, so
     the emitted tokens and the top-2 stream match, and the position-0
     readouts are computed from the same logits by the same operations.
-    Interior per-step probabilities come from the verify forward and
-    match decode_step's within float tolerance (the window cache groups
-    the keys into other splits). Done rows advance on forced-EOS drafts,
-    reproducing the sequential loop's EOS-fed evolution, and once every
-    row is done the positions past the global stop step are rewritten
-    with the stop step's values — the sequential loop's all-done freeze.
+    On the kernel route the interior per-step readouts are bitwise too:
+    with compacted slots and the decoder's row-invariant norms and
+    projections, window position j gives decode_step's logits (on the
+    dense route they match within float tolerance). Done rows advance on
+    forced-EOS drafts, reproducing the sequential loop's EOS-fed
+    evolution, and once every row is done the positions past the global
+    stop step are rewritten with the stop step's values — the sequential
+    loop's all-done freeze.
 
     Drafts come from ``draft_tokens`` (B, T), valid below ``draft_len``
     (zero length from the engine: the port has no radix tree), else from
@@ -389,6 +406,7 @@ def _spec_tail(params, cfg: ModelConfig, logits0: torch.Tensor, cache,
 
     n_pos = W - ngram + 1
     pidx = torch.arange(n_pos, device=dev)
+    offs = torch.arange(spec_k, device=dev)
     for c in range(T):
         # The window runs while some live row still has positions to
         # fill (up to the global stop step once every row is done).
@@ -396,7 +414,8 @@ def _spec_tail(params, cfg: ModelConfig, logits0: torch.Tensor, cache,
                              torch.clamp_max(done_step.max() + 1, T), T)
         if not bool(filled.min() < needed):
             break
-        base = slot0 + c * spec_k
+        base = slot0 + filled                              # (B,) start slots
+        wslots = base.long()[:, None] + offs[None, :]      # (B, spec_k)
         live0 = filled < T
         done0 = done
 
@@ -445,7 +464,7 @@ def _spec_tail(params, cfg: ModelConfig, logits0: torch.Tensor, cache,
         # -- ONE fused verify over [e0, drafts...]
         X = torch.stack([e0] + drafts, dim=1)              # (B, spec_k)
         cm_run = cache_mask.clone()
-        cm_run[:, base:base + spec_k] = 1
+        cm_run.scatter_(1, wslots, 1)
         V, cache = decoder.verify_extend(params, cfg, cache, X, cm_run, base,
                                          trunk_len=decode_trunk)
 
@@ -489,9 +508,8 @@ def _spec_tail(params, cfg: ModelConfig, logits0: torch.Tensor, cache,
         # validity shrinks to the emitted prefix.
         last = torch.clamp(n_new - 1, 0, spec_k - 1).long()
         logits = torch.where(live0[:, None], V[rows, last], logits)
-        cm_run[:, base:base + spec_k] = (
-            torch.arange(spec_k, device=dev)[None, :] < n_new[:, None]
-        ).to(cm_run.dtype)
+        cm_run.scatter_(1, wslots, (offs[None, :] < n_new[:, None])
+                        .to(cm_run.dtype))
         cache_mask = cm_run
         done, digit_run, prev_ew = d_state, r_state, e_state
         filled = filled + n_new
@@ -581,9 +599,11 @@ def _shared_spec_branches(params, cfg: ModelConfig, cache, prefix_mask,
 
 def spec_total_len(bucket: int, sfx_a: int, sfx_b: int, max_new_a: int,
                    max_new_b: int, spec_k: int) -> int:
-    """Cache length a speculative shared dispatch allocates: each of the
-    T decode windows owns spec_k slots (rejected tails stay masked), so
-    the decode region is budget * spec_k instead of budget."""
+    """Cache length a speculative shared dispatch allocates: the JAX
+    package's, where each of the T decode windows owns spec_k slots, so
+    the decode region is budget * spec_k instead of budget. The port's
+    compacted windows need at most budget + spec_k - 1 of them; the extent
+    stays the reference's, and its trailing splits are all masked."""
     return bucket + max(sfx_a + max_new_a * spec_k,
                         sfx_b + max_new_b * spec_k)
 

@@ -26,6 +26,11 @@ selected by ``registry.ModelConfig`` knobs.
   versions, so the routing is the same on both.
 - The linear layers take dense or int8 weights (``models/quant.py``
   QuantTensor leaves: weight-only, or dynamic s8 x s8 -> s32).
+- The decode step and the speculative verify window run their bf16
+  projections and norms through ``ops.row_gemm`` / ``ops.row_norm``,
+  whose rows do not depend on the row count, and the window's head once
+  per position at the step's shape: a window of B * S rows then gives
+  each row the step's bits (on the CPU the same ops are the plain ones).
 """
 
 from __future__ import annotations
@@ -130,16 +135,32 @@ def _layer(tree, i: int):
 # ---------------------------------------------------------------------------
 
 def _norm(x: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
-    xf = x.float()
-    if cfg.norm == "rmsnorm":
-        xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True)
-                              + cfg.norm_eps)
-        return (xf * p["scale"].float()).to(x.dtype)
-    mu = torch.mean(xf, dim=-1, keepdim=True)
-    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
-    xf = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
-    out = xf * p["scale"].float() + p["bias"].float()
-    return out.to(x.dtype)
+    return ops.row_norm_plain(x, p["scale"],
+                              None if cfg.norm == "rmsnorm" else p["bias"],
+                              cfg.norm_eps)
+
+
+def _row_norm(x: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
+    """:func:`_norm` of the decode step and the verify window: on bf16
+    activations through ``ops.row_norm``, whose rows do not depend on how
+    many rows the call holds (on a CPU tensor it is :func:`_norm`)."""
+    if x.dtype != torch.bfloat16:
+        return _norm(x, p, cfg)
+    return ops.row_norm(x, p["scale"],
+                        None if cfg.norm == "rmsnorm" else p["bias"],
+                        cfg.norm_eps)
+
+
+def _row_mm(x, w) -> torch.Tensor:
+    """The step's and the window's projections: a dense bf16 weight goes
+    through ``ops.row_gemm`` (each row's bits independent of the row
+    count; on a CPU tensor ``x @ w``), any other through
+    ``quant.matmul``, whose int8 products are exact integers and whose
+    scale folds are element-wise."""
+    if (isinstance(x, torch.Tensor) and isinstance(w, torch.Tensor)
+            and x.dtype == w.dtype == torch.bfloat16):
+        return ops.row_gemm(x, w)
+    return _mm(x, w)
 
 
 def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -328,23 +349,29 @@ def _attention_cached(q, k, v, bias, cfg: ModelConfig) -> torch.Tensor:
 
 def _block(x, lp: Params, cfg: ModelConfig, sin, cos, bias, cache_kv,
            cache_index, key_mask=None, attn_impl=None, fused_ctx=None,
-           trunk_len: int = 0):
+           trunk_len: int = 0, row_ops: bool = False):
     """One transformer block. Returns (new_x, (k, v)).
 
     With ``cache_kv`` (one layer's (K, T, B, hd) views of the cache) the
-    step's k/v are written into the cache at ``cache_index`` in place and
-    the queries attend over the cache; the returned pair is the cache
-    views. Otherwise the block attends over its own k/v (dense, or
-    ``attn_impl(q, k, v, key_mask)``) and returns them (B, S, K, hd).
+    step's k/v are written into the cache in place, at slots
+    ``cache_index`` .. + S, or with a (B, S) tensor ``cache_index`` at
+    each row's own slots, and the queries attend over the cache; the
+    returned pair is the cache views. Otherwise the block attends over
+    its own k/v (dense, or ``attn_impl(q, k, v, key_mask)``) and returns
+    them (B, S, K, hd). ``row_ops`` (the decode step and the verify
+    window) takes the norms and projections whose rows do not depend on
+    the row count (:func:`_row_norm`, :func:`_row_mm`).
     """
     B, S, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    norm = _row_norm if row_ops else _norm
+    mm = _row_mm if row_ops else _mm
 
-    h_attn_in = _norm(x, lp["ln1"], cfg)
+    h_attn_in = norm(x, lp["ln1"], cfg)
     h_qkv = _shared_quant(h_attn_in, lp["wq"], lp["wk"], lp["wv"])
-    q = _mm(h_qkv, lp["wq"])
-    k = _mm(h_qkv, lp["wk"])
-    v = _mm(h_qkv, lp["wv"])
+    q = mm(h_qkv, lp["wq"])
+    k = mm(h_qkv, lp["wk"])
+    v = mm(h_qkv, lp["wv"])
     if cfg.qkv_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
     q = q.reshape(B, S, H, hd)
@@ -357,8 +384,15 @@ def _block(x, lp: Params, cfg: ModelConfig, sin, cos, bias, cache_kv,
 
     if cache_kv is not None:
         ck, cv = cache_kv
-        ck[:, cache_index:cache_index + S] = k.permute(2, 1, 0, 3).to(ck.dtype)
-        cv[:, cache_index:cache_index + S] = v.permute(2, 1, 0, 3).to(cv.dtype)
+        if isinstance(cache_index, torch.Tensor):
+            rows = torch.arange(B, device=x.device)[:, None]
+            ck[:, cache_index, rows] = k.permute(2, 0, 1, 3).to(ck.dtype)
+            cv[:, cache_index, rows] = v.permute(2, 0, 1, 3).to(cv.dtype)
+        else:
+            ck[:, cache_index:cache_index + S] = (
+                k.permute(2, 1, 0, 3).to(ck.dtype))
+            cv[:, cache_index:cache_index + S] = (
+                v.permute(2, 1, 0, 3).to(cv.dtype))
         if _fused_decode_ok(cfg, S, fused_ctx):
             attn = _attention_cached_flash(q, ck, cv, cfg, fused_ctx,
                                            trunk_len=trunk_len)
@@ -373,27 +407,27 @@ def _block(x, lp: Params, cfg: ModelConfig, sin, cos, bias, cache_kv,
     else:
         ck, cv = k, v
         attn = _attention(q, k, v, bias, cfg, key_mask=key_mask)
-    attn = _mm(attn, lp["wo"])
+    attn = mm(attn, lp["wo"])
     if cfg.attn_out_bias:
         attn = attn + lp["bo"]
 
     if cfg.parallel_block:
-        mlp_in = h_attn_in if cfg.shared_block_ln else _norm(x, lp["ln2"], cfg)
+        mlp_in = h_attn_in if cfg.shared_block_ln else norm(x, lp["ln2"], cfg)
     else:
         x = x + attn
-        mlp_in = _norm(x, lp["ln2"], cfg)
+        mlp_in = norm(x, lp["ln2"], cfg)
 
     mlp_q = (_shared_quant(mlp_in, lp["w_up"], lp["w_gate"])
              if cfg.gated_mlp else mlp_in)
-    up = _mm(mlp_q, lp["w_up"])
+    up = mm(mlp_q, lp["w_up"])
     if cfg.mlp_bias:
         up = up + lp["b_up"]
     if cfg.gated_mlp:
-        gate = _mm(mlp_q, lp["w_gate"])
+        gate = mm(mlp_q, lp["w_gate"])
         hidden = _act(gate, cfg.activation) * up
     else:
         hidden = _act(up, cfg.activation)
-    mlp = _mm(hidden, lp["w_down"])
+    mlp = mm(hidden, lp["w_down"])
     if cfg.mlp_bias:
         mlp = mlp + lp["b_down"]
 
@@ -402,7 +436,7 @@ def _block(x, lp: Params, cfg: ModelConfig, sin, cos, bias, cache_kv,
 
 
 def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-           positions: torch.Tensor) -> torch.Tensor:
+           positions: torch.Tensor, row_ops: bool = False) -> torch.Tensor:
     x = params["tok_embed"][tokens.long()]
     if cfg.pos_embedding == "learned":
         # Clip out-of-table positions to the last row (JAX mode="clip").
@@ -411,22 +445,35 @@ def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                           0, table.shape[0] - 1)
         x = x + table[idx]
     if cfg.embedding_norm:
-        x = _norm(x, params["embed_ln"],
-                  dataclasses.replace(cfg, norm="layernorm"))
+        norm = _row_norm if row_ops else _norm
+        x = norm(x, params["embed_ln"],
+                 dataclasses.replace(cfg, norm="layernorm"))
     return x
 
 
-def _unembed(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    if cfg.final_norm:
-        x = _norm(x, params["final_ln"], cfg)
+def _head_weight(params: Params, cfg: ModelConfig):
+    """The head as the logit product takes it: float32 dense, or the
+    weight-only int8 QuantTensor."""
     head = params["tok_embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return head if isinstance(head, QuantTensor) else head.float()
+
+
+def _head(cfg: ModelConfig, x: torch.Tensor, head) -> torch.Tensor:
+    """Float32 logits of the (final-normed) x against ``_head_weight``."""
     if isinstance(head, QuantTensor):
         logits = _mm(x.float(), head)               # weight-only int8 head
     else:
-        logits = torch.einsum("bsd,dv->bsv", x.float(), head.float())
+        logits = torch.einsum("bsd,dv->bsv", x.float(), head)
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return logits
+
+
+def _unembed(params: Params, cfg: ModelConfig, x: torch.Tensor,
+             row_ops: bool = False) -> torch.Tensor:
+    if cfg.final_norm:
+        x = (_row_norm if row_ops else _norm)(x, params["final_ln"], cfg)
+    return _head(cfg, x, _head_weight(params, cfg))
 
 
 def _causal_bias(attn_mask, positions, cfg: ModelConfig, key_positions=None,
@@ -459,13 +506,15 @@ def mask_positions(attn_mask: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _run_blocks(params: Params, cfg: ModelConfig, x, sin, cos, bias, cache,
-                cache_index: int, fused_ctx=None, trunk_len: int = 0):
+                cache_index, fused_ctx=None, trunk_len: int = 0,
+                row_ops: bool = False):
     """The layer loop over the stacked params and cache (in place)."""
     ck_all, cv_all = cache
     for i in range(cfg.n_layers):
         x, _ = _block(x, _layer(params["layers"], i), cfg, sin, cos, bias,
                       (ck_all[i], cv_all[i]), cache_index,
-                      fused_ctx=fused_ctx, trunk_len=trunk_len)
+                      fused_ctx=fused_ctx, trunk_len=trunk_len,
+                      row_ops=row_ops)
     return x
 
 
@@ -592,7 +641,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache, token: torch.Tensor,
     when ``cfg.cascade_decode``). Returns (logits (B, V) float32, cache).
     """
     B = token.shape[0]
-    x = _embed(params, cfg, token[:, None], position[:, None])
+    x = _embed(params, cfg, token[:, None], position[:, None], row_ops=True)
     sin = cos = None
     if cfg.pos_embedding == "rotary":
         sin, cos = _rope_sincos(position[:, None], cfg.rotary_dim,
@@ -605,32 +654,46 @@ def decode_step(params: Params, cfg: ModelConfig, cache, token: torch.Tensor,
                             key_positions=key_positions, key_mask=prompt_mask)
     x = _run_blocks(params, cfg, x, sin, cos, bias, cache, step_index,
                     fused_ctx=(position, prompt_mask, key_positions),
-                    trunk_len=int(trunk_len) if cfg.cascade_decode else 0)
-    logits = _unembed(params, cfg, x)[:, 0, :]
+                    trunk_len=int(trunk_len) if cfg.cascade_decode else 0,
+                    row_ops=True)
+    logits = _unembed(params, cfg, x, row_ops=True)[:, 0, :]
     return logits, cache
 
 
 def verify_extend(params: Params, cfg: ModelConfig, cache,
                   chunk_tokens: torch.Tensor, cache_mask: torch.Tensor,
-                  start_index: int, trunk_len: int = 0):
+                  start_index, trunk_len: int = 0):
     """Teacher-forced VERIFY window (speculative decode): run the S-token
     draft window [current emission, drafts...] through the layers in one
-    forward, writing its k/v at cache slots [start_index, start_index+S)
-    in place and returning the logits at EVERY window position — the
-    multi-query sibling of :func:`decode_step`.
+    forward, writing its k/v in place at cache slots [start, start + S)
+    and returning the logits at EVERY window position — the multi-query
+    sibling of :func:`decode_step`. ``start_index`` is one slot for every
+    row, or a (B,) tensor of each row's own start (the speculative loop
+    starts each row's window at its next free slot).
 
     ``cache_mask`` is the FULL cache validity with the window's S slots
-    already set (rejected slots of earlier windows stay 0). Positions
-    derive from the mask's cumsum, so each query sits at its row's next
-    logical position, and causality compares positions, so a query never
-    sees a later draft. With ``cfg.fused_decode`` the window goes through
-    the multi-query kernels (``trunk_len`` > 0 and ``cfg.cascade_decode``:
-    the trunk-aware one); otherwise through the dense route, with the
-    causal bias built here. Returns (logits (B, S, V) float32, cache)."""
+    already set. Positions derive from the mask's cumsum, so each query
+    sits at its row's next logical position, and causality compares
+    positions, so a query never sees a later draft. With
+    ``cfg.fused_decode`` the window goes through the multi-query kernels
+    (``trunk_len`` > 0 and ``cfg.cascade_decode``: the trunk-aware one);
+    otherwise through the dense route, with the causal bias built here.
+
+    The norms and projections are the decode step's row-invariant ones
+    (``row_ops``), and the head runs once per window position at the
+    step's shape, so on the kernel route window position j gives the bits
+    :func:`decode_step` gives for the same row, token, slot and cache.
+    Returns (logits (B, S, V) float32, cache)."""
     B, S2 = chunk_tokens.shape
     key_positions = mask_positions(cache_mask)
-    qpos = key_positions[:, start_index:start_index + S2]
-    x = _embed(params, cfg, chunk_tokens, qpos)
+    if isinstance(start_index, torch.Tensor):
+        slots = (start_index.to(torch.long)[:, None]
+                 + torch.arange(S2, device=cache_mask.device)[None, :])
+        qpos = key_positions.gather(1, slots)
+    else:
+        slots = start_index
+        qpos = key_positions[:, start_index:start_index + S2]
+    x = _embed(params, cfg, chunk_tokens, qpos, row_ops=True)
     sin = cos = None
     if cfg.pos_embedding == "rotary":
         sin, cos = _rope_sincos(qpos, cfg.rotary_dim, cfg.rope_theta)
@@ -639,7 +702,13 @@ def verify_extend(params: Params, cfg: ModelConfig, cache,
         ones = torch.ones((B, S2), dtype=torch.int32, device=x.device)
         bias = _causal_bias(ones, qpos, cfg, key_positions=key_positions,
                             key_mask=cache_mask)
-    x = _run_blocks(params, cfg, x, sin, cos, bias, cache, start_index,
+    x = _run_blocks(params, cfg, x, sin, cos, bias, cache, slots,
                     fused_ctx=(qpos, cache_mask, key_positions),
-                    trunk_len=int(trunk_len) if cfg.cascade_decode else 0)
-    return _unembed(params, cfg, x), cache
+                    trunk_len=int(trunk_len) if cfg.cascade_decode else 0,
+                    row_ops=True)
+    if cfg.final_norm:
+        x = _row_norm(x, params["final_ln"], cfg)
+    head = _head_weight(params, cfg)
+    logits = torch.cat([_head(cfg, x[:, j:j + 1].contiguous(), head)
+                        for j in range(S2)], dim=1)
+    return logits, cache

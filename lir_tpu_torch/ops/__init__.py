@@ -12,12 +12,18 @@
 - ``cascade_attention``: the shared-trunk prefill window. Its fused
   route is one kernel (``csrc/cascade_prefill.cu``); its two-leg route
   runs the trunk-leg kernels ``cascade_prefix`` (float32 QK^T) or
-  ``cascade_prefix_int8`` (int8 QK^T) of the same source, then the
-  suffix leg and the merge in plain PyTorch.
+  ``cascade_prefix_int8`` (int8 QK^T, on bf16 after ``quantize_rows`` of
+  the trunk keys) of the same source, then ``cascade_suffix_merge``
+  (suffix leg and merge), whose code is the fused kernel's: fused ==
+  two-leg bitwise on the card.
 - ``flash_attention``: prefill self-attention, causal with a key mask
   of any pattern (``csrc/flash_attention.cu``).
 - ``merge_partials``: the log-sum-exp merge of partials (plain PyTorch;
   the kernels run it in device code).
+- ``row_gemm`` / ``row_norm``: the bf16 projections and norms of the
+  decode step and the verify window, each row reduced in one fixed order
+  whatever the number of rows (``csrc/row_gemm.cu``), so a window's row
+  is bitwise the step's.
 
 Each wrapper keeps a plain int ``launches`` that it raises by one where
 it launches its CUDA kernel, and nowhere else; :func:`reset_launches`
@@ -30,13 +36,17 @@ from typing import Dict
 
 from .cascade_prefill import (cascade_attention, cascade_attention_plain,
                               cascade_prefix, cascade_prefix_int8,
-                              prefix_partials, prefix_partials_int8)
+                              cascade_suffix_merge, prefix_partials,
+                              prefix_partials_int8, quantize_rows,
+                              suffix_merge_plain)
 from .flash_attention import flash_attention, flash_attention_plain
 from .flash_decode import (DECODE_SPLIT, flash_decode, flash_decode_mq,
                            flash_decode_mq_plain, flash_decode_mq_trunk,
                            flash_decode_mq_trunk_plain, flash_decode_plain,
                            flash_decode_trunk, flash_decode_trunk_plain)
 from .lse import merge_partials
+from .row_gemm import (gemm_splits, row_gemm, row_gemm_plain, row_norm,
+                       row_norm_plain)
 
 KERNELS = {
     "flash_decode": flash_decode,
@@ -47,6 +57,10 @@ KERNELS = {
     "cascade_prefix": cascade_prefix,
     "cascade_prefix_int8": cascade_prefix_int8,
     "flash_attention": flash_attention,
+    "row_gemm": row_gemm,
+    "row_norm": row_norm,
+    "cascade_suffix_merge": cascade_suffix_merge,
+    "quantize_rows": quantize_rows,
 }
 
 
@@ -61,10 +75,12 @@ def launch_counts() -> Dict[str, int]:
 
 __all__ = [
     "DECODE_SPLIT", "KERNELS", "cascade_attention", "cascade_attention_plain",
-    "cascade_prefix", "cascade_prefix_int8", "flash_attention",
+    "cascade_prefix", "cascade_prefix_int8", "cascade_suffix_merge",
+    "flash_attention", "quantize_rows", "suffix_merge_plain",
     "flash_attention_plain", "flash_decode", "flash_decode_mq",
     "flash_decode_mq_plain", "flash_decode_mq_trunk",
     "flash_decode_mq_trunk_plain", "flash_decode_plain", "flash_decode_trunk",
     "flash_decode_trunk_plain", "launch_counts", "merge_partials",
     "prefix_partials", "prefix_partials_int8", "reset_launches",
+    "gemm_splits", "row_gemm", "row_gemm_plain", "row_norm", "row_norm_plain",
 ]

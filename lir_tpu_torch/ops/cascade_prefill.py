@@ -8,22 +8,26 @@ its routes, chosen as the JAX function chooses them:
   of ``csrc/cascade_prefill.cu`` (trunk leg, suffix leg and merge);
 - the TWO-LEG route (otherwise): the trunk-leg partials of every
   flattened query against the whole trunk (TPU kernel ``_prefix_kernel``),
-  in float32 QK^T (:func:`cascade_prefix`) or with in-kernel int8 QK^T
-  (:func:`cascade_prefix_int8`), on a CUDA tensor the trunk-leg kernels
-  of the same source; then the suffix leg (:func:`suffix_partials`) and
-  :func:`~lir_tpu_torch.ops.lse.merge_partials` in plain PyTorch, as
-  they are XLA in the JAX package.
+  in float32 QK^T (:func:`cascade_prefix`) or int8 QK^T
+  (:func:`cascade_prefix_int8`; on bf16 after :func:`quantize_rows` of
+  the trunk keys), then the suffix leg and the merge
+  (:func:`cascade_suffix_merge`; XLA in the JAX package). On a CUDA
+  tensor each is a kernel of the same source.
 
-On a CPU tensor each wrapper runs its plain version: :func:`prefix_partials`
-or :func:`prefix_partials_int8` for the trunk leg, and for the fused
-route :func:`cascade_attention_plain` (the two-leg float function). On
-bf16 tensors the fused kernel and the float-QK^T trunk leg run on tensor
-cores (``csrc/attn_mma.cuh``), for the head dims of
-``_build.TILE_HEAD_DIMS`` (another raises); float32 tensors take their
-float32-exact CUDA-core kernels. The source notes in
-``csrc/cascade_prefill.cu`` say what bounds the kernels on the H100 and
-why they match their plain versions within float tolerance rather than
-bitwise.
+On a CUDA tensor the fused route is BITWISE the two-leg route with float
+QK^T, as the JAX package's fused kernel is: the fused kernel walks the
+trunk with the trunk leg's own code, then the window, then merges in
+``merge_partials``' order, and the suffix merge is the same code after a
+read of the trunk partials. On a CPU tensor each wrapper runs its plain
+version: :func:`prefix_partials` or :func:`prefix_partials_int8` for the
+trunk leg, :func:`suffix_merge_plain` for the suffix merge, and
+:func:`cascade_attention_plain` (the two-leg float function) for the
+fused route. bf16 tensors run on tensor cores (``csrc/attn_mma.cuh``;
+the int8 trunk leg on IMMA) and float32 tensors on float32-exact
+CUDA-core kernels, for the head dims of ``_build.TILE_HEAD_DIMS``
+(another raises). The source notes in ``csrc/cascade_prefill.cu`` say
+what bounds the kernels on the H100 and why they match their plain
+versions within float tolerance rather than bitwise.
 
 Layout (the JAX package's public shapes): q (B, R, H, hd); window k, v
 (B, R, K, hd); trunk k, v (K, Tt, hd), one row, slot t is position t;
@@ -113,12 +117,12 @@ def suffix_partials(q, sfx_k, sfx_v, suffix_mask, q_positions, slopes):
     return o, m, p.sum(dim=-1)
 
 
-def _two_leg(q, sfx_k, sfx_v, trunk_k, trunk_v, suffix_mask, q_positions,
-             alibi_slopes, trunk_leg) -> torch.Tensor:
-    """The two-leg route: ``trunk_leg`` partials + suffix partials +
-    merge, in float32. (B, R, H, hd) in q's dtype."""
+def suffix_merge_plain(q, sfx_k, sfx_v, o_t, m_t, l_t, suffix_mask,
+                       q_positions, alibi_slopes=None) -> torch.Tensor:
+    """The two-leg route after its trunk leg: the suffix partials and the
+    merge with the trunk partials (o_t, m_t, l_t), in float32.
+    (B, R, H, hd) in q's dtype."""
     B, R, H, hd = q.shape
-    o_t, m_t, l_t = trunk_leg(q, trunk_k, trunk_v, alibi_slopes)
     o_s, m_s, l_s = suffix_partials(q, sfx_k, sfx_v, suffix_mask,
                                     q_positions, alibi_slopes)
     out = merge_partials(torch.stack([o_t, o_s], dim=2),
@@ -127,12 +131,24 @@ def _two_leg(q, sfx_k, sfx_v, trunk_k, trunk_v, suffix_mask, q_positions,
     return out.permute(0, 2, 1, 3, 4).reshape(B, R, H, hd).to(q.dtype)
 
 
+def _two_leg(q, sfx_k, sfx_v, trunk_k, trunk_v, suffix_mask, q_positions,
+             alibi_slopes, trunk_leg) -> torch.Tensor:
+    """The two-leg route: ``trunk_leg`` partials, then
+    :func:`cascade_suffix_merge` (suffix partials + merge).
+    (B, R, H, hd) in q's dtype."""
+    o_t, m_t, l_t = trunk_leg(q, trunk_k, trunk_v, alibi_slopes)
+    return cascade_suffix_merge(q, sfx_k, sfx_v, o_t, m_t, l_t, suffix_mask,
+                                q_positions, alibi_slopes)
+
+
 def cascade_attention_plain(q, sfx_k, sfx_v, trunk_k, trunk_v, suffix_mask,
                             q_positions, alibi_slopes=None) -> torch.Tensor:
-    """The fused kernel's function: the float two-leg route, written out.
-    (B, R, H, hd) in q's dtype."""
-    return _two_leg(q, sfx_k, sfx_v, trunk_k, trunk_v, suffix_mask,
-                    q_positions, alibi_slopes, prefix_partials)
+    """The fused kernel's function: the float two-leg route, written out
+    in plain PyTorch on any device. (B, R, H, hd) in q's dtype."""
+    return suffix_merge_plain(q, sfx_k, sfx_v,
+                              *prefix_partials(q, trunk_k, trunk_v,
+                                               alibi_slopes),
+                              suffix_mask, q_positions, alibi_slopes)
 
 
 # ---------------------------------------------------------------------------
@@ -149,109 +165,157 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.lir_cascade_attention.argtypes = [p] * 9 + [i] * 7 + [p]
         lib.lir_cascade_attention.restype = i
-        lib.lir_cascade_prefix.argtypes = [p] * 7 + [i] * 8 + [p]
+        lib.lir_cascade_suffix_merge.argtypes = [p] * 10 + [i] * 6 + [p]
+        lib.lir_cascade_suffix_merge.restype = i
+        lib.lir_cascade_prefix.argtypes = [p] * 8 + [i] * 8 + [p]
         lib.lir_cascade_prefix.restype = i
+        lib.lir_quantize_rows.argtypes = [p] * 3 + [i] * 2 + [p]
+        lib.lir_quantize_rows.restype = i
         _LIB = lib
     return _LIB
 
 
-def _cascade_cuda(q, sfx_k, sfx_v, trunk_k, trunk_v, suffix_mask,
-                  q_positions, alibi_slopes) -> torch.Tensor:
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"cascade kernel takes float32 or bfloat16, got {q.dtype}")
-    if q.dim() != 4 or sfx_k.dim() != 4 or trunk_k.dim() != 3:
-        raise ValueError(f"bad shapes q {tuple(q.shape)} window "
-                         f"{tuple(sfx_k.shape)} trunk {tuple(trunk_k.shape)}")
-    B, R, H, hd = q.shape
-    K, Tt = trunk_k.shape[0], trunk_k.shape[1]
-    if (tuple(sfx_k.shape) != (B, R, K, hd) or sfx_v.shape != sfx_k.shape
-            or tuple(trunk_k.shape) != (K, Tt, hd)
-            or trunk_v.shape != trunk_k.shape or H % K):
-        raise ValueError(f"q {tuple(q.shape)}, window {tuple(sfx_k.shape)} and "
-                         f"trunk {tuple(trunk_k.shape)} do not match")
-    for name, t in (("sfx_k", sfx_k), ("sfx_v", sfx_v), ("trunk_k", trunk_k),
-                    ("trunk_v", trunk_v)):
-        if t.dtype != q.dtype or t.device != q.device:
-            raise TypeError(f"{name} is {t.dtype} on {t.device}, q is "
-                            f"{q.dtype} on {q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"cascade kernel needs a contiguous {name}")
-    if not q.is_contiguous():
-        raise ValueError("cascade kernel needs a contiguous q")
-    if q.dtype == torch.bfloat16:
-        # The tensor-core route: tiles built for these head dims, rows
-        # copied 16 bytes at a time.
-        if hd not in _build.TILE_HEAD_DIMS:
-            raise ValueError(f"bf16 cascade kernel is built for head dims "
-                             f"{_build.TILE_HEAD_DIMS}, got {hd}")
-        for name, t in (("q", q), ("sfx_k", sfx_k), ("sfx_v", sfx_v),
-                        ("trunk_k", trunk_k), ("trunk_v", trunk_v)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"bf16 cascade kernel needs a 16-byte "
-                                 f"aligned {name}")
-    for name, t in (("suffix_mask", suffix_mask), ("q_positions", q_positions)):
-        if tuple(t.shape) != (B, R) or t.device != q.device:
-            raise ValueError(f"{name} is {tuple(t.shape)} on {t.device}, "
-                             f"expected {(B, R)} on {q.device}")
-    smask = suffix_mask.to(torch.int32).contiguous()
-    qpos = q_positions.to(torch.int32).contiguous()
-    G = H // K
-    slopes_rg = None
-    if alibi_slopes is not None:
-        # Per-flattened-row slopes (row n = r * G + g of kv head kh uses
-        # head kh * G + g), built here as the JAX wrapper builds them.
-        slopes_rg = (alibi_slopes.to(device=q.device, dtype=torch.float32)
-                     .reshape(K, 1, G).expand(K, R, G).reshape(K, R * G)
-                     .contiguous())
-    out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    _build.check(_lib().lir_cascade_attention(
-        q.data_ptr(), sfx_k.data_ptr(), sfx_v.data_ptr(), trunk_k.data_ptr(),
-        trunk_v.data_ptr(), smask.data_ptr(), qpos.data_ptr(),
-        None if slopes_rg is None else slopes_rg.data_ptr(), out.data_ptr(),
-        B, R, H, K, Tt, hd, _DTYPES[q.dtype], stream), "cascade_attention")
-    return out
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
-def _prefix_cuda(q, trunk_k, trunk_v, alibi_slopes, int8_qk: bool):
-    """Launch the trunk-leg kernel: (o, m, l) float32 partials shaped
-    (B, K, R, G, hd) / (B, K, R, G), as :func:`prefix_partials`."""
-    if q.device.type != "cuda":
-        raise ValueError(f"trunk-leg kernel needs CUDA tensors, got {q.device}")
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"trunk-leg kernel takes float32 or bfloat16, got {q.dtype}")
-    if q.dim() != 4 or trunk_k.dim() != 3:
-        raise ValueError(f"bad shapes q {tuple(q.shape)} trunk {tuple(trunk_k.shape)}")
-    B, R, H, hd = q.shape
-    K, Tt = trunk_k.shape[0], trunk_k.shape[1]
-    if (tuple(trunk_k.shape) != (K, Tt, hd) or trunk_v.shape != trunk_k.shape
-            or H % K):
-        raise ValueError(f"q {tuple(q.shape)} and trunk {tuple(trunk_k.shape)} "
-                         f"do not match")
-    if hd not in _build.TILE_HEAD_DIMS:
-        raise ValueError(f"trunk-leg kernel is built for head dims "
-                         f"{_build.TILE_HEAD_DIMS}, got {hd}")
-    for name, t in (("q", q), ("trunk_k", trunk_k), ("trunk_v", trunk_v)):
+def _check_same(q, named) -> None:
+    """Every tensor of ``named`` on q's device in q's dtype, contiguous and
+    16-byte aligned (the kernels copy rows 16 bytes at a time)."""
+    for name, t in named:
         if t.dtype != q.dtype or t.device != q.device:
             raise TypeError(f"{name} is {t.dtype} on {t.device}, q is "
                             f"{q.dtype} on {q.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"trunk-leg kernel needs a contiguous, 16-byte "
+            raise ValueError(f"cascade kernels need a contiguous, 16-byte "
                              f"aligned {name}")
-    G = H // K
+
+
+def _check_cuda(q):
+    if q.device.type != "cuda":
+        raise ValueError(f"cascade kernels need CUDA tensors, got {q.device}")
+
+
+def _check_q(q):
+    """q (B, R, H, hd) in a dtype and head dim the kernels are built for."""
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"cascade kernels take float32 or bfloat16, got {q.dtype}")
+    if q.dim() != 4:
+        raise ValueError(f"bad shape q {tuple(q.shape)}")
+    hd = q.shape[-1]
+    if hd not in _build.TILE_HEAD_DIMS:
+        raise ValueError(f"cascade kernels are built for head dims "
+                         f"{_build.TILE_HEAD_DIMS}, got {hd}")
+
+
+def _window_args(q, sfx_k, sfx_v, suffix_mask, q_positions, alibi_slopes,
+                 K: int):
+    """Checked window inputs: the int32 mask and positions and the
+    float32 (H,) slopes (or None)."""
+    B, R, H, hd = q.shape
+    if tuple(sfx_k.shape) != (B, R, K, hd) or sfx_v.shape != sfx_k.shape or H % K:
+        raise ValueError(f"q {tuple(q.shape)} and window {tuple(sfx_k.shape)} "
+                         f"do not match {K} kv heads")
+    _check_same(q, (("q", q), ("sfx_k", sfx_k), ("sfx_v", sfx_v)))
+    ints = []
+    for name, t in (("suffix_mask", suffix_mask), ("q_positions", q_positions)):
+        if tuple(t.shape) != (B, R) or t.device != q.device:
+            raise ValueError(f"{name} is {tuple(t.shape)} on {t.device}, "
+                             f"expected {(B, R)} on {q.device}")
+        ints.append(t.to(torch.int32).contiguous())
+    slopes = None
+    if alibi_slopes is not None:
+        if tuple(alibi_slopes.shape) != (H,):
+            raise ValueError(f"alibi_slopes is {tuple(alibi_slopes.shape)}, "
+                             f"expected ({H},)")
+        slopes = alibi_slopes.to(device=q.device, dtype=torch.float32).contiguous()
+    return ints[0], ints[1], slopes
+
+
+def _check_trunk(q, trunk_k, trunk_v):
+    B, R, H, hd = q.shape
+    if trunk_k.dim() != 3 or trunk_k.shape[2] != hd or trunk_v.shape != trunk_k.shape:
+        raise ValueError(f"q {tuple(q.shape)} and trunk {tuple(trunk_k.shape)} "
+                         f"do not match")
+    _check_same(q, (("trunk_k", trunk_k), ("trunk_v", trunk_v)))
+    return trunk_k.shape[0], trunk_k.shape[1]
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _cascade_cuda(q, sfx_k, sfx_v, trunk_k, trunk_v, suffix_mask,
+                  q_positions, alibi_slopes) -> torch.Tensor:
+    _check_q(q)
+    K, Tt = _check_trunk(q, trunk_k, trunk_v)
+    smask, qpos, slopes = _window_args(q, sfx_k, sfx_v, suffix_mask,
+                                       q_positions, alibi_slopes, K)
+    B, R, H, hd = q.shape
+    out = torch.empty_like(q)
+    _build.check(_lib().lir_cascade_attention(
+        q.data_ptr(), sfx_k.data_ptr(), sfx_v.data_ptr(), trunk_k.data_ptr(),
+        trunk_v.data_ptr(), smask.data_ptr(), qpos.data_ptr(), _ptr(slopes),
+        out.data_ptr(), B, R, H, K, Tt, hd, _DTYPES[q.dtype], _stream(q)),
+        "cascade_attention")
+    return out
+
+
+def quantize_rows(x: torch.Tensor):
+    """Per-row int8 quantization of (..., hd) by the dynamic rule of
+    ``models.quant.dynamic_quant``: (int8 payload (..., hd), float32
+    scales (...)). CUDA tensors (bf16, hd a multiple of 16 up to 128)
+    launch ``csrc/cascade_prefill.cu``'s pass, which the bf16 int8 trunk
+    leg reads, bitwise the plain rule; CPU tensors run
+    :func:`~lir_tpu_torch.models.quant.dynamic_quant`."""
+    if x.device.type == "cpu":
+        return dynamic_quant(x)
+    if x.device.type != "cuda" or x.dtype != torch.bfloat16:
+        raise TypeError(f"the quantization pass takes bfloat16 CUDA tensors, "
+                        f"got {x.dtype} on {x.device}")
+    hd = x.shape[-1]
+    if hd % 16 or hd > 128 or not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"the quantization pass needs a contiguous, 16-byte "
+                         f"aligned input of width a multiple of 16 up to 128, "
+                         f"got {tuple(x.shape)}")
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    s = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+    rows = x.numel() // hd
+    if rows:
+        _build.check(_lib().lir_quantize_rows(
+            x.data_ptr(), q.data_ptr(), s.data_ptr(), rows, hd, _stream(x)),
+            "quantize_rows")
+        quantize_rows.launches += 1
+    return q, s
+
+
+def _prefix_cuda(q, trunk_k, trunk_v, alibi_slopes, int8_qk: bool):
+    """Launch the trunk-leg kernel: (o, m, l) float32 partials shaped
+    (B, K, R, G, hd) / (B, K, R, G), as :func:`prefix_partials`. With
+    int8 QK^T on bf16 the trunk keys go through :func:`quantize_rows`
+    first (once per key), and the kernel runs on IMMA."""
+    _check_cuda(q)
+    _check_q(q)
+    K, Tt = _check_trunk(q, trunk_k, trunk_v)
+    B, R, H, hd = q.shape
+    if H % K:
+        raise ValueError(f"{H} query heads over {K} kv heads")
     slopes = None
     if alibi_slopes is not None:
         slopes = alibi_slopes.to(device=q.device, dtype=torch.float32).contiguous()
+    tk, tks = trunk_k, None
+    if int8_qk and q.dtype == torch.bfloat16:
+        tk, tks = quantize_rows(trunk_k)
+    G = H // K
     f32 = dict(dtype=torch.float32, device=q.device)
     o = torch.empty((B, K, R, G, hd), **f32)
     m = torch.empty((B, K, R, G), **f32)
     l = torch.empty((B, K, R, G), **f32)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     _build.check(_lib().lir_cascade_prefix(
-        q.data_ptr(), trunk_k.data_ptr(), trunk_v.data_ptr(),
-        None if slopes is None else slopes.data_ptr(), o.data_ptr(),
-        m.data_ptr(), l.data_ptr(), B, R, H, K, Tt, hd, _DTYPES[q.dtype],
-        int(int8_qk), stream), "cascade_prefix_int8" if int8_qk else "cascade_prefix")
+        q.data_ptr(), tk.data_ptr(), _ptr(tks), trunk_v.data_ptr(),
+        _ptr(slopes), o.data_ptr(), m.data_ptr(), l.data_ptr(), B, R, H, K,
+        Tt, hd, _DTYPES[q.dtype], int(int8_qk), _stream(q)),
+        "cascade_prefix_int8" if int8_qk else "cascade_prefix")
     return o, m, l
 
 
@@ -267,14 +331,53 @@ def cascade_prefix(q, trunk_k, trunk_v, alibi_slopes=None):
 
 
 def cascade_prefix_int8(q, trunk_k, trunk_v, alibi_slopes=None):
-    """Trunk-leg partials of the two-leg route, int8 QK^T quantized in
-    the kernel. CUDA tensors launch the kernel of
-    ``csrc/cascade_prefill.cu``; CPU tensors run
-    :func:`prefix_partials_int8`."""
+    """Trunk-leg partials of the two-leg route, int8 QK^T. CUDA tensors
+    launch the kernels of ``csrc/cascade_prefill.cu`` (bf16: the trunk
+    keys' quantization pass, then s8 QK^T on IMMA; float32: quantized in
+    the CUDA-core kernel); CPU tensors run :func:`prefix_partials_int8`."""
     if q.device.type == "cpu":
         return prefix_partials_int8(q, trunk_k, trunk_v, alibi_slopes)
     out = _prefix_cuda(q, trunk_k, trunk_v, alibi_slopes, int8_qk=True)
     cascade_prefix_int8.launches += 1
+    return out
+
+
+def cascade_suffix_merge(q, sfx_k, sfx_v, o_t, m_t, l_t, suffix_mask,
+                         q_positions, alibi_slopes=None) -> torch.Tensor:
+    """The two-leg route's suffix leg and merge over the trunk partials
+    (o_t, m_t, l_t) of :func:`cascade_prefix` or
+    :func:`cascade_prefix_int8`. Returns (B, R, H, hd) in q's dtype.
+
+    CUDA tensors launch ``csrc/cascade_prefill.cu``'s suffix merge: the
+    fused kernel's window walk and merge with the trunk walk replaced by
+    a read of the partials, so the route is bitwise the fused kernel
+    (float QK^T); CPU tensors run :func:`suffix_merge_plain`."""
+    if q.device.type == "cpu":
+        return suffix_merge_plain(q, sfx_k, sfx_v, o_t, m_t, l_t, suffix_mask,
+                                  q_positions, alibi_slopes)
+    _check_cuda(q)
+    _check_q(q)
+    B, R, H, hd = q.shape
+    if sfx_k.dim() != 4:
+        raise ValueError(f"bad window shape {tuple(sfx_k.shape)}")
+    K = sfx_k.shape[2]
+    smask, qpos, slopes = _window_args(q, sfx_k, sfx_v, suffix_mask,
+                                       q_positions, alibi_slopes, K)
+    G = H // K
+    for name, t, shape in (("o_t", o_t, (B, K, R, G, hd)),
+                           ("m_t", m_t, (B, K, R, G)),
+                           ("l_t", l_t, (B, K, R, G))):
+        if (tuple(t.shape) != shape or t.dtype != torch.float32
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous float32 {shape} on "
+                             f"{q.device}, got {t.dtype} {tuple(t.shape)}")
+    out = torch.empty_like(q)
+    _build.check(_lib().lir_cascade_suffix_merge(
+        q.data_ptr(), sfx_k.data_ptr(), sfx_v.data_ptr(), o_t.data_ptr(),
+        m_t.data_ptr(), l_t.data_ptr(), smask.data_ptr(), qpos.data_ptr(),
+        _ptr(slopes), out.data_ptr(), B, R, H, K, hd, _DTYPES[q.dtype],
+        _stream(q)), "cascade_suffix_merge")
+    cascade_suffix_merge.launches += 1
     return out
 
 
@@ -288,14 +391,13 @@ def cascade_attention(q, sfx_k, sfx_v, trunk_k, trunk_v, suffix_mask,
     tensors launch the fused kernel, CPU tensors run
     :func:`cascade_attention_plain`. Otherwise the two-leg route: the
     trunk leg through :func:`cascade_prefix_int8` (``int8_qk``) or
-    :func:`cascade_prefix`, then the suffix leg and the merge."""
+    :func:`cascade_prefix`, then :func:`cascade_suffix_merge`."""
     if fused_suffix and not int8_qk:
         if q.device.type == "cpu":
             return cascade_attention_plain(q, sfx_k, sfx_v, trunk_k, trunk_v,
                                            suffix_mask, q_positions,
                                            alibi_slopes)
-        if q.device.type != "cuda":
-            raise ValueError(f"cascade kernel needs CUDA tensors, got {q.device}")
+        _check_cuda(q)
         out = _cascade_cuda(q, sfx_k, sfx_v, trunk_k, trunk_v, suffix_mask,
                             q_positions, alibi_slopes)
         cascade_attention.launches += 1
@@ -308,3 +410,5 @@ def cascade_attention(q, sfx_k, sfx_v, trunk_k, trunk_v, suffix_mask,
 cascade_attention.launches = 0
 cascade_prefix.launches = 0
 cascade_prefix_int8.launches = 0
+cascade_suffix_merge.launches = 0
+quantize_rows.launches = 0

@@ -1,0 +1,160 @@
+"""Row-invariant linear layer and norm: the decode step's and the verify
+window's bf16 projections and norms.
+
+No Pallas original: the JAX package leaves these to XLA. The port needs
+its own kernels because the speculative verify window must give each row
+the bits of the sequential decode step (``engine/generate._spec_tail``),
+and the window runs B * spec_k rows through every projection where the
+step runs B. A library GEMM, and PyTorch's row reductions, choose their
+reduction plan from the number of rows; :func:`row_gemm` and
+:func:`row_norm` reduce every row in one fixed order, whatever M is and
+wherever the row sits (``csrc/row_gemm.cu`` says how).
+
+On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it
+runs its plain version (:func:`row_gemm_plain`, which is ``x @ w``, and
+:func:`row_norm_plain`, the decoder's norm), so the CPU tests see the
+decoder's own arithmetic.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import _build
+
+# 64-deep chunks of K a split takes at least, splits at most, and the
+# blocks a launch should reach (two per SM of the H100).
+_BK, _MIN_CHUNKS, _MAX_SPLITS, _TARGET_BLOCKS = 64, 8, 4, 264
+_BN = 64
+
+
+def gemm_splits(n: int, k: int) -> int:
+    """Split count of K for an (n, k) weight: a function of the weight's
+    shape alone, never of the rows, so each output element's reduction
+    order is fixed by (n, k). Powers of two up to 4, each split keeping
+    at least 8 chunks of 64, until the launch reaches two blocks an SM."""
+    n_tiles = -(-int(n) // _BN)
+    chunks = -(-int(k) // _BK)
+    s = 1
+    while (n_tiles * s < _TARGET_BLOCKS and 2 * s <= _MAX_SPLITS
+           and chunks // (2 * s) >= _MIN_CHUNKS):
+        s *= 2
+    cps = -(-chunks // s)
+    return -(-chunks // cps)
+
+
+def row_gemm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``: the function the kernel computes."""
+    return torch.matmul(x, w)
+
+
+def row_norm_plain(x: torch.Tensor, scale: torch.Tensor,
+                   bias: Optional[torch.Tensor], eps: float) -> torch.Tensor:
+    """RMSNorm (``bias`` None) or LayerNorm over the last axis in float32,
+    the result in x's dtype: the decoder's norm."""
+    xf = x.float()
+    if bias is None:
+        xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+        return (xf * scale.float()).to(x.dtype)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    xf = (xf - mu) * torch.rsqrt(var + eps)
+    return (xf * scale.float() + bias.float()).to(x.dtype)
+
+
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = _build.library("row_gemm")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.lir_row_gemm.argtypes = [p] * 4 + [i] * 4 + [p]
+        lib.lir_row_gemm.restype = i
+        lib.lir_row_norm.argtypes = [p] * 4 + [i] * 2 + [ctypes.c_float, p]
+        lib.lir_row_norm.restype = i
+        _LIB = lib
+    return _LIB
+
+
+def _check_bf16(name: str, t: torch.Tensor, device) -> None:
+    if t.device != device or t.dtype != torch.bfloat16:
+        raise TypeError(f"{name} is {t.dtype} on {t.device}; the row kernels "
+                        f"take bfloat16 on {device}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"the row kernels need a contiguous, 16-byte aligned "
+                         f"{name}")
+
+
+def row_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., K) @ w (K, N) with each row's bits independent of the rows
+    beside it. CUDA tensors (bf16, K and N multiples of 8) launch
+    ``csrc/row_gemm.cu``; CPU tensors run :func:`row_gemm_plain`."""
+    if x.device.type == "cpu":
+        return row_gemm_plain(x, w)
+    if x.device.type != "cuda":
+        raise ValueError(f"row_gemm needs CPU or CUDA tensors, got {x.device}")
+    if w.dim() != 2 or x.shape[-1] != w.shape[0]:
+        raise ValueError(f"row_gemm of {tuple(x.shape)} and {tuple(w.shape)}")
+    K, N = w.shape
+    if K % 8 or N % 8:
+        raise ValueError(f"row_gemm needs K and N multiples of 8, got "
+                         f"({K}, {N})")
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, K).contiguous()
+    _check_bf16("x", x2, x.device)
+    _check_bf16("w", w, x.device)
+    M = x2.shape[0]
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    if M == 0:
+        return out.reshape(*lead, N)
+    splits = gemm_splits(N, K)
+    part = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
+            if splits > 1 else None)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _build.check(_lib().lir_row_gemm(
+        x2.data_ptr(), w.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(), M, N, K, splits, stream),
+        "row_gemm")
+    row_gemm.launches += 1
+    return out.reshape(*lead, N)
+
+
+def row_norm(x: torch.Tensor, scale: torch.Tensor,
+             bias: Optional[torch.Tensor], eps: float) -> torch.Tensor:
+    """RMSNorm (``bias`` None) or LayerNorm over the last axis, each row
+    reduced in one fixed order. CUDA tensors (bf16, width a multiple of
+    8) launch ``csrc/row_gemm.cu``; CPU tensors run
+    :func:`row_norm_plain`."""
+    if x.device.type == "cpu":
+        return row_norm_plain(x, scale, bias, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"row_norm needs CPU or CUDA tensors, got {x.device}")
+    D = x.shape[-1]
+    if D % 8 or tuple(scale.shape) != (D,) or (
+            bias is not None and tuple(bias.shape) != (D,)):
+        raise ValueError(f"row_norm of width {D} with scale "
+                         f"{tuple(scale.shape)}: the width must be a multiple "
+                         f"of 8 and match the scale")
+    x2 = x.reshape(-1, D).contiguous()
+    _check_bf16("x", x2, x.device)
+    _check_bf16("scale", scale, x.device)
+    if bias is not None:
+        _check_bf16("bias", bias, x.device)
+    out = torch.empty_like(x2)
+    if x2.shape[0]:
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        _build.check(_lib().lir_row_norm(
+            x2.data_ptr(), scale.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(),
+            x2.shape[0], D, float(eps), stream), "row_norm")
+        row_norm.launches += 1
+    return out.reshape(x.shape)
+
+
+row_gemm.launches = 0
+row_norm.launches = 0

@@ -5,13 +5,19 @@ two-leg trunk leg ``cascade_prefix`` from raw bf16 operands: Q K^T as
 float32 sums of exact bf16 products, then times sm_scale (q is never
 rounded after scaling), ALiBi and the mask in float32, an online softmax
 over 64-key tiles (exp(x - m) as exp2((x - m) * log2 e)), and P V with P
-split into bf16 hi + bf16 lo over bf16 V, summed in float32. The
-emulation below takes the same roundings in PyTorch, from numpy-seeded
-inputs at llama-2-7b head width (hd = 128, Tt = 432, R = 80), and holds
-them to the float32 plain versions at the card tests' bars: the trunk
-partials (o, m, l) within atol = rtol = 1e-3 of ``prefix_partials``, the
-fused output within 1e-2 of ``cascade_attention_plain``. It also shows
-why P is split: with P rounded once to bf16 the partials miss 1e-3.
+split into bf16 hi + bf16 lo over bf16 V, summed in float32. The fused
+kernel walks the trunk as the trunk leg does, then the window under a
+fresh accumulator, then merges in ``merge_partials``' order (the two-leg
+route's arithmetic); the bf16 int8 trunk leg takes Q K^T as exact s8
+integer sums (IMMA) folded by the quantization scales. The emulation
+below takes the same roundings in PyTorch, from numpy-seeded inputs at
+llama-2-7b head width (hd = 128, Tt = 432, R = 80), and holds them to the
+float32 plain versions at the card tests' bars: the trunk partials
+(o, m, l) within atol = rtol = 1e-3 of ``prefix_partials`` (int8: of
+``prefix_partials_int8``, the row max bitwise), the fused output within
+1e-2 of ``cascade_attention_plain`` and of the plain two-leg route. It
+also shows why P is split: with P rounded once to bf16 the partials miss
+1e-3.
 
 The prefill flash kernel (``flash_mma_kernel`` in
 ``csrc/flash_attention.cu``) takes the same arithmetic with one bf16 P:
@@ -106,19 +112,45 @@ def _emulate_prefix(q, tk, tv, slopes, split=True):
     return (o.reshape(B, K, R, G, HD), m.reshape(B, K, R, G), l.reshape(B, K, R, G))
 
 
-def _emulate_fused(q, sk, sv, tk, tv, mask, qpos, slopes):
-    """The fused kernel: trunk keys, then the row's window keys, under one
-    running (m, l, o); the output normalized and rounded to bf16."""
+def _emulate_prefix_int8(q, tk, tv, slopes):
+    """The bf16 int8 trunk leg: query rows and trunk keys quantized by the
+    dynamic rule, s8 QK^T as exact integer sums (IMMA), the scores folded
+    as (f32(s32) * (q_scale * sm_scale)) * k_scale, then the split-P walk
+    over bf16 V. Shaped as ``prefix_partials_int8`` gives them."""
+    from lir_tpu_torch.models.quant import dynamic_quant
+
     H, K = q.shape[2], tk.shape[0]
     G = H // K
+    qq, qs = dynamic_quant(q.reshape(B, R, K, G, HD))
+    kq, ks = dynamic_quant(tk)
+    qg = qq.float().permute(0, 2, 1, 3, 4).reshape(B, K, R * G, HD)
+    keys = kq.float()[None].expand(B, -1, -1, -1)
+    vals = tv.float()[None].expand(B, -1, -1, -1)
+    qsm = (qs * (1.0 / math.sqrt(HD))).permute(0, 2, 1, 3).reshape(B, K, R * G, 1)
+    slope_rows = (None if slopes is None else
+                  slopes.float().reshape(K, 1, G).expand(K, R, G).reshape(1, K, R * G, 1))
+
+    def fix(s, k0):
+        k1 = k0 + s.shape[-1]
+        s = s * qsm * ks[None, :, None, k0:k1]
+        if slope_rows is not None:
+            s = s + slope_rows * torch.arange(k0, k1).float()
+        return s
+
+    o, m, l = _online(qg, keys, vals, fix, split=True)
+    return (o.reshape(B, K, R, G, HD), m.reshape(B, K, R, G), l.reshape(B, K, R, G))
+
+
+def _emulate_window(q, sk, sv, mask, qpos, slopes):
+    """The window walk of the fused kernel and the suffix merge: each
+    row's own window keys (mask-aware, causal, ALiBi on key positions)
+    under a fresh accumulator; a row with no valid key keeps m = -inf,
+    l = 0. Shaped as ``suffix_partials`` gives them."""
+    H, K = q.shape[2], sk.shape[2]
+    G = H // K
     qg = q.float().reshape(B, R, K, G, HD).permute(0, 2, 1, 3, 4).reshape(B, K, R * G, HD)
-    keys = torch.cat([tk.float()[None].expand(B, -1, -1, -1),
-                      sk.float().permute(0, 2, 1, 3)], dim=2)
-    vals = torch.cat([tv.float()[None].expand(B, -1, -1, -1),
-                      sv.float().permute(0, 2, 1, 3)], dim=2)
-    kpos = torch.cat([torch.arange(Tt)[None].expand(B, -1), qpos.long()], dim=1)
-    trunk = torch.arange(Tt + R) < Tt
-    live = torch.cat([torch.ones((B, Tt), dtype=torch.bool), mask > 0], dim=1)
+    keys = sk.float().permute(0, 2, 1, 3)
+    vals = sv.float().permute(0, 2, 1, 3)
     row_pos = qpos.long().repeat_interleave(G, dim=1)[:, None, :, None]   # (B, 1, M, 1)
     sm = torch.tensor(1.0 / math.sqrt(HD), dtype=torch.float32)
     slope_rows = (None if slopes is None else
@@ -126,17 +158,36 @@ def _emulate_fused(q, sk, sv, tk, tv, mask, qpos, slopes):
 
     def fix(s, k0):
         k1 = k0 + s.shape[-1]
-        kp = kpos[:, None, None, k0:k1]
+        kp = qpos.long()[:, None, None, k0:k1]
         s = s * sm
         if slope_rows is not None:
             s = s + slope_rows * kp.float()
-        ok = trunk[k0:k1] | (live[:, None, None, k0:k1] & (kp <= row_pos))
+        ok = (mask[:, None, None, k0:k1] > 0) & (kp <= row_pos)
         return s.masked_fill(~ok, -math.inf)
 
     o, m, l = _online(qg, keys, vals, fix, split=True)
-    out = o / torch.clamp_min(l, 1e-30)[..., None]
-    out = out.reshape(B, K, R, G, HD).permute(0, 2, 1, 3, 4).reshape(B, R, H, HD)
-    return out.to(torch.bfloat16)
+    return (o.reshape(B, K, R, G, HD), m.reshape(B, K, R, G), l.reshape(B, K, R, G))
+
+
+def _merge(o_t, m_t, l_t, o_s, m_s, l_s, H):
+    """merge_partials' order of the two partials: m, the weights, l, then
+    (w_t o_t + w_s o_s) / max(l, 1e-30); (B, R, H, hd) in bf16."""
+    m = torch.maximum(m_t, m_s)
+    zero = torch.zeros(())
+    w_t = torch.where(torch.isfinite(m_t), torch.exp(m_t - m), zero)
+    w_s = torch.where(torch.isfinite(m_s), torch.exp(m_s - m), zero)
+    l = w_t * l_t + w_s * l_s
+    o = (w_t[..., None] * o_t + w_s[..., None] * o_s) / torch.clamp_min(l, 1e-30)[..., None]
+    return o.permute(0, 2, 1, 3, 4).reshape(B, R, H, HD).to(torch.bfloat16)
+
+
+def _emulate_fused(q, sk, sv, tk, tv, mask, qpos, slopes):
+    """The fused kernel: the trunk leg's own walk, then the window walk
+    under a fresh accumulator, then the merge in merge_partials' order;
+    the output rounded to bf16. The suffix merge is the same after a read
+    of the trunk partials."""
+    return _merge(*_emulate_prefix(q, tk, tv, slopes),
+                  *_emulate_window(q, sk, sv, mask, qpos, slopes), q.shape[2])
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -155,6 +206,40 @@ def test_fused_emulation_within_1e2(name):
     ref = ops.cascade_attention_plain(*args[:7], alibi_slopes=args[7])
     assert got.dtype == ref.dtype == torch.bfloat16
     torch.testing.assert_close(got.float(), ref.float(), atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_fused_emulation_is_the_two_leg_route(name):
+    """The restructured fused kernel computes the two-leg route in its
+    order: its emulation against the plain two-leg route (``_two_leg``
+    through ``cascade_attention(fused_suffix=False)``) within the card's
+    1e-2 bar, and its window walk against ``suffix_partials`` within
+    1e-3 (a fully masked window: m = -inf and l = 0 in both)."""
+    q, sk, sv, tk, tv, mask, qpos, slopes = _inputs(CASES[name])
+    got = _emulate_fused(q, sk, sv, tk, tv, mask, qpos, slopes)
+    ref = ops.cascade_attention(q, sk, sv, tk, tv, mask, qpos,
+                                alibi_slopes=slopes, fused_suffix=False)
+    torch.testing.assert_close(got.float(), ref.float(), atol=1e-2, rtol=1e-2)
+    from lir_tpu_torch.ops.cascade_prefill import suffix_partials
+
+    win = _emulate_window(q, sk, sv, mask, qpos, slopes)
+    plain = suffix_partials(q, sk, sv, mask, qpos, slopes)
+    assert bool(torch.isinf(win[1][1]).all()) and bool((win[2][1] == 0).all())
+    for part, g, r in zip("oml", win, plain):
+        torch.testing.assert_close(g, r, atol=1e-3, rtol=1e-3, msg=part)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_int8_imma_trunk_partials(name):
+    """The bf16 int8 trunk leg on IMMA: its row max bitwise
+    ``prefix_partials_int8``'s (exact s32 sums, the same fold order) and
+    its partials within 1e-3 (split P)."""
+    q, _, _, tk, tv, _, _, slopes = _inputs(CASES[name])
+    got = _emulate_prefix_int8(q, tk, tv, slopes)
+    ref = ops.prefix_partials_int8(q, tk, tv, slopes)
+    assert torch.equal(got[1], ref[1])
+    for part, g, r in zip("oml", got, ref):
+        torch.testing.assert_close(g, r, atol=1e-3, rtol=1e-3, msg=part)
 
 
 def test_single_bf16_p_misses_the_partials_bar():

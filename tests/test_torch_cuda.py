@@ -344,3 +344,159 @@ def test_int8_matmul_on_card_matches_cpu(gen, rows):
     with pytest.raises(ValueError, match="multiples"):
         quant.int8_dot(torch.zeros((20, 12), dtype=torch.int8, device="cuda"),
                        torch.zeros((12, 8), dtype=torch.int8, device="cuda"))
+
+
+# (K, N) of the row-invariant GEMM's cases: llama-2-7b's square
+# projection, its MLP up and down (split-K on), a K with a ragged last
+# chunk, a width that is not a multiple of the 64-column block, falcon's
+# single kv head.
+ROW_GEMM_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (200, 96),
+                   (4544, 64)]
+
+
+@pytest.mark.parametrize("K,N", ROW_GEMM_SHAPES,
+                         ids=[f"K{k}N{n}" for k, n in ROW_GEMM_SHAPES])
+def test_row_gemm_rows_bitwise_at_every_row_count(gen, K, N):
+    """A row's output of row_gemm is the same bits at M = 1, 16, 32, 128
+    and 256 and in any place among the rows (rows permuted), and within
+    bf16 rounding of torch.matmul."""
+    x = _rnd(gen, 256, K)
+    w = _rnd(gen, K, N) * 0.05
+    full = ops.row_gemm(x, w)
+    torch.testing.assert_close(full.float(), (x.float() @ w.float()),
+                               atol=2e-2, rtol=2e-2)
+    perm = torch.randperm(256, generator=gen, device="cuda")
+    assert torch.equal(ops.row_gemm(x[perm], w), full[perm])
+    for m in (1, 16, 32, 128):
+        assert torch.equal(ops.row_gemm(x[:m], w), full[:m]), m
+        assert torch.equal(ops.row_gemm(x[perm[:m]], w), full[perm[:m]]), m
+
+
+@pytest.mark.parametrize("layer", [False, True])
+def test_row_norm_rows_bitwise_and_close(gen, layer):
+    """row_norm's rows are the same bits at any row count and within bf16
+    rounding of the decoder's plain norm."""
+    x = _rnd(gen, 128, 4096) * 3
+    scale = _rnd(gen, 4096)
+    bias = _rnd(gen, 4096) if layer else None
+    full = ops.row_norm(x, scale, bias, 1e-5)
+    ref = ops.row_norm_plain(x, scale, bias, 1e-5)
+    torch.testing.assert_close(full.float(), ref.float(), **TOL)
+    for m in (1, 32, 100):
+        assert torch.equal(ops.row_norm(x[-m:], scale, bias, 1e-5), full[-m:])
+
+
+def test_row_kernels_count_launches_and_refuse(gen):
+    ops.reset_launches()
+    x = _rnd(gen, 4, 64)
+    ops.row_gemm(x, _rnd(gen, 64, 16))
+    ops.row_norm(x, _rnd(gen, 64), None, 1e-5)
+    counts = ops.launch_counts()
+    assert (counts["row_gemm"], counts["row_norm"]) == (1, 1)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ops.row_gemm(x.float(), _rnd(gen, 64, 16).float())
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ops.row_gemm(_rnd(gen, 4, 12), _rnd(gen, 12, 16))
+
+
+def test_decode_kernels_bitwise_across_cache_extents(gen):
+    """The invariants the compacted speculative slots rest on: the same
+    valid keys at the same slots give the same bits whatever the cache's
+    extent (trailing splits with no valid key, their slots holding
+    other data) and with a split of no valid key ahead of live ones, on
+    the flat, trunk, multi-query and multi-query trunk kernels; and a
+    verify window's query j (later window slots valid but after it) is
+    bitwise the single-query step over a cache where they are masked."""
+    B, H, K, hd, S, trunk = 4, 8, 2, 128, 4, 128
+    T1, T2 = 300, 520
+    k = _rnd(gen, K, T2, B, hd)
+    v = _rnd(gen, K, T2, B, hd)
+    k[:, :trunk] = k[:, :trunk, :1]
+    v[:, :trunk] = v[:, :trunk, :1]
+    mask = torch.zeros((B, T2), dtype=torch.int32, device="cuda")
+    mask[:, :T1 - S] = 1
+    mask[:, 130:200] = 0                  # split 2 (128..191) fully masked
+    base = T1 - S
+    q = _rnd(gen, B, S, H, hd)
+    for trunk_len in (0, trunk):
+        win = mask.clone()
+        win[:, base:base + S] = 1
+        kpos = torch.clamp_min(torch.cumsum(win, -1, dtype=torch.int32) - 1, 0)
+        qpos = kpos[:, base:base + S].contiguous()
+        mq = (ops.flash_decode_mq_trunk if trunk_len else ops.flash_decode_mq)
+        one = ops.flash_decode_trunk if trunk_len else ops.flash_decode
+        kw = dict(trunk_len=trunk_len) if trunk_len else {}
+        got_long = mq(q, k, v, qpos, win, key_positions=kpos, **kw)
+        short = (k[:, :T1].contiguous(), v[:, :T1].contiguous())
+        got_short = mq(q, *short, qpos, win[:, :T1].contiguous(),
+                       key_positions=kpos[:, :T1].contiguous(), **kw)
+        assert torch.equal(got_long, got_short), trunk_len
+        for j in range(S):
+            step = mask[:, :T1].clone()
+            step[:, base:base + j + 1] = 1
+            spos = torch.clamp_min(torch.cumsum(step, -1, dtype=torch.int32) - 1, 0)
+            ref = one(q[:, j].contiguous(), *short, qpos[:, j].contiguous(), step,
+                      key_positions=spos, **kw)
+            assert torch.equal(got_long[:, j], ref), (trunk_len, j)
+
+
+@pytest.mark.parametrize("H,K,hd,alibi,R,Tt,dtype", CASCADE_CASES,
+                         ids=[_case_id(c) for c in CASCADE_CASES])
+def test_fused_cascade_bitwise_two_leg(gen, H, K, hd, alibi, R, Tt, dtype):
+    """The fused kernel is bitwise cascade_prefix + cascade_suffix_merge
+    (the JAX package's fused == two-leg invariant), and the two-leg
+    route through cascade_attention is that pair."""
+    B, R, Tt = 3, R or 40, Tt or 100
+    q = _rnd(gen, B, R, H, hd, dtype=dtype)
+    sk, sv = _rnd(gen, B, R, K, hd, dtype=dtype), _rnd(gen, B, R, K, hd, dtype=dtype)
+    tk, tv = _rnd(gen, K, Tt, hd, dtype=dtype), _rnd(gen, K, Tt, hd, dtype=dtype)
+    mask = torch.ones((B, R), dtype=torch.int32, device="cuda")
+    mask[1, (3 * R) // 4:] = 0
+    mask[2, :] = 0                       # a fully masked window
+    qpos = (Tt + torch.clamp_min(torch.cumsum(mask, -1, dtype=torch.int32) - 1,
+                                 0)).to(torch.int32)
+    slopes = alibi_slopes(H, "cuda") if alibi else None
+    fused = ops.cascade_attention(q, sk, sv, tk, tv, mask, qpos, alibi_slopes=slopes)
+    o, m, l = ops.cascade_prefix(q, tk, tv, slopes)
+    pair = ops.cascade_suffix_merge(q, sk, sv, o, m, l, mask, qpos, slopes)
+    assert torch.equal(fused, pair)
+    two_leg = ops.cascade_attention(q, sk, sv, tk, tv, mask, qpos,
+                                    alibi_slopes=slopes, fused_suffix=False)
+    assert torch.equal(two_leg, fused)
+    ref = ops.suffix_merge_plain(q, sk, sv, o, m, l, mask, qpos, slopes)
+    torch.testing.assert_close(pair.float(), ref.float(), **TOL)
+
+
+@pytest.mark.parametrize("hd,Tt", [(32, 100), (64, 65), (80, 100), (96, 432),
+                                   (128, 432), (128, 1)])
+def test_cascade_prefix_int8_imma_matches_plain(gen, hd, Tt):
+    """The bf16 int8 trunk leg (key quantization pass + IMMA QK^T +
+    split-P PV): the row max bitwise the plain twin's, the partials
+    within 1e-3; the quantization pass bitwise dynamic_quant."""
+    from lir_tpu_torch.models import quant
+
+    B, R, H, K = 3, 21, 8, 2
+    q = _rnd(gen, B, R, H, hd) * 3
+    tk, tv = _rnd(gen, K, Tt, hd) * 2, _rnd(gen, K, Tt, hd)
+    slopes = alibi_slopes(H, "cuda") if hd == 80 else None
+    kq, ks = ops.quantize_rows(tk)
+    rq, rs = quant.dynamic_quant(tk)
+    assert torch.equal(kq, rq) and torch.equal(ks, rs)
+    got = ops.cascade_prefix_int8(q, tk, tv, slopes)
+    ref = ops.prefix_partials_int8(q, tk, tv, slopes)
+    assert torch.equal(got[1], ref[1])
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, atol=1e-3, rtol=1e-3)
+
+
+def test_cascade_new_launches_count(gen):
+    ops.reset_launches()
+    q = _rnd(gen, 2, 8, 4, 64)
+    tk = _rnd(gen, 4, 70, 64)
+    sk = _rnd(gen, 2, 8, 4, 64)
+    mask = torch.ones((2, 8), dtype=torch.int32, device="cuda")
+    qpos = 70 + torch.arange(8, device="cuda", dtype=torch.int32)[None].expand(2, -1)
+    ops.cascade_attention(q, sk, sk, tk, tk, mask, qpos, int8_qk=True)
+    counts = ops.launch_counts()
+    assert (counts["quantize_rows"], counts["cascade_prefix_int8"],
+            counts["cascade_suffix_merge"], counts["cascade_attention"]) == (1, 1, 1, 0)

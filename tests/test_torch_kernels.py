@@ -182,10 +182,17 @@ def test_wrappers_count_only_kernel_launches():
     ops.flash_decode_mq(q2, k, v, qpos2, mask, key_positions=tkp)
     ops.flash_decode_mq_trunk(q2, k, v, qpos2, mask, key_positions=tkp,
                               trunk_len=70)
+    x = torch.randn((3, 16))
+    ops.row_gemm(x, torch.randn((16, 8)))
+    ops.row_norm(x, torch.ones(16), None, 1e-5)
+    ops.quantize_rows(x)
     assert ops.launch_counts() == {"flash_decode": 0, "flash_decode_trunk": 0,
                                    "cascade_attention": 0,
                                    "flash_decode_mq": 0,
                                    "flash_decode_mq_trunk": 0,
                                    "cascade_prefix": 0,
                                    "cascade_prefix_int8": 0,
-                                   "flash_attention": 0}
+                                   "flash_attention": 0,
+                                   "row_gemm": 0, "row_norm": 0,
+                                   "cascade_suffix_merge": 0,
+                                   "quantize_rows": 0}
