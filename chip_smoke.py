@@ -9,17 +9,19 @@ Phases (each raises on failure, so the script exits non-zero):
    shared memory and spills per kernel, and from ``cuobjdump -sass`` of
    the built libraries the tensor-core instructions of each
    instantiation: HMMA (or HGMMA for wgmma) in the bf16 kernels
-   (``cascade_mma_kernel``, ``prefix_mma_kernel``, ``prefix_imma_kernel``,
-   ``flash_mma_kernel``, ``row_gemm_kernel``), IMMA in
-   ``prefix_imma_kernel``; fail if one has none.
+   (``cascade_mma_kernel``, ``prefix_wgmma_kernel``, ``prefix_imma_kernel``,
+   ``flash_mma_kernel``, ``row_gemm_kernel``), HGMMA (wgmma) in
+   ``row_gemm_kernel``, ``prefix_wgmma_kernel`` and the fused
+   ``cascade_mma_kernel``, IMMA in ``prefix_imma_kernel``; fail if one
+   has none.
 2. Kernels against their plain PyTorch versions on the card, at the
    shapes the main path gives them (llama-2-7b widths, B = 32, the cache
    extents and trunks of phase 3's dispatches; the verify window's
    S = spec_k = 4 queries a row for the multi-query kernels; the trunk
    leg at the cascade dispatch's shape, float32 and int8 QK^T; the
    prefill flash kernel at buckets 64, 128 and 512; the row-invariant
-   projections at M = B and B * spec_k for wq, w_up and w_down, and the
-   norm), plus GQA (mistral-7b), MQA (falcon-7b) and ALiBi (bloom-7b1)
+   projections at M = B and B * spec_k for all seven of a layer, and
+   the norm), plus GQA (mistral-7b), MQA (falcon-7b) and ALiBi (bloom-7b1)
    shapes: bf16 kernel output against the float32 plain version of the
    same bf16 inputs, atol = rtol = 1e-2 (bf16 output rounding; the trunk
    leg's float32 partials to the same bar). Bitwise: the trunk decode
@@ -1355,7 +1357,7 @@ def profile_scoring(engine, rt, label="profile"):
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     log(json.dumps({
         "phase": label, "call": "decode_fused, B=32, 50 steps",
         "wall_ms": wall * 1e3, "device_busy_ms": busy / 1e3,
@@ -1366,7 +1368,7 @@ def profile_scoring(engine, rt, label="profile"):
 
 def kernel_label(mangled: str) -> str:
     """A kernel's name and raw template arguments from its mangled name,
-    e.g. ``prefix_mma_kernel<Li128>``."""
+    e.g. ``prefix_wgmma_kernel<Li128>``."""
     # Every start of a digit run: a length prefix may follow other digits
     # (an anonymous namespace's hash ends in digits).
     for m in re.finditer(r"(?=(\d+))", mangled):
@@ -1394,8 +1396,8 @@ def ptxas_report(name: str, text: str):
 def tensor_core_counts(name: str, kernels, op: str = "HMMA") -> dict:
     """Tensor-core instructions in each instantiation of ``kernels`` in
     the built library of ``csrc/<name>.cu``, counted in its
-    ``cuobjdump -sass``: ``op`` HMMA (bf16; HGMMA for wgmma counts too) or
-    IMMA (s8). Fails if any has none."""
+    ``cuobjdump -sass``: ``op`` HMMA (bf16; HGMMA for wgmma counts too),
+    HGMMA (wgmma only) or IMMA (s8). Fails if any has none."""
     pattern = r"\bH(G)?MMA\b" if op == "HMMA" else rf"\b{op}\b"
     counts, fn = {}, None
     for line in _build.sass(name).splitlines():
@@ -1438,14 +1440,18 @@ def main() -> int:
                     "per_source_seconds": secs}))
     for name, text in _build.BUILD_LOGS.items():
         ptxas_report(name, text)
-    # The bf16 kernels run on tensor cores: HMMA in their SASS; the bf16
-    # int8 trunk leg's QK^T on IMMA.
+    # The bf16 kernels run on tensor cores: HMMA in their SASS; the
+    # projections, the trunk leg and the fused kernel's trunk walk on
+    # wgmma (HGMMA); the bf16 int8 trunk leg's QK^T on IMMA.
     tensor_core_counts("cascade_prefill",
-                       ("cascade_mma_kernel", "prefix_mma_kernel",
+                       ("cascade_mma_kernel", "prefix_wgmma_kernel",
                         "prefix_imma_kernel"))
+    tensor_core_counts("cascade_prefill", ("prefix_wgmma_kernel",) + tuple(
+        f"cascade_mma_kernel<Li{hd}ELb1>" for hd in _build.TILE_HEAD_DIMS),
+        op="HGMMA")
     tensor_core_counts("cascade_prefill", ("prefix_imma_kernel",), op="IMMA")
     tensor_core_counts("flash_attention", ("flash_mma_kernel",))
-    tensor_core_counts("row_gemm", ("row_gemm_kernel",))
+    tensor_core_counts("row_gemm", ("row_gemm_kernel",), op="HGMMA")
 
     # Phase 3's shapes, planned up front.
     cfg = registry.llama2_7b()
@@ -1536,7 +1542,9 @@ def main() -> int:
                           results)
     D, F_ = cfg.hidden_size, cfg.intermediate_size
     for M in (BATCH, BATCH * rt.spec_k):
-        for name, K_, N_ in (("wq", D, H * hd), ("w_up", D, F_),
+        for name, K_, N_ in (("wq", D, H * hd), ("wk", D, K * hd),
+                             ("wv", D, K * hd), ("wo", H * hd, D),
+                             ("w_up", D, F_), ("w_gate", D, F_),
                              ("w_down", F_, D)):
             check_row_gemm(gen, f"llama2-7b/{name}/M{M}", M, K_, N_, results)
         check_row_norm(gen, f"llama2-7b/M{M}", M, D, results)

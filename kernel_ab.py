@@ -1,29 +1,37 @@
-"""Time the port's decode, prefill flash and int8 trunk-leg kernels
-against another copy of their sources, in one process on one card.
+"""Time the port's kernels against another copy of their sources, in
+one process on one card.
 
     python3 kernel_ab.py OTHER_CSRC [--rounds 2]
 
 OTHER_CSRC is a directory holding ``flash_decode.cu``,
-``flash_attention.cu`` and ``cascade_prefill.cu`` (with the headers they
-include): for example the sources of an earlier commit, unpacked with
-``git archive``. The decode and flash sources must have the C entry
-points of ``lir_tpu_torch/csrc``; ``cascade_prefill.cu``'s int8 trunk
-leg is called through either entry it has had (with the trunk keys'
+``flash_attention.cu``, ``cascade_prefill.cu`` and ``row_gemm.cu`` (with
+the headers they include): for example the sources of an earlier commit,
+unpacked with ``git archive``. The decode and flash sources must have the
+C entry points of ``lir_tpu_torch/csrc``; ``cascade_prefill.cu``'s int8
+trunk leg is called through either entry it has had (with the trunk keys'
 quantization pass, ``lir_quantize_rows``, or quantizing inside the
-kernel). Both copies are built with the flags of
+kernel), and ``row_gemm.cu``'s projection through either entry it has had
+(adding the splits in the launch, or with float32 scratch for a second
+launch that adds them, then with the split rule it had). Both copies are
+built with the flags of
 ``lir_tpu_torch/ops/_build.py`` into ``build/kernel_ab/``, then timed in
 turns (other, this, this, other in each round), by ``chip_smoke.time_ms``
-(L2 flushed, device time), at the main path's shapes of ``chip_smoke.py``
+(L2 flushed, device time; the cases called through a copy's C entry time
+their launches alone, not the copies of their outputs), at the main
+path's shapes of ``chip_smoke.py``
 at llama-2-7b width, B = 32: the decode step at T = 552 (flat and with a
 432-slot trunk) and T = 114, the verify window (S = 4) at T = 192 and at
 T = 576 with a 432-slot trunk (its two legs and the merge also timed
-apart), prefill flash attention at buckets 64, 128 and 512, and the bf16
-int8-QK^T trunk leg at the cascade dispatch's shape (R = 80, Tt = 432;
-with the quantization pass where the copy has one). Whether the two
-copies' outputs are bitwise equal is printed per case (with the largest
-difference; for the trunk leg, whether the row max is). Prints one JSON
-line per reading, a summary line per case, then the card's name and
-power limit.
+apart), prefill flash attention at buckets 64, 128 and 512, the bf16
+trunk leg (float and int8 QK^T; with the quantization pass where the copy
+has one) and the fused cascade at the cascade dispatch's shape (R = 80,
+Tt = 432), and the row-invariant projection at wq, w_up and w_down with
+M = 32 and 128 rows. Whether the two copies' outputs are bitwise equal is
+printed per case (with the largest difference; for the trunk leg, whether
+the row max is), and for the cases whose bits may move between copies
+each copy's largest difference against the float32 product or the plain
+version. Prints one JSON line per reading, a summary line per case, then
+the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -54,12 +62,19 @@ _ARGTYPES = {
     # The trunk leg's entry with the quantization pass; without it (the
     # older entry) lir_cascade_prefix takes no scales pointer.
     "cascade_prefill": {"lir_quantize_rows": [_P] * 3 + [_I] * 2 + [_P],
-                        "lir_cascade_prefix": [_P] * 8 + [_I] * 8 + [_P]},
+                        "lir_cascade_prefix": [_P] * 8 + [_I] * 8 + [_P],
+                        "lir_cascade_attention": [_P] * 9 + [_I] * 7 + [_P]},
+    # The projection's entry that adds the splits in the launch; the older
+    # one (a second launch adding them) takes their float32 scratch too.
+    "row_gemm": {"lir_row_gemm": [_P] * 3 + [_I] * 4 + [_P]},
 }
 _OLD_PREFIX_ARGTYPES = [_P] * 7 + [_I] * 8 + [_P]
+_OLD_GEMM_ARGTYPES = [_P] * 4 + [_I] * 4 + [_P]
 # The copy whose libraries the cases run now.
 _CURRENT = {}
 # (label, S, T, trunk_len): S = 1 is the decode step.
+# (label, K, N) of the projection cases at llama-2-7b width.
+GEMM_CASES = [("wq", 4096, 4096), ("w_up", 4096, 11008), ("w_down", 11008, 4096)]
 DECODE_CASES = [("flash_decode/T552", 1, 552, 0),
                 ("flash_decode_trunk/T552/trunk432", 1, 552, 432),
                 ("flash_decode/T114", 1, 114, 0),
@@ -91,6 +106,10 @@ def build(tag: str, csrc: Path) -> dict:
             getattr(lib, fn).restype = _I
         if name == "cascade_prefill" and not hasattr(lib, "lir_quantize_rows"):
             lib.lir_cascade_prefix.argtypes = _OLD_PREFIX_ARGTYPES
+        if name == "row_gemm":
+            lib.scratch = "void* part" in (csrc / "row_gemm.cu").read_text()
+            if lib.scratch:
+                lib.lir_row_gemm.argtypes = _OLD_GEMM_ARGTYPES
         libs[name] = lib
     return libs
 
@@ -132,9 +151,105 @@ def prefix_int8_case(gen, R=80, Tt=432):
                                          None, o.data_ptr(), m.data_ptr(),
                                          l.data_ptr(), *dims)
         _build.check(err, "cascade_prefix_int8")
-        return o.clone(), m.clone(), l.clone()
 
-    return run
+    return _with_result(run, lambda: (o.clone(), m.clone(), l.clone()))
+
+
+def _split_sum_splits(n: int, k: int) -> int:
+    """The split count of the entry with float32 scratch (a second launch
+    adds the splits): powers of two up to 4, each split at least 8
+    chunks of 64, until 264 blocks of 64 columns."""
+    n_tiles, chunks, s = -(-n // 64), -(-k // 64), 1
+    while n_tiles * s < 264 and 2 * s <= 4 and chunks // (2 * s) >= 8:
+        s *= 2
+    cps = -(-chunks // s)
+    return -(-chunks // cps)
+
+
+def gemm_case(gen, M, K, N):
+    """The row-invariant projection through the current copy's C entry:
+    Y (M, N); its float32 product for the error."""
+    x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((K, N), generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+    out = torch.empty((M, N), dtype=torch.bfloat16, device="cuda")
+    part = torch.empty((4, M, N), dtype=torch.float32, device="cuda")
+
+    def run():
+        lib = _CURRENT["row_gemm"]
+        st = torch.cuda.current_stream().cuda_stream
+        if lib.scratch:
+            err = lib.lir_row_gemm(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                                   part.data_ptr(), M, N, K, _split_sum_splits(N, K), st)
+        else:
+            err = lib.lir_row_gemm(x.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K,
+                                   ops.gemm_splits(N, K), st)
+        _build.check(err, "row_gemm")
+
+    return _with_result(run, out.clone), lambda: x.float() @ w.float()
+
+
+def cascade_case(gen, fused, R=80, Tt=432):
+    """The bf16 trunk leg (float QK^T; (o, m, l)) or the fused cascade
+    (its output) at the cascade dispatch's shape through the current
+    copy's C entry; the plain version for the error."""
+    B, H, K, hd = cs.BATCH, 32, 32, 128
+    bf = torch.bfloat16
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(bf)
+    q, tk, tv = rnd(B, R, H, hd), rnd(K, Tt, hd), rnd(K, Tt, hd)
+    sk, sv = rnd(B, R, K, hd), rnd(B, R, K, hd)
+    mask = torch.ones((B, R), dtype=torch.int32, device="cuda")
+    qpos = (Tt + torch.arange(R, dtype=torch.int32, device="cuda"))[None].expand(B, -1)
+    qpos = qpos.contiguous()
+    f32 = dict(dtype=torch.float32, device="cuda")
+    o = torch.empty((B, K, R, H // K, hd), **f32)
+    m = torch.empty((B, K, R, H // K), **f32)
+    l = torch.empty_like(m)
+    out = torch.empty_like(q)
+
+    def run():
+        lib = _CURRENT["cascade_prefill"]
+        st = torch.cuda.current_stream().cuda_stream
+        if fused:
+            err = lib.lir_cascade_attention(
+                q.data_ptr(), sk.data_ptr(), sv.data_ptr(), tk.data_ptr(), tv.data_ptr(),
+                mask.data_ptr(), qpos.data_ptr(), None, out.data_ptr(), B, R, H, K, Tt,
+                hd, 1, st)
+            _build.check(err, "cascade_attention")
+            return
+        if hasattr(lib, "lir_quantize_rows"):
+            err = lib.lir_cascade_prefix(q.data_ptr(), tk.data_ptr(), None, tv.data_ptr(),
+                                         None, o.data_ptr(), m.data_ptr(), l.data_ptr(),
+                                         B, R, H, K, Tt, hd, 1, 0, st)
+        else:
+            err = lib.lir_cascade_prefix(q.data_ptr(), tk.data_ptr(), tv.data_ptr(), None,
+                                         o.data_ptr(), m.data_ptr(), l.data_ptr(),
+                                         B, R, H, K, Tt, hd, 1, 0, st)
+        _build.check(err, "cascade_prefix")
+
+    def plain():
+        if fused:
+            return ops.cascade_attention_plain(q, sk, sv, tk, tv, mask, qpos)
+        return ops.prefix_partials(q, tk, tv, None)
+
+    result = out.clone if fused else (lambda: (o.clone(), m.clone(), l.clone()))
+    return _with_result(run, result), plain
+
+
+def _with_result(launch, result):
+    """A case of launches through a copy's C entry: calling it launches
+    and returns copies of the outputs; its ``launch`` only launches, and
+    is what is timed."""
+    def case():
+        launch()
+        return result()
+    case.launch = launch
+    return case
+
+
+def _err(got, ref) -> float:
+    if isinstance(got, tuple):
+        return max(float((g.float() - r.float()).abs().max()) for g, r in zip(got, ref))
+    return float((got.float() - ref.float()).abs().max())
 
 
 def decode_case(gen, S, T, trunk):
@@ -180,6 +295,18 @@ def main() -> int:
     cases = [(label, *decode_case(gen, S, T, trunk)) for label, S, T, trunk in DECODE_CASES]
     cases += [(f"flash_attention/S{S}", flash_case(gen, S), None) for S in FLASH_BUCKETS]
     cases.append(("cascade_prefix_int8/R80/Tt432", prefix_int8_case(gen), None))
+    # Cases whose bits may move between the copies: each copy's largest
+    # difference against the float32 product or the plain version.
+    refs = {}
+    for fused, label in ((False, "cascade_prefix/R80/Tt432"),
+                         (True, "cascade_attention/R80/Tt432")):
+        fn, refs[label] = cascade_case(gen, fused)
+        cases.append((label, fn, None))
+    for name, K, N in GEMM_CASES:
+        for M in (cs.BATCH, 4 * cs.BATCH):
+            label = f"row_gemm/{name}/M{M}"
+            fn, refs[label] = gemm_case(gen, M, K, N)
+            cases.append((label, fn, None))
     order = ["other", "this", "this", "other"] * args.rounds
     summary = {}
     for label, fn, legs in cases:
@@ -187,12 +314,20 @@ def main() -> int:
         for tag in order:
             use(copies[tag])
             outs.setdefault(tag, fn())
-            row = {"case": label, "copy": tag, "ms": cs.time_ms(fn, iters=20)}
+            row = {"case": label, "copy": tag,
+                   "ms": cs.time_ms(getattr(fn, "launch", fn), iters=20)}
             if legs is not None:
                 row["legs_ms"] = {name: cs.time_ms(leg, iters=20)
                                   for name, leg in legs().items()}
             summary.setdefault((label, tag), []).append(row["ms"])
             print(json.dumps(row), flush=True)
+        if label in refs:
+            ref = refs[label]()
+            errs = {tag: _err(outs[tag], ref) for tag in ("other", "this")}
+            print(json.dumps({"case": label, "max_abs_err_vs_reference": errs,
+                              "bitwise_equal": _err(outs["other"], outs["this"]) == 0.0}),
+                  flush=True)
+            continue
         if isinstance(outs["other"], tuple):
             (oa, ma, la), (ob, mb, lb) = outs["other"], outs["this"]
             same = {"row_max_bitwise_equal": bool(torch.equal(ma, mb)),

@@ -74,7 +74,6 @@ struct Dims {
   static constexpr size_t ring_bytes(int stages) {
     return size_t(2) * stages * kTile * sizeof(bf16);
   }
-  static constexpr size_t kBytes = ring_bytes(kStages);
 };
 static_assert(16 * kWarps <= 2 * kKeys, "the Q tile fits one ring stage");
 
@@ -246,13 +245,11 @@ __device__ __forceinline__ void qk_tile(const uint32_t (&qf)[Dims<HD>::kKS][4],
 }
 
 // Online-softmax update of one warp's rows with a fixed-up score tile
-// (-inf where masked), then acc.o = acc.o * factor + P V, with P split in
-// hi + lo over the same V fragments where kSplitP.
-template <int HD, bool kSplitP>
-__device__ __forceinline__ void softmax_pv(float (&s)[8][4], const bf16* vs, Acc<HD>& acc) {
-  constexpr int kLd = Dims<HD>::kLd;
-  const int lane = threadIdx.x & 31;
-  float f[2];
+// (-inf where masked): s becomes P = exp(s - m_new), m and l (per row
+// half: 0 is row g, 1 is row g + 8) move on, and f[h] is the factor of the
+// row's old accumulator.
+__device__ __forceinline__ void online_rows(float (&s)[8][4], float (&m)[2], float (&l)[2],
+                                            float (&f)[2]) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     // Max and sum over the lane's 16 scores of the row as pairwise trees
@@ -267,7 +264,7 @@ __device__ __forceinline__ void softmax_pv(float (&s)[8][4], const bf16* vs, Acc
     float mx = t[0];
     mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
     mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
-    const float m_old = acc.m[h];
+    const float m_old = m[h];
     const float m_new = fmaxf(m_old, mx);
     // exp(x - m) as exp2((x - m) * log2 e); a masked x (-inf) gives 0, and
     // while the row has seen no valid key m is taken as 0 so that no
@@ -288,9 +285,30 @@ __device__ __forceinline__ void softmax_pv(float (&s)[8][4], const bf16* vs, Acc
     sum = __fadd_rn(sum, __shfl_xor_sync(kFull, sum, 1));
     sum = __fadd_rn(sum, __shfl_xor_sync(kFull, sum, 2));
     f[h] = exp2_ftz(__fmul_rn(__fsub_rn(m_old, m_use), kLog2e));
-    acc.l[h] = __fadd_rn(__fmul_rn(acc.l[h], f[h]), sum);
-    acc.m[h] = m_new;
+    l[h] = __fadd_rn(__fmul_rn(l[h], f[h]), sum);
+    m[h] = m_new;
   }
+}
+
+// The A fragments of P's keys 16 kk .. 16 kk + 15 (n-tiles 2 kk and
+// 2 kk + 1 of the score tile), split as bf16 hi + lo.
+__device__ __forceinline__ void p_fragments(const float (&s)[8][4], int kk, uint32_t (&hi)[4],
+                                            uint32_t (&lo)[4]) {
+  split2(s[2 * kk][0], s[2 * kk][1], hi[0], lo[0]);
+  split2(s[2 * kk][2], s[2 * kk][3], hi[1], lo[1]);
+  split2(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[2], lo[2]);
+  split2(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[3], lo[3]);
+}
+
+// Online-softmax update of one warp's rows with a fixed-up score tile
+// (-inf where masked), then acc.o = acc.o * factor + P V, with P split in
+// hi + lo over the same V fragments where kSplitP.
+template <int HD, bool kSplitP>
+__device__ __forceinline__ void softmax_pv(float (&s)[8][4], const bf16* vs, Acc<HD>& acc) {
+  constexpr int kLd = Dims<HD>::kLd;
+  const int lane = threadIdx.x & 31;
+  float f[2];
+  online_rows(s, acc.m, acc.l, f);
 #pragma unroll
   for (int j = 0; j < Dims<HD>::kNT; ++j) {
     acc.o[j][0] = __fmul_rn(acc.o[j][0], f[0]);
@@ -305,10 +323,7 @@ __device__ __forceinline__ void softmax_pv(float (&s)[8][4], const bf16* vs, Acc
   for (int kk = 0; kk < 4; ++kk) {
     // A operand of keys 16 kk .. 16 kk + 15: n-tiles 2 kk and 2 kk + 1 of P.
     uint32_t hi[4], lo[4];
-    split2(s[2 * kk][0], s[2 * kk][1], hi[0], lo[0]);
-    split2(s[2 * kk][2], s[2 * kk][3], hi[1], lo[1]);
-    split2(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[2], lo[2]);
-    split2(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[3], lo[3]);
+    p_fragments(s, kk, hi, lo);
     // All V fragments of the k-step first, then the hi products, then the
     // lo ones: no product waits on the one just issued.
     uint32_t b[HD / 16][4];

@@ -51,20 +51,23 @@
 // against 18 GFLOP (~21 us of bytes, ~18 us of bf16 tensor-core time).
 // Both sit at or under the card's bf16 ridge (~295 FLOP per byte).
 //
-// The bf16 route (the main path's dtype) runs on tensor cores, from the
-// tile code of attn_mma.cuh (cascade_mma_kernel, prefix_mma_kernel,
-// prefix_imma_kernel): mma.sync with ldmatrix operands, a cp.async ring of
-// 64-key K/V tiles, Q held in registers, the online softmax in registers,
-// and P V in two passes over P = bf16 hi + bf16 lo, which keeps the
-// float32 partials within 1e-3 of the float32 reference.
+// The bf16 route (the main path's dtype) runs on tensor cores, with the
+// online softmax in registers and P V in two passes over P = bf16 hi +
+// bf16 lo, which keeps the float32 partials within 1e-3 of the float32
+// reference.
 // - The kernels tile the queries the same way: flattened rows
 //   n = (b * R + r) * G + g of one kv head over ALL batch rows, 16 a warp,
-//   four warps a block (the last tile's rows past N = B * R * G are
-//   zero-filled and never written).
-// - Trunk leg (prefix_mma_kernel, and step (1) of the fused kernel): each
-//   block walks the whole trunk of its kv head, the last key tile masked
-//   past Tt; o leaves the accumulator fragments as 16-byte stores.
-// - Window walk: a block walks the windows of the batch rows its queries
+//   64 (a warpgroup) a block of the fused kernel and the suffix merge, 128
+//   (two) a block of the trunk leg (the last tile's rows past
+//   N = B * R * G are zero-filled and never written).
+// - Trunk walk (prefix_wgmma_kernel, and step (1) of the fused kernel):
+//   attn_wgmma.cuh's wgmma walk over the trunk of the block's kv head,
+//   its 64-key tiles by TMA into an mbarrier ring, the last tile masked
+//   past Tt; o leaves the accumulator fragments as 16-byte stores. Its
+//   accumulator is attn_mma's per-warp fragment layout, which the window
+//   walk and the merge take as they are.
+// - Window walk (mma.sync with ldmatrix operands, a cp.async ring of
+//   64-key tiles, attn_mma.cuh): a block walks the windows of the batch rows its queries
 //   belong to (mask-aware, causal, ALiBi on the key's position; a row sees
 //   only its own batch row's window).
 // - The fused kernel keeps (o_t) in shared memory between the walks (two
@@ -99,10 +102,13 @@
 
 #include "attn_mma.cuh"
 #include "attn_tile.cuh"
+#include "attn_wgmma.cuh"
 
 namespace {
 
 namespace am = attn_mma;
+namespace aw = attn_wgmma;
+namespace hp = hopper;
 namespace tile = attn_tile;
 
 struct Args {
@@ -484,17 +490,6 @@ cudaError_t launch_flat(void (*kernel)(Args), const Args& a, size_t smem, cudaSt
   return cudaGetLastError();
 }
 
-// Key k of the trunk (rows past Tt zero-filled).
-struct PrefixKV {
-  const bf16 *tk, *tv;
-  int kh, Tt, hd;
-  __device__ __forceinline__ am::KVRow operator()(int key) const {
-    const bool ok = key < Tt;
-    const size_t off = (size_t(kh) * Tt + (ok ? key : 0)) * hd;
-    return {tk + off, tv + off, ok};
-  }
-};
-
 // Scores of one warp's tile: scale, ALiBi on slot positions, -inf past Tt.
 struct PrefixFix {
   float sm_scale;
@@ -532,7 +527,7 @@ struct LaneRows {
   float slope[2];  // their ALiBi slopes
 };
 
-__device__ __forceinline__ LaneRows lane_rows(const Args& a, int n0) {
+__device__ __forceinline__ LaneRows lane_rows(const Args& a, int n0, int kh) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int G = a.H / a.K;
@@ -541,48 +536,114 @@ __device__ __forceinline__ LaneRows lane_rows(const Args& a, int n0) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int n = lr.nr + 8 * h;
-    if (a.slopes != nullptr && n < N) lr.slope[h] = a.slopes[blockIdx.y * G + n % G];
+    if (a.slopes != nullptr && n < N) lr.slope[h] = a.slopes[kh * G + n % G];
   }
   return lr;
 }
 
-// The bf16 trunk leg's walk (kSt ring stages), prefix_mma_kernel's and the
-// fused kernel's step (1): Q tile copies issued, then the trunk.
+// Arguments of the kernels that walk the trunk by TMA: its tensor maps
+// (in kernel parameter space, where TMA reads them) and the rest.
+struct TrunkArgs {
+  CUtensorMap tk;  // trunk k (K, Tt, hd)
+  CUtensorMap tv;  // trunk v
+  Args a;
+};
+
+// Ring stages of the trunk-leg kernel's walk (two warpgroups and a
+// producer warp a block, one block an SM), and of the fused kernel's (one
+// warpgroup; its tiles, reused by the window walk's ring and the o_t
+// stash, fit two blocks an SM).
+constexpr int kPrefixStages = 5;
+constexpr int kFusedTrunkStages = 2;
+constexpr int kPrefixWG = 2;
+constexpr int kPrefixThreads = kPrefixWG * 128 + 32;
+
+// The block's trunk (kv head blockIdx.y) and its Q tiles (rows n0 .. n0 +
+// rows - 1, 64 a warpgroup) in shared memory at smem, barriers at bars;
+// the Q copies issued and committed by every thread. consumer_warps: the
+// arrivals that free a stage where a producer warp refills the ring.
 template <int HD, int kSt>
-__device__ __forceinline__ void trunk_walk_mma(const Args& a, bf16* ring, int n0, bool active,
-                                               const LaneRows& lr, am::Acc<HD>& acc) {
+__device__ __forceinline__ aw::Trunk trunk_setup(const TrunkArgs& ta, unsigned char* smem,
+                                                 uint64_t* bars, int n0, int rows,
+                                                 int consumer_warps) {
+  using W = aw::Dims<HD>;
+  const Args& a = ta.a;
   const int kh = blockIdx.y;
   const int G = a.H / a.K;
-  const int N = a.B * a.R * G;
-  am::load_rows<HD>(am::q_stage<HD, kSt>(ring), (blockDim.x >> 5) * 16,
-                    FlatQ{static_cast<const bf16*>(a.q), n0, N, kh, G, a.H, HD});
-  const PrefixKV key{static_cast<const bf16*>(a.tk), static_cast<const bf16*>(a.tv), kh, a.Tt,
-                     HD};
-  const PrefixFix fix{a.sm_scale, a.slopes != nullptr, a.Tt, 2 * int(threadIdx.x & 3),
-                      {lr.slope[0], lr.slope[1]}};
-  am::acc_init<HD>(acc);
-  am::key_loop<HD, true, kSt>(ring, (a.Tt + am::kKeys - 1) / am::kKeys, active, key, fix, acc);
+  const aw::Trunk tr{smem + (rows / 64) * W::kTile, bars, bars + kSt, &ta.tk, &ta.tv, kh,
+                     (a.Tt + am::kKeys - 1) / am::kKeys};
+  aw::init_ring<kSt>(tr, consumer_warps);
+  aw::load_q<HD>(smem, rows, FlatQ{static_cast<const bf16*>(a.q), n0, a.B * a.R * G, kh, G, a.H,
+                                   HD});
+  am::cp_async_commit();
+  return tr;
 }
 
-// The bf16 trunk leg on tensor cores. Grid (ceil(N / rows), K) with
-// N = B * R * G flattened queries, rows = 16 * blockDim.x / 32.
+// The Q copies landed and visible to wgmma, every barrier initialised.
+__device__ __forceinline__ void q_ready() {
+  am::cp_async_wait<0>();
+  hp::fence_proxy_async();
+  __syncthreads();
+}
+
+__device__ __forceinline__ PrefixFix prefix_fix(const Args& a, const LaneRows& lr) {
+  return PrefixFix{a.sm_scale, a.slopes != nullptr, a.Tt, 2 * int(threadIdx.x & 3),
+                   {lr.slope[0], lr.slope[1]}};
+}
+
+// Shared memory of the trunk leg: tiles (a Q tile a warpgroup, then the
+// ring), full and empty barriers.
 template <int HD>
-__global__ void __launch_bounds__(am::kWarps * 32) prefix_mma_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char prefix_mma_smem[];
-  bf16* ring = reinterpret_cast<bf16*>(prefix_mma_smem);
+struct PrefixSmem {
+  static constexpr size_t kTiles =
+      size_t(kPrefixWG) * aw::Dims<HD>::kTile + size_t(kPrefixStages) * aw::Dims<HD>::kStage;
+  static constexpr size_t kBytes = kTiles + 16 * kPrefixStages;
+};
+
+// The bf16 trunk leg on wgmma: two warpgroups of 64 flattened queries a
+// block over one ring, and a producer warp that refills it. Grid
+// (ceil(N / 128), K), N = B * R * G.
+template <int HD>
+__global__ void __launch_bounds__(kPrefixThreads, 1)
+    prefix_wgmma_kernel(const __grid_constant__ TrunkArgs ta) {
+  extern __shared__ unsigned char prefix_wgmma_smem_raw[];
+  unsigned char* smem = hp::aligned_smem(prefix_wgmma_smem_raw);
+  const Args& a = ta.a;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int G = a.H / a.K;
   const int RG = a.R * G;
   const int N = a.B * RG;
-  const int n0 = blockIdx.x * (blockDim.x >> 5) * 16;
-  const LaneRows lr = lane_rows(a, n0);
-  const bool active = n0 + warp * 16 < N;
+  const int n0 = blockIdx.x * kPrefixWG * 64;
+  constexpr int kSt = kPrefixStages;
+  const aw::Trunk tr =
+      trunk_setup<HD, kSt>(ta, smem, reinterpret_cast<uint64_t*>(smem + PrefixSmem<HD>::kTiles),
+                           n0, kPrefixWG * 64, kPrefixWG * 4);
+  if (threadIdx.x == kPrefixWG * 128)
+    for (int t = 0; t < kSt && t < tr.n_tiles; ++t) aw::issue_tile<HD>(tr, t, t);
+  q_ready();
+  if (warp == kPrefixWG * 4) {
+    // Producer warp: tile t into its stage once tile t - kSt has left it.
+    if (lane == 0)
+      for (int t = kSt; t < tr.n_tiles; ++t) {
+        hp::mbar_wait(&tr.empty[t % kSt], (t / kSt - 1) & 1);
+        aw::issue_tile<HD>(tr, t % kSt, t);
+      }
+    return;
+  }
+  const LaneRows lr = lane_rows(a, n0, blockIdx.y);
+  float o[aw::Dims<HD>::kAcc], m[2], l[2];
+  aw::trunk_walk<HD, kSt>(
+      tr, smem + (threadIdx.x >> 7) * aw::Dims<HD>::kTile, prefix_fix(a, lr),
+      [&](int t) {
+        __syncwarp();
+        if (lane == 0) hp::mbar_arrive(&tr.empty[t % kSt]);
+      },
+      o, m, l);
+  if (n0 + warp * 16 >= N) return;
   am::Acc<HD> acc;
-  trunk_walk_mma<HD, am::kStages>(a, ring, n0, active, lr, acc);
-  if (!active) return;
-  const PrefixStore store{a.o, N, RG, a.K, int(blockIdx.y), HD, lr.nr};
-  am::store_rows<HD>(acc, store);
+  aw::to_acc<HD>(o, m, l, acc);
+  am::store_rows<HD>(acc, PrefixStore{a.o, N, RG, a.K, int(blockIdx.y), HD, lr.nr});
   if ((lane & 3) == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -639,29 +700,42 @@ struct WindowFix {
   }
 };
 
-// Ring stages of the fused kernel and the suffix merge: two, which leave
-// room for the fused kernel's (o_t) stash at two blocks an SM and fit
-// three suffix-merge blocks an SM (its walk is two or three tiles). The
-// depth of the ring moves no bit.
+// Ring stages of the window walk of the fused kernel and the suffix
+// merge: two, which leave room for the fused kernel's (o_t) stash at two
+// blocks an SM and fit three suffix-merge blocks an SM (its walk is two
+// or three tiles). The depth of a ring moves no bit. Both take 64 rows (a
+// warpgroup) a block, whatever N.
 constexpr int kCascadeStages = 2;
 
+// Shared memory of the fused kernel (its tiles: the trunk walk's Q tile
+// and ring, then, over the same bytes, the window walk's ring and the o_t
+// stash; then the trunk ring's barriers) and of the suffix merge (the
+// window ring).
 template <int HD, bool kFused>
-constexpr size_t cascade_mma_smem() {
-  return am::Dims<HD>::ring_bytes(kCascadeStages) +
-         (kFused ? size_t(am::kWarps) * 32 * am::Dims<HD>::kNT * 4 * sizeof(float) : 0);
-}
+struct CascadeSmem {
+  static constexpr size_t kWindow =
+      am::Dims<HD>::kTile * 2 * sizeof(bf16) * kCascadeStages +
+      (kFused ? size_t(am::kWarps) * 32 * am::Dims<HD>::kNT * 4 * sizeof(float) : 0);
+  static constexpr size_t kTrunk =
+      kFused ? aw::Dims<HD>::kTile + size_t(kFusedTrunkStages) * aw::Dims<HD>::kStage : 0;
+  static constexpr size_t kTiles = kWindow > kTrunk ? kWindow : kTrunk;
+  static constexpr size_t kBytes = kTiles + (kFused ? 16 * kFusedTrunkStages : 0);
+};
 
 // Fused cascade (kFused: step (1) is the trunk walk) or suffix merge (step
 // (1) reads the trunk partials), then the window walk and the merge. Grid
-// (ceil(N / rows), K) with N = B * R * G flattened queries.
+// (ceil(N / 64), K) with N = B * R * G flattened queries, four warps.
 template <int HD, bool kFused>
-__global__ void __launch_bounds__(am::kWarps * 32) cascade_mma_kernel(Args a) {
+__global__ void __launch_bounds__(am::kWarps * 32)
+    cascade_mma_kernel(const __grid_constant__ TrunkArgs ta) {
   using D = am::Dims<HD>;
-  extern __shared__ __align__(16) unsigned char cascade_mma_smem[];
-  bf16* ring = reinterpret_cast<bf16*>(cascade_mma_smem);
+  extern __shared__ unsigned char cascade_mma_smem_raw[];
+  unsigned char* smem = hp::aligned_smem(cascade_mma_smem_raw);
+  const Args& a = ta.a;
+  bf16* ring = reinterpret_cast<bf16*>(smem);
   constexpr int kSt = kCascadeStages;
   constexpr size_t kRing = size_t(2) * kSt * D::kTile * sizeof(bf16);
-  float* stash = reinterpret_cast<float*>(cascade_mma_smem + kRing);
+  float* stash = reinterpret_cast<float*>(smem + kRing);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int kh = blockIdx.y;
@@ -670,7 +744,7 @@ __global__ void __launch_bounds__(am::kWarps * 32) cascade_mma_kernel(Args a) {
   const int N = a.B * RG;
   const int rows = (blockDim.x >> 5) * 16;
   const int n0 = blockIdx.x * rows;
-  const LaneRows lr = lane_rows(a, n0);
+  const LaneRows lr = lane_rows(a, n0, blockIdx.y);
   const bool active = n0 + warp * 16 < N;
 
   // Step 1: the trunk partial. Fused: the trunk leg's walk, its o_t
@@ -679,7 +753,22 @@ __global__ void __launch_bounds__(am::kWarps * 32) cascade_mma_kernel(Args a) {
   am::Acc<HD> acc;
   float m_t[2], l_t[2];
   if constexpr (kFused) {
-    trunk_walk_mma<HD, kSt>(a, ring, n0, active, lr, acc);
+    // One warpgroup: thread 0 refills a stage after a block barrier.
+    constexpr int kTS = kFusedTrunkStages;
+    const aw::Trunk tr = trunk_setup<HD, kTS>(
+        ta, smem, reinterpret_cast<uint64_t*>(smem + CascadeSmem<HD, true>::kTiles), n0, rows, 0);
+    if (threadIdx.x == 0)
+      for (int t = 0; t < kTS && t < tr.n_tiles; ++t) aw::issue_tile<HD>(tr, t, t);
+    q_ready();
+    float o[aw::Dims<HD>::kAcc], m[2], l[2];
+    aw::trunk_walk<HD, kTS>(
+        tr, smem, prefix_fix(a, lr),
+        [&](int t) {
+          __syncthreads();
+          if (threadIdx.x == 0 && t + kTS < tr.n_tiles) aw::issue_tile<HD>(tr, t % kTS, t + kTS);
+        },
+        o, m, l);
+    aw::to_acc<HD>(o, m, l, acc);
     float* st = stash + size_t(warp) * D::kNT * 4 * 32 + lane;
 #pragma unroll
     for (int j = 0; j < D::kNT; ++j)
@@ -690,6 +779,8 @@ __global__ void __launch_bounds__(am::kWarps * 32) cascade_mma_kernel(Args a) {
       m_t[h] = acc.m[h];
       l_t[h] = acc.l[h];
     }
+    hp::fence_proxy_async();  // the window walk's copies reuse the trunk's bytes
+    __syncthreads();
   } else {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -835,7 +926,7 @@ __global__ void __launch_bounds__(am::kWarps * 32) prefix_imma_kernel(Args a) {
   const int N = a.B * RG;
   const int n0 = blockIdx.x * (blockDim.x >> 5) * 16;
   const int n_tiles = (a.Tt + am::kKeys - 1) / am::kKeys;
-  const LaneRows lr = lane_rows(a, n0);
+  const LaneRows lr = lane_rows(a, n0, blockIdx.y);
   const bool active = n0 + warp * 16 < N;
   const int8_t* tk8 = static_cast<const int8_t*>(a.tk);
   const bf16* tv = static_cast<const bf16*>(a.tv);
@@ -955,6 +1046,26 @@ __global__ void __launch_bounds__(am::kWarps * 32) prefix_imma_kernel(Args a) {
   }
 }
 
+// Launch of a kernel of TrunkArgs: grid (ceil(N / (64 wgs)), K) over N
+// flattened queries of K kv heads, wgs warpgroups (of query rows) a block
+// of ``threads``; with maps, the trunk's tensor maps.
+cudaError_t launch_trunk(void (*kernel)(TrunkArgs), const Args& a, int hd, size_t smem, int wgs,
+                         int threads, bool maps, cudaStream_t st) {
+  TrunkArgs ta{};
+  ta.a = a;
+  if (maps && !(aw::trunk_map(&ta.tk, a.tk, a.K, a.Tt, hd) &&
+                aw::trunk_map(&ta.tv, a.tv, a.K, a.Tt, hd)))
+    return cudaErrorInvalidValue;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return e;
+  const long long N = (long long)a.B * a.R * (a.H / a.K);
+  const int rows = 64 * wgs;
+  dim3 grid(unsigned((N + rows - 1) / rows), a.K);
+  kernel<<<grid, threads, smem, st>>>(ta);
+  return cudaGetLastError();
+}
+
 // ---------------------------------------------------------------------------
 // Dispatch by head dim.
 // ---------------------------------------------------------------------------
@@ -977,11 +1088,14 @@ cudaError_t launch_hd(Op op, int dtype, const Args& a, cudaStream_t st) {
   }
   switch (op) {
     case Op::kFused:
-      return launch_flat(cascade_mma_kernel<HD, true>, a, cascade_mma_smem<HD, true>(), st);
+      return launch_trunk(cascade_mma_kernel<HD, true>, a, HD, CascadeSmem<HD, true>::kBytes, 1,
+                          128, true, st);
     case Op::kSuffixMerge:
-      return launch_flat(cascade_mma_kernel<HD, false>, a, cascade_mma_smem<HD, false>(), st);
+      return launch_trunk(cascade_mma_kernel<HD, false>, a, HD, CascadeSmem<HD, false>::kBytes,
+                          1, 128, false, st);
     case Op::kPrefix:
-      return launch_flat(prefix_mma_kernel<HD>, a, am::Dims<HD>::kBytes, st);
+      return launch_trunk(prefix_wgmma_kernel<HD>, a, HD, PrefixSmem<HD>::kBytes, kPrefixWG,
+                          kPrefixThreads, true, st);
     case Op::kPrefixInt8:
       return launch_flat(prefix_imma_kernel<HD>, a, Imma<HD>::kBytes, st);
   }

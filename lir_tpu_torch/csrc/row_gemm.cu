@@ -13,195 +13,243 @@
 // Here they do not:
 //
 // - row_gemm_kernel: Y (M, N) = X (M, K) @ W (K, N), bf16 in, float32
-//   sums, bf16 out. Each output element is one chain of mma.sync
-//   m16n8k16 steps over k in order, from a zero accumulator, within each
-//   of ``splits`` ranges of K; the ranges' float32 partials are then
-//   added in split order (split_sum_kernel). The split count comes from
-//   (N, K) alone (ops/row_gemm.py gemm_splits), never from M, and a
-//   tensor-core product of a row depends on that row and the weights
-//   only. So a row's bits are the same at M = 1, 32 or 128, in any place
-//   among the rows. The rows a block takes (16 to 128: MT m16-tiles) and
-//   the warps that take them vary with M; the chain does not.
+//   sums, bf16 out. Each output element is one chain of wgmma k16 steps
+//   over k in order, from a zero accumulator, within each of ``splits``
+//   ranges of K; the ranges' float32 partials are then added in split
+//   order, in the same launch. The split count comes from (N, K) alone
+//   (ops/row_gemm.py gemm_splits), never from M. Every product is the one
+//   instruction m64n32k16 (swap AB: 64 weight columns x 32 rows of X), at
+//   every M: only the number of such products covering the rows varies,
+//   and an output column of a wgmma depends on its own row of X and the
+//   weights only. So a row's bits are the same at M = 1, 32 or 128, in
+//   any place among the rows.
 // - row_norm_kernel: RMSNorm or LayerNorm of one row a block, the row's
 //   sums in a fixed order (each thread's strided elements in order, then a
 //   fixed shuffle tree, then the four warps in order).
 //
 // What bounds them on the H100: bytes. A decode step at llama-2-7b width
-// streams 404 MB of bf16 weights a layer (wq, wk, wv, wo 4 x 34 MB;
+// streams 405 MB of bf16 weights a layer (wq, wk, wv, wo 4 x 34 MB;
 // w_up, w_gate, w_down 3 x 90 MB) against 2 * M * 202 M FLOP: at
 // M = 128 (B = 32, spec_k = 4) 52 GFLOP, 128 FLOP a byte, under the bf16
-// ridge (~295 FLOP a byte). So the design streams each weight
-// slice once: a block owns 64 output columns and one K range, and a
-// 4-stage cp.async ring of 64-deep X and W tiles keeps three stages of
-// copies in flight while one multiplies; W fragments come by
-// ldmatrix.trans straight from its (K, N) row-major layout (the
-// converter's layout, one copy of the weights). A verify window reads
-// each weight once for all its B * spec_k rows (up to 128 a block).
+// ridge (~295 FLOP a byte). So the design streams each weight slice once
+// and keeps the copies off the threads that multiply:
+// - Swap AB. A 64-column slice of W, in the converter's (K, N) row-major
+//   layout (one copy of the weights), is wgmma's 64-row A operand straight
+//   from its TMA tile (MN-major, the transpose bit); a 32-row group of X is
+//   the B operand (K-major). Output columns fill the m64 side at any M.
+// - A block is one producer warp, which keeps a ring of 64-deep stages
+//   (W 128 columns, X up to 128 rows: 20-32 KB a stage; 5 stages at 32
+//   rows, 3 at 128, two blocks an SM) filled by TMA with the 128-byte
+//   swizzle, and two consumer warpgroups, 64 columns each, that share each
+//   X tile (X is read from L2 once per 128 columns, not per 64).
+// - The split reduction is in the launch: the splits of a 128-column
+//   tile run as one thread-block cluster, each split's CTA stages its
+//   float32 partial in its own shared memory, and after a cluster barrier
+//   every CTA adds a share of the tile's rows p0 + p1 + ... in split order
+//   from the cluster's shared memory (DSMEM) and writes bf16. No partial
+//   reaches device memory and nothing is kept between launches. Which CTA
+//   adds an element moves no bit.
+// - Blocks in flight together take neighbouring column tiles of one K
+//   range (split), so the weight's rows stream from device memory whole.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "attn_mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-namespace am = attn_mma;
-using am::bf16;
+namespace hp = hopper;
+using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 128;  // four warps; warp w owns columns 16 w .. 16 w + 15
-constexpr int kBN = 64;        // output columns a block
-constexpr int kBK = 64;        // depth of one ring stage
-constexpr int kStages = 4;     // ring stages
-constexpr int kLdX = kBK + 8;  // X tile row stride (elements): 9 16-byte chunks
-constexpr int kLdW = kBN + 8;  // W tile row stride (elements): 9 16-byte chunks
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kBK = 64;                             // depth of a ring stage
+constexpr int kRows = 32;                           // rows of one wgmma (its n), at every M
+constexpr int kGroups = 4;                          // row groups of a block: 128 rows
+constexpr int kConsumers = 2;                       // consumer warpgroups, 64 columns each
+constexpr int kTileN = 64 * kConsumers;             // output columns of a block
+constexpr int kThreads = kConsumers * 128 + 32;     // + the producer warp
+constexpr int kWBytes = kBK * 64 * 2;               // one warpgroup's W tile of a stage
+constexpr int kXBytes = kRows * kBK * 2;            // one row group's X tile of a stage
+constexpr int kMaxStages = 8;
+constexpr int kMaxSplits = 8;                       // a portable cluster
+constexpr int kSmemBudget = 113 * 1024;             // two blocks an SM
+constexpr int kLdP = kTileN + 4;                    // staged partial row (floats)
 
-struct GemmArgs {
-  const bf16* x;  // (M, K)
-  const bf16* w;  // (K, N)
-  bf16* out;      // (M, N)
-  float* part;    // (splits, M, N) when splits > 1
-  int M, N, K, splits, cps;  // cps: 64-deep chunks a split
+struct GemmParams {
+  CUtensorMap wmap;  // W (K, N): dims {N, K}, boxes {64, 64}
+  CUtensorMap xmap;  // X (M, K): dims {K, M}, boxes {64, 32}
+  bf16* out;         // (M, N)
+  int M, N, splits, cps, nk, n_tiles, m_blocks, groups_max, stages;
 };
 
-template <int MT>
-constexpr size_t gemm_smem() {
-  return size_t(kStages) * (MT * 16 * kLdX + kBK * kLdW) * sizeof(bf16);
+// Four floats at ``p``'s offset in the shared memory of cluster block
+// ``rank``.
+__device__ __forceinline__ float4 ld_cluster4(const float* p, uint32_t rank) {
+  const uint32_t remote = hp::cluster_addr(p, rank);
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(remote)
+               : "memory");
+  return v;
 }
 
-// Grid (ceil(N / kBN), splits, ceil(M / (16 MT))).
-template <int MT>
-__global__ void __launch_bounds__(kThreads) row_gemm_kernel(GemmArgs a) {
-  extern __shared__ __align__(16) unsigned char row_gemm_smem[];
-  bf16* xs = reinterpret_cast<bf16*>(row_gemm_smem);
-  bf16* ws = xs + kStages * MT * 16 * kLdX;
+// Grid: m_blocks * n_tiles * splits blocks of kThreads in clusters of
+// ``splits`` (one per split of a (row block, column tile)); dynamic
+// shared memory stages * (stage bytes + 16): the ring, then its barriers.
+__global__ void __launch_bounds__(kThreads, 2)
+    row_gemm_kernel(const __grid_constant__ GemmParams p) {
+  extern __shared__ unsigned char row_gemm_smem[];
+  unsigned char* ring = hp::aligned_smem(row_gemm_smem);
+  const int stage_bytes = kConsumers * kWBytes + p.groups_max * kXBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + p.stages * stage_bytes);
+  uint64_t* empty = full + p.stages;
   const int tid = threadIdx.x;
+  // The block: split (its rank in the cluster) of column tile col and row
+  // block mb; neighbouring clusters take neighbouring column tiles.
+  const int split = int(blockIdx.x) % p.splits;
+  const int q = int(blockIdx.x) / p.splits;
+  const int col = q / p.m_blocks;
+  const int mb = q - col * p.m_blocks;
+  const int n0 = col * kTileN;
+  const int m0 = mb * kRows * kGroups;
+  const int groups = min(kGroups, (p.M - m0 + kRows - 1) / kRows);
+  const int c_lo = split * p.cps;
+  const int nc = min(c_lo + p.cps, p.nk) - c_lo;
+  if (tid == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], kConsumers * 4);
+    }
+    hp::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // Consumer warpgroup wg: output columns n0 + 64 wg .. + 63.
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3;
   const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n0 = blockIdx.x * kBN;
-  const int split = blockIdx.y;
-  const int m0 = blockIdx.z * MT * 16;
-  const int nk = (a.K + kBK - 1) / kBK;
-  const int c_lo = split * a.cps;
-  const int nc = min(c_lo + a.cps, nk) - c_lo;
-
-  // Copies of chunk c (k0 = 64 (c_lo + c)) into stage st; rows past M,
-  // depths past K and columns past N are zero-filled by the copy.
-  auto load = [&](int c, int st) {
-    const int k0 = (c_lo + c) * kBK;
-    bf16* xd = xs + st * MT * 16 * kLdX;
-    bf16* wd = ws + st * kBK * kLdW;
-    for (int i = tid; i < MT * 16 * 8; i += kThreads) {
-      const int r = i >> 3;
-      const int k = k0 + (i & 7) * 8;
-      const bool ok = m0 + r < a.M && k < a.K;
-      am::cp_async16(xd + r * kLdX + (i & 7) * 8,
-                     ok ? a.x + size_t(m0 + r) * a.K + k : a.x, ok);
-    }
-    for (int i = tid; i < kBK * 8; i += kThreads) {
-      const int r = i >> 3;
-      const int n = n0 + (i & 7) * 8;
-      const bool ok = k0 + r < a.K && n < a.N;
-      am::cp_async16(wd + r * kLdW + (i & 7) * 8,
-                     ok ? a.w + size_t(k0 + r) * a.N + n : a.w, ok);
-    }
-  };
-
-  float acc[MT][2][4];
+  const bool active = n0 + 64 * wg < p.N;
+  float acc[kGroups][16];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+  for (int g = 0; g < kGroups; ++g)
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nc) load(s, s);
-    am::cp_async_commit();
-  }
-  for (int c = 0; c < nc; ++c) {
-    const int ahead = c + kStages - 1;
-    if (ahead < nc) load(ahead, ahead % kStages);
-    am::cp_async_commit();
-    am::cp_async_wait<kStages - 1>();  // chunk c has landed
-    __syncthreads();
-    const bf16* xt = xs + (c % kStages) * MT * 16 * kLdX;
-    const bf16* wt = ws + (c % kStages) * kBK * kLdW;
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      // B of k-step kk for the warp's two n-tiles: W rows (depths)
-      // (lane & 7) + 8 ((lane / 8) & 1), column half lane / 16.
-      uint32_t b[4];
-      am::ldmatrix_x4_trans(
-          b, wt + (kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3)) * kLdW + warp * 16 +
-                 (lane >> 4) * 8);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        uint32_t af[4];
-        am::ldmatrix_x4(af, xt + (mt * 16 + (lane & 15)) * kLdX + kk * 16 + (lane >> 4) * 8);
-        am::mma_bf16(acc[mt][0], af, b[0], b[1]);
-        am::mma_bf16(acc[mt][1], af, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // the next copies reuse this stage
-  }
-
-  // Accumulator element {row g + 8 h, columns c, c + 1} of n-tile j.
-  const int g = lane >> 2;
-  const int cc = 2 * (lane & 3);
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + mt * 16 + g + 8 * h;
-        const int col = n0 + warp * 16 + j * 8 + cc;
-        if (row >= a.M || col >= a.N) continue;
-        const float v0 = acc[mt][j][2 * h];
-        const float v1 = acc[mt][j][2 * h + 1];
-        if (a.splits == 1) {
-          *reinterpret_cast<__nv_bfloat162*>(a.out + size_t(row) * a.N + col) =
-              __floats2bfloat162_rn(v0, v1);
-        } else {
-          *reinterpret_cast<float2*>(a.part + (size_t(split) * a.M + row) * a.N + col) =
-              make_float2(v0, v1);
+    for (int e = 0; e < 16; ++e) acc[g][e] = 0.f;
+  if (tid >= kConsumers * 128) {
+    // Producer warp: one thread fills the ring.
+    if (tid == kConsumers * 128) {
+      const int wtiles = min(kConsumers, (p.N - n0 + 63) / 64);
+      const uint32_t bytes = wtiles * kWBytes + groups * kXBytes;
+      int st = 0;
+      uint32_t ph = 0;
+      for (int c = 0; c < nc; ++c) {
+        hp::mbar_wait(&empty[st], ph ^ 1);
+        hp::mbar_expect_tx(&full[st], bytes);
+        unsigned char* s = ring + st * stage_bytes;
+        const int k0 = (c_lo + c) * kBK;
+        for (int w = 0; w < wtiles; ++w)
+          hp::tma_load_2d(s + w * kWBytes, &p.wmap, &full[st], n0 + 64 * w, k0);
+        for (int g = 0; g < groups; ++g)
+          hp::tma_load_2d(s + kConsumers * kWBytes + g * kXBytes, &p.xmap, &full[st], k0,
+                          m0 + kRows * g);
+        if (++st == p.stages) {
+          st = 0;
+          ph ^= 1;
         }
       }
-}
-
-// out = bf16(((p_0 + p_1) + p_2) + ...), four elements a thread.
-__global__ void split_sum_kernel(const float* __restrict__ part, bf16* __restrict__ out,
-                                 size_t total, int splits) {
-  const size_t i = (size_t(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
-  if (i >= total) return;
-  float4 s = *reinterpret_cast<const float4*>(part + i);
-  for (int sp = 1; sp < splits; ++sp) {
-    const float4 p = *reinterpret_cast<const float4*>(part + size_t(sp) * total + i);
-    s.x = __fadd_rn(s.x, p.x);
-    s.y = __fadd_rn(s.y, p.y);
-    s.z = __fadd_rn(s.z, p.z);
-    s.w = __fadd_rn(s.w, p.w);
+    }
+  } else {
+    int st = 0;
+    uint32_t ph = 0;
+    for (int c = 0; c < nc; ++c) {
+      hp::mbar_wait(&full[st], ph);
+      if (active) {
+        const unsigned char* s = ring + st * stage_bytes;
+#pragma unroll
+        for (int g = 0; g < kGroups; ++g) hp::fence_regs(acc[g]);
+        hp::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk) {
+          const uint64_t a = hp::desc_mn(s + wg * kWBytes + kk * 16 * 128, kWBytes);
+#pragma unroll
+          for (int g = 0; g < kGroups; ++g)
+            if (g < groups)
+              hp::wgmma_ss_n32<1, 0>(
+                  acc[g], a, hp::desc_k(s + kConsumers * kWBytes + g * kXBytes + kk * 32));
+        }
+        hp::wgmma_commit();
+        hp::wgmma_wait<0>();
+#pragma unroll
+        for (int g = 0; g < kGroups; ++g) hp::fence_regs(acc[g]);
+      }
+      __syncwarp();
+      if (lane == 0) hp::mbar_arrive(&empty[st]);
+      if (++st == p.stages) {
+        st = 0;
+        ph ^= 1;
+      }
+    }
   }
-  __nv_bfloat162 lo = __floats2bfloat162_rn(s.x, s.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(s.z, s.w);
-  uint2 pk;
-  pk.x = am::as_u32(lo);
-  pk.y = am::as_u32(hi);
-  *reinterpret_cast<uint2*>(out + i) = pk;
-}
+  __syncthreads();  // every stage consumed: the ring is free
 
-template <int MT>
-cudaError_t launch_gemm(const GemmArgs& a, cudaStream_t st) {
-  constexpr size_t smem = gemm_smem<MT>();
-  cudaError_t e = cudaFuncSetAttribute(row_gemm_kernel<MT>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (e != cudaSuccess) return e;
-  dim3 grid(unsigned((a.N + kBN - 1) / kBN), unsigned(a.splits),
-            unsigned((a.M + MT * 16 - 1) / (MT * 16)));
-  row_gemm_kernel<MT><<<grid, kThreads, smem, st>>>(a);
-  return cudaGetLastError();
+  // Element acc[g][4 i + e] of a consumer thread: column n0 + nl of row
+  // m0 + ml, nl = 64 wg + 16 warp + lane / 4 + 8 (e / 2) and
+  // ml = 32 g + 8 i + 2 (lane % 4) + e % 2.
+  auto each = [&](auto&& fn) {
+    if (tid >= kConsumers * 128 || !active) return;
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int nl = 64 * wg + 16 * warp + (lane >> 2) + 8 * (e >> 1);
+          const int ml = kRows * g + 8 * i + 2 * (lane & 3) + (e & 1);
+          if (g < groups && m0 + ml < p.M && n0 + nl < p.N) fn(acc[g][4 * i + e], ml, nl);
+        }
+  };
+  if (p.splits == 1) {
+    each([&](float v, int ml, int nl) {
+      p.out[size_t(m0 + ml) * p.N + n0 + nl] = __float2bfloat16_rn(v);
+    });
+    return;
+  }
+  // The split's partial, staged row-major (kLdP floats a row) over the ring.
+  float* part = reinterpret_cast<float*>(ring);
+  hp::fence_proxy_async();
+  each([&](float v, int ml, int nl) { part[ml * kLdP + nl] = v; });
+  hp::cluster_sync();
+  // This block adds rows split, split + splits, ... of the tile, four
+  // columns a thread: p0 + p1 + ... in split order.
+  const int rows = min(kRows * kGroups, p.M - m0);
+  for (int i = tid; i < rows * (kTileN / 4); i += kThreads) {
+    const int ml = split + p.splits * (i / (kTileN / 4));
+    const int nl = 4 * (i % (kTileN / 4));
+    if (ml >= rows || n0 + nl >= p.N) continue;
+    const float* at = part + ml * kLdP + nl;
+    float4 v[kMaxSplits];
+#pragma unroll
+    for (int r = 0; r < kMaxSplits; ++r)
+      if (r < p.splits) v[r] = ld_cluster4(at, r);
+    float4 sum = v[0];
+#pragma unroll
+    for (int r = 1; r < kMaxSplits; ++r)
+      if (r < p.splits) {
+        sum.x = __fadd_rn(sum.x, v[r].x);
+        sum.y = __fadd_rn(sum.y, v[r].y);
+        sum.z = __fadd_rn(sum.z, v[r].z);
+        sum.w = __fadd_rn(sum.w, v[r].w);
+      }
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(sum.x, sum.y);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(sum.z, sum.w);
+    uint2 pk;
+    pk.x = *reinterpret_cast<const uint32_t*>(&lo);
+    pk.y = *reinterpret_cast<const uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(p.out + size_t(m0 + ml) * p.N + n0 + nl) = pk;
+  }
+  hp::cluster_sync();  // no block leaves while the others read its partial
 }
 
 // ---------------------------------------------------------------------------
@@ -224,7 +272,7 @@ __device__ __forceinline__ void load8(const bf16* p, float (&f)[8]) {
 // each warp, then the warps in order.
 __device__ __forceinline__ float block_sum(float v, float* red) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = __fadd_rn(v, __shfl_xor_sync(am::kFull, v, off));
+  for (int off = 16; off > 0; off >>= 1) v = __fadd_rn(v, __shfl_xor_sync(kFull, v, off));
   __syncthreads();  // red is free
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
@@ -281,7 +329,8 @@ __global__ void __launch_bounds__(kNormThreads)
         y0 = __fadd_rn(y0, bi[e]);
         y1 = __fadd_rn(y1, bi[e + 1]);
       }
-      pk[e / 2] = am::as_u32(__floats2bfloat162_rn(y0, y1));
+      const __nv_bfloat162 y = __floats2bfloat162_rn(y0, y1);
+      pk[e / 2] = *reinterpret_cast<const uint32_t*>(&y);
     }
     *reinterpret_cast<uint4*>(yr + c) = make_uint4(pk[0], pk[1], pk[2], pk[3]);
   }
@@ -290,35 +339,58 @@ __global__ void __launch_bounds__(kNormThreads)
 }  // namespace
 
 // Y = X @ W for bf16 X (M, K), W (K, N), Y (M, N), all contiguous; K and N
-// multiples of 8, rows 16-byte aligned. ``part`` is float32 scratch of
-// splits * M * N elements (unused when splits == 1). The split count is
-// the caller's, from (N, K) alone. Returns cudaGetLastError() of the
-// launches, 0 on success.
-extern "C" int lir_row_gemm(const void* x, const void* w, void* out, void* part, int M, int N,
-                            int K, int splits, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || N % 8 || K % 8 || splits < 1)
+// multiples of 8, 16-byte aligned; ``splits`` (at most 8) from (N, K)
+// alone. One launch, no scratch. Returns cudaGetLastError(), 0 on success.
+extern "C" int lir_row_gemm(const void* x, const void* w, void* out, int M, int N, int K,
+                            int splits, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || N % 8 || K % 8 || splits < 1 || splits > kMaxSplits)
     return int(cudaErrorInvalidValue);
-  GemmArgs a;
-  a.x = static_cast<const bf16*>(x);
-  a.w = static_cast<const bf16*>(w);
-  a.out = static_cast<bf16*>(out);
-  a.part = static_cast<float*>(part);
-  a.M = M;
-  a.N = N;
-  a.K = K;
-  const int nk = (K + kBK - 1) / kBK;
-  a.cps = (nk + splits - 1) / splits;
-  a.splits = (nk + a.cps - 1) / a.cps;  // every split has at least one chunk
-  if (a.splits != splits) return int(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = M <= 16   ? launch_gemm<1>(a, st)
-                  : M <= 32 ? launch_gemm<2>(a, st)
-                  : M <= 64 ? launch_gemm<4>(a, st)
-                            : launch_gemm<8>(a, st);
-  if (e != cudaSuccess || splits == 1) return int(e);
-  const size_t total = size_t(M) * N;
-  const unsigned blocks = unsigned((total / 4 + 255) / 256);
-  split_sum_kernel<<<blocks, 256, 0, st>>>(a.part, a.out, total, splits);
+  GemmParams p;
+  p.M = M;
+  p.N = N;
+  p.nk = (K + kBK - 1) / kBK;
+  p.cps = (p.nk + splits - 1) / splits;
+  p.splits = (p.nk + p.cps - 1) / p.cps;  // every split has at least one chunk
+  if (p.splits != splits) return int(cudaErrorInvalidValue);
+  p.n_tiles = (N + kTileN - 1) / kTileN;
+  p.m_blocks = (M + kRows * kGroups - 1) / (kRows * kGroups);
+  p.groups_max = min(kGroups, (M + kRows - 1) / kRows);
+  p.out = static_cast<bf16*>(out);
+  const cuuint64_t wdims[2] = {cuuint64_t(N), cuuint64_t(K)};
+  const cuuint64_t wstride[1] = {cuuint64_t(N) * 2};
+  const cuuint32_t wbox[2] = {64, kBK};
+  const cuuint64_t xdims[2] = {cuuint64_t(K), cuuint64_t(M)};
+  const cuuint64_t xstride[1] = {cuuint64_t(K) * 2};
+  const cuuint32_t xbox[2] = {kBK, kRows};
+  if (!hp::encode_map(&p.wmap, w, 2, wdims, wstride, wbox) ||
+      !hp::encode_map(&p.xmap, x, 2, xdims, xstride, xbox))
+    return int(cudaErrorInvalidValue);
+  // As many stages as two blocks an SM leave room for (the staged partial
+  // of 128 rows fits in three).
+  const int stage_bytes = kConsumers * kWBytes + p.groups_max * kXBytes;
+  p.stages = min(kMaxStages, kSmemBudget / (stage_bytes + 16));
+  const int smem = p.stages * (stage_bytes + 16);
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(row_gemm_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBudget);
+    if (e != cudaSuccess) return int(e);
+    configured = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(unsigned(p.m_blocks * p.n_tiles * splits));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = size_t(smem);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = unsigned(splits);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, row_gemm_kernel, p);
+  if (e != cudaSuccess) return int(e);
   return int(cudaGetLastError());
 }
 

@@ -25,25 +25,29 @@ import torch
 
 from . import _build
 
-# 64-deep chunks of K a split takes at least, splits at most, and the
-# blocks a launch should reach (two per SM of the H100).
-_BK, _MIN_CHUNKS, _MAX_SPLITS, _TARGET_BLOCKS = 64, 8, 4, 264
-_BN = 64
+# Columns of a kernel block (two warpgroups of 64), the depth of one
+# chunk of K, the blocks a launch should reach, the least chunks a split
+# keeps, and the most splits (one cluster of blocks adds them: 8 is the
+# portable cluster size). 96 blocks of 128 columns stream a weight from
+# device memory as fast as 128 or more do on the H100, and fewer splits
+# mean fewer, smaller clusters to place and less to add.
+_TILE_N, _BK, _MIN_BLOCKS, _MIN_CHUNKS, _MAX_SPLITS = 128, 64, 96, 4, 8
 
 
 def gemm_splits(n: int, k: int) -> int:
     """Split count of K for an (n, k) weight: a function of the weight's
     shape alone, never of the rows, so each output element's reduction
-    order is fixed by (n, k). Powers of two up to 4, each split keeping
-    at least 8 chunks of 64, until the launch reaches two blocks an SM."""
-    n_tiles = -(-int(n) // _BN)
+    order is fixed by (n, k). The fewest splits whose (128-column tile,
+    split) blocks number 96 or more, each split keeping at least 4
+    chunks of 64, at most 8 splits."""
+    tiles = -(-int(n) // _TILE_N)
     chunks = -(-int(k) // _BK)
     s = 1
-    while (n_tiles * s < _TARGET_BLOCKS and 2 * s <= _MAX_SPLITS
-           and chunks // (2 * s) >= _MIN_CHUNKS):
-        s *= 2
+    while (tiles * s < _MIN_BLOCKS and s < _MAX_SPLITS
+           and chunks // (s + 1) >= _MIN_CHUNKS):
+        s += 1
     cps = -(-chunks // s)
-    return -(-chunks // cps)
+    return -(-chunks // cps)              # every split keeps a chunk
 
 
 def row_gemm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -73,7 +77,7 @@ def _lib():
     if _LIB is None:
         lib = _build.library("row_gemm")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.lir_row_gemm.argtypes = [p] * 4 + [i] * 4 + [p]
+        lib.lir_row_gemm.argtypes = [p] * 3 + [i] * 4 + [p]
         lib.lir_row_gemm.restype = i
         lib.lir_row_norm.argtypes = [p] * 4 + [i] * 2 + [ctypes.c_float, p]
         lib.lir_row_norm.restype = i
@@ -112,14 +116,10 @@ def row_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0:
         return out.reshape(*lead, N)
-    splits = gemm_splits(N, K)
-    part = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
-            if splits > 1 else None)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.check(_lib().lir_row_gemm(
-        x2.data_ptr(), w.data_ptr(), out.data_ptr(),
-        None if part is None else part.data_ptr(), M, N, K, splits, stream),
-        "row_gemm")
+        x2.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K,
+        gemm_splits(N, K), stream), "row_gemm")
     row_gemm.launches += 1
     return out.reshape(*lead, N)
 

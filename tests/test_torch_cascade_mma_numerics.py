@@ -1,15 +1,19 @@
 """The numerics of the bf16 tensor-core cascade kernels, emulated on the CPU.
 
-``csrc/attn_mma.cuh`` computes the fused ``cascade_attention`` and the
-two-leg trunk leg ``cascade_prefix`` from raw bf16 operands: Q K^T as
-float32 sums of exact bf16 products, then times sm_scale (q is never
-rounded after scaling), ALiBi and the mask in float32, an online softmax
-over 64-key tiles (exp(x - m) as exp2((x - m) * log2 e)), and P V with P
-split into bf16 hi + bf16 lo over bf16 V, summed in float32. The fused
-kernel walks the trunk as the trunk leg does, then the window under a
-fresh accumulator, then merges in ``merge_partials``' order (the two-leg
-route's arithmetic); the bf16 int8 trunk leg takes Q K^T as exact s8
-integer sums (IMMA) folded by the quantization scales. The emulation
+``csrc/attn_wgmma.cuh`` (the trunk walk, on wgmma) and
+``csrc/attn_mma.cuh`` (the window walk, on mma.sync) compute the fused
+``cascade_attention`` and the two-leg trunk leg ``cascade_prefix`` from
+raw bf16 operands: Q K^T as float32 sums of exact bf16 products, then
+times sm_scale (q is never rounded after scaling), ALiBi and the mask in
+float32, an online softmax over 64-key tiles (exp(x - m) as
+exp2((x - m) * log2 e)), and P V with P split into bf16 hi + bf16 lo over
+bf16 V, summed in float32 in 16-key steps (each step's hi product, then
+its lo one). The fused kernel walks the trunk as the trunk leg does,
+then the window under a fresh accumulator (64 flattened rows a block,
+the window keys of their batch rows in 64-key tiles), then merges in
+``merge_partials``' order (the two-leg route's arithmetic); the bf16
+int8 trunk leg takes Q K^T as exact s8 integer sums (IMMA) folded by the
+quantization scales. The emulation
 below takes the same roundings in PyTorch, from numpy-seeded inputs at
 llama-2-7b head width (hd = 128, Tt = 432, R = 80), and holds them to the
 float32 plain versions at the card tests' bars: the trunk partials
@@ -83,10 +87,16 @@ def _online(qg, keys, vals, fix, split):
         f = torch.exp2((m - m_use) * LOG2E)
         l = l * f + p.sum(dim=-1)
         hi = _bf16(p)
-        pv = torch.einsum("bkmt,bktd->bkmd", hi, vt)
-        if split:
-            pv = pv + torch.einsum("bkmt,bktd->bkmd", _bf16(p - hi), vt)
-        o = o * f[..., None] + pv
+        lo = _bf16(p - hi)
+        # P V in 16-key steps, each step's hi product then its lo one, into
+        # the rescaled accumulator: the order of the kernels' wgmma (trunk
+        # walk) and mma.sync (window and flash walks) steps.
+        o = o * f[..., None]
+        for j in range(0, kt.shape[2], 16):
+            o = o + torch.einsum("bkmt,bktd->bkmd", hi[..., j:j + 16], vt[:, :, j:j + 16])
+            if split:
+                o = o + torch.einsum("bkmt,bktd->bkmd", lo[..., j:j + 16],
+                                     vt[:, :, j:j + 16])
         m = m_new
     return o, m, l
 
@@ -142,30 +152,49 @@ def _emulate_prefix_int8(q, tk, tv, slopes):
 
 
 def _emulate_window(q, sk, sv, mask, qpos, slopes):
-    """The window walk of the fused kernel and the suffix merge: each
-    row's own window keys (mask-aware, causal, ALiBi on key positions)
-    under a fresh accumulator; a row with no valid key keeps m = -inf,
-    l = 0. Shaped as ``suffix_partials`` gives them."""
+    """The window walk of the fused kernel and the suffix merge: each block
+    of 64 flattened rows n = (b * R + r) * G + g of a kv head (one
+    warpgroup) walks, in 64-key tiles, the window keys of the batch rows
+    its rows belong to; a row sees only its own batch row's keys
+    (mask-aware, causal, ALiBi on key positions), under a fresh
+    accumulator. A row with no valid key keeps m = -inf, l = 0. Shaped as
+    ``suffix_partials`` gives them."""
     H, K = q.shape[2], sk.shape[2]
-    G = H // K
-    qg = q.float().reshape(B, R, K, G, HD).permute(0, 2, 1, 3, 4).reshape(B, K, R * G, HD)
-    keys = sk.float().permute(0, 2, 1, 3)
-    vals = sv.float().permute(0, 2, 1, 3)
-    row_pos = qpos.long().repeat_interleave(G, dim=1)[:, None, :, None]   # (B, 1, M, 1)
+    G, RG = H // K, R * (H // K)
+    N = B * RG
     sm = torch.tensor(1.0 / math.sqrt(HD), dtype=torch.float32)
-    slope_rows = (None if slopes is None else
-                  slopes.float().reshape(K, 1, G).expand(K, R, G).reshape(1, K, R * G, 1))
+    n = torch.arange(N)
+    row_b, row_r = n // RG, (n % RG) // G
+    row_pos = qpos.long()[row_b, row_r]
+    key_b = torch.arange(B * R) // R
+    key_pos = qpos.long().reshape(-1)
+    key_live = mask.reshape(-1) > 0
+    o = torch.zeros((B, K, RG, HD))
+    m = torch.full((B, K, RG), -math.inf)
+    l = torch.zeros((B, K, RG))
+    for kh in range(K):
+        qk = q.float().reshape(B * R, K, G, HD)[:, kh].reshape(N, HD)
+        keys = sk.float()[:, :, kh].reshape(B * R, HD)
+        vals = sv.float()[:, :, kh].reshape(B * R, HD)
+        slope = (None if slopes is None else
+                 slopes.float()[kh * G + n % G])
+        for n0 in range(0, N, 64):
+            rows = n[n0:n0 + 64]
+            w0, w1 = int(row_b[rows[0]]) * R, (int(row_b[rows[-1]]) + 1) * R
 
-    def fix(s, k0):
-        k1 = k0 + s.shape[-1]
-        kp = qpos.long()[:, None, None, k0:k1]
-        s = s * sm
-        if slope_rows is not None:
-            s = s + slope_rows * kp.float()
-        ok = (mask[:, None, None, k0:k1] > 0) & (kp <= row_pos)
-        return s.masked_fill(~ok, -math.inf)
+            def fix(s, k0):
+                w = torch.arange(w0 + k0, w0 + k0 + s.shape[-1])
+                s = s * sm
+                if slope is not None:
+                    s = s + slope[rows][:, None] * key_pos[w].float()[None, :]
+                ok = (key_live[w][None, :] & (key_b[w][None, :] == row_b[rows][:, None])
+                      & (key_pos[w][None, :] <= row_pos[rows][:, None]))
+                return s.masked_fill(~ok, -math.inf)
 
-    o, m, l = _online(qg, keys, vals, fix, split=True)
+            ob, mb, lb = _online(qk[rows][None, None], keys[None, None, w0:w1],
+                                 vals[None, None, w0:w1], fix, split=True)
+            b, i = row_b[rows], n[rows] % RG
+            o[b, kh, i], m[b, kh, i], l[b, kh, i] = ob[0, 0], mb[0, 0], lb[0, 0]
     return (o.reshape(B, K, R, G, HD), m.reshape(B, K, R, G), l.reshape(B, K, R, G))
 
 

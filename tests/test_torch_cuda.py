@@ -346,20 +346,23 @@ def test_int8_matmul_on_card_matches_cpu(gen, rows):
                        torch.zeros((12, 8), dtype=torch.int8, device="cuda"))
 
 
-# (K, N) of the row-invariant GEMM's cases: llama-2-7b's square
-# projection, its MLP up and down (split-K on), a K with a ragged last
-# chunk, a width that is not a multiple of the 64-column block, falcon's
-# single kv head.
+# (K, N) of the row-invariant GEMM's cases: every llama-2-7b projection
+# (wq / wk / wv / wo, w_up / w_gate, w_down; split-K on), mistral-7b's
+# GQA wk / wv (N = 1024, 8 splits), a K with a ragged last chunk, a width
+# that is not a multiple of the 128-column item, falcon's single kv head.
 ROW_GEMM_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (200, 96),
-                   (4544, 64)]
+                   (4544, 64), (4096, 1024)]
+# Row counts around the kernel's 32-row products and 128-row blocks.
+ROW_COUNTS = (1, 2, 3, 7, 16, 31, 32, 33, 64, 100, 127, 128, 129, 200, 255)
 
 
 @pytest.mark.parametrize("K,N", ROW_GEMM_SHAPES,
                          ids=[f"K{k}N{n}" for k, n in ROW_GEMM_SHAPES])
 def test_row_gemm_rows_bitwise_at_every_row_count(gen, K, N):
-    """A row's output of row_gemm is the same bits at M = 1, 16, 32, 128
-    and 256 and in any place among the rows (rows permuted), and within
-    bf16 rounding of torch.matmul."""
+    """A row's output of row_gemm is the same bits at every M from 1 to
+    256 (across the 32-row products and the 128-row blocks) and in any
+    place among the rows (rows permuted), and within bf16 rounding of
+    torch.matmul."""
     x = _rnd(gen, 256, K)
     w = _rnd(gen, K, N) * 0.05
     full = ops.row_gemm(x, w)
@@ -367,9 +370,38 @@ def test_row_gemm_rows_bitwise_at_every_row_count(gen, K, N):
                                atol=2e-2, rtol=2e-2)
     perm = torch.randperm(256, generator=gen, device="cuda")
     assert torch.equal(ops.row_gemm(x[perm], w), full[perm])
-    for m in (1, 16, 32, 128):
+    for m in ROW_COUNTS:
         assert torch.equal(ops.row_gemm(x[:m], w), full[:m]), m
         assert torch.equal(ops.row_gemm(x[perm[:m]], w), full[perm[:m]]), m
+
+
+def test_row_gemm_split_reduction_back_to_back_and_on_two_streams(gen):
+    """The in-launch split reduction: launches of different shapes (2, 3,
+    8 and 1 splits) back to back on one stream, and the same launches on
+    two streams at once, each give the bits of the launch alone (each
+    launch adds its splits in its own blocks' shared memory, so nothing
+    carries over between launches or streams)."""
+    shapes = [(4096, 11008), (11008, 4096), (4096, 1024), (64, 64), (4096, 4096)]
+    cases = [(_rnd(gen, m, k), _rnd(gen, k, n) * 0.05)
+             for m, (k, n) in zip((32, 128, 7, 200, 129), shapes)]
+    alone = [ops.row_gemm(x, w) for x, w in cases]
+    torch.cuda.synchronize()
+    for _ in range(3):
+        again = [ops.row_gemm(x, w) for x, w in cases]
+        for a, b in zip(again, alone):
+            assert torch.equal(a, b)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    main_out, side_out = [], []
+    for _ in range(3):
+        for x, w in cases:
+            main_out.append(ops.row_gemm(x, w))
+            with torch.cuda.stream(side):
+                side_out.append(ops.row_gemm(x, w))
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(main_out, side_out)):
+        assert torch.equal(a, alone[i % len(cases)]) and torch.equal(b, a), i
 
 
 @pytest.mark.parametrize("layer", [False, True])
@@ -487,6 +519,40 @@ def test_cascade_prefix_int8_imma_matches_plain(gen, hd, Tt):
     assert torch.equal(got[1], ref[1])
     for g, r in zip(got, ref):
         torch.testing.assert_close(g, r, atol=1e-3, rtol=1e-3)
+
+
+# (hd, Tt, alibi) of the wgmma trunk leg's tile edges: trunk lengths
+# around its 64-key tiles and 4-stage ring (1, 63, 65, 257, 433), every
+# head dim it is built for, ALiBi.
+PREFIX_EDGE_CASES = [(128, 1, False), (128, 63, True), (128, 257, False),
+                     (96, 65, False), (80, 433, True), (64, 129, True),
+                     (32, 300, False)]
+
+
+@pytest.mark.parametrize("hd,Tt,alibi", PREFIX_EDGE_CASES,
+                         ids=[f"hd{h}-Tt{t}{'-alibi' if a else ''}"
+                              for h, t, a in PREFIX_EDGE_CASES])
+def test_cascade_prefix_wgmma_tile_edges(gen, hd, Tt, alibi):
+    """The bf16 trunk leg on wgmma at its tile edges: Tt not a multiple of
+    the 64-key tile, N = B * R * G = 252 flattened queries (not a multiple
+    of the block's 128 rows), G = 4: the partials within 1e-3 of the plain
+    version, and the fused kernel bitwise the trunk leg + suffix merge."""
+    B, R, H, K = 3, 21, 8, 2
+    q = _rnd(gen, B, R, H, hd)
+    sk, sv = _rnd(gen, B, R, K, hd), _rnd(gen, B, R, K, hd)
+    tk, tv = _rnd(gen, K, Tt, hd), _rnd(gen, K, Tt, hd)
+    slopes = alibi_slopes(H, "cuda") if alibi else None
+    got = ops.cascade_prefix(q, tk, tv, slopes)
+    ref = ops.prefix_partials(q, tk, tv, slopes)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, atol=1e-3, rtol=1e-3)
+    mask = torch.ones((B, R), dtype=torch.int32, device="cuda")
+    mask[1, 15:] = 0
+    qpos = (Tt + torch.clamp_min(torch.cumsum(mask, -1, dtype=torch.int32) - 1,
+                                 0)).to(torch.int32)
+    fused = ops.cascade_attention(q, sk, sv, tk, tv, mask, qpos, alibi_slopes=slopes)
+    pair = ops.cascade_suffix_merge(q, sk, sv, *got, mask, qpos, slopes)
+    assert torch.equal(fused, pair)
 
 
 def test_cascade_new_launches_count(gen):

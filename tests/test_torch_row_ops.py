@@ -67,12 +67,13 @@ def test_quantize_rows_bitwise_jax():
     np.testing.assert_array_equal(s.numpy(), np.asarray(js))
 
 
-@pytest.mark.parametrize("n,k,splits", [(4096, 4096, 4), (11008, 4096, 2),
-                                        (4096, 11008, 4), (32000, 4096, 1),
-                                        (96, 200, 1), (64, 4544, 4)])
+@pytest.mark.parametrize("n,k,splits", [(4096, 4096, 3), (11008, 4096, 2),
+                                        (4096, 11008, 3), (32000, 4096, 1),
+                                        (96, 200, 1), (64, 4544, 8)])
 def test_gemm_splits_follow_the_weight_shape(n, k, splits):
-    """The kernel's K split: at most 4, each split at least 8 chunks of
-    64, and two blocks an SM reached where the shape allows."""
+    """The kernel's K split: the fewest splits whose (128-column tile,
+    split) blocks number 96 or more, each split at least 4 chunks of 64,
+    at most 8 (one cluster adds them)."""
     assert ops.gemm_splits(n, k) == splits
 
 
