@@ -11,17 +11,21 @@ Phases (each raises on failure, so the script exits non-zero):
    instantiation: HMMA (or HGMMA for wgmma) in the bf16 kernels
    (``cascade_mma_kernel``, ``prefix_wgmma_kernel``, ``prefix_imma_kernel``,
    ``flash_mma_kernel``, ``row_gemm_kernel``), HGMMA (wgmma) in
-   ``row_gemm_kernel``, ``prefix_wgmma_kernel`` and the fused
-   ``cascade_mma_kernel``, IMMA in ``prefix_imma_kernel``; fail if one
-   has none.
+   ``row_gemm_kernel``, ``prefix_wgmma_kernel``, the fused
+   ``cascade_mma_kernel`` and ``flash_wgmma_kernel`` at head dims 64 and
+   128 with one and two consumer warpgroups, IMMA in
+   ``prefix_imma_kernel``; fail if one has none.
 2. Kernels against their plain PyTorch versions on the card, at the
    shapes the main path gives them (llama-2-7b widths, B = 32, the cache
    extents and trunks of phase 3's dispatches; the verify window's
    S = spec_k = 4 queries a row for the multi-query kernels; the trunk
    leg at the cascade dispatch's shape, float32 and int8 QK^T; the
-   prefill flash kernel at buckets 64, 128 and 512; the row-invariant
-   projections at M = B and B * spec_k for all seven of a layer, and
-   the norm), plus GQA (mistral-7b), MQA (falcon-7b) and ALiBi (bloom-7b1)
+   prefill flash kernel at buckets 64, 128 and 512, with the route it
+   took; the row-invariant projections at M = B and B * spec_k for all
+   seven of a layer, the norm, and the residual add fused with the norm
+   (``row_add_norm``, also at falcon-7b's width 4544), the norms beside
+   an empty kernel's time, the floor of the timing), plus GQA
+   (mistral-7b), MQA (falcon-7b) and ALiBi (bloom-7b1)
    shapes: bf16 kernel output against the float32 plain version of the
    same bf16 inputs, atol = rtol = 1e-2 (bf16 output rounding; the trunk
    leg's float32 partials to the same bar). Bitwise: the trunk decode
@@ -30,7 +34,9 @@ Phases (each raises on failure, so the script exits non-zero):
    leg's row max against its plain twin's, the trunk keys' quantization
    pass against ``dynamic_quant``, the fused cascade against
    ``cascade_prefix`` + ``cascade_suffix_merge`` at every cascade case,
-   and the row kernels' first rows against the same rows alone.
+   the row kernels' first rows against the same rows alone, and
+   ``row_add_norm``'s sum against torch's bf16 add and its norm against
+   ``row_norm`` of the sum.
    Times by CUDA events after warm-up, the L2 cache flushed before every
    launch and the stream held by a spin kernel while the host enqueues it
    (device time, without the host's launch time); the library yardstick
@@ -72,9 +78,11 @@ Phases (each raises on failure, so the script exits non-zero):
    dispatch on the sequential and the speculative route (flash prefill
    at bucket 128), bitwise alike, with rows/s and peak memory beside the
    bf16 engine's, and a profile of one of its word-meaning batches beside
-   the bf16 one's. Each phase resets the launch counts just before it and
-   reads them just after, and fails if a kernel of its path never
-   launched.
+   the bf16 one's (launches, and the elementwise adds' ms). Each phase
+   resets the launch counts just before it and reads them just after,
+   and fails if a kernel of its path never launched: ``row_add_norm`` in
+   every decode phase of both engines, and in the 8-bit phases the
+   prefill flash kernel's wgmma route.
 4. The ``{"kernels": [...]}`` summary, the card's name and power limit,
    and the last line ``{"ok": true, "device": {...}}``.
 """
@@ -111,8 +119,11 @@ from lir_tpu_torch.ops.cascade_prefill import (cascade_attention_plain,
                                                prefix_partials,
                                                prefix_partials_int8,
                                                suffix_merge_plain)
-from lir_tpu_torch.ops.row_gemm import row_gemm_plain, row_norm_plain
+from lir_tpu_torch.ops.row_gemm import (row_add_norm_plain, row_gemm_plain,
+                                        row_norm_plain)
 from lir_tpu_torch.ops.flash_attention import flash_attention_plain
+
+import profile_batch
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
 BF16_FLOP_PER_S = 989e12         # H100 SXM dense bf16 tensor cores, published
@@ -157,6 +168,9 @@ SOURCES = {
     "row_norm": ("lir_tpu_torch/csrc/row_gemm.cu",
                  "lir_tpu/models/decoder.py:114 (XLA)",
                  "llama2-7b/M32"),
+    "row_add_norm": ("lir_tpu_torch/csrc/row_gemm.cu",
+                     "lir_tpu/models/decoder.py:496 (XLA)",
+                     "llama2-7b/M32"),
     "cascade_suffix_merge": ("lir_tpu_torch/csrc/cascade_prefill.cu",
                              "lir_tpu/ops/cascade_prefill.py:174 (XLA)",
                              "llama2-7b/cascade-dispatch"),
@@ -256,6 +270,12 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def empty_kernel() -> None:
+    """One launch of a kernel that does nothing (a spin of no cycles):
+    timed by :func:`time_ms`, the floor of its readings."""
+    torch.cuda._sleep(0)
 
 
 def warm_up(seconds: float = 2.0) -> None:
@@ -685,9 +705,10 @@ def check_row_gemm(gen, label, M, K, N, results):
     results.append(row)
 
 
-def check_row_norm(gen, label, M, D, results):
+def check_row_norm(gen, label, M, D, floor_ms, results):
     """The row-invariant RMSNorm against the decoder's plain norm; the
-    library yardstick is F.rms_norm where this PyTorch has it."""
+    library yardstick is F.rms_norm where this PyTorch has it. Beside it
+    the empty kernel's time (``floor_ms``), the floor of time_ms."""
     x = (torch.randn((M, D), generator=gen, device=DEV) * 2).to(torch.bfloat16)
     scale = torch.randn((D,), generator=gen, device=DEV).to(torch.bfloat16)
     eps = 1e-5
@@ -702,7 +723,35 @@ def check_row_norm(gen, label, M, D, results):
                plain_ms=time_ms(lambda: row_norm_plain(x, scale, None, eps)),
                library_ms=(time_ms(lambda: lib(x, (D,), scale, eps))
                            if lib is not None else None),
-               bound_ms=b_ms, bound_by=b_by)
+               bound_ms=b_ms, bound_by=b_by, floor_ms=floor_ms)
+    log(json.dumps(row))
+    results.append(row)
+
+
+def check_row_add_norm(gen, label, M, D, floor_ms, results):
+    """The residual add and the RMSNorm after it in one launch: the sum
+    bitwise torch's bf16 add, the norm bitwise ``row_norm`` of the sum and
+    within the bar of the plain version, the first rows bitwise the same
+    rows alone. No single PyTorch call computes both (library_ms null)."""
+    x = (torch.randn((M, D), generator=gen, device=DEV) * 2).to(torch.bfloat16)
+    d = torch.randn((M, D), generator=gen, device=DEV).to(torch.bfloat16)
+    scale = torch.randn((D,), generator=gen, device=DEV).to(torch.bfloat16)
+    eps = 1e-5
+    s, h = ops.row_add_norm(x, d, scale, None, eps)
+    if not torch.equal(s, x + d):
+        raise AssertionError(f"row_add_norm[{label}]: the sum is not torch's bf16 add")
+    if not torch.equal(h, ops.row_norm(s, scale, None, eps)):
+        raise AssertionError(f"row_add_norm[{label}]: the norm is not row_norm of the sum")
+    err = check_close(f"row_add_norm[{label}]", h,
+                      row_add_norm_plain(x, d, scale, None, eps)[1])
+    s3, h3 = ops.row_add_norm(x[:3], d[:3], scale, None, eps)
+    if not (torch.equal(s3, s[:3]) and torch.equal(h3, h[:3])):
+        raise AssertionError(f"row_add_norm[{label}]: rows depend on the row count")
+    b_ms, b_by = bound(nbytes(x, d, scale, s, h), 0.0)
+    row = dict(kernel="row_add_norm", case=label, M=M, D=D, max_abs_err=err,
+               kernel_ms=time_ms(lambda: ops.row_add_norm(x, d, scale, None, eps)),
+               plain_ms=time_ms(lambda: row_add_norm_plain(x, d, scale, None, eps)),
+               library_ms=None, bound_ms=b_ms, bound_by=b_by, floor_ms=floor_ms)
     log(json.dumps(row))
     results.append(row)
 
@@ -725,7 +774,9 @@ def check_flash_attention(gen, label, B, S, H, K, hd, alibi, results):
     slopes = decoder.alibi_slopes(H, dev) if alibi else None
     kw = dict(key_mask=mask, alibi_slopes=slopes,
               key_positions=kpos if alibi else None)
+    ops.reset_launches()
     got = ops.flash_attention(q, k, v, **kw)
+    route = next(r for r, n in ops.flash_attention.route_launches.items() if n)
     ref = flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
     err = check_close(f"flash_attention[{label}]", got, ref)
@@ -746,7 +797,7 @@ def check_flash_attention(gen, label, B, S, H, K, hd, alibi, results):
     byts = nbytes(q, k, v, mask, kpos if alibi else None, slopes) + nbytes(q)
     b_ms, b_by = bound(byts, 4.0 * H * hd * pairs)
     row = dict(kernel="flash_attention", case=label, B=B, S=S, H=H, K=K,
-               hd=hd, max_abs_err=err,
+               hd=hd, route=route, max_abs_err=err,
                kernel_ms=time_ms(lambda: ops.flash_attention(q, k, v, **kw)),
                plain_ms=time_ms(lambda: flash_attention_plain(q, k, v, **kw),
                                 iters=3),
@@ -969,6 +1020,7 @@ def library_row_invariance(params, cfg, B: int, spec_k: int) -> dict:
     return {
         "norm": same(lambda t: decoder._norm(t, lp["ln1"], cfg)),
         "row_norm": same(lambda t: decoder._row_norm(t, lp["ln1"], cfg)),
+        "row_add_norm": same(lambda t: decoder._row_add_norm(t, t, lp["ln2"], cfg)[1]),
         "matmul_bf16": same(lambda t: torch.matmul(t, lp["w_up"])),
         "row_gemm": same(lambda t: ops.row_gemm(t, lp["w_up"])),
         "head_f32": same(lambda t: decoder._head(cfg, t, head)),
@@ -1055,10 +1107,11 @@ def check_scores(name, arrs):
 
 
 def run_word_meaning(engine, label="word_meaning_sweep",
-                     kernels=("flash_decode",)):
+                     kernels=("flash_decode",), flash_route=None):
     """Word-meaning sweep: 50 D1 rows, 50 decode steps. Launch counts
     reset just before, read just after; fails unless every kernel in
-    ``kernels`` launched."""
+    ``kernels`` launched (and the prefill flash kernel on ``flash_route``,
+    where given)."""
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -1075,10 +1128,21 @@ def run_word_meaning(engine, label="word_meaning_sweep",
     missing = [k for k in kernels if launches[k] <= 0]
     if missing:
         raise AssertionError(f"{label}: kernels never launched: {missing}")
+    routes = check_flash_route(label, flash_route)
     stats = dict(rows=len(rows), seconds=dt, rows_per_s=len(rows) / dt,
-                 launches=launches)
+                 launches=launches, flash_routes=routes)
     log(json.dumps({"phase": label, **stats}))
     return stats
+
+
+def check_flash_route(label, route):
+    """The prefill flash kernel's launches per route since the last reset;
+    fails unless ``route`` (where given) launched."""
+    routes = dict(ops.flash_attention.route_launches)
+    if route is not None and routes[route] <= 0:
+        raise AssertionError(f"{label}: the flash kernel's {route} route never "
+                             f"launched ({routes})")
+    return routes
 
 
 def _dispatch_call(engine, cells, rt):
@@ -1095,16 +1159,23 @@ def _dispatch_call(engine, cells, rt):
         n_real=len(cells))
 
 
+def _library_add_norm(x, d, p, cfg):
+    """The residual add and PyTorch's norm of the sum, apart: the library
+    route that ``decoder._row_add_norm`` replaced."""
+    s = x + d
+    return s, decoder._norm(s, p, cfg)
+
+
 def route_cost(engine, seq_engine, cells, rt, rounds: int = 2) -> dict:
     """What the row-invariant projections and norms cost a dispatch: ms
     per no-trunk shared dispatch on the sequential and the speculative
     route, with the decoder's row kernels and with the library calls they
-    replaced patched back in for the step and the window (torch.matmul
-    and PyTorch's norm; the compacted slots and the per-position head
-    stay), in turns within this call (library, row kernels, row kernels,
-    library)."""
-    row_ops = (decoder._row_mm, decoder._row_norm)
-    library = (decoder._mm, decoder._norm)
+    replaced patched back in for the step and the window (torch.matmul,
+    PyTorch's norm, the residual adds apart; the compacted slots and the
+    per-position head stay), in turns within this call (library, row
+    kernels, row kernels, library)."""
+    row_ops = (decoder._row_mm, decoder._row_norm, decoder._row_add_norm)
+    library = (decoder._mm, decoder._norm, _library_add_norm)
     calls = {"sequential": _dispatch_call(seq_engine, cells, rt),
              "speculative": _dispatch_call(engine, cells, rt)}
     ms = {}
@@ -1112,7 +1183,7 @@ def route_cost(engine, seq_engine, cells, rt, rounds: int = 2) -> dict:
         for _ in range(rounds):
             for name, fns in (("library", library), ("row_kernels", row_ops),
                               ("row_kernels", row_ops), ("library", library)):
-                decoder._row_mm, decoder._row_norm = fns
+                decoder._row_mm, decoder._row_norm, decoder._row_add_norm = fns
                 for route, call in calls.items():
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
@@ -1121,7 +1192,7 @@ def route_cost(engine, seq_engine, cells, rt, rounds: int = 2) -> dict:
                     ms.setdefault(f"{route}/{name}", []).append(
                         (time.perf_counter() - t0) * 1e3)
     finally:
-        decoder._row_mm, decoder._row_norm = row_ops
+        decoder._row_mm, decoder._row_norm, decoder._row_add_norm = row_ops
     engine.spec_flush()
     row = {"phase": "route_cost", "ms_per_dispatch": ms,
            "mean_ms": {k: sum(v) / len(v) for k, v in ms.items()}}
@@ -1129,11 +1200,12 @@ def route_cost(engine, seq_engine, cells, rt, rounds: int = 2) -> dict:
     return row
 
 
-def run_dispatch(label, engine, cells, rt, kernels, routing):
+def run_dispatch(label, engine, cells, rt, kernels, routing, flash_route=None):
     """One 32-cell shared dispatch through ``decode_fused_shared``, the
     launch counts reset just before and read just after. Fails unless
-    every kernel in ``kernels`` launched and every counter in ``routing``
-    moved by exactly one."""
+    every kernel in ``kernels`` launched (the prefill flash kernel on
+    ``flash_route``, where given) and every counter in ``routing`` moved
+    by exactly one."""
     call = _dispatch_call(engine, cells, rt)
     casc0, spec0 = dict(engine.cascade_stats), dict(engine.spec_stats)
     torch.cuda.synchronize()
@@ -1162,9 +1234,10 @@ def run_dispatch(label, engine, cells, rt, kernels, routing):
              if moved.get(k, spec.get(k, 0)) != 1}
     if wrong:
         raise AssertionError(f"{label}: routing counters {wrong}, expected 1")
+    routes = check_flash_route(label, flash_route)
     stats = dict(rows=len(cells), ms_per_dispatch=dt * 1e3,
                  rows_per_s=len(cells) / dt, routing=moved, spec_stats=spec,
-                 launches=launches)
+                 launches=launches, flash_routes=routes)
     log(json.dumps({"phase": label, **stats}))
     return outs, stats
 
@@ -1236,7 +1309,8 @@ def run_int8_slice(cfg, tokenizer, cells_trunk, cells_flat, rt):
                                                       "int8")}
     stats["int8_word_meaning"] = run_word_meaning(
         engine8, "int8_word_meaning_sweep",
-        ("flash_attention", "flash_decode", "row_norm"))
+        ("flash_attention", "flash_decode", "row_norm", "row_add_norm"),
+        flash_route="wgmma")
     _, stats["int8_cascade_dispatch"] = run_dispatch(
         "int8_cascade_dispatch", engine8, cells_trunk, rt,
         ("quantize_rows", "cascade_prefix_int8", "cascade_suffix_merge",
@@ -1249,10 +1323,12 @@ def run_int8_slice(cfg, tokenizer, cells_trunk, cells_flat, rt):
         cascade_config=CascadeConfig(int8_qk=True), device=DEV)
     seq_out, stats["int8_sequential_dispatch"] = run_dispatch(
         "int8_sequential_dispatch", seq8, cells_flat, rt,
-        ("flash_attention", "flash_decode"), ("dense_shared_dispatches",))
+        ("flash_attention", "flash_decode", "row_add_norm"),
+        ("dense_shared_dispatches",), flash_route="wgmma")
     spec_out, stats["int8_spec_dispatch"] = run_dispatch(
         "int8_spec_dispatch", engine8, cells_flat, rt,
-        ("flash_attention", "flash_decode_mq"), ("spec_dispatches",))
+        ("flash_attention", "flash_decode_mq", "row_add_norm"),
+        ("spec_dispatches",), flash_route="wgmma")
     stats["int8_spec_dispatch"]["vs_sequential"] = compare_routes(
         "int8_spec_dispatch", spec_out, seq_out)
     torch.cuda.synchronize()
@@ -1282,7 +1358,7 @@ def run_slice(params, cfg, tokenizer, engine, cells_trunk, cells_flat, rt):
         params, cfg, tokenizer,
         RuntimeConfig(batch_size=BATCH, cascade_fused_suffix=False),
         device=DEV)
-    row_kernels = ("row_gemm", "row_norm")
+    row_kernels = ("row_gemm", "row_norm", "row_add_norm")
     stats = {"word_meaning": run_word_meaning(
         engine, kernels=("flash_decode",) + row_kernels)}
     fused_out, stats["cascade_dispatch"] = run_dispatch(
@@ -1322,12 +1398,10 @@ def run_slice(params, cfg, tokenizer, engine, cells_trunk, cells_flat, rt):
 
 
 def profile_scoring(engine, rt, label="profile"):
-    """Where one word-meaning batch's time goes: a torch.profiler trace
-    of ``decode_fused`` (prefill + the 50 greedy steps) at B = 32. The
-    device-busy time is the union of the CUDA kernel intervals; it is
-    set against the same call's host-clock time without the profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """Where one word-meaning batch's time goes: ``profile_batch.profile``
+    of ``decode_fused`` (prefill + the 50 greedy steps) at B = 32, the
+    device-busy time set against the same call's host-clock time without
+    the profiler."""
     prompts = [format_base_prompt(q) for q in WORD_MEANING_QUESTIONS[:BATCH]]
     yes = np.full(BATCH, engine.yes_id, np.int32)
     no = np.full(BATCH, engine.no_id, np.int32)
@@ -1336,34 +1410,8 @@ def profile_scoring(engine, rt, label="profile"):
         engine.decode_fused(prompts, yes, no)
         torch.cuda.synchronize()
 
-    call()
-    t0 = time.perf_counter()
-    call()
-    wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        call()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        log(json.dumps({"phase": label, "device_busy": "not measured",
-                        "wall_ms": wall * 1e3}))
-        return
-    busy, end = 0.0, float("-inf")
-    for start, stop in sorted((e.time_range.start, e.time_range.end)
-                              for e in kernels):
-        if stop > end:
-            busy += stop - max(start, end)
-            end = stop
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    log(json.dumps({
-        "phase": label, "call": "decode_fused, B=32, 50 steps",
-        "wall_ms": wall * 1e3, "device_busy_ms": busy / 1e3,
-        "device_busy_share": busy / 1e3 / (wall * 1e3),
-        "kernel_launches": len(kernels),
-        "top_kernels_ms": {name[:80]: us / 1e3 for name, us in top}}))
+    log(json.dumps({"phase": label, "call": "decode_fused, B=32, 50 steps",
+                    **profile_batch.profile(call)}))
 
 
 def kernel_label(mangled: str) -> str:
@@ -1451,6 +1499,9 @@ def main() -> int:
         op="HGMMA")
     tensor_core_counts("cascade_prefill", ("prefix_imma_kernel",), op="IMMA")
     tensor_core_counts("flash_attention", ("flash_mma_kernel",))
+    tensor_core_counts("flash_attention", tuple(
+        f"flash_wgmma_kernel<Li{hd}ELi{wg}>" for hd in (64, 128) for wg in (1, 2)),
+        op="HGMMA")
     tensor_core_counts("row_gemm", ("row_gemm_kernel",), op="HGMMA")
 
     # Phase 3's shapes, planned up front.
@@ -1481,6 +1532,8 @@ def main() -> int:
 
     # Phase 2: each kernel against its plain version on the card.
     warm_up()
+    floor_ms = time_ms(empty_kernel)
+    log(json.dumps({"phase": "timing_floor", "empty_kernel_ms": floor_ms}))
     gen = torch.Generator(device=DEV)
     gen.manual_seed(1234)
     results = []
@@ -1547,7 +1600,9 @@ def main() -> int:
                              ("w_up", D, F_), ("w_gate", D, F_),
                              ("w_down", F_, D)):
             check_row_gemm(gen, f"llama2-7b/{name}/M{M}", M, K_, N_, results)
-        check_row_norm(gen, f"llama2-7b/M{M}", M, D, results)
+        check_row_norm(gen, f"llama2-7b/M{M}", M, D, floor_ms, results)
+        check_row_add_norm(gen, f"llama2-7b/M{M}", M, D, floor_ms, results)
+    check_row_add_norm(gen, "falcon-7b/M32", BATCH, 4544, floor_ms, results)
     small_slice_check()
     verify_step_check(params, engine.cfg, rt.spec_k, "bf16",
                       measure_library=True)

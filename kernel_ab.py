@@ -22,11 +22,16 @@ path's shapes of ``chip_smoke.py``
 at llama-2-7b width, B = 32: the decode step at T = 552 (flat and with a
 432-slot trunk) and T = 114, the verify window (S = 4) at T = 192 and at
 T = 576 with a 432-slot trunk (its two legs and the merge also timed
-apart), prefill flash attention at buckets 64, 128 and 512, the bf16
-trunk leg (float and int8 QK^T; with the quantization pass where the copy
-has one) and the fused cascade at the cascade dispatch's shape (R = 80,
-Tt = 432), and the row-invariant projection at wq, w_up and w_down with
-M = 32 and 128 rows. Whether the two copies' outputs are bitwise equal is
+apart), prefill flash attention at buckets 64, 128 and 512 (bf16 through
+the copy's C entry: the kernel it takes at head dim 128), the
+bf16 trunk leg (float and int8 QK^T; with the quantization pass where the
+copy has one) and the fused cascade at the cascade dispatch's shape
+(R = 80, Tt = 432), the row-invariant projection at wq, w_up and w_down
+with M = 32 and 128 rows, and the RMSNorm of 32 and 128 rows alone and
+with the residual add before it (the copy's ``lir_row_add_norm``, or for
+a copy without one torch's bf16 add then its ``lir_row_norm``), beside
+the device time of an empty kernel timed the same way (the floor of
+``time_ms``). Whether the two copies' outputs are bitwise equal is
 printed per case (with the largest difference; for the trunk leg, whether
 the row max is), and for the cases whose bits may move between copies
 each copy's largest difference against the float32 product or the plain
@@ -52,7 +57,6 @@ from lir_tpu_torch.ops import _build
 # The modules behind ops' wrappers (ops re-exports functions of the same
 # names), whose _LIB each copy's library replaces in turn.
 _FD = sys.modules["lir_tpu_torch.ops.flash_decode"]
-_FA = sys.modules["lir_tpu_torch.ops.flash_attention"]
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "flash_decode": {"lir_flash_decode_splits": [_P] * 10 + [_I] * 10 + [_P],
@@ -66,7 +70,9 @@ _ARGTYPES = {
                         "lir_cascade_attention": [_P] * 9 + [_I] * 7 + [_P]},
     # The projection's entry that adds the splits in the launch; the older
     # one (a second launch adding them) takes their float32 scratch too.
-    "row_gemm": {"lir_row_gemm": [_P] * 3 + [_I] * 4 + [_P]},
+    "row_gemm": {"lir_row_gemm": [_P] * 3 + [_I] * 4 + [_P],
+                 "lir_row_norm": [_P] * 4 + [_I] * 2 + [ctypes.c_float, _P],
+                 "lir_row_add_norm": [_P] * 6 + [_I] * 2 + [ctypes.c_float, _P]},
 }
 _OLD_PREFIX_ARGTYPES = [_P] * 7 + [_I] * 8 + [_P]
 _OLD_GEMM_ARGTYPES = [_P] * 4 + [_I] * 4 + [_P]
@@ -116,7 +122,6 @@ def build(tag: str, csrc: Path) -> dict:
 
 def use(libs: dict) -> None:
     _FD._LIB = libs["flash_decode"]
-    _FA._LIB = libs["flash_attention"]
     _CURRENT.update(libs)
 
 
@@ -271,13 +276,58 @@ def decode_case(gen, S, T, trunk):
 
 
 def flash_case(gen, S):
-    shape = (cs.BATCH, S, 32, 128)
+    """Prefill flash attention at a bucket through the current copy's C
+    entry in bf16 (the kernel the copy takes at head dim 128: wgmma, or
+    mma.sync in a copy before it); the plain version for the error."""
+    B, H, hd = cs.BATCH, 32, 128
+    shape = (B, S, H, hd)
     q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
                for _ in range(3))
-    mask = torch.ones((cs.BATCH, S), dtype=torch.int32, device="cuda")
-    for b in range(cs.BATCH):
+    mask = torch.ones((B, S), dtype=torch.int32, device="cuda")
+    for b in range(B):
         mask[b, :(b * 7) % max(S // 2, 1)] = 0
-    return lambda: ops.flash_attention(q, k, v, key_mask=mask)
+    out = torch.empty_like(q)
+
+    def run():
+        lib = _CURRENT["flash_attention"]
+        err = lib.lir_flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                      mask.data_ptr(), None, None, out.data_ptr(),
+                                      B, S, H, H, hd, 1,
+                                      torch.cuda.current_stream().cuda_stream)
+        _build.check(err, "flash_attention")
+
+    return _with_result(run, out.clone), lambda: ops.flash_attention_plain(q, k, v, mask)
+
+
+def norm_case(gen, M, D=4096, add=False):
+    """The RMSNorm of M rows through the current copy's C entry, with the
+    residual add before it where ``add`` (the copy's row_add_norm, or for
+    a copy without one, torch's bf16 add then its row_norm); the plain
+    version for the error."""
+    x = (torch.randn((M, D), generator=gen, device="cuda") * 2).to(torch.bfloat16)
+    d = torch.randn((M, D), generator=gen, device="cuda").to(torch.bfloat16)
+    scale = torch.randn((D,), generator=gen, device="cuda").to(torch.bfloat16)
+    s, h = torch.empty_like(x), torch.empty_like(x)
+
+    def run():
+        lib = _CURRENT["row_gemm"]
+        st = torch.cuda.current_stream().cuda_stream
+        if not add:
+            err = lib.lir_row_norm(x.data_ptr(), scale.data_ptr(), None, h.data_ptr(),
+                                   M, D, 1e-5, st)
+        elif hasattr(lib, "lir_row_add_norm"):
+            err = lib.lir_row_add_norm(x.data_ptr(), d.data_ptr(), scale.data_ptr(), None,
+                                       s.data_ptr(), h.data_ptr(), M, D, 1e-5, st)
+        else:
+            torch.add(x, d, out=s)
+            err = lib.lir_row_norm(s.data_ptr(), scale.data_ptr(), None, h.data_ptr(),
+                                   M, D, 1e-5, st)
+        _build.check(err, "row_norm")
+
+    if add:
+        return (_with_result(run, lambda: (s.clone(), h.clone())),
+                lambda: ops.row_add_norm_plain(x, d, scale, None, 1e-5))
+    return _with_result(run, h.clone), lambda: ops.row_norm_plain(x, scale, None, 1e-5)
 
 
 def main() -> int:
@@ -293,11 +343,21 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
     cases = [(label, *decode_case(gen, S, T, trunk)) for label, S, T, trunk in DECODE_CASES]
-    cases += [(f"flash_attention/S{S}", flash_case(gen, S), None) for S in FLASH_BUCKETS]
     cases.append(("cascade_prefix_int8/R80/Tt432", prefix_int8_case(gen), None))
     # Cases whose bits may move between the copies: each copy's largest
     # difference against the float32 product or the plain version.
     refs = {}
+    for S in FLASH_BUCKETS:
+        label = f"flash_attention/S{S}"
+        fn, refs[label] = flash_case(gen, S)
+        cases.append((label, fn, None))
+    for M in (cs.BATCH, 4 * cs.BATCH):
+        for add in (False, True):
+            label = f"{'row_add_norm' if add else 'row_norm'}/M{M}"
+            fn, refs[label] = norm_case(gen, M, add=add)
+            cases.append((label, fn, None))
+    floor = [cs.time_ms(cs.empty_kernel, iters=20) for _ in range(2)]
+    print(json.dumps({"case": "empty_kernel", "copy": "this", "ms": floor}), flush=True)
     for fused, label in ((False, "cascade_prefix/R80/Tt432"),
                          (True, "cascade_attention/R80/Tt432")):
         fn, refs[label] = cascade_case(gen, fused)
@@ -334,10 +394,7 @@ def main() -> int:
                     "o_max_abs_diff": float((oa - ob).abs().max()),
                     "l_max_abs_diff": float((la - lb).abs().max())}
         else:
-            a, b = outs["other"].float(), outs["this"].float()
-            same = {"bitwise_equal": bool(torch.equal(a, b))}
-            if label.startswith("flash_attention"):
-                same["max_abs_diff"] = float((a - b).abs().max())
+            same = {"bitwise_equal": bool(torch.equal(outs["other"], outs["this"]))}
         print(json.dumps({"case": label, **same}), flush=True)
     for (label, tag), ms in summary.items():
         print(json.dumps({"summary": label, "copy": tag, "ms": ms,

@@ -1,7 +1,8 @@
 // The trunk walk of the bf16 cascade kernels on Hopper's wgmma and TMA
 // (sm_90a): the two-leg route's trunk leg (prefix_wgmma_kernel) and step
 // (1) of the fused kernel (cascade_mma_kernel<HD, true>) in
-// cascade_prefill.cu.
+// cascade_prefill.cu; its tile step (tile_step, with one bf16 P) is also
+// the prefill flash kernel's (flash_wgmma_kernel in flash_attention.cu).
 //
 // A warpgroup owns 64 query rows and walks the trunk's 64-key tiles with
 // an online softmax, FlashAttention-3 style:
@@ -119,6 +120,71 @@ __device__ __forceinline__ void pv_step(float (&o)[Dims<HD>::kAcc], const uint32
     hp::wgmma_rs_n64<1>(o, a, v);
 }
 
+// A walk's running state before its first tile: o = 0, m = -inf, l = 0.
+template <int HD>
+__device__ __forceinline__ void walk_init(float (&o)[Dims<HD>::kAcc], float (&m)[2],
+                                          float (&l)[2]) {
+#pragma unroll
+  for (int i = 0; i < Dims<HD>::kAcc; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    m[h] = -CUDART_INF_F;
+    l[h] = 0.f;
+  }
+}
+
+// One 64-key tile of a warpgroup's walk, its K tile at kt and V tile at
+// vt (landed, swizzled panels), its Q tile at q_wg: S = Q K^T by wgmma,
+// fix(s) turns the raw tile into scores (scale, ALiBi, -inf where
+// masked), the online softmax moves m and l on, then o = o * factor +
+// P V with P as bf16 hi then lo in each 16-key step (kSplitP) or as one
+// bf16 P.
+template <int HD, bool kSplitP, typename Fix>
+__device__ __forceinline__ void tile_step(const unsigned char* q_wg, const unsigned char* kt,
+                                          const unsigned char* vt, const Fix& fix,
+                                          float (&o)[Dims<HD>::kAcc], float (&m)[2],
+                                          float (&l)[2]) {
+  using D = Dims<HD>;
+  float s[8][4];
+  float(&sf)[32] = reinterpret_cast<float(&)[32]>(s);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sf[i] = 0.f;
+  hp::fence_regs(sf);
+  hp::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D::kKS; ++kk) {
+    const int off = (kk >> 2) * D::kPanel + (kk & 3) * 32;
+    hp::wgmma_ss_n64<0, 0>(sf, hp::desc_k(q_wg + off), hp::desc_k(kt + off));
+  }
+  hp::wgmma_commit();
+  hp::wgmma_wait<0>();
+  hp::fence_regs(sf);
+  fix(s);
+  float f[2];
+  am::online_rows(s, m, l, f);
+#pragma unroll
+  for (int j = 0; j < D::kHDP / 8; ++j) {
+    o[4 * j] = __fmul_rn(o[4 * j], f[0]);
+    o[4 * j + 1] = __fmul_rn(o[4 * j + 1], f[0]);
+    o[4 * j + 2] = __fmul_rn(o[4 * j + 2], f[1]);
+    o[4 * j + 3] = __fmul_rn(o[4 * j + 3], f[1]);
+  }
+  uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) am::p_fragments(s, kk, hi[kk], lo[kk]);
+  hp::fence_regs(o);
+  hp::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t v = hp::desc_mn(vt + kk * 16 * 128, D::kPanel);
+    pv_step<HD>(o, hi[kk], v);
+    if constexpr (kSplitP) pv_step<HD>(o, lo[kk], v);
+  }
+  hp::wgmma_commit();
+  hp::wgmma_wait<0>();
+  hp::fence_regs(o);
+}
+
 // The consumer side of a walk over the trunk (kSt >= 2 stages; the ring's
 // barriers initialised, the first tiles asked for, the Q tile in shared
 // memory and visible to wgmma). Each warpgroup walks the rows of its Q
@@ -134,56 +200,13 @@ __device__ __forceinline__ void trunk_walk(const Trunk& tr, const unsigned char*
                                            float (&l)[2]) {
   static_assert(kSt >= 2, "a ring of two stages or more");
   using D = Dims<HD>;
-#pragma unroll
-  for (int i = 0; i < D::kAcc; ++i) o[i] = 0.f;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    m[h] = -CUDART_INF_F;
-    l[h] = 0.f;
-  }
+  walk_init<HD>(o, m, l);
   for (int t = 0; t < tr.n_tiles; ++t) {
     const int st = t % kSt;
     hp::mbar_wait(&tr.full[st], (t / kSt) & 1);
     const unsigned char* kt = tr.ring + st * D::kStage;
-    const unsigned char* vt = kt + D::kTile;
-    float s[8][4];
-    float(&sf)[32] = reinterpret_cast<float(&)[32]>(s);
-#pragma unroll
-    for (int i = 0; i < 32; ++i) sf[i] = 0.f;
-    hp::fence_regs(sf);
-    hp::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D::kKS; ++kk) {
-      const int off = (kk >> 2) * D::kPanel + (kk & 3) * 32;
-      hp::wgmma_ss_n64<0, 0>(sf, hp::desc_k(q_wg + off), hp::desc_k(kt + off));
-    }
-    hp::wgmma_commit();
-    hp::wgmma_wait<0>();
-    hp::fence_regs(sf);
-    fix(t, s);
-    float f[2];
-    am::online_rows(s, m, l, f);
-#pragma unroll
-    for (int j = 0; j < D::kHDP / 8; ++j) {
-      o[4 * j] = __fmul_rn(o[4 * j], f[0]);
-      o[4 * j + 1] = __fmul_rn(o[4 * j + 1], f[0]);
-      o[4 * j + 2] = __fmul_rn(o[4 * j + 2], f[1]);
-      o[4 * j + 3] = __fmul_rn(o[4 * j + 3], f[1]);
-    }
-    uint32_t hi[4][4], lo[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) am::p_fragments(s, kk, hi[kk], lo[kk]);
-    hp::fence_regs(o);
-    hp::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t v = hp::desc_mn(vt + kk * 16 * 128, D::kPanel);
-      pv_step<HD>(o, hi[kk], v);
-      pv_step<HD>(o, lo[kk], v);
-    }
-    hp::wgmma_commit();
-    hp::wgmma_wait<0>();
-    hp::fence_regs(o);
+    tile_step<HD, true>(q_wg, kt, kt + D::kTile, [&](float (&s)[8][4]) { fix(t, s); }, o, m,
+                        l);
     release(t);
   }
 }

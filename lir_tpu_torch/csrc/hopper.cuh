@@ -2,8 +2,9 @@
 // loads into a ring of shared-memory stages tracked by mbarriers,
 // warpgroup matrix products (wgmma) reading their operands from those
 // stages, and the barrier and addressing of thread-block clusters.
-// row_gemm.cu (the row-invariant projections) and attn_wgmma.cuh (the
-// cascade trunk walk) are built from them.
+// row_gemm.cu (the row-invariant projections), attn_wgmma.cuh (the
+// cascade trunk walk) and flash_attention.cu (the prefill flash kernel)
+// are built from them.
 //
 // - TMA: one thread asks for a whole tile (cp.async.bulk.tensor) with the
 //   128-byte swizzle: a tile row of 64 bf16 (128 bytes) lands at a 128-byte
@@ -113,6 +114,40 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// A TMA store of a tile in shared memory (written by the generic proxy:
+// fence_proxy_async and a barrier of the writing threads first) to a 4-D
+// tensor at box coordinates {c0, c1, c2, c3}; rows past the tensor's edge
+// are not written. Then commit the group; wait_read<0> waits until the
+// stores have read their shared memory, which may then be reused.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// Waits until every committed store group has completed its writes.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------

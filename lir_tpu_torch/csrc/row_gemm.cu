@@ -24,8 +24,9 @@
 //   weights only. So a row's bits are the same at M = 1, 32 or 128, in
 //   any place among the rows.
 // - row_norm_kernel: RMSNorm or LayerNorm of one row a block, the row's
-//   sums in a fixed order (each thread's strided elements in order, then a
-//   fixed shuffle tree, then the four warps in order).
+//   sums in an order fixed by the width D alone (each thread's values in
+//   order, then a fixed shuffle tree, then the warps in order); with the
+//   residual add before it (lir_row_add_norm), in the same pass.
 //
 // What bounds them on the H100: bytes. A decode step at llama-2-7b width
 // streams 405 MB of bf16 weights a layer (wq, wk, wv, wo 4 x 34 MB;
@@ -51,6 +52,20 @@
 //   adds an element moves no bit.
 // - Blocks in flight together take neighbouring column tiles of one K
 //   range (split), so the weight's rows stream from device memory whole.
+//
+// The norms move 8 KB a row at llama-2-7b width (0.16 us of bytes for 32
+// rows): their time is latency, not bytes. The first row_norm_kernel (128
+// threads a row) read x two or three times, each pass waiting on the last,
+// and ran after a separate bf16 residual add whose sum went to device
+// memory and came back. Now a block is sized to the row (D / 8 threads,
+// one 16-byte chunk each, up to 1,024 threads; wider rows two chunks a
+// thread): x, d, scale and bias are all asked for before the first sum,
+// the row stays in registers, RMSNorm takes one block-wide sum and
+// LayerNorm two (mean, then the mean square of x - mu), and the residual
+// add before the norm (the decoder's x + attn then ln2, and x + mlp then
+// the next block's ln1) is the same launch, which writes the sum and the
+// normed row together. One row a block, the order fixed by D: a row's bits
+// do not depend on the row count or on its place.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -256,10 +271,10 @@ __global__ void __launch_bounds__(kThreads, 2)
 // Norms
 // ---------------------------------------------------------------------------
 
-constexpr int kNormThreads = 128;
+constexpr int kNormMaxThreads = 1024;
 
-__device__ __forceinline__ void load8(const bf16* p, float (&f)[8]) {
-  const uint4 r = *reinterpret_cast<const uint4*>(p);
+// Eight bf16 (a 16-byte chunk) as floats.
+__device__ __forceinline__ void unpack8(const uint4& r, float (&f)[8]) {
   const uint32_t w[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -267,73 +282,135 @@ __device__ __forceinline__ void load8(const bf16* p, float (&f)[8]) {
     f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
 }
+__device__ __forceinline__ void load8(const bf16* p, float (&f)[8]) {
+  unpack8(*reinterpret_cast<const uint4*>(p), f);
+}
+
+// Eight floats as bf16 (round to nearest even), packed for a 16-byte store.
+__device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
+  uint32_t pk[4];
+#pragma unroll
+  for (int e = 0; e < 8; e += 2) {
+    const __nv_bfloat162 y = __floats2bfloat162_rn(f[e], f[e + 1]);
+    pk[e / 2] = *reinterpret_cast<const uint32_t*>(&y);
+  }
+  return make_uint4(pk[0], pk[1], pk[2], pk[3]);
+}
 
 // The block's sum of each thread's v in a fixed order: a shuffle tree in
-// each warp, then the warps in order.
+// each warp (every lane ends with the same bits), then the warps in order
+// through ``red`` (one slot a warp, not used by an earlier sum).
 __device__ __forceinline__ float block_sum(float v, float* red) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v = __fadd_rn(v, __shfl_xor_sync(kFull, v, off));
-  __syncthreads();  // red is free
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
   float s = red[0];
-#pragma unroll
-  for (int w = 1; w < kNormThreads / 32; ++w) s = __fadd_rn(s, red[w]);
+  for (int w = 1; w < int(blockDim.x >> 5); ++w) s = __fadd_rn(s, red[w]);
   return s;
 }
 
-// One row a block. kLN: LayerNorm (mean, then the mean square of x - mu,
-// then ((x - mu) * r) * scale + bias); otherwise RMSNorm ((x * r) * scale
-// with r = rsqrt(mean(x^2) + eps)). D a multiple of 8.
-template <bool kLN>
-__global__ void __launch_bounds__(kNormThreads)
-    row_norm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ scale,
-                    const bf16* __restrict__ bias, bf16* __restrict__ out, int D, float eps) {
-  __shared__ float red[kNormThreads / 32];
-  const bf16* xr = x + size_t(blockIdx.x) * D;
-  bf16* yr = out + size_t(blockIdx.x) * D;
+// One row a block of blockDim.x threads (a whole number of warps, fixed by
+// D alone): thread t holds the row's 16-byte chunks t, t + blockDim.x, ...
+// (kPer of them, 8 values each) in registers, with the scale's and the
+// bias's, all loaded before the first sum. kAdd: the row is first
+// s = bf16(x + d), torch's bf16 add, written to s_out. kLN: LayerNorm
+// (mean, then the mean square of s - mu, both over the registers, then
+// ((s - mu) * r) * scale + bias); otherwise RMSNorm, one sum ((s * r) *
+// scale with r = rsqrt(mean(s^2) + eps)). Each thread sums its values in
+// order; chunks past the row add 0.
+template <bool kLN, bool kAdd, int kPer>
+__global__ void __launch_bounds__(kNormMaxThreads)
+    row_norm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ d,
+                    const bf16* __restrict__ scale, const bf16* __restrict__ bias,
+                    bf16* __restrict__ s_out, bf16* __restrict__ out, int D, float eps) {
+  __shared__ float red[2][kNormMaxThreads / 32];
+  const size_t row = size_t(blockIdx.x) * D;
+  const int chunks = D / 8;
+  float f[kPer][8], g[kPer][8], sc[kPer][8], bi[kPer][8];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int c = threadIdx.x + i * blockDim.x;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) f[i][e] = g[i][e] = sc[i][e] = bi[i][e] = 0.f;
+    if (c < chunks) {
+      load8(x + row + 8 * c, f[i]);
+      if (kAdd) load8(d + row + 8 * c, g[i]);
+      load8(scale + 8 * c, sc[i]);
+      if (kLN) load8(bias + 8 * c, bi[i]);
+    }
+  }
+  if (kAdd) {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int c = threadIdx.x + i * blockDim.x;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) f[i][e] = __fadd_rn(f[i][e], g[i][e]);
+      const uint4 pk = pack8(f[i]);
+      unpack8(pk, f[i]);  // the row is the rounded sum
+      if (c < chunks) *reinterpret_cast<uint4*>(s_out + row + 8 * c) = pk;
+    }
+  }
   const float inv_d = __fdiv_rn(1.f, float(D));
   float mu = 0.f;
   if (kLN) {
     float s = 0.f;
-    for (int c = threadIdx.x * 8; c < D; c += kNormThreads * 8) {
-      float f[8];
-      load8(xr + c, f);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) s = __fadd_rn(s, f[e]);
-    }
-    mu = __fmul_rn(block_sum(s, red), inv_d);
+    for (int i = 0; i < kPer; ++i)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) s = __fadd_rn(s, f[i][e]);
+    mu = __fmul_rn(block_sum(s, red[0]), inv_d);
   }
   float s = 0.f;
-  for (int c = threadIdx.x * 8; c < D; c += kNormThreads * 8) {
-    float f[8];
-    load8(xr + c, f);
+#pragma unroll
+  for (int i = 0; i < kPer; ++i)
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
-      const float d = __fsub_rn(f[e], mu);
-      s = __fadd_rn(s, __fmul_rn(d, d));
+      const int c = threadIdx.x + i * blockDim.x;
+      const float dv = c < chunks ? __fsub_rn(f[i][e], mu) : 0.f;
+      s = __fadd_rn(s, __fmul_rn(dv, dv));
     }
-  }
-  const float r = rsqrtf(__fadd_rn(__fmul_rn(block_sum(s, red), inv_d), eps));
-  for (int c = threadIdx.x * 8; c < D; c += kNormThreads * 8) {
-    float f[8], sc[8], bi[8];
-    load8(xr + c, f);
-    load8(scale + c, sc);
-    if (kLN) load8(bias + c, bi);
-    uint32_t pk[4];
+  const float r = rsqrtf(__fadd_rn(__fmul_rn(block_sum(s, red[1]), inv_d), eps));
 #pragma unroll
-    for (int e = 0; e < 8; e += 2) {
-      float y0 = __fmul_rn(__fmul_rn(__fsub_rn(f[e], mu), r), sc[e]);
-      float y1 = __fmul_rn(__fmul_rn(__fsub_rn(f[e + 1], mu), r), sc[e + 1]);
-      if (kLN) {
-        y0 = __fadd_rn(y0, bi[e]);
-        y1 = __fadd_rn(y1, bi[e + 1]);
-      }
-      const __nv_bfloat162 y = __floats2bfloat162_rn(y0, y1);
-      pk[e / 2] = *reinterpret_cast<const uint32_t*>(&y);
+  for (int i = 0; i < kPer; ++i) {
+    const int c = threadIdx.x + i * blockDim.x;
+    if (c >= chunks) continue;
+    float y[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      y[e] = __fmul_rn(__fmul_rn(__fsub_rn(f[i][e], mu), r), sc[i][e]);
+      if (kLN) y[e] = __fadd_rn(y[e], bi[i][e]);
     }
-    *reinterpret_cast<uint4*>(yr + c) = make_uint4(pk[0], pk[1], pk[2], pk[3]);
+    *reinterpret_cast<uint4*>(out + row + 8 * c) = pack8(y);
   }
+}
+
+// Launch of one row a block: threads = the row's chunks (over kPer =
+// 1 or 2 a thread) rounded up to whole warps, so the reduction order is
+// fixed by D alone.
+template <bool kAdd>
+cudaError_t launch_norm(const void* x, const void* d, const void* scale, const void* bias,
+                        void* s_out, void* out, int M, int D, float eps, cudaStream_t st) {
+  if (M <= 0 || D <= 0 || D % 8 || D / 8 > 2 * kNormMaxThreads) return cudaErrorInvalidValue;
+  const int chunks = D / 8;
+  const int per = chunks > kNormMaxThreads ? 2 : 1;
+  const int threads = ((chunks + per - 1) / per + 31) / 32 * 32;
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* db = static_cast<const bf16*>(d);
+  const bf16* sb = static_cast<const bf16*>(scale);
+  const bf16* bb = static_cast<const bf16*>(bias);
+  bf16* so = static_cast<bf16*>(s_out);
+  bf16* ob = static_cast<bf16*>(out);
+  const bool ln = bias != nullptr;
+  if (ln && per == 1)
+    row_norm_kernel<true, kAdd, 1><<<M, threads, 0, st>>>(xb, db, sb, bb, so, ob, D, eps);
+  else if (ln)
+    row_norm_kernel<true, kAdd, 2><<<M, threads, 0, st>>>(xb, db, sb, bb, so, ob, D, eps);
+  else if (per == 1)
+    row_norm_kernel<false, kAdd, 1><<<M, threads, 0, st>>>(xb, db, sb, bb, so, ob, D, eps);
+  else
+    row_norm_kernel<false, kAdd, 2><<<M, threads, 0, st>>>(xb, db, sb, bb, so, ob, D, eps);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -395,19 +472,21 @@ extern "C" int lir_row_gemm(const void* x, const void* w, void* out, int M, int 
 }
 
 // RMSNorm (bias null) or LayerNorm of M bf16 rows of width D (a multiple
-// of 8, 16-byte aligned), scale and bias bf16 (D,). Returns
-// cudaGetLastError(), 0 on success.
+// of 8, at most 16,384; 16-byte aligned), scale and bias bf16 (D,).
+// Returns cudaGetLastError(), 0 on success.
 extern "C" int lir_row_norm(const void* x, const void* scale, const void* bias, void* out,
                             int M, int D, float eps, void* stream) {
-  if (M <= 0 || D <= 0 || D % 8) return int(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* xb = static_cast<const bf16*>(x);
-  const bf16* sb = static_cast<const bf16*>(scale);
-  const bf16* bb = static_cast<const bf16*>(bias);
-  bf16* ob = static_cast<bf16*>(out);
-  if (bias != nullptr)
-    row_norm_kernel<true><<<M, kNormThreads, 0, st>>>(xb, sb, bb, ob, D, eps);
-  else
-    row_norm_kernel<false><<<M, kNormThreads, 0, st>>>(xb, sb, bb, ob, D, eps);
-  return int(cudaGetLastError());
+  return int(launch_norm<false>(x, nullptr, scale, bias, nullptr, out, M, D, eps,
+                                static_cast<cudaStream_t>(stream)));
+}
+
+// The residual add and the norm of its sum in one pass: s = x + d (bf16,
+// rounded as torch's bf16 add) and out = lir_row_norm of s, for M rows of
+// width D as lir_row_norm takes them. Returns cudaGetLastError(), 0 on
+// success.
+extern "C" int lir_row_add_norm(const void* x, const void* d, const void* scale,
+                                const void* bias, void* s_out, void* out, int M, int D,
+                                float eps, void* stream) {
+  return int(launch_norm<true>(x, d, scale, bias, s_out, out, M, D, eps,
+                               static_cast<cudaStream_t>(stream)));
 }

@@ -31,6 +31,9 @@ selected by ``registry.ModelConfig`` knobs.
   whose rows do not depend on the row count, and the window's head once
   per position at the step's shape: a window of B * S rows then gives
   each row the step's bits (on the CPU the same ops are the plain ones).
+  In sequential blocks there, each residual add is the same launch as
+  the norm after it (``ops.row_add_norm``): a block hands its MLP output
+  to the next block's ln1, and the last block's to the final norm.
 """
 
 from __future__ import annotations
@@ -149,6 +152,20 @@ def _row_norm(x: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
     return ops.row_norm(x, p["scale"],
                         None if cfg.norm == "rmsnorm" else p["bias"],
                         cfg.norm_eps)
+
+
+def _row_add_norm(x: torch.Tensor, d: torch.Tensor, p: Params,
+                  cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``s = x + d`` and :func:`_row_norm` of ``s``: on bf16 activations
+    ``ops.row_add_norm`` (on the card one launch, ``s`` bitwise torch's
+    bf16 add and the norm bitwise ``ops.row_norm`` of it; on the CPU the
+    add and :func:`_norm`), on others the add and :func:`_norm`."""
+    if x.dtype != torch.bfloat16 or d.dtype != x.dtype:
+        s = x + d
+        return s, _norm(s, p, cfg)
+    return ops.row_add_norm(x, d, p["scale"],
+                            None if cfg.norm == "rmsnorm" else p["bias"],
+                            cfg.norm_eps)
 
 
 def _row_mm(x, w) -> torch.Tensor:
@@ -349,8 +366,8 @@ def _attention_cached(q, k, v, bias, cfg: ModelConfig) -> torch.Tensor:
 
 def _block(x, lp: Params, cfg: ModelConfig, sin, cos, bias, cache_kv,
            cache_index, key_mask=None, attn_impl=None, fused_ctx=None,
-           trunk_len: int = 0, row_ops: bool = False):
-    """One transformer block. Returns (new_x, (k, v)).
+           trunk_len: int = 0, row_ops: bool = False, pending=None):
+    """One transformer block. Returns (new_x, (k, v), pending).
 
     With ``cache_kv`` (one layer's (K, T, B, hd) views of the cache) the
     step's k/v are written into the cache in place, at slots
@@ -360,14 +377,23 @@ def _block(x, lp: Params, cfg: ModelConfig, sin, cos, bias, cache_kv,
     its own k/v (dense, or ``attn_impl(q, k, v, key_mask)``) and returns
     them (B, S, K, hd). ``row_ops`` (the decode step and the verify
     window) takes the norms and projections whose rows do not depend on
-    the row count (:func:`_row_norm`, :func:`_row_mm`).
+    the row count (:func:`_row_norm`, :func:`_row_mm`); in a sequential
+    block it also takes each residual add with the norm after it
+    (:func:`_row_add_norm`): ``pending``, the previous block's MLP output
+    not yet added to x, is added with ln1, and the block returns its own
+    MLP output as the next ``pending`` instead of adding it (None
+    elsewhere, where new_x has every add).
     """
     B, S, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     norm = _row_norm if row_ops else _norm
     mm = _row_mm if row_ops else _mm
+    fuse = row_ops and not cfg.parallel_block
 
-    h_attn_in = norm(x, lp["ln1"], cfg)
+    if pending is not None:
+        x, h_attn_in = _row_add_norm(x, pending, lp["ln1"], cfg)
+    else:
+        h_attn_in = norm(x, lp["ln1"], cfg)
     h_qkv = _shared_quant(h_attn_in, lp["wq"], lp["wk"], lp["wv"])
     q = mm(h_qkv, lp["wq"])
     k = mm(h_qkv, lp["wk"])
@@ -413,6 +439,8 @@ def _block(x, lp: Params, cfg: ModelConfig, sin, cos, bias, cache_kv,
 
     if cfg.parallel_block:
         mlp_in = h_attn_in if cfg.shared_block_ln else norm(x, lp["ln2"], cfg)
+    elif fuse:
+        x, mlp_in = _row_add_norm(x, attn, lp["ln2"], cfg)
     else:
         x = x + attn
         mlp_in = norm(x, lp["ln2"], cfg)
@@ -431,8 +459,10 @@ def _block(x, lp: Params, cfg: ModelConfig, sin, cos, bias, cache_kv,
     if cfg.mlp_bias:
         mlp = mlp + lp["b_down"]
 
+    if fuse:
+        return x, (ck, cv), mlp
     out = x + attn + mlp if cfg.parallel_block else x + mlp
-    return out, (ck, cv)
+    return out, (ck, cv), None
 
 
 def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -469,11 +499,22 @@ def _head(cfg: ModelConfig, x: torch.Tensor, head) -> torch.Tensor:
     return logits
 
 
-def _unembed(params: Params, cfg: ModelConfig, x: torch.Tensor,
-             row_ops: bool = False) -> torch.Tensor:
+def _unembed(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.final_norm:
-        x = (_row_norm if row_ops else _norm)(x, params["final_ln"], cfg)
+        x = _norm(x, params["final_ln"], cfg)
     return _head(cfg, x, _head_weight(params, cfg))
+
+
+def _row_final(params: Params, cfg: ModelConfig, x: torch.Tensor,
+               pending) -> torch.Tensor:
+    """The decode step's and the verify window's x after the last block:
+    its pending MLP output added (with the final norm in one
+    :func:`_row_add_norm` launch) and the final norm taken."""
+    if pending is not None:
+        if not cfg.final_norm:
+            return x + pending
+        return _row_add_norm(x, pending, params["final_ln"], cfg)[1]
+    return _row_norm(x, params["final_ln"], cfg) if cfg.final_norm else x
 
 
 def _causal_bias(attn_mask, positions, cfg: ModelConfig, key_positions=None,
@@ -508,14 +549,17 @@ def mask_positions(attn_mask: torch.Tensor) -> torch.Tensor:
 def _run_blocks(params: Params, cfg: ModelConfig, x, sin, cos, bias, cache,
                 cache_index, fused_ctx=None, trunk_len: int = 0,
                 row_ops: bool = False):
-    """The layer loop over the stacked params and cache (in place)."""
+    """The layer loop over the stacked params and cache (in place).
+    Returns (x, pending): the last block's MLP output not yet added to x
+    (``row_ops`` and sequential blocks), else None."""
     ck_all, cv_all = cache
+    pending = None
     for i in range(cfg.n_layers):
-        x, _ = _block(x, _layer(params["layers"], i), cfg, sin, cos, bias,
-                      (ck_all[i], cv_all[i]), cache_index,
-                      fused_ctx=fused_ctx, trunk_len=trunk_len,
-                      row_ops=row_ops)
-    return x
+        x, _, pending = _block(x, _layer(params["layers"], i), cfg, sin, cos,
+                               bias, (ck_all[i], cv_all[i]), cache_index,
+                               fused_ctx=fused_ctx, trunk_len=trunk_len,
+                               row_ops=row_ops, pending=pending)
+    return x, pending
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -549,8 +593,8 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     ck = torch.zeros(shape, dtype=x.dtype, device=x.device)
     cv = torch.zeros(shape, dtype=x.dtype, device=x.device)
     for i in range(cfg.n_layers):
-        x, (k, v) = _block(x, _layer(params["layers"], i), cfg, sin, cos,
-                           bias, None, None, key_mask=attn_mask)
+        x, (k, v), _ = _block(x, _layer(params["layers"], i), cfg, sin, cos,
+                              bias, None, None, key_mask=attn_mask)
         ck[i, :, :S] = k.permute(2, 1, 0, 3)          # (B,S,K,hd) -> (K,S,B,hd)
         cv[i, :, :S] = v.permute(2, 1, 0, 3)
     logits = _unembed(params, cfg, x[:, -1:, :])[:, 0, :]
@@ -578,7 +622,7 @@ def extend(params: Params, cfg: ModelConfig, cache, suffix_tokens: torch.Tensor,
         sin, cos = _rope_sincos(qpos, cfg.rotary_dim, cfg.rope_theta)
     bias = _causal_bias(suffix_mask, qpos, cfg, key_positions=key_positions,
                         key_mask=cache_mask)
-    x = _run_blocks(params, cfg, x, sin, cos, bias, cache, start_index)
+    x, _ = _run_blocks(params, cfg, x, sin, cos, bias, cache, start_index)
     last = torch.clamp_min(suffix_mask.sum(dim=-1) - 1, 0).long()   # (B,)
     rows = torch.arange(B, device=x.device)
     logits = _unembed(params, cfg, x[rows, last][:, None, :])[:, 0, :]
@@ -621,9 +665,9 @@ def cascade_extend(params: Params, cfg: ModelConfig, trunk_cache,
             return _attention_cascade(q, k, v, (tk, tv), rem_mask, qpos, cfg,
                                       int8_qk)
 
-        x, (k, v) = _block(x, _layer(params["layers"], i), cfg, sin, cos,
-                           None, None, None, key_mask=rem_mask,
-                           attn_impl=impl)
+        x, (k, v), _ = _block(x, _layer(params["layers"], i), cfg, sin, cos,
+                              None, None, None, key_mask=rem_mask,
+                              attn_impl=impl)
         ck[i, :, trunk_len:trunk_len + R] = k.permute(2, 1, 0, 3).to(ck.dtype)
         cv[i, :, trunk_len:trunk_len + R] = v.permute(2, 1, 0, 3).to(cv.dtype)
     return ck, cv
@@ -652,11 +696,12 @@ def decode_step(params: Params, cfg: ModelConfig, cache, token: torch.Tensor,
         ones = torch.ones((B, 1), dtype=torch.int32, device=token.device)
         bias = _causal_bias(ones, position[:, None], cfg,
                             key_positions=key_positions, key_mask=prompt_mask)
-    x = _run_blocks(params, cfg, x, sin, cos, bias, cache, step_index,
-                    fused_ctx=(position, prompt_mask, key_positions),
-                    trunk_len=int(trunk_len) if cfg.cascade_decode else 0,
-                    row_ops=True)
-    logits = _unembed(params, cfg, x, row_ops=True)[:, 0, :]
+    x, pending = _run_blocks(
+        params, cfg, x, sin, cos, bias, cache, step_index,
+        fused_ctx=(position, prompt_mask, key_positions),
+        trunk_len=int(trunk_len) if cfg.cascade_decode else 0, row_ops=True)
+    x = _row_final(params, cfg, x, pending)
+    logits = _head(cfg, x, _head_weight(params, cfg))[:, 0, :]
     return logits, cache
 
 
@@ -679,8 +724,8 @@ def verify_extend(params: Params, cfg: ModelConfig, cache,
     (``trunk_len`` > 0 and ``cfg.cascade_decode``: the trunk-aware one);
     otherwise through the dense route, with the causal bias built here.
 
-    The norms and projections are the decode step's row-invariant ones
-    (``row_ops``), and the head runs once per window position at the
+    The norms, adds and projections are the decode step's row-invariant
+    ones (``row_ops``), and the head runs once per window position at the
     step's shape, so on the kernel route window position j gives the bits
     :func:`decode_step` gives for the same row, token, slot and cache.
     Returns (logits (B, S, V) float32, cache)."""
@@ -702,12 +747,11 @@ def verify_extend(params: Params, cfg: ModelConfig, cache,
         ones = torch.ones((B, S2), dtype=torch.int32, device=x.device)
         bias = _causal_bias(ones, qpos, cfg, key_positions=key_positions,
                             key_mask=cache_mask)
-    x = _run_blocks(params, cfg, x, sin, cos, bias, cache, slots,
-                    fused_ctx=(qpos, cache_mask, key_positions),
-                    trunk_len=int(trunk_len) if cfg.cascade_decode else 0,
-                    row_ops=True)
-    if cfg.final_norm:
-        x = _row_norm(x, params["final_ln"], cfg)
+    x, pending = _run_blocks(
+        params, cfg, x, sin, cos, bias, cache, slots,
+        fused_ctx=(qpos, cache_mask, key_positions),
+        trunk_len=int(trunk_len) if cfg.cascade_decode else 0, row_ops=True)
+    x = _row_final(params, cfg, x, pending)
     head = _head_weight(params, cfg)
     logits = torch.cat([_head(cfg, x[:, j:j + 1].contiguous(), head)
                         for j in range(S2)], dim=1)

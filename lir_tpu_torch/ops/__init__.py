@@ -20,14 +20,15 @@
   of any pattern (``csrc/flash_attention.cu``).
 - ``merge_partials``: the log-sum-exp merge of partials (plain PyTorch;
   the kernels run it in device code).
-- ``row_gemm`` / ``row_norm``: the bf16 projections and norms of the
-  decode step and the verify window, each row reduced in one fixed order
-  whatever the number of rows (``csrc/row_gemm.cu``), so a window's row
-  is bitwise the step's.
+- ``row_gemm`` / ``row_norm`` / ``row_add_norm``: the bf16 projections,
+  norms and residual-add-then-norms of the decode step and the verify
+  window, each row reduced in one fixed order whatever the number of
+  rows (``csrc/row_gemm.cu``), so a window's row is bitwise the step's.
 
 Each wrapper keeps a plain int ``launches`` that it raises by one where
-it launches its CUDA kernel, and nowhere else; :func:`reset_launches`
-and :func:`launch_counts` read them together.
+it launches its CUDA kernel, and nowhere else (``flash_attention`` also
+counts each route in ``route_launches``); :func:`reset_launches` and
+:func:`launch_counts` read them together.
 """
 
 from __future__ import annotations
@@ -45,8 +46,8 @@ from .flash_decode import (DECODE_SPLIT, flash_decode, flash_decode_mq,
                            flash_decode_mq_trunk_plain, flash_decode_plain,
                            flash_decode_trunk, flash_decode_trunk_plain)
 from .lse import merge_partials
-from .row_gemm import (gemm_splits, row_gemm, row_gemm_plain, row_norm,
-                       row_norm_plain)
+from .row_gemm import (gemm_splits, row_add_norm, row_add_norm_plain,
+                       row_gemm, row_gemm_plain, row_norm, row_norm_plain)
 
 KERNELS = {
     "flash_decode": flash_decode,
@@ -59,6 +60,7 @@ KERNELS = {
     "flash_attention": flash_attention,
     "row_gemm": row_gemm,
     "row_norm": row_norm,
+    "row_add_norm": row_add_norm,
     "cascade_suffix_merge": cascade_suffix_merge,
     "quantize_rows": quantize_rows,
 }
@@ -67,6 +69,8 @@ KERNELS = {
 def reset_launches() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    flash_attention.route_launches = dict.fromkeys(
+        flash_attention.route_launches, 0)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -82,5 +86,6 @@ __all__ = [
     "flash_decode_mq_trunk_plain", "flash_decode_plain", "flash_decode_trunk",
     "flash_decode_trunk_plain", "launch_counts", "merge_partials",
     "prefix_partials", "prefix_partials_int8", "reset_launches",
-    "gemm_splits", "row_gemm", "row_gemm_plain", "row_norm", "row_norm_plain",
+    "gemm_splits", "row_add_norm", "row_add_norm_plain", "row_gemm",
+    "row_gemm_plain", "row_norm", "row_norm_plain",
 ]

@@ -1,11 +1,13 @@
 """Prefill flash attention: exact self-attention without the (S, S) scores.
 
 Port of ``lir_tpu/ops/flash_attention.py:flash_attention`` (TPU kernel
-``_flash_kernel``). On a CUDA tensor the wrapper launches the hand-written
-kernel of ``csrc/flash_attention.cu``; on a CPU tensor it runs the plain
-PyTorch version beside it. The source note in ``csrc/flash_attention.cu``
-says what bounds the kernel on the H100 and what its design does about
-that.
+``_flash_kernel``). On a CUDA tensor the wrapper launches a hand-written
+kernel of ``csrc/flash_attention.cu``, by shape (:func:`route`): bf16 at
+head dims 64 and 128 the persistent TMA + wgmma kernel, bf16 at the
+other tile head dims the mma.sync kernel, float32 the CUDA-core kernel.
+On a CPU tensor it runs the plain PyTorch version beside them. The
+source note in ``csrc/flash_attention.cu`` says what bounds the kernels
+on the H100 and what their design does about that.
 
 The function: causal on slot indices (key j <= query i), keys masked by a
 (B, S) key mask of any pattern, ALiBi as ``slope_h * key_position`` on
@@ -28,7 +30,20 @@ import torch
 
 from . import _build
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# The kernel of each route, by the C entry's route code (lir_flash_route):
+# float32 on CUDA cores; bf16 on mma.sync (head dims 32, 80, 96, only the
+# tiny test configs); bf16 on the persistent TMA + wgmma kernel (head dims
+# 64 and 128, every full-size decoder family).
+ROUTES = ("fp32", "mma", "wgmma")
+
+
+def route(dtype: torch.dtype, hd: int) -> str:
+    """The kernel a CUDA call of ``dtype`` and head dim ``hd`` launches,
+    as the C library picks it (``lir_flash_route``)."""
+    code = _lib().lir_flash_route(int(dtype == torch.bfloat16), hd)
+    if code < 0:
+        raise ValueError(f"no flash kernel for {dtype} at head dim {hd}")
+    return ROUTES[code]
 
 
 def flash_attention_plain(q, k, v, key_mask=None, alibi_slopes=None,
@@ -69,12 +84,14 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.lir_flash_attention.argtypes = [p] * 7 + [i] * 6 + [p]
         lib.lir_flash_attention.restype = i
+        lib.lir_flash_route.argtypes = [i, i]
+        lib.lir_flash_route.restype = i
         _LIB = lib
     return _LIB
 
 
 def _flash_cuda(q, k, v, key_mask, alibi_slopes, key_positions) -> torch.Tensor:
-    if q.dtype not in _DTYPES:
+    if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash kernel takes float32 or bfloat16, got {q.dtype}")
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)}")
@@ -109,14 +126,15 @@ def _flash_cuda(q, k, v, key_mask, alibi_slopes, key_positions) -> torch.Tensor:
             raise ValueError(f"key_positions {tuple(kpos.shape)} / slopes "
                              f"{tuple(slopes.shape)} do not match {(B, S, H)}")
     out = torch.empty_like(q)
+    name = route(q.dtype, hd)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _build.check(_lib().lir_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
         None if kpos is None else kpos.data_ptr(),
         None if slopes is None else slopes.data_ptr(), out.data_ptr(),
-        B, S, H, K, hd, _DTYPES[q.dtype], stream),
+        B, S, H, K, hd, int(q.dtype == torch.bfloat16), stream),
         "flash_attention")
-    return out
+    return out, name
 
 
 def flash_attention(q, k, v, key_mask=None, alibi_slopes=None,
@@ -124,7 +142,8 @@ def flash_attention(q, k, v, key_mask=None, alibi_slopes=None,
     """Exact causal prefill attention, (B, S, H, hd) layout, O(S * hd)
     memory (the decoder's only use of the JAX function: ``causal=True``).
 
-    CUDA tensors launch the kernel of ``csrc/flash_attention.cu``; CPU
+    CUDA tensors launch a kernel of ``csrc/flash_attention.cu``, chosen
+    by :func:`route` (counted per route in ``route_launches``); CPU
     tensors run :func:`flash_attention_plain`. ``key_positions`` must
     come with ``alibi_slopes`` (mask-aware positions,
     ``decoder.mask_positions``)."""
@@ -133,9 +152,11 @@ def flash_attention(q, k, v, key_mask=None, alibi_slopes=None,
                                      key_positions)
     if q.device.type != "cuda":
         raise ValueError(f"flash kernel needs CUDA tensors, got {q.device}")
-    out = _flash_cuda(q, k, v, key_mask, alibi_slopes, key_positions)
+    out, name = _flash_cuda(q, k, v, key_mask, alibi_slopes, key_positions)
     flash_attention.launches += 1
+    flash_attention.route_launches[name] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.route_launches = dict.fromkeys(ROUTES, 0)

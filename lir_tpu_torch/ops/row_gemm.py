@@ -10,16 +10,21 @@ reduction plan from the number of rows; :func:`row_gemm` and
 :func:`row_norm` reduce every row in one fixed order, whatever M is and
 wherever the row sits (``csrc/row_gemm.cu`` says how).
 
+:func:`row_add_norm` is the residual add before a norm and that norm in
+one launch (the sum bitwise torch's bf16 add, the norm bitwise
+:func:`row_norm` of it).
+
 On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it
-runs its plain version (:func:`row_gemm_plain`, which is ``x @ w``, and
-:func:`row_norm_plain`, the decoder's norm), so the CPU tests see the
-decoder's own arithmetic.
+runs its plain version (:func:`row_gemm_plain`, which is ``x @ w``,
+:func:`row_norm_plain`, the decoder's norm, and
+:func:`row_add_norm_plain`, the add then that norm), so the CPU tests
+see the decoder's own arithmetic.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -69,6 +74,15 @@ def row_norm_plain(x: torch.Tensor, scale: torch.Tensor,
     return (xf * scale.float() + bias.float()).to(x.dtype)
 
 
+def row_add_norm_plain(x: torch.Tensor, d: torch.Tensor, scale: torch.Tensor,
+                       bias: Optional[torch.Tensor], eps: float
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``s = x + d`` and :func:`row_norm_plain` of ``s``: the decoder's
+    residual add and the norm after it."""
+    s = x + d
+    return s, row_norm_plain(s, scale, bias, eps)
+
+
 _LIB = None
 
 
@@ -81,6 +95,8 @@ def _lib():
         lib.lir_row_gemm.restype = i
         lib.lir_row_norm.argtypes = [p] * 4 + [i] * 2 + [ctypes.c_float, p]
         lib.lir_row_norm.restype = i
+        lib.lir_row_add_norm.argtypes = [p] * 6 + [i] * 2 + [ctypes.c_float, p]
+        lib.lir_row_add_norm.restype = i
         _LIB = lib
     return _LIB
 
@@ -124,6 +140,30 @@ def row_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.reshape(*lead, N)
 
 
+# The widest row of the norm kernels: 1,024 threads of two 16-byte chunks.
+_MAX_NORM_WIDTH = 16384
+
+
+def _norm_rows(name: str, x: torch.Tensor, scale: torch.Tensor,
+               bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """x as contiguous (M, D) rows, after the norm kernels' checks."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} needs CPU or CUDA tensors, got {x.device}")
+    D = x.shape[-1]
+    if D % 8 or D > _MAX_NORM_WIDTH or tuple(scale.shape) != (D,) or (
+            bias is not None and tuple(bias.shape) != (D,)):
+        raise ValueError(f"{name} of width {D} with scale "
+                         f"{tuple(scale.shape)}: the width must be a multiple "
+                         f"of 8, at most {_MAX_NORM_WIDTH}, and match the "
+                         f"scale")
+    x2 = x.reshape(-1, D).contiguous()
+    _check_bf16("x", x2, x.device)
+    _check_bf16("scale", scale, x.device)
+    if bias is not None:
+        _check_bf16("bias", bias, x.device)
+    return x2
+
+
 def row_norm(x: torch.Tensor, scale: torch.Tensor,
              bias: Optional[torch.Tensor], eps: float) -> torch.Tensor:
     """RMSNorm (``bias`` None) or LayerNorm over the last axis, each row
@@ -132,29 +172,46 @@ def row_norm(x: torch.Tensor, scale: torch.Tensor,
     :func:`row_norm_plain`."""
     if x.device.type == "cpu":
         return row_norm_plain(x, scale, bias, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"row_norm needs CPU or CUDA tensors, got {x.device}")
-    D = x.shape[-1]
-    if D % 8 or tuple(scale.shape) != (D,) or (
-            bias is not None and tuple(bias.shape) != (D,)):
-        raise ValueError(f"row_norm of width {D} with scale "
-                         f"{tuple(scale.shape)}: the width must be a multiple "
-                         f"of 8 and match the scale")
-    x2 = x.reshape(-1, D).contiguous()
-    _check_bf16("x", x2, x.device)
-    _check_bf16("scale", scale, x.device)
-    if bias is not None:
-        _check_bf16("bias", bias, x.device)
+    x2 = _norm_rows("row_norm", x, scale, bias)
     out = torch.empty_like(x2)
     if x2.shape[0]:
         stream = torch.cuda.current_stream(x.device).cuda_stream
         _build.check(_lib().lir_row_norm(
             x2.data_ptr(), scale.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(),
-            x2.shape[0], D, float(eps), stream), "row_norm")
+            x2.shape[0], x2.shape[1], float(eps), stream), "row_norm")
         row_norm.launches += 1
     return out.reshape(x.shape)
 
 
+def row_add_norm(x: torch.Tensor, d: torch.Tensor, scale: torch.Tensor,
+                 bias: Optional[torch.Tensor], eps: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The residual add and the norm after it in one pass: ``(s, h)`` with
+    ``s = x + d`` (bitwise torch's bf16 add) and ``h`` bitwise
+    :func:`row_norm` of ``s``. CUDA tensors (bf16, as :func:`row_norm`
+    takes them) launch ``csrc/row_gemm.cu``; CPU tensors run
+    :func:`row_add_norm_plain`."""
+    if x.device.type == "cpu":
+        return row_add_norm_plain(x, d, scale, bias, eps)
+    if d.shape != x.shape:
+        raise ValueError(f"row_add_norm of {tuple(x.shape)} and "
+                         f"{tuple(d.shape)}")
+    x2 = _norm_rows("row_add_norm", x, scale, bias)
+    d2 = d.reshape(x2.shape).contiguous()
+    _check_bf16("d", d2, x.device)
+    s, h = torch.empty_like(x2), torch.empty_like(x2)
+    if x2.shape[0]:
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        _build.check(_lib().lir_row_add_norm(
+            x2.data_ptr(), d2.data_ptr(), scale.data_ptr(),
+            None if bias is None else bias.data_ptr(), s.data_ptr(),
+            h.data_ptr(), x2.shape[0], x2.shape[1], float(eps), stream),
+            "row_add_norm")
+        row_add_norm.launches += 1
+    return s.reshape(x.shape), h.reshape(x.shape)
+
+
 row_gemm.launches = 0
 row_norm.launches = 0
+row_add_norm.launches = 0

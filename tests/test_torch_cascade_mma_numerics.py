@@ -23,12 +23,13 @@ float32 plain versions at the card tests' bars: the trunk partials
 also shows why P is split: with P rounded once to bf16 the partials miss
 1e-3.
 
-The prefill flash kernel (``flash_mma_kernel`` in
-``csrc/flash_attention.cu``) takes the same arithmetic with one bf16 P:
-its emulation at hd 128, S = 128 and 512 (left-padded, holed and
-all-masked rows; MHA, GQA, ALiBi) stays within the card's 1e-2 bar of
-``flash_attention_plain`` with room to spare, so its output, bf16 like
-the fused cascade's, does not need the split.
+The prefill flash kernels (``flash_mma_kernel`` and ``flash_wgmma_kernel``
+in ``csrc/flash_attention.cu``, the latter on attn_wgmma's tile step in
+the same order: the card gives the two the same bits) take the same
+arithmetic with one bf16 P: its emulation at hd 128, S = 128 and 512
+(left-padded, holed and all-masked rows; MHA, GQA, ALiBi) stays within
+the card's 1e-2 bar of ``flash_attention_plain`` with room to spare, so
+its output, bf16 like the fused cascade's, does not need the split.
 """
 
 import math

@@ -18,7 +18,11 @@ edges of the bf16 tensor-core kernels (R * G not a multiple of 16, a
 ragged last key tile, every head dim they are built for, a batch row
 whose window is fully masked, ALiBi) and one float32 case each, which
 takes the CUDA-core kernels; the prefill flash cases cover every head
-dim of its bf16 tensor-core kernel, S up to 512, GQA, MQA and ALiBi.
+dim of its bf16 tensor-core kernels, S up to 512, GQA, MQA and ALiBi,
+and the route each head dim takes (the wgmma kernel at hd 64 and 128,
+across the 64-row tile edges: S = 1, 63, 64, 65, 128, 200, 512). The
+row kernels' rows are bitwise at every row count; ``row_add_norm``'s
+sum is bitwise torch's bf16 add and its norm bitwise ``row_norm`` of it.
 """
 
 import dataclasses
@@ -298,6 +302,64 @@ def test_flash_attention_kernel_matches_plain(gen, H, K, hd, alibi, dtype, S):
     assert bool((got[2] == 0).all())
 
 
+# The persistent TMA + wgmma route (bf16, hd 64 and 128): MHA, GQA and
+# falcon-7b's MQA head counts, S across the 64-row item and key tile edges.
+WGMMA_HEADS = [(32, 32), (32, 8), (71, 1)]
+WGMMA_S = [1, 63, 64, 65, 128, 200, 512]
+
+
+def _flash_mask(S, B=4):
+    """Left pad, right pad, holes, and a batch row with no valid key."""
+    mask = torch.ones((B, S), dtype=torch.int32, device="cuda")
+    mask[0, :S // 3] = 0
+    mask[1, (2 * S) // 3 + 1:] = 0
+    mask[2, 3::7] = 0
+    mask[2, S // 2:S // 2 + 9] = 0
+    mask[3, :] = 0
+    return mask
+
+
+@pytest.mark.parametrize("alibi", [False, True])
+@pytest.mark.parametrize("S", WGMMA_S)
+@pytest.mark.parametrize("H,K", WGMMA_HEADS, ids=[f"H{h}K{k}" for h, k in WGMMA_HEADS])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_wgmma_kernel_matches_plain(gen, hd, H, K, S, alibi):
+    """The wgmma route against the plain version within the bf16 bar, a
+    row with no valid key giving 0; the launch is counted on that route."""
+    mask = _flash_mask(S)
+    B = mask.shape[0]
+    q = _rnd(gen, B, S, H, hd)
+    k, v = _rnd(gen, B, S, K, hd), _rnd(gen, B, S, K, hd)
+    kpos = torch.clamp_min(torch.cumsum(mask, -1, dtype=torch.int32) - 1, 0)
+    slopes = alibi_slopes(H, "cuda") if alibi else None
+    kw = dict(key_mask=mask, alibi_slopes=slopes,
+              key_positions=kpos if alibi else None)
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, **kw)
+    assert ops.flash_attention.route_launches == {"fp32": 0, "mma": 0, "wgmma": 1}
+    ref = ops.flash_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), ref.float(), **TOL)
+    assert bool((got[3] == 0).all())
+
+
+def test_flash_attention_routes_by_head_dim(gen):
+    """bf16 at hd 64 and 128 takes the wgmma kernel, at hd 96 the mma.sync
+    one, float32 the CUDA-core one: each launch counted on its route, the
+    route as the C library states it, none at a head dim not built."""
+    from lir_tpu_torch.ops.flash_attention import route
+    ops.reset_launches()
+    for hd, dtype in ((64, BF16), (128, BF16), (96, BF16), (64, F32)):
+        q = _rnd(gen, 2, 70, 4, hd, dtype=dtype)
+        k = _rnd(gen, 2, 70, 2, hd, dtype=dtype)
+        ops.flash_attention(q, k, k)
+    assert ops.flash_attention.route_launches == {"fp32": 1, "mma": 1, "wgmma": 2}
+    assert ops.launch_counts()["flash_attention"] == 4
+    assert [route(BF16, hd) for hd in (32, 64, 80, 96, 128)] == [
+        "mma", "wgmma", "mma", "mma", "wgmma"]
+    with pytest.raises(ValueError):
+        route(BF16, 48)
+
+
 def test_new_wrappers_count_launches(gen):
     ops.reset_launches()
     q = _rnd(gen, 2, 8, 4, 64)
@@ -416,6 +478,46 @@ def test_row_norm_rows_bitwise_and_close(gen, layer):
     torch.testing.assert_close(full.float(), ref.float(), **TOL)
     for m in (1, 32, 100):
         assert torch.equal(ops.row_norm(x[-m:], scale, bias, 1e-5), full[-m:])
+
+
+NORM_WIDTHS = (4096, 4544, 5120)
+
+
+@pytest.mark.parametrize("layer", [False, True])
+@pytest.mark.parametrize("D", NORM_WIDTHS)
+def test_row_add_norm_bitwise_add_then_norm(gen, D, layer):
+    """row_add_norm's s is bitwise torch's bf16 x + d and its h bitwise
+    row_norm(s), within bf16 rounding of the plain version; each row's s
+    and h are the same bits at 15 row counts from 1 to 255 and in any
+    place among the rows (rows permuted). llama's width, falcon-7b's and
+    h2ogpt's, RMSNorm and LayerNorm."""
+    x = _rnd(gen, 255, D) * 3
+    d = _rnd(gen, 255, D)
+    scale = _rnd(gen, D)
+    bias = _rnd(gen, D) if layer else None
+    s, h = ops.row_add_norm(x, d, scale, bias, 1e-5)
+    assert torch.equal(s, x + d)
+    assert torch.equal(h, ops.row_norm(s, scale, bias, 1e-5))
+    _, ref = ops.row_add_norm_plain(x, d, scale, bias, 1e-5)
+    torch.testing.assert_close(h.float(), ref.float(), **TOL)
+    perm = torch.randperm(255, generator=gen, device="cuda")
+    ps, ph = ops.row_add_norm(x[perm], d[perm], scale, bias, 1e-5)
+    assert torch.equal(ps, s[perm]) and torch.equal(ph, h[perm])
+    for m in ROW_COUNTS:
+        ms, mh = ops.row_add_norm(x[perm[:m]], d[perm[:m]], scale, bias, 1e-5)
+        assert torch.equal(ms, s[perm[:m]]) and torch.equal(mh, h[perm[:m]]), m
+
+
+def test_row_add_norm_counts_launches_and_refuses(gen):
+    ops.reset_launches()
+    x = _rnd(gen, 4, 64)
+    ops.row_add_norm(x, x, _rnd(gen, 64), None, 1e-5)
+    assert ops.launch_counts()["row_add_norm"] == 1
+    with pytest.raises(ValueError, match="row_add_norm of"):
+        ops.row_add_norm(x, x[:2], _rnd(gen, 64), None, 1e-5)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ops.row_add_norm(x, x.float(), _rnd(gen, 64), None, 1e-5)
+    assert ops.launch_counts()["row_add_norm"] == 1
 
 
 def test_row_kernels_count_launches_and_refuse(gen):

@@ -125,3 +125,54 @@ def test_cascade_extend_and_trunk_decode_match_jax(family):
     lt, _ = tdec.decode_step(pt, cfg_t, ct, t(token), t(position), slot,
                              t(cm), trunk_len=Tt)
     _close(lj, lt)
+
+
+def _unfused_add_norm(x, d, p, cfg):
+    """The route before the fused residual add: the bf16 add, then the
+    step's norm of the sum."""
+    s = x + d
+    return s, tdec._row_norm(s, p, cfg)
+
+
+@pytest.mark.parametrize("family", ["llama", "bloom"])
+def test_fused_add_norm_step_and_window_bitwise_unfused(family, monkeypatch):
+    """The decode step and the verify window with each sequential
+    block's residual add fused into the norm after it (``row_add_norm``:
+    x + attn with ln2, x + mlp with the next ln1 or the final norm) give
+    logits bitwise the same forward with the adds apart and
+    ``_row_norm``, in bf16 on the CPU, at an RMSNorm and a LayerNorm
+    family; and they take the fused op 2 L times a forward."""
+    cfg = treg.tiny(family)
+    params = tdec.init_params(cfg, seed=3, device="cpu", dtype=torch.bfloat16)
+    rng = np.random.default_rng(4)
+    B, S, T = 2, 10, 16
+    tokens = torch.from_numpy(rng.integers(3, cfg.vocab_size, (B, S)).astype(np.int32))
+    mask = torch.ones((B, S), dtype=torch.int32)
+    mask[1, :3] = 0
+    calls = []
+
+    def run():
+        logits0, cache, pos = tdec.prefill(params, cfg, tokens, mask, T)
+        cm = torch.nn.functional.pad(mask, (0, T - S))
+        cm[:, S] = 1
+        tok = torch.argmax(logits0, -1).to(torch.int32)
+        step, cache = tdec.decode_step(params, cfg, cache, tok, pos, S, cm)
+        cm[:, S + 1:S + 4] = 1
+        win = torch.stack([torch.argmax(step, -1).to(torch.int32)] * 3, 1)
+        start = torch.full((B,), S + 1, dtype=torch.int32)
+        window, _ = tdec.verify_extend(params, cfg, cache, win, cm, start)
+        return step, window
+
+    fused_op = tdec.ops.row_add_norm
+
+    def counted(*a, **k):
+        calls.append(a[0].shape)
+        return fused_op(*a, **k)
+
+    monkeypatch.setattr(tdec.ops, "row_add_norm", counted)
+    got = run()
+    assert len(calls) == 2 * 2 * cfg.n_layers
+    monkeypatch.setattr(tdec, "_row_add_norm", _unfused_add_norm)
+    ref = run()
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.float32 and torch.equal(g, r)

@@ -19,7 +19,7 @@ import lir_tpu_torch.engine.runner, lir_tpu_torch.engine.sweep
 import lir_tpu_torch.engine.spec
 import lir_tpu_torch.models.quant, lir_tpu_torch.ops.flash_attention
 import lir_tpu_torch.ops.cascade_prefill
-import chip_smoke
+import chip_smoke, kernel_ab, kernel_variants, profile_batch
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "lir_tpu" or m.startswith("lir_tpu."))
@@ -107,6 +107,21 @@ def test_cuda_wrappers_refuse_non_cuda_tensors():
         ops.flash_attention(torch.zeros((1, 4, 2, 32), device="meta"),
                             torch.zeros((1, 4, 1, 32), device="meta"),
                             torch.zeros((1, 4, 1, 32), device="meta"))
+
+
+def test_row_wrappers_refuse_non_cuda_tensors():
+    """The row kernels' wrappers, the fused add and norm among them, raise
+    on a tensor on neither the CPU nor a card."""
+    from lir_tpu_torch import ops
+
+    x = torch.zeros((2, 64), dtype=torch.bfloat16, device="meta")
+    s = torch.zeros((64,), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.row_gemm(x, torch.zeros((64, 8), dtype=torch.bfloat16, device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.row_norm(x, s, None, 1e-5)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.row_add_norm(x, x, s, s, 1e-5)
 
 
 @pytest.mark.parametrize("hd", [48, 144])

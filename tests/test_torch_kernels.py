@@ -185,7 +185,11 @@ def test_wrappers_count_only_kernel_launches():
     x = torch.randn((3, 16))
     ops.row_gemm(x, torch.randn((16, 8)))
     ops.row_norm(x, torch.ones(16), None, 1e-5)
+    ops.row_add_norm(x, x, torch.ones(16), None, 1e-5)
     ops.quantize_rows(x)
+    qf = torch.randn((1, 5, 2, 64))
+    ops.flash_attention(qf, qf, qf)
+    assert set(ops.flash_attention.route_launches.values()) == {0}
     assert ops.launch_counts() == {"flash_decode": 0, "flash_decode_trunk": 0,
                                    "cascade_attention": 0,
                                    "flash_decode_mq": 0,
@@ -194,5 +198,6 @@ def test_wrappers_count_only_kernel_launches():
                                    "cascade_prefix_int8": 0,
                                    "flash_attention": 0,
                                    "row_gemm": 0, "row_norm": 0,
+                                   "row_add_norm": 0,
                                    "cascade_suffix_merge": 0,
                                    "quantize_rows": 0}
