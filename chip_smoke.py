@@ -10,17 +10,20 @@ Phases (each raises on failure, so the script exits non-zero):
    the built libraries the tensor-core instructions of each
    instantiation: HMMA (or HGMMA for wgmma) in the bf16 kernels
    (``cascade_mma_kernel``, ``prefix_wgmma_kernel``, ``prefix_imma_kernel``,
-   ``flash_mma_kernel``, ``row_gemm_kernel``), HGMMA (wgmma) in
-   ``row_gemm_kernel``, ``prefix_wgmma_kernel``, the fused
-   ``cascade_mma_kernel`` and ``flash_wgmma_kernel`` at head dims 64 and
-   128 with one and two consumer warpgroups, IMMA in
-   ``prefix_imma_kernel``; fail if one has none.
+   ``flash_mma_kernel``, ``row_gemm_kernel``, ``suffix_merge_kernel``),
+   HGMMA (wgmma) in ``row_gemm_kernel``, ``prefix_wgmma_kernel``, the
+   fused ``cascade_mma_kernel`` and ``suffix_merge_kernel`` at every head
+   dim, and ``flash_wgmma_kernel`` at head dims 64 and 128 with one and
+   two consumer warpgroups, IMMA in ``prefix_imma_kernel``; fail if one
+   has none.
 2. Kernels against their plain PyTorch versions on the card, at the
    shapes the main path gives them (llama-2-7b widths, B = 32, the cache
    extents and trunks of phase 3's dispatches; the verify window's
    S = spec_k = 4 queries a row for the multi-query kernels; the trunk
-   leg at the cascade dispatch's shape, float32 and int8 QK^T; the
-   prefill flash kernel at buckets 64, 128 and 512, with the route it
+   leg at the cascade dispatch's shape, float32 and int8 QK^T, and the
+   trunk keys' quantization pass at every layer's keys at once, as the
+   dispatch calls it; the prefill flash kernel at buckets 64, 128 and
+   512, with the route it
    took; the row-invariant projections at M = B and B * spec_k for all
    seven of a layer, the norm, and the residual add fused with the norm
    (``row_add_norm``, also at falcon-7b's width 4544), the norms beside
@@ -73,8 +76,9 @@ Phases (each raises on failure, so the script exits non-zero):
    patched back in, in turns. Then the 8-bit engine at the same width,
    its int8 weights born on the card (``init_quantized_params``,
    dynamic): the verify-vs-step check, the word-meaning sweep (flash
-   prefill + flat decode), the trunk dispatch (key quantization pass +
-   int8 trunk-leg kernel + suffix merge + trunk decode), and the no-trunk
+   prefill + flat decode), the trunk dispatch (one key quantization pass
+   for every layer + int8 trunk-leg kernel and suffix merge a layer, the
+   launches counted exactly + trunk decode), and the no-trunk
    dispatch on the sequential and the speculative route (flash prefill
    at bucket 128), bitwise alike, with rows/s and peak memory beside the
    bf16 engine's, and a profile of one of its word-meaning batches beside
@@ -614,12 +618,15 @@ def check_cascade(gen, label, B, R, H, K, hd, Tt, alibi, results):
     results.append(row)
 
 
-def check_prefix(gen, label, B, R, H, K, hd, Tt, alibi, results):
+def check_prefix(gen, label, B, R, H, K, hd, Tt, alibi, layers, results):
     """The trunk-leg kernels (float32 and int8 QK^T) against their plain
     versions: (o, m, l) within atol = rtol = 1e-2, and with int8 the row
     max m bitwise (the payloads and s32 dots are exact and fold in the
     same order). SDPA over the trunk with the same ALiBi bias is the
-    float kernel's yardstick; no PyTorch call computes int8 QK^T."""
+    float kernel's yardstick; no PyTorch call computes int8 QK^T. Then
+    the trunk keys' quantization pass at its main-path shape, every
+    layer's keys at once ((layers * K * Tt, hd) rows, as
+    ``decoder.cascade_extend`` calls it), bitwise ``dynamic_quant``."""
     dev = DEV
     bf = torch.bfloat16
     q = torch.randn((B, R, H, hd), generator=gen, device=dev).to(bf)
@@ -668,16 +675,17 @@ def check_prefix(gen, label, B, R, H, K, hd, Tt, alibi, results):
                    bound_by=b_by)
         log(json.dumps(row))
         results.append(row)
-    kq, ks = ops.quantize_rows(tk)
-    rq, rs = quant.dynamic_quant(tk)
+    keys = torch.randn((layers * K * Tt, hd), generator=gen, device=dev).to(bf)
+    kq, ks = ops.quantize_rows(keys)
+    rq, rs = quant.dynamic_quant(keys)
     torch.cuda.synchronize()
     if not (torch.equal(kq, rq) and torch.equal(ks, rs)):
         raise AssertionError(f"quantize_rows[{label}]: not bitwise dynamic_quant")
-    b_ms, b_by = bound(nbytes(tk, kq, ks), 0.0)
-    row = dict(kernel="quantize_rows", case=label, rows=K * Tt, hd=hd,
+    b_ms, b_by = bound(nbytes(keys, kq, ks), 0.0)
+    row = dict(kernel="quantize_rows", case=label, rows=layers * K * Tt, hd=hd,
                max_abs_err=0.0, bitwise=True,
-               kernel_ms=time_ms(lambda: ops.quantize_rows(tk)),
-               plain_ms=time_ms(lambda: quant.dynamic_quant(tk), iters=3),
+               kernel_ms=time_ms(lambda: ops.quantize_rows(keys)),
+               plain_ms=time_ms(lambda: quant.dynamic_quant(keys), iters=3),
                library_ms=None, bound_ms=b_ms, bound_by=b_by)
     log(json.dumps(row))
     results.append(row)
@@ -1200,12 +1208,14 @@ def route_cost(engine, seq_engine, cells, rt, rounds: int = 2) -> dict:
     return row
 
 
-def run_dispatch(label, engine, cells, rt, kernels, routing, flash_route=None):
+def run_dispatch(label, engine, cells, rt, kernels, routing, flash_route=None,
+                 exact=None):
     """One 32-cell shared dispatch through ``decode_fused_shared``, the
     launch counts reset just before and read just after. Fails unless
     every kernel in ``kernels`` launched (the prefill flash kernel on
-    ``flash_route``, where given) and every counter in ``routing`` moved
-    by exactly one."""
+    ``flash_route``, where given), every kernel in ``exact`` (name ->
+    count) launched exactly that often, and every counter in ``routing``
+    moved by exactly one."""
     call = _dispatch_call(engine, cells, rt)
     casc0, spec0 = dict(engine.cascade_stats), dict(engine.spec_stats)
     torch.cuda.synchronize()
@@ -1230,6 +1240,9 @@ def run_dispatch(label, engine, cells, rt, kernels, routing, flash_route=None):
     missing = [k for k in kernels if launches[k] <= 0]
     if missing:
         raise AssertionError(f"{label}: kernels never launched: {missing}")
+    off = {k: launches[k] for k, n in (exact or {}).items() if launches[k] != n}
+    if off:
+        raise AssertionError(f"{label}: launches {off}, expected {exact}")
     wrong = {k: moved.get(k, spec.get(k, 0)) for k in routing
              if moved.get(k, spec.get(k, 0)) != 1}
     if wrong:
@@ -1311,11 +1324,15 @@ def run_int8_slice(cfg, tokenizer, cells_trunk, cells_flat, rt):
         engine8, "int8_word_meaning_sweep",
         ("flash_attention", "flash_decode", "row_norm", "row_add_norm"),
         flash_route="wgmma")
+    # One quantization of every layer's trunk keys, then each layer's
+    # int8 trunk leg and suffix merge.
     _, stats["int8_cascade_dispatch"] = run_dispatch(
         "int8_cascade_dispatch", engine8, cells_trunk, rt,
         ("quantize_rows", "cascade_prefix_int8", "cascade_suffix_merge",
          "flash_decode_trunk"),
-        ("cascade_dispatches", "cascade_decode_dispatches"))
+        ("cascade_dispatches", "cascade_decode_dispatches"),
+        exact={"quantize_rows": 1, "cascade_prefix_int8": cfg.n_layers,
+               "cascade_suffix_merge": cfg.n_layers})
     seq8 = ScoringEngine(
         params8, cfg8, tokenizer,
         RuntimeConfig(batch_size=BATCH, cascade_fused_suffix=False,
@@ -1489,14 +1506,15 @@ def main() -> int:
     for name, text in _build.BUILD_LOGS.items():
         ptxas_report(name, text)
     # The bf16 kernels run on tensor cores: HMMA in their SASS; the
-    # projections, the trunk leg and the fused kernel's trunk walk on
-    # wgmma (HGMMA); the bf16 int8 trunk leg's QK^T on IMMA.
+    # projections, the trunk leg, the fused kernel's trunk walk and the
+    # suffix merge on wgmma (HGMMA); the bf16 int8 trunk leg's QK^T on
+    # IMMA.
     tensor_core_counts("cascade_prefill",
                        ("cascade_mma_kernel", "prefix_wgmma_kernel",
-                        "prefix_imma_kernel"))
+                        "prefix_imma_kernel", "suffix_merge_kernel"))
     tensor_core_counts("cascade_prefill", ("prefix_wgmma_kernel",) + tuple(
-        f"cascade_mma_kernel<Li{hd}ELb1>" for hd in _build.TILE_HEAD_DIMS),
-        op="HGMMA")
+        f"{k}<Li{hd}>" for k in ("cascade_mma_kernel", "suffix_merge_kernel")
+        for hd in _build.TILE_HEAD_DIMS), op="HGMMA")
     tensor_core_counts("cascade_prefill", ("prefix_imma_kernel",), op="IMMA")
     tensor_core_counts("flash_attention", ("flash_mma_kernel",))
     tensor_core_counts("flash_attention", tuple(
@@ -1575,13 +1593,13 @@ def main() -> int:
     check_cascade(gen, "bloom-7b1/alibi", BATCH, R, 32, 32, 128, trunk, True,
                   results)
     check_prefix(gen, "llama2-7b/cascade-dispatch", BATCH, R, H, K, hd, trunk,
-                 False, results)
+                 False, cfg.n_layers, results)
     check_prefix(gen, "mistral-7b/gqa", BATCH, R, 32, 8, 128, trunk, False,
-                 results)
+                 32, results)
     check_prefix(gen, "falcon-7b/mqa", BATCH, R, 71, 1, 64, trunk, False,
-                 results)
+                 32, results)
     check_prefix(gen, "bloom-7b1/alibi", BATCH, R, 32, 32, 128, trunk, True,
-                 results)
+                 30, results)
     Sf = plan_f["bucket"]
     for label, S in (("word-meaning", wm_T - rt.max_new_tokens),
                      ("spec-dispatch", Sf), ("bucket-512", 512)):

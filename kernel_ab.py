@@ -25,8 +25,12 @@ T = 576 with a 432-slot trunk (its two legs and the merge also timed
 apart), prefill flash attention at buckets 64, 128 and 512 (bf16 through
 the copy's C entry: the kernel it takes at head dim 128), the
 bf16 trunk leg (float and int8 QK^T; with the quantization pass where the
-copy has one) and the fused cascade at the cascade dispatch's shape
-(R = 80, Tt = 432), the row-invariant projection at wq, w_up and w_down
+copy has one), the fused cascade and the suffix leg + merge at the
+cascade dispatch's shape (R = 80, Tt = 432), the int8 trunk keys'
+quantization of a whole dispatch (llama-2-7b: 32 layers of (32 * 432,
+128) rows) as 32 launches, one a layer, and as one launch over every
+layer's rows (both through ``lir_quantize_rows``), the row-invariant
+projection at wq, w_up and w_down
 with M = 32 and 128 rows, and the RMSNorm of 32 and 128 rows alone and
 with the residual add before it (the copy's ``lir_row_add_norm``, or for
 a copy without one torch's bf16 add then its ``lir_row_norm``), beside
@@ -67,7 +71,8 @@ _ARGTYPES = {
     # older entry) lir_cascade_prefix takes no scales pointer.
     "cascade_prefill": {"lir_quantize_rows": [_P] * 3 + [_I] * 2 + [_P],
                         "lir_cascade_prefix": [_P] * 8 + [_I] * 8 + [_P],
-                        "lir_cascade_attention": [_P] * 9 + [_I] * 7 + [_P]},
+                        "lir_cascade_attention": [_P] * 9 + [_I] * 7 + [_P],
+                        "lir_cascade_suffix_merge": [_P] * 10 + [_I] * 6 + [_P]},
     # The projection's entry that adds the splits in the launch; the older
     # one (a second launch adding them) takes their float32 scratch too.
     "row_gemm": {"lir_row_gemm": [_P] * 3 + [_I] * 4 + [_P],
@@ -158,6 +163,55 @@ def prefix_int8_case(gen, R=80, Tt=432):
         _build.check(err, "cascade_prefix_int8")
 
     return _with_result(run, lambda: (o.clone(), m.clone(), l.clone()))
+
+
+def suffix_merge_case(gen, R=80, Tt=432):
+    """The bf16 suffix leg + merge at the cascade dispatch's shape (ragged
+    windows as chip_smoke makes them) through the current copy's C entry,
+    over trunk partials made once by this checkout's trunk leg."""
+    B, H, K, hd = cs.BATCH, 32, 32, 128
+    bf = torch.bfloat16
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(bf)
+    q, sk, sv = rnd(B, R, H, hd), rnd(B, R, K, hd), rnd(B, R, K, hd)
+    mask = torch.ones((B, R), dtype=torch.int32, device="cuda")
+    for b in range(B):
+        mask[b, R - (b * 5) % R:] = 0
+    qpos = (Tt + torch.clamp_min(torch.cumsum(mask, -1, dtype=torch.int32) - 1,
+                                 0)).to(torch.int32)
+    o_t, m_t, l_t = ops.cascade_prefix(q, rnd(K, Tt, hd), rnd(K, Tt, hd))
+    out = torch.empty_like(q)
+
+    def run():
+        lib = _CURRENT["cascade_prefill"]
+        err = lib.lir_cascade_suffix_merge(
+            q.data_ptr(), sk.data_ptr(), sv.data_ptr(), o_t.data_ptr(), m_t.data_ptr(),
+            l_t.data_ptr(), mask.data_ptr(), qpos.data_ptr(), None, out.data_ptr(),
+            B, R, H, K, hd, 1, torch.cuda.current_stream().cuda_stream)
+        _build.check(err, "cascade_suffix_merge")
+
+    return _with_result(run, out.clone)
+
+
+def quantize_case(gen, layers, L=32, K=32, Tt=432, hd=128):
+    """The int8 trunk keys' quantization of a dispatch at llama-2-7b's
+    shape through the current copy's ``lir_quantize_rows``: one launch a
+    layer (``layers``, over each layer's (K * Tt, hd) rows in turn) or one
+    launch over every layer's (L * K * Tt, hd) rows."""
+    x = torch.randn((L * K * Tt, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    q8 = torch.empty(x.shape, dtype=torch.int8, device="cuda")
+    sc = torch.empty(x.shape[:1], dtype=torch.float32, device="cuda")
+    rows = K * Tt
+    spans = [(i * rows, rows) for i in range(L)] if layers else [(0, L * rows)]
+
+    def run():
+        lib = _CURRENT["cascade_prefill"]
+        st = torch.cuda.current_stream().cuda_stream
+        for r0, n in spans:
+            _build.check(lib.lir_quantize_rows(x[r0].data_ptr(), q8[r0].data_ptr(),
+                                               sc[r0:].data_ptr(), n, hd, st),
+                         "quantize_rows")
+
+    return _with_result(run, lambda: (q8.clone(), sc.clone()))
 
 
 def _split_sum_splits(n: int, k: int) -> int:
@@ -362,6 +416,9 @@ def main() -> int:
                          (True, "cascade_attention/R80/Tt432")):
         fn, refs[label] = cascade_case(gen, fused)
         cases.append((label, fn, None))
+    cases.append(("cascade_suffix_merge/R80", suffix_merge_case(gen), None))
+    cases.append(("quantize_rows/32x(13824,128)", quantize_case(gen, layers=True), None))
+    cases.append(("quantize_rows/1x(442368,128)", quantize_case(gen, layers=False), None))
     for name, K, N in GEMM_CASES:
         for M in (cs.BATCH, 4 * cs.BATCH):
             label = f"row_gemm/{name}/M{M}"
@@ -388,7 +445,10 @@ def main() -> int:
                               "bitwise_equal": _err(outs["other"], outs["this"]) == 0.0}),
                   flush=True)
             continue
-        if isinstance(outs["other"], tuple):
+        if label.startswith("quantize_rows"):
+            same = {"bitwise_equal": all(torch.equal(a, b)
+                                         for a, b in zip(outs["other"], outs["this"]))}
+        elif isinstance(outs["other"], tuple):
             (oa, ma, la), (ob, mb, lb) = outs["other"], outs["this"]
             same = {"row_max_bitwise_equal": bool(torch.equal(ma, mb)),
                     "o_max_abs_diff": float((oa - ob).abs().max()),

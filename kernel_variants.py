@@ -1,23 +1,36 @@
-"""Time source variants of the prefill flash kernel's wgmma route in one
-process on one card: what holds ``flash_wgmma_kernel`` back, and the two
-design choices its source note states.
+"""Time source variants of a kernel in one process on one card: what holds
+it back, and the design choices its source note states.
 
     python3 kernel_variants.py [--variants base,loads_only,...]
+    python3 kernel_variants.py --kernel suffix_merge_template --csrc DIR
 
-Each variant is a copy of ``lir_tpu_torch/csrc`` with one text
-substitution (VARIANTS below): the products skipped (loads, barriers and
-stores alone), the items taken head-fastest one by one instead of by
-(batch row, head) group, and one or two consumer warpgroups a block at
-every length instead of the split at four query tiles. Each is built with
-the flags of ``lir_tpu_torch/ops/_build.py`` into
-``build/kernel_variants/`` (one nvcc each, all at once) and called in
-bf16 through its C entry at B = 32: llama-2-7b at buckets 64, 128 and 512,
-mistral-7b (GQA) and falcon-7b (MQA, head dim 64) at bucket 128 (rows
-left-padded as chip_smoke pads them). Timed by ``chip_smoke.time_ms`` (L2
-flushed, device time) in turns (the variants, then in reverse); SDPA with
-the same mask is timed beside them. Each variant's largest difference
-against the plain version is printed (loads_only is wrong by design).
-Ends with the card's name and power limit.
+Each variant is a copy of a ``csrc`` directory with one or more text
+substitutions (the tables below), built with the flags of
+``lir_tpu_torch/ops/_build.py`` into ``build/kernel_variants/`` (one nvcc
+each, all at once) and called in bf16 through its C entry at B = 32.
+
+- ``flash`` (the default; the checkout's sources): the prefill flash
+  kernel's wgmma route, ``flash_wgmma_kernel``. The products skipped
+  (loads, barriers and stores alone), the items taken head-fastest one
+  by one instead of by (batch row, head) group, and one or two consumer
+  warpgroups a block at every length instead of the split at four query
+  tiles; at llama-2-7b buckets 64, 128 and 512, mistral-7b (GQA) and
+  falcon-7b (MQA, head dim 64) at bucket 128 (rows left-padded as
+  chip_smoke pads them). SDPA with the same mask is timed beside them.
+- ``suffix_merge_template`` (``--csrc``: a copy of the sources with the suffix
+  merge as ``cascade_mma_kernel<HD, false>``, e.g. an earlier commit's
+  ``lir_tpu_torch/csrc`` unpacked with ``git archive``): the two-leg
+  suffix leg + merge in pieces. The trunk partials' read skipped, the
+  window products skipped (the window loads alone), and the Q load alone
+  (no window walk, no partials: the Q tile, the row statistics and the
+  output store); at the cascade dispatch's shape (llama-2-7b, R = 80,
+  ragged windows as chip_smoke makes them), mistral-7b (GQA) and
+  falcon-7b (MQA).
+
+Timed by ``chip_smoke.time_ms`` (L2 flushed, device time) in turns (the
+variants, then in reverse). Each variant's largest difference against
+the plain version is printed (the variants that skip work are wrong by
+design). Ends with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -38,49 +51,127 @@ from lir_tpu_torch import ops
 from lir_tpu_torch.ops import _build
 
 FA = "flash_attention.cu"
+CP = "cascade_prefill.cu"
 _BY_LENGTH = ("return a.S > 3 * am::kKeys ? launch_wgmma<HD, 2>(a, st) : "
               "launch_wgmma<HD, 1>(a, st);")
-# name -> (old text, new text) in flash_attention.cu
-VARIANTS = {
-    "base": None,
+# name -> [(file, old text, new text), ...] in the variant's csrc copy.
+FLASH_VARIANTS = {
+    "base": [],
     # The products skipped: loads, the walk's barriers, stores.
-    "loads_only": ("        aw::tile_step<HD, false>(q, kt,",
-                   "        if (p.S < 0) aw::tile_step<HD, false>(q, kt,"),
+    "loads_only": [(FA, "        aw::tile_step<HD, false>(q, kt,",
+                    "        if (p.S < 0) aw::tile_step<HD, false>(q, kt,")],
     # Items of the list taken one by one, the head fastest (no group reuse).
-    "head_fastest": ("""  const int g = blockIdx.x + (j / per) * gridDim.x;
+    "head_fastest": [(FA, """  const int g = blockIdx.x + (j / per) * gridDim.x;
   if (g >= p.B * p.H) return false;
   it = {g / p.H, g % p.H, (per - 1 - j % per) * kWG * am::kKeys};""",
-                     """  const int i = blockIdx.x + j * gridDim.x;
+                      """  const int i = blockIdx.x + j * gridDim.x;
   if (i >= per * p.B * p.H) return false;
   const int r = i / p.H;
-  it = {r % p.B, i - r * p.H, (per - 1 - r / p.B) * kWG * am::kKeys};"""),
-    "one_wg_everywhere": (_BY_LENGTH, "return launch_wgmma<HD, 1>(a, st);"),
-    "two_wg_everywhere": (_BY_LENGTH, "return launch_wgmma<HD, 2>(a, st);"),
+  it = {r % p.B, i - r * p.H, (per - 1 - r / p.B) * kWG * am::kKeys};""")],
+    "one_wg_everywhere": [(FA, _BY_LENGTH, "return launch_wgmma<HD, 1>(a, st);")],
+    "two_wg_everywhere": [(FA, _BY_LENGTH, "return launch_wgmma<HD, 2>(a, st);")],
 }
-# (model, query heads, kv heads, head dim, buckets) of the timed shapes at
+_TEMPLATE_PARTIALS = ("        if (ot_row[h] != nullptr) o_t = *reinterpret_cast<const float2*>"
+                 "(ot_row[h] + 8 * j);")
+_TEMPLATE_WALK = ("  am::key_loop<HD, true, kSt>(ring, (n_win + am::kKeys - 1) / am::kKeys, "
+             "active, key, fix,")
+# The variants that skip work keep one of the two partials of the merge
+# nonzero: with both zero every division of the merge would take the
+# slow path of __fdiv_rn (a zero dividend), which the real inputs never do.
+SUFFIX_MERGE_TEMPLATE_VARIANTS = {
+    "base": [],
+    # The trunk partials (o_t) never read: o_t = 0 in the merge.
+    "no_partials": [(CP, _TEMPLATE_PARTIALS, "")],
+    # The window walk's products skipped: its loads and barriers alone.
+    "no_products": [("attn_mma.cuh", """    if (active) {
+      float s[8][4];
+      qk_tile<HD>""", """    if (active && n_tiles < 0) {
+      float s[8][4];
+      qk_tile<HD>""")],
+    # No window walk: the Q tile's load, the row statistics, the partials'
+    # read, the merge and the output store.
+    "no_walk": [(CP, _TEMPLATE_WALK, "  am::key_loop<HD, true, kSt>(ring, 0, active, key, fix,")],
+}
+_STAGED = "      // The warp's 16 rows staged as bf16 over their own stash rows (read"
+_OWN_READ = " " * 23 + "return *reinterpret_cast<const float2*>(own + 8 * h"
+SUFFIX_MERGE_VARIANTS = {
+    "base": [],
+    # The trunk partials never copied nor read: o_t = 0 in the merge.
+    "no_partials": [(CP, "uint32_t(min(64, N - n0)) * HD * 4);",
+                     "uint32_t(min(64, N - n0)) * 0);"),
+                    (CP, "      for (int r = lane; r < 64 && n0 + r < N; r += 32)\n"
+                         "        hp::bulk_load",
+                     "      for (int r = lane; r < 0; r += 32)\n        hp::bulk_load"),
+                    (CP, _OWN_READ, " " * 23 + "return make_float2(0.f, 0.f);\n" + _OWN_READ)],
+    # The window products skipped: the tiles' loads and barriers alone.
+    "no_products": [(CP, "      aw::tile_step<HD, true>(qs, kt, kt + W::kTile,",
+                     "      if (n0 < 0) aw::tile_step<HD, true>(qs, kt, kt + W::kTile,")],
+    # No window tiles: the Q tiles' loads, the row statistics, the
+    # partials' copies, the merge and the output store.
+    "no_walk": [(CP, "      const int n_tiles = (window_rows(a, n0, b_lo) + am::kKeys - 1)"
+                     " / am::kKeys;",
+                 "      const int n_tiles = 0 * window_rows(a, n0, b_lo);"),
+                (CP, "    const int n_tiles = (n_win + am::kKeys - 1) / am::kKeys;\n"
+                     "    const WindowFix",
+                 "    const int n_tiles = 0;\n    const WindowFix")],
+    # The output by each lane's stores instead of bulk copies of staged rows.
+    "lane_stores": [(CP, _STAGED,
+                     "      store_out<HD>(a, lr, kh, acc);\n      if (N < 0)\n" + _STAGED)],
+    # One block an SM (hd >= 80: two at hd <= 64), two slots and three stages:
+    # the next item's Q and partials loaded a whole item ahead.
+    "two_slots": [(CP, "  static constexpr int kSlots = 1;\n  static constexpr int kStages = 2;\n"
+                       "  static constexpr int kBlocksPerSM = HD <= 64 ? 3 : 2;",
+                   "  static constexpr int kSlots = 2;\n  static constexpr int kStages = 3;\n"
+                   "  static constexpr int kBlocksPerSM = HD <= 64 ? 2 : 1;")],
+    # Items taken tile-fastest (each kv head's row tiles in turn) instead of
+    # kv-head-fastest.
+    "tile_fastest": [(CP, "  kh = i % wa.a.K;\n  n0 = (i / wa.a.K) * 64;",
+                      "  const int tiles = wa.n_items / wa.a.K;\n  kh = i / tiles;\n"
+                      "  n0 = (i % tiles) * 64;")],
+    # One item a block (grid = items) instead of as many blocks as fit.
+    "one_item_a_block": [(CP, "  const int grid = items < grid_max ? int(items) : grid_max;",
+                          "  const int grid = int(items);")],
+}
+# kernel -> (library, variant table, default sources)
+KERNELS = {"flash": ("flash_attention", FLASH_VARIANTS, _build.CSRC),
+           "suffix_merge": ("cascade_prefill", SUFFIX_MERGE_VARIANTS, _build.CSRC),
+           "suffix_merge_template": ("cascade_prefill", SUFFIX_MERGE_TEMPLATE_VARIANTS, None)}
+_ARGTYPES = {
+    "flash_attention": {"lir_flash_attention": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                        + [ctypes.c_void_p]},
+    "cascade_prefill": {"lir_cascade_suffix_merge": [ctypes.c_void_p] * 10
+                        + [ctypes.c_int] * 6 + [ctypes.c_void_p]},
+}
+# (model, query heads, kv heads, head dim, buckets) of the flash shapes at
 # B = 32: llama-2-7b at the three buckets, GQA and MQA at bucket 128.
 SHAPES = [("llama-2-7b", 32, 32, 128, (64, 128, 512)), ("mistral-7b", 32, 8, 128, (128,)),
           ("falcon-7b", 71, 1, 64, (128,))]
+# (model, query heads, kv heads, head dim) of the suffix-merge shapes at
+# B = 32, R = 80 (the cascade dispatch's remainder window).
+CASCADE_SHAPES = [("llama-2-7b", 32, 32, 128), ("mistral-7b", 32, 8, 128),
+                  ("falcon-7b", 71, 1, 64)]
 
 
-def build(names):
-    """Each variant's libflash_attention, loaded."""
-    root = Path(_build.BUILD_DIR).parent / "kernel_variants"
-    procs = {}
-    for name in names:
+def build(kernel, names, csrc: Path):
+    """Each variant's library of ``kernel``, loaded."""
+    lib_name, table, _ = KERNELS[kernel]
+    root = Path(_build.BUILD_DIR).parent / "kernel_variants" / kernel
+    for name in names:  # every copy made before any compile starts
         d = root / name
         if d.exists():
             shutil.rmtree(d)
-        shutil.copytree(_build.CSRC, d)
-        if VARIANTS[name]:
-            old, new = VARIANTS[name]
-            text = (d / FA).read_text()
+        shutil.copytree(csrc, d)
+        for file, old, new in table[name]:
+            text = (d / file).read_text()
             if text.count(old) != 1:
-                raise RuntimeError(f"variant {name}: {old[:60]!r} not found once in {FA}")
-            (d / FA).write_text(text.replace(old, new))
-        out = d / "libflash_attention.so"
+                raise RuntimeError(f"variant {name}: {old[:60]!r} not found once in {file}")
+            (d / file).write_text(text.replace(old, new))
+    procs = {}
+    for name in names:
+        d = root / name
+        out = d / f"lib{lib_name}.so"
         procs[name] = (out, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(d / FA)],
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(d / f"{lib_name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (out, proc) in procs.items():
@@ -88,26 +179,24 @@ def build(names):
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
         lib = ctypes.CDLL(str(out))
-        lib.lir_flash_attention.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
-            ctypes.c_void_p]
+        for fn, types in _ARGTYPES[lib_name].items():
+            getattr(lib, fn).argtypes = types
         libs[name] = lib
     return libs
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--variants", default=",".join(VARIANTS))
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("kernel_variants: no CUDA device; nothing measured", file=sys.stderr)
-        return 1
-    names = args.variants.split(",")
-    libs = build(names)
-    cs.warm_up()
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
+def in_turns(row, names, run, out, ref):
+    """Each variant's error against ``ref`` and its times, the variants
+    in order and then in reverse."""
+    for name in names + names[::-1]:
+        run(name)
+        torch.cuda.synchronize()
+        row["max_abs_err"][name] = float((out.float() - ref.float()).abs().max())
+        row["ms"].setdefault(name, []).append(cs.time_ms(lambda: run(name), iters=20))
+
+
+def flash_shapes(gen, libs, names, summary):
     B = cs.BATCH
-    summary = {}
     for model, H, K, hd, S in [(m, h, k, d, S) for m, h, k, d, ss in SHAPES for S in ss]:
         q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(torch.bfloat16)
         k, v = (torch.randn((B, S, K, hd), generator=gen, device="cuda").to(torch.bfloat16)
@@ -118,8 +207,8 @@ def main() -> int:
         out = torch.empty_like(q)
         ref = ops.flash_attention_plain(q, k, v, mask)
 
-        def run(lib):
-            _build.check(lib.lir_flash_attention(
+        def run(name):
+            _build.check(libs[name].lir_flash_attention(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), None, None,
                 out.data_ptr(), B, S, H, K, hd, 1, torch.cuda.current_stream().cuda_stream),
                 "flash_attention")
@@ -136,15 +225,66 @@ def main() -> int:
 
         row = {"model": model, "S": S, "sdpa_ms": cs.time_ms(sdpa, iters=20), "ms": {},
                "max_abs_err": {}}
-        for name in names + names[::-1]:
-            run(libs[name])
-            torch.cuda.synchronize()
-            row["max_abs_err"][name] = float((out.float() - ref.float()).abs().max())
-            row["ms"].setdefault(name, []).append(cs.time_ms(lambda: run(libs[name]), iters=20))
+        in_turns(row, names, run, out, ref)
         print(json.dumps(row), flush=True)
         key = f"{model}/S{S}"
         summary[key] = {n: sum(m) / len(m) for n, m in row["ms"].items()}
         summary[key]["sdpa"] = row["sdpa_ms"]
+
+
+def suffix_merge_shapes(gen, libs, names, summary, R=80, Tt=432):
+    B = cs.BATCH
+    bf = torch.bfloat16
+    for model, H, K, hd in CASCADE_SHAPES:
+        rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(bf)
+        q, sk, sv = rnd(B, R, H, hd), rnd(B, R, K, hd), rnd(B, R, K, hd)
+        tk, tv = rnd(K, Tt, hd), rnd(K, Tt, hd)
+        mask = torch.ones((B, R), dtype=torch.int32, device="cuda")
+        for b in range(B):
+            mask[b, R - (b * 5) % R:] = 0       # ragged right-padded windows
+        qpos = (Tt + torch.clamp_min(torch.cumsum(mask, -1, dtype=torch.int32) - 1,
+                                     0)).to(torch.int32)
+        o_t, m_t, l_t = ops.cascade_prefix(q, tk, tv)
+        out = torch.empty_like(q)
+        ref = ops.suffix_merge_plain(q, sk, sv, o_t, m_t, l_t, mask, qpos)
+
+        def run(name):
+            _build.check(libs[name].lir_cascade_suffix_merge(
+                q.data_ptr(), sk.data_ptr(), sv.data_ptr(), o_t.data_ptr(), m_t.data_ptr(),
+                l_t.data_ptr(), mask.data_ptr(), qpos.data_ptr(), None, out.data_ptr(),
+                B, R, H, K, hd, 1, torch.cuda.current_stream().cuda_stream),
+                "cascade_suffix_merge")
+
+        row = {"model": model, "R": R, "ms": {}, "max_abs_err": {}}
+        in_turns(row, names, run, out, ref)
+        print(json.dumps(row), flush=True)
+        summary[f"{model}/R{R}"] = {n: sum(m) / len(m) for n, m in row["ms"].items()}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", choices=sorted(KERNELS), default="flash")
+    ap.add_argument("--csrc", type=Path, default=None,
+                    help="the sources the variants are made from")
+    ap.add_argument("--variants", default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("kernel_variants: no CUDA device; nothing measured", file=sys.stderr)
+        return 1
+    _, table, default_csrc = KERNELS[args.kernel]
+    csrc = args.csrc or default_csrc
+    if csrc is None:
+        ap.error(f"--kernel {args.kernel} needs --csrc")
+    names = args.variants.split(",") if args.variants else list(table)
+    libs = build(args.kernel, names, csrc)
+    cs.warm_up()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    summary = {}
+    if args.kernel == "flash":
+        flash_shapes(gen, libs, names, summary)
+    else:
+        suffix_merge_shapes(gen, libs, names, summary)
     print(json.dumps({"mean_ms": summary}), flush=True)
     print(cs.card_line())
     return 0

@@ -1,8 +1,9 @@
 // The trunk walk of the bf16 cascade kernels on Hopper's wgmma and TMA
 // (sm_90a): the two-leg route's trunk leg (prefix_wgmma_kernel) and step
-// (1) of the fused kernel (cascade_mma_kernel<HD, true>) in
-// cascade_prefill.cu; its tile step (tile_step, with one bf16 P) is also
-// the prefill flash kernel's (flash_wgmma_kernel in flash_attention.cu).
+// (1) of the fused kernel (cascade_mma_kernel) in cascade_prefill.cu; its
+// tile step (tile_step) is also the suffix merge's window walk
+// (suffix_merge_kernel, split P) and, with one bf16 P, the prefill flash
+// kernel's (flash_wgmma_kernel in flash_attention.cu).
 //
 // A warpgroup owns 64 query rows and walks the trunk's 64-key tiles with
 // an online softmax, FlashAttention-3 style:

@@ -3,8 +3,9 @@
 // warpgroup matrix products (wgmma) reading their operands from those
 // stages, and the barrier and addressing of thread-block clusters.
 // row_gemm.cu (the row-invariant projections), attn_wgmma.cuh (the
-// cascade trunk walk) and flash_attention.cu (the prefill flash kernel)
-// are built from them.
+// cascade trunk walk), flash_attention.cu (the prefill flash kernel) and
+// cascade_prefill.cu's suffix merge (which adds bulk copies and cp.async
+// arrivals on mbarriers) are built from them.
 //
 // - TMA: one thread asks for a whole tile (cp.async.bulk.tensor) with the
 //   128-byte swizzle: a tile row of 64 bf16 (128 bytes) lands at a 128-byte
@@ -60,6 +61,12 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
 }
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// One arrival on the barrier once every cp.async this thread issued
+// before it has landed (counted in the barrier's arrivals: .noinc).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
 }
 // Waits until the barrier's phase of parity ``parity`` has completed. A
 // wait that has not ended after ~2^31 polls (seconds) traps, so a broken
@@ -123,6 +130,28 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// A bulk copy (no tensor map) of ``bytes`` (a multiple of 16; both ends
+// 16-byte aligned) from device memory into shared memory, completing on
+// the barrier as its bytes land.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// A bulk copy of ``bytes`` (a multiple of 16; both ends 16-byte aligned)
+// from shared memory (written by the generic proxy: fence_proxy_async
+// first) to device memory, in the thread's bulk group: commit the group,
+// and bulk_wait_read<0> before the shared memory is written again.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
 }
 
 // A TMA store of a tile in shared memory (written by the generic proxy:

@@ -329,19 +329,22 @@ def _attention_cached_flash_mq(q, k, v, cfg: ModelConfig, fused_ctx,
 
 
 def _attention_cascade(q, k, v, trunk_kv, suffix_mask, q_positions,
-                       cfg: ModelConfig, int8_qk: bool = False) -> torch.Tensor:
+                       cfg: ModelConfig, int8_qk: bool = False,
+                       trunk_k_int8=None) -> torch.Tensor:
     """Shared-trunk prefill window through the cascade kernels. q:
     (B, R, H, hd); k/v: (B, R, K, hd) the window's own post-RoPE k/v;
     trunk_kv: (K, Tt, hd) pair. ``cfg.cascade_fused_suffix`` without
     ``int8_qk`` takes the fused kernel; otherwise the two-leg route, its
-    trunk leg in float or (``int8_qk``) int8 QK^T."""
+    trunk leg in float or (``int8_qk``) int8 QK^T, the latter on the
+    trunk keys' ``trunk_k_int8`` (payload, scales) pair."""
     B, R, H, hd = q.shape
     tk, tv = trunk_kv
     out = ops.cascade_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                 tk, tv, suffix_mask, q_positions,
                                 alibi_slopes=_slopes_or_none(cfg, q.device),
                                 int8_qk=int8_qk,
-                                fused_suffix=cfg.cascade_fused_suffix)
+                                fused_suffix=cfg.cascade_fused_suffix,
+                                trunk_k_int8=trunk_k_int8)
     return out.reshape(B, R, H * hd)
 
 
@@ -639,7 +642,9 @@ def cascade_extend(params: Params, cfg: ModelConfig, trunk_cache,
     (every slot real, slot == position). Each row's remainder
     ``rem_tokens``/``rem_mask`` (B, R), RIGHT-padded, runs through the
     layers attending via the cascade kernels (trunk leg + causal suffix
-    leg, merged exactly; ``int8_qk`` quantizes the trunk leg's QK^T).
+    leg, merged exactly; ``int8_qk`` quantizes the trunk leg's QK^T:
+    every layer's trunk keys at once, one ``ops.quantize_rows`` over the
+    (L * K * Tt, hd) rows, each layer's slice handed to its trunk leg).
     The returned cache broadcasts the trunk at slots [0, trunk_len),
     holds the remainder k/v at [trunk_len, trunk_len + R) and zeros up
     to ``total_len``.
@@ -657,13 +662,19 @@ def cascade_extend(params: Params, cfg: ModelConfig, trunk_cache,
     cv = torch.zeros(shape, dtype=tcv.dtype, device=tcv.device)
     ck[:, :, :trunk_len] = tck
     cv[:, :, :trunk_len] = tcv
+    keys8 = None
+    if int8_qk:
+        Tt = tck.shape[2]
+        kq, ks = ops.quantize_rows(tck.reshape(L * K * Tt, hd))
+        keys8 = (kq.view(L, K, Tt, hd), ks.view(L, K, Tt))
     for i in range(L):
         tk = tck[i, :, :, 0].contiguous()
         tv = tcv[i, :, :, 0].contiguous()
+        tk8 = None if keys8 is None else (keys8[0][i], keys8[1][i])
 
-        def impl(q, k, v, key_mask, tk=tk, tv=tv):
+        def impl(q, k, v, key_mask, tk=tk, tv=tv, tk8=tk8):
             return _attention_cascade(q, k, v, (tk, tv), rem_mask, qpos, cfg,
-                                      int8_qk)
+                                      int8_qk, tk8)
 
         x, (k, v), _ = _block(x, _layer(params["layers"], i), cfg, sin, cos,
                               None, None, None, key_mask=rem_mask,

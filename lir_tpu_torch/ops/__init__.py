@@ -12,10 +12,11 @@
 - ``cascade_attention``: the shared-trunk prefill window. Its fused
   route is one kernel (``csrc/cascade_prefill.cu``); its two-leg route
   runs the trunk-leg kernels ``cascade_prefix`` (float32 QK^T) or
-  ``cascade_prefix_int8`` (int8 QK^T, on bf16 after ``quantize_rows`` of
-  the trunk keys) of the same source, then ``cascade_suffix_merge``
-  (suffix leg and merge), whose code is the fused kernel's: fused ==
-  two-leg bitwise on the card.
+  ``cascade_prefix_int8`` (int8 QK^T on the trunk keys' ``quantize_rows``
+  payload, which ``decoder.cascade_extend`` makes for every layer at
+  once) of the same source, then ``cascade_suffix_merge`` (suffix leg
+  and merge, a persistent TMA + wgmma kernel), whose arithmetic and key
+  tiles are the fused kernel's: fused == two-leg bitwise on the card.
 - ``flash_attention``: prefill self-attention, causal with a key mask
   of any pattern (``csrc/flash_attention.cu``).
 - ``merge_partials``: the log-sum-exp merge of partials (plain PyTorch;

@@ -17,8 +17,10 @@ its routes, chosen as the JAX function chooses them:
 On a CUDA tensor the fused route is BITWISE the two-leg route with float
 QK^T, as the JAX package's fused kernel is: the fused kernel walks the
 trunk with the trunk leg's own code, then the window, then merges in
-``merge_partials``' order, and the suffix merge is the same code after a
-read of the trunk partials. On a CPU tensor each wrapper runs its plain
+``merge_partials``' order, and the suffix merge walks the window in the
+same tiles with the same arithmetic (on wgmma, which gives mma.sync's
+bits for the same chains) and merges the same way after a read of the
+trunk partials. On a CPU tensor each wrapper runs its plain
 version: :func:`prefix_partials` or :func:`prefix_partials_int8` for the
 trunk leg, :func:`suffix_merge_plain` for the suffix merge, and
 :func:`cascade_attention_plain` (the two-leg float function) for the
@@ -76,18 +78,21 @@ def prefix_partials(q, trunk_k, trunk_v, slopes):
     return _trunk_softmax(s, trunk_v, slopes)
 
 
-def prefix_partials_int8(q, trunk_k, trunk_v, slopes):
+def prefix_partials_int8(q, trunk_k, trunk_v, slopes, trunk_k_int8=None):
     """:func:`prefix_partials` with int8 QK^T: each query row and each
     trunk key row quantized over hd by ``models.quant.dynamic_quant``,
     the s32 dot folded as ``f32(s32) * (q_scale * sm_scale) * k_scale``
-    (the TPU kernel's order). The s32 dot runs as a float32 product of
-    the payloads: every partial sum is an integer below
-    hd * 127**2 < 2**24, so it is exact in any order (on a card with
-    TF32 off)."""
+    (the TPU kernel's order). ``trunk_k_int8``: the trunk keys' (payload
+    (K, Tt, hd), scales (K, Tt)) quantized already by the same rule (a
+    layer's slice of one quantization of every layer's keys), used as
+    they are. The s32 dot runs as a float32 product of the payloads:
+    every partial sum is an integer below hd * 127**2 < 2**24, so it is
+    exact in any order (on a card with TF32 off)."""
     B, R, H, hd = q.shape
     K = trunk_k.shape[0]
     qq, qs = dynamic_quant(q.reshape(B, R, K, H // K, hd))
-    kq, ks = dynamic_quant(trunk_k)                      # (K, Tt, hd), (K, Tt)
+    kq, ks = (dynamic_quant(trunk_k) if trunk_k_int8 is None
+              else trunk_k_int8)                         # (K, Tt, hd), (K, Tt)
     s32 = torch.einsum("brkgd,ktd->bkrgt", qq.float(), kq.float())
     qsm = (qs * (1.0 / math.sqrt(hd))).permute(0, 2, 1, 3)   # (B, K, R, G)
     s = s32 * qsm[..., None] * ks[None, :, None, None, :]
@@ -132,11 +137,11 @@ def suffix_merge_plain(q, sfx_k, sfx_v, o_t, m_t, l_t, suffix_mask,
 
 
 def _two_leg(q, sfx_k, sfx_v, trunk_k, trunk_v, suffix_mask, q_positions,
-             alibi_slopes, trunk_leg) -> torch.Tensor:
+             alibi_slopes, trunk_leg, **trunk_kw) -> torch.Tensor:
     """The two-leg route: ``trunk_leg`` partials, then
     :func:`cascade_suffix_merge` (suffix partials + merge).
     (B, R, H, hd) in q's dtype."""
-    o_t, m_t, l_t = trunk_leg(q, trunk_k, trunk_v, alibi_slopes)
+    o_t, m_t, l_t = trunk_leg(q, trunk_k, trunk_v, alibi_slopes, **trunk_kw)
     return cascade_suffix_merge(q, sfx_k, sfx_v, o_t, m_t, l_t, suffix_mask,
                                 q_positions, alibi_slopes)
 
@@ -169,8 +174,9 @@ def _lib():
         lib.lir_cascade_suffix_merge.restype = i
         lib.lir_cascade_prefix.argtypes = [p] * 8 + [i] * 8 + [p]
         lib.lir_cascade_prefix.restype = i
-        lib.lir_quantize_rows.argtypes = [p] * 3 + [i] * 2 + [p]
-        lib.lir_quantize_rows.restype = i
+        for fn in (lib.lir_quantize_rows, lib.lir_quantize_rows_f32):
+            fn.argtypes = [p] * 3 + [i] * 2 + [p]
+            fn.restype = i
         _LIB = lib
     return _LIB
 
@@ -264,15 +270,17 @@ def _cascade_cuda(q, sfx_k, sfx_v, trunk_k, trunk_v, suffix_mask,
 def quantize_rows(x: torch.Tensor):
     """Per-row int8 quantization of (..., hd) by the dynamic rule of
     ``models.quant.dynamic_quant``: (int8 payload (..., hd), float32
-    scales (...)). CUDA tensors (bf16, hd a multiple of 16 up to 128)
-    launch ``csrc/cascade_prefill.cu``'s pass, which the bf16 int8 trunk
-    leg reads, bitwise the plain rule; CPU tensors run
+    scales (...)), the pair the int8 trunk leg reads. CUDA tensors (bf16
+    or float32, hd a multiple of 16 up to 128) launch
+    ``csrc/cascade_prefill.cu``'s pass, bitwise the plain rule, once for
+    any number of rows (``decoder.cascade_extend`` hands it every layer's
+    trunk keys at once); CPU tensors run
     :func:`~lir_tpu_torch.models.quant.dynamic_quant`."""
     if x.device.type == "cpu":
         return dynamic_quant(x)
-    if x.device.type != "cuda" or x.dtype != torch.bfloat16:
-        raise TypeError(f"the quantization pass takes bfloat16 CUDA tensors, "
-                        f"got {x.dtype} on {x.device}")
+    if x.device.type != "cuda" or x.dtype not in _DTYPES:
+        raise TypeError(f"the quantization pass takes bfloat16 or float32 "
+                        f"CUDA tensors, got {x.dtype} on {x.device}")
     hd = x.shape[-1]
     if hd % 16 or hd > 128 or not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError(f"the quantization pass needs a contiguous, 16-byte "
@@ -282,18 +290,35 @@ def quantize_rows(x: torch.Tensor):
     s = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
     rows = x.numel() // hd
     if rows:
-        _build.check(_lib().lir_quantize_rows(
-            x.data_ptr(), q.data_ptr(), s.data_ptr(), rows, hd, _stream(x)),
-            "quantize_rows")
+        entry = (_lib().lir_quantize_rows if x.dtype == torch.bfloat16
+                 else _lib().lir_quantize_rows_f32)
+        _build.check(entry(x.data_ptr(), q.data_ptr(), s.data_ptr(), rows, hd,
+                           _stream(x)), "quantize_rows")
         quantize_rows.launches += 1
     return q, s
 
 
-def _prefix_cuda(q, trunk_k, trunk_v, alibi_slopes, int8_qk: bool):
+def _check_keys_int8(trunk_k, trunk_k_int8):
+    """The pre-quantized trunk keys: an int8 payload shaped as the keys,
+    float32 scales over their rows, contiguous on the keys' device."""
+    kq, ks = trunk_k_int8
+    if (kq.dtype != torch.int8 or ks.dtype != torch.float32
+            or kq.shape != trunk_k.shape or ks.shape != trunk_k.shape[:-1]
+            or kq.device != trunk_k.device or ks.device != trunk_k.device
+            or not (kq.is_contiguous() and ks.is_contiguous())):
+        raise ValueError(f"trunk_k_int8 must be a contiguous int8 payload "
+                         f"{tuple(trunk_k.shape)} and float32 scales "
+                         f"{tuple(trunk_k.shape[:-1])} on {trunk_k.device}")
+    return kq, ks
+
+
+def _prefix_cuda(q, trunk_k, trunk_v, alibi_slopes, int8_qk: bool,
+                 trunk_k_int8=None):
     """Launch the trunk-leg kernel: (o, m, l) float32 partials shaped
     (B, K, R, G, hd) / (B, K, R, G), as :func:`prefix_partials`. With
-    int8 QK^T on bf16 the trunk keys go through :func:`quantize_rows`
-    first (once per key), and the kernel runs on IMMA."""
+    int8 QK^T the kernel reads the trunk keys quantized apart:
+    ``trunk_k_int8`` where given, else :func:`quantize_rows` of them
+    (once per key); bf16 runs on IMMA."""
     _check_cuda(q)
     _check_q(q)
     K, Tt = _check_trunk(q, trunk_k, trunk_v)
@@ -304,8 +329,9 @@ def _prefix_cuda(q, trunk_k, trunk_v, alibi_slopes, int8_qk: bool):
     if alibi_slopes is not None:
         slopes = alibi_slopes.to(device=q.device, dtype=torch.float32).contiguous()
     tk, tks = trunk_k, None
-    if int8_qk and q.dtype == torch.bfloat16:
-        tk, tks = quantize_rows(trunk_k)
+    if int8_qk:
+        tk, tks = (quantize_rows(trunk_k) if trunk_k_int8 is None
+                   else _check_keys_int8(trunk_k, trunk_k_int8))
     G = H // K
     f32 = dict(dtype=torch.float32, device=q.device)
     o = torch.empty((B, K, R, G, hd), **f32)
@@ -330,14 +356,19 @@ def cascade_prefix(q, trunk_k, trunk_v, alibi_slopes=None):
     return out
 
 
-def cascade_prefix_int8(q, trunk_k, trunk_v, alibi_slopes=None):
+def cascade_prefix_int8(q, trunk_k, trunk_v, alibi_slopes=None,
+                        trunk_k_int8=None):
     """Trunk-leg partials of the two-leg route, int8 QK^T. CUDA tensors
-    launch the kernels of ``csrc/cascade_prefill.cu`` (bf16: the trunk
-    keys' quantization pass, then s8 QK^T on IMMA; float32: quantized in
-    the CUDA-core kernel); CPU tensors run :func:`prefix_partials_int8`."""
+    launch the kernels of ``csrc/cascade_prefill.cu``: the trunk keys'
+    quantization pass (:func:`quantize_rows`; not where ``trunk_k_int8``
+    hands over its (payload, scales) pair), then s8 QK^T (bf16: on IMMA;
+    float32: in the CUDA-core kernel); CPU tensors run
+    :func:`prefix_partials_int8`."""
     if q.device.type == "cpu":
-        return prefix_partials_int8(q, trunk_k, trunk_v, alibi_slopes)
-    out = _prefix_cuda(q, trunk_k, trunk_v, alibi_slopes, int8_qk=True)
+        return prefix_partials_int8(q, trunk_k, trunk_v, alibi_slopes,
+                                    trunk_k_int8)
+    out = _prefix_cuda(q, trunk_k, trunk_v, alibi_slopes, int8_qk=True,
+                       trunk_k_int8=trunk_k_int8)
     cascade_prefix_int8.launches += 1
     return out
 
@@ -348,10 +379,11 @@ def cascade_suffix_merge(q, sfx_k, sfx_v, o_t, m_t, l_t, suffix_mask,
     (o_t, m_t, l_t) of :func:`cascade_prefix` or
     :func:`cascade_prefix_int8`. Returns (B, R, H, hd) in q's dtype.
 
-    CUDA tensors launch ``csrc/cascade_prefill.cu``'s suffix merge: the
-    fused kernel's window walk and merge with the trunk walk replaced by
-    a read of the partials, so the route is bitwise the fused kernel
-    (float QK^T); CPU tensors run :func:`suffix_merge_plain`."""
+    CUDA tensors launch ``csrc/cascade_prefill.cu``'s suffix merge (bf16:
+    the persistent TMA + wgmma ``suffix_merge_kernel``), whose window
+    walk and merge are the fused kernel's arithmetic on the same tiles,
+    so the route is bitwise the fused kernel (float QK^T); CPU tensors
+    run :func:`suffix_merge_plain`."""
     if q.device.type == "cpu":
         return suffix_merge_plain(q, sfx_k, sfx_v, o_t, m_t, l_t, suffix_mask,
                                   q_positions, alibi_slopes)
@@ -383,15 +415,19 @@ def cascade_suffix_merge(q, sfx_k, sfx_v, o_t, m_t, l_t, suffix_mask,
 
 def cascade_attention(q, sfx_k, sfx_v, trunk_k, trunk_v, suffix_mask,
                       q_positions, alibi_slopes=None, int8_qk: bool = False,
-                      fused_suffix: bool = True) -> torch.Tensor:
+                      fused_suffix: bool = True,
+                      trunk_k_int8=None) -> torch.Tensor:
     """Shared-trunk cascade attention: softmax over trunk + window keys,
     exact. Returns (B, R, H, hd) in q's dtype.
 
     ``fused_suffix`` without ``int8_qk`` takes the fused route: CUDA
     tensors launch the fused kernel, CPU tensors run
     :func:`cascade_attention_plain`. Otherwise the two-leg route: the
-    trunk leg through :func:`cascade_prefix_int8` (``int8_qk``) or
-    :func:`cascade_prefix`, then :func:`cascade_suffix_merge`."""
+    trunk leg through :func:`cascade_prefix_int8` (``int8_qk``, which
+    takes the trunk keys' pre-quantized ``trunk_k_int8`` pair where
+    given) or :func:`cascade_prefix`, then :func:`cascade_suffix_merge`."""
+    if trunk_k_int8 is not None and not int8_qk:
+        raise ValueError("trunk_k_int8 is the int8 trunk leg's: pass int8_qk")
     if fused_suffix and not int8_qk:
         if q.device.type == "cpu":
             return cascade_attention_plain(q, sfx_k, sfx_v, trunk_k, trunk_v,
@@ -402,9 +438,12 @@ def cascade_attention(q, sfx_k, sfx_v, trunk_k, trunk_v, suffix_mask,
                             q_positions, alibi_slopes)
         cascade_attention.launches += 1
         return out
+    if int8_qk:
+        return _two_leg(q, sfx_k, sfx_v, trunk_k, trunk_v, suffix_mask,
+                        q_positions, alibi_slopes, cascade_prefix_int8,
+                        trunk_k_int8=trunk_k_int8)
     return _two_leg(q, sfx_k, sfx_v, trunk_k, trunk_v, suffix_mask,
-                    q_positions, alibi_slopes,
-                    cascade_prefix_int8 if int8_qk else cascade_prefix)
+                    q_positions, alibi_slopes, cascade_prefix)
 
 
 cascade_attention.launches = 0

@@ -119,3 +119,33 @@ def test_two_leg_wrappers_count_only_kernel_launches():
                               int8_qk=int8_qk, fused_suffix=False)
     assert ops.launch_counts()["cascade_prefix"] == 0
     assert ops.launch_counts()["cascade_prefix_int8"] == 0
+
+
+@pytest.mark.parametrize("name", ["mha", "gqa", "mqa", "alibi"])
+def test_prefix_partials_int8_take_a_slice_of_all_layers_keys(name):
+    """The int8 trunk leg given its layer's slice of ONE dynamic_quant of
+    every layer's trunk keys (as decoder.cascade_extend hands it over):
+    the partials bitwise its own quantization's, and the two-leg route on
+    that slice within the bar of the JAX package's."""
+    (q, sk, sv, tk, tv, mask, qpos), slopes = _inputs(CASES[name])
+    rng = np.random.default_rng(3)
+    keys = np.stack([tk, rng.standard_normal(tk.shape).astype(np.float32) * 3,
+                     np.zeros_like(tk)])                      # 3 layers
+    L, (K, Tt, hd) = keys.shape[0], tk.shape
+    kq, ks = dynamic_quant(torch.from_numpy(keys).reshape(L * K * Tt, hd))
+    kq, ks = kq.view(L, K, Tt, hd), ks.view(L, K, Tt)
+    t = torch.from_numpy
+    ts = None if slopes is None else t(slopes)
+    for i in range(L):
+        own = ops.prefix_partials_int8(t(q), t(keys[i]), t(tv), ts)
+        given = ops.prefix_partials_int8(t(q), t(keys[i]), t(tv), ts,
+                                         trunk_k_int8=(kq[i], ks[i]))
+        for a, b in zip(own, given):
+            assert torch.equal(a, b)
+    got = ops.cascade_attention(t(q), t(sk), t(sv), t(keys[1]), t(tv), t(mask),
+                                t(qpos), alibi_slopes=ts, int8_qk=True,
+                                fused_suffix=False, trunk_k_int8=(kq[1], ks[1]))
+    ref = jax_cascade(*(jnp.asarray(a) for a in (q, sk, sv, keys[1], tv, mask, qpos)),
+                      alibi_slopes=None if slopes is None else jnp.asarray(slopes),
+                      int8_qk=True, fused_suffix=False, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)

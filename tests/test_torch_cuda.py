@@ -23,6 +23,10 @@ and the route each head dim takes (the wgmma kernel at hd 64 and 128,
 across the 64-row tile edges: S = 1, 63, 64, 65, 128, 200, 512). The
 row kernels' rows are bitwise at every row count; ``row_add_norm``'s
 sum is bitwise torch's bf16 add and its norm bitwise ``row_norm`` of it.
+The persistent suffix merge is held at R = 80, under 64 and a multiple
+of 64, MHA / GQA / MQA, ALiBi, ragged, holed, left-padded and fully
+masked windows and every head dim, and the trunk keys' quantization pass
+bitwise ``dynamic_quant`` at every layer's keys of a llama-2-7b dispatch.
 """
 
 import dataclasses
@@ -668,3 +672,110 @@ def test_cascade_new_launches_count(gen):
     counts = ops.launch_counts()
     assert (counts["quantize_rows"], counts["cascade_prefix_int8"],
             counts["cascade_suffix_merge"], counts["cascade_attention"]) == (1, 1, 1, 0)
+
+
+# (H, K, hd, alibi, R, B) of the suffix merge's cases: the cascade
+# dispatch's R = 80, R under 64 (a 64-row item over several batch rows)
+# and R a multiple of 64; B * R * G a multiple of 64 or not; MHA, GQA
+# (mistral-7b's 32 / 8), MQA (falcon-7b's 71 / 1); ALiBi; every head dim
+# the kernel is built for.
+SUFFIX_CASES = [
+    (32, 32, 128, False, 80, 5), (32, 8, 128, False, 80, 5), (71, 1, 64, False, 80, 5),
+    (32, 32, 128, True, 80, 5), (8, 8, 128, False, 21, 5), (8, 4, 128, False, 7, 11),
+    (8, 2, 64, True, 128, 5), (8, 8, 64, False, 64, 4), (8, 8, 32, False, 80, 5),
+    (8, 8, 80, True, 33, 5), (8, 2, 96, False, 100, 5),
+]
+
+
+def _windows(B, R):
+    """Right-padded window masks with a whole row, a holed row, a fully
+    masked row and a left-padded row among them, and their positions
+    after a 100-slot trunk."""
+    mask = torch.ones((B, R), dtype=torch.int32, device="cuda")
+    for b in range(B):
+        kind = b % 5
+        if kind == 1:
+            mask[b, (3 * R) // 4:] = 0          # ragged (right-padded)
+        elif kind == 2:
+            mask[b, R // 3:(2 * R) // 3] = 0    # holed
+        elif kind == 3:
+            mask[b] = 0                         # all masked
+        elif kind == 4:
+            mask[b, :R // 2] = 0                # left-padded
+    qpos = (100 + torch.clamp_min(torch.cumsum(mask, -1, dtype=torch.int32) - 1,
+                                  0)).to(torch.int32)
+    return mask, qpos
+
+
+@pytest.mark.parametrize("H,K,hd,alibi,R,B", SUFFIX_CASES,
+                         ids=[f"H{h}K{k}hd{d}{'-alibi' if a else ''}-R{r}-B{b}"
+                              for h, k, d, a, r, b in SUFFIX_CASES])
+def test_suffix_merge_kernel_matches_plain_and_fused(gen, H, K, hd, alibi, R, B):
+    """The persistent suffix merge within 1e-2 of suffix_merge_plain, and
+    bitwise the fused kernel (which walks the same window tiles with the
+    same arithmetic on mma.sync): fused == cascade_prefix + suffix merge."""
+    q = _rnd(gen, B, R, H, hd)
+    sk, sv = _rnd(gen, B, R, K, hd), _rnd(gen, B, R, K, hd)
+    tk, tv = _rnd(gen, K, 100, hd), _rnd(gen, K, 100, hd)
+    mask, qpos = _windows(B, R)
+    slopes = alibi_slopes(H, "cuda") if alibi else None
+    o, m, l = ops.cascade_prefix(q, tk, tv, slopes)
+    got = ops.cascade_suffix_merge(q, sk, sv, o, m, l, mask, qpos, slopes)
+    ref = ops.suffix_merge_plain(q, sk, sv, o, m, l, mask, qpos, slopes)
+    torch.testing.assert_close(got.float(), ref.float(), **TOL)
+    fused = ops.cascade_attention(q, sk, sv, tk, tv, mask, qpos, alibi_slopes=slopes)
+    assert torch.equal(fused, got)
+
+
+@pytest.mark.parametrize("rows,dtype", [(442368, BF16), (13831, BF16), (1000, F32), (33, F32)],
+                         ids=["all-layers", "rows-13831", "f32-rows-1000", "f32-rows-33"])
+def test_quantize_rows_all_layers_bitwise_dynamic_quant(gen, rows, dtype):
+    """The trunk keys' quantization pass at the all-layers shape of a
+    llama-2-7b dispatch (32 layers x 32 kv heads x 432 keys) and at row
+    counts that are not a multiple of its 32-row chunks, bf16 and float32:
+    payloads and scales bitwise dynamic_quant's."""
+    from lir_tpu_torch.models import quant
+
+    x = _rnd(gen, rows, 128, dtype=dtype) * 3
+    x[1] = 0                                 # a zero row: the 1e-8 floor
+    kq, ks = ops.quantize_rows(x)
+    rq, rs = quant.dynamic_quant(x)
+    assert torch.equal(kq, rq) and torch.equal(ks, rs)
+
+
+def test_cascade_extend_int8_quantizes_trunk_keys_once(gen):
+    """decoder.cascade_extend with int8 QK^T quantizes every layer's trunk
+    keys in one launch and runs each layer's trunk leg on its slice:
+    quantize_rows 1, the int8 trunk leg and the suffix merge once a layer;
+    the cache is the one the per-layer quantization gives, bitwise."""
+    from lir_tpu_torch.models import decoder, registry
+
+    cfg = dataclasses.replace(registry.ModelConfig(
+        name="cuda-tiny", vocab_size=512, hidden_size=256, n_layers=3, n_heads=4,
+        n_kv_heads=2, intermediate_size=512, max_seq_len=256),
+        cascade_fused_suffix=False)
+    params = decoder.init_params(cfg, seed=3, device="cuda", dtype=torch.bfloat16)
+    tokens = torch.randint(3, 500, (4, 90), generator=gen, device="cuda")
+    trunk = 70
+    ones = torch.ones((1, trunk), dtype=torch.int32, device="cuda")
+    _, tcache, _ = decoder.prefill(params, cfg, tokens[:1, :trunk], ones, trunk)
+    rem_mask = torch.ones((4, 20), dtype=torch.int32, device="cuda")
+    rem_mask[1, 15:] = 0
+    ops.reset_launches()
+    ck, cv = decoder.cascade_extend(params, cfg, tcache, tokens[:, trunk:], rem_mask,
+                                    trunk, 120, int8_qk=True)
+    counts = ops.launch_counts()
+    assert (counts["quantize_rows"], counts["cascade_prefix_int8"],
+            counts["cascade_suffix_merge"]) == (1, 3, 3)
+    real = ops.cascade_attention
+
+    def per_layer(*a, trunk_k_int8=None, **kw):
+        return real(*a, **kw)
+
+    decoder.ops.cascade_attention = per_layer
+    try:
+        ck1, cv1 = decoder.cascade_extend(params, cfg, tcache, tokens[:, trunk:],
+                                          rem_mask, trunk, 120, int8_qk=True)
+    finally:
+        decoder.ops.cascade_attention = real
+    assert torch.equal(ck, ck1) and torch.equal(cv, cv1)

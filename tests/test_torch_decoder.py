@@ -176,3 +176,41 @@ def test_fused_add_norm_step_and_window_bitwise_unfused(family, monkeypatch):
     ref = run()
     for g, r in zip(got, ref):
         assert g.dtype == torch.float32 and torch.equal(g, r)
+
+
+@pytest.mark.parametrize("family", ["llama", "mistral", "falcon"])
+def test_cascade_extend_quantizes_trunk_keys_once(family, monkeypatch):
+    """With int8 QK^T, cascade_extend quantizes every layer's trunk keys
+    in ONE ops.quantize_rows call over (L * K * Tt, hd) rows (counted at
+    the decoder's own lookup) and hands each layer's trunk leg its slice:
+    the cache is bitwise the one each layer's own quantization gives.
+    Without int8 QK^T nothing is quantized."""
+    _, _, cfg_t, pt = _pair(family)
+    rng = np.random.default_rng(2)
+    B, Tt, R = 3, 64, 5
+    t = torch.from_numpy
+    trunk = t(rng.integers(3, cfg_t.vocab_size, (1, Tt)).astype(np.int32))
+    rem = t(rng.integers(3, cfg_t.vocab_size, (B, R)).astype(np.int32))
+    rem_mask = torch.ones((B, R), dtype=torch.int32)
+    rem_mask[1, 2:] = 0
+    _, tct, _ = tdec.prefill(pt, cfg_t, trunk, torch.ones((1, Tt), dtype=torch.int32), Tt)
+    calls = []
+    real_quant = tdec.ops.quantize_rows
+
+    def spy(x):
+        calls.append(tuple(x.shape))
+        return real_quant(x)
+
+    monkeypatch.setattr(tdec.ops, "quantize_rows", spy)
+    hoisted = tdec.cascade_extend(pt, cfg_t, tct, rem, rem_mask, Tt, Tt + R + 2,
+                                  int8_qk=True)
+    assert calls == [(cfg_t.n_layers * cfg_t.n_kv_heads * Tt, cfg_t.head_dim)]
+    real_cascade = tdec.ops.cascade_attention
+    monkeypatch.setattr(tdec.ops, "cascade_attention",
+                        lambda *a, trunk_k_int8=None, **kw: real_cascade(*a, **kw))
+    own = tdec.cascade_extend(pt, cfg_t, tct, rem, rem_mask, Tt, Tt + R + 2, int8_qk=True)
+    for a, b in zip(hoisted, own):
+        assert torch.equal(a, b)
+    calls.clear()
+    tdec.cascade_extend(pt, cfg_t, tct, rem, rem_mask, Tt, Tt + R + 2)
+    assert calls == []

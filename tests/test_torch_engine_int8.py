@@ -205,3 +205,33 @@ def test_int8_cascade_agrees_with_float_cascade(engines):
     np.testing.assert_array_equal((a.p_yes[:, 0] > a.p_no[:, 0]).numpy(),
                                   (b.p_yes[:, 0] > b.p_no[:, 0]).numpy())
     assert not fl.cascade_cfg.int8_qk
+
+
+def test_trunk_dispatch_quantizes_trunk_keys_once_and_matches_jax(engines, monkeypatch):
+    """The trunk dispatch's cascade extension quantizes every layer's
+    trunk keys in one ops.quantize_rows call and each layer's int8 trunk
+    leg reads its slice (counted at the decoder's lookups); its readouts
+    still match the JAX engine's."""
+    jeng, teng = engines
+    quant_calls, keyed = [], []
+    real_quant, real_cascade = tdec.ops.quantize_rows, tdec.ops.cascade_attention
+
+    def quant_spy(x):
+        quant_calls.append(tuple(x.shape))
+        return real_quant(x)
+
+    def cascade_spy(*a, **kw):
+        keyed.append(kw.get("trunk_k_int8") is not None)
+        return real_cascade(*a, **kw)
+
+    monkeypatch.setattr(tdec.ops, "quantize_rows", quant_spy)
+    monkeypatch.setattr(tdec.ops, "cascade_attention", cascade_spy)
+    rng = np.random.default_rng(9)
+    head = [int(x) for x in rng.integers(3, 900, 72)]
+    rows = [head + [int(x) for x in rng.integers(3, 900, 3 + r)] for r in range(4)]
+    out_j = _dispatch(jeng, rows, 96)
+    out_t = _dispatch(teng, rows, 96)
+    assert len(quant_calls) == 1
+    assert keyed == [True] * CFG["n_layers"]
+    for a, b in zip(out_j, out_t):
+        _compare_fused(a, b)
