@@ -26,7 +26,9 @@ Phases (each raises on failure, so the script exits non-zero):
    512, with the route it
    took; the row-invariant projections at M = B and B * spec_k for all
    seven of a layer, the norm, and the residual add fused with the norm
-   (``row_add_norm``, also at falcon-7b's width 4544), the norms beside
+   (``row_add_norm``, also at falcon-7b's width 4544), and the same at the
+   grouped sweep dispatch's M = 64 member rows (with ``flash_decode`` at
+   B = 64 and its cache extent, bucket + suffix bucket + 8), the norms beside
    an empty kernel's time, the floor of the timing), plus GQA
    (mistral-7b), MQA (falcon-7b) and ALiBi (bloom-7b1)
    shapes: bf16 kernel output against the float32 plain version of the
@@ -52,7 +54,11 @@ Phases (each raises on failure, so the script exits non-zero):
    on the card (ids exact, position-0 readouts bitwise), a speculative
    run given the sequential stream as its drafts, and the 8-bit engine
    (dynamic int8 weights, int8 QK^T, flash prefill) on the card against
-   the same on the CPU (ids exact, floats within 1e-2). Last, at
+   the same on the CPU (ids exact, floats within 1e-2), and the
+   perturbation sweep over the three grids of ``sweep_grids`` at 20 cells
+   each (B = 4) on the card against the same on the CPU (D6 text fields
+   exact, probabilities, weighted confidence and log-probs within 1e-4,
+   a grouped, a cascade and a speculative dispatch taken). Last, at
    llama-2-7b width, spec_k decode steps against one verify window fed
    the steps' tokens, on the flat and the trunk kernels: window position
    j's logits must be bitwise step j's (and the same on the 8-bit engine
@@ -87,8 +93,24 @@ Phases (each raises on failure, so the script exits non-zero):
    and fails if a kernel of its path never launched: ``row_add_norm`` in
    every decode phase of both engines, and in the 8-bit phases the
    prefill flash kernel's wgmma route.
+   The sweep phase, after each engine's phase 3: ``run_perturbation_sweep``
+   over three grids of 80 cells that ``sweep_grids`` builds from the five
+   legal prompts (grouped: rephrasings that keep a prompt's text; trunk:
+   every cell behind a 77-word preamble; flat: openings that differ),
+   each into its own CSV, at B = 32: the plan by kind with occupancy and
+   padding waste, the routing counters, the launches, rows/s and the
+   peak memory of each, failing unless the grid's route ran with its
+   kernels (a grouped dispatch on ``flash_decode``; a cascade dispatch on
+   its cascade kernels; a speculative one on ``flash_decode_mq``) and
+   unless the artifact holds one row a cell with its values in range; on
+   the bf16 engine the grouped grid profiled (three more runs through
+   ``profile_batch.profile``: launches, device-busy ms and share), and
+   once more on its results path, which must return no rows and launch
+   nothing.
 4. The ``{"kernels": [...]}`` summary, the card's name and power limit,
-   and the last line ``{"ok": true, "device": {...}}``.
+   and the last line ``{"ok": true, "device": {...}}``. Along the way,
+   ``{"phase": "elapsed", ...}`` lines give the seconds since the start
+   after each part.
 """
 
 from __future__ import annotations
@@ -98,7 +120,9 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -108,8 +132,8 @@ from lir_tpu_torch import ops
 from lir_tpu_torch.backends.fake import FakeTokenizer
 from lir_tpu_torch.config import CascadeConfig, RuntimeConfig
 from lir_tpu_torch.data import (LEGAL_PROMPTS, WORD_MEANING_QUESTIONS,
-                                format_base_prompt)
-from lir_tpu_torch.engine import generate, sweep, tokens as tok
+                                format_base_prompt, schemas)
+from lir_tpu_torch.engine import generate, grid, sweep, tokens as tok
 from lir_tpu_torch.engine.runner import SFX_BUCKETS, ScoringEngine
 from lir_tpu_torch.models import decoder, quant, registry
 from lir_tpu_torch.ops import _build
@@ -236,6 +260,74 @@ def plan_shared(engine: ScoringEngine, cells, rt: RuntimeConfig):
                                      rt.sweep_confidence_tokens, rt.spec_k)
     return dict(bucket=bucket, trunk=trunk, T0=T0, T_spec=T_spec, lcp=lcp,
                 prefix_rows=[a[:n] for a, n in zip(bins, lcp)])
+
+
+# A preamble of 77 words: the trunk grid's every cell opens with it, so
+# its dispatches share a 64-token trunk (one 64-key split of the trunk
+# decode kernel; a shorter trunk prefills through the cascade but
+# decodes on the flat kernel).
+SWEEP_PREAMBLE = (
+    "Read the contract clause below as a court would, giving each word its "
+    "ordinary meaning in the context of the whole agreement, weigh the text "
+    "against the evident purpose of the parties, and only then answer the "
+    "question that follows about how the clause applies. Assume that the "
+    "parties were represented by counsel, that the document is the final "
+    "expression of their bargain, and that no evidence outside it shows "
+    "what either party meant by its terms.")
+SWEEP_MODEL = "llama-2-7b (seeded random weights)"
+
+
+def sweep_grids(n: int) -> dict:
+    """The sweep phase's three grids over the five legal prompts, ``n``
+    rephrasings of each (5 * (n + 1) cells with the originals):
+
+    - grouped: every rephrasing keeps its prompt's text and varies a short
+      ending, so the scheduler groups a prompt's cells (one prefill);
+    - trunk: every cell opens with SWEEP_PREAMBLE, then varies its opening
+      (too short a share of each prompt to group), so shared dispatches
+      take the cascade and the trunk decode;
+    - flat: openings differ, so shared dispatches take the speculative
+      route."""
+    grouped, trunk, flat = [], [], []
+    for p in LEGAL_PROMPTS:
+        words = p.main.split()
+
+        def tail(r):
+            return " ".join(words[r % 7: r % 7 + 10 + r % 13])
+
+        grouped.append([f"{p.main} Variant {r}: "
+                        + " ".join(words[r % 5: r % 5 + 1 + r % 4])
+                        for r in range(n)])
+        trunk.append([f"{SWEEP_PREAMBLE} Variation {r}: {p.main} {tail(r)}"
+                      for r in range(n)])
+        flat.append([f"Variation {r}: {p.main} {tail(r)}" for r in range(n)])
+    trunk_prompts = [dataclasses.replace(p, main=f"{SWEEP_PREAMBLE} {p.main}")
+                     for p in LEGAL_PROMPTS]
+    return {"grouped": (LEGAL_PROMPTS, grouped),
+            "trunk": (trunk_prompts, trunk),
+            "flat": (LEGAL_PROMPTS, flat)}
+
+
+def plan_sweep(engine: ScoringEngine, prompts, perts, rt: RuntimeConfig):
+    """The ragged scheduler's plan of one grid (sweep._plan_ragged, as
+    run_perturbation_sweep plans it)."""
+    cells = grid.build_grid(SWEEP_MODEL, prompts, perts)
+    dispatches, stats = sweep._plan_ragged(engine, cells,
+                                           rt.sweep_decode_tokens,
+                                           rt.sweep_confidence_tokens)
+    return cells, dispatches, stats
+
+
+def grouped_shape(engine: ScoringEngine, grids: dict, rt: RuntimeConfig):
+    """(member rows, cache extent) of the grouped grid's first dispatch
+    with the most member rows: the shape its decode steps run at."""
+    _, dispatches, _ = plan_sweep(engine, *grids["grouped"], rt)
+    d = max((d for d in dispatches if d.kind == "grouped"),
+            key=lambda d: d.padded_rows(rt.batch_size)[1])
+    m_pad = d.padded_rows(rt.batch_size)[1]
+    T = d.bucket + max(d.sfx_bucket_a, d.sfx_bucket_b) + max(
+        rt.sweep_decode_tokens, rt.sweep_confidence_tokens)
+    return m_pad, T
 
 
 # ---------------------------------------------------------------------------
@@ -892,13 +984,10 @@ def full_accept_check(params, cfg):
     return int(sp_a.chunks), int(sp_b.chunks)
 
 
-def small_slice_check():
-    """The whole slice at a small float32 size: the engine on the card
-    (kernels) against the engine on the CPU (plain versions), same
-    params, through a cascade dispatch and a speculative one (token ids
-    exact, floats within 1e-4); on the card, the speculative dispatch
-    against the sequential one (ids exact, position-0 readouts bitwise)
-    and a speculative run given the sequential stream as its drafts."""
+def small_model():
+    """The small float32 model of the small checks, its weights scaled up
+    so that the logits spread: (cfg, params on the CPU, the same on the
+    card)."""
     cfg = registry.ModelConfig(name="smoke-tiny", vocab_size=1000,
                                hidden_size=128, n_layers=2, n_heads=4,
                                n_kv_heads=2, intermediate_size=256,
@@ -907,7 +996,16 @@ def small_slice_check():
     for name, w in params_cpu["layers"].items():
         if name.startswith("w"):
             w.mul_(4.0)
-    params_gpu = _to_device(params_cpu, DEV)
+    return cfg, params_cpu, _to_device(params_cpu, DEV)
+
+
+def small_slice_check(cfg, params_cpu, params_gpu):
+    """The whole slice at a small float32 size: the engine on the card
+    (kernels) against the engine on the CPU (plain versions), same
+    params, through a cascade dispatch and a speculative one (token ids
+    exact, floats within 1e-4); on the card, the speculative dispatch
+    against the sequential one (ids exact, position-0 readouts bitwise)
+    and a speculative run given the sequential stream as its drafts."""
     rt = RuntimeConfig(batch_size=4, max_new_tokens=6)
     rng = np.random.default_rng(0)
     head = [int(x) for x in rng.integers(3, 900, 80)]
@@ -1004,6 +1102,78 @@ def small_int8_check(cfg, params_cpu, trunk_rows, flat_rows):
                     raise AssertionError(f"8-bit small slice {route}: {name} "
                                          f"differs by {diff}")
     return worst, launches
+
+
+SWEEP_TEXT_FIELDS = ("rephrased_main", "full_rephrased_prompt",
+                     "full_confidence_prompt", "model_response",
+                     "model_confidence_response", "confidence_value")
+SMALL_SWEEP_TOL = 1e-4
+
+
+def small_sweep_check(cfg, params_cpu, params_gpu):
+    """The sweep at the small float32 size: the three grids of
+    sweep_grids(3) (20 cells each) through run_perturbation_sweep on the
+    card (kernels) and on the CPU (plain versions), same params, B = 4.
+    D6 text fields, Model Response, Model Confidence Response and
+    Confidence Value exact; Token_1/2_Prob, Weighted Confidence and the
+    log-prob values within 1e-4, the log-prob keys exact wherever the
+    neighbouring values are more than that apart. On the card the grids
+    must take their routes: a grouped dispatch, a cascade one, a
+    speculative one. Returns the largest float differences."""
+    grids = sweep_grids(3)
+    rt = RuntimeConfig(batch_size=4, max_new_tokens=12)
+    rows, routes = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for side, (params, dev) in enumerate(((params_gpu, DEV),
+                                              (params_cpu, "cpu"))):
+            eng = ScoringEngine(params, cfg, FakeTokenizer(), rt, device=dev)
+            for name, (prompts, perts) in grids.items():
+                rows[dev, name] = sweep.run_perturbation_sweep(
+                    eng, "smoke-tiny", prompts, perts,
+                    Path(tmp) / f"{side}_{name}.csv")
+                if name == "grouped":
+                    routes[dev] = {"grouped_cells":
+                                   eng.occupancy.grouped_cells}
+            eng.spec_flush()
+            routes[dev].update(
+                cascade_dispatches=eng.cascade_stats["cascade_dispatches"],
+                spec_dispatches=eng.spec_stats["spec_dispatches"])
+    if routes[DEV] != routes["cpu"] or not all(routes[DEV].values()):
+        raise AssertionError(f"small sweep routes: card {routes[DEV]}, "
+                             f"CPU {routes['cpu']}")
+    worst = {}
+    for name in grids:
+        card, cpu = rows[DEV, name], rows["cpu", name]
+        if len(card) != len(cpu):
+            raise AssertionError(f"small sweep {name}: row counts differ")
+        for a, b in zip(card, cpu):
+            for f in SWEEP_TEXT_FIELDS:
+                if getattr(a, f) != getattr(b, f):
+                    raise AssertionError(f"small sweep {name}: {f} differs "
+                                         f"card vs CPU")
+            la = json.loads(a.log_probabilities)
+            lb = json.loads(b.log_probabilities)
+            va, vb = np.asarray(list(la.values())), np.asarray(list(lb.values()))
+            diffs = {"token_probs": max(abs(a.token_1_prob - b.token_1_prob),
+                                        abs(a.token_2_prob - b.token_2_prob)),
+                     "weighted_confidence": abs(a.weighted_confidence
+                                                - b.weighted_confidence),
+                     "log_probs": float(np.abs(va - vb).max())}
+            for k, d in diffs.items():
+                worst[k] = max(worst.get(k, 0.0), d)
+                if not d <= SMALL_SWEEP_TOL:
+                    raise AssertionError(f"small sweep {name}: {k} differs "
+                                         f"by {d}")
+            gap = np.abs(np.diff(vb)) > SMALL_SWEEP_TOL
+            sep = np.ones(len(vb), bool)
+            sep[1:] &= gap
+            sep[:-1] &= gap
+            if np.asarray(list(la))[sep].tolist() != \
+                    np.asarray(list(lb))[sep].tolist():
+                raise AssertionError(f"small sweep {name}: top-20 ids differ")
+    log(json.dumps({"phase": "small_sweep", "ok": True, "routes": routes[DEV],
+                    "max_float_diff": worst}))
+    return worst
 
 
 def library_row_invariance(params, cfg, B: int, spec_k: int) -> dict:
@@ -1300,12 +1470,13 @@ def compare_two_leg(two_leg, fused):
     return compare_outs("two_leg_cascade_dispatch", two_leg, fused, "fused")
 
 
-def run_int8_slice(cfg, tokenizer, cells_trunk, cells_flat, rt):
+def run_int8_slice(cfg, tokenizer, cells_trunk, cells_flat, rt, grids):
     """The 8-bit engine at llama-2-7b width: dynamic int8 weights born on
     the card, flash prefill, the two-leg cascade with int8 QK^T. Its
     phases: the word-meaning sweep, the trunk dispatch and the no-trunk
-    dispatch, each with its own launch counts. Returns (per-phase stats,
-    param bytes, peak memory over these phases)."""
+    dispatch, each with its own launch counts, then the sweep phase over
+    ``grids``. Returns (per-phase stats, param bytes, peak memory over the
+    phases before the sweep, the sweep phase's stats)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1355,9 +1526,11 @@ def run_int8_slice(cfg, tokenizer, cells_trunk, cells_flat, rt):
     log(json.dumps({"phase": "int8_slice", "init_seconds": init_s,
                     "param_bytes": nbytes8,
                     "max_memory_allocated_bytes": peak}))
+    with tempfile.TemporaryDirectory() as tmp:
+        sweep8 = run_sweep_phase("int8", engine8, rt, grids, Path(tmp))
     del engine8, seq8, params8
     torch.cuda.empty_cache()
-    return stats, nbytes8, peak
+    return stats, nbytes8, peak, sweep8
 
 
 def run_slice(params, cfg, tokenizer, engine, cells_trunk, cells_flat, rt):
@@ -1431,6 +1604,144 @@ def profile_scoring(engine, rt, label="profile"):
                     **profile_batch.profile(call)}))
 
 
+# The kernels that show each grid's route ran, by engine: the grouped
+# dispatch's decode steps on the single-query kernel, the cascade
+# dispatch's prefill and trunk decode, the speculative verify windows.
+SWEEP_ROUTE_KERNELS = {
+    "bf16": {"grouped": ("flash_decode",),
+             "trunk": ("cascade_attention", "flash_decode_trunk"),
+             "flat": ("flash_decode_mq",)},
+    "int8": {"grouped": ("flash_decode",),
+             "trunk": ("quantize_rows", "cascade_prefix_int8",
+                       "cascade_suffix_merge", "flash_decode_trunk"),
+             "flat": ("flash_decode_mq",)},
+}
+
+
+def check_d6(label, path, n_cells):
+    """The artifact on disk: one row a cell, every Token_1/2_Prob in
+    [0, 1], every Weighted Confidence in [0, 100], every Log
+    Probabilities a map of 20 entries."""
+    recs = schemas.read_results(path)
+    if len(recs) != n_cells:
+        raise AssertionError(f"{label}: {len(recs)} rows for {n_cells} cells")
+    for r in recs:
+        for col, hi in (("Token_1_Prob", 1.0), ("Token_2_Prob", 1.0),
+                        ("Weighted Confidence", 100.0)):
+            v = float(r[col])
+            if not 0.0 <= v <= hi:
+                raise AssertionError(f"{label}: {col} {v} outside [0, {hi}]")
+        if len(json.loads(r["Log Probabilities"])) != 20:
+            raise AssertionError(f"{label}: a log-prob map without 20 entries")
+    return len(recs)
+
+
+def run_sweep(label, engine, prompts, perts, path, rt, grid_name, engine_kind,
+              trace=False):
+    """One perturbation sweep through run_perturbation_sweep into its own
+    CSV: the plan by kind, the routing counters, the launch counts (reset
+    just before, read just after), rows/s by the host clock around work
+    that ends in a synchronize, and the peak device memory. Fails unless
+    the grid's route ran (a grouped dispatch in the plan, a cascade
+    dispatch, a speculative one) with its kernels, and unless the rows on
+    disk are one a cell with their values in range. With ``trace``, the
+    sweep three times more into other CSVs through profile_batch.profile
+    (a warm-up, one on the host clock, one under ``torch.profiler``): its
+    launches, device-busy ms and busy share."""
+    cells, dispatches, _ = plan_sweep(engine, prompts, perts, rt)
+    plan = {k: sum(d.kind == k for d in dispatches)
+            for k in ("shared", "grouped")}
+    casc0, spec0 = dict(engine.cascade_stats), dict(engine.spec_stats)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    rows = sweep.run_perturbation_sweep(engine, SWEEP_MODEL, prompts, perts,
+                                        path)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    casc = {k: v - casc0.get(k, 0) for k, v in engine.cascade_stats.items()
+            if v != casc0.get(k, 0)}
+    spec = {k: v - spec0.get(k, 0) for k, v in engine.spec_stats.items()
+            if v != spec0.get(k, 0)}
+    occ = engine.occupancy
+    n_rows = check_d6(label, path, len(cells))
+    if len(rows) != len(cells):
+        raise AssertionError(f"{label}: {len(rows)} rows for {len(cells)} cells")
+    route_ok = {"grouped": plan["grouped"] > 0,
+                "trunk": casc.get("cascade_dispatches", 0) > 0,
+                "flat": spec.get("spec_dispatches", 0) > 0}[grid_name]
+    missing = [k for k in SWEEP_ROUTE_KERNELS[engine_kind][grid_name]
+               if launches[k] <= 0]
+    if not route_ok or missing:
+        raise AssertionError(f"{label}: route not taken (plan {plan}, "
+                             f"cascade {casc}, spec {spec}, never launched "
+                             f"{missing})")
+    stats = dict(cells=len(cells), rows=n_rows, seconds=dt,
+                 rows_per_s=n_rows / dt, plan=plan,
+                 occupancy_pct=occ.occupancy_pct,
+                 padding_waste_pct=occ.padding_waste_pct,
+                 grouped_cells=occ.grouped_cells,
+                 buckets=sorted({d.bucket for d in dispatches}),
+                 cascade_stats=casc, spec_stats=spec, launches=launches,
+                 max_memory_allocated_bytes=peak)
+    if trace:
+        runs = iter(range(3))
+
+        def again():
+            sweep.run_perturbation_sweep(
+                engine, SWEEP_MODEL, prompts, perts,
+                path.with_name(f"{path.stem}_traced{next(runs)}.csv"))
+            torch.cuda.synchronize()
+
+        prof = profile_batch.profile(again)
+        stats["profile"] = {k: prof[k] for k in
+                            ("wall_ms", "kernel_launches", "device_busy_ms",
+                             "device_busy_share", "top_kernels_ms")
+                            if k in prof}
+    log(json.dumps({"phase": label, **stats}))
+    return stats
+
+
+def run_sweep_phase(kind, engine, rt, grids, tmp: Path,
+                    trace_and_resume=False):
+    """The sweep phase on one engine: the three grids, each into its own
+    CSV under ``tmp``; with ``trace_and_resume`` (the bf16 engine), the
+    grouped grid profiled (tracing all three grids' 185,732 launches
+    added ~90 s to the script on an H100, so only the grid with the
+    fewest launches is traced), then once more on its results path,
+    which must return no rows, dispatch nothing and leave the artifact
+    as it was."""
+    stats = {}
+    for name, (prompts, perts) in grids.items():
+        stats[name] = run_sweep(f"{kind}_sweep_{name}", engine, prompts,
+                                perts, tmp / f"{kind}_{name}.csv", rt, name,
+                                kind,
+                                trace=trace_and_resume and name == "grouped")
+    if trace_and_resume:
+        path = tmp / f"{kind}_grouped.csv"
+        before = path.read_bytes()
+        casc0, spec0 = dict(engine.cascade_stats), dict(engine.spec_stats)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        rows = sweep.run_perturbation_sweep(engine, SWEEP_MODEL,
+                                            *grids["grouped"], path)
+        torch.cuda.synchronize()
+        launched = {k: n for k, n in ops.launch_counts().items() if n}
+        if (rows or launched or path.read_bytes() != before
+                or dict(engine.cascade_stats) != casc0
+                or dict(engine.spec_stats) != spec0
+                or engine.occupancy is not None):
+            raise AssertionError(f"{kind} resume: {len(rows)} rows, "
+                                 f"launches {launched}")
+        stats["resume"] = dict(rows=0, launched=launched,
+                               artifact_rows=len(schemas.read_results(path)))
+        log(json.dumps({"phase": f"{kind}_sweep_resume", **stats["resume"]}))
+    return stats
+
+
 def kernel_label(mangled: str) -> str:
     """A kernel's name and raw template arguments from its mangled name,
     e.g. ``prefix_wgmma_kernel<Li128>``."""
@@ -1495,6 +1806,14 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    def elapsed(after: str) -> None:
+        """Seconds since the start, after each part: where the script's
+        time goes as it grows."""
+        log(json.dumps({"phase": "elapsed", "after": after,
+                        "seconds": time.perf_counter() - t_start}))
+
     card = card_line()
     log("card:", card, "| torch", torch.__version__, "cuda", torch.version.cuda)
 
@@ -1521,6 +1840,7 @@ def main() -> int:
         f"flash_wgmma_kernel<Li{hd}ELi{wg}>" for hd in (64, 128) for wg in (1, 2)),
         op="HGMMA")
     tensor_core_counts("row_gemm", ("row_gemm_kernel",), op="HGMMA")
+    elapsed("build")
 
     # Phase 3's shapes, planned up front.
     cfg = registry.llama2_7b()
@@ -1542,9 +1862,12 @@ def main() -> int:
                  for q in WORD_MEANING_QUESTIONS)
     wm_T = tok.pick_bucket([wm_len], engine.buckets) + rt.max_new_tokens
     keys = ("bucket", "trunk", "T0", "T_spec")
+    grids = sweep_grids(15)
+    m_g, T_g = grouped_shape(engine, grids, rt)
     log(json.dumps({"phase": "plan", "cascade": {k: plan_t[k] for k in keys},
                     "dense": {k: plan_f[k] for k in keys},
-                    "spec_decode_trunk": dtrunk, "word_meaning_T": wm_T}))
+                    "spec_decode_trunk": dtrunk, "word_meaning_T": wm_T,
+                    "grouped_dispatch": {"member_rows": m_g, "T": T_g}}))
     if not plan_t["trunk"] or plan_f["trunk"] or dtrunk != plan_t["trunk"]:
         raise AssertionError(f"unexpected trunk plan {plan_t} / {plan_f}")
 
@@ -1563,6 +1886,8 @@ def main() -> int:
                  False, results)
     check_decode(gen, "llama2-7b/dense-dispatch", BATCH, H, K, hd,
                  plan_f["T0"], 0, False, results)
+    check_decode(gen, "llama2-7b/grouped-dispatch", m_g, H, K, hd, T_g, 0,
+                 False, results)
     check_decode(gen, "mistral-7b/gqa", BATCH, 32, 8, 128, T0, trunk, False,
                  results)
     check_decode(gen, "falcon-7b/mqa", BATCH, 71, 1, 64, T0, trunk, False,
@@ -1612,7 +1937,7 @@ def main() -> int:
     check_flash_attention(gen, "bloom-7b1/alibi", BATCH, Sf, 32, 32, 128, True,
                           results)
     D, F_ = cfg.hidden_size, cfg.intermediate_size
-    for M in (BATCH, BATCH * rt.spec_k):
+    for M in sorted({BATCH, m_g, BATCH * rt.spec_k}):
         for name, K_, N_ in (("wq", D, H * hd), ("wk", D, K * hd),
                              ("wv", D, K * hd), ("wo", H * hd, D),
                              ("w_up", D, F_), ("w_gate", D, F_),
@@ -1621,7 +1946,12 @@ def main() -> int:
         check_row_norm(gen, f"llama2-7b/M{M}", M, D, floor_ms, results)
         check_row_add_norm(gen, f"llama2-7b/M{M}", M, D, floor_ms, results)
     check_row_add_norm(gen, "falcon-7b/M32", BATCH, 4544, floor_ms, results)
-    small_slice_check()
+    elapsed("kernels_vs_plain")
+    small = small_model()
+    small_slice_check(*small)
+    elapsed("small_slice")
+    small_sweep_check(*small)
+    elapsed("small_sweep")
     verify_step_check(params, engine.cfg, rt.spec_k, "bf16",
                       measure_library=True)
 
@@ -1633,11 +1963,26 @@ def main() -> int:
     log(json.dumps({"phase": "slice", "launches": launches,
                     "max_memory_allocated_bytes": bf16_peak}))
     profile_scoring(engine, rt)
-    stats8, bytes8, peak8 = run_int8_slice(cfg, tokenizer, cells_trunk,
-                                           cells_flat, rt)
-    for st in stats8.values():
+    elapsed("bf16_slice")
+    # The sweep phase: the three grids through run_perturbation_sweep.
+    with tempfile.TemporaryDirectory() as tmp:
+        sweeps = {"bf16": run_sweep_phase("bf16", engine, rt, grids,
+                                          Path(tmp),
+                                          trace_and_resume=True)}
+    elapsed("bf16_sweep")
+    stats8, bytes8, peak8, sweeps["int8"] = run_int8_slice(
+        cfg, tokenizer, cells_trunk, cells_flat, rt, grids)
+    elapsed("int8_slice_and_sweep")
+    for st in list(stats8.values()) + [
+            st for kind in sweeps.values() for st in kind.values()]:
         for name, n in st.get("launches", {}).items():
             launches[name] += n
+    log(json.dumps({"phase": "sweep_summary", **{
+        f"{kind}/{name}": {k: st[k] for k in ("cells", "rows_per_s", "plan",
+                                              "occupancy_pct",
+                                              "max_memory_allocated_bytes")}
+        for kind, by_grid in sweeps.items()
+        for name, st in by_grid.items() if name != "resume"}}))
     log(json.dumps({
         "phase": "int8_vs_bf16",
         "param_bytes": {"bf16": quant.param_bytes(params),

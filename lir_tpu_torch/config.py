@@ -4,10 +4,11 @@ A copy of the part of the JAX package's ``RuntimeConfig``,
 ``SpecConfig`` and ``CascadeConfig`` that this port implements. A flag
 of the JAX engine that the port does not implement yet (fleet or
 radix-tree drafting, piggyback prefill, the prefix cache, the int8 KV
-cache) is absent here, so that no caller can set it and have it
-ignored. int8 weights are not a flag: they are a param tree of
-``models.quant.QuantTensor`` leaves (``quantize_decoder_params`` or
-``init_quantized_params``).
+cache, the streaming-statistics sink, the numerics guard and watchdog,
+leased shards, the XLA compile plan) is absent here, so that no caller
+can set it and have it ignored. int8 weights are not a flag: they are
+a param tree of ``models.quant.QuantTensor`` leaves
+(``quantize_decoder_params`` or ``init_quantized_params``).
 """
 
 from __future__ import annotations
@@ -33,10 +34,25 @@ class RuntimeConfig:
     # Stop the confidence decode once every row has emitted EOS or a
     # complete first integer (needs per-token strings and an EOS id).
     sweep_early_stop: bool = True
+    # True restores the reference's 50-token 'Model Response' / 'Model
+    # Confidence Response' text: both budgets become max_new_tokens and
+    # the early stop is off.
+    sweep_full_completions: bool = False
 
-    # Bucket prompts on the ~sqrt(2) ladder (tokens.bucket_ladder); off
-    # keeps the powers-of-two set.
+    # Ragged sweep scheduler (engine/scheduler.py). ON: grid cells are
+    # tokenized up front, sorted into a ~sqrt(2) prompt-length bucket
+    # ladder (tokens.bucket_ladder), drained per bucket with slot refill,
+    # and cells sharing a long token prefix score through one shared
+    # prefill (cross-cell prefix reuse). OFF restores the legacy
+    # todo-order batching on the powers-of-two buckets. Per-cell results
+    # are the same either way within float tolerance (padding is masked
+    # out of every readout).
     ragged_scheduler: bool = True
+    # Cross-cell prefix grouping engages for >= min_cells cells agreeing
+    # on >= min_prefix leading tokens AND on at least half their prefill
+    # (see scheduler.RaggedScheduler). 0 cells disables grouping.
+    sweep_group_min_prefix: int = 16
+    sweep_group_min_cells: int = 4
 
     # Speculative scoring decode (engine/spec.py + generate.
     # greedy_decode_fused_shared_spec). ON: shared-path dispatches that

@@ -71,12 +71,17 @@ def _position0(logits0: torch.Tensor, digit_ids: torch.Tensor,
     return tk.values, tk.indices.to(torch.int32), wconf
 
 
-def _stop_transition(emit, done, digit_run, prev_ew, stop_mask, eos_id: int):
+def _stop_transition(emit, done, digit_run, prev_ew, stop_mask, eos_id: int,
+                     stop_mask2=None, stop_sel=None):
     """One emission's stop-state transition: a row is DONE once it emits
     EOS, or once a standalone digit run is followed by a non-gluing
-    token. Shared by the sequential and the speculative loop, so their
-    done/digit-run evolution cannot drift."""
+    token. Rows where ``stop_sel`` is True read the emitted token's class
+    from ``stop_mask2`` instead of ``stop_mask``. Shared by the
+    sequential and the speculative loop, so their done/digit-run
+    evolution cannot drift."""
     cls = stop_mask[emit.long()]
+    if stop_mask2 is not None:
+        cls = torch.where(stop_sel, stop_mask2[emit.long()], cls)
     pure = (cls & _tok.STOP_PURE) != 0
     prefix = (cls & _tok.STOP_PREFIX) != 0
     glue = (cls & _tok.STOP_STARTS_WORD) != 0
@@ -97,9 +102,11 @@ def _fused_tail(params, cfg: ModelConfig, logits0: torch.Tensor, cache,
                 max_new_tokens: int, topk: int,
                 stop_mask: Optional[torch.Tensor] = None,
                 eos_id: Optional[int] = None,
-                decode_trunk: int = 0):
-    """The fused greedy loop shared by the full-prompt and shared-prefix
-    paths: start from ``logits0`` (the first generated position), write
+                decode_trunk: int = 0,
+                stop_mask2: Optional[torch.Tensor] = None,
+                stop_sel: Optional[torch.Tensor] = None):
+    """The fused greedy loop shared by the full-prompt, shared-prefix and
+    grouped paths: start from ``logits0`` (the first generated position), write
     generated k/v at cache slots ``slot0 + t``, capture the C13/D6
     readouts. Returns (FusedDecodeOut, final cache).
 
@@ -113,6 +120,11 @@ def _fused_tail(params, cfg: ModelConfig, logits0: torch.Tensor, cache,
     step, and once EVERY row is done the remaining steps skip the model
     forward. That all-done test reads the device once per step on the
     host (the JAX package keeps it on the device in a ``lax.cond``).
+
+    ``stop_mask2`` + ``stop_sel`` ((B,) bool) select a SECOND class table
+    per row (:func:`_stop_transition`): the grouped decode mixes both
+    sweep formats in one batch, its binary rows on the EOS-only table and
+    its confidence rows on the digit stop.
     """
     early_stop = stop_mask is not None and eos_id is not None
     tk_vals, tk_ids, wconf = _position0(logits0, digit_ids, digit_vals, topk)
@@ -131,7 +143,8 @@ def _fused_tail(params, cfg: ModelConfig, logits0: torch.Tensor, cache,
         if early_stop:
             emit = torch.where(done, torch.full_like(nxt, int(eos_id)), nxt)
             done, digit_run, prev_ew = _stop_transition(
-                emit, done, digit_run, prev_ew, stop_mask, eos_id)
+                emit, done, digit_run, prev_ew, stop_mask, eos_id,
+                stop_mask2, stop_sel)
             # Host check of the all-rows-done stop (one sync per step).
             if not bool(done.all()):
                 cache_mask[:, slot0 + t] = 1
@@ -180,6 +193,47 @@ def greedy_decode_fused(params, cfg: ModelConfig, tokens: torch.Tensor,
                          yes_ids, no_ids, digit_ids, digit_vals,
                          max_new_tokens, topk, stop_mask=stop_mask,
                          eos_id=eos_id)
+    return out
+
+
+@torch.inference_mode()
+def greedy_decode_fused_grouped(params, cfg: ModelConfig, prefix, prefix_mask,
+                                sfx, sfx_mask, group_idx, yes_ids, no_ids,
+                                digit_ids, digit_vals, max_new: int,
+                                topk: int = 20, stop_mask=None,
+                                stop_mask2=None, stop_sel=None,
+                                eos_id=None) -> FusedDecodeOut:
+    """M fused greedy decodes sharing G <= M prefix prefills (cross-cell
+    prefix reuse).
+
+    Generalizes :func:`greedy_decode_fused_shared` from "two formats of
+    one row share that row's prefill" to "any member rows whose prompts
+    share a token prefix share ONE prefill": the distinct prefixes
+    prefill once as a (G, S) RIGHT-padded batch (slot == position), the
+    cache is gathered out to the M member rows (``group_idx`` (M,) maps
+    each member to its prefix, decoder.gather_rows), the member suffixes
+    (M, S2) RIGHT-padded run one teacher-forced extension, then the
+    fused loop. ``stop_mask``/``stop_mask2``/``stop_sel`` give per-row
+    stop tables (see :func:`_fused_tail`). The pairwise special case (G
+    rows, 2 members each, ``group_idx = [0, 0, 1, 1, ...]``) scores as
+    greedy_decode_fused_shared does. Cold: the JAX package's returned
+    cache and donated scratch buffer have no counterpart here."""
+    G, S = prefix.shape
+    M, S2 = sfx.shape
+    T0 = S + S2 + max_new
+    _, gcache, _ = decoder.prefill(params, cfg, prefix, prefix_mask, T0)
+    cache = decoder.gather_rows(gcache, group_idx)
+    del gcache
+    pm = prefix_mask.index_select(0, group_idx.long())               # (M, S)
+    cm = torch.cat([pm, sfx_mask,
+                    torch.zeros((M, max_new), dtype=pm.dtype,
+                                device=pm.device)], dim=1)
+    logits_l, cache, pos = decoder.extend(params, cfg, cache, sfx, sfx_mask,
+                                          cm, S)
+    out, _ = _fused_tail(params, cfg, logits_l, cache, cm, pos, S + S2,
+                         yes_ids, no_ids, digit_ids, digit_vals, max_new,
+                         topk, stop_mask=stop_mask, eos_id=eos_id,
+                         stop_mask2=stop_mask2, stop_sel=stop_sel)
     return out
 
 

@@ -11,7 +11,10 @@ a trunk takes the cascade prefill and the trunk-aware decode kernel; any
 other shared dispatch of the ragged sweep takes the dense shared prefill
 and then the speculative verify loop (engine/spec.py, the multi-query
 decode kernels, trunk-aware where its rows share a trunk), or with
-``spec_decode`` off the sequential loop on the single-query kernels. The
+``spec_decode`` off the sequential loop on the single-query kernels. A
+grouped dispatch of the ragged sweep (``decode_fused_grouped``) prefills
+one row per prefix group, gathers it out to the member rows and runs the
+sequential loop on the single-query kernel. The
 kernels run on CUDA tensors and their plain PyTorch versions on CPU
 tensors, so the engine routes the same way on both; the JAX engine
 routes to its kernels only on a TPU (or under its interpreter hooks).
@@ -29,6 +32,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import logging
+import threading
 from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -105,6 +109,12 @@ class ScoringEngine:
         # seq_forwards (folded from the pending SpecOuts by spec_flush).
         self.spec_stats = collections.Counter()
         self._spec_pending: List[Tuple[Any, Any]] = []
+        # The perturbation sweep's writer thread decodes completion text
+        # while the main thread tokenizes: tokenizer calls take this lock.
+        self._tok_lock = threading.Lock()
+        # The last ragged sweep's scheduler counters
+        # (utils.profiling.OccupancyStats; None outside a ragged sweep).
+        self.occupancy = None
         self.yes_id, self.no_id = tok.yes_no_ids(tokenizer)
         self.eos_id = getattr(tokenizer, "eos_token_id", None)
         if self.rt.ragged_scheduler:
@@ -194,7 +204,9 @@ class ScoringEngine:
         if self._digit_stop_mask is False:
             mask = None
             if self.eos_id is not None:
-                m = tok.digit_stop_classes(self.tokenizer, self.cfg.vocab_size)
+                with self._tok_lock:
+                    m = tok.digit_stop_classes(self.tokenizer,
+                                               self.cfg.vocab_size)
                 if m is not None:
                     mask = torch.as_tensor(m, device=self.device)
             self._digit_stop_mask = mask
@@ -216,7 +228,8 @@ class ScoringEngine:
     def digit_table(self) -> Tuple[np.ndarray, np.ndarray]:
         """(token ids, values) of single-token integers 0..100."""
         if self._digit_table is None:
-            self._digit_table = tok.integer_token_table(self.tokenizer)
+            with self._tok_lock:
+                self._digit_table = tok.integer_token_table(self.tokenizer)
         return self._digit_table
 
     def _t(self, a, dtype=torch.int32) -> torch.Tensor:
@@ -277,8 +290,11 @@ class ScoringEngine:
             bin_ids = [list(i) for i in pretokenized_a]
             conf_ids = [list(i) for i in pretokenized_b]
         else:
-            bin_ids = [self.tokenizer(p).input_ids for p in binary_prompts]
-            conf_ids = [self.tokenizer(p).input_ids for p in confidence_prompts]
+            with self._tok_lock:
+                bin_ids = [self.tokenizer(p).input_ids
+                           for p in binary_prompts]
+                conf_ids = [self.tokenizer(p).input_ids
+                            for p in confidence_prompts]
         lcp = [tok.shared_prefix_len(a, b) for a, b in zip(bin_ids, conf_ids)]
         pad_id = tok.pad_token_id(self.tokenizer)
         sfx_a_ids = [a[n:] for a, n in zip(bin_ids, lcp)]
@@ -387,6 +403,70 @@ class ScoringEngine:
             *args, max_new_a=new_tokens, max_new_b=conf_tokens,
             trunk_len=trunk, int8_qk=bool(self.cascade_cfg.int8_qk), **stops)
 
+    def decode_fused_grouped(self, groups, yes_ids: np.ndarray,
+                             no_ids: np.ndarray, new_tokens: int,
+                             conf_tokens: int, early_stop: bool,
+                             bucket: int, sfx_bucket: int):
+        """Cross-cell prefix reuse: score every member prompt of
+        ``groups`` (scheduler.PrefixGroup: ``.items`` with
+        ``.bin_ids``/``.conf_ids``, shared ``.plen``) with ONE prefill per
+        group. Member rows are laid out [bin, conf] per cell, cells in
+        group order; ``yes_ids``/``no_ids`` are per CELL in that order.
+
+        Returns (FusedDecodeOut over the padded member batch, real member
+        row count): callers slice even rows for the binary readout and
+        odd rows for the confidence readout. Both formats run one shared
+        decode budget max(new_tokens, conf_tokens); with ``early_stop``
+        the binary rows take the EOS-only stop table and the confidence
+        rows the digit stop (per-row selection, generate._fused_tail).
+        The JAX engine's cold, unpaged branch: the port has no prefix
+        cache and no cache handoff."""
+        pad_id = tok.pad_token_id(self.tokenizer)
+        prefix_ids, sfx_ids, group_idx = [], [], []
+        for g in groups:
+            gi = len(prefix_ids)
+            prefix_ids.append(list(g.items[0].bin_ids[:g.plen]))
+            for it in g.items:
+                sfx_ids.append(list(it.bin_ids[g.plen:]))
+                sfx_ids.append(list(it.conf_ids[g.plen:]))
+                group_idx += [gi, gi]
+        m = len(sfx_ids)
+        g_pad = _tail_batch(len(prefix_ids), self.rt.batch_size)
+        m_pad = _tail_batch(m, 2 * self.rt.batch_size)
+        prefix_ids += [prefix_ids[-1]] * (g_pad - len(prefix_ids))
+        sfx_ids += [sfx_ids[-1]] * (m_pad - m)
+        group_idx += [group_idx[-1]] * (m_pad - m)
+        if max(len(p) for p in prefix_ids) > bucket:
+            raise ValueError("scheduler planned a group prefix longer than "
+                             "its bucket")  # planning bug, never truncate
+        if (getattr(self.cfg, "pos_embedding", None) == "learned"
+                and bucket + sfx_bucket + max(new_tokens, conf_tokens)
+                > self.cfg.max_seq_len):
+            raise ValueError("scheduler planned a grouped dispatch past the "
+                             "learned-position table")
+        # RIGHT-padded group prefixes: the slot == position layout of the
+        # shared paths.
+        prefix, prefix_mask = tok.right_pad_ids(prefix_ids, bucket, pad_id)
+        sfx, sfx_mask = tok.right_pad_ids(sfx_ids, sfx_bucket, pad_id)
+        yes2 = np.repeat(np.asarray(yes_ids, np.int32), 2)
+        no2 = np.repeat(np.asarray(no_ids, np.int32), 2)
+        yes2 = np.concatenate([yes2, np.repeat(yes2[-1:], m_pad - m)])
+        no2 = np.concatenate([no2, np.repeat(no2[-1:], m_pad - m)])
+        digit_ids, digit_vals = self.digit_table
+        stop_mask = self.digit_stop_mask if early_stop else None
+        out = generate.greedy_decode_fused_grouped(
+            self.params, self.cfg, self._t(prefix), self._t(prefix_mask),
+            self._t(sfx), self._t(sfx_mask), self._t(group_idx),
+            self._t(yes2), self._t(no2), self._t(digit_ids),
+            self._t(digit_vals, torch.float32),
+            max_new=max(new_tokens, conf_tokens),
+            stop_mask=None if stop_mask is None else self.eos_stop_mask,
+            stop_mask2=stop_mask,
+            stop_sel=(None if stop_mask is None
+                      else self._t(np.arange(m_pad) % 2 == 1, torch.bool)),
+            eos_id=None if stop_mask is None else int(self.eos_id))
+        return out, m
+
     # -- prompts -> rows ----------------------------------------------------
 
     def decode_completion(self, generated_ids) -> str:
@@ -394,7 +474,9 @@ class ScoringEngine:
         parity: tokens after EOS must not leak into the response text)."""
         trimmed = tok.trim_at_eos(np.asarray(generated_ids).tolist(),
                                   self.eos_id)
-        return self.tokenizer.decode(trimmed, skip_special_tokens=True).strip()
+        with self._tok_lock:
+            return self.tokenizer.decode(
+                trimmed, skip_special_tokens=True).strip()
 
     def _pad_batch(self, prompts: Sequence[str],
                    pretokenized: Optional[Sequence[Sequence[int]]] = None
@@ -403,7 +485,8 @@ class ScoringEngine:
         if pretokenized is not None:
             ids_list = list(pretokenized)
         else:
-            ids_list = [self.tokenizer(p).input_ids for p in prompts]
+            with self._tok_lock:
+                ids_list = [self.tokenizer(p).input_ids for p in prompts]
         bucket = tok.pick_bucket([len(i) for i in ids_list], self.buckets)
         toks_arr, mask = tok.left_pad_ids(ids_list, bucket,
                                           tok.pad_token_id(self.tokenizer))

@@ -1,17 +1,50 @@
-"""Sweep drivers: the word-meaning model comparison (D1/D2 rows).
+"""Sweep drivers: the word-meaning model comparison (D1/D2 rows) and the
+perturbation grid (D6 rows), with manifest resume and periodic
+checkpoints.
 
-Port of ``lir_tpu/engine/sweep.py:run_word_meaning_sweep`` (the reference's
-compare_base_vs_instruct.py:386-550 / compare_instruct_models.py:376-566:
-sequential per-prompt GPU loops, here one batched decode per bucket).
-The perturbation sweep's scheduler and D6 writer are later work.
+Port of ``lir_tpu/engine/sweep.py``, replacing the reference's two
+orchestration bodies: compare_base_vs_instruct.py:386-550 /
+compare_instruct_models.py:376-566 (sequential per-prompt GPU loops, here
+one batched decode per bucket) and perturb_prompts.py:551-726,917-1066
+(OpenAI Batch upload/poll/decode, here local batched scoring with the
+checkpoint-every-100-rows and done-set resume semantics kept,
+perturb_prompts.py:975-984,161-188).
+
+The perturbation sweep routes as the JAX sweep does with these of its
+engine features off, which the port does not have yet: the
+streaming-statistics sink, the numerics guard and the dispatch
+recovery/watchdog, piggyback chains, the prefix cache and its draft
+recording, multihost shards and leases, the reasoning (sampled) mode,
+and the XLA compile plan (which has no counterpart in eager PyTorch).
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Sequence
+import json
+import logging
+import queue
+import re
+import threading
+from pathlib import Path
+from typing import Callable, List, Optional, Sequence
+
+import numpy as np
+import torch
 
 from ..data import schemas
-from .runner import ScoringEngine
+from ..data.prompts import LegalPrompt
+from ..utils.manifest import SweepManifest
+from ..utils.profiling import OccupancyStats
+from . import generate
+from . import grid as grid_mod
+from . import scheduler as sched_mod
+from . import score as score_mod
+from . import tokens as tok
+from .runner import ScoringEngine, _tail_batch
+
+log = logging.getLogger(__name__)
+
+CHECKPOINT_EVERY = 100  # rows, perturb_prompts.py:975-984
 
 
 def run_word_meaning_sweep(
@@ -31,3 +64,335 @@ def run_word_meaning_sweep(
             model_output=r.completion, yes_prob=r.yes_prob, no_prob=r.no_prob,
             position_found=r.position_found, yes_no_found=r.yes_no_found))
     return rows
+
+
+def _parse_confidence(text: str, complete: bool = True) -> Optional[int]:
+    """First integer in the response (perturb_prompts.py:500-502).
+
+    ``complete=False`` marks a decode that hit its token budget without
+    emitting EOS: an integer whose digits touch the end of such text may be
+    cut mid-number ("...about 85" truncated to "...about 8"), so it is
+    rejected (None) rather than silently recorded wrong. An integer followed
+    by more text is always safe.
+
+    The prompt asks for a confidence in [0, 100]; an integer outside that
+    range (a year, a policy number) is model noise, not a confidence, and
+    is rejected (None), as is no integer at all.
+    """
+    m = re.search(r"\b(\d+)\b", text)
+    if m is None:
+        return None
+    if not complete and m.end() == len(text.rstrip()):
+        return None
+    try:
+        val = int(m.group(1))
+    except ValueError:
+        return None
+    if not 0 <= val <= 100:
+        return None
+    return val
+
+
+def _decode_complete(generated_row: np.ndarray, eos_id) -> bool:
+    """True when the fixed-length decode emitted EOS (the reply finished
+    inside the budget). Tokenizers without EOS can't signal completion;
+    treat their output as complete (legacy behavior)."""
+    if eos_id is None:
+        return True
+    return bool(np.any(np.asarray(generated_row) == eos_id))
+
+
+def _steps_used(gen_row: np.ndarray, eos_id) -> int:
+    """Decode steps a row actually used: up to and including its first
+    EOS (stopped rows emit EOS fill afterwards), else the full budget."""
+    hits = np.flatnonzero(np.asarray(gen_row) == eos_id)
+    return int(hits[0]) + 1 if hits.size else int(len(gen_row))
+
+
+def run_perturbation_sweep(
+    engine: ScoringEngine, model_name: str,
+    prompts: Sequence[LegalPrompt], perturbations: Sequence[Sequence[str]],
+    results_path: Path, manifest: Optional[SweepManifest] = None,
+    subset_size: Optional[int] = None, seed: int = 42,
+    checkpoint_every: int = CHECKPOINT_EVERY,
+) -> List[schemas.PerturbationRow]:
+    """Run (or resume) the perturbation grid for one model, writing D6 rows
+    to ``results_path`` (CSV: schemas.resolve_results_path) and returning
+    the rows scored by this call.
+
+    Readout parity with the API backend (perturb_prompts.py:474-526):
+    Token_1/2_Prob come from the FIRST generated position (the exact
+    softmax probability of each target's first token); 'Log
+    Probabilities' stores the top-20 (token_id -> logprob) map; the
+    confidence value is the first integer of the decoded confidence
+    response, and Weighted Confidence is E[v] over the integer tokens in
+    [0, 100] at the first confidence position."""
+    results_path = schemas.resolve_results_path(results_path)
+    # Crash-consistent resume: the done-set is the UNION of the manifest
+    # and the rows already in the results artifact. The flush order is
+    # results-append THEN manifest-mark, so a kill between the two leaves
+    # rows only the results file knows about. (An EMPTY explicit manifest
+    # is falsy: test None explicitly.)
+    if manifest is None:
+        manifest = SweepManifest.from_existing_results(
+            results_path.with_suffix(".manifest.jsonl"), results_path,
+            grid_mod.RESUME_KEY_FIELDS,
+            column_map=grid_mod.RESUME_COLUMN_MAP)
+    engine.occupancy = None  # set by _run_pipelined's ragged planner
+    cells = grid_mod.build_grid(model_name, prompts, perturbations)
+    cells = grid_mod.random_subset(cells, subset_size, seed)
+    todo = grid_mod.pending_cells(cells, manifest)
+    log.info("%s: %d/%d grid cells pending", model_name, len(todo), len(cells))
+
+    # Pre-resolve per-prompt target token ids once (SURVEY §7 hard part 1).
+    target_ids = {pi: tok.target_token_ids(engine.tokenizer, p.target_tokens)
+                  for pi, p in enumerate(prompts)}
+
+    rows: List[schemas.PerturbationRow] = []
+    pending_rows: List[schemas.PerturbationRow] = []
+    checkpoint_every = max(1, checkpoint_every)
+    # Only position 0 feeds the D6 readouts; decode just enough tokens for
+    # the confidence integer / leading response text unless full-completion
+    # parity is requested (config.RuntimeConfig.sweep_decode_tokens).
+    rt = engine.rt
+    new_tokens = (rt.max_new_tokens if rt.sweep_full_completions
+                  else min(rt.sweep_decode_tokens, rt.max_new_tokens))
+    conf_tokens = (rt.max_new_tokens if rt.sweep_full_completions
+                   else min(rt.sweep_confidence_tokens, rt.max_new_tokens))
+    _run_pipelined(engine, model_name, todo, target_ids, results_path,
+                   manifest, checkpoint_every, new_tokens, conf_tokens, rows,
+                   pending_rows)
+    engine.spec_flush()
+    if engine.spec_stats.get("spec_dispatches"):
+        log.info("speculative decode: %s", json.dumps(dict(engine.spec_stats)))
+    if pending_rows:
+        _flush(pending_rows, results_path, manifest)
+    return rows
+
+
+def _plan_ragged(engine, todo, new_tokens, conf_tokens):
+    """Tokenize the pending grid ONCE and plan every dispatch through the
+    ragged scheduler (bucket ladder + slot refill + prefix groups). The
+    occupancy counters hang off ``engine.occupancy``."""
+    with engine._tok_lock:
+        bin_ids = [engine.tokenizer(c.binary_prompt).input_ids for c in todo]
+        conf_ids = [engine.tokenizer(c.confidence_prompt).input_ids
+                    for c in todo]
+    items = sched_mod.build_items(bin_ids, conf_ids, todo)
+    stats = OccupancyStats()
+    max_extent = (engine.cfg.max_seq_len
+                  if getattr(engine.cfg, "pos_embedding", None) == "learned"
+                  else None)
+    planner = sched_mod.RaggedScheduler(
+        engine.buckets, engine.rt.batch_size,
+        new_budget=max(new_tokens, conf_tokens),
+        decode_cost=new_tokens + conf_tokens, max_extent=max_extent,
+        min_group_prefix=engine.rt.sweep_group_min_prefix,
+        min_group_cells=engine.rt.sweep_group_min_cells,
+        group_cells=engine.rt.sweep_group_min_cells > 0,
+        fused_decode=engine.rt.fused_decode,
+        stats=stats)
+    dispatches = planner.schedule(items)
+    engine.occupancy = stats
+    log.info(
+        "ragged schedule: %d cells -> %d dispatches over buckets %s "
+        "(occupancy %.1f%%, padding waste %.1f%%, refilled %d, "
+        "grouped %d)", len(todo), len(dispatches),
+        sorted({d.bucket for d in dispatches}), stats.occupancy_pct,
+        stats.padding_waste_pct,
+        sum(b.refilled for b in stats.buckets.values()),
+        stats.grouped_cells)
+    return dispatches, stats
+
+
+def _run_pipelined(engine, model_name, todo, target_ids, results_path,
+                   manifest, checkpoint_every, new_tokens, conf_tokens,
+                   rows, pending_rows) -> None:
+    """The sweep loop, pipelined over a writer thread.
+
+    - MAIN thread: plan (ragged) or batch in todo order (legacy), and
+      dispatch each batch's binary and confidence decodes; CUDA work is
+      queued on the stream, and the result tensors go to the writer.
+    - WRITER thread: copy a batch's outputs to the host (``.cpu()``
+      waits for the device), decode completion text, build D6 rows, and
+      run the checkpoint flushes.
+
+    The queue is bounded (depth 2), so at most ~3 batches of decode
+    outputs are alive on the device, each referenced until its copy is
+    drained. Row order is dispatch order. A writer failure stops the
+    producer at the next batch boundary and re-raises on the caller's
+    thread; rows scored but not yet flushed are NOT marked done, so a
+    resumed sweep re-scores at most ``checkpoint_every`` cells.
+    """
+    B = engine.rt.batch_size
+    work_q: "queue.Queue" = queue.Queue(maxsize=2)
+    failed = threading.Event()
+    writer_err: List[BaseException] = []
+    early_stop = (engine.rt.sweep_early_stop
+                  and not engine.rt.sweep_full_completions)
+    ragged = bool(engine.rt.ragged_scheduler and todo)
+    occupancy = None
+    stop_armed = False
+    if ragged:
+        dispatches, occupancy = _plan_ragged(engine, todo, new_tokens,
+                                             conf_tokens)
+        stop_armed = early_stop and engine.digit_stop_mask is not None
+
+    def _targets(cells):
+        t1 = np.asarray([target_ids[c.prompt_idx][0] for c in cells], np.int32)
+        t2 = np.asarray([target_ids[c.prompt_idx][1] for c in cells], np.int32)
+        return t1, t2
+
+    def _readout(fused, t1, t2):
+        return score_mod.readout_from_fused(
+            fused, engine._t(t1), engine._t(t2), scan_positions=1)
+
+    def _drain(batch, fused, res, cfused):
+        yes_p, no_p, lp_vals, lp_ids, gen_host, wconf, cgen_host = (
+            t.cpu().numpy() for t in (
+                res.yes_prob, res.no_prob, fused.topk_logprobs,
+                fused.topk_ids, fused.generated, cfused.weighted_confidence,
+                cfused.generated))
+        if occupancy is not None and stop_armed:
+            # Decode-step occupancy: rows retired by the early stop idle
+            # until the batch's slowest row (profiling.OccupancyStats).
+            for j in range(len(batch)):
+                occupancy.add_decode(_steps_used(gen_host[j], engine.eos_id),
+                                     int(gen_host.shape[1]))
+                occupancy.add_decode(_steps_used(cgen_host[j], engine.eos_id),
+                                     int(cgen_host.shape[1]))
+        for j, cell in enumerate(batch):
+            completion = engine.decode_completion(gen_host[j])
+            conf_text = engine.decode_completion(cgen_host[j])
+            # A short confidence decode that never reached EOS may have cut
+            # an integer mid-number; don't trust an end-of-text match then.
+            conf_complete = (engine.rt.sweep_full_completions
+                             or _decode_complete(cgen_host[j], engine.eos_id))
+            logprob_map = {int(i): round(float(v), 6)
+                           for i, v in zip(lp_ids[j], lp_vals[j])}
+            row = schemas.PerturbationRow(
+                model=model_name,
+                original_main=cell.original_main,
+                response_format=cell.response_format,
+                confidence_format=cell.confidence_format,
+                rephrased_main=cell.rephrased_main,
+                full_rephrased_prompt=cell.binary_prompt,
+                full_confidence_prompt=cell.confidence_prompt,
+                model_response=completion,
+                model_confidence_response=conf_text,
+                log_probabilities=json.dumps(logprob_map),
+                token_1_prob=float(yes_p[j]),
+                token_2_prob=float(no_p[j]),
+                confidence_value=_parse_confidence(conf_text, conf_complete),
+                weighted_confidence=float(wconf[j]),
+            )
+            rows.append(row)
+            pending_rows.append(row)
+        if len(pending_rows) >= checkpoint_every:
+            _flush(pending_rows, results_path, manifest)
+            del pending_rows[:]
+
+    def _writer():
+        while True:
+            item = work_q.get()
+            if item is None:
+                return
+            if failed.is_set():
+                continue        # drain remaining items to unblock the producer
+            try:
+                _drain(*item)
+            except BaseException as e:      # noqa: BLE001 — re-raised below
+                writer_err.append(e)
+                failed.set()
+
+    def _dispatch_legacy():
+        for start in range(0, len(todo), B):
+            if failed.is_set():
+                return
+            batch = todo[start:start + B]
+            n = len(batch)
+            # Tail batch: pad to the next power of two, not the full B.
+            bsz = B if n == B else _tail_batch(n, B)
+            full = list(batch) + [batch[-1]] * (bsz - n)
+            # Both formats in ONE call: the binary and confidence prompts
+            # share the rephrased legal text, prefilled once.
+            t1, t2 = _targets(full)
+            fused, cfused = engine.decode_fused_shared(
+                [c.binary_prompt for c in full],
+                [c.confidence_prompt for c in full],
+                t1, t2, new_tokens=new_tokens, conf_tokens=conf_tokens,
+                early_stop=early_stop)
+            work_q.put((batch, fused, _readout(fused, t1, t2), cfused))
+
+    def _dispatch_ragged():
+        for d in dispatches:
+            if failed.is_set():
+                return
+            batch = d.cells
+            n = len(d.items)
+            if d.kind == "shared":
+                bsz = B if n == B else _tail_batch(n, B)
+                full_items = list(d.items) + [d.items[-1]] * (bsz - n)
+                t1, t2 = _targets([it.cell for it in full_items])
+                fused, cfused = engine.decode_fused_shared(
+                    [it.cell.binary_prompt for it in full_items],
+                    [it.cell.confidence_prompt for it in full_items],
+                    t1, t2, new_tokens=new_tokens, conf_tokens=conf_tokens,
+                    early_stop=early_stop,
+                    pretokenized_a=[it.bin_ids for it in full_items],
+                    pretokenized_b=[it.conf_ids for it in full_items],
+                    bucket=d.bucket,
+                    sfx_buckets_ab=(d.sfx_bucket_a, d.sfx_bucket_b),
+                    reuse_cache=True, n_real=n)
+            else:
+                t1, t2 = _targets(batch)
+                out, m = engine.decode_fused_grouped(
+                    d.groups, t1, t2, new_tokens, conf_tokens, early_stop,
+                    d.bucket, max(d.sfx_bucket_a, d.sfx_bucket_b))
+
+                # Member rows are [bin, conf] per cell: even rows carry
+                # the binary readout, odd rows the confidence one. Both
+                # ran the shared max(new, conf) budget, so each branch
+                # view trims its per-step fields back to ITS budget —
+                # greedy decoding is prefix-stable, so the trimmed tokens
+                # equal what a budget-exact decode would have produced.
+                def _branch(start, budget):
+                    idx = slice(start, m, 2)
+                    return generate.FusedDecodeOut(
+                        generated=out.generated[idx, :budget],
+                        p_yes=out.p_yes[idx, :budget],
+                        p_no=out.p_no[idx, :budget],
+                        top2_ids=out.top2_ids[idx, :budget],
+                        topk_logprobs=out.topk_logprobs[idx],
+                        topk_ids=out.topk_ids[idx],
+                        weighted_confidence=out.weighted_confidence[idx])
+
+                fused = _branch(0, new_tokens)
+                cfused = _branch(1, conf_tokens)
+            work_q.put((batch, fused, _readout(fused, t1, t2), cfused))
+
+    wt = threading.Thread(target=_writer, name="sweep-writer", daemon=True)
+    wt.start()
+    try:
+        with torch.inference_mode():
+            if ragged:
+                _dispatch_ragged()
+            else:
+                _dispatch_legacy()
+    finally:
+        work_q.put(None)
+        wt.join()
+    if writer_err:
+        raise writer_err[0]
+
+
+def _flush(rows: List[schemas.PerturbationRow], results_path: Path,
+           manifest: SweepManifest) -> None:
+    """Append rows then mark them done (write-ahead order: a crash
+    between the two re-scores at most one checkpoint, never loses
+    rows)."""
+    schemas.write_perturbation_results(rows, results_path, append=True)
+    manifest.mark_done_many([
+        {"model": r.model, "original_main": r.original_main,
+         "rephrased_main": r.rephrased_main} for r in rows])
+    log.info("checkpoint: +%d rows -> %s", len(rows), results_path)

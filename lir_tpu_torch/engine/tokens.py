@@ -40,6 +40,22 @@ def yes_no_ids(tokenizer, *, encoder_decoder: bool = False,
         return first_token_id(tokenizer, yes_text), first_token_id(tokenizer, no_text)
 
 
+def target_token_ids(tokenizer, targets: Sequence[str],
+                     *, encoder_decoder: bool = False) -> List[int]:
+    """First-token ids for arbitrary target strings (legal prompts use e.g.
+    'Covered'/'Not' — perturb_prompts.py target_tokens)."""
+    out = []
+    for t in targets:
+        if encoder_decoder:
+            out.append(first_token_id(tokenizer, t))
+        else:
+            try:
+                out.append(first_token_id(tokenizer, " " + t))
+            except ValueError:
+                out.append(first_token_id(tokenizer, t))
+    return out
+
+
 def integer_token_table(tokenizer, lo: int = 0, hi: int = 100
                         ) -> Tuple[np.ndarray, np.ndarray]:
     """(token_ids, values) for every single-token rendering of an integer in
@@ -321,3 +337,13 @@ def bucket_ladder(max_len: int, min_bucket: int = 64,
         x *= 2 ** 0.5
     edges.append(max_len)
     return tuple(edges)
+
+
+def assign_bucket(length: int, buckets: Sequence[int]) -> int:
+    """Smallest bucket edge >= ``length``; over-long prompts land in the
+    largest bucket (left-truncation semantics, same as pick_bucket). Total
+    and deterministic: every length maps to exactly one edge."""
+    for b in sorted(buckets):
+        if b >= length:
+            return b
+    return max(buckets)

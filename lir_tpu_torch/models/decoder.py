@@ -574,6 +574,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             torch.zeros(shape, dtype=dtype, device=dev))
 
 
+def gather_rows(cache, row_idx: torch.Tensor):
+    """Broadcast/reorder KV-cache rows along the batch axis (axis 3 of
+    the (L, K, T, B, hd) pair): the cross-cell prefix-reuse primitive.
+    The grouped decode prefills one row per distinct prefix (G rows) and
+    gathers it out to one row per member prompt (M rows, ``row_idx`` maps
+    member -> group) before the members' suffix extension. A copy, as the
+    JAX package's ``models/cache.gather_rows``."""
+    idx = row_idx.long()
+    return tuple(c.index_select(3, idx) for c in cache)
+
+
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             attn_mask: torch.Tensor, max_len: int):
     """Run the prompt, fill the KV cache, return last-position logits.

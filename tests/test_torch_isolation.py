@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and
-its entry points never fall back to the CPU on their own."""
+"""The port stands alone: it imports neither JAX nor the JAX package (nor
+pandas or openpyxl, which the card's machine lacks), and its entry
+points never fall back to the CPU on their own."""
 
 import subprocess
 import sys
@@ -17,12 +18,15 @@ import lir_tpu_torch.config, lir_tpu_torch.data, lir_tpu_torch.ops
 import lir_tpu_torch.backends.fake, lir_tpu_torch.models.convert
 import lir_tpu_torch.engine.runner, lir_tpu_torch.engine.sweep
 import lir_tpu_torch.engine.spec
+import lir_tpu_torch.engine.scheduler, lir_tpu_torch.engine.grid
+import lir_tpu_torch.utils.manifest, lir_tpu_torch.utils.profiling
 import lir_tpu_torch.models.quant, lir_tpu_torch.ops.flash_attention
 import lir_tpu_torch.ops.cascade_prefill
 import chip_smoke, kernel_ab, kernel_variants, profile_batch
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
-             or m == "lir_tpu" or m.startswith("lir_tpu."))
+             or m == "lir_tpu" or m.startswith("lir_tpu.")
+             or m.split(".")[0] in ("pandas", "openpyxl"))
 print("BAD", bad)
 """
 
