@@ -107,6 +107,27 @@ Phases (each raises on failure, so the script exits non-zero):
    ``profile_batch.profile``: launches, device-busy ms and share), and
    once more on its results path, which must return no rows and launch
    nothing.
+   The loader phase, after the bf16 sweep phase, while phase 3's
+   llama-2-7b params are resident: they are written as an HF checkpoint
+   in fp16 (two safetensors shards by this script's own writer, an
+   index, llama-2-7b's ``config.json``) under a temporary directory
+   (16 GB free required), loaded through ``models.factory.engine_factory``
+   (the FakeTokenizer passed as ``tokenizer=``: no transformers on the
+   card's machine), the config checked field by field against
+   ``registry.llama2_7b()`` and every loaded leaf bitwise
+   ``params[leaf].half().bfloat16()`` (write and load seconds and GB/s,
+   host peak RSS, device peak memory), then
+   ``run_model_comparison_sweep`` over Llama-2-7b-hf (base), a
+   Llama-2-7b-chat-hf symlink to it (instruct) and a model with no
+   checkpoint: two ``ok`` models of 50 rows, one ``error:model`` of 50
+   NaN rows, D1 150 rows and D2 100 on disk, ``flash_decode``,
+   ``row_gemm``, ``row_norm`` and ``row_add_norm`` launched, and the
+   device memory allocated after the call within 64 MB of before (each
+   model released). Once more on the base model loaded with
+   ``quantize_int8=True, int8_dynamic=True``: every int8 leaf bitwise
+   ``quantize_decoder_params``' quantization of the fp16 checkpoint's
+   bf16 tree, status ``ok``, 50 rows, rows/s and peak memory beside the
+   bf16 run's.
 4. The ``{"kernels": [...]}`` summary, the card's name and power limit,
    and the last line ``{"ok": true, "device": {...}}``. Along the way,
    ``{"phase": "elapsed", ...}`` lines give the seconds since the start
@@ -116,11 +137,17 @@ Phases (each raises on failure, so the script exits non-zero):
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
+import math
 import re
+import resource
+import shutil
+import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -134,8 +161,10 @@ from lir_tpu_torch.config import CascadeConfig, RuntimeConfig
 from lir_tpu_torch.data import (LEGAL_PROMPTS, WORD_MEANING_QUESTIONS,
                                 format_base_prompt, schemas)
 from lir_tpu_torch.engine import generate, grid, sweep, tokens as tok
+from lir_tpu_torch.engine.multi import ModelSpec, run_model_comparison_sweep
 from lir_tpu_torch.engine.runner import SFX_BUCKETS, ScoringEngine
-from lir_tpu_torch.models import decoder, quant, registry
+from lir_tpu_torch.models import decoder, loader, quant, registry
+from lir_tpu_torch.models.factory import engine_factory
 from lir_tpu_torch.ops import _build
 from lir_tpu_torch.ops.flash_decode import (decode_legs,
                                             flash_decode_mq_plain,
@@ -1742,6 +1771,352 @@ def run_sweep_phase(kind, engine, rt, grids, tmp: Path,
     return stats
 
 
+# ---------------------------------------------------------------------------
+# The loader phase: a full-width HF checkpoint written here, loaded by the
+# port, and swept by run_model_comparison_sweep.
+# ---------------------------------------------------------------------------
+
+LOADER_BASE = "meta-llama/Llama-2-7b-hf"
+LOADER_CHAT = "meta-llama/Llama-2-7b-chat-hf"
+LOADER_ABSENT = "absent/model"
+LOADER_MIN_FREE_BYTES = 16e9
+# Device memory a released model may leave behind (allocator slack).
+LOADER_RELEASE_SLACK = 64 * 2**20
+# The loader phase's checkpoint: fp16 (the dtype meta-llama publishes
+# Llama-2-7b-hf in), in two shards.
+LOADER_SHARDS = 2
+
+
+def leaves(tree, prefix=""):
+    """(path, tensor) of every leaf of a param tree, in order."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from leaves(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def hf_llama_tensors(params, cfg) -> dict:
+    """A llama param tree in HF ``LlamaForCausalLM`` layout (name ->
+    view of the port's tensor; projections transposed back to torch's
+    (out, in)), in the order HF names them."""
+    lay = params["layers"]
+    out = {"model.embed_tokens.weight": params["tok_embed"]}
+    hf = (("self_attn.q_proj", "wq"), ("self_attn.k_proj", "wk"),
+          ("self_attn.v_proj", "wv"), ("self_attn.o_proj", "wo"),
+          ("mlp.gate_proj", "w_gate"), ("mlp.up_proj", "w_up"),
+          ("mlp.down_proj", "w_down"))
+    for i in range(cfg.n_layers):
+        p = f"model.layers.{i}."
+        out[p + "input_layernorm.weight"] = lay["ln1"]["scale"][i]
+        for name, key in hf:
+            out[p + name + ".weight"] = lay[key][i].T
+        out[p + "post_attention_layernorm.weight"] = lay["ln2"]["scale"][i]
+    out["model.norm.weight"] = params["final_ln"]["scale"]
+    out["lm_head.weight"] = params["lm_head"].T
+    return out
+
+
+def write_safetensors(path: Path, tensors: dict) -> None:
+    """Write ``tensors`` (any device) to one safetensors file in fp16:
+    the 8-byte little-endian header length, the JSON header (padded with
+    spaces to 8 bytes), then each tensor's bytes. One tensor at a time
+    is copied to the host."""
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    for name, t in tensors.items():
+        n = 2 * t.numel()
+        header[name] = {"dtype": "F16", "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for t in tensors.values():
+            host = t.to(torch.float16).contiguous().cpu().reshape(-1)
+            f.write(memoryview(host.view(torch.uint8).numpy()))
+
+
+def hf_llama_config(cfg) -> dict:
+    """config.json of a llama ModelConfig in fp16, as ``LlamaConfig``
+    writes it."""
+    return {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+            "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+            "intermediate_size": cfg.intermediate_size,
+            "num_hidden_layers": cfg.n_layers,
+            "num_attention_heads": cfg.n_heads,
+            "num_key_value_heads": cfg.n_kv_heads,
+            "max_position_embeddings": cfg.max_seq_len,
+            "rms_norm_eps": cfg.norm_eps, "rope_theta": cfg.rope_theta,
+            "hidden_act": "silu", "tie_word_embeddings": cfg.tie_embeddings,
+            "bos_token_id": 1, "eos_token_id": 2, "torch_dtype": "float16"}
+
+
+def export_hf_llama(params, cfg, out_dir: Path):
+    """Write a llama param tree as an fp16 HF checkpoint:
+    ``LOADER_SHARDS`` safetensors files split by bytes,
+    ``model.safetensors.index.json`` and ``config.json``. Returns the
+    shard paths."""
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tensors = hf_llama_tensors(params, cfg)
+    total = sum(t.numel() for t in tensors.values())
+    n = LOADER_SHARDS
+    groups, acc = [[] for _ in range(n)], 0
+    for name, t in tensors.items():
+        groups[min(n - 1, acc * n // total)].append(name)
+        acc += t.numel()
+    files, weight_map = [], {}
+    for j, names in enumerate(groups):
+        path = out_dir / f"model-{j + 1:05d}-of-{n:05d}.safetensors"
+        write_safetensors(path, {k: tensors[k] for k in names})
+        weight_map.update(dict.fromkeys(names, path.name))
+        files.append(path)
+    (out_dir / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": 2 * total}, "weight_map": weight_map},
+        indent=2))
+    (out_dir / "config.json").write_text(json.dumps(hf_llama_config(cfg),
+                                                    indent=2))
+    return files
+
+
+class RssSampler:
+    """The process's resident set (``VmRSS``) sampled every ``period``
+    seconds on a thread while a ``with`` block runs: ``peak_bytes`` is
+    the largest sample, ``before_bytes`` the first. ``ru_maxrss_bytes``
+    beside them is ``resource.getrusage``'s peak since the start."""
+
+    def __init__(self, period: float = 0.005):
+        self.period = period
+        self.samples = []
+        self._stop = threading.Event()
+
+    @staticmethod
+    def rss_bytes() -> int:
+        for line in Path("/proc/self/status").read_text().splitlines():
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+        raise RuntimeError("no VmRSS in /proc/self/status")
+
+    def _run(self):
+        while not self._stop.is_set():
+            self.samples.append(self.rss_bytes())
+            self._stop.wait(self.period)
+
+    def __enter__(self):
+        self.samples.append(self.rss_bytes())
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.samples.append(self.rss_bytes())
+
+    def summary(self) -> dict:
+        return {"before_bytes": self.samples[0],
+                "peak_bytes": max(self.samples),
+                "after_bytes": self.samples[-1],
+                "samples": len(self.samples),
+                "ru_maxrss_bytes": resource.getrusage(
+                    resource.RUSAGE_SELF).ru_maxrss * 1024}
+
+
+def check_loaded_tree(loaded, params, cfg_path: Path, ref_cfg):
+    """The loaded bf16 tree, leaf by leaf, bitwise the written fp16
+    checkpoint widened back to bfloat16; its config, field by field,
+    ``ref_cfg``'s but the name."""
+    cfg, family = loader.config_from_hf(json.loads(cfg_path.read_text()))
+    if family != "llama" or dataclasses.replace(cfg, name=ref_cfg.name) != ref_cfg:
+        raise AssertionError(f"loader: config_from_hf gave {cfg}, not {ref_cfg}")
+    want = dict(leaves(params))
+    got = list(leaves(loaded))
+    if sorted(p for p, _ in got) != sorted(want):
+        raise AssertionError(f"loader: leaves {[p for p, _ in got]}")
+    for path, leaf in got:
+        if leaf.dtype != torch.bfloat16 or not torch.equal(
+                leaf, want[path].half().bfloat16()):
+            raise AssertionError(f"loader: {path} is not params.half().bfloat16()")
+
+
+def check_int8_tree(loaded, params):
+    """Each int8 leaf bitwise ``quantize_decoder_params``' quantization of
+    the checkpoint's bf16 leaf (the stacked leaf at once, as the engine
+    quantizes it); every other leaf bitwise the bf16 tree's."""
+    want = dict(leaves(params))
+    for path, leaf in leaves(loaded):
+        ref = want[path].half().bfloat16()
+        if isinstance(leaf, quant.QuantTensor):
+            q = quant.quantize(ref)
+            ok = (torch.equal(leaf.q, q.q) and torch.equal(leaf.scale, q.scale)
+                  and leaf.dynamic == (path != "lm_head"))
+            del q
+        else:
+            ok = torch.equal(leaf, ref)
+        if not ok:
+            raise AssertionError(f"loader int8: {path} differs")
+
+
+def run_comparison(label, factory, specs, out_dir: Path, questions,
+                   kernels):
+    """run_model_comparison_sweep with launch counts reset just before and
+    read just after, and the device memory allocated before and after
+    (the models must have been released). Returns (artifacts, stats)."""
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    art = run_model_comparison_sweep(specs, factory, out_dir,
+                                     questions=questions)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    mem1 = torch.cuda.memory_allocated()
+    missing = [k for k in kernels if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"{label}: kernels never launched: {missing}")
+    if abs(mem1 - mem0) > LOADER_RELEASE_SLACK:
+        raise AssertionError(f"{label}: {mem1 - mem0} bytes still allocated "
+                             f"after the sweep (models not released)")
+    stats = dict(seconds=dt, throughput=art["throughput"],
+                 per_model=art["per_model"], launches=launches,
+                 memory_allocated_before=mem0, memory_allocated_after=mem1,
+                 max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+    log(json.dumps({"phase": label, **stats}))
+    return art, stats
+
+
+def _check_model_rows(label, art, specs, questions, n_d1, n_d2):
+    """ok models: their rows; a model with no checkpoint: error:model and
+    NaN rows; D1 and D2 of the expected sizes, in memory and on disk."""
+    n = len(questions)
+    for spec in specs:
+        st = art["per_model"][spec.name]
+        rows = [r for r in art["model_comparison_csv"]
+                if r["model"] == spec.name]
+        nan = [r for r in rows if math.isnan(r["yes_prob"])]
+        if spec.name == LOADER_ABSENT:
+            ok = (str(st["status"]).startswith("error:model")
+                  and "no local checkpoint" in str(st["status"])
+                  and len(rows) == n and len(nan) == n)
+        else:
+            ok = st["status"] == "ok" and st["rows"] == n and not nan
+            if ok:
+                check_scores(f"{label}/{spec.name}", {
+                    "p_yes": [r["yes_prob"] for r in rows],
+                    "p_no": [r["no_prob"] for r in rows]})
+        if not ok:
+            raise AssertionError(f"{label}: {spec.name} {st}")
+    d2 = art.get("instruct_comparison_csv", [])
+    if len(art["model_comparison_csv"]) != n_d1 or len(d2) != n_d2:
+        raise AssertionError(f"{label}: D1 {len(art['model_comparison_csv'])} "
+                             f"rows, D2 {len(d2)}")
+
+
+def run_loader_phase(params, cfg, questions=WORD_MEANING_QUESTIONS):
+    """The loader phase (see the module docstring): ``params`` (a llama
+    tree of ``cfg``) written as a two-shard fp16 HF checkpoint under a
+    temporary directory, loaded through ``models.factory.engine_factory``
+    (bf16, then 8-bit dynamic) and swept over ``questions`` by
+    ``run_model_comparison_sweep``. Returns its stats, launches summed
+    over both sweeps."""
+    tmp_root = Path(tempfile.gettempdir())
+    free = shutil.disk_usage(tmp_root).free
+    if free < LOADER_MIN_FREE_BYTES:
+        raise AssertionError(
+            f"loader phase: {free} bytes free under {tmp_root}; the fp16 "
+            f"checkpoint needs at least {LOADER_MIN_FREE_BYTES:.0f}")
+    tokenizer = FakeTokenizer(vocab=cfg.vocab_size)
+    log("loader: tokenizer=FakeTokenizer passed to engine_factory explicitly "
+        "(no transformers needed)")
+    stats = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        ckpt = root / LOADER_BASE.replace("/", "__")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        files = export_hf_llama(params, cfg, ckpt)
+        write_s = time.perf_counter() - t0
+        nbytes_ckpt = sum(f.stat().st_size for f in files)
+        (root / LOADER_CHAT.replace("/", "__")).symlink_to(
+            ckpt, target_is_directory=True)
+        stats["write"] = dict(seconds=write_s, bytes=nbytes_ckpt,
+                              gb_per_s=nbytes_ckpt / write_s / 1e9,
+                              shards=[f.name for f in files])
+
+        rt = RuntimeConfig(batch_size=BATCH)
+        factory = engine_factory(root, rt, tokenizer=tokenizer, device=DEV)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        with RssSampler() as rss:
+            t0 = time.perf_counter()
+            engine = factory(LOADER_BASE)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+        stats["load"] = dict(
+            seconds=load_s, gb_per_s=nbytes_ckpt / load_s / 1e9,
+            host_rss=rss.summary(),
+            device_bytes_added=torch.cuda.memory_allocated() - mem0,
+            max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+        check_loaded_tree(engine.params, params, ckpt / "config.json", cfg)
+        log(json.dumps({"phase": "loader_write_and_load", **stats}))
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        specs = [ModelSpec(LOADER_BASE, "base"),
+                 ModelSpec(LOADER_CHAT, "instruct"),
+                 ModelSpec(LOADER_ABSENT, "instruct")]
+        art, stats["bf16_sweep"] = run_comparison(
+            "loader_bf16_comparison", factory, specs, root / "bf16", questions,
+            ("flash_decode", "row_gemm", "row_norm", "row_add_norm"))
+        n = len(questions)
+        _check_model_rows("loader_bf16_comparison", art, specs, questions,
+                          3 * n, 2 * n)
+        d1 = schemas.read_results(root / "bf16" / "model_comparison_results.csv")
+        d2 = schemas.read_results(
+            root / "bf16" / "instruct_model_comparison_results.csv")
+        if len(d1) != 3 * n or len(d2) != 2 * n:
+            raise AssertionError(f"loader: D1/D2 on disk {len(d1)} / {len(d2)}")
+
+        factory8 = engine_factory(root, rt, quantize_int8=True,
+                                  int8_dynamic=True, tokenizer=tokenizer,
+                                  device=DEV)
+
+        def checked_factory8(name):
+            eng = factory8(name)
+            t0 = time.perf_counter()
+            check_int8_tree(eng.params, params)
+            stats["int8_check_seconds"] = time.perf_counter() - t0
+            return eng
+
+        art8, stats["int8_sweep"] = run_comparison(
+            "loader_int8_comparison", checked_factory8, specs[:1],
+            root / "int8", questions,
+            ("flash_decode", "row_norm", "row_add_norm"))
+        _check_model_rows("loader_int8_comparison", art8, specs[:1], questions,
+                          n, 0)
+    stats["launches"] = {k: stats["bf16_sweep"]["launches"][k]
+                         + stats["int8_sweep"]["launches"][k]
+                         for k in ops.KERNELS}
+    # D1 rows/s of the scoring alone (the sweep's ThroughputMeter: its
+    # rows over the seconds inside run_word_meaning_sweep, loads apart).
+    rows_per_s = {kind: stats[f"{kind}_sweep"]["throughput"]["prompts"]
+                  / stats[f"{kind}_sweep"]["throughput"]["elapsed_s"]
+                  for kind in ("bf16", "int8")}
+    log(json.dumps({"phase": "loader_summary", "rows_per_s": rows_per_s,
+                    "max_memory_allocated_bytes": {
+                        kind: stats[f"{kind}_sweep"]["max_memory_allocated_bytes"]
+                        for kind in ("bf16", "int8")},
+                    "int8_check_seconds": stats["int8_check_seconds"]}))
+    stats["rows_per_s"] = rows_per_s
+    return stats
+
+
 def kernel_label(mangled: str) -> str:
     """A kernel's name and raw template arguments from its mangled name,
     e.g. ``prefix_wgmma_kernel<Li128>``."""
@@ -1970,6 +2345,11 @@ def main() -> int:
                                           Path(tmp),
                                           trace_and_resume=True)}
     elapsed("bf16_sweep")
+    # The loader phase, while phase 3's llama-2-7b params are resident.
+    loader_stats = run_loader_phase(params, cfg)
+    for name, n in loader_stats["launches"].items():
+        launches[name] += n
+    elapsed("loader_phase")
     stats8, bytes8, peak8, sweeps["int8"] = run_int8_slice(
         cfg, tokenizer, cells_trunk, cells_flat, rt, grids)
     elapsed("int8_slice_and_sweep")

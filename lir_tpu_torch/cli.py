@@ -1,0 +1,228 @@
+"""Command-line interface of the port: ``python -m lir_tpu_torch``.
+
+  sweep        word-meaning model-comparison sweep -> D1/D2 CSVs
+  perturb      perturbation grid sweep (with resume) -> D6 CSV
+
+Port of the ``sweep`` and ``perturb`` commands of ``lir_tpu/cli.py``.
+Each flag lands in the same ``RuntimeConfig`` / ``SpecConfig`` /
+``CascadeConfig`` field as there. A flag of a feature the port does not
+have yet (meshes, the parameter cache, the int8 KV cache, the prefix
+cache, leased shards, the fleet, tracing) is not defined, so argparse
+rejects it. ``--device`` (default ``cuda``) says where the models run;
+the CPU must be asked for.
+
+Model weights must be local checkpoint directories (zero egress); pass
+--checkpoints pointing at a root containing ``<org>__<name>`` dirs.
+"""
+
+from __future__ import annotations
+
+import argparse
+from pathlib import Path
+from typing import List, Optional
+
+from .utils.logging import get_logger
+
+log = get_logger(__name__)
+
+
+def _positive_int(text: str) -> int:
+    """argparse type for decode budgets: a 0/negative budget would run an
+    empty decode whose position-0 readout is garbage."""
+    value = int(text)
+    if value < 1:
+        raise argparse.ArgumentTypeError(f"{value} is not >= 1")
+    return value
+
+
+def _add_common(p) -> None:
+    p.add_argument("--checkpoints", type=Path, required=True)
+    p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--int8", action="store_true",
+                   help="int8 weights (per-output-channel scales)")
+    p.add_argument("--int8-dynamic", action="store_true",
+                   help="with --int8: quantize activations per token and "
+                        "run s8 x s8 products")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the model runs (default cuda; cpu runs every "
+                        "kernel's plain PyTorch version)")
+
+
+def _add_sweep(sub) -> None:
+    p = sub.add_parser("sweep", help="word-meaning model comparison (D1/D2)")
+    p.add_argument("--models", nargs="+", required=True,
+                   help="repo ids; suffix ':base' or ':instruct' "
+                        "(default instruct)")
+    p.add_argument("--out", type=Path, default=Path("results/comparison"))
+    p.add_argument("--sweep-kind", choices=["base_vs_instruct", "instruct_only"],
+                   default="base_vs_instruct")
+    _add_common(p)
+
+
+def _add_perturb(sub) -> None:
+    p = sub.add_parser("perturb", help="perturbation grid sweep (D6)")
+    p.add_argument("--model", required=True)
+    p.add_argument("--perturbations", type=Path,
+                   default=Path("perturbations.json"))
+    p.add_argument("--out", type=Path,
+                   default=Path("results/perturbation_results.xlsx"),
+                   help="results path (an .xlsx path is written as .csv "
+                        "beside it)")
+    p.add_argument("--subset-size", type=int, default=None)
+    _add_common(p)
+    p.add_argument("--full-completions", action="store_true",
+                   help="decode the reference's full 50-token responses per "
+                        "cell instead of the short budgets; disables the "
+                        "early stops")
+    p.add_argument("--sweep-decode-tokens", type=_positive_int, default=None,
+                   help="binary-format decode budget per cell (default 4)")
+    p.add_argument("--sweep-confidence-tokens", type=_positive_int,
+                   default=None,
+                   help="confidence-format decode budget per cell (default 8)")
+    p.add_argument("--no-early-stop", action="store_true",
+                   help="disable the digit/EOS early stops (they change no "
+                        "recorded value)")
+    # Engine shape (RuntimeConfig).
+    p.add_argument("--max-seq-len", type=_positive_int, default=None,
+                   help="prompt-length ceiling in tokens (default 1024)")
+    p.add_argument("--max-new-tokens", type=_positive_int, default=None,
+                   help="full-completion decode budget (default 50)")
+    p.add_argument("--no-ragged-scheduler", action="store_true",
+                   help="legacy todo-order batching instead of the ragged "
+                        "bucket-ladder scheduler (results identical per cell)")
+    p.add_argument("--sweep-group-min-prefix", type=_positive_int,
+                   default=None,
+                   help="cross-cell prefix grouping: minimum shared leading "
+                        "tokens (default 16)")
+    p.add_argument("--sweep-group-min-cells", type=int, default=None,
+                   help="cross-cell prefix grouping: minimum cells per group "
+                        "(default 4; 0 disables grouping)")
+    p.add_argument("--scan-positions", type=_positive_int, default=None,
+                   help="generated positions scanned for the yes/no top-k "
+                        "match (default 10)")
+    # Kernels, speculation, cascade.
+    p.add_argument("--no-fused-decode", action="store_true",
+                   help="dense decode attention instead of the flash-decode "
+                        "kernels")
+    p.add_argument("--no-spec-decode", action="store_true",
+                   help="disable speculative scoring decode")
+    p.add_argument("--spec-k", type=_positive_int, default=None,
+                   help="speculative verify window (default 4, < 2 disables)")
+    p.add_argument("--spec-ngram", type=_positive_int, default=None,
+                   help="n-gram match length of the prompt-lookup drafter "
+                        "(default 2)")
+    p.add_argument("--no-cascade-prefill", action="store_true",
+                   help="dense shared prefill instead of the cascade")
+    p.add_argument("--cascade-min-trunk", type=_positive_int, default=None,
+                   help="shortest shared trunk worth the cascade (default 32)")
+    p.add_argument("--cascade-trunk-quantum", type=_positive_int,
+                   default=None,
+                   help="trunk lengths snap down to this multiple (default 16)")
+    p.add_argument("--cascade-min-rows", type=_positive_int, default=None,
+                   help="fewest real rows sharing the trunk (default 2)")
+    p.add_argument("--cascade-int8-qk", action="store_true",
+                   help="int8 QK^T in the cascade's trunk leg")
+    p.add_argument("--no-cascade-decode", action="store_true",
+                   help="flat decode kernels instead of the trunk-aware ones")
+    p.add_argument("--no-cascade-fused-suffix", action="store_true",
+                   help="the two-leg cascade instead of the fused kernel")
+
+
+def _perturb_configs(args):
+    """(RuntimeConfig, SpecConfig, CascadeConfig) of the perturb flags, the
+    fields the JAX ``*_rt_kw`` helpers fill."""
+    from .config import CascadeConfig, RuntimeConfig, SpecConfig
+
+    if args.full_completions and (args.sweep_decode_tokens is not None
+                                  or args.sweep_confidence_tokens is not None):
+        raise SystemExit(
+            "--full-completions decodes the reference's full 50-token "
+            "responses unconditionally; it cannot combine with "
+            "--sweep-decode-tokens / --sweep-confidence-tokens")
+    rt_kw = dict(batch_size=args.batch_size,
+                 sweep_full_completions=args.full_completions,
+                 sweep_early_stop=not args.no_early_stop)
+    # Flags named as their RuntimeConfig field.
+    for name in ("sweep_decode_tokens", "sweep_confidence_tokens",
+                 "max_seq_len", "max_new_tokens", "sweep_group_min_prefix",
+                 "sweep_group_min_cells", "scan_positions", "spec_k"):
+        if getattr(args, name) is not None:
+            rt_kw[name] = getattr(args, name)
+    for flag, field in (("no_ragged_scheduler", "ragged_scheduler"),
+                        ("no_fused_decode", "fused_decode"),
+                        ("no_spec_decode", "spec_decode"),
+                        ("no_cascade_prefill", "cascade_prefill"),
+                        ("no_cascade_decode", "cascade_decode"),
+                        ("no_cascade_fused_suffix", "cascade_fused_suffix")):
+        if getattr(args, flag):
+            rt_kw[field] = False
+    spec_kw = {}
+    if args.spec_ngram is not None:
+        spec_kw["ngram"] = args.spec_ngram
+    cascade_kw = {}
+    for flag, field in (("cascade_min_trunk", "min_trunk"),
+                        ("cascade_trunk_quantum", "trunk_quantum"),
+                        ("cascade_min_rows", "min_rows")):
+        if getattr(args, flag) is not None:
+            cascade_kw[field] = getattr(args, flag)
+    if args.cascade_int8_qk:
+        cascade_kw["int8_qk"] = True
+    return (RuntimeConfig(**rt_kw), SpecConfig(**spec_kw),
+            CascadeConfig(**cascade_kw))
+
+
+def _parse_models(items: List[str]):
+    from .engine.multi import ModelSpec
+
+    specs = []
+    for item in items:
+        name, _, kind = item.partition(":")
+        specs.append(ModelSpec(name, kind or "instruct"))
+    return specs
+
+
+def cmd_sweep(args) -> None:
+    from .config import RuntimeConfig
+    from .engine.multi import run_model_comparison_sweep
+    from .models.factory import engine_factory
+
+    factory = engine_factory(
+        args.checkpoints, RuntimeConfig(batch_size=args.batch_size),
+        quantize_int8=args.int8, int8_dynamic=args.int8_dynamic,
+        device=args.device)
+    run_model_comparison_sweep(_parse_models(args.models), factory, args.out,
+                               sweep_kind=args.sweep_kind)
+
+
+def cmd_perturb(args) -> None:
+    from .data.prompts import LEGAL_PROMPTS
+    from .engine.rephrase import load_or_generate_perturbations
+    from .engine.sweep import run_perturbation_sweep
+    from .models.factory import engine_factory
+
+    rt, spec_cfg, cascade_cfg = _perturb_configs(args)
+    factory = engine_factory(
+        args.checkpoints, rt, quantize_int8=args.int8,
+        int8_dynamic=args.int8_dynamic, spec_config=spec_cfg,
+        cascade_config=cascade_cfg, device=args.device)
+    entries = load_or_generate_perturbations(args.perturbations, LEGAL_PROMPTS)
+    perturbations = [rephrasings for _, rephrasings in entries]
+    engine = factory(args.model)
+    rows = run_perturbation_sweep(engine, args.model, LEGAL_PROMPTS,
+                                  perturbations, args.out,
+                                  subset_size=args.subset_size)
+    log.info("perturbation sweep wrote %d rows", len(rows))
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    parser = argparse.ArgumentParser(
+        prog="lir_tpu_torch", description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    sub = parser.add_subparsers(dest="command", required=True)
+    _add_sweep(sub)
+    _add_perturb(sub)
+    args = parser.parse_args(argv)
+    if args.int8_dynamic and not args.int8:
+        parser.error("--int8-dynamic requires --int8 (it selects HOW int8 "
+                     "matmuls run, not whether weights are quantized)")
+    {"sweep": cmd_sweep, "perturb": cmd_perturb}[args.command](args)

@@ -1,20 +1,49 @@
-"""Result records of the sweeps and the D6 writer (a copy of the part of
-the JAX package's ``data/schemas.py`` that the two sweeps write).
+"""Result records of the sweeps, their writers and the perturbation
+cache (a copy of the part of the JAX package's ``data/schemas.py`` that
+the sweeps write and read).
 
-The D6 artifact is CSV, written and read with the stdlib ``csv`` module
-(no pandas): it parses under pandas to the frame the JAX package's
-writer writes, and its append, backup and torn-tail recovery follow
-that writer.
+Every artifact is CSV, written and read with the stdlib ``csv`` module
+(no pandas): D1 ``model_comparison_results.csv`` and D2
+``instruct_model_comparison_results.csv`` of the model-comparison sweep,
+and D6 of the perturbation sweep. Each parses under pandas to the frame
+the JAX package's writer writes (NaN and None as an empty field, floats
+by ``repr``); D6's append, backup and torn-tail recovery follow that
+writer. D5 ``perturbations.json`` is the JAX cache format.
 """
 
 from __future__ import annotations
 
 import csv
 import dataclasses
+import json
 import math
 import os
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
+
+
+# D1: model_comparison_results.csv (base vs instruct sweep)
+MODEL_COMPARISON_COLUMNS = (
+    "prompt",
+    "model",
+    "model_family",
+    "base_or_instruct",
+    "model_output",
+    "yes_prob",
+    "no_prob",
+    "odds_ratio",
+)
+
+# D2: instruct_model_comparison_results.csv
+INSTRUCT_COMPARISON_COLUMNS = (
+    "prompt",
+    "model",
+    "model_family",
+    "model_output",
+    "yes_prob",
+    "no_prob",
+    "relative_prob",
+)
 
 
 def model_family(model_name: str) -> str:
@@ -56,6 +85,38 @@ class ScoreRow:
     @property
     def model_family(self) -> str:
         return model_family(self.model)
+
+
+def _write_comparison_csv(records: List[Dict[str, object]], columns,
+                          path: Path) -> List[Dict[str, object]]:
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    _write_csv(path, [[_cell(r[c]) for c in columns] for r in records],
+               columns=columns)
+    return records
+
+
+def write_model_comparison_csv(rows: Sequence[ScoreRow],
+                               path: Path) -> List[Dict[str, object]]:
+    """D1 writer — schema parity with compare_base_vs_instruct.py:101-110.
+    Returns the records written, one dict a row."""
+    return _write_comparison_csv([
+        {"prompt": r.prompt, "model": r.model, "model_family": r.model_family,
+         "base_or_instruct": r.base_or_instruct,
+         "model_output": r.model_output, "yes_prob": r.yes_prob,
+         "no_prob": r.no_prob, "odds_ratio": r.odds_ratio}
+        for r in rows], MODEL_COMPARISON_COLUMNS, path)
+
+
+def write_instruct_comparison_csv(rows: Sequence[ScoreRow],
+                                  path: Path) -> List[Dict[str, object]]:
+    """D2 writer — schema parity with compare_instruct_models.py:112-120.
+    Returns the records written, one dict a row."""
+    return _write_comparison_csv([
+        {"prompt": r.prompt, "model": r.model, "model_family": r.model_family,
+         "model_output": r.model_output, "yes_prob": r.yes_prob,
+         "no_prob": r.no_prob, "relative_prob": r.relative_prob}
+        for r in rows], INSTRUCT_COMPARISON_COLUMNS, path)
 
 
 # ---------------------------------------------------------------------------
@@ -151,11 +212,12 @@ def _csv_rows(records: Sequence[Dict[str, object]]) -> List[List[object]]:
 
 
 def _write_csv(path: Path, rows: Sequence[Sequence[object]],
-               mode: str = "w", header: bool = True) -> None:
+               mode: str = "w", header: bool = True,
+               columns: Sequence[str] = PERTURBATION_COLUMNS) -> None:
     with path.open(mode, newline="", encoding="utf-8") as f:
         w = csv.writer(f, lineterminator="\n")
         if header:
-            w.writerow(PERTURBATION_COLUMNS)
+            w.writerow(columns)
         w.writerows(rows)
 
 
@@ -312,9 +374,65 @@ def _truncate_after_last_newline(path: Path) -> None:
 
 
 def read_results(path: Path) -> List[Dict[str, str]]:
-    """The records of a D6 artifact (the stdlib counterpart of the JAX
-    package's ``read_results_frame``): one dict a row, column name ->
-    the field's text ("" for an empty field; short rows padded)."""
+    """The records of a CSV artifact, D6 or D1/D2 (the stdlib
+    counterpart of the JAX package's ``read_results_frame``): one dict a
+    row, column name -> the field's text ("" for an empty field; short
+    rows padded)."""
     header, rows = _parse_csv(resolve_results_path(path))
     return [dict(zip(header, row + [""] * (len(header) - len(row))))
             for row in rows]
+
+
+# ---------------------------------------------------------------------------
+# D5: perturbations.json cache
+# ---------------------------------------------------------------------------
+
+PerturbationEntry = Tuple[Tuple[str, str, Tuple[str, str], str], List[str]]
+
+
+def save_perturbations(path: Path,
+                       entries: Sequence[PerturbationEntry]) -> None:
+    """Cache format parity with perturb_prompts.py:851-866."""
+    payload = [
+        {
+            "original_main": parts[0],
+            "response_format": parts[1],
+            "target_tokens": list(parts[2]),
+            "confidence_format": parts[3],
+            "rephrasings": rephrasings,
+        }
+        for parts, rephrasings in entries
+    ]
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(payload, ensure_ascii=False, indent=2))
+
+
+def load_perturbations(path: Path) -> List[PerturbationEntry]:
+    data = json.loads(Path(path).read_text())
+    return [
+        (
+            (
+                item["original_main"],
+                item["response_format"],
+                tuple(item["target_tokens"]),
+                item["confidence_format"],
+            ),
+            list(item["rephrasings"]),
+        )
+        for item in data
+    ]
+
+
+def validate_perturbation_cache(entries: Sequence[PerturbationEntry],
+                                prompts) -> bool:
+    """Cache-consistency rule (perturb_prompts.py:757-772): entry count and
+    every prompt tuple must match the in-code prompt list, else regenerate."""
+    if len(entries) != len(prompts):
+        return False
+    for (loaded_parts, _), p in zip(entries, prompts):
+        expected = (p.main, p.response_format, tuple(p.target_tokens),
+                    p.confidence_format)
+        if tuple(loaded_parts) != expected:
+            return False
+    return True

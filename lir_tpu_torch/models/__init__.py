@@ -1,1 +1,1 @@
-"""Model zoo of the port: registry, decoder, param conversion."""
+"""Model zoo of the port: registry, decoder, param conversion, checkpoint loading."""

@@ -1,0 +1,238 @@
+"""High-level model loading: HF checkpoint directory -> ScoringEngine.
+
+Port of ``lir_tpu/models/factory.py``. The flow is
+
+  local checkpoint dir -> config.json (models/loader.config_from_hf) ->
+  state dict (safetensors read here, torch .bin fallback) ->
+  loader.convert_decoder onto the device -> optional int8 -> ScoringEngine
+
+with neither ``transformers`` nor ``safetensors``: the safetensors format
+is parsed here (an 8-byte little-endian header length, a JSON header of
+``dtype`` / ``shape`` / ``data_offsets`` per tensor, the data after it)
+and each tensor is a view of a memory map of its file. Only the
+tokenizer comes from ``transformers`` (``AutoTokenizer``, imported when
+no ``tokenizer`` is passed). Everything is local: weights must already
+be on disk.
+"""
+
+from __future__ import annotations
+
+import json
+import mmap
+import re
+import struct
+from pathlib import Path
+from typing import Any, Dict, Mapping, Optional, Tuple
+
+import torch
+
+from ..config import CascadeConfig, RuntimeConfig, SpecConfig
+from ..device import resolve_device
+from ..engine.runner import ScoringEngine
+from ..utils.logging import get_logger
+from . import loader, quant
+
+log = get_logger(__name__)
+
+# Routing rule "t5|t0|tk-instruct -> Seq2Seq" (compare_instruct_models.py:471-475).
+_ENCDEC_PATTERN = re.compile(r"(^|/)(t5|flan-t5|t0|tk-instruct)", re.IGNORECASE)
+
+# safetensors dtype tags the reader decodes.
+_ST_DTYPES = {
+    "F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
+    "I8": torch.int8, "U8": torch.uint8, "BOOL": torch.bool,
+    "I32": torch.int32, "I64": torch.int64,
+}
+
+
+def is_encoder_decoder(name_or_path: str, hf_cfg=None) -> bool:
+    if isinstance(hf_cfg, Mapping):
+        if hf_cfg.get("is_encoder_decoder", False):
+            return True
+    elif hf_cfg is not None and getattr(hf_cfg, "is_encoder_decoder", False):
+        return True
+    return bool(_ENCDEC_PATTERN.search(str(name_or_path)))
+
+
+def read_safetensors_header(path: Path) -> Tuple[Dict[str, Any], int]:
+    """(header without ``__metadata__``, byte offset of the data)."""
+    with open(path, "rb") as f:
+        raw = f.read(8)
+        if len(raw) != 8:
+            raise ValueError(f"{path}: not a safetensors file")
+        (n,) = struct.unpack("<Q", raw)
+        header = json.loads(f.read(n))
+    header.pop("__metadata__", None)
+    return header, 8 + n
+
+
+class _LazyStateDict(Mapping[str, Any]):
+    """Tensors straight from safetensors files on demand: one
+    ``model.safetensors`` or the shards of
+    ``model.safetensors.index.json``'s ``weight_map``. A lookup maps the
+    tensor's bytes of its file and returns a tensor over them (no copy;
+    the mapping closes when the tensor is freed), so at most the tensors
+    in use are resident, never a second copy of the checkpoint. Tensors
+    of a dtype the reader does not decode raise only when asked for."""
+
+    def __init__(self, model_dir: Path):
+        model_dir = Path(model_dir)
+        index_file = model_dir / "model.safetensors.index.json"
+        if index_file.exists():
+            weight_map = json.loads(index_file.read_text())["weight_map"]
+            files = sorted({model_dir / s for s in weight_map.values()})
+        else:
+            single = model_dir / "model.safetensors"
+            if not single.exists():
+                raise FileNotFoundError(f"no safetensors found in {model_dir}")
+            files = [single]
+        self._entries: Dict[str, Tuple[Path, int, Dict[str, Any]]] = {}
+        for path in files:
+            header, start = read_safetensors_header(path)
+            for key, info in header.items():
+                self._entries[key] = (path, start, info)
+
+    def __getitem__(self, key: str) -> torch.Tensor:
+        path, start, info = self._entries[key]
+        dtype = _ST_DTYPES.get(info["dtype"])
+        if dtype is None:
+            raise TypeError(f"{key}: safetensors dtype {info['dtype']} is "
+                            f"not one this reader decodes")
+        begin, end = info["data_offsets"]
+        shape = tuple(info["shape"])
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        count = (end - begin) // itemsize
+        if count == 0:
+            return torch.empty(shape, dtype=dtype)
+        # Map the tensor's own bytes only (from the page boundary below
+        # them): private copy-on-write pages, a writable buffer for
+        # torch.frombuffer that never writes to the file.
+        offset = start + begin
+        base = offset - offset % mmap.ALLOCATIONGRANULARITY
+        with open(path, "rb") as f:
+            mm = mmap.mmap(f.fileno(), start + end - base,
+                           access=mmap.ACCESS_COPY, offset=base)
+        t = torch.frombuffer(mm, dtype=dtype, count=count, offset=offset - base)
+        if offset % itemsize:
+            t = t.clone()   # an unaligned tensor: copy it out
+        return t.reshape(shape)
+
+    def __iter__(self):
+        return iter(self._entries)
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+
+def load_state_dict(model_dir: Path) -> Mapping[str, Any]:
+    """safetensors (lazy) preferred; torch ``pytorch_model*.bin`` fallback,
+    memory-mapped by ``torch.load``."""
+    model_dir = Path(model_dir)
+    try:
+        return _LazyStateDict(model_dir)
+    except FileNotFoundError:
+        pass
+    bins = sorted(model_dir.glob("pytorch_model*.bin"))
+    if not bins:
+        raise FileNotFoundError(
+            f"no safetensors or pytorch_model*.bin in {model_dir}")
+    state: Dict[str, Any] = {}
+    for b in bins:
+        state.update(torch.load(b, map_location="cpu", weights_only=True,
+                                mmap=True))
+    return state
+
+
+def _auto_tokenizer(model_dir: Path):
+    try:
+        import transformers
+    except ImportError as exc:
+        raise ImportError(
+            f"loading the tokenizer of {model_dir} needs transformers "
+            "(AutoTokenizer); without it, pass tokenizer= to load_engine / "
+            "engine_factory") from exc
+    return transformers.AutoTokenizer.from_pretrained(
+        model_dir, local_files_only=True, trust_remote_code=False)
+
+
+def load_engine(
+    model_dir: Path,
+    runtime: Optional[RuntimeConfig] = None,
+    dtype: Optional[torch.dtype] = None,
+    quantize_int8: bool = False,
+    int8_dynamic: bool = False,
+    spec_config: Optional[SpecConfig] = None,
+    cascade_config: Optional[CascadeConfig] = None,
+    tokenizer=None,
+    device="cuda",
+) -> ScoringEngine:
+    """Build a ready ScoringEngine from a local HF checkpoint directory
+    on ``device`` (the card unless the CPU is asked for).
+
+    ``dtype`` defaults to bfloat16 on the card and float32 on the CPU.
+    ``quantize_int8`` quantizes the loaded tree on the device
+    (``quant.quantize_decoder_params``, ``dynamic=int8_dynamic``).
+    ``tokenizer=None`` loads the directory's tokenizer with
+    ``transformers.AutoTokenizer``."""
+    dev = resolve_device(device)
+    model_dir = Path(model_dir)
+    hf_cfg = json.loads((model_dir / "config.json").read_text())
+    if is_encoder_decoder(model_dir.name, hf_cfg):
+        raise NotImplementedError(
+            f"{model_dir.name} is an encoder-decoder checkpoint; the port's "
+            "T5 branch (ROADMAP 'Also open': models/encdec.py, "
+            "t5_greedy_decode) is not there yet")
+    if tokenizer is None:
+        tokenizer = _auto_tokenizer(model_dir)
+    if dtype is None:
+        dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    cfg, family = loader.config_from_hf(hf_cfg, name=str(model_dir))
+    params = loader.convert_decoder(load_state_dict(model_dir), cfg, family,
+                                    dtype=dtype, device=dev)
+    if quantize_int8:
+        before = quant.param_bytes(params)
+        params = quant.quantize_decoder_params(params, dynamic=int8_dynamic)
+        log.info("int8-quantized %s: %.2f GB -> %.2f GB", model_dir.name,
+                 before / 2**30, quant.param_bytes(params) / 2**30)
+    log.info("loaded %s (decoder, %s, %s)", model_dir.name, dtype, dev)
+    return ScoringEngine(params, cfg, tokenizer, runtime or RuntimeConfig(),
+                         cascade_config=cascade_config,
+                         spec_config=spec_config, device=dev)
+
+
+def engine_factory(
+    checkpoint_root: Path,
+    runtime: Optional[RuntimeConfig] = None,
+    quantize_int8: bool = False,
+    int8_dynamic: bool = False,
+    spec_config: Optional[SpecConfig] = None,
+    cascade_config: Optional[CascadeConfig] = None,
+    tokenizer=None,
+    device="cuda",
+):
+    """EngineFactory for engine.multi: maps an HF repo id to
+    ``checkpoint_root/<org>__<name>``, ``checkpoint_root/<name>`` or
+    ``checkpoint_root/<org>/<name>``. The device is checked here, before
+    any model is asked for."""
+    checkpoint_root = Path(checkpoint_root)
+    dev = resolve_device(device)
+
+    def factory(model_name: str) -> ScoringEngine:
+        candidates = [
+            checkpoint_root / model_name.replace("/", "__"),
+            checkpoint_root / model_name.split("/")[-1],
+            checkpoint_root / model_name,
+        ]
+        for cand in candidates:
+            if cand.is_dir():
+                return load_engine(cand, runtime,
+                                   quantize_int8=quantize_int8,
+                                   int8_dynamic=int8_dynamic,
+                                   spec_config=spec_config,
+                                   cascade_config=cascade_config,
+                                   tokenizer=tokenizer, device=dev)
+        raise FileNotFoundError(
+            f"no local checkpoint for {model_name} under {checkpoint_root} "
+            f"(tried {[str(c) for c in candidates]})")
+
+    return factory

@@ -1,1 +1,1 @@
-"""Host utilities of the port: the sweep manifest and the scheduler counters."""
+"""Host utilities of the port: the sweep manifest, counters and meters, logging."""

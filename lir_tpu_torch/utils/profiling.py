@@ -1,15 +1,31 @@
-"""Ragged-sweep scheduler counters.
+"""Sweep counters and meters.
 
-A copy of ``BucketCounters`` and ``OccupancyStats`` from the JAX
-package's ``utils/profiling.py``: the scheduler fills them at plan time,
-the sweep adds the decode-step occupancy from the early stop's retire
-positions.
+Copies from the JAX package's ``utils/profiling.py``:
+
+- ``BucketCounters`` and ``OccupancyStats``: the scheduler fills them at
+  plan time, the sweep adds the decode-step occupancy from the early
+  stop's retire positions;
+- ``ThroughputMeter`` (prompts/sec/card, implied TFLOPS and MFU against
+  the card's published peak) with ``scoring_step_flops``;
+- ``GuardStats``: the numerics guard's per-site counters (its
+  quarantine part);
+- ``device_memory_stats``: per-device memory from
+  ``torch.cuda.memory_stats``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Dict, Optional
+import threading
+import time
+from typing import Dict, Iterator, Optional
+
+import torch
+
+from .logging import get_logger
+
+log = get_logger(__name__)
 
 
 @dataclasses.dataclass
@@ -113,3 +129,172 @@ class OccupancyStats:
             out["grouped_cells"] = self.grouped_cells
             out["grouped_prefill_rows"] = self.grouped_prefill_rows
         return out
+
+
+# Published dense peaks (tensor cores, no sparsity) by the name
+# torch.cuda.get_device_name reports; int8 is twice bf16 on Hopper.
+CHIP_PEAK_BF16_FLOPS = {
+    "NVIDIA H100 80GB HBM3": 989e12,     # H100 SXM
+}
+_INT8_MULTIPLIER = 2.0
+
+
+def chip_peak_flops(int8: bool = False) -> Optional[float]:
+    """Peak matmul FLOP/s of the first card, or None when there is no
+    card or its kind is not in the table (callers then skip MFU)."""
+    if not torch.cuda.is_available():
+        return None
+    peak = CHIP_PEAK_BF16_FLOPS.get(torch.cuda.get_device_name(0))
+    if peak is not None and int8:
+        peak *= _INT8_MULTIPLIER
+    return peak
+
+
+def decoder_matmul_params(cfg) -> int:
+    """Matmul-visible parameter count of one decoder: the per-layer linear
+    weights plus the lm_head. Embedding lookups do no matmul FLOPs."""
+    D, hd = cfg.hidden_size, cfg.head_dim
+    H, K, F = cfg.n_heads, cfg.n_kv_heads, cfg.intermediate_size
+    per_layer = (D * H * hd          # wq
+                 + 2 * D * K * hd    # wk, wv
+                 + H * hd * D        # wo
+                 + 2 * D * F         # w_up, w_down
+                 + (D * F if cfg.gated_mlp else 0))
+    return cfg.n_layers * per_layer + D * cfg.vocab_size  # + lm_head
+
+
+def scoring_step_flops(cfg, batch: int, seq: int, new_tokens: int) -> float:
+    """Matmul FLOPs (2 per MAC) of one fused scoring step: the prefill of
+    (batch, seq), ``new_tokens`` cached greedy decode steps, and the head
+    once after the prefill and once a step; attention products included."""
+    D, hd = cfg.hidden_size, cfg.head_dim
+    H, L, V = cfg.n_heads, cfg.n_layers, cfg.vocab_size
+    p_layers = decoder_matmul_params(cfg) - D * V
+    prefill = 2 * p_layers * batch * seq
+    prefill += 4 * batch * H * seq * seq * hd * L      # scores + weighted sum
+    decode = 0.0
+    for t in range(new_tokens):
+        decode += 2 * p_layers * batch
+        decode += 4 * batch * H * (seq + t + 1) * hd * L
+    readout = 2 * D * V * batch * (1 + new_tokens)
+    return float(prefill + decode + readout)
+
+
+@dataclasses.dataclass
+class ThroughputMeter:
+    """Counts scored prompts and wall time; reports prompts/sec/card.
+
+    Pass per-batch matmul FLOPs to ``add(..., flops=...)`` (via
+    ``scoring_step_flops``) to get implied TFLOPS and MFU against the
+    card's published peak in the summary. Set ``int8_dots=True`` for
+    dynamic-int8 sweeps so the MFU denominator is the s8 peak.
+    ``n_devices`` defaults to ``torch.cuda.device_count()`` (1 without a
+    card).
+    """
+
+    n_devices: int = 0
+    prompts: int = 0
+    tokens_in: int = 0
+    tokens_out: int = 0
+    elapsed: float = 0.0
+    flops: float = 0.0
+    int8_dots: bool = False
+
+    def __post_init__(self) -> None:
+        if self.n_devices <= 0:
+            self.n_devices = max(torch.cuda.device_count(), 1)
+
+    @contextlib.contextmanager
+    def measure(self) -> Iterator[None]:
+        start = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.elapsed += time.perf_counter() - start
+
+    def add(self, prompts: int, tokens_in: int = 0, tokens_out: int = 0,
+            flops: float = 0.0) -> None:
+        self.prompts += prompts
+        self.tokens_in += tokens_in
+        self.tokens_out += tokens_out
+        self.flops += flops
+
+    @property
+    def prompts_per_sec(self) -> float:
+        return self.prompts / self.elapsed if self.elapsed > 0 else 0.0
+
+    @property
+    def prompts_per_sec_per_chip(self) -> float:
+        return self.prompts_per_sec / max(self.n_devices, 1)
+
+    def summary(self) -> Dict[str, float]:
+        out = {
+            "prompts": self.prompts,
+            "tokens_in": self.tokens_in,
+            "tokens_out": self.tokens_out,
+            "elapsed_s": round(self.elapsed, 3),
+            "n_devices": self.n_devices,
+            "prompts_per_sec": round(self.prompts_per_sec, 4),
+            "prompts_per_sec_per_chip": round(self.prompts_per_sec_per_chip, 4),
+        }
+        if self.flops > 0 and self.elapsed > 0:
+            implied = self.flops / self.elapsed / max(self.n_devices, 1)
+            out["implied_tflops_per_chip"] = round(implied / 1e12, 2)
+            peak = chip_peak_flops(int8=self.int8_dots)
+            if peak is not None:
+                out["mfu"] = round(implied / peak, 4)
+                if implied > peak:
+                    log.warning(
+                        "implied %.1f TFLOPS exceeds the card's peak (%.0f): "
+                        "timing is not syncing with the device",
+                        implied / 1e12, peak / 1e12)
+        return out
+
+
+@dataclasses.dataclass
+class GuardStats:
+    """The numerics guard's counters per SITE ("multi", ...), thread-safe:
+    ``checked`` rows validated, ``quarantined`` rows withheld, and
+    ``reasons`` histogramming the causes (NaN probs, a model that failed
+    to load, ...). The JAX package's watchdog, serve and multihost
+    counters wait for the guard layer (ROADMAP A7)."""
+
+    checked: Dict[str, int] = dataclasses.field(default_factory=dict)
+    quarantined: Dict[str, int] = dataclasses.field(default_factory=dict)
+    reasons: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+    def __post_init__(self) -> None:
+        self._lock = threading.Lock()
+
+    def site(self, field: str, site: str, n: int = 1) -> None:
+        with self._lock:
+            d = getattr(self, field)
+            d[site] = d.get(site, 0) + n
+
+    def quarantine(self, site: str, reason: str) -> None:
+        with self._lock:
+            self.quarantined[site] = self.quarantined.get(site, 0) + 1
+            self.reasons[reason] = self.reasons.get(reason, 0) + 1
+
+    def summary(self) -> Dict[str, object]:
+        with self._lock:
+            return {
+                "checked": dict(self.checked),
+                "quarantined": dict(self.quarantined),
+                "quarantined_total": sum(self.quarantined.values()),
+                "quarantine_reasons": dict(self.reasons),
+            }
+
+
+def device_memory_stats() -> Dict[str, Dict[str, float]]:
+    """Per-card memory stats in GiB (the ``bytes`` entries of
+    ``torch.cuda.memory_stats``); empty without a card."""
+    out: Dict[str, Dict[str, float]] = {}
+    if not torch.cuda.is_available():
+        return out
+    for i in range(torch.cuda.device_count()):
+        stats = torch.cuda.memory_stats(i)
+        out[f"cuda:{i}"] = {
+            k: round(v / 2**30, 3) for k, v in stats.items()
+            if isinstance(v, (int, float)) and "bytes" in k}
+    return out

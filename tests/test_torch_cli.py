@@ -1,0 +1,279 @@
+"""The port's CLI (``python -m lir_tpu_torch sweep|perturb``) on the CPU.
+
+- ``sweep`` writes the D1/D2 CSVs that ``run_model_comparison_sweep``
+  writes when called directly on the same checkpoints, byte for byte.
+- ``perturb`` on a ``perturbations.json`` written by the JAX package's
+  ``schemas.save_perturbations`` writes the D6 CSV that
+  ``run_perturbation_sweep`` writes when called directly
+  (``tests/test_torch_sweep.py`` holds that function against the JAX
+  sweep); the port's perturbation cache is the JAX package's file.
+- Every ported flag lands in the config field the JAX parser fills
+  (both parsers run with their engine factories replaced by a recorder).
+- A flag of a feature the port does not have yet is rejected, as are
+  ``--int8-dynamic`` without ``--int8`` and ``--full-completions`` with a
+  decode budget; the default device is the card.
+"""
+
+import dataclasses
+import inspect
+
+import pytest
+import torch
+
+import lir_tpu.cli as jcli
+from lir_tpu.data import schemas as jschemas
+from lir_tpu.data.prompts import LEGAL_PROMPTS as JAX_LEGAL_PROMPTS
+from lir_tpu_torch import cli
+from lir_tpu_torch.config import RuntimeConfig
+from lir_tpu_torch.data import LEGAL_PROMPTS, WORD_MEANING_QUESTIONS, schemas
+from lir_tpu_torch.engine import multi, sweep
+from lir_tpu_torch.models import factory
+
+BASE, CHAT = "tiny/gpt2-base", "tiny/llama-chat"
+PERTURB_MODEL = "tiny/llama-bpe"
+
+
+@pytest.fixture(scope="module")
+def ckpt_root(tmp_path_factory):
+    import transformers as tf
+    from tiny_checkpoints import (build_bpe_gpt2, build_bpe_tokenizer,
+                                  build_sp_llama)
+
+    root = tmp_path_factory.mktemp("ckpts")
+    build_bpe_gpt2(root / BASE.replace("/", "__"))
+    build_sp_llama(root / CHAT.replace("/", "__"))
+    # A rotary model for the legal prompts (~600 byte-BPE tokens, past the
+    # tiny GPT-2's position table).
+    fast = build_bpe_tokenizer()
+    torch.manual_seed(2)
+    model = tf.LlamaForCausalLM(tf.LlamaConfig(
+        vocab_size=len(fast), hidden_size=64, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2, intermediate_size=128,
+        max_position_embeddings=1024, tie_word_embeddings=False)).eval()
+    path = root / PERTURB_MODEL.replace("/", "__")
+    model.save_pretrained(path)
+    fast.save_pretrained(path)
+    return root
+
+
+def test_sweep_writes_the_library_calls_csvs(ckpt_root, tmp_path):
+    cli.main(["sweep", "--checkpoints", str(ckpt_root), "--models",
+              f"{BASE}:base", CHAT, "--out", str(tmp_path / "cli"),
+              "--batch-size", "32", "--device", "cpu"])
+    multi.run_model_comparison_sweep(
+        [multi.ModelSpec(BASE, "base"), multi.ModelSpec(CHAT, "instruct")],
+        factory.engine_factory(ckpt_root, RuntimeConfig(batch_size=32),
+                               device="cpu"),
+        tmp_path / "lib", questions=WORD_MEANING_QUESTIONS)
+    for name in ("model_comparison_results.csv",
+                 "instruct_model_comparison_results.csv"):
+        got = (tmp_path / "cli" / name).read_bytes()
+        assert got == (tmp_path / "lib" / name).read_bytes(), name
+    d1 = schemas.read_results(tmp_path / "cli" / "model_comparison_results.csv")
+    assert len(d1) == 2 * len(WORD_MEANING_QUESTIONS)
+    assert {r["base_or_instruct"] for r in d1} == {"base", "instruct"}
+    assert (tmp_path / "cli" / "sweep_session_log.txt").exists()
+
+
+def test_perturb_writes_the_library_calls_d6(ckpt_root, tmp_path):
+    entries = [((p.main, p.response_format, tuple(p.target_tokens),
+                 p.confidence_format),
+                [f"Rephrasing {j} of prompt {i}: {p.main[:80]}" for j in range(3)])
+               for i, p in enumerate(JAX_LEGAL_PROMPTS)]
+    cache = tmp_path / "perturbations.json"
+    jschemas.save_perturbations(cache, entries)
+    cli.main(["perturb", "--checkpoints", str(ckpt_root), "--model",
+              PERTURB_MODEL, "--perturbations", str(cache), "--out",
+              str(tmp_path / "cli.xlsx"), "--subset-size", "6",
+              "--batch-size", "8", "--device", "cpu"])
+    engine = factory.engine_factory(ckpt_root, RuntimeConfig(batch_size=8),
+                                    device="cpu")(PERTURB_MODEL)
+    rows = sweep.run_perturbation_sweep(
+        engine, PERTURB_MODEL, LEGAL_PROMPTS,
+        [r for _, r in schemas.load_perturbations(cache)],
+        tmp_path / "lib.csv", subset_size=6)
+    assert len(rows) == 6
+    cli_recs = schemas.read_results(tmp_path / "cli.csv")
+    assert cli_recs == schemas.read_results(tmp_path / "lib.csv")
+    assert {r["Model"] for r in cli_recs} == {PERTURB_MODEL}
+
+
+def test_perturb_without_a_valid_cache_refuses(ckpt_root, tmp_path):
+    jschemas.save_perturbations(tmp_path / "p.json", [])
+    with pytest.raises(RuntimeError, match="No valid perturbation cache"):
+        cli.main(["perturb", "--checkpoints", str(ckpt_root), "--model",
+                  PERTURB_MODEL, "--perturbations", str(tmp_path / "p.json"),
+                  "--device", "cpu"])
+
+
+# ---------------------------------------------------------------------------
+# Flags -> config fields, against the JAX parser
+# ---------------------------------------------------------------------------
+
+class _Stop(Exception):
+    pass
+
+
+def _capture(monkeypatch, where: str, argv):
+    """Run a CLI with its engine factory replaced by a recorder; return
+    (runtime, spec config, cascade config, keyword arguments)."""
+    seen = {}
+
+    def fake_factory(root, rt, *a, **kw):
+        seen.update(root=root, rt=rt, kw=kw)
+        raise _Stop
+
+    monkeypatch.setattr(f"{where}.models.factory.engine_factory", fake_factory)
+    with pytest.raises(_Stop):
+        if where == "lir_tpu":
+            jcli.main(["--no-compile-cache"] + argv)
+        else:
+            cli.main(argv)
+    return seen
+
+
+def _fields(cfg, names):
+    return {n: getattr(cfg, n) for n in names}
+
+
+_PERTURB = ["perturb", "--checkpoints", "ck", "--model", "m"]
+PERTURB_FLAGS = [
+    [], ["--batch-size", "8"], ["--full-completions"],
+    ["--sweep-decode-tokens", "2"], ["--sweep-confidence-tokens", "16"],
+    ["--no-early-stop"], ["--max-seq-len", "512"], ["--max-new-tokens", "20"],
+    ["--no-ragged-scheduler"], ["--sweep-group-min-prefix", "8"],
+    ["--sweep-group-min-cells", "0"], ["--scan-positions", "3"],
+    ["--no-fused-decode"], ["--no-spec-decode"], ["--spec-k", "6"],
+    ["--spec-ngram", "3"], ["--no-cascade-prefill"],
+    ["--cascade-min-trunk", "64"], ["--cascade-trunk-quantum", "32"],
+    ["--cascade-min-rows", "4"], ["--cascade-int8-qk"],
+    ["--no-cascade-decode"], ["--no-cascade-fused-suffix"],
+    ["--int8"], ["--int8", "--int8-dynamic"],
+]
+
+
+@pytest.mark.parametrize("flags", PERTURB_FLAGS,
+                         ids=lambda f: " ".join(f) or "defaults")
+def test_perturb_flags_land_in_the_jax_fields(monkeypatch, flags):
+    from lir_tpu_torch.config import CascadeConfig, SpecConfig
+
+    port = _capture(monkeypatch, "lir_tpu_torch", _PERTURB + flags)
+    ref = _capture(monkeypatch, "lir_tpu", _PERTURB + flags)
+    rt_names = [f.name for f in dataclasses.fields(RuntimeConfig)]
+    assert _fields(port["rt"], rt_names) == _fields(ref["rt"], rt_names)
+    for key, cls in (("spec_config", SpecConfig),
+                     ("cascade_config", CascadeConfig)):
+        names = [f.name for f in dataclasses.fields(cls)]
+        assert (_fields(port["kw"][key], names)
+                == _fields(ref["kw"][key], names)), key
+    for key in ("quantize_int8", "int8_dynamic"):
+        assert port["kw"][key] == ref["kw"][key], key
+    assert port["kw"]["device"] == "cuda"
+
+
+SWEEP_FLAGS = [[], ["--batch-size", "16"], ["--int8"],
+               ["--int8", "--int8-dynamic"],
+               ["--sweep-kind", "instruct_only"], ["--out", "elsewhere"]]
+
+
+@pytest.mark.parametrize("flags", SWEEP_FLAGS,
+                         ids=lambda f: " ".join(f) or "defaults")
+def test_sweep_flags_land_in_the_jax_fields(monkeypatch, flags):
+    argv = ["sweep", "--checkpoints", "ck", "--models", "a/b:base", "c/d"] + flags
+    calls = {}
+
+    def recorder(where):
+        def run(specs, factory_, out_dir, **kw):
+            calls[where] = dict(specs=[(s.name, s.base_or_instruct)
+                                       for s in specs], out=out_dir, kw=kw)
+            raise _Stop
+        return run
+
+    got = {}
+    for where, main in (("lir_tpu_torch", cli.main),
+                        ("lir_tpu", lambda a: jcli.main(["--no-compile-cache"] + a))):
+        seen = {}
+        monkeypatch.setattr(f"{where}.models.factory.engine_factory",
+                            lambda root, rt, *a, **kw: seen.update(
+                                root=root, rt=rt, kw=kw))
+        monkeypatch.setattr(f"{where}.engine.multi.run_model_comparison_sweep",
+                            recorder(where))
+        with pytest.raises(_Stop):
+            main(argv)
+        got[where] = seen
+    port, ref = got["lir_tpu_torch"], got["lir_tpu"]
+    assert port["root"] == ref["root"]
+    rt_names = [f.name for f in dataclasses.fields(RuntimeConfig)]
+    assert _fields(port["rt"], rt_names) == _fields(ref["rt"], rt_names)
+    for key in ("quantize_int8", "int8_dynamic"):
+        assert port["kw"][key] == ref["kw"][key], key
+    p, r = calls["lir_tpu_torch"], calls["lir_tpu"]
+    assert p["specs"] == r["specs"] and p["out"] == r["out"]
+    assert p["kw"]["sweep_kind"] == r["kw"]["sweep_kind"]
+
+
+# Flags of features the port does not have yet (ROADMAP names the item
+# that brings each).
+UNPORTED = [
+    ["--mesh", "1x8"], ["--param-cache", "x"], ["--kv-cache-int8"],
+    ["--prefix-cache"], ["--prefix-cache-pages", "8"], ["--lease-shards"],
+    ["--lease-ttl", "5"], ["--weight-cache-gb", "1"], ["--no-weight-prefetch"],
+    ["--trace-out", "t.json"], ["--multihost"], ["--no-piggyback"],
+    ["--spec-draft-model", "x"], ["--no-spec-tree-probe"],
+    ["--no-numerics-guard"], ["--watchdog-multiple", "2"],
+    ["--no-streaming-stats"], ["--no-row-artifact"], ["--dtype", "float32"],
+    ["--no-aot-precompile"], ["--barrier-timeout", "5"], ["--no-hbm-governor"],
+]
+
+
+@pytest.mark.parametrize("flag", UNPORTED, ids=lambda f: f[0])
+def test_unported_flags_are_rejected(flag, capsys):
+    assert f'"{flag[0]}"' in inspect.getsource(jcli)   # a real JAX flag
+    with pytest.raises(SystemExit) as exc:
+        cli.main(_PERTURB + flag + ["--device", "cpu"])
+    assert exc.value.code == 2
+    assert "unrecognized arguments" in capsys.readouterr().err
+
+
+def test_invalid_combinations_are_rejected():
+    with pytest.raises(SystemExit) as exc:
+        cli.main(_PERTURB + ["--int8-dynamic", "--device", "cpu"])
+    assert exc.value.code == 2
+    with pytest.raises(SystemExit, match="full-completions"):
+        cli.main(_PERTURB + ["--full-completions", "--sweep-decode-tokens",
+                             "2", "--device", "cpu"])
+    with pytest.raises(SystemExit):
+        cli.main(_PERTURB + ["--spec-k", "0", "--device", "cpu"])
+
+
+def test_default_device_is_the_card(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["sweep", "--checkpoints", str(tmp_path), "--models", "a/b",
+                  "--out", str(tmp_path / "out")])
+
+
+def test_perturbation_cache_matches_the_jax_format(tmp_path):
+    """save/load/validate: the port writes the JAX package's file byte for
+    byte, and the cache rule refuses a changed prompt list."""
+    from lir_tpu_torch.engine.rephrase import load_or_generate_perturbations
+
+    entries = [((p.main, p.response_format, tuple(p.target_tokens),
+                 p.confidence_format), [f"r{i}", "ü"])
+               for i, p in enumerate(LEGAL_PROMPTS)]
+    schemas.save_perturbations(tmp_path / "port.json", entries)
+    jschemas.save_perturbations(tmp_path / "jax.json", entries)
+    assert ((tmp_path / "port.json").read_bytes()
+            == (tmp_path / "jax.json").read_bytes())
+    assert schemas.load_perturbations(tmp_path / "jax.json") == entries
+    assert schemas.validate_perturbation_cache(entries, LEGAL_PROMPTS)
+    rotated = LEGAL_PROMPTS[1:] + LEGAL_PROMPTS[:1]
+    assert not schemas.validate_perturbation_cache(entries, rotated)
+    assert not schemas.validate_perturbation_cache(entries[:-1], LEGAL_PROMPTS)
+    assert load_or_generate_perturbations(tmp_path / "port.json",
+                                          LEGAL_PROMPTS) == entries
+    with pytest.raises(RuntimeError, match="No valid perturbation cache"):
+        load_or_generate_perturbations(tmp_path / "port.json", LEGAL_PROMPTS[1:])
+    with pytest.raises(NotImplementedError, match="sample_decode"):
+        load_or_generate_perturbations(tmp_path / "missing.json", LEGAL_PROMPTS,
+                                       generate_text=lambda *a: [])

@@ -27,6 +27,8 @@ The persistent suffix merge is held at R = 80, under 64 and a multiple
 of 64, MHA / GQA / MQA, ALiBi, ragged, holed, left-padded and fully
 masked windows and every head dim, and the trunk keys' quantization pass
 bitwise ``dynamic_quant`` at every layer's keys of a llama-2-7b dispatch.
+A tiny fp16 HF checkpoint (``chip_smoke.export_hf_llama``) loads to the
+card bitwise as it loads to the CPU, in bf16, in float32 and quantized.
 """
 
 import dataclasses
@@ -779,3 +781,29 @@ def test_cascade_extend_int8_quantizes_trunk_keys_once(gen):
     finally:
         decoder.ops.cascade_attention = real
     assert torch.equal(ck, ck1) and torch.equal(cv, cv1)
+
+
+@pytest.mark.parametrize("dtype,int8", [(torch.bfloat16, False),
+                                        (torch.float32, False),
+                                        (torch.bfloat16, True)])
+def test_checkpoint_loads_to_the_card_as_to_the_cpu(gen, tmp_path, dtype, int8):
+    import chip_smoke
+    from lir_tpu_torch.backends.fake import FakeTokenizer
+    from lir_tpu_torch.models import decoder, factory, quant, registry
+
+    cfg = registry.tiny("llama")
+    chip_smoke.export_hf_llama(decoder.init_params(cfg, seed=7, device="cpu"),
+                               cfg, tmp_path)
+    tok = FakeTokenizer(vocab=cfg.vocab_size)
+    kw = dict(dtype=dtype, tokenizer=tok, quantize_int8=int8, int8_dynamic=int8)
+    card = factory.load_engine(tmp_path, device="cuda", **kw).params
+    host = factory.load_engine(tmp_path, device="cpu", **kw).params
+    host = dict(chip_smoke.leaves(host))
+    for path, leaf in chip_smoke.leaves(card):
+        ref = host[path]
+        if isinstance(leaf, quant.QuantTensor):
+            assert torch.equal(leaf.q.cpu(), ref.q), path
+            assert torch.equal(leaf.scale.cpu(), ref.scale), path
+        else:
+            assert leaf.device.type == "cuda" and leaf.dtype == dtype
+            assert torch.equal(leaf.cpu(), ref), path

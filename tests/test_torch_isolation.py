@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package (nor
-pandas or openpyxl, which the card's machine lacks), and its entry
-points never fall back to the CPU on their own."""
+pandas or openpyxl, which the card's machine lacks, nor transformers,
+safetensors or tokenizers, which its loader does without), and its
+entry points never fall back to the CPU on their own."""
 
 import subprocess
 import sys
@@ -22,11 +23,16 @@ import lir_tpu_torch.engine.scheduler, lir_tpu_torch.engine.grid
 import lir_tpu_torch.utils.manifest, lir_tpu_torch.utils.profiling
 import lir_tpu_torch.models.quant, lir_tpu_torch.ops.flash_attention
 import lir_tpu_torch.ops.cascade_prefill
+import lir_tpu_torch.models.loader, lir_tpu_torch.models.factory
+import lir_tpu_torch.engine.multi, lir_tpu_torch.engine.rephrase
+import lir_tpu_torch.guard.numerics, lir_tpu_torch.utils.logging
+import lir_tpu_torch.cli
 import chip_smoke, kernel_ab, kernel_variants, profile_batch
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "lir_tpu" or m.startswith("lir_tpu.")
-             or m.split(".")[0] in ("pandas", "openpyxl"))
+             or m.split(".")[0] in ("pandas", "openpyxl", "transformers",
+                                    "safetensors", "tokenizers"))
 print("BAD", bad)
 """
 
@@ -60,9 +66,10 @@ def _numpy_tree(node):
     return node.numpy()
 
 
-@pytest.mark.parametrize("entry", ["init_params", "params_from_jax"])
+@pytest.mark.parametrize("entry", ["init_params", "params_from_jax",
+                                   "convert_decoder"])
 def test_param_entry_points_default_to_cuda(monkeypatch, entry):
-    from lir_tpu_torch.models import convert, decoder, registry
+    from lir_tpu_torch.models import convert, decoder, loader, registry
 
     cfg = registry.tiny("llama")
     tree = _numpy_tree(decoder.init_params(cfg, device="cpu"))
@@ -70,8 +77,30 @@ def test_param_entry_points_default_to_cuda(monkeypatch, entry):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         if entry == "init_params":
             decoder.init_params(cfg)
-        else:
+        elif entry == "params_from_jax":
             convert.params_from_jax(tree, cfg)
+        else:
+            loader.convert_decoder({}, cfg, "llama")
+
+
+@pytest.mark.parametrize("entry", ["load_engine", "engine_factory"])
+def test_loader_entry_points_default_to_cuda(monkeypatch, tmp_path, entry):
+    """Neither loads a byte before refusing the missing card; neither
+    falls back to the CPU."""
+    import chip_smoke
+    from lir_tpu_torch.backends.fake import FakeTokenizer
+    from lir_tpu_torch.models import decoder, factory, registry
+
+    cfg = registry.tiny("llama")
+    chip_smoke.export_hf_llama(decoder.init_params(cfg, device="cpu"), cfg,
+                               tmp_path / "tiny-llama")
+    tok = FakeTokenizer(vocab=cfg.vocab_size)
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        if entry == "load_engine":
+            factory.load_engine(tmp_path / "tiny-llama", tokenizer=tok)
+        else:
+            factory.engine_factory(tmp_path, tokenizer=tok)("tiny-llama")
 
 
 def test_cuda_wrappers_refuse_non_cuda_tensors():
