@@ -41,7 +41,12 @@ Phases (each raises on failure, so the script exits non-zero):
    ``cascade_prefix`` + ``cascade_suffix_merge`` at every cascade case,
    the row kernels' first rows against the same rows alone, and
    ``row_add_norm``'s sum against torch's bf16 add and its norm against
-   ``row_norm`` of the sum.
+   ``row_norm`` of the sum. The streaming-statistics fold
+   (``stream_fold``) bitwise its plain twin on a (5, 2,000) lattice, B =
+   32 rows a dispatch, K = 20 log-probs, with pad rows, NaN / negative /
+   over-1 and zero-mass readouts, guard on and off, contiguous and
+   strided readouts and a refold (idempotent), timed beside the empty
+   kernel.
    Times by CUDA events after warm-up, the L2 cache flushed before every
    launch and the stream held by a spin kernel while the host enqueues it
    (device time, without the host's launch time); the library yardstick
@@ -58,7 +63,15 @@ Phases (each raises on failure, so the script exits non-zero):
    perturbation sweep over the three grids of ``sweep_grids`` at 20 cells
    each (B = 4) on the card against the same on the CPU (D6 text fields
    exact, probabilities, weighted confidence and log-probs within 1e-4,
-   a grouped, a cascade and a speculative dispatch taken). Last, at
+   a grouped, a cascade and a speculative dispatch taken; the streaming
+   sinks' lattices the same slots, values within 1e-4). Then the stats
+   phase (``run_stream_stats_phase``): ``summarize(n_boot=1000)`` of a
+   seeded (5, 2,000) lattice, ``truncated_normal_mc_fit`` at 100,000
+   draws, ``bootstrap_correlation_matrix`` (Pearson, Spearman) and
+   ``aggregate_kappa`` on a seeded 50 x 18 matrix at n_boot = 1,000, on
+   the card against the CPU (the same resample indices on both; CIs
+   within 1e-6, the fit and the correlation CIs within 1e-5), with the
+   seconds of each. Last, at
    llama-2-7b width, spec_k decode steps against one verify window fed
    the steps' tokens, on the flat and the trunk kernels: window position
    j's logits must be bitwise step j's (and the same on the 8-bit engine
@@ -102,11 +115,17 @@ Phases (each raises on failure, so the script exits non-zero):
    peak memory of each, failing unless the grid's route ran with its
    kernels (a grouped dispatch on ``flash_decode``; a cascade dispatch on
    its cascade kernels; a speculative one on ``flash_decode_mq``) and
-   unless the artifact holds one row a cell with its values in range; on
-   the bf16 engine the grouped grid profiled (three more runs through
-   ``profile_batch.profile``: launches, device-busy ms and share), and
-   once more on its results path, which must return no rows and launch
-   nothing.
+   unless the artifact holds one row a cell with its values in range.
+   The streaming sink is on (its default): ``stream_fold`` must launch
+   once a dispatch and fold every cell, and the lattice's slots,
+   decisions, counts and kappa must be bitwise ``accum_from_rows`` over
+   the CSV's rows, its moments within FLOAT_TOL. On the bf16 engine the
+   grouped grid profiled (three more runs through
+   ``profile_batch.profile``: launches, device-busy ms and share), once
+   more on its results path, which must return no rows and launch
+   nothing, once more with ``row_artifact=False`` (no CSV, every cell
+   marked, the lattice bitwise the first run's), and each grid with the
+   sink off (rows/s beside the sink-on run's: the sink's cost).
    The loader phase, after the bf16 sweep phase, while phase 3's
    llama-2-7b params are resident: they are written as an HF checkpoint
    in fp16 (two safetensors shards by this script's own writer, an
@@ -179,6 +198,14 @@ from lir_tpu_torch.ops.cascade_prefill import (cascade_attention_plain,
 from lir_tpu_torch.ops.row_gemm import (row_add_norm_plain, row_gemm_plain,
                                         row_norm_plain)
 from lir_tpu_torch.ops.flash_attention import flash_attention_plain
+from lir_tpu_torch.ops.stream_fold import stream_fold_plain
+from lir_tpu_torch.engine import stream_stats
+from lir_tpu_torch.stats import streaming
+from lir_tpu_torch.stats.core import generator_for, resample_indices
+from lir_tpu_torch.stats.correlations import bootstrap_correlation_matrix
+from lir_tpu_torch.stats.fits import truncated_normal_mc_fit
+from lir_tpu_torch.stats.kappa import aggregate_kappa
+from lir_tpu_torch.utils.manifest import SweepManifest
 
 import profile_batch
 
@@ -234,7 +261,17 @@ SOURCES = {
     "quantize_rows": ("lir_tpu_torch/csrc/cascade_prefill.cu",
                       "lir_tpu/ops/cascade_prefill.py:86 (in-kernel)",
                       "llama2-7b/cascade-dispatch"),
+    "stream_fold": ("lir_tpu_torch/csrc/stream_fold.cu",
+                    "lir_tpu/engine/stream_stats.py:114 (XLA fold_update)",
+                    "5x2000/B32"),
 }
+# The streaming-statistics lattice of phase 2 and the stats phase: the
+# paper's five legal prompts x ~2,000 rephrasings, and the top-20 map.
+STREAM_P, STREAM_R, STREAM_K = 5, 2000, 20
+# The stats phase's resamples, the truncated-normal fit's draws
+# (cli.py's default), and the model-comparison matrix (the paper's axis
+# 2: 50 questions x 18 models).
+STATS_N_BOOT, FIT_N_SIM, AXIS2 = 1000, 100_000, (50, 18)
 # The 8-bit small slice on the card against the CPU: floats within this
 # bound. The two devices' activations differ by ~1e-7 (other summation
 # orders); where that crosses a rounding boundary of the per-token
@@ -885,6 +922,75 @@ def check_row_add_norm(gen, label, M, D, floor_ms, results):
     results.append(row)
 
 
+def fold_inputs(gen, B, K, P, R):
+    """One dispatch's fold inputs on the card: B readouts with every
+    branch of the fold's predicate (NaN, negative and over-1
+    probabilities, a zero-mass row, a confidence out of range, NaN and
+    positive log-probs) and three pad rows (ridx = R) last."""
+    yes = torch.rand(B, generator=gen, device=DEV) * 0.7
+    no = torch.rand(B, generator=gen, device=DEV) * (1 - yes)
+    wc = torch.rand(B, generator=gen, device=DEV) * 100
+    lp = -torch.rand((B, K), generator=gen, device=DEV) * 5
+    yes[1], no[2], yes[3], wc[4] = float("nan"), -0.01, 1.2, 100.5
+    yes[5] = no[5] = 0.0
+    lp[6, 3], lp[7, 0] = float("nan"), 0.5
+    cells = torch.randperm(P * R, generator=gen, device=DEV)[:B]
+    pidx, ridx = (cells // R).int(), (cells % R).int()
+    ridx[-3:] = R
+    return yes, no, wc, lp, pidx, ridx
+
+
+def lattice_bits(acc):
+    return {k: v.view(torch.int32) if v.dtype == torch.float32 else v
+            for k, v in acc.items()}
+
+
+def check_stream_fold(gen, floor_ms, results):
+    """The streaming-statistics fold against its plain twin on the card,
+    bitwise: a (5, 2,000) lattice, B = 32 rows a dispatch, K = 20, pad
+    rows and invalid rows, guard on and off, contiguous and strided (the
+    grouped dispatch's row views) readouts, three folds and a refold of
+    the first (idempotent). Timed beside the empty kernel's floor; its
+    bound is the bytes it must move (the B rows' readouts and
+    coordinates read once, 16 bytes stored a real row)."""
+    P, R, B, K = STREAM_P, STREAM_R, BATCH, STREAM_K
+    for guard in (True, False):
+        for strided in (False, True):
+            kern = stream_stats.new_accum(P, R, DEV)
+            plain = stream_stats.new_accum(P, R, DEV)
+            batches = [fold_inputs(gen, B, K, P, R) for _ in range(3)]
+            for yes, no, wc, lp, pidx, ridx in batches + batches[:1]:
+                if strided:
+                    yes, no, wc = (torch.stack([t, t], 1)[:, 0]
+                                   for t in (yes, no, wc))
+                    lp = torch.stack([lp, lp], 1)[:, 0]
+                ops.stream_fold(kern, yes, no, wc, lp, pidx, ridx, guard)
+                stream_fold_plain(plain, yes, no, wc, lp, pidx, ridx, guard)
+            torch.cuda.synchronize()
+            got, ref = lattice_bits(kern), lattice_bits(plain)
+            bad = [k for k in got if not torch.equal(got[k], ref[k])]
+            if bad:
+                raise AssertionError(f"stream_fold (guard={guard}, strided="
+                                     f"{strided}): {bad} differ from the "
+                                     f"plain twin")
+            slots = {(int(p), int(r)) for b in batches
+                     for p, r in zip(b[4][:-3], b[5][:-3])}
+            if int(kern["filled"].sum()) != len(slots):
+                raise AssertionError("stream_fold: pad rows folded")
+    rows = batches[0]
+    acc = stream_stats.new_accum(P, R, DEV)
+    real = int((rows[5] < R).sum())
+    b_ms, b_by = bound(nbytes(*rows) + 16 * real, 0.0)
+    row = dict(kernel="stream_fold", case=f"{P}x{R}/B{B}", P=P, R=R, B=B,
+               K=K, max_abs_err=0.0,
+               kernel_ms=time_ms(lambda: ops.stream_fold(acc, *rows)),
+               plain_ms=time_ms(lambda: stream_fold_plain(acc, *rows)),
+               library_ms=None, bound_ms=b_ms, bound_by=b_by,
+               floor_ms=floor_ms)
+    log(json.dumps(row))
+    results.append(row)
+
+
 def check_flash_attention(gen, label, B, S, H, K, hd, alibi, results):
     """The prefill flash kernel against its plain version at a bucket's
     shape: each row left-padded by its own amount (as the sweep pads
@@ -1151,7 +1257,7 @@ def small_sweep_check(cfg, params_cpu, params_gpu):
     speculative one. Returns the largest float differences."""
     grids = sweep_grids(3)
     rt = RuntimeConfig(batch_size=4, max_new_tokens=12)
-    rows, routes = {}, {}
+    rows, routes, lattices = {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         for side, (params, dev) in enumerate(((params_gpu, DEV),
                                               (params_cpu, "cpu"))):
@@ -1160,6 +1266,7 @@ def small_sweep_check(cfg, params_cpu, params_gpu):
                 rows[dev, name] = sweep.run_perturbation_sweep(
                     eng, "smoke-tiny", prompts, perts,
                     Path(tmp) / f"{side}_{name}.csv")
+                lattices[dev, name] = eng.stream_sink.snapshot()
                 if name == "grouped":
                     routes[dev] = {"grouped_cells":
                                    eng.occupancy.grouped_cells}
@@ -1200,6 +1307,18 @@ def small_sweep_check(cfg, params_cpu, params_gpu):
             if np.asarray(list(la))[sep].tolist() != \
                     np.asarray(list(lb))[sep].tolist():
                 raise AssertionError(f"small sweep {name}: top-20 ids differ")
+        # The sinks' lattices: the same slots, values within the bar.
+        a, b = lattices[DEV, name], lattices["cpu", name]
+        d = max(float(np.nanmax(np.abs(getattr(a, f) - getattr(b, f))))
+                for f in ("rel", "conf"))
+        if not (np.array_equal(a.filled, b.filled)
+                and all(np.array_equal(np.isnan(getattr(a, f)),
+                                       np.isnan(getattr(b, f)))
+                        for f in ("rel", "conf"))
+                and d <= SMALL_SWEEP_TOL):
+            raise AssertionError(f"small sweep {name}: lattices differ card "
+                                 f"vs CPU (max {d})")
+        worst["lattice"] = max(worst.get("lattice", 0.0), d)
     log(json.dumps({"phase": "small_sweep", "ok": True, "routes": routes[DEV],
                     "max_float_diff": worst}))
     return worst
@@ -1665,18 +1784,43 @@ def check_d6(label, path, n_cells):
     return len(recs)
 
 
+def check_stream_lattice(label, sink, cells, path):
+    """The sweep's streaming sink against the CSV it wrote: the lattice's
+    filled slots and decisions bitwise ``accum_from_rows`` over the rows
+    read back (the same code path as a ``--no-streaming-stats`` re-run's
+    analysis), counts and kappa bitwise and moments within FLOAT_TOL
+    (``streaming.assert_parity``). Returns the lattice and a summary."""
+    acc = sink.snapshot()
+    reload = streaming.accum_from_rows(
+        schemas.read_results(path), streaming.slot_map_from_cells(cells),
+        sink.n_prompts, sink.n_rephrase, acc.seed)
+    if not (np.array_equal(acc.filled, reload.filled)
+            and np.array_equal(acc.dec, reload.dec)):
+        raise AssertionError(f"{label}: lattice differs from the CSV's rows")
+    streamed = streaming.summarize(acc, n_boot=0)
+    streaming.assert_parity(streamed,
+                            streaming.summarize(reload, n_boot=0))
+    return acc, dict(rows_folded=acc.rows_folded,
+                     kappa=streamed["kappa"]["kappa"],
+                     n_valid=sum(p["n_valid"] for p in streamed["per_prompt"]),
+                     counters=sink.stats.summary())
+
+
 def run_sweep(label, engine, prompts, perts, path, rt, grid_name, engine_kind,
               trace=False):
     """One perturbation sweep through run_perturbation_sweep into its own
-    CSV: the plan by kind, the routing counters, the launch counts (reset
-    just before, read just after), rows/s by the host clock around work
-    that ends in a synchronize, and the peak device memory. Fails unless
-    the grid's route ran (a grouped dispatch in the plan, a cascade
-    dispatch, a speculative one) with its kernels, and unless the rows on
-    disk are one a cell with their values in range. With ``trace``, the
-    sweep three times more into other CSVs through profile_batch.profile
-    (a warm-up, one on the host clock, one under ``torch.profiler``): its
-    launches, device-busy ms and busy share."""
+    CSV, the streaming sink on (its default): the plan by kind, the
+    routing counters, the launch counts (reset just before, read just
+    after), rows/s by the host clock around work that ends in a
+    synchronize, and the peak device memory. Fails unless the grid's
+    route ran (a grouped dispatch in the plan, a cascade dispatch, a
+    speculative one) with its kernels, unless the rows on disk are one a
+    cell with their values in range, unless ``stream_fold`` launched once
+    a dispatch and folded every cell, and unless the sink's lattice is the
+    CSV's (``check_stream_lattice``). With ``trace``, the sweep three
+    times more into other CSVs through profile_batch.profile (a warm-up,
+    one on the host clock, one under ``torch.profiler``): its launches,
+    device-busy ms and busy share. Returns (stats, the lattice)."""
     cells, dispatches, _ = plan_sweep(engine, prompts, perts, rt)
     plan = {k: sum(d.kind == k for d in dispatches)
             for k in ("shared", "grouped")}
@@ -1708,6 +1852,14 @@ def run_sweep(label, engine, prompts, perts, path, rt, grid_name, engine_kind,
         raise AssertionError(f"{label}: route not taken (plan {plan}, "
                              f"cascade {casc}, spec {spec}, never launched "
                              f"{missing})")
+    sink = engine.stream_sink
+    if (launches["stream_fold"] != len(dispatches)
+            or sink.stats.rows_folded != len(cells)):
+        raise AssertionError(f"{label}: stream_fold launched "
+                             f"{launches['stream_fold']} times for "
+                             f"{len(dispatches)} dispatches, folded "
+                             f"{sink.stats.rows_folded} of {len(cells)} cells")
+    acc, stream = check_stream_lattice(label, sink, cells, path)
     stats = dict(cells=len(cells), rows=n_rows, seconds=dt,
                  rows_per_s=n_rows / dt, plan=plan,
                  occupancy_pct=occ.occupancy_pct,
@@ -1715,7 +1867,7 @@ def run_sweep(label, engine, prompts, perts, path, rt, grid_name, engine_kind,
                  grouped_cells=occ.grouped_cells,
                  buckets=sorted({d.bucket for d in dispatches}),
                  cascade_stats=casc, spec_stats=spec, launches=launches,
-                 max_memory_allocated_bytes=peak)
+                 max_memory_allocated_bytes=peak, stream=stream)
     if trace:
         runs = iter(range(3))
 
@@ -1731,24 +1883,82 @@ def run_sweep(label, engine, prompts, perts, path, rt, grid_name, engine_kind,
                              "device_busy_share", "top_kernels_ms")
                             if k in prof}
     log(json.dumps({"phase": label, **stats}))
-    return stats
+    return stats, acc
+
+
+def engine_with(engine, **rt):
+    """An engine on ``engine``'s params and configs with RuntimeConfig
+    fields replaced."""
+    return ScoringEngine(engine.params, engine.cfg, engine.tokenizer,
+                         dataclasses.replace(engine.rt, **rt),
+                         cascade_config=engine.cascade_cfg,
+                         spec_config=engine.spec_cfg, device=DEV)
+
+
+def sink_cost(kind, engine, grids, tmp: Path, rows_per_s) -> dict:
+    """Each grid once more on an engine with the sink off (the sweep as
+    it ran before the sink), rows/s by the host clock beside the sink-on
+    run's (``rows_per_s``) from this call."""
+    off = engine_with(engine, streaming_stats=False)
+    out = {}
+    for name, (prompts, perts) in grids.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = sweep.run_perturbation_sweep(off, SWEEP_MODEL, prompts, perts,
+                                            tmp / f"{kind}_{name}_nosink.csv")
+        torch.cuda.synchronize()
+        out[name] = dict(rows_per_s_sink_off=len(rows)
+                         / (time.perf_counter() - t0),
+                         rows_per_s_sink_on=rows_per_s[name])
+    if off.stream_sink is not None:
+        raise AssertionError(f"{kind}: the sink ran with streaming_stats off")
+    log(json.dumps({"phase": f"{kind}_sweep_sink_cost", **out}))
+    return out
+
+
+def stream_only_check(kind, engine, grids, tmp: Path, name, ref) -> dict:
+    """Grid ``name`` once more with ``row_artifact=False``: no rows and
+    no CSV, every cell marked in the manifest, and the lattice bitwise
+    ``ref`` (the row-writing run's)."""
+    eng = engine_with(engine, row_artifact=False)
+    path = tmp / f"{kind}_{name}_stream_only.csv"
+    ops.reset_launches()
+    rows = sweep.run_perturbation_sweep(eng, SWEEP_MODEL, *grids[name], path)
+    torch.cuda.synchronize()
+    acc = eng.stream_sink.snapshot()
+    same = all(np.array_equal(getattr(acc, f).view(np.int32),
+                              getattr(ref, f).view(np.int32))
+               for f in ("filled", "rel", "conf", "dec"))
+    marked = len(SweepManifest(path.with_suffix(".manifest.jsonl"),
+                               grid.RESUME_KEY_FIELDS))
+    if rows or path.exists() or marked != ref.rows_folded or not same:
+        raise AssertionError(f"{kind} stream-only {name}: {len(rows)} rows, "
+                             f"CSV {path.exists()}, {marked} marked, "
+                             f"lattice equal {same}")
+    out = dict(rows_folded=acc.rows_folded, marked=marked,
+               stream_fold_launches=ops.launch_counts()["stream_fold"],
+               counters=eng.stream_sink.stats.summary())
+    log(json.dumps({"phase": f"{kind}_sweep_stream_only_{name}", **out}))
+    return out
 
 
 def run_sweep_phase(kind, engine, rt, grids, tmp: Path,
                     trace_and_resume=False):
     """The sweep phase on one engine: the three grids, each into its own
-    CSV under ``tmp``; with ``trace_and_resume`` (the bf16 engine), the
-    grouped grid profiled (tracing all three grids' 185,732 launches
-    added ~90 s to the script on an H100, so only the grid with the
-    fewest launches is traced), then once more on its results path,
-    which must return no rows, dispatch nothing and leave the artifact
-    as it was."""
-    stats = {}
+    CSV under ``tmp``, the streaming sink on; with ``trace_and_resume``
+    (the bf16 engine), the grouped grid profiled (tracing all three
+    grids' 185,732 launches added ~90 s to the script on an H100, so only
+    the grid with the fewest launches is traced), then once more on its
+    results path, which must return no rows, dispatch nothing and leave
+    the artifact as it was, then once more with ``row_artifact=False``
+    (same lattice, bitwise), and each grid with the sink off (its
+    cost)."""
+    stats, lattices = {}, {}
     for name, (prompts, perts) in grids.items():
-        stats[name] = run_sweep(f"{kind}_sweep_{name}", engine, prompts,
-                                perts, tmp / f"{kind}_{name}.csv", rt, name,
-                                kind,
-                                trace=trace_and_resume and name == "grouped")
+        stats[name], lattices[name] = run_sweep(
+            f"{kind}_sweep_{name}", engine, prompts, perts,
+            tmp / f"{kind}_{name}.csv", rt, name, kind,
+            trace=trace_and_resume and name == "grouped")
     if trace_and_resume:
         path = tmp / f"{kind}_grouped.csv"
         before = path.read_bytes()
@@ -1768,6 +1978,12 @@ def run_sweep_phase(kind, engine, rt, grids, tmp: Path,
         stats["resume"] = dict(rows=0, launched=launched,
                                artifact_rows=len(schemas.read_results(path)))
         log(json.dumps({"phase": f"{kind}_sweep_resume", **stats["resume"]}))
+        stats["stream_only"] = stream_only_check(kind, engine, grids, tmp,
+                                                 "grouped",
+                                                 lattices["grouped"])
+        stats["sink_cost"] = sink_cost(
+            kind, engine, grids, tmp,
+            {name: stats[name]["rows_per_s"] for name in grids})
     return stats
 
 
@@ -2117,6 +2333,140 @@ def run_loader_phase(params, cfg, questions=WORD_MEANING_QUESTIONS):
     return stats
 
 
+# ---------------------------------------------------------------------------
+# The stats phase: the finalize, the fit and the axis-2 statistics on the
+# card against the same on the CPU.
+# ---------------------------------------------------------------------------
+
+STATS_SEED = 20261017
+
+
+def seeded_lattice(P: int, R: int, seed: int) -> streaming.HostAccum:
+    """A full (P, R) lattice as a sweep leaves it: every slot filled,
+    relative probabilities from Beta draws, weighted confidences in
+    [0, 100], 2 % of the slots invalid (NaN, decision -1)."""
+    rng = np.random.default_rng(seed)
+    acc = streaming.empty_accum(P, R, seed)
+    acc.filled[:] = 1
+    yes = rng.beta(2.0, 1.5, (P, R)).astype(np.float32)
+    no = (rng.beta(1.5, 2.0, (P, R)) * (1 - yes)).astype(np.float32)
+    ok = rng.random((P, R)) >= 0.02
+    rel = yes / (yes + no)
+    acc.rel[ok] = rel[ok]
+    acc.dec[ok] = (yes > no)[ok]
+    acc.conf[ok] = rng.uniform(0, 100, (P, R)).astype(np.float32)[ok]
+    return acc
+
+
+def timed(fn, device):
+    """(result, seconds) of ``fn()`` after one warm call, ending in a
+    synchronize on the card."""
+    fn()
+    if device == DEV:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if device == DEV:
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def near(a, b, tol) -> bool:
+    return (math.isnan(a) and math.isnan(b)) or abs(a - b) <= tol * max(
+        1.0, abs(b))
+
+
+def run_stream_stats_phase() -> dict:
+    """The statistics on the card against the CPU, with the time of each:
+
+    - ``summarize(n_boot=1000)`` of a seeded (5, 2,000) lattice: the
+      resample indices of every (prompt, field) identical on both devices
+      (drawn on the CPU from ``generator_for(seed, prompt, salt)``),
+      counts and kappa equal, CIs and standard errors within 1e-6
+      relative to max(1, |value|) (float32 means of the same terms
+      reduced in another order);
+    - ``truncated_normal_mc_fit`` on prompt 0's relative probabilities at
+      n_simulations = 100,000: the same iterations, mu and sigma within
+      1e-5 (the loop's float32 means of 100,000 values in another order);
+    - ``bootstrap_correlation_matrix`` (Pearson and Spearman) and
+      ``aggregate_kappa`` on a seeded 50 x 18 matrix at n_boot = 1,000:
+      CIs within 1e-5 (Pearson's cross-product form cancels, amplifying
+      the float32 rounding of the reorder) and 1e-6."""
+    acc = seeded_lattice(STREAM_P, STREAM_R, STATS_SEED)
+    for p in range(STREAM_P):
+        for salt in (0, streaming._CONF_SALT):
+            a = resample_indices(generator_for(acc.seed, p, salt),
+                                 STATS_N_BOOT, STREAM_R, DEV).cpu()
+            b = resample_indices(generator_for(acc.seed, p, salt),
+                                 STATS_N_BOOT, STREAM_R, "cpu")
+            if not torch.equal(a, b):
+                raise AssertionError("stats: resample indices differ")
+    out = {}
+    res = {}
+    for dev in (DEV, "cpu"):
+        res[dev], out[f"summarize_s_{dev}"] = timed(
+            lambda: streaming.summarize(acc, STATS_N_BOOT, device=dev), dev)
+    card, host = res[DEV], res["cpu"]
+    if card["kappa"] != host["kappa"]:
+        raise AssertionError("stats: kappa differs card vs CPU")
+    for pc, ph in zip(card["per_prompt"], host["per_prompt"]):
+        for field in ("relative_prob", "weighted_confidence"):
+            for k in ("ci_lower", "ci_upper", "standard_error", "mean"):
+                if not near(pc[field][k], ph[field][k], 1e-6):
+                    raise AssertionError(f"stats: {field}.{k} card "
+                                         f"{pc[field][k]} CPU {ph[field][k]}")
+    out["kappa"] = card["kappa"]["kappa"]
+    out["prompt0_relative_prob_ci"] = [card["per_prompt"][0]["relative_prob"]
+                                       [k] for k in ("ci_lower", "ci_upper")]
+
+    vals = streaming.prompt_values(acc, "rel", 0)
+    fits = {}
+    for dev in (DEV, "cpu"):
+        (fits[dev], _), out[f"fit_s_{dev}"] = timed(
+            lambda: truncated_normal_mc_fit(
+                vals, generator_for(STATS_SEED, 0, 1), FIT_N_SIM,
+                device=dev), dev)
+    fc, fh = fits[DEV], fits["cpu"]
+    if fc["Iterations"] != fh["Iterations"] or not all(
+            near(fc[k], fh[k], 1e-5) for k in ("Underlying Normal Mean",
+                                               "Underlying Normal Std Dev")):
+        raise AssertionError(f"stats: fit differs card vs CPU: {fc} / {fh}")
+    out["fit"] = {k: fc[k] for k in ("Iterations", "Underlying Normal Mean",
+                                     "Underlying Normal Std Dev",
+                                     "KS p-value")}
+
+    rng = np.random.default_rng(STATS_SEED)
+    base = rng.uniform(0, 1, AXIS2[0])
+    pivot = base[:, None] * rng.uniform(0.5, 1.0, AXIS2[1]) + rng.normal(
+        0, 0.2, AXIS2)
+    pivot[rng.random(AXIS2) < 0.05] = np.nan
+    binary = (np.nan_to_num(pivot, nan=0.0) > 0.5).astype(float)
+    for method in ("pearson", "spearman"):
+        mats = {}
+        for dev in (DEV, "cpu"):
+            g = lambda: generator_for(STATS_SEED, 2)  # noqa: E731
+            mats[dev], out[f"corr_{method}_s_{dev}"] = timed(
+                lambda: bootstrap_correlation_matrix(
+                    pivot, g(), method, STATS_N_BOOT, device=dev), dev)
+        for k in ("mean_ci", "median_ci", "std_ci"):
+            if not all(near(x, y, 1e-5) for x, y in zip(mats[DEV][k],
+                                                        mats["cpu"][k])):
+                raise AssertionError(f"stats: {method} {k} card "
+                                     f"{mats[DEV][k]} CPU {mats['cpu'][k]}")
+        out[f"corr_{method}_mean_ci"] = list(mats[DEV]["mean_ci"])
+    kap = {}
+    for dev in (DEV, "cpu"):
+        kap[dev], out[f"aggregate_kappa_s_{dev}"] = timed(
+            lambda: aggregate_kappa(binary, generator_for(STATS_SEED, 3),
+                                    STATS_N_BOOT, device=dev), dev)
+    if not all(near(kap[DEV][k], kap["cpu"][k], 1e-6) for k in kap["cpu"]):
+        raise AssertionError(f"stats: aggregate kappa differs {kap}")
+    out["aggregate_kappa"] = [kap[DEV][k] for k in (
+        "aggregate_kappa", "kappa_ci_lower", "kappa_ci_upper")]
+    log(json.dumps({"phase": "stream_stats", **out}))
+    return out
+
+
 def kernel_label(mangled: str) -> str:
     """A kernel's name and raw template arguments from its mangled name,
     e.g. ``prefix_wgmma_kernel<Li128>``."""
@@ -2321,12 +2671,15 @@ def main() -> int:
         check_row_norm(gen, f"llama2-7b/M{M}", M, D, floor_ms, results)
         check_row_add_norm(gen, f"llama2-7b/M{M}", M, D, floor_ms, results)
     check_row_add_norm(gen, "falcon-7b/M32", BATCH, 4544, floor_ms, results)
+    check_stream_fold(gen, floor_ms, results)
     elapsed("kernels_vs_plain")
     small = small_model()
     small_slice_check(*small)
     elapsed("small_slice")
     small_sweep_check(*small)
     elapsed("small_sweep")
+    run_stream_stats_phase()
+    elapsed("stream_stats")
     verify_step_check(params, engine.cfg, rt.spec_k, "bf16",
                       measure_library=True)
 
@@ -2362,7 +2715,7 @@ def main() -> int:
                                               "occupancy_pct",
                                               "max_memory_allocated_bytes")}
         for kind, by_grid in sweeps.items()
-        for name, st in by_grid.items() if name != "resume"}}))
+        for name, st in by_grid.items() if name in grids}}))
     log(json.dumps({
         "phase": "int8_vs_bf16",
         "param_bytes": {"bf16": quant.param_bytes(params),

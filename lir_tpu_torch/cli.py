@@ -7,7 +7,7 @@ Port of the ``sweep`` and ``perturb`` commands of ``lir_tpu/cli.py``.
 Each flag lands in the same ``RuntimeConfig`` / ``SpecConfig`` /
 ``CascadeConfig`` field as there. A flag of a feature the port does not
 have yet (meshes, the parameter cache, the int8 KV cache, the prefix
-cache, leased shards, the fleet, tracing) is not defined, so argparse
+cache, leased shards, the fleet, the watchdog, tracing) is not defined, so argparse
 rejects it. ``--device`` (default ``cuda``) says where the models run;
 the CPU must be asked for.
 
@@ -126,6 +126,21 @@ def _add_perturb(sub) -> None:
                    help="flat decode kernels instead of the trunk-aware ones")
     p.add_argument("--no-cascade-fused-suffix", action="store_true",
                    help="the two-leg cascade instead of the fused kernel")
+    # Streaming statistics and the numerics guard.
+    p.add_argument("--no-streaming-stats", action="store_true",
+                   help="disable the device-resident streaming-statistics "
+                        "sink (per-dispatch lattice fold, accumulator "
+                        "checkpoints); statistics then come only from the "
+                        "row artifact")
+    p.add_argument("--no-row-artifact", action="store_true",
+                   help="with streaming stats on, write no per-row CSV: no "
+                        "per-row payload crosses to the host, and resume "
+                        "runs on the manifest + accumulator checkpoint")
+    p.add_argument("--no-numerics-guard", action="store_true",
+                   help="disable the score-extraction numerics guard "
+                        "(NaN/Inf/out-of-range rows are then written "
+                        "verbatim instead of quarantined as error:numerics "
+                        "— measurement only)")
 
 
 def _perturb_configs(args):
@@ -153,7 +168,10 @@ def _perturb_configs(args):
                         ("no_spec_decode", "spec_decode"),
                         ("no_cascade_prefill", "cascade_prefill"),
                         ("no_cascade_decode", "cascade_decode"),
-                        ("no_cascade_fused_suffix", "cascade_fused_suffix")):
+                        ("no_cascade_fused_suffix", "cascade_fused_suffix"),
+                        ("no_streaming_stats", "streaming_stats"),
+                        ("no_row_artifact", "row_artifact"),
+                        ("no_numerics_guard", "numerics_guard")):
         if getattr(args, flag):
             rt_kw[field] = False
     spec_kw = {}

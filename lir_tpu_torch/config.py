@@ -4,8 +4,7 @@ A copy of the part of the JAX package's ``RuntimeConfig``,
 ``SpecConfig`` and ``CascadeConfig`` that this port implements. A flag
 of the JAX engine that the port does not implement yet (fleet or
 radix-tree drafting, piggyback prefill, the prefix cache, the int8 KV
-cache, the streaming-statistics sink, the numerics guard and watchdog,
-leased shards, the XLA compile plan) is absent here, so that no caller
+cache, the watchdog, leased shards, the XLA compile plan) is absent here, so that no caller
 can set it and have it ignored. int8 weights are not a flag: they are
 a param tree of ``models.quant.QuantTensor`` leaves
 (``quantize_decoder_params`` or ``init_quantized_params``).
@@ -88,6 +87,27 @@ class RuntimeConfig:
     # int8-QK^T cascade (CascadeConfig.int8_qk) takes the two-leg route
     # whatever this says.
     cascade_fused_suffix: bool = True
+
+    # Numerics guard (guard/numerics.py): the perturbation sweep checks
+    # every row's readouts before the row is built; a row with NaN/Inf or
+    # out-of-range probabilities is written quarantined as
+    # "error:numerics" with its measurement fields nulled, and the
+    # streaming sink's fold marks it invalid by the same bounds. Off
+    # writes such rows verbatim (measurement only).
+    numerics_guard: bool = True
+
+    # Streaming statistics (engine/stream_stats.py): every perturbation-
+    # sweep dispatch folds its position-0 readouts into a device-resident
+    # (prompt, rephrasing) lattice with one kernel launch, checkpointed
+    # beside the results as <stem>.accum.npz; stats/streaming.summarize
+    # turns it into per-prompt moments, percentiles, bootstrap CIs and
+    # the within-prompt kappa without reloading the CSV. Off: statistics
+    # only from the row artifact.
+    streaming_stats: bool = True
+    # With streaming_stats on, False skips the row artifact entirely: no
+    # per-row payload is copied to the host, resume runs on the manifest
+    # and the lattice checkpoint. True keeps the CSV (schema parity).
+    row_artifact: bool = True
 
 
 @dataclasses.dataclass(frozen=True)

@@ -40,6 +40,7 @@ import torch
 
 from ..config import CascadeConfig, RuntimeConfig, SpecConfig
 from ..device import resolve_device
+from ..utils.profiling import GuardStats
 from . import generate, score, spec as spec_mod, tokens as tok
 
 log = logging.getLogger(__name__)
@@ -115,6 +116,12 @@ class ScoringEngine:
         # The last ragged sweep's scheduler counters
         # (utils.profiling.OccupancyStats; None outside a ragged sweep).
         self.occupancy = None
+        # The numerics guard's counters (the perturbation sweep checks
+        # every row's readouts when RuntimeConfig.numerics_guard is on),
+        # and the last perturbation sweep's streaming-statistics sink
+        # (engine/stream_stats.StreamSink; None with the sink off).
+        self.guard_stats = GuardStats()
+        self.stream_sink = None
         self.yes_id, self.no_id = tok.yes_no_ids(tokenizer)
         self.eos_id = getattr(tokenizer, "eos_token_id", None)
         if self.rt.ragged_scheduler:

@@ -10,12 +10,17 @@ one batched decode per bucket) and perturb_prompts.py:551-726,917-1066
 checkpoint-every-100-rows and done-set resume semantics kept,
 perturb_prompts.py:975-984,161-188).
 
-The perturbation sweep routes as the JAX sweep does with these of its
-engine features off, which the port does not have yet: the
-streaming-statistics sink, the numerics guard and the dispatch
-recovery/watchdog, piggyback chains, the prefix cache and its draft
-recording, multihost shards and leases, the reasoning (sampled) mode,
-and the XLA compile plan (which has no counterpart in eager PyTorch).
+The perturbation sweep routes as the JAX sweep does, with its
+streaming-statistics sink (``engine/stream_stats.py``: every dispatch
+folds its readouts into a device lattice, checkpointed beside the CSV
+as ``<stem>.accum.npz``, its bootstrap seed recorded in the manifest)
+and its numerics guard (a row whose readouts fail
+``guard.numerics.check_values`` is written quarantined as
+``error:numerics``), and with these of its engine features off, which
+the port does not have yet: the dispatch recovery/watchdog, piggyback
+chains, the prefix cache and its draft recording, multihost shards and
+leases, the reasoning (sampled) mode, and the XLA compile plan (which
+has no counterpart in eager PyTorch).
 """
 
 from __future__ import annotations
@@ -33,12 +38,14 @@ import torch
 
 from ..data import schemas
 from ..data.prompts import LegalPrompt
+from ..guard import numerics
 from ..utils.manifest import SweepManifest
-from ..utils.profiling import OccupancyStats
+from ..utils.profiling import OccupancyStats, StreamStats
 from . import generate
 from . import grid as grid_mod
 from . import scheduler as sched_mod
 from . import score as score_mod
+from . import stream_stats as stream_mod
 from . import tokens as tok
 from .runner import ScoringEngine, _tail_batch
 
@@ -144,6 +151,34 @@ def run_perturbation_sweep(
     todo = grid_mod.pending_cells(cells, manifest)
     log.info("%s: %d/%d grid cells pending", model_name, len(todo), len(cells))
 
+    # Streaming statistics (engine/stream_stats.py): a device lattice
+    # every dispatch folds its readouts into with one launch — grid ->
+    # percentile/kappa/bootstrap-CI estimates without rows through the
+    # host. The bootstrap seed is recorded in the manifest on the first
+    # run and read back on resume; the lattice checkpoints at every
+    # flush (atomic write) and is re-seeded from that checkpoint, re-folds
+    # of already-dispatched rows being idempotent by slot.
+    sink = None
+    accum_path = None
+    write_rows = True
+    if engine.rt.streaming_stats and cells:
+        n_reph = 1 + max(c.rephrase_idx for c in cells)
+        stream_seed = manifest.meta.get("stream_seed")
+        if stream_seed is None:
+            stream_seed = int(seed)
+            manifest.set_meta("stream_seed", stream_seed)
+        sink = stream_mod.StreamSink(
+            len(prompts), n_reph, int(stream_seed),
+            guard=engine.rt.numerics_guard, stats=StreamStats(),
+            device=engine.device)
+        accum_path = results_path.with_suffix(stream_mod.ACCUM_SUFFIX)
+        if len(manifest) and accum_path.exists() and sink.load(accum_path):
+            log.info("streaming stats: resumed accumulator from %s "
+                     "(%d rows already folded)", accum_path,
+                     sink.snapshot().rows_folded)
+        write_rows = bool(engine.rt.row_artifact)
+    engine.stream_sink = sink
+
     # Pre-resolve per-prompt target token ids once (SURVEY §7 hard part 1).
     target_ids = {pi: tok.target_token_ids(engine.tokenizer, p.target_tokens)
                   for pi, p in enumerate(prompts)}
@@ -161,12 +196,22 @@ def run_perturbation_sweep(
                    else min(rt.sweep_confidence_tokens, rt.max_new_tokens))
     _run_pipelined(engine, model_name, todo, target_ids, results_path,
                    manifest, checkpoint_every, new_tokens, conf_tokens, rows,
-                   pending_rows)
+                   pending_rows, sink, accum_path, write_rows)
     engine.spec_flush()
     if engine.spec_stats.get("spec_dispatches"):
         log.info("speculative decode: %s", json.dumps(dict(engine.spec_stats)))
+    if engine.guard_stats.quarantined:
+        log.info("numerics guard: %s", json.dumps(engine.guard_stats.summary()))
+    if sink is not None:
+        # Cheap finalize (counts + kappa; CIs on demand through
+        # sink.finalize(n_boot=...)): the live-estimate readout.
+        final = sink.finalize(n_boot=0)
+        log.info("streaming stats: %d rows folded on device, kappa=%.4f; "
+                 "counters: %s", final["rows_folded"],
+                 final["kappa"]["kappa"], json.dumps(sink.stats.summary()))
     if pending_rows:
-        _flush(pending_rows, results_path, manifest)
+        _flush(pending_rows, results_path, manifest, sink=sink,
+               accum_path=accum_path)
     return rows
 
 
@@ -207,15 +252,21 @@ def _plan_ragged(engine, todo, new_tokens, conf_tokens):
 
 def _run_pipelined(engine, model_name, todo, target_ids, results_path,
                    manifest, checkpoint_every, new_tokens, conf_tokens,
-                   rows, pending_rows) -> None:
+                   rows, pending_rows, sink=None, accum_path=None,
+                   write_rows=True) -> None:
     """The sweep loop, pipelined over a writer thread.
 
     - MAIN thread: plan (ragged) or batch in todo order (legacy), and
-      dispatch each batch's binary and confidence decodes; CUDA work is
-      queued on the stream, and the result tensors go to the writer.
+      dispatch each batch's binary and confidence decodes, then the
+      sink's fold of its readouts; CUDA work is queued on the stream,
+      and the result tensors go to the writer.
     - WRITER thread: copy a batch's outputs to the host (``.cpu()``
-      waits for the device), decode completion text, build D6 rows, and
-      run the checkpoint flushes.
+      waits for the device), check each row's readouts with the
+      numerics guard, decode completion text, build D6 rows, and run
+      the checkpoint flushes (the sink's lattice first, so stream order
+      makes every checkpoint a superset of the rows it flushes). With
+      ``write_rows`` False (streaming only), nothing is copied: the
+      writer marks the batch's cells done after a lattice checkpoint.
 
     The queue is bounded (depth 2), so at most ~3 batches of decode
     outputs are alive on the device, each referenced until its copy is
@@ -243,11 +294,42 @@ def _run_pipelined(engine, model_name, todo, target_ids, results_path,
         t2 = np.asarray([target_ids[c.prompt_idx][1] for c in cells], np.int32)
         return t1, t2
 
-    def _readout(fused, t1, t2):
-        return score_mod.readout_from_fused(
+    def _emit(batch, fused, cfused, t1, t2):
+        """Readout, the sink's fold (on this thread, on the dispatch's
+        stream; pad rows past ``batch`` drop), then the writer."""
+        res = score_mod.readout_from_fused(
             fused, engine._t(t1), engine._t(t2), scan_positions=1)
+        if sink is not None:
+            sink.fold(res.yes_prob, res.no_prob, cfused.weighted_confidence,
+                      fused.topk_logprobs, batch)
+        work_q.put((batch, fused, res, cfused))
+
+    # Streaming-only manifest marks (no rows to key them off). The
+    # lattice checkpoints FIRST, then the cells are marked done: a crash
+    # between the two re-dispatches cells whose folds are already
+    # (idempotently) in the checkpoint, and never marks a cell done that
+    # the lattice lost.
+    pending_marks: List[dict] = []
+
+    def _flush_marks():
+        sink.checkpoint(accum_path)
+        manifest.mark_done_many(pending_marks)
+        log.info("checkpoint: +%d rows (streaming-only) -> %s",
+                 len(pending_marks), accum_path)
+        del pending_marks[:]
 
     def _drain(batch, fused, res, cfused):
+        if not write_rows:
+            # Streaming only: no per-row payload is copied to the host;
+            # the bytes the CSV path would have copied are counted.
+            sink.note_bytes_avoided(
+                (fused.generated, fused.topk_logprobs, fused.topk_ids,
+                 cfused.generated, cfused.weighted_confidence,
+                 res.yes_prob, res.no_prob))
+            pending_marks.extend(c.resume_record() for c in batch)
+            if len(pending_marks) >= checkpoint_every:
+                _flush_marks()
+            return
         yes_p, no_p, lp_vals, lp_ids, gen_host, wconf, cgen_host = (
             t.cpu().numpy() for t in (
                 res.yes_prob, res.no_prob, fused.topk_logprobs,
@@ -262,6 +344,41 @@ def _run_pipelined(engine, model_name, todo, target_ids, results_path,
                 occupancy.add_decode(_steps_used(cgen_host[j], engine.eos_id),
                                      int(cgen_host.shape[1]))
         for j, cell in enumerate(batch):
+            t1p, t2p, wc = float(yes_p[j]), float(no_p[j]), float(wconf[j])
+            # Numerics guard: the readouts are checked BEFORE they become
+            # a row. A corrupt row (NaN/Inf logits, an insane
+            # renormalization) is written quarantined with its cell
+            # identity and every measurement field nulled, instead of
+            # landing in the CSV as plausible-looking numbers.
+            reason = None
+            if engine.rt.numerics_guard:
+                engine.guard_stats.site("checked", "sweep")
+                reason = numerics.check_values(t1p, t2p, wc, lp_vals[j])
+            if reason is not None:
+                engine.guard_stats.quarantine("sweep", reason)
+                log.warning("numerics guard: quarantined cell %r (%s)",
+                            cell.rephrased_main[:40], reason)
+                row = schemas.PerturbationRow(
+                    model=model_name,
+                    original_main=cell.original_main,
+                    response_format=cell.response_format,
+                    confidence_format=cell.confidence_format,
+                    rephrased_main=cell.rephrased_main,
+                    full_rephrased_prompt=cell.binary_prompt,
+                    full_confidence_prompt=cell.confidence_prompt,
+                    model_response=numerics.NUMERICS_ERROR,
+                    model_confidence_response=(
+                        f"{numerics.NUMERICS_ERROR} — {reason} "
+                        f"(row quarantined by the numerics guard)"),
+                    log_probabilities="",
+                    token_1_prob=None,
+                    token_2_prob=None,
+                    confidence_value=None,
+                    weighted_confidence=None,
+                )
+                rows.append(row)
+                pending_rows.append(row)
+                continue
             completion = engine.decode_completion(gen_host[j])
             conf_text = engine.decode_completion(cgen_host[j])
             # A short confidence decode that never reached EOS may have cut
@@ -281,15 +398,16 @@ def _run_pipelined(engine, model_name, todo, target_ids, results_path,
                 model_response=completion,
                 model_confidence_response=conf_text,
                 log_probabilities=json.dumps(logprob_map),
-                token_1_prob=float(yes_p[j]),
-                token_2_prob=float(no_p[j]),
+                token_1_prob=t1p,
+                token_2_prob=t2p,
                 confidence_value=_parse_confidence(conf_text, conf_complete),
-                weighted_confidence=float(wconf[j]),
+                weighted_confidence=wc,
             )
             rows.append(row)
             pending_rows.append(row)
         if len(pending_rows) >= checkpoint_every:
-            _flush(pending_rows, results_path, manifest)
+            _flush(pending_rows, results_path, manifest, sink=sink,
+                   accum_path=accum_path)
             del pending_rows[:]
 
     def _writer():
@@ -322,7 +440,7 @@ def _run_pipelined(engine, model_name, todo, target_ids, results_path,
                 [c.confidence_prompt for c in full],
                 t1, t2, new_tokens=new_tokens, conf_tokens=conf_tokens,
                 early_stop=early_stop)
-            work_q.put((batch, fused, _readout(fused, t1, t2), cfused))
+            _emit(batch, fused, cfused, t1, t2)
 
     def _dispatch_ragged():
         for d in dispatches:
@@ -369,7 +487,7 @@ def _run_pipelined(engine, model_name, todo, target_ids, results_path,
 
                 fused = _branch(0, new_tokens)
                 cfused = _branch(1, conf_tokens)
-            work_q.put((batch, fused, _readout(fused, t1, t2), cfused))
+            _emit(batch, fused, cfused, t1, t2)
 
     wt = threading.Thread(target=_writer, name="sweep-writer", daemon=True)
     wt.start()
@@ -384,13 +502,22 @@ def _run_pipelined(engine, model_name, todo, target_ids, results_path,
         wt.join()
     if writer_err:
         raise writer_err[0]
+    if pending_marks:
+        _flush_marks()
 
 
 def _flush(rows: List[schemas.PerturbationRow], results_path: Path,
-           manifest: SweepManifest) -> None:
+           manifest: SweepManifest, sink=None, accum_path=None) -> None:
     """Append rows then mark them done (write-ahead order: a crash
-    between the two re-scores at most one checkpoint, never loses
-    rows)."""
+    between the two re-scores at most one checkpoint, never loses rows).
+
+    The sink's lattice checkpoints FIRST: the resume done-set is the
+    union of the manifest and the results artifact, so a lattice written
+    after the rows could miss rows that union declares done — a
+    permanent hole. Checkpoint-then-append keeps the lattice a superset
+    of the done-set, and superset folds are idempotent re-scores."""
+    if sink is not None:
+        sink.checkpoint(accum_path)
     schemas.write_perturbation_results(rows, results_path, append=True)
     manifest.mark_done_many([
         {"model": r.model, "original_main": r.original_main,

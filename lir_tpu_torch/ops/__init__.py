@@ -25,6 +25,10 @@
   norms and residual-add-then-norms of the decode step and the verify
   window, each row reduced in one fixed order whatever the number of
   rows (``csrc/row_gemm.cu``), so a window's row is bitwise the step's.
+- ``stream_fold``: the sweep's streaming-statistics fold, one dispatch's
+  readouts into the (P, R) accumulator lattice in place
+  (``csrc/stream_fold.cu``; the counterpart of the JAX package's XLA
+  ``fold_update``).
 
 Each wrapper keeps a plain int ``launches`` that it raises by one where
 it launches its CUDA kernel, and nowhere else (``flash_attention`` also
@@ -49,6 +53,7 @@ from .flash_decode import (DECODE_SPLIT, flash_decode, flash_decode_mq,
 from .lse import merge_partials
 from .row_gemm import (gemm_splits, row_add_norm, row_add_norm_plain,
                        row_gemm, row_gemm_plain, row_norm, row_norm_plain)
+from .stream_fold import stream_fold, stream_fold_plain
 
 KERNELS = {
     "flash_decode": flash_decode,
@@ -64,6 +69,7 @@ KERNELS = {
     "row_add_norm": row_add_norm,
     "cascade_suffix_merge": cascade_suffix_merge,
     "quantize_rows": quantize_rows,
+    "stream_fold": stream_fold,
 }
 
 
@@ -88,5 +94,6 @@ __all__ = [
     "flash_decode_trunk_plain", "launch_counts", "merge_partials",
     "prefix_partials", "prefix_partials_int8", "reset_launches",
     "gemm_splits", "row_add_norm", "row_add_norm_plain", "row_gemm",
-    "row_gemm_plain", "row_norm", "row_norm_plain",
+    "row_gemm_plain", "row_norm", "row_norm_plain", "stream_fold",
+    "stream_fold_plain",
 ]

@@ -9,6 +9,7 @@ Copies from the JAX package's ``utils/profiling.py``:
   the card's published peak) with ``scoring_step_flops``;
 - ``GuardStats``: the numerics guard's per-site counters (its
   quarantine part);
+- ``StreamStats``: the streaming-statistics sink's counters;
 - ``device_memory_stats``: per-device memory from
   ``torch.cuda.memory_stats``.
 """
@@ -283,6 +284,56 @@ class GuardStats:
                 "quarantined": dict(self.quarantined),
                 "quarantined_total": sum(self.quarantined.values()),
                 "quarantine_reasons": dict(self.reasons),
+            }
+
+
+@dataclasses.dataclass
+class StreamStats:
+    """Streaming-statistics sink counters (engine/stream_stats.py),
+    thread-safe: the sweep's main thread folds while its writer thread
+    checkpoints.
+
+    - ``rows_folded`` / ``dispatch_folds``: grid rows folded into the
+      device lattice and the fold launches that carried them (one a
+      dispatch);
+    - ``host_bytes_avoided``: bytes of per-row dispatch payloads never
+      copied to the host because the row artifact was skipped;
+      ``accum_bytes`` gauges the lattice itself (what a checkpoint or
+      finalize does copy);
+    - ``checkpoints`` / ``merges``: lattice snapshots written at flush
+      boundaries, and lattice merges;
+    - ``finalize_s``: seconds spent in grid -> CIs finalizes.
+    """
+
+    rows_folded: int = 0
+    dispatch_folds: int = 0
+    host_bytes_avoided: int = 0
+    accum_bytes: int = 0
+    checkpoints: int = 0
+    merges: int = 0
+    finalize_s: float = 0.0
+
+    def __post_init__(self) -> None:
+        self._lock = threading.Lock()
+
+    def count(self, field: str, n=1) -> None:
+        with self._lock:
+            setattr(self, field, getattr(self, field) + n)
+
+    def gauge(self, field: str, value) -> None:
+        with self._lock:
+            setattr(self, field, value)
+
+    def summary(self) -> Dict[str, object]:
+        with self._lock:
+            return {
+                "rows_folded": self.rows_folded,
+                "dispatch_folds": self.dispatch_folds,
+                "host_bytes_avoided": self.host_bytes_avoided,
+                "accum_bytes": self.accum_bytes,
+                "checkpoints": self.checkpoints,
+                "merges": self.merges,
+                "finalize_s": round(self.finalize_s, 4),
             }
 
 

@@ -149,6 +149,7 @@ PERTURB_FLAGS = [
     ["--cascade-min-rows", "4"], ["--cascade-int8-qk"],
     ["--no-cascade-decode"], ["--no-cascade-fused-suffix"],
     ["--int8"], ["--int8", "--int8-dynamic"],
+    ["--no-streaming-stats"], ["--no-row-artifact"], ["--no-numerics-guard"],
 ]
 
 
@@ -220,8 +221,7 @@ UNPORTED = [
     ["--lease-ttl", "5"], ["--weight-cache-gb", "1"], ["--no-weight-prefetch"],
     ["--trace-out", "t.json"], ["--multihost"], ["--no-piggyback"],
     ["--spec-draft-model", "x"], ["--no-spec-tree-probe"],
-    ["--no-numerics-guard"], ["--watchdog-multiple", "2"],
-    ["--no-streaming-stats"], ["--no-row-artifact"], ["--dtype", "float32"],
+    ["--watchdog-multiple", "2"], ["--dtype", "float32"],
     ["--no-aot-precompile"], ["--barrier-timeout", "5"], ["--no-hbm-governor"],
 ]
 

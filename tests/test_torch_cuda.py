@@ -29,6 +29,9 @@ masked windows and every head dim, and the trunk keys' quantization pass
 bitwise ``dynamic_quant`` at every layer's keys of a llama-2-7b dispatch.
 A tiny fp16 HF checkpoint (``chip_smoke.export_hf_llama``) loads to the
 card bitwise as it loads to the CPU, in bf16, in float32 and quantized.
+The streaming-statistics fold is bitwise its plain twin (guard on and
+off, strided readouts, refolds), and the sink on the card holds the CPU
+sink's lattice bitwise, its finalize's CIs within 1e-6 of the CPU's.
 """
 
 import dataclasses
@@ -807,3 +810,99 @@ def test_checkpoint_loads_to_the_card_as_to_the_cpu(gen, tmp_path, dtype, int8):
         else:
             assert leaf.device.type == "cuda" and leaf.dtype == dtype
             assert torch.equal(leaf.cpu(), ref), path
+
+
+def _fold_inputs(gen, B, K, P, R):
+    """Readouts with every branch of the fold's predicate (NaN, negative,
+    over-1 and zero-mass rows, NaN and positive log-probs) and pad rows
+    (ridx = R), on the card."""
+    yes = torch.rand(B, generator=gen, device="cuda") * 0.7
+    no = torch.rand(B, generator=gen, device="cuda") * (1 - yes)
+    wc = torch.rand(B, generator=gen, device="cuda") * 100
+    lp = -torch.rand((B, K), generator=gen, device="cuda") * 5
+    yes[1], no[2], yes[3], wc[4] = float("nan"), -0.01, 1.2, 100.5
+    yes[5] = no[5] = 0.0
+    lp[6, 3], lp[7, 0] = float("nan"), 0.5
+    cells = torch.randperm(P * R, generator=gen, device="cuda")[:B]
+    pidx, ridx = (cells // R).int(), (cells % R).int()
+    ridx[-3:] = R
+    return yes, no, wc, lp, pidx, ridx
+
+
+@pytest.mark.parametrize("guard", [True, False])
+@pytest.mark.parametrize("strided", [False, True])
+def test_stream_fold_kernel_bitwise_plain(gen, guard, strided):
+    """The fold kernel against its plain twin on the card, bitwise, over
+    three folds into a (5, 2,000) lattice (the last refolding the first's
+    rows: idempotent), B = 32, K = 20."""
+    from lir_tpu_torch.engine.stream_stats import new_accum
+
+    P, R = 5, 2000
+    kern, plain = new_accum(P, R, "cuda"), new_accum(P, R, "cuda")
+    batches = [_fold_inputs(gen, 32, 20, P, R) for _ in range(2)]
+    for rows in batches + batches[:1]:
+        yes, no, wc, lp, pidx, ridx = rows
+        if strided:
+            yes, no, wc = (torch.stack([t, t], 1)[:, 0] for t in (yes, no, wc))
+            lp = torch.stack([lp, lp], 1)[:, 0]
+        before = ops.stream_fold.launches
+        ops.stream_fold(kern, yes, no, wc, lp, pidx, ridx, guard)
+        assert ops.stream_fold.launches == before + 1
+        ops.stream_fold_plain(plain, yes, no, wc, lp, pidx, ridx, guard)
+    torch.cuda.synchronize()
+    for name in kern:
+        a, b = kern[name], plain[name]
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), name
+    slots = {(int(p), int(r)) for rows in batches
+             for p, r in zip(rows[4][:-3], rows[5][:-3])}
+    assert int(kern["filled"].sum()) == len(slots)       # pad rows dropped
+
+
+def test_stream_fold_refuses_wrong_inputs(gen):
+    from lir_tpu_torch.engine.stream_stats import new_accum
+
+    acc = new_accum(2, 8, "cuda")
+    yes, no, wc, lp, pidx, ridx = _fold_inputs(gen, 12, 20, 2, 8)
+    with pytest.raises(ValueError, match="float32"):
+        ops.stream_fold(acc, yes.double(), no, wc, lp, pidx, ridx)
+    with pytest.raises(ValueError, match="int32"):
+        ops.stream_fold(acc, yes, no, wc, lp, pidx.long(), ridx)
+    with pytest.raises(ValueError, match="lattice"):
+        ops.stream_fold(dict(acc, rel=acc["rel"].t()), yes, no, wc, lp,
+                        pidx, ridx)
+
+
+def test_streaming_finalize_on_card_matches_cpu(gen):
+    """The sink on the card holds the CPU sink's lattice bitwise, and
+    summarize draws the same resample indices on either device: CIs
+    within 1e-6 (float32 means reduced in another order)."""
+    from lir_tpu_torch.engine.stream_stats import StreamSink
+    from lir_tpu_torch.stats import streaming
+
+    @dataclasses.dataclass
+    class Cell:
+        prompt_idx: int
+        rephrase_idx: int
+
+    sinks = {d: StreamSink(5, 400, seed=3, device=d) for d in ("cuda", "cpu")}
+    for _ in range(20):
+        yes, no, wc, lp, pidx, ridx = _fold_inputs(gen, 32, 20, 5, 400)
+        cells = [Cell(int(p), int(r)) for p, r in zip(pidx[:-3], ridx[:-3])]
+        for d, sink in sinks.items():
+            sink.fold(yes.to(d), no.to(d), wc.to(d), lp.to(d), cells)
+    card, host = sinks["cuda"].snapshot(), sinks["cpu"].snapshot()
+    for name in ("filled", "dec"):
+        assert (getattr(card, name) == getattr(host, name)).all()
+    for name in ("rel", "conf"):
+        assert (getattr(card, name).view("int32")
+                == getattr(host, name).view("int32")).all()
+    a = streaming.summarize(card, n_boot=1000, device="cuda")
+    b = streaming.summarize(host, n_boot=1000, device="cpu")
+    assert a["kappa"] == b["kappa"]
+    for pa, pb in zip(a["per_prompt"], b["per_prompt"]):
+        for field in ("relative_prob", "weighted_confidence"):
+            for k in ("ci_lower", "ci_upper", "standard_error"):
+                assert abs(pa[field][k] - pb[field][k]) <= 1e-6 * max(
+                    1.0, abs(pb[field][k])), (field, k)

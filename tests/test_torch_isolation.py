@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither JAX nor the JAX package (nor
-pandas or openpyxl, which the card's machine lacks, nor transformers,
+pandas, openpyxl, matplotlib or seaborn, which the card's machine lacks,
+nor transformers,
 safetensors or tokenizers, which its loader does without), and its
 entry points never fall back to the CPU on their own."""
 
@@ -27,12 +28,18 @@ import lir_tpu_torch.models.loader, lir_tpu_torch.models.factory
 import lir_tpu_torch.engine.multi, lir_tpu_torch.engine.rephrase
 import lir_tpu_torch.guard.numerics, lir_tpu_torch.utils.logging
 import lir_tpu_torch.cli
+import lir_tpu_torch.stats, lir_tpu_torch.stats.core, lir_tpu_torch.stats.kappa
+import lir_tpu_torch.stats.bootstrap, lir_tpu_torch.stats.correlations
+import lir_tpu_torch.stats.agreement, lir_tpu_torch.stats.fits
+import lir_tpu_torch.stats.normality, lir_tpu_torch.stats.streaming
+import lir_tpu_torch.engine.stream_stats, lir_tpu_torch.ops.stream_fold
 import chip_smoke, kernel_ab, kernel_variants, profile_batch
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "lir_tpu" or m.startswith("lir_tpu.")
              or m.split(".")[0] in ("pandas", "openpyxl", "transformers",
-                                    "safetensors", "tokenizers"))
+                                    "safetensors", "tokenizers",
+                                    "matplotlib", "seaborn"))
 print("BAD", bad)
 """
 

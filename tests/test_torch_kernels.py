@@ -189,6 +189,13 @@ def test_wrappers_count_only_kernel_launches():
     ops.quantize_rows(x)
     qf = torch.randn((1, 5, 2, 64))
     ops.flash_attention(qf, qf, qf)
+    acc = {"filled": torch.zeros((2, 4), dtype=torch.int32),
+           "rel": torch.zeros((2, 4)), "conf": torch.zeros((2, 4)),
+           "dec": torch.zeros((2, 4), dtype=torch.int32)}
+    r = torch.rand(3)
+    ops.stream_fold(acc, r, r, r, -torch.rand((3, 20)),
+                    torch.zeros(3, dtype=torch.int32),
+                    torch.arange(3, dtype=torch.int32))
     assert set(ops.flash_attention.route_launches.values()) == {0}
     assert ops.launch_counts() == {"flash_decode": 0, "flash_decode_trunk": 0,
                                    "cascade_attention": 0,
@@ -200,4 +207,4 @@ def test_wrappers_count_only_kernel_launches():
                                    "row_gemm": 0, "row_norm": 0,
                                    "row_add_norm": 0,
                                    "cascade_suffix_merge": 0,
-                                   "quantize_rows": 0}
+                                   "quantize_rows": 0, "stream_fold": 0}

@@ -232,14 +232,15 @@ def test_absent_features_are_absent_and_rows_match(jax_run, port_runs):
     """The JAX sweep's engine features the port has not ported are not
     flags of the port (none can be set and ignored), the sweep has no
     reasoning mode, and the port's rows are the JAX sweep's with all of
-    them off."""
+    them off. The streaming sink and the numerics guard are ported: their
+    flags default as the JAX package's."""
     fields = {f.name for f in dataclasses.fields(RuntimeConfig)}
-    for name in ("streaming_stats", "piggyback_prefill", "prefix_cache",
-                 "lease_shards", "numerics_guard", "aot_precompile",
-                 "row_artifact"):
+    for name in ("piggyback_prefill", "prefix_cache", "lease_shards",
+                 "aot_precompile"):
         assert name not in fields
     for name in ("sweep_full_completions", "sweep_group_min_prefix",
-                 "sweep_group_min_cells"):
+                 "sweep_group_min_cells", "streaming_stats",
+                 "numerics_guard", "row_artifact"):
         assert getattr(RuntimeConfig(), name) == \
             getattr(JaxRuntimeConfig(), name)
     params = inspect.signature(tsweep.run_perturbation_sweep).parameters
@@ -362,8 +363,10 @@ def test_writer_failure_preserves_resume(jax_run, tmp_path, monkeypatch):
     with pytest.raises(OSError, match="disk full"):
         tsweep.run_perturbation_sweep(eng, MODEL, PROMPTS, PERTS, path,
                                       checkpoint_every=4)
+    # Done records only: the manifest also carries the streaming sink's
+    # ``{"__meta__": {"stream_seed": ...}}`` line, as the JAX one does.
     marked = [l for l in path.with_suffix(".manifest.jsonl")
-              .read_text().splitlines() if l]
+              .read_text().splitlines() if l and "__meta__" not in l]
     assert len(marked) == 4
     assert len(tschemas.read_results(path)) == 4
     monkeypatch.setattr(tsweep.schemas, "write_perturbation_results", real)
