@@ -71,7 +71,21 @@ Phases (each raises on failure, so the script exits non-zero):
    ``aggregate_kappa`` on a seeded 50 x 18 matrix at n_boot = 1,000, on
    the card against the CPU (the same resample indices on both; CIs
    within 1e-6, the fit and the correlation CIs within 1e-5), with the
-   seconds of each. Last, at
+   seconds of each. Then the analysis phase (``run_analysis_phase``):
+   the pinned synthetic D6 (``data.synthetic``, 1,300 rows, two models)
+   through ``analysis.perturbation.analyze_all_models`` on the card and
+   on the CPU (the same files; the ``.tex`` identical; text, flags and
+   counts equal; numbers within 1e-5 of max(1, |x|), the fits'
+   goodness-of-fit statistics within 1e-3), each held to the executed
+   reference's ``analyze_perturbation_results`` in
+   ``tests/golden/reference_executed.json`` (the CPU tests'
+   tolerances); then the paper's scale through ``python -m
+   lir_tpu_torch analyze`` (a seeded D6 of 5 x 2,000 rows by the port's
+   D6 writer at 100,000 draws a fit, a D2 of 50 questions x 18 models
+   and its D1 over 9 base/instruct families), once on the card and once
+   on the CPU, compared as above and checked against what the inputs
+   fix, with each driver's seconds and the card's peak memory on the
+   ``{"phase": "analysis", ...}`` line. Last, at
    llama-2-7b width, spec_k decode steps against one verify window fed
    the steps' tokens, on the flat and the trunk kernels: window position
    j's logits must be bitwise step j's (and the same on the 8-bit engine
@@ -142,7 +156,11 @@ Phases (each raises on failure, so the script exits non-zero):
    NaN rows, D1 150 rows and D2 100 on disk, ``flash_decode``,
    ``row_gemm``, ``row_norm`` and ``row_add_norm`` launched, and the
    device memory allocated after the call within 64 MB of before (each
-   model released). Once more on the base model loaded with
+   model released); those D1/D2 files through ``analyze`` on the card:
+   the llama family's base-vs-instruct deltas, the D2's model graph
+   stopped by KeyError on the model with no checkpoint (its NaN rows;
+   the JAX package's behaviour, ROADMAP caveat R5), and run to its end
+   without those rows. Once more on the base model loaded with
    ``quantize_int8=True, int8_dynamic=True``: every int8 leaf bitwise
    ``quantize_decoder_params``' quantization of the fp16 checkpoint's
    bf16 tree, status ``ok``, 50 rows, rows/s and peak memory beside the
@@ -206,6 +224,12 @@ from lir_tpu_torch.stats.correlations import bootstrap_correlation_matrix
 from lir_tpu_torch.stats.fits import truncated_normal_mc_fit
 from lir_tpu_torch.stats.kappa import aggregate_kappa
 from lir_tpu_torch.utils.manifest import SweepManifest
+from lir_tpu_torch import cli as port_cli
+from lir_tpu_torch.analysis import base_vs_instruct as analysis_bvi
+from lir_tpu_torch.analysis import kappa_combined as analysis_kappa
+from lir_tpu_torch.analysis import model_graph as analysis_graph
+from lir_tpu_torch.analysis import perturbation as analysis_perturbation
+from lir_tpu_torch.data import synthetic, table as table_mod
 
 import profile_batch
 
@@ -2293,11 +2317,15 @@ def run_loader_phase(params, cfg, questions=WORD_MEANING_QUESTIONS):
         n = len(questions)
         _check_model_rows("loader_bf16_comparison", art, specs, questions,
                           3 * n, 2 * n)
-        d1 = schemas.read_results(root / "bf16" / "model_comparison_results.csv")
-        d2 = schemas.read_results(
-            root / "bf16" / "instruct_model_comparison_results.csv")
+        d1_path = root / "bf16" / "model_comparison_results.csv"
+        d2_path = root / "bf16" / "instruct_model_comparison_results.csv"
+        d1 = schemas.read_results(d1_path)
+        d2 = schemas.read_results(d2_path)
         if len(d1) != 3 * n or len(d2) != 2 * n:
             raise AssertionError(f"loader: D1/D2 on disk {len(d1)} / {len(d2)}")
+        stats["analyze"] = analyze_loader_artifacts(root / "bf16", d1_path,
+                                                    d2_path)
+        log(json.dumps({"phase": "loader_analyze", **stats["analyze"]}))
 
         factory8 = engine_factory(root, rt, quantize_int8=True,
                                   int8_dynamic=True, tokenizer=tokenizer,
@@ -2465,6 +2493,347 @@ def run_stream_stats_phase() -> dict:
         "aggregate_kappa", "kappa_ci_lower", "kappa_ci_upper")]
     log(json.dumps({"phase": "stream_stats", **out}))
     return out
+
+
+# ---------------------------------------------------------------------------
+# The analysis phase: the analyze path (perturbation, base-vs-instruct,
+# model graph, combined kappa) on the card against the CPU, against the
+# executed reference's outputs, and at the paper's scale through the CLI.
+# ---------------------------------------------------------------------------
+
+GOLDEN_PATH = (Path(__file__).resolve().parent / "tests" / "golden"
+               / "reference_executed.json")
+ANALYSIS_SEED = 20261018
+# The paper's scale: five legal prompts x 2,000 rephrasings (D6), 50
+# questions x 18 models (D2), the same questions over 9 base/instruct
+# families (D1).
+PAPER_REPHRASINGS = 2000
+PAPER_MODEL = "meta-llama/Llama-2-7b-chat-hf"
+PAPER_FAMILIES = ("llama", "falcon", "mpt", "qwen", "gemma", "baichuan",
+                  "internlm", "yi", "olmo")
+# Card against CPU from the same draws: the fits' and the bootstraps'
+# float32 reductions run in another order.
+FIT_TOL = 1e-5
+# The goodness-of-fit statistics of the fits' samples: a simulated value
+# that the reorder moves past an observed one shifts an empirical CDF by
+# 1/n; the adequacy flags are compared where the p-values sit farther
+# than this from the 0.05 threshold.
+GOF_TOL = 1e-3
+GOF_FLAGS = {"Model Adequate (KS p>0.05)": ("KS p-value",),
+             "Model Adequate (AD p>0.05)": ("AD p-value",),
+             "Model Adequate (Combined)": ("KS p-value", "AD p-value")}
+GOF_COLUMNS = ("KS Statistic", "KS p-value", "AD Statistic", "AD p-value")
+ANALYSIS_DRIVERS = (
+    ("perturbation", analysis_perturbation, "analyze_all_models"),
+    ("base_vs_instruct", analysis_bvi, "run_base_vs_instruct_analysis"),
+    ("model_graph", analysis_graph, "run_model_graph_analysis"),
+    ("kappa", analysis_kappa, "run_kappa_analysis"),
+)
+
+
+def _same_cell(a, b, tol) -> bool:
+    if table_mod.is_missing(a) or table_mod.is_missing(b):
+        return table_mod.is_missing(a) and table_mod.is_missing(b)
+    if isinstance(a, (bool, np.bool_, str)) or isinstance(b, (bool, np.bool_,
+                                                              str)):
+        return a == b
+    return near(float(a), float(b), tol)
+
+
+def compare_artifacts(label: str, card_dir: Path, cpu_dir: Path) -> int:
+    """The card's analyze artifacts against the CPU's: the same files; the
+    ``.tex`` files identical; each CSV the same header and rows, text and
+    flags equal, numbers within FIT_TOL of max(1, |x|) (GOF_COLUMNS
+    within GOF_TOL, and their flags only where the p-values sit farther
+    than GOF_TOL from 0.05). Returns the number of files compared."""
+    def files(root):
+        return sorted(p.relative_to(root) for p in root.rglob("*")
+                      if p.is_file())
+    names = files(cpu_dir)
+    if files(card_dir) != names or not names:
+        raise AssertionError(f"{label}: files differ card {files(card_dir)} "
+                             f"CPU {names}")
+    for rel in names:
+        a, b = card_dir / rel, cpu_dir / rel
+        if rel.suffix == ".tex":
+            if a.read_bytes() != b.read_bytes():
+                raise AssertionError(f"{label}: {rel} differs card vs CPU")
+            continue
+        ta, tb = table_mod.read_table(a), table_mod.read_table(b)
+        if ta.columns != tb.columns or len(ta) != len(tb):
+            raise AssertionError(f"{label}: {rel} shape differs")
+        p_values = {c: tb[c] for c in ("KS p-value", "AD p-value")
+                    if c in tb}
+        for col in tb.columns:
+            tol = GOF_TOL if col in GOF_COLUMNS else FIT_TOL
+            for i, (x, y) in enumerate(zip(ta[col], tb[col])):
+                if col in GOF_FLAGS and any(
+                        abs(float(p_values[p][i]) - 0.05) <= GOF_TOL
+                        for p in GOF_FLAGS[col] if p in p_values):
+                    continue
+                if not _same_cell(x, y, tol):
+                    raise AssertionError(f"{label}: {rel} {col}[{i}] card "
+                                         f"{x} CPU {y}")
+    return len(names)
+
+
+def _golden_close(a, b, rel=0.0, abs_tol=0.0) -> bool:
+    a, b = float(a), float(b)
+    if math.isnan(a) or math.isnan(b):
+        return math.isnan(a) and math.isnan(b)
+    return abs(a - b) <= max(abs_tol, rel * abs(b))
+
+
+def check_golden(label: str, result: dict, golden: dict) -> None:
+    """One model's analyze_model tables against the executed reference's
+    (``tests/golden/reference_executed.json``): text, flags and counts
+    exact, floats to rel 1e-6 (abs 1e-9); the truncated-normal fit's
+    rows matched by (Prompt, Column), its deterministic columns to 1e-6
+    (inflation shares to 1e-12), its Monte Carlo columns (the reference
+    ran its own draws) within rel 0.05 or 0.05 of the column's scale, KS
+    within 0.08."""
+    stems = {"summary": "summary_statistics",
+             "normality": "normality_test_results",
+             "kappa": "cohens_kappa_results",
+             "compliance": "output_compliance_results",
+             "confidence_compliance": "confidence_compliance_results"}
+    for key, stem in stems.items():
+        ours = result[key]
+        for col, want in golden[stem].items():
+            got = list(ours[col])
+            ok = len(got) == len(want) and all(
+                (g == w) if isinstance(w, (bool, str, int))
+                else _golden_close(g, w, 1e-6, 1e-9)
+                for g, w in zip(got, want))
+            if not ok:
+                raise AssertionError(f"{label}: {stem}.{col} {got} vs the "
+                                     f"executed reference {want}")
+    ref = golden["truncated_normal_test_results"]
+    ours = result["truncated"]
+    rows = {(p, c): i for i, (p, c) in enumerate(zip(ours["Prompt"],
+                                                     ours["Column"]))}
+    if len(rows) != len(ref["Prompt"]):
+        raise AssertionError(f"{label}: truncated fit rows")
+    for j, key in enumerate(zip(ref["Prompt"], ref["Column"])):
+        i = rows[key]
+        scale = 100.0 if float(ref["Observed Mean"][j]) > 1.5 else 1.0
+        checks = [(c, 1e-6, 1e-9 * scale) for c in (
+            "Observed Mean", "Observed Std Dev", "Interior Mean",
+            "Interior Std Dev")]
+        checks += [(c, 0.0, 1e-12) for c in ("Zero Proportion",
+                                             "One Proportion")]
+        checks += [(c, 0.05, 0.05 * scale) for c in (
+            "Underlying Normal Mean", "Underlying Normal Std Dev",
+            "Simulated Mean", "Simulated Std Dev")]
+        checks += [("KS Statistic", 0.0, 0.08)]
+        for col, rel, abs_tol in checks:
+            if not _golden_close(ours[col][i], ref[col][j], rel, abs_tol):
+                raise AssertionError(
+                    f"{label}: truncated {key} {col} {ours[col][i]} vs the "
+                    f"executed reference {ref[col][j]}")
+
+
+def paper_scale_inputs(root: Path, seed: int = ANALYSIS_SEED):
+    """Seeded artifacts at the paper's scale, written by the port's own
+    writers: a D6 of the five legal prompts x PAPER_REPHRASINGS rows (a
+    sweep's local top-20 id map as the log-probabilities, clipped
+    relative probabilities with exact 0/1 mass, integer confidences), a
+    D1 of the 50 questions over PAPER_FAMILIES' base and instruct models
+    and the D2 of the same 18 models. Returns (d6, d1, d2, per-prompt
+    relative probabilities as written)."""
+    rng = np.random.default_rng(seed)
+    rows, rel_by_prompt = [], []
+    for p in LEGAL_PROMPTS:
+        n = PAPER_REPHRASINGS
+        rel = np.clip(rng.normal(rng.uniform(0.25, 0.75), 0.25, n), 0, 1)
+        total = rng.uniform(0.5, 0.99, n)
+        conf = np.clip(rng.normal(65.0, 20.0, n), 0, 100)
+        ids = rng.integers(0, 32000, (n, STREAM_K))
+        lps = -np.sort(rng.exponential(3.0, (n, STREAM_K)), axis=1)
+        t1, t2 = rel * total, (1 - rel) * total
+        rel_by_prompt.append(t1 / (t1 + t2))
+        for i in range(n):
+            main = f"[rephrasing {i}] {p.main}"
+            c = int(round(conf[i]))
+            rows.append(schemas.PerturbationRow(
+                model=PAPER_MODEL, original_main=p.main,
+                response_format=p.response_format,
+                confidence_format=p.confidence_format, rephrased_main=main,
+                full_rephrased_prompt=p.rephrased_binary(main),
+                full_confidence_prompt=p.rephrased_confidence(main),
+                model_response=p.target_tokens[0 if rel[i] > 0.5 else 1],
+                model_confidence_response=str(c),
+                log_probabilities=json.dumps(
+                    {str(int(t)): float(v) for t, v in zip(ids[i], lps[i])}),
+                token_1_prob=float(t1[i]), token_2_prob=float(t2[i]),
+                confidence_value=float(c), weighted_confidence=float(conf[i])))
+    d6 = root / "paper_d6.csv"
+    schemas.write_perturbation_results(rows, d6, append=False)
+    lean = rng.uniform(0.05, 0.95, len(WORD_MEANING_QUESTIONS))
+    scores = []
+    for fam in PAPER_FAMILIES:
+        for kind, name in (("base", f"org-{fam}/{fam}-7b"),
+                           ("instruct", f"org-{fam}/{fam}-7b-instruct")):
+            rel = np.clip(lean + rng.normal(0, 0.2, lean.size), 0.01, 0.99)
+            total = rng.uniform(0.2, 0.9, lean.size)
+            for q, r, t in zip(WORD_MEANING_QUESTIONS, rel, total):
+                scores.append(schemas.ScoreRow(
+                    q, name, kind, "Yes" if r > 0.5 else "No",
+                    float(r * t), float((1 - r) * t)))
+    d1, d2 = root / "paper_d1.csv", root / "paper_d2.csv"
+    schemas.write_model_comparison_csv(scores, d1)
+    schemas.write_instruct_comparison_csv(scores, d2)
+    return d6, d1, d2, rel_by_prompt
+
+
+def timed_analyze(argv, device) -> dict:
+    """``python -m lir_tpu_torch analyze`` (``cli.main``) with the seconds
+    of each driver it calls and of the whole command."""
+    seconds = {}
+    saved = []
+    for name, module, attr in ANALYSIS_DRIVERS:
+        fn = getattr(module, attr)
+
+        def wrapped(*a, _fn=fn, _name=name, **kw):
+            t0 = time.perf_counter()
+            out = _fn(*a, **kw)
+            if device == DEV:
+                torch.cuda.synchronize()
+            seconds[_name] = time.perf_counter() - t0
+            return out
+        setattr(module, attr, wrapped)
+        saved.append((module, attr, fn))
+    try:
+        t0 = time.perf_counter()
+        port_cli.main(["analyze", *argv, "--device", device])
+        seconds["command"] = time.perf_counter() - t0
+    finally:
+        for module, attr, fn in saved:
+            setattr(module, attr, fn)
+    return seconds
+
+
+def check_paper_outputs(out: Path, rel_by_prompt) -> None:
+    """What the paper-scale inputs fix: each prompt's summary mean is the
+    mean of its written relative probabilities; every local-format row is
+    first-token compliant and every integer confidence compliant; 9
+    families, an 18 x 18 correlation matrix, finite CIs, a Baichuan
+    anchor, and the combined kappa of at least one matched title."""
+    pert = out / "perturbation" / analysis_perturbation.model_dir_name(
+        PAPER_MODEL)
+    summary = table_mod.read_table(pert / "summary_statistics.csv")
+    for k, (p, want) in enumerate(zip(LEGAL_PROMPTS, rel_by_prompt)):
+        got = summary[f'Mean Relative Probability of "{p.target_tokens[0]}"'][k]
+        if not near(float(got), float(np.mean(want)), 1e-12):
+            raise AssertionError(f"analysis: summary mean {got} vs "
+                                 f"{np.mean(want)}")
+    comp = table_mod.read_table(pert / "output_compliance_results.csv")
+    conf = table_mod.read_table(pert / "confidence_compliance_results.csv")
+    if (list(comp["First_Token_Compliant"]) != [PAPER_REPHRASINGS] * 5
+            or list(conf["Confidence_Compliant"]) != [PAPER_REPHRASINGS] * 5):
+        raise AssertionError("analysis: paper-scale compliance counts")
+    fams = table_mod.read_table(out / "base_vs_instruct"
+                                / "model_rel_prob_statistics.csv")
+    if sorted(fams["Model_Family"]) != sorted(PAPER_FAMILIES) or not np.all(
+            np.isfinite(fams["Correlation"])):
+        raise AssertionError(f"analysis: families {list(fams['Model_Family'])}")
+    corr = table_mod.read_table(out / "model_graph"
+                                / "model_spearman_correlation_matrix.csv")
+    agg = table_mod.read_table(out / "model_graph"
+                               / "aggregate_kappa_results.csv")
+    if (len(corr) != 18 or len(corr.columns) != 19 or not np.all(np.isfinite(
+            np.stack([corr[c] for c in corr.columns[1:]])))
+            or not np.isfinite(agg["kappa_ci_lower"][0])):
+        raise AssertionError("analysis: model graph outputs")
+    combined = table_mod.read_table(out / "kappa"
+                                    / "combined_kappa_results.csv")
+    if len(combined) < 1 or not np.all(np.isfinite(combined["Combined Mean Kappa"])):
+        raise AssertionError("analysis: no combined kappa")
+
+
+def run_analysis_phase() -> dict:
+    """The analysis phase (see the module docstring). Returns its line."""
+    golden = json.loads(GOLDEN_PATH.read_text())["analyze_perturbation_results"]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        d6 = synthetic.write_synthetic_d6(root / "synthetic_d6.csv")
+        res = {}
+        for dev in (DEV, "cpu"):
+            t0 = time.perf_counter()
+            res[dev] = analysis_perturbation.analyze_all_models(
+                d6, root / f"synthetic_{dev}", make_figures=False, device=dev)
+            if dev == DEV:
+                torch.cuda.synchronize()
+            out[f"synthetic_seconds_{dev}"] = time.perf_counter() - t0
+        out["synthetic_files"] = compare_artifacts(
+            "analysis/synthetic", root / f"synthetic_{DEV}",
+            root / "synthetic_cpu")
+        for dev, by_model in res.items():
+            for model, section in golden.items():
+                check_golden(f"analysis/synthetic/{dev}/{model}",
+                             by_model[model], section)
+
+        d6p, d1, d2, rel_by_prompt = paper_scale_inputs(root)
+        argv = ["--perturbation-results", str(d6p), "--base-csv", str(d1),
+                "--instruct-csv", str(d2), "--no-figures",
+                "--n-simulations", str(FIT_N_SIM)]
+        out["paper_d6_bytes"] = d6p.stat().st_size
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out[f"paper_seconds_{DEV}"] = timed_analyze(
+            argv + ["--out", str(root / "paper_card")], DEV)
+        # The command's own peak: phase 3's llama-2-7b tree stays resident.
+        out["paper_peak_bytes_above_resident"] = \
+            torch.cuda.max_memory_allocated() - resident
+        out["resident_bytes"] = resident
+        out["paper_seconds_cpu"] = timed_analyze(
+            argv + ["--out", str(root / "paper_cpu")], "cpu")
+        out["paper_files"] = compare_artifacts(
+            "analysis/paper", root / "paper_card", root / "paper_cpu")
+        check_paper_outputs(root / "paper_card", rel_by_prompt)
+    log(json.dumps({"phase": "analysis", **out}))
+    return out
+
+
+def analyze_loader_artifacts(root: Path, d1: Path, d2: Path) -> dict:
+    """The loader phase's own D1/D2 through ``analyze``: the base-vs-
+    instruct deltas of the llama family (base and chat, 50 questions);
+    the D2, which holds the model with no checkpoint as NaN rows, stops
+    the model graph with KeyError on that model, as the JAX package does
+    (ROADMAP caveat R5); without those rows it runs to its end."""
+    t0 = time.perf_counter()
+    port_cli.main(["analyze", "--base-csv", str(d1), "--no-figures",
+                   "--out", str(root / "analysis"), "--device", DEV])
+    stats = table_mod.read_table(root / "analysis" / "base_vs_instruct"
+                                 / "model_rel_prob_statistics.csv")
+    if list(stats["Model_Family"]) != ["llama"] or not (
+            0 < stats["Num_Samples"][0] <= len(WORD_MEANING_QUESTIONS)):
+        raise AssertionError(f"loader analyze: {stats.columns} "
+                             f"{list(stats['Model_Family'])}")
+    try:
+        port_cli.main(["analyze", "--instruct-csv", str(d2), "--no-figures",
+                       "--out", str(root / "analysis"), "--device", DEV])
+    except KeyError as exc:
+        if exc.args != (LOADER_ABSENT,):
+            raise
+    else:
+        raise AssertionError("loader analyze: the D2 with an error model's "
+                             "NaN rows did not stop the model graph (R5)")
+    d2_table = table_mod.read_table(d2)
+    ok_rows = d2_table.take(d2_table["model"] != LOADER_ABSENT)
+    ok_rows.to_csv(root / "d2_ok.csv")
+    port_cli.main(["analyze", "--instruct-csv", str(root / "d2_ok.csv"),
+                   "--no-figures", "--out", str(root / "analysis_ok"),
+                   "--device", DEV])
+    kappa = table_mod.read_table(root / "analysis_ok" / "model_graph"
+                                 / "model_pairwise_kappa_matrix.csv")
+    if list(kappa.columns) != ["", LOADER_CHAT]:
+        raise AssertionError(f"loader analyze: {kappa.columns}")
+    return {"seconds": time.perf_counter() - t0,
+            "llama_pairs": int(stats["Num_Samples"][0]),
+            "llama_correlation": float(stats["Correlation"][0])}
 
 
 def kernel_label(mangled: str) -> str:
@@ -2680,6 +3049,8 @@ def main() -> int:
     elapsed("small_sweep")
     run_stream_stats_phase()
     elapsed("stream_stats")
+    run_analysis_phase()
+    elapsed("analysis")
     verify_step_check(params, engine.cfg, rt.spec_k, "bf16",
                       measure_library=True)
 

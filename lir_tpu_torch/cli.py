@@ -2,14 +2,16 @@
 
   sweep        word-meaning model-comparison sweep -> D1/D2 CSVs
   perturb      perturbation grid sweep (with resume) -> D6 CSV
+  analyze      statistical analyses over the D1/D2/D6 artifacts
 
-Port of the ``sweep`` and ``perturb`` commands of ``lir_tpu/cli.py``.
+Port of the ``sweep``, ``perturb`` and ``analyze`` commands of
+``lir_tpu/cli.py``.
 Each flag lands in the same ``RuntimeConfig`` / ``SpecConfig`` /
 ``CascadeConfig`` field as there. A flag of a feature the port does not
 have yet (meshes, the parameter cache, the int8 KV cache, the prefix
 cache, leased shards, the fleet, the watchdog, tracing) is not defined, so argparse
-rejects it. ``--device`` (default ``cuda``) says where the models run;
-the CPU must be asked for.
+rejects it. ``--device`` (default ``cuda``) says where the models and the
+statistics run; the CPU must be asked for.
 
 Model weights must be local checkpoint directories (zero egress); pass
 --checkpoints pointing at a root containing ``<org>__<name>`` dirs.
@@ -18,6 +20,7 @@ Model weights must be local checkpoint directories (zero egress); pass
 from __future__ import annotations
 
 import argparse
+import sys
 from pathlib import Path
 from typing import List, Optional
 
@@ -143,6 +146,22 @@ def _add_perturb(sub) -> None:
                         "— measurement only)")
 
 
+def _add_analyze(sub) -> None:
+    p = sub.add_parser("analyze", help="statistical analyses over artifacts")
+    p.add_argument("--perturbation-results", type=Path, default=None,
+                   help="D6 results -> perturbation distribution suite")
+    p.add_argument("--base-csv", type=Path, default=None,
+                   help="D1 -> base-vs-instruct deltas")
+    p.add_argument("--instruct-csv", type=Path, default=None,
+                   help="D2 -> model graph suite (+ kappa combiner when the "
+                        "D6 results are also given)")
+    p.add_argument("--out", type=Path, default=Path("results/analysis"))
+    p.add_argument("--no-figures", action="store_true")
+    p.add_argument("--n-simulations", type=int, default=100_000)
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the statistics run (default cuda)")
+
+
 def _perturb_configs(args):
     """(RuntimeConfig, SpecConfig, CascadeConfig) of the perturb flags, the
     fields the JAX ``*_rt_kw`` helpers fill."""
@@ -232,6 +251,55 @@ def cmd_perturb(args) -> None:
     log.info("perturbation sweep wrote %d rows", len(rows))
 
 
+def cmd_analyze(args) -> None:
+    from .device import resolve_device
+
+    device = resolve_device(args.device)
+    if not (args.perturbation_results or args.base_csv or args.instruct_csv):
+        log.error("analyze: give at least one of --perturbation-results, "
+                  "--base-csv, --instruct-csv")
+        sys.exit(2)
+    make_figures = not args.no_figures
+    if make_figures:
+        from .report.figures import require_matplotlib
+
+        try:
+            require_matplotlib()
+        except ImportError:
+            log.warning("analyze: matplotlib is not installed; figures "
+                        "skipped")
+            make_figures = False
+    if args.perturbation_results:
+        from .analysis.perturbation import analyze_all_models
+
+        analyze_all_models(
+            args.perturbation_results, args.out / "perturbation",
+            n_simulations=args.n_simulations, make_figures=make_figures,
+            device=device,
+        )
+    if args.base_csv:
+        from .analysis.base_vs_instruct import run_base_vs_instruct_analysis
+
+        run_base_vs_instruct_analysis(
+            args.base_csv, args.out / "base_vs_instruct",
+            make_figures=make_figures,
+        )
+    if args.instruct_csv:
+        from .analysis.model_graph import run_model_graph_analysis
+
+        run_model_graph_analysis(
+            args.instruct_csv, args.out / "model_graph",
+            make_figures=make_figures, device=device,
+        )
+        if args.perturbation_results:
+            from .analysis.kappa_combined import run_kappa_analysis
+
+            run_kappa_analysis(
+                args.instruct_csv, args.perturbation_results,
+                args.out / "kappa", make_figures=make_figures, device=device,
+            )
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     parser = argparse.ArgumentParser(
         prog="lir_tpu_torch", description=__doc__,
@@ -239,8 +307,10 @@ def main(argv: Optional[List[str]] = None) -> None:
     sub = parser.add_subparsers(dest="command", required=True)
     _add_sweep(sub)
     _add_perturb(sub)
+    _add_analyze(sub)
     args = parser.parse_args(argv)
-    if args.int8_dynamic and not args.int8:
+    if getattr(args, "int8_dynamic", False) and not args.int8:
         parser.error("--int8-dynamic requires --int8 (it selects HOW int8 "
                      "matmuls run, not whether weights are quantized)")
-    {"sweep": cmd_sweep, "perturb": cmd_perturb}[args.command](args)
+    {"sweep": cmd_sweep, "perturb": cmd_perturb,
+     "analyze": cmd_analyze}[args.command](args)

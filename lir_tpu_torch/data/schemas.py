@@ -383,6 +383,16 @@ def read_results(path: Path) -> List[Dict[str, str]]:
             for row in rows]
 
 
+def read_results_frame(path: Path):
+    """A results artifact as the JAX package's ``read_results_frame``
+    reads it (``pandas.read_csv``; an ``.xlsx`` path is read from its
+    ``.csv``), as a pandas-free :class:`~lir_tpu_torch.data.table.Table`
+    with pandas' column types."""
+    from .table import read_table
+
+    return read_table(resolve_results_path(path))
+
+
 # ---------------------------------------------------------------------------
 # D5: perturbations.json cache
 # ---------------------------------------------------------------------------

@@ -64,7 +64,11 @@ def normality_tests(
         return empty
 
     mu, sigma = scipy_stats.norm.fit(values)
-    ks_stat, ks_p = scipy_stats.kstest(values, "norm", args=(mu, sigma))
+    # The fitted normal's CDF as a callable: the same norm.cdf(x, mu,
+    # sigma) that kstest(values, "norm", args=(mu, sigma)) evaluates,
+    # where scipy 1.18 routes the string to a CDF that takes no loc/scale.
+    ks_stat, ks_p = scipy_stats.kstest(
+        values, lambda x: scipy_stats.norm.cdf(x, mu, sigma))
     with warnings.catch_warnings():
         # scipy >= 1.17 deprecates the critical-value result shape; we use
         # exactly that shape (statistic + critical values) to reproduce the

@@ -1,4 +1,5 @@
-"""The port's CLI (``python -m lir_tpu_torch sweep|perturb``) on the CPU.
+"""The port's CLI (``python -m lir_tpu_torch sweep|perturb|analyze``) on
+the CPU.
 
 - ``sweep`` writes the D1/D2 CSVs that ``run_model_comparison_sweep``
   writes when called directly on the same checkpoints, byte for byte.
@@ -12,6 +13,10 @@
 - A flag of a feature the port does not have yet is rejected, as are
   ``--int8-dynamic`` without ``--int8`` and ``--full-completions`` with a
   decode budget; the default device is the card.
+- ``analyze`` writes the files ``lir_tpu.cli analyze`` writes on the same
+  inputs, with the same CSV headers; its flags are the JAX command's plus
+  ``--device`` (default the card); it exits 2 without an input, and
+  without matplotlib it skips the figures with a log line.
 """
 
 import dataclasses
@@ -277,3 +282,100 @@ def test_perturbation_cache_matches_the_jax_format(tmp_path):
     with pytest.raises(NotImplementedError, match="sample_decode"):
         load_or_generate_perturbations(tmp_path / "missing.json", LEGAL_PROMPTS,
                                        generate_text=lambda *a: [])
+
+
+# ---------------------------------------------------------------------------
+# analyze
+# ---------------------------------------------------------------------------
+
+def _analysis_inputs(root):
+    from lir_tpu_torch.data import synthetic
+
+    from test_torch_analysis import seeded_comparison_rows
+
+    rows = seeded_comparison_rows()
+    d1, d2 = root / "d1.csv", root / "d2.csv"
+    schemas.write_model_comparison_csv(rows, d1)
+    schemas.write_instruct_comparison_csv(rows, d2)
+    d6 = synthetic.write_synthetic_d6(root / "d6.csv")
+    return ["--perturbation-results", str(d6), "--base-csv", str(d1),
+            "--instruct-csv", str(d2), "--no-figures", "--n-simulations",
+            "5000"]
+
+
+def test_analyze_writes_the_jax_files(tmp_path):
+    """``python -m lir_tpu_torch analyze --device cpu`` with all three
+    inputs writes the files ``lir_tpu.cli analyze`` writes, with the same
+    CSV headers."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    inputs = _analysis_inputs(tmp_path)
+    root = Path(__file__).resolve().parent.parent
+    out = subprocess.run(
+        [sys.executable, "-m", "lir_tpu_torch", "analyze", *inputs, "--out",
+         str(tmp_path / "port"), "--device", "cpu"],
+        cwd=root, capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr
+    jcli.main(["--no-compile-cache", "analyze", *inputs, "--out",
+               str(tmp_path / "jax")])
+
+    def files(base):
+        return sorted(str(p.relative_to(base)) for p in base.rglob("*")
+                      if p.is_file())
+    port, ref = files(tmp_path / "port"), files(tmp_path / "jax")
+    assert port == ref
+    assert {p.split("/")[0] for p in port} == {
+        "perturbation", "base_vs_instruct", "model_graph", "kappa"}
+    for name in port:
+        if name.endswith(".csv"):
+            head = [(b / name).read_text().split("\n", 1)[0]
+                    for b in (tmp_path / "port", tmp_path / "jax")]
+            assert head[0] == head[1], name
+
+
+def test_analyze_without_inputs_exits_2():
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["analyze", "--device", "cpu"])
+    assert exc.value.code == 2
+
+
+def test_analyze_defaults_to_the_card(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    inputs = _analysis_inputs(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["analyze", *inputs, "--out", str(tmp_path / "out")])
+    assert not (tmp_path / "out").exists()
+
+
+def test_analyze_flags_are_the_jax_flags_and_device():
+    import argparse
+
+    def flags(add):
+        sub = argparse.ArgumentParser().add_subparsers()
+        add(sub)
+        return {s: a.default for a in sub.choices["analyze"]._actions
+                for s in a.option_strings}
+
+    port, ref = flags(cli._add_analyze), flags(jcli._add_analyze)
+    assert set(port) == set(ref) | {"--device"}
+    assert {k: port[k] for k in ref} == ref
+    assert port["--device"] == "cuda"
+
+
+def test_analyze_without_matplotlib_skips_figures(monkeypatch, tmp_path,
+                                                  caplog):
+    """Without matplotlib the command logs that figures were skipped and
+    writes every other artifact; --no-figures is then not needed."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    inputs = [a for a in _analysis_inputs(tmp_path) if a != "--no-figures"]
+    with caplog.at_level("WARNING", logger="lir_tpu_torch"):
+        cli.main(["analyze", *inputs, "--out", str(tmp_path / "out"),
+                  "--device", "cpu"])
+    assert any("matplotlib is not installed; figures skipped" in r.message
+               for r in caplog.records)
+    assert not list((tmp_path / "out").rglob("*.png"))
+    assert (tmp_path / "out" / "kappa" / "combined_kappa_results.csv").exists()

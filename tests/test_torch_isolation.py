@@ -33,6 +33,12 @@ import lir_tpu_torch.stats.bootstrap, lir_tpu_torch.stats.correlations
 import lir_tpu_torch.stats.agreement, lir_tpu_torch.stats.fits
 import lir_tpu_torch.stats.normality, lir_tpu_torch.stats.streaming
 import lir_tpu_torch.engine.stream_stats, lir_tpu_torch.ops.stream_fold
+import lir_tpu_torch.analysis, lir_tpu_torch.analysis.perturbation
+import lir_tpu_torch.analysis.base_vs_instruct, lir_tpu_torch.analysis.model_graph
+import lir_tpu_torch.analysis.kappa_combined
+import lir_tpu_torch.report, lir_tpu_torch.report.figures
+import lir_tpu_torch.report.latex
+import lir_tpu_torch.data.synthetic, lir_tpu_torch.data.table
 import chip_smoke, kernel_ab, kernel_variants, profile_batch
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
@@ -198,3 +204,29 @@ def test_quantized_init_defaults_to_cuda(monkeypatch, entry):
     _no_cuda(monkeypatch)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         quant.init_quantized_params(registry.tiny("llama"))
+
+
+@pytest.mark.parametrize("driver", ["analyze_all_models", "analyze_model",
+                                    "run_model_graph_analysis",
+                                    "run_kappa_analysis"])
+def test_analysis_drivers_default_to_cuda(monkeypatch, tmp_path, driver):
+    """The analysis drivers whose statistics run on a device resolve it
+    before reading or writing anything, and never fall back to the CPU."""
+    from lir_tpu_torch.analysis import kappa_combined, model_graph
+    from lir_tpu_torch.analysis import perturbation
+    from lir_tpu_torch.data import synthetic
+
+    d6 = synthetic.write_synthetic_d6(tmp_path / "d6.csv")
+    out = tmp_path / "out"
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        if driver == "analyze_all_models":
+            perturbation.analyze_all_models(d6, out, make_figures=False)
+        elif driver == "analyze_model":
+            perturbation.analyze_model(synthetic.synthetic_perturbation_frame(),
+                                       "m", out, make_figures=False)
+        elif driver == "run_model_graph_analysis":
+            model_graph.run_model_graph_analysis(d6, out, make_figures=False)
+        else:
+            kappa_combined.run_kappa_analysis(d6, d6, out, make_figures=False)
+    assert not out.exists()

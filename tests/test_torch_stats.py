@@ -637,6 +637,25 @@ def test_normality_tests_bitwise_jax(n):
     _equal_nested(tnorm.normality_tests(v, 3), jnorm.normality_tests(v, 3))
 
 
+def test_normality_tests_give_kstest_a_callable_cdf(monkeypatch):
+    """Fault C4: scipy 1.18 (the card's machine) raises on
+    ``kstest(x, "norm", args=(mu, sigma))``; the port passes the fitted
+    CDF as a callable, with the same results (a kstest that refuses a
+    named distribution stands in for scipy 1.18 here)."""
+    real = scipy_stats.kstest
+
+    def kstest(rvs, cdf, *args, **kwargs):
+        if isinstance(cdf, str):
+            raise TypeError("ndtr() takes from 1 to 2 positional arguments "
+                            "but 3 were given")
+        return real(rvs, cdf, *args, **kwargs)
+
+    v = np.random.default_rng(39).normal(0.5, 0.1, 300)
+    want = jnorm.normality_tests(v, 3)
+    monkeypatch.setattr(tnorm.scipy_stats, "kstest", kstest)
+    _equal_nested(tnorm.normality_tests(v, 3), want)
+
+
 def test_compare_distributions_and_ad_pvalue_bitwise_jax():
     rng = np.random.default_rng(38)
     a, b = rng.normal(0, 1, 60), rng.normal(0.4, 1.2, 45)
