@@ -85,7 +85,26 @@ Phases (each raises on failure, so the script exits non-zero):
    and its D1 over 9 base/instruct families), once on the card and once
    on the CPU, compared as above and checked against what the inputs
    fix, with each driver's seconds and the card's peak memory on the
-   ``{"phase": "analysis", ...}`` line. Last, at
+   ``{"phase": "analysis", ...}`` line. Then the survey phase's part (a)
+   (``run_survey_phase``): ``python -m lir_tpu_torch repro --no-figures``
+   at the survey pipeline's default budgets (n_boot 1,000 / 100 /
+   10,000) on a data directory at the paper's scale (the seeded
+   Qualtrics fixture of ``data.synthetic``, 507 respondents; a D1 of
+   nine base/instruct families, three with the names the family
+   differences look up; its D2 with two more instruct models), once on
+   the card and once on the CPU: every survey JSON the same keys, text,
+   flags and counts, floats within 1e-5 of max(1, |x|) (of the larger
+   mean under a two-group difference; counted p-values within two
+   counts of 10,000), the report's numbers within its printed place, the
+   base-vs-instruct and model-graph CSVs as the analysis phase compares
+   them, the exclusion counts and matches the fixture fixes, with the
+   seconds of each survey block on each device and the card's peak
+   memory. Its parts (b) and (c) run later: the loader phase's swept
+   D1/D2 through ``run_survey_pipeline`` on the card (the model with no
+   checkpoint taken as the JAX package takes it), and
+   ``llm_prompt_estimates_from_accum`` on every sweep's StreamSink
+   snapshot on the card against the CPU replay of its D6 rows; one
+   ``{"phase": "survey", ...}`` line after the loader phase. Last, at
    llama-2-7b width, spec_k decode steps against one verify window fed
    the steps' tokens, on the flat and the trunk kernels: window position
    j's logits must be bitwise step j's (and the same on the 8-bit engine
@@ -230,6 +249,14 @@ from lir_tpu_torch.analysis import kappa_combined as analysis_kappa
 from lir_tpu_torch.analysis import model_graph as analysis_graph
 from lir_tpu_torch.analysis import perturbation as analysis_perturbation
 from lir_tpu_torch.data import synthetic, table as table_mod
+from lir_tpu_torch.survey import consolidated as survey_consolidated
+from lir_tpu_torch.survey import family_differences as survey_family
+from lir_tpu_torch.survey import human_llm as survey_human_llm
+from lir_tpu_torch.survey import loader as survey_loader
+from lir_tpu_torch.survey import proportions as survey_proportions
+from lir_tpu_torch.survey import pvalues as survey_pvalues
+from lir_tpu_torch.survey import run as survey_run
+from lir_tpu_torch.survey import simulated as survey_simulated
 
 import profile_batch
 
@@ -1813,7 +1840,9 @@ def check_stream_lattice(label, sink, cells, path):
     filled slots and decisions bitwise ``accum_from_rows`` over the rows
     read back (the same code path as a ``--no-streaming-stats`` re-run's
     analysis), counts and kappa bitwise and moments within FLOAT_TOL
-    (``streaming.assert_parity``). Returns the lattice and a summary."""
+    (``streaming.assert_parity``); the survey's per-prompt estimates from
+    the lattice on the card against the same from the rows on the CPU
+    (``accum_survey_estimates``). Returns the lattice and a summary."""
     acc = sink.snapshot()
     reload = streaming.accum_from_rows(
         schemas.read_results(path), streaming.slot_map_from_cells(cells),
@@ -1827,7 +1856,9 @@ def check_stream_lattice(label, sink, cells, path):
     return acc, dict(rows_folded=acc.rows_folded,
                      kappa=streamed["kappa"]["kappa"],
                      n_valid=sum(p["n_valid"] for p in streamed["per_prompt"]),
-                     counters=sink.stats.summary())
+                     counters=sink.stats.summary(),
+                     survey_estimates=accum_survey_estimates(label, acc,
+                                                             reload))
 
 
 def run_sweep(label, engine, prompts, perts, path, rt, grid_name, engine_kind,
@@ -2326,6 +2357,8 @@ def run_loader_phase(params, cfg, questions=WORD_MEANING_QUESTIONS):
         stats["analyze"] = analyze_loader_artifacts(root / "bf16", d1_path,
                                                     d2_path)
         log(json.dumps({"phase": "loader_analyze", **stats["analyze"]}))
+        stats["survey"] = survey_loader_artifacts(root / "bf16", d1_path,
+                                                  d2_path, questions)
 
         factory8 = engine_factory(root, rt, quantize_int8=True,
                                   int8_dynamic=True, tokenizer=tokenizer,
@@ -2686,12 +2719,14 @@ def paper_scale_inputs(root: Path, seed: int = ANALYSIS_SEED):
     return d6, d1, d2, rel_by_prompt
 
 
-def timed_analyze(argv, device) -> dict:
-    """``python -m lir_tpu_torch analyze`` (``cli.main``) with the seconds
-    of each driver it calls and of the whole command."""
+def timed_cli(command, argv, device, blocks) -> dict:
+    """``python -m lir_tpu_torch <command>`` (``cli.main``) with the
+    seconds of each (name, module, function) of ``blocks`` it calls
+    (summed over its calls, each ending in a synchronize on the card) and
+    of the whole command."""
     seconds = {}
     saved = []
-    for name, module, attr in ANALYSIS_DRIVERS:
+    for name, module, attr in blocks:
         fn = getattr(module, attr)
 
         def wrapped(*a, _fn=fn, _name=name, **kw):
@@ -2699,13 +2734,14 @@ def timed_analyze(argv, device) -> dict:
             out = _fn(*a, **kw)
             if device == DEV:
                 torch.cuda.synchronize()
-            seconds[_name] = time.perf_counter() - t0
+            seconds[_name] = seconds.get(_name, 0.0) + (time.perf_counter()
+                                                        - t0)
             return out
         setattr(module, attr, wrapped)
         saved.append((module, attr, fn))
     try:
         t0 = time.perf_counter()
-        port_cli.main(["analyze", *argv, "--device", device])
+        port_cli.main([command, *argv, "--device", device])
         seconds["command"] = time.perf_counter() - t0
     finally:
         for module, attr, fn in saved:
@@ -2782,14 +2818,16 @@ def run_analysis_phase() -> dict:
         torch.cuda.synchronize()
         resident = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        out[f"paper_seconds_{DEV}"] = timed_analyze(
-            argv + ["--out", str(root / "paper_card")], DEV)
+        out[f"paper_seconds_{DEV}"] = timed_cli(
+            "analyze", argv + ["--out", str(root / "paper_card")], DEV,
+            ANALYSIS_DRIVERS)
         # The command's own peak: phase 3's llama-2-7b tree stays resident.
         out["paper_peak_bytes_above_resident"] = \
             torch.cuda.max_memory_allocated() - resident
         out["resident_bytes"] = resident
-        out["paper_seconds_cpu"] = timed_analyze(
-            argv + ["--out", str(root / "paper_cpu")], "cpu")
+        out["paper_seconds_cpu"] = timed_cli(
+            "analyze", argv + ["--out", str(root / "paper_cpu")], "cpu",
+            ANALYSIS_DRIVERS)
         out["paper_files"] = compare_artifacts(
             "analysis/paper", root / "paper_card", root / "paper_cpu")
         check_paper_outputs(root / "paper_card", rel_by_prompt)
@@ -2834,6 +2872,267 @@ def analyze_loader_artifacts(root: Path, d1: Path, d2: Path) -> dict:
     return {"seconds": time.perf_counter() - t0,
             "llama_pairs": int(stats["Num_Samples"][0]),
             "llama_correlation": float(stats["Correlation"][0])}
+
+
+# ---------------------------------------------------------------------------
+# The survey phase: the human-survey pipeline (axis 3) through ``repro`` on
+# the card against the CPU, the loader phase's swept D1/D2 through it, and
+# the streaming accumulator's entry point on the sweep phase's lattices.
+# ---------------------------------------------------------------------------
+
+# Card against CPU from the same draws, as the analysis phase.
+SURVEY_TOL = FIT_TOL
+# A p-value counted over draws (the permutation test's |diff| >= |observed|)
+# may move by one count where a float32 mean lands within an ulp of the
+# observed difference: two counts of the 10,000 are allowed.
+SURVEY_COUNT_TOL = 2e-4
+# The printed report carries three decimals (four for p-values): a number
+# may move by one unit of the last printed place.
+REPORT_TOL = 1e-3
+# Nine families at the paper's scale: the three whose names the family
+# differences and the matched pairs look up, and six of PAPER_FAMILIES.
+SURVEY_FAMILIES = tuple(synthetic.SURVEY_FAMILY_MODELS[:3]) + tuple(
+    (f"org-{f}/{f}-7b", f"org-{f}/{f}-7b-instruct")
+    for f in PAPER_FAMILIES if f != "falcon")[:6]
+SURVEY_BLOCKS = (
+    ("load", survey_loader, "load_survey"),
+    ("exclusions", survey_loader, "apply_exclusions"),
+    ("consolidated", survey_consolidated, "run_consolidated_analysis"),
+    ("agreement_points", survey_human_llm, "analyze_all_models"),
+    ("agreement_bootstrap", survey_human_llm, "bootstrap_all_models"),
+    ("d9_payload", survey_human_llm, "bootstrap_results_payload"),
+    ("family_differences", survey_family, "analyze_family_differences"),
+    ("simulated", survey_simulated, "run_simulated_bootstrap"),
+    ("pvalues", survey_pvalues, "run_pvalue_analysis"),
+    ("proportions", survey_proportions, "run_proportion_analysis"),
+    ("survey_pipeline", survey_run, "run_survey_pipeline"),
+    ("base_vs_instruct", analysis_bvi, "run_base_vs_instruct_analysis"),
+    ("model_graph", analysis_graph, "run_model_graph_analysis"),
+)
+
+
+def _survey_diffs(a, b, path, out, scale=1.0):
+    """The differences of the card's JSON ``a`` from the CPU's ``b``: keys
+    and their order, lengths, text, flags and integers exact; floats
+    within SURVEY_TOL of max(scale, |b|), where ``scale`` is, under a
+    comparison of two groups, the larger of their means (a difference of
+    two float32 reductions carries their magnitude's rounding; a relative
+    change that rounding over the base mean); counted p-values within
+    SURVEY_COUNT_TOL."""
+    if isinstance(b, dict):
+        if not isinstance(a, dict) or list(a) != list(b):
+            out.append((path, "keys"))
+            return
+        means = [b[k] for k in ("base_mean", "instruct_mean")
+                 if isinstance(b.get(k), float) and math.isfinite(b[k])]
+        if len(means) == 2:
+            scale = max(scale, *map(abs, means))
+        for k in b:
+            sc = (scale * 100.0 / abs(b["base_mean"])
+                  if k == "relative_change_pct" and len(means) == 2
+                  and b["base_mean"] else scale)
+            _survey_diffs(a[k], b[k], f"{path}.{k}", out, sc)
+    elif isinstance(b, list):
+        if not isinstance(a, list) or len(a) != len(b):
+            out.append((path, "length"))
+            return
+        for i, (x, y) in enumerate(zip(a, b)):
+            _survey_diffs(x, y, f"{path}[{i}]", out, scale)
+    elif isinstance(b, float) and isinstance(a, float):
+        tol = SURVEY_TOL * max(scale, abs(b))
+        if path.endswith("p_value") and (".overall_comparison." in path
+                                         or ".mc_difference." in path):
+            tol = max(tol, SURVEY_COUNT_TOL)
+        if not ((math.isnan(a) and math.isnan(b)) or abs(a - b) <= tol):
+            out.append((path, a, b))
+    elif a != b or type(a) is not type(b):
+        out.append((path, a, b))
+
+
+def _same_report(a: str, b: str) -> bool:
+    """The consolidated report's text identical with its numbers taken
+    out, the numbers within REPORT_TOL."""
+    num = re.compile(r"-?\d+\.\d+")
+    if num.sub("#", a) != num.sub("#", b):
+        return False
+    return all(abs(float(x) - float(y)) <= REPORT_TOL + 1e-12
+               for x, y in zip(num.findall(a), num.findall(b)))
+
+
+def compare_survey_artifacts(label: str, card_dir: Path, cpu_dir: Path) -> int:
+    """The card's survey artifacts against the CPU's: the same files, each
+    JSON as ``_survey_diffs`` says, the report as ``_same_report`` says.
+    Returns the number of files compared."""
+    names = sorted(p.name for p in cpu_dir.iterdir())
+    if sorted(p.name for p in card_dir.iterdir()) != names or not names:
+        raise AssertionError(f"{label}: files differ")
+    for name in names:
+        a, b = (card_dir / name).read_text(), (cpu_dir / name).read_text()
+        if name.endswith(".json"):
+            out = []
+            _survey_diffs(json.loads(a), json.loads(b), name, out)
+            if out:
+                raise AssertionError(f"{label}: {out[:5]}")
+        elif not _same_report(a, b):
+            raise AssertionError(f"{label}: {name} differs card vs CPU")
+    return len(names)
+
+
+def check_survey_outputs(out: Path) -> dict:
+    """What the paper-scale survey inputs fix: the fixture's exclusion
+    counts (two short, two identical, one failed attention, two NaN
+    durations in no count; 500 of 507 kept), 50 matched questions of 51
+    LLM prompts, the three named families present with finite
+    differences, every model's bootstraps at their full budgets, the
+    simulated bootstrap's three named family comparisons; returns the
+    headline numbers."""
+    cons = json.loads((out / "consolidated_analysis_results.json").read_text())
+    ex, match = cons["exclusion_stats"], cons["matching_stats"]
+    if ((ex["duration_excluded"], ex["identical_excluded"],
+         ex["attention_failed"], ex["final_count"], ex["total_excluded"])
+            != (2, 2, 1, 500, 7)
+            or (match["n_matched"], match["n_llm_prompts"]) != (50, 51)):
+        raise AssertionError(f"survey: exclusions {ex} matching "
+                             f"{match['n_matched']}/{match['n_llm_prompts']}")
+    d9 = json.loads((out / "llm_human_agreement_bootstrap.json").read_text())
+    fam = json.loads((out / "family_differences.json").read_text())
+    sim = json.loads((out / "bootstrap_confidence_intervals.json").read_text())
+    n_models = 2 * len(SURVEY_FAMILIES) + len(SURVEY_FAMILIES) + len(
+        synthetic.SURVEY_EXTRA_INSTRUCT)
+    if (len(d9["model_results"]) != n_models
+            or any(r["n_bootstrap"] != 1000 for r in d9["model_results"])
+            or set(d9["overall_comparison"]["metrics"]) != {"mae", "mse",
+                                                            "mape"}):
+        raise AssertionError(f"survey: D9 {len(d9['model_results'])} models")
+    if (sorted(fam) != ["Falcon", "RedPajama", "StableLM"] or not all(
+            math.isfinite(m["mc_difference"]["difference_mean"])
+            for f in fam.values() for m in f.values())):
+        raise AssertionError(f"survey: family differences {fam}")
+    if (sim["n_bootstrap"] != 10_000
+            or sorted(r["family"] for r in sim["family_comparisons"])
+            != ["falcon", "redpajama", "stablelm"]):
+        raise AssertionError(f"survey: simulated bootstrap {sim['n_bootstrap']}")
+    hc = cons["human_llm_correlation"]
+    return dict(human_llm_correlation=hc["correlation"],
+                human_llm_ci=[hc["ci_lower"], hc["ci_upper"]],
+                human_cross_prompt=cons["cross_prompt_correlations"]["human"][
+                    "mean_correlation"],
+                llm_cross_prompt=cons["cross_prompt_correlations"]["llm"][
+                    "mean_correlation"],
+                simulated_difference=sim["overall_results"]["difference"])
+
+
+def run_survey_phase() -> dict:
+    """The survey phase's part (a): ``python -m lir_tpu_torch repro
+    --no-figures`` at the pipeline's default budgets on a data directory at
+    the paper's scale (the seeded Qualtrics fixture at 507 respondents, a
+    D1 of SURVEY_FAMILIES' 18 models and its D2 with two more instruct
+    models), on the card and on the CPU: every artifact compared, the
+    seconds of each block on each device, the card's peak memory above
+    what is resident."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        data = root / "data"
+        data.mkdir()
+        synthetic.write_synthetic_survey(
+            data / "word_meaning_survey_results.csv")
+        synthetic.write_synthetic_comparison(
+            data / "model_comparison_results.csv",
+            data / "instruct_model_comparison_results.csv",
+            error_model=False, families=SURVEY_FAMILIES)
+        argv = ["--data", str(data), "--no-figures"]
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out[f"seconds_{DEV}"] = timed_cli(
+            "repro", argv + ["--out", str(root / "card")], DEV, SURVEY_BLOCKS)
+        out["peak_bytes_above_resident"] = \
+            torch.cuda.max_memory_allocated() - resident
+        out["resident_bytes"] = resident
+        out["seconds_cpu"] = timed_cli(
+            "repro", argv + ["--out", str(root / "cpu")], "cpu",
+            SURVEY_BLOCKS)
+        out["survey_files"] = compare_survey_artifacts(
+            "survey/repro", root / "card" / "survey", root / "cpu" / "survey")
+        out["analysis_files"] = sum(
+            compare_artifacts(f"survey/repro/{sub}", root / "card" / sub,
+                              root / "cpu" / sub)
+            for sub in ("base_vs_instruct", "model_graph"))
+        out["card"] = check_survey_outputs(root / "card" / "survey")
+    return out
+
+
+def survey_loader_artifacts(root: Path, d1: Path, d2: Path,
+                            questions) -> dict:
+    """The survey phase's part (b): the loader phase's swept D1/D2 (the
+    llama base and chat models, and the model with no checkpoint as NaN
+    rows) through ``run_survey_pipeline`` on the card, with the seeded
+    survey at 507 respondents, at the default budgets. The NaN rows are
+    taken as the JAX package takes them (tests/test_torch_survey.py): no
+    error; in the D1 their mass is NaN, so the agreement metrics see a
+    constant 0.5 (a Pearson r of NaN), and the simulated bootstrap and
+    the p-value pivot leave the model out."""
+    survey_csv = synthetic.write_synthetic_survey(root / "survey.csv")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = survey_run.run_survey_pipeline(survey_csv, d2, d1, root / "survey",
+                                         make_figures=False, device=DEV)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = len(questions)
+    cons = res["consolidated"]
+    hc = cons["human_llm_correlation"]
+    if len(cons["matches"]) != n or (hc or {}).get("n_questions", n) != n:
+        raise AssertionError(f"loader survey: {len(cons['matches'])} matched "
+                             f"of {n}")
+    points = sorted((r["model"], r["model_type"])
+                    for r in res["agreement_points"])
+    boot = {(r["model"], r["model_type"]): r
+            for r in res["agreement_bootstrap"]["model_results"]}
+    if n >= 10:
+        want = sorted([(LOADER_ABSENT, "base"), (LOADER_BASE, "base"),
+                       (LOADER_CHAT, "base"), (LOADER_CHAT, "instruct")])
+        if points != want or sorted(boot) != want or not math.isnan(
+                boot[(LOADER_ABSENT, "base")]["pearson_r_mean"]):
+            raise AssertionError(f"loader survey: models {points}")
+    if LOADER_ABSENT in res["simulated_bootstrap"]["model_stats"] or any(
+            LOADER_ABSENT in (r["model1"], r["model2"])
+            for r in res["pvalues"]["llm_correlations"]):
+        raise AssertionError("loader survey: the failed model was not left "
+                             "out of the simulated bootstrap and the pivot")
+    chat = [r for r in res["agreement_points"]
+            if (r["model"], r["model_type"]) == (LOADER_CHAT, "instruct")]
+    return dict(seconds=dt, n_matched=len(cons["matches"]),
+                human_llm_correlation=hc["correlation"] if hc else None,
+                models=points,
+                chat_mae=chat[0]["mae"] if chat else None)
+
+
+def accum_survey_estimates(label, acc, reload) -> dict:
+    """The survey phase's part (c): ``llm_prompt_estimates_from_accum`` on
+    a sweep's StreamSink snapshot (the lattice ``stream_fold`` wrote), on
+    the card, against the same on the CPU replay of the D6 rows
+    (``streaming.accum_from_rows``): the same prompts and counts, the
+    estimates and CIs within FLOAT_TOL (float32 lattice values against
+    the CSV's float64 recompute)."""
+    t0 = time.perf_counter()
+    card = survey_human_llm.llm_prompt_estimates_from_accum(acc, device=DEV)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    cpu = survey_human_llm.llm_prompt_estimates_from_accum(reload,
+                                                           device="cpu")
+    if list(card) != list(cpu) or not card:
+        raise AssertionError(f"{label}: prompts {list(card)} vs {list(cpu)}")
+    for p, want in cpu.items():
+        got = card[p]
+        if got["n"] != want["n"] or not all(
+                near(got[k], want[k], streaming.FLOAT_TOL)
+                for k in ("estimate", "ci_lower", "ci_upper",
+                          "standard_error")):
+            raise AssertionError(f"{label}: prompt {p} {got} vs {want}")
+    return dict(prompts=len(card), seconds=dt,
+                estimates=[card[p]["estimate"] for p in card])
 
 
 def kernel_label(mangled: str) -> str:
@@ -3051,6 +3350,8 @@ def main() -> int:
     elapsed("stream_stats")
     run_analysis_phase()
     elapsed("analysis")
+    survey = run_survey_phase()
+    elapsed("survey")
     verify_step_check(params, engine.cfg, rt.spec_k, "bf16",
                       measure_library=True)
 
@@ -3074,6 +3375,10 @@ def main() -> int:
     for name, n in loader_stats["launches"].items():
         launches[name] += n
     elapsed("loader_phase")
+    survey["loader"] = loader_stats["survey"]
+    survey["stream_accum"] = {name: sweeps["bf16"][name]["stream"][
+        "survey_estimates"] for name in grids}
+    log(json.dumps({"phase": "survey", **survey}))
     stats8, bytes8, peak8, sweeps["int8"] = run_int8_slice(
         cfg, tokenizer, cells_trunk, cells_flat, rt, grids)
     elapsed("int8_slice_and_sweep")

@@ -3,15 +3,20 @@
   sweep        word-meaning model-comparison sweep -> D1/D2 CSVs
   perturb      perturbation grid sweep (with resume) -> D6 CSV
   analyze      statistical analyses over the D1/D2/D6 artifacts
+  survey       the human-survey pipeline (D3 + D1/D2 -> D7/D8/D9, C38-C43)
+  repro        the survey pipeline and every analysis from a data directory
 
-Port of the ``sweep``, ``perturb`` and ``analyze`` commands of
-``lir_tpu/cli.py``.
+Port of the ``sweep``, ``perturb``, ``analyze``, ``survey`` and ``repro``
+commands of ``lir_tpu/cli.py``.
 Each flag lands in the same ``RuntimeConfig`` / ``SpecConfig`` /
 ``CascadeConfig`` field as there. A flag of a feature the port does not
 have yet (meshes, the parameter cache, the int8 KV cache, the prefix
 cache, leased shards, the fleet, the watchdog, tracing) is not defined, so argparse
 rejects it. ``--device`` (default ``cuda``) says where the models and the
-statistics run; the CPU must be asked for.
+statistics run; the CPU must be asked for. Where matplotlib is absent,
+``analyze``, ``survey`` and ``repro`` log that figures were skipped and
+write everything else; ``repro --no-figures`` also reaches the survey
+pipeline, which the JAX command's does not.
 
 Model weights must be local checkpoint directories (zero egress); pass
 --checkpoints pointing at a root containing ``<org>__<name>`` dirs.
@@ -162,6 +167,52 @@ def _add_analyze(sub) -> None:
                    help="where the statistics run (default cuda)")
 
 
+def _add_repro(sub) -> None:
+    p = sub.add_parser(
+        "repro",
+        help="regenerate the full published analysis from a reference-style "
+             "data directory (D1/D2/D3 CSVs) in one shot",
+    )
+    p.add_argument("--data", type=Path, required=True,
+                   help="directory holding model_comparison_results.csv, "
+                        "instruct_model_comparison_results.csv, "
+                        "word_meaning_survey_results.csv")
+    p.add_argument("--perturbation-results", type=Path, default=None,
+                   help="optional D6 results for the perturbation suite")
+    p.add_argument("--out", type=Path, default=Path("results/repro"))
+    p.add_argument("--quick", action="store_true")
+    p.add_argument("--no-figures", action="store_true")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the statistics run (default cuda)")
+
+
+def _add_survey(sub) -> None:
+    p = sub.add_parser("survey", help="human-survey analysis pipeline")
+    p.add_argument("--survey", type=Path, required=True)
+    p.add_argument("--instruct", type=Path, required=True)
+    p.add_argument("--base", type=Path, default=None)
+    p.add_argument("--out", type=Path, default=Path("results/survey"))
+    p.add_argument("--quick", action="store_true")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the statistics run (default cuda)")
+
+
+def _figures_wanted(command: str, no_figures: bool = False) -> bool:
+    """Whether to draw figures: not with --no-figures, and not (with a
+    warning) where matplotlib is absent."""
+    if no_figures:
+        return False
+    from .report.figures import require_matplotlib
+
+    try:
+        require_matplotlib()
+    except ImportError:
+        log.warning("%s: matplotlib is not installed; figures skipped",
+                    command)
+        return False
+    return True
+
+
 def _perturb_configs(args):
     """(RuntimeConfig, SpecConfig, CascadeConfig) of the perturb flags, the
     fields the JAX ``*_rt_kw`` helpers fill."""
@@ -259,16 +310,7 @@ def cmd_analyze(args) -> None:
         log.error("analyze: give at least one of --perturbation-results, "
                   "--base-csv, --instruct-csv")
         sys.exit(2)
-    make_figures = not args.no_figures
-    if make_figures:
-        from .report.figures import require_matplotlib
-
-        try:
-            require_matplotlib()
-        except ImportError:
-            log.warning("analyze: matplotlib is not installed; figures "
-                        "skipped")
-            make_figures = False
+    make_figures = _figures_wanted("analyze", args.no_figures)
     if args.perturbation_results:
         from .analysis.perturbation import analyze_all_models
 
@@ -300,6 +342,62 @@ def cmd_analyze(args) -> None:
             )
 
 
+def cmd_survey(args) -> None:
+    from .device import resolve_device
+    from .survey.run import QUICK_BUDGETS, run_survey_pipeline
+
+    device = resolve_device(args.device)
+    run_survey_pipeline(args.survey, args.instruct, args.base, args.out,
+                        make_figures=_figures_wanted("survey"),
+                        device=device,
+                        **(QUICK_BUDGETS if args.quick else {}))
+
+
+def cmd_repro(args) -> None:
+    """Survey pipeline + every CSV-driven analysis in one pass, in the JAX
+    command's order and with its --quick budgets."""
+    from .analysis.base_vs_instruct import run_base_vs_instruct_analysis
+    from .analysis.model_graph import run_model_graph_analysis
+    from .device import resolve_device
+    from .survey.run import QUICK_BUDGETS, run_survey_pipeline
+
+    device = resolve_device(args.device)
+    data = args.data
+    base_csv = data / "model_comparison_results.csv"
+    instruct_csv = data / "instruct_model_comparison_results.csv"
+    survey_csv = data / "word_meaning_survey_results.csv"
+    figures = _figures_wanted("repro", args.no_figures)
+
+    run_survey_pipeline(
+        survey_csv, instruct_csv,
+        base_csv if base_csv.exists() else None,
+        args.out / "survey", make_figures=figures, device=device,
+        **(QUICK_BUDGETS if args.quick else {}),
+    )
+    if base_csv.exists():
+        run_base_vs_instruct_analysis(
+            base_csv, args.out / "base_vs_instruct", make_figures=figures)
+    run_model_graph_analysis(
+        instruct_csv, args.out / "model_graph",
+        n_bootstrap=50 if args.quick else 1000, make_figures=figures,
+        device=device)
+    if args.perturbation_results:
+        from .analysis.kappa_combined import run_kappa_analysis
+        from .analysis.perturbation import analyze_all_models
+
+        analyze_all_models(
+            args.perturbation_results, args.out / "perturbation",
+            n_simulations=2000 if args.quick else 100_000,
+            make_figures=figures, device=device,
+        )
+        run_kappa_analysis(
+            instruct_csv, args.perturbation_results, args.out / "kappa",
+            n_bootstrap=100 if args.quick else 1000, make_figures=figures,
+            device=device,
+        )
+    log.info("repro complete; artifacts under %s", args.out)
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     parser = argparse.ArgumentParser(
         prog="lir_tpu_torch", description=__doc__,
@@ -308,9 +406,11 @@ def main(argv: Optional[List[str]] = None) -> None:
     _add_sweep(sub)
     _add_perturb(sub)
     _add_analyze(sub)
+    _add_survey(sub)
+    _add_repro(sub)
     args = parser.parse_args(argv)
     if getattr(args, "int8_dynamic", False) and not args.int8:
         parser.error("--int8-dynamic requires --int8 (it selects HOW int8 "
                      "matmuls run, not whether weights are quantized)")
-    {"sweep": cmd_sweep, "perturb": cmd_perturb,
-     "analyze": cmd_analyze}[args.command](args)
+    {"sweep": cmd_sweep, "perturb": cmd_perturb, "analyze": cmd_analyze,
+     "survey": cmd_survey, "repro": cmd_repro}[args.command](args)

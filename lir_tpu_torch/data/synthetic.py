@@ -14,20 +14,28 @@ spanning the kappa interpretation bands. A second model,
 zero/one-inflated relative probabilities, non-finite rows, non-compliant
 first tokens and full responses, unparseable and Python-literal log
 probabilities, and every confidence non-compliance category.
+
+The survey fixture (no JAX counterpart: the tests give the same files to
+both packages) is a seeded Qualtrics export of the word-meaning survey
+(:func:`write_synthetic_survey`) with a D1/D2 pair scored around the same
+per-question leans (:func:`write_synthetic_comparison`); each holds the
+cases that decide the survey pipeline's counts (:data:`SURVEY_CASES`,
+:func:`synthetic_comparison_rows`).
 """
 
 from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import List
+from typing import Dict, List, Tuple
 
 import numpy as np
 
-from .prompts import LEGAL_PROMPTS
-from .schemas import (PERTURBATION_COLUMNS, _cell, _write_csv,
-                      resolve_results_path)
-from .table import Table
+from .prompts import LEGAL_PROMPTS, QUALTRICS_TO_QUESTION
+from .schemas import (PERTURBATION_COLUMNS, ScoreRow, _cell, _write_csv,
+                      resolve_results_path, write_instruct_comparison_csv,
+                      write_model_comparison_csv)
+from .table import Table, write_csv
 
 SYNTH_SEED = 20260730
 N_REPHRASINGS = 200          # per prompt (reference scale ~2000; 200 keeps
@@ -193,3 +201,207 @@ def write_synthetic_d6(path: Path) -> Path:
     _write_csv(path, [[_cell(r[c]) for c in PERTURBATION_COLUMNS]
                       for r in synthetic_records()])
     return path
+
+
+# ---------------------------------------------------------------------------
+# The human survey (D3) and a D1/D2 pair to go with it
+# ---------------------------------------------------------------------------
+
+SURVEY_SEED = 20261019
+SURVEY_BLOCK = "How well does the second word describe the first"
+ATTENTION_TEXT = "Please move this slider to 100"
+# Qualtrics' own columns before the sliders, with their header texts and
+# ImportId cells (the first has a comma and quotes: it needs quoting).
+_SURVEY_META = (
+    ("StartDate", "Start Date",
+     '{"ImportId":"startDate","timeZone":"America/Denver"}'),
+    ("Duration (in seconds)", "Duration (in seconds)",
+     '{"ImportId":"duration"}'),
+    ("Finished", "Finished", '{"ImportId":"finished"}'),
+    ("ResponseId", "Response ID", '{"ImportId":"_recordId"}'),
+)
+# Respondents whose rows decide a count of the loader's exclusions, by
+# row; every other respondent passes all three.
+SURVEY_CASES = {
+    0: "short_duration",            # under 20 % of the median: excluded
+    1: "missing_duration",          # empty: dropped, in no count
+    2: "non_numeric_duration",      # coerced to NaN: dropped, in no count
+    3: "identical_sliders",         # ten equal answers: excluded
+    4: "one_answer",                # one answer only: not identical
+    5: "attention_failed",          # attention slider 80: excluded
+    6: "attention_unanswered",      # attention left empty: kept
+    7: "non_numeric_slider",        # "fifty" coerced to NaN: kept
+    8: "identical_and_attention",   # counted as identical (applied first)
+    9: "short_and_attention",       # counted as short (applied first)
+}
+
+
+def question_leans(seed: int = SURVEY_SEED) -> Dict[str, float]:
+    """The synthetic population's mean answer (0-1) to each of the 50
+    word-meaning questions, keyed by question text: what both the survey
+    and the models' probabilities are drawn around."""
+    rng = np.random.default_rng(seed)
+    leans = rng.uniform(0.1, 0.9, len(QUALTRICS_TO_QUESTION))
+    return {q: float(v) for q, v in zip(QUALTRICS_TO_QUESTION.values(),
+                                       leans)}
+
+
+def synthetic_survey(seed: int = SURVEY_SEED, n_respondents: int = 507
+                     ) -> Tuple[List[str], List[List[str]]]:
+    """(header, rows) of a Qualtrics export as ``survey.loader.load_survey``
+    reads it: the column ids; row 0 the header texts, each slider's
+    ``"<block> - <question>"``; row 1 the ImportIds; then one row a
+    respondent, who answers one group's eleven sliders (``Q{g}_8`` is the
+    attention check, to be set to 100), the groups in turn (Qualtrics'
+    evenly presented randomizer). The rows of :data:`SURVEY_CASES` hold
+    the cases that decide the exclusion counts; every twelfth respondent
+    leaves the group's last slider empty."""
+    rng = np.random.default_rng(seed + 1)
+    leans = question_leans(seed)
+    qcols = [f"Q{g}_{i}" for g in range(1, 6) for i in range(1, 12)]
+    header = [c for c, _, _ in _SURVEY_META] + qcols
+    texts = [t for _, t, _ in _SURVEY_META] + [
+        f"{SURVEY_BLOCK} - "
+        + (ATTENTION_TEXT if c.endswith("_8") else QUALTRICS_TO_QUESTION[c])
+        for c in qcols]
+    imports = [i for _, _, i in _SURVEY_META] + [
+        '{"ImportId":"QID%s"}' % c[1:] for c in qcols]
+    rows = [texts, imports]
+    for r in range(n_respondents):
+        group = r % 5 + 1
+        duration = int(round(float(rng.lognormal(np.log(420.0), 0.45))))
+        cells = {}
+        for i in range(1, 12):
+            col = f"Q{group}_{i}"
+            if i == 8:
+                cells[col] = "100"
+                continue
+            mean = 100.0 * leans[QUALTRICS_TO_QUESTION[col]]
+            value = int(np.clip(round(float(rng.normal(mean, 22.0))), 0, 100))
+            cells[col] = "" if i == 11 and r % 12 == 11 else str(value)
+        case = SURVEY_CASES.get(r)
+        substantive = [f"Q{group}_{i}" for i in range(1, 12) if i != 8]
+        if case in ("short_duration", "short_and_attention"):
+            duration = 10
+        if case in ("identical_sliders", "identical_and_attention"):
+            cells.update({c: "50" for c in substantive})
+        if case in ("attention_failed", "identical_and_attention",
+                    "short_and_attention"):
+            cells[f"Q{group}_8"] = "80"
+        if case == "attention_unanswered":
+            cells[f"Q{group}_8"] = ""
+        if case == "one_answer":
+            cells.update({c: "" for c in substantive[1:]})
+            cells[substantive[0]] = "64"
+        if case == "non_numeric_slider":
+            cells[substantive[2]] = "fifty"
+        dur_cell = {"missing_duration": "",
+                    "non_numeric_duration": "unknown"}.get(case,
+                                                          str(duration))
+        rows.append([f"2024-03-{1 + r % 28:02d} 10:{r % 60:02d}:00",
+                     dur_cell, "True", f"R_{seed % 100000:05d}{r:05d}"]
+                    + [cells.get(c, "") for c in qcols])
+    return header, rows
+
+
+def write_synthetic_survey(path: Path, seed: int = SURVEY_SEED,
+                           n_respondents: int = 507) -> Path:
+    """Write :func:`synthetic_survey` as CSV (minimal quoting); returns
+    the path written."""
+    header, rows = synthetic_survey(seed, n_respondents)
+    write_csv(Path(path), header, rows)
+    return Path(path)
+
+
+# D1 holds every model of the survey's family lists (base and instruct),
+# D2 the instruct ones and two more; both hold a model whose checkpoint
+# failed to load (its rows NaN, as a model-comparison sweep writes them).
+SURVEY_FAMILY_MODELS = (
+    ("tiiuae/falcon-7b", "tiiuae/falcon-7b-instruct"),
+    ("stabilityai/stablelm-base-alpha-7b",
+     "stabilityai/stablelm-tuned-alpha-7b"),
+    ("togethercomputer/RedPajama-INCITE-7B-Base",
+     "togethercomputer/RedPajama-INCITE-7B-Instruct"),
+    ("google/t5-v1_1-base", "google/flan-t5-base"),
+    ("bigscience/bloom-7b1", "bigscience/bloomz-7b1"),
+    ("EleutherAI/pythia-6.9b", "databricks/dolly-v2-7b"),
+)
+SURVEY_EXTRA_INSTRUCT = ("mosaicml/mpt-7b-instruct", "lmsys/vicuna-7b-v1.5")
+SURVEY_ERROR_MODEL = "absent/model"
+UNMATCHED_PROMPT = 'Is a "hot dog" a "sandwich", in ordinary usage?'
+
+
+def synthetic_comparison_rows(seed: int = SURVEY_SEED,
+                              error_model: bool = True,
+                              families=SURVEY_FAMILY_MODELS):
+    """(D1 rows, D2 rows) as ``ScoreRow``s, probabilities drawn around
+    :func:`question_leans`: the D1 holds each (base, instruct) pair of
+    ``families``, the D2 their instruct models and
+    :data:`SURVEY_EXTRA_INSTRUCT`.
+    The cases they hold: EleutherAI/pythia-6.9b
+    lacks three questions of group 2 (under the simulated bootstrap's
+    eight-matched gate there); tiiuae/falcon-7b has one zero-mass row
+    (relative probability 0.5 for the agreement metrics, NaN for the
+    simulated bootstrap); the D2 has a prompt that matches no survey
+    question (mosaicml/mpt-7b-instruct) and a row whose relative
+    probability is NaN (zero mass, lmsys/vicuna-7b-v1.5);
+    with ``error_model``, both have the NaN rows of a model that failed
+    to load."""
+    rng = np.random.default_rng(seed + 2)
+    leans = question_leans(seed)
+    questions = list(leans)
+    skipped = {QUALTRICS_TO_QUESTION[f"Q2_{i}"] for i in (1, 2, 3)}
+
+    def scored(model, kind, lean_of, prompts):
+        out = []
+        for q in prompts:
+            rel = float(np.clip(lean_of(q) + rng.normal(0.0, 0.18),
+                                0.01, 0.99))
+            total = float(rng.uniform(0.3, 0.95))
+            out.append(ScoreRow(q, model, kind, "Yes" if rel > 0.5 else "No",
+                                rel * total, (1.0 - rel) * total))
+        return out
+
+    def error_rows(kind):
+        return [ScoreRow(q, SURVEY_ERROR_MODEL, kind, "ERROR", float("nan"),
+                         float("nan"), yes_no_found=False)
+                for q in questions] if error_model else []
+
+    d1 = []
+    for base, instruct in families:
+        for model, kind in ((base, "base"), (instruct, "instruct")):
+            prompts = [q for q in questions
+                       if not (model == "EleutherAI/pythia-6.9b"
+                               and q in skipped)]
+            rows = scored(model, kind, leans.get, prompts)
+            if model == "tiiuae/falcon-7b":
+                r = rows[4]
+                rows[4] = ScoreRow(r.prompt, r.model, r.base_or_instruct,
+                                   "No", 0.0, 0.0)
+            d1 += rows
+    d1 += error_rows("instruct")
+    d2 = []
+    for model in [i for _, i in families] + list(SURVEY_EXTRA_INSTRUCT):
+        prompts = questions + ([UNMATCHED_PROMPT]
+                               if model == SURVEY_EXTRA_INSTRUCT[0] else [])
+        rows = scored(model, "instruct", lambda q: leans.get(q, 0.5),
+                      prompts)
+        if model == SURVEY_EXTRA_INSTRUCT[1]:
+            r = rows[7]
+            rows[7] = ScoreRow(r.prompt, r.model, "instruct", "No", 0.0, 0.0)
+        d2 += rows
+    d2 += error_rows("instruct")
+    return d1, d2
+
+
+def write_synthetic_comparison(d1_path: Path, d2_path: Path,
+                               seed: int = SURVEY_SEED,
+                               error_model: bool = True,
+                               families=SURVEY_FAMILY_MODELS
+                               ) -> Tuple[Path, Path]:
+    """Write :func:`synthetic_comparison_rows` with the D1 and D2 writers;
+    returns the two paths."""
+    d1, d2 = synthetic_comparison_rows(seed, error_model, families)
+    write_model_comparison_csv(d1, d1_path)
+    write_instruct_comparison_csv(d2, d2_path)
+    return Path(d1_path), Path(d2_path)

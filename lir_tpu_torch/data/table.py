@@ -111,6 +111,35 @@ def series_std(values: np.ndarray) -> float:
     return float(np.std(v, ddof=1)) if v.size > 1 else float("nan")
 
 
+def series_std0(values: np.ndarray) -> float:
+    """``Series.std(ddof=0)``: NaN skipped, NaN when nothing is left."""
+    v = np.asarray(values, dtype=float)
+    v = v[~np.isnan(v)]
+    return float(np.std(v)) if v.size else float("nan")
+
+
+def to_numeric(values) -> np.ndarray:
+    """``pd.to_numeric(values, errors="coerce")``: a numeric column as it
+    is; text cells parsed as numbers (spaces around them allowed, pandas'
+    float converter), missing and unparseable cells NaN; int64 when every
+    cell is an integer, else float64."""
+    arr = np.asarray(values)
+    if arr.dtype.kind in "iufb":
+        return arr
+    if all(isinstance(v, (int, np.integer)) or (
+            isinstance(v, str) and _INT.fullmatch(v)) for v in arr) and len(arr):
+        return np.array([int(v) for v in arr], dtype=np.int64)
+    out = np.full(len(arr), np.nan)
+    for i, v in enumerate(arr):
+        if is_missing(v):
+            continue
+        if isinstance(v, (int, float, np.integer, np.floating)):
+            out[i] = v
+        elif _FLOAT.fullmatch(str(v)):
+            out[i] = parse_float(str(v))
+    return out
+
+
 def infer_column(cells: Sequence[str]) -> np.ndarray:
     """The array ``read_csv`` makes of one column's raw text cells."""
     missing = np.array([c in NA_STRINGS for c in cells], dtype=bool)

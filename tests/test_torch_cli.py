@@ -1,5 +1,5 @@
-"""The port's CLI (``python -m lir_tpu_torch sweep|perturb|analyze``) on
-the CPU.
+"""The port's CLI (``python -m lir_tpu_torch sweep|perturb|analyze|survey|
+repro``) on the CPU.
 
 - ``sweep`` writes the D1/D2 CSVs that ``run_model_comparison_sweep``
   writes when called directly on the same checkpoints, byte for byte.
@@ -17,6 +17,14 @@ the CPU.
   inputs, with the same CSV headers; its flags are the JAX command's plus
   ``--device`` (default the card); it exits 2 without an input, and
   without matplotlib it skips the figures with a log line.
+- ``repro --quick --no-figures`` writes the files the JAX command writes
+  (less the survey figures, which the JAX survey pipeline draws
+  whatever the flag says), with the same CSV headers and JSON structure,
+  and the survey artifacts no draw decides equal to JAX's; ``survey
+  --quick`` writes what repro's survey step writes, byte for byte, with
+  the JAX file names. Both take the JAX flags plus ``--device`` (default
+  the card); repro on a D2 with a failed model's NaN rows stops at the
+  model graph (caveat R5).
 """
 
 import dataclasses
@@ -379,3 +387,178 @@ def test_analyze_without_matplotlib_skips_figures(monkeypatch, tmp_path,
                for r in caplog.records)
     assert not list((tmp_path / "out").rglob("*.png"))
     assert (tmp_path / "out" / "kappa" / "combined_kappa_results.csv").exists()
+
+
+# ---------------------------------------------------------------------------
+# survey and repro
+# ---------------------------------------------------------------------------
+
+SURVEY_RESPONDENTS = 100
+
+
+def _survey_data(root, error_model=False):
+    from lir_tpu_torch.data import synthetic
+
+    data = root / "data"
+    data.mkdir(parents=True, exist_ok=True)
+    synthetic.write_synthetic_survey(data / "word_meaning_survey_results.csv",
+                                     n_respondents=SURVEY_RESPONDENTS)
+    synthetic.write_synthetic_comparison(
+        data / "model_comparison_results.csv",
+        data / "instruct_model_comparison_results.csv",
+        error_model=error_model)
+    return data
+
+
+@pytest.fixture(scope="module")
+def repro_runs(tmp_path_factory):
+    """``repro --quick --no-figures`` of both packages and the port's
+    ``survey --quick`` on the same data directory (a D2 without the
+    failed model's NaN rows, which stop the model graph: caveat R5)."""
+    root = tmp_path_factory.mktemp("repro")
+    data = _survey_data(root)
+    jcli.main(["--no-compile-cache", "repro", "--data", str(data), "--out",
+               str(root / "jax"), "--quick", "--no-figures"])
+    cli.main(["repro", "--data", str(data), "--out", str(root / "port"),
+              "--quick", "--no-figures", "--device", "cpu"])
+    cli.main(["survey", "--survey",
+              str(data / "word_meaning_survey_results.csv"), "--instruct",
+              str(data / "instruct_model_comparison_results.csv"), "--base",
+              str(data / "model_comparison_results.csv"), "--out",
+              str(root / "port_survey"), "--quick", "--device", "cpu"])
+    return root
+
+
+def _files(base):
+    return sorted(str(p.relative_to(base)) for p in base.rglob("*")
+                  if p.is_file())
+
+
+def _keys(a, b, path=""):
+    """The same JSON structure: keys in the same order, lists of the same
+    length (the values apart)."""
+    if isinstance(b, dict):
+        assert isinstance(a, dict) and list(a) == list(b), path
+        for k in b:
+            _keys(a[k], b[k], f"{path}.{k}")
+    elif isinstance(b, list):
+        assert isinstance(a, list) and len(a) == len(b), path
+        for x, y in zip(a, b):
+            _keys(x, y, path)
+
+
+def test_repro_writes_the_jax_artifacts(repro_runs):
+    """The port's repro writes every file of the JAX command's (the JAX
+    survey pipeline draws its figures whatever --no-figures says; the
+    port's does not: its one departure), with the same CSV headers and
+    the same JSON structure; the artifacts no draw decides are JAX's to
+    1e-6 (tests/test_torch_survey.py holds the rest on JAX's draws)."""
+    import json
+    import math
+
+    port, ref = _files(repro_runs / "port"), _files(repro_runs / "jax")
+    survey_png = {f"survey/{n}" for n in (
+        "best_worst_model_agreement.png", "model_mae_comparison.png",
+        "correlation_pvalue_distributions.png")}
+    assert set(ref) - set(port) == survey_png and set(port) < set(ref)
+    assert {p.split("/")[0] for p in port} == {
+        "survey", "base_vs_instruct", "model_graph"}
+    for name in port:
+        a, b = repro_runs / "port" / name, repro_runs / "jax" / name
+        if name.endswith(".csv"):
+            assert (a.read_text().split("\n", 1)[0]
+                    == b.read_text().split("\n", 1)[0]), name
+        if name.endswith(".json"):
+            _keys(json.loads(a.read_text()), json.loads(b.read_text()), name)
+    for name in ("survey_analysis_detailed.json",
+                 "llm_human_agreement_analysis.json",
+                 "correlation_pvalues_analysis.json",
+                 "proportion_analysis.json"):
+        got = json.loads((repro_runs / "port" / "survey" / name).read_text())
+        want = json.loads((repro_runs / "jax" / "survey" / name).read_text())
+
+        def close(x, y):
+            if isinstance(y, dict):
+                return all(close(x[k], y[k]) for k in y)
+            if isinstance(y, list):
+                return all(close(u, v) for u, v in zip(x, y))
+            if isinstance(y, float):
+                return (math.isnan(x) and math.isnan(y)) or abs(x - y) <= (
+                    1e-6 * max(1.0, abs(y)))
+            return x == y and type(x) is type(y)
+        assert close(got, want), name
+
+
+def test_survey_command_is_the_pipeline(repro_runs):
+    """``survey --quick`` writes what repro's survey step writes, byte for
+    byte (one function, one seed, the same budgets), plus the figures,
+    with the JAX command's file names."""
+    survey = repro_runs / "port_survey"
+    names = _files(survey)
+    assert names == [n.split("/", 1)[1] for n in _files(repro_runs / "jax")
+                     if n.startswith("survey/")]
+    for name in _files(repro_runs / "port" / "survey"):
+        assert ((survey / name).read_bytes()
+                == (repro_runs / "port" / "survey" / name).read_bytes()), name
+
+
+def test_repro_stops_at_the_model_graph_on_a_failed_model(tmp_path):
+    """Caveat R5 through repro: a D2 holding a model whose every row is
+    NaN stops the model graph with KeyError on that model, after the
+    survey artifacts are written (the survey pipeline takes those rows)."""
+    from lir_tpu_torch.data import synthetic
+
+    data = _survey_data(tmp_path, error_model=True)
+    with pytest.raises(KeyError) as exc:
+        cli.main(["repro", "--data", str(data), "--out", str(tmp_path / "out"),
+                  "--quick", "--no-figures", "--device", "cpu"])
+    assert exc.value.args == (synthetic.SURVEY_ERROR_MODEL,)
+    assert (tmp_path / "out" / "survey" / "proportion_analysis.json").exists()
+
+
+@pytest.mark.parametrize("command", ["survey", "repro"])
+def test_survey_flags_are_the_jax_flags_and_device(command):
+    import argparse
+
+    def flags(add):
+        sub = argparse.ArgumentParser().add_subparsers()
+        add(sub)
+        return {s: a.default for a in sub.choices[command]._actions
+                for s in a.option_strings}
+
+    adder = {"survey": "_add_survey", "repro": "_add_repro"}[command]
+    port, ref = flags(getattr(cli, adder)), flags(getattr(jcli, adder))
+    assert set(port) == set(ref) | {"--device"}
+    assert {k: port[k] for k in ref} == ref
+    assert port["--device"] == "cuda"
+
+
+@pytest.mark.parametrize("command", ["survey", "repro"])
+def test_survey_commands_default_to_the_card(monkeypatch, tmp_path, command):
+    data = _survey_data(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = (["survey", "--survey",
+             str(data / "word_meaning_survey_results.csv"), "--instruct",
+             str(data / "instruct_model_comparison_results.csv")]
+            if command == "survey" else ["repro", "--data", str(data)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(argv + ["--out", str(tmp_path / "out")])
+    assert not (tmp_path / "out").exists()
+
+
+def test_survey_without_matplotlib_skips_figures(monkeypatch, tmp_path,
+                                                 caplog):
+    import sys
+
+    data = _survey_data(tmp_path)
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    with caplog.at_level("WARNING", logger="lir_tpu_torch"):
+        cli.main(["survey", "--survey",
+                  str(data / "word_meaning_survey_results.csv"), "--instruct",
+                  str(data / "instruct_model_comparison_results.csv"),
+                  "--out", str(tmp_path / "out"), "--quick", "--device",
+                  "cpu"])
+    assert any("survey: matplotlib is not installed; figures skipped"
+               in r.message for r in caplog.records)
+    assert not list((tmp_path / "out").rglob("*.png"))
+    assert (tmp_path / "out" / "proportion_analysis.json").exists()

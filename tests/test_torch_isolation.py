@@ -39,6 +39,11 @@ import lir_tpu_torch.analysis.kappa_combined
 import lir_tpu_torch.report, lir_tpu_torch.report.figures
 import lir_tpu_torch.report.latex
 import lir_tpu_torch.data.synthetic, lir_tpu_torch.data.table
+import lir_tpu_torch.survey, lir_tpu_torch.survey.loader
+import lir_tpu_torch.survey.human_llm, lir_tpu_torch.survey.consolidated
+import lir_tpu_torch.survey.family_differences, lir_tpu_torch.survey.simulated
+import lir_tpu_torch.survey.pvalues, lir_tpu_torch.survey.proportions
+import lir_tpu_torch.survey.run, lir_tpu_torch.report.survey_figures
 import chip_smoke, kernel_ab, kernel_variants, profile_batch
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
@@ -230,3 +235,60 @@ def test_analysis_drivers_default_to_cuda(monkeypatch, tmp_path, driver):
         else:
             kappa_combined.run_kappa_analysis(d6, d6, out, make_figures=False)
     assert not out.exists()
+
+
+@pytest.mark.parametrize("entry", [
+    "run_survey_pipeline", "run_consolidated_analysis", "bootstrap_all_models",
+    "bootstrap_results_payload", "analyze_family_differences",
+    "run_simulated_bootstrap", "run_pvalue_analysis",
+    "llm_prompt_estimates_from_accum"])
+def test_survey_entry_points_default_to_cuda(monkeypatch, tmp_path, entry):
+    """The survey's entry points whose statistics run on a device resolve
+    it before reading or writing anything, and never fall back to the
+    CPU."""
+    from lir_tpu_torch.data import synthetic
+    from lir_tpu_torch.data.table import read_table
+    from lir_tpu_torch.stats import streaming
+    from lir_tpu_torch import survey
+
+    s = synthetic.write_synthetic_survey(tmp_path / "s.csv", n_respondents=30)
+    d1, d2 = synthetic.write_synthetic_comparison(tmp_path / "d1.csv",
+                                                  tmp_path / "d2.csv")
+    df, cols = survey.load_survey(s)
+    clean, stats = survey.apply_exclusions(df, cols)
+    t1, t2 = read_table(d1), read_table(d2)
+    detailed = survey.survey_detailed(clean, cols)
+    canonical = survey.canonical_question_mapping()
+    avgs = survey.human_averages_from_detailed(detailed, canonical)
+    results = [{"model": "m", "model_type": "base", "mae_mean": 0.1,
+                "mse_mean": 0.1, "mape_mean": 1.0},
+               {"model": "n", "model_type": "instruct", "mae_mean": 0.2,
+                "mse_mean": 0.2, "mape_mean": 2.0}]
+    payload = {"model_results": [
+        {"model": m, **{f"{k}_{s}": 0.1 for k in ("mae", "mse", "mape")
+                        for s in ("mean", "std", "ci_lower", "ci_upper")}}
+        for m in ("tiiuae/falcon-7b", "tiiuae/falcon-7b-instruct")]}
+    acc = streaming.empty_accum(1, 4, seed=0)
+    acc.filled[:] = 1
+    acc.rel[:] = 0.5
+    calls = {
+        "run_survey_pipeline": lambda: survey.run_survey_pipeline(
+            s, d2, d1, tmp_path / "out", make_figures=False),
+        "run_consolidated_analysis": lambda: survey.run_consolidated_analysis(
+            clean, cols, t2, canonical, stats),
+        "bootstrap_all_models": lambda: survey.bootstrap_all_models(
+            avgs, t2, t1),
+        "bootstrap_results_payload": lambda: survey.bootstrap_results_payload(
+            results),
+        "analyze_family_differences":
+            lambda: survey.analyze_family_differences(payload),
+        "run_simulated_bootstrap": lambda: survey.run_simulated_bootstrap(
+            t1, canonical, detailed),
+        "run_pvalue_analysis": lambda: survey.run_pvalue_analysis(t2, t1, df),
+        "llm_prompt_estimates_from_accum":
+            lambda: survey.llm_prompt_estimates_from_accum(acc),
+    }
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calls[entry]()
+    assert not (tmp_path / "out").exists()
