@@ -192,6 +192,7 @@ Phases (each raises on failure, so the script exits non-zero):
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import gc
 import json
@@ -216,10 +217,10 @@ from lir_tpu_torch.backends.fake import FakeTokenizer
 from lir_tpu_torch.config import CascadeConfig, RuntimeConfig
 from lir_tpu_torch.data import (LEGAL_PROMPTS, WORD_MEANING_QUESTIONS,
                                 format_base_prompt, schemas)
-from lir_tpu_torch.engine import generate, grid, sweep, tokens as tok
+from lir_tpu_torch.engine import generate, grid, prefix_tree, sweep, tokens as tok
 from lir_tpu_torch.engine.multi import ModelSpec, run_model_comparison_sweep
 from lir_tpu_torch.engine.runner import SFX_BUCKETS, ScoringEngine
-from lir_tpu_torch.models import decoder, loader, quant, registry
+from lir_tpu_torch.models import decoder, loader, paged, quant, registry
 from lir_tpu_torch.models.factory import engine_factory
 from lir_tpu_torch.ops import _build
 from lir_tpu_torch.ops.flash_decode import (decode_legs,
@@ -1727,6 +1728,8 @@ def run_int8_slice(cfg, tokenizer, cells_trunk, cells_flat, rt, grids):
                     "max_memory_allocated_bytes": peak}))
     with tempfile.TemporaryDirectory() as tmp:
         sweep8 = run_sweep_phase("int8", engine8, rt, grids, Path(tmp))
+        sweep8["prefix_cache_trunk"] = run_prefix_int8_trunk(
+            engine8, rt, grids, Path(tmp))
     del engine8, seq8, params8
     torch.cuda.empty_cache()
     return stats, nbytes8, peak, sweep8
@@ -2040,6 +2043,425 @@ def run_sweep_phase(kind, engine, rt, grids, tmp: Path,
             kind, engine, grids, tmp,
             {name: stats[name]["rows_per_s"] for name in grids})
     return stats
+
+
+# ---------------------------------------------------------------------------
+# The prefix-cache phase: the sweep grids with the radix prefix cache on
+# ---------------------------------------------------------------------------
+
+# Each grid's paged route on a warm pass: the engine's paged_dispatches
+# key and the kernels that run it, by engine.
+PREFIX_ROUTES = {
+    "bf16": {"grouped": ("grouped_paged", ("flash_decode",)),
+             "trunk": ("cascade_paged", ("cascade_attention",
+                                         "flash_decode_trunk")),
+             "flat": ("shared_paged_spec", ("flash_decode_mq",))},
+    "int8": {"trunk": ("cascade_paged", ("quantize_rows",
+                                         "cascade_prefix_int8",
+                                         "cascade_suffix_merge",
+                                         "flash_decode_trunk"))},
+}
+D6_TEXT = ("Model Response", "Model Confidence Response", "Confidence Value")
+D6_FLOATS = ("Token_1_Prob", "Token_2_Prob", "Weighted Confidence")
+# The tight pool lacks this share of the pages its grid needs.
+TIGHT_POOL_CUT = 0.1
+
+
+def prefix_pages_needed(engine, grids: dict, rt: RuntimeConfig,
+                        passes: int = 2) -> dict:
+    """Pages the grids insert when each is swept ``passes`` times in turn
+    on one engine: every pass's plan (made, as the sweep makes it,
+    against the tree as it stands) replayed on the host into one tree
+    over a pool that never runs out and holds no device memory — the
+    group prefixes, the cascade trunks in their trunk namespace, the
+    other shared rows' prefixes. Returns the pages each grid adds and
+    the total."""
+    tree = prefix_tree.RadixPrefixCache(
+        paged.KVPagePool(1 << 20, rt.prefix_page_size))
+    planner = copy.copy(engine)
+    planner.prefix_cache = tree
+    out = {}
+    for name, (prompts, perts) in grids.items():
+        before = tree.pool.pages_in_use
+        for _ in range(passes):
+            _, dispatches, _ = plan_sweep(planner, prompts, perts, rt)
+            for d in dispatches:
+                if d.kind == "grouped":
+                    for g in d.groups:
+                        tree.plan_insert(d.bucket,
+                                         g.items[0].bin_ids[:g.plen])
+                    continue
+                rows = [it.bin_ids[:it.lcp] for it in d.items]
+                trunk = engine.cascade_trunk_for(rows, len(rows), d.bucket)
+                if trunk:
+                    tree.plan_insert(trunk, rows[0][:trunk])
+                else:
+                    for ids in rows:
+                        tree.plan_insert(d.bucket, ids)
+        out[name] = tree.pool.pages_in_use - before
+    out["total"] = tree.pool.pages_in_use
+    return out
+
+
+def d6_records(path: Path) -> dict:
+    return {(r["Original Main Part"], r["Rephrased Main Part"]): r
+            for r in schemas.read_results(path)}
+
+
+def completion_ids(text: str) -> list:
+    """The ids of a completion the FakeTokenizer decoded (one word an
+    id: 'Yes', 'No' or '<id>'; the EOS and pads are dropped)."""
+    return [FakeTokenizer.YES if w == "Yes" else FakeTokenizer.NO
+            if w == "No" else int(w[1:-1]) for w in text.split()]
+
+
+def field_bar(bars: dict, field: str, x: float) -> float:
+    """The bar a D6 float ``x`` of ``field`` may move by between two
+    routes: the script's ATOL + RTOL |x|, or the field's entry in
+    ``bars`` (absolute) where that is larger."""
+    return max(ATOL + RTOL * abs(x), bars.get(field, 0.0))
+
+
+@torch.inference_mode()
+def flip_gap(eng, prompt: str, text_a: str, text_b: str, bars: dict) -> dict:
+    """Where two greedy completions of ``prompt`` part: the step, the
+    two ids there (the EOS where one text ends), and their log-probs
+    with the prompt and the common ids before the step forced through
+    ``eng``'s cache-off prefill. ``near_tie``: the gap is within the
+    two log-probs' bars summed (:func:`field_bar`), so either id may be
+    the argmax under the float noise the bars allow."""
+    a, b = completion_ids(text_a), completion_ids(text_b)
+    j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+             min(len(a), len(b)))
+    ids = [a[j] if j < len(a) else eng.eos_id,
+           b[j] if j < len(b) else eng.eos_id]
+    seq = list(eng.tokenizer(prompt).input_ids) + a[:j]
+    tokens = torch.tensor([seq], dtype=torch.int32, device=DEV)
+    logits, _, _ = decoder.prefill(eng.params, eng.cfg, tokens,
+                                   torch.ones_like(tokens), len(seq))
+    lp = torch.log_softmax(logits[0].float(), dim=-1)[ids].tolist()
+    gap = abs(lp[0] - lp[1])
+    bar = sum(field_bar(bars, "Log Probabilities", v) for v in lp)
+    return dict(step=j, ids=ids, logprobs=lp, gap=gap, bar=bar,
+                near_tie=gap <= bar)
+
+
+def topk_diffs(la: dict, lb: dict, bars: dict) -> tuple:
+    """Two top-k log-prob maps (id -> log-prob) of one readout: the
+    largest difference of an id in both, and the ids that break the bar
+    (:func:`field_bar`): an id in both that moved past it, or an id in
+    one map only that sits higher than the other map's last value plus
+    its bar (noise may move an id only that far past the edge). So ids
+    may change order only among values within their bars, and
+    membership only at the edge."""
+    def tol(v):
+        return field_bar(bars, "Log Probabilities", v)
+    common = la.keys() & lb.keys()
+    worst = max((abs(la[i] - lb[i]) for i in common), default=0.0)
+    bad = [i for i in common if abs(la[i] - lb[i]) > tol(la[i])]
+    for one, other in ((la, lb), (lb, la)):
+        edge = min(other.values())
+        bad += [i for i in one.keys() - other.keys()
+                if one[i] > edge + tol(one[i])]
+    return worst, bad
+
+
+# The completions' prompts, by D6 text field; a Confidence Value is
+# read from its completion.
+D6_PROMPTS = {"Model Response": "Full Rephrased Prompt",
+              "Model Confidence Response": "Full Confidence Prompt"}
+
+
+def compare_d6(label: str, ref: dict, got: dict, eng, bars) -> dict:
+    """D6 rows ``got`` against ``ref``, cell by cell (every cell of
+    ``got`` must be in ``ref``). Model Response and Model Confidence
+    Response exact, save a flip at a near tie (:func:`flip_gap` on
+    ``eng``; every flip is reported); Confidence Value exact where its
+    completion is; Token_1/2_Prob, Weighted Confidence and each top-20
+    id's log-prob within its bar (:func:`field_bar`, :func:`topk_diffs`).
+    ``bars`` None measures without holding (the control). Returns the
+    largest differences, the flips, the rows whose top-20 order differs,
+    the breaches, and whether every row is the reference's, byte for
+    byte; fails on a breach unless ``bars`` is None."""
+    held = bars is not None
+    bars = bars or {}
+    worst = {f: 0.0 for f in D6_FLOATS + ("Log Probabilities",)}
+    flips, breaches = [], []
+    swaps = 0
+    for key, b in got.items():
+        a = ref[key]
+        cell = f"{key[1][:24]}...{key[1][-24:]}"
+        for f, prompt in D6_PROMPTS.items():
+            if a[f] != b[f]:
+                flip = flip_gap(eng, a[prompt], a[f], b[f], bars)
+                flips.append(dict(cell=cell, key=key, field=f, **flip))
+                if not flip["near_tie"]:
+                    breaches.append(flips[-1])
+        if (a["Model Confidence Response"] == b["Model Confidence Response"]
+                and a["Confidence Value"] != b["Confidence Value"]):
+            breaches.append(dict(cell=cell, field="Confidence Value"))
+        for f in D6_FLOATS:
+            x, y = float(a[f]), float(b[f])
+            worst[f] = max(worst[f], abs(x - y))
+            if not abs(x - y) <= field_bar(bars, f, x):
+                breaches.append(dict(cell=cell, field=f, values=[x, y]))
+        la, lb = json.loads(a["Log Probabilities"]), json.loads(
+            b["Log Probabilities"])
+        diff, bad = topk_diffs(la, lb, bars)
+        worst["Log Probabilities"] = max(worst["Log Probabilities"], diff)
+        swaps += list(la) != list(lb)
+        if bad:
+            breaches.append(dict(cell=cell, field="Log Probabilities",
+                                 ids=bad, ref=la, got=lb))
+    out = dict(rows=len(got), max_abs_diff=worst, topk_order_differs=swaps,
+               bitwise=all(got[k] == ref[k] for k in got),
+               flips=len(flips), rows_flipped=len({f.pop("key") for f in flips}),
+               max_flip_gap=max((f["gap"] for f in flips), default=None),
+               flip_examples=flips[:4], breaches=len(breaches))
+    if held and breaches:
+        raise AssertionError(f"{label}: {len(breaches)} breaches of the "
+                             f"bar {bars}, first {breaches[:3]}; {out}")
+    return out
+
+
+# The control's differences, times this, bound the differences of the
+# cache's passes (a row-count change alone moves a bf16 row this far).
+CONTROL_FACTOR = 2.0
+
+
+def shape_control(kind, engine, grids: dict, tmp: Path, names) -> dict:
+    """The bar's control: grids ``names`` swept cache-off again at half
+    the batch (every product at other row counts, so other bits), each
+    row against the full-batch cache-off sweep's in ``tmp``, measured
+    only. Returns per grid the differences and flips, and ``bars``:
+    CONTROL_FACTOR times each field's largest difference."""
+    eng = engine_with(engine, batch_size=engine.rt.batch_size // 2)
+    out = {}
+    for name in names:
+        path = tmp / f"{kind}_{name}_control.csv"
+        sweep.run_perturbation_sweep(eng, SWEEP_MODEL, *grids[name], path)
+        out[name] = compare_d6(f"{kind} control {name}",
+                               d6_records(tmp / f"{kind}_{name}.csv"),
+                               d6_records(path), eng, None)
+    out["bars"] = {f: CONTROL_FACTOR * max(out[n]["max_abs_diff"][f]
+                                           for n in names)
+                   for f in D6_FLOATS + ("Log Probabilities",)}
+    log(json.dumps({"phase": f"{kind}_prefix_control", **out}))
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def prefix_pass(label, eng, prompts, perts, path: Path) -> dict:
+    """One sweep through an engine with the prefix cache on: rows/s by
+    the host clock around work that ends in a synchronize, the launch
+    counts (reset just before, read just after), and the deltas of the
+    cache's counters, the paged routes taken and the tree's drafts.
+    Fails unless every page pin was released."""
+    pc0 = eng.prefix_stats.summary()
+    paged0 = dict(eng.paged_dispatches)
+    spec0 = dict(eng.spec_stats)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    rows = sweep.run_perturbation_sweep(eng, SWEEP_MODEL, prompts, perts,
+                                        path)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    pc = eng.prefix_stats.summary()
+    pool = eng.prefix_cache.pool
+    if pool.refcount[1:].sum() != pool.pages_in_use:
+        raise AssertionError(f"{label}: refcounts {pool.refcount[1:].sum()} "
+                             f"for {pool.pages_in_use} pages in use")
+    delta = {k: pc[k] - pc0[k] for k in
+             ("lookups", "hits", "prefill_tokens_avoided",
+              "prefill_tokens_total", "inserted_pages", "evicted_pages")}
+    return dict(
+        rows=len(rows), seconds=dt, rows_per_s=len(rows) / dt,
+        hit_tokens=delta["prefill_tokens_avoided"],
+        prefill_tokens_total=delta["prefill_tokens_total"],
+        avoided_frac=(delta["prefill_tokens_avoided"]
+                      / max(delta["prefill_tokens_total"], 1)),
+        lookups=delta["lookups"], hits=delta["hits"],
+        inserted_pages=delta["inserted_pages"],
+        evicted_pages=delta["evicted_pages"],
+        pages_in_use=pc["pages_in_use"],
+        paged_dispatches={k: v - paged0.get(k, 0)
+                          for k, v in eng.paged_dispatches.items()
+                          if v != paged0.get(k, 0)},
+        tree_drafted=eng.spec_stats["draft_tree"] - spec0.get("draft_tree", 0),
+        tree_accepted=(eng.spec_stats["accepted_tree"]
+                       - spec0.get("accepted_tree", 0)),
+        launches=launches,
+        max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+
+
+def prefix_grid(kind, eng, name, prompts, perts, tmp: Path, ref_path: Path,
+                bars: dict, passes=("cold", "warm")) -> dict:
+    """Grid ``name`` through ``eng`` once a pass into fresh CSVs under
+    ``tmp``: every pass's rows against the cache-off sweep's
+    (``ref_path``, which may hold more cells), the warm pass's against the
+    cold pass's, each within ``bars`` (:func:`compare_d6`); the last pass
+    must resume prefix tokens from the pool and take the grid's paged
+    route on its kernels."""
+    ref = d6_records(ref_path)
+    n_cells = len(grid.build_grid(SWEEP_MODEL, prompts, perts))
+    tmp.mkdir(parents=True, exist_ok=True)
+    out, recs = {}, {}
+    for which in passes:
+        path = tmp / f"{kind}_{name}_prefix_{which}.csv"
+        out[which] = prefix_pass(f"{kind}_prefix_{name}_{which}", eng,
+                                 prompts, perts, path)
+        recs[which] = d6_records(path)
+        if len(recs[which]) != n_cells:
+            raise AssertionError(f"{kind} prefix {name} {which}: "
+                                 f"{len(recs[which])} rows, {n_cells} cells")
+        out[which]["vs_cache_off"] = compare_d6(
+            f"{kind} prefix {name} {which} vs cache off", ref, recs[which],
+            eng, bars)
+    if "warm" in recs:
+        out["warm_vs_cold"] = compare_d6(f"{kind} prefix {name} warm vs cold",
+                                         recs["cold"], recs["warm"], eng,
+                                         bars)
+    last = out[passes[-1]]
+    route, kernels = PREFIX_ROUTES[kind][name]
+    missing = [k for k in kernels if last["launches"][k] <= 0]
+    if (last["hit_tokens"] <= 0 or last["paged_dispatches"].get(route, 0) <= 0
+            or missing):
+        raise AssertionError(f"{kind} prefix {name}: hit tokens "
+                             f"{last['hit_tokens']}, paged routes "
+                             f"{last['paged_dispatches']}, never launched "
+                             f"{missing}")
+    log(json.dumps({"phase": f"{kind}_prefix_cache_{name}", **out}))
+    return out
+
+
+def run_prefix_cache_phase(engine, rt, grids, tmp: Path, flat_peak) -> dict:
+    """The bf16 engine's sweep grids with the prefix cache on, all on ONE
+    engine with one pool sized from the grids' prefix pages
+    (``prefix_pages_needed``; one page ``paged.kv_page_bytes`` = 8 MiB at
+    llama-2-7b width): each grid twice in turn, cold (pages inserted,
+    tails recorded; the flat grid's original cells already resume the
+    grouped grid's pages) then warm (resumed from pages, drafted from the
+    tree), each pass's rows against the cache-off sweep's in ``tmp`` and
+    the warm pass's against the cold pass's, within the bars of
+    :func:`shape_control` (a page holds the bits of the dispatch shape
+    that made it, and the window runs at other row counts than the cold
+    prefill: floats move, and a greedy text may flip at a near tie); then the grouped grid twice on a pool
+    of nine tenths of the pages it needs, which must evict, resume on its
+    second pass and still match. ``flat_peak``: the cache-off flat grid's
+    peak memory, which with the pool must fit the card."""
+    control = shape_control("bf16", engine, grids, tmp, list(grids))
+    bars = control["bars"]
+    page_bytes = paged.kv_page_bytes(engine.cfg, rt.prefix_page_size)
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    need = prefix_pages_needed(engine, grids, rt)
+    pool_bytes = (need["total"] + 1) * page_bytes     # + the trash page
+    if flat_peak + pool_bytes > card_bytes:
+        raise AssertionError(f"prefix pool {pool_bytes} B + the flat grid's "
+                             f"{flat_peak} B peak exceed {card_bytes} B")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = engine_with(engine, prefix_cache=True,
+                      prefix_cache_pages=need["total"] + 1)
+    pool = eng.prefix_cache.pool
+    if pool.nbytes != pool_bytes:
+        raise AssertionError(f"pool of {pool.nbytes} B, {pool_bytes} B "
+                             f"planned")
+    out = {"control": control}
+    for name, (prompts, perts) in grids.items():
+        out[name] = prefix_grid("bf16", eng, name, prompts, perts, tmp,
+                                tmp / f"bf16_{name}.csv", bars)
+        added = sum(out[name][p]["inserted_pages"] for p in ("cold", "warm"))
+        if added != need[name]:
+            raise AssertionError(f"{name}: {added} pages inserted, "
+                                 f"{need[name]} planned")
+    out["pool"] = dict(page_bytes=page_bytes, pages_needed=need,
+                       n_pages=need["total"] + 1, pool_bytes=pool_bytes,
+                       pages_in_use=pool.pages_in_use,
+                       flat_cache_off_peak_bytes=flat_peak,
+                       max_memory_allocated_bytes=(
+                           torch.cuda.max_memory_allocated()))
+    if pool.pages_in_use != need["total"] or eng.prefix_stats.evicted_pages:
+        raise AssertionError(f"the pool holds {pool.pages_in_use} pages "
+                             f"({eng.prefix_stats.evicted_pages} evicted), "
+                             f"{need['total']} planned")
+    del eng, pool
+    torch.cuda.empty_cache()
+
+    # A tight pool: the grouped grid twice on nine tenths of the pages
+    # it needs. The first pass evicts; on the second the groups evicted
+    # least recently are still cached, and resume.
+    need_g = prefix_pages_needed(engine, {"grouped": grids["grouped"]}, rt)
+    tight = engine_with(engine, prefix_cache=True, prefix_cache_pages=(
+        need_g["total"] - int(need_g["total"] * TIGHT_POOL_CUT) + 1))
+    tight_out = prefix_grid("bf16", tight, "grouped", *grids["grouped"],
+                            tmp / "tight", tmp / "bf16_grouped.csv", bars)
+    if tight.prefix_stats.evicted_pages <= 0:
+        raise AssertionError("tight prefix pool: nothing evicted")
+    out["tight_pool"] = dict(pages_needed=need_g["total"],
+                             n_pages=tight.rt.prefix_cache_pages,
+                             **tight_out)
+    del tight
+    torch.cuda.empty_cache()
+    return out
+
+
+def prefix_summary(prefix: dict) -> dict:
+    """The phase's one-line record: per grid (bf16 cold and warm, the
+    tight pool, the 8-bit trunk), rows/s, the prefill tokens resumed from
+    the pool of those needed, pages inserted and evicted, tree-drafted
+    and accepted tokens, and the largest difference from the cold rows
+    with whether the rows are bitwise theirs."""
+    def pass_line(st):
+        return {k: st[k] for k in ("rows_per_s", "hit_tokens",
+                                   "prefill_tokens_total", "avoided_frac",
+                                   "inserted_pages", "evicted_pages",
+                                   "tree_drafted", "tree_accepted",
+                                   "paged_dispatches")}
+
+    def grid_line(g):
+        line = {p: pass_line(g[p]) for p in ("cold", "warm") if p in g}
+        if "warm_vs_cold" in g:
+            line["warm_vs_cold"] = g["warm_vs_cold"]
+        for p in ("cold", "warm"):
+            if p in g:
+                line[f"{p}_vs_cache_off"] = g[p]["vs_cache_off"]
+        return line
+
+    out = {"pool": prefix["pool"], "bf16/control": prefix["control"]}
+    for name in ("grouped", "trunk", "flat"):
+        out[f"bf16/{name}"] = grid_line(prefix[name])
+    out["bf16/grouped_tight_pool"] = dict(
+        pages_needed=prefix["tight_pool"]["pages_needed"],
+        n_pages=prefix["tight_pool"]["n_pages"],
+        **grid_line(prefix["tight_pool"]))
+    out["int8/trunk"] = dict(pages_needed=prefix["int8_trunk"]["pages_needed"],
+                             control=prefix["int8_trunk"]["control"],
+                             **grid_line(prefix["int8_trunk"]))
+    return out
+
+
+def run_prefix_int8_trunk(engine8, rt, grids, tmp: Path) -> dict:
+    """The trunk grid once on the 8-bit engine with the prefix cache on:
+    its later dispatches resume the trunk from the pages the first
+    inserted, through the two-leg int8-QK^T cascade. Rows against the
+    8-bit cache-off sweep's, within the bars of the 8-bit engine's own
+    :func:`shape_control` on the trunk grid."""
+    control = shape_control("int8", engine8, grids, tmp, ["trunk"])
+    need = prefix_pages_needed(engine8, {"trunk": grids["trunk"]}, rt,
+                               passes=1)["total"]
+    eng = engine_with(engine8, prefix_cache=True,
+                      prefix_cache_pages=need + 1)
+    out = prefix_grid("int8", eng, "trunk", *grids["trunk"], tmp,
+                      tmp / "int8_trunk.csv", control["bars"],
+                      passes=("cold",))
+    out["pages_needed"] = need
+    out["control"] = control
+    del eng
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3369,7 +3791,12 @@ def main() -> int:
         sweeps = {"bf16": run_sweep_phase("bf16", engine, rt, grids,
                                           Path(tmp),
                                           trace_and_resume=True)}
-    elapsed("bf16_sweep")
+        elapsed("bf16_sweep")
+        # The prefix-cache phase, its rows held to the cache-off sweep's.
+        prefix = run_prefix_cache_phase(
+            engine, rt, grids, Path(tmp),
+            sweeps["bf16"]["flat"]["max_memory_allocated_bytes"])
+    elapsed("prefix_cache")
     # The loader phase, while phase 3's llama-2-7b params are resident.
     loader_stats = run_loader_phase(params, cfg)
     for name, n in loader_stats["launches"].items():
@@ -3382,6 +3809,19 @@ def main() -> int:
     stats8, bytes8, peak8, sweeps["int8"] = run_int8_slice(
         cfg, tokenizer, cells_trunk, cells_flat, rt, grids)
     elapsed("int8_slice_and_sweep")
+    prefix["int8_trunk"] = sweeps["int8"].pop("prefix_cache_trunk")
+    prefix_launches = [st["launches"] for name in grids
+                       for st in (prefix[name]["cold"], prefix[name]["warm"])]
+    prefix_launches += [prefix["tight_pool"][p]["launches"]
+                        for p in ("cold", "warm")]
+    prefix_launches.append(prefix["int8_trunk"]["cold"]["launches"])
+    phase_launches = {}
+    for counts in prefix_launches:
+        for name, n in counts.items():
+            launches[name] += n
+            phase_launches[name] = phase_launches.get(name, 0) + n
+    log(json.dumps({"phase": "prefix_cache", **prefix_summary(prefix),
+                    "launches": phase_launches}))
     for st in list(stats8.values()) + [
             st for kind in sweeps.values() for st in kind.values()]:
         for name, n in st.get("launches", {}).items():

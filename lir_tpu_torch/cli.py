@@ -10,9 +10,9 @@ Port of the ``sweep``, ``perturb``, ``analyze``, ``survey`` and ``repro``
 commands of ``lir_tpu/cli.py``.
 Each flag lands in the same ``RuntimeConfig`` / ``SpecConfig`` /
 ``CascadeConfig`` field as there. A flag of a feature the port does not
-have yet (meshes, the parameter cache, the int8 KV cache, the prefix
-cache, leased shards, the fleet, the watchdog, tracing) is not defined, so argparse
-rejects it. ``--device`` (default ``cuda``) says where the models and the
+have yet (meshes, the parameter cache, the int8 KV cache, leased shards,
+the fleet, the watchdog, tracing) is not defined, so argparse rejects
+it. ``--device`` (default ``cuda``) says where the models and the
 statistics run; the CPU must be asked for. Where matplotlib is absent,
 ``analyze``, ``survey`` and ``repro`` log that figures were skipped and
 write everything else; ``repro --no-figures`` also reaches the survey
@@ -119,6 +119,28 @@ def _add_perturb(sub) -> None:
     p.add_argument("--spec-ngram", type=_positive_int, default=None,
                    help="n-gram match length of the prompt-lookup drafter "
                         "(default 2)")
+    p.add_argument("--no-spec-tree-probe", action="store_true",
+                   help="skip the radix prefix tree's token-history "
+                        "continuation probe when drafting (n-gram lookup "
+                        "only)")
+    p.add_argument("--spec-tree-tails", type=_positive_int, default=None,
+                   help="continuation tails recorded per radix node for "
+                        "drafting, LRU beyond this (default 32; host memory "
+                        "only)")
+    # The cross-request prefix cache (models/paged.py, engine/prefix_tree.py).
+    p.add_argument("--prefix-cache", action="store_true",
+                   help="enable the cross-request radix prefix cache for the "
+                        "sweep (paged KV pool + radix tree): repeated grids "
+                        "on one engine resume shared prefixes from the page "
+                        "pool")
+    p.add_argument("--prefix-cache-pages", type=_positive_int, default=None,
+                   help="KV page pool size in pages (default 512; each page "
+                        "holds --prefix-page-size token positions and costs "
+                        "models/paged.kv_page_bytes of device memory)")
+    p.add_argument("--prefix-page-size", type=_positive_int, default=None,
+                   help="token positions per KV page (default 16; also the "
+                        "radix tree's edge granularity: prefixes cache in "
+                        "full pages, tails recompute)")
     p.add_argument("--no-cascade-prefill", action="store_true",
                    help="dense shared prefill instead of the cascade")
     p.add_argument("--cascade-min-trunk", type=_positive_int, default=None,
@@ -230,7 +252,8 @@ def _perturb_configs(args):
     # Flags named as their RuntimeConfig field.
     for name in ("sweep_decode_tokens", "sweep_confidence_tokens",
                  "max_seq_len", "max_new_tokens", "sweep_group_min_prefix",
-                 "sweep_group_min_cells", "scan_positions", "spec_k"):
+                 "sweep_group_min_cells", "scan_positions", "spec_k",
+                 "prefix_cache_pages", "prefix_page_size"):
         if getattr(args, name) is not None:
             rt_kw[name] = getattr(args, name)
     for flag, field in (("no_ragged_scheduler", "ragged_scheduler"),
@@ -244,9 +267,15 @@ def _perturb_configs(args):
                         ("no_numerics_guard", "numerics_guard")):
         if getattr(args, flag):
             rt_kw[field] = False
+    if args.prefix_cache:
+        rt_kw["prefix_cache"] = True
     spec_kw = {}
     if args.spec_ngram is not None:
         spec_kw["ngram"] = args.spec_ngram
+    if args.no_spec_tree_probe:
+        spec_kw["tree_probe"] = False
+    if args.spec_tree_tails is not None:
+        spec_kw["tree_tails_per_node"] = args.spec_tree_tails
     cascade_kw = {}
     for flag, field in (("cascade_min_trunk", "min_trunk"),
                         ("cascade_trunk_quantum", "trunk_quantum"),

@@ -2,10 +2,10 @@
 
 A copy of the part of the JAX package's ``RuntimeConfig``,
 ``SpecConfig`` and ``CascadeConfig`` that this port implements. A flag
-of the JAX engine that the port does not implement yet (fleet or
-radix-tree drafting, piggyback prefill, the prefix cache, the int8 KV
-cache, the watchdog, leased shards, the XLA compile plan) is absent here, so that no caller
-can set it and have it ignored. int8 weights are not a flag: they are
+of the JAX engine that the port does not implement yet (fleet drafting,
+piggyback prefill, the int8 KV cache, the watchdog, leased shards, the
+XLA compile plan) is absent here, so that no caller can set it and have
+it ignored. int8 weights are not a flag: they are
 a param tree of ``models.quant.QuantTensor`` leaves
 (``quantize_decoder_params`` or ``init_quantized_params``).
 """
@@ -68,6 +68,27 @@ class RuntimeConfig:
     # to spec_k-1 accepted drafts). < 2 disables speculation.
     spec_k: int = 4
 
+    # Cross-request radix prefix cache over the paged KV allocator
+    # (models/paged.py + engine/prefix_tree.py). ON: the engine keeps a
+    # device-resident pool of `prefix_cache_pages` KV pages of
+    # `prefix_page_size` token positions each, indexed by a per-bucket
+    # radix tree over tokenized prefixes; a warm dispatch gathers its
+    # rows' cached prefix pages into the exact slots the right-padded
+    # prefill would fill and recomputes only a small remainder window
+    # (across batches AND across sweeps on one engine). A warm row is
+    # not bitwise the cold one: its pages hold the bits of the dispatch
+    # that made them, and the window runs at another row count and
+    # attention route than the cold prefill, so floats agree within
+    # float tolerance and a greedy id may flip where its top two are
+    # near tied; what a row reads thus depends on what ran before it on
+    # the engine. Pool bytes =
+    # pages x models/paged.kv_page_bytes. Offline sweeps default OFF
+    # (the ragged scheduler's prefix groups already share within a
+    # plan; opt in for repeated grids on one engine via --prefix-cache).
+    prefix_cache: bool = False
+    prefix_cache_pages: int = 512
+    prefix_page_size: int = 16
+
     # Decode steps through the flash-decode kernel (ops/flash_decode);
     # off restores the dense decode path. Mirrored into
     # ModelConfig.fused_decode.
@@ -121,6 +142,15 @@ class SpecConfig:
     # drafts the tokens that followed the most recent earlier occurrence
     # of the last `ngram` context tokens (prompt + accepted emissions).
     ngram: int = 2
+    # Probe the radix prefix tree's token history for a whole-window
+    # draft of the dispatch's continuation (prefix_tree.continuation)
+    # before falling back to n-gram matching. Needs the prefix cache
+    # (the tree) to be enabled on the engine; off otherwise.
+    tree_probe: bool = True
+    # Continuation tails recorded per radix node (host memory only, LRU
+    # beyond this): each completed dispatch records its prompt's
+    # observed continuation so a repeat visit drafts the whole reply.
+    tree_tails_per_node: int = 32
 
 
 @dataclasses.dataclass(frozen=True)

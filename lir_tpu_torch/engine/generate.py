@@ -202,7 +202,7 @@ def greedy_decode_fused_grouped(params, cfg: ModelConfig, prefix, prefix_mask,
                                 digit_ids, digit_vals, max_new: int,
                                 topk: int = 20, stop_mask=None,
                                 stop_mask2=None, stop_sel=None,
-                                eos_id=None) -> FusedDecodeOut:
+                                eos_id=None, return_cache: bool = False):
     """M fused greedy decodes sharing G <= M prefix prefills (cross-cell
     prefix reuse).
 
@@ -216,12 +216,28 @@ def greedy_decode_fused_grouped(params, cfg: ModelConfig, prefix, prefix_mask,
     fused loop. ``stop_mask``/``stop_mask2``/``stop_sel`` give per-row
     stop tables (see :func:`_fused_tail`). The pairwise special case (G
     rows, 2 members each, ``group_idx = [0, 0, 1, 1, ...]``) scores as
-    greedy_decode_fused_shared does. Cold: the JAX package's returned
-    cache and donated scratch buffer have no counterpart here."""
-    G, S = prefix.shape
-    M, S2 = sfx.shape
-    T0 = S + S2 + max_new
+    greedy_decode_fused_shared does. ``return_cache`` also returns the
+    final (M-row) cache, from which the engine inserts prefix pages (the
+    JAX package's donated scratch buffer has no counterpart here)."""
+    S = prefix.shape[1]
+    T0 = S + sfx.shape[1] + max_new
     _, gcache, _ = decoder.prefill(params, cfg, prefix, prefix_mask, T0)
+    out, cache = _grouped_members(params, cfg, gcache, prefix_mask, sfx,
+                                  sfx_mask, group_idx, yes_ids, no_ids,
+                                  digit_ids, digit_vals, max_new, topk,
+                                  stop_mask, stop_mask2, stop_sel, eos_id)
+    return (out, cache) if return_cache else out
+
+
+def _grouped_members(params, cfg: ModelConfig, gcache, prefix_mask, sfx,
+                     sfx_mask, group_idx, yes_ids, no_ids, digit_ids,
+                     digit_vals, max_new: int, topk: int, stop_mask,
+                     stop_mask2, stop_sel, eos_id):
+    """The grouped decode after its (G, S) prefix front, cold or paged:
+    gather the G-row cache out to the M member rows, extend the member
+    suffixes, run the fused loop. Returns (FusedDecodeOut, final cache)."""
+    S = prefix_mask.shape[1]
+    M, S2 = sfx.shape
     cache = decoder.gather_rows(gcache, group_idx)
     del gcache
     pm = prefix_mask.index_select(0, group_idx.long())               # (M, S)
@@ -230,11 +246,10 @@ def greedy_decode_fused_grouped(params, cfg: ModelConfig, prefix, prefix_mask,
                                 device=pm.device)], dim=1)
     logits_l, cache, pos = decoder.extend(params, cfg, cache, sfx, sfx_mask,
                                           cm, S)
-    out, _ = _fused_tail(params, cfg, logits_l, cache, cm, pos, S + S2,
-                         yes_ids, no_ids, digit_ids, digit_vals, max_new,
-                         topk, stop_mask=stop_mask, eos_id=eos_id,
-                         stop_mask2=stop_mask2, stop_sel=stop_sel)
-    return out
+    return _fused_tail(params, cfg, logits_l, cache, cm, pos, S + S2,
+                       yes_ids, no_ids, digit_ids, digit_vals, max_new,
+                       topk, stop_mask=stop_mask, eos_id=eos_id,
+                       stop_mask2=stop_mask2, stop_sel=stop_sel)
 
 
 def _branches(params, cfg: ModelConfig, cache, T0: int, prefix_mask,
@@ -245,7 +260,9 @@ def _branches(params, cfg: ModelConfig, cache, T0: int, prefix_mask,
     """The two format branches over one prefilled cache: each extends its
     suffix at the prefix edge and runs the fused loop. Branch B reuses
     branch A's cache (A's suffix and generated slots are overwritten or
-    masked out of B's cache mask)."""
+    masked out of B's cache mask). Returns (binary out, confidence out,
+    final cache); the prefix slots [0, S) of the final cache are the
+    front's, untouched by either branch."""
     B, S = prefix_mask.shape
     empty_ids = torch.zeros((0,), dtype=torch.int32, device=prefix_mask.device)
     empty_vals = torch.zeros((0,), dtype=torch.float32,
@@ -268,9 +285,9 @@ def _branches(params, cfg: ModelConfig, cache, T0: int, prefix_mask,
     # confidence branch (B) the digit table and the digit early stop.
     out_a, cache_a = branch(cache, sfx_a, sfx_a_mask, max_new_a,
                             empty_ids, empty_vals, stop_mask=stop_mask_a)
-    out_b, _ = branch(cache_a, sfx_b, sfx_b_mask, max_new_b,
-                      digit_ids, digit_vals, stop_mask=stop_mask_b)
-    return out_a, out_b
+    out_b, cache_b = branch(cache_a, sfx_b, sfx_b_mask, max_new_b,
+                            digit_ids, digit_vals, stop_mask=stop_mask_b)
+    return out_a, out_b, cache_b
 
 
 @torch.inference_mode()
@@ -279,7 +296,8 @@ def greedy_decode_fused_shared(params, cfg: ModelConfig, prefix, prefix_mask,
                                no_ids, digit_ids, digit_vals, max_new_a: int,
                                max_new_b: int, topk: int = 20,
                                stop_mask_b=None, stop_mask_a=None,
-                               eos_id=None, decode_trunk: int = 0):
+                               eos_id=None, decode_trunk: int = 0,
+                               return_cache: bool = False):
     """TWO fused greedy decodes sharing ONE prefill over a common prefix.
 
     The perturbation sweep scores every cell under two formats whose
@@ -287,11 +305,75 @@ def greedy_decode_fused_shared(params, cfg: ModelConfig, prefix, prefix_mask,
     prefix (B, S) RIGHT-padded (slot == token position) is prefilled
     once, then each format's suffix (B, S2*) RIGHT-padded runs one
     teacher-forced extension followed by the fused loop. Returns
-    (binary FusedDecodeOut, confidence FusedDecodeOut)."""
+    (binary FusedDecodeOut, confidence FusedDecodeOut), with the final
+    cache third when ``return_cache`` (the engine inserts prefix pages
+    from it)."""
     B, S = prefix.shape
     S2a, S2b = sfx_a.shape[1], sfx_b.shape[1]
     T0 = S + max(S2a + max_new_a, S2b + max_new_b)
     _, cache, _ = decoder.prefill(params, cfg, prefix, prefix_mask, T0)
+    out = _branches(params, cfg, cache, T0, prefix_mask, sfx_a, sfx_a_mask,
+                    sfx_b, sfx_b_mask, yes_ids, no_ids, digit_ids,
+                    digit_vals, max_new_a, max_new_b, topk, stop_mask_b,
+                    stop_mask_a, eos_id, decode_trunk)
+    return out if return_cache else out[:2]
+
+
+def _paged_prefix(params, cfg: ModelConfig, pool, slot_src: torch.Tensor,
+                  win_start: int, prefix_mask: torch.Tensor,
+                  rem: torch.Tensor, rem_mask: torch.Tensor, total_len: int):
+    """The paged replacement for the shared-prefill step: assemble the
+    cached prefix KV from the page pool (``paged.gather_slots`` over
+    ``slot_src`` (B, S)) and teacher-force the recompute WINDOW — slots
+    [w0, w0 + R), each row's prefix tokens in that range RIGHT-padded
+    into ``rem``/``rem_mask`` (B, R) — through one chunked extension
+    over the S-slot view of the cache (``decoder.extend`` at
+    ``start_index = win_start``; the window is anchored at the
+    dispatch's longest real row, so rows shorter than the bucket pay no
+    recompute for pad slots). The cache is allocated at ``total_len``
+    slots, [S, total_len) zeros, as the cold prefill allocates it.
+
+    ``prefix_mask`` is the right-pad mask (B, S) the unpaged path
+    computes (slot == token position), so a page produced under any row
+    length backs any later row sharing the prefix. Unfilled slots read
+    the trash page; they are masked, and a masked key adds an exact zero
+    to the softmax.
+
+    The window's bits are not the cold prefill's: its projections run
+    at B * R rows and its attention through the cached route, where the
+    cold prefill runs B * S rows through the prefill route, and the
+    products round by their shapes. Its floats agree within float
+    tolerance, and greedy ids may flip where the top two are near tied.
+    Returns the (ck, cv) cache."""
+    S = prefix_mask.shape[1]
+    from ..models import paged
+
+    cache = paged.gather_slots(pool, slot_src, total_len)
+    view = tuple(c[:, :, :S] for c in cache)                 # S-slot view
+    decoder.extend(params, cfg, view, rem, rem_mask, prefix_mask,
+                   int(win_start))
+    return cache
+
+
+@torch.inference_mode()
+def greedy_decode_fused_shared_paged(params, cfg: ModelConfig, pool,
+                                     slot_src, win_start: int, prefix_mask,
+                                     rem, rem_mask, sfx_a, sfx_a_mask, sfx_b,
+                                     sfx_b_mask, yes_ids, no_ids, digit_ids,
+                                     digit_vals, max_new_a: int,
+                                     max_new_b: int, topk: int = 20,
+                                     stop_mask_b=None, stop_mask_a=None,
+                                     eos_id=None, decode_trunk: int = 0):
+    """:func:`greedy_decode_fused_shared` resuming from the cross-request
+    radix prefix cache: the prefill over each row's shared prefix is a
+    page-pool slot gather plus one chunked extension over the per-row
+    remainder window (:func:`_paged_prefix`); the two format branches
+    and the fused loops are the unpaged path's own code at its shapes.
+    Returns (binary out, confidence out, final cache)."""
+    B, S = prefix_mask.shape
+    T0 = S + max(sfx_a.shape[1] + max_new_a, sfx_b.shape[1] + max_new_b)
+    cache = _paged_prefix(params, cfg, pool, slot_src, win_start,
+                          prefix_mask, rem, rem_mask, T0)
     return _branches(params, cfg, cache, T0, prefix_mask, sfx_a, sfx_a_mask,
                      sfx_b, sfx_b_mask, yes_ids, no_ids, digit_ids,
                      digit_vals, max_new_a, max_new_b, topk, stop_mask_b,
@@ -306,7 +388,9 @@ def _cascade_branches(params, cfg: ModelConfig, tcache, trunk_len: int,
     """Cascade-extend the per-row remainders over the (L, K, trunk_len,
     1, hd) trunk cache (``int8_qk``: the trunk leg's QK^T in int8), then
     run the two format branches as the dense shared path's own code,
-    their decode steps on the trunk kernel."""
+    their decode steps on the trunk kernel. Shared by the cold and the
+    paged cascade. Returns (binary out, confidence out, final cache),
+    whose every row holds the trunk at slots [0, trunk_len)."""
     B, S = prefix.shape
     S2a, S2b = sfx_a.shape[1], sfx_b.shape[1]
     T0 = S + max(S2a + max_new_a, S2b + max_new_b)
@@ -328,22 +412,71 @@ def greedy_decode_fused_shared_cascade(params, cfg: ModelConfig, prefix,
                                        max_new_b: int, trunk_len: int,
                                        topk: int = 20, int8_qk: bool = False,
                                        stop_mask_b=None, stop_mask_a=None,
-                                       eos_id=None):
+                                       eos_id=None, return_cache: bool = False):
     """:func:`greedy_decode_fused_shared` with the SHARED-TRUNK prefill
     decomposed: every row shares its first ``trunk_len`` tokens, so the
     trunk prefill runs ONCE at batch 1 (mask all ones, slot t is position
     t), the per-row remainders extend over it through the cascade
     kernels (``int8_qk``: int8 QK^T in the trunk leg), and the two format
-    branches are the dense path's own code."""
+    branches are the dense path's own code. ``return_cache`` also
+    returns the final cache."""
     ones = torch.ones((1, trunk_len), dtype=prefix_mask.dtype,
                       device=prefix_mask.device)
     _, tcache, _ = decoder.prefill(params, cfg, prefix[:1, :trunk_len], ones,
                                    trunk_len)
+    out = _cascade_branches(params, cfg, tcache, trunk_len, prefix,
+                            prefix_mask, sfx_a, sfx_a_mask, sfx_b,
+                            sfx_b_mask, yes_ids, no_ids, digit_ids,
+                            digit_vals, max_new_a, max_new_b, topk,
+                            stop_mask_b, stop_mask_a, eos_id, int8_qk)
+    return out if return_cache else out[:2]
+
+
+@torch.inference_mode()
+def greedy_decode_fused_shared_cascade_paged(
+        params, cfg: ModelConfig, pool, slot_src, win_start: int,
+        trunk_mask, trunk_rem, trunk_rem_mask, prefix, prefix_mask, sfx_a,
+        sfx_a_mask, sfx_b, sfx_b_mask, yes_ids, no_ids, digit_ids,
+        digit_vals, max_new_a: int, max_new_b: int, trunk_len: int,
+        topk: int = 20, int8_qk: bool = False, stop_mask_b=None,
+        stop_mask_a=None, eos_id=None):
+    """:func:`greedy_decode_fused_shared_cascade` with the TRUNK resumed
+    from the cross-request radix prefix cache: the batch-1 trunk prefill
+    is a page-pool slot gather plus one recompute-window extension
+    (:func:`_paged_prefix` at one row, ``total_len == trunk_len``, so no
+    tail pad); everything from the cascade extension on is the cold
+    cascade's code. Returns (binary out, confidence out, final cache)."""
+    tcache = _paged_prefix(params, cfg, pool, slot_src, win_start,
+                           trunk_mask, trunk_rem, trunk_rem_mask, trunk_len)
     return _cascade_branches(params, cfg, tcache, trunk_len, prefix,
                              prefix_mask, sfx_a, sfx_a_mask, sfx_b,
                              sfx_b_mask, yes_ids, no_ids, digit_ids,
                              digit_vals, max_new_a, max_new_b, topk,
                              stop_mask_b, stop_mask_a, eos_id, int8_qk)
+
+
+@torch.inference_mode()
+def greedy_decode_fused_grouped_paged(params, cfg: ModelConfig, pool,
+                                      slot_src, win_start: int, prefix_mask,
+                                      rem, rem_mask, sfx, sfx_mask, group_idx,
+                                      yes_ids, no_ids, digit_ids, digit_vals,
+                                      max_new: int, topk: int = 20,
+                                      stop_mask=None, stop_mask2=None,
+                                      stop_sel=None, eos_id=None):
+    """:func:`greedy_decode_fused_grouped` resuming the group prefixes
+    from the radix prefix cache: the (G, S) group prefill is a page-pool
+    slot gather plus one remainder-window extension
+    (:func:`_paged_prefix` at G rows), then the member-row gather, the
+    suffix extension and the fused loop run as the unpaged grouped
+    path's own code. Returns (FusedDecodeOut, final M-row cache)."""
+    S = prefix_mask.shape[1]
+    T0 = S + sfx.shape[1] + max_new
+    gcache = _paged_prefix(params, cfg, pool, slot_src, win_start,
+                           prefix_mask, rem, rem_mask, T0)
+    return _grouped_members(params, cfg, gcache, prefix_mask, sfx, sfx_mask,
+                            group_idx, yes_ids, no_ids, digit_ids,
+                            digit_vals, max_new, topk, stop_mask, stop_mask2,
+                            stop_sel, eos_id)
 
 
 # ---------------------------------------------------------------------------
@@ -355,10 +488,9 @@ class SpecOut:
     """Per-branch speculative-decode accounting, folded into the engine's
     ``spec_stats`` at flush time (engine/spec.flush_pending).
     ``drafted``/``accepted`` are (3,) int32 token counts by draft source,
-    the JAX package's lanes: 0 = radix-tree continuation (here: drafts
-    given to :func:`greedy_decode_fused_shared_spec`), 1 = n-gram prompt
-    lookup (including the zero filler), 2 = fleet draft model (not
-    ported); the engine drafts from lane 1. ``chunks`` counts the verify
+    the JAX package's lanes: 0 = radix-tree continuation (the given
+    drafts), 1 = n-gram prompt lookup (including the zero filler), 2 =
+    fleet draft model (not ported). ``chunks`` counts the verify
     forwards run; ``seq_steps`` the forwards the sequential loop would
     have run on the same rows (its all-done early exit included)."""
 
@@ -412,7 +544,8 @@ def _spec_tail(params, cfg: ModelConfig, logits0: torch.Tensor, cache,
     loop's all-done freeze.
 
     Drafts come from ``draft_tokens`` (B, T), valid below ``draft_len``
-    (zero length from the engine: the port has no radix tree), else from
+    (the engine's radix-tree continuations; zero length without a prefix
+    cache), else from
     an ``ngram``-gram lookup over ``ctx0`` (each row's compacted prompt,
     right-padded to a width >= prompt + T) extended with the accepted
     emissions. The JAX package's ``lax.scan`` over the windows is a
@@ -617,7 +750,7 @@ def _shared_spec_branches(params, cfg: ModelConfig, cache, prefix_mask,
     bits of the position-0 readouts. The view shares the cache's storage
     and the extension writes only the suffix slots, so those are the only
     slots written back. Returns (binary out, confidence out, binary
-    SpecOut, confidence SpecOut)."""
+    SpecOut, confidence SpecOut, final cache)."""
     B, S = prefix_mask.shape
     dev = prefix_mask.device
     empty_ids = torch.zeros((0,), dtype=torch.int32, device=dev)
@@ -645,10 +778,10 @@ def _shared_spec_branches(params, cfg: ModelConfig, cache, prefix_mask,
     out_a, cache_a, spec_a = branch(
         cache, sfx_a, sfx_a_mask, max_new_a, empty_ids, empty_vals, ctx_a,
         ctx_a_len, draft_a, draft_a_len, stop_mask_a)
-    out_b, _, spec_b = branch(
+    out_b, cache_b, spec_b = branch(
         cache_a, sfx_b, sfx_b_mask, max_new_b, digit_ids, digit_vals, ctx_b,
         ctx_b_len, draft_b, draft_b_len, stop_mask_b)
-    return out_a, out_b, spec_a, spec_b
+    return out_a, out_b, spec_a, spec_b, cache_b
 
 
 def spec_total_len(bucket: int, sfx_a: int, sfx_b: int, max_new_a: int,
@@ -669,19 +802,50 @@ def greedy_decode_fused_shared_spec(
         ctx_a_len, draft_a, draft_a_len, ctx_b, ctx_b_len, draft_b,
         draft_b_len, max_new_a: int, max_new_b: int, spec_k: int,
         ngram: int = 2, topk: int = 20, stop_mask_b=None, stop_mask_a=None,
-        eos_id=None, decode_trunk: int = 0):
+        eos_id=None, decode_trunk: int = 0, return_cache: bool = False):
     """:func:`greedy_decode_fused_shared` with SPECULATIVE decode tails:
     one shared-prefix prefill, two suffix extensions, then each branch's
     sequential greedy loop is replaced by the draft-and-verify window
     loop (:func:`_spec_tail`). ``ctx_*`` carry each branch's compacted
-    prompt tokens for the n-gram drafter, ``draft_*`` given drafts.
+    prompt tokens for the n-gram drafter, ``draft_*`` given drafts
+    (radix-tree continuations from the engine's prefix cache).
     ``decode_trunk`` > 0 runs every verify window's trunk splits through
     the trunk-aware kernel. Returns (binary out, confidence out, binary
-    SpecOut, confidence SpecOut)."""
+    SpecOut, confidence SpecOut), with the final cache fifth when
+    ``return_cache``."""
     B, S = prefix.shape
     T0 = spec_total_len(S, sfx_a.shape[1], sfx_b.shape[1], max_new_a,
                         max_new_b, spec_k)
     _, cache, _ = decoder.prefill(params, cfg, prefix, prefix_mask, T0)
+    out = _shared_spec_branches(
+        params, cfg, cache, prefix_mask, sfx_a, sfx_a_mask, sfx_b,
+        sfx_b_mask, yes_ids, no_ids, digit_ids, digit_vals, ctx_a, ctx_a_len,
+        draft_a, draft_a_len, ctx_b, ctx_b_len, draft_b, draft_b_len, T0,
+        max_new_a, max_new_b, spec_k, ngram, topk, stop_mask_a, stop_mask_b,
+        eos_id, decode_trunk=decode_trunk)
+    return out if return_cache else out[:4]
+
+
+@torch.inference_mode()
+def greedy_decode_fused_shared_paged_spec(
+        params, cfg: ModelConfig, pool, slot_src, win_start: int,
+        prefix_mask, rem, rem_mask, sfx_a, sfx_a_mask, sfx_b, sfx_b_mask,
+        yes_ids, no_ids, digit_ids, digit_vals, ctx_a, ctx_a_len, draft_a,
+        draft_a_len, ctx_b, ctx_b_len, draft_b, draft_b_len, max_new_a: int,
+        max_new_b: int, spec_k: int, ngram: int = 2, topk: int = 20,
+        stop_mask_b=None, stop_mask_a=None, eos_id=None,
+        decode_trunk: int = 0):
+    """Speculative decode over the radix-paged prefill front: cached
+    prefix pages gather from the pool and only the remainder window
+    recomputes (:func:`_paged_prefix`), then both branches run the
+    speculative tail with its compacted verify windows — prefill savings
+    and decode savings on one warm dispatch. Returns (binary out,
+    confidence out, binary SpecOut, confidence SpecOut, final cache)."""
+    B, S = prefix_mask.shape
+    T0 = spec_total_len(S, sfx_a.shape[1], sfx_b.shape[1], max_new_a,
+                        max_new_b, spec_k)
+    cache = _paged_prefix(params, cfg, pool, slot_src, win_start,
+                          prefix_mask, rem, rem_mask, T0)
     return _shared_spec_branches(
         params, cfg, cache, prefix_mask, sfx_a, sfx_a_mask, sfx_b,
         sfx_b_mask, yes_ids, no_ids, digit_ids, digit_vals, ctx_a, ctx_a_len,

@@ -14,7 +14,17 @@ decode kernels, trunk-aware where its rows share a trunk), or with
 ``spec_decode`` off the sequential loop on the single-query kernels. A
 grouped dispatch of the ragged sweep (``decode_fused_grouped``) prefills
 one row per prefix group, gathers it out to the member rows and runs the
-sequential loop on the single-query kernel. The
+sequential loop on the single-query kernel.
+
+With ``RuntimeConfig.prefix_cache`` the engine keeps a paged KV pool and
+a radix tree over it (models/paged.py, engine/prefix_tree.py): every
+ragged-sweep dispatch pins its rows' cached prefix pages; where a
+remainder window covers the uncached tails, its prefill front becomes a
+slot gather from the pool plus one window extension (the ``*_paged``
+variants in engine/generate.py; the cascade's trunk in its own
+trunk-extent namespace), and afterwards the dispatch's new full prefix
+pages are copied into the pool from its final cache. The
+speculative drafts then also come from the tree's token history. The
 kernels run on CUDA tensors and their plain PyTorch versions on CPU
 tensors, so the engine routes the same way on both; the JAX engine
 routes to its kernels only on a TPU (or under its interpreter hooks).
@@ -40,8 +50,9 @@ import torch
 
 from ..config import CascadeConfig, RuntimeConfig, SpecConfig
 from ..device import resolve_device
-from ..utils.profiling import GuardStats
-from . import generate, score, spec as spec_mod, tokens as tok
+from ..models import decoder, paged
+from ..utils.profiling import GuardStats, PrefixCacheStats
+from . import generate, prefix_tree, score, spec as spec_mod, tokens as tok
 
 log = logging.getLogger(__name__)
 
@@ -55,6 +66,30 @@ def _tail_batch(n: int, cap: int) -> int:
     while b < n:
         b *= 2
     return min(b, cap)
+
+
+@dataclasses.dataclass
+class _PrefixPlan:
+    """One dispatch's radix-cache resume decision (engine-internal).
+
+    ``window`` is the remainder-window edge the paged front runs (each
+    row recomputes the window's slice of its prefix and gathers
+    everything earlier from the page pool), or None when nothing useful
+    is cached: the dispatch then runs the plain unpaged prefill and only
+    INSERTS pages afterwards. ``matches`` hold the dispatch's page pins;
+    every plan MUST pass through ScoringEngine._finish_prefix_resume
+    (which inserts the new pages and releases the pins) or
+    _abort_prefix_resume."""
+
+    bucket: int
+    prefix_ids: List[Sequence[int]]
+    matches: List[Any]
+    n_real: int
+    window: Optional[int] = None
+    w0: int = 0
+    slot_src: Optional[np.ndarray] = None
+    rem: Optional[np.ndarray] = None
+    rem_mask: Optional[np.ndarray] = None
 
 
 @dataclasses.dataclass
@@ -106,10 +141,19 @@ class ScoringEngine:
         self.cascade_stats = collections.Counter()
         # Speculative-decode counters, the JAX SpecStats field names:
         # spec_dispatches, spec_rows (counted at dispatch); drafted_tokens,
-        # accepted_tokens, draft_ngram, accepted_ngram, decode_forwards,
-        # seq_forwards (folded from the pending SpecOuts by spec_flush).
+        # accepted_tokens, draft_tree, accepted_tree, draft_ngram,
+        # accepted_ngram, decode_forwards, seq_forwards (folded from the
+        # pending SpecOuts by spec_flush).
         self.spec_stats = collections.Counter()
         self._spec_pending: List[Tuple[Any, Any]] = []
+        # The cross-request radix prefix cache (models/paged.py +
+        # engine/prefix_tree.py), built by enable_prefix_cache() when
+        # RuntimeConfig.prefix_cache is set; its counters, and the
+        # paged routes taken (shared_paged, shared_paged_spec,
+        # cascade_paged, grouped_paged).
+        self.prefix_cache: Optional[prefix_tree.RadixPrefixCache] = None
+        self.prefix_stats = PrefixCacheStats()
+        self.paged_dispatches = collections.Counter()
         # The perturbation sweep's writer thread decodes completion text
         # while the main thread tokenizes: tokenizer calls take this lock.
         self._tok_lock = threading.Lock()
@@ -143,6 +187,8 @@ class ScoringEngine:
         self._digit_table: Optional[Tuple[np.ndarray, np.ndarray]] = None
         self._digit_stop_mask: Any = False  # False = not resolved yet
         self._eos_stop_mask: Optional[torch.Tensor] = None
+        if self.rt.prefix_cache:
+            self.enable_prefix_cache()
 
     # -- kernel gates -------------------------------------------------------
 
@@ -201,6 +247,147 @@ class ScoringEngine:
         """Fold the pending device-side SpecOut counters into spec_stats
         (one copy to the host for all of them; spec.flush_pending)."""
         spec_mod.flush_pending(self)
+
+    def spec_record(self, bucket: int,
+                    prompt_ids: Sequence[Sequence[int]], gen_rows: Any,
+                    n_real: Optional[int] = None) -> int:
+        """Record observed completions into the radix tree's token
+        history (the drafts of a repeat visit; spec.record_tails). Runs
+        on the thread that owns the tree, the dispatching one."""
+        return spec_mod.record_tails(
+            self, bucket, prompt_ids, gen_rows,
+            len(prompt_ids) if n_real is None else n_real,
+            max_tails=self.spec_cfg.tree_tails_per_node)
+
+    # -- cross-request prefix cache (engine/prefix_tree over models/paged) --
+
+    def enable_prefix_cache(self) -> None:
+        """Build the paged KV pool + radix index (idempotent). The pool is
+        allocated at once at its full configured size
+        (rt.prefix_cache_pages x rt.prefix_page_size token positions,
+        paged.kv_page_bytes each), on the engine's device, in the cache's
+        dtype; sizing prefix_cache_pages < 2 leaves the cache off."""
+        if self.prefix_cache is not None or self.rt.prefix_cache_pages < 2:
+            return
+        pool = paged.KVPagePool(self.rt.prefix_cache_pages,
+                                self.rt.prefix_page_size)
+        pool.ensure(decoder.init_cache(
+            self.cfg, 1, 1, dtype=self.params["tok_embed"].dtype,
+            device=self.device))
+        self.prefix_cache = prefix_tree.RadixPrefixCache(
+            pool, stats=self.prefix_stats)
+
+    def _plan_prefix_resume(self, bucket: int,
+                            prefix_ids: List[Sequence[int]],
+                            n_real: int) -> _PrefixPlan:
+        """Pin the deepest cached prefix of every row and decide the
+        dispatch's remainder window: the smallest window edge covering
+        every row's uncached tail, anchored at the dispatch's longest
+        real row; rows recompute the window's slice of their prefix and
+        gather the rest from the pool at the very slots the right-padded
+        prefill uses. No coverable window means nothing useful is cached:
+        the plan falls back to the unpaged prefill (and still inserts
+        pages afterwards, which is how the cache warms up)."""
+        tree = self.prefix_cache
+        ps = tree.page_size
+        matches = [tree.lookup(bucket, ids, record=(r < n_real))
+                   for r, ids in enumerate(prefix_ids)]
+        plan = _PrefixPlan(bucket=bucket, prefix_ids=list(prefix_ids),
+                           matches=matches, n_real=n_real)
+        for r in range(n_real):
+            self.prefix_stats.count("prefill_tokens_total",
+                                    len(prefix_ids[r]))
+        # Right-padded layout (slot = token position): the window is
+        # slots [w0, w0 + window) with w0 = max_n - window. Every row's
+        # uncached tail must start at or after w0 (the window covers the
+        # worst row; a fully paged row needs none), and anchoring at the
+        # longest row instead of the bucket edge means rows shorter than
+        # the bucket never recompute pad slots.
+        max_n = max(len(ids) for ids in prefix_ids)
+        needed = max(max((max_n - m.tokens
+                          for ids, m in zip(prefix_ids, matches)
+                          if m.tokens < len(ids)), default=1), 1)
+        window = paged.pick_window(needed, bucket, ps)
+        if window is None:
+            return plan                      # cold: unpaged prefill
+        w0 = max(max_n - window, 0)
+        B = len(prefix_ids)
+        slot_src = np.zeros((B, bucket), np.int32)
+        rem_ids = []
+        for r, (ids, m) in enumerate(zip(prefix_ids, matches)):
+            n = len(ids)
+            keep = min(m.tokens, w0, n)      # tokens resumed from pages
+            for t in range(keep):
+                page = m.pages[t // ps]
+                slot_src[r, t] = page * ps + t % ps
+            rem_ids.append(list(ids[w0:]))   # recompute [w0, n)
+            if r < n_real:
+                self.prefix_stats.count("hit_tokens", keep)
+        rem, rem_mask = tok.right_pad_ids(rem_ids, window,
+                                          tok.pad_token_id(self.tokenizer))
+        plan.window = window
+        plan.w0 = w0
+        plan.slot_src = slot_src
+        plan.rem = rem
+        plan.rem_mask = rem_mask
+        return plan
+
+    def _finish_prefix_resume(self, plan: _PrefixPlan, cache,
+                              row_map: Optional[Sequence[int]] = None
+                              ) -> None:
+        """Insert every full, not yet cached prefix page of the dispatch
+        into the pool from its FINAL cache (the prefix slots survive both
+        suffix branches untouched), then drop the dispatch's pins.
+        ``row_map`` maps plan rows to cache rows (the grouped final cache
+        holds member rows; any member of a group carries the group's
+        prefix slots). New pages stay pinned until their copy is issued,
+        so a tight pool cannot evict and reallocate a page between its
+        tree insert and its data write."""
+        tree = self.prefix_cache
+        ps = tree.page_size
+        writes = []
+        fresh: List[int] = []
+        for r, ids in enumerate(plan.prefix_ids):
+            start, new_pages = tree.plan_insert(plan.bucket, ids)
+            if not new_pages:
+                continue
+            tree.pool.incref(new_pages)
+            fresh.extend(new_pages)
+            crow = r if row_map is None else row_map[r]
+            # slot == token position: page k's data sits at cache slots
+            # [start + k * ps, ...).
+            for j, pg in enumerate(new_pages):
+                writes.append((pg, crow, start + j * ps))
+        tree.pool.scatter(cache, writes)
+        tree.pool.decref(fresh)
+        for m in plan.matches:
+            tree.release(m)
+
+    def _abort_prefix_resume(self, plan: _PrefixPlan) -> None:
+        """The dispatch failed: drop the plan's page pins without
+        inserting (there is no final cache to read pages from)."""
+        for m in plan.matches:
+            self.prefix_cache.release(m)
+
+    def _prefix_plan_or_none(self, bucket: int,
+                             prefix_ids: List[Sequence[int]],
+                             n_real: Optional[int], total: int,
+                             use_prefix_cache: Optional[bool]
+                             ) -> Optional[_PrefixPlan]:
+        """Gate + build the prefix plan of one dispatch. None when the
+        cache is absent or the caller opted out (``use_prefix_cache``
+        False; None means 'use it iff enabled on this engine')."""
+        on = (use_prefix_cache if use_prefix_cache is not None
+              else self.prefix_cache is not None)
+        if not on or self.prefix_cache is None:
+            return None
+        return self._plan_prefix_resume(
+            bucket, prefix_ids, total if n_real is None else n_real)
+
+    def _paged_args(self, plan: _PrefixPlan) -> Tuple[Any, ...]:
+        """(pool, slot_src, w0) of a warm plan's paged front."""
+        return (self.prefix_cache.pool.leaves, self._t(plan.slot_src),
+                plan.w0)
 
     # -- token tables -------------------------------------------------------
 
@@ -279,7 +466,8 @@ class ScoringEngine:
                             bucket: Optional[int] = None,
                             sfx_buckets_ab: Optional[Tuple[int, int]] = None,
                             reuse_cache: bool = False,
-                            n_real: Optional[int] = None):
+                            n_real: Optional[int] = None,
+                            use_prefix_cache: Optional[bool] = None):
         """Score BOTH sweep formats with ONE shared-prefix prefill.
 
         Each row's binary and confidence prompts split at their longest
@@ -291,7 +479,10 @@ class ScoringEngine:
         share a trunk takes the cascade prefill and the trunk-aware
         decode; any other the dense shared prefill, then the speculative
         verify loop (the sequential loop with ``spec_decode`` off), both
-        with the decode trunk of its rows' LCP. Returns (binary
+        with the decode trunk of its rows' LCP. On such a dispatch the
+        prefix cache, when built (``use_prefix_cache`` None) or asked for
+        (True), resumes the rows' cached prefix pages and inserts their
+        new ones; False keeps it out of this dispatch. Returns (binary
         FusedDecodeOut, confidence FusedDecodeOut)."""
         if pretokenized_a is not None:
             bin_ids = [list(i) for i in pretokenized_a]
@@ -357,63 +548,140 @@ class ScoringEngine:
                 self._t(sfx_a), self._t(sfx_a_mask), self._t(sfx_b),
                 self._t(sfx_b_mask), self._t(yes_ids), self._t(no_ids),
                 self._t(digit_ids), self._t(digit_vals, torch.float32))
-        dtrunk = 0
-        if reuse_cache:
-            trunk = self.cascade_trunk_for(prefix_rows, n_real, bucket)
-            if trunk:
-                return self._dispatch_shared_cascade(
-                    trunk, args, new_tokens, conf_tokens, stops)
-            if self.cascade_supported():
-                self.cascade_stats["dense_fallbacks"] += 1
-            dtrunk = self.decode_trunk_for(prefix_rows, n_real, bucket)
-            if dtrunk:
-                self.cascade_stats["cascade_decode_dispatches"] += 1
-            splan = spec_mod.build_plan(self, bin_ids, conf_ids, bucket, ba,
-                                        bb, new_tokens, conf_tokens)
+        if not reuse_cache:
+            self.cascade_stats["dense_shared_dispatches"] += 1
+            return generate.greedy_decode_fused_shared(
+                *args, max_new_a=new_tokens, max_new_b=conf_tokens, **stops)
+        trunk = self.cascade_trunk_for(prefix_rows, n_real, bucket)
+        if trunk:
+            return self._dispatch_shared_cascade(
+                trunk, prefix_rows[0][:trunk], args, new_tokens, conf_tokens,
+                stops, use_prefix_cache)
+        if self.cascade_supported():
+            self.cascade_stats["dense_fallbacks"] += 1
+        dtrunk = self.decode_trunk_for(prefix_rows, n_real, bucket)
+        if dtrunk:
+            self.cascade_stats["cascade_decode_dispatches"] += 1
+        # The prefix plan pins and touches the rows' pages BEFORE the
+        # speculative plan probes the tree for drafts, as in the JAX
+        # engine (the probe prefers the most recently touched child).
+        plan = self._prefix_plan_or_none(bucket, prefix_rows, n_real,
+                                         len(bin_ids), use_prefix_cache)
+        splan = spec_mod.build_plan(self, bin_ids, conf_ids, bucket, ba, bb,
+                                    new_tokens, conf_tokens)
+        warm = plan is not None and plan.window is not None
+        try:
             if splan is not None:
-                return self._dispatch_shared_spec(
-                    splan, args, new_tokens, conf_tokens, stops, dtrunk,
-                    len(bin_ids) if n_real is None else n_real)
-        self.cascade_stats["dense_shared_dispatches"] += 1
-        return generate.greedy_decode_fused_shared(
-            *args, max_new_a=new_tokens, max_new_b=conf_tokens,
-            decode_trunk=dtrunk, **stops)
+                fused, cfused, cache = self._dispatch_shared_spec(
+                    splan, plan, args, new_tokens, conf_tokens, stops,
+                    dtrunk, len(bin_ids) if n_real is None else n_real)
+            elif warm:
+                self.cascade_stats["dense_shared_dispatches"] += 1
+                self.paged_dispatches["shared_paged"] += 1
+                fused, cfused, cache = (
+                    generate.greedy_decode_fused_shared_paged(
+                        self.params, self.cfg, *self._paged_args(plan),
+                        args[3], self._t(plan.rem), self._t(plan.rem_mask),
+                        *args[4:], max_new_a=new_tokens,
+                        max_new_b=conf_tokens, decode_trunk=dtrunk, **stops))
+            else:
+                self.cascade_stats["dense_shared_dispatches"] += 1
+                fused, cfused, *rest = generate.greedy_decode_fused_shared(
+                    *args, max_new_a=new_tokens, max_new_b=conf_tokens,
+                    decode_trunk=dtrunk, return_cache=plan is not None,
+                    **stops)
+                cache = rest[0] if rest else None
+        except BaseException:
+            if plan is not None:
+                self._abort_prefix_resume(plan)
+            raise
+        if plan is not None:
+            self._finish_prefix_resume(plan, cache)
+        return fused, cfused
 
-    def _dispatch_shared_spec(self, splan, args, new_tokens: int,
+    def _dispatch_shared_spec(self, splan, plan, args, new_tokens: int,
                               conf_tokens: int, stops: dict, dtrunk: int,
                               rows: int):
-        """One SPECULATIVE shared dispatch, cold and unpaged: the dense
-        shared prefill, then both branches' draft-and-verify loops
-        (generate.greedy_decode_fused_shared_spec), every verify window
-        on the multi-query kernel — trunk-aware when ``dtrunk`` > 0. The
-        dispatch's SpecOuts stay on the device until spec_flush()."""
+        """One SPECULATIVE shared dispatch: the dense shared prefill, or
+        with a warm prefix plan the paged front
+        (generate.greedy_decode_fused_shared_paged_spec), then both
+        branches' draft-and-verify loops, every verify window on the
+        multi-query kernel — trunk-aware when ``dtrunk`` > 0. The
+        dispatch's SpecOuts stay on the device until spec_flush().
+        Returns (fused, cfused, final cache or None)."""
         spec_args = tuple(self._t(a) for a in splan.dyn_args())
-        fused, cfused, spec_a, spec_b = generate.greedy_decode_fused_shared_spec(
-            *args, *spec_args, max_new_a=new_tokens, max_new_b=conf_tokens,
-            spec_k=splan.k, ngram=splan.ngram, decode_trunk=dtrunk, **stops)
+        kw = dict(max_new_a=new_tokens, max_new_b=conf_tokens,
+                  spec_k=splan.k, ngram=splan.ngram, decode_trunk=dtrunk,
+                  **stops)
+        if plan is not None and plan.window is not None:
+            self.paged_dispatches["shared_paged_spec"] += 1
+            out = generate.greedy_decode_fused_shared_paged_spec(
+                self.params, self.cfg, *self._paged_args(plan), args[3],
+                self._t(plan.rem), self._t(plan.rem_mask), *args[4:],
+                *spec_args, **kw)
+        else:
+            out = generate.greedy_decode_fused_shared_spec(
+                *args, *spec_args, return_cache=plan is not None, **kw)
+        fused, cfused, spec_a, spec_b = out[:4]
         self._spec_pending.append((spec_a, spec_b))
         self.spec_stats["spec_dispatches"] += 1
         self.spec_stats["spec_rows"] += rows
-        return fused, cfused
+        return fused, cfused, (out[4] if len(out) > 4 else None)
 
-    def _dispatch_shared_cascade(self, trunk: int, args, new_tokens: int,
-                                 conf_tokens: int, stops: dict):
-        """One CASCADE shared dispatch, cold: the batch-1 trunk prefill,
-        the per-row cascade remainder extension (its trunk leg in int8
-        QK^T with ``cascade_cfg.int8_qk``) and both branches' fused loops
-        on the trunk-aware decode kernel
-        (generate.greedy_decode_fused_shared_cascade)."""
+    def _dispatch_shared_cascade(self, trunk: int, trunk_ids: Sequence[int],
+                                 args, new_tokens: int, conf_tokens: int,
+                                 stops: dict, use_prefix_cache):
+        """One CASCADE shared dispatch: the batch-1 trunk prefill — cold,
+        or resumed from the page pool — then the per-row cascade
+        remainder extension (its trunk leg in int8 QK^T with
+        ``cascade_cfg.int8_qk``) and both branches' fused loops on the
+        trunk-aware decode kernel
+        (generate.greedy_decode_fused_shared_cascade[_paged]).
+
+        The trunk lives in the TRUNK-extent radix namespace (the cascade
+        prefills its trunk at extent ``trunk``, not the bucket): a
+        one-row plan over the trunk ids, whose pages the cold dispatch
+        inserts from cache row 0's broadcast trunk slots, so the next
+        dispatch sharing the trunk gathers it."""
+        plan = self._prefix_plan_or_none(trunk, [list(trunk_ids)], 1, 1,
+                                         use_prefix_cache)
+        kw = dict(max_new_a=new_tokens, max_new_b=conf_tokens,
+                  trunk_len=trunk, int8_qk=bool(self.cascade_cfg.int8_qk),
+                  **stops)
+        try:
+            if plan is not None and plan.window is not None:
+                self.paged_dispatches["cascade_paged"] += 1
+                trunk_mask = torch.ones((1, trunk), dtype=torch.int32,
+                                        device=self.device)
+                fused, cfused, cache = (
+                    generate.greedy_decode_fused_shared_cascade_paged(
+                        self.params, self.cfg, *self._paged_args(plan),
+                        trunk_mask, self._t(plan.rem),
+                        self._t(plan.rem_mask), *args[2:], **kw))
+            else:
+                fused, cfused, *rest = (
+                    generate.greedy_decode_fused_shared_cascade(
+                        *args, return_cache=plan is not None, **kw))
+                cache = rest[0] if rest else None
+        except BaseException:
+            if plan is not None:
+                self._abort_prefix_resume(plan)
+            raise
+        if plan is not None:
+            # Cache row 0's trunk slots hold the broadcast trunk KV, so
+            # the standard insert pages them into the trunk namespace.
+            self._finish_prefix_resume(plan, cache)
         self.cascade_stats["cascade_dispatches"] += 1
         if self.cascade_decode_supported():
             self.cascade_stats["cascade_decode_dispatches"] += 1
-        return generate.greedy_decode_fused_shared_cascade(
-            *args, max_new_a=new_tokens, max_new_b=conf_tokens,
-            trunk_len=trunk, int8_qk=bool(self.cascade_cfg.int8_qk), **stops)
+        return fused, cfused
 
     def decode_fused_grouped(self, groups, yes_ids: np.ndarray,
                              no_ids: np.ndarray, new_tokens: int,
                              conf_tokens: int, early_stop: bool,
-                             bucket: int, sfx_bucket: int):
+                             bucket: int, sfx_bucket: int,
+                             reuse_cache: bool = False,
+                             use_prefix_cache: Optional[bool] = None):
         """Cross-cell prefix reuse: score every member prompt of
         ``groups`` (scheduler.PrefixGroup: ``.items`` with
         ``.bin_ids``/``.conf_ids``, shared ``.plen``) with ONE prefill per
@@ -426,8 +694,10 @@ class ScoringEngine:
         decode budget max(new_tokens, conf_tokens); with ``early_stop``
         the binary rows take the EOS-only stop table and the confidence
         rows the digit stop (per-row selection, generate._fused_tail).
-        The JAX engine's cold, unpaged branch: the port has no prefix
-        cache and no cache handoff."""
+        ``reuse_cache`` marks a dispatch of the ragged sweep: there the
+        prefix cache (``use_prefix_cache`` as in
+        :meth:`decode_fused_shared`) resumes the group prefixes from the
+        page pool and inserts their new pages."""
         pad_id = tok.pad_token_id(self.tokenizer)
         prefix_ids, sfx_ids, group_idx = [], [], []
         for g in groups:
@@ -461,17 +731,47 @@ class ScoringEngine:
         no2 = np.concatenate([no2, np.repeat(no2[-1:], m_pad - m)])
         digit_ids, digit_vals = self.digit_table
         stop_mask = self.digit_stop_mask if early_stop else None
-        out = generate.greedy_decode_fused_grouped(
-            self.params, self.cfg, self._t(prefix), self._t(prefix_mask),
-            self._t(sfx), self._t(sfx_mask), self._t(group_idx),
-            self._t(yes2), self._t(no2), self._t(digit_ids),
-            self._t(digit_vals, torch.float32),
+        members = (self._t(sfx), self._t(sfx_mask), self._t(group_idx),
+                   self._t(yes2), self._t(no2), self._t(digit_ids),
+                   self._t(digit_vals, torch.float32))
+        kw = dict(
             max_new=max(new_tokens, conf_tokens),
             stop_mask=None if stop_mask is None else self.eos_stop_mask,
             stop_mask2=stop_mask,
             stop_sel=(None if stop_mask is None
                       else self._t(np.arange(m_pad) % 2 == 1, torch.bool)),
             eos_id=None if stop_mask is None else int(self.eos_id))
+        plan = None
+        if reuse_cache:
+            plan = self._prefix_plan_or_none(
+                bucket, prefix_ids, len(groups), g_pad, use_prefix_cache)
+        try:
+            if plan is not None and plan.window is not None:
+                self.paged_dispatches["grouped_paged"] += 1
+                out, cache = generate.greedy_decode_fused_grouped_paged(
+                    self.params, self.cfg, *self._paged_args(plan),
+                    self._t(prefix_mask), self._t(plan.rem),
+                    self._t(plan.rem_mask), *members, **kw)
+            else:
+                res = generate.greedy_decode_fused_grouped(
+                    self.params, self.cfg, self._t(prefix),
+                    self._t(prefix_mask), *members,
+                    return_cache=plan is not None, **kw)
+                out, cache = res if plan is not None else (res, None)
+        except BaseException:
+            if plan is not None:
+                self._abort_prefix_resume(plan)
+            raise
+        if plan is not None:
+            # Plan rows are the padded prefix rows; the final cache holds
+            # member rows, and any member of a group carries the group's
+            # prefix slots: each prefix row reads its group's first member.
+            first_member, acc = [], 0
+            for g in groups:
+                first_member.append(acc)
+                acc += 2 * len(g.items)
+            first_member += [first_member[-1]] * (g_pad - len(groups))
+            self._finish_prefix_resume(plan, cache, row_map=first_member)
         return out, m
 
     # -- prompts -> rows ----------------------------------------------------

@@ -1,11 +1,10 @@
 """Length-aware ragged sweep scheduler: bucket ladder + slot refill +
 cross-cell prefix reuse.
 
-A copy of the JAX package's ``engine/scheduler.py`` without the prefix
-cache's probe (``cached_probe``: the port has no prefix cache yet), so
-the plan is the JAX scheduler's with that cache off: the same
-dispatches, kinds, buckets, item order, suffix buckets and refilled
-counts.
+A copy of the JAX package's ``engine/scheduler.py``: the plan is the
+JAX scheduler's, with or without the prefix cache's probe
+(``cached_probe``): the same dispatches, kinds, buckets, item order,
+suffix buckets and refilled counts.
 
 The perturbation grid is a *ragged* workload: rephrasings of a legal
 prompt vary in tokenized length while each dispatch is padded to one
@@ -88,20 +87,23 @@ def decode_floor(n_rows: int, batch_size: int, decode_cost: int,
 
 
 def bucket_cost(n_rows: int, bucket_edge: int, batch_size: int,
-                decode_cost: int, fused_decode: bool = True,
+                decode_cost: int, cached_tokens: int = 0,
+                fused_decode: bool = True,
                 spec_decode: bool = False, cascade: bool = False,
                 trunk_tokens: int = 0,
                 decode_trunk_frac: float = 0.0) -> float:
     """Row-token cost of dispatching ``n_rows`` cells at ``bucket_edge``:
     a padded power-of-two batch prefilled at the edge, plus the fixed
-    decode floor (:func:`decode_floor`). ``cascade``/``trunk_tokens``
-    price the shared-trunk cascade: the trunk is prefilled once instead
-    of once per slot, so ``(slots - 1) * trunk_tokens`` comes off the
-    prefill term. The JAX package's ``cached_tokens`` (prefix-cache
-    hits, free prefill) has no counterpart here: the port has no prefix
-    cache yet."""
+    decode floor (:func:`decode_floor`). ``cached_tokens`` are prefix
+    tokens the cross-request radix cache (engine/prefix_tree.py) already
+    holds for the rows: free prefill, gathered from the page pool, so
+    they come off the prefill term; the decode steps are the floor.
+    ``cascade``/``trunk_tokens`` price the shared-trunk cascade: the
+    trunk is prefilled once instead of once per slot, so ``(slots - 1) *
+    trunk_tokens`` comes off the prefill term too (the max(0) clamp
+    keeps a warm trunk, discounted both ways, from going negative)."""
     slots = _tail_batch(n_rows, batch_size)
-    prefill = slots * bucket_edge
+    prefill = slots * bucket_edge - int(cached_tokens)
     if cascade and trunk_tokens > 0:
         prefill -= (slots - 1) * int(trunk_tokens)
     prefill = max(prefill, 0)
@@ -206,6 +208,12 @@ class RaggedScheduler:
         for >= min_group_cells cells agreeing on >= min_group_prefix
         tokens AND on at least half of each member's prefill.
     group_cells: False disables cross-cell grouping entirely.
+    cached_probe: optional ``(item, bucket_edge) -> cached tokens`` hook
+        into the cross-request radix prefix cache (prefix_tree.
+        match_len). The slot-refill rule then prices cached-prefix
+        tokens as free prefill; since the radix namespaces are
+        per-bucket, promoting a tail into the next bucket loses this
+        bucket's cached pages, which the probe reflects.
     """
 
     def __init__(self, buckets: Sequence[int], batch_size: int, *,
@@ -214,6 +222,7 @@ class RaggedScheduler:
                  max_extent: Optional[int] = None,
                  min_group_prefix: int = 16, min_group_cells: int = 4,
                  group_cells: bool = True,
+                 cached_probe=None,
                  fused_decode: bool = True,
                  stats: Optional[OccupancyStats] = None):
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
@@ -227,7 +236,16 @@ class RaggedScheduler:
         self.min_group_prefix = int(min_group_prefix)
         self.min_group_cells = int(min_group_cells)
         self.group_cells = group_cells
+        self.cached_probe = cached_probe
         self.stats = stats if stats is not None else OccupancyStats()
+
+    def _cached_tokens(self, items: Sequence[Tuple[SweepItem, bool]],
+                       edge: int) -> int:
+        """Radix-cached prefix tokens across ``items`` in ``edge``'s
+        namespace (0 without a probe)."""
+        if self.cached_probe is None:
+            return 0
+        return sum(self.cached_probe(it, edge) for it, _ in items)
 
     # -- cross-cell prefix grouping -----------------------------------------
 
@@ -326,9 +344,13 @@ class RaggedScheduler:
             # power-of-two batch prefilled at this edge plus its fixed
             # decode steps. Promoting pays len(tail) rows at the next
             # edge, where they fill slots of dispatches that run anyway.
+            # With a prefix-cache probe, cached tokens discount each
+            # side: a tail warm in THIS bucket's namespace is cheap to
+            # keep and dear to promote.
             if (nxt is not None
-                    and len(q) * nxt
+                    and len(q) * nxt - self._cached_tokens(q, nxt)
                     < bucket_cost(len(q), edge, B, self.decode_cost,
+                                  cached_tokens=self._cached_tokens(q, edge),
                                   fused_decode=self.fused_decode)):
                 queues[nxt] = [(it, True) for it, _ in q] + queues[nxt]
             else:

@@ -16,15 +16,18 @@ folds its readouts into a device lattice, checkpointed beside the CSV
 as ``<stem>.accum.npz``, its bootstrap seed recorded in the manifest)
 and its numerics guard (a row whose readouts fail
 ``guard.numerics.check_values`` is written quarantined as
-``error:numerics``), and with these of its engine features off, which
-the port does not have yet: the dispatch recovery/watchdog, piggyback
-chains, the prefix cache and its draft recording, multihost shards and
-leases, the reasoning (sampled) mode, and the XLA compile plan (which
-has no counterpart in eager PyTorch).
+``error:numerics``), with the cross-request prefix cache when the
+engine has one (the planner's cached-token pricing, paged dispatches,
+completion tails recorded for the tree's drafts), and with these of its
+engine features off, which the port does not have yet: the dispatch
+recovery/watchdog, piggyback chains, multihost shards and leases, the
+reasoning (sampled) mode, and the XLA compile plan (which has no
+counterpart in eager PyTorch).
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import logging
 import queue
@@ -200,6 +203,8 @@ def run_perturbation_sweep(
     engine.spec_flush()
     if engine.spec_stats.get("spec_dispatches"):
         log.info("speculative decode: %s", json.dumps(dict(engine.spec_stats)))
+    if engine.prefix_cache is not None:
+        log.info("prefix cache: %s", json.dumps(engine.prefix_stats.summary()))
     if engine.guard_stats.quarantined:
         log.info("numerics guard: %s", json.dumps(engine.guard_stats.summary()))
     if sink is not None:
@@ -228,6 +233,14 @@ def _plan_ragged(engine, todo, new_tokens, conf_tokens):
     max_extent = (engine.cfg.max_seq_len
                   if getattr(engine.cfg, "pos_embedding", None) == "learned"
                   else None)
+    # Prefix-aware slot-refill pricing: with the prefix cache built,
+    # cached-prefix tokens are free prefill, and a promoted tail abandons
+    # this bucket's namespace (the probe reads the tree on this thread,
+    # its owner).
+    cached_probe = None
+    if engine.prefix_cache is not None:
+        cached_probe = (lambda it, b: engine.prefix_cache.match_len(
+            b, it.bin_ids[:it.lcp]))
     planner = sched_mod.RaggedScheduler(
         engine.buckets, engine.rt.batch_size,
         new_budget=max(new_tokens, conf_tokens),
@@ -235,6 +248,7 @@ def _plan_ragged(engine, todo, new_tokens, conf_tokens):
         min_group_prefix=engine.rt.sweep_group_min_prefix,
         min_group_cells=engine.rt.sweep_group_min_cells,
         group_cells=engine.rt.sweep_group_min_cells > 0,
+        cached_probe=cached_probe,
         fused_decode=engine.rt.fused_decode,
         stats=stats)
     dispatches = planner.schedule(items)
@@ -268,6 +282,15 @@ def _run_pipelined(engine, model_name, todo, target_ids, results_path,
       ``write_rows`` False (streaming only), nothing is copied: the
       writer marks the batch's cells done after a lattice checkpoint.
 
+    The radix tree of the prefix cache (``engine.prefix_cache``) is
+    owned by the MAIN thread: its dispatches look pages up, insert and
+    evict there. The JAX sweep records each drained shared dispatch's
+    completions into the tree from its row drain; here the writer only
+    hands its host copies back (``tails``), and the main thread records
+    them, in dispatch order, before it plans each dispatch and once more
+    after the writer has joined — the same tails in the same order, and
+    no writer touches the tree while the main thread plans against it.
+
     The queue is bounded (depth 2), so at most ~3 batches of decode
     outputs are alive on the device, each referenced until its copy is
     drained. Row order is dispatch order. A writer failure stops the
@@ -294,7 +317,19 @@ def _run_pipelined(engine, model_name, todo, target_ids, results_path,
         t2 = np.asarray([target_ids[c.prompt_idx][1] for c in cells], np.int32)
         return t1, t2
 
-    def _emit(batch, fused, cfused, t1, t2):
+    # Completion tails for the tree's drafts: (bucket, binary ids, binary
+    # generated, confidence ids, confidence generated, real rows), put by
+    # the writer, recorded by the main thread (see the docstring).
+    record = engine.spec_supported() and engine.prefix_cache is not None
+    tails: "collections.deque" = collections.deque()
+
+    def _record_tails():
+        while tails:
+            bucket, b_ids, gen, c_ids, cgen, n = tails.popleft()
+            engine.spec_record(bucket, b_ids, gen, n)
+            engine.spec_record(bucket, c_ids, cgen, n)
+
+    def _emit(batch, fused, cfused, t1, t2, spec_rec=None):
         """Readout, the sink's fold (on this thread, on the dispatch's
         stream; pad rows past ``batch`` drop), then the writer."""
         res = score_mod.readout_from_fused(
@@ -302,7 +337,7 @@ def _run_pipelined(engine, model_name, todo, target_ids, results_path,
         if sink is not None:
             sink.fold(res.yes_prob, res.no_prob, cfused.weighted_confidence,
                       fused.topk_logprobs, batch)
-        work_q.put((batch, fused, res, cfused))
+        work_q.put((batch, fused, res, cfused, spec_rec))
 
     # Streaming-only manifest marks (no rows to key them off). The
     # lattice checkpoints FIRST, then the cells are marked done: a crash
@@ -318,7 +353,7 @@ def _run_pipelined(engine, model_name, todo, target_ids, results_path,
                  len(pending_marks), accum_path)
         del pending_marks[:]
 
-    def _drain(batch, fused, res, cfused):
+    def _drain(batch, fused, res, cfused, spec_rec):
         if not write_rows:
             # Streaming only: no per-row payload is copied to the host;
             # the bytes the CSV path would have copied are counted.
@@ -335,6 +370,10 @@ def _run_pipelined(engine, model_name, todo, target_ids, results_path,
                 res.yes_prob, res.no_prob, fused.topk_logprobs,
                 fused.topk_ids, fused.generated, cfused.weighted_confidence,
                 cfused.generated))
+        if spec_rec is not None:
+            b_ids, c_ids, rec_bucket, rec_n = spec_rec
+            tails.append((rec_bucket, b_ids, gen_host, c_ids, cgen_host,
+                          rec_n))
         if occupancy is not None and stop_armed:
             # Decode-step occupancy: rows retired by the early stop idle
             # until the batch's slowest row (profiling.OccupancyStats).
@@ -446,8 +485,10 @@ def _run_pipelined(engine, model_name, todo, target_ids, results_path,
         for d in dispatches:
             if failed.is_set():
                 return
+            _record_tails()
             batch = d.cells
             n = len(d.items)
+            spec_rec = None
             if d.kind == "shared":
                 bsz = B if n == B else _tail_batch(n, B)
                 full_items = list(d.items) + [d.items[-1]] * (bsz - n)
@@ -462,11 +503,16 @@ def _run_pipelined(engine, model_name, todo, target_ids, results_path,
                     bucket=d.bucket,
                     sfx_buckets_ab=(d.sfx_bucket_a, d.sfx_bucket_b),
                     reuse_cache=True, n_real=n)
+                if record:
+                    spec_rec = ([it.bin_ids for it in full_items],
+                                [it.conf_ids for it in full_items],
+                                d.bucket, n)
             else:
                 t1, t2 = _targets(batch)
                 out, m = engine.decode_fused_grouped(
                     d.groups, t1, t2, new_tokens, conf_tokens, early_stop,
-                    d.bucket, max(d.sfx_bucket_a, d.sfx_bucket_b))
+                    d.bucket, max(d.sfx_bucket_a, d.sfx_bucket_b),
+                    reuse_cache=True)
 
                 # Member rows are [bin, conf] per cell: even rows carry
                 # the binary readout, odd rows the confidence one. Both
@@ -487,7 +533,7 @@ def _run_pipelined(engine, model_name, todo, target_ids, results_path,
 
                 fused = _branch(0, new_tokens)
                 cfused = _branch(1, conf_tokens)
-            _emit(batch, fused, cfused, t1, t2)
+            _emit(batch, fused, cfused, t1, t2, spec_rec)
 
     wt = threading.Thread(target=_writer, name="sweep-writer", daemon=True)
     wt.start()
@@ -502,6 +548,7 @@ def _run_pipelined(engine, model_name, todo, target_ids, results_path,
         wt.join()
     if writer_err:
         raise writer_err[0]
+    _record_tails()
     if pending_marks:
         _flush_marks()
 

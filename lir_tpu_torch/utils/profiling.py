@@ -10,6 +10,7 @@ Copies from the JAX package's ``utils/profiling.py``:
 - ``GuardStats``: the numerics guard's per-site counters (its
   quarantine part);
 - ``StreamStats``: the streaming-statistics sink's counters;
+- ``PrefixCacheStats``: the cross-request prefix cache's counters;
 - ``device_memory_stats``: per-device memory from
   ``torch.cuda.memory_stats``.
 """
@@ -336,6 +337,64 @@ class StreamStats:
                 "finalize_s": round(self.finalize_s, 4),
             }
 
+
+@dataclasses.dataclass
+class PrefixCacheStats:
+    """Cross-request prefix cache counters (engine/prefix_tree.py over
+    the models/paged.py page pool): how much prefill the radix tree
+    saves and how hard the pool churns. Thread-safe, as the JAX class.
+
+    - ``lookups`` / ``hits``: dispatch-time radix probes and probes that
+      matched >= 1 cached page; radix hit rate = hits / lookups.
+    - ``hit_tokens``: prefix tokens resumed from the pool instead of
+      prefilled (prefill_tokens_avoided). ``prefill_tokens_total``
+      counts every prefix token a dispatch needed (cached + computed),
+      so avoided_frac = hit / total.
+    - ``inserted_pages`` / ``evicted_pages``: pool churn. Sustained
+      eviction at low hit rates means the pool is undersized for the
+      working set.
+    - ``pages_in_use`` / ``pages_total``: pool occupancy gauge, updated
+      at every insert and eviction.
+    """
+
+    lookups: int = 0
+    hits: int = 0
+    hit_tokens: int = 0
+    prefill_tokens_total: int = 0
+    inserted_pages: int = 0
+    evicted_pages: int = 0
+    pages_in_use: int = 0
+    pages_total: int = 0
+
+    def __post_init__(self) -> None:
+        self._lock = threading.Lock()
+
+    def count(self, field: str, n: int = 1) -> None:
+        with self._lock:
+            setattr(self, field, getattr(self, field) + n)
+
+    def gauge_pages(self, in_use: int, total: int) -> None:
+        with self._lock:
+            self.pages_in_use = in_use
+            self.pages_total = total
+
+    def summary(self) -> Dict[str, object]:
+        with self._lock:
+            return {
+                "lookups": self.lookups,
+                "hits": self.hits,
+                "radix_hit_rate": round(self.hits / self.lookups, 4)
+                                  if self.lookups else 0.0,
+                "prefill_tokens_avoided": self.hit_tokens,
+                "prefill_tokens_total": self.prefill_tokens_total,
+                "avoided_frac": round(self.hit_tokens
+                                      / self.prefill_tokens_total, 4)
+                                if self.prefill_tokens_total else 0.0,
+                "inserted_pages": self.inserted_pages,
+                "evicted_pages": self.evicted_pages,
+                "pages_in_use": self.pages_in_use,
+                "pages_total": self.pages_total,
+            }
 
 def device_memory_stats() -> Dict[str, Dict[str, float]]:
     """Per-card memory stats in GiB (the ``bytes`` entries of

@@ -163,6 +163,9 @@ PERTURB_FLAGS = [
     ["--no-cascade-decode"], ["--no-cascade-fused-suffix"],
     ["--int8"], ["--int8", "--int8-dynamic"],
     ["--no-streaming-stats"], ["--no-row-artifact"], ["--no-numerics-guard"],
+    ["--prefix-cache"], ["--prefix-cache", "--prefix-cache-pages", "8"],
+    ["--prefix-cache", "--prefix-page-size", "32"], ["--no-spec-tree-probe"],
+    ["--spec-tree-tails", "4"],
 ]
 
 
@@ -183,6 +186,24 @@ def test_perturb_flags_land_in_the_jax_fields(monkeypatch, flags):
     for key in ("quantize_int8", "int8_dynamic"):
         assert port["kw"][key] == ref["kw"][key], key
     assert port["kw"]["device"] == "cuda"
+
+
+def test_prefix_cache_flags_reach_the_configs(monkeypatch):
+    """The five prefix-cache flags land in RuntimeConfig / SpecConfig with
+    the values the JAX parser gives them."""
+    flags = ["--prefix-cache", "--prefix-cache-pages", "24",
+             "--prefix-page-size", "32", "--no-spec-tree-probe",
+             "--spec-tree-tails", "5"]
+    port = _capture(monkeypatch, "lir_tpu_torch", _PERTURB + flags)
+    ref = _capture(monkeypatch, "lir_tpu", _PERTURB + flags)
+    for got in (port, ref):
+        rt, spec = got["rt"], got["kw"]["spec_config"]
+        assert (rt.prefix_cache, rt.prefix_cache_pages,
+                rt.prefix_page_size) == (True, 24, 32)
+        assert (spec.tree_probe, spec.tree_tails_per_node) == (False, 5)
+    defaults = _capture(monkeypatch, "lir_tpu_torch", _PERTURB)
+    assert not defaults["rt"].prefix_cache
+    assert defaults["kw"]["spec_config"].tree_probe
 
 
 SWEEP_FLAGS = [[], ["--batch-size", "16"], ["--int8"],
@@ -230,10 +251,10 @@ def test_sweep_flags_land_in_the_jax_fields(monkeypatch, flags):
 # that brings each).
 UNPORTED = [
     ["--mesh", "1x8"], ["--param-cache", "x"], ["--kv-cache-int8"],
-    ["--prefix-cache"], ["--prefix-cache-pages", "8"], ["--lease-shards"],
+    ["--lease-cells", "8"], ["--trace-buffer", "8"], ["--lease-shards"],
     ["--lease-ttl", "5"], ["--weight-cache-gb", "1"], ["--no-weight-prefetch"],
     ["--trace-out", "t.json"], ["--multihost"], ["--no-piggyback"],
-    ["--spec-draft-model", "x"], ["--no-spec-tree-probe"],
+    ["--spec-draft-model", "x"], ["--watchdog-floor", "5"],
     ["--watchdog-multiple", "2"], ["--dtype", "float32"],
     ["--no-aot-precompile"], ["--barrier-timeout", "5"], ["--no-hbm-governor"],
 ]

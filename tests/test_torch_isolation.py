@@ -19,7 +19,8 @@ import lir_tpu_torch
 import lir_tpu_torch.config, lir_tpu_torch.data, lir_tpu_torch.ops
 import lir_tpu_torch.backends.fake, lir_tpu_torch.models.convert
 import lir_tpu_torch.engine.runner, lir_tpu_torch.engine.sweep
-import lir_tpu_torch.engine.spec
+import lir_tpu_torch.engine.spec, lir_tpu_torch.engine.prefix_tree
+import lir_tpu_torch.models.paged
 import lir_tpu_torch.engine.scheduler, lir_tpu_torch.engine.grid
 import lir_tpu_torch.utils.manifest, lir_tpu_torch.utils.profiling
 import lir_tpu_torch.models.quant, lir_tpu_torch.ops.flash_attention
