@@ -168,22 +168,47 @@ Phases (each raises on failure, so the script exits non-zero):
    card's machine), the config checked field by field against
    ``registry.llama2_7b()`` and every loaded leaf bitwise
    ``params[leaf].half().bfloat16()`` (write and load seconds and GB/s,
-   host peak RSS, device peak memory), then
+   host peak RSS, device peak memory); beside it a T5 checkpoint at
+   google/t5-v1_1-base's width (seeded weights at HF T5's init scales,
+   one fp16 safetensors file by the same writer with HF T5 key names,
+   flan-t5-base's published ``config.json`` fields), loaded the same way
+   (an encoder-decoder engine, its config and every leaf bitwise); then
    ``run_model_comparison_sweep`` over Llama-2-7b-hf (base), a
-   Llama-2-7b-chat-hf symlink to it (instruct) and a model with no
-   checkpoint: two ``ok`` models of 50 rows, one ``error:model`` of 50
-   NaN rows, D1 150 rows and D2 100 on disk, ``flash_decode``,
+   Llama-2-7b-chat-hf symlink to it (instruct), t5-v1_1-base (base), a
+   flan-t5-base symlink to it (instruct) and a model with no
+   checkpoint: four ``ok`` models of 50 rows, one ``error:model`` of 50
+   NaN rows, D1 250 rows and D2 150 on disk, ``flash_decode``,
    ``row_gemm``, ``row_norm`` and ``row_add_norm`` launched, and the
    device memory allocated after the call within 64 MB of before (each
    model released); those D1/D2 files through ``analyze`` on the card:
    the llama family's base-vs-instruct deltas, the D2's model graph
    stopped by KeyError on the model with no checkpoint (its NaN rows;
    the JAX package's behaviour, ROADMAP caveat R5), and run to its end
-   without those rows. Once more on the base model loaded with
-   ``quantize_int8=True, int8_dynamic=True``: every int8 leaf bitwise
-   ``quantize_decoder_params``' quantization of the fp16 checkpoint's
-   bf16 tree, status ``ok``, 50 rows, rows/s and peak memory beside the
-   bf16 run's.
+   without those rows (over the chat model and flan-t5-base). Once more
+   on the two base models loaded with ``quantize_int8=True,
+   int8_dynamic=True``: every int8 leaf bitwise
+   ``quantize_decoder_params``' (``quantize_encdec_params``')
+   quantization of the fp16 checkpoint's bf16 tree, status ``ok``, 50
+   rows each, rows/s and peak memory beside the bf16 run's.
+   The T5 phase (the encoder-decoder branch, ``models/encdec.py``): part
+   (a), after the small sweep check, a small gated untied T5 and a small
+   ReLU tied (v1.0) T5 in float32 through ``t5_greedy_decode``
+   (``decode_prompts``) and ``score_prompts`` on the card against the
+   CPU (ids and texts exact, step logits and readouts within 1e-4), and
+   the decoder half of the capture path (``decode_prompts`` on the small
+   decoder engine: the same, and ``flash_decode`` launched); parts (b)
+   and (c), last: T0_3B (``registry.t0_3b()``, 2,849.9 M parameters)
+   with seeded bf16 weights at HF T5's init scales made on the card,
+   the 50 word-meaning questions at B = 32 and 50 new tokens through
+   ``run_word_meaning_sweep`` (rows/s, seconds, peak memory; readouts in
+   range, ``position_found`` in [0, 10)), the first decoded position's
+   log-probs of 4 rows against the same weights upcast to float32 on the
+   card, within 4 times the gap a width-reduced twin shows on the CPU
+   (logged beside the twin's gap at twice its width and with
+   ``encdec.init_params``' 0.02 weights, where the network is chaotic);
+   then ``quantize_encdec_params(dynamic=True)`` of the tree on the
+   card, layers 0 and 23 of both stacks and the head bitwise the same
+   quantization on the CPU, and the same sweep on the 8-bit engine.
 4. The ``{"kernels": [...]}`` summary, the card's name and power limit,
    and the last line ``{"ok": true, "device": {...}}``. Along the way,
    ``{"phase": "elapsed", ...}`` lines give the seconds since the start
@@ -216,11 +241,13 @@ from lir_tpu_torch import ops
 from lir_tpu_torch.backends.fake import FakeTokenizer
 from lir_tpu_torch.config import CascadeConfig, RuntimeConfig
 from lir_tpu_torch.data import (LEGAL_PROMPTS, WORD_MEANING_QUESTIONS,
-                                format_base_prompt, schemas)
+                                format_base_prompt, format_instruct_prompt,
+                                schemas)
 from lir_tpu_torch.engine import generate, grid, prefix_tree, sweep, tokens as tok
 from lir_tpu_torch.engine.multi import ModelSpec, run_model_comparison_sweep
 from lir_tpu_torch.engine.runner import SFX_BUCKETS, ScoringEngine
-from lir_tpu_torch.models import decoder, loader, paged, quant, registry
+from lir_tpu_torch.models import (decoder, encdec, loader, paged, quant,
+                                  registry)
 from lir_tpu_torch.models.factory import engine_factory
 from lir_tpu_torch.ops import _build
 from lir_tpu_torch.ops.flash_decode import (decode_legs,
@@ -2465,6 +2492,407 @@ def run_prefix_int8_trunk(engine8, rt, grids, tmp: Path) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The T5 phase: the encoder-decoder branch (models/encdec.py and the capture
+# path) at a small size on the card against the CPU, then at T0_3B width in
+# bf16 and in 8 bit.
+# ---------------------------------------------------------------------------
+
+# Card against CPU at the small size (float32).
+T5_TOL = 1e-4
+T5_MODEL = "bigscience/T0_3B"
+# The bf16 first-position log-probs against the same weights in float32:
+# fail above this factor times the gap a width-reduced twin of the model
+# (T5_TWIN_WIDTH wide, 64-wide heads, the same depth and init rules, the
+# same token rows) shows between bf16 and float32 on the CPU. The gap is
+# the activations' bf16 rounding carried through the layers; with the
+# init below it does not grow with width (hidden 256, 512 and 1024 gave
+# the same gap on the CPU), so the twin measures it at this width, and
+# the factor leaves room for cuBLAS's and the CPU's other summation
+# orders.
+T5_GAP_FACTOR = 4.0
+T5_TWIN_WIDTH = 256
+T5_GAP_ROWS = 4
+# The small-size models: (name, T5Config fields, weight scale so that the
+# tiny logits spread).
+T5_SMALL = (
+    ("gated_untied", dict(gated_mlp=True, tie_embeddings=False), 5.0),
+    ("relu_tied", dict(gated_mlp=False, tie_embeddings=True,
+                       activation="relu"), 12.0),
+)
+
+
+def t5_init_std(cfg) -> dict:
+    """HF T5's init std of each leaf (``T5PreTrainedModel._init_weights``,
+    initializer factor 1): q (d_model * d_kv)^-1/2, k and v d_model^-1/2,
+    o (heads * d_kv)^-1/2, wi d_model^-1/2, wo d_ff^-1/2, the embedding
+    1 and the relative-position tables d_model^-1/2; the untied head
+    d_model^-1/2 (HF: 1), which gives logits of unit spread. The query's
+    small scale is what stands in for the 1/sqrt(d) T5 leaves out: with
+    encdec.init_params' 0.02 everywhere, the scores at T0_3B width have a
+    spread of ~6.5 and the network is chaotic (bf16 and float32 agree on
+    nothing after 48 layers)."""
+    D, hd, H, F_ = (cfg.hidden_size, cfg.head_dim, cfg.n_heads,
+                    cfg.intermediate_size)
+    attn = {"q": (D * hd) ** -0.5, "k": D ** -0.5, "v": D ** -0.5,
+            "o": (H * hd) ** -0.5}
+    std = {f"w{n}": s for n, s in attn.items()}
+    std.update({f"c{n}": s for n, s in attn.items()})
+    std.update({"wi": D ** -0.5, "wi_0": D ** -0.5, "wi_1": D ** -0.5,
+                "wo_mlp": F_ ** -0.5, "shared_embed": 1.0,
+                "enc_rel_embed": D ** -0.5, "dec_rel_embed": D ** -0.5,
+                "lm_head": D ** -0.5})
+    return std
+
+
+def t5_params(cfg, seed: int, device, dtype):
+    """Seeded T5 weights on ``device`` at HF T5's init scales:
+    ``encdec.init_params`` (0.02 normals, norms 1) rescaled leaf by leaf
+    in place (:func:`t5_init_std`)."""
+    params = encdec.init_params(cfg, seed=seed, device=device, dtype=dtype)
+    std = t5_init_std(cfg)
+    for path, leaf in leaves(params):
+        name = path.split("/")[-1]
+        if name in std:
+            leaf.mul_(std[name] / 0.02)
+    return params
+
+
+def _float_tree(tree):
+    return {k: (_float_tree(v) if isinstance(v, dict) else v.float())
+            for k, v in tree.items()}
+
+
+def first_logprobs(params, cfg, toks, mask) -> torch.Tensor:
+    """The first decoded position's float32 log-probs of rows
+    ``toks``/``mask``."""
+    start = torch.full((toks.shape[0], 1), cfg.decoder_start_token_id,
+                       dtype=torch.int32, device=toks.device)
+    return torch.log_softmax(encdec.forward(params, cfg, toks, mask,
+                                            start)[:, 0], dim=-1)
+
+
+def t5_twin_gap(cfg, toks, mask, width: int = T5_TWIN_WIDTH,
+                hf_init: bool = True):
+    """(the largest |bf16 - float32| first-position log-prob, the rows
+    whose top-1 agrees) of a twin of ``cfg`` ``width`` wide (64-wide
+    heads, d_ff in proportion) on the CPU, on the same token rows, its
+    weights at HF T5's init scales (:func:`t5_params`, whose products
+    have the same spread at every width) or, with ``hf_init`` False,
+    ``encdec.init_params``' 0.02 with each stack matrix and the head
+    times sqrt(cfg width / width): the spread 0.02 gives ``cfg``."""
+    twin = dataclasses.replace(
+        cfg, name=f"{cfg.name}-twin", hidden_size=width,
+        n_heads=width // cfg.head_dim,
+        intermediate_size=cfg.intermediate_size * width // cfg.hidden_size)
+    if hf_init:
+        bf = t5_params(twin, seed=0, device="cpu", dtype=torch.bfloat16)
+    else:
+        bf = encdec.init_params(twin, seed=0, device="cpu",
+                                dtype=torch.bfloat16)
+        for path, leaf in leaves(bf):
+            name = path.split("/")[-1]
+            if name == "lm_head" or (path.startswith(("encoder/", "decoder/"))
+                                     and not name.startswith("ln_")):
+                leaf.mul_((cfg.hidden_size / width) ** 0.5)
+    with torch.inference_mode():
+        lp_bf = first_logprobs(bf, twin, toks, mask)
+        lp_f32 = first_logprobs(_float_tree(bf), twin, toks, mask)
+    return (float((lp_bf - lp_f32).abs().max()),
+            int((lp_bf.argmax(-1) == lp_f32.argmax(-1)).sum()))
+
+
+def t5_small_check() -> dict:
+    """The T5 phase's part (a): two small float32 T5s (gated untied; ReLU
+    tied, v1.0) through ``t5_greedy_decode`` (``decode_prompts``) and
+    ``score_prompts`` on the card against the CPU: ids and texts exact,
+    step logits and readouts within T5_TOL. Then the decoder half of the
+    capture path, ``decode_prompts`` on the small decoder engine: the
+    same against the CPU, its flash-decode launches counted."""
+    prompts = [format_instruct_prompt(q) for q in WORD_MEANING_QUESTIONS[:8]]
+    rt = RuntimeConfig(batch_size=8, max_new_tokens=12)
+    out = {}
+
+    def compare(label, a, b):
+        (ga, la), (gb, lb) = a, b
+        if not torch.equal(ga.cpu(), gb.cpu()):
+            raise AssertionError(f"{label}: generated ids differ")
+        err = float((la.cpu() - lb.cpu()).abs().max())
+        if not err <= T5_TOL:
+            raise AssertionError(f"{label}: step logits differ by {err}")
+        return err
+
+    for kind, kw, scale in T5_SMALL:
+        cfg = registry.T5Config(name=f"smoke-t5-{kind}", vocab_size=1000,
+                                hidden_size=64, n_layers=2, n_heads=4,
+                                head_dim=16, intermediate_size=128, **kw)
+        p_cpu = encdec.init_params(cfg, seed=2, device="cpu")
+        for path, leaf in leaves(p_cpu):
+            if not path.split("/")[-1].startswith(("ln_", "enc_final",
+                                                   "dec_final")):
+                leaf.mul_(scale)
+        engs = {dev: ScoringEngine(p, cfg, FakeTokenizer(), rt, device=dev,
+                                   encoder_decoder=True)
+                for dev, p in (("cpu", p_cpu), (DEV, _to_device(p_cpu, DEV)))}
+        err = compare(f"t5_small/{kind}", engs[DEV].decode_prompts(prompts),
+                      engs["cpu"].decode_prompts(prompts))
+        rows = {dev: e.score_prompts(prompts) for dev, e in engs.items()}
+        worst = 0.0
+        for a, b in zip(rows[DEV], rows["cpu"]):
+            if (a.completion, a.position_found, a.yes_no_found) != (
+                    b.completion, b.position_found, b.yes_no_found):
+                raise AssertionError(f"t5_small/{kind}: {a} vs {b}")
+            for f in ("yes_prob", "no_prob", "relative_prob"):
+                worst = max(worst, abs(getattr(a, f) - getattr(b, f)))
+        if not worst <= T5_TOL:
+            raise AssertionError(f"t5_small/{kind}: readouts differ by {worst}")
+        out[kind] = dict(step_logits_max_abs_err=err,
+                         readout_max_abs_err=worst,
+                         positions=[r.position_found for r in rows[DEV]])
+
+    cfg, p_cpu, p_gpu = small_model()
+    engs = {dev: ScoringEngine(p, cfg, FakeTokenizer(), rt, device=dev)
+            for dev, p in (("cpu", p_cpu), (DEV, p_gpu))}
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    card = engs[DEV].decode_prompts(prompts)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    if launches["flash_decode"] <= 0:
+        raise AssertionError("t5_small/decoder_capture: flash_decode never "
+                             "launched")
+    err = compare("t5_small/decoder_capture", card,
+                  engs["cpu"].decode_prompts(prompts))
+    out["decoder_capture"] = dict(step_logits_max_abs_err=err,
+                                  launches=launches)
+    log(json.dumps({"phase": "t5_small", **out}))
+    return out
+
+
+def t5_sweep(label, engine, questions, fmt) -> dict:
+    """``run_word_meaning_sweep`` on a T5 engine: rows/s, seconds and the
+    peak device memory; every readout in range, ``position_found`` in
+    [0, scan_positions)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rows = sweep.run_word_meaning_sweep(engine, T5_MODEL, "instruct",
+                                        questions, fmt)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if len(rows) != len(questions):
+        raise AssertionError(f"{label}: {len(rows)} rows")
+    check_scores(label, {"p_yes": [r.yes_prob for r in rows],
+                         "p_no": [r.no_prob for r in rows]})
+    scan = engine.rt.scan_positions
+    if not all(0 <= r.position_found < scan for r in rows):
+        raise AssertionError(f"{label}: position_found outside [0, {scan})")
+    stats = dict(rows=len(rows), seconds=dt, rows_per_s=len(rows) / dt,
+                 max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+                 yes_no_found=sum(r.yes_no_found for r in rows))
+    log(json.dumps({"phase": label, **stats}))
+    return stats
+
+
+def check_t5_int8(q8, params, cfg) -> list:
+    """The int8 payloads and scales of layers 0 and L - 1 of both stacks
+    and of the head, bitwise the same quantization on the CPU."""
+    checked = []
+    for side in ("encoder", "decoder"):
+        for name, leaf in q8[side].items():
+            if not isinstance(leaf, quant.QuantTensor):
+                continue
+            for i in (0, cfg.n_layers - 1):
+                ref = quant.quantize(params[side][name][i].cpu())
+                if not (torch.equal(leaf.q[i].cpu(), ref.q)
+                        and torch.equal(leaf.scale[i].cpu(), ref.scale)
+                        and leaf.dynamic):
+                    raise AssertionError(f"t5 int8: {side}/{name}[{i}]")
+                checked.append(f"{side}/{name}[{i}]")
+    ref = quant.quantize(params["lm_head"].cpu())
+    head = q8["lm_head"]
+    if head.dynamic or not (torch.equal(head.q.cpu(), ref.q)
+                            and torch.equal(head.scale.cpu(), ref.scale)):
+        raise AssertionError("t5 int8: lm_head")
+    return checked + ["lm_head"]
+
+
+def run_t5_phase(questions=WORD_MEANING_QUESTIONS) -> dict:
+    """The T5 phase's parts (b) and (c): T0_3B (``registry.t0_3b()``)
+    with seeded bf16 weights made on the card (:func:`t5_params`), the
+    word-meaning questions at B = 32 and 50 new tokens through
+    ``run_word_meaning_sweep`` on an ``encoder_decoder=True`` engine; the
+    first decoded position's log-probs of T5_GAP_ROWS rows against the
+    same weights upcast to float32 on the card, within T5_GAP_FACTOR
+    times the twin's gap (:func:`t5_twin_gap`); then the tree quantized
+    on the card (``quantize_encdec_params``, dynamic), checked bitwise
+    against the CPU (:func:`check_t5_int8`), and the same sweep on it."""
+    cfg = registry.t0_3b()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = t5_params(cfg, seed=0, device=DEV, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    stats = dict(init_seconds=time.perf_counter() - t0,
+                 param_bytes=quant.param_bytes(params))
+    tokenizer = FakeTokenizer(vocab=cfg.vocab_size)
+    rt = RuntimeConfig(batch_size=BATCH)
+    fmt = format_instruct_prompt
+    engine = ScoringEngine(params, cfg, tokenizer, rt, device=DEV,
+                           encoder_decoder=True)
+    stats["bf16"] = t5_sweep("t5_bf16", engine, questions, fmt)
+
+    prompts = [fmt(q) for q in questions[:BATCH]]
+    gen, steps = engine.decode_prompts(prompts)
+    toks, mask = engine._pad_batch(prompts)
+    toks, mask = toks[:T5_GAP_ROWS], mask[:T5_GAP_ROWS]
+    lp_bf16 = torch.log_softmax(steps[:T5_GAP_ROWS, 0], dim=-1)
+    del gen, steps
+    p32 = _float_tree(params)
+    with torch.inference_mode():
+        lp_f32 = first_logprobs(p32, cfg, toks, mask)
+    del p32
+    gap = float((lp_bf16 - lp_f32).abs().max())
+    twin, _ = t5_twin_gap(cfg, toks.cpu(), mask.cpu())
+    bar = T5_GAP_FACTOR * twin
+    # Why the bar can rest on a narrower twin and on HF T5's init: the
+    # twin's gap at twice its width, and at encdec.init_params' 0.02.
+    wide = t5_twin_gap(cfg, toks.cpu(), mask.cpu(), width=2 * T5_TWIN_WIDTH)
+    flat = t5_twin_gap(cfg, toks.cpu(), mask.cpu(), hf_init=False)
+    stats["f32_check"] = dict(
+        rows=T5_GAP_ROWS, max_abs_logprob_gap=gap, twin_gap=twin, bar=bar,
+        top1_agree=int((lp_bf16.argmax(-1) == lp_f32.argmax(-1)).sum()),
+        twin_2x_width=dict(gap=wide[0], top1_agree=wide[1]),
+        twin_init_0_02=dict(gap=flat[0], top1_agree=flat[1]))
+    log(json.dumps({"phase": "t5_f32_check", **stats["f32_check"]}))
+    if not gap <= bar:
+        raise AssertionError(f"t5: bf16 log-probs {gap} from float32, bar {bar}")
+    del engine, lp_bf16, lp_f32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    q8 = quant.quantize_encdec_params(params, dynamic=True)
+    torch.cuda.synchronize()
+    stats["int8_quantize_seconds"] = time.perf_counter() - t0
+    stats["int8_checked"] = len(check_t5_int8(q8, params, cfg))
+    stats["int8_param_bytes"] = quant.param_bytes(q8)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine8 = ScoringEngine(q8, cfg, tokenizer, rt, device=DEV,
+                            encoder_decoder=True)
+    stats["int8"] = t5_sweep("t5_int8", engine8, questions, fmt)
+    del engine8, q8
+    gc.collect()
+    torch.cuda.empty_cache()
+    if abs(torch.cuda.memory_allocated() - mem0) > LOADER_RELEASE_SLACK:
+        raise AssertionError("t5: the phase's tensors were not released")
+    log(json.dumps({
+        "phase": "t5", "model": cfg.name,
+        "rows_per_s": [stats["bf16"]["rows_per_s"],
+                       stats["int8"]["rows_per_s"]],
+        "max_memory_allocated_bytes": [
+            stats["bf16"]["max_memory_allocated_bytes"],
+            stats["int8"]["max_memory_allocated_bytes"]],
+        "param_bytes": [stats["param_bytes"], stats["int8_param_bytes"]],
+        "order": ["bf16", "int8"], "f32_check": stats["f32_check"],
+        "int8_leaves_checked": stats["int8_checked"]}))
+    return stats
+
+
+# ---------------------------------------------------------------------------
+# The loader phase's T5 checkpoint: google/t5-v1_1-base's width in fp16,
+# HF T5 key names, flan-t5-base's published config.json fields.
+# ---------------------------------------------------------------------------
+
+LOADER_T5 = "google/t5-v1_1-base"
+LOADER_FLAN = "google/flan-t5-base"
+
+
+def hf_t5_tensors(params, cfg) -> dict:
+    """A T5 param tree in HF ``T5ForConditionalGeneration`` layout (name ->
+    view of the port's tensor; projections transposed back to torch's
+    (out, in)); the embedding once, as ``shared.weight`` (safetensors
+    holds no tied copies)."""
+    out = {"shared.weight": params["shared_embed"]}
+    attn = (("wq", "q"), ("wk", "k"), ("wv", "v"), ("wo", "o"))
+    cross = (("cq", "q"), ("ck", "k"), ("cv", "v"), ("co", "o"))
+    mlp = ((("wi_0", "wi_0"), ("wi_1", "wi_1")) if cfg.gated_mlp
+           else (("wi", "wi"),)) + (("wo_mlp", "wo"),)
+    for side, rel, final in (("encoder", "enc_rel_embed", "enc_final_ln"),
+                             ("decoder", "dec_rel_embed", "dec_final_ln")):
+        st = params[side]
+        for i in range(cfg.n_layers):
+            p = f"{side}.block.{i}.layer."
+            for key, n in attn:
+                out[f"{p}0.SelfAttention.{n}.weight"] = st[key][i].T
+            if i == 0:
+                out[f"{p}0.SelfAttention.relative_attention_bias.weight"] = (
+                    params[rel])
+            out[f"{p}0.layer_norm.weight"] = st["ln_attn"][i]
+            m = 1
+            if side == "decoder":
+                for key, n in cross:
+                    out[f"{p}1.EncDecAttention.{n}.weight"] = st[key][i].T
+                out[f"{p}1.layer_norm.weight"] = st["ln_cross"][i]
+                m = 2
+            for key, n in mlp:
+                out[f"{p}{m}.DenseReluDense.{n}.weight"] = st[key][i].T
+            out[f"{p}{m}.layer_norm.weight"] = st["ln_mlp"][i]
+        out[f"{side}.final_layer_norm.weight"] = params[final]
+    if not cfg.tie_embeddings:
+        out["lm_head.weight"] = params["lm_head"].T
+    return out
+
+
+def hf_t5_config(cfg) -> dict:
+    """config.json with google/flan-t5-base's published fields, at
+    ``cfg``'s sizes, in fp16."""
+    return {"architectures": ["T5ForConditionalGeneration"],
+            "d_ff": cfg.intermediate_size, "d_kv": cfg.head_dim,
+            "d_model": cfg.hidden_size,
+            "decoder_start_token_id": cfg.decoder_start_token_id,
+            "dense_act_fn": "gelu_new" if cfg.gated_mlp else "relu",
+            "dropout_rate": 0.1, "eos_token_id": 1,
+            "feed_forward_proj": "gated-gelu" if cfg.gated_mlp else "relu",
+            "initializer_factor": 1.0, "is_encoder_decoder": True,
+            "is_gated_act": cfg.gated_mlp,
+            "layer_norm_epsilon": cfg.norm_eps, "model_type": "t5",
+            "n_positions": 512, "num_decoder_layers": cfg.n_layers,
+            "num_heads": cfg.n_heads, "num_layers": cfg.n_layers,
+            "output_past": True, "pad_token_id": 0,
+            "relative_attention_max_distance":
+                cfg.relative_attention_max_distance,
+            "relative_attention_num_buckets":
+                cfg.relative_attention_num_buckets,
+            "tie_word_embeddings": cfg.tie_embeddings,
+            "torch_dtype": "float16", "use_cache": True,
+            "vocab_size": cfg.vocab_size}
+
+
+def export_hf_t5(params, cfg, out_dir: Path) -> Path:
+    """Write a T5 param tree as an fp16 HF checkpoint: one
+    ``model.safetensors`` by this script's writer and ``config.json``."""
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / "model.safetensors"
+    write_safetensors(path, hf_t5_tensors(params, cfg))
+    (out_dir / "config.json").write_text(json.dumps(hf_t5_config(cfg),
+                                                    indent=2))
+    return path
+
+
+def check_loaded_t5(loaded, params, cfg_path: Path, ref_cfg):
+    """The loaded bf16 T5 tree, leaf by leaf, bitwise the written fp16
+    checkpoint widened back to bfloat16; its config ``ref_cfg``'s but
+    the name."""
+    cfg = loader.t5_config_from_hf(json.loads(cfg_path.read_text()))
+    if dataclasses.replace(cfg, name=ref_cfg.name) != ref_cfg:
+        raise AssertionError(f"loader t5: t5_config_from_hf gave {cfg}")
+    check_half_leaves("loader t5", loaded, params)
+
+
+# ---------------------------------------------------------------------------
 # The loader phase: a full-width HF checkpoint written here, loaded by the
 # port, and swept by run_model_comparison_sweep.
 # ---------------------------------------------------------------------------
@@ -2624,27 +3052,39 @@ def check_loaded_tree(loaded, params, cfg_path: Path, ref_cfg):
     cfg, family = loader.config_from_hf(json.loads(cfg_path.read_text()))
     if family != "llama" or dataclasses.replace(cfg, name=ref_cfg.name) != ref_cfg:
         raise AssertionError(f"loader: config_from_hf gave {cfg}, not {ref_cfg}")
+    check_half_leaves("loader", loaded, params)
+
+
+def check_half_leaves(label, loaded, params):
+    """Every leaf of ``loaded`` bf16 and bitwise the same leaf of
+    ``params`` written in fp16 and widened back to bfloat16."""
     want = dict(leaves(params))
     got = list(leaves(loaded))
     if sorted(p for p, _ in got) != sorted(want):
-        raise AssertionError(f"loader: leaves {[p for p, _ in got]}")
+        raise AssertionError(f"{label}: leaves {[p for p, _ in got]}")
     for path, leaf in got:
         if leaf.dtype != torch.bfloat16 or not torch.equal(
                 leaf, want[path].half().bfloat16()):
-            raise AssertionError(f"loader: {path} is not params.half().bfloat16()")
+            raise AssertionError(f"{label}: {path} is not params.half().bfloat16()")
 
 
-def check_int8_tree(loaded, params):
-    """Each int8 leaf bitwise ``quantize_decoder_params``' quantization of
-    the checkpoint's bf16 leaf (the stacked leaf at once, as the engine
-    quantizes it); every other leaf bitwise the bf16 tree's."""
+def check_int8_tree(loaded, params, matrices=quant.LAYER_MATRICES):
+    """The 8-bit load against ``quantize_decoder_params`` (or, with
+    ``matrices=quant.ENCDEC_MATRICES``, ``quantize_encdec_params``),
+    dynamic, of the checkpoint's bf16 tree, a stacked leaf at a time as
+    the engine quantizes it: the ``matrices`` and the head int8 (the
+    head weight-only), each bitwise; every other leaf bitwise the bf16
+    tree's."""
     want = dict(leaves(params))
     for path, leaf in leaves(loaded):
         ref = want[path].half().bfloat16()
-        if isinstance(leaf, quant.QuantTensor):
+        name = path.split("/")[-1]
+        if name in matrices or name == "lm_head":
             q = quant.quantize(ref)
-            ok = (torch.equal(leaf.q, q.q) and torch.equal(leaf.scale, q.scale)
-                  and leaf.dynamic == (path != "lm_head"))
+            ok = (isinstance(leaf, quant.QuantTensor)
+                  and torch.equal(leaf.q, q.q)
+                  and torch.equal(leaf.scale, q.scale)
+                  and leaf.dynamic == (name != "lm_head"))
             del q
         else:
             ok = torch.equal(leaf, ref)
@@ -2709,13 +3149,17 @@ def _check_model_rows(label, art, specs, questions, n_d1, n_d2):
                              f"rows, D2 {len(d2)}")
 
 
-def run_loader_phase(params, cfg, questions=WORD_MEANING_QUESTIONS):
+def run_loader_phase(params, cfg, questions=WORD_MEANING_QUESTIONS,
+                     t5_cfg=None):
     """The loader phase (see the module docstring): ``params`` (a llama
     tree of ``cfg``) written as a two-shard fp16 HF checkpoint under a
-    temporary directory, loaded through ``models.factory.engine_factory``
-    (bf16, then 8-bit dynamic) and swept over ``questions`` by
+    temporary directory, beside a T5 checkpoint of ``t5_cfg``
+    (google/t5-v1_1-base's width by default; seeded weights, one fp16
+    file), each loaded through ``models.factory.engine_factory`` (bf16,
+    then 8-bit dynamic) and swept over ``questions`` by
     ``run_model_comparison_sweep``. Returns its stats, launches summed
     over both sweeps."""
+    t5_cfg = t5_cfg or registry.t5_v1_1("base")
     tmp_root = Path(tempfile.gettempdir())
     free = shutil.disk_usage(tmp_root).free
     if free < LOADER_MIN_FREE_BYTES:
@@ -2761,20 +3205,45 @@ def run_loader_phase(params, cfg, questions=WORD_MEANING_QUESTIONS):
         gc.collect()
         torch.cuda.empty_cache()
 
+        # The T5 pair: t5-v1_1-base and a flan-t5-base symlink to it.
+        t5p = t5_params(t5_cfg, seed=3, device=DEV, dtype=torch.bfloat16)
+        t5_dir = root / LOADER_T5.replace("/", "__")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t5_file = export_hf_t5(t5p, t5_cfg, t5_dir)
+        t5_write = time.perf_counter() - t0
+        (root / LOADER_FLAN.replace("/", "__")).symlink_to(
+            t5_dir, target_is_directory=True)
+        t0 = time.perf_counter()
+        engine = factory(LOADER_T5)
+        torch.cuda.synchronize()
+        t5_load = time.perf_counter() - t0
+        if not engine.encoder_decoder:
+            raise AssertionError("loader t5: not an encoder-decoder engine")
+        check_loaded_t5(engine.params, t5p, t5_dir / "config.json", t5_cfg)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        stats["t5"] = dict(bytes=t5_file.stat().st_size, write_seconds=t5_write,
+                           load_seconds=t5_load)
+        log(json.dumps({"phase": "loader_t5_write_and_load", **stats["t5"]}))
+
         specs = [ModelSpec(LOADER_BASE, "base"),
                  ModelSpec(LOADER_CHAT, "instruct"),
+                 ModelSpec(LOADER_T5, "base"),
+                 ModelSpec(LOADER_FLAN, "instruct"),
                  ModelSpec(LOADER_ABSENT, "instruct")]
         art, stats["bf16_sweep"] = run_comparison(
             "loader_bf16_comparison", factory, specs, root / "bf16", questions,
             ("flash_decode", "row_gemm", "row_norm", "row_add_norm"))
         n = len(questions)
         _check_model_rows("loader_bf16_comparison", art, specs, questions,
-                          3 * n, 2 * n)
+                          5 * n, 3 * n)
         d1_path = root / "bf16" / "model_comparison_results.csv"
         d2_path = root / "bf16" / "instruct_model_comparison_results.csv"
         d1 = schemas.read_results(d1_path)
         d2 = schemas.read_results(d2_path)
-        if len(d1) != 3 * n or len(d2) != 2 * n:
+        if len(d1) != 5 * n or len(d2) != 3 * n:
             raise AssertionError(f"loader: D1/D2 on disk {len(d1)} / {len(d2)}")
         stats["analyze"] = analyze_loader_artifacts(root / "bf16", d1_path,
                                                     d2_path)
@@ -2789,16 +3258,21 @@ def run_loader_phase(params, cfg, questions=WORD_MEANING_QUESTIONS):
         def checked_factory8(name):
             eng = factory8(name)
             t0 = time.perf_counter()
-            check_int8_tree(eng.params, params)
-            stats["int8_check_seconds"] = time.perf_counter() - t0
+            if name == LOADER_T5:
+                check_int8_tree(eng.params, t5p, quant.ENCDEC_MATRICES)
+            else:
+                check_int8_tree(eng.params, params)
+            stats[f"int8_check_seconds/{name}"] = time.perf_counter() - t0
             return eng
 
+        specs8 = [specs[0], specs[2]]
         art8, stats["int8_sweep"] = run_comparison(
-            "loader_int8_comparison", checked_factory8, specs[:1],
+            "loader_int8_comparison", checked_factory8, specs8,
             root / "int8", questions,
             ("flash_decode", "row_norm", "row_add_norm"))
-        _check_model_rows("loader_int8_comparison", art8, specs[:1], questions,
-                          n, 0)
+        _check_model_rows("loader_int8_comparison", art8, specs8, questions,
+                          2 * n, 0)
+        del t5p
     stats["launches"] = {k: stats["bf16_sweep"]["launches"][k]
                          + stats["int8_sweep"]["launches"][k]
                          for k in ops.KERNELS}
@@ -2811,7 +3285,9 @@ def run_loader_phase(params, cfg, questions=WORD_MEANING_QUESTIONS):
                     "max_memory_allocated_bytes": {
                         kind: stats[f"{kind}_sweep"]["max_memory_allocated_bytes"]
                         for kind in ("bf16", "int8")},
-                    "int8_check_seconds": stats["int8_check_seconds"]}))
+                    "int8_check_seconds": {
+                        k.split("/", 1)[1]: v for k, v in stats.items()
+                        if k.startswith("int8_check_seconds/")}}))
     stats["rows_per_s"] = rows_per_s
     return stats
 
@@ -3259,10 +3735,12 @@ def run_analysis_phase() -> dict:
 
 def analyze_loader_artifacts(root: Path, d1: Path, d2: Path) -> dict:
     """The loader phase's own D1/D2 through ``analyze``: the base-vs-
-    instruct deltas of the llama family (base and chat, 50 questions);
-    the D2, which holds the model with no checkpoint as NaN rows, stops
-    the model graph with KeyError on that model, as the JAX package does
-    (ROADMAP caveat R5); without those rows it runs to its end."""
+    instruct deltas of the llama family (base and chat, 50 questions;
+    the T5 pair's families, ``t5`` and ``flan``, hold one model each and
+    are skipped); the D2, which holds the model with no checkpoint as NaN
+    rows, stops the model graph with KeyError on that model, as the JAX
+    package does (ROADMAP caveat R5); without those rows it runs to its
+    end, over the llama chat model and flan-t5-base."""
     t0 = time.perf_counter()
     port_cli.main(["analyze", "--base-csv", str(d1), "--no-figures",
                    "--out", str(root / "analysis"), "--device", DEV])
@@ -3289,7 +3767,9 @@ def analyze_loader_artifacts(root: Path, d1: Path, d2: Path) -> dict:
                    "--device", DEV])
     kappa = table_mod.read_table(root / "analysis_ok" / "model_graph"
                                  / "model_pairwise_kappa_matrix.csv")
-    if list(kappa.columns) != ["", LOADER_CHAT]:
+    columns = list(kappa.columns)
+    if columns[:1] != [""] or sorted(columns[1:]) != sorted([LOADER_CHAT,
+                                                             LOADER_FLAN]):
         raise AssertionError(f"loader analyze: {kappa.columns}")
     return {"seconds": time.perf_counter() - t0,
             "llama_pairs": int(stats["Num_Samples"][0]),
@@ -3488,8 +3968,8 @@ def run_survey_phase() -> dict:
 def survey_loader_artifacts(root: Path, d1: Path, d2: Path,
                             questions) -> dict:
     """The survey phase's part (b): the loader phase's swept D1/D2 (the
-    llama base and chat models, and the model with no checkpoint as NaN
-    rows) through ``run_survey_pipeline`` on the card, with the seeded
+    llama base and chat models, the T5 pair, and the model with no
+    checkpoint as NaN rows) through ``run_survey_pipeline`` on the card, with the seeded
     survey at 507 respondents, at the default budgets. The NaN rows are
     taken as the JAX package takes them (tests/test_torch_survey.py): no
     error; in the D1 their mass is NaN, so the agreement metrics see a
@@ -3514,7 +3994,9 @@ def survey_loader_artifacts(root: Path, d1: Path, d2: Path,
             for r in res["agreement_bootstrap"]["model_results"]}
     if n >= 10:
         want = sorted([(LOADER_ABSENT, "base"), (LOADER_BASE, "base"),
-                       (LOADER_CHAT, "base"), (LOADER_CHAT, "instruct")])
+                       (LOADER_CHAT, "base"), (LOADER_CHAT, "instruct"),
+                       (LOADER_T5, "base"), (LOADER_FLAN, "base"),
+                       (LOADER_FLAN, "instruct")])
         if points != want or sorted(boot) != want or not math.isnan(
                 boot[(LOADER_ABSENT, "base")]["pearson_r_mean"]):
             raise AssertionError(f"loader survey: models {points}")
@@ -3768,6 +4250,8 @@ def main() -> int:
     elapsed("small_slice")
     small_sweep_check(*small)
     elapsed("small_sweep")
+    t5_small = t5_small_check()
+    elapsed("t5_small")
     run_stream_stats_phase()
     elapsed("stream_stats")
     run_analysis_phase()
@@ -3784,6 +4268,8 @@ def main() -> int:
     bf16_peak = torch.cuda.max_memory_allocated()
     log(json.dumps({"phase": "slice", "launches": launches,
                     "max_memory_allocated_bytes": bf16_peak}))
+    for name, n in t5_small["decoder_capture"]["launches"].items():
+        launches[name] += n
     profile_scoring(engine, rt)
     elapsed("bf16_slice")
     # The sweep phase: the three grids through run_perturbation_sweep.
@@ -3809,6 +4295,8 @@ def main() -> int:
     stats8, bytes8, peak8, sweeps["int8"] = run_int8_slice(
         cfg, tokenizer, cells_trunk, cells_flat, rt, grids)
     elapsed("int8_slice_and_sweep")
+    run_t5_phase()
+    elapsed("t5")
     prefix["int8_trunk"] = sweeps["int8"].pop("prefix_cache_trunk")
     prefix_launches = [st["launches"] for name in grids
                        for st in (prefix[name]["cold"], prefix[name]["warm"])]

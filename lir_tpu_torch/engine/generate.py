@@ -9,6 +9,10 @@ what the sweeps read (no (B, T_new, V) logit stack). The JAX package's
 ``lax.scan`` is this loop; its all-rows-done ``lax.cond`` is a host check
 once per step when an early stop is armed.
 
+The capture paths keep every step's logits instead (the JAX engine's
+``decode_prompts``): :func:`greedy_decode` on a decoder and
+:func:`t5_greedy_decode` on a T5 encoder-decoder.
+
 The speculative variant (:func:`greedy_decode_fused_shared_spec`)
 replaces each branch's sequential loop by a loop over verify WINDOWS of
 ``spec_k`` teacher-forced positions (:func:`_spec_tail`); its
@@ -28,8 +32,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..models import decoder
-from ..models.registry import ModelConfig
+from ..models import decoder, encdec
+from ..models.registry import ModelConfig, T5Config
 from . import tokens as _tok
 
 
@@ -852,3 +856,58 @@ def greedy_decode_fused_shared_paged_spec(
         draft_a, draft_a_len, ctx_b, ctx_b_len, draft_b, draft_b_len, T0,
         max_new_a, max_new_b, spec_k, ngram, topk, stop_mask_a, stop_mask_b,
         eos_id, decode_trunk=decode_trunk)
+
+
+@torch.inference_mode()
+def greedy_decode(params, cfg: ModelConfig, tokens: torch.Tensor,
+                  attn_mask: torch.Tensor, max_new_tokens: int = 50):
+    """The decoder capture path: one prefill, then ``max_new_tokens``
+    greedy steps (each a ``decoder.decode_step``, on the flash-decode
+    kernel), keeping every step's logits.
+
+    tokens/attn_mask: (B, S) LEFT-padded int32. Returns (generated
+    (B, max_new_tokens) int32, step_logits (B, max_new_tokens, V)
+    float32)."""
+    B, S = tokens.shape
+    logits, cache, pos0 = decoder.prefill(params, cfg, tokens, attn_mask,
+                                          S + max_new_tokens)
+    cache_mask = F.pad(attn_mask, (0, max_new_tokens))
+    gens, steps = [], []
+    for t in range(max_new_tokens):
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        gens.append(nxt)
+        steps.append(logits)
+        cache_mask[:, S + t] = 1
+        logits, cache = decoder.decode_step(params, cfg, cache, nxt, pos0 + t,
+                                            S + t, cache_mask)
+    return torch.stack(gens, dim=1), torch.stack(steps, dim=1)
+
+
+@torch.inference_mode()
+def t5_greedy_decode(params, cfg: T5Config, enc_tokens: torch.Tensor,
+                     enc_mask: torch.Tensor, max_new_tokens: int = 50):
+    """Encoder-decoder greedy decode (the reference's Seq2Seq branch,
+    compare_base_vs_instruct.py:203-241), as the JAX package runs it: one
+    encoder pass, then every step re-runs the decoder over the fixed
+    (B, max_new_tokens + 1) buffer and takes the logits at position t. No
+    KV cache, as in the JAX package.
+
+    Returns (generated (B, max_new_tokens) int32, step_logits
+    (B, max_new_tokens, V) float32)."""
+    B = enc_tokens.shape[0]
+    dev = enc_tokens.device
+    enc_out = encdec.encode(params, cfg, enc_tokens, enc_mask)
+    dec_buf = torch.full((B, max_new_tokens + 1), cfg.decoder_start_token_id,
+                         dtype=torch.int32, device=dev)
+    mask = torch.zeros((B, max_new_tokens + 1), dtype=torch.int32, device=dev)
+    mask[:, 0] = 1
+    step_logits = torch.empty((B, max_new_tokens, cfg.vocab_size),
+                              dtype=torch.float32, device=dev)
+    for t in range(max_new_tokens):
+        logits = encdec.decode(params, cfg, enc_out, enc_mask, dec_buf, mask)
+        step_logits[:, t] = logits[:, t]
+        del logits          # the (B, max_new_tokens + 1, V) stack of step t
+        dec_buf[:, t + 1] = torch.argmax(step_logits[:, t], dim=-1).to(
+            torch.int32)
+        mask[:, t + 1] = 1
+    return dec_buf[:, 1:].clone(), step_logits

@@ -145,12 +145,17 @@ def _score_model(spec: ModelSpec, engine: ScoringEngine,
     # (perturb_prompts.py:1021-1066) feed throughput here.
     tokens_in = sum(len(engine.tokenizer(fmt(q)).input_ids)
                     for q in questions)
-    flops = len(rows) * scoring_step_flops(
-        engine.cfg, 1, max(tokens_in // max(len(rows), 1), 1),
-        engine.rt.max_new_tokens)
-    meter.int8_dots = meter.int8_dots or any(
-        isinstance(w, QuantTensor) and w.dynamic
-        for w in engine.params["layers"].values())
+    # The FLOP count and the int8 probe are the decoder's: an
+    # encoder-decoder model adds no FLOPs (it only dilutes the implied
+    # MFU downward), as in the JAX package.
+    flops = 0.0
+    if not engine.encoder_decoder:
+        flops = len(rows) * scoring_step_flops(
+            engine.cfg, 1, max(tokens_in // max(len(rows), 1), 1),
+            engine.rt.max_new_tokens)
+        meter.int8_dots = meter.int8_dots or any(
+            isinstance(w, QuantTensor) and w.dynamic
+            for w in engine.params["layers"].values())
     meter.add(len(rows), tokens_in=tokens_in,
               tokens_out=len(rows) * engine.rt.max_new_tokens, flops=flops)
     n_found = sum(r.yes_no_found for r in rows)

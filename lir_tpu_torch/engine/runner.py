@@ -112,15 +112,22 @@ class PromptScore:
 class ScoringEngine:
     """Holds (params, cfg, tokenizer) on one device and runs the scoring
     path. ``device`` defaults to CUDA and raises without a card; the CPU
-    must be asked for."""
+    must be asked for.
+
+    ``encoder_decoder=True`` takes a T5 tree and ``T5Config``
+    (models/encdec.py) and scores through the capture path
+    (:meth:`decode_prompts`, ``generate.t5_greedy_decode``); the shared,
+    grouped and fused dispatches, the prefix cache, the cascade and
+    speculative decode are decoder-only, as in the JAX engine."""
 
     def __init__(self, params: Any, cfg: Any, tokenizer: Any,
                  runtime: Optional[RuntimeConfig] = None,
                  cascade_config: Optional[CascadeConfig] = None,
                  spec_config: Optional[SpecConfig] = None,
-                 device="cuda"):
+                 device="cuda", encoder_decoder: bool = False):
         self.device = resolve_device(device)
-        first = params["tok_embed"]
+        self.encoder_decoder = bool(encoder_decoder)
+        first = params["shared_embed" if encoder_decoder else "tok_embed"]
         if first.device.type != self.device.type:
             raise ValueError(f"params live on {first.device}, the engine on "
                              f"{self.device}")
@@ -130,8 +137,8 @@ class ScoringEngine:
         self.cascade_cfg = cascade_config or CascadeConfig()
         self.spec_cfg = spec_config or SpecConfig()
         # Kernel choices are runtime flags mirrored into the model config,
-        # as in the JAX engine.
-        self.cfg = dataclasses.replace(
+        # as in the JAX engine (a T5 config has none).
+        self.cfg = cfg if encoder_decoder else dataclasses.replace(
             cfg, fused_decode=self.rt.fused_decode,
             cascade_decode=self.rt.cascade_decode,
             cascade_fused_suffix=self.rt.cascade_fused_suffix)
@@ -166,7 +173,8 @@ class ScoringEngine:
         # (engine/stream_stats.StreamSink; None with the sink off).
         self.guard_stats = GuardStats()
         self.stream_sink = None
-        self.yes_id, self.no_id = tok.yes_no_ids(tokenizer)
+        self.yes_id, self.no_id = tok.yes_no_ids(
+            tokenizer, encoder_decoder=self.encoder_decoder)
         self.eos_id = getattr(tokenizer, "eos_token_id", None)
         if self.rt.ragged_scheduler:
             self.buckets = list(tok.bucket_ladder(self.rt.max_seq_len))
@@ -195,10 +203,10 @@ class ScoringEngine:
     def cascade_supported(self) -> bool:
         """Engine-level gate of the cascade prefill. The kernels always
         run on the engine's device (the CUDA kernels on a card, their
-        plain versions on the CPU), so the gate is the flag alone; the
-        JAX engine also asks for a TPU there. Per-dispatch eligibility is
-        :meth:`cascade_trunk_for`'s."""
-        return self.rt.cascade_prefill
+        plain versions on the CPU), so the gate is the flag on a decoder
+        engine; the JAX engine also asks for a TPU there. Per-dispatch
+        eligibility is :meth:`cascade_trunk_for`'s."""
+        return self.rt.cascade_prefill and not self.encoder_decoder
 
     def cascade_trunk_for(self, prefix_ids: Sequence[Sequence[int]],
                           n_real: Optional[int] = None,
@@ -226,8 +234,9 @@ class ScoringEngine:
 
     def cascade_decode_supported(self) -> bool:
         """Gate of the trunk-aware decode kernel: on by config, with the
-        flash-decode route on."""
-        return self.rt.cascade_decode and self.cfg.fused_decode
+        flash-decode route on, on a decoder engine."""
+        return (self.rt.cascade_decode and not self.encoder_decoder
+                and self.cfg.fused_decode)
 
     def decode_trunk_for(self, prefix_ids: Sequence[Sequence[int]],
                          n_real: Optional[int] = None,
@@ -240,8 +249,9 @@ class ScoringEngine:
 
     def spec_supported(self) -> bool:
         """Engine-level gate of speculative decode: on by config with a
-        verify window of at least 2."""
-        return self.rt.spec_decode and self.rt.spec_k >= 2
+        verify window of at least 2, on a decoder engine."""
+        return (self.rt.spec_decode and self.rt.spec_k >= 2
+                and not self.encoder_decoder)
 
     def spec_flush(self) -> None:
         """Fold the pending device-side SpecOut counters into spec_stats
@@ -266,8 +276,10 @@ class ScoringEngine:
         allocated at once at its full configured size
         (rt.prefix_cache_pages x rt.prefix_page_size token positions,
         paged.kv_page_bytes each), on the engine's device, in the cache's
-        dtype; sizing prefix_cache_pages < 2 leaves the cache off."""
-        if self.prefix_cache is not None or self.rt.prefix_cache_pages < 2:
+        dtype; sizing prefix_cache_pages < 2 leaves the cache off. A T5
+        engine keeps no KV cache: it does nothing there."""
+        if (self.prefix_cache is not None or self.encoder_decoder
+                or self.rt.prefix_cache_pages < 2):
             return
         pool = paged.KVPagePool(self.rt.prefix_cache_pages,
                                 self.rt.prefix_page_size)
@@ -429,7 +441,30 @@ class ScoringEngine:
     def _t(self, a, dtype=torch.int32) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
 
+    def _decoder_only(self, what: str) -> None:
+        """The JAX engine's ``assert not self.encoder_decoder`` of the
+        fused, shared and grouped dispatches."""
+        if self.encoder_decoder:
+            raise ValueError(
+                f"{what} runs decoder-only engines; an encoder-decoder "
+                "engine scores through score_prompts (decode_prompts)")
+
     # -- decode paths -------------------------------------------------------
+
+    def decode_prompts(self, prompts: Sequence[str]
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The capture path: tokenize, left-pad into the smallest fitting
+        bucket, one greedy decode keeping every step's logits
+        (``generate.t5_greedy_decode`` on a T5 engine, else
+        ``generate.greedy_decode``). Returns (generated (B, T_new) int32,
+        step_logits (B, T_new, V) float32) on the device."""
+        toks, mask = self._pad_batch(prompts)
+        if self.encoder_decoder:
+            return generate.t5_greedy_decode(
+                self.params, self.cfg, toks, mask,
+                max_new_tokens=self.rt.max_new_tokens)
+        return generate.greedy_decode(self.params, self.cfg, toks, mask,
+                                      max_new_tokens=self.rt.max_new_tokens)
 
     def decode_fused(self, prompts: Sequence[str], yes_ids: np.ndarray,
                      no_ids: np.ndarray, with_digits: bool = False,
@@ -438,6 +473,7 @@ class ScoringEngine:
                      early_stop: bool = False, eos_stop: bool = False):
         """The plain scoring path: left-padded prompts, one prefill, the
         fused greedy loop. Returns a FusedDecodeOut on the device."""
+        self._decoder_only("decode_fused")
         assert not (early_stop and eos_stop), "pick one stop rule"
         toks, mask = self._pad_batch(prompts, pretokenized)
         if with_digits:
@@ -484,6 +520,7 @@ class ScoringEngine:
         (True), resumes the rows' cached prefix pages and inserts their
         new ones; False keeps it out of this dispatch. Returns (binary
         FusedDecodeOut, confidence FusedDecodeOut)."""
+        self._decoder_only("decode_fused_shared")
         if pretokenized_a is not None:
             bin_ids = [list(i) for i in pretokenized_a]
             conf_ids = [list(i) for i in pretokenized_b]
@@ -698,6 +735,7 @@ class ScoringEngine:
         prefix cache (``use_prefix_cache`` as in
         :meth:`decode_fused_shared`) resumes the group prefixes from the
         page pool and inserts their new pages."""
+        self._decoder_only("decode_fused_grouped")
         pad_id = tok.pad_token_id(self.tokenizer)
         prefix_ids, sfx_ids, group_idx = [], [], []
         for g in groups:
@@ -817,12 +855,18 @@ class ScoringEngine:
         # Tail batch: pad to the next power of two, not the full B.
         bsz = B if n == B else _tail_batch(n, B)
         padded = batch_prompts + [batch_prompts[-1]] * (bsz - n)
-        yes_ids = np.full((bsz,), self.yes_id, np.int32)
-        no_ids = np.full((bsz,), self.no_id, np.int32)
-        fused = self.decode_fused(padded, yes_ids, no_ids)
-        res = score.readout_from_fused(
-            fused, self._t(yes_ids), self._t(no_ids),
-            scan_positions=self.rt.scan_positions).cpu()
+        if self.encoder_decoder:
+            gen, step_logits = self.decode_prompts(padded)
+            res = score.readout_from_step_logits(
+                step_logits, gen, self.yes_id, self.no_id,
+                scan_positions=self.rt.scan_positions).cpu()
+        else:
+            yes_ids = np.full((bsz,), self.yes_id, np.int32)
+            no_ids = np.full((bsz,), self.no_id, np.int32)
+            fused = self.decode_fused(padded, yes_ids, no_ids)
+            res = score.readout_from_fused(
+                fused, self._t(yes_ids), self._t(no_ids),
+                scan_positions=self.rt.scan_positions).cpu()
         out = []
         for j in range(n):
             out.append(PromptScore(

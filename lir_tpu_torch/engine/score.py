@@ -38,13 +38,10 @@ class YesNoScores:
                               for f in dataclasses.fields(self)})
 
 
-def readout_from_fused(fused, yes_ids: torch.Tensor, no_ids: torch.Tensor,
-                       scan_positions: int = MAX_LOOK_AHEAD) -> YesNoScores:
-    """The C13 scan-position rule applied to a FusedDecodeOut (per-step
-    p_yes/p_no/top-2 captured in the decode loop).
-
-    yes_ids/no_ids: (B,) per-row target ids — the ids the decode ran with."""
-    top2 = fused.top2_ids[:, :scan_positions, :]              # (B, P, 2)
+def _first_match(top2: torch.Tensor, yes_ids: torch.Tensor,
+                 no_ids: torch.Tensor):
+    """The scan-position rule on (B, P, 2) top-2 ids: (position, found),
+    the first position whose top-2 holds the yes or the no id, else 0."""
     is_target = ((top2 == yes_ids[:, None, None])
                  | (top2 == no_ids[:, None, None]))
     found_at = is_target.any(dim=-1)                          # (B, P)
@@ -53,10 +50,11 @@ def readout_from_fused(fused, yes_ids: torch.Tensor, no_ids: torch.Tensor,
     first_pos = torch.argmax(found_at.to(torch.int32), dim=-1)
     position = torch.where(any_found, first_pos,
                            torch.zeros_like(first_pos)).to(torch.int32)
+    return position, any_found
 
-    idx = position.long()[:, None]
-    yes_prob = torch.gather(fused.p_yes, 1, idx)[:, 0]
-    no_prob = torch.gather(fused.p_no, 1, idx)[:, 0]
+
+def _scores(yes_prob, no_prob, position, any_found, generated) -> YesNoScores:
+    """Both readouts from P(yes), P(no) at the chosen positions."""
     eps = 1e-10
     denom = yes_prob + no_prob
     return YesNoScores(
@@ -69,5 +67,42 @@ def readout_from_fused(fused, yes_ids: torch.Tensor, no_ids: torch.Tensor,
                                   torch.full_like(denom, float("nan"))),
         position_found=position,
         yes_no_found=any_found,
-        generated=fused.generated,
+        generated=generated,
     )
+
+
+def readout_from_step_logits(step_logits: torch.Tensor,
+                             generated: torch.Tensor, yes_id, no_id,
+                             scan_positions: int = MAX_LOOK_AHEAD
+                             ) -> YesNoScores:
+    """The scan-position rule on captured per-step logits (the capture
+    path, ``ScoringEngine.decode_prompts``).
+
+    step_logits: (B, T_new, V) float32; generated: (B, T_new) int32;
+    yes_id/no_id: the target ids, scalars or (B,) per row."""
+    B, T, V = step_logits.shape
+    dev = step_logits.device
+    yes_ids = torch.as_tensor(yes_id, dtype=torch.int32, device=dev).expand(B)
+    no_ids = torch.as_tensor(no_id, dtype=torch.int32, device=dev).expand(B)
+    window = step_logits[:, :scan_positions, :]               # (B, P, V)
+    probs = torch.softmax(window, dim=-1)
+    top2 = torch.topk(window, TOPK_MATCH, dim=-1).indices.to(torch.int32)
+    position, any_found = _first_match(top2, yes_ids, no_ids)
+    sel = probs[torch.arange(B, device=dev), position.long()]  # (B, V)
+    yes_prob = torch.gather(sel, 1, yes_ids.long()[:, None])[:, 0]
+    no_prob = torch.gather(sel, 1, no_ids.long()[:, None])[:, 0]
+    return _scores(yes_prob, no_prob, position, any_found, generated)
+
+
+def readout_from_fused(fused, yes_ids: torch.Tensor, no_ids: torch.Tensor,
+                       scan_positions: int = MAX_LOOK_AHEAD) -> YesNoScores:
+    """The C13 scan-position rule applied to a FusedDecodeOut (per-step
+    p_yes/p_no/top-2 captured in the decode loop).
+
+    yes_ids/no_ids: (B,) per-row target ids — the ids the decode ran with."""
+    position, any_found = _first_match(fused.top2_ids[:, :scan_positions, :],
+                                       yes_ids, no_ids)
+    idx = position.long()[:, None]
+    yes_prob = torch.gather(fused.p_yes, 1, idx)[:, 0]
+    no_prob = torch.gather(fused.p_no, 1, idx)[:, 0]
+    return _scores(yes_prob, no_prob, position, any_found, fused.generated)

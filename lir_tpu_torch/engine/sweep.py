@@ -136,7 +136,12 @@ def run_perturbation_sweep(
     Probabilities' stores the top-20 (token_id -> logprob) map; the
     confidence value is the first integer of the decoded confidence
     response, and Weighted Confidence is E[v] over the integer tokens in
-    [0, 100] at the first confidence position."""
+    [0, 100] at the first confidence position.
+
+    An encoder-decoder engine takes no streaming sink and no ragged plan,
+    and its first dispatch raises (the shared dispatch is decoder-only),
+    before any row is written: the JAX sweep fails there too (ROADMAP
+    caveat R7)."""
     results_path = schemas.resolve_results_path(results_path)
     # Crash-consistent resume: the done-set is the UNION of the manifest
     # and the rows already in the results artifact. The flush order is
@@ -164,7 +169,7 @@ def run_perturbation_sweep(
     sink = None
     accum_path = None
     write_rows = True
-    if engine.rt.streaming_stats and cells:
+    if engine.rt.streaming_stats and not engine.encoder_decoder and cells:
         n_reph = 1 + max(c.rephrase_idx for c in cells)
         stream_seed = manifest.meta.get("stream_seed")
         if stream_seed is None:
@@ -183,8 +188,10 @@ def run_perturbation_sweep(
     engine.stream_sink = sink
 
     # Pre-resolve per-prompt target token ids once (SURVEY §7 hard part 1).
-    target_ids = {pi: tok.target_token_ids(engine.tokenizer, p.target_tokens)
-                  for pi, p in enumerate(prompts)}
+    target_ids = {pi: tok.target_token_ids(
+        engine.tokenizer, p.target_tokens,
+        encoder_decoder=engine.encoder_decoder)
+        for pi, p in enumerate(prompts)}
 
     rows: List[schemas.PerturbationRow] = []
     pending_rows: List[schemas.PerturbationRow] = []
@@ -304,7 +311,8 @@ def _run_pipelined(engine, model_name, todo, target_ids, results_path,
     writer_err: List[BaseException] = []
     early_stop = (engine.rt.sweep_early_stop
                   and not engine.rt.sweep_full_completions)
-    ragged = bool(engine.rt.ragged_scheduler and todo)
+    ragged = bool(engine.rt.ragged_scheduler and todo
+                  and not engine.encoder_decoder)
     occupancy = None
     stop_armed = False
     if ragged:

@@ -1,10 +1,11 @@
 """Parameters of the JAX package, as numpy arrays, into the port.
 
 ``params_from_jax`` takes the tree ``lir_tpu.models.decoder.init_params``
-(or its checkpoint loader) produces — given as nested dicts of numpy
-arrays, never as JAX arrays, so this module needs no JAX — and returns
-the port's parameter dict with the same layout on ``device``; int8
-trees (``quantize_decoder_params``) convert too. The two packages then
+or ``encdec.init_params`` (or a checkpoint loader) produces — given as
+nested dicts of numpy arrays, never as JAX arrays, so this module needs
+no JAX — and returns the port's parameter dict with the same layout on
+``device``; int8 trees (``quantize_decoder_params``,
+``quantize_encdec_params``) convert too. The two packages then
 compute the same function, which is how the tests hold the port against
 the reference.
 """
@@ -18,10 +19,22 @@ import torch
 
 from ..device import resolve_device
 from .quant import QuantTensor
-from .registry import ModelConfig
+from .registry import T5Config
 
 
-def _expected_keys(cfg: ModelConfig):
+def _expected_keys(cfg):
+    """(top-level keys, {stacked subtree: its keys}) of ``cfg``'s tree:
+    a decoder's one ``layers`` stack, or T5's ``encoder`` and
+    ``decoder`` stacks."""
+    if isinstance(cfg, T5Config):
+        enc = {"ln_attn", "wq", "wk", "wv", "wo", "ln_mlp", "wo_mlp"}
+        enc |= {"wi_0", "wi_1"} if cfg.gated_mlp else {"wi"}
+        top = {"shared_embed", "enc_rel_embed", "dec_rel_embed", "encoder",
+               "enc_final_ln", "decoder", "dec_final_ln"}
+        if not cfg.tie_embeddings:
+            top.add("lm_head")
+        return top, {"encoder": enc,
+                     "decoder": enc | {"ln_cross", "cq", "ck", "cv", "co"}}
     layers = {"ln1", "wq", "wk", "wv", "wo", "w_up", "w_down"}
     if not cfg.shared_block_ln:
         layers.add("ln2")
@@ -42,7 +55,24 @@ def _expected_keys(cfg: ModelConfig):
         top.add("final_ln")
     if not cfg.tie_embeddings:
         top.add("lm_head")
-    return top, layers
+    return top, {"layers": layers}
+
+
+def check_tree(tree: Mapping[str, Any], cfg, what: str = "param tree") -> None:
+    """Raise unless ``tree`` has the keys ``cfg`` needs and every stack
+    ``cfg.n_layers`` layers."""
+    top, stacks = _expected_keys(cfg)
+    if set(tree) != top:
+        raise ValueError(f"{what} does not match {cfg.name}: top "
+                         f"{sorted(tree)} vs {sorted(top)}")
+    for side, keys in stacks.items():
+        if set(tree[side]) != keys:
+            raise ValueError(f"{what} does not match {cfg.name}: {side} "
+                             f"{sorted(tree[side])} vs {sorted(keys)}")
+        L = tree[side]["wq"].shape[0]
+        if L != cfg.n_layers:
+            raise ValueError(f"{what} has {L} {side}, {cfg.name} has "
+                             f"{cfg.n_layers}")
 
 
 def _to_tensor(arr, device, dtype) -> torch.Tensor:
@@ -62,7 +92,7 @@ def _is_quant(node) -> bool:
     return all(hasattr(node, a) for a in ("q", "scale", "dynamic"))
 
 
-def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig, device="cuda",
+def params_from_jax(tree: Mapping[str, Any], cfg, device="cuda",
                     dtype: Optional[torch.dtype] = None):
     """Convert a JAX-layout param tree of numpy arrays to the port's params.
 
@@ -74,11 +104,7 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig, device="cuda",
     the tree's keys do not match what ``cfg`` needs.
     """
     dev = resolve_device(device)
-    top, layers = _expected_keys(cfg)
-    if set(tree) != top or set(tree["layers"]) != layers:
-        raise ValueError(
-            f"param tree does not match {cfg.name}: top {sorted(tree)} vs "
-            f"{sorted(top)}, layers {sorted(tree['layers'])} vs {sorted(layers)}")
+    check_tree(tree, cfg)
 
     def conv(node):
         if isinstance(node, Mapping):
@@ -90,8 +116,4 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig, device="cuda",
                                dynamic=bool(node.dynamic))
         return _to_tensor(node, dev, dtype)
 
-    out = conv(tree)
-    L = out["layers"]["wq"].shape[0]
-    if L != cfg.n_layers:
-        raise ValueError(f"tree has {L} layers, {cfg.name} has {cfg.n_layers}")
-    return out
+    return conv(tree)

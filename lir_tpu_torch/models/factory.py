@@ -2,9 +2,10 @@
 
 Port of ``lir_tpu/models/factory.py``. The flow is
 
-  local checkpoint dir -> config.json (models/loader.config_from_hf) ->
-  state dict (safetensors read here, torch .bin fallback) ->
-  loader.convert_decoder onto the device -> optional int8 -> ScoringEngine
+  local checkpoint dir -> config.json (models/loader.config_from_hf, or
+  t5_config_from_hf for an encoder-decoder) -> state dict (safetensors
+  read here, torch .bin fallback) -> loader.convert_decoder (convert_t5)
+  onto the device -> optional int8 -> ScoringEngine
 
 with neither ``transformers`` nor ``safetensors``: the safetensors format
 is parsed here (an 8-byte little-endian header length, a JSON header of
@@ -46,8 +47,12 @@ _ST_DTYPES = {
 
 
 def is_encoder_decoder(name_or_path: str, hf_cfg=None) -> bool:
+    """The JAX rule: the config says so (a parsed ``config.json`` read
+    with its class defaults: a T5 is one), or the name matches."""
     if isinstance(hf_cfg, Mapping):
-        if hf_cfg.get("is_encoder_decoder", False):
+        default = loader._HF_DEFAULTS.get(hf_cfg.get("model_type"), {})
+        if hf_cfg.get("is_encoder_decoder",
+                      default.get("is_encoder_decoder", False)):
             return True
     elif hf_cfg is not None and getattr(hf_cfg, "is_encoder_decoder", False):
         return True
@@ -169,35 +174,44 @@ def load_engine(
     """Build a ready ScoringEngine from a local HF checkpoint directory
     on ``device`` (the card unless the CPU is asked for).
 
-    ``dtype`` defaults to bfloat16 on the card and float32 on the CPU.
-    ``quantize_int8`` quantizes the loaded tree on the device
-    (``quant.quantize_decoder_params``, ``dynamic=int8_dynamic``).
+    A decoder goes through ``loader.config_from_hf`` and
+    ``convert_decoder``, an encoder-decoder (T5, flan-t5, T0,
+    tk-instruct) through ``t5_config_from_hf`` and ``convert_t5`` into an
+    ``encoder_decoder=True`` engine. ``dtype`` defaults to bfloat16 on
+    the card and float32 on the CPU. ``quantize_int8`` quantizes the
+    loaded tree on the device (``quant.quantize_decoder_params`` or
+    ``quantize_encdec_params``, ``dynamic=int8_dynamic``).
     ``tokenizer=None`` loads the directory's tokenizer with
     ``transformers.AutoTokenizer``."""
     dev = resolve_device(device)
     model_dir = Path(model_dir)
     hf_cfg = json.loads((model_dir / "config.json").read_text())
-    if is_encoder_decoder(model_dir.name, hf_cfg):
-        raise NotImplementedError(
-            f"{model_dir.name} is an encoder-decoder checkpoint; the port's "
-            "T5 branch (ROADMAP 'Also open': models/encdec.py, "
-            "t5_greedy_decode) is not there yet")
+    encdec = is_encoder_decoder(model_dir.name, hf_cfg)
     if tokenizer is None:
         tokenizer = _auto_tokenizer(model_dir)
     if dtype is None:
         dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
-    cfg, family = loader.config_from_hf(hf_cfg, name=str(model_dir))
-    params = loader.convert_decoder(load_state_dict(model_dir), cfg, family,
-                                    dtype=dtype, device=dev)
+    if encdec:
+        cfg = loader.t5_config_from_hf(hf_cfg, name=str(model_dir))
+        params = loader.convert_t5(load_state_dict(model_dir), cfg,
+                                   dtype=dtype, device=dev)
+    else:
+        cfg, family = loader.config_from_hf(hf_cfg, name=str(model_dir))
+        params = loader.convert_decoder(load_state_dict(model_dir), cfg,
+                                        family, dtype=dtype, device=dev)
     if quantize_int8:
         before = quant.param_bytes(params)
-        params = quant.quantize_decoder_params(params, dynamic=int8_dynamic)
+        qfn = (quant.quantize_encdec_params if encdec
+               else quant.quantize_decoder_params)
+        params = qfn(params, dynamic=int8_dynamic)
         log.info("int8-quantized %s: %.2f GB -> %.2f GB", model_dir.name,
                  before / 2**30, quant.param_bytes(params) / 2**30)
-    log.info("loaded %s (decoder, %s, %s)", model_dir.name, dtype, dev)
+    log.info("loaded %s (%s, %s, %s)", model_dir.name,
+             "enc-dec" if encdec else "decoder", dtype, dev)
     return ScoringEngine(params, cfg, tokenizer, runtime or RuntimeConfig(),
                          cascade_config=cascade_config,
-                         spec_config=spec_config, device=dev)
+                         spec_config=spec_config, device=dev,
+                         encoder_decoder=encdec)
 
 
 def engine_factory(

@@ -1,6 +1,6 @@
 """HF checkpoint -> the port's parameter tree.
 
-Port of ``lir_tpu/models/loader.py`` (its decoder part). The same
+Port of ``lir_tpu/models/loader.py``. The same
 per-family mappings take an HF state dict straight into the stacked
 layer tree that ``models/decoder.py`` consumes, on the target device:
 
@@ -22,7 +22,8 @@ config object; for a mapping, every key the mapping leaves out takes the
 default of the transformers config class for its model type
 (``_HF_DEFAULTS``), so the result equals the JAX function's on
 ``AutoConfig.from_pretrained`` of the same directory without importing
-transformers. The encoder-decoder converters wait for the T5 branch.
+transformers. ``convert_t5`` and ``t5_config_from_hf`` do the same for
+the T5 family (``models/encdec.py``).
 """
 
 from __future__ import annotations
@@ -33,8 +34,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .convert import _expected_keys
-from .registry import ModelConfig
+from .convert import check_tree
+from .registry import ModelConfig, T5Config
 
 Params = Dict[str, Any]
 
@@ -333,12 +334,68 @@ def convert_decoder(state_dict: Mapping[str, Any], cfg: ModelConfig,
         else:
             raise KeyError("untied lm head not found in state dict")
 
-    top, layer_keys = _expected_keys(cfg)
-    if set(params) != top or set(layers) != layer_keys:
-        raise ValueError(
-            f"{family} checkpoint does not give {cfg.name}'s tree: top "
-            f"{sorted(params)} vs {sorted(top)}, layers {sorted(layers)} vs "
-            f"{sorted(layer_keys)}")
+    check_tree(params, cfg, f"{family} checkpoint's tree")
+    return params
+
+
+def convert_t5(state_dict: Mapping[str, Any], cfg: T5Config,
+               dtype: torch.dtype = torch.float32, device="cuda") -> Params:
+    """Build the T5 tree ``models/encdec.py`` expects on ``device``, each
+    stacked leaf allocated once and filled layer by layer, as
+    :func:`convert_decoder`. The embedding is read from ``shared.weight``
+    (a safetensors T5 may hold no ``encoder``/``decoder.embed_tokens``
+    copies of it); ``cfg.n_layers`` sizes BOTH stacks, as in the JAX
+    converter."""
+    dev = resolve_device(device)
+    sd = _SD(state_dict, dev)
+
+    def layer(side: str, cross: bool, i: int) -> Dict[str, torch.Tensor]:
+        p = f"{side}.block.{i}."
+        row = {
+            "ln_attn": sd(p + "layer.0.layer_norm.weight"),
+            "wq": _lin(sd(p + "layer.0.SelfAttention.q.weight")),
+            "wk": _lin(sd(p + "layer.0.SelfAttention.k.weight")),
+            "wv": _lin(sd(p + "layer.0.SelfAttention.v.weight")),
+            "wo": _lin(sd(p + "layer.0.SelfAttention.o.weight")),
+        }
+        if cross:
+            row.update({
+                "ln_cross": sd(p + "layer.1.layer_norm.weight"),
+                "cq": _lin(sd(p + "layer.1.EncDecAttention.q.weight")),
+                "ck": _lin(sd(p + "layer.1.EncDecAttention.k.weight")),
+                "cv": _lin(sd(p + "layer.1.EncDecAttention.v.weight")),
+                "co": _lin(sd(p + "layer.1.EncDecAttention.o.weight")),
+            })
+        m = f"{p}layer.{2 if cross else 1}."
+        row["ln_mlp"] = sd(m + "layer_norm.weight")
+        for name in (("wi_0", "wi_1") if cfg.gated_mlp else ("wi",)):
+            row[name] = _lin(sd(m + f"DenseReluDense.{name}.weight"))
+        row["wo_mlp"] = _lin(sd(m + "DenseReluDense.wo.weight"))
+        return row
+
+    def stack(side: str, cross: bool) -> Params:
+        out: Params = {}
+        for i in range(cfg.n_layers):
+            for key, t in layer(side, cross, i).items():
+                if key not in out:
+                    out[key] = torch.empty((cfg.n_layers, *t.shape),
+                                           dtype=dtype, device=dev)
+                out[key][i].copy_(t)
+        return out
+
+    rel = "block.0.layer.0.SelfAttention.relative_attention_bias.weight"
+    params: Params = {
+        "shared_embed": _copy(sd("shared.weight"), dtype),
+        "enc_rel_embed": _copy(sd("encoder." + rel), dtype),
+        "dec_rel_embed": _copy(sd("decoder." + rel), dtype),
+        "encoder": stack("encoder", cross=False),
+        "enc_final_ln": _copy(sd("encoder.final_layer_norm.weight"), dtype),
+        "decoder": stack("decoder", cross=True),
+        "dec_final_ln": _copy(sd("decoder.final_layer_norm.weight"), dtype),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = _copy(_lin(sd("lm_head.weight")), dtype)
+    check_tree(params, cfg, "T5 checkpoint's tree")
     return params
 
 
@@ -387,6 +444,11 @@ _HF_DEFAULTS: Dict[str, Dict[str, Any]] = {
     "opt": dict(vocab_size=50272, hidden_size=768, num_hidden_layers=12,
                 num_attention_heads=12, max_position_embeddings=2048,
                 ffn_dim=3072, tie_word_embeddings=True),
+    "t5": dict(vocab_size=32128, d_model=512, d_kv=64, d_ff=2048,
+               num_layers=6, num_heads=8, relative_attention_num_buckets=32,
+               relative_attention_max_distance=128, layer_norm_epsilon=1e-6,
+               feed_forward_proj="relu", is_encoder_decoder=True,
+               tie_word_embeddings=True, decoder_start_token_id=None),
 }
 
 # Keys a config class stores under another name (its attribute_map, and
@@ -397,6 +459,8 @@ _HF_ALIASES: Dict[str, Dict[str, str]] = {
     "bloom": {"num_hidden_layers": "n_layer", "num_attention_heads": "n_head",
               "n_embed": "hidden_size"},
     "falcon": {"n_embed": "hidden_size"},
+    "t5": {"hidden_size": "d_model", "num_attention_heads": "num_heads",
+           "num_hidden_layers": "num_layers", "head_dim": "d_kv"},
 }
 
 # Classes whose __init__ sets num_key_value_heads = num_attention_heads
@@ -503,3 +567,27 @@ def config_from_hf(hf_cfg, name: Optional[str] = None) -> Tuple[ModelConfig, str
                            qkv_bias=True, attn_out_bias=True, mlp_bias=True,
                            tie_embeddings=True), "opt"
     raise ValueError(f"unsupported model_type {mt!r}")
+
+
+def t5_config_from_hf(hf_cfg, name: Optional[str] = None) -> T5Config:
+    """Map an HF T5 config (a parsed ``config.json`` or a config object)
+    to T5Config, as the JAX function does. ``num_layers`` sizes both
+    stacks (``num_decoder_layers`` is not read), as in the JAX package.
+    ``name`` as in :func:`config_from_hf`."""
+    if isinstance(hf_cfg, Mapping):
+        hf_cfg = _HFView(hf_cfg)
+    if name is None:
+        name = getattr(hf_cfg, "name_or_path", "t5") or "t5"
+    return T5Config(
+        name=name, vocab_size=hf_cfg.vocab_size, hidden_size=hf_cfg.d_model,
+        n_layers=hf_cfg.num_layers, n_heads=hf_cfg.num_heads,
+        head_dim=hf_cfg.d_kv, intermediate_size=hf_cfg.d_ff,
+        norm_eps=hf_cfg.layer_norm_epsilon,
+        relative_attention_num_buckets=hf_cfg.relative_attention_num_buckets,
+        relative_attention_max_distance=getattr(
+            hf_cfg, "relative_attention_max_distance", 128),
+        gated_mlp="gated" in hf_cfg.feed_forward_proj,
+        activation="gelu_new" if "gelu" in hf_cfg.feed_forward_proj else "relu",
+        tie_embeddings=bool(hf_cfg.tie_word_embeddings),
+        decoder_start_token_id=hf_cfg.decoder_start_token_id,
+    )

@@ -1,6 +1,6 @@
-"""int8 weights for the decoder's linear layers.
+"""int8 weights for the linear layers of the decoder and of T5.
 
-Port of the decoder part of ``lir_tpu/models/quant.py``. The reference's
+Port of ``lir_tpu/models/quant.py``. The reference's
 8-bit mode is bitsandbytes ``BitsAndBytesConfig(load_in_8bit=True)``
 (compare_base_vs_instruct.py:431-435). Here, as in the JAX package, the
 big matrices are symmetric per-output-channel int8 with float32 scales,
@@ -175,6 +175,22 @@ def matmul(x, w) -> torch.Tensor:
 
 # The per-layer matrices worth quantizing (biases and norms stay dense).
 LAYER_MATRICES = ("wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down")
+# The T5 stacks' matrices (models/encdec.py; norms and the relative-position
+# embeddings stay dense).
+ENCDEC_MATRICES = ("wq", "wk", "wv", "wo", "wi", "wi_0", "wi_1", "wo_mlp",
+                   "cq", "ck", "cv", "co")
+
+
+def _quantize_block(blk: Params, names, dynamic: bool) -> Params:
+    """A shallow copy of a stacked subtree with the named matrices
+    quantized (tagged ``dynamic``): the one rule of the decoder and T5
+    trees."""
+    out = dict(blk)
+    for name in names:
+        if name in out:
+            out[name] = dataclasses.replace(quantize(out[name]),
+                                            dynamic=dynamic)
+    return out
 
 
 def quantize_decoder_params(params: Params, dynamic: bool = False) -> Params:
@@ -184,12 +200,21 @@ def quantize_decoder_params(params: Params, dynamic: bool = False) -> Params:
     weight-only, since its float32 activations feed the logit readout
     directly, and tied embeddings stay dense."""
     out = dict(params)
-    layers = dict(params["layers"])
-    for name in LAYER_MATRICES:
-        if name in layers:
-            layers[name] = dataclasses.replace(quantize(layers[name]),
-                                               dynamic=dynamic)
-    out["layers"] = layers
+    out["layers"] = _quantize_block(params["layers"], LAYER_MATRICES, dynamic)
+    if "lm_head" in params:
+        out["lm_head"] = quantize(params["lm_head"])
+    return out
+
+
+def quantize_encdec_params(params: Params, dynamic: bool = False) -> Params:
+    """Quantize a T5 param tree (models/encdec.py layout) by the decoder's
+    rules: both stacks' matrices, optionally dynamic; the lm_head
+    weight-only; a tied v1.0 embedding stays dense. The reference loads
+    its t5/T0/tk-instruct models through the same 8-bit config as the
+    decoders (compare_base_vs_instruct.py:431-435)."""
+    out = dict(params)
+    for side in ("encoder", "decoder"):
+        out[side] = _quantize_block(params[side], ENCDEC_MATRICES, dynamic)
     if "lm_head" in params:
         out["lm_head"] = quantize(params["lm_head"])
     return out

@@ -20,7 +20,7 @@ import lir_tpu_torch.config, lir_tpu_torch.data, lir_tpu_torch.ops
 import lir_tpu_torch.backends.fake, lir_tpu_torch.models.convert
 import lir_tpu_torch.engine.runner, lir_tpu_torch.engine.sweep
 import lir_tpu_torch.engine.spec, lir_tpu_torch.engine.prefix_tree
-import lir_tpu_torch.models.paged
+import lir_tpu_torch.models.paged, lir_tpu_torch.models.encdec
 import lir_tpu_torch.engine.scheduler, lir_tpu_torch.engine.grid
 import lir_tpu_torch.utils.manifest, lir_tpu_torch.utils.profiling
 import lir_tpu_torch.models.quant, lir_tpu_torch.ops.flash_attention
@@ -86,20 +86,27 @@ def _numpy_tree(node):
 
 
 @pytest.mark.parametrize("entry", ["init_params", "params_from_jax",
-                                   "convert_decoder"])
+                                   "convert_decoder", "encdec.init_params",
+                                   "convert_t5"])
 def test_param_entry_points_default_to_cuda(monkeypatch, entry):
-    from lir_tpu_torch.models import convert, decoder, loader, registry
+    from lir_tpu_torch.models import convert, decoder, encdec, loader, registry
 
     cfg = registry.tiny("llama")
     tree = _numpy_tree(decoder.init_params(cfg, device="cpu"))
+    t5 = registry.T5Config(vocab_size=64, hidden_size=32, n_layers=1,
+                           n_heads=2, head_dim=16, intermediate_size=48)
     _no_cuda(monkeypatch)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         if entry == "init_params":
             decoder.init_params(cfg)
         elif entry == "params_from_jax":
             convert.params_from_jax(tree, cfg)
-        else:
+        elif entry == "convert_decoder":
             loader.convert_decoder({}, cfg, "llama")
+        elif entry == "encdec.init_params":
+            encdec.init_params(t5)
+        else:
+            loader.convert_t5({}, t5)
 
 
 @pytest.mark.parametrize("entry", ["load_engine", "engine_factory"])

@@ -351,11 +351,15 @@ def test_reader_decodes_the_safetensors_dtypes(tmp_path):
 
 
 def test_encoder_decoder_checkpoint_is_refused(tmp_path):
+    """An encoder-decoder directory takes the T5 route (its loading is
+    held in tests/test_torch_t5.py): one without weights is refused for
+    them, not through the decoder's mapping."""
     (tmp_path / "config.json").write_text(json.dumps(
         {"model_type": "t5", "is_encoder_decoder": True, "d_model": 64}))
-    with pytest.raises(NotImplementedError, match="T5 branch"):
+    with pytest.raises(FileNotFoundError, match="safetensors"):
         factory.load_engine(tmp_path, tokenizer=object(), device="cpu")
     assert factory.is_encoder_decoder("google/flan-t5-base")
+    assert factory.is_encoder_decoder("ckpt", {"model_type": "t5"})
     assert not factory.is_encoder_decoder("meta-llama/Llama-2-7b-hf",
                                           {"model_type": "llama"})
 
