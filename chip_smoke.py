@@ -46,7 +46,11 @@ Phases (each raises on failure, so the script exits non-zero):
    32 rows a dispatch, K = 20 log-probs, with pad rows, NaN / negative /
    over-1 and zero-mass readouts, guard on and off, contiguous and
    strided readouts and a refold (idempotent), timed beside the empty
-   kernel.
+   kernel. The sampler (``gumbel_argmax``) at V = 32,000, B = 8 and 32,
+   one key and a key a row, four temperatures: ids equal to its plain
+   twin's (a differing row prints the twin's top-2 gap), again after the
+   timing loop, timed beside the empty kernel; its bound counts INT32
+   operations at the card's INT32 rate.
    Times by CUDA events after warm-up, the L2 cache flushed before every
    launch and the stream held by a spin kernel while the host enqueues it
    (device time, without the host's launch time); the library yardstick
@@ -139,6 +143,23 @@ Phases (each raises on failure, so the script exits non-zero):
    and fails if a kernel of its path never launched: ``row_add_norm`` in
    every decode phase of both engines, and in the 8-bit phases the
    prefill flash kernel's wgmma route.
+   The sampling phase, after the bf16 phase 3 (``run_sampling_phase``):
+   (a) ``generate.sample_decode`` on the small float32 model, card
+   against CPU, per-row keys and one key, EOS stop armed: ids equal save
+   flips at near ties (the twin's scores of the two ids within 1e-3,
+   each printed); the EOS probe (identical prompts, temperature 1e-4,
+   eos the unstopped run's step-3 id): the stopped ids, EOS fill after
+   it, and the forwards ending at the first all-done check
+   (``flash_decode`` launches); (b) the rephraser at llama-2-7b width
+   (``generate_rephrasings(rephraser_from_engine(engine),
+   LEGAL_PROMPTS[:1], prng_key(42), sessions_per_prompt=8)``: one batch
+   of 8 x 512 sampled tokens), failing if a batch raised, with seconds,
+   steps/s, tokens/s, peak memory, launches and the parsed rephrasings,
+   and 16 steps of the same batch profiled (device-busy share);
+   (c) ``run_perturbation_sweep(reasoning=True, reasoning_runs=10)``
+   over 16 cells at B = 8 (50 tokens a run): count fractions, no log-prob
+   map, the weighted confidence the parsed integer, then a resume with
+   the first 8 cells done whose rows must be the whole run's bitwise.
    The sweep phase, after each engine's phase 3: ``run_perturbation_sweep``
    over three grids of 80 cells that ``sweep_grids`` builds from the five
    legal prompts (grouped: rephrasings that keep a prompt's text; trunk:
@@ -243,7 +264,9 @@ from lir_tpu_torch.config import CascadeConfig, RuntimeConfig
 from lir_tpu_torch.data import (LEGAL_PROMPTS, WORD_MEANING_QUESTIONS,
                                 format_base_prompt, format_instruct_prompt,
                                 schemas)
-from lir_tpu_torch.engine import generate, grid, prefix_tree, sweep, tokens as tok
+from lir_tpu_torch.data.prompts import rephrase_request
+from lir_tpu_torch.engine import (generate, grid, prefix_tree, prng, rephrase,
+                                  sweep, tokens as tok)
 from lir_tpu_torch.engine.multi import ModelSpec, run_model_comparison_sweep
 from lir_tpu_torch.engine.runner import SFX_BUCKETS, ScoringEngine
 from lir_tpu_torch.models import (decoder, encdec, loader, paged, quant,
@@ -264,6 +287,7 @@ from lir_tpu_torch.ops.row_gemm import (row_add_norm_plain, row_gemm_plain,
                                         row_norm_plain)
 from lir_tpu_torch.ops.flash_attention import flash_attention_plain
 from lir_tpu_torch.ops.stream_fold import stream_fold_plain
+from lir_tpu_torch.ops.sample import gumbel_argmax_plain, gumbel_scores_plain
 from lir_tpu_torch.engine import stream_stats
 from lir_tpu_torch.stats import streaming
 from lir_tpu_torch.stats.core import generator_for, resample_indices
@@ -291,6 +315,10 @@ import profile_batch
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
 BF16_FLOP_PER_S = 989e12         # H100 SXM dense bf16 tensor cores, published
 INT8_OP_PER_S = 1979e12          # H100 SXM dense int8 tensor cores, published
+# H100 SXM INT32 ALU rate: 64 INT32 lanes an SM against 128 FP32 lanes,
+# whose fused multiply-adds (two operations) make the published 67 TFLOP/s
+# float32: 132 SMs x 64 lanes x 1.98 GHz.
+INT32_OP_PER_S = 67e12 / 4
 ATOL = RTOL = 1e-2
 BATCH = 32
 DEV = "cuda"
@@ -343,6 +371,10 @@ SOURCES = {
     "stream_fold": ("lir_tpu_torch/csrc/stream_fold.cu",
                     "lir_tpu/engine/stream_stats.py:114 (XLA fold_update)",
                     "5x2000/B32"),
+    "gumbel_argmax": ("lir_tpu_torch/csrc/sample.cu",
+                      "lir_tpu/engine/generate.py:1442 (XLA "
+                      "jax.random.categorical)",
+                      "B8/V32000/one_key"),
 }
 # The streaming-statistics lattice of phase 2 and the stats phase: the
 # paper's five legal prompts x ~2,000 rephrasings, and the top-20 map.
@@ -1068,6 +1100,90 @@ def check_stream_fold(gen, floor_ms, results):
                floor_ms=floor_ms)
     log(json.dumps(row))
     results.append(row)
+
+
+# The sampler at the card's vocabulary (llama-2-7b) and the rephraser's
+# and the reasoning sweep's batches.
+SAMPLE_V = 32000
+SAMPLE_BATCHES = (8, 32)
+# INT32 operations a vocab entry costs in csrc/sample.cu, counted from the
+# code: the 64-bit counter (2), the first key adds (2), 20 rounds of add,
+# rotate and xor (60), five key injections of two adds (10), the bits'
+# xor, shift and or (3).
+SAMPLE_INT_OPS = 77
+
+
+def sample_inputs(gen, B: int, V: int, per_row: bool):
+    """Logits (B, V) at a model's spread and one step's keys and offsets,
+    made as ``generate.sample_keys`` makes them in each key mode."""
+    logits = torch.randn((B, V), generator=gen, device=DEV) * 3.0
+    key = torch.randint(0, 2**32, (B, 2), generator=gen, device=DEV,
+                        dtype=torch.int64)
+    keys, offsets = generate.sample_keys(key if per_row else key[0], B, V, 1,
+                                         DEV)
+    return logits, keys[0], offsets
+
+
+def twin_gaps(logits, keys, offsets, temperature, rows, a=None, b=None):
+    """Per row in ``rows``: the twin's perturbed-score gap between ids
+    ``a[row]`` and ``b[row]`` (default: its top two candidates)."""
+    scores = gumbel_scores_plain(logits, keys, offsets, temperature)
+    out = []
+    for r in rows:
+        if a is None:
+            top = torch.topk(scores[r], 2).values
+            out.append(float(top[0] - top[1]))
+        else:
+            out.append(abs(float(scores[r, int(a[r])] - scores[r, int(b[r])])))
+    return out
+
+
+def check_gumbel_argmax(gen, floor_ms, results):
+    """The sampler kernel against its plain twin on the card at V =
+    32,000, B = 8 and 32, one key and a key a row, four temperatures:
+    the ids equal (a differing row prints the twin's top-2 gap, then
+    fails), and again after the timing loop's launches (the kernel's
+    ticket counters reset themselves). Timed beside the empty kernel's
+    floor; its bound is the larger of the bytes it must move (the logits,
+    keys and offsets read once, the ids written) and its INT32 operations
+    (SAMPLE_INT_OPS a vocab entry) over the card's INT32 rate."""
+    V = SAMPLE_V
+    for B in SAMPLE_BATCHES:
+        for per_row in (False, True):
+            label = f"B{B}/V{V}/{'per_row' if per_row else 'one_key'}"
+            logits, keys, offsets = sample_inputs(gen, B, V, per_row)
+
+            def same(temp, when):
+                got = ops.gumbel_argmax(logits, keys, offsets, temp)
+                ref = gumbel_argmax_plain(logits, keys, offsets, temp)
+                bad = (got != ref).nonzero().flatten().tolist()
+                if bad:
+                    log(json.dumps({
+                        "phase": "gumbel_argmax_mismatch", "case": label,
+                        "when": when, "temperature": temp, "rows": bad,
+                        "twin_top2_gap": twin_gaps(logits, keys, offsets,
+                                                   temp, bad)}))
+                    raise AssertionError(f"gumbel_argmax {label} (T={temp}, "
+                                         f"{when}): rows {bad} differ from "
+                                         f"the plain twin")
+
+            for temp in (0.5, 0.9, 1.0, 1e-4):
+                same(temp, "first")
+            t_bytes = (nbytes(logits, keys, offsets) + 4 * B) \
+                / HBM_BYTES_PER_S * 1e3
+            t_ops = B * V * SAMPLE_INT_OPS / INT32_OP_PER_S * 1e3
+            row = dict(kernel="gumbel_argmax", case=label, B=B, V=V,
+                       max_abs_err=0.0,
+                       kernel_ms=time_ms(lambda: ops.gumbel_argmax(
+                           logits, keys, offsets, 0.9)),
+                       plain_ms=time_ms(lambda: gumbel_argmax_plain(
+                           logits, keys, offsets, 0.9)),
+                       library_ms=None, bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       floor_ms=floor_ms)
+            same(0.9, "after timing")
+            log(json.dumps(row))
+            results.append(row)
 
 
 def check_flash_attention(gen, label, B, S, H, K, hd, alibi, results):
@@ -4039,6 +4155,281 @@ def accum_survey_estimates(label, acc, reload) -> dict:
                 estimates=[card[p]["estimate"] for p in card])
 
 
+# ---------------------------------------------------------------------------
+# The sampling phase: sample_decode, the rephraser, the reasoning sweep
+# ---------------------------------------------------------------------------
+
+# A card-vs-CPU id flip is a near tie when the twin's scores of the two
+# ids lie within this (the float32 small model's logits differ by ~1e-6
+# between the devices).
+SAMPLE_NEAR_TIE = 1e-3
+SAMPLE_STEPS = 16
+REPHRASE_SESSIONS = 8
+REASONING_B = 8
+REASONING_RUNS = 10
+
+
+def recorded_sampling(fn):
+    """(fn(), every step's sampler inputs on the CPU): ``ops.gumbel_argmax``
+    wrapped for the call so that a flip can be measured afterwards."""
+    record, kernel = [], ops.gumbel_argmax
+
+    def rec(logits, keys, offsets, temperature):
+        record.append((logits.float().cpu(), keys.cpu(), offsets.cpu(),
+                       temperature))
+        return kernel(logits, keys, offsets, temperature)
+
+    ops.gumbel_argmax = rec
+    try:
+        return fn(), record
+    finally:
+        ops.gumbel_argmax = kernel
+
+
+def compare_sampled(label, card, cpu, record) -> list:
+    """Ids of the card against the CPU's, row by row up to the first
+    difference (a flip changes everything after it). A flip is allowed at
+    a near tie only: the twin's scores of the two ids, on the CPU's
+    logits of that step, within SAMPLE_NEAR_TIE. Returns the flips."""
+    flips = []
+    for b in range(card.shape[0]):
+        diff = np.flatnonzero(card[b] != cpu[b])
+        if not diff.size:
+            continue
+        t = int(diff[0])
+        logits, keys, offsets, temp = record[t]
+        gap = twin_gaps(logits, keys, offsets, temp, [b], cpu[:, t],
+                        card[:, t])[0]
+        flips.append({"row": b, "step": t, "gap": gap})
+        if not gap <= SAMPLE_NEAR_TIE:
+            raise AssertionError(f"{label}: row {b} step {t} sampled "
+                                 f"{card[b, t]} on the card, {cpu[b, t]} on "
+                                 f"the CPU, twin gap {gap}")
+    return flips
+
+
+def sample_card_vs_cpu(cfg, params_cpu, params_gpu) -> dict:
+    """(a) sample_decode on the small float32 model, on the card against
+    the CPU (the same keys): both key modes with the EOS stop armed, ids
+    equal save flips at near ties. Then the EOS probe: identical prompts
+    at temperature 1e-4, eos = the id the unstopped run emits at step 3,
+    so every row is done by then; the stopped ids equal the CPU's and the
+    unstopped ones up to EOS, EOS after, and the forwards end at the first
+    all-done check (``flash_decode`` launches)."""
+    gen = np.random.default_rng(31)
+    toks = torch.as_tensor(gen.integers(3, cfg.vocab_size, (4, 24)),
+                           dtype=torch.int32)
+    mask = torch.ones_like(toks)
+    toks[0, :6], mask[0, :6] = 0, 0
+    eos = FakeTokenizer.PAD
+    out = {}
+    for mode, key in (("per_row", prng.split(prng.prng_key(5), 4)),
+                      ("one_key", prng.prng_key(5))):
+        ids = {}
+        for dev, params in ((DEV, params_gpu), ("cpu", params_cpu)):
+            ids[dev], rec = recorded_sampling(lambda: generate.sample_decode(
+                params, cfg, toks.to(dev), mask.to(dev), key,
+                temperature=0.9, max_new_tokens=SAMPLE_STEPS, eos_id=eos))
+            ids[dev] = ids[dev].cpu().numpy()
+        out[mode] = {"flips": compare_sampled(f"sample_decode {mode}",
+                                              ids[DEV], ids["cpu"], rec)}
+    same = toks[1:2].repeat(4, 1)
+    ones = torch.ones_like(same)
+    runs, launches = {}, {}
+
+    def probe_run(name, eos_id):
+        for dev, params in ((DEV, params_gpu), ("cpu", params_cpu)):
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            runs[name, dev] = generate.sample_decode(
+                params, cfg, same.to(dev), ones.to(dev), prng.prng_key(6),
+                temperature=1e-4, max_new_tokens=SAMPLE_STEPS,
+                eos_id=eos_id).cpu().numpy()
+            torch.cuda.synchronize()
+            if dev == DEV:
+                launches[name] = ops.launch_counts()
+
+    probe_run("free", None)
+    free = runs["free", DEV]
+    if not (free == free[0]).all():
+        raise AssertionError("EOS probe: identical prompts sampled different "
+                             "ids at temperature 1e-4")
+    probe = int(free[0, 3])
+    probe_run("stop", probe)
+    first = int(np.argmax(runs["free", DEV][0] == probe))
+    check_at = first + (-(first + 1) % generate.DONE_CHECK_EVERY)
+    per_forward = launches["free"]["flash_decode"] // SAMPLE_STEPS
+    want = per_forward * min(check_at, SAMPLE_STEPS)
+    stop = runs["stop", DEV]
+    if not (np.array_equal(stop, runs["stop", "cpu"])
+            and np.array_equal(stop[:, :first + 1],
+                               runs["free", DEV][:, :first + 1])
+            and (stop[:, first:] == probe).all()
+            and np.array_equal(runs["free", DEV], runs["free", "cpu"])):
+        raise AssertionError(f"EOS probe: stopped ids {stop[0].tolist()} "
+                             f"against free {runs['free', DEV][0].tolist()}")
+    if launches["stop"]["flash_decode"] != want or \
+            launches["stop"]["gumbel_argmax"] != min(check_at + 1,
+                                                     SAMPLE_STEPS):
+        raise AssertionError(f"EOS probe: forwards did not stop: "
+                             f"{launches['stop']} (want flash_decode {want})")
+    out["eos_probe"] = {"eos": probe, "first_eos_step": first,
+                        "flash_decode": {k: launches[k]["flash_decode"]
+                                         for k in launches},
+                        "gumbel_argmax": {k: launches[k]["gumbel_argmax"]
+                                          for k in launches}}
+    out["launches"] = {k: launches["free"][k] + launches["stop"][k]
+                       for k in ops.KERNELS}
+    log(json.dumps({"phase": "sampling_small", **{
+        k: v for k, v in out.items() if k != "launches"}}))
+    return out
+
+
+def run_rephrase_full(engine) -> dict:
+    """(b) The rephraser at llama-2-7b width: ``generate_rephrasings`` of
+    the first legal prompt, 8 sessions (one batch of 8 rows x 512 sampled
+    tokens) through ``rephraser_from_engine``; a batch that raised fails
+    the phase (``generate_rephrasings`` itself skips it, as the reference
+    does). Seconds, steps/s, tokens/s, peak memory, the launches, the
+    parsed rephrasings."""
+    gen_text = rephrase.rephraser_from_engine(engine)
+    failures = []
+
+    def guarded(fn):
+        def call(*args):
+            try:
+                return fn(*args)
+            except Exception as exc:
+                failures.append(repr(exc))
+                raise
+        return call
+
+    gen_text.dispatch = guarded(gen_text.dispatch)
+    gen_text.fetch = guarded(gen_text.fetch)
+    steps = 512
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = rephrase.generate_rephrasings(
+        gen_text, LEGAL_PROMPTS[:1], prng.prng_key(42),
+        sessions_per_prompt=REPHRASE_SESSIONS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    if failures:
+        raise AssertionError(f"rephrase: batches raised: {failures}")
+    reph = out[0][1]
+    want = {"gumbel_argmax": steps,
+            "flash_decode": steps * engine.cfg.n_layers}
+    # A batch whose every row emits EOS stops early: fewer launches, never
+    # more, and never none.
+    if not all(0 < launches[k] <= n for k, n in want.items()) or not reph:
+        raise AssertionError(f"rephrase: launches {launches} (at most "
+                             f"{want}), {len(reph)} rephrasings")
+    # Where a sampling step's time goes: 16 steps of the same batch
+    # profiled (device-busy share against the host clock).
+    toks, mask = engine._pad_batch(
+        [rephrase_request(LEGAL_PROMPTS[0].main)] * REPHRASE_SESSIONS)
+
+    def call():
+        generate.sample_decode(engine.params, engine.cfg, toks, mask,
+                               prng.prng_key(7), temperature=0.9,
+                               max_new_tokens=16, eos_id=engine.eos_id)
+        torch.cuda.synchronize()
+
+    prof = profile_batch.profile(call)
+    stats = dict(sessions=REPHRASE_SESSIONS, new_tokens=steps, seconds=dt,
+                 steps_per_s=launches["gumbel_argmax"] / dt,
+                 tokens_per_s=REPHRASE_SESSIONS
+                 * launches["gumbel_argmax"] / dt,
+                 max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+                 launches=launches, expected_launches=want,
+                 rephrasings=len(reph),
+                 first_rephrasings=[r[:120] for r in reph[:3]],
+                 profile_16_steps=prof)
+    log(json.dumps({"phase": "rephrase", **stats}))
+    return stats
+
+
+def reasoning_grid():
+    """16 cells: two legal prompts, each with seven rephrasings."""
+    prompts = LEGAL_PROMPTS[:2]
+    perts = [[f"{p.main} (Variant {i}: read it as a court would.)"
+              for i in range(7)] for p in prompts]
+    return prompts, perts
+
+
+def run_reasoning_full(engine, tmp: Path) -> dict:
+    """(c) The reasoning sweep at llama-2-7b width: 16 cells at B = 8,
+    10 sampled runs of 50 tokens a binary prompt and one of 50 a
+    confidence prompt. The D6 rows: count fractions (multiples of 1/10),
+    no log-prob map, the weighted confidence the parsed integer. Then the
+    first 8 cells marked done: the other 8, one bucket of the shape they
+    had, must come back bitwise the whole run's rows."""
+    eng = engine_with(engine, batch_size=REASONING_B)
+    prompts, perts = reasoning_grid()
+    n_cells = sum(1 + len(p) for p in perts)
+    stats, rows = {}, {}
+    for name in ("whole", "resumed"):
+        manifest = None
+        if name == "resumed":
+            manifest = SweepManifest(tmp / "reasoning_resumed.manifest.jsonl",
+                                     grid.RESUME_KEY_FIELDS)
+            manifest.mark_done_many([
+                {"model": SWEEP_MODEL, "original_main": r.original_main,
+                 "rephrased_main": r.rephrased_main}
+                for r in rows["whole"][:REASONING_B]])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        rows[name] = sweep.run_perturbation_sweep(
+            eng, SWEEP_MODEL, prompts, perts, tmp / f"reasoning_{name}.csv",
+            manifest=manifest, reasoning=True, reasoning_runs=REASONING_RUNS)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        stats[name] = dict(
+            rows=len(rows[name]), seconds=dt,
+            rows_per_s=len(rows[name]) / dt, launches=ops.launch_counts(),
+            max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+    if len(rows["whole"]) != n_cells or \
+            rows["resumed"] != rows["whole"][REASONING_B:]:
+        raise AssertionError("reasoning sweep: the resumed rows are not the "
+                             "whole run's")
+    for r in rows["whole"]:
+        fracs = [r.token_1_prob * REASONING_RUNS,
+                 r.token_2_prob * REASONING_RUNS]
+        if (any(abs(x - round(x)) > 1e-9 for x in fracs)
+                or r.log_probabilities != ""
+                or r.weighted_confidence != (
+                    None if r.confidence_value is None
+                    else float(r.confidence_value))):
+            raise AssertionError(f"reasoning sweep: bad row {r}")
+    for name, st in stats.items():
+        if st["launches"]["gumbel_argmax"] <= 0 or \
+                st["launches"]["flash_decode"] <= 0:
+            raise AssertionError(f"reasoning sweep {name}: {st['launches']}")
+    stats["confidence_values"] = [r.confidence_value for r in rows["whole"]]
+    log(json.dumps({"phase": "reasoning_sweep", **stats}))
+    return stats
+
+
+def run_sampling_phase(engine, small) -> dict:
+    """The sampling phase: (a) card against CPU on the small model, (b)
+    the rephraser and (c) the reasoning sweep on the resident bf16
+    llama-2-7b. Returns the stats and the launches of every part."""
+    stats = {"small": sample_card_vs_cpu(*small),
+             "rephrase": run_rephrase_full(engine)}
+    with tempfile.TemporaryDirectory() as tmp:
+        stats["reasoning"] = run_reasoning_full(engine, Path(tmp))
+    parts = [stats["small"]["launches"], stats["rephrase"]["launches"],
+             stats["reasoning"]["whole"]["launches"],
+             stats["reasoning"]["resumed"]["launches"]]
+    stats["launches"] = {k: sum(p[k] for p in parts) for k in ops.KERNELS}
+    return stats
+
+
 def kernel_label(mangled: str) -> str:
     """A kernel's name and raw template arguments from its mangled name,
     e.g. ``prefix_wgmma_kernel<Li128>``."""
@@ -4244,6 +4635,7 @@ def main() -> int:
         check_row_add_norm(gen, f"llama2-7b/M{M}", M, D, floor_ms, results)
     check_row_add_norm(gen, "falcon-7b/M32", BATCH, 4544, floor_ms, results)
     check_stream_fold(gen, floor_ms, results)
+    check_gumbel_argmax(gen, floor_ms, results)
     elapsed("kernels_vs_plain")
     small = small_model()
     small_slice_check(*small)
@@ -4272,6 +4664,11 @@ def main() -> int:
         launches[name] += n
     profile_scoring(engine, rt)
     elapsed("bf16_slice")
+    # The sampling phase on the resident bf16 tree.
+    sampling = run_sampling_phase(engine, small)
+    for name, n in sampling["launches"].items():
+        launches[name] += n
+    elapsed("sampling")
     # The sweep phase: the three grids through run_perturbation_sweep.
     with tempfile.TemporaryDirectory() as tmp:
         sweeps = {"bf16": run_sweep_phase("bf16", engine, rt, grids,

@@ -5,9 +5,10 @@
   analyze      statistical analyses over the D1/D2/D6 artifacts
   survey       the human-survey pipeline (D3 + D1/D2 -> D7/D8/D9, C38-C43)
   repro        the survey pipeline and every analysis from a data directory
+  rephrase     generate perturbations.json with a local rephraser model
 
-Port of the ``sweep``, ``perturb``, ``analyze``, ``survey`` and ``repro``
-commands of ``lir_tpu/cli.py``.
+Port of the ``sweep``, ``perturb``, ``analyze``, ``survey``, ``repro``
+and ``rephrase`` commands of ``lir_tpu/cli.py``.
 Each flag lands in the same ``RuntimeConfig`` / ``SpecConfig`` /
 ``CascadeConfig`` field as there. A flag of a feature the port does not
 have yet (meshes, the parameter cache, the int8 KV cache, leased shards,
@@ -65,6 +66,23 @@ def _add_sweep(sub) -> None:
     p.add_argument("--sweep-kind", choices=["base_vs_instruct", "instruct_only"],
                    default="base_vs_instruct")
     _add_common(p)
+
+
+def _add_rephrase(sub) -> None:
+    from .config import PerturbationConfig
+
+    defaults = PerturbationConfig()
+    p = sub.add_parser("rephrase", help="generate perturbations.json locally")
+    p.add_argument("--checkpoints", type=Path, required=True)
+    p.add_argument("--model", required=True,
+                   help="instruct model acting as the rephraser")
+    p.add_argument("--out", type=Path, default=Path("perturbations.json"))
+    p.add_argument("--sessions", type=int,
+                   default=defaults.sessions_per_prompt)
+    p.add_argument("--per-session", type=int,
+                   default=defaults.rephrasings_per_session)
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the rephraser runs (default cuda)")
 
 
 def _add_perturb(sub) -> None:
@@ -331,6 +349,27 @@ def cmd_perturb(args) -> None:
     log.info("perturbation sweep wrote %d rows", len(rows))
 
 
+def cmd_rephrase(args) -> None:
+    """The five legal prompts' rephrasings sampled by ``--model`` (the
+    JAX command's key, ``prng_key(42)``, and temperature 0.9) into
+    ``--out``; a valid cache there is kept."""
+    from .config import PerturbationConfig
+    from .data.prompts import LEGAL_PROMPTS
+    from .engine import prng
+    from .engine.rephrase import (load_or_generate_perturbations,
+                                  rephraser_from_engine)
+    from .models.factory import engine_factory
+
+    cfg = PerturbationConfig()
+    engine = engine_factory(args.checkpoints, device=args.device)(args.model)
+    load_or_generate_perturbations(
+        args.out, LEGAL_PROMPTS,
+        rephraser_from_engine(engine, temperature=cfg.rephrase_temperature),
+        prng.prng_key(cfg.seed),
+        sessions_per_prompt=args.sessions,
+        rephrasings_per_session=args.per_session)
+
+
 def cmd_analyze(args) -> None:
     from .device import resolve_device
 
@@ -437,9 +476,11 @@ def main(argv: Optional[List[str]] = None) -> None:
     _add_analyze(sub)
     _add_survey(sub)
     _add_repro(sub)
+    _add_rephrase(sub)
     args = parser.parse_args(argv)
     if getattr(args, "int8_dynamic", False) and not args.int8:
         parser.error("--int8-dynamic requires --int8 (it selects HOW int8 "
                      "matmuls run, not whether weights are quantized)")
     {"sweep": cmd_sweep, "perturb": cmd_perturb, "analyze": cmd_analyze,
-     "survey": cmd_survey, "repro": cmd_repro}[args.command](args)
+     "survey": cmd_survey, "repro": cmd_repro,
+     "rephrase": cmd_rephrase}[args.command](args)

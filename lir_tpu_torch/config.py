@@ -1,7 +1,8 @@
 """Runtime configuration of the PyTorch scoring engine.
 
 A copy of the part of the JAX package's ``RuntimeConfig``,
-``SpecConfig`` and ``CascadeConfig`` that this port implements. A flag
+``SpecConfig``, ``CascadeConfig`` and ``PerturbationConfig`` that this
+port implements. A flag
 of the JAX engine that the port does not implement yet (fleet drafting,
 piggyback prefill, the int8 KV cache, the watchdog, leased shards, the
 XLA compile plan) is absent here, so that no caller can set it and have
@@ -170,3 +171,15 @@ class CascadeConfig:
     # dynamic rule, s8 x s8 -> s32, softmax and PV in float32. Scores
     # are tolerance-bound; off keeps float32 scores.
     int8_qk: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class PerturbationConfig:
+    """Perturbation-generation parameters (reference: perturb_prompts.py),
+    the fields of the JAX package's ``PerturbationConfig`` that the
+    port's ``rephrase`` command reads."""
+
+    sessions_per_prompt: int = 100      # :787-788
+    rephrasings_per_session: int = 20   # numbered 1..20
+    rephrase_temperature: float = 0.9   # :802
+    seed: int = 42                      # RANDOM_SEED, :34

@@ -11,7 +11,10 @@ once per step when an early stop is armed.
 
 The capture paths keep every step's logits instead (the JAX engine's
 ``decode_prompts``): :func:`greedy_decode` on a decoder and
-:func:`t5_greedy_decode` on a T5 encoder-decoder.
+:func:`t5_greedy_decode` on a T5 encoder-decoder. :func:`sample_decode`
+is the temperature sampler of the rephraser and the reasoning sweep: the
+same loop with ``ops.gumbel_argmax`` (JAX's threefry draws) in place of
+the argmax.
 
 The speculative variant (:func:`greedy_decode_fused_shared_spec`)
 replaces each branch's sequential loop by a loop over verify WINDOWS of
@@ -32,8 +35,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from .. import ops
 from ..models import decoder, encdec
 from ..models.registry import ModelConfig, T5Config
+from . import prng
 from . import tokens as _tok
 
 
@@ -881,6 +886,80 @@ def greedy_decode(params, cfg: ModelConfig, tokens: torch.Tensor,
         logits, cache = decoder.decode_step(params, cfg, cache, nxt, pos0 + t,
                                             S + t, cache_mask)
     return torch.stack(gens, dim=1), torch.stack(steps, dim=1)
+
+
+# The sampler's all-rows-done check reads ``done`` on the host, which
+# waits for the device: once every this many steps, not every step.
+DONE_CHECK_EVERY = 8
+
+
+def sample_keys(key, B: int, V: int, max_new_tokens: int, device):
+    """Every step's keys and counter offsets, made once before the loop
+    (the JAX sampler's vmapped keys): per-row keys (B, 2) give row b at
+    step t ``fold_in(key[b], t)`` and offset 0; one key (2,) gives every
+    row ``split(key, max_new_tokens)[t]`` and row b the offset ``b * V``
+    (its flat index over (B, V)). Returns ((T, B, 2) int64 keys, (B,)
+    int64 offsets) on ``device``."""
+    key = prng.as_key(key, device)
+    steps = torch.arange(max_new_tokens, dtype=torch.int64, device=device)
+    if prng.is_per_row_keys(key):
+        if key.shape[0] != B:
+            raise ValueError(f"{key.shape[0]} keys for {B} rows")
+        keys = prng.fold_in(key[None, :, :], steps[:, None])
+        offsets = torch.zeros(B, dtype=torch.int64, device=device)
+    else:
+        keys = prng.split(key, max_new_tokens)[:, None, :].expand(
+            max_new_tokens, B, 2)
+        offsets = torch.arange(B, dtype=torch.int64, device=device) * V
+    return keys.contiguous(), offsets
+
+
+@torch.inference_mode()
+def sample_decode(params, cfg: ModelConfig, tokens: torch.Tensor,
+                  attn_mask: torch.Tensor, key, temperature: float = 0.9,
+                  max_new_tokens: int = 50, eos_id: Optional[int] = None
+                  ) -> torch.Tensor:
+    """Temperature sampling with the prefill + decode-step structure of
+    :func:`greedy_decode`, each step's token drawn by ``ops.gumbel_argmax``
+    on JAX's threefry draws (the JAX sampler's ``jax.random.categorical``),
+    so a seed samples the JAX package's ids.
+
+    ``key`` is one threefry key (2,) (a fresh subkey a step; a row's
+    draws then depend on its batch position) or per-row keys (B, 2) (each
+    row its own stream folded a step: a row's sample depends only on its
+    key). ``eos_id`` arms the HF-generate stop: a row emits EOS fill after
+    its first EOS, and a non-done row's draws are bitwise the unstopped
+    sampler's (the step keys never depend on doneness). The JAX sampler
+    skips every forward once all rows are done; here that test waits for
+    the device, so it is made every ``DONE_CHECK_EVERY`` steps. The ids
+    are the same for any interval: a done row emits EOS whatever its
+    logits, so the forwards run between the last row's EOS and the check
+    change nothing that is emitted.
+
+    Returns generated (B, max_new_tokens) int32; no logits are kept."""
+    B, S = tokens.shape
+    logits, cache, pos0 = decoder.prefill(params, cfg, tokens, attn_mask,
+                                          S + max_new_tokens)
+    step_keys, offsets = sample_keys(key, B, logits.shape[-1],
+                                     max_new_tokens, logits.device)
+    cache_mask = F.pad(attn_mask, (0, max_new_tokens))
+    done = torch.zeros(B, dtype=torch.bool, device=logits.device)
+    gen = torch.empty((B, max_new_tokens), dtype=torch.int32,
+                      device=logits.device)
+    for t in range(max_new_tokens):
+        emit = ops.gumbel_argmax(logits, step_keys[t], offsets, temperature)
+        if eos_id is not None:
+            emit = torch.where(done, torch.full_like(emit, eos_id), emit)
+            done = done | (emit == eos_id)
+        gen[:, t] = emit
+        if (eos_id is not None and (t + 1) % DONE_CHECK_EVERY == 0
+                and bool(done.all())):
+            gen[:, t + 1:] = eos_id
+            break
+        cache_mask[:, S + t] = 1
+        logits, cache = decoder.decode_step(params, cfg, cache, emit,
+                                            pos0 + t, S + t, cache_mask)
+    return gen
 
 
 @torch.inference_mode()

@@ -35,6 +35,11 @@ The 8-bit path is the same engine with int8 params
 ``RuntimeConfig.cascade_fused_suffix=False`` and
 ``CascadeConfig(int8_qk=True)`` (the two-leg cascade, int8 QK^T in its
 trunk leg).
+
+Temperature sampling (``sample_completions*``, ``score_prompts_sampled``:
+the rephraser and the sweep's reasoning mode) runs
+``generate.sample_decode`` on decoder engines, with JAX's threefry keys
+(``engine/prng.py``).
 """
 
 from __future__ import annotations
@@ -52,7 +57,8 @@ from ..config import CascadeConfig, RuntimeConfig, SpecConfig
 from ..device import resolve_device
 from ..models import decoder, paged
 from ..utils.profiling import GuardStats, PrefixCacheStats
-from . import generate, prefix_tree, score, spec as spec_mod, tokens as tok
+from . import (generate, prefix_tree, prng, score, spec as spec_mod,
+               tokens as tok)
 
 log = logging.getLogger(__name__)
 
@@ -107,6 +113,20 @@ class PromptScore:
     relative_prob: float
     position_found: int
     yes_no_found: bool
+
+
+@dataclasses.dataclass
+class SampledScore:
+    """n-run count-averaged measurement (reasoning-model mode,
+    perturb_prompts.py:412-446): probabilities are answer-count fractions,
+    not logit softmaxes."""
+
+    prompt: str
+    response: str               # most common run text
+    all_responses: List[str]
+    token_1_prob: float
+    token_2_prob: float
+    odds_ratio: float
 
 
 class ScoringEngine:
@@ -836,6 +856,84 @@ class ScoringEngine:
         toks_arr, mask = tok.left_pad_ids(ids_list, bucket,
                                           tok.pad_token_id(self.tokenizer))
         return self._t(toks_arr), self._t(mask)
+
+    # -- temperature sampling (rephraser, reasoning mode) -------------------
+
+    def _sample_from_ids_raw(self, toks: torch.Tensor, mask: torch.Tensor,
+                             key, temperature: float,
+                             max_new_tokens: Optional[int]
+                             ) -> Tuple[List[str], np.ndarray]:
+        """(decoded texts, raw generated ids): callers that must know
+        whether a reply finished inside the budget (EOS emitted) need the
+        ids. The EOS stop is armed from the tokenizer's EOS, as in the JAX
+        engine: a finished row emits EOS fill, unfinished rows are
+        bitwise the unstopped sampler's."""
+        self._decoder_only("sample_decode")
+        gen = generate.sample_decode(
+            self.params, self.cfg, toks, mask, key, temperature=temperature,
+            max_new_tokens=(self.rt.max_new_tokens if max_new_tokens is None
+                            else max_new_tokens),
+            eos_id=None if self.eos_id is None else int(self.eos_id))
+        gen = gen.cpu().numpy()
+        return [self.decode_completion(row) for row in gen], gen
+
+    def sample_completions(self, prompts: Sequence[str], key,
+                           temperature: float = 1.0,
+                           max_new_tokens: Optional[int] = None) -> List[str]:
+        """One temperature-sampled completion per prompt (one decode; the
+        same bucketing as the greedy paths). ``key`` is a threefry key
+        (``engine.prng``), one (2,) or one a prompt (B, 2)."""
+        toks, mask = self._pad_batch(prompts)
+        return self._sample_from_ids_raw(toks, mask, key, temperature,
+                                         max_new_tokens)[0]
+
+    def sample_completions_with_ids(
+            self, prompts: Sequence[str], key, temperature: float = 1.0,
+            max_new_tokens: Optional[int] = None
+    ) -> Tuple[List[str], np.ndarray]:
+        toks, mask = self._pad_batch(prompts)
+        return self._sample_from_ids_raw(toks, mask, key, temperature,
+                                         max_new_tokens)
+
+    def score_prompts_sampled(
+        self, prompts: Sequence[str],
+        target_texts: Sequence[Tuple[str, str]],
+        n_runs: int = 10, key=None, temperature: float = 1.0,
+        max_new_tokens: Optional[int] = None,
+    ) -> List[SampledScore]:
+        """Reasoning-model scoring: n sampled runs per prompt, answer-count
+        averaging (perturb_prompts.py:412-446). Run ``run`` takes the key
+        ``fold_in(key, run)`` (per row for per-prompt keys (B, 2), so a
+        prompt's result does not depend on its batch); the default key is
+        ``prng_key(0)``. Prompts are tokenized once; the runs loop outside
+        the decode, one sampled decode each (the JAX engine's reason: a
+        batch of all runs would multiply the KV cache by ``n_runs``).
+        Token_i_Prob is the share of runs whose text holds target i
+        (``score.count_averaged_responses``), the response the most
+        common run text."""
+        self._decoder_only("score_prompts_sampled")
+        if key is None:
+            key = prng.prng_key(0)
+        key = prng.as_key(key)
+        all_runs: List[List[str]] = [[] for _ in prompts]
+        toks, mask = self._pad_batch(prompts)
+        for run in range(n_runs):
+            texts, _ = self._sample_from_ids_raw(
+                toks, mask, prng.fold_in(key, run), temperature,
+                max_new_tokens)
+            for j, t in enumerate(texts):
+                all_runs[j].append(t.strip())
+        out: List[SampledScore] = []
+        for j, prompt in enumerate(prompts):
+            t1, t2 = target_texts[j]
+            p1, p2, most_common = score.count_averaged_responses(
+                all_runs[j], t1, t2)
+            out.append(SampledScore(
+                prompt=prompt, response=most_common,
+                all_responses=list(all_runs[j]), token_1_prob=p1,
+                token_2_prob=p2,
+                odds_ratio=(p1 / p2) if p2 > 0 else float("inf")))
+        return out
 
     def score_prompts(self, prompts: Sequence[str]) -> List[PromptScore]:
         """Score every prompt; one decode per full batch."""

@@ -6,7 +6,8 @@ FIRST position where the Yes or No token id appears in the top-2 reads
 P(yes)/P(no) from that position's softmax, falling back to position 0
 (compare_base_vs_instruct.py:185-305). One primitive returns both
 readouts the reference scripts drifted between (odds ratio and relative
-probability). Port of ``lir_tpu/engine/score.py:26-113``.
+probability). Port of ``lir_tpu/engine/score.py:26-137`` (with the
+reasoning mode's answer-count averaging).
 """
 
 from __future__ import annotations
@@ -106,3 +107,25 @@ def readout_from_fused(fused, yes_ids: torch.Tensor, no_ids: torch.Tensor,
     yes_prob = torch.gather(fused.p_yes, 1, idx)[:, 0]
     no_prob = torch.gather(fused.p_no, 1, idx)[:, 0]
     return _scores(yes_prob, no_prob, position, any_found, fused.generated)
+
+
+def count_averaged_responses(runs, target_1: str, target_2: str):
+    """Reasoning-model answer-count averaging (perturb_prompts.py:412-446),
+    port of ``lir_tpu/engine/score.py:116-137``.
+
+    The if/elif order is the reference's (:423-426): a response holding
+    BOTH targets ("Not Covered" holds "Covered") counts toward target 1
+    only. Returns (p1, p2, most_common_response); the most common pick is
+    the first seen among equals (``Counter.most_common`` keeps insertion
+    order), so it never depends on string hashing."""
+    from collections import Counter
+
+    n = len(runs)
+    c1 = c2 = 0
+    for r in runs:
+        if target_1 in r:
+            c1 += 1
+        elif target_2 in r:
+            c2 += 1
+    most_common = Counter(runs).most_common(1)[0][0] if runs else ""
+    return (c1 / n if n else 0.0, c2 / n if n else 0.0, most_common)

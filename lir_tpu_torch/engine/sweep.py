@@ -20,9 +20,11 @@ and its numerics guard (a row whose readouts fail
 engine has one (the planner's cached-token pricing, paged dispatches,
 completion tails recorded for the tree's drafts), and with these of its
 engine features off, which the port does not have yet: the dispatch
-recovery/watchdog, piggyback chains, multihost shards and leases, the
-reasoning (sampled) mode, and the XLA compile plan (which has no
-counterpart in eager PyTorch).
+recovery/watchdog, piggyback chains, multihost shards and leases, and
+the XLA compile plan (which has no counterpart in eager PyTorch). The
+reasoning mode (``reasoning=True``) samples each cell's binary prompt
+``reasoning_runs`` times on ``generate.sample_decode`` and writes
+count-fraction rows.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from ..utils.manifest import SweepManifest
 from ..utils.profiling import OccupancyStats, StreamStats
 from . import generate
 from . import grid as grid_mod
+from . import prng
 from . import scheduler as sched_mod
 from . import score as score_mod
 from . import stream_stats as stream_mod
@@ -125,6 +128,7 @@ def run_perturbation_sweep(
     results_path: Path, manifest: Optional[SweepManifest] = None,
     subset_size: Optional[int] = None, seed: int = 42,
     checkpoint_every: int = CHECKPOINT_EVERY,
+    reasoning: bool = False, reasoning_runs: int = 10,
 ) -> List[schemas.PerturbationRow]:
     """Run (or resume) the perturbation grid for one model, writing D6 rows
     to ``results_path`` (CSV: schemas.resolve_results_path) and returning
@@ -141,7 +145,15 @@ def run_perturbation_sweep(
     An encoder-decoder engine takes no streaming sink and no ragged plan,
     and its first dispatch raises (the shared dispatch is decoder-only),
     before any row is written: the JAX sweep fails there too (ROADMAP
-    caveat R7)."""
+    caveat R7).
+
+    ``reasoning=True`` is the local reasoning-model mode (REASONING_MODEL_
+    RUNS, perturb_prompts.py:47,412-446): each binary prompt is sampled
+    ``reasoning_runs`` times and Token_i_Prob becomes the answer-count
+    fraction (``ScoringEngine.score_prompts_sampled``); Weighted
+    Confidence equals the parsed confidence integer (:459-464) and no
+    log-prob map is stored. It takes no streaming sink, and each row's
+    draws are keyed by its grid cell (:func:`_reasoning_batch`)."""
     results_path = schemas.resolve_results_path(results_path)
     # Crash-consistent resume: the done-set is the UNION of the manifest
     # and the rows already in the results artifact. The flush order is
@@ -169,7 +181,8 @@ def run_perturbation_sweep(
     sink = None
     accum_path = None
     write_rows = True
-    if engine.rt.streaming_stats and not engine.encoder_decoder and cells:
+    if (engine.rt.streaming_stats and not reasoning
+            and not engine.encoder_decoder and cells):
         n_reph = 1 + max(c.rephrase_idx for c in cells)
         stream_seed = manifest.meta.get("stream_seed")
         if stream_seed is None:
@@ -204,6 +217,24 @@ def run_perturbation_sweep(
                   else min(rt.sweep_decode_tokens, rt.max_new_tokens))
     conf_tokens = (rt.max_new_tokens if rt.sweep_full_completions
                    else min(rt.sweep_confidence_tokens, rt.max_new_tokens))
+    if reasoning:
+        # Chain-of-thought models answer after their reasoning: every
+        # sampled run gets the full max_new_tokens (the sweep budgets
+        # above are not used).
+        B = rt.batch_size
+        for start in range(0, len(todo), B):
+            batch = todo[start:start + B]
+            n = len(batch)
+            bsz = B if n == B else _tail_batch(n, B)
+            full = list(batch) + [batch[-1]] * (bsz - n)
+            _reasoning_batch(engine, model_name, prompts, batch, full, seed,
+                             reasoning_runs, pending_rows, rows)
+            if len(pending_rows) >= checkpoint_every:
+                _flush(pending_rows, results_path, manifest)
+                pending_rows = []
+        if pending_rows:
+            _flush(pending_rows, results_path, manifest)
+        return rows
     _run_pipelined(engine, model_name, todo, target_ids, results_path,
                    manifest, checkpoint_every, new_tokens, conf_tokens, rows,
                    pending_rows, sink, accum_path, write_rows)
@@ -559,6 +590,56 @@ def _run_pipelined(engine, model_name, todo, target_ids, results_path,
     _record_tails()
     if pending_marks:
         _flush_marks()
+
+
+def _reasoning_batch(engine, model_name, prompts, batch, full, seed,
+                     reasoning_runs, pending_rows, rows) -> None:
+    """Score one padded bucket in reasoning mode: ``reasoning_runs``
+    sampled binary runs with count averaging, and one sampled confidence
+    response, per cell; rows appended to ``rows`` and ``pending_rows``.
+
+    Draws are keyed by GRID-CELL identity: cell (p, r) takes
+    ``fold_in(fold_in(prng_key(seed), p), r)`` and its confidence run
+    ``fold_in`` of that with 10,000, whatever its position in the todo
+    list or the batch, so a resumed or subset sweep samples what the
+    whole run sampled for every cell."""
+    base = prng.prng_key(seed)
+    cell_keys = torch.stack([
+        prng.fold_in(prng.fold_in(base, c.prompt_idx), c.rephrase_idx)
+        for c in full])
+    targets = [prompts[c.prompt_idx].target_tokens for c in full]
+    sampled = engine.score_prompts_sampled(
+        [c.binary_prompt for c in full], targets, n_runs=reasoning_runs,
+        key=cell_keys)
+    conf_texts, conf_ids = engine.sample_completions_with_ids(
+        [c.confidence_prompt for c in full], prng.fold_in(cell_keys, 10_000))
+    for j, cell in enumerate(batch):
+        s = sampled[j]
+        conf_text = conf_texts[j].strip()
+        # The greedy path's truncation guard: a reply that never reached
+        # EOS may have been cut inside its integer.
+        conf_val = _parse_confidence(
+            conf_text, _decode_complete(conf_ids[j], engine.eos_id))
+        row = schemas.PerturbationRow(
+            model=model_name,
+            original_main=cell.original_main,
+            response_format=cell.response_format,
+            confidence_format=cell.confidence_format,
+            rephrased_main=cell.rephrased_main,
+            full_rephrased_prompt=cell.binary_prompt,
+            full_confidence_prompt=cell.confidence_prompt,
+            model_response=s.response,
+            model_confidence_response=conf_text,
+            log_probabilities="",       # reasoning models expose no logprobs
+            token_1_prob=s.token_1_prob,
+            token_2_prob=s.token_2_prob,
+            # Weighted confidence is the parsed integer in reasoning mode
+            # (perturb_prompts.py:459-464).
+            confidence_value=conf_val,
+            weighted_confidence=None if conf_val is None else float(conf_val),
+        )
+        rows.append(row)
+        pending_rows.append(row)
 
 
 def _flush(rows: List[schemas.PerturbationRow], results_path: Path,

@@ -29,6 +29,9 @@
   readouts into the (P, R) accumulator lattice in place
   (``csrc/stream_fold.cu``; the counterpart of the JAX package's XLA
   ``fold_update``).
+- ``gumbel_argmax``: temperature sampling, each row's next token by the
+  Gumbel-max trick on JAX's threefry draws (``csrc/sample.cu``; the
+  counterpart of the JAX package's XLA ``jax.random.categorical``).
 
 Each wrapper keeps a plain int ``launches`` that it raises by one where
 it launches its CUDA kernel, and nowhere else (``flash_attention`` also
@@ -53,6 +56,7 @@ from .flash_decode import (DECODE_SPLIT, flash_decode, flash_decode_mq,
 from .lse import merge_partials
 from .row_gemm import (gemm_splits, row_add_norm, row_add_norm_plain,
                        row_gemm, row_gemm_plain, row_norm, row_norm_plain)
+from .sample import gumbel_argmax, gumbel_argmax_plain
 from .stream_fold import stream_fold, stream_fold_plain
 
 KERNELS = {
@@ -70,6 +74,7 @@ KERNELS = {
     "cascade_suffix_merge": cascade_suffix_merge,
     "quantize_rows": quantize_rows,
     "stream_fold": stream_fold,
+    "gumbel_argmax": gumbel_argmax,
 }
 
 
@@ -87,7 +92,8 @@ def launch_counts() -> Dict[str, int]:
 __all__ = [
     "DECODE_SPLIT", "KERNELS", "cascade_attention", "cascade_attention_plain",
     "cascade_prefix", "cascade_prefix_int8", "cascade_suffix_merge",
-    "flash_attention", "quantize_rows", "suffix_merge_plain",
+    "flash_attention", "gumbel_argmax", "gumbel_argmax_plain",
+    "quantize_rows", "suffix_merge_plain",
     "flash_attention_plain", "flash_decode", "flash_decode_mq",
     "flash_decode_mq_plain", "flash_decode_mq_trunk",
     "flash_decode_mq_trunk_plain", "flash_decode_plain", "flash_decode_trunk",

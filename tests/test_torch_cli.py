@@ -308,9 +308,23 @@ def test_perturbation_cache_matches_the_jax_format(tmp_path):
                                           LEGAL_PROMPTS) == entries
     with pytest.raises(RuntimeError, match="No valid perturbation cache"):
         load_or_generate_perturbations(tmp_path / "port.json", LEGAL_PROMPTS[1:])
-    with pytest.raises(NotImplementedError, match="sample_decode"):
-        load_or_generate_perturbations(tmp_path / "missing.json", LEGAL_PROMPTS,
-                                       generate_text=lambda *a: [])
+    # A missing cache with a rephraser: generated (default key
+    # prng_key(42)) and saved as the JAX package generates and saves it.
+    def script(texts, key):
+        k0, k1 = (int(x) for x in key.reshape(-1).tolist())
+        return [f"1. {k0} {i}\n2 {k1 % 97}\nmore" for i in range(len(texts))]
+
+    from lir_tpu.engine.rephrase import (
+        load_or_generate_perturbations as jax_load_or_generate)
+
+    kw = dict(sessions_per_prompt=3, rephrasings_per_session=2)
+    got = load_or_generate_perturbations(tmp_path / "missing.json",
+                                         LEGAL_PROMPTS, script, **kw)
+    ref = jax_load_or_generate(tmp_path / "missing_jax.json",
+                               JAX_LEGAL_PROMPTS, script, **kw)
+    assert got == ref
+    assert ((tmp_path / "missing.json").read_bytes()
+            == (tmp_path / "missing_jax.json").read_bytes())
 
 
 # ---------------------------------------------------------------------------

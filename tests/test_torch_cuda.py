@@ -32,6 +32,10 @@ card bitwise as it loads to the CPU, in bf16, in float32 and quantized.
 The streaming-statistics fold is bitwise its plain twin (guard on and
 off, strided readouts, refolds), and the sink on the card holds the CPU
 sink's lattice bitwise, its finalize's CIs within 1e-6 of the CPU's.
+The sampler (``gumbel_argmax``) gives its plain twin's ids in both key
+modes, at vocabularies that are and are not a multiple of its chunk,
+with a NaN logit and with tied scores (the lowest index), launch after
+launch.
 """
 
 import dataclasses
@@ -906,3 +910,28 @@ def test_streaming_finalize_on_card_matches_cpu(gen):
             for k in ("ci_lower", "ci_upper", "standard_error"):
                 assert abs(pa[field][k] - pb[field][k]) <= 1e-6 * max(
                     1.0, abs(pb[field][k])), (field, k)
+
+
+@pytest.mark.parametrize("B,V", [(1, 7), (8, 32000), (32, 32000), (3, 50257)])
+@pytest.mark.parametrize("per_row", [False, True], ids=["one_key", "per_row"])
+def test_gumbel_argmax_matches_plain(gen, B, V, per_row):
+    from lir_tpu_torch.engine.generate import sample_keys
+    from lir_tpu_torch.ops.sample import gumbel_argmax_plain
+
+    logits = torch.randn((B, V), generator=gen, device="cuda") * 3
+    key = torch.randint(0, 2**32, (B, 2), generator=gen, device="cuda",
+                        dtype=torch.int64)
+    keys, offsets = sample_keys(key if per_row else key[0], B, V, 3, "cuda")
+    if V > 7:
+        logits[0, V // 2] = float("nan")
+    for t in range(3):
+        for temp in (0.9, 1e-4):
+            got = ops.gumbel_argmax(logits, keys[t], offsets, temp)
+            want = gumbel_argmax_plain(logits, keys[t], offsets, temp)
+            assert torch.equal(got, want)
+    if V > 7:
+        assert int(got[0]) == V // 2   # NaN above every number
+    # Every score tied: the lowest index wins.
+    flat = torch.full((B, V), -float("inf"), device="cuda")
+    assert torch.equal(ops.gumbel_argmax(flat, keys[0], offsets, 1.0),
+                       gumbel_argmax_plain(flat, keys[0], offsets, 1.0))

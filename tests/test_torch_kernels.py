@@ -196,6 +196,9 @@ def test_wrappers_count_only_kernel_launches():
     ops.stream_fold(acc, r, r, r, -torch.rand((3, 20)),
                     torch.zeros(3, dtype=torch.int32),
                     torch.arange(3, dtype=torch.int32))
+    ops.gumbel_argmax(torch.randn((3, 50)),
+                      torch.zeros((3, 2), dtype=torch.int64),
+                      torch.zeros(3, dtype=torch.int64), 0.9)
     assert set(ops.flash_attention.route_launches.values()) == {0}
     assert ops.launch_counts() == {"flash_decode": 0, "flash_decode_trunk": 0,
                                    "cascade_attention": 0,
@@ -207,4 +210,5 @@ def test_wrappers_count_only_kernel_launches():
                                    "row_gemm": 0, "row_norm": 0,
                                    "row_add_norm": 0,
                                    "cascade_suffix_merge": 0,
-                                   "quantize_rows": 0, "stream_fold": 0}
+                                   "quantize_rows": 0, "stream_fold": 0,
+                                   "gumbel_argmax": 0}

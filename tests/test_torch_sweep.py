@@ -230,10 +230,11 @@ def test_legacy_loop_rows_match_jax(jax_run, port_runs):
 
 def test_absent_features_are_absent_and_rows_match(jax_run, port_runs):
     """The JAX sweep's engine features the port has not ported are not
-    flags of the port (none can be set and ignored), the sweep has no
-    reasoning mode, and the port's rows are the JAX sweep's with all of
-    them off. The streaming sink, the numerics guard and the prefix cache
-    are ported: their flags default as the JAX package's."""
+    flags of the port (none can be set and ignored), the sweep's
+    parameters are the JAX sweep's (the reasoning mode's included), and
+    the port's rows are the JAX sweep's with all of them off. The
+    streaming sink, the numerics guard and the prefix cache are ported:
+    their flags default as the JAX package's."""
     fields = {f.name for f in dataclasses.fields(RuntimeConfig)}
     for name in ("piggyback_prefill", "lease_shards", "aot_precompile"):
         assert name not in fields
@@ -244,10 +245,10 @@ def test_absent_features_are_absent_and_rows_match(jax_run, port_runs):
         assert getattr(RuntimeConfig(), name) == \
             getattr(JaxRuntimeConfig(), name)
     params = inspect.signature(tsweep.run_perturbation_sweep).parameters
-    assert "reasoning" not in params and "reasoning_runs" not in params
-    assert list(params) == [
-        p for p in inspect.signature(jsweep.run_perturbation_sweep).parameters
-        if not p.startswith("reasoning")]
+    jparams = inspect.signature(jsweep.run_perturbation_sweep).parameters
+    assert list(params) == list(jparams)
+    for name in ("reasoning", "reasoning_runs", "seed", "checkpoint_every"):
+        assert params[name].default == jparams[name].default
     _compare_rows(jax_run[2], port_runs["spec"][1])
 
 
