@@ -50,7 +50,16 @@ Phases (each raises on failure, so the script exits non-zero):
    one key and a key a row, four temperatures: ids equal to its plain
    twin's (a differing row prints the twin's top-2 gap), again after the
    timing loop, timed beside the empty kernel; its bound counts INT32
-   operations at the card's INT32 rate.
+   operations at the card's INT32 rate. The int8-KV attention
+   (``kv_int8_attention``) at the cascade dispatch's extent, B = 32: the
+   decode step (S = 1, its main-path case), S = spec_k + 1, a 16-token
+   extension, GQA (mistral-7b) and ALiBi (bloom-7b1), on the decode
+   inputs with K and V quantized per vector: its s32 scores bitwise the
+   twin's, its output within ``tie_bar`` (one level of the quantized
+   probabilities at each key whose value sits within 1e-2 of a rounding
+   tie, times the value payload, plus a unit in the output's last place:
+   the two float chains sum in other orders); bound by the int8 payloads
+   and scales, no library call.
    Times by CUDA events after warm-up, the L2 cache flushed before every
    launch and the stream held by a spin kernel while the host enqueues it
    (device time, without the host's launch time); the library yardstick
@@ -180,6 +189,21 @@ Phases (each raises on failure, so the script exits non-zero):
    nothing, once more with ``row_artifact=False`` (no CSV, every cell
    marked, the lattice bitwise the first run's), and each grid with the
    sink off (rows/s beside the sink-on run's: the sink's cost).
+   The chain phase, after the prefix-cache phase: the chain grid (one
+   legal prompt, 160 cells whose openings differ: five shared
+   dispatches of one shape, the plan's piggyback keys printed) through
+   ``run_perturbation_sweep`` with piggyback chains on and then off
+   (rows/s, launches, the chain counters: a chain of at least four, every
+   chain drained, no fallback); the rows bitwise, or else held to twice a
+   half-batch control's movement, flips only at near ties, each
+   reported. Then the int8-KV engine (the bf16 weights, ``cfg`` with
+   ``kv_cache_int8``): the chain grid and the flat grid, rows/s, peak
+   memory beside the bf16-KV engine's, ``kv_int8_attention`` launched and
+   no ``flash_decode*``, the largest differences from the bf16-KV rows
+   (reported). After the small sweep check, the small float32 model
+   with an int8 KV cache over the small flat grid, card against CPU:
+   texts equal save flips within a 1e-2-nat gap under the int8 cache,
+   floats within 1e-2.
    The loader phase, after the bf16 sweep phase, while phase 3's
    llama-2-7b params are resident: they are written as an HF checkpoint
    in fp16 (two safetensors shards by this script's own writer, an
@@ -288,6 +312,8 @@ from lir_tpu_torch.ops.row_gemm import (row_add_norm_plain, row_gemm_plain,
 from lir_tpu_torch.ops.flash_attention import flash_attention_plain
 from lir_tpu_torch.ops.stream_fold import stream_fold_plain
 from lir_tpu_torch.ops.sample import gumbel_argmax_plain, gumbel_scores_plain
+from lir_tpu_torch.ops.kv_int8_attention import (kv_int8_attention_plain,
+                                                 qk_s32_plain, tie_bar)
 from lir_tpu_torch.engine import stream_stats
 from lir_tpu_torch.stats import streaming
 from lir_tpu_torch.stats.core import generator_for, resample_indices
@@ -375,6 +401,10 @@ SOURCES = {
                       "lir_tpu/engine/generate.py:1442 (XLA "
                       "jax.random.categorical)",
                       "B8/V32000/one_key"),
+    "kv_int8_attention": ("lir_tpu_torch/csrc/kv_int8_attention.cu",
+                          "lir_tpu/models/decoder.py:229 (XLA einsums, "
+                          "_attention_cached_int8)",
+                          "llama2-7b/decode"),
 }
 # The streaming-statistics lattice of phase 2 and the stats phase: the
 # paper's five legal prompts x ~2,000 rephrasings, and the top-20 map.
@@ -1184,6 +1214,56 @@ def check_gumbel_argmax(gen, floor_ms, results):
             same(0.9, "after timing")
             log(json.dumps(row))
             results.append(row)
+
+
+def check_kv_int8_attention(gen, label, B, S, H, K, hd, T, alibi, results):
+    """The int8-KV attention kernel against its plain twin at a decode
+    step's (S = 1), a verify window's or an extension's shape: the
+    decode inputs of :func:`decode_inputs` with the cache quantized per
+    vector as the engine stores it. The s32 scores (the kernel's
+    ``s32_out``) bitwise the twin's; the output within ``tie_bar``: the
+    two float chains may put a value of the probabilities on either side
+    of a rounding tie, so each output element may differ by one int8
+    level of pw (times its scale) at each key whose pw sits within 1e-2
+    of a tie, times the value payload there, plus a unit in the last
+    place of the output dtype. Timed beside its bound (the q, the int8
+    payloads and float32 scales of K and V, the int arrays and the
+    output; two s8 products over every key at the int8 rate); no library
+    call computes it (``library_ms`` None)."""
+    q, k, v, qpos, mask, kpos = decode_inputs(gen, B, H, K, hd, T, 0, S=S)
+    kq, ks = quant.dynamic_quant(k)
+    vq, vs = quant.dynamic_quant(v)
+    slopes = decoder.alibi_slopes(H, DEV) if alibi else None
+    args = (q, kq, ks, vq, vs, qpos, mask, kpos)
+    s32 = torch.empty((B, H, S, T), dtype=torch.int32, device=DEV)
+    got = ops.kv_int8_attention(*args, alibi_slopes=slopes, s32_out=s32)
+    ref = kv_int8_attention_plain(*args, alibi_slopes=slopes)
+    bar = tie_bar(*args, alibi_slopes=slopes)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"kv_int8_attention[{label}]: non-finite output")
+    if not torch.equal(s32, qk_s32_plain(q, kq)):
+        raise AssertionError(f"kv_int8_attention[{label}]: s32 scores differ "
+                             f"from the twin's")
+    err = (got.float() - ref.float()).abs()
+    over = int((err > bar).sum())
+    if over:
+        raise AssertionError(f"kv_int8_attention[{label}]: {over} outputs "
+                             f"past the tie bar (max |err| "
+                             f"{float(err.max()):.3e})")
+    byts = nbytes(q, kq, ks, vq, vs, qpos, mask, kpos, slopes) + nbytes(got)
+    b_ms, b_by = bound(byts, 0.0, 4.0 * B * H * S * T * hd)
+    row = dict(kernel="kv_int8_attention", case=label, B=B, S=S, H=H, K=K,
+               hd=hd, T=T, max_abs_err=float(err.max()),
+               max_tie_bar=float(bar.max()), s32_bitwise=True,
+               elements_differing=int((err > 0).sum()),
+               kernel_ms=time_ms(lambda: ops.kv_int8_attention(
+                   *args, alibi_slopes=slopes)),
+               plain_ms=time_ms(lambda: kv_int8_attention_plain(
+                   *args, alibi_slopes=slopes), iters=3),
+               library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    log(json.dumps(row))
+    results.append(row)
 
 
 def check_flash_attention(gen, label, B, S, H, K, hd, alibi, results):
@@ -2378,7 +2458,8 @@ def shape_control(kind, engine, grids: dict, tmp: Path, names) -> dict:
     row against the full-batch cache-off sweep's in ``tmp``, measured
     only. Returns per grid the differences and flips, and ``bars``:
     CONTROL_FACTOR times each field's largest difference."""
-    eng = engine_with(engine, batch_size=engine.rt.batch_size // 2)
+    eng = engine_with(engine, batch_size=engine.rt.batch_size // 2,
+                      piggyback_prefill=False)
     out = {}
     for name in names:
         path = tmp / f"{kind}_{name}_control.csv"
@@ -2604,6 +2685,323 @@ def run_prefix_int8_trunk(engine8, rt, grids, tmp: Path) -> dict:
     out["control"] = control
     del eng
     torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The chain phase (piggyback chains) and the int8-KV phase
+# ---------------------------------------------------------------------------
+
+# The chain grid: one legal prompt, its rephrasings opening differently
+# (no trunk, no group), sized so that the plan is five dispatches of 32
+# at one shape.
+CHAIN_PROMPT = 2
+CHAIN_CELLS = 160
+# The chain must hold at least this many consecutive same-shape
+# dispatches (one opening call, this many less one piggybacked steps).
+CHAIN_MIN_RUN = 4
+KV8_ROUTE = ("kv_int8_attention",)
+FLOAT_DECODE = ("flash_decode", "flash_decode_trunk", "flash_decode_mq",
+                "flash_decode_mq_trunk")
+# The small float32 model with an int8 KV cache, card against CPU: a
+# differing id is allowed where the two ids' log-probs under the int8
+# cache (a forced decode on the CPU) are within this (one int8 level of a
+# cached k/v moves a logit by about 1e-3 at this width), and the D6
+# floats within KV8_SMALL_TOL (a level moves them by as much).
+KV8_SMALL_TIE = 1e-2
+KV8_SMALL_TOL = 1e-2
+
+
+def chain_grid() -> tuple:
+    """(prompts, perturbations) of the chain phase: CHAIN_PROMPT's text
+    behind openings that differ ("Variation r:"), CHAIN_CELLS cells."""
+    p = LEGAL_PROMPTS[CHAIN_PROMPT]
+    words = p.main.split()
+
+    def tail(r):
+        return " ".join(words[r % 7: r % 7 + 10 + r % 13])
+
+    return [p], [[f"Variation {r}: {p.main} {tail(r)}"
+                  for r in range(CHAIN_CELLS - 1)]]
+
+
+def chain_keys(engine, prompts, perts, rt) -> list:
+    """Each planned dispatch's piggyback key as the sweep computes it
+    (``sweep.chain_keys``: bucket, rows, suffix buckets; None for a
+    grouped dispatch or one that takes the cascade)."""
+    _, dispatches, _ = plan_sweep(engine, prompts, perts, rt)
+    return sweep.chain_keys(engine, dispatches, rt.batch_size)
+
+
+def longest_run(keys) -> int:
+    best = run = 0
+    for i, k in enumerate(keys):
+        run = run + 1 if k is not None and i and keys[i - 1] == k else (
+            1 if k is not None else 0)
+        best = max(best, run)
+    return best
+
+
+def timed_sweep(eng, prompts, perts, path: Path) -> dict:
+    """One sweep: rows/s by the host clock around work that ends in a
+    synchronize, the launch counts (reset just before, read just after),
+    the chain counters it added and the peak device memory."""
+    chain0 = dict(eng.kernel_stats.counters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    rows = sweep.run_perturbation_sweep(eng, SWEEP_MODEL, prompts, perts,
+                                        path)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return dict(rows=len(rows), seconds=dt, rows_per_s=len(rows) / dt,
+                chain={k: v - chain0.get(k, 0)
+                       for k, v in eng.kernel_stats.counters.items()
+                       if v != chain0.get(k, 0)},
+                launches=ops.launch_counts(),
+                max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+
+
+def run_chain_phase(engine, rt, tmp: Path) -> dict:
+    """The piggyback chain on the bf16 engine: the chain grid (its plan's
+    keys printed; a run of at least CHAIN_MIN_RUN same-shape dispatches
+    required) swept with chains on, then on an engine with them off.
+    With chains on: ``piggybacked_steps`` at least CHAIN_MIN_RUN - 1,
+    every opened chain drained, ``chain_fallbacks`` 0 (a fallback fails
+    the run), ``flash_decode`` launched; off: no chain counter. The rows
+    of the two runs: bitwise, or else within CONTROL_FACTOR times the
+    movement of a control that changes the plain dispatch's attention
+    extent alone (:func:`chain_control`; :func:`compare_d6`, flips only
+    at near ties, each reported). A half-batch control, as the prefix
+    phase takes, measures a row-count change; on this grid it moves a
+    row by ~1e-5, where the chain changes something else: its
+    extensions reduce over the chain's longer cache, and the confidence
+    branch's keys sit in other slots."""
+    prompts, perts = chain_grid()
+    keys = chain_keys(engine, prompts, perts, rt)
+    run = longest_run(keys)
+    log(json.dumps({"phase": "chain_plan", "keys": keys,
+                    "longest_same_key_run": run}))
+    if run < CHAIN_MIN_RUN:
+        raise AssertionError(f"chain grid: longest same-shape run {run}")
+    on = timed_sweep(engine, prompts, perts, tmp / "bf16_chain_on.csv")
+    ch = on["chain"]
+    if (ch.get("piggybacked_steps", 0) < CHAIN_MIN_RUN - 1
+            or ch.get("chains_drained", 0) != ch.get("chains_opened", 0)
+            or ch.get("chain_fallbacks", 0)
+            or on["launches"]["flash_decode"] <= 0):
+        raise AssertionError(f"chain phase: counters {ch}, launches "
+                             f"{on['launches']}")
+    off_eng = engine_with(engine, piggyback_prefill=False)
+    off = timed_sweep(off_eng, prompts, perts, tmp / "bf16_chain_off.csv")
+    if off["chain"]:
+        raise AssertionError(f"chain phase: chains with the flag off "
+                             f"{off['chain']}")
+    ref = d6_records(tmp / "bf16_chain_off.csv")
+    got = d6_records(tmp / "bf16_chain_on.csv")
+    out = dict(keys=keys, on=on, off=off, bitwise=got == ref)
+    if not out["bitwise"]:
+        out["control"] = chain_control(engine, rt, prompts, perts, ref, got,
+                                       tmp)
+        bars = {f: CONTROL_FACTOR * d
+                for f, d in out["control"]["max_abs_diff"].items()}
+        out["vs_off"] = compare_d6("bf16 chain on vs off", ref, got, engine,
+                                   bars)
+    del off_eng
+    torch.cuda.empty_cache()
+    log(json.dumps({"phase": "chain", **{k: v for k, v in out.items()
+                                         if k != "keys"}}))
+    return out
+
+
+def d6_float_diffs(ref: dict, got: dict) -> dict:
+    """The largest difference of each D6 float field, and of the top-20
+    log-probs of ids in both maps, between two sweeps' rows."""
+    worst = {f: 0.0 for f in D6_FLOATS + ("Log Probabilities",)}
+    for key, b in got.items():
+        a = ref[key]
+        for f in D6_FLOATS:
+            worst[f] = max(worst[f], abs(float(a[f]) - float(b[f])))
+        la, lb = json.loads(a["Log Probabilities"]), json.loads(
+            b["Log Probabilities"])
+        worst["Log Probabilities"] = max(worst["Log Probabilities"], max(
+            (abs(la[i] - lb[i]) for i in la.keys() & lb.keys()), default=0.0))
+    return worst
+
+
+def chain_control(engine, rt, prompts, perts, ref: dict, got: dict,
+                  tmp: Path) -> dict:
+    """The chain's control: the plain dispatches (chains off) with the
+    confidence budget raised by the binary branch's suffix bucket and
+    budget, so that both branches' suffix extensions reduce over the
+    chain's cache extent (S + S2a + new_a + S2b + new_b) with their keys
+    where the plain path puts them; each row's position-0 floats against
+    the plain run's ``ref`` (measured, not held; its confidence texts are
+    longer and not compared). The binary branch's readouts then
+    reproduce the chain's own ``got`` (same extent, same slots; reported
+    as ``binary_readouts_equal_chain``); the confidence branch's differ
+    from the chain's by its slot shift."""
+    _, dispatches, _ = plan_sweep(engine, prompts, perts, rt)
+    sfx_a = max(d.sfx_bucket_a for d in dispatches)
+    conf = rt.sweep_confidence_tokens + sfx_a + rt.sweep_decode_tokens
+    eng = engine_with(engine, piggyback_prefill=False,
+                      sweep_confidence_tokens=conf)
+    path = tmp / "bf16_chain_control.csv"
+    sweep.run_perturbation_sweep(eng, SWEEP_MODEL, prompts, perts, path)
+    del eng
+    rows = d6_records(path)
+    binary = ("Token_1_Prob", "Token_2_Prob", "Log Probabilities")
+    return dict(sweep_confidence_tokens=conf,
+                max_abs_diff=d6_float_diffs(ref, rows),
+                binary_readouts_equal_chain=all(
+                    rows[k][f] == got[k][f] for k in got for f in binary))
+
+
+def kv8_engine(engine):
+    """An engine on ``engine``'s weights (no second load) whose config
+    stores the KV cache in int8."""
+    return ScoringEngine(engine.params,
+                         dataclasses.replace(engine.cfg, kv_cache_int8=True),
+                         engine.tokenizer, engine.rt,
+                         cascade_config=engine.cascade_cfg,
+                         spec_config=engine.spec_cfg, device=engine.device)
+
+
+def d6_gaps(ref: dict, got: dict) -> dict:
+    """Two sweeps' rows of one grid: the largest difference of each D6
+    float (:func:`d6_float_diffs`) and the rows whose texts differ
+    (measured, not held)."""
+    return dict(max_abs_diff=d6_float_diffs(ref, got), rows=len(got),
+                rows_text_differs=sum(
+                    any(ref[k][f] != b[f] for f in D6_PROMPTS)
+                    for k, b in got.items()))
+
+
+def run_kv_int8_phase(engine, rt, grids, tmp: Path, flat_peak: int) -> dict:
+    """The int8 KV cache at llama-2-7b width: an engine on the bf16
+    weights with ``kv_cache_int8`` (its cascade gates off), the chain
+    grid (chains on) and the flat grid (three speculative dispatches, the
+    1,024-bucket tail among them) swept: rows/s, peak memory beside the
+    bf16-KV engine's (``flat_peak`` for the flat grid, the chain phase's
+    for the chain grid), ``kv_int8_attention`` launched and no float
+    decode kernel, the chain's counters, and each grid's largest
+    differences from the bf16-KV rows (reported, not held: the int8
+    cache rounds every k/v)."""
+    eng = kv8_engine(engine)
+    if eng.cascade_supported() or eng.cascade_decode_supported():
+        raise AssertionError("int8 KV engine: cascade gates on")
+    out = {}
+    for name, (prompts, perts), ref in (
+            ("chain", chain_grid(), tmp / "bf16_chain_on.csv"),
+            ("flat", grids["flat"], tmp / "bf16_flat.csv")):
+        path = tmp / f"kv8_{name}.csv"
+        st = timed_sweep(eng, prompts, perts, path)
+        n = check_d6(f"kv8 {name}", path, st["rows"])
+        lau = st["launches"]
+        if (any(lau[k] <= 0 for k in KV8_ROUTE)
+                or any(lau[k] for k in FLOAT_DECODE)):
+            raise AssertionError(f"kv8 {name}: launches {lau}")
+        if name == "chain" and (st["chain"].get("chain_fallbacks", 0)
+                                or st["chain"].get("piggybacked_steps", 0)
+                                < CHAIN_MIN_RUN - 1):
+            raise AssertionError(f"kv8 chain: counters {st['chain']}")
+        st["rows_on_disk"] = n
+        st["vs_bf16_kv"] = d6_gaps(d6_records(ref), d6_records(path))
+        out[name] = st
+    out["flat"]["bf16_kv_peak_bytes"] = flat_peak
+    out["flat"]["peak_saving_bytes"] = (
+        flat_peak - out["flat"]["max_memory_allocated_bytes"])
+    # The flat grid's largest dispatch (the promoted tail): its cache at
+    # the speculative extent, in both layouts.
+    _, dispatches, _ = plan_sweep(engine, *grids["flat"], rt)
+    d = max(dispatches, key=lambda d: d.bucket)
+    T = generate.spec_total_len(d.bucket, d.sfx_bucket_a, d.sfx_bucket_b,
+                                rt.sweep_decode_tokens,
+                                rt.sweep_confidence_tokens, rt.spec_k)
+    out["flat_tail_cache_bytes"] = dict(
+        bucket=d.bucket, T=T,
+        bf16=decoder.kv_cache_bytes(engine.cfg, rt.batch_size, T),
+        int8=decoder.kv_cache_bytes(eng.cfg, rt.batch_size, T))
+    log(json.dumps({"phase": "kv_int8", **out}))
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+@torch.inference_mode()
+def kv8_flip_gap(eng, prompt: str, text_a: str, text_b: str) -> float:
+    """|log p(a) - log p(b)| of the two ids where two completions of
+    ``prompt`` part, under ``eng``'s int8 cache: the prompt prefilled,
+    the common ids before that step decoded through the cache."""
+    a, b = completion_ids(text_a), completion_ids(text_b)
+    j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+             min(len(a), len(b)))
+    ids = [a[j] if j < len(a) else eng.eos_id,
+           b[j] if j < len(b) else eng.eos_id]
+    toks = torch.tensor([eng.tokenizer(prompt).input_ids], dtype=torch.int32,
+                        device=eng.device)
+    n = toks.shape[1]
+    logits, cache, pos = decoder.prefill(eng.params, eng.cfg, toks,
+                                         torch.ones_like(toks), n + j)
+    cm = torch.zeros((1, n + j), dtype=torch.int32, device=eng.device)
+    cm[:, :n] = 1
+    for t in range(j):
+        cm[:, n + t] = 1
+        logits, cache = decoder.decode_step(
+            eng.params, eng.cfg, cache,
+            torch.tensor([a[t]], dtype=torch.int32, device=eng.device),
+            pos + t, n + t, cm)
+    lp = torch.log_softmax(logits[0].float(), dim=-1)[ids].tolist()
+    return abs(lp[0] - lp[1])
+
+
+def kv8_small_check(cfg, params_cpu, params_gpu) -> dict:
+    """The small float32 model with an int8 KV cache, card against CPU:
+    the flat grid of sweep_grids(3) (chained and speculative dispatches
+    at B = 4). Texts equal save flips where the two ids' log-probs under
+    the CPU's int8 cache are within KV8_SMALL_TIE (each reported);
+    Token_1/2_Prob, Weighted Confidence (over 100) and the common top-20
+    log-probs within KV8_SMALL_TOL; the same chain counters on both."""
+    cfg8 = dataclasses.replace(cfg, kv_cache_int8=True)
+    prompts, perts = sweep_grids(3)["flat"]
+    rt = RuntimeConfig(batch_size=4, max_new_tokens=12)
+    recs, engines = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for side, params, dev in (("card", params_gpu, DEV),
+                                  ("cpu", params_cpu, "cpu")):
+            eng = ScoringEngine(params, cfg8, FakeTokenizer(), rt, device=dev)
+            path = Path(tmp) / f"{side}.csv"
+            ops.reset_launches()
+            sweep.run_perturbation_sweep(eng, "smoke-tiny", prompts, perts,
+                                         path)
+            if (side == "card"
+                    and ops.launch_counts()["kv_int8_attention"] <= 0):
+                raise AssertionError("kv8 small: the kernel never launched")
+            recs[side], engines[side] = d6_records(path), eng
+    card, cpu = recs["card"], recs["cpu"]
+    flips = []
+    for key, a in cpu.items():
+        b = card[key]
+        for f, prompt in D6_PROMPTS.items():
+            if a[f] != b[f]:
+                gap = kv8_flip_gap(engines["cpu"], a[prompt], a[f], b[f])
+                flips.append(dict(field=f, gap=gap))
+                if gap > KV8_SMALL_TIE:
+                    raise AssertionError(f"kv8 small: {f} differs card vs "
+                                         f"CPU at a gap of {gap}")
+    gaps = d6_gaps(cpu, card)
+    worst = dict(gaps["max_abs_diff"])
+    worst["Weighted Confidence"] /= 100.0
+    if max(worst.values()) > KV8_SMALL_TOL or (
+            engines["card"].kernel_stats.counters
+            != engines["cpu"].kernel_stats.counters):
+        raise AssertionError(f"kv8 small: card vs CPU {gaps}, chains "
+                             f"{engines['card'].kernel_stats.counters} vs "
+                             f"{engines['cpu'].kernel_stats.counters}")
+    out = dict(rows=len(card), flips=flips, max_abs_diff=gaps["max_abs_diff"],
+               chain=engines["card"].kernel_stats.counters)
+    log(json.dumps({"phase": "kv_int8_small", **out}))
     return out
 
 
@@ -4636,12 +5034,24 @@ def main() -> int:
     check_row_add_norm(gen, "falcon-7b/M32", BATCH, 4544, floor_ms, results)
     check_stream_fold(gen, floor_ms, results)
     check_gumbel_argmax(gen, floor_ms, results)
+    # The int8-KV attention at the cascade dispatch's extent: the decode
+    # step, a verify window, a 16-token extension, GQA and ALiBi.
+    for label, S_, H_, K_, alibi in (
+            ("llama2-7b/decode", 1, H, K, False),
+            ("llama2-7b/verify", rt.spec_k + 1, H, K, False),
+            ("llama2-7b/extend16", 16, H, K, False),
+            ("mistral-7b/gqa", 1, 32, 8, False),
+            ("bloom-7b1/alibi", 1, 32, 32, True)):
+        check_kv_int8_attention(gen, label, BATCH, S_, H_, K_, hd, T0, alibi,
+                                results)
     elapsed("kernels_vs_plain")
     small = small_model()
     small_slice_check(*small)
     elapsed("small_slice")
     small_sweep_check(*small)
     elapsed("small_sweep")
+    kv8_small_check(*small)
+    elapsed("kv_int8_small")
     t5_small = t5_small_check()
     elapsed("t5_small")
     run_stream_stats_phase()
@@ -4679,7 +5089,17 @@ def main() -> int:
         prefix = run_prefix_cache_phase(
             engine, rt, grids, Path(tmp),
             sweeps["bf16"]["flat"]["max_memory_allocated_bytes"])
-    elapsed("prefix_cache")
+        elapsed("prefix_cache")
+        # Piggyback chains, then the int8 KV cache on the same weights.
+        chain = run_chain_phase(engine, rt, Path(tmp))
+        elapsed("chain")
+        kv8 = run_kv_int8_phase(
+            engine, rt, grids, Path(tmp),
+            sweeps["bf16"]["flat"]["max_memory_allocated_bytes"])
+        elapsed("kv_int8")
+    for st in (chain["on"], kv8["chain"], kv8["flat"]):
+        for name, n in st["launches"].items():
+            launches[name] += n
     # The loader phase, while phase 3's llama-2-7b params are resident.
     loader_stats = run_loader_phase(params, cfg)
     for name, n in loader_stats["launches"].items():

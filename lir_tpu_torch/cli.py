@@ -10,10 +10,10 @@
 Port of the ``sweep``, ``perturb``, ``analyze``, ``survey``, ``repro``
 and ``rephrase`` commands of ``lir_tpu/cli.py``.
 Each flag lands in the same ``RuntimeConfig`` / ``SpecConfig`` /
-``CascadeConfig`` field as there. A flag of a feature the port does not
-have yet (meshes, the parameter cache, the int8 KV cache, leased shards,
-the fleet, the watchdog, tracing) is not defined, so argparse rejects
-it. ``--device`` (default ``cuda``) says where the models and the
+``CascadeConfig`` field as there (``--kv-cache-int8`` in
+``models.factory.load_engine(kv_cache_int8=)``). A flag of a feature the
+port does not have yet (meshes, the parameter cache, leased shards, the
+fleet, the watchdog, tracing) is not defined, so argparse rejects it. ``--device`` (default ``cuda``) says where the models and the
 statistics run; the CPU must be asked for. Where matplotlib is absent,
 ``analyze``, ``survey`` and ``repro`` log that figures were skipped and
 write everything else; ``repro --no-figures`` also reaches the survey
@@ -52,6 +52,10 @@ def _add_common(p) -> None:
     p.add_argument("--int8-dynamic", action="store_true",
                    help="with --int8: quantize activations per token and "
                         "run s8 x s8 products")
+    p.add_argument("--kv-cache-int8", action="store_true",
+                   help="store the KV cache int8 with per-vector scales: "
+                        "half the cache bytes, s8 x s8 cached attention "
+                        "(no effect on an encoder-decoder)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the model runs (default cuda; cpu runs every "
                         "kernel's plain PyTorch version)")
@@ -130,6 +134,10 @@ def _add_perturb(sub) -> None:
     p.add_argument("--no-fused-decode", action="store_true",
                    help="dense decode attention instead of the flash-decode "
                         "kernels")
+    p.add_argument("--no-piggyback", action="store_true",
+                   help="disable piggyback chains (each shared dispatch then "
+                        "runs its own prefill and decode call; results "
+                        "identical)")
     p.add_argument("--no-spec-decode", action="store_true",
                    help="disable speculative scoring decode")
     p.add_argument("--spec-k", type=_positive_int, default=None,
@@ -276,6 +284,7 @@ def _perturb_configs(args):
             rt_kw[name] = getattr(args, name)
     for flag, field in (("no_ragged_scheduler", "ragged_scheduler"),
                         ("no_fused_decode", "fused_decode"),
+                        ("no_piggyback", "piggyback_prefill"),
                         ("no_spec_decode", "spec_decode"),
                         ("no_cascade_prefill", "cascade_prefill"),
                         ("no_cascade_decode", "cascade_decode"),
@@ -324,7 +333,7 @@ def cmd_sweep(args) -> None:
     factory = engine_factory(
         args.checkpoints, RuntimeConfig(batch_size=args.batch_size),
         quantize_int8=args.int8, int8_dynamic=args.int8_dynamic,
-        device=args.device)
+        device=args.device, kv_cache_int8=args.kv_cache_int8)
     run_model_comparison_sweep(_parse_models(args.models), factory, args.out,
                                sweep_kind=args.sweep_kind)
 
@@ -339,7 +348,8 @@ def cmd_perturb(args) -> None:
     factory = engine_factory(
         args.checkpoints, rt, quantize_int8=args.int8,
         int8_dynamic=args.int8_dynamic, spec_config=spec_cfg,
-        cascade_config=cascade_cfg, device=args.device)
+        cascade_config=cascade_cfg, device=args.device,
+        kv_cache_int8=args.kv_cache_int8)
     entries = load_or_generate_perturbations(args.perturbations, LEGAL_PROMPTS)
     perturbations = [rephrasings for _, rephrasings in entries]
     engine = factory(args.model)

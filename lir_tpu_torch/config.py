@@ -4,11 +4,13 @@ A copy of the part of the JAX package's ``RuntimeConfig``,
 ``SpecConfig``, ``CascadeConfig`` and ``PerturbationConfig`` that this
 port implements. A flag
 of the JAX engine that the port does not implement yet (fleet drafting,
-piggyback prefill, the int8 KV cache, the watchdog, leased shards, the
-XLA compile plan) is absent here, so that no caller can set it and have
-it ignored. int8 weights are not a flag: they are
-a param tree of ``models.quant.QuantTensor`` leaves
-(``quantize_decoder_params`` or ``init_quantized_params``).
+the memory governor, the watchdog, leased shards, the XLA compile plan)
+is absent here, so that no caller can set it and have it ignored. int8
+weights are not a flag: they are a param tree of
+``models.quant.QuantTensor`` leaves (``quantize_decoder_params`` or
+``init_quantized_params``); the int8 KV cache is
+``ModelConfig.kv_cache_int8`` (``models.factory.load_engine(
+kv_cache_int8=True)``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -94,6 +96,16 @@ class RuntimeConfig:
     # off restores the dense decode path. Mirrored into
     # ModelConfig.fused_decode.
     fused_decode: bool = True
+
+    # Piggyback chains: the ragged sweep parks each chained shared
+    # dispatch's decode loops and runs them in the same engine call as
+    # the NEXT same-shape dispatch's prefill
+    # (generate.shared_piggyback_*), on one stream with no host sync
+    # between them. A chained dispatch decodes on the sequential loop,
+    # its two branches in disjoint cache regions; its rows are the plain
+    # dispatch's. Off (--no-piggyback): every shared dispatch runs on
+    # its own.
+    piggyback_prefill: bool = True
 
     # Shared-trunk cascade prefill (ops/cascade_prefill + generate.
     # greedy_decode_fused_shared_cascade): a shared dispatch whose rows

@@ -16,6 +16,14 @@ is the temperature sampler of the rephraser and the reasoning sweep: the
 same loop with ``ops.gumbel_argmax`` (JAX's threefry draws) in place of
 the argmax.
 
+The piggyback chain (:func:`shared_piggyback_prefill`,
+:func:`shared_piggyback_step`, :func:`shared_piggyback_drain`) runs a
+shared dispatch's prefill and suffix extensions in one call and parks its
+two decode loops in a :class:`PiggybackCarry`; the next call runs them
+before its own prefill, on one stream with no host sync between them,
+and refills the spent carry's cache buffers (the JAX package donates
+them). Its two branches keep disjoint cache regions.
+
 The speculative variant (:func:`greedy_decode_fused_shared_spec`)
 replaces each branch's sequential loop by a loop over verify WINDOWS of
 ``spec_k`` teacher-forced positions (:func:`_spec_tail`); its
@@ -328,6 +336,142 @@ def greedy_decode_fused_shared(params, cfg: ModelConfig, prefix, prefix_mask,
     return out if return_cache else out[:2]
 
 
+# ---------------------------------------------------------------------------
+# Piggyback chains: a parked dispatch's decode loops ride the next prefill
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class PiggybackCarry:
+    """One shared dispatch parked between engine calls with its decode
+    loops still to run: its prefill and both suffix extensions have run,
+    and the next call of the chain runs its two loops before that call's
+    own prefill (:func:`shared_piggyback_step`), one engine call a
+    dispatch.
+
+    A parked cache must keep BOTH branches alive, so its layout gives
+    each branch a region of its own: slots [S, S + S2a + max_new_a) for
+    branch A, then branch B's suffix and decode slots after it. Slots are
+    physical only (positions, masks and causality are mask-aware), so a
+    row's results are the plain dispatch's."""
+
+    logits_a: torch.Tensor   # (B, V) float32, branch A's first position
+    logits_b: torch.Tensor
+    cache: object            # the KV cache, the branches' regions disjoint
+    cm_a: torch.Tensor       # (B, T) branch A's cache mask (B's region 0)
+    cm_b: torch.Tensor
+    pos_a: torch.Tensor      # (B,) next mask-aware decode positions
+    pos_b: torch.Tensor
+
+
+def piggyback_total_len(S: int, S2a: int, S2b: int, max_new_a: int,
+                        max_new_b: int) -> int:
+    """Cache extent of a chained dispatch: both branch regions after the
+    prefix, S + S2a + max_new_a + S2b + max_new_b."""
+    return S + S2a + max_new_a + S2b + max_new_b
+
+
+def _piggyback_extend(params, cfg: ModelConfig, prefix, prefix_mask, sfx_a,
+                      sfx_a_mask, sfx_b, sfx_b_mask, max_new_a: int,
+                      max_new_b: int, cache=None) -> PiggybackCarry:
+    """Prefill + both suffix extensions WITHOUT the decode loops, into
+    the disjoint-region layout (see PiggybackCarry). ``cache``: a spent
+    carry's buffers of this layout to fill instead of new ones."""
+    B, S = prefix.shape
+    S2a, S2b = sfx_a.shape[1], sfx_b.shape[1]
+    T = piggyback_total_len(S, S2a, S2b, max_new_a, max_new_b)
+    _, cache, _ = decoder.prefill(params, cfg, prefix, prefix_mask, T,
+                                  cache=cache)
+
+    def zeros(n):
+        return torch.zeros((B, n), dtype=prefix_mask.dtype,
+                           device=prefix_mask.device)
+
+    cm_a = torch.cat([prefix_mask, sfx_a_mask, zeros(T - S - S2a)], dim=1)
+    logits_a, cache, pos_a = decoder.extend(params, cfg, cache, sfx_a,
+                                            sfx_a_mask, cm_a, S)
+    off_b = S + S2a + max_new_a
+    cm_b = torch.cat([prefix_mask, zeros(S2a + max_new_a), sfx_b_mask,
+                      zeros(max_new_b)], dim=1)
+    logits_b, cache, pos_b = decoder.extend(params, cfg, cache, sfx_b,
+                                            sfx_b_mask, cm_b, off_b)
+    return PiggybackCarry(logits_a=logits_a, logits_b=logits_b, cache=cache,
+                          cm_a=cm_a, cm_b=cm_b, pos_a=pos_a, pos_b=pos_b)
+
+
+def _piggyback_scan(params, cfg: ModelConfig, carry: PiggybackCarry,
+                    yes_ids, no_ids, digit_ids, digit_vals, slot0_a: int,
+                    slot0_b: int, max_new_a: int, max_new_b: int, topk: int,
+                    stop_mask_a, stop_mask_b, eos_id):
+    """The parked dispatch's two fused decode loops (branch A, then B,
+    over the one carried cache; B's mask leaves out A's region, so each
+    row's results are the plain dispatch's). Returns (binary out,
+    confidence out)."""
+    dev = carry.logits_a.device
+    empty_ids = torch.zeros((0,), dtype=torch.int32, device=dev)
+    empty_vals = torch.zeros((0,), dtype=torch.float32, device=dev)
+    out_a, cache = _fused_tail(params, cfg, carry.logits_a, carry.cache,
+                               carry.cm_a, carry.pos_a, slot0_a, yes_ids,
+                               no_ids, empty_ids, empty_vals, max_new_a, topk,
+                               stop_mask=stop_mask_a, eos_id=eos_id)
+    out_b, _ = _fused_tail(params, cfg, carry.logits_b, cache, carry.cm_b,
+                           carry.pos_b, slot0_b, yes_ids, no_ids, digit_ids,
+                           digit_vals, max_new_b, topk,
+                           stop_mask=stop_mask_b, eos_id=eos_id)
+    return out_a, out_b
+
+
+@torch.inference_mode()
+def shared_piggyback_prefill(params, cfg: ModelConfig, prefix, prefix_mask,
+                             sfx_a, sfx_a_mask, sfx_b, sfx_b_mask,
+                             max_new_a: int, max_new_b: int
+                             ) -> PiggybackCarry:
+    """Open a piggyback chain: the first dispatch's prefill and suffix
+    extensions; its decode loops are parked in the returned carry."""
+    return _piggyback_extend(params, cfg, prefix, prefix_mask, sfx_a,
+                             sfx_a_mask, sfx_b, sfx_b_mask, max_new_a,
+                             max_new_b)
+
+
+@torch.inference_mode()
+def shared_piggyback_step(params, cfg: ModelConfig, carry: PiggybackCarry,
+                          prefix, prefix_mask, sfx_a, sfx_a_mask, sfx_b,
+                          sfx_b_mask, yes_ids, no_ids, digit_ids, digit_vals,
+                          max_new_a: int, max_new_b: int, topk: int = 20,
+                          stop_mask_a=None, stop_mask_b=None, eos_id=None):
+    """One piggybacked call: the PARKED dispatch's decode loops, then the
+    NEXT dispatch's prefill and suffix extensions, queued on one stream
+    with no host sync between them. ``yes_ids``/``no_ids`` and the stop
+    tables belong to the parked dispatch; the chain's shapes and budgets
+    are the same by construction (the sweep chains same-shape dispatches
+    only), so the new carry fills the old carry's cache buffers, which
+    the parked loops have read by then in stream order (the JAX package
+    donates the old carry). Returns (parked binary out, parked confidence
+    out, new carry)."""
+    S = prefix.shape[1]
+    S2a, S2b = sfx_a.shape[1], sfx_b.shape[1]
+    out_a, out_b = _piggyback_scan(
+        params, cfg, carry, yes_ids, no_ids, digit_ids, digit_vals, S + S2a,
+        S + S2a + max_new_a + S2b, max_new_a, max_new_b, topk, stop_mask_a,
+        stop_mask_b, eos_id)
+    new_carry = _piggyback_extend(params, cfg, prefix, prefix_mask, sfx_a,
+                                  sfx_a_mask, sfx_b, sfx_b_mask, max_new_a,
+                                  max_new_b, cache=carry.cache)
+    return out_a, out_b, new_carry
+
+
+@torch.inference_mode()
+def shared_piggyback_drain(params, cfg: ModelConfig, carry: PiggybackCarry,
+                           yes_ids, no_ids, digit_ids, digit_vals,
+                           slot0_a: int, slot0_b: int, max_new_a: int,
+                           max_new_b: int, topk: int = 20, stop_mask_a=None,
+                           stop_mask_b=None, eos_id=None):
+    """Close a piggyback chain: the last parked dispatch's decode loops
+    alone. Returns (binary out, confidence out)."""
+    return _piggyback_scan(params, cfg, carry, yes_ids, no_ids, digit_ids,
+                           digit_vals, slot0_a, slot0_b, max_new_a,
+                           max_new_b, topk, stop_mask_a, stop_mask_b, eos_id)
+
+
 def _paged_prefix(params, cfg: ModelConfig, pool, slot_src: torch.Tensor,
                   win_start: int, prefix_mask: torch.Tensor,
                   rem: torch.Tensor, rem_mask: torch.Tensor, total_len: int):
@@ -358,7 +502,7 @@ def _paged_prefix(params, cfg: ModelConfig, pool, slot_src: torch.Tensor,
     from ..models import paged
 
     cache = paged.gather_slots(pool, slot_src, total_len)
-    view = tuple(c[:, :, :S] for c in cache)                 # S-slot view
+    view = decoder.cache_map(lambda c: c[:, :, :S], cache)   # S-slot view
     decoder.extend(params, cfg, view, rem, rem_mask, prefix_mask,
                    int(win_start))
     return cache
@@ -776,7 +920,7 @@ def _shared_spec_branches(params, cfg: ModelConfig, cache, prefix_mask,
     def branch(cache_in, sfx, sfx_mask, new_tokens, d_ids, d_vals, ctx,
                ctx_len, dr, dr_len, stop_mask):
         S2 = sfx.shape[1]
-        view = tuple(c[:, :, :T0_seq] for c in cache_in)
+        view = decoder.cache_map(lambda c: c[:, :, :T0_seq], cache_in)
         logits_l, _, _ = decoder.extend(params, cfg, view, sfx, sfx_mask,
                                         cache_mask(sfx_mask, T0_seq), S)
         return _spec_tail(

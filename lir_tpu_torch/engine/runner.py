@@ -36,6 +36,16 @@ The 8-bit path is the same engine with int8 params
 ``CascadeConfig(int8_qk=True)`` (the two-leg cascade, int8 QK^T in its
 trunk leg).
 
+Piggyback chains (``RuntimeConfig.piggyback_prefill``, on by default as
+in the JAX engine): the ragged sweep submits runs of consecutive
+same-shape shared dispatches without a cascade trunk through
+:meth:`ScoringEngine.decode_fused_shared_piggy`, each call running the
+parked dispatch's decode loops and then its own prefill
+(``generate.shared_piggyback_*``); ``kernel_stats`` counts the chains.
+With ``ModelConfig.kv_cache_int8`` the cache is int8 and its cached
+attention runs ``ops.kv_int8_attention``; the cascade routes are off
+there, as in the JAX engine.
+
 Temperature sampling (``sample_completions*``, ``score_prompts_sampled``:
 the rephraser and the sweep's reasoning mode) runs
 ``generate.sample_decode`` on decoder engines, with JAX's threefry keys
@@ -55,8 +65,8 @@ import torch
 
 from ..config import CascadeConfig, RuntimeConfig, SpecConfig
 from ..device import resolve_device
-from ..models import decoder, paged
-from ..utils.profiling import GuardStats, PrefixCacheStats
+from ..models import decoder, paged, quant
+from ..utils.profiling import GuardStats, KernelStats, PrefixCacheStats
 from . import (generate, prefix_tree, prng, score, spec as spec_mod,
                tokens as tok)
 
@@ -64,6 +74,13 @@ log = logging.getLogger(__name__)
 
 # Suffix buckets of the shared path (the JAX engine's).
 SFX_BUCKETS = (8, 16, 32, 64, 128, 256)
+
+
+class PiggybackIneligible(RuntimeError):
+    """A dispatch cannot ride the piggyback chain (layout fallback,
+    learned-position ceiling, no memory headroom for two caches): the
+    caller dispatches it through the plain path instead. Control flow,
+    not an error."""
 
 
 def _tail_batch(n: int, cap: int) -> int:
@@ -193,6 +210,11 @@ class ScoringEngine:
         # (engine/stream_stats.StreamSink; None with the sink off).
         self.guard_stats = GuardStats()
         self.stream_sink = None
+        # The piggyback chain's counters (chains_opened,
+        # piggybacked_steps, chains_drained, chain_fallbacks) and its
+        # parked dispatch (None between chains).
+        self.kernel_stats = KernelStats()
+        self._piggy: Optional[dict] = None
         self.yes_id, self.no_id = tok.yes_no_ids(
             tokenizer, encoder_decoder=self.encoder_decoder)
         self.eos_id = getattr(tokenizer, "eos_token_id", None)
@@ -224,9 +246,11 @@ class ScoringEngine:
         """Engine-level gate of the cascade prefill. The kernels always
         run on the engine's device (the CUDA kernels on a card, their
         plain versions on the CPU), so the gate is the flag on a decoder
-        engine; the JAX engine also asks for a TPU there. Per-dispatch
-        eligibility is :meth:`cascade_trunk_for`'s."""
-        return self.rt.cascade_prefill and not self.encoder_decoder
+        engine with a float KV cache (the cascade writes float k/v into
+        the broadcast trunk cache); the JAX engine also asks for a TPU
+        there. Per-dispatch eligibility is :meth:`cascade_trunk_for`'s."""
+        return (self.rt.cascade_prefill and not self.encoder_decoder
+                and not getattr(self.cfg, "kv_cache_int8", False))
 
     def cascade_trunk_for(self, prefix_ids: Sequence[Sequence[int]],
                           n_real: Optional[int] = None,
@@ -254,9 +278,10 @@ class ScoringEngine:
 
     def cascade_decode_supported(self) -> bool:
         """Gate of the trunk-aware decode kernel: on by config, with the
-        flash-decode route on, on a decoder engine."""
+        flash-decode route on, on a decoder engine with a float KV cache
+        (an int8 cache's steps run ``ops.kv_int8_attention``)."""
         return (self.rt.cascade_decode and not self.encoder_decoder
-                and self.cfg.fused_decode)
+                and self.cfg.fused_decode and not self.cfg.kv_cache_int8)
 
     def decode_trunk_for(self, prefix_ids: Sequence[Sequence[int]],
                          n_real: Optional[int] = None,
@@ -732,6 +757,149 @@ class ScoringEngine:
         if self.cascade_decode_supported():
             self.cascade_stats["cascade_decode_dispatches"] += 1
         return fused, cfused
+
+    # -- piggyback chains ---------------------------------------------------
+
+    def piggyback_supported(self) -> bool:
+        """Engine-level gate of the piggyback chain: on by config, decoder
+        engines only, unpaged dispatches only (with the prefix cache
+        built its resume path owns the dispatches), and never where an
+        instance attribute shadows ``decode_fused_shared`` (a wrapped
+        engine: the chain must not bypass the wrapper)."""
+        return (self.rt.piggyback_prefill
+                and not self.encoder_decoder
+                and self.prefix_cache is None
+                and "decode_fused_shared" not in self.__dict__)
+
+    def _piggyback_fits(self, bsz: int, total_len: int) -> bool:
+        """Memory gate, the JAX engine's rule without its governor (not
+        ported): params + 2.2 caches of the chain's extent within 92 % of
+        the device's memory (``torch.cuda.mem_get_info``). In the JAX
+        engine a chain holds two caches, the parked one and the next;
+        the port's step refills the parked carry's buffers, so it holds
+        one, and the rule is the JAX one kept. The CPU, bounded by host
+        memory, always passes."""
+        if self.device.type != "cuda":
+            return True
+        itemsize = self.params["tok_embed"].element_size()
+        cache_bytes = decoder.kv_cache_bytes(self.cfg, bsz, total_len,
+                                             dtype_bytes=itemsize)
+        _, limit = torch.cuda.mem_get_info(self.device)
+        return quant.param_bytes(self.params) + 2.2 * cache_bytes \
+            < 0.92 * limit
+
+    def decode_fused_shared_piggy(
+            self, pretokenized_a: Sequence[Sequence[int]],
+            pretokenized_b: Sequence[Sequence[int]], new_tokens: int,
+            conf_tokens: int, early_stop: bool, bucket: int,
+            sfx_buckets_ab: Tuple[int, int],
+            prev_yes: Optional[np.ndarray] = None,
+            prev_no: Optional[np.ndarray] = None):
+        """Submit one shared dispatch into the piggyback chain.
+
+        The first call of a chain runs the dispatch's prefill and suffix
+        extensions and PARKS its decode loops (returns None); every later
+        call runs the parked dispatch's loops and then its own prefill
+        (one engine call) and returns the parked dispatch's (binary,
+        confidence) outputs, scored against ``prev_yes``/``prev_no``, the
+        parked batch's target ids. Shapes and budgets must match the
+        parked dispatch's (the sweep chains same-shape dispatches only;
+        asserted). Raises :class:`PiggybackIneligible` where the
+        dispatch needs the plain path: a layout fallback, the
+        learned-position ceiling at the chain's longer cache, or no
+        memory for two caches."""
+        self._decoder_only("decode_fused_shared_piggy")
+        bin_ids = [list(i) for i in pretokenized_a]
+        conf_ids = [list(i) for i in pretokenized_b]
+        lcp = [tok.shared_prefix_len(a, b) for a, b in zip(bin_ids, conf_ids)]
+        pad_id = tok.pad_token_id(self.tokenizer)
+        sfx_a_ids = [a[n:] for a, n in zip(bin_ids, lcp)]
+        sfx_b_ids = [b[n:] for b, n in zip(conf_ids, lcp)]
+        max_sfx = max(len(s) for s in sfx_a_ids + sfx_b_ids)
+        max_total = max(len(r) for r in bin_ids + conf_ids)
+        ba, bb = sfx_buckets_ab
+        ba = max(ba, tok.pick_bucket([len(s) for s in sfx_a_ids],
+                                     SFX_BUCKETS))
+        bb = max(bb, tok.pick_bucket([len(s) for s in sfx_b_ids],
+                                     SFX_BUCKETS))
+        total_len = generate.piggyback_total_len(bucket, ba, bb, new_tokens,
+                                                 conf_tokens)
+        if (max_sfx > max(SFX_BUCKETS) or max_total > max(self.buckets)
+                or bucket < max(max(n, 1) for n in lcp)):
+            raise PiggybackIneligible("shared-prefix layout fallback")
+        if (getattr(self.cfg, "pos_embedding", None) == "learned"
+                and total_len > self.cfg.max_seq_len):
+            # The chain's cache is LONGER than the plain dispatch's (two
+            # disjoint branch regions): its learned-position ceiling
+            # binds earlier.
+            raise PiggybackIneligible("learned-position table overrun")
+        if not self._piggyback_fits(len(bin_ids), total_len):
+            raise PiggybackIneligible("no device memory for two caches")
+
+        prefix, prefix_mask = tok.right_pad_ids(
+            [a[:n] for a, n in zip(bin_ids, lcp)], bucket, pad_id)
+        sfx_a, sfx_a_mask = tok.right_pad_ids(sfx_a_ids, ba, pad_id)
+        sfx_b, sfx_b_mask = tok.right_pad_ids(sfx_b_ids, bb, pad_id)
+        armed = early_stop and self.digit_stop_mask is not None
+        key = (bucket, len(bin_ids), ba, bb, new_tokens, conf_tokens, armed)
+        args = tuple(self._t(a) for a in (prefix, prefix_mask, sfx_a,
+                                          sfx_a_mask, sfx_b, sfx_b_mask))
+        if self._piggy is None:
+            carry = generate.shared_piggyback_prefill(
+                self.params, self.cfg, *args, max_new_a=new_tokens,
+                max_new_b=conf_tokens)
+            self._piggy = dict(key=key, carry=carry, slot0_a=bucket + ba,
+                               slot0_b=bucket + ba + new_tokens + bb,
+                               new_tokens=new_tokens,
+                               conf_tokens=conf_tokens, armed=armed)
+            self.kernel_stats.count("chains_opened")
+            return None
+        assert self._piggy["key"] == key, (
+            "piggyback chain shape mismatch: drain before switching shapes "
+            f"({self._piggy['key']} vs {key})")
+        digit_ids, digit_vals = self.digit_table
+        out_a, out_b, new_carry = generate.shared_piggyback_step(
+            self.params, self.cfg, self._piggy["carry"], *args,
+            self._t(prev_yes), self._t(prev_no), self._t(digit_ids),
+            self._t(digit_vals, torch.float32), max_new_a=new_tokens,
+            max_new_b=conf_tokens, **self._piggy_stop_kwargs())
+        self._piggy["carry"] = new_carry
+        self.kernel_stats.count("piggybacked_steps")
+        return out_a, out_b
+
+    def _piggy_stop_kwargs(self) -> dict:
+        if not self._piggy["armed"]:
+            return dict(stop_mask_a=None, stop_mask_b=None, eos_id=None)
+        return dict(stop_mask_a=self.eos_stop_mask,
+                    stop_mask_b=self.digit_stop_mask,
+                    eos_id=int(self.eos_id))
+
+    def piggy_pending(self) -> bool:
+        return self._piggy is not None
+
+    def piggy_drain(self, prev_yes: np.ndarray, prev_no: np.ndarray):
+        """Close the chain: run the parked dispatch's decode loops alone
+        and return its (binary, confidence) outputs."""
+        st = self._piggy
+        assert st is not None, "no piggyback chain to drain"
+        digit_ids, digit_vals = self.digit_table
+        stop_kwargs = self._piggy_stop_kwargs()
+        self._piggy = None
+        self.kernel_stats.count("chains_drained")
+        return generate.shared_piggyback_drain(
+            self.params, self.cfg, st["carry"], self._t(prev_yes),
+            self._t(prev_no), self._t(digit_ids),
+            self._t(digit_vals, torch.float32), slot0_a=st["slot0_a"],
+            slot0_b=st["slot0_b"], max_new_a=st["new_tokens"],
+            max_new_b=st["conf_tokens"], **stop_kwargs)
+
+    def piggy_abort(self) -> None:
+        """Drop the chain after a failed call: the caller re-runs the
+        parked dispatch and the failed one through the plain path, which
+        recomputes both from scratch."""
+        if self._piggy is not None:
+            self.kernel_stats.count("chain_fallbacks")
+        self._piggy = None
 
     def decode_fused_grouped(self, groups, yes_ids: np.ndarray,
                              no_ids: np.ndarray, new_tokens: int,

@@ -18,10 +18,14 @@ and its numerics guard (a row whose readouts fail
 ``guard.numerics.check_values`` is written quarantined as
 ``error:numerics``), with the cross-request prefix cache when the
 engine has one (the planner's cached-token pricing, paged dispatches,
-completion tails recorded for the tree's drafts), and with these of its
-engine features off, which the port does not have yet: the dispatch
-recovery/watchdog, piggyback chains, multihost shards and leases, and
-the XLA compile plan (which has no counterpart in eager PyTorch). The
+completion tails recorded for the tree's drafts), with its piggyback chains
+(runs of consecutive same-shape shared dispatches without a cascade
+trunk ride one another's engine calls, ``ScoringEngine.
+decode_fused_shared_piggy``; a failed chain call falls back to the
+plain dispatch of both batches), and with these of its engine features
+off, which the port does not have yet: the dispatch recovery/watchdog,
+multihost shards and leases, and the XLA compile plan (which has no
+counterpart in eager PyTorch). The
 reasoning mode (``reasoning=True``) samples each cell's binary prompt
 ``reasoning_runs`` times on ``generate.sample_decode`` and writes
 count-fraction rows.
@@ -53,7 +57,7 @@ from . import scheduler as sched_mod
 from . import score as score_mod
 from . import stream_stats as stream_mod
 from . import tokens as tok
-from .runner import ScoringEngine, _tail_batch
+from .runner import PiggybackIneligible, ScoringEngine, _tail_batch
 
 log = logging.getLogger(__name__)
 
@@ -239,6 +243,9 @@ def run_perturbation_sweep(
                    manifest, checkpoint_every, new_tokens, conf_tokens, rows,
                    pending_rows, sink, accum_path, write_rows)
     engine.spec_flush()
+    if engine.kernel_stats.counters:
+        log.info("piggyback chains: %s",
+                 json.dumps(engine.kernel_stats.counters))
     if engine.spec_stats.get("spec_dispatches"):
         log.info("speculative decode: %s", json.dumps(dict(engine.spec_stats)))
     if engine.prefix_cache is not None:
@@ -300,6 +307,26 @@ def _plan_ragged(engine, todo, new_tokens, conf_tokens):
         sum(b.refilled for b in stats.buckets.values()),
         stats.grouped_cells)
     return dispatches, stats
+
+
+def chain_keys(engine, dispatches, batch_size: int) -> list:
+    """Each planned dispatch's piggyback key: (bucket, padded rows, suffix
+    buckets) for a shared dispatch without a cascade trunk, None for a
+    grouped one or one that takes the cascade (two None keys never
+    chain). Consecutive dispatches with one key chain."""
+    keys = []
+    for d in dispatches:
+        key = None
+        if d.kind == "shared":
+            n = len(d.items)
+            trunk = engine.cascade_trunk_for(
+                [it.bin_ids[:it.lcp] for it in d.items], n, d.bucket)
+            if not trunk:
+                key = (d.bucket, batch_size if n == batch_size
+                       else _tail_batch(n, batch_size),
+                       d.sfx_bucket_a, d.sfx_bucket_b)
+        keys.append(key)
+    return keys
 
 
 def _run_pipelined(engine, model_name, todo, target_ids, results_path,
@@ -520,33 +547,115 @@ def _run_pipelined(engine, model_name, todo, target_ids, results_path,
                 early_stop=early_stop)
             _emit(batch, fused, cfused, t1, t2)
 
+    # Piggyback chains: runs of CONSECUTIVE shared dispatches of one
+    # shape (bucket queues drain same-shape batches back to back) chain
+    # through the engine's piggyback path, each dispatch's engine call
+    # running the PARKED decode loops of the one before it, then its own
+    # prefill. Rows are the plain dispatch's; a failed call falls back
+    # to the plain path for both dispatches (chain_keys gives the
+    # shapes).
+    use_piggy = ragged and engine.piggyback_supported()
+    piggy_keys = chain_keys(engine, dispatches, B) if ragged else []
+    pending: List[Optional[dict]] = [None]   # the parked dispatch's meta
+
+    def _plain_shared(meta):
+        full_items = meta["full_items"]
+        fused, cfused = engine.decode_fused_shared(
+            [it.cell.binary_prompt for it in full_items],
+            [it.cell.confidence_prompt for it in full_items],
+            meta["t1"], meta["t2"], new_tokens=new_tokens,
+            conf_tokens=conf_tokens, early_stop=early_stop,
+            pretokenized_a=[it.bin_ids for it in full_items],
+            pretokenized_b=[it.conf_ids for it in full_items],
+            bucket=meta["bucket"], sfx_buckets_ab=meta["sfx_ab"],
+            reuse_cache=True, n_real=meta["n"])
+        spec_rec = None
+        if record:
+            spec_rec = ([it.bin_ids for it in full_items],
+                        [it.conf_ids for it in full_items],
+                        meta["bucket"], meta["n"])
+        _emit(meta["batch"], fused, cfused, meta["t1"], meta["t2"], spec_rec)
+
+    def _redispatch_pending():
+        """Broken chain: the parked dispatch is recomputed through the
+        plain path, which owes nothing to the chain."""
+        meta, pending[0] = pending[0], None
+        engine.piggy_abort()
+        _plain_shared(meta)
+
+    def _drain_pending():
+        if pending[0] is None:
+            return
+        meta = pending[0]
+        try:
+            fused, cfused = engine.piggy_drain(meta["t1"], meta["t2"])
+        except (KeyboardInterrupt, SystemExit):
+            raise
+        except BaseException as err:  # noqa: BLE001 — plain-path fallback
+            log.warning("piggyback drain failed (%r); re-dispatching the "
+                        "parked batch through the plain path", err)
+            _redispatch_pending()
+            return
+        pending[0] = None
+        _emit(meta["batch"], fused, cfused, meta["t1"], meta["t2"])
+
     def _dispatch_ragged():
-        for d in dispatches:
+        for i, d in enumerate(dispatches):
             if failed.is_set():
                 return
             _record_tails()
             batch = d.cells
             n = len(d.items)
-            spec_rec = None
             if d.kind == "shared":
                 bsz = B if n == B else _tail_batch(n, B)
                 full_items = list(d.items) + [d.items[-1]] * (bsz - n)
                 t1, t2 = _targets([it.cell for it in full_items])
-                fused, cfused = engine.decode_fused_shared(
-                    [it.cell.binary_prompt for it in full_items],
-                    [it.cell.confidence_prompt for it in full_items],
-                    t1, t2, new_tokens=new_tokens, conf_tokens=conf_tokens,
-                    early_stop=early_stop,
-                    pretokenized_a=[it.bin_ids for it in full_items],
-                    pretokenized_b=[it.conf_ids for it in full_items],
-                    bucket=d.bucket,
-                    sfx_buckets_ab=(d.sfx_bucket_a, d.sfx_bucket_b),
-                    reuse_cache=True, n_real=n)
-                if record:
-                    spec_rec = ([it.bin_ids for it in full_items],
-                                [it.conf_ids for it in full_items],
-                                d.bucket, n)
+                meta = dict(batch=batch, full_items=full_items, t1=t1, t2=t2,
+                            bucket=d.bucket, n=n, key=piggy_keys[i],
+                            sfx_ab=(d.sfx_bucket_a, d.sfx_bucket_b))
+                # Chain iff the parked dispatch shares this shape, or this
+                # dispatch opens a run the NEXT dispatch will ride.
+                key = piggy_keys[i]
+                chainable = use_piggy and key is not None and (
+                    (pending[0] is not None and pending[0]["key"] == key)
+                    or (pending[0] is None and i + 1 < len(dispatches)
+                        and piggy_keys[i + 1] == key))
+                if not chainable:
+                    _drain_pending()
+                    _plain_shared(meta)
+                    continue
+                prev = pending[0]
+                try:
+                    out = engine.decode_fused_shared_piggy(
+                        [it.bin_ids for it in full_items],
+                        [it.conf_ids for it in full_items], new_tokens,
+                        conf_tokens, early_stop, d.bucket,
+                        (d.sfx_bucket_a, d.sfx_bucket_b),
+                        prev_yes=prev["t1"] if prev else None,
+                        prev_no=prev["t2"] if prev else None)
+                except PiggybackIneligible as err:
+                    log.info("piggyback ineligible (%s); dispatching "
+                             "plainly", err)
+                    _drain_pending()
+                    _plain_shared(meta)
+                    continue
+                except (KeyboardInterrupt, SystemExit):
+                    raise
+                except BaseException as err:  # noqa: BLE001
+                    log.warning("piggyback step failed (%r); falling back "
+                                "to the plain path for both dispatches", err)
+                    if pending[0] is not None:
+                        _redispatch_pending()
+                    else:
+                        engine.piggy_abort()
+                    _plain_shared(meta)
+                    continue
+                if out is not None:
+                    _emit(prev["batch"], *out, prev["t1"], prev["t2"])
+                pending[0] = meta
+                continue
             else:
+                _drain_pending()   # grouped shapes never ride the chain
                 t1, t2 = _targets(batch)
                 out, m = engine.decode_fused_grouped(
                     d.groups, t1, t2, new_tokens, conf_tokens, early_stop,
@@ -572,7 +681,8 @@ def _run_pipelined(engine, model_name, todo, target_ids, results_path,
 
                 fused = _branch(0, new_tokens)
                 cfused = _branch(1, conf_tokens)
-            _emit(batch, fused, cfused, t1, t2, spec_rec)
+            _emit(batch, fused, cfused, t1, t2)
+        _drain_pending()   # close the chain's last dispatch
 
     wt = threading.Thread(target=_writer, name="sweep-writer", daemon=True)
     wt.start()

@@ -26,6 +26,13 @@ selected by ``registry.ModelConfig`` knobs.
   versions, so the routing is the same on both.
 - The linear layers take dense or int8 weights (``models/quant.py``
   QuantTensor leaves: weight-only, or dynamic s8 x s8 -> s32).
+- With ``cfg.kv_cache_int8`` each side of the cache is a (payload int8
+  (L, K, T, B, hd), scale float32 (L, K, T, B)) pair, the JAX nesting
+  ``((kq, ks), (vq, vs))``: the prefill quantizes each layer's k/v into
+  it (its own attention stays float), and the cached attention of
+  ``extend``, ``decode_step`` and ``verify_extend`` runs
+  ``ops.kv_int8_attention`` (s8 x s8 products) instead of the float
+  routes. :func:`cache_map` walks either layout's leaves.
 - The decode step and the speculative verify window run their bf16
   projections and norms through ``ops.row_gemm`` / ``ops.row_norm``,
   whose rows do not depend on the row count, and the window's head once
@@ -47,7 +54,9 @@ import torch.nn.functional as F
 
 from .. import ops
 from ..device import resolve_device
-from .quant import QuantTensor, matmul as _mm, shared_quant as _shared_quant
+from ..ops.kv_int8_attention import causal_bias
+from .quant import (QuantTensor, dynamic_quant as _quant_kv, matmul as _mm,
+                    shared_quant as _shared_quant)
 from .registry import ModelConfig
 
 Params = Dict[str, Any]
@@ -271,10 +280,11 @@ def _attention(q, k, v, bias, cfg: ModelConfig, key_mask=None) -> torch.Tensor:
 
 
 def _fused_decode_ok(cfg: ModelConfig, S: int, fused_ctx) -> bool:
-    """The flash-decode route: a single-query cached step with the flag
-    on. The kernels run on CUDA tensors and their plain versions on CPU
-    tensors, so no backend enters the decision."""
-    return cfg.fused_decode and fused_ctx is not None and S == 1
+    """The flash-decode route: a single-query cached step over a float
+    cache with the flag on. The kernels run on CUDA tensors and their
+    plain versions on CPU tensors, so no backend enters the decision."""
+    return (cfg.fused_decode and not cfg.kv_cache_int8
+            and fused_ctx is not None and S == 1)
 
 
 def _attention_cached_flash(q, k, v, cfg: ModelConfig, fused_ctx,
@@ -301,8 +311,8 @@ def _fused_decode_mq_ok(cfg: ModelConfig, S: int, fused_ctx) -> bool:
     """The multi-query flash-decode route: a verify window of S > 1
     teacher-forced queries whose fused_ctx positions are (B, S). As for
     :func:`_fused_decode_ok`, no backend enters the decision."""
-    return (cfg.fused_decode and fused_ctx is not None and S > 1
-            and fused_ctx[0].dim() == 2)
+    return (cfg.fused_decode and not cfg.kv_cache_int8
+            and fused_ctx is not None and S > 1 and fused_ctx[0].dim() == 2)
 
 
 def _attention_cached_flash_mq(q, k, v, cfg: ModelConfig, fused_ctx,
@@ -348,6 +358,34 @@ def _attention_cascade(q, k, v, trunk_kv, suffix_mask, q_positions,
     return out.reshape(B, R, H * hd)
 
 
+def _attention_cached_int8(q, kq, ks, vq, vs, cfg: ModelConfig,
+                           fused_ctx) -> torch.Tensor:
+    """Cached attention over the int8 cache (payloads (K, T, B, hd),
+    scales (K, T, B)) through ``ops.kv_int8_attention``: the JAX
+    package's ``_attention_cached_int8``, its bias built from the
+    ``fused_ctx`` triple (query positions (B,) or (B, S), cache mask and
+    key positions (B, T)) as ``_causal_bias`` builds it."""
+    q_pos, key_mask, key_positions = fused_ctx
+    B, S = q.shape[:2]
+    return ops.kv_int8_attention(
+        q.contiguous(), kq, ks, vq, vs, q_pos.reshape(B, S), key_mask,
+        key_positions, alibi_slopes=_slopes_or_none(cfg, q.device))
+
+
+def _write_int8(side, x, cache_index, S: int, rows):
+    """Quantize the step's (B, S, K, hd) k or v per vector and write the
+    payload and scales into one cache side at ``cache_index`` (one slot
+    for every row, or a (B, S) tensor of each row's slots)."""
+    xq, xs = _quant_kv(x)
+    cq, cs = side
+    if isinstance(cache_index, torch.Tensor):
+        cq[:, cache_index, rows] = xq.permute(2, 0, 1, 3)
+        cs[:, cache_index, rows] = xs.permute(2, 0, 1)
+    else:
+        cq[:, cache_index:cache_index + S] = xq.permute(2, 1, 0, 3)
+        cs[:, cache_index:cache_index + S] = xs.permute(2, 1, 0)
+
+
 def _attention_cached(q, k, v, bias, cfg: ModelConfig) -> torch.Tensor:
     """Dense attention of S queries over the CACHE layout (K, T, B, hd):
     the chunked extension (``extend``), the decode step and the verify
@@ -376,7 +414,10 @@ def _block(x, lp: Params, cfg: ModelConfig, sin, cos, bias, cache_kv,
     step's k/v are written into the cache in place, at slots
     ``cache_index`` .. + S, or with a (B, S) tensor ``cache_index`` at
     each row's own slots, and the queries attend over the cache; the
-    returned pair is the cache views. Otherwise the block attends over
+    returned pair is the cache views. On an int8 cache (each side a
+    (payload, scales) pair) the k/v are quantized as they are written and
+    the queries attend through ``ops.kv_int8_attention``, whose masks
+    come from ``fused_ctx``. Otherwise the block attends over
     its own k/v (dense, or ``attn_impl(q, k, v, key_mask)``) and returns
     them (B, S, K, hd). ``row_ops`` (the decode step and the verify
     window) takes the norms and projections whose rows do not depend on
@@ -411,7 +452,13 @@ def _block(x, lp: Params, cfg: ModelConfig, sin, cos, bias, cache_kv,
         q = _apply_rope(q, sin, cos, rd)
         k = _apply_rope(k, sin, cos, rd)
 
-    if cache_kv is not None:
+    if cache_kv is not None and cfg.kv_cache_int8:
+        ck, cv = cache_kv
+        rows = torch.arange(B, device=x.device)[:, None]
+        _write_int8(ck, k, cache_index, S, rows)
+        _write_int8(cv, v, cache_index, S, rows)
+        attn = _attention_cached_int8(q, *ck, *cv, cfg, fused_ctx)
+    elif cache_kv is not None:
         ck, cv = cache_kv
         if isinstance(cache_index, torch.Tensor):
             rows = torch.arange(B, device=x.device)[:, None]
@@ -527,16 +574,8 @@ def _causal_bias(attn_mask, positions, cfg: ModelConfig, key_positions=None,
     left-padded batches behave exactly like unpadded prompts."""
     if key_positions is None:
         key_positions, key_mask = positions, attn_mask
-    qp = positions[:, :, None]            # (B, S, 1)
-    kp = key_positions[:, None, :]        # (B, 1, T)
-    allowed = (kp <= qp) & (key_mask[:, None, :] > 0)
-    neg = torch.tensor(-1e9, dtype=torch.float32, device=allowed.device)
-    zero = torch.zeros((), dtype=torch.float32, device=allowed.device)
-    bias = torch.where(allowed, zero, neg)[:, None, :, :]   # (B, 1, S, T)
-    if cfg.pos_embedding == "alibi":
-        slopes = alibi_slopes(cfg.n_heads, allowed.device)
-        bias = bias + slopes[None, :, None, None] * kp.float()[:, None, :, :]
-    return bias
+    return causal_bias(positions, key_mask, key_positions,
+                       _slopes_or_none(cfg, positions.device))
 
 
 def mask_positions(attn_mask: torch.Tensor) -> torch.Tensor:
@@ -555,44 +594,88 @@ def _run_blocks(params: Params, cfg: ModelConfig, x, sin, cos, bias, cache,
     """The layer loop over the stacked params and cache (in place).
     Returns (x, pending): the last block's MLP output not yet added to x
     (``row_ops`` and sequential blocks), else None."""
-    ck_all, cv_all = cache
     pending = None
     for i in range(cfg.n_layers):
         x, _, pending = _block(x, _layer(params["layers"], i), cfg, sin, cos,
-                               bias, (ck_all[i], cv_all[i]), cache_index,
-                               fused_ctx=fused_ctx, trunk_len=trunk_len,
-                               row_ops=row_ops, pending=pending)
+                               bias, cache_map(lambda c: c[i], cache),
+                               cache_index, fused_ctx=fused_ctx,
+                               trunk_len=trunk_len, row_ops=row_ops,
+                               pending=pending)
     return x, pending
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype=torch.float32, device="cuda"):
-    """Per-layer KV cache stacked on the layer axis: (L, K, T, B, hd) pair."""
-    dev = resolve_device(device)
+def cache_map(fn, cache, *others):
+    """``fn`` over the cache's leaves (and the matching leaves of
+    ``others``), keeping its nesting: the float (ck, cv) pair or the int8
+    ((kq, ks), (vq, vs)) pairs of pairs."""
+    if isinstance(cache, (tuple, list)):
+        return tuple(cache_map(fn, c, *(o[i] for o in others))
+                     for i, c in enumerate(cache))
+    return fn(cache, *others)
+
+
+def cache_leaves(cache):
+    """The cache's tensors in order (two float leaves, or kq, ks, vq,
+    vs)."""
+    if isinstance(cache, (tuple, list)):
+        return [leaf for c in cache for leaf in cache_leaves(c)]
+    return [cache]
+
+
+def kv_cache_bytes(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype_bytes: int = 2) -> int:
+    """Device bytes of one decode KV cache at (batch, max_len): an int8
+    cache stores a 1-byte payload and a float32 scale a (kv head, slot,
+    row) vector (the JAX package's ``models/cache.kv_cache_bytes``)."""
+    per_side = cfg.n_layers * cfg.n_kv_heads * max_len * batch
+    if cfg.kv_cache_int8:
+        return 2 * (per_side * cfg.head_dim + per_side * 4)
+    return 2 * per_side * cfg.head_dim * dtype_bytes
+
+
+def _zeros_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, dev):
     shape = (cfg.n_layers, cfg.n_kv_heads, max_len, batch, cfg.head_dim)
+    if cfg.kv_cache_int8:
+        def side():
+            return (torch.zeros(shape, dtype=torch.int8, device=dev),
+                    torch.zeros(shape[:-1], dtype=torch.float32, device=dev))
+        return (side(), side())
     return (torch.zeros(shape, dtype=dtype, device=dev),
             torch.zeros(shape, dtype=dtype, device=dev))
 
 
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.float32, device="cuda"):
+    """Per-layer KV cache stacked on the layer axis: an (L, K, T, B, hd)
+    pair of ``dtype``, or with ``cfg.kv_cache_int8`` a (payload int8
+    (L, K, T, B, hd), scale float32 (L, K, T, B)) pair each side."""
+    return _zeros_cache(cfg, batch, max_len, dtype, resolve_device(device))
+
+
 def gather_rows(cache, row_idx: torch.Tensor):
     """Broadcast/reorder KV-cache rows along the batch axis (axis 3 of
-    the (L, K, T, B, hd) pair): the cross-cell prefix-reuse primitive.
-    The grouped decode prefills one row per distinct prefix (G rows) and
-    gathers it out to one row per member prompt (M rows, ``row_idx`` maps
-    member -> group) before the members' suffix extension. A copy, as the
-    JAX package's ``models/cache.gather_rows``."""
+    every leaf, the int8 scales' too): the cross-cell prefix-reuse
+    primitive. The grouped decode prefills one row per distinct prefix
+    (G rows) and gathers it out to one row per member prompt (M rows,
+    ``row_idx`` maps member -> group) before the members' suffix
+    extension. A copy, as the JAX package's ``models/cache.gather_rows``."""
     idx = row_idx.long()
-    return tuple(c.index_select(3, idx) for c in cache)
+    return cache_map(lambda c: c.index_select(3, idx), cache)
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            attn_mask: torch.Tensor, max_len: int):
+            attn_mask: torch.Tensor, max_len: int, cache=None):
     """Run the prompt, fill the KV cache, return last-position logits.
 
     tokens/attn_mask: (B, S), LEFT padded (or right padded by the shared
     paths, which ignore the returned logits/positions). Returns
     (logits_last (B, V) float32, cache (L, K, max_len, B, hd) pair,
     next_positions (B,)). Slots past S are zeros, as the JAX prefill pads.
+    With ``cfg.kv_cache_int8`` each layer's k/v are quantized into the
+    int8 cache (payload and scales); the prompt's own attention reads
+    the float k/v. ``cache``: buffers of this layout and extent to fill
+    instead of new ones (the piggyback chain's carry), every slot
+    overwritten.
     """
     B, S = tokens.shape
     positions = mask_positions(attn_mask)
@@ -603,17 +686,26 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     # The flash route masks inside the kernel: no (B, H|1, S, S) bias.
     bias = (None if _flash_ok(cfg, S, S, attn_mask)
             else _causal_bias(attn_mask, positions, cfg))
-    shape = (cfg.n_layers, cfg.n_kv_heads, max_len, B, cfg.head_dim)
-    ck = torch.zeros(shape, dtype=x.dtype, device=x.device)
-    cv = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    if cache is None:
+        cache = _zeros_cache(cfg, B, max_len, x.dtype, x.device)
+    else:
+        cache_map(lambda c: c[:, :, S:].zero_(), cache)
+    ck, cv = cache
     for i in range(cfg.n_layers):
         x, (k, v), _ = _block(x, _layer(params["layers"], i), cfg, sin, cos,
                               bias, None, None, key_mask=attn_mask)
-        ck[i, :, :S] = k.permute(2, 1, 0, 3)          # (B,S,K,hd) -> (K,S,B,hd)
-        cv[i, :, :S] = v.permute(2, 1, 0, 3)
+        if cfg.kv_cache_int8:
+            # Per vector over hd, then (B, S, K[, hd]) -> (K, S, B[, hd]).
+            for side, t in ((ck, k), (cv, v)):
+                tq, ts = _quant_kv(t)
+                side[0][i, :, :S] = tq.permute(2, 1, 0, 3)
+                side[1][i, :, :S] = ts.permute(2, 1, 0)
+        else:
+            ck[i, :, :S] = k.permute(2, 1, 0, 3)      # (B,S,K,hd) -> (K,S,B,hd)
+            cv[i, :, :S] = v.permute(2, 1, 0, 3)
     logits = _unembed(params, cfg, x[:, -1:, :])[:, 0, :]
     next_positions = positions[:, -1] + 1
-    return logits, (ck, cv), next_positions
+    return logits, cache, next_positions
 
 
 def extend(params: Params, cfg: ModelConfig, cache, suffix_tokens: torch.Tensor,
@@ -634,9 +726,15 @@ def extend(params: Params, cfg: ModelConfig, cache, suffix_tokens: torch.Tensor,
     sin = cos = None
     if cfg.pos_embedding == "rotary":
         sin, cos = _rope_sincos(qpos, cfg.rotary_dim, cfg.rope_theta)
-    bias = _causal_bias(suffix_mask, qpos, cfg, key_positions=key_positions,
-                        key_mask=cache_mask)
-    x, _ = _run_blocks(params, cfg, x, sin, cos, bias, cache, start_index)
+    if cfg.kv_cache_int8:
+        # The int8 route builds its bias from the positions and the mask.
+        bias, ctx = None, (qpos, cache_mask, key_positions)
+    else:
+        bias = _causal_bias(suffix_mask, qpos, cfg,
+                            key_positions=key_positions, key_mask=cache_mask)
+        ctx = None
+    x, _ = _run_blocks(params, cfg, x, sin, cos, bias, cache, start_index,
+                       fused_ctx=ctx)
     last = torch.clamp_min(suffix_mask.sum(dim=-1) - 1, 0).long()   # (B,)
     rows = torch.arange(B, device=x.device)
     logits = _unembed(params, cfg, x[rows, last][:, None, :])[:, 0, :]
@@ -658,8 +756,11 @@ def cascade_extend(params: Params, cfg: ModelConfig, trunk_cache,
     (L * K * Tt, hd) rows, each layer's slice handed to its trunk leg).
     The returned cache broadcasts the trunk at slots [0, trunk_len),
     holds the remainder k/v at [trunk_len, trunk_len + R) and zeros up
-    to ``total_len``.
+    to ``total_len``. It needs a float cache (the engine gates the
+    cascade off on an int8 one, as the JAX engine does).
     """
+    if cfg.kv_cache_int8:
+        raise ValueError("cascade prefill needs a float KV cache")
     B, R = rem_tokens.shape
     L, K, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
     qpos = trunk_len + mask_positions(rem_mask)                  # (B, R)
@@ -714,7 +815,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache, token: torch.Tensor,
                                 cfg.rope_theta)
     key_positions = mask_positions(prompt_mask)
     bias = None
-    if not cfg.fused_decode:
+    if not cfg.fused_decode and not cfg.kv_cache_int8:
         ones = torch.ones((B, 1), dtype=torch.int32, device=token.device)
         bias = _causal_bias(ones, position[:, None], cfg,
                             key_positions=key_positions, key_mask=prompt_mask)
@@ -765,7 +866,7 @@ def verify_extend(params: Params, cfg: ModelConfig, cache,
     if cfg.pos_embedding == "rotary":
         sin, cos = _rope_sincos(qpos, cfg.rotary_dim, cfg.rope_theta)
     bias = None
-    if not cfg.fused_decode:
+    if not cfg.fused_decode and not cfg.kv_cache_int8:
         ones = torch.ones((B, S2), dtype=torch.int32, device=x.device)
         bias = _causal_bias(ones, qpos, cfg, key_positions=key_positions,
                             key_mask=cache_mask)

@@ -18,6 +18,7 @@ be on disk.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import mmap
 import re
@@ -170,6 +171,7 @@ def load_engine(
     cascade_config: Optional[CascadeConfig] = None,
     tokenizer=None,
     device="cuda",
+    kv_cache_int8: bool = False,
 ) -> ScoringEngine:
     """Build a ready ScoringEngine from a local HF checkpoint directory
     on ``device`` (the card unless the CPU is asked for).
@@ -181,6 +183,9 @@ def load_engine(
     the card and float32 on the CPU. ``quantize_int8`` quantizes the
     loaded tree on the device (``quant.quantize_decoder_params`` or
     ``quantize_encdec_params``, ``dynamic=int8_dynamic``).
+    ``kv_cache_int8`` stores a decoder's KV cache in int8
+    (``ModelConfig.kv_cache_int8``); an encoder-decoder keeps no KV cache,
+    so there it logs the JAX package's warning and goes on without it.
     ``tokenizer=None`` loads the directory's tokenizer with
     ``transformers.AutoTokenizer``."""
     dev = resolve_device(device)
@@ -199,6 +204,14 @@ def load_engine(
         cfg, family = loader.config_from_hf(hf_cfg, name=str(model_dir))
         params = loader.convert_decoder(load_state_dict(model_dir), cfg,
                                         family, dtype=dtype, device=dev)
+    if kv_cache_int8:
+        if encdec:
+            log.warning(
+                "%s: --kv-cache-int8 has no effect on encoder-decoder "
+                "models (no KV cache in the seq2seq decode path); "
+                "proceeding without it", model_dir.name)
+        else:
+            cfg = dataclasses.replace(cfg, kv_cache_int8=True)
     if quantize_int8:
         before = quant.param_bytes(params)
         qfn = (quant.quantize_encdec_params if encdec
@@ -223,6 +236,7 @@ def engine_factory(
     cascade_config: Optional[CascadeConfig] = None,
     tokenizer=None,
     device="cuda",
+    kv_cache_int8: bool = False,
 ):
     """EngineFactory for engine.multi: maps an HF repo id to
     ``checkpoint_root/<org>__<name>``, ``checkpoint_root/<name>`` or
@@ -244,7 +258,8 @@ def engine_factory(
                                    int8_dynamic=int8_dynamic,
                                    spec_config=spec_config,
                                    cascade_config=cascade_config,
-                                   tokenizer=tokenizer, device=dev)
+                                   tokenizer=tokenizer, device=dev,
+                                   kv_cache_int8=kv_cache_int8)
         raise FileNotFoundError(
             f"no local checkpoint for {model_name} under {checkpoint_root} "
             f"(tried {[str(c) for c in candidates]})")

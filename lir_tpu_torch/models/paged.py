@@ -8,8 +8,10 @@ index over which token sequence owns which pages is
 ``engine/prefix_tree.py``; this module is the allocator:
 
 - **Pool layout.** The decode cache is a (ck, cv) pair of (L, K, T, B,
-  hd) tensors (``models/decoder.init_cache``). The pool stores the same
-  pair with the (T, B) plane replaced by (n_pages, page_size): page p
+  hd) tensors, or on an int8 KV cache a (payload (L, K, T, B, hd), scales
+  (L, K, T, B)) pair each side (``models/decoder.init_cache``). The pool
+  stores the same leaves with the (T, B) plane replaced by (n_pages,
+  page_size): page p
   holds ``page_size`` consecutive token POSITIONS of one cached prefix,
   position 0 being the prefix's first token, so reuse does not depend on
   which dispatch produced the KV. The pool is allocated once, at its
@@ -30,9 +32,9 @@ Page 0 is reserved as the trash page: slot-table entries that carry no
 cached KV point at it (their slots are masked, and a masked key adds an
 exact zero to the softmax), and the scatter's padding writes land there.
 
-Left for later: migration (``extract_pages`` / ``insert_pages``),
+Left for later: migration (``extract_pages`` / ``insert_pages``) and
 ``CacheHandoff`` (XLA buffer donation, which eager PyTorch has no use
-for) and the int8-KV pool leaves.
+for).
 """
 
 from __future__ import annotations
@@ -43,10 +45,12 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .decoder import cache_leaves, cache_map
+
 log = logging.getLogger(__name__)
 
-# Cache axis convention (models/decoder.init_cache): (L, K, T, B, hd) —
-# time axis 2, batch axis 3.
+# Cache axis convention (models/decoder.init_cache): (L, K, T, B, hd)
+# payloads, (L, K, T, B) int8 scales — time axis 2, batch axis 3 in both.
 TIME_AXIS = 2
 DEFAULT_PAGE_SIZE = 16
 
@@ -54,8 +58,12 @@ DEFAULT_PAGE_SIZE = 16
 def kv_page_bytes(cfg, page_size: int = DEFAULT_PAGE_SIZE,
                   dtype_bytes: int = 2) -> int:
     """Device bytes of ONE pool page, both sides: the unit a pool's size
-    multiplies by ``n_pages``."""
+    multiplies by ``n_pages`` (``decoder.kv_cache_bytes`` at one row and
+    ``page_size`` slots; an int8 page holds payloads and float32
+    scales)."""
     per_side = cfg.n_layers * cfg.n_kv_heads * page_size
+    if getattr(cfg, "kv_cache_int8", False):
+        return 2 * (per_side * cfg.head_dim + per_side * 4)
     return 2 * per_side * cfg.head_dim * dtype_bytes
 
 
@@ -97,15 +105,16 @@ def gather_slots(pool, slot_src: torch.Tensor, total_len: Optional[int] = None):
     ``slot_src`` (B, S) indexes the pool's flattened (n_pages *
     page_size) position axis — entry (r, s) says which pool position
     fills cache slot ``s`` of row ``r``; unfilled slots point at the
-    trash page 0. Returns the (L, K, T, B, hd) pair with T = ``total_len``
-    (default S): slots [0, S) gathered, the rest zeros, as the JAX
-    gather followed by its zero pad of the time axis. Each layer is
-    gathered on its own, so the only temporary is one layer's slots."""
+    trash page 0. Returns the cache (the pool's leaves, each (L, K, T, B
+    [, hd])) with T = ``total_len`` (default S): slots [0, S) gathered,
+    the rest zeros, as the JAX gather followed by its zero pad of the
+    time axis. Each layer is gathered on its own, so the only temporary
+    is one layer's slots."""
     B, S = slot_src.shape
     T = S if total_len is None else int(total_len)
     idx = slot_src.t().reshape(-1).long()            # (S * B,), slot-major
-    out = []
-    for p in pool:
+
+    def leaf(p):
         L, K, P, ps = p.shape[:4]
         flat = p.reshape(L, K, P * ps, *p.shape[4:])
         c = torch.zeros((L, K, T, B) + tuple(p.shape[4:]), dtype=p.dtype,
@@ -113,20 +122,22 @@ def gather_slots(pool, slot_src: torch.Tensor, total_len: Optional[int] = None):
         for i in range(L):
             c[i, :, :S] = flat[i].index_select(1, idx).view(
                 K, S, B, *p.shape[4:])
-        out.append(c)
-    return tuple(out)
+        return c
+
+    return cache_map(leaf, pool)
 
 
 def scatter_pages(pool, cache, page_ids: torch.Tensor, rows: torch.Tensor,
                   slot_idx: torch.Tensor) -> None:
     """Write full pages of a dispatch's final cache into the pool, in
     place: page ``page_ids[j]`` receives cache slots ``slot_idx[j]``
-    (ps,) of batch row ``rows[j]``, in both tensors of the pair. Padding
-    entries all target the trash page 0 (with identical blocks, so the
-    order of their writes does not matter)."""
-    for p, c in zip(pool, cache):
+    (ps,) of batch row ``rows[j]``, in every leaf (both tensors of a float
+    pair, payloads and scales of an int8 cache). Padding entries all
+    target the trash page 0 (with identical blocks, so the order of their
+    writes does not matter)."""
+    for p, c in zip(cache_leaves(pool), cache_leaves(cache)):
         blocks = c[:, :, slot_idx.long(), rows.long()[:, None]]
-        p[:, :, page_ids.long()] = blocks.to(p.dtype)   # (L, K, N, ps, hd)
+        p[:, :, page_ids.long()] = blocks.to(p.dtype)   # (L, K, N, ps[, hd])
 
 
 def _pow2(n: int) -> int:
@@ -139,10 +150,11 @@ def _pow2(n: int) -> int:
 class KVPagePool:
     """Device-resident page pool + host-side free list and refcounts.
 
-    The device pair (``leaves``) is allocated by :meth:`ensure` from the
-    first cache it sees (the engine passes a one-slot cache of its own
-    dtype and device when the prefix cache is built), so the pool can
-    never disagree with the engine's cache dtype or device."""
+    The device leaves (``leaves``, the cache's nesting) are allocated by
+    :meth:`ensure` from the first cache it sees (the engine passes a
+    one-slot cache of its own layout, dtype and device when the prefix
+    cache is built), so the pool can never disagree with the engine's
+    cache."""
 
     def __init__(self, n_pages: int, page_size: int = DEFAULT_PAGE_SIZE):
         if n_pages < 2:
@@ -150,7 +162,7 @@ class KVPagePool:
                              "reserved trash page)")
         self.n_pages = int(n_pages)
         self.page_size = int(page_size)
-        self.leaves: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self.leaves: Optional[Tuple] = None
         self.refcount = np.zeros(self.n_pages, np.int64)
         self.refcount[0] = 1            # trash page: never allocated/freed
         self._free: List[int] = list(range(self.n_pages - 1, 0, -1))
@@ -158,23 +170,37 @@ class KVPagePool:
     # -- device side ---------------------------------------------------------
 
     def ensure(self, cache_like) -> None:
-        """Allocate the pool pair to match ``cache_like``, a (ck, cv)
-        pair of (L, K, T, B, hd) float tensors, on its device. Idempotent.
-        Any other cache (the int8 KV cache's payload/scale pairs) is
-        refused."""
+        """Allocate the pool's leaves to match ``cache_like`` on its
+        device: a float (ck, cv) pair of (L, K, T, B, hd) tensors, or the
+        int8 cache's ((kq, ks), (vq, vs)) with (L, K, T, B) scales.
+        Idempotent. Any other structure is refused."""
         if self.leaves is not None:
             return
-        ok = (isinstance(cache_like, (tuple, list)) and len(cache_like) == 2
-              and all(isinstance(a, torch.Tensor) and a.dim() == 5
-                      and a.dtype.is_floating_point for a in cache_like))
-        if not ok:
-            raise TypeError("KVPagePool takes the float (ck, cv) cache pair "
-                            "of (L, K, T, B, hd) tensors")
-        self.leaves = tuple(
-            torch.zeros(_pool_leaf_shape(tuple(a.shape), self.n_pages,
-                                         self.page_size),
-                        dtype=a.dtype, device=a.device)
-            for a in cache_like)
+
+        def is_float(a):
+            return (isinstance(a, torch.Tensor) and a.dim() == 5
+                    and a.dtype.is_floating_point)
+
+        def is_int8_side(side):
+            return (isinstance(side, (tuple, list)) and len(side) == 2
+                    and isinstance(side[0], torch.Tensor)
+                    and side[0].dtype == torch.int8 and side[0].dim() == 5
+                    and isinstance(side[1], torch.Tensor)
+                    and side[1].dtype == torch.float32
+                    and tuple(side[1].shape) == tuple(side[0].shape[:4]))
+
+        pair = isinstance(cache_like, (tuple, list)) and len(cache_like) == 2
+        if not pair or not (all(map(is_float, cache_like))
+                            or all(map(is_int8_side, cache_like))):
+            raise TypeError("KVPagePool takes a float (ck, cv) cache pair "
+                            "of (L, K, T, B, hd) tensors or the int8 "
+                            "((kq, ks), (vq, vs)) cache")
+        self.leaves = cache_map(
+            lambda a: torch.zeros(_pool_leaf_shape(tuple(a.shape),
+                                                   self.n_pages,
+                                                   self.page_size),
+                                  dtype=a.dtype, device=a.device),
+            cache_like)
         log.info("KV page pool allocated: %d pages x %d tokens (%.3f GB)",
                  self.n_pages, self.page_size, self.nbytes / 1e9)
 
@@ -193,13 +219,13 @@ class KVPagePool:
         for j, (pg, row, start) in enumerate(writes):
             pages[j], rows[j], starts[j] = pg, row, start
         slot_idx = starts[:, None] + np.arange(self.page_size)[None, :]
-        dev = self.leaves[0].device
+        dev = cache_leaves(self.leaves)[0].device
         scatter_pages(self.leaves, cache, torch.from_numpy(pages).to(dev),
                       torch.from_numpy(rows).to(dev),
                       torch.from_numpy(slot_idx).to(dev))
 
     def page_nbytes(self) -> int:
-        """Device bytes of ONE page across both tensors (0 before
+        """Device bytes of ONE page across every leaf (0 before
         :meth:`ensure`)."""
         if self.leaves is None:
             return 0
@@ -212,7 +238,8 @@ class KVPagePool:
         """Device bytes of the allocated pool (0 before :meth:`ensure`)."""
         if self.leaves is None:
             return 0
-        return sum(a.numel() * a.element_size() for a in self.leaves)
+        return sum(a.numel() * a.element_size()
+                   for a in cache_leaves(self.leaves))
 
     @property
     def free_pages(self) -> int:

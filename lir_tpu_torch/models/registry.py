@@ -83,6 +83,15 @@ class ModelConfig:
     # RuntimeConfig.cascade_fused_suffix.
     cascade_fused_suffix: bool = True
 
+    # KV-cache storage: int8 payloads with a float32 scale per (kv head,
+    # slot, row) vector, half the cache bytes. The cached attention of
+    # ``extend``, ``decode_step`` and ``verify_extend`` then runs s8 x s8
+    # products with the query and the value-scaled probabilities
+    # quantized per vector (ops.kv_int8_attention); the prefill's own
+    # attention reads the float k/v. Off by default, as in the JAX
+    # package.
+    kv_cache_int8: bool = False
+
     def __post_init__(self) -> None:
         if self.head_dim is None:
             object.__setattr__(self, "head_dim", self.hidden_size // self.n_heads)

@@ -32,6 +32,11 @@
 - ``gumbel_argmax``: temperature sampling, each row's next token by the
   Gumbel-max trick on JAX's threefry draws (``csrc/sample.cu``; the
   counterpart of the JAX package's XLA ``jax.random.categorical``).
+- ``kv_int8_attention``: the cached attention of an int8 KV cache (the
+  chunked extension, the decode step and the verify window), both
+  products s8 x s8 -> s32 with the query and the value-scaled
+  probabilities quantized per vector (``csrc/kv_int8_attention.cu``; the
+  counterpart of the JAX package's XLA ``_attention_cached_int8``).
 
 Each wrapper keeps a plain int ``launches`` that it raises by one where
 it launches its CUDA kernel, and nowhere else (``flash_attention`` also
@@ -49,6 +54,7 @@ from .cascade_prefill import (cascade_attention, cascade_attention_plain,
                               prefix_partials_int8, quantize_rows,
                               suffix_merge_plain)
 from .flash_attention import flash_attention, flash_attention_plain
+from .kv_int8_attention import kv_int8_attention, kv_int8_attention_plain
 from .flash_decode import (DECODE_SPLIT, flash_decode, flash_decode_mq,
                            flash_decode_mq_plain, flash_decode_mq_trunk,
                            flash_decode_mq_trunk_plain, flash_decode_plain,
@@ -75,6 +81,7 @@ KERNELS = {
     "quantize_rows": quantize_rows,
     "stream_fold": stream_fold,
     "gumbel_argmax": gumbel_argmax,
+    "kv_int8_attention": kv_int8_attention,
 }
 
 
@@ -99,7 +106,8 @@ __all__ = [
     "flash_decode_mq_trunk_plain", "flash_decode_plain", "flash_decode_trunk",
     "flash_decode_trunk_plain", "launch_counts", "merge_partials",
     "prefix_partials", "prefix_partials_int8", "reset_launches",
-    "gemm_splits", "row_add_norm", "row_add_norm_plain", "row_gemm",
+    "gemm_splits", "kv_int8_attention", "kv_int8_attention_plain",
+    "row_add_norm", "row_add_norm_plain", "row_gemm",
     "row_gemm_plain", "row_norm", "row_norm_plain", "stream_fold",
     "stream_fold_plain",
 ]

@@ -23,7 +23,7 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lir_tpu_torch"
 SOURCES = ("flash_decode", "cascade_prefill", "flash_attention", "row_gemm",
-           "stream_fold", "sample")
+           "stream_fold", "sample", "kv_int8_attention")
 # Head dims the tile kernels of csrc/attn_tile.cuh and csrc/attn_mma.cuh
 # are instantiated for.
 TILE_HEAD_DIMS = (32, 64, 80, 96, 128)

@@ -11,6 +11,8 @@ Copies from the JAX package's ``utils/profiling.py``:
   quarantine part);
 - ``StreamStats``: the streaming-statistics sink's counters;
 - ``PrefixCacheStats``: the cross-request prefix cache's counters;
+- ``KernelStats``: the piggyback chain's counters (its ``phases``, which
+  only the JAX package's benchmark fills, are left out);
 - ``device_memory_stats``: per-device memory from
   ``torch.cuda.memory_stats``.
 """
@@ -395,6 +397,25 @@ class PrefixCacheStats:
                 "pages_in_use": self.pages_in_use,
                 "pages_total": self.pages_total,
             }
+
+@dataclasses.dataclass
+class KernelStats:
+    """The piggyback chain's counters (engine-side chunked prefill/decode
+    piggybacking): ``chains_opened``, ``piggybacked_steps`` (dispatches
+    whose decode loops rode the next prefill call), ``chains_drained``
+    and ``chain_fallbacks`` (chains dropped for the plain path)."""
+
+    counters: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+    def count(self, name: str, n: int = 1) -> None:
+        self.counters[name] = self.counters.get(name, 0) + n
+
+    def summary(self) -> Dict[str, object]:
+        out: Dict[str, object] = {}
+        if self.counters:
+            out["piggyback"] = dict(sorted(self.counters.items()))
+        return out
+
 
 def device_memory_stats() -> Dict[str, Dict[str, float]]:
     """Per-card memory stats in GiB (the ``bytes`` entries of

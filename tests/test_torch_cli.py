@@ -165,7 +165,8 @@ PERTURB_FLAGS = [
     ["--no-streaming-stats"], ["--no-row-artifact"], ["--no-numerics-guard"],
     ["--prefix-cache"], ["--prefix-cache", "--prefix-cache-pages", "8"],
     ["--prefix-cache", "--prefix-page-size", "32"], ["--no-spec-tree-probe"],
-    ["--spec-tree-tails", "4"],
+    ["--spec-tree-tails", "4"], ["--no-piggyback"], ["--kv-cache-int8"],
+    ["--kv-cache-int8", "--int8", "--no-piggyback"],
 ]
 
 
@@ -183,7 +184,7 @@ def test_perturb_flags_land_in_the_jax_fields(monkeypatch, flags):
         names = [f.name for f in dataclasses.fields(cls)]
         assert (_fields(port["kw"][key], names)
                 == _fields(ref["kw"][key], names)), key
-    for key in ("quantize_int8", "int8_dynamic"):
+    for key in ("quantize_int8", "int8_dynamic", "kv_cache_int8"):
         assert port["kw"][key] == ref["kw"][key], key
     assert port["kw"]["device"] == "cuda"
 
@@ -207,7 +208,7 @@ def test_prefix_cache_flags_reach_the_configs(monkeypatch):
 
 
 SWEEP_FLAGS = [[], ["--batch-size", "16"], ["--int8"],
-               ["--int8", "--int8-dynamic"],
+               ["--int8", "--int8-dynamic"], ["--kv-cache-int8"],
                ["--sweep-kind", "instruct_only"], ["--out", "elsewhere"]]
 
 
@@ -240,7 +241,7 @@ def test_sweep_flags_land_in_the_jax_fields(monkeypatch, flags):
     assert port["root"] == ref["root"]
     rt_names = [f.name for f in dataclasses.fields(RuntimeConfig)]
     assert _fields(port["rt"], rt_names) == _fields(ref["rt"], rt_names)
-    for key in ("quantize_int8", "int8_dynamic"):
+    for key in ("quantize_int8", "int8_dynamic", "kv_cache_int8"):
         assert port["kw"][key] == ref["kw"][key], key
     p, r = calls["lir_tpu_torch"], calls["lir_tpu"]
     assert p["specs"] == r["specs"] and p["out"] == r["out"]
@@ -250,10 +251,10 @@ def test_sweep_flags_land_in_the_jax_fields(monkeypatch, flags):
 # Flags of features the port does not have yet (ROADMAP names the item
 # that brings each).
 UNPORTED = [
-    ["--mesh", "1x8"], ["--param-cache", "x"], ["--kv-cache-int8"],
+    ["--mesh", "1x8"], ["--param-cache", "x"],
     ["--lease-cells", "8"], ["--trace-buffer", "8"], ["--lease-shards"],
     ["--lease-ttl", "5"], ["--weight-cache-gb", "1"], ["--no-weight-prefetch"],
-    ["--trace-out", "t.json"], ["--multihost"], ["--no-piggyback"],
+    ["--trace-out", "t.json"], ["--multihost"],
     ["--spec-draft-model", "x"], ["--watchdog-floor", "5"],
     ["--watchdog-multiple", "2"], ["--dtype", "float32"],
     ["--no-aot-precompile"], ["--barrier-timeout", "5"], ["--no-hbm-governor"],

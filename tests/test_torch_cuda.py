@@ -35,7 +35,13 @@ sink's lattice bitwise, its finalize's CIs within 1e-6 of the CPU's.
 The sampler (``gumbel_argmax``) gives its plain twin's ids in both key
 modes, at vocabularies that are and are not a multiple of its chunk,
 with a NaN logit and with tied scores (the lowest index), launch after
-launch.
+launch. The int8-KV attention kernel (``kv_int8_attention``) holds its
+twin's s32 scores bitwise and its output within ``tie_bar`` (one int8
+level of the probabilities at each key near a rounding tie), at S = 1,
+a verify window and 16 queries, MHA / GQA / MQA, ALiBi, every head dim
+it is built for, float32 and bf16 queries, a row with every key masked,
+a cache view cut short of its extent, and an extent whose scores take
+fewer rows a block.
 """
 
 import dataclasses
@@ -935,3 +941,72 @@ def test_gumbel_argmax_matches_plain(gen, B, V, per_row):
     flat = torch.full((B, V), -float("inf"), device="cuda")
     assert torch.equal(ops.gumbel_argmax(flat, keys[0], offsets, 1.0),
                        gumbel_argmax_plain(flat, keys[0], offsets, 1.0))
+
+
+# (B, S, H, K, hd, T, alibi, dtype, view) of the int8-KV attention's
+# cases: llama-2-7b's decode step, a verify window and a 16-token
+# extension, GQA, falcon-7b's MQA, bloom's ALiBi, head dims 32 / 80 / 96,
+# float32 queries, a cache view cut to fewer slots than it holds, and
+# 3,000 slots (fewer query rows a block).
+KV8_CASES = [
+    (32, 1, 32, 32, 128, 552, False, BF16, False),
+    (32, 5, 32, 32, 128, 552, False, BF16, False),
+    (8, 16, 32, 8, 128, 300, True, BF16, False),
+    (4, 1, 71, 1, 64, 200, False, BF16, True),
+    (3, 4, 8, 2, 32, 100, False, F32, False),
+    (3, 2, 8, 8, 80, 65, True, BF16, False),
+    (2, 16, 8, 2, 96, 3000, False, BF16, True),
+]
+
+
+@pytest.mark.parametrize("B,S,H,K,hd,T,alibi,dtype,view", KV8_CASES)
+def test_kv_int8_attention_matches_twin(gen, B, S, H, K, hd, T, alibi,
+                                        dtype, view):
+    from lir_tpu_torch.models.quant import dynamic_quant
+    from lir_tpu_torch.ops.kv_int8_attention import (kv_int8_attention_plain,
+                                                     qk_s32_plain, tie_bar)
+
+    q = _rnd(gen, B, S, H, hd, dtype=dtype)
+    extent = T + 7 if view else T
+    kq, ks = dynamic_quant(_rnd(gen, K, extent, B, hd))
+    vq, vs = dynamic_quant(_rnd(gen, K, extent, B, hd))
+    if view:
+        kq, ks, vq, vs = (x[:, :T] for x in (kq, ks, vq, vs))
+    mask = torch.ones((B, T), dtype=torch.int32, device="cuda")
+    mask[0, T // 3:T // 3 + 9] = 0
+    mask[:, T - 2:] = 0
+    mask[B - 1] = 0                    # a row whose every key is masked
+    kpos = torch.clamp_min(torch.cumsum(mask, -1, dtype=torch.int32) - 1, 0)
+    qpos = (kpos.max(-1).values[:, None] - (S - 1)
+            + torch.arange(S, device="cuda")[None]).to(torch.int32)
+    slopes = alibi_slopes(H, "cuda") if alibi else None
+    args = (q, kq, ks, vq, vs, qpos, mask, kpos)
+    before = ops.kv_int8_attention.launches
+    s32 = torch.empty((B, H, S, T), dtype=torch.int32, device="cuda")
+    got = ops.kv_int8_attention(*args, alibi_slopes=slopes, s32_out=s32)
+    ref = kv_int8_attention_plain(*args, alibi_slopes=slopes)
+    bar = tie_bar(*args, alibi_slopes=slopes)
+    torch.cuda.synchronize()
+    assert ops.kv_int8_attention.launches == before + 1
+    assert got.shape == (B, S, H * hd) and got.dtype == dtype
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(s32, qk_s32_plain(q, kq))
+    err = (got.float() - ref.float()).abs()
+    assert bool((err <= bar).all()), float(err.max())
+    # Launch after launch, the same bits.
+    assert torch.equal(ops.kv_int8_attention(*args, alibi_slopes=slopes), got)
+
+
+def test_kv_int8_attention_refuses_wrong_inputs(gen):
+    q = _rnd(gen, 2, 1, 4, 64)
+    k8 = torch.zeros((2, 10, 2, 64), dtype=torch.int8, device="cuda")
+    sc = torch.ones((2, 10, 2), device="cuda")
+    pos = torch.zeros((2, 1), dtype=torch.int32, device="cuda")
+    mask = torch.ones((2, 10), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        ops.kv_int8_attention(_rnd(gen, 2, 1, 4, 48), k8[..., :48], sc,
+                              k8[..., :48], sc, pos, mask, mask)
+    with pytest.raises(ValueError, match="kq"):
+        ops.kv_int8_attention(q, k8.float(), sc, k8, sc, pos, mask, mask)
+    with pytest.raises(ValueError, match="ks"):
+        ops.kv_int8_attention(q, k8, sc.half(), k8, sc, pos, mask, mask)

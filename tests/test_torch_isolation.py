@@ -35,6 +35,7 @@ import lir_tpu_torch.stats.agreement, lir_tpu_torch.stats.fits
 import lir_tpu_torch.stats.normality, lir_tpu_torch.stats.streaming
 import lir_tpu_torch.engine.stream_stats, lir_tpu_torch.ops.stream_fold
 import lir_tpu_torch.engine.prng, lir_tpu_torch.ops.sample
+import lir_tpu_torch.ops.kv_int8_attention
 import lir_tpu_torch.analysis, lir_tpu_torch.analysis.perturbation
 import lir_tpu_torch.analysis.base_vs_instruct, lir_tpu_torch.analysis.model_graph
 import lir_tpu_torch.analysis.kappa_combined

@@ -199,6 +199,10 @@ def test_wrappers_count_only_kernel_launches():
     ops.gumbel_argmax(torch.randn((3, 50)),
                       torch.zeros((3, 2), dtype=torch.int64),
                       torch.zeros(3, dtype=torch.int64), 0.9)
+    k8 = torch.zeros((2, 80, 3, 16), dtype=torch.int8)
+    s8 = torch.ones((2, 80, 3))
+    ops.kv_int8_attention(torch.randn((3, 2, 4, 16)), k8, s8, k8, s8,
+                          torch.zeros((3, 2), dtype=torch.int32), mask, tkp)
     assert set(ops.flash_attention.route_launches.values()) == {0}
     assert ops.launch_counts() == {"flash_decode": 0, "flash_decode_trunk": 0,
                                    "cascade_attention": 0,
@@ -211,4 +215,5 @@ def test_wrappers_count_only_kernel_launches():
                                    "row_add_norm": 0,
                                    "cascade_suffix_merge": 0,
                                    "quantize_rows": 0, "stream_fold": 0,
-                                   "gumbel_argmax": 0}
+                                   "gumbel_argmax": 0,
+                                   "kv_int8_attention": 0}

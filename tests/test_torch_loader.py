@@ -55,10 +55,7 @@ def _cfg_fields(cfg):
 
 
 def _assert_config_equal(port_cfg, jax_cfg):
-    port, ref = _cfg_fields(port_cfg), _cfg_fields(jax_cfg)
-    # The JAX registry's kv_cache_int8 waits for ROADMAP A6 in the port.
-    assert ref.pop("kv_cache_int8") is False
-    assert port == ref
+    assert _cfg_fields(port_cfg) == _cfg_fields(jax_cfg)
 
 
 def _assert_trees_equal(a, b, path=""):

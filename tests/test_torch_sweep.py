@@ -233,15 +233,16 @@ def test_absent_features_are_absent_and_rows_match(jax_run, port_runs):
     flags of the port (none can be set and ignored), the sweep's
     parameters are the JAX sweep's (the reasoning mode's included), and
     the port's rows are the JAX sweep's with all of them off. The
-    streaming sink, the numerics guard and the prefix cache are ported:
-    their flags default as the JAX package's."""
+    streaming sink, the numerics guard, the prefix cache and piggyback
+    chains are ported: their flags default as the JAX package's."""
     fields = {f.name for f in dataclasses.fields(RuntimeConfig)}
-    for name in ("piggyback_prefill", "lease_shards", "aot_precompile"):
+    for name in ("lease_shards", "aot_precompile"):
         assert name not in fields
     for name in ("sweep_full_completions", "sweep_group_min_prefix",
                  "sweep_group_min_cells", "streaming_stats",
                  "numerics_guard", "row_artifact", "prefix_cache",
-                 "prefix_cache_pages", "prefix_page_size"):
+                 "prefix_cache_pages", "prefix_page_size",
+                 "piggyback_prefill"):
         assert getattr(RuntimeConfig(), name) == \
             getattr(JaxRuntimeConfig(), name)
     params = inspect.signature(tsweep.run_perturbation_sweep).parameters
