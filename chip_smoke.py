@@ -14,8 +14,9 @@ Phases (each raises on failure, so the script exits non-zero):
    HGMMA (wgmma) in ``row_gemm_kernel``, ``prefix_wgmma_kernel``, the
    fused ``cascade_mma_kernel`` and ``suffix_merge_kernel`` at every head
    dim, and ``flash_wgmma_kernel`` at head dims 64 and 128 with one and
-   two consumer warpgroups, IMMA in ``prefix_imma_kernel``; fail if one
-   has none.
+   two consumer warpgroups, IMMA in ``prefix_imma_kernel`` and in the
+   int8-KV attention's blocks of 8 rows or more (``kv_int8_attention_kernel``
+   at every head dim and query dtype); fail if one has none.
 2. Kernels against their plain PyTorch versions on the card, at the
    shapes the main path gives them (llama-2-7b widths, B = 32, the cache
    extents and trunks of phase 3's dispatches; the verify window's
@@ -53,13 +54,19 @@ Phases (each raises on failure, so the script exits non-zero):
    operations at the card's INT32 rate. The int8-KV attention
    (``kv_int8_attention``) at the cascade dispatch's extent, B = 32: the
    decode step (S = 1, its main-path case), S = spec_k + 1, a 16-token
-   extension, GQA (mistral-7b) and ALiBi (bloom-7b1), on the decode
-   inputs with K and V quantized per vector: its s32 scores bitwise the
-   twin's, its output within ``tie_bar`` (one level of the quantized
-   probabilities at each key whose value sits within 1e-2 of a rounding
-   tie, times the value payload, plus a unit in the output's last place:
-   the two float chains sum in other orders); bound by the int8 payloads
-   and scales, no library call.
+   extension, GQA (mistral-7b) and ALiBi (bloom-7b1); at the chain's
+   extent (156 slots) and the flat grid's promoted tail (1,088) a decode
+   step and a verify window each; a GQA verify window (20 rows a pair);
+   on the decode inputs with K and V quantized per vector: its s32
+   scores bitwise the twin's, its output within ``tie_bar`` (one level
+   of the quantized probabilities at each key whose value sits within
+   1e-2 of a rounding tie, times the value payload, plus a unit in the
+   output's last place: the two float chains sum in other orders), a
+   second launch bitwise the first; bound by the int8 payloads and
+   scales, no library call; each row with its launch plan (blocks a
+   cluster, rows a block, IMMA or dp4a), its share of the bound and PR
+   18's time. One query row alone (B = 1, S = 1) bitwise the same row in
+   a B = 32 verify launch, MHA and GQA.
    Times by CUDA events after warm-up, the L2 cache flushed before every
    launch and the stream held by a spin kernel while the host enqueues it
    (device time, without the host's launch time); the library yardstick
@@ -197,10 +204,10 @@ Phases (each raises on failure, so the script exits non-zero):
    chain drained, no fallback); the rows bitwise, or else held to twice a
    half-batch control's movement, flips only at near ties, each
    reported. Then the int8-KV engine (the bf16 weights, ``cfg`` with
-   ``kv_cache_int8``): the chain grid and the flat grid, rows/s, peak
-   memory beside the bf16-KV engine's, ``kv_int8_attention`` launched and
-   no ``flash_decode*``, the largest differences from the bf16-KV rows
-   (reported). After the small sweep check, the small float32 model
+   ``kv_cache_int8``): the chain grid and the flat grid, rows/s (beside
+   PR 18's), peak memory beside the bf16-KV engine's,
+   ``kv_int8_attention`` launched and no ``flash_decode*``, the largest
+   differences from the bf16-KV rows (reported). After the small sweep check, the small float32 model
    with an int8 KV cache over the small flat grid, card against CPU:
    texts equal save flips within a 1e-2-nat gap under the int8 cache,
    floats within 1e-2.
@@ -312,8 +319,10 @@ from lir_tpu_torch.ops.row_gemm import (row_add_norm_plain, row_gemm_plain,
 from lir_tpu_torch.ops.flash_attention import flash_attention_plain
 from lir_tpu_torch.ops.stream_fold import stream_fold_plain
 from lir_tpu_torch.ops.sample import gumbel_argmax_plain, gumbel_scores_plain
+from lir_tpu_torch.ops.kv_int8_attention import HEAD_DIMS as KV8_HEAD_DIMS
 from lir_tpu_torch.ops.kv_int8_attention import (kv_int8_attention_plain,
                                                  qk_s32_plain, tie_bar)
+from lir_tpu_torch.ops.kv_int8_attention import plan as kv8_plan
 from lir_tpu_torch.engine import stream_stats
 from lir_tpu_torch.stats import streaming
 from lir_tpu_torch.stats.core import generator_for, resample_indices
@@ -1216,6 +1225,31 @@ def check_gumbel_argmax(gen, floor_ms, results):
             results.append(row)
 
 
+# B-1's times in PR 18's call (its first kernel, NVIDIA H100 80GB HBM3,
+# 700 W), printed beside this run's at the same cases.
+KV8_PR18_MS = {"llama2-7b/decode": 0.2602, "llama2-7b/verify": 0.2813,
+               "llama2-7b/extend16": 0.3552, "mistral-7b/gqa": 0.1218,
+               "bloom-7b1/alibi": 0.2648}
+# The int8-KV phase's rows/s in PR 18's two calls (dev2, final): chain
+# grid and flat grid.
+KV8_PR18_ROWS_PER_S = {"chain": (39.19, 32.83), "flat": (17.25, 16.88)}
+# The piggyback chain's cache extent at bucket 96 (PR 18's chain phase)
+# and the flat grid's promoted tail at bucket 1,024, with the speculative
+# window.
+KV8_CHAIN_T = 156
+KV8_FLAT_TAIL_T = 1088
+
+
+def kv8_inputs(gen, B, S, H, K, hd, T, alibi):
+    """:func:`decode_inputs` with the cache quantized per vector as the
+    int8-KV engine stores it: the kernel's arguments and ALiBi slopes."""
+    q, k, v, qpos, mask, kpos = decode_inputs(gen, B, H, K, hd, T, 0, S=S)
+    kq, ks = quant.dynamic_quant(k)
+    vq, vs = quant.dynamic_quant(v)
+    slopes = decoder.alibi_slopes(H, DEV) if alibi else None
+    return (q, kq, ks, vq, vs, qpos, mask, kpos), slopes
+
+
 def check_kv_int8_attention(gen, label, B, S, H, K, hd, T, alibi, results):
     """The int8-KV attention kernel against its plain twin at a decode
     step's (S = 1), a verify window's or an extension's shape: the
@@ -1226,15 +1260,14 @@ def check_kv_int8_attention(gen, label, B, S, H, K, hd, T, alibi, results):
     of a rounding tie, so each output element may differ by one int8
     level of pw (times its scale) at each key whose pw sits within 1e-2
     of a tie, times the value payload there, plus a unit in the last
-    place of the output dtype. Timed beside its bound (the q, the int8
-    payloads and float32 scales of K and V, the int arrays and the
-    output; two s8 products over every key at the int8 rate); no library
+    place of the output dtype; a second launch bitwise the first. Timed
+    beside its bound (the q, the int8 payloads and float32 scales of K
+    and V, the int arrays and the output; two s8 products over every key
+    at the int8 rate), its share of the bound, the launch plan (split,
+    rows a block, IMMA or dp4a) and PR 18's time of the case; no library
     call computes it (``library_ms`` None)."""
-    q, k, v, qpos, mask, kpos = decode_inputs(gen, B, H, K, hd, T, 0, S=S)
-    kq, ks = quant.dynamic_quant(k)
-    vq, vs = quant.dynamic_quant(v)
-    slopes = decoder.alibi_slopes(H, DEV) if alibi else None
-    args = (q, kq, ks, vq, vs, qpos, mask, kpos)
+    args, slopes = kv8_inputs(gen, B, S, H, K, hd, T, alibi)
+    q, kq = args[0], args[1]
     s32 = torch.empty((B, H, S, T), dtype=torch.int32, device=DEV)
     got = ops.kv_int8_attention(*args, alibi_slopes=slopes, s32_out=s32)
     ref = kv_int8_attention_plain(*args, alibi_slopes=slopes)
@@ -1251,19 +1284,60 @@ def check_kv_int8_attention(gen, label, B, S, H, K, hd, T, alibi, results):
         raise AssertionError(f"kv_int8_attention[{label}]: {over} outputs "
                              f"past the tie bar (max |err| "
                              f"{float(err.max()):.3e})")
-    byts = nbytes(q, kq, ks, vq, vs, qpos, mask, kpos, slopes) + nbytes(got)
+    if not torch.equal(ops.kv_int8_attention(*args, alibi_slopes=slopes),
+                       got):
+        raise AssertionError(f"kv_int8_attention[{label}]: a second launch "
+                             f"gave other bits")
+    byts = nbytes(*args, slopes) + nbytes(got)
     b_ms, b_by = bound(byts, 0.0, 4.0 * B * H * S * T * hd)
+    pl = kv8_plan(T, hd, S * (H // K))
+    k_ms = time_ms(lambda: ops.kv_int8_attention(*args, alibi_slopes=slopes))
     row = dict(kernel="kv_int8_attention", case=label, B=B, S=S, H=H, K=K,
                hd=hd, T=T, max_abs_err=float(err.max()),
                max_tie_bar=float(bar.max()), s32_bitwise=True,
+               same_bits_relaunched=True,
                elements_differing=int((err > 0).sum()),
-               kernel_ms=time_ms(lambda: ops.kv_int8_attention(
-                   *args, alibi_slopes=slopes)),
+               splits=pl.splits, slice=pl.slice, rows_per_block=pl.rows,
+               row_chunks=pl.chunks, route="imma" if pl.mma else "dp4a",
+               kernel_ms=k_ms,
                plain_ms=time_ms(lambda: kv_int8_attention_plain(
                    *args, alibi_slopes=slopes), iters=3),
-               library_ms=None, bound_ms=b_ms, bound_by=b_by)
+               library_ms=None, bound_ms=b_ms, bound_by=b_by,
+               bound_fraction=b_ms / k_ms,
+               pr18_ms=KV8_PR18_MS.get(label))
     log(json.dumps(row))
     results.append(row)
+
+
+def check_kv_int8_row_invariance(gen, label, H, K, hd, T, S):
+    """One query row's output alone (B = 1, S = 1) and inside a B = BATCH,
+    S = ``S`` launch: bitwise equal. The split and every float reduction
+    order come from T alone, and the integer products are exact on
+    either route (here dp4a alone, and dp4a or IMMA in the batch by S *
+    G), so the row's bits cannot depend on the launch that holds it."""
+    args, _ = kv8_inputs(gen, BATCH, S, H, K, hd, T, False)
+    q, kq, ks, vq, vs, qpos, mask, kpos = args
+    full = ops.kv_int8_attention(*args)
+    checked = []
+    for b, s in ((0, 0), (BATCH // 2 + 1, S - 1), (BATCH - 1, S // 2)):
+        alone = ops.kv_int8_attention(
+            q[b:b + 1, s:s + 1].contiguous(),
+            *(x[:, :, b:b + 1].contiguous() for x in (kq, ks, vq, vs)),
+            qpos[b:b + 1, s:s + 1].contiguous(), mask[b:b + 1].contiguous(),
+            kpos[b:b + 1].contiguous())
+        torch.cuda.synchronize()
+        if not torch.equal(alone[0, 0], full[b, s]):
+            raise AssertionError(f"kv_int8_attention row invariance "
+                                 f"[{label}]: row ({b}, {s}) alone differs "
+                                 f"from the B = {BATCH}, S = {S} launch")
+        checked.append([b, s])
+    G = H // K
+    log(json.dumps({"phase": "kv_int8_row_invariance", "case": label,
+                    "T": T, "rows_checked": checked, "bitwise": True,
+                    "route_alone": "imma" if kv8_plan(T, hd, G).mma
+                    else "dp4a",
+                    "route_batch": "imma" if kv8_plan(T, hd, S * G).mma
+                    else "dp4a"}))
 
 
 def check_flash_attention(gen, label, B, S, H, K, hd, alibi, results):
@@ -2885,7 +2959,8 @@ def run_kv_int8_phase(engine, rt, grids, tmp: Path, flat_peak: int) -> dict:
     1,024-bucket tail among them) swept: rows/s, peak memory beside the
     bf16-KV engine's (``flat_peak`` for the flat grid, the chain phase's
     for the chain grid), ``kv_int8_attention`` launched and no float
-    decode kernel, the chain's counters, and each grid's largest
+    decode kernel, the chain's counters, PR 18's rows/s (its two calls)
+    beside each grid's, and each grid's largest
     differences from the bf16-KV rows (reported, not held: the int8
     cache rounds every k/v)."""
     eng = kv8_engine(engine)
@@ -2907,6 +2982,7 @@ def run_kv_int8_phase(engine, rt, grids, tmp: Path, flat_peak: int) -> dict:
                                 < CHAIN_MIN_RUN - 1):
             raise AssertionError(f"kv8 chain: counters {st['chain']}")
         st["rows_on_disk"] = n
+        st["pr18_rows_per_s"] = KV8_PR18_ROWS_PER_S[name]
         st["vs_bf16_kv"] = d6_gaps(d6_records(ref), d6_records(path))
         out[name] = st
     out["flat"]["bf16_kv_peak_bytes"] = flat_peak
@@ -4926,6 +5002,11 @@ def main() -> int:
         f"flash_wgmma_kernel<Li{hd}ELi{wg}>" for hd in (64, 128) for wg in (1, 2)),
         op="HGMMA")
     tensor_core_counts("row_gemm", ("row_gemm_kernel",), op="HGMMA")
+    # The int8-KV attention's blocks of 8 rows or more: both products on
+    # IMMA, at every head dim and query dtype.
+    tensor_core_counts("kv_int8_attention", tuple(
+        f"kv_int8_attention_kernel<Li{hd}E{t}Lb1>" for hd in KV8_HEAD_DIMS
+        for t in ("f", "13__nv_bfloat16")), op="IMMA")
     elapsed("build")
 
     # Phase 3's shapes, planned up front.
@@ -5035,15 +5116,26 @@ def main() -> int:
     check_stream_fold(gen, floor_ms, results)
     check_gumbel_argmax(gen, floor_ms, results)
     # The int8-KV attention at the cascade dispatch's extent: the decode
-    # step, a verify window, a 16-token extension, GQA and ALiBi.
-    for label, S_, H_, K_, alibi in (
-            ("llama2-7b/decode", 1, H, K, False),
-            ("llama2-7b/verify", rt.spec_k + 1, H, K, False),
-            ("llama2-7b/extend16", 16, H, K, False),
-            ("mistral-7b/gqa", 1, 32, 8, False),
-            ("bloom-7b1/alibi", 1, 32, 32, True)):
-        check_kv_int8_attention(gen, label, BATCH, S_, H_, K_, hd, T0, alibi,
+    # step, a verify window, a 16-token extension, GQA and ALiBi; at the
+    # chain's extent and the flat grid's promoted tail, a decode step and
+    # a verify window each; a GQA verify window (S * G > 16 rows a pair).
+    Sv = rt.spec_k + 1
+    for label, S_, H_, K_, T_, alibi in (
+            ("llama2-7b/decode", 1, H, K, T0, False),
+            ("llama2-7b/verify", Sv, H, K, T0, False),
+            ("llama2-7b/extend16", 16, H, K, T0, False),
+            ("mistral-7b/gqa", 1, 32, 8, T0, False),
+            ("bloom-7b1/alibi", 1, 32, 32, T0, True),
+            ("llama2-7b/chain-decode", 1, H, K, KV8_CHAIN_T, False),
+            ("llama2-7b/chain-verify", Sv, H, K, KV8_CHAIN_T, False),
+            ("llama2-7b/flat-tail-decode", 1, H, K, KV8_FLAT_TAIL_T, False),
+            ("llama2-7b/flat-tail-verify", Sv, H, K, KV8_FLAT_TAIL_T, False),
+            ("mistral-7b/gqa-verify", Sv, 32, 8, T0, False)):
+        check_kv_int8_attention(gen, label, BATCH, S_, H_, K_, hd, T_, alibi,
                                 results)
+    check_kv_int8_row_invariance(gen, "llama2-7b/verify", H, K, hd, T0, Sv)
+    check_kv_int8_row_invariance(gen, "mistral-7b/gqa-verify", 32, 8, 128,
+                                 T0, Sv)
     elapsed("kernels_vs_plain")
     small = small_model()
     small_slice_check(*small)

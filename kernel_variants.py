@@ -3,6 +3,7 @@ it back, and the design choices its source note states.
 
     python3 kernel_variants.py [--variants base,loads_only,...]
     python3 kernel_variants.py --kernel suffix_merge_template --csrc DIR
+    python3 kernel_variants.py --kernel kv_int8
 
 Each variant is a copy of a ``csrc`` directory with one or more text
 substitutions (the tables below), built with the flags of
@@ -26,6 +27,16 @@ each, all at once) and called in bf16 through its C entry at B = 32.
   output store); at the cascade dispatch's shape (llama-2-7b, R = 80,
   ragged windows as chip_smoke makes them), mistral-7b (GQA) and
   falcon-7b (MQA).
+- ``kv_int8``: the int8-KV cached attention (B-1,
+  ``kv_int8_attention_kernel``; bf16 queries, the cache
+  quantized per vector as ``chip_smoke.kv8_inputs`` makes it): IMMA from
+  2 query rows a block instead of 8, and three IMMA blocks an SM (no
+  register spills) instead of four; and the base library launched with
+  T split into 1, 2, 3, 4 or 8 blocks a cluster instead of the plan's
+  (``split<n>``; the split moves the sum's order, within ``tie_bar``); at
+  llama-2-7b's decode step, verify window and 16-token extension at 552
+  slots, mistral-7b's GQA step and verify window, and the chain's (156)
+  and the flat tail's (1,088) extents.
 
 Timed by ``chip_smoke.time_ms`` (L2 flushed, device time) in turns (the
 variants, then in reverse). Each variant's largest difference against
@@ -38,6 +49,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -49,9 +61,12 @@ import torch.nn.functional as F
 import chip_smoke as cs
 from lir_tpu_torch import ops
 from lir_tpu_torch.ops import _build
+from lir_tpu_torch.ops.kv_int8_attention import kv_int8_attention_plain
+from lir_tpu_torch.ops.kv_int8_attention import plan as kv8_plan
 
 FA = "flash_attention.cu"
 CP = "cascade_prefill.cu"
+KV = "kv_int8_attention.cu"
 _BY_LENGTH = ("return a.S > 3 * am::kKeys ? launch_wgmma<HD, 2>(a, st) : "
               "launch_wgmma<HD, 1>(a, st);")
 # name -> [(file, old text, new text), ...] in the variant's csrc copy.
@@ -132,15 +147,36 @@ SUFFIX_MERGE_VARIANTS = {
     "one_item_a_block": [(CP, "  const int grid = items < grid_max ? int(items) : grid_max;",
                           "  const int grid = int(items);")],
 }
+KV8_VARIANTS = {
+    "base": [],
+    # Both products on IMMA from 2 query rows a block (padded to 16).
+    "imma_from_2": [(KV, "constexpr int kMmaRows = 8;", "constexpr int kMmaRows = 2;")],
+    # Three IMMA blocks an SM (85 registers) instead of four (64, spills).
+    "imma_3_an_sm": [(KV, "MMA ? 4 : 8)", "MMA ? 3 : 8)")],
+}
+# The base library's launches with T split into this many blocks.
+KV8_SPLITS = (1, 2, 3, 4, 8)
+# (case, S, query heads, kv heads, T) at B = 32, head dim 128.
+KV8_SHAPES = [("llama-2-7b/decode", 1, 32, 32, 552), ("llama-2-7b/verify", 5, 32, 32, 552),
+              ("llama-2-7b/extend16", 16, 32, 32, 552), ("mistral-7b/gqa", 1, 32, 8, 552),
+              ("mistral-7b/gqa-verify", 5, 32, 8, 552),
+              ("llama-2-7b/chain-decode", 1, 32, 32, 156),
+              ("llama-2-7b/flat-tail-decode", 1, 32, 32, 1088),
+              ("llama-2-7b/flat-tail-verify", 5, 32, 32, 1088)]
 # kernel -> (library, variant table, default sources)
 KERNELS = {"flash": ("flash_attention", FLASH_VARIANTS, _build.CSRC),
            "suffix_merge": ("cascade_prefill", SUFFIX_MERGE_VARIANTS, _build.CSRC),
-           "suffix_merge_template": ("cascade_prefill", SUFFIX_MERGE_TEMPLATE_VARIANTS, None)}
+           "suffix_merge_template": ("cascade_prefill", SUFFIX_MERGE_TEMPLATE_VARIANTS, None),
+           "kv_int8": ("kv_int8_attention", KV8_VARIANTS, _build.CSRC)}
 _ARGTYPES = {
     "flash_attention": {"lir_flash_attention": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                         + [ctypes.c_void_p]},
     "cascade_prefill": {"lir_cascade_suffix_merge": [ctypes.c_void_p] * 10
                         + [ctypes.c_int] * 6 + [ctypes.c_void_p]},
+    "kv_int8_attention": {"lir_kv_int8_attention": [
+        ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p, ctypes.c_int64] * 4
+        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_float]
+        + [ctypes.c_void_p] * 3},
 }
 # (model, query heads, kv heads, head dim, buckets) of the flash shapes at
 # B = 32: llama-2-7b at the three buckets, GQA and MQA at bucket 128.
@@ -261,6 +297,35 @@ def suffix_merge_shapes(gen, libs, names, summary, R=80, Tt=432):
         summary[f"{model}/R{R}"] = {n: sum(m) / len(m) for n, m in row["ms"].items()}
 
 
+def kv8_shapes(gen, libs, names, summary):
+    B, hd = cs.BATCH, 128
+    for label, S, H, K, T in KV8_SHAPES:
+        args, _ = cs.kv8_inputs(gen, B, S, H, K, hd, T, False)
+        q, kq, ks, vq, vs, qpos, mask, kpos = args
+        out = torch.empty((B, S, H * hd), dtype=q.dtype, device="cuda")
+        ref = kv_int8_attention_plain(*args)
+        plan = kv8_plan(T, hd, S * (H // K))
+
+        def run(name):
+            lib, pl = libs.get(name, libs.get("base")), plan
+            if name.startswith("split"):
+                splits = int(name[5:])
+                pl = plan._replace(splits=splits, slice=-(-(-(-T // splits)) // 8) * 8)
+            _build.check(lib.lir_kv_int8_attention(
+                q.data_ptr(), 1, kq.data_ptr(), kq.stride(0), ks.data_ptr(), ks.stride(0),
+                vq.data_ptr(), vq.stride(0), vs.data_ptr(), vs.stride(0), qpos.data_ptr(),
+                mask.data_ptr(), kpos.data_ptr(), None, B, S, H, K, T, hd, pl.rows,
+                pl.splits, pl.slice, math.sqrt(hd), out.data_ptr(), None,
+                torch.cuda.current_stream().cuda_stream), "kv_int8_attention")
+
+        row = {"case": label, "T": T, "plan_splits": plan.splits, "ms": {},
+               "max_abs_err": {}}
+        in_turns(row, names + [f"split{n}" for n in KV8_SPLITS if "base" in libs], run,
+                 out, ref)
+        print(json.dumps(row), flush=True)
+        summary[label] = {n: sum(m) / len(m) for n, m in row["ms"].items()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=sorted(KERNELS), default="flash")
@@ -283,6 +348,8 @@ def main() -> int:
     summary = {}
     if args.kernel == "flash":
         flash_shapes(gen, libs, names, summary)
+    elif args.kernel == "kv_int8":
+        kv8_shapes(gen, libs, names, summary)
     else:
         suffix_merge_shapes(gen, libs, names, summary)
     print(json.dumps({"mean_ms": summary}), flush=True)

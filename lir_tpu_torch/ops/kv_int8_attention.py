@@ -24,21 +24,26 @@ The bias is the JAX package's ``_causal_bias``: 0 where the key is valid
 elsewhere, plus ALiBi's ``slope * key_position``. A query whose every key
 is masked gets a finite, near-uniform row.
 
-On a CUDA tensor :func:`kv_int8_attention` launches the kernel; on a CPU
-tensor it runs :func:`kv_int8_attention_plain`, the JAX function line by
-line. The products of the twin run in float64, whose every partial sum
-of int8 products is an exact integer, so its s32 parts are the kernel's
-bit for bit on any device; the float chains differ in their order, and
-where that moves a value of the probabilities across a rounding tie
-their int8 level moves by one (``check_kv_int8_attention`` in
-``chip_smoke.py`` bounds that).
+On a CUDA tensor :func:`kv_int8_attention` launches the kernel with the
+launch plan of :func:`plan` (T split across the blocks of a cluster, the
+query rows a block); on a CPU tensor it runs
+:func:`kv_int8_attention_plain`, the JAX function line by line. The
+products of the twin run in float64, whose every partial sum of int8
+products is an exact integer, so its s32 parts are the kernel's bit for
+bit on any device; the float chains differ in their order, and where
+that moves a value of the probabilities across a rounding tie their
+int8 level moves by one (:func:`tie_bar` bounds that).
+:func:`split_chain` runs the twin's chain with the softmax sum in the
+kernel's order for the plan's split, to show on the CPU that the bar
+covers that order.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,8 +53,25 @@ from . import _build
 
 # Head dims the kernel is instantiated for.
 HEAD_DIMS = (32, 64, 80, 96, 128)
-# Query rows a block holds at most (csrc/kv_int8_attention.cu kMaxRows).
-MAX_ROWS = 16
+# The kernel's constants (csrc/kv_int8_attention.cu): slots a ring
+# stage, stages of the ring (double buffering: deeper rings measured
+# slower on the H100), query rows a block, blocks a cluster (the portable
+# size), the rows from which a block runs the int8 tensor cores, and the
+# bytes of a transposed value row.
+TILE = 32
+STAGES = 2
+MAX_ROWS = 64
+MAX_SPLITS = 8
+MMA_ROWS = 8
+VT_PITCH = TILE + 4
+# Key bytes a block of a cluster aims at: T splits into the fewest blocks
+# (at most MAX_SPLITS) whose slices hold at most this many.
+SPLIT_BYTES = 65_536
+# The kernel's static shared memory: four float/int slots a row (the
+# query and probability scales, slopes and query positions).
+STATIC_SMEM = 4 * MAX_ROWS * 4
+# The H100's opt-in shared memory a block.
+SMEM_OPTIN = 232_448
 NEG = -1e9
 
 
@@ -89,9 +111,11 @@ def _qk_s32(q, kq):
 
 
 def _plain(q, kq, ks, vq, vs, q_pos, key_mask, key_positions,
-           alibi_slopes):
+           alibi_slopes, slice_: Optional[int] = None):
     """The twin's chain: (float32 output (B, S, H, hd), value-scaled
-    probabilities pw (B, H, S, T), their scales ps (B, H, S))."""
+    probabilities pw (B, H, S, T), their scales ps (B, H, S)). With
+    ``slice_``, the softmax is exp(x - max) over :func:`split_sum`'s sum
+    of it in the kernel's order for slices of that many slots."""
     B, S, H, hd = q.shape
     K = kq.shape[0]
     G = H // K
@@ -101,7 +125,11 @@ def _plain(q, kq, ks, vq, vs, q_pos, key_mask, key_positions,
               * qs.permute(0, 2, 1)[:, :, :, None]
               * ks.permute(2, 0, 1).repeat_interleave(G, dim=1)[:, :, None, :])
     scores = scores / math.sqrt(hd) + bias
-    probs = torch.softmax(scores, dim=-1)
+    if slice_ is None:
+        probs = torch.softmax(scores, dim=-1)
+    else:
+        e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+        probs = e / split_sum(e, slice_)[..., None]
     pw = probs * vs.permute(2, 0, 1).repeat_interleave(G, dim=1)[:, :, None, :]
     pq, ps = dynamic_quant(pw)
     pq = pq.reshape(B, K, G, S, -1)
@@ -155,6 +183,127 @@ def qk_s32_plain(q, kq) -> torch.Tensor:
     return _qk_s32(q, kq)[2].reshape(B, H, S, -1)
 
 
+def split_sum(e: torch.Tensor, slice_: int) -> torch.Tensor:
+    """The kernel's float32 sum of ``e`` (..., T) over its last axis for
+    slices of ``slice_`` slots: in each slice, lane j of a warp adds slots
+    j, j + 32, ... in that order; the 32 lanes' sums meet by warp_sum's
+    butterfly (xor 16, 8, 4, 2, 1); the slices' sums are added in rank
+    order. (Empty lanes and slices add zeros, which move no bit.)"""
+    e = e.float()
+    T = e.shape[-1]
+    lanes = torch.arange(32, device=e.device)
+    total = None
+    for lo in range(0, T, slice_):
+        part = e[..., lo:lo + slice_]
+        part = torch.nn.functional.pad(part, (0, (-part.shape[-1]) % 32))
+        part = part.reshape(*part.shape[:-1], -1, 32)
+        acc = torch.zeros(part.shape[:-2] + (32,), dtype=torch.float32,
+                          device=e.device)
+        for j in range(part.shape[-2]):
+            acc = acc + part[..., j, :]
+        for off in (16, 8, 4, 2, 1):
+            acc = acc + acc[..., lanes ^ off]
+        total = acc[..., 0] if total is None else total + acc[..., 0]
+    return total
+
+
+class Plan(NamedTuple):
+    """A launch of the kernel: ``splits`` blocks a cluster, each of
+    ``slice`` slots of T (rank c takes [c * slice, (c + 1) * slice) cut
+    at T), ``rows`` query rows a block in ``chunks`` chunks of the S * G
+    rows of a (batch row, kv head) pair, ``smem`` bytes of dynamic shared
+    memory."""
+
+    splits: int
+    slice: int
+    rows: int
+    chunks: int
+    smem: int
+
+    @property
+    def mma(self) -> bool:
+        """Whether the blocks run both products on the int8 tensor
+        cores (mma.sync s8): from MMA_ROWS rows a block."""
+        return self.rows >= MMA_ROWS
+
+
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@functools.lru_cache(maxsize=None)
+def split_of(T: int, hd: int) -> Tuple[int, int]:
+    """(splits, slice) of T cache slots of head dim ``hd``: the fewest
+    blocks, at most MAX_SPLITS, whose slices hold at most SPLIT_BYTES of
+    keys, each slice a multiple of 8 slots. From T and hd alone, so every
+    float reduction of a row runs in one order whatever B, S, G or the
+    row chunk."""
+    splits = min(MAX_SPLITS, -(-T * hd // SPLIT_BYTES))
+    return splits, _up(-(-T // splits), 8)
+
+
+@functools.lru_cache(maxsize=None)
+def dyn_smem(hd: int, rows: int, slice_: int, splits: int) -> int:
+    """Dynamic shared memory of a block (csrc/kv_int8_attention.cu's
+    Layout): the ring, the s32 partial output, the cluster's exchange
+    (three floats a row from every block), the transposed value tile
+    (IMMA), float32 scores and int8 probabilities of its rows over the
+    slice, the query payloads, and four 4-byte values a slot (the key and
+    value scales, key position and mask); dp4a blocks add a second s32
+    output, their groups' sum."""
+    mma = rows >= MMA_ROWS
+    hdp = _up(hd, 32)
+    kp = hdp + 16
+    ntp = _up(slice_, TILE)
+    rp = _up(rows, 16) if mma else rows
+    qpitch = kp if mma else hd
+    ppitch = ntp + 16 if mma else ntp
+    return (_up(STAGES * TILE * kp, 16) + _up(rows * hd * 4, 16)
+            * (1 if mma else 2) + _up(3 * splits * rows * 4, 16)
+            + (_up(hdp * VT_PITCH, 16) if mma else 0)
+            + _up(rows * slice_ * 4, 16) + _up(rp * ppitch, 16)
+            + _up(rp * qpitch, 16) + 16 * slice_)
+
+
+@functools.lru_cache(maxsize=None)
+def _most_rows(T: int, hd: int, smem_limit: int) -> int:
+    """The most query rows (at most MAX_ROWS) a block of T slots holds."""
+    splits, slice_ = split_of(T, hd)
+    rows = MAX_ROWS
+    while rows > 0 and (dyn_smem(hd, rows, slice_, splits)
+                        > smem_limit - STATIC_SMEM):
+        rows -= 1
+    if rows < 1:
+        raise ValueError(f"kv_int8_attention: {T} cache slots do not fit a "
+                         f"block's {smem_limit} bytes of shared memory")
+    return rows
+
+
+def plan(T: int, hd: int, SG: int, smem_limit: int = SMEM_OPTIN) -> Plan:
+    """The launch plan of T cache slots, head dim ``hd`` and ``SG`` = S *
+    G query rows a (batch row, kv head) pair: :func:`split_of`'s split,
+    and a block takes all SG rows up to MAX_ROWS, fewer where a block's
+    shared memory (``smem_limit`` less STATIC_SMEM) would not hold them,
+    in chunks of equal size."""
+    if hd not in HEAD_DIMS or T < 1 or SG < 1:
+        raise ValueError(f"kv_int8_attention: no plan for T={T}, hd={hd}, "
+                         f"{SG} query rows")
+    splits, slice_ = split_of(T, hd)
+    chunks = -(-SG // min(SG, _most_rows(T, hd, smem_limit)))
+    rows = -(-SG // chunks)
+    return Plan(splits, slice_, rows, chunks,
+                dyn_smem(hd, rows, slice_, splits))
+
+
+def split_chain(q, kq, ks, vq, vs, q_pos, key_mask, key_positions,
+                alibi_slopes=None):
+    """The twin's chain with the softmax sum in the kernel's order for
+    :func:`plan`'s split of these inputs (:func:`split_sum`): (float32
+    output (B, S, H, hd), pw (B, H, S, T), ps (B, H, S))."""
+    return _plain(q, kq, ks, vq, vs, q_pos, key_mask, key_positions,
+                  alibi_slopes, slice_=split_of(kq.shape[1], q.shape[-1])[1])
+
+
 _LIB = None
 _SMEM: Dict[torch.device, int] = {}
 
@@ -165,30 +314,16 @@ def _lib():
         lib = _build.library("kv_int8_attention")
         p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.lir_kv_int8_attention.argtypes = [
-            p, i, p, q, p, q, p, q, p, q, p, p, p, p, i, i, i, i, i, i, i,
-            ctypes.c_float, p, p, p]
+            p, i, p, q, p, q, p, q, p, q, p, p, p, p, i, i, i, i, i, i, i, i,
+            i, ctypes.c_float, p, p, p]
         lib.lir_kv_int8_attention.restype = i
-        lib.lir_kv_int8_max_smem.argtypes = [i]
-        lib.lir_kv_int8_max_smem.restype = i
+        for name, n in (("lir_kv_int8_smem", 4),
+                        ("lir_kv_int8_static_smem", 3),
+                        ("lir_kv_int8_max_smem", 1)):
+            getattr(lib, name).argtypes = [i] * n
+            getattr(lib, name).restype = i
         _LIB = lib
     return _LIB
-
-
-def smem_bytes(rows: int, T: int, hd: int) -> int:
-    """Dynamic shared memory of a block of ``rows`` query rows over T
-    slots: float32 scores and int8 probabilities a slot, the int8 query
-    payloads (csrc/kv_int8_attention.cu)."""
-    return rows * (5 * T + hd)
-
-
-def rows_per_block(S: int, G: int, T: int, hd: int, max_smem: int) -> int:
-    """Query rows a block takes: every query of a (row, kv head) pair up
-    to MAX_ROWS, fewer where their scores would not fit on chip."""
-    fit = max_smem // smem_bytes(1, T, hd)
-    if fit < 1:
-        raise ValueError(f"kv_int8_attention: {T} cache slots do not fit a "
-                         f"block's {max_smem} bytes of shared memory")
-    return max(1, min(S * G, MAX_ROWS, fit))
 
 
 def _check(q, kq, ks, vq, vs, q_pos, key_mask, key_positions, slopes):
@@ -204,11 +339,13 @@ def _check(q, kq, ks, vq, vs, q_pos, key_mask, key_positions, slopes):
     for name, t in (("kq", kq), ("vq", vq)):
         if (t.device != dev or t.dtype != torch.int8
                 or t.shape != (K, T, B, hd)
-                or t.stride()[1:] != (B * hd, hd, 1)):
+                or t.stride()[1:] != (B * hd, hd, 1)
+                or t.data_ptr() % 16 or t.stride(0) % 16):
             raise ValueError(f"kv_int8_attention: {name} must be int8 "
                              f"({K}, {T}, {B}, {hd}) with dense (T, B, hd) "
-                             f"planes on {dev}, got {t.dtype} "
-                             f"{tuple(t.shape)} strides {t.stride()}")
+                             f"planes 16-byte aligned on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} strides "
+                             f"{t.stride()}")
     for name, t in (("ks", ks), ("vs", vs)):
         if (t.device != dev or t.dtype != torch.float32
                 or t.shape != (K, T, B) or t.stride()[1:] != (B, 1)):
@@ -261,14 +398,15 @@ def kv_int8_attention(q, kq, ks, vq, vs, q_pos, key_mask, key_positions,
     if smem is None:
         smem = lib.lir_kv_int8_max_smem(dev.index or 0)
         _SMEM[dev] = smem
-    rows = rows_per_block(S, H // K, T, hd, smem)
+    pl = plan(T, hd, S * (H // K), smem)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _build.check(lib.lir_kv_int8_attention(
         q.data_ptr(), 1 if q.dtype == torch.bfloat16 else 0,
         kq.data_ptr(), kq.stride(0), ks.data_ptr(), ks.stride(0),
         vq.data_ptr(), vq.stride(0), vs.data_ptr(), vs.stride(0),
         q_pos.data_ptr(), key_mask.data_ptr(), key_positions.data_ptr(),
-        0 if slopes is None else slopes.data_ptr(), B, S, H, K, T, hd, rows,
+        0 if slopes is None else slopes.data_ptr(), B, S, H, K, T, hd,
+        pl.rows, pl.splits, pl.slice,
         float(np.float32(math.sqrt(hd))), out.data_ptr(),
         0 if s32_out is None else s32_out.data_ptr(), stream),
         "kv_int8_attention")

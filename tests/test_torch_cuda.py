@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
 Marked ``cuda``: each test skips without an NVIDIA card (decided inside
-the test, never at import). Run on the card with
+the test, never at import), but for the pure-Python check that the
+int8-KV cases reach every launch plan. Run on the card with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
 
@@ -41,7 +42,11 @@ level of the probabilities at each key near a rounding tie), at S = 1,
 a verify window and 16 queries, MHA / GQA / MQA, ALiBi, every head dim
 it is built for, float32 and bf16 queries, a row with every key masked,
 a cache view cut short of its extent, and an extent whose scores take
-fewer rows a block.
+fewer rows a block; its cases hit every cluster size the launch plan
+can choose (1 to 8 blocks), blocks of 8 to 64 rows on IMMA (head dims
+32, 80, 96, 128) and rows past 64 in two chunks. A row
+attended alone and inside a batch of verify windows gives the same
+bits, and the C library's shared-memory layout is the planner's.
 """
 
 import dataclasses
@@ -947,7 +952,10 @@ def test_gumbel_argmax_matches_plain(gen, B, V, per_row):
 # cases: llama-2-7b's decode step, a verify window and a 16-token
 # extension, GQA, falcon-7b's MQA, bloom's ALiBi, head dims 32 / 80 / 96,
 # float32 queries, a cache view cut to fewer slots than it holds, and
-# 3,000 slots (fewer query rows a block).
+# 3,000 slots; then (ops.kv_int8_attention.plan) one slot, IMMA at head
+# dim 80 in one block, a GQA verify window of 20 rows at the chain's
+# extent, 128 rows in two chunks of 64, 1,088 slots at head dim 96, and
+# clusters of 3, 4, 6, 7 and 8 blocks (the others: 1, 2 and 5 above).
 KV8_CASES = [
     (32, 1, 32, 32, 128, 552, False, BF16, False),
     (32, 5, 32, 32, 128, 552, False, BF16, False),
@@ -956,6 +964,16 @@ KV8_CASES = [
     (3, 4, 8, 2, 32, 100, False, F32, False),
     (3, 2, 8, 8, 80, 65, True, BF16, False),
     (2, 16, 8, 2, 96, 3000, False, BF16, True),
+    (2, 3, 4, 4, 64, 1, False, F32, False),
+    (3, 16, 8, 2, 80, 40, True, BF16, False),
+    (5, 5, 32, 8, 128, 156, False, BF16, False),
+    (2, 16, 16, 2, 128, 257, False, BF16, True),
+    (2, 1, 4, 4, 96, 1088, True, F32, False),
+    (2, 1, 4, 4, 128, 1100, False, BF16, False),
+    (2, 5, 8, 2, 128, 2000, True, BF16, True),
+    (2, 2, 4, 4, 64, 6000, False, BF16, False),
+    (1, 1, 4, 4, 128, 3500, False, F32, False),
+    (1, 3, 8, 2, 128, 4097, False, BF16, False),
 ]
 
 
@@ -995,6 +1013,58 @@ def test_kv_int8_attention_matches_twin(gen, B, S, H, K, hd, T, alibi,
     assert bool((err <= bar).all()), float(err.max())
     # Launch after launch, the same bits.
     assert torch.equal(ops.kv_int8_attention(*args, alibi_slopes=slopes), got)
+
+
+def test_kv_int8_attention_plans_cover_every_split_and_route():
+    from lir_tpu_torch.ops.kv_int8_attention import MAX_SPLITS, plan
+
+    plans = [plan(T, hd, S * H // K)
+             for B, S, H, K, hd, T, *_ in KV8_CASES]
+    assert {p.splits for p in plans} == set(range(1, MAX_SPLITS + 1))
+    assert {p.mma for p in plans} == {False, True}
+    assert max(p.chunks for p in plans) > 1
+    assert {c[4] for p, c in zip(plans, KV8_CASES) if p.mma} >= {80, 96}
+
+
+@pytest.mark.parametrize("H,K", [(8, 8), (8, 2)])
+def test_kv_int8_attention_row_alone_bitwise_in_batch(gen, H, K):
+    from lir_tpu_torch.models.quant import dynamic_quant
+
+    B, S, hd, T = 6, 5, 128, 1100
+    q = _rnd(gen, B, S, H, hd)
+    kq, ks = dynamic_quant(_rnd(gen, K, T, B, hd))
+    vq, vs = dynamic_quant(_rnd(gen, K, T, B, hd))
+    mask = torch.ones((B, T), dtype=torch.int32, device="cuda")
+    mask[:, T - 3:] = 0
+    mask[1, 40:50] = 0
+    kpos = torch.clamp_min(torch.cumsum(mask, -1, dtype=torch.int32) - 1, 0)
+    qpos = (kpos.max(-1).values[:, None] - (S - 1)
+            + torch.arange(S, device="cuda")[None]).to(torch.int32)
+    full = ops.kv_int8_attention(q, kq, ks, vq, vs, qpos, mask, kpos)
+    for b, s in ((0, 0), (1, 4), (B - 1, 2)):
+        alone = ops.kv_int8_attention(
+            q[b:b + 1, s:s + 1].contiguous(),
+            *(x[:, :, b:b + 1].contiguous() for x in (kq, ks, vq, vs)),
+            qpos[b:b + 1, s:s + 1].contiguous(), mask[b:b + 1].contiguous(),
+            kpos[b:b + 1].contiguous())
+        assert torch.equal(alone[0, 0], full[b, s])
+
+
+def test_kv_int8_attention_layout_is_the_planners(gen):
+    import importlib
+
+    kv = importlib.import_module("lir_tpu_torch.ops.kv_int8_attention")
+    lib = kv._lib()
+    for hd in kv.HEAD_DIMS:
+        for dtype in (0, 1):
+            for mma in (0, 1):
+                assert 0 <= lib.lir_kv_int8_static_smem(hd, dtype, mma) \
+                    <= kv.STATIC_SMEM
+        for T, SG in ((1, 1), (156, 5), (552, 20), (1088, 64), (3000, 7)):
+            p = kv.plan(T, hd, SG)
+            assert lib.lir_kv_int8_smem(hd, p.rows, p.slice,
+                                        p.splits) == p.smem
+    assert lib.lir_kv_int8_max_smem(0) >= kv.SMEM_OPTIN
 
 
 def test_kv_int8_attention_refuses_wrong_inputs(gen):
