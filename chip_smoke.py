@@ -46,12 +46,17 @@ Phases (each raises on failure, so the script exits non-zero):
    (``stream_fold``) bitwise its plain twin on a (5, 2,000) lattice, B =
    32 rows a dispatch, K = 20 log-probs, with pad rows, NaN / negative /
    over-1 and zero-mass readouts, guard on and off, contiguous and
-   strided readouts and a refold (idempotent), timed beside the empty
-   kernel. The sampler (``gumbel_argmax``) at V = 32,000, B = 8 and 32,
-   one key and a key a row, four temperatures: ids equal to its plain
-   twin's (a differing row prints the twin's top-2 gap), again after the
-   timing loop, timed beside the empty kernel; its bound counts INT32
-   operations at the card's INT32 rate. The int8-KV attention
+   strided readouts and a refold (idempotent), at B = 32 and 64, timed
+   beside the empty kernel and PR 12's time. The sampler
+   (``gumbel_argmax``) at V = 32,000, B = 1, 8, 32 and 64, one key and a
+   key a row, four temperatures, and at V = 32,001 and 50, on row views
+   of a stride that is not a multiple of 4, a row of NaNs and rows of
+   exact ties: ids equal to its plain twin's (a differing row prints the
+   twin's top-2 gap), again after the timing loop, timed beside the
+   empty kernel and PR 17's time, with the host's microseconds a wrapper
+   call; its bound is the largest of the bytes, the INT32 operations and
+   all the instructions an entry, counted in the built kernel's SASS
+   (``sample_sass_counts``). The int8-KV attention
    (``kv_int8_attention``) at the cascade dispatch's extent, B = 32: the
    decode step (S = 1, its main-path case), S = spec_k + 1, a 16-token
    extension, GQA (mistral-7b) and ALiBi (bloom-7b1); at the chain's
@@ -354,6 +359,9 @@ INT8_OP_PER_S = 1979e12          # H100 SXM dense int8 tensor cores, published
 # whose fused multiply-adds (two operations) make the published 67 TFLOP/s
 # float32: 132 SMs x 64 lanes x 1.98 GHz.
 INT32_OP_PER_S = 67e12 / 4
+# H100 SXM instruction issue: 132 SMs x 4 schedulers x one warp
+# instruction (32 lanes) a cycle x 1.98 GHz.
+ISSUE_PER_S = 132 * 128 * 1.98e9
 ATOL = RTOL = 1e-2
 BATCH = 32
 DEV = "cuda"
@@ -581,6 +589,30 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+# The host's side of a wrapper call: a spin kernel of this many cycles
+# (~5 ms) holds the stream while HOST_CALLS calls are enqueued.
+HOST_SPIN_CYCLES = 10_000_000
+HOST_CALLS = 100
+
+
+def host_us(fn, rounds: int = 5) -> float:
+    """Median host microseconds of one call of ``fn`` (the wrapper's
+    checks, plan and allocations and the launch's enqueue), by the host
+    clock around HOST_CALLS calls while a spin kernel holds the stream,
+    so that no call waits for the device."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        torch.cuda._sleep(HOST_SPIN_CYCLES)
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            fn()
+        times.append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
+        torch.cuda.synchronize()
     return float(np.median(times))
 
 
@@ -1095,61 +1127,129 @@ def lattice_bits(acc):
             for k, v in acc.items()}
 
 
+# The fold's time in PR 12's call (its one-thread-a-row kernel, NVIDIA
+# H100 80GB HBM3, 700 W), printed beside this run's.
+FOLD_PR12_MS = {"5x2000/B32": 0.0084}
+
+
 def check_stream_fold(gen, floor_ms, results):
     """The streaming-statistics fold against its plain twin on the card,
-    bitwise: a (5, 2,000) lattice, B = 32 rows a dispatch, K = 20, pad
-    rows and invalid rows, guard on and off, contiguous and strided (the
-    grouped dispatch's row views) readouts, three folds and a refold of
-    the first (idempotent). Timed beside the empty kernel's floor; its
-    bound is the bytes it must move (the B rows' readouts and
-    coordinates read once, 16 bytes stored a real row)."""
-    P, R, B, K = STREAM_P, STREAM_R, BATCH, STREAM_K
-    for guard in (True, False):
-        for strided in (False, True):
-            kern = stream_stats.new_accum(P, R, DEV)
-            plain = stream_stats.new_accum(P, R, DEV)
-            batches = [fold_inputs(gen, B, K, P, R) for _ in range(3)]
-            for yes, no, wc, lp, pidx, ridx in batches + batches[:1]:
-                if strided:
-                    yes, no, wc = (torch.stack([t, t], 1)[:, 0]
-                                   for t in (yes, no, wc))
-                    lp = torch.stack([lp, lp], 1)[:, 0]
-                ops.stream_fold(kern, yes, no, wc, lp, pidx, ridx, guard)
-                stream_fold_plain(plain, yes, no, wc, lp, pidx, ridx, guard)
-            torch.cuda.synchronize()
-            got, ref = lattice_bits(kern), lattice_bits(plain)
-            bad = [k for k in got if not torch.equal(got[k], ref[k])]
-            if bad:
-                raise AssertionError(f"stream_fold (guard={guard}, strided="
-                                     f"{strided}): {bad} differ from the "
-                                     f"plain twin")
-            slots = {(int(p), int(r)) for b in batches
-                     for p, r in zip(b[4][:-3], b[5][:-3])}
-            if int(kern["filled"].sum()) != len(slots):
-                raise AssertionError("stream_fold: pad rows folded")
-    rows = batches[0]
-    acc = stream_stats.new_accum(P, R, DEV)
-    real = int((rows[5] < R).sum())
-    b_ms, b_by = bound(nbytes(*rows) + 16 * real, 0.0)
-    row = dict(kernel="stream_fold", case=f"{P}x{R}/B{B}", P=P, R=R, B=B,
-               K=K, max_abs_err=0.0,
-               kernel_ms=time_ms(lambda: ops.stream_fold(acc, *rows)),
-               plain_ms=time_ms(lambda: stream_fold_plain(acc, *rows)),
-               library_ms=None, bound_ms=b_ms, bound_by=b_by,
-               floor_ms=floor_ms)
-    log(json.dumps(row))
-    results.append(row)
+    bitwise: a (5, 2,000) lattice, B = 32 and 64 rows a dispatch, K = 20,
+    pad rows and invalid rows, guard on and off, contiguous and strided
+    (the grouped dispatch's row views) readouts, three folds and a refold
+    of the first (idempotent). Timed at each B beside the empty kernel's
+    floor (and its ratio to it) and PR 12's time; its bound is the bytes
+    it must move (the B rows' readouts and coordinates read once, 16
+    bytes stored a real row)."""
+    P, R, K = STREAM_P, STREAM_R, STREAM_K
+    for B in (BATCH, 2 * BATCH):
+        for guard in (True, False):
+            for strided in (False, True):
+                kern = stream_stats.new_accum(P, R, DEV)
+                plain = stream_stats.new_accum(P, R, DEV)
+                batches = [fold_inputs(gen, B, K, P, R) for _ in range(3)]
+                for yes, no, wc, lp, pidx, ridx in batches + batches[:1]:
+                    if strided:
+                        yes, no, wc = (torch.stack([t, t], 1)[:, 0]
+                                       for t in (yes, no, wc))
+                        lp = torch.stack([lp, lp], 1)[:, 0]
+                    ops.stream_fold(kern, yes, no, wc, lp, pidx, ridx, guard)
+                    stream_fold_plain(plain, yes, no, wc, lp, pidx, ridx,
+                                      guard)
+                torch.cuda.synchronize()
+                got, ref = lattice_bits(kern), lattice_bits(plain)
+                bad = [k for k in got if not torch.equal(got[k], ref[k])]
+                if bad:
+                    raise AssertionError(f"stream_fold (B={B}, guard={guard}, "
+                                         f"strided={strided}): {bad} differ "
+                                         f"from the plain twin")
+                slots = {(int(p), int(r)) for b in batches
+                         for p, r in zip(b[4][:-3], b[5][:-3])}
+                if int(kern["filled"].sum()) != len(slots):
+                    raise AssertionError("stream_fold: pad rows folded")
+        rows = batches[0]
+        acc = stream_stats.new_accum(P, R, DEV)
+        real = int((rows[5] < R).sum())
+        b_ms, b_by = bound(nbytes(*rows) + 16 * real, 0.0)
+        label = f"{P}x{R}/B{B}"
+        kernel_ms = time_ms(lambda: ops.stream_fold(acc, *rows))
+        row = dict(kernel="stream_fold", case=label, P=P, R=R, B=B,
+                   K=K, max_abs_err=0.0, kernel_ms=kernel_ms,
+                   pr12_ms=FOLD_PR12_MS.get(label),
+                   plain_ms=time_ms(lambda: stream_fold_plain(acc, *rows)),
+                   library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                   floor_ms=floor_ms, floor_ratio=kernel_ms / floor_ms)
+        log(json.dumps(row))
+        results.append(row)
 
 
-# The sampler at the card's vocabulary (llama-2-7b) and the rephraser's
-# and the reasoning sweep's batches.
+# The sampler at the card's vocabulary (llama-2-7b): one row, the
+# rephraser's and the reasoning sweep's batch, the sweep's and the
+# grouped dispatch's.
 SAMPLE_V = 32000
-SAMPLE_BATCHES = (8, 32)
-# INT32 operations a vocab entry costs in csrc/sample.cu, counted from the
-# code: the 64-bit counter (2), the first key adds (2), 20 rounds of add,
-# rotate and xor (60), five key injections of two adds (10), the bits'
-# xor, shift and or (3).
-SAMPLE_INT_OPS = 77
+SAMPLE_BATCHES = (1, 8, 32, 64)
+# The sampler's times in PR 17's call (its ticket kernel, NVIDIA H100
+# 80GB HBM3, 700 W), printed beside this run's.
+SAMPLE_PR17_MS = {"B8/V32000/one_key": 0.0113, "B8/V32000/per_row": 0.0112,
+                  "B32/V32000/one_key": 0.0192}
+# SASS opcodes (the part before the first dot) by class, for the
+# sampler's count an entry: the INT32 pipe's integer operations (IMAD,
+# which the compiler also uses for adds and moves, issues on the FP32
+# pipe and is counted apart), the FP32 pipe's, compares, loads and
+# conversions; the rest (branches, barriers) is "other".
+SASS_CLASSES = {
+    "int32": {"IADD3", "IADD", "VIADD", "LOP3", "LOP", "SHF", "SHL", "SHR",
+              "LEA", "SEL", "PRMT", "IMNMX", "VIMNMX", "MOV", "IABS", "POPC",
+              "FLO", "BREV", "BMSK", "SGXT"},
+    "imad": {"IMAD"},
+    "fp32": {"FFMA", "FADD", "FMUL", "FMNMX", "FSEL", "MUFU", "FCHK"},
+    "compare": {"ISETP", "FSETP", "PLOP3"},
+    "load": {"LDG", "LD", "LDS", "LDC"},
+    "convert": {"I2FP", "I2F", "F2I", "F2F", "FRND"},
+}
+
+
+def sample_sass_counts() -> dict:
+    """Instructions an entry of the built sampler, from ``cuobjdump
+    -sass`` of ``gumbel_argmax_kernel``: the kernel's main loop (its
+    widest backward branch) by SASS_CLASSES, over the entries a loop
+    iteration takes (``lir_sample_per_thread``); ``int32_ops`` adds the
+    integer compares (ISETP) to the int32 class, ``total`` is every
+    instruction of the loop. The division's slow path lies outside the
+    loop (a call the check rarely takes) and is not counted."""
+    ins, fn = [], None
+    for line in _build.sass("sample").splitlines():
+        found = re.search(r"Function : (\w+)", line)
+        if found:
+            fn = kernel_label(found.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
+                     r"([^;]*);", line)
+        if m and fn == "gumbel_argmax_kernel":
+            ins.append((int(m.group(1), 16), m.group(2).split(".")[0],
+                        m.group(3)))
+    loops = [(at, int(t.group(1), 16)) for at, op, rest in ins if op == "BRA"
+             for t in [re.search(r"0x([0-9a-f]+)", rest)]
+             if t and int(t.group(1), 16) < at]
+    if not loops:
+        raise AssertionError("sample_sass_counts: no loop in "
+                             "gumbel_argmax_kernel's SASS")
+    end, start = max(loops, key=lambda x: x[0] - x[1])
+    body = [op for at, op, _ in ins if start <= at <= end]
+    per = ops.sample._lib().lir_sample_per_thread()
+    counts = {k: 0 for k in list(SASS_CLASSES) + ["other"]}
+    ops_seen = {}
+    for op in body:
+        cls = next((k for k, v in SASS_CLASSES.items() if op in v), "other")
+        counts[cls] += 1
+        ops_seen[op] = ops_seen.get(op, 0) + 1
+    out = {k: n / per for k, n in counts.items()}
+    out["int32_ops"] = (counts["int32"] + ops_seen.get("ISETP", 0)) / per
+    out["total"] = len(body) / per
+    out["loop_instructions"] = len(body)
+    out["entries_a_loop"] = per
+    out["opcodes"] = dict(sorted(ops_seen.items(), key=lambda x: -x[1]))
+    return out
 
 
 def sample_inputs(gen, B: int, V: int, per_row: bool):
@@ -1177,52 +1277,95 @@ def twin_gaps(logits, keys, offsets, temperature, rows, a=None, b=None):
     return out
 
 
+def sample_edge_cases(gen):
+    """(label, logits, keys, offsets) beyond the timed shapes: an odd V
+    and one smaller than a block's unit count; rows that are views of a
+    wider tensor at a stride that is not a multiple of 4 (each row
+    starts at another 16-byte phase); a row of NaNs (id 0), a row with
+    NaNs at two places (the lower wins), and rows of exact ties (equal
+    logits of 1e6 from V // 3 on: at temperature 1e-4 the scores round
+    to one value, the lowest index wins across the cluster's blocks)."""
+    cases = []
+    for V in (32001, 50):
+        logits, keys, offsets = sample_inputs(gen, 8, V, False)
+        cases.append((f"B8/V{V}/one_key", logits, keys, offsets))
+    V = SAMPLE_V
+    wide = torch.randn((8, V + 3), generator=gen, device=DEV) * 3.0
+    _, keys, offsets = sample_inputs(gen, 8, V, True)
+    cases.append((f"B8/V{V}/strided{V + 3}", wide[:, 1:V + 1], keys,
+                  offsets))
+    logits, keys, offsets = sample_inputs(gen, 8, V, False)
+    logits[0] = float("nan")
+    logits[1, 17] = logits[1, V - 5] = float("nan")
+    logits[2, V // 3:] = 1e6
+    logits[3] = 1e6
+    cases.append((f"B8/V{V}/nan_and_ties", logits, keys, offsets))
+    return cases
+
+
 def check_gumbel_argmax(gen, floor_ms, results):
     """The sampler kernel against its plain twin on the card at V =
-    32,000, B = 8 and 32, one key and a key a row, four temperatures:
-    the ids equal (a differing row prints the twin's top-2 gap, then
-    fails), and again after the timing loop's launches (the kernel's
-    ticket counters reset themselves). Timed beside the empty kernel's
-    floor; its bound is the larger of the bytes it must move (the logits,
-    keys and offsets read once, the ids written) and its INT32 operations
-    (SAMPLE_INT_OPS a vocab entry) over the card's INT32 rate."""
+    32,000 and B = 1, 8, 32 and 64 (one key and a key a row), and at the
+    cases of :func:`sample_edge_cases`, four temperatures: the ids equal
+    (a differing row prints the twin's top-2 gap, then fails), each case
+    again after every timing loop has run (the kernel keeps nothing
+    between launches). Timed beside the empty kernel's floor and PR 17's
+    time, with the host microseconds a wrapper call (:func:`host_us`);
+    its bound is the largest of the bytes it must move (the logits, keys
+    and offsets read once, the ids written) over the memory rate, its
+    INT32 operations over the INT32 rate and all its instructions over
+    the issue rate, each an entry as :func:`sample_sass_counts` counts
+    them in the built kernel."""
+    counts = sample_sass_counts()
+    log(json.dumps({"phase": "sass", "source": "sample.cu",
+                    "kernel": "gumbel_argmax_kernel", "per_entry": counts}))
     V = SAMPLE_V
-    for B in SAMPLE_BATCHES:
-        for per_row in (False, True):
-            label = f"B{B}/V{V}/{'per_row' if per_row else 'one_key'}"
-            logits, keys, offsets = sample_inputs(gen, B, V, per_row)
+    cases = [(f"B{B}/V{V}/{'per_row' if per_row else 'one_key'}",
+              *sample_inputs(gen, B, V, per_row))
+             for B in SAMPLE_BATCHES for per_row in (False, True)]
+    edges = sample_edge_cases(gen)
 
-            def same(temp, when):
-                got = ops.gumbel_argmax(logits, keys, offsets, temp)
-                ref = gumbel_argmax_plain(logits, keys, offsets, temp)
-                bad = (got != ref).nonzero().flatten().tolist()
-                if bad:
-                    log(json.dumps({
-                        "phase": "gumbel_argmax_mismatch", "case": label,
-                        "when": when, "temperature": temp, "rows": bad,
-                        "twin_top2_gap": twin_gaps(logits, keys, offsets,
-                                                   temp, bad)}))
-                    raise AssertionError(f"gumbel_argmax {label} (T={temp}, "
-                                         f"{when}): rows {bad} differ from "
-                                         f"the plain twin")
+    def same(label, logits, keys, offsets, temp, when):
+        got = ops.gumbel_argmax(logits, keys, offsets, temp)
+        ref = gumbel_argmax_plain(logits, keys, offsets, temp)
+        bad = (got != ref).nonzero().flatten().tolist()
+        if bad:
+            log(json.dumps({
+                "phase": "gumbel_argmax_mismatch", "case": label,
+                "when": when, "temperature": temp, "rows": bad,
+                "twin_top2_gap": twin_gaps(logits, keys, offsets, temp,
+                                           bad)}))
+            raise AssertionError(f"gumbel_argmax {label} (T={temp}, {when}): "
+                                 f"rows {bad} differ from the plain twin")
 
-            for temp in (0.5, 0.9, 1.0, 1e-4):
-                same(temp, "first")
-            t_bytes = (nbytes(logits, keys, offsets) + 4 * B) \
-                / HBM_BYTES_PER_S * 1e3
-            t_ops = B * V * SAMPLE_INT_OPS / INT32_OP_PER_S * 1e3
-            row = dict(kernel="gumbel_argmax", case=label, B=B, V=V,
-                       max_abs_err=0.0,
-                       kernel_ms=time_ms(lambda: ops.gumbel_argmax(
-                           logits, keys, offsets, 0.9)),
-                       plain_ms=time_ms(lambda: gumbel_argmax_plain(
-                           logits, keys, offsets, 0.9)),
-                       library_ms=None, bound_ms=max(t_bytes, t_ops),
-                       bound_by="bytes" if t_bytes >= t_ops else "operations",
-                       floor_ms=floor_ms)
-            same(0.9, "after timing")
-            log(json.dumps(row))
-            results.append(row)
+    for case in cases + edges:
+        for temp in (0.5, 0.9, 1.0, 1e-4):
+            same(*case, temp, "first")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, logits, keys, offsets in cases:
+        B = logits.shape[0]
+        t_bytes = (nbytes(logits, keys, offsets) + 4 * B) \
+            / HBM_BYTES_PER_S * 1e3
+        t_ops = max(B * V * counts["int32_ops"] / INT32_OP_PER_S,
+                    B * V * counts["total"] / ISSUE_PER_S) * 1e3
+        p = ops.sample.plan(B, V, sms)
+        row = dict(kernel="gumbel_argmax", case=label, B=B, V=V,
+                   cluster=p.cluster, blocks=p.blocks, max_abs_err=0.0,
+                   kernel_ms=time_ms(lambda: ops.gumbel_argmax(
+                       logits, keys, offsets, 0.9)),
+                   pr17_ms=SAMPLE_PR17_MS.get(label),
+                   host_us=host_us(lambda: ops.gumbel_argmax(
+                       logits, keys, offsets, 0.9)),
+                   plain_ms=time_ms(lambda: gumbel_argmax_plain(
+                       logits, keys, offsets, 0.9)),
+                   library_ms=None, bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   floor_ms=floor_ms)
+        log(json.dumps(row))
+        results.append(row)
+    for case in cases + edges:
+        for temp in (0.5, 0.9, 1.0, 1e-4):
+            same(*case, temp, "after timing")
 
 
 # B-1's times in PR 18's call (its first kernel, NVIDIA H100 80GB HBM3,

@@ -4,6 +4,8 @@ it back, and the design choices its source note states.
     python3 kernel_variants.py [--variants base,loads_only,...]
     python3 kernel_variants.py --kernel suffix_merge_template --csrc DIR
     python3 kernel_variants.py --kernel kv_int8
+    python3 kernel_variants.py --kernel gumbel_argmax [--csrc DIR]
+    python3 kernel_variants.py --kernel stream_fold [--csrc DIR]
 
 Each variant is a copy of a ``csrc`` directory with one or more text
 substitutions (the tables below), built with the flags of
@@ -38,6 +40,30 @@ each, all at once) and called in bf16 through its C entry at B = 32.
   slots, mistral-7b's GQA step and verify window, and the chain's (156)
   and the flat tail's (1,088) extents.
 
+- ``gumbel_argmax``: the sampler (N7, ``gumbel_argmax_kernel``) at V =
+  32,000, B = 1, 8, 32 and 64 (one key; B = 8 also a key a row): a
+  cluster launch of the grid alone, the scores alone (no warp, cluster or
+  id reduction), the reduction alone (made-up scores, no loads, no
+  threefry), the warps' slots by plain remote stores and a cluster
+  barrier instead of ``st.async`` on an mbarrier, 1, 2 and 8 entries a
+  thread instead of 4, four scalar loads instead of one 16-byte load,
+  512 and 1,024 threads a block instead of 256, and each of the base,
+  512- and 1,024-thread libraries launched in clusters of 2, 4, 8 and 16
+  blocks instead of the plan's (``<variant>/cluster<n>``). With ``--csrc
+  DIR`` (an earlier copy of the sources, e.g. PR 17's
+  ``lir_tpu_torch/csrc`` unpacked with ``git archive``) its last-block
+  ticket design runs beside them (``earlier``), through a copy of that
+  commit's wrapper (two scratch tensors and the per-device tickets).
+  Each variant's ids against the plain twin's (rows that differ: the
+  three that skip work differ by design), the empty kernel's time, and
+  the host microseconds of a wrapper call (``chip_smoke.host_us``) of
+  the port's wrapper and of the earlier one.
+- ``stream_fold``: the fold (N6, ``stream_fold_kernel``, one warp a
+  row) at a (5, 2,000) lattice, K = 20, B = 32 and 64, contiguous and
+  strided readouts; with ``--csrc DIR`` the earlier source's kernel (one
+  thread a row) beside it (``earlier``). Lattices bitwise the plain
+  twin's or not.
+
 Timed by ``chip_smoke.time_ms`` (L2 flushed, device time) in turns (the
 variants, then in reverse). Each variant's largest difference against
 the plain version is printed (the variants that skip work are wrong by
@@ -48,6 +74,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import math
 import shutil
@@ -60,13 +87,16 @@ import torch.nn.functional as F
 
 import chip_smoke as cs
 from lir_tpu_torch import ops
+from lir_tpu_torch.engine import stream_stats
 from lir_tpu_torch.ops import _build
+from lir_tpu_torch.ops import sample as sample_mod
 from lir_tpu_torch.ops.kv_int8_attention import kv_int8_attention_plain
 from lir_tpu_torch.ops.kv_int8_attention import plan as kv8_plan
 
 FA = "flash_attention.cu"
 CP = "cascade_prefill.cu"
 KV = "kv_int8_attention.cu"
+SA = "sample.cu"
 _BY_LENGTH = ("return a.S > 3 * am::kKeys ? launch_wgmma<HD, 2>(a, st) : "
               "launch_wgmma<HD, 1>(a, st);")
 # name -> [(file, old text, new text), ...] in the variant's csrc copy.
@@ -163,11 +193,50 @@ KV8_SHAPES = [("llama-2-7b/decode", 1, 32, 32, 552), ("llama-2-7b/verify", 5, 32
               ("llama-2-7b/chain-decode", 1, 32, 32, 156),
               ("llama-2-7b/flat-tail-decode", 1, 32, 32, 1088),
               ("llama-2-7b/flat-tail-verify", 5, 32, 32, 1088)]
+_SCAN = "  scan_units(row, head, u0, min(units, u0 + per), temp, k0, k1, off, bv, bi);"
+_REDUCE = "  cluster_best(bv, bi, rank, sl, ids + b);"
+SAMPLE_VARIANTS = {
+    "base": [],
+    # A cluster launch of the grid and nothing else.
+    "launch_only": [(SA, "  __shared__ Slots sl;\n", "  if (V > 0) return;\n  __shared__ Slots sl;\n")],
+    # The scores and each thread's best, no reduction and no barrier.
+    "compute_only": [(SA, _REDUCE, "  if (bi == -2) ids[b] = __float_as_int(bv);"),
+                     (SA, "  hp::cluster_arrive_relaxed();\n  const int b", "  const int b")],
+    # The warp and cluster reduction of made-up scores: no loads, no threefry.
+    "reduction_only": [(SA, _SCAN, "  bv = (float)((threadIdx.x * 37 + rank) % 101);\n"
+                                   "  bi = u0 * kPerThread + threadIdx.x;"),
+                       (SA, "  if (rank == 0 && t < head)", "  if (rank < 0)"),
+                       (SA, "  if (rank == 0 && t < tail) {", "  if (rank < 0) {")],
+    # The slots by plain remote stores and a cluster barrier.
+    "sync_slots": [(SA, "constexpr bool kAsyncSlots = true;", "constexpr bool kAsyncSlots = false;")],
+    "entries1": [(SA, "constexpr int kPerThread = 4;", "constexpr int kPerThread = 1;")],
+    "entries2": [(SA, "constexpr int kPerThread = 4;", "constexpr int kPerThread = 2;")],
+    "entries8": [(SA, "constexpr int kPerThread = 4;", "constexpr int kPerThread = 8;")],
+    "scalar_loads": [(SA, "constexpr bool kVectorLoads = true;",
+                      "constexpr bool kVectorLoads = false;")],
+    "threads512": [(SA, "constexpr int kThreads = 256;", "constexpr int kThreads = 512;")],
+    "threads1024": [(SA, "constexpr int kThreads = 256;", "constexpr int kThreads = 1024;")],
+}
+# These variants' launches in clusters of this many blocks.
+SAMPLE_CLUSTERS = (2, 4, 8, 16)
+SAMPLE_CLUSTER_VARIANTS = ("base", "threads512", "threads1024")
+# (B, V, a key a row) of the sampler's shapes.
+SAMPLE_SHAPES = [(1, 32000, False), (8, 32000, False), (8, 32000, True),
+                 (32, 32000, False), (64, 32000, False)]
+FOLD_VARIANTS = {"base": []}
+# (B, strided) of the fold's shapes, on chip_smoke's (5, 2,000) lattice, K = 20.
+FOLD_SHAPES = [(32, False), (32, True), (64, False), (64, True)]
+# The kernels whose --csrc is an earlier copy built beside the variants,
+# under this name.
+EARLIER_KERNELS = ("gumbel_argmax", "stream_fold")
+EARLIER = "earlier"
 # kernel -> (library, variant table, default sources)
 KERNELS = {"flash": ("flash_attention", FLASH_VARIANTS, _build.CSRC),
            "suffix_merge": ("cascade_prefill", SUFFIX_MERGE_VARIANTS, _build.CSRC),
            "suffix_merge_template": ("cascade_prefill", SUFFIX_MERGE_TEMPLATE_VARIANTS, None),
-           "kv_int8": ("kv_int8_attention", KV8_VARIANTS, _build.CSRC)}
+           "kv_int8": ("kv_int8_attention", KV8_VARIANTS, _build.CSRC),
+           "gumbel_argmax": ("sample", SAMPLE_VARIANTS, _build.CSRC),
+           "stream_fold": ("stream_fold", FOLD_VARIANTS, _build.CSRC)}
 _ARGTYPES = {
     "flash_attention": {"lir_flash_attention": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                         + [ctypes.c_void_p]},
@@ -177,6 +246,13 @@ _ARGTYPES = {
         ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p, ctypes.c_int64] * 4
         + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_float]
         + [ctypes.c_void_p] * 3},
+    "stream_fold": {"lir_stream_fold": [
+        ctypes.c_void_p, ctypes.c_int64] * 3 + [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                                                 ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                                                 ctypes.c_int] + [ctypes.c_void_p] * 4
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p]},
+    # The sampler's two C entries (this source's and PR 17's) differ: set per call.
+    "sample": {},
 }
 # (model, query heads, kv heads, head dim, buckets) of the flash shapes at
 # B = 32: llama-2-7b at the three buckets, GQA and MQA at bucket 128.
@@ -188,16 +264,21 @@ CASCADE_SHAPES = [("llama-2-7b", 32, 32, 128), ("mistral-7b", 32, 8, 128),
                   ("falcon-7b", 71, 1, 64)]
 
 
-def build(kernel, names, csrc: Path):
-    """Each variant's library of ``kernel``, loaded."""
+def build(kernel, names, csrc: Path, earlier: Path = None):
+    """Each variant's library of ``kernel``, loaded; with ``earlier``,
+    also that copy's library as it is, under ``EARLIER``."""
     lib_name, table, _ = KERNELS[kernel]
     root = Path(_build.BUILD_DIR).parent / "kernel_variants" / kernel
+    jobs = {name: (csrc, table[name]) for name in names}
+    if earlier is not None:
+        jobs[EARLIER] = (earlier, [])
+    names = list(jobs)
     for name in names:  # every copy made before any compile starts
         d = root / name
         if d.exists():
             shutil.rmtree(d)
-        shutil.copytree(csrc, d)
-        for file, old, new in table[name]:
+        shutil.copytree(jobs[name][0], d)
+        for file, old, new in jobs[name][1]:
             text = (d / file).read_text()
             if text.count(old) != 1:
                 raise RuntimeError(f"variant {name}: {old[:60]!r} not found once in {file}")
@@ -326,22 +407,137 @@ def kv8_shapes(gen, libs, names, summary):
         summary[label] = {n: sum(m) / len(m) for n, m in row["ms"].items()}
 
 
+def _earlier_sample(lib, sms):
+    """PR 17's wrapper over its library (``--csrc``): its chunk plan, two
+    scratch tensors a call and the per-device ticket counters."""
+    p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.lir_gumbel_argmax.argtypes = [p, q, i, i, p, p, ctypes.c_float, i, i, p, p, p, p, p]
+    lib.lir_sample_threads.restype = i
+    threads = lib.lir_sample_threads()
+    tickets = torch.zeros(64, dtype=torch.int32, device="cuda")
+
+    def call(logits, keys, offsets, temperature, ids):
+        B, V = logits.shape
+        want = max(1, -(-2 * sms // B))
+        chunks = max(1, min(want, -(-V // threads)))
+        chunk = -(-V // chunks)
+        nchunks = -(-V // chunk)
+        part_v = torch.empty(B * nchunks, dtype=torch.float32, device="cuda")
+        part_i = torch.empty(B * nchunks, dtype=torch.int32, device="cuda")
+        _build.check(lib.lir_gumbel_argmax(
+            logits.data_ptr(), logits.stride(0), B, V, keys.data_ptr(), offsets.data_ptr(),
+            sample_mod.temperature32(temperature), nchunks, chunk, part_v.data_ptr(),
+            part_i.data_ptr(), tickets.data_ptr(), ids.data_ptr(),
+            torch.cuda.current_stream().cuda_stream), "gumbel_argmax (earlier)")
+
+    return call
+
+
+def sample_shapes(gen, libs, names, summary):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    runs = {}
+    for name, lib in libs.items():
+        if name == EARLIER:
+            runs[name] = _earlier_sample(lib, sms)
+            continue
+        p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        lib.lir_gumbel_argmax.argtypes = [p, q, i, i, p, p, ctypes.c_float, i, i, p, p]
+
+        def call(logits, keys, offsets, temperature, ids, _lib=lib, _name=name,
+                 cluster=None):
+            B, V = logits.shape
+            pl = sample_mod.plan(B, V, sms)
+            if cluster is not None:
+                al = sample_mod.SLICE_ALIGN
+                pl = sample_mod.Plan(cluster, -(-(-(-V // cluster)) // al) * al, B * cluster)
+            _build.check(_lib.lir_gumbel_argmax(
+                logits.data_ptr(), logits.stride(0), B, V, keys.data_ptr(), offsets.data_ptr(),
+                sample_mod.temperature32(temperature), pl.cluster, pl.slice, ids.data_ptr(),
+                torch.cuda.current_stream().cuda_stream), f"gumbel_argmax ({_name})")
+
+        runs[name] = call
+    for name in [n for n in SAMPLE_CLUSTER_VARIANTS if n in runs]:
+        for n in SAMPLE_CLUSTERS:
+            runs[f"{name}/cluster{n}"] = functools.partial(runs[name], cluster=n)
+    order = list(runs)
+    for B, V, per_row in SAMPLE_SHAPES:
+        logits, keys, offsets = cs.sample_inputs(gen, B, V, per_row)
+        ref = sample_mod.gumbel_argmax_plain(logits, keys, offsets, 0.9)
+        ids = torch.empty(B, dtype=torch.int32, device="cuda")
+        label = f"B{B}/V{V}/{'per_row' if per_row else 'one_key'}"
+        row = {"case": label, "plan": sample_mod.plan(B, V, sms)._asdict(), "ms": {},
+               "rows_differing": {}}
+        for name in order + order[::-1]:
+            run = functools.partial(runs[name], logits, keys, offsets, 0.9, ids)
+            ids.fill_(-1)
+            run()
+            torch.cuda.synchronize()
+            row["rows_differing"][name] = int((ids != ref).sum())
+            row["ms"].setdefault(name, []).append(cs.time_ms(run, iters=20))
+        row["floor_ms"] = cs.time_ms(cs.empty_kernel, iters=20)
+        row["host_us"] = {"port_wrapper": cs.host_us(
+            lambda: ops.gumbel_argmax(logits, keys, offsets, 0.9))}
+        if EARLIER in runs:
+            row["host_us"]["earlier_wrapper"] = cs.host_us(functools.partial(
+                runs[EARLIER], logits, keys, offsets, 0.9, ids))
+        print(json.dumps(row), flush=True)
+        summary[label] = {n: sum(m) / len(m) for n, m in row["ms"].items()}
+        summary[label]["floor"] = row["floor_ms"]
+
+
+def fold_shapes(gen, libs, names, summary):
+    P, R, K = cs.STREAM_P, cs.STREAM_R, cs.STREAM_K
+    for B, strided in FOLD_SHAPES:
+        yes, no, wc, lp, pidx, ridx = cs.fold_inputs(gen, B, K, P, R)
+        if strided:
+            yes, no, wc = (torch.stack([t, t], 1)[:, 0] for t in (yes, no, wc))
+            lp = torch.stack([lp, lp], 1)[:, 0]
+        ref = stream_stats.new_accum(P, R, "cuda")
+        ops.stream_fold_plain(ref, yes, no, wc, lp, pidx, ridx, True)
+        label = f"{P}x{R}/B{B}/{'strided' if strided else 'contiguous'}"
+        row = {"case": label, "ms": {}, "bitwise": {}}
+        for name in list(libs) + list(libs)[::-1]:
+            acc = stream_stats.new_accum(P, R, "cuda")
+
+            def run(lib=libs[name], acc=acc):
+                _build.check(lib.lir_stream_fold(
+                    yes.data_ptr(), yes.stride(0), no.data_ptr(), no.stride(0), wc.data_ptr(),
+                    wc.stride(0), lp.data_ptr(), lp.stride(0), lp.stride(1), K,
+                    pidx.data_ptr(), ridx.data_ptr(), B, acc["filled"].data_ptr(),
+                    acc["rel"].data_ptr(), acc["conf"].data_ptr(), acc["dec"].data_ptr(), P, R,
+                    1, torch.cuda.current_stream().cuda_stream), f"stream_fold ({name})")
+
+            run()
+            torch.cuda.synchronize()
+            got, want = cs.lattice_bits(acc), cs.lattice_bits(ref)
+            row["bitwise"][name] = all(torch.equal(got[k], want[k]) for k in got)
+            row["ms"].setdefault(name, []).append(cs.time_ms(run, iters=20))
+        row["floor_ms"] = cs.time_ms(cs.empty_kernel, iters=20)
+        print(json.dumps(row), flush=True)
+        summary[label] = {n: sum(m) / len(m) for n, m in row["ms"].items()}
+        summary[label]["floor"] = row["floor_ms"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=sorted(KERNELS), default="flash")
     ap.add_argument("--csrc", type=Path, default=None,
-                    help="the sources the variants are made from")
+                    help="the sources the variants are made from (gumbel_argmax, "
+                         "stream_fold: an earlier copy timed beside them)")
     ap.add_argument("--variants", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device; nothing measured", file=sys.stderr)
         return 1
     _, table, default_csrc = KERNELS[args.kernel]
-    csrc = args.csrc or default_csrc
-    if csrc is None:
-        ap.error(f"--kernel {args.kernel} needs --csrc")
     names = args.variants.split(",") if args.variants else list(table)
-    libs = build(args.kernel, names, csrc)
+    if args.kernel in EARLIER_KERNELS:  # the variants from the checkout, --csrc beside
+        libs = build(args.kernel, names, default_csrc, earlier=args.csrc)
+    else:
+        csrc = args.csrc or default_csrc
+        if csrc is None:
+            ap.error(f"--kernel {args.kernel} needs --csrc")
+        libs = build(args.kernel, names, csrc)
     cs.warm_up()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -350,6 +546,10 @@ def main() -> int:
         flash_shapes(gen, libs, names, summary)
     elif args.kernel == "kv_int8":
         kv8_shapes(gen, libs, names, summary)
+    elif args.kernel == "gumbel_argmax":
+        sample_shapes(gen, libs, names, summary)
+    elif args.kernel == "stream_fold":
+        fold_shapes(gen, libs, names, summary)
     else:
         suffix_merge_shapes(gen, libs, names, summary)
     print(json.dumps({"mean_ms": summary}), flush=True)

@@ -190,6 +190,15 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::
                    : "memory");
 }
+// The same barrier in two halves: arrive (ordering nothing) as a block
+// starts, wait before its first access to another block's shared memory,
+// which then exists (every block of the cluster has started).
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
 // The shared::cluster address of ``p`` (this block's shared memory) in
 // cluster block ``rank``.
 __device__ __forceinline__ uint32_t cluster_addr(const void* p, uint32_t rank) {

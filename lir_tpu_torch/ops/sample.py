@@ -10,16 +10,19 @@ argmax of ``logits[b] / max(temperature, 1e-6) + noise`` (lowest index
 on ties). With one key over (B, V) the offsets are ``b * V`` (the flat
 index); with a key a row they are 0.
 
-On a CUDA tensor :func:`gumbel_argmax` launches ``csrc/sample.cu``; on a
+On a CUDA tensor :func:`gumbel_argmax` launches ``csrc/sample.cu`` (one
+thread-block cluster a row, in the launch plan of :func:`plan`); on a
 CPU tensor it runs :func:`gumbel_argmax_plain`, the same chain in torch
-on ``engine/prng.py``. The source note in ``csrc/sample.cu`` says what
-bounds the kernel and what its design does about it.
+on ``engine/prng.py``. The kernel keeps nothing between launches and the
+wrapper allocates only the ids. The source note in ``csrc/sample.cu``
+says what bounds the kernel and what its design does about it.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+import functools
+from typing import Dict, List, NamedTuple
 
 import numpy as np
 import torch
@@ -27,8 +30,20 @@ import torch
 from ..engine import prng
 from . import _build
 
-# Blocks the kernel aims for per SM over the whole (chunks, B) grid.
-_BLOCKS_PER_SM = 2
+# The kernel's constants (csrc/sample.cu): threads a block, entries a
+# thread takes at a time (one 16-byte load), blocks a cluster at most
+# (16, the H100's non-portable size) and the portable size.
+THREADS = 256
+PER_THREAD = 4
+MAX_CLUSTER = 16
+PORTABLE_CLUSTER = 8
+# A cluster's slices are multiples of this many entries (a thread's unit
+# divides it), and a block takes at least a unit a thread.
+SLICE_ALIGN = 8
+MIN_SLICE = THREADS * PER_THREAD
+# Up to SPREAD blocks an SM over the grid, every row takes the largest
+# cluster; past that, a row takes sms // B blocks (one block an SM).
+SPREAD = 4
 
 
 def temperature32(temperature: float) -> float:
@@ -66,8 +81,65 @@ def gumbel_argmax_plain(logits: torch.Tensor, step_keys: torch.Tensor,
                         dim=-1).to(torch.int32)
 
 
+class Plan(NamedTuple):
+    """A launch of the sampler: ``cluster`` blocks a row, each taking
+    ``slice`` entries of it, in a grid of ``blocks`` = B * cluster
+    blocks (x: the cluster's rank, y: the row)."""
+
+    cluster: int
+    slice: int
+    blocks: int
+
+    @property
+    def non_portable(self) -> bool:
+        """Whether the cluster exceeds the portable 8 blocks (the kernel
+        then allows the non-portable size before it launches)."""
+        return self.cluster > PORTABLE_CLUSTER
+
+
+@functools.lru_cache(maxsize=256)
+def plan(B: int, V: int, sms: int) -> Plan:
+    """The launch plan of B rows of V entries on a card of ``sms`` SMs.
+    While B * MAX_CLUSTER blocks stay within SPREAD blocks an SM, every
+    row takes MAX_CLUSTER blocks: the card's scheduler places large
+    clusters one to a GPC and doubles some up, and many small blocks even
+    that out. Past it, a row takes ``sms // B`` blocks (at least one),
+    one block an SM. A block keeps at least MIN_SLICE entries (fewer
+    blocks for a small V); each slice is ``ceil(V / cluster)`` rounded up
+    to SLICE_ALIGN. The grid is ``blocks`` = B * cluster blocks. The id
+    does not depend on the plan (the argmax is order-free), only the
+    time does."""
+    if B < 1 or V < 1 or sms < 1:
+        raise ValueError(f"gumbel_argmax: no plan for B={B}, V={V}, "
+                         f"{sms} SMs")
+    if B * MAX_CLUSTER <= SPREAD * sms:
+        cluster = MAX_CLUSTER
+    else:
+        cluster = max(1, min(MAX_CLUSTER, sms // B))
+    cluster = max(1, min(cluster, V // MIN_SLICE))
+    slice_ = -(-(-(-V // cluster)) // SLICE_ALIGN) * SLICE_ALIGN
+    return Plan(cluster, slice_, B * cluster)
+
+
+def block_entries(p: Plan, V: int, rank: int, head: int,
+                  per_thread: int = PER_THREAD) -> List[range]:
+    """The vocab entries block ``rank`` of a row's cluster takes, as
+    ranges, as the kernel splits them: the row's ``head`` entries before
+    its first aligned unit (``min(V, head)``), then whole units of
+    ``per_thread`` entries, ``slice / per_thread`` units a block in rank
+    order, and the entries after the last whole unit; rank 0 also takes
+    the head and those last entries."""
+    head = min(V, head)
+    units = (V - head) // per_thread
+    per = p.slice // per_thread
+    u0, u1 = rank * per, min(units, (rank + 1) * per)
+    out = [range(head + u0 * per_thread, head + max(u0, u1) * per_thread)]
+    if rank == 0:
+        out += [range(head), range(head + units * per_thread, V)]
+    return out
+
+
 _LIB = None
-_TICKETS: Dict[torch.device, torch.Tensor] = {}
 _SMS: Dict[torch.device, int] = {}
 
 
@@ -77,31 +149,21 @@ def _lib():
         lib = _build.library("sample")
         p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.lir_gumbel_argmax.argtypes = [p, q, i, i, p, p, ctypes.c_float, i,
-                                          i, p, p, p, p, p]
+                                          i, p, p]
         lib.lir_gumbel_argmax.restype = i
-        lib.lir_sample_threads.restype = i
+        for name in ("lir_sample_threads", "lir_sample_per_thread",
+                     "lir_sample_max_cluster"):
+            getattr(lib, name).restype = i
         _LIB = lib
     return _LIB
 
 
-def _tickets(dev: torch.device, B: int) -> torch.Tensor:
-    """The per-row ticket counters of the kernel's last-block reduction:
-    zero between launches (the last block of a row clears its own), kept
-    per device. One stream at a time uses them, as the port runs."""
-    t = _TICKETS.get(dev)
-    if t is None or t.numel() < B:
-        t = torch.zeros(max(B, 64), dtype=torch.int32, device=dev)
-        _TICKETS[dev] = t
-    return t
-
-
-def grid_chunks(B: int, V: int, sms: int, threads: int):
-    """(chunks a row, vocab entries a chunk): about ``_BLOCKS_PER_SM``
-    blocks per SM over the grid, at least ``threads`` entries a chunk."""
-    want = max(1, -(-_BLOCKS_PER_SM * sms // B))
-    chunks = max(1, min(want, -(-V // threads)))
-    chunk = -(-V // chunks)
-    return -(-V // chunk), chunk
+def _sms(dev: torch.device) -> int:
+    sms = _SMS.get(dev)
+    if sms is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        _SMS[dev] = sms
+    return sms
 
 
 def _check(logits, step_keys, offsets) -> None:
@@ -125,7 +187,8 @@ def _check(logits, step_keys, offsets) -> None:
 def gumbel_argmax(logits: torch.Tensor, step_keys: torch.Tensor,
                   offsets: torch.Tensor, temperature: float) -> torch.Tensor:
     """Each row's sampled id, (B,) int32. CUDA tensors launch
-    ``csrc/sample.cu``; CPU tensors run :func:`gumbel_argmax_plain`."""
+    ``csrc/sample.cu`` in :func:`plan`'s clusters; CPU tensors run
+    :func:`gumbel_argmax_plain`."""
     dev = logits.device
     if dev.type == "cpu":
         return gumbel_argmax_plain(logits, step_keys, offsets, temperature)
@@ -138,20 +201,12 @@ def gumbel_argmax(logits: torch.Tensor, step_keys: torch.Tensor,
         return ids
     if V == 0:
         raise ValueError("gumbel_argmax: empty vocabulary")
-    lib = _lib()
-    sms = _SMS.get(dev)
-    if sms is None:
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        _SMS[dev] = sms
-    nchunks, chunk = grid_chunks(B, V, sms, lib.lir_sample_threads())
-    part_v = torch.empty(B * nchunks, dtype=torch.float32, device=dev)
-    part_i = torch.empty(B * nchunks, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _build.check(lib.lir_gumbel_argmax(
+    p = plan(B, V, _sms(dev))
+    _build.check(_lib().lir_gumbel_argmax(
         logits.data_ptr(), logits.stride(0), B, V, step_keys.data_ptr(),
-        offsets.data_ptr(), temperature32(temperature), nchunks, chunk,
-        part_v.data_ptr(), part_i.data_ptr(), _tickets(dev, B).data_ptr(),
-        ids.data_ptr(), stream), "gumbel_argmax")
+        offsets.data_ptr(), temperature32(temperature), p.cluster, p.slice,
+        ids.data_ptr(), torch.cuda.current_stream(dev).cuda_stream),
+        "gumbel_argmax")
     gumbel_argmax.launches += 1
     return ids
 

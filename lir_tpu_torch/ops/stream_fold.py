@@ -9,9 +9,11 @@ yes / (yes + no), conf = wconf, dec = yes > no, filled = 1, stored at
 (pidx, ridx); a slot outside the lattice (pad rows carry ridx = R) is
 dropped on the device, so nothing is read back.
 
-On a CUDA tensor :func:`stream_fold` launches the kernel; on a CPU
-tensor it runs :func:`stream_fold_plain`, the same arithmetic in torch
-(float32 bounds, correctly rounded division), bitwise the kernel's.
+On a CUDA tensor :func:`stream_fold` launches the kernel (one warp a
+row, every load issued before any test: one round trip to memory); on a
+CPU tensor it runs :func:`stream_fold_plain`, the same arithmetic in
+torch (float32 bounds, correctly rounded division), bitwise the
+kernel's.
 """
 
 from __future__ import annotations

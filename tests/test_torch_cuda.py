@@ -34,9 +34,12 @@ The streaming-statistics fold is bitwise its plain twin (guard on and
 off, strided readouts, refolds), and the sink on the card holds the CPU
 sink's lattice bitwise, its finalize's CIs within 1e-6 of the CPU's.
 The sampler (``gumbel_argmax``) gives its plain twin's ids in both key
-modes, at vocabularies that are and are not a multiple of its chunk,
-with a NaN logit and with tied scores (the lowest index), launch after
-launch. The int8-KV attention kernel (``kv_int8_attention``) holds its
+modes, at vocabularies that are and are not a multiple of its unit, at
+B = 1 to 64 (every cluster size its plan takes there, 1 to 16 blocks),
+with a NaN logit, a row of NaNs and tied scores (the lowest index, also
+across a cluster's blocks), on row views whose stride is not a multiple
+of 4, launch after launch and on a second stream; the C library's
+constants are the planner's. The int8-KV attention kernel (``kv_int8_attention``) holds its
 twin's s32 scores bitwise and its output within ``tie_bar`` (one int8
 level of the probabilities at each key near a rounding tie), at S = 1,
 a verify window and 16 queries, MHA / GQA / MQA, ALiBi, every head dim
@@ -838,6 +841,8 @@ def _fold_inputs(gen, B, K, P, R):
     yes[1], no[2], yes[3], wc[4] = float("nan"), -0.01, 1.2, 100.5
     yes[5] = no[5] = 0.0
     lp[6, 3], lp[7, 0] = float("nan"), 0.5
+    if K > 32:       # past the first 32 columns: a lane's second read
+        lp[8, K - 1] = float("nan")
     cells = torch.randperm(P * R, generator=gen, device="cuda")[:B]
     pidx, ridx = (cells // R).int(), (cells % R).int()
     ridx[-3:] = R
@@ -846,15 +851,17 @@ def _fold_inputs(gen, B, K, P, R):
 
 @pytest.mark.parametrize("guard", [True, False])
 @pytest.mark.parametrize("strided", [False, True])
-def test_stream_fold_kernel_bitwise_plain(gen, guard, strided):
+@pytest.mark.parametrize("B,K", [(32, 20), (64, 20), (12, 40)])
+def test_stream_fold_kernel_bitwise_plain(gen, guard, strided, B, K):
     """The fold kernel against its plain twin on the card, bitwise, over
     three folds into a (5, 2,000) lattice (the last refolding the first's
-    rows: idempotent), B = 32, K = 20."""
+    rows: idempotent), B = 32 and 64 (one block of warps, then two) at
+    K = 20, and K = 40 (a lane reads two log-probs)."""
     from lir_tpu_torch.engine.stream_stats import new_accum
 
     P, R = 5, 2000
     kern, plain = new_accum(P, R, "cuda"), new_accum(P, R, "cuda")
-    batches = [_fold_inputs(gen, 32, 20, P, R) for _ in range(2)]
+    batches = [_fold_inputs(gen, B, K, P, R) for _ in range(2)]
     for rows in batches + batches[:1]:
         yes, no, wc, lp, pidx, ridx = rows
         if strided:
@@ -923,7 +930,9 @@ def test_streaming_finalize_on_card_matches_cpu(gen):
                     1.0, abs(pb[field][k])), (field, k)
 
 
-@pytest.mark.parametrize("B,V", [(1, 7), (8, 32000), (32, 32000), (3, 50257)])
+@pytest.mark.parametrize("B,V", [(1, 7), (8, 32000), (32, 32000), (3, 50257),
+                                 (1, 32000), (64, 32000), (8, 32001), (8, 50),
+                                 (40, 32000), (128, 4000)])
 @pytest.mark.parametrize("per_row", [False, True], ids=["one_key", "per_row"])
 def test_gumbel_argmax_matches_plain(gen, B, V, per_row):
     from lir_tpu_torch.engine.generate import sample_keys
@@ -946,6 +955,68 @@ def test_gumbel_argmax_matches_plain(gen, B, V, per_row):
     flat = torch.full((B, V), -float("inf"), device="cuda")
     assert torch.equal(ops.gumbel_argmax(flat, keys[0], offsets, 1.0),
                        gumbel_argmax_plain(flat, keys[0], offsets, 1.0))
+
+
+def _sample_case(gen, B, V):
+    from lir_tpu_torch.engine.generate import sample_keys
+
+    logits = torch.randn((B, V), generator=gen, device="cuda") * 3
+    key = torch.randint(0, 2**32, (2,), generator=gen, device="cuda",
+                        dtype=torch.int64)
+    keys, offsets = sample_keys(key, B, V, 1, "cuda")
+    return logits, keys[0], offsets
+
+
+def test_gumbel_argmax_strided_rows_nan_rows_and_ties(gen):
+    """Rows that are views of a wider tensor (stride V + 3: each row at
+    another 16-byte phase), a row of NaNs (id 0), NaNs at two places (the
+    lower wins) and exact ties from V // 3 on, which span the cluster's
+    blocks (at temperature 1e-4 logits of 1e6 round to one score)."""
+    from lir_tpu_torch.ops.sample import gumbel_argmax_plain
+
+    B, V = 8, 32000
+    _, keys, offsets = _sample_case(gen, B, V)
+    wide = torch.randn((B, V + 3), generator=gen, device="cuda") * 3
+    for lo in range(4):
+        logits = wide[:, lo:lo + V]
+        for temp in (0.9, 1e-4):
+            assert torch.equal(ops.gumbel_argmax(logits, keys, offsets, temp),
+                               gumbel_argmax_plain(logits, keys, offsets, temp))
+    logits = wide[:, 1:V + 1].clone()
+    logits[0] = float("nan")
+    logits[1, 17] = logits[1, V - 5] = float("nan")
+    logits[2, V // 3:] = 1e6
+    logits[3] = 1e6
+    got = ops.gumbel_argmax(logits, keys, offsets, 1e-4)
+    assert torch.equal(got, gumbel_argmax_plain(logits, keys, offsets, 1e-4))
+    assert got[:4].tolist() == [0, 17, V // 3, 0]
+
+
+def test_gumbel_argmax_second_stream_and_constants(gen):
+    """A launch on a second stream, and launches back to back, give the
+    same ids: the kernel keeps nothing between launches. The C library's
+    constants are ``ops.sample``'s."""
+    from lir_tpu_torch.ops import sample
+
+    lib = sample._lib()
+    assert (lib.lir_sample_threads(), lib.lir_sample_per_thread(),
+            lib.lir_sample_max_cluster()) == (sample.THREADS,
+                                              sample.PER_THREAD,
+                                              sample.MAX_CLUSTER)
+    for B in (8, 64):
+        logits, keys, offsets = _sample_case(gen, B, 32000)
+        first = ops.gumbel_argmax(logits, keys, offsets, 0.9)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            outs = [ops.gumbel_argmax(logits, keys, offsets, 0.9)
+                    for _ in range(3)]
+        again = ops.gumbel_argmax(logits, keys, offsets, 0.9)
+        torch.cuda.synchronize()
+        for ids in outs + [again]:
+            assert torch.equal(ids, first)
+        assert torch.equal(first, sample.gumbel_argmax_plain(
+            logits, keys, offsets, 0.9))
 
 
 # (B, S, H, K, hd, T, alibi, dtype, view) of the int8-KV attention's
