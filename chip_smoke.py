@@ -247,6 +247,20 @@ Phases (each raises on failure, so the script exits non-zero):
    ``quantize_decoder_params``' (``quantize_encdec_params``')
    quantization of the fp16 checkpoint's bf16 tree, status ``ok``, 50
    rows each, rows/s and peak memory beside the bf16 run's.
+   The fleet phase (``engine/fleet.py``, ``models/weights.py``,
+   ``engine/hbm.py``): (a), in the loader phase, the five specs scored
+   with no fleet (each model built inline and released before the next:
+   rows bitwise the loader phase's), then ``run_model_comparison_sweep``
+   through a ``ModelFleet`` whose cache holds one 7B model, prefetch on
+   and off, rows bitwise that reference (seconds, rows/s, FleetStats,
+   peak memory); (b) a llama / T5 / llama acquire with pinned host
+   staging, every re-streamed leaf and a batch bitwise (GB/s); (c) on
+   phase 3's engine, a seeded 4-layer draft and a perfect drafter armed
+   through ``acquire_spec_draft``, bitwise the sequential route, the
+   perfect drafter accepting every draft; (d) a ``squeeze`` of that
+   engine's governor, the rungs down and up in the JAX order with rows
+   bitwise. After every phase the governors' ledger and level, no rung
+   engaged where a route is asserted.
    The T5 phase (the encoder-decoder branch, ``models/encdec.py``): part
    (a), after the small sweep check, a small gated untied T5 and a small
    ReLU tied (v1.0) T5 in float32 through ``t5_greedy_decode``
@@ -303,10 +317,16 @@ from lir_tpu_torch.data import (LEGAL_PROMPTS, WORD_MEANING_QUESTIONS,
 from lir_tpu_torch.data.prompts import rephrase_request
 from lir_tpu_torch.engine import (generate, grid, prefix_tree, prng, rephrase,
                                   sweep, tokens as tok)
-from lir_tpu_torch.engine.multi import ModelSpec, run_model_comparison_sweep
-from lir_tpu_torch.engine.runner import SFX_BUCKETS, ScoringEngine
+from lir_tpu_torch.engine import hbm
+from lir_tpu_torch.engine.fleet import ModelFleet
+from lir_tpu_torch.engine.multi import (ModelSpec, format_for,
+                                       nan_rows_for_model,
+                                       run_model_comparison_sweep)
+from lir_tpu_torch.engine.runner import (SFX_BUCKETS, PiggybackIneligible,
+                                         ScoringEngine)
 from lir_tpu_torch.models import (decoder, encdec, loader, paged, quant,
                                   registry)
+from lir_tpu_torch.models import weights
 from lir_tpu_torch.models.factory import engine_factory
 from lir_tpu_torch.ops import _build
 from lir_tpu_torch.ops.flash_decode import (decode_legs,
@@ -3847,7 +3867,12 @@ def run_comparison(label, factory, specs, out_dir: Path, questions,
     if abs(mem1 - mem0) > LOADER_RELEASE_SLACK:
         raise AssertionError(f"{label}: {mem1 - mem0} bytes still allocated "
                              f"after the sweep (models not released)")
-    stats = dict(seconds=dt, throughput=art["throughput"],
+    # No weight budget on the card: the sweep's own fleet drops each
+    # model once its rows are in.
+    st = art["fleet"]
+    if st["resident_models"] or st["evictions"] != st["loads"]:
+        raise AssertionError(f"{label}: models stayed cached {st}")
+    stats = dict(seconds=dt, throughput=art["throughput"], fleet=st,
                  per_model=art["per_model"], launches=launches,
                  memory_allocated_before=mem0, memory_allocated_after=mem1,
                  max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
@@ -4005,9 +4030,17 @@ def run_loader_phase(params, cfg, questions=WORD_MEANING_QUESTIONS,
             ("flash_decode", "row_norm", "row_add_norm"))
         _check_model_rows("loader_int8_comparison", art8, specs8, questions,
                           2 * n, 0)
+        # The fleet phase's parts (a) and (b), on these checkpoints.
+        llama_bytes = quant.param_bytes(params)
+        stats["fleet"] = {"sweeps": fleet_sweeps(
+            root, factory, specs, art, questions, llama_bytes)}
+        stats["fleet"]["staging"] = fleet_staging(
+            factory, questions, llama_bytes, quant.param_bytes(t5p))
         del t5p
     stats["launches"] = {k: stats["bf16_sweep"]["launches"][k]
                          + stats["int8_sweep"]["launches"][k]
+                         + sum(stats["fleet"]["sweeps"][m]["launches"][k]
+                               for m in ("prefetch", "no_prefetch"))
                          for k in ops.KERNELS}
     # D1 rows/s of the scoring alone (the sweep's ThroughputMeter: its
     # rows over the seconds inside run_word_meaning_sweep, loads apart).
@@ -4022,6 +4055,353 @@ def run_loader_phase(params, cfg, questions=WORD_MEANING_QUESTIONS,
                         k.split("/", 1)[1]: v for k, v in stats.items()
                         if k.startswith("int8_check_seconds/")}}))
     stats["rows_per_s"] = rows_per_s
+    return stats
+
+
+# ---------------------------------------------------------------------------
+# The fleet phase (engine/fleet.py, models/weights.py, engine/hbm.py):
+# (a) and (b) inside the loader phase, on its checkpoints; (c) and (d)
+# on phase 3's llama-2-7b engine.
+# ---------------------------------------------------------------------------
+
+# Part (a)'s weight-cache budget: 1.25 x llama-2-7b's bf16 bytes, one 7B
+# model resident at a time.
+FLEET_BUDGET_FACTOR = 1.25
+FLEET_DRAFT_LAYERS = 4
+FLEET_KERNELS = ("flash_decode", "row_gemm", "row_norm", "row_add_norm")
+# Engagements of any governor's ladder since the last governor_check:
+# filled by watch_governors' wrapper, emptied by each check.
+GOVERNOR_ENGAGED: list = []
+
+
+def watch_governors() -> None:
+    """Record every rung any engine's governor engages (the ledger's
+    route changes: no_piggyback, no_spec), so that governor_check can
+    fail a phase whose routes it asserts."""
+    engage = hbm.HbmGovernor._engage_locked
+
+    def recorded(self, reason):
+        GOVERNOR_ENGAGED.append((hbm.RUNGS[self._level]
+                                 if self._level < len(hbm.RUNGS) else None,
+                                 reason))
+        return engage(self, reason)
+
+    hbm.HbmGovernor._engage_locked = recorded
+
+
+def governor_check(after: str, engine) -> dict:
+    """Print phase 3's engine's ledger and level after a phase; fail if
+    any governor engaged a rung during it (every phase before the
+    squeeze asserts the routes it takes)."""
+    gov = engine.governor
+    row = {"phase": "governor", "after": after, "level": gov.level,
+           "pressure": gov.pressure(), "budget_bytes": gov.budget_bytes,
+           "ledger": gov.ledger(), "engaged_since_last": list(GOVERNOR_ENGAGED)}
+    log(json.dumps(row))
+    if GOVERNOR_ENGAGED or gov.level:
+        raise AssertionError(f"{after}: the memory governor engaged "
+                             f"{GOVERNOR_ENGAGED} (level {gov.level}) in a "
+                             "phase that asserts its routes")
+    return row
+
+
+def _same_records(label, got, ref) -> None:
+    """D1 records bitwise: text fields equal, floats equal (NaN = NaN)."""
+    if len(got) != len(ref):
+        raise AssertionError(f"{label}: {len(got)} rows, {len(ref)} expected")
+    for a, b in zip(got, ref):
+        for key, x in b.items():
+            y = a[key]
+            same = (x == y or (isinstance(x, float) and isinstance(y, float)
+                               and math.isnan(x) and math.isnan(y)))
+            if not same:
+                raise AssertionError(f"{label}: {b['model']} {key} {y!r} != "
+                                     f"{x!r} (the reference's)")
+
+
+def standalone_sweep(root: Path, factory, specs, questions) -> tuple:
+    """The reference with no fleet: each model built inline by the
+    factory on the compute stream (no worker, no copy stream), scored by
+    ``run_word_meaning_sweep`` and released before the next, as the
+    sweep loop before the fleet did; the absent model's NaN rows. Its D1
+    records, and the seconds and rows/s of the scoring alone (loads
+    apart, as the sweep's ThroughputMeter counts them)."""
+    rows, scored, score_s = [], 0, 0.0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for spec in specs:
+        if spec.name == LOADER_ABSENT:
+            rows.extend(nan_rows_for_model(spec, questions))
+            continue
+        engine = factory(spec.name)
+        t1 = time.perf_counter()
+        got = sweep.run_word_meaning_sweep(
+            engine, spec.name, spec.base_or_instruct, questions,
+            format_for(spec))
+        score_s += time.perf_counter() - t1
+        scored += len(got)
+        rows.extend(got)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    stats = dict(seconds=time.perf_counter() - t0, scoring_seconds=score_s,
+                 rows_per_s=scored / score_s,
+                 max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+    recs = schemas.write_model_comparison_csv(
+        rows, root / "standalone_model_comparison_results.csv")
+    log(json.dumps({"phase": "fleet_standalone_reference", **stats}))
+    return recs, stats
+
+
+def fleet_sweeps(root: Path, factory, specs, ref_art, questions,
+                 model_bytes: int) -> dict:
+    """Part (a): ``run_model_comparison_sweep`` through a ``ModelFleet``
+    over the loader phase's five specs, the weight cache holding one 7B
+    model (1.25 x its bytes), prefetch on and then off; the D1 rows
+    bitwise a reference with no fleet (``standalone_sweep``), which is
+    bitwise the loader phase's. FleetStats, seconds, rows/s of the
+    scoring, peak memory and launches of each."""
+    ref_recs, ref_stats = standalone_sweep(root, factory, specs, questions)
+    _same_records("fleet_standalone_reference", ref_recs,
+                  ref_art["model_comparison_csv"])
+    out = {"standalone": ref_stats}
+    for mode, prefetch in (("prefetch", True), ("no_prefetch", False)):
+        fl = ModelFleet.from_factory(
+            factory, [], prefetch=prefetch, stage_reloads=False,
+            cache_budget_bytes=int(FLEET_BUDGET_FACTOR * model_bytes))
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        art = run_model_comparison_sweep(specs, factory, root / f"fleet_{mode}",
+                                         questions=questions, fleet=fl)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        fl.shutdown()
+        fl.drop_all()
+        del fl
+        gc.collect()
+        torch.cuda.empty_cache()
+        label = f"fleet_sweep_{mode}"
+        _same_records(label, art["model_comparison_csv"], ref_recs)
+        missing = [k for k in FLEET_KERNELS if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"{label}: kernels never launched: {missing}")
+        st = art["fleet"]
+        if st["loads"] != 4 or (prefetch and st["prefetch_hits"] != 3) or (
+                not prefetch and st["swap_s_hidden"] != 0.0):
+            raise AssertionError(f"{label}: fleet counters {st}")
+        if st["evictions"] < 1:
+            raise AssertionError(f"{label}: the budget evicted nothing {st}")
+        tp = art["throughput"]
+        out[mode] = dict(seconds=dt, fleet=st, launches=launches,
+                         rows_per_s=tp["prompts"] / tp["elapsed_s"],
+                         max_memory_allocated_bytes=peak,
+                         memory_allocated_before=mem0,
+                         memory_allocated_after=torch.cuda.memory_allocated(),
+                         rows_bitwise_standalone=True)
+        log(json.dumps({"phase": label, **out[mode]}))
+    return out
+
+
+def fleet_staging(factory, questions, model_bytes: int,
+                  t5_bytes: int) -> dict:
+    """Part (b): a fleet with pinned host staging under a budget that
+    holds llama-2-7b alone: acquire llama (a checkpoint load, staged),
+    score a word-meaning batch, acquire T5 (llama evicted), acquire llama
+    again (streamed from pinned memory on the copy stream). Every
+    re-streamed leaf bitwise its staged original, the batch bitwise the
+    first one; the load's GB/s."""
+    fl = ModelFleet.from_factory(factory, [LOADER_BASE, LOADER_T5],
+                                 prefetch=False, stage_reloads=True,
+                                 cache_budget_bytes=model_bytes + t5_bytes // 2)
+    prompts = [format_base_prompt(q) for q in questions[:BATCH]]
+    try:
+        t0 = time.perf_counter()
+        eng = fl.acquire(LOADER_BASE)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        staged = fl.staged(LOADER_BASE)
+        pinned = all(t.is_pinned() for t in weights.tensors(staged))
+        first = eng.score_prompts(prompts)
+        fl.release(LOADER_BASE)
+        eng5 = fl.acquire(LOADER_T5)
+        fl.release(LOADER_T5)
+        if fl.resident(LOADER_BASE) or not eng5.encoder_decoder:
+            raise AssertionError("fleet staging: llama not evicted for T5")
+        load0 = fl.stats.load_s
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng = fl.acquire(LOADER_BASE)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        load_s = fl.stats.load_s - load0
+        streamed = weights.tree_bytes(staged)
+        bad = [i for i, (d, h) in enumerate(zip(
+            weights.tensors(eng.params), weights.tensors(staged)))
+            if not torch.equal(d, h.to(d.device, non_blocking=True))]
+        if bad or pinned != torch.cuda.is_available():
+            raise AssertionError(f"fleet staging: leaves {bad} differ from "
+                                 f"the staged tree (pinned {pinned})")
+        again = eng.score_prompts(prompts)
+        fl.release(LOADER_BASE)
+        if again != first:
+            raise AssertionError("fleet staging: the batch after the reload "
+                                 "differs from the first")
+        stats = dict(cold_load_s=cold_s, restream_load_s=load_s,
+                     restream_wall_s=wall_s, bytes=streamed,
+                     gb_per_s=streamed / load_s / 1e9, pinned=pinned,
+                     leaves=len(weights.tensors(staged)), bitwise=True,
+                     batch_bitwise=True, fleet=fl.stats.summary())
+    finally:
+        fl.shutdown()
+        if fl.resident(LOADER_BASE) or fl.resident(LOADER_T5):
+            fl.drop_all()
+        del fl
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(json.dumps({"phase": "fleet_staging", **stats}))
+    return stats
+
+
+def fleet_drafts(engine, cells, rt) -> dict:
+    """Part (c): on phase 3's llama-2-7b engine, over the flat cells, a
+    fleet draft model armed through ``ModelFleet.acquire_spec_draft``: a
+    seeded draft at llama-2-7b's widths and 4 layers, then the
+    verifier's own weights (a perfect drafter). Both bitwise the
+    sequential route; the perfect drafter accepts every draft."""
+    seq_out, seq = run_dispatch(
+        "fleet_draft_sequential", engine_with(engine, spec_decode=False),
+        cells, rt, ("flash_decode",), ("dense_shared_dispatches",))
+    dcfg = dataclasses.replace(engine.cfg, n_layers=FLEET_DRAFT_LAYERS,
+                               name=f"llama-2-7b-{FLEET_DRAFT_LAYERS}l")
+    dparams = decoder.init_params(dcfg, seed=7, device=DEV,
+                                  dtype=torch.bfloat16)
+    ver = engine_with(engine)
+    fl = ModelFleet.from_engines(
+        [("verifier", ver),
+         ("draft", ScoringEngine(dparams, dcfg, engine.tokenizer,
+                                 RuntimeConfig(batch_size=BATCH), device=DEV)),
+         ("self", engine_with(engine))], stage_reloads=False)
+    out = {"sequential": seq}
+    try:
+        for drafter in ("draft", "self"):
+            ver.rt = dataclasses.replace(ver.rt, spec_draft_model=drafter)
+            v = fl.acquire("verifier")
+            did = fl.acquire_spec_draft(v, "verifier")
+            try:
+                if did != drafter:
+                    raise AssertionError(f"fleet draft {drafter}: not armed")
+                label = f"fleet_draft_{drafter}"
+                outs, st = run_dispatch(
+                    label, v, cells, rt,
+                    ("flash_decode", "flash_decode_mq", "row_gemm",
+                     "row_add_norm"), ("spec_dispatches",))
+            finally:
+                fl.release_spec_draft(v, did)
+                fl.release("verifier")
+            st["vs_sequential"] = compare_routes(label, outs, seq_out)
+            sp = st["spec_stats"]
+            if sp.get("draft_fleet", 0) <= 0 or sp.get("draft_ngram", 0):
+                raise AssertionError(f"{label}: drafts {sp}")
+            if drafter == "self" and sp["accepted_fleet"] != sp["draft_fleet"]:
+                raise AssertionError(f"{label}: the perfect drafter accepted "
+                                     f"{sp['accepted_fleet']} of "
+                                     f"{sp['draft_fleet']}")
+            out[drafter] = st
+    finally:
+        fl.shutdown()
+        fl.drop_all()
+        del fl, ver, dparams
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def squeeze_walk(engine, cells, rt) -> dict:
+    """Part (d): a squeeze of phase 3's engine's governor. Each dispatch
+    over the flat cells ticks it once, and ``sustain_ticks - 1`` more
+    ticks follow it, so each level of the walk takes one dispatch: the
+    rungs engage in the JAX package's order down to ``shed`` and release
+    back to none; every dispatch's rows are bitwise the first
+    (speculative) one's, taking the sequential route (one fallback)
+    under ``no_spec``, and a piggyback chain is refused under
+    ``no_piggyback``; after the release the speculative route and the
+    chain are back."""
+    gov = engine.governor
+    sustain = gov.cfg.sustain_ticks
+    call = _dispatch_call(engine, cells, rt)
+    plan = plan_shared(engine, cells, rt)
+    t = engine.tokenizer
+    bins = [t(b).input_ids for b, _, _ in cells]
+    confs = [t(c).input_ids for _, c, _ in cells]
+
+    def piggy_refused() -> bool:
+        try:
+            engine.decode_fused_shared_piggy(
+                bins, confs, rt.sweep_decode_tokens, rt.sweep_confidence_tokens,
+                False, plan["bucket"], (8, 8))
+        except PiggybackIneligible as err:
+            if "memory governor" not in str(err):
+                raise
+            return True
+        engine.piggy_abort()
+        return False
+
+    ref = call()
+    engine.spec_flush()
+    n_rungs = len(hbm.RUNGS)
+    gov.squeeze(0.01, calls=sustain * n_rungs + 2)
+    walk, rows = [[]], []
+    t0 = time.perf_counter()
+    while True:
+        level = gov.level
+        refused = piggy_refused() if level > hbm.RUNGS.index(
+            "no_piggyback") else None
+        before = dict(engine.spec_stats)
+        outs = call()
+        engine.spec_flush()
+        route = ("sequential" if engine.spec_stats["fallbacks"]
+                 > before.get("fallbacks", 0) else "speculative")
+        if route != ("sequential" if level > hbm.RUNGS.index("no_spec")
+                     else "speculative"):
+            raise AssertionError(f"squeeze: level {level} took the {route} "
+                                 "route")
+        if refused is False:
+            raise AssertionError(f"squeeze: level {level} opened a chain")
+        compare_outs(f"squeeze_level{level}", outs, ref, "speculative")
+        rows.append(dict(level=level, route=route, piggy_refused=refused))
+        for _ in range(sustain - 1):
+            gov.tick()
+        engaged = gov.engaged_rungs()
+        if not walk or walk[-1] != engaged:
+            walk.append(engaged)
+        if not engaged and len(walk) > 1:
+            break
+        if len(rows) > 4 * n_rungs + 4:
+            raise AssertionError(f"squeeze: the ladder did not come back "
+                                 f"({walk})")
+    dt = time.perf_counter() - t0
+    expect = ([list(hbm.RUNGS[:i]) for i in range(n_rungs + 1)]
+              + [list(hbm.RUNGS[:i]) for i in range(n_rungs - 1, -1, -1)])
+    if walk != expect:
+        raise AssertionError(f"squeeze: ladder walked {walk}, not {expect}")
+    summary = gov.summary()
+    if (summary["rung_downs"] != {r: 1 for r in hbm.RUNGS}
+            or summary["rung_ups"] != {r: 1 for r in hbm.RUNGS}):
+        raise AssertionError(f"squeeze: counters {summary}")
+    if piggy_refused() or not engine._piggyback_fits(len(cells), 1024):
+        raise AssertionError("squeeze: piggyback chains not restored")
+    stats = dict(dispatches=len(rows), seconds=dt, walk=walk, rows=rows,
+                 governor=summary, routes_restored=True,
+                 rows_bitwise=True)
+    log(json.dumps({"phase": "fleet_squeeze", **stats}))
+    GOVERNOR_ENGAGED.clear()
     return stats
 
 
@@ -5121,6 +5501,7 @@ def main() -> int:
 
     card = card_line()
     log("card:", card, "| torch", torch.__version__, "cuda", torch.version.cuda)
+    watch_governors()
 
     # Phase 1: build.
     t0 = time.perf_counter()
@@ -5308,29 +5689,35 @@ def main() -> int:
     for name, n in t5_small["decoder_capture"]["launches"].items():
         launches[name] += n
     profile_scoring(engine, rt)
+    governor_check("bf16_slice", engine)
     elapsed("bf16_slice")
     # The sampling phase on the resident bf16 tree.
     sampling = run_sampling_phase(engine, small)
     for name, n in sampling["launches"].items():
         launches[name] += n
+    governor_check("sampling", engine)
     elapsed("sampling")
     # The sweep phase: the three grids through run_perturbation_sweep.
     with tempfile.TemporaryDirectory() as tmp:
         sweeps = {"bf16": run_sweep_phase("bf16", engine, rt, grids,
                                           Path(tmp),
                                           trace_and_resume=True)}
+        governor_check("bf16_sweep", engine)
         elapsed("bf16_sweep")
         # The prefix-cache phase, its rows held to the cache-off sweep's.
         prefix = run_prefix_cache_phase(
             engine, rt, grids, Path(tmp),
             sweeps["bf16"]["flat"]["max_memory_allocated_bytes"])
+        governor_check("prefix_cache", engine)
         elapsed("prefix_cache")
         # Piggyback chains, then the int8 KV cache on the same weights.
         chain = run_chain_phase(engine, rt, Path(tmp))
+        governor_check("chain", engine)
         elapsed("chain")
         kv8 = run_kv_int8_phase(
             engine, rt, grids, Path(tmp),
             sweeps["bf16"]["flat"]["max_memory_allocated_bytes"])
+        governor_check("kv_int8", engine)
         elapsed("kv_int8")
     for st in (chain["on"], kv8["chain"], kv8["flat"]):
         for name, n in st["launches"].items():
@@ -5339,15 +5726,45 @@ def main() -> int:
     loader_stats = run_loader_phase(params, cfg)
     for name, n in loader_stats["launches"].items():
         launches[name] += n
+    governor_check("loader_phase", engine)
     elapsed("loader_phase")
+    # The fleet phase's parts (c) and (d) on phase 3's engine ((a) and (b)
+    # ran inside the loader phase, on its checkpoints).
+    fleet = loader_stats["fleet"]
+    fleet["drafts"] = fleet_drafts(engine, cells_flat, rt)
+    for st in fleet["drafts"].values():
+        for name, n in st["launches"].items():
+            launches[name] += n
+    governor_check("fleet_drafts", engine)
+    fleet["squeeze"] = squeeze_walk(engine, cells_flat, rt)
+    log(json.dumps({"phase": "fleet", "card": card, **{
+        f"sweep_{mode}": {k: st[k] for k in ("seconds", "rows_per_s",
+                                             "max_memory_allocated_bytes")}
+        | {k: st["fleet"][k] for k in ("swap_s_hidden", "swap_s_exposed",
+                                        "loads", "prefetch_hits",
+                                        "evictions")}
+        for mode, st in fleet["sweeps"].items() if mode != "standalone"},
+        "standalone": fleet["sweeps"]["standalone"],
+        "staging_gb_per_s": fleet["staging"]["gb_per_s"],
+        "drafts": {d: {"ms_per_dispatch": st["ms_per_dispatch"],
+                       "draft_fleet": st["spec_stats"].get("draft_fleet", 0),
+                       "accepted_fleet": st["spec_stats"].get(
+                           "accepted_fleet", 0),
+                       "flash_decode": st["launches"]["flash_decode"],
+                       "flash_decode_mq": st["launches"]["flash_decode_mq"]}
+                   for d, st in fleet["drafts"].items()},
+        "squeeze_walk": fleet["squeeze"]["walk"]}))
+    elapsed("fleet")
     survey["loader"] = loader_stats["survey"]
     survey["stream_accum"] = {name: sweeps["bf16"][name]["stream"][
         "survey_estimates"] for name in grids}
     log(json.dumps({"phase": "survey", **survey}))
     stats8, bytes8, peak8, sweeps["int8"] = run_int8_slice(
         cfg, tokenizer, cells_trunk, cells_flat, rt, grids)
+    governor_check("int8_slice_and_sweep", engine)
     elapsed("int8_slice_and_sweep")
     run_t5_phase()
+    governor_check("t5", engine)
     elapsed("t5")
     prefix["int8_trunk"] = sweeps["int8"].pop("prefix_cache_trunk")
     prefix_launches = [st["launches"] for name in grids

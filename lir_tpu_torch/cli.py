@@ -10,10 +10,12 @@
 Port of the ``sweep``, ``perturb``, ``analyze``, ``survey``, ``repro``
 and ``rephrase`` commands of ``lir_tpu/cli.py``.
 Each flag lands in the same ``RuntimeConfig`` / ``SpecConfig`` /
-``CascadeConfig`` field as there (``--kv-cache-int8`` in
-``models.factory.load_engine(kv_cache_int8=)``). A flag of a feature the
-port does not have yet (meshes, the parameter cache, leased shards, the
-fleet, the watchdog, tracing) is not defined, so argparse rejects it. ``--device`` (default ``cuda``) says where the models and the
+``CascadeConfig`` / ``GovernorConfig`` field as there (``--kv-cache-int8``
+in ``models.factory.load_engine(kv_cache_int8=)``; ``--weight-cache-gb``
+and ``--no-weight-prefetch`` in ``run_model_comparison_sweep``). A flag
+of a feature the port does not have yet (meshes, the parameter cache,
+leased shards, serving's fleet, the watchdog, tracing) is not defined,
+so argparse rejects it. ``--device`` (default ``cuda``) says where the models and the
 statistics run; the CPU must be asked for. Where matplotlib is absent,
 ``analyze``, ``survey`` and ``repro`` log that figures were skipped and
 write everything else; ``repro --no-figures`` also reaches the survey
@@ -70,6 +72,65 @@ def _add_sweep(sub) -> None:
     p.add_argument("--sweep-kind", choices=["base_vs_instruct", "instruct_only"],
                    default="base_vs_instruct")
     _add_common(p)
+    _add_fleet_flags(p)
+
+
+def _add_fleet_flags(p) -> None:
+    """The fleet's knobs (config.FleetConfig; engine/fleet.py over
+    models/weights.py)."""
+    p.add_argument("--weight-cache-gb", type=float, default=None,
+                   help="device budget for co-resident model weights in the "
+                        "fleet's LRU weight cache (default 0 = unbounded; "
+                        "it must hold the largest model)")
+    p.add_argument("--no-weight-prefetch", action="store_true",
+                   help="disable async weight streaming: every model swap "
+                        "then loads inline, after the previous model's "
+                        "dispatches (measurement baseline)")
+
+
+def _add_governor_flags(p) -> None:
+    """The device-memory governor's knobs (config.GovernorConfig;
+    engine/hbm.py)."""
+    p.add_argument("--no-hbm-governor", action="store_true",
+                   help="disable the device-memory governor: no ladder "
+                        "walks, whatever the pressure")
+    p.add_argument("--hbm-budget-gb", type=float, default=None,
+                   help="governed budget in GiB (default 0: the card's "
+                        "memory less the reserve; on the CPU 0 means "
+                        "unbounded and the ladder never engages)")
+    p.add_argument("--hbm-reserve-frac", type=float, default=None,
+                   help="fraction of the card's memory held back from a "
+                        "derived budget (default 0.08)")
+    p.add_argument("--hbm-engage-pressure", type=float, default=None,
+                   help="ledger/budget pressure at which the ladder "
+                        "engages its next rung (default 0.9)")
+    p.add_argument("--hbm-hysteresis", type=float, default=None,
+                   help="release band below the engage pressure (default "
+                        "0.15): rungs re-arm below engage - hysteresis")
+    p.add_argument("--hbm-sustain-ticks", type=int, default=None,
+                   help="consecutive over-pressure dispatch ticks before a "
+                        "rung engages (default 2)")
+    p.add_argument("--hbm-evict-pages", type=int, default=None,
+                   help="radix pages evicted per evict_pages rung "
+                        "engagement (default 32)")
+
+
+def _governor_cfg(args):
+    """GovernorConfig from the flags (an unset flag keeps the default)."""
+    from .config import GovernorConfig
+
+    kw = {}
+    if getattr(args, "no_hbm_governor", False):
+        kw["enabled"] = False
+    for flag, field in (("hbm_budget_gb", "hbm_budget_gb"),
+                        ("hbm_reserve_frac", "hbm_reserve_frac"),
+                        ("hbm_engage_pressure", "engage_pressure"),
+                        ("hbm_hysteresis", "hysteresis"),
+                        ("hbm_sustain_ticks", "sustain_ticks"),
+                        ("hbm_evict_pages", "evict_pages_per_step")):
+        if getattr(args, flag, None) is not None:
+            kw[field] = getattr(args, flag)
+    return GovernorConfig(**kw)
 
 
 def _add_rephrase(sub) -> None:
@@ -142,6 +203,11 @@ def _add_perturb(sub) -> None:
                    help="disable speculative scoring decode")
     p.add_argument("--spec-k", type=_positive_int, default=None,
                    help="speculative verify window (default 4, < 2 disables)")
+    p.add_argument("--spec-draft-model", type=str, default=None,
+                   help="fleet model id that drafts for the scored model "
+                        "(same tokenizer required; acquired through the "
+                        "weight cache). Empty = self-drafting (radix tree "
+                        "+ n-gram lookup)")
     p.add_argument("--spec-ngram", type=_positive_int, default=None,
                    help="n-gram match length of the prompt-lookup drafter "
                         "(default 2)")
@@ -197,6 +263,7 @@ def _add_perturb(sub) -> None:
                         "(NaN/Inf/out-of-range rows are then written "
                         "verbatim instead of quarantined as error:numerics "
                         "— measurement only)")
+    _add_governor_flags(p)
 
 
 def _add_analyze(sub) -> None:
@@ -296,6 +363,8 @@ def _perturb_configs(args):
             rt_kw[field] = False
     if args.prefix_cache:
         rt_kw["prefix_cache"] = True
+    if args.spec_draft_model is not None:
+        rt_kw["spec_draft_model"] = args.spec_draft_model
     spec_kw = {}
     if args.spec_ngram is not None:
         spec_kw["ngram"] = args.spec_ngram
@@ -334,8 +403,12 @@ def cmd_sweep(args) -> None:
         args.checkpoints, RuntimeConfig(batch_size=args.batch_size),
         quantize_int8=args.int8, int8_dynamic=args.int8_dynamic,
         device=args.device, kv_cache_int8=args.kv_cache_int8)
-    run_model_comparison_sweep(_parse_models(args.models), factory, args.out,
-                               sweep_kind=args.sweep_kind)
+    run_model_comparison_sweep(
+        _parse_models(args.models), factory, args.out,
+        sweep_kind=args.sweep_kind,
+        weight_prefetch=not args.no_weight_prefetch,
+        weight_cache_bytes=(int(args.weight_cache_gb * 2**30)
+                            if args.weight_cache_gb else None))
 
 
 def cmd_perturb(args) -> None:
@@ -349,14 +422,55 @@ def cmd_perturb(args) -> None:
         args.checkpoints, rt, quantize_int8=args.int8,
         int8_dynamic=args.int8_dynamic, spec_config=spec_cfg,
         cascade_config=cascade_cfg, device=args.device,
-        kv_cache_int8=args.kv_cache_int8)
+        kv_cache_int8=args.kv_cache_int8,
+        governor_config=_governor_cfg(args))
     entries = load_or_generate_perturbations(args.perturbations, LEGAL_PROMPTS)
     perturbations = [rephrasings for _, rephrasings in entries]
     engine = factory(args.model)
-    rows = run_perturbation_sweep(engine, args.model, LEGAL_PROMPTS,
-                                  perturbations, args.out,
-                                  subset_size=args.subset_size)
+    if not rt.spec_draft_model:
+        rows = run_perturbation_sweep(engine, args.model, LEGAL_PROMPTS,
+                                      perturbations, args.out,
+                                      subset_size=args.subset_size)
+    else:
+        fleet, engine, draft_id = _fleet_draft(factory, args.model, engine)
+        try:
+            rows = run_perturbation_sweep(engine, args.model, LEGAL_PROMPTS,
+                                          perturbations, args.out,
+                                          subset_size=args.subset_size)
+        finally:
+            fleet.release_spec_draft(engine, draft_id)
+            fleet.release(args.model)
+            fleet.shutdown()
     log.info("perturbation sweep wrote %d rows", len(rows))
+
+
+def _fleet_draft(factory, model_id: str, engine):
+    """``--spec-draft-model``: the scored model and its draft model in
+    one fleet that shares the engine's governor (weights, pages and the
+    draft's pin in one ledger), the draft armed through
+    ``ModelFleet.acquire_spec_draft`` with both models' weights held for
+    the sweep. Returns (fleet, engine, draft id); exits 2 where the
+    draft could not draft."""
+    from .engine.fleet import ModelFleet
+
+    draft = engine.rt.spec_draft_model
+    if draft == model_id or not engine.spec_supported():
+        log.error("perturb: --spec-draft-model needs speculative decode "
+                  "on a decoder model and a draft model other than "
+                  "--model")
+        sys.exit(2)
+    fleet = ModelFleet.from_engines([(model_id, engine)], prefetch=False,
+                                    stage_reloads=False)
+    fleet.attach_governor(engine.governor)
+    fleet.add_model(draft, make_engine=factory)
+    engine = fleet.acquire(model_id)
+    try:
+        draft_id = fleet.acquire_spec_draft(engine, model_id)
+    except BaseException:
+        fleet.release(model_id)
+        fleet.shutdown()
+        raise
+    return fleet, engine, draft_id
 
 
 def cmd_rephrase(args) -> None:

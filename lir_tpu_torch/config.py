@@ -1,11 +1,11 @@
 """Runtime configuration of the PyTorch scoring engine.
 
 A copy of the part of the JAX package's ``RuntimeConfig``,
-``SpecConfig``, ``CascadeConfig`` and ``PerturbationConfig`` that this
-port implements. A flag
-of the JAX engine that the port does not implement yet (fleet drafting,
-the memory governor, the watchdog, leased shards, the XLA compile plan)
-is absent here, so that no caller can set it and have it ignored. int8
+``SpecConfig``, ``CascadeConfig``, ``GovernorConfig``, ``FleetConfig``
+and ``PerturbationConfig`` that this port implements. A flag
+of the JAX engine that the port does not implement yet (the watchdog,
+leased shards, the XLA compile plan) is absent here, so that no caller
+can set it and have it ignored. int8
 weights are not a flag: they are a param tree of
 ``models.quant.QuantTensor`` leaves (``quantize_decoder_params`` or
 ``init_quantized_params``); the int8 KV cache is
@@ -16,6 +16,7 @@ kv_cache_int8=True)``), as in the JAX package.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +71,11 @@ class RuntimeConfig:
     # Verify window: tokens checked per verify forward (1 emission + up
     # to spec_k-1 accepted drafts). < 2 disables speculation.
     spec_k: int = 4
+    # Fleet model id that drafts for this engine (engine/fleet.py
+    # acquires its weights through the WeightCache, refcounted for the
+    # dispatch stream, so drafting never evicts the verifier). Empty =
+    # self-drafting (tree + n-gram lookup).
+    spec_draft_model: str = ""
 
     # Cross-request radix prefix cache over the paged KV allocator
     # (models/paged.py + engine/prefix_tree.py). ON: the engine keeps a
@@ -183,6 +189,72 @@ class CascadeConfig:
     # dynamic rule, s8 x s8 -> s32, softmax and PV in float32. Scores
     # are tolerance-bound; off keeps float32 scores.
     int8_qk: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class GovernorConfig:
+    """Device-memory governor knobs (engine/hbm.py).
+
+    Every device-memory consumer (weight cache, KV page pool, the parked
+    chain carry, spec-draft pins) registers projected bytes into ONE
+    ledger; sustained pressure against the budget walks a reversible
+    degradation ladder (evict idle weights -> evict cold radix pages ->
+    disable piggyback chaining -> disable spec drafting -> step the
+    batch ladder down -> shed), each rung re-arming with hysteresis once
+    pressure clears.
+    """
+
+    # Master switch: off leaves every consumer self-governed.
+    enabled: bool = True                 # cli: --no-hbm-governor
+    # Governed budget in GiB. 0 derives it from the card's memory
+    # (torch.cuda.mem_get_info total, `hbm_reserve_frac` held back); on
+    # the CPU 0 means unbounded: the ladder never engages.
+    hbm_budget_gb: float = 0.0           # cli: --hbm-budget-gb
+    # Fraction of the card's memory held back from a derived budget
+    # (the allocator's reserve, fragmentation slack).
+    hbm_reserve_frac: float = 0.08       # cli: --hbm-reserve-frac
+    # Ledger pressure (ledger_bytes / budget) at which the ladder engages
+    # its next rung, and the band below it at which the most recent rung
+    # re-arms: walk down above 0.9, back up below 0.75.
+    engage_pressure: float = 0.9         # cli: --hbm-engage-pressure
+    hysteresis: float = 0.15             # cli: --hbm-hysteresis
+    # Consecutive over-pressure ticks (one a dispatch) before a rung
+    # engages; the same count of under-pressure ticks releases one.
+    sustain_ticks: int = 2               # cli: --hbm-sustain-ticks
+    # Radix pages evicted per evict_pages rung engagement.
+    evict_pages_per_step: int = 32       # cli: --hbm-evict-pages
+
+    @property
+    def budget_bytes(self) -> Optional[int]:
+        return (int(self.hbm_budget_gb * 2**30)
+                if self.hbm_budget_gb > 0 else None)
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetConfig:
+    """Multi-model fleet knobs (engine/fleet.py over models/weights.py).
+
+    - ``fleet_models``: the model ids a fleet serves (serving's flag,
+      not ported yet).
+    - ``weight_cache_gb``: device budget for co-resident model weights;
+      0 = unbounded. When a model would not fit, the LRU model with no
+      in-flight dispatch is evicted; a budget smaller than the largest
+      model is a loud error.
+    - ``weight_prefetch``: stream the next model's weights on a
+      background worker while the current model scores
+      (``--no-weight-prefetch`` serializes every swap).
+    - ``fleet_deadline_s``: default deadline of a serving fan-out.
+    """
+
+    fleet_models: Tuple[str, ...] = ()
+    weight_cache_gb: float = 0.0
+    weight_prefetch: bool = True
+    fleet_deadline_s: float = 60.0
+
+    @property
+    def weight_cache_bytes(self) -> Optional[int]:
+        return (int(self.weight_cache_gb * 2**30)
+                if self.weight_cache_gb > 0 else None)
 
 
 @dataclasses.dataclass(frozen=True)

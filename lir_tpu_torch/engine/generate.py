@@ -643,7 +643,7 @@ class SpecOut:
     ``drafted``/``accepted`` are (3,) int32 token counts by draft source,
     the JAX package's lanes: 0 = radix-tree continuation (the given
     drafts), 1 = n-gram prompt lookup (including the zero filler), 2 =
-    fleet draft model (not ported). ``chunks`` counts the verify
+    fleet draft model. ``chunks`` counts the verify
     forwards run; ``seq_steps`` the forwards the sequential loop would
     have run on the same rows (its all-done early exit included)."""
 
@@ -662,7 +662,8 @@ def _spec_tail(params, cfg: ModelConfig, logits0: torch.Tensor, cache,
                draft_tokens: torch.Tensor, draft_len: torch.Tensor,
                stop_mask: Optional[torch.Tensor] = None,
                eos_id: Optional[int] = None, ngram: int = 2,
-               decode_trunk: int = 0):
+               decode_trunk: int = 0, draft_params=None, draft_cfg=None,
+               dcache=None):
     """The speculative counterpart of :func:`_fused_tail`: instead of T
     sequential decode steps, run up to T verify WINDOWS of ``spec_k``
     teacher-forced positions each — [pending emission, draft, draft, ...]
@@ -701,13 +702,20 @@ def _spec_tail(params, cfg: ModelConfig, logits0: torch.Tensor, cache,
     cache), else from
     an ``ngram``-gram lookup over ``ctx0`` (each row's compacted prompt,
     right-padded to a width >= prompt + T) extended with the accepted
-    emissions. The JAX package's ``lax.scan`` over the windows is a
-    Python loop; its ``lax.cond`` skip of spent windows is one host test
-    a window that ends the loop (once false it stays false: nothing
-    changes in a skipped window). Returns (FusedDecodeOut, cache,
-    SpecOut)."""
+    emissions. With ``draft_params`` a fleet draft model drafts instead:
+    spec_k sequential ``decoder.decode_step`` calls a window over its own
+    ``dcache`` (written in place), at the window's own slots (each row's
+    next free slot, the verifier's compacted layout) under the
+    verifier's mask, so its cache holds every window token's k/v where
+    the verifier's does; the last step only writes the last draft's k/v.
+    Its tokens count in lane 2 of ``drafted``/``accepted``. The JAX package's ``lax.scan`` over
+    the windows is a Python loop; its ``lax.cond`` skip of spent windows
+    is one host test a window that ends the loop (once false it stays
+    false: nothing changes in a skipped window). Returns (FusedDecodeOut,
+    cache, SpecOut)."""
     assert spec_k >= 2, "speculation needs a draft window of >= 2"
     early = stop_mask is not None and eos_id is not None
+    fleet = draft_params is not None
     T = max_new_tokens
     B = logits0.shape[0]
     W = ctx0.shape[1]
@@ -777,29 +785,51 @@ def _spec_tail(params, cfg: ModelConfig, logits0: torch.Tensor, cache,
         put(ctx, ctx_n.clamp(0, W - 1), e0, live0, W)
         ctx_n = ctx_n + live0.to(i32)
 
-        # -- drafts for window positions 1..spec_k-1: the given draft
-        # where valid, else the tokens that followed the latest earlier
-        # occurrence of the last `ngram` context tokens (e0 included).
-        eq = torch.ones((B, n_pos), dtype=torch.bool, device=dev)
-        for m in range(ngram):
-            pat = ctx_at(ctx_n - ngram + m)
-            eq &= ctx[:, m:m + n_pos] == pat[:, None]
-        ok_pos = ((pidx[None, :] + ngram <= ctx_n[:, None] - 1)
-                  & (ctx_n >= ngram)[:, None])
-        best = torch.where(eq & ok_pos, pidx[None, :], -1).amax(dim=1)
         drafts, src_tree = [], []
-        for j in range(1, spec_k):
-            t_idx = filled + j
-            tval = draft_tokens.gather(
-                1, t_idx.clamp(0, T - 1).long()[:, None])[:, 0]
-            t_ok = t_idx < draft_len
-            ng_idx = best + ngram + (j - 1)
-            ng_ok = (best >= 0) & (ng_idx < ctx_n)
-            d = torch.where(t_ok, tval, torch.where(ng_ok, ctx_at(ng_idx), 0))
-            if early:
-                d = torch.where(done, eos, d)
-            drafts.append(d.to(i32))
-            src_tree.append(t_ok & ~done)
+        if fleet:
+            # -- the fleet draft model: spec_k small steps, token j at
+            # slot base + j, the mask grown one slot a step.
+            dm = cache_mask.clone()
+            d = e0
+            for j in range(spec_k):
+                slot_j = wslots[:, j]
+                dm[rows, slot_j] = 1
+                pos_j = decoder.mask_positions(dm).gather(
+                    1, slot_j[:, None])[:, 0]
+                dl, dcache = decoder.decode_step(draft_params, draft_cfg,
+                                                 dcache, d, pos_j, slot_j,
+                                                 dm)
+                if j < spec_k - 1:
+                    d = torch.argmax(dl, dim=-1).to(i32)
+                    if early:
+                        d = torch.where(done, eos, d)
+                    drafts.append(d)
+                    src_tree.append(torch.zeros_like(done))
+        else:
+            # -- drafts for window positions 1..spec_k-1: the given draft
+            # where valid, else the tokens that followed the latest
+            # earlier occurrence of the last `ngram` context tokens (e0
+            # included).
+            eq = torch.ones((B, n_pos), dtype=torch.bool, device=dev)
+            for m in range(ngram):
+                pat = ctx_at(ctx_n - ngram + m)
+                eq &= ctx[:, m:m + n_pos] == pat[:, None]
+            ok_pos = ((pidx[None, :] + ngram <= ctx_n[:, None] - 1)
+                      & (ctx_n >= ngram)[:, None])
+            best = torch.where(eq & ok_pos, pidx[None, :], -1).amax(dim=1)
+            for j in range(1, spec_k):
+                t_idx = filled + j
+                tval = draft_tokens.gather(
+                    1, t_idx.clamp(0, T - 1).long()[:, None])[:, 0]
+                t_ok = t_idx < draft_len
+                ng_idx = best + ngram + (j - 1)
+                ng_ok = (best >= 0) & (ng_idx < ctx_n)
+                d = torch.where(t_ok, tval,
+                                torch.where(ng_ok, ctx_at(ng_idx), 0))
+                if early:
+                    d = torch.where(done, eos, d)
+                drafts.append(d.to(i32))
+                src_tree.append(t_ok & ~done)
 
         # -- ONE fused verify over [e0, drafts...]
         X = torch.stack([e0] + drafts, dim=1)              # (B, spec_k)
@@ -834,13 +864,18 @@ def _spec_tail(params, cfg: ModelConfig, logits0: torch.Tensor, cache,
                 r_state = torch.where(ok, nr, r_state)
                 e_state = torch.where(ok, ne, e_state)
             counted = can & ~done0
-            tr = src_tree[j - 1]
             zero = torch.zeros((), dtype=torch.int64, device=dev)
-            drafted += torch.stack([(counted & tr).sum(),
-                                    (counted & ~tr).sum(), zero]).to(i32)
-            accepted += torch.stack([(ok & ~done0 & tr).sum(),
-                                     (ok & ~done0 & ~tr).sum(),
-                                     zero]).to(i32)
+            if fleet:
+                drafted += torch.stack([zero, zero, counted.sum()]).to(i32)
+                accepted += torch.stack([zero, zero,
+                                         (ok & ~done0).sum()]).to(i32)
+            else:
+                tr = src_tree[j - 1]
+                drafted += torch.stack([(counted & tr).sum(),
+                                        (counted & ~tr).sum(), zero]).to(i32)
+                accepted += torch.stack([(ok & ~done0 & tr).sum(),
+                                         (ok & ~done0 & ~tr).sum(),
+                                         zero]).to(i32)
             n_new = n_new + ok.to(i32)
             acc = ok
 
@@ -891,10 +926,14 @@ def _shared_spec_branches(params, cfg: ModelConfig, cache, prefix_mask,
                           draft_b_len, T0: int, max_new_a: int,
                           max_new_b: int, spec_k: int, ngram: int, topk: int,
                           stop_mask_a, stop_mask_b, eos_id,
-                          decode_trunk: int = 0):
+                          decode_trunk: int = 0, draft_params=None,
+                          draft_cfg=None, dcache=None):
     """Both format branches of a shared-prefix dispatch through the
     speculative tail; branch B reuses branch A's cache, as the sequential
-    path does (masks keep the branches disjoint).
+    path does (masks keep the branches disjoint). With a fleet draft
+    model (``draft_params``, ``draft_cfg`` and its prefilled ``dcache``)
+    the draft model's cache takes the same suffix extensions and carries
+    from branch A to branch B the same way.
 
     The suffix extension that produces each branch's position-0 logits
     runs over a view of the cache cut to the SEQUENTIAL path's extent
@@ -917,23 +956,35 @@ def _shared_spec_branches(params, cfg: ModelConfig, cache, prefix_mask,
                                       dtype=prefix_mask.dtype, device=dev)],
                          dim=1)
 
-    def branch(cache_in, sfx, sfx_mask, new_tokens, d_ids, d_vals, ctx,
-               ctx_len, dr, dr_len, stop_mask):
-        S2 = sfx.shape[1]
+    def extend_seq_extent(ext_params, ext_cfg, cache_in, sfx, sfx_mask):
         view = decoder.cache_map(lambda c: c[:, :, :T0_seq], cache_in)
-        logits_l, _, _ = decoder.extend(params, cfg, view, sfx, sfx_mask,
+        logits_l, _, _ = decoder.extend(ext_params, ext_cfg, view, sfx,
+                                        sfx_mask,
                                         cache_mask(sfx_mask, T0_seq), S)
-        return _spec_tail(
-            params, cfg, logits_l, cache_in, cache_mask(sfx_mask, T0), S + S2, yes_ids, no_ids, d_ids, d_vals, new_tokens, topk, spec_k,
-            ctx, ctx_len, dr, dr_len, stop_mask=stop_mask, eos_id=eos_id,
-            ngram=ngram, decode_trunk=decode_trunk)
+        return logits_l
 
+    def branch(cache_in, dcache_in, sfx, sfx_mask, new_tokens, d_ids,
+               d_vals, ctx, ctx_len, dr, dr_len, stop_mask):
+        S2 = sfx.shape[1]
+        logits_l = extend_seq_extent(params, cfg, cache_in, sfx, sfx_mask)
+        if dcache_in is not None:
+            extend_seq_extent(draft_params, draft_cfg, dcache_in, sfx,
+                              sfx_mask)
+        return _spec_tail(
+            params, cfg, logits_l, cache_in, cache_mask(sfx_mask, T0),
+            S + S2, yes_ids, no_ids, d_ids, d_vals, new_tokens, topk, spec_k,
+            ctx, ctx_len, dr, dr_len, stop_mask=stop_mask, eos_id=eos_id,
+            ngram=ngram, decode_trunk=decode_trunk,
+            draft_params=draft_params, draft_cfg=draft_cfg, dcache=dcache_in)
+
+    # Both caches are written in place: branch B extends what branch A
+    # left in each.
     out_a, cache_a, spec_a = branch(
-        cache, sfx_a, sfx_a_mask, max_new_a, empty_ids, empty_vals, ctx_a,
-        ctx_a_len, draft_a, draft_a_len, stop_mask_a)
+        cache, dcache, sfx_a, sfx_a_mask, max_new_a, empty_ids, empty_vals,
+        ctx_a, ctx_a_len, draft_a, draft_a_len, stop_mask_a)
     out_b, cache_b, spec_b = branch(
-        cache_a, sfx_b, sfx_b_mask, max_new_b, digit_ids, digit_vals, ctx_b,
-        ctx_b_len, draft_b, draft_b_len, stop_mask_b)
+        cache_a, dcache, sfx_b, sfx_b_mask, max_new_b, digit_ids,
+        digit_vals, ctx_b, ctx_b_len, draft_b, draft_b_len, stop_mask_b)
     return out_a, out_b, spec_a, spec_b, cache_b
 
 
@@ -955,13 +1006,17 @@ def greedy_decode_fused_shared_spec(
         ctx_a_len, draft_a, draft_a_len, ctx_b, ctx_b_len, draft_b,
         draft_b_len, max_new_a: int, max_new_b: int, spec_k: int,
         ngram: int = 2, topk: int = 20, stop_mask_b=None, stop_mask_a=None,
-        eos_id=None, decode_trunk: int = 0, return_cache: bool = False):
+        eos_id=None, decode_trunk: int = 0, return_cache: bool = False,
+        draft_params=None, draft_cfg=None):
     """:func:`greedy_decode_fused_shared` with SPECULATIVE decode tails:
     one shared-prefix prefill, two suffix extensions, then each branch's
     sequential greedy loop is replaced by the draft-and-verify window
     loop (:func:`_spec_tail`). ``ctx_*`` carry each branch's compacted
     prompt tokens for the n-gram drafter, ``draft_*`` given drafts
-    (radix-tree continuations from the engine's prefix cache).
+    (radix-tree continuations from the engine's prefix cache);
+    ``draft_params`` / ``draft_cfg`` arm a fleet draft model instead (its
+    own prefill of the prefix into a cache of the same extent; same
+    vocabulary as the verifier, which the engine checks).
     ``decode_trunk`` > 0 runs every verify window's trunk splits through
     the trunk-aware kernel. Returns (binary out, confidence out, binary
     SpecOut, confidence SpecOut), with the final cache fifth when
@@ -970,12 +1025,17 @@ def greedy_decode_fused_shared_spec(
     T0 = spec_total_len(S, sfx_a.shape[1], sfx_b.shape[1], max_new_a,
                         max_new_b, spec_k)
     _, cache, _ = decoder.prefill(params, cfg, prefix, prefix_mask, T0)
+    dcache = None
+    if draft_params is not None:
+        _, dcache, _ = decoder.prefill(draft_params, draft_cfg, prefix,
+                                       prefix_mask, T0)
     out = _shared_spec_branches(
         params, cfg, cache, prefix_mask, sfx_a, sfx_a_mask, sfx_b,
         sfx_b_mask, yes_ids, no_ids, digit_ids, digit_vals, ctx_a, ctx_a_len,
         draft_a, draft_a_len, ctx_b, ctx_b_len, draft_b, draft_b_len, T0,
         max_new_a, max_new_b, spec_k, ngram, topk, stop_mask_a, stop_mask_b,
-        eos_id, decode_trunk=decode_trunk)
+        eos_id, decode_trunk=decode_trunk, draft_params=draft_params,
+        draft_cfg=draft_cfg, dcache=dcache)
     return out if return_cache else out[:4]
 
 

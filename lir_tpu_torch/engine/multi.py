@@ -1,16 +1,22 @@
 """Multi-model sweep orchestration: the model-comparison sweep (D1/D2).
 
-Port of ``lir_tpu/engine/multi.py`` without its fleet:
+Port of ``lir_tpu/engine/multi.py``:
 
 - the (base, instruct) pair loop of compare_base_vs_instruct.py:386-550
   and the instruct-only loop of compare_instruct_models.py:376-566,
   including the per-model try/except that emits NaN rows instead of
   killing a long sweep (:482-492 / :512-522);
-- one model at a time: load it, score the word-meaning questions,
-  release it (drop the references, ``gc.collect()``,
-  ``torch.cuda.empty_cache()``), the reference's C15 memory management
-  (compare_base_vs_instruct.py:68-88). Weight prefetch and co-resident
-  models wait for the fleet (ROADMAP A7);
+- C15 memory management through the fleet (engine/fleet.py): the sweep
+  acquires each model from a :class:`~lir_tpu_torch.engine.fleet.
+  ModelFleet`, whose worker loads model i+1 while model i scores
+  (``weight_prefetch``), co-resident models stay cached inside
+  ``weight_cache_bytes`` (None = unbounded, except on a card, where the
+  sweep's own fleet drops each model after its rows) and the LRU cache
+  evicts only idle models. A fleet the sweep builds itself stages no host
+  copies (each model is visited once) and gives every model back at
+  the end (``gc.collect()``, ``torch.cuda.empty_cache()``). A model
+  whose ``rt.spec_draft_model`` names another fleet model drafts with
+  it (``ModelFleet.acquire_spec_draft``);
 - C16 session capture: the sweep's log is written next to the CSVs.
 
 Failures are classified as in the JAX package: ``error:model`` (a load
@@ -25,7 +31,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 from pathlib import Path
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -42,6 +48,8 @@ from ..models.quant import QuantTensor
 from ..utils.logging import get_logger, save_captured_output, start_capture
 from ..utils.profiling import (GuardStats, ThroughputMeter,
                                device_memory_stats, scoring_step_flops)
+from . import hbm
+from .fleet import ModelFleet
 from .runner import ScoringEngine
 from .sweep import run_word_meaning_sweep
 
@@ -52,7 +60,7 @@ log = get_logger(__name__)
 MODEL_ERROR = "error:model"
 
 # An engine factory returns a ready ScoringEngine for a model name
-# (models.factory.engine_factory).
+# (models.factory.engine_factory); the fleet owns its weights afterwards.
 EngineFactory = Callable[[str], ScoringEngine]
 
 
@@ -179,13 +187,32 @@ def run_model_comparison_sweep(
     write_base_csv: bool = True,
     write_instruct_csv: bool = True,
     sweep_kind: str = "base_vs_instruct",
+    fleet: Optional[ModelFleet] = None,
+    weight_prefetch: bool = True,
+    weight_cache_bytes: Optional[int] = None,
 ) -> Dict[str, object]:
-    """Sweep every model over the word-meaning questions, one model
-    loaded at a time, producing the D1 and/or D2 CSVs, throughput and
-    guard counters, and ``sweep_session_log.txt`` in ``out_dir``.
+    """Sweep every model over the word-meaning questions, producing the
+    D1 and/or D2 CSVs, throughput and guard counters, and
+    ``sweep_session_log.txt`` in ``out_dir``.
 
-    Returns the JAX function's artifacts without its ``fleet`` entry:
-    ``per_model`` (rows, yes/no found, status per model), ``throughput``,
+    The sweep runs through the fleet (engine/fleet.py): model i+1's
+    weights load in the background while model i scores
+    (``weight_prefetch``), co-resident models stay cached inside
+    ``weight_cache_bytes``, and every model's rows are bitwise a
+    standalone engine's (weights are moved, never transformed). Pass
+    ``fleet`` to reuse its residency and staging across sweeps;
+    otherwise one is built from ``engine_factory`` for this call and
+    emptied at its end.
+
+    ``weight_cache_bytes=None`` is the JAX package's unbounded cache
+    where the device's memory is not governed (the CPU). On a card it
+    would keep every swept model until the card is full, so there the
+    sweep's own fleet drops each model once its rows are in: only the
+    model scoring and the one prefetched are resident, as in the loop
+    before the fleet (one model at a time) plus the prefetch.
+
+    Returns the JAX function's artifacts: ``per_model`` (rows, yes/no
+    found, status per model), ``throughput``, ``fleet`` (FleetStats),
     ``guard`` and the written records under ``model_comparison_csv`` /
     ``instruct_comparison_csv``."""
     out_dir = Path(out_dir)
@@ -196,11 +223,35 @@ def run_model_comparison_sweep(
     all_rows: List[schemas.ScoreRow] = []
     per_model: Dict[str, Dict[str, object]] = {}
 
+    own_fleet = fleet is None
+    if own_fleet:
+        fleet = ModelFleet.from_factory(
+            engine_factory, [], prefetch=weight_prefetch,
+            cache_budget_bytes=weight_cache_bytes,
+            # A comparison sweep visits each model once: a host copy for
+            # reloads that never happen would only take host memory.
+            stage_reloads=False)
+    known = set(fleet.model_ids)
     for spec in specs:
+        if spec.name not in known:
+            fleet.add_model(spec.name, make_engine=engine_factory)
+            known.add(spec.name)
+
+    for i, spec in enumerate(specs):
         log.info("=== %s (%s) ===", spec.name, spec.base_or_instruct)
+        acquired = False
+        draft_id = None
         engine = None
         try:
-            engine = engine_factory(spec.name)
+            engine = fleet.acquire(spec.name)
+            acquired = True
+            # Fleet drafting: a co-resident model drafts for this
+            # verifier, both refcounts held for the model's dispatches.
+            draft_id = fleet.acquire_spec_draft(engine, spec.name)
+            if i + 1 < len(specs):
+                # The prefetch pipeline: the next model loads on the
+                # worker while this one's dispatches run.
+                fleet.prefetch(specs[i + 1].name)
             rows, per_model[spec.name] = _score_model(
                 spec, engine, questions, sweep_kind, meter, guard)
         except Exception as exc:
@@ -210,18 +261,34 @@ def run_model_comparison_sweep(
             per_model[spec.name] = {"rows": len(rows),
                                     "status": f"{MODEL_ERROR}: {exc}"}
         finally:
-            # Drop this model before the next loads (the exception's
-            # traceback holds no frame of it once the except block ends).
+            # Drop this dispatch stream's reference; the LRU cache
+            # decides whether the model stays resident, unless the cache
+            # is unbounded on a governed device.
+            if acquired:
+                fleet.release_spec_draft(engine, draft_id)
+                fleet.release(spec.name)
+                if (own_fleet and weight_cache_bytes is None
+                        and fleet.resident(spec.name)
+                        and hbm.device_budget_bytes(
+                            device=engine.device) is not None):
+                    fleet.cache.drop(spec.name)
             del engine
-            _release()
         all_rows.extend(rows)
         mem = device_memory_stats()
         if mem:
             log.info("device memory: %s", mem)
+    fleet_summary = fleet.stats.summary()
+    if own_fleet:
+        fleet.shutdown()
+        fleet.drop_all()
+        del fleet
+        _release()
 
     artifacts: Dict[str, object] = {"per_model": per_model,
                                     "throughput": meter.summary(),
+                                    "fleet": fleet_summary,
                                     "guard": guard.summary()}
+    log.info("fleet: %s", artifacts["fleet"])
     if write_base_csv:
         # D1 holds every swept model, base and instruct alike.
         artifacts["model_comparison_csv"] = schemas.write_model_comparison_csv(

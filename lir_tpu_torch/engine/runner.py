@@ -50,6 +50,20 @@ Temperature sampling (``sample_completions*``, ``score_prompts_sampled``:
 the rephraser and the sweep's reasoning mode) runs
 ``generate.sample_decode`` on decoder engines, with JAX's threefry keys
 (``engine/prng.py``).
+
+Device memory (engine/hbm.py): every engine holds a governor (its own,
+or one shared through ``governor=``) and registers its params
+(``params:<model>``), its page pool (``kv_pages:<model>``), a fleet
+draft model's pin (``spec_draft:<model>``) and a parked piggyback carry
+(``handoff:<model>``) in its ledger; each dispatch ticks it once
+(``decode_fused_shared``, ``decode_fused_grouped``, each piggyback
+call and drain, each word-meaning batch). Its ``no_piggyback`` rung
+refuses new chains and its ``no_spec`` rung sends speculative
+dispatches down the sequential loop, bitwise the same, each counted
+under ``spec_stats["fallbacks"]``. Fleet drafting
+(:meth:`ScoringEngine.set_spec_draft`, armed by ``engine/fleet.py``)
+drafts with another model's weights on the unpaged speculative route;
+a paged-warm dispatch falls back to the sequential paged route.
 """
 
 from __future__ import annotations
@@ -58,16 +72,17 @@ import collections
 import dataclasses
 import logging
 import threading
+import weakref
 from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..config import CascadeConfig, RuntimeConfig, SpecConfig
+from ..config import CascadeConfig, GovernorConfig, RuntimeConfig, SpecConfig
 from ..device import resolve_device
 from ..models import decoder, paged, quant
 from ..utils.profiling import GuardStats, KernelStats, PrefixCacheStats
-from . import (generate, prefix_tree, prng, score, spec as spec_mod,
+from . import (generate, hbm, prefix_tree, prng, score, spec as spec_mod,
                tokens as tok)
 
 log = logging.getLogger(__name__)
@@ -155,13 +170,19 @@ class ScoringEngine:
     (models/encdec.py) and scores through the capture path
     (:meth:`decode_prompts`, ``generate.t5_greedy_decode``); the shared,
     grouped and fused dispatches, the prefix cache, the cascade and
-    speculative decode are decoder-only, as in the JAX engine."""
+    speculative decode are decoder-only, as in the JAX engine.
+
+    ``governor`` shares a device-memory governor (engine/hbm.py) between
+    engines; else the engine builds its own from ``governor_config``
+    (its budget from the card's memory; unbounded on the CPU)."""
 
     def __init__(self, params: Any, cfg: Any, tokenizer: Any,
                  runtime: Optional[RuntimeConfig] = None,
                  cascade_config: Optional[CascadeConfig] = None,
                  spec_config: Optional[SpecConfig] = None,
-                 device="cuda", encoder_decoder: bool = False):
+                 device="cuda", encoder_decoder: bool = False,
+                 governor: Optional[hbm.HbmGovernor] = None,
+                 governor_config: Optional[GovernorConfig] = None):
         self.device = resolve_device(device)
         self.encoder_decoder = bool(encoder_decoder)
         first = params["shared_embed" if encoder_decoder else "tok_embed"]
@@ -190,6 +211,8 @@ class ScoringEngine:
         # pending SpecOuts by spec_flush).
         self.spec_stats = collections.Counter()
         self._spec_pending: List[Tuple[Any, Any]] = []
+        # A fleet draft model armed by set_spec_draft: (params, cfg, name).
+        self._spec_draft: Optional[Tuple[Any, Any, str]] = None
         # The cross-request radix prefix cache (models/paged.py +
         # engine/prefix_tree.py), built by enable_prefix_cache() when
         # RuntimeConfig.prefix_cache is set; its counters, and the
@@ -237,8 +260,64 @@ class ScoringEngine:
         self._digit_table: Optional[Tuple[np.ndarray, np.ndarray]] = None
         self._digit_stop_mask: Any = False  # False = not resolved yet
         self._eos_stop_mask: Optional[torch.Tensor] = None
+        # The device-memory governor, built BEFORE the prefix cache so
+        # the pool's reservation lands in its ledger. Ledger keys carry
+        # the model's name, so engines sharing a governor never collide.
+        self.governor: hbm.HbmGovernor = (
+            governor if governor is not None
+            else hbm.HbmGovernor(governor_config, device=self.device))
+        name = getattr(cfg, "name", "model")
+        self._ledger_key = f"params:{name}"
+        self._handoff_key = f"handoff:{name}"
+        self.governor.register(self._ledger_key, quant.param_bytes(params))
+        # The no_piggyback rung has no action here: the JAX engine gives
+        # back its donation chain's scratch cache there, and the port
+        # keeps none (its one cache between engine calls is a parked
+        # chain's carry, whose decode is still owed); the rung's effect
+        # is that no new chain opens. The evict_pages action holds the
+        # engine weakly: no cycle through the governor, so a dropped
+        # engine frees its tensors at once, not at the next gc pass.
+        engine_ref = weakref.ref(self)
+
+        def evict_pages() -> bool:
+            engine = engine_ref()
+            return engine is not None and engine._evict_cold_pages()
+
+        self.governor.set_action("evict_pages", engage=evict_pages)
         if self.rt.prefix_cache:
             self.enable_prefix_cache()
+
+    # -- device-memory governor (engine/hbm.py) ------------------------------
+
+    def _tick(self) -> None:
+        """One dispatch boundary: the governor's ladder tick."""
+        self.governor.tick()
+
+    def fresh_handoff(self) -> None:
+        """Drop the ledger's parked-carry entry (the fleet calls this when
+        it evicts the engine's weights; no chain is parked then)."""
+        self.governor.unregister(self._handoff_key)
+
+    def release_params_ledger(self) -> None:
+        """The fleet's weight cache now owns this engine's param bytes:
+        drop the engine's ``params:`` entry, so a shared governor never
+        counts them twice (engine/fleet.py calls this)."""
+        self.governor.unregister(self._ledger_key)
+
+    def _evict_cold_pages(self) -> bool:
+        """The evict_pages rung: drop the coldest radix pages (the pool's
+        refcounts keep in-flight pages). True when a page was freed."""
+        if self.prefix_cache is None:
+            return False
+        return self.prefix_cache.evict(
+            self.governor.cfg.evict_pages_per_step) > 0
+
+    def _note_handoff(self, carry) -> None:
+        """Ledger a parked chain's carry (its cache's bytes, from the
+        tensors' sizes: no device sync)."""
+        self.governor.register(self._handoff_key, sum(
+            t.numel() * t.element_size()
+            for t in decoder.cache_leaves(carry.cache)))
 
     # -- kernel gates -------------------------------------------------------
 
@@ -298,6 +377,28 @@ class ScoringEngine:
         return (self.rt.spec_decode and self.rt.spec_k >= 2
                 and not self.encoder_decoder)
 
+    def set_spec_draft(self, params: Any, cfg: Any, name: str = "") -> None:
+        """Arm fleet-model drafting: another model's (params, cfg) draft
+        for this engine's verifier. The caller owns the weights' lifetime
+        (engine/fleet.py holds a weight-cache reference for the dispatch
+        stream). Draft and verifier must share a tokenizer; the vocab
+        sizes are checked here."""
+        if cfg.vocab_size != self.cfg.vocab_size:
+            raise ValueError(
+                f"spec draft model {name or cfg.name!r} vocab "
+                f"{cfg.vocab_size} != verifier vocab "
+                f"{self.cfg.vocab_size} — draft and verifier must share "
+                f"a tokenizer")
+        self._spec_draft = (params, cfg, name)
+        self.governor.register(f"spec_draft:{name or cfg.name}",
+                               quant.param_bytes(params))
+
+    def clear_spec_draft(self) -> None:
+        if self._spec_draft is not None:
+            _, dcfg, dname = self._spec_draft
+            self.governor.unregister(f"spec_draft:{dname or dcfg.name}")
+        self._spec_draft = None
+
     def spec_flush(self) -> None:
         """Fold the pending device-side SpecOut counters into spec_stats
         (one copy to the host for all of them; spec.flush_pending)."""
@@ -333,6 +434,10 @@ class ScoringEngine:
             device=self.device))
         self.prefix_cache = prefix_tree.RadixPrefixCache(
             pool, stats=self.prefix_stats)
+        # The pool is allocated at full size up front: the ledger carries
+        # the whole reservation, not its occupancy.
+        self.governor.register(
+            f"kv_pages:{getattr(self.cfg, 'name', 'model')}", pool.nbytes)
 
     def _plan_prefix_resume(self, bucket: int,
                             prefix_ids: List[Sequence[int]],
@@ -537,18 +642,25 @@ class ScoringEngine:
             stop_mask=stop_mask,
             eos_id=None if stop_mask is None else int(self.eos_id))
 
-    def decode_fused_shared(self, binary_prompts: Sequence[str],
-                            confidence_prompts: Sequence[str],
-                            yes_ids: np.ndarray, no_ids: np.ndarray,
-                            new_tokens: int, conf_tokens: int,
-                            early_stop: bool = False,
-                            pretokenized_a: Optional[Sequence[Sequence[int]]] = None,
-                            pretokenized_b: Optional[Sequence[Sequence[int]]] = None,
-                            bucket: Optional[int] = None,
-                            sfx_buckets_ab: Optional[Tuple[int, int]] = None,
-                            reuse_cache: bool = False,
-                            n_real: Optional[int] = None,
-                            use_prefix_cache: Optional[bool] = None):
+    def decode_fused_shared(self, *args, **kwargs):
+        """Score BOTH sweep formats with ONE shared-prefix prefill
+        (:meth:`_decode_fused_shared`), then tick the governor once."""
+        out = self._decode_fused_shared(*args, **kwargs)
+        self._tick()
+        return out
+
+    def _decode_fused_shared(self, binary_prompts: Sequence[str],
+                             confidence_prompts: Sequence[str],
+                             yes_ids: np.ndarray, no_ids: np.ndarray,
+                             new_tokens: int, conf_tokens: int,
+                             early_stop: bool = False,
+                             pretokenized_a: Optional[Sequence[Sequence[int]]] = None,
+                             pretokenized_b: Optional[Sequence[Sequence[int]]] = None,
+                             bucket: Optional[int] = None,
+                             sfx_buckets_ab: Optional[Tuple[int, int]] = None,
+                             reuse_cache: bool = False,
+                             n_real: Optional[int] = None,
+                             use_prefix_cache: Optional[bool] = None):
         """Score BOTH sweep formats with ONE shared-prefix prefill.
 
         Each row's binary and confidence prompts split at their longest
@@ -651,7 +763,20 @@ class ScoringEngine:
                                          len(bin_ids), use_prefix_cache)
         splan = spec_mod.build_plan(self, bin_ids, conf_ids, bucket, ba, bb,
                                     new_tokens, conf_tokens)
+        if splan is not None and not self.governor.allows("spec"):
+            # The no_spec rung: the sequential loop is bitwise the same,
+            # so dropping speculation only gives memory back (the spec
+            # cache runs spec_k slots a window). Re-arms as pressure
+            # clears.
+            splan = None
+            self.spec_stats["fallbacks"] += 1
         warm = plan is not None and plan.window is not None
+        if splan is not None and warm and splan.fleet:
+            # A fleet draft model has no prefix to prefill from on the
+            # paged front (it gathers the verifier's pages): the
+            # sequential paged route instead.
+            splan = None
+            self.spec_stats["fallbacks"] += 1
         try:
             if splan is not None:
                 fused, cfused, cache = self._dispatch_shared_spec(
@@ -702,8 +827,12 @@ class ScoringEngine:
                 self._t(plan.rem), self._t(plan.rem_mask), *args[4:],
                 *spec_args, **kw)
         else:
+            draft_params = draft_cfg = None
+            if splan.fleet:
+                draft_params, draft_cfg, _ = self._spec_draft
             out = generate.greedy_decode_fused_shared_spec(
-                *args, *spec_args, return_cache=plan is not None, **kw)
+                *args, *spec_args, return_cache=plan is not None,
+                draft_params=draft_params, draft_cfg=draft_cfg, **kw)
         fused, cfused, spec_a, spec_b = out[:4]
         self._spec_pending.append((spec_a, spec_b))
         self.spec_stats["spec_dispatches"] += 1
@@ -772,18 +901,29 @@ class ScoringEngine:
                 and "decode_fused_shared" not in self.__dict__)
 
     def _piggyback_fits(self, bsz: int, total_len: int) -> bool:
-        """Memory gate, the JAX engine's rule without its governor (not
-        ported): params + 2.2 caches of the chain's extent within 92 % of
-        the device's memory (``torch.cuda.mem_get_info``). In the JAX
-        engine a chain holds two caches, the parked one and the next;
-        the port's step refills the parked carry's buffers, so it holds
-        one, and the rule is the JAX one kept. The CPU, bounded by host
-        memory, always passes."""
-        if self.device.type != "cuda":
-            return True
+        """Memory gate of a chain, the JAX engine's rule: a chain keeps
+        the parked carry live beside the riding dispatch's cache. With a
+        governed budget it is an admission against the governor's
+        LEDGER (params, pool, pins and the parked carry, under
+        ``handoff:``, are already counted): the riding dispatch's cache,
+        with 20 % slack, must fit the headroom; the no_piggyback rung
+        refuses. Without a budget (the CPU, or the governor off) the
+        card's memory decides: params + 2.2 caches within 92 % of
+        ``torch.cuda.mem_get_info``'s total (the JAX ``bytes_limit``
+        rule); the CPU, bounded by host memory, always passes. (The
+        port's step refills the parked carry's buffers, so it holds one
+        chain cache where the JAX chain holds two; the rule is the JAX
+        one kept.)"""
         itemsize = self.params["tok_embed"].element_size()
         cache_bytes = decoder.kv_cache_bytes(self.cfg, bsz, total_len,
                                              dtype_bytes=itemsize)
+        if not self.governor.allows("piggyback"):
+            return False
+        headroom = self.governor.headroom()
+        if headroom is not None:
+            return 1.2 * cache_bytes < headroom
+        if self.device.type != "cuda":
+            return True
         _, limit = torch.cuda.mem_get_info(self.device)
         return quant.param_bytes(self.params) + 2.2 * cache_bytes \
             < 0.92 * limit
@@ -833,6 +973,12 @@ class ScoringEngine:
             # disjoint branch regions): its learned-position ceiling
             # binds earlier.
             raise PiggybackIneligible("learned-position table overrun")
+        if not self.governor.allows("piggyback"):
+            # The no_piggyback rung: the chain's second live cache is the
+            # cheapest memory to give back; chaining resumes when the
+            # rung re-arms.
+            raise PiggybackIneligible(
+                "memory governor: piggyback disabled under pressure")
         if not self._piggyback_fits(len(bin_ids), total_len):
             raise PiggybackIneligible("no device memory for two caches")
 
@@ -853,6 +999,8 @@ class ScoringEngine:
                                new_tokens=new_tokens,
                                conf_tokens=conf_tokens, armed=armed)
             self.kernel_stats.count("chains_opened")
+            self._note_handoff(carry)
+            self._tick()
             return None
         assert self._piggy["key"] == key, (
             "piggyback chain shape mismatch: drain before switching shapes "
@@ -865,6 +1013,8 @@ class ScoringEngine:
             max_new_b=conf_tokens, **self._piggy_stop_kwargs())
         self._piggy["carry"] = new_carry
         self.kernel_stats.count("piggybacked_steps")
+        self._note_handoff(new_carry)
+        self._tick()
         return out_a, out_b
 
     def _piggy_stop_kwargs(self) -> dict:
@@ -886,12 +1036,15 @@ class ScoringEngine:
         stop_kwargs = self._piggy_stop_kwargs()
         self._piggy = None
         self.kernel_stats.count("chains_drained")
-        return generate.shared_piggyback_drain(
+        out = generate.shared_piggyback_drain(
             self.params, self.cfg, st["carry"], self._t(prev_yes),
             self._t(prev_no), self._t(digit_ids),
             self._t(digit_vals, torch.float32), slot0_a=st["slot0_a"],
             slot0_b=st["slot0_b"], max_new_a=st["new_tokens"],
             max_new_b=st["conf_tokens"], **stop_kwargs)
+        self.fresh_handoff()
+        self._tick()
+        return out
 
     def piggy_abort(self) -> None:
         """Drop the chain after a failed call: the caller re-runs the
@@ -900,13 +1053,21 @@ class ScoringEngine:
         if self._piggy is not None:
             self.kernel_stats.count("chain_fallbacks")
         self._piggy = None
+        self.fresh_handoff()
 
-    def decode_fused_grouped(self, groups, yes_ids: np.ndarray,
-                             no_ids: np.ndarray, new_tokens: int,
-                             conf_tokens: int, early_stop: bool,
-                             bucket: int, sfx_bucket: int,
-                             reuse_cache: bool = False,
-                             use_prefix_cache: Optional[bool] = None):
+    def decode_fused_grouped(self, *args, **kwargs):
+        """Cross-cell prefix reuse (:meth:`_decode_fused_grouped`), then
+        one governor tick."""
+        out = self._decode_fused_grouped(*args, **kwargs)
+        self._tick()
+        return out
+
+    def _decode_fused_grouped(self, groups, yes_ids: np.ndarray,
+                              no_ids: np.ndarray, new_tokens: int,
+                              conf_tokens: int, early_stop: bool,
+                              bucket: int, sfx_bucket: int,
+                              reuse_cache: bool = False,
+                              use_prefix_cache: Optional[bool] = None):
         """Cross-cell prefix reuse: score every member prompt of
         ``groups`` (scheduler.PrefixGroup: ``.items`` with
         ``.bin_ids``/``.conf_ids``, shared ``.plen``) with ONE prefill per
@@ -1147,4 +1308,5 @@ class ScoringEngine:
                 position_found=int(res.position_found[j]),
                 yes_no_found=bool(res.yes_no_found[j]),
             ))
+        self._tick()
         return out

@@ -1,11 +1,13 @@
 """Speculative scoring decode: the host half.
 
-Port of ``lir_tpu/engine/spec.py`` without the fleet draft model and the
-fault hooks (the port has no fleet and no fault plan yet). The device
-half is ``generate.greedy_decode_fused_shared_spec`` (and its paged
-twin): draft up to ``spec_k - 1`` tokens a window, verify the window in
-one multi-query forward, accept greedily, so every emitted token is the
-sequential loop's.
+Port of ``lir_tpu/engine/spec.py`` without the fault hooks (the port has
+no fault plan yet). The device half is
+``generate.greedy_decode_fused_shared_spec`` (and its paged twin): draft
+up to ``spec_k - 1`` tokens a window, verify the window in one
+multi-query forward, accept greedily, so every emitted token is the
+sequential loop's. The drafts come from a fleet draft model when the
+engine has one armed (``ScoringEngine.set_spec_draft``; the plan's
+``fleet`` flag), else from the tree and the n-gram lookup.
 
 This module builds one dispatch's :class:`SpecPlan` — each branch's
 compacted prompt for the in-loop n-gram drafter, and the radix-tree
@@ -48,6 +50,7 @@ class SpecPlan:
     ctx_b_len: np.ndarray
     draft_b: np.ndarray
     draft_b_len: np.ndarray
+    fleet: bool = False
 
     def dyn_args(self) -> Tuple[np.ndarray, ...]:
         """The eight drafting arrays in generate.*_spec argument order."""
@@ -90,9 +93,12 @@ def build_plan(engine, bin_ids: Sequence[Sequence[int]],
                bb: int, new_tokens: int,
                conf_tokens: int) -> Optional[SpecPlan]:
     """One shared dispatch's SpecPlan, or None when speculation is off
-    for this engine (the runner then runs the sequential loop). With the
-    engine's prefix cache built and ``spec_cfg.tree_probe`` on, each
-    branch drafts from the radix tree's token history."""
+    for this engine (the runner then runs the sequential loop). With a
+    fleet draft model armed on the engine the plan's ``fleet`` flag is
+    set and the tree probe is off (the draft model drafts every
+    position); otherwise, with the engine's prefix cache built and
+    ``spec_cfg.tree_probe`` on, each branch drafts from the radix tree's
+    token history."""
     if not engine.spec_supported():
         return None
     spec_cfg = engine.spec_cfg
@@ -104,7 +110,9 @@ def build_plan(engine, bin_ids: Sequence[Sequence[int]],
     dlen_a = np.zeros((B,), np.int32)
     draft_b = np.zeros((B, conf_tokens), np.int32)
     dlen_b = np.zeros((B,), np.int32)
-    if spec_cfg.tree_probe and engine.prefix_cache is not None:
+    fleet = engine._spec_draft is not None
+    if (not fleet and spec_cfg.tree_probe
+            and engine.prefix_cache is not None):
         draft_a, dlen_a, _ = _tree_drafts(engine.prefix_cache, bucket,
                                           bin_ids, new_tokens)
         draft_b, dlen_b, _ = _tree_drafts(engine.prefix_cache, bucket,
@@ -113,7 +121,7 @@ def build_plan(engine, bin_ids: Sequence[Sequence[int]],
                     ctx_a=ctx_a, ctx_a_len=len_a,
                     draft_a=draft_a, draft_a_len=dlen_a,
                     ctx_b=ctx_b, ctx_b_len=len_b,
-                    draft_b=draft_b, draft_b_len=dlen_b)
+                    draft_b=draft_b, draft_b_len=dlen_b, fleet=fleet)
 
 
 def record_tails(engine, bucket: int, prompt_ids: Sequence[Sequence[int]],
@@ -157,5 +165,7 @@ def flush_pending(engine) -> None:
         st["accepted_tree"] += int(acc0)
         st["draft_ngram"] += int(drafted1)
         st["accepted_ngram"] += int(acc1)
+        st["draft_fleet"] += int(drafted2)
+        st["accepted_fleet"] += int(acc2)
         st["decode_forwards"] += int(chunks)
         st["seq_forwards"] += int(seq)

@@ -802,12 +802,16 @@ def decode_step(params: Params, cfg: ModelConfig, cache, token: torch.Tensor,
     """One greedy-decode step.
 
     token: (B,) current input; position: (B,) its mask-aware position;
-    step_index: the cache slot this token's k/v land in; prompt_mask:
+    step_index: the cache slot this token's k/v land in, one for every
+    row, or a (B,) tensor of each row's own slot (a fleet draft model's
+    steps in the speculative loop's compacted windows); prompt_mask:
     (B, T) validity over the FULL cache. ``trunk_len`` marks the cache's
     leading row-identical trunk slots on a shared-trunk dispatch (used
     when ``cfg.cascade_decode``). Returns (logits (B, V) float32, cache).
     """
     B = token.shape[0]
+    if isinstance(step_index, torch.Tensor):
+        step_index = step_index.to(torch.long).reshape(B, 1)
     x = _embed(params, cfg, token[:, None], position[:, None], row_ops=True)
     sin = cos = None
     if cfg.pos_embedding == "rotary":

@@ -172,6 +172,7 @@ def load_engine(
     tokenizer=None,
     device="cuda",
     kv_cache_int8: bool = False,
+    governor_config=None,
 ) -> ScoringEngine:
     """Build a ready ScoringEngine from a local HF checkpoint directory
     on ``device`` (the card unless the CPU is asked for).
@@ -187,7 +188,9 @@ def load_engine(
     (``ModelConfig.kv_cache_int8``); an encoder-decoder keeps no KV cache,
     so there it logs the JAX package's warning and goes on without it.
     ``tokenizer=None`` loads the directory's tokenizer with
-    ``transformers.AutoTokenizer``."""
+    ``transformers.AutoTokenizer``. ``governor_config``
+    (config.GovernorConfig) configures the engine's device-memory
+    governor (engine/hbm.py)."""
     dev = resolve_device(device)
     model_dir = Path(model_dir)
     hf_cfg = json.loads((model_dir / "config.json").read_text())
@@ -224,7 +227,8 @@ def load_engine(
     return ScoringEngine(params, cfg, tokenizer, runtime or RuntimeConfig(),
                          cascade_config=cascade_config,
                          spec_config=spec_config, device=dev,
-                         encoder_decoder=encdec)
+                         encoder_decoder=encdec,
+                         governor_config=governor_config)
 
 
 def engine_factory(
@@ -237,6 +241,7 @@ def engine_factory(
     tokenizer=None,
     device="cuda",
     kv_cache_int8: bool = False,
+    governor_config=None,
 ):
     """EngineFactory for engine.multi: maps an HF repo id to
     ``checkpoint_root/<org>__<name>``, ``checkpoint_root/<name>`` or
@@ -259,7 +264,8 @@ def engine_factory(
                                    spec_config=spec_config,
                                    cascade_config=cascade_config,
                                    tokenizer=tokenizer, device=dev,
-                                   kv_cache_int8=kv_cache_int8)
+                                   kv_cache_int8=kv_cache_int8,
+                                   governor_config=governor_config)
         raise FileNotFoundError(
             f"no local checkpoint for {model_name} under {checkpoint_root} "
             f"(tried {[str(c) for c in candidates]})")

@@ -13,8 +13,13 @@ Copies from the JAX package's ``utils/profiling.py``:
 - ``PrefixCacheStats``: the cross-request prefix cache's counters;
 - ``KernelStats``: the piggyback chain's counters (its ``phases``, which
   only the JAX package's benchmark fills, are left out);
+- ``FleetStats``: the model fleet's swap and weight-cache counters;
+- ``MemStats``: the device-memory governor's ledger gauges and ladder
+  counters;
 - ``device_memory_stats``: per-device memory from
-  ``torch.cuda.memory_stats``.
+  ``torch.cuda.memory_stats``;
+- ``is_oom_error``: the JAX package's out-of-memory test, plus
+  ``torch.cuda.OutOfMemoryError``.
 """
 
 from __future__ import annotations
@@ -415,6 +420,154 @@ class KernelStats:
         if self.counters:
             out["piggyback"] = dict(sorted(self.counters.items()))
         return out
+
+
+@dataclasses.dataclass
+class FleetStats:
+    """Multi-model fleet counters (engine/fleet.py over
+    models/weights.py): how much model-swap latency the async weight
+    streamer hid behind compute, and how hard the LRU weight cache
+    works. Thread-safe: the prefetch worker and the consumer both count.
+
+    - ``swap_s_hidden`` / ``swap_s_exposed``: per-load wall seconds
+      overlapped with the previous model's compute vs waited on by the
+      scoring loop (a load without prefetch is all exposed).
+    - ``loads`` / ``load_s`` / ``weight_bytes_streamed``: loads made,
+      their wall time, bytes shipped through the chunked streamer.
+    - ``prefetch_hits`` / ``prefetch_misses`` / ``cache_hits``: acquires
+      met by a background load, by an inline load, by a resident model.
+    - ``evictions``, ``resident_models`` / ``resident_bytes``: the LRU
+      cache's evictions and occupancy gauges.
+    - ``model_swaps``: acquires that changed the active model;
+      ``fleet_requests`` / ``fleet_rows``: serving's fan-outs (not
+      ported yet).
+    """
+
+    swap_s_hidden: float = 0.0
+    swap_s_exposed: float = 0.0
+    loads: int = 0
+    load_s: float = 0.0
+    weight_bytes_streamed: int = 0
+    prefetch_hits: int = 0
+    prefetch_misses: int = 0
+    cache_hits: int = 0
+    evictions: int = 0
+    resident_models: int = 0
+    resident_bytes: int = 0
+    model_swaps: int = 0
+    fleet_requests: int = 0
+    fleet_rows: int = 0
+
+    def __post_init__(self) -> None:
+        self._lock = threading.Lock()
+
+    def count(self, field: str, n=1) -> None:
+        with self._lock:
+            setattr(self, field, getattr(self, field) + n)
+
+    def gauge(self, field: str, value) -> None:
+        with self._lock:
+            setattr(self, field, value)
+
+    def summary(self) -> Dict[str, object]:
+        with self._lock:
+            total = self.swap_s_hidden + self.swap_s_exposed
+            return {
+                "swap_s_hidden": round(self.swap_s_hidden, 4),
+                "swap_s_exposed": round(self.swap_s_exposed, 4),
+                "swap_hidden_frac": round(self.swap_s_hidden / total, 4)
+                                    if total > 0 else 0.0,
+                "loads": self.loads,
+                "load_s": round(self.load_s, 4),
+                "weight_bytes_streamed": self.weight_bytes_streamed,
+                "prefetch_hits": self.prefetch_hits,
+                "prefetch_misses": self.prefetch_misses,
+                "cache_hits": self.cache_hits,
+                "evictions": self.evictions,
+                "resident_models": self.resident_models,
+                "resident_bytes": self.resident_bytes,
+                "model_swaps": self.model_swaps,
+                "fleet_requests": self.fleet_requests,
+                "fleet_rows": self.fleet_rows,
+            }
+
+
+@dataclasses.dataclass
+class MemStats:
+    """Device-memory governor counters and gauges (engine/hbm.py).
+    Thread-safe.
+
+    - ``ledger_bytes`` / ``budget_bytes`` / ``pressure``: the ledger
+      total, the governed budget (0 = unbounded) and their ratio.
+    - ``rung``: the ladder's engaged depth (0 = fully armed);
+      ``rung_downs`` / ``rung_ups``: engage and release transitions by
+      rung.
+    - ``admits`` / ``denials``: admission checks passed and refused.
+    - ``oom_events`` (by site), ``oom_reclaims``, ``oom_exhausted``:
+      device OOMs routed through the governor, those where the ladder
+      freed something, those where nothing could be freed.
+    - ``squeezes``: budget squeezes; ``sheds``: submits refused by the
+      last rung.
+    """
+
+    ledger_bytes: int = 0
+    budget_bytes: int = 0
+    pressure: float = 0.0
+    rung: int = 0
+    rung_downs: Dict[str, int] = dataclasses.field(default_factory=dict)
+    rung_ups: Dict[str, int] = dataclasses.field(default_factory=dict)
+    admits: int = 0
+    denials: int = 0
+    oom_events: Dict[str, int] = dataclasses.field(default_factory=dict)
+    oom_reclaims: int = 0
+    oom_exhausted: int = 0
+    squeezes: int = 0
+    sheds: int = 0
+
+    def __post_init__(self) -> None:
+        self._lock = threading.Lock()
+
+    def count(self, field: str, n: int = 1) -> None:
+        with self._lock:
+            setattr(self, field, getattr(self, field) + n)
+
+    def gauge(self, field: str, value) -> None:
+        with self._lock:
+            setattr(self, field, value)
+
+    def site(self, field: str, site: str, n: int = 1) -> None:
+        with self._lock:
+            d = getattr(self, field)
+            d[site] = d.get(site, 0) + n
+
+    def summary(self) -> Dict[str, object]:
+        with self._lock:
+            return {
+                "ledger_bytes": self.ledger_bytes,
+                "budget_bytes": self.budget_bytes,
+                "pressure": round(float(self.pressure), 4),
+                "rung": self.rung,
+                "rung_downs": dict(self.rung_downs),
+                "rung_ups": dict(self.rung_ups),
+                "admits": self.admits,
+                "denials": self.denials,
+                "oom_events": dict(self.oom_events),
+                "oom_reclaims": self.oom_reclaims,
+                "oom_exhausted": self.oom_exhausted,
+                "squeezes": self.squeezes,
+                "sheds": self.sheds,
+            }
+
+
+def is_oom_error(err) -> bool:
+    """True when an exception (or its text) is a device out-of-memory:
+    ``torch.cuda.OutOfMemoryError``, or the JAX package's text rules
+    (RESOURCE_EXHAUSTED, or "out of memory" in any case)."""
+    if isinstance(err, torch.cuda.OutOfMemoryError):
+        return True
+    msg = str(err)
+    return ("RESOURCE_EXHAUSTED" in msg
+            or "out of memory" in msg.lower())
 
 
 def device_memory_stats() -> Dict[str, Dict[str, float]]:

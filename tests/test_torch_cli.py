@@ -8,6 +8,10 @@ repro``) on the CPU.
   ``run_perturbation_sweep`` writes when called directly
   (``tests/test_torch_sweep.py`` holds that function against the JAX
   sweep); the port's perturbation cache is the JAX package's file.
+  With ``--spec-draft-model`` a second checkpoint drafts through a fleet
+  (the D6 rows are the self-drafting run's); a draft model that cannot
+  draft (the scored model itself, another vocabulary, speculation off)
+  is refused.
 - Every ported flag lands in the config field the JAX parser fills
   (both parsers run with their engine factories replaced by a recorder).
 - A flag of a feature the port does not have yet is rejected, as are
@@ -88,13 +92,18 @@ def test_sweep_writes_the_library_calls_csvs(ckpt_root, tmp_path):
     assert (tmp_path / "cli" / "sweep_session_log.txt").exists()
 
 
-def test_perturb_writes_the_library_calls_d6(ckpt_root, tmp_path):
+def _perturb_cache(tmp_path):
     entries = [((p.main, p.response_format, tuple(p.target_tokens),
                  p.confidence_format),
                 [f"Rephrasing {j} of prompt {i}: {p.main[:80]}" for j in range(3)])
                for i, p in enumerate(JAX_LEGAL_PROMPTS)]
     cache = tmp_path / "perturbations.json"
     jschemas.save_perturbations(cache, entries)
+    return cache
+
+
+def test_perturb_writes_the_library_calls_d6(ckpt_root, tmp_path):
+    cache = _perturb_cache(tmp_path)
     cli.main(["perturb", "--checkpoints", str(ckpt_root), "--model",
               PERTURB_MODEL, "--perturbations", str(cache), "--out",
               str(tmp_path / "cli.xlsx"), "--subset-size", "6",
@@ -109,6 +118,61 @@ def test_perturb_writes_the_library_calls_d6(ckpt_root, tmp_path):
     cli_recs = schemas.read_results(tmp_path / "cli.csv")
     assert cli_recs == schemas.read_results(tmp_path / "lib.csv")
     assert {r["Model"] for r in cli_recs} == {PERTURB_MODEL}
+
+
+DRAFT_MODEL = "tiny/llama-bpe-draft"
+
+
+def test_perturb_with_a_draft_model_drafts_through_the_fleet(
+        ckpt_root, tmp_path, monkeypatch):
+    """``--spec-draft-model`` arms fleet drafting on the scored engine:
+    a copy of the scored model's checkpoint drafts, and the D6 rows are
+    the self-drafting run's. A perfect drafter's draft is rejected only
+    where a row stops inside a window (the draft model does not apply
+    the stop rule, as in the JAX package): at most once a row."""
+    draft_dir = ckpt_root / DRAFT_MODEL.replace("/", "__")
+    if not draft_dir.exists():
+        draft_dir.symlink_to(ckpt_root / PERTURB_MODEL.replace("/", "__"))
+    cache = _perturb_cache(tmp_path)
+    engines = []
+    real = sweep.run_perturbation_sweep
+
+    def spy(engine, *a, **kw):
+        engines.append((engine, engine._spec_draft is not None))
+        return real(engine, *a, **kw)
+
+    monkeypatch.setattr(sweep, "run_perturbation_sweep", spy)
+    common = ["perturb", "--checkpoints", str(ckpt_root), "--model",
+              PERTURB_MODEL, "--perturbations", str(cache),
+              "--subset-size", "6", "--batch-size", "8", "--device", "cpu"]
+    cli.main(common + ["--out", str(tmp_path / "self.xlsx")])
+    cli.main(common + ["--out", str(tmp_path / "draft.xlsx"),
+                       "--spec-draft-model", DRAFT_MODEL])
+    assert [armed for _, armed in engines] == [False, True]
+    engine = engines[1][0]
+    engine.spec_flush()
+    st = engine.spec_stats
+    assert st["accepted_fleet"] > 0
+    assert 0 <= st["draft_fleet"] - st["accepted_fleet"] <= 6
+    assert st["draft_ngram"] == st["draft_tree"] == 0
+    assert engine._spec_draft is None                     # released
+    assert (schemas.read_results(tmp_path / "draft.csv")
+            == schemas.read_results(tmp_path / "self.csv"))
+
+
+@pytest.mark.parametrize("extra,error", [
+    (["--spec-draft-model", PERTURB_MODEL], SystemExit),
+    (["--spec-draft-model", CHAT], ValueError),
+    (["--spec-draft-model", BASE, "--no-spec-decode"], SystemExit),
+], ids=["itself", "another-vocab", "no-spec-decode"])
+def test_perturb_refuses_a_draft_model_that_cannot_draft(
+        ckpt_root, tmp_path, extra, error):
+    cache = _perturb_cache(tmp_path)
+    with pytest.raises(error):
+        cli.main(["perturb", "--checkpoints", str(ckpt_root), "--model",
+                  PERTURB_MODEL, "--perturbations", str(cache), "--out",
+                  str(tmp_path / "d.xlsx"), "--subset-size", "6",
+                  "--batch-size", "8", "--device", "cpu"] + extra)
 
 
 def test_perturb_without_a_valid_cache_refuses(ckpt_root, tmp_path):
@@ -253,12 +317,75 @@ def test_sweep_flags_land_in_the_jax_fields(monkeypatch, flags):
 UNPORTED = [
     ["--mesh", "1x8"], ["--param-cache", "x"],
     ["--lease-cells", "8"], ["--trace-buffer", "8"], ["--lease-shards"],
-    ["--lease-ttl", "5"], ["--weight-cache-gb", "1"], ["--no-weight-prefetch"],
+    ["--lease-ttl", "5"],
     ["--trace-out", "t.json"], ["--multihost"],
-    ["--spec-draft-model", "x"], ["--watchdog-floor", "5"],
+    ["--watchdog-floor", "5"],
     ["--watchdog-multiple", "2"], ["--dtype", "float32"],
-    ["--no-aot-precompile"], ["--barrier-timeout", "5"], ["--no-hbm-governor"],
+    ["--no-aot-precompile"], ["--barrier-timeout", "5"],
 ]
+
+
+# The fleet's and the memory governor's flags: perturb's land in
+# RuntimeConfig (--spec-draft-model) and GovernorConfig (the --hbm-*
+# flags), sweep's in run_model_comparison_sweep's weight_prefetch and
+# weight_cache_bytes (FleetConfig's fields).
+MEMORY_FLAGS = [
+    ("perturb", []), ("perturb", ["--spec-draft-model", "drafty"]),
+    ("perturb", ["--no-hbm-governor"]), ("perturb", ["--hbm-budget-gb", "12"]),
+    ("perturb", ["--hbm-reserve-frac", "0.1"]),
+    ("perturb", ["--hbm-engage-pressure", "0.8"]),
+    ("perturb", ["--hbm-hysteresis", "0.2"]),
+    ("perturb", ["--hbm-sustain-ticks", "3"]),
+    ("perturb", ["--hbm-evict-pages", "8"]),
+    ("sweep", []), ("sweep", ["--weight-cache-gb", "1.5"]),
+    ("sweep", ["--no-weight-prefetch"]),
+    ("sweep", ["--weight-cache-gb", "0.25", "--no-weight-prefetch"]),
+]
+
+
+@pytest.mark.parametrize("command,flags", MEMORY_FLAGS,
+                         ids=lambda f: " ".join(f) if isinstance(f, list)
+                         else f)
+def test_memory_flags_land_in_the_jax_fields(monkeypatch, command, flags):
+    from lir_tpu.config import GovernorConfig as JaxGovernorConfig
+    from lir_tpu_torch.config import FleetConfig, GovernorConfig
+
+    gov_names = [f.name for f in dataclasses.fields(GovernorConfig)]
+    assert gov_names == [f.name for f in
+                         dataclasses.fields(JaxGovernorConfig)]
+    if command == "perturb":
+        port = _capture(monkeypatch, "lir_tpu_torch", _PERTURB + flags)
+        ref = _capture(monkeypatch, "lir_tpu", _PERTURB + flags)
+        rt_names = [f.name for f in dataclasses.fields(RuntimeConfig)]
+        assert "spec_draft_model" in rt_names
+        assert _fields(port["rt"], rt_names) == _fields(ref["rt"], rt_names)
+        pg, rg = port["kw"]["governor_config"], ref["kw"]["governor_config"]
+        assert _fields(pg, gov_names) == _fields(rg, gov_names)
+        assert pg.budget_bytes == rg.budget_bytes
+        return
+    argv = ["sweep", "--checkpoints", "ck", "--models", "a/b"] + flags
+    calls = {}
+    for where, main in (("lir_tpu_torch", cli.main),
+                        ("lir_tpu", lambda a: jcli.main(["--no-compile-cache"]
+                                                        + a))):
+        def run(specs, factory_, out_dir, _where=where, **kw):
+            calls[_where] = kw
+            raise _Stop
+        monkeypatch.setattr(f"{where}.models.factory.engine_factory",
+                            lambda *a, **kw: None)
+        monkeypatch.setattr(f"{where}.engine.multi.run_model_comparison_sweep",
+                            run)
+        with pytest.raises(_Stop):
+            main(argv)
+    port, ref = calls["lir_tpu_torch"], calls["lir_tpu"]
+    for key in ("weight_prefetch", "weight_cache_bytes"):
+        assert port[key] == ref[key], key
+    gb = float(flags[flags.index("--weight-cache-gb") + 1]) \
+        if "--weight-cache-gb" in flags else 0.0
+    fleet = FleetConfig(weight_cache_gb=gb,
+                        weight_prefetch="--no-weight-prefetch" not in flags)
+    assert (port["weight_cache_bytes"], port["weight_prefetch"]) == (
+        fleet.weight_cache_bytes, fleet.weight_prefetch)
 
 
 @pytest.mark.parametrize("flag", UNPORTED, ids=lambda f: f[0])

@@ -1151,3 +1151,75 @@ def test_kv_int8_attention_refuses_wrong_inputs(gen):
         ops.kv_int8_attention(q, k8.float(), sc, k8, sc, pos, mask, mask)
     with pytest.raises(ValueError, match="ks"):
         ops.kv_int8_attention(q, k8, sc.half(), k8, sc, pos, mask, mask)
+
+
+# ---------------------------------------------------------------------------
+# Weight streaming and the fleet (models/weights.py, engine/fleet.py)
+# ---------------------------------------------------------------------------
+
+def _tiny_fleet_engines(n, layers=4):
+    from lir_tpu_torch.backends.fake import FakeTokenizer
+    from lir_tpu_torch.config import RuntimeConfig
+    from lir_tpu_torch.engine.runner import ScoringEngine
+    from lir_tpu_torch.models import decoder, registry
+
+    cfg = dataclasses.replace(registry.tiny("llama"), hidden_size=256,
+                              intermediate_size=1024, n_layers=layers,
+                              vocab_size=FakeTokenizer.VOCAB)
+    return [(f"m{i}", ScoringEngine(
+        decoder.init_params(cfg, seed=i, device="cuda", dtype=BF16), cfg,
+        FakeTokenizer(), RuntimeConfig(batch_size=4), device="cuda"))
+        for i in range(n)]
+
+
+def test_restreamed_tree_is_bitwise_its_staged_original(gen):
+    """host_stage pins every leaf; stream_params on a copy stream, in
+    chunks that cut the matrices, lands every leaf bitwise, bf16 and
+    int8 (payload and scales)."""
+    from lir_tpu_torch.models import quant, weights
+
+    (_, eng), = _tiny_fleet_engines(1)
+    q8 = quant.quantize_decoder_params(eng.params, dynamic=True)
+    for tree in (eng.params, q8):
+        staged = weights.host_stage(tree)
+        assert all(t.is_pinned() for t in weights.tensors(staged))
+        streamed = weights.stream_params(staged, device="cuda",
+                                         chunk_bytes=4096)
+        torch.cuda.current_stream().synchronize()
+        for a, b in zip(weights.tensors(streamed), weights.tensors(tree)):
+            assert a.is_cuda and a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_evict_then_prefetch_keeps_queued_reads(gen):
+    """The caching-allocator hazard of the copy stream: a model streamed
+    on the copy stream is read by kernels queued on the compute stream
+    (held back by a spin kernel), evicted with no synchronize, and the
+    next model is prefetched on the copy stream at once. The queued reads
+    must still see the evicted model's weights (``record_stream`` keeps
+    its blocks from the next load until they have run)."""
+    from lir_tpu_torch.engine.fleet import ModelFleet
+    from lir_tpu_torch.models import weights
+
+    engines = _tiny_fleet_engines(3)
+    nb = weights.tree_bytes(engines[0][1].params)
+    fleet = ModelFleet.from_engines(engines, cache_budget_bytes=nb)
+    try:
+        assert fleet.cache.resident_models == ["m2"]
+        e0 = fleet.acquire("m0")              # streamed on the copy stream
+        ref = [t.float().sum() for t in weights.tensors(e0.params)]
+        torch.cuda.synchronize()
+        torch.cuda._sleep(2_000_000_000)      # ~1 s: hold the compute stream
+        got = [t.float().sum() for t in weights.tensors(e0.params)]
+        fleet.release("m0")
+        assert fleet.evict_idle() and e0.params is None
+        fleet.prefetch("m1")                  # the next load, at once
+        e1 = fleet.acquire("m1")
+        assert fleet.stats.prefetch_hits == 1
+        fleet.release("m1")
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+        for a, b in zip(weights.tensors(e1.params),
+                        weights.tensors(fleet.staged("m1"))):
+            assert torch.equal(a.cpu(), b)
+    finally:
+        fleet.shutdown()

@@ -27,6 +27,8 @@ import lir_tpu_torch.models.quant, lir_tpu_torch.ops.flash_attention
 import lir_tpu_torch.ops.cascade_prefill
 import lir_tpu_torch.models.loader, lir_tpu_torch.models.factory
 import lir_tpu_torch.engine.multi, lir_tpu_torch.engine.rephrase
+import lir_tpu_torch.engine.hbm, lir_tpu_torch.engine.fleet
+import lir_tpu_torch.models.weights
 import lir_tpu_torch.guard.numerics, lir_tpu_torch.utils.logging
 import lir_tpu_torch.cli
 import lir_tpu_torch.stats, lir_tpu_torch.stats.core, lir_tpu_torch.stats.kappa

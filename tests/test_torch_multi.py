@@ -141,7 +141,10 @@ def test_statuses_quarantine_and_nan_rows_match(sweeps):
     assert guard["checked"] == jguard["checked"]
     assert tart["throughput"]["prompts"] == jart["throughput"]["prompts"]
     assert tart["throughput"]["tokens_in"] == jart["throughput"]["tokens_in"]
-    assert "fleet" not in tart
+    assert list(tart["fleet"]) == list(jart["fleet"])
+    for key in ("loads", "prefetch_hits", "prefetch_misses", "cache_hits",
+                "model_swaps"):
+        assert tart["fleet"][key] == jart["fleet"][key], key
     log = (out / "torch" / "sweep_session_log.txt").read_text()
     assert "=== tiny/llama-chat (instruct) ===" in log
     assert "quarantined" in log
