@@ -260,7 +260,29 @@ Phases (each raises on failure, so the script exits non-zero):
    perfect drafter accepting every draft; (d) a ``squeeze`` of that
    engine's governor, the rungs down and up in the JAX order with rows
    bitwise. After every phase the governors' ledger and level, no rung
-   engaged where a route is asserted.
+   engaged where a route is asserted. In the loader phase the
+   checkpoint also goes through the converted-parameter cache
+   (``engine_factory(cache_root=)``, ``--param-cache``): once cold, once
+   warm with the converter refusing, the warm tree bitwise the cold one
+   (seconds of each). The guard phase (``run_guard_phase``, guard/,
+   faults/, the sweep's dispatch recovery) on phase 3's params: the
+   flat grid clean (the reference; it calibrates the watchdog at
+   multiple 2, floor 0.5 s), then fault-wrapped: a dispatch fault, a
+   hang of three times its deadline (stalled by the watchdog), a
+   corrupt draft, a budget squeeze, NaN rows and a real allocator OOM
+   (a ballast filling the card, released through a governor action),
+   every D6 row byte for byte the clean run's save the quarantined
+   ones; then an irreducible OOM that must raise ``HbmExhausted``. The
+   serve phase (``run_serve_phase``, serve/): 128 requests of two
+   classes at seeded Poisson arrivals through a ``ScoringServer``,
+   prefix cache off (payloads bitwise the same rows dispatched directly
+   on an engine with no server and no watchdog) and on (the default
+   pool beside the model under the governor's budget, payloads within
+   the prefix phase's bars), per-class latency, requests/s, dispatches,
+   peak memory and launches; drills on a server (a fault, a hang, a
+   poison row, the breaker opening and closing on its probe, a
+   checkpoint and resume bitwise the direct dispatch); and ``python -m
+   lir_tpu_torch serve --requests`` on the small model.
    The T5 phase (the encoder-decoder branch, ``models/encdec.py``): part
    (a), after the small sweep check, a small gated untied T5 and a small
    ReLU tied (v1.0) T5 in float32 through ``t5_greedy_decode``
@@ -293,6 +315,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import resource
 import shutil
@@ -308,9 +331,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from lir_tpu_torch import ops
+from lir_tpu_torch import faults, ops
 from lir_tpu_torch.backends.fake import FakeTokenizer
-from lir_tpu_torch.config import CascadeConfig, RuntimeConfig
+from lir_tpu_torch.config import (CascadeConfig, GovernorConfig, RetryConfig,
+                                  RuntimeConfig, ServeConfig)
 from lir_tpu_torch.data import (LEGAL_PROMPTS, WORD_MEANING_QUESTIONS,
                                 format_base_prompt, format_instruct_prompt,
                                 schemas)
@@ -318,6 +342,8 @@ from lir_tpu_torch.data.prompts import rephrase_request
 from lir_tpu_torch.engine import (generate, grid, prefix_tree, prng, rephrase,
                                   sweep, tokens as tok)
 from lir_tpu_torch.engine import hbm
+from lir_tpu_torch.engine import scheduler as sched_mod
+from lir_tpu_torch.engine import score as score_mod
 from lir_tpu_torch.engine.fleet import ModelFleet
 from lir_tpu_torch.engine.multi import (ModelSpec, format_for,
                                        nan_rows_for_model,
@@ -349,6 +375,8 @@ from lir_tpu_torch.ops.kv_int8_attention import (kv_int8_attention_plain,
                                                  qk_s32_plain, tie_bar)
 from lir_tpu_torch.ops.kv_int8_attention import plan as kv8_plan
 from lir_tpu_torch.engine import stream_stats
+from lir_tpu_torch.guard import numerics
+from lir_tpu_torch.serve import ScoringServer, ServeRequest
 from lir_tpu_torch.stats import streaming
 from lir_tpu_torch.stats.core import generator_for, resample_indices
 from lir_tpu_torch.stats.correlations import bootstrap_correlation_matrix
@@ -3653,7 +3681,7 @@ def check_loaded_t5(loaded, params, cfg_path: Path, ref_cfg):
 LOADER_BASE = "meta-llama/Llama-2-7b-hf"
 LOADER_CHAT = "meta-llama/Llama-2-7b-chat-hf"
 LOADER_ABSENT = "absent/model"
-LOADER_MIN_FREE_BYTES = 16e9
+LOADER_MIN_FREE_BYTES = 32e9
 # Device memory a released model may leave behind (allocator slack).
 LOADER_RELEASE_SLACK = 64 * 2**20
 # The loader phase's checkpoint: fp16 (the dtype meta-llama publishes
@@ -3923,7 +3951,8 @@ def run_loader_phase(params, cfg, questions=WORD_MEANING_QUESTIONS,
     if free < LOADER_MIN_FREE_BYTES:
         raise AssertionError(
             f"loader phase: {free} bytes free under {tmp_root}; the fp16 "
-            f"checkpoint needs at least {LOADER_MIN_FREE_BYTES:.0f}")
+            f"checkpoint and its parameter-cache entry need at least "
+            f"{LOADER_MIN_FREE_BYTES:.0f}")
     tokenizer = FakeTokenizer(vocab=cfg.vocab_size)
     log("loader: tokenizer=FakeTokenizer passed to engine_factory explicitly "
         "(no transformers needed)")
@@ -3962,6 +3991,7 @@ def run_loader_phase(params, cfg, questions=WORD_MEANING_QUESTIONS,
         del engine
         gc.collect()
         torch.cuda.empty_cache()
+        stats["param_cache"] = param_cache_loads(root, rt, tokenizer)
 
         # The T5 pair: t5-v1_1-base and a flan-t5-base symlink to it.
         t5p = t5_params(t5_cfg, seed=3, device=DEV, dtype=torch.bfloat16)
@@ -4056,6 +4086,54 @@ def run_loader_phase(params, cfg, questions=WORD_MEANING_QUESTIONS,
                         if k.startswith("int8_check_seconds/")}}))
     stats["rows_per_s"] = rows_per_s
     return stats
+
+
+def param_cache_loads(root: Path, rt, tokenizer) -> dict:
+    """The loader's llama-2-7b checkpoint through the converted-parameter
+    cache (``engine_factory(cache_root=)``, the CLI's ``--param-cache``):
+    once cold (converted and written) and once warm, the converter
+    replaced by one that raises (nothing converted); the warm tree
+    bitwise the cold one, leaf by leaf (dtype included). Seconds of each
+    and the entry's bytes (the warm read comes from the page cache the
+    cold write left: warm)."""
+    factory = engine_factory(root, rt, tokenizer=tokenizer, device=DEV,
+                             cache_root=root / "param_cache")
+    convert = loader.convert_decoder
+    seconds, trees = {}, {}
+    for run in ("cold", "warm"):
+        if run == "warm":
+            loader.convert_decoder = _refuse_conversion
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng = factory(LOADER_BASE)
+            torch.cuda.synchronize()
+            seconds[run] = time.perf_counter() - t0
+        finally:
+            loader.convert_decoder = convert
+        trees[run] = eng.params
+        del eng
+    cold, warm = dict(leaves(trees["cold"])), dict(leaves(trees["warm"]))
+    differ = [k for k in cold if k not in warm
+              or cold[k].dtype != warm[k].dtype
+              or not torch.equal(cold[k], warm[k])]
+    if differ or cold.keys() != warm.keys():
+        raise AssertionError(f"param cache: warm leaves differ: {differ[:5]}")
+    entry = root / "param_cache"
+    stats = dict(cold_seconds=seconds["cold"], warm_seconds=seconds["warm"],
+                 entry_bytes=sum(f.stat().st_size for f in entry.rglob("*")
+                                 if f.is_file()),
+                 leaves=len(cold), bitwise=True)
+    del trees, cold, warm
+    shutil.rmtree(entry)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(json.dumps({"phase": "loader_param_cache", **stats}))
+    return stats
+
+
+def _refuse_conversion(*a, **kw):
+    raise AssertionError("a warm --param-cache load converted the checkpoint")
 
 
 # ---------------------------------------------------------------------------
@@ -5427,6 +5505,681 @@ def run_sampling_phase(engine, small) -> dict:
     return stats
 
 
+# ---------------------------------------------------------------------------
+# The guard phase and the serve phase (guard/, faults/, serve/): phase 3's
+# llama-2-7b params on engines of their own.
+# ---------------------------------------------------------------------------
+
+# Watchdog knobs of the guard and serve engines: a floor low enough that
+# an injected hang a few times the deadline fits the script's time.
+GUARD_WATCHDOG = dict(watchdog_multiple=2.0, watchdog_floor_s=0.5)
+GUARD_GRID = "flat"
+GUARD_NAN_ROWS = (0, 1)
+# A hang lasts this many times the largest deadline of its dispatches.
+HANG_FACTOR = 3.0
+# The real out-of-memory drill leaves this much of the card free.
+OOM_MARGIN_BYTES = 1 << 30
+
+
+class Ballast:
+    """A buffer that fills the card up to ``margin`` bytes short of its
+    free memory, and gives it back through a governor rung's action
+    (``release``: True when it freed anything)."""
+
+    def __init__(self):
+        self.buf = None
+        self.bytes = 0
+        self.releases = 0
+
+    def fill(self, margin: int) -> None:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        free, _ = torch.cuda.mem_get_info()
+        self.bytes = max(int(free) - int(margin), 0)
+        self.buf = torch.empty(self.bytes, dtype=torch.uint8, device=DEV)
+
+    def release(self) -> bool:
+        if self.buf is None:
+            return False
+        self.buf = None
+        torch.cuda.empty_cache()
+        self.releases += 1
+        return True
+
+
+def exhaust_card() -> None:
+    """Ask the caching allocator for twice the card's memory: a real
+    ``torch.cuda.OutOfMemoryError``."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    torch.empty(2 * total, dtype=torch.uint8, device=DEV)
+
+
+def fill_at(engine, at: int, fill) -> dict:
+    """Wrap ``engine.decode_fused_shared`` so that ``fill()`` runs just
+    before its call ``at`` (0-based, counting the calls that reach it);
+    returns the call counter."""
+    inner = engine.decode_fused_shared
+    calls = {"n": 0}
+
+    def wrapped(*a, **kw):
+        k = calls["n"]
+        calls["n"] += 1
+        if k == at:
+            fill()
+        return inner(*a, **kw)
+
+    engine.decode_fused_shared = wrapped
+    return calls
+
+
+def guard_engine(engine, **rt):
+    """An engine on ``engine``'s params with the guard's watchdog, no
+    piggyback chain (the wrapped engine refuses chains anyway, so the
+    clean reference runs as the faulted run does) and a governor that
+    walks one rung a tick."""
+    return ScoringEngine(
+        engine.params, engine.cfg, engine.tokenizer,
+        dataclasses.replace(engine.rt, piggyback_prefill=False,
+                            **{**GUARD_WATCHDOG, **rt}),
+        cascade_config=engine.cascade_cfg, spec_config=engine.spec_cfg,
+        device=DEV, governor_config=GovernorConfig(sustain_ticks=1))
+
+
+def grid_costs(engine, prompts, perts, rt) -> list:
+    """The watchdog's price of each planned shared dispatch of a grid
+    (``sweep._run_pipelined``'s ``_shared_cost``)."""
+    _, dispatches, _ = plan_sweep(engine, prompts, perts, rt)
+    B = rt.batch_size
+    return [sched_mod.bucket_cost(len(d.items), d.bucket, B,
+                                  rt.sweep_decode_tokens
+                                  + rt.sweep_confidence_tokens,
+                                  fused_decode=rt.fused_decode,
+                                  spec_decode=engine.spec_supported())
+            for d in dispatches]
+
+
+def run_guard_phase(engine, rt, grids, tmp: Path) -> dict:
+    """The sweep's dispatch recovery at llama-2-7b width, bf16. Two clean
+    sweeps of GUARD_GRID on a guard engine (the second the reference;
+    both calibrate the watchdog), then the same grid on the same engine
+    fault-wrapped,
+    in order: a dispatch fault (dispatch 0), a hang of HANG_FACTOR times
+    its deadline on the retry (stalled by the watchdog), a corrupt draft
+    (dispatch 0's plan), a budget squeeze at the first governor tick,
+    NaN in rows GUARD_NAN_ROWS of dispatch 1, and a real allocator OOM
+    at dispatch 2: a ballast fills the card, the dispatch raises
+    ``torch.cuda.OutOfMemoryError``, the governor's ``evict_weights``
+    action releases the ballast and the one retry passes. Every D6 row
+    is the clean run's, byte for byte, save the quarantined ones. Then a
+    fresh guard engine whose first dispatch needs more than the card
+    (an irreducible OOM): the sweep raises ``HbmExhausted``."""
+    prompts, perts = grids[GUARD_GRID]
+    eng = guard_engine(engine)
+    ballast = Ballast()
+    eng.governor.set_action("evict_weights", engage=ballast.release)
+    # Two clean sweeps: the second is the reference; together they
+    # calibrate the watchdog past its first sample, which carries the
+    # seed headroom (12x on a speculating cascade engine).
+    for k in range(2):
+        clean_path = tmp / f"guard_clean{k}.csv"
+        t0 = time.perf_counter()
+        sweep.run_perturbation_sweep(eng, SWEEP_MODEL, prompts, perts,
+                                     clean_path)
+        torch.cuda.synchronize()
+        clean_s = time.perf_counter() - t0
+    wd = eng.watchdog
+    # The hang hits the first dispatch's retry: a few times its deadline.
+    hang_s = HANG_FACTOR * wd.deadline_for(
+        grid_costs(eng, prompts, perts, eng.rt)[0])
+    fault_plan = faults.FaultPlan(0, {
+        "dispatch": faults.SiteSchedule(fail_calls=(0,)),
+        "draft": faults.SiteSchedule.draft_corrupt_at(0, rows=(0, 2)),
+        "hbm": faults.SiteSchedule.hbm_squeeze_at(0, frac=0.1, calls=2)})
+    hang_plan = faults.FaultPlan(0, {"dispatch": faults.SiteSchedule.hang_at(
+        0, seconds=hang_s)})
+    nan_plan = faults.FaultPlan(0, {"dispatch": faults.SiteSchedule.nan_at(
+        1, rows=GUARD_NAN_ROWS)})
+    # Innermost first: the ballast before the engine's call 2, then the
+    # NaN rows, the hang and the fault, each counting the calls that
+    # reach it.
+    fill_at(eng, 2, lambda: ballast.fill(OOM_MARGIN_BYTES))
+    faults.wrap_engine(eng, nan_plan)
+    faults.wrap_engine(eng, hang_plan)
+    faults.wrap_engine(eng, fault_plan)
+    faults.wrap_governor(eng.governor, fault_plan)
+    path = tmp / "guard_faulted.csv"
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    sweep.run_perturbation_sweep(eng, SWEEP_MODEL, prompts, perts, path)
+    torch.cuda.synchronize()
+    faulted_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    ref, got = schemas.read_results(clean_path), schemas.read_results(path)
+    if len(ref) != len(got):
+        raise AssertionError(f"guard: {len(got)} rows, {len(ref)} clean")
+    quarantined = [g for g in got
+                   if g["Model Response"] == numerics.NUMERICS_ERROR]
+    differing = [g for r, g in zip(ref, got) if r != g]
+    if (len(quarantined) != len(GUARD_NAN_ROWS)
+            or differing != quarantined):
+        raise AssertionError(f"guard: {len(differing)} rows differ from the "
+                             f"clean run's, {len(quarantined)} quarantined")
+    gst, fst, mst = eng.guard_stats, eng.fault_stats, eng.governor.stats
+    expect = {"stalls": {"sweep": 1}, "recovered": 1,
+              "injected": ({"dispatch": 1, "draft": 1, "hbm": 1},
+                           {"dispatch": 1}, {"dispatch": 1}),
+              "oom_events": {"sweep": 1}, "oom_reclaims": 1,
+              "ballast_releases": 1, "quarantined": {"sweep": 2}}
+    seen = {"stalls": dict(gst.stalls),
+            "recovered": fst.recovered_dispatches,
+            "injected": tuple(p.stats.injected for p in
+                              (fault_plan, hang_plan, nan_plan)),
+            "oom_events": dict(mst.oom_events),
+            "oom_reclaims": mst.oom_reclaims,
+            "ballast_releases": ballast.releases,
+            "quarantined": dict(gst.quarantined)}
+    if seen != expect:
+        raise AssertionError(f"guard counters {seen}, expected {expect}")
+    if not mst.rung_downs.get("evict_weights") or mst.squeezes != 1:
+        raise AssertionError(f"guard: the squeeze walked no rung "
+                             f"({mst.summary()})")
+    stall_deadline, fired = wd.last_stall
+    missing = [k for k in SWEEP_ROUTE_KERNELS["bf16"][GUARD_GRID]
+               if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"guard: never launched {missing}")
+    for _ in hbm.RECLAIM_RUNGS:
+        eng.governor.tick()          # the reclaim rungs release
+    stats = dict(
+        grid=GUARD_GRID, cells=len(got), clean_seconds=clean_s,
+        faulted_seconds=faulted_s, rows_bitwise_but_quarantined=True,
+        quarantined_rows=len(quarantined), hang_seconds=hang_s,
+        watchdog=dict(deadline_s=stall_deadline, fired_after_s=fired,
+                      multiple=wd.multiple, floor_s=wd.floor_s),
+        ballast_bytes=ballast.bytes, guard=gst.summary(),
+        faults=fst.summary(), governor=eng.governor.summary(),
+        spec_stats=dict(eng.spec_stats), launches=launches)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The irreducible OOM: the dispatch first asks for twice the card.
+    eng = guard_engine(engine)
+    spare = Ballast()
+    eng.governor.set_action("evict_weights", engage=spare.release)
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+
+    def impossible():
+        spare.fill(card_bytes // 2)      # something the reclaim can free
+        exhaust_card()
+
+    fill_at(eng, 0, impossible)
+    fill_at(eng, 1, impossible)
+    try:
+        sweep.run_perturbation_sweep(eng, SWEEP_MODEL, prompts, perts,
+                                     tmp / "guard_exhausted.csv")
+    except hbm.HbmExhausted as err:
+        stats["exhausted"] = dict(message=str(err)[:400],
+                                  oom_events=dict(eng.governor.stats.oom_events),
+                                  oom_exhausted=eng.governor.stats.oom_exhausted)
+    else:
+        raise AssertionError("guard: an irreducible OOM did not raise "
+                             "HbmExhausted")
+    if stats["exhausted"]["oom_exhausted"] != 1 or spare.releases != 1:
+        raise AssertionError(f"guard: {stats['exhausted']}")
+    spare.release()
+    del eng, spare
+    gc.collect()
+    torch.cuda.empty_cache()
+    GOVERNOR_ENGAGED.clear()
+    log(json.dumps({"phase": "guard", "card": card_line(), **stats}))
+    return stats
+
+
+SERVE_REQUESTS = 128
+SERVE_RATE = 24.0                      # requests a second, Poisson
+SERVE_SEED = 20261019
+SERVE_CLASSES = (("interactive", 120.0), ("batch", 600.0))
+SERVE_LINGER_S = 0.05
+PAYLOAD_FIELDS = ("model_response", "model_confidence_response",
+                  "token_1_prob", "token_2_prob", "log_probabilities",
+                  "confidence_value", "weighted_confidence")
+
+
+def serve_requests(grids) -> list:
+    """SERVE_REQUESTS distinct requests over the flat and grouped grids'
+    cells, each of a seeded class."""
+    rng = np.random.default_rng(SERVE_SEED)
+    cells, seen = [], set()
+    for name in ("flat", "grouped"):
+        for c in grid.build_grid(SWEEP_MODEL, *grids[name]):
+            # The grids share their original cells: one request each.
+            if (c.binary_prompt, c.confidence_prompt) not in seen:
+                seen.add((c.binary_prompt, c.confidence_prompt))
+                cells.append(c)
+    out = []
+    for i, c in enumerate(cells[:SERVE_REQUESTS]):
+        out.append(ServeRequest(
+            binary_prompt=c.binary_prompt,
+            confidence_prompt=c.confidence_prompt,
+            targets=tuple(LEGAL_PROMPTS[c.prompt_idx].target_tokens),
+            klass=SERVE_CLASSES[int(rng.integers(0, 2))][0],
+            request_id=str(i)))
+    return out
+
+
+def record_dispatches(server) -> list:
+    """Wrap ``server.batcher.score`` to log each dispatch's (bucket,
+    rows); returns the log."""
+    log_ = []
+    inner = server.batcher.score
+
+    def score(bucket, rows):
+        log_.append((bucket, list(rows)))
+        return inner(bucket, rows)
+
+    server.batcher.score = score
+    return log_
+
+
+def serve_config(**kw) -> ServeConfig:
+    return ServeConfig(**{**dict(classes=SERVE_CLASSES,
+                                 linger_s=SERVE_LINGER_S), **kw})
+
+
+def poisson_run(server, requests) -> tuple:
+    """Submit ``requests`` at seeded Poisson arrivals (SERVE_RATE a
+    second) on a client thread, wait for every result. Returns (results
+    by request id, seconds from the first submit to the last result)."""
+    gaps = np.random.default_rng(SERVE_SEED + 1).exponential(
+        1.0 / SERVE_RATE, len(requests))
+    futs = {}
+
+    def client():
+        for gap, req in zip(gaps, requests):
+            time.sleep(float(gap))
+            futs[req.request_id] = server.submit(req)
+
+    t0 = time.perf_counter()
+    th = threading.Thread(target=client)
+    th.start()
+    th.join()
+    out = {rid: f.result(timeout=600) for rid, f in futs.items()}
+    return out, time.perf_counter() - t0
+
+
+def latency_by_class(results, requests) -> dict:
+    klass = {r.request_id: r.klass for r in requests}
+    out = {}
+    for name, _ in SERVE_CLASSES:
+        lat = sorted(r.latency_s for rid, r in results.items()
+                     if klass[rid] == name)
+        if lat:
+            out[name] = {"n": len(lat),
+                         "p50_s": float(np.percentile(lat, 50)),
+                         "p99_s": float(np.percentile(lat, 99))}
+    return out
+
+
+def direct_payloads(engine, dispatch_log) -> dict:
+    """The logged dispatches' rows dispatched again directly on
+    ``engine``, with no server, batcher or watchdog thread: for each
+    logged (bucket, rows), this script tokenizes the requests, pads to
+    the full batch with the last row (``pad_full``), picks the suffix
+    buckets, calls ``decode_fused_shared`` (prefix cache off) at the
+    logged bucket, records the drafts as a serving engine does, reads
+    position 0 with ``score.readout_from_fused`` and maps the readouts
+    to payload fields itself. Payloads by request id."""
+    rt, B = engine.rt, engine.rt.batch_size
+    new = min(rt.sweep_decode_tokens, rt.max_new_tokens)
+    conf = min(rt.sweep_confidence_tokens, rt.max_new_tokens)
+    early = rt.sweep_early_stop and not rt.sweep_full_completions
+    out = {}
+    for bucket, rows in dispatch_log:
+        reqs = [p.request for p in rows]
+        n = len(reqs)
+        full = reqs + [reqs[-1]] * (B - n)
+        ids_a = [list(engine.tokenizer(r.binary_prompt).input_ids)
+                 for r in full]
+        ids_b = [list(engine.tokenizer(r.confidence_prompt).input_ids)
+                 for r in full]
+        lcp = [tok.shared_prefix_len(a, b) for a, b in zip(ids_a, ids_b)]
+        sfx = tuple(tok.pick_bucket(
+            [max(max(len(x) - k for x, k in zip(ids, lcp)), 1)],
+            sched_mod.SUFFIX_BUCKETS) for ids in (ids_a, ids_b))
+        targets = [tok.target_token_ids(engine.tokenizer, tuple(r.targets))
+                   for r in full]
+        t1 = np.asarray([int(t[0]) for t in targets], np.int32)
+        t2 = np.asarray([int(t[1]) for t in targets], np.int32)
+        fused, cfused = engine.decode_fused_shared(
+            [r.binary_prompt for r in full],
+            [r.confidence_prompt for r in full], t1, t2, new_tokens=new,
+            conf_tokens=conf, early_stop=early, pretokenized_a=ids_a,
+            pretokenized_b=ids_b, bucket=bucket, sfx_buckets_ab=sfx,
+            reuse_cache=True, use_prefix_cache=False, n_real=n)
+        res = score_mod.readout_from_fused(
+            fused, engine._t(t1), engine._t(t2), scan_positions=1)
+        yes, no, lp_v, lp_i, gen, wconf, cgen = (t.cpu().numpy() for t in (
+            res.yes_prob, res.no_prob, fused.topk_logprobs, fused.topk_ids,
+            fused.generated, cfused.weighted_confidence, cfused.generated))
+        if engine.spec_supported():
+            engine.spec_record(bucket, ids_a, gen, n)
+            engine.spec_record(bucket, ids_b, cgen, n)
+            engine.spec_flush()
+        for j, r in enumerate(reqs):
+            conf_text = engine.decode_completion(cgen[j])
+            out[r.request_id] = dict(
+                model_response=engine.decode_completion(gen[j]),
+                model_confidence_response=conf_text,
+                token_1_prob=float(yes[j]), token_2_prob=float(no[j]),
+                log_probabilities=json.dumps({
+                    int(i): round(float(v), 6)
+                    for i, v in zip(lp_i[j], lp_v[j])}),
+                confidence_value=sweep._parse_confidence(
+                    conf_text, sweep._decode_complete(cgen[j],
+                                                      engine.eos_id)),
+                weighted_confidence=float(wconf[j]))
+    return out
+
+
+def check_payloads_bitwise(label, results: dict, ref: dict) -> int:
+    n = 0
+    for rid, r in results.items():
+        if r.status != "ok":
+            continue
+        want = ref[rid]
+        got = {f: getattr(r, f) for f in PAYLOAD_FIELDS}
+        if got != {f: want[f] for f in PAYLOAD_FIELDS}:
+            raise AssertionError(f"{label}: request {rid} {got} is not the "
+                                 f"direct dispatch's {want}")
+        n += 1
+    return n
+
+
+def as_d6(results: dict, requests) -> dict:
+    """Serve results as D6-like records for ``compare_d6`` (keyed by
+    request id; the values as the CSV writer writes them)."""
+    by_id = {r.request_id: r for r in requests}
+    out = {}
+    for rid, r in results.items():
+        req = by_id[rid]
+        out[(rid, rid)] = {
+            "Full Rephrased Prompt": req.binary_prompt,
+            "Full Confidence Prompt": req.confidence_prompt,
+            "Model Response": r.model_response,
+            "Model Confidence Response": r.model_confidence_response,
+            "Confidence Value": str(r.confidence_value),
+            "Token_1_Prob": str(r.token_1_prob),
+            "Token_2_Prob": str(r.token_2_prob),
+            "Weighted Confidence": str(r.weighted_confidence),
+            "Log Probabilities": r.log_probabilities}
+    return out
+
+
+def serve_drills(engine, requests, ref_engine, tmp: Path) -> dict:
+    """On a server over ``engine`` (its watchdog calibrated by the phase's
+    run), one request at a time: a dispatch fault (recovered by the
+    retry), a hang of HANG_FACTOR times the deadline (stalled by the
+    watchdog, then served), a poison row beside three (isolated by the
+    degradation ladder), a device outage (the breaker opens after one
+    failed dispatch, a submit sheds, and after the cooldown a probe
+    closes it), then a shutdown checkpoint of eight unserved requests
+    and their resume on a fresh server, bitwise the same rows dispatched
+    directly on ``ref_engine``."""
+    cfg = serve_config(prefix_cache=False, max_consecutive_failures=1,
+                       breaker_cooldown_s=1.0, cache_entries=0,
+                       retry=RetryConfig(max_retries=1, initial_delay=0.01,
+                                         max_delay=0.02, full_jitter=True,
+                                         max_elapsed=120.0))
+    server = ScoringServer(engine, SWEEP_MODEL, cfg)
+    down = {"on": False}
+    inner = server.batcher.score
+
+    def flaky(bucket, rows):
+        if down["on"]:
+            raise RuntimeError("device outage (drill)")
+        if any(p.request.request_id == "poison" for p in rows):
+            raise RuntimeError("poison row (drill)")
+        return inner(bucket, rows)
+
+    server.batcher.score = flaky
+    wd = engine.watchdog
+    by_bucket = {}
+    for i, r in enumerate(requests):
+        b = tok.assign_bucket(max(tok.shared_prefix_len(
+            engine.tokenizer(r.binary_prompt).input_ids,
+            engine.tokenizer(r.confidence_prompt).input_ids), 1),
+            engine.buckets)
+        by_bucket.setdefault(b, []).append(i)
+    hang_s = HANG_FACTOR * max(wd.deadline_for(sched_mod.bucket_cost(
+        1, b, engine.rt.batch_size, server.batcher.decode_cost,
+        fused_decode=engine.rt.fused_decode)) for b in by_bucket)
+    fault_plan = faults.FaultPlan(0, {"dispatch": faults.SiteSchedule(
+        fail_calls=(0,))})
+    hang_plan = faults.FaultPlan(0, {"dispatch": faults.SiteSchedule.hang_at(
+        1, seconds=hang_s)})
+    faults.wrap_server(server, hang_plan)
+    faults.wrap_server(server, fault_plan)
+    server.start()
+    out = {}
+    try:
+        def one(i, rid=None):
+            r = requests[i]
+            return server.submit(dataclasses.replace(
+                r, request_id=rid or f"drill{i}")).result(timeout=600)
+
+        fault = one(0)
+        hang = one(1)
+        stalls = engine.guard_stats.stalls.get("serve", 0)
+        # A poison copy of a request and three requests of its bucket,
+        # submitted together: one dispatch.
+        mates = next(ix for ix in by_bucket.values() if len(ix) >= 4)[:4]
+        poison = [server.submit(dataclasses.replace(
+            requests[i], request_id=f"drill{i}" if k else "poison"))
+            for k, i in enumerate(mates)]
+        poison = [f.result(timeout=600) for f in poison]
+        down["on"] = True
+        broken = one(6)
+        # The rows resolve before the supervisor tells the breaker and
+        # drains the queue: wait for the dispatch to end.
+        t_open = time.perf_counter()
+        while ((server.healthy or server._inflight)
+               and time.perf_counter() - t_open < 60):
+            time.sleep(0.005)
+        opened = not server.healthy
+        shed = one(7)
+        down["on"] = False
+        time.sleep(cfg.breaker_cooldown_s)
+        probe = one(8)
+        out.update(
+            fault=fault.status, hang=hang.status, hang_seconds=hang_s,
+            stalls=stalls, poison=[r.status for r in poison],
+            outage=broken.status, opened=opened, shed=shed.status,
+            probe=probe.status, healthy_after=server.healthy,
+            transitions=[f"{a}->{b}" for a, b in server.faults.transitions],
+            faults=server.faults.summary(),
+            watchdog=dict(zip(("deadline_s", "fired_after_s"),
+                              wd.last_stall or (None, None))))
+    finally:
+        server.stop()
+    want = dict(fault="ok", hang="ok", poison=["error", "ok", "ok", "ok"],
+                outage="error", opened=True, shed="shed", probe="ok",
+                healthy_after=True)
+    if ({k: out[k] for k in want} != want or out["stalls"] < 1
+            or out["transitions"] != ["closed->open", "open->half_open",
+                                      "half_open->closed"]
+            or out["faults"]["degraded_rows"] != 1):
+        raise AssertionError(f"serve drills: {out}")
+
+    # Checkpoint -> resume.
+    ckpt = tmp / "serve_state.json"
+    first = ScoringServer(engine, SWEEP_MODEL, serve_config(
+        prefix_cache=False, cache_entries=0))
+    futs = [first.submit(dataclasses.replace(r, request_id=f"ck{i}"))
+            for i, r in enumerate(requests[16:24])]
+    if first.shutdown_checkpoint(ckpt) != 8 or any(f.done() for f in futs):
+        raise AssertionError("serve: the checkpoint lost or served requests")
+    fresh = ScoringServer(engine, SWEEP_MODEL, serve_config(
+        prefix_cache=False, cache_entries=0))
+    dlog = record_dispatches(fresh)
+    fresh.start()
+    try:
+        resumed = [f.result(timeout=600)
+                   for f in fresh.resume_from_checkpoint(ckpt)]
+    finally:
+        fresh.stop()
+    if [r.status for r in resumed] != ["ok"] * 8:
+        raise AssertionError(f"serve resume: {[r.status for r in resumed]}")
+    out["resumed_bitwise"] = check_payloads_bitwise(
+        "serve resume", {r.request_id: r for r in resumed},
+        direct_payloads(ref_engine, dlog))
+    return out
+
+
+def run_serve_phase(engine, rt, grids, tmp: Path, bars) -> dict:
+    """``ScoringServer`` at llama-2-7b width, bf16: SERVE_REQUESTS
+    requests of two classes at seeded Poisson arrivals, (a) prefix cache
+    off with ``pad_full``: every payload bitwise the same rows dispatched
+    directly at the same padded batch on a standalone engine (no server,
+    no watchdog thread); (b) the serving default, prefix cache on (its
+    pool ``RuntimeConfig.prefix_cache_pages`` pages beside the model in
+    the governor's ledger, under its budget): the payloads within
+    ``bars`` (the prefix phase's: twice its half-batch control) of (a)'s.
+    Per class p50/p99 latency, requests/s, dispatches, shed and expired,
+    peak memory and (a)'s kernel launches. Then the drills
+    (:func:`serve_drills`) on (a)'s engine."""
+    requests = serve_requests(grids)
+    out = {}
+    eng_off = engine_with(engine, **GUARD_WATCHDOG)
+    ref_engine = engine_with(engine, watchdog_multiple=0.0)
+    for mode in ("off", "on"):
+        eng = eng_off if mode == "off" else engine_with(engine)
+        server = ScoringServer(eng, SWEEP_MODEL,
+                               serve_config(prefix_cache=mode == "on"))
+        dlog = record_dispatches(server)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        server.start()
+        try:
+            results, wall = poisson_run(server, requests)
+        finally:
+            server.stop()
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        st = server.stats.summary()
+        if st["completed"] != len(requests) or st["shed"] or st["expired"]:
+            raise AssertionError(f"serve {mode}: {st}")
+        gov = eng.governor
+        row = dict(requests=len(requests), seconds=wall,
+                   requests_per_s=len(requests) / wall,
+                   latency=latency_by_class(results, requests),
+                   dispatches=st["dispatches"], shed=st["shed"],
+                   expired=st["expired"],
+                   slot_occupancy_pct=st["slot_occupancy_pct"],
+                   max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+                   ledger=gov.ledger(), budget_bytes=gov.budget_bytes,
+                   pressure=gov.pressure(), launches=launches,
+                   spec_stats=dict(eng.spec_stats),
+                   paged_dispatches=dict(eng.paged_dispatches),
+                   guard=eng.guard_stats.summary())
+        if mode == "off":
+            missing = [k for k in ("flash_decode_mq", "row_gemm",
+                                   "row_add_norm") if launches[k] <= 0]
+            if missing:
+                raise AssertionError(f"serve: never launched {missing}")
+            row["bitwise_rows"] = check_payloads_bitwise(
+                "serve", results, direct_payloads(ref_engine, dlog))
+            off = results
+        else:
+            budget = gov.budget_bytes
+            if (budget is None or "kv_pages:" + eng.cfg.name not in
+                    gov.ledger()
+                    or row["max_memory_allocated_bytes"] > budget):
+                raise AssertionError(f"serve: the default pool and batch "
+                                     f"do not fit beside the model: {row}")
+            row["vs_prefix_off"] = compare_d6(
+                "serve prefix on", as_d6(off, requests),
+                as_d6(results, requests), engine, bars)
+            del eng
+        out[mode] = row
+        log(json.dumps({"phase": f"serve_{mode}", "card": card_line(),
+                        **row}))
+    out["drills"] = serve_drills(eng_off, requests, ref_engine, tmp)
+    log(json.dumps({"phase": "serve_drills", **out["drills"]}))
+    del eng_off, ref_engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    GOVERNOR_ENGAGED.clear()
+    return out
+
+
+TRANSFORMERS_STUB = '''"""A stand-in for the transformers package, which the card's machine
+lacks: AutoTokenizer gives the port's FakeTokenizer at the checkpoint's
+vocabulary (the model's weights are seeded, so any tokenizer scores
+them)."""
+import json
+from pathlib import Path
+
+
+class AutoTokenizer:
+    @staticmethod
+    def from_pretrained(path, **kw):
+        from lir_tpu_torch.backends.fake import FakeTokenizer
+
+        vocab = json.loads((Path(path) / "config.json").read_text())
+        return FakeTokenizer(vocab=vocab["vocab_size"])
+'''
+
+
+def serve_cli_check(small, tmp: Path) -> dict:
+    """``python -m lir_tpu_torch serve --requests`` once on the small
+    model, written as a fp16 llama checkpoint: eight requests and a
+    ``{"op": "stats"}`` line in, one JSON line each out, every request
+    ok with its probabilities in [0, 1]. The card's machine has no
+    transformers: a stub whose AutoTokenizer gives FakeTokenizer is put
+    on the subprocess's path."""
+    cfg, _, params = small
+    root = tmp / "serve_cli"
+    name = "smoke/tiny-llama"
+    export_hf_llama(params, cfg, root / name.replace("/", "__"))
+    stub = tmp / "serve_cli_stub" / "transformers"
+    stub.mkdir(parents=True)
+    (stub / "__init__.py").write_text(TRANSFORMERS_STUB)
+    reqs = tmp / "serve_cli_requests.jsonl"
+    lines = [{"id": f"c{i}", "prompt": f"{LEGAL_PROMPTS[i % 5].main[:200]}",
+              "class": "interactive"} for i in range(8)]
+    lines.insert(4, {"op": "stats"})
+    reqs.write_text("\n".join(json.dumps(x) for x in lines) + "\n")
+    repo = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(stub.parent), str(repo)]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "lir_tpu_torch", "serve", "--checkpoints",
+         str(root), "--model", name, "--requests", str(reqs),
+         "--batch-size", "8", "--linger-ms", "0"],
+        cwd=repo, env=env, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"serve CLI exit {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    out = [json.loads(x) for x in proc.stdout.strip().splitlines()]
+    stats_lines = [o for o in out if o.get("op") == "stats"]
+    results = [o for o in out if "request_id" in o]
+    if (len(stats_lines) != 1
+            or [r["request_id"] for r in results] != [f"c{i}"
+                                                       for i in range(8)]
+            or any(r["status"] != "ok" or not 0.0 <= r["token_1_prob"] <= 1.0
+                   for r in results)):
+        raise AssertionError(f"serve CLI output: {out}")
+    stats = dict(seconds=seconds, results=len(results),
+                 stats_line=stats_lines[0]["stats"])
+    log(json.dumps({"phase": "serve_cli", **stats}))
+    return stats
+
+
 def kernel_label(mangled: str) -> str:
     """A kernel's name and raw template arguments from its mangled name,
     e.g. ``prefix_wgmma_kernel<Li128>``."""
@@ -5755,6 +6508,20 @@ def main() -> int:
                    for d, st in fleet["drafts"].items()},
         "squeeze_walk": fleet["squeeze"]["walk"]}))
     elapsed("fleet")
+    # The guard phase and the serve phase on phase 3's params.
+    with tempfile.TemporaryDirectory() as tmp:
+        guard = run_guard_phase(engine, rt, grids, Path(tmp))
+        for name, n in guard["launches"].items():
+            launches[name] += n
+        governor_check("guard", engine)
+        elapsed("guard")
+        serve = run_serve_phase(engine, rt, grids, Path(tmp),
+                                prefix["control"]["bars"])
+        for name, n in serve["off"]["launches"].items():
+            launches[name] += n
+        serve["cli"] = serve_cli_check(small, Path(tmp))
+        governor_check("serve", engine)
+        elapsed("serve")
     survey["loader"] = loader_stats["survey"]
     survey["stream_accum"] = {name: sweeps["bf16"][name]["stream"][
         "survey_estimates"] for name in grids}

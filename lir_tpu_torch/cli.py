@@ -6,16 +6,20 @@
   survey       the human-survey pipeline (D3 + D1/D2 -> D7/D8/D9, C38-C43)
   repro        the survey pipeline and every analysis from a data directory
   rephrase     generate perturbations.json with a local rephraser model
+  serve        the online scoring service over one model (JSONL in/out)
 
-Port of the ``sweep``, ``perturb``, ``analyze``, ``survey``, ``repro``
-and ``rephrase`` commands of ``lir_tpu/cli.py``.
+Port of the ``sweep``, ``perturb``, ``analyze``, ``survey``, ``repro``,
+``rephrase`` and (single-model) ``serve`` commands of ``lir_tpu/cli.py``.
 Each flag lands in the same ``RuntimeConfig`` / ``SpecConfig`` /
-``CascadeConfig`` / ``GovernorConfig`` field as there (``--kv-cache-int8``
-in ``models.factory.load_engine(kv_cache_int8=)``; ``--weight-cache-gb``
-and ``--no-weight-prefetch`` in ``run_model_comparison_sweep``). A flag
-of a feature the port does not have yet (meshes, the parameter cache,
-leased shards, serving's fleet, the watchdog, tracing) is not defined,
-so argparse rejects it. ``--device`` (default ``cuda``) says where the models and the
+``CascadeConfig`` / ``GovernorConfig`` / ``ServeConfig`` field as there
+(``--kv-cache-int8`` and ``--param-cache`` in
+``models.factory.load_engine(kv_cache_int8=, cache_root=)``;
+``--weight-cache-gb`` and ``--no-weight-prefetch`` in
+``run_model_comparison_sweep``). The watchdog flags also reach ``sweep``,
+whose word-meaning batches run under the watchdog in the port. A flag of
+a feature the port does not have yet (meshes, leased shards, serving's
+fleet, router, migration and tiers, tracing) is not defined, so
+argparse rejects it. ``--device`` (default ``cuda``) says where the models and the
 statistics run; the CPU must be asked for. Where matplotlib is absent,
 ``analyze``, ``survey`` and ``repro`` log that figures were skipped and
 write everything else; ``repro --no-figures`` also reaches the survey
@@ -58,9 +62,36 @@ def _add_common(p) -> None:
                    help="store the KV cache int8 with per-vector scales: "
                         "half the cache bytes, s8 x s8 cached attention "
                         "(no effect on an encoder-decoder)")
+    p.add_argument("--param-cache", type=Path, default=None,
+                   help="converted-parameter cache root: the first load of "
+                        "a model converts its checkpoint and writes the "
+                        "tree (before int8 quantization) under "
+                        "ROOT/<checkpoint dir name>; later loads read it "
+                        "back without converting (models/cache.py)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the model runs (default cuda; cpu runs every "
                         "kernel's plain PyTorch version)")
+    _add_watchdog_flags(p)
+
+
+def _add_watchdog_flags(p) -> None:
+    """The dispatch watchdog's knobs (RuntimeConfig; guard/watchdog.py)."""
+    p.add_argument("--watchdog-multiple", type=float, default=None,
+                   help="dispatch watchdog deadline = floor + multiple x "
+                        "predicted dispatch seconds (bucket_cost-priced, "
+                        "self-calibrated; default 20). <= 0 disables "
+                        "stall detection")
+    p.add_argument("--watchdog-floor", type=float, default=None,
+                   help="hard minimum watchdog deadline in seconds "
+                        "(default 30)")
+
+
+def _guard_rt_kw(args, rt_kw: dict) -> None:
+    """Fold the watchdog flags into a RuntimeConfig kwargs dict."""
+    if args.watchdog_multiple is not None:
+        rt_kw["watchdog_multiple"] = args.watchdog_multiple
+    if args.watchdog_floor is not None:
+        rt_kw["watchdog_floor_s"] = args.watchdog_floor
 
 
 def _add_sweep(sub) -> None:
@@ -266,6 +297,83 @@ def _add_perturb(sub) -> None:
     _add_governor_flags(p)
 
 
+def _add_serve(sub) -> None:
+    p = sub.add_parser(
+        "serve",
+        help="online scoring service over one model: continuous batching "
+             "over the bucket ladder (lir_tpu_torch/serve). Reads JSONL "
+             "requests from --requests (default stdin), writes one JSONL "
+             "result a line to stdout. Request lines: {\"id\", "
+             "\"binary_prompt\", \"confidence_prompt\"} or {\"prompt\"} "
+             "with optional \"response_format\"/\"confidence_format\", "
+             "plus optional \"targets\": [t1, t2], \"class\", "
+             "\"deadline_s\"; {\"op\": \"stats\"} answers the live "
+             "statistics")
+    p.add_argument("--checkpoints", type=Path, required=True)
+    p.add_argument("--model", required=True,
+                   help="the served model (single-model serving: breaker, "
+                        "ladder, checkpoint)")
+    p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--int8", action="store_true")
+    p.add_argument("--int8-dynamic", action="store_true")
+    p.add_argument("--kv-cache-int8", action="store_true")
+    p.add_argument("--param-cache", type=Path, default=None)
+    p.add_argument("--sweep-decode-tokens", type=_positive_int, default=None)
+    p.add_argument("--sweep-confidence-tokens", type=_positive_int,
+                   default=None)
+    p.add_argument("--requests", type=str, default="-",
+                   help="JSONL request file, or '-' for stdin (default)")
+    p.add_argument("--queue-depth", type=int, default=256,
+                   help="admission bound; a submit into a full queue "
+                        "sheds the least-urgent request")
+    p.add_argument("--linger-ms", type=float, default=20.0,
+                   help="a partial bucket dispatches once its oldest "
+                        "request waited this long")
+    p.add_argument("--cache-entries", type=int, default=4096,
+                   help="content-addressed result cache capacity (0 "
+                        "disables dedup)")
+    p.add_argument("--deadline", action="append", default=None,
+                   metavar="CLASS=SECONDS",
+                   help="deadline class override, repeatable (default: "
+                        "interactive=10, batch=300)")
+    p.add_argument("--breaker-cooldown", type=float, default=30.0,
+                   help="circuit-breaker open -> half-open cooldown in "
+                        "seconds")
+    p.add_argument("--state-checkpoint", type=Path, default=None,
+                   help="SIGTERM stops the supervisor and atomically "
+                        "writes every unresolved request here; on start, "
+                        "an existing file is re-submitted")
+    p.add_argument("--no-prefix-cache", action="store_true",
+                   help="disable the cross-request radix prefix cache "
+                        "(serving default on)")
+    p.add_argument("--prefix-cache-pages", type=_positive_int, default=None,
+                   help="KV page pool size in pages (default 512)")
+    p.add_argument("--prefix-page-size", type=_positive_int, default=None,
+                   help="token positions per KV page (default 16)")
+    p.add_argument("--no-pad-full", action="store_true",
+                   help="pad dispatches to the power-of-two tail instead "
+                        "of the full batch")
+    p.add_argument("--no-degrade-ladder", action="store_true",
+                   help="on a dispatch that spends its retries, error the "
+                        "whole batch instead of bisecting out poison rows")
+    p.add_argument("--max-consecutive-failures", type=_positive_int,
+                   default=None,
+                   help="failed dispatches in a row before the circuit "
+                        "breaker opens (default 3)")
+    p.add_argument("--stream-window", type=int, default=None,
+                   help="live statistics ring size (default 4096; 0 "
+                        "disables)")
+    p.add_argument("--no-streaming-stats", action="store_true",
+                   help="no live statistics ring")
+    p.add_argument("--no-numerics-guard", action="store_true",
+                   help="return NaN/Inf/out-of-range payloads verbatim "
+                        "instead of quarantining them as error:numerics")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the model runs (default cuda)")
+    _add_watchdog_flags(p)
+    _add_governor_flags(p)
+
+
 def _add_analyze(sub) -> None:
     p = sub.add_parser("analyze", help="statistical analyses over artifacts")
     p.add_argument("--perturbation-results", type=Path, default=None,
@@ -342,6 +450,7 @@ def _perturb_configs(args):
     rt_kw = dict(batch_size=args.batch_size,
                  sweep_full_completions=args.full_completions,
                  sweep_early_stop=not args.no_early_stop)
+    _guard_rt_kw(args, rt_kw)
     # Flags named as their RuntimeConfig field.
     for name in ("sweep_decode_tokens", "sweep_confidence_tokens",
                  "max_seq_len", "max_new_tokens", "sweep_group_min_prefix",
@@ -399,10 +508,13 @@ def cmd_sweep(args) -> None:
     from .engine.multi import run_model_comparison_sweep
     from .models.factory import engine_factory
 
+    rt_kw = dict(batch_size=args.batch_size)
+    _guard_rt_kw(args, rt_kw)
     factory = engine_factory(
-        args.checkpoints, RuntimeConfig(batch_size=args.batch_size),
+        args.checkpoints, RuntimeConfig(**rt_kw),
         quantize_int8=args.int8, int8_dynamic=args.int8_dynamic,
-        device=args.device, kv_cache_int8=args.kv_cache_int8)
+        device=args.device, kv_cache_int8=args.kv_cache_int8,
+        cache_root=args.param_cache)
     run_model_comparison_sweep(
         _parse_models(args.models), factory, args.out,
         sweep_kind=args.sweep_kind,
@@ -423,7 +535,7 @@ def cmd_perturb(args) -> None:
         int8_dynamic=args.int8_dynamic, spec_config=spec_cfg,
         cascade_config=cascade_cfg, device=args.device,
         kv_cache_int8=args.kv_cache_int8,
-        governor_config=_governor_cfg(args))
+        governor_config=_governor_cfg(args), cache_root=args.param_cache)
     entries = load_or_generate_perturbations(args.perturbations, LEGAL_PROMPTS)
     perturbations = [rephrasings for _, rephrasings in entries]
     engine = factory(args.model)
@@ -471,6 +583,120 @@ def _fleet_draft(factory, model_id: str, engine):
         fleet.shutdown()
         raise
     return fleet, engine, draft_id
+
+
+def cmd_serve(args) -> None:
+    """The single-model path of the JAX ``serve`` command: JSONL requests
+    in, one JSONL result a request out (in request order, after the
+    input ends), the ``{"op": "stats"}`` line answered at once, and with
+    ``--state-checkpoint`` SIGTERM checkpointing every unresolved
+    request (re-submitted on the next start)."""
+    import json
+    import signal
+
+    from .config import RuntimeConfig, ServeConfig
+    from .data.prompts import LEGAL_PROMPTS
+    from .models.factory import engine_factory
+    from .serve import ScoringServer, ServeRequest
+
+    rt_kw = dict(batch_size=args.batch_size)
+    for name in ("sweep_decode_tokens", "sweep_confidence_tokens",
+                 "prefix_cache_pages", "prefix_page_size"):
+        if getattr(args, name) is not None:
+            rt_kw[name] = getattr(args, name)
+    if args.no_streaming_stats:
+        rt_kw["streaming_stats"] = False
+    if args.no_numerics_guard:
+        rt_kw["numerics_guard"] = False
+    _guard_rt_kw(args, rt_kw)
+    classes = dict(ServeConfig().classes)
+    for spec in args.deadline or ():
+        name, sep, secs = spec.partition("=")
+        try:
+            classes[name] = float(secs)
+        except ValueError:
+            sep = ""
+        if not sep or not name:
+            raise SystemExit(f"--deadline {spec!r} must be CLASS=SECONDS")
+    serve_kw = {}
+    if args.max_consecutive_failures is not None:
+        serve_kw["max_consecutive_failures"] = args.max_consecutive_failures
+    if args.stream_window is not None:
+        serve_kw["stream_window"] = args.stream_window
+    serve_cfg = ServeConfig(
+        queue_depth=args.queue_depth, classes=tuple(classes.items()),
+        linger_s=args.linger_ms / 1000.0,
+        cache_entries=args.cache_entries,
+        breaker_cooldown_s=args.breaker_cooldown,
+        prefix_cache=not args.no_prefix_cache,
+        pad_full=not args.no_pad_full,
+        degrade_ladder=not args.no_degrade_ladder, **serve_kw)
+    factory = engine_factory(
+        args.checkpoints, RuntimeConfig(**rt_kw), quantize_int8=args.int8,
+        int8_dynamic=args.int8_dynamic, device=args.device,
+        kv_cache_int8=args.kv_cache_int8,
+        governor_config=_governor_cfg(args), cache_root=args.param_cache)
+    engine = factory(args.model)
+    server = ScoringServer(engine, args.model, serve_cfg).start()
+
+    futures = []
+    if args.state_checkpoint is not None:
+        def _on_sigterm(signum, frame):
+            n = server.shutdown_checkpoint(args.state_checkpoint)
+            log.warning("SIGTERM: checkpointed %d pending requests -> %s"
+                        "; exiting", n, args.state_checkpoint)
+            sys.exit(0)
+
+        signal.signal(signal.SIGTERM, _on_sigterm)
+        if args.state_checkpoint.exists():
+            # The previous run's unresolved requests go first.
+            futures.extend(server.resume_from_checkpoint(
+                args.state_checkpoint))
+
+    # Default formats: the canonical legal-prompt pair, so a bare
+    # {"prompt": ...} line scores like a sweep cell.
+    default_rf = LEGAL_PROMPTS[0].response_format
+    default_cf = LEGAL_PROMPTS[0].confidence_format
+    stream = (sys.stdin if args.requests == "-"
+              else open(args.requests, encoding="utf-8"))
+    try:
+        for i, line in enumerate(stream):
+            line = line.strip()
+            if not line:
+                continue
+            obj = json.loads(line)
+            if obj.get("op") == "stats":
+                print(json.dumps({"op": "stats",
+                                  "stats": server.stream_summary()}),
+                      flush=True)
+                continue
+            prompt = obj.get("prompt")
+            req = ServeRequest(
+                binary_prompt=obj.get(
+                    "binary_prompt",
+                    f"{prompt} {obj.get('response_format', default_rf)}"),
+                confidence_prompt=obj.get(
+                    "confidence_prompt",
+                    f"{prompt} {obj.get('confidence_format', default_cf)}"),
+                targets=tuple(obj.get("targets", ("Yes", "No"))),
+                klass=obj.get("class", serve_cfg.default_class),
+                deadline_s=obj.get("deadline_s"),
+                request_id=str(obj.get("id", i)))
+            futures.append(server.submit(req))
+    finally:
+        if stream is not sys.stdin:
+            stream.close()
+    for fut in futures:
+        r = fut.result()
+        print(json.dumps({k: v for k, v in vars(r).items()
+                          if not k.startswith("_")}), flush=True)
+    server.stop()
+    if args.state_checkpoint is not None and args.state_checkpoint.exists():
+        args.state_checkpoint.unlink()   # clean drain: nothing pending
+    log.info("serve stats: %s", json.dumps(server.stats.summary()))
+    log.info("serve faults: %s", json.dumps(server.faults.summary()))
+    log.info("serve guard: %s",
+             json.dumps(engine.guard_stats.summary()))
 
 
 def cmd_rephrase(args) -> None:
@@ -601,10 +827,11 @@ def main(argv: Optional[List[str]] = None) -> None:
     _add_survey(sub)
     _add_repro(sub)
     _add_rephrase(sub)
+    _add_serve(sub)
     args = parser.parse_args(argv)
     if getattr(args, "int8_dynamic", False) and not args.int8:
         parser.error("--int8-dynamic requires --int8 (it selects HOW int8 "
                      "matmuls run, not whether weights are quantized)")
     {"sweep": cmd_sweep, "perturb": cmd_perturb, "analyze": cmd_analyze,
      "survey": cmd_survey, "repro": cmd_repro,
-     "rephrase": cmd_rephrase}[args.command](args)
+     "rephrase": cmd_rephrase, "serve": cmd_serve}[args.command](args)

@@ -1,11 +1,12 @@
 """Runtime configuration of the PyTorch scoring engine.
 
 A copy of the part of the JAX package's ``RuntimeConfig``,
-``SpecConfig``, ``CascadeConfig``, ``GovernorConfig``, ``FleetConfig``
-and ``PerturbationConfig`` that this port implements. A flag
-of the JAX engine that the port does not implement yet (the watchdog,
-leased shards, the XLA compile plan) is absent here, so that no caller
-can set it and have it ignored. int8
+``SpecConfig``, ``CascadeConfig``, ``GovernorConfig``, ``FleetConfig``,
+``RetryConfig``, ``ServeConfig`` and ``PerturbationConfig`` that this
+port implements, the dispatch watchdog's knobs included. A flag of the
+JAX engine that the port does not implement yet (leased shards,
+meshes, the XLA compile plan) is absent here, so that no caller can set
+it and have it ignored. int8
 weights are not a flag: they are a param tree of
 ``models.quant.QuantTensor`` leaves (``quantize_decoder_params`` or
 ``init_quantized_params``); the int8 KV cache is
@@ -136,6 +137,18 @@ class RuntimeConfig:
     # writes such rows verbatim (measurement only).
     numerics_guard: bool = True
 
+    # Dispatch watchdog (guard/watchdog.py): every sweep and serve
+    # dispatch runs on a watched thread whose deadline is floor +
+    # multiple x the predicted seconds (scheduler.bucket_cost priced at
+    # this engine's own observed rate). A dispatch that outlives it is
+    # abandoned with a stack dump of every thread and surfaces
+    # DispatchStalled into the recovery path, so an injected or host-side
+    # hang costs one deadline, not the run. multiple <= 0 disables; the
+    # first dispatches are observe-only, and a kernel build (nvcc at
+    # first use) neither counts toward a deadline nor calibrates one.
+    watchdog_multiple: float = 20.0   # cli: --watchdog-multiple
+    watchdog_floor_s: float = 30.0    # cli: --watchdog-floor
+
     # Streaming statistics (engine/stream_stats.py): every perturbation-
     # sweep dispatch folds its position-0 readouts into a device-resident
     # (prompt, rephrasing) lattice with one kernel launch, checkpointed
@@ -234,8 +247,8 @@ class GovernorConfig:
 class FleetConfig:
     """Multi-model fleet knobs (engine/fleet.py over models/weights.py).
 
-    - ``fleet_models``: the model ids a fleet serves (serving's flag,
-      not ported yet).
+    - ``fleet_models``: the model ids a fleet serves (the fleet
+      server's flag, not ported yet: ROADMAP A8b).
     - ``weight_cache_gb``: device budget for co-resident model weights;
       0 = unbounded. When a model would not fit, the LRU model with no
       in-flight dispatch is evicted; a budget smaller than the largest
@@ -255,6 +268,80 @@ class FleetConfig:
     def weight_cache_bytes(self) -> Optional[int]:
         return (int(self.weight_cache_gb * 2**30)
                 if self.weight_cache_gb > 0 else None)
+
+
+@dataclasses.dataclass(frozen=True)
+class RetryConfig:
+    """Exponential-backoff policy (reference: perturb_prompts.py:72-106).
+
+    ``full_jitter=True`` draws each wait from U[0, delay] instead of the
+    multiplicative 0.8-1.2 band; ``max_elapsed`` caps the total time of
+    the retry loop (attempts + sleeps): once another sleep would cross
+    it, the last failure is raised. None keeps the reference's unbounded
+    loop."""
+
+    max_retries: int = 10
+    initial_delay: float = 60.0
+    max_delay: float = 300.0
+    backoff_factor: float = 1.5
+    jitter: Tuple[float, float] = (0.8, 1.2)
+    full_jitter: bool = False
+    max_elapsed: Optional[float] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """Online serving knobs (serve/), the JAX package's less the fleet
+    and router fields, which wait for the fleet server (ROADMAP A8b).
+
+    - ``queue_depth``: admission bound; a submit into a full queue sheds
+      the newcomer, or the queued request with the latest deadline when
+      the newcomer is more urgent.
+    - ``stream_window``: the live statistics ring
+      (engine/stream_stats.ServeStreamSink) behind the ``stats``
+      endpoint; gated on RuntimeConfig.streaming_stats, 0 disables it.
+    - ``prefix_cache``: the cross-request radix prefix cache, on by
+      default for serving (the pool is RuntimeConfig.prefix_cache_pages
+      pages); a warm row is within float tolerance of the cold one.
+    - ``classes`` / ``default_class``: (name, deadline seconds) pairs; a
+      request names its class, an unknown class takes the default's.
+    - ``linger_s``: a partial bucket dispatches once its oldest request
+      waited this long.
+    - ``pad_full``: pad every dispatch to the full batch (one shape per
+      bucket) instead of the sweep's power-of-two tail.
+    - ``cache_entries``: the content-addressed result cache (0: off).
+    - ``max_consecutive_failures`` / ``breaker_cooldown_s``: the circuit
+      breaker (faults/breaker.py) opens after that many failed
+      dispatches in a row and probes again after the cooldown.
+    - ``degrade_ladder``: a dispatch that fails all its retries is
+      bisected to isolate poison rows (faults/ladder.py) instead of
+      erroring the whole batch.
+    - ``retry``: the dispatch retry policy (short, full jitter, capped).
+    """
+
+    queue_depth: int = 256
+    stream_window: int = 4096
+    prefix_cache: bool = True
+    classes: Tuple[Tuple[str, float], ...] = (
+        ("interactive", 10.0), ("batch", 300.0))
+    default_class: str = "batch"
+    linger_s: float = 0.02
+    pad_full: bool = True
+    cache_entries: int = 4096
+    max_consecutive_failures: int = 3
+    breaker_cooldown_s: float = 30.0
+    degrade_ladder: bool = True
+    retry: RetryConfig = dataclasses.field(
+        default_factory=lambda: RetryConfig(
+            max_retries=2, initial_delay=0.25, max_delay=2.0,
+            backoff_factor=2.0, full_jitter=True, max_elapsed=8.0))
+
+    def deadline_for(self, klass: str) -> float:
+        table = dict(self.classes)
+        if klass in table:
+            return table[klass]
+        return table.get(self.default_class,
+                         max(table.values()) if table else 300.0)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -18,8 +18,8 @@ Port of ``lir_tpu/engine/fleet.py``:
   models have left (the JAX fleet has no such retry).
 
 The JAX fleet's ``sweep`` helper, whose one caller is the JAX
-benchmark, and serving's ``attach_tiers`` / ``reseed_weights`` come
-with the port's benchmark and serving.
+benchmark, and the memory tiers' ``attach_tiers`` / ``reseed_weights``
+come with the port's benchmark and the fleet server (ROADMAP A8b).
 
 Engines are built once (tokenizer, buckets and counters persist); only
 the param tree moves. A re-streamed tree is bitwise its staged

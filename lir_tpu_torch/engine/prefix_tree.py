@@ -34,7 +34,8 @@ and eviction counters (``utils/profiling.PrefixCacheStats``).
 
 The JAX module's router-side ``ClusterPrefixIndex``, its page listeners
 and the migration / tier hooks (``forget_tail``, ``evict_tail``,
-``coldest_leaves``) belong to serving and are not ported yet.
+``coldest_leaves``) belong to the fleet server and migration, not
+ported yet (ROADMAP A8b).
 """
 
 from __future__ import annotations

@@ -64,6 +64,15 @@ under ``spec_stats["fallbacks"]``. Fleet drafting
 (:meth:`ScoringEngine.set_spec_draft`, armed by ``engine/fleet.py``)
 drafts with another model's weights on the unpaged speculative route;
 a paged-warm dispatch falls back to the sequential paged route.
+
+Guard and faults (guard/, faults/): every engine owns a dispatch
+watchdog (``watchdog``, deadlines from ``RuntimeConfig.watchdog_*``,
+counters in ``guard_stats``) that the sweep's dispatch recovery and the
+serve supervisor run their dispatches under, a ``fault_stats`` the
+sweep's recovery counts into, and a ``spec_fault_plan`` hook
+(faults.wrap_engine) through which a fault plan corrupts speculative
+drafts. :meth:`ScoringEngine.reset_dispatch_state` is the recovery's
+first step after a failed dispatch.
 """
 
 from __future__ import annotations
@@ -80,10 +89,12 @@ import torch
 
 from ..config import CascadeConfig, GovernorConfig, RuntimeConfig, SpecConfig
 from ..device import resolve_device
+from ..guard.watchdog import DispatchWatchdog
 from ..models import decoder, paged, quant
-from ..utils.profiling import GuardStats, KernelStats, PrefixCacheStats
-from . import (generate, hbm, prefix_tree, prng, score, spec as spec_mod,
-               tokens as tok)
+from ..utils.profiling import (FaultStats, GuardStats, KernelStats,
+                               PrefixCacheStats)
+from . import (generate, hbm, prefix_tree, prng, scheduler as sched_mod,
+               score, spec as spec_mod, tokens as tok)
 
 log = logging.getLogger(__name__)
 
@@ -233,6 +244,11 @@ class ScoringEngine:
         # (engine/stream_stats.StreamSink; None with the sink off).
         self.guard_stats = GuardStats()
         self.stream_sink = None
+        # Dispatch recovery counters (the sweep's _dispatch_with_recovery)
+        # and the fault plan whose "draft" site corrupts speculative
+        # drafts (faults.wrap_engine sets it; spec.build_plan reads it).
+        self.fault_stats = FaultStats()
+        self.spec_fault_plan = None
         # The piggyback chain's counters (chains_opened,
         # piggybacked_steps, chains_drained, chain_fallbacks) and its
         # parked dispatch (None between chains).
@@ -286,6 +302,17 @@ class ScoringEngine:
         self.governor.set_action("evict_pages", engage=evict_pages)
         if self.rt.prefix_cache:
             self.enable_prefix_cache()
+        # The dispatch watchdog (guard/watchdog.py). A speculating engine
+        # prices dispatches at the speculative decode floor and a cascade
+        # engine on trunk-discounted prefills, so their first calibration
+        # sample takes the wider headroom (a zero-accept dispatch or a
+        # dense fallback must never trip a deadline calibrated on them).
+        self.watchdog = DispatchWatchdog(
+            multiple=self.rt.watchdog_multiple,
+            floor_s=self.rt.watchdog_floor_s, stats=self.guard_stats,
+            seed_headroom=sched_mod.watchdog_seed_headroom(
+                self.rt.spec_decode and self.rt.spec_k >= 2,
+                cascade=self.cascade_supported()))
 
     # -- device-memory governor (engine/hbm.py) ------------------------------
 
@@ -297,6 +324,20 @@ class ScoringEngine:
         """Drop the ledger's parked-carry entry (the fleet calls this when
         it evicts the engine's weights; no chain is parked then)."""
         self.governor.unregister(self._handoff_key)
+
+    def reset_dispatch_state(self) -> None:
+        """The dispatch recovery's first step after a failed dispatch
+        (the JAX engine's ``degrade_to_lazy``, which drops its AOT
+        executable registry and resets its cache-donation chain). Eager
+        PyTorch has no executable registry and the port no donation
+        chain: what a failed dispatch can leave behind is a parked
+        piggyback carry and its ledger entry, dropped here (the chain's
+        owner re-runs the parked dispatch plainly). A prefix-cache plan
+        releases its pins on the failure itself."""
+        if self._piggy is not None:
+            self.kernel_stats.count("chain_fallbacks")
+        self._piggy = None
+        self.fresh_handoff()
 
     def release_params_ledger(self) -> None:
         """The fleet's weight cache now owns this engine's param bytes:
@@ -1264,14 +1305,19 @@ class ScoringEngine:
                 odds_ratio=(p1 / p2) if p2 > 0 else float("inf")))
         return out
 
-    def score_prompts(self, prompts: Sequence[str]) -> List[PromptScore]:
-        """Score every prompt; one decode per full batch."""
+    def score_prompts(self, prompts: Sequence[str],
+                      dispatch=None) -> List[PromptScore]:
+        """Score every prompt; one decode per full batch. ``dispatch``
+        runs each batch's zero-argument call (the word-meaning sweep
+        passes its dispatch recovery, engine/sweep.py); None calls it."""
         order = np.argsort([len(p) for p in prompts], kind="stable")
         rows: List[Optional[PromptScore]] = [None] * len(prompts)
         B = self.rt.batch_size
         for start in range(0, len(order), B):
             idx = order[start:start + B]
-            rows_out = self._score_batch([prompts[i] for i in idx])
+            batch = [prompts[i] for i in idx]
+            rows_out = (self._score_batch(batch) if dispatch is None
+                        else dispatch(lambda: self._score_batch(batch)))
             for i, r in zip(idx, rows_out):
                 rows[i] = r
         return rows  # type: ignore[return-value]

@@ -60,6 +60,29 @@ def decode_token_cost(fused_decode: bool = True,
             else DECODE_TOKEN_COST_UNFUSED)
 
 
+# Cascade-prefill spread of the watchdog's seed headroom: a cascade
+# engine's deadlines calibrate on trunk-discounted dispatches, and an
+# ineligible dispatch falls back to the full dense prefill, at most
+# about twice the discounted price.
+CASCADE_PREFILL_SPREAD = 2.0
+
+
+def watchdog_seed_headroom(spec_decode: bool = False,
+                           cascade: bool = False) -> float:
+    """Seed headroom of the dispatch watchdog (guard/watchdog.py): the
+    first calibration sample is inflated by the spread between the
+    decode pricing a deadline calibrates on and the slowest mode a
+    dispatch may fall back to (the dense decode path): UNFUSED / SPEC on
+    a speculating engine, UNFUSED / FUSED otherwise, times
+    CASCADE_PREFILL_SPREAD on a cascade engine. The JAX package's rule."""
+    seed = (DECODE_TOKEN_COST_UNFUSED / DECODE_TOKEN_COST_SPEC
+            if spec_decode
+            else DECODE_TOKEN_COST_UNFUSED / DECODE_TOKEN_COST_FUSED)
+    if cascade:
+        seed *= CASCADE_PREFILL_SPREAD
+    return seed
+
+
 def _tail_batch(n: int, cap: int) -> int:
     """Smallest power of two >= n, capped (mirrors runner._tail_batch)."""
     b = 1

@@ -1,7 +1,6 @@
 """Speculative scoring decode: the host half.
 
-Port of ``lir_tpu/engine/spec.py`` without the fault hooks (the port has
-no fault plan yet). The device half is
+Port of ``lir_tpu/engine/spec.py``. The device half is
 ``generate.greedy_decode_fused_shared_spec`` (and its paged twin): draft
 up to ``spec_k - 1`` tokens a window, verify the window in one
 multi-query forward, accept greedily, so every emitted token is the
@@ -18,7 +17,10 @@ n-gram drafter drafts alone) — records observed completions back into
 the tree (:func:`record_tails`) so a repeat visit drafts the whole
 reply, and folds the dispatches' device-side ``SpecOut`` counters into
 the engine's ``spec_stats`` at flush time (:func:`flush_pending`), with
-one device-to-host copy for all of them.
+one device-to-host copy for all of them. A fault plan on the engine
+(``spec_fault_plan``, faults.wrap_engine) corrupts the plan's drafts at
+its "draft" site: a bad draft only costs re-verification, every emitted
+token stays the sequential loop's.
 """
 
 from __future__ import annotations
@@ -117,6 +119,10 @@ def build_plan(engine, bin_ids: Sequence[Sequence[int]],
                                           bin_ids, new_tokens)
         draft_b, dlen_b, _ = _tree_drafts(engine.prefix_cache, bucket,
                                           conf_ids, conf_tokens)
+    fault = engine.spec_fault_plan
+    if fault is not None:
+        fault.corrupt_draft([(draft_a, dlen_a), (draft_b, dlen_b)],
+                            int(engine.cfg.vocab_size))
     return SpecPlan(k=int(engine.rt.spec_k), ngram=int(spec_cfg.ngram),
                     ctx_a=ctx_a, ctx_a_len=len_a,
                     draft_a=draft_a, draft_a_len=dlen_a,

@@ -25,6 +25,10 @@ thread; a lock orders the two (on the card it only orders their
 enqueueing, and stream order makes each checkpoint a superset of the
 rows it precedes).
 
+The serve loop's ring (:class:`ServeStreamSink`) is host-side: serving
+copies every payload to the host anyway, so it folds resolved payloads,
+once each, keyed by content address.
+
 The device-side validity predicate is the numerics guard's
 (``guard/numerics.check_values``), so a row the guard quarantines as
 ``error:numerics`` is invalid in the lattice too. ``save_accum`` writes
@@ -34,12 +38,13 @@ accumulator.
 
 from __future__ import annotations
 
+import collections
 import os
 import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -216,3 +221,151 @@ def load_accum(path: Path) -> Optional[streaming.HostAccum]:
         log.warning("stream accum %s unreadable (%r); starting fresh",
                     path, err)
         return None
+
+
+class ServeStreamSink:
+    """Online streaming sink (the JAX package's): live percentile and
+    kappa estimates over the last ``window`` served rows, grouped by
+    target pair.
+
+    Folds consume resolved payloads on the host, which makes the
+    accounting idempotent across a shutdown checkpoint: a row folds iff
+    its future resolved ok, exactly once, keyed by content address. A
+    row cancelled in flight never folds; re-submitted after a resume it
+    folds on its fresh score, once."""
+
+    def __init__(self, window: int = 4096, max_groups: int = 64,
+                 stats: Optional[StreamStats] = None):
+        self.window = max(int(window), 1)
+        self.max_groups = int(max_groups)
+        self.stats = stats if stats is not None else StreamStats()
+        self._lock = threading.Lock()
+        # The ring and the idempotence set, guarded by _lock (the
+        # supervisor folds while the stats endpoint reads).
+        self._group_ids: Dict[Tuple[str, str], int] = {}
+        self._group = np.full(self.window, -1, np.int32)
+        self._rel = np.full(self.window, np.nan, np.float64)
+        self._conf = np.full(self.window, np.nan, np.float64)
+        self._dec = np.full(self.window, -1, np.int32)
+        self._head = 0
+        self._folded: "collections.OrderedDict[str, None]" = (
+            collections.OrderedDict())
+        self._folded_cap = max(8 * self.window, 65536)
+
+    def _group_id(self, targets: Tuple[str, str]) -> int:  # guarded-by: _lock
+        gid = self._group_ids.get(targets)
+        if gid is None:
+            if len(self._group_ids) >= self.max_groups:
+                return self.max_groups - 1  # overflow bucket
+            gid = len(self._group_ids)
+            self._group_ids[targets] = gid
+        return gid
+
+    def fold_payload(self, key, targets: Tuple[str, str],
+                     payload: Dict) -> bool:
+        """Fold one resolved payload; False when its content address
+        already folded (a dedup hit, a resume, a re-submitted row)."""
+        key = str(key)
+        t1p = payload.get("token_1_prob")
+        t2p = payload.get("token_2_prob")
+        wc = payload.get("weighted_confidence")
+        with self._lock:
+            if key in self._folded:
+                return False
+            self._folded[key] = None
+            while len(self._folded) > self._folded_cap:
+                self._folded.popitem(last=False)
+            i = self._head % self.window
+            self._head += 1
+            self._group[i] = self._group_id(tuple(targets))
+            if (t1p is not None and t2p is not None
+                    and np.isfinite(t1p) and np.isfinite(t2p)
+                    and t1p + t2p > 0):
+                self._rel[i] = t1p / (t1p + t2p)
+                self._dec[i] = 1 if t1p > t2p else 0
+            else:
+                self._rel[i] = np.nan
+                self._dec[i] = -1
+            self._conf[i] = (float(wc) if wc is not None
+                             and np.isfinite(wc) else np.nan)
+        self.stats.count("rows_folded")
+        return True
+
+    def summary(self) -> Dict[str, object]:
+        """Live estimates over the ring: per group n, mean and 2.5/97.5
+        percentiles of the relative probability, the confidence mean,
+        and the within-group kappa of the decisions
+        (stats/streaming's closed form)."""
+        self.stats.count("live_queries")
+        with self._lock:
+            used = self._group >= 0
+            group = self._group[used].copy()
+            rel = self._rel[used].copy()
+            conf = self._conf[used].copy()
+            dec = self._dec[used].copy()
+            names = {gid: list(t) for t, gid in self._group_ids.items()}
+            head = self._head
+        per_group: Dict[str, object] = {}
+        for gid in sorted(set(group.tolist())):
+            m = group == gid
+            r = rel[m]
+            r = r[np.isfinite(r)]
+            entry: Dict[str, object] = {
+                "targets": names.get(gid, ["?", "?"]),
+                "rows": int(m.sum()), "n_valid": int(r.size),
+            }
+            if r.size:
+                entry.update({
+                    "mean_relative_prob": float(r.mean()),
+                    "p2_5": float(np.percentile(r, 2.5)),
+                    "p97_5": float(np.percentile(r, 97.5)),
+                })
+            c = conf[m]
+            c = c[np.isfinite(c)]
+            if c.size:
+                entry["mean_weighted_confidence"] = float(c.mean())
+            per_group[str(gid)] = entry
+        valid = dec >= 0
+        kap = streaming.kappa_from_counts(
+            *streaming.group_counts(group[valid], dec[valid]))
+        return {"rows_folded": int(head),
+                "window": int(min(head, self.window)),
+                "per_group": per_group, "kappa": kap}
+
+    def state(self) -> Dict[str, object]:
+        """JSON-serializable snapshot for the serve shutdown checkpoint:
+        the ring AND the folded-key set."""
+        with self._lock:
+            return {
+                "window": self.window,
+                "head": self._head,
+                "groups": [[list(t), gid]
+                           for t, gid in self._group_ids.items()],
+                "group": self._group.tolist(),
+                "rel": [None if not np.isfinite(v) else float(v)
+                        for v in self._rel],
+                "conf": [None if not np.isfinite(v) else float(v)
+                         for v in self._conf],
+                "dec": self._dec.tolist(),
+                "folded": list(self._folded.keys()),
+            }
+
+    def restore(self, state: Optional[Dict[str, object]]) -> None:
+        """Reload a :meth:`state` snapshot (ignored when absent or of
+        another window size)."""
+        if not state or int(state.get("window", 0)) != self.window:
+            return
+        with self._lock:
+            self._head = int(state["head"])
+            self._group_ids = {tuple(t): int(g)
+                               for t, g in state["groups"]}
+            self._group = np.asarray(state["group"], np.int32)
+            self._rel = np.asarray(
+                [np.nan if v is None else v for v in state["rel"]],
+                np.float64)
+            self._conf = np.asarray(
+                [np.nan if v is None else v for v in state["conf"]],
+                np.float64)
+            self._dec = np.asarray(state["dec"], np.int32)
+            self._folded = collections.OrderedDict(
+                (k, None) for k in state.get("folded", ()))

@@ -22,10 +22,13 @@ completion tails recorded for the tree's drafts), with its piggyback chains
 (runs of consecutive same-shape shared dispatches without a cascade
 trunk ride one another's engine calls, ``ScoringEngine.
 decode_fused_shared_piggy``; a failed chain call falls back to the
-plain dispatch of both batches), and with these of its engine features
-off, which the port does not have yet: the dispatch recovery/watchdog,
-multihost shards and leases, and the XLA compile plan (which has no
-counterpart in eager PyTorch). The
+plain dispatch of both batches), with its dispatch recovery
+(:func:`_dispatch_with_recovery`: every dispatch under the engine's
+watchdog, a failed one retried after ``ScoringEngine.
+reset_dispatch_state``, an out-of-memory one after the governor's
+reclaim), and with these of its engine features off, which the port
+does not have yet: multihost shards and leases, and the XLA compile
+plan (which has no counterpart in eager PyTorch). The
 reasoning mode (``reasoning=True``) samples each cell's binary prompt
 ``reasoning_runs`` times on ``generate.sample_decode`` and writes
 count-fraction rows.
@@ -39,18 +42,24 @@ import logging
 import queue
 import re
 import threading
+import time
 from pathlib import Path
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..config import RetryConfig
 from ..data import schemas
 from ..data.prompts import LegalPrompt
 from ..guard import numerics
+from ..guard.watchdog import EnginePoisoned
+from ..ops import _build
 from ..utils.manifest import SweepManifest
-from ..utils.profiling import OccupancyStats, StreamStats
+from ..utils.profiling import OccupancyStats, StreamStats, is_oom_error
+from ..utils.retry import retry_with_exponential_backoff
 from . import generate
+from . import hbm
 from . import grid as grid_mod
 from . import prng
 from . import scheduler as sched_mod
@@ -63,6 +72,112 @@ log = logging.getLogger(__name__)
 
 CHECKPOINT_EVERY = 100  # rows, perturb_prompts.py:975-984
 
+# Dispatch recovery policy of the offline sweep: a transient fault (or
+# an injected one, faults/) costs a short full-jitter retry window, not
+# the sweep. Brief on purpose: the sweep resumes from its manifest, so a
+# persistent outage should fail fast into the operator's restart.
+DISPATCH_RETRY = RetryConfig(max_retries=3, initial_delay=0.05,
+                             max_delay=1.0, backoff_factor=2.0,
+                             full_jitter=True, max_elapsed=30.0)
+
+
+def _watched(engine, call, cost=None, stamp=None):
+    """``call()`` under the engine's dispatch watchdog (site "sweep",
+    ``cost`` the dispatch's ``scheduler.bucket_cost`` price), so that its
+    deadline covers the device work and not only the enqueue. On the
+    card the call ends with an event recorded on the dispatch's own
+    stream (the worker runs on the caller's current stream; never a
+    device-wide synchronize, which would also wait on the fleet's
+    prefetch stream and the writer's copies):
+
+    - with ``stamp`` (a dict), the call returns once enqueued and puts
+      (event, start, builds at start, cost) in ``stamp["v"]``; the
+      pipeline's writer waits for the event under the deadline
+      (``DispatchWatchdog.watch_device``), so the main thread plans the
+      next dispatch while the card runs this one;
+    - without, the call waits for the event itself.
+
+    With the watchdog off nothing waits. The engine ticks its governor
+    itself, once a dispatch (no tick here)."""
+    wd = engine.watchdog
+    if not wd.enabled:
+        return call()
+    if engine.device.type != "cuda":
+        return wd.watch(call, cost=cost, site="sweep")
+
+    def enqueued():
+        t0, built0 = time.monotonic(), _build.build_seconds()
+        out = call()
+        done = torch.cuda.Event()
+        done.record()
+        if stamp is None:
+            done.synchronize()
+        else:
+            stamp["v"] = (done, t0, built0, cost)
+        return out
+
+    return wd.watch(enqueued, cost=cost, site="sweep",
+                    calibrate=stamp is None)
+
+
+def _dispatch_with_recovery(engine, call, cost=None, stamp=None):
+    """One device dispatch with the sweep's recovery (the JAX sweep's
+    ``_dispatch_with_recovery``). The call runs under the watchdog
+    (:func:`_watched`), so a hang surfaces DispatchStalled here after
+    one deadline. On failure, first the abandoned call of a stall must
+    leave the engine (``DispatchWatchdog.settle``; an engine it still
+    holds after the grace raises ``EnginePoisoned`` out of the sweep, as
+    does any later retry that finds one), then:
+
+    - an out-of-memory error (``profiling.is_oom_error``: a
+      ``torch.cuda.OutOfMemoryError`` or the JAX package's texts) goes
+      to the governor's ``handle_oom``, which force-engages the reclaim
+      rungs; when that freed anything the dispatch is retried ONCE, and
+      a second out-of-memory error raises ``hbm.HbmExhausted`` with the
+      ledger's arithmetic. Nothing freed re-raises the error;
+    - any other error resets what the failed dispatch may have left
+      (``ScoringEngine.reset_dispatch_state``) and retries under
+      DISPATCH_RETRY, counting ``fault_stats.recovered_dispatches``.
+
+    KeyboardInterrupt, SystemExit and injected preemptions
+    (BaseException) always propagate: recovery outlives faults, not
+    kills."""
+
+    def watched():
+        return _watched(engine, call, cost, stamp)
+
+    try:
+        return watched()
+    except (KeyboardInterrupt, SystemExit, EnginePoisoned):
+        raise
+    except Exception as err:  # noqa: BLE001 — retried below
+        engine.watchdog.settle()
+        gov = engine.governor
+        if is_oom_error(err):
+            if gov.handle_oom("sweep"):
+                log.warning("sweep dispatch OOMed (%r); governor "
+                            "reclaimed — retrying once", err)
+                try:
+                    return watched()
+                except (KeyboardInterrupt, SystemExit, EnginePoisoned):
+                    raise
+                except Exception as err2:  # noqa: BLE001
+                    if is_oom_error(err2):
+                        gov.stats.count("oom_exhausted")
+                        raise hbm.HbmExhausted(
+                            gov.oom_message("sweep", err2)) from err2
+                    raise
+            raise
+        log.warning("sweep dispatch failed (%r); resetting the engine's "
+                    "dispatch state and retrying", err)
+        engine.reset_dispatch_state()
+        out = retry_with_exponential_backoff(
+            watched, retry_on=(Exception,), config=DISPATCH_RETRY,
+            log=lambda m: log.warning("sweep dispatch retry: %s", m),
+            give_up_on=(EnginePoisoned,))
+        engine.fault_stats.count("recovered_dispatches")
+        return out
+
 
 def run_word_meaning_sweep(
     engine: ScoringEngine, model_name: str, base_or_instruct: str,
@@ -73,7 +188,10 @@ def run_word_meaning_sweep(
     ``format_prompt`` is the C14 formatter (few-shot for base models, direct
     for instruct — compare_base_vs_instruct.py:462-463)."""
     prompts = [format_prompt(q) for q in questions]
-    results = engine.score_prompts(prompts)
+    # Each batch under the dispatch recovery and its watchdog (the JAX
+    # sweep calls score_prompts bare): a hung batch costs one deadline.
+    results = engine.score_prompts(
+        prompts, dispatch=lambda call: _dispatch_with_recovery(engine, call))
     rows = []
     for q, r in zip(questions, results):
         rows.append(schemas.ScoreRow(
@@ -250,8 +368,11 @@ def run_perturbation_sweep(
         log.info("speculative decode: %s", json.dumps(dict(engine.spec_stats)))
     if engine.prefix_cache is not None:
         log.info("prefix cache: %s", json.dumps(engine.prefix_stats.summary()))
-    if engine.guard_stats.quarantined:
-        log.info("numerics guard: %s", json.dumps(engine.guard_stats.summary()))
+    if engine.guard_stats.quarantined or engine.guard_stats.stalls:
+        log.info("guard: %s", json.dumps(engine.guard_stats.summary()))
+    if engine.fault_stats.recovered_dispatches:
+        log.info("fault recovery: %s",
+                 json.dumps(engine.fault_stats.summary()))
     if sink is not None:
         # Cheap finalize (counts + kappa; CIs on demand through
         # sink.finalize(n_boot=...)): the live-estimate readout.
@@ -364,6 +485,7 @@ def _run_pipelined(engine, model_name, todo, target_ids, results_path,
     resumed sweep re-scores at most ``checkpoint_every`` cells.
     """
     B = engine.rt.batch_size
+    fused_dec = engine.rt.fused_decode
     work_q: "queue.Queue" = queue.Queue(maxsize=2)
     failed = threading.Event()
     writer_err: List[BaseException] = []
@@ -395,15 +517,17 @@ def _run_pipelined(engine, model_name, todo, target_ids, results_path,
             engine.spec_record(bucket, b_ids, gen, n)
             engine.spec_record(bucket, c_ids, cgen, n)
 
-    def _emit(batch, fused, cfused, t1, t2, spec_rec=None):
+    def _emit(batch, fused, cfused, t1, t2, spec_rec=None, stamp=None):
         """Readout, the sink's fold (on this thread, on the dispatch's
-        stream; pad rows past ``batch`` drop), then the writer."""
+        stream; pad rows past ``batch`` drop), then the writer, with the
+        watched dispatch's ``stamp`` (its device work's deadline)."""
         res = score_mod.readout_from_fused(
             fused, engine._t(t1), engine._t(t2), scan_positions=1)
         if sink is not None:
             sink.fold(res.yes_prob, res.no_prob, cfused.weighted_confidence,
                       fused.topk_logprobs, batch)
-        work_q.put((batch, fused, res, cfused, spec_rec))
+        work_q.put((batch, fused, res, cfused, spec_rec,
+                    (stamp or {}).get("v")))
 
     # Streaming-only manifest marks (no rows to key them off). The
     # lattice checkpoints FIRST, then the cells are marked done: a crash
@@ -419,7 +543,11 @@ def _run_pipelined(engine, model_name, todo, target_ids, results_path,
                  len(pending_marks), accum_path)
         del pending_marks[:]
 
-    def _drain(batch, fused, res, cfused, spec_rec):
+    def _drain(batch, fused, res, cfused, spec_rec, device_work):
+        if device_work is not None:
+            # The dispatch's device work under its watchdog deadline; a
+            # stall fails the sweep (the card never gives it back).
+            engine.watchdog.watch_device(*device_work, site="sweep")
         if not write_rows:
             # Streaming only: no per-row payload is copied to the host;
             # the bytes the CSV path would have copied are counted.
@@ -540,12 +668,20 @@ def _run_pipelined(engine, model_name, todo, target_ids, results_path,
             # Both formats in ONE call: the binary and confidence prompts
             # share the rephrased legal text, prefilled once.
             t1, t2 = _targets(full)
-            fused, cfused = engine.decode_fused_shared(
-                [c.binary_prompt for c in full],
-                [c.confidence_prompt for c in full],
-                t1, t2, new_tokens=new_tokens, conf_tokens=conf_tokens,
-                early_stop=early_stop)
-            _emit(batch, fused, cfused, t1, t2)
+            stamp: dict = {}
+            fused, cfused = _dispatch_with_recovery(
+                engine, lambda: engine.decode_fused_shared(
+                    [c.binary_prompt for c in full],
+                    [c.confidence_prompt for c in full],
+                    t1, t2, new_tokens=new_tokens, conf_tokens=conf_tokens,
+                    early_stop=early_stop),
+                # Legacy batches pick their bucket inside the engine:
+                # priced at the ladder's widest edge.
+                cost=sched_mod.bucket_cost(bsz, max(engine.buckets), B,
+                                           new_tokens + conf_tokens,
+                                           fused_decode=fused_dec),
+                stamp=stamp)
+            _emit(batch, fused, cfused, t1, t2, stamp=stamp)
 
     # Piggyback chains: runs of CONSECUTIVE shared dispatches of one
     # shape (bucket queues drain same-shape batches back to back) chain
@@ -557,28 +693,44 @@ def _run_pipelined(engine, model_name, todo, target_ids, results_path,
     use_piggy = ragged and engine.piggyback_supported()
     piggy_keys = chain_keys(engine, dispatches, B) if ragged else []
     pending: List[Optional[dict]] = [None]   # the parked dispatch's meta
+    # The watchdog's prices (scheduler.bucket_cost, the planner's model):
+    # a speculating engine at the verify-window floor. A cascade
+    # dispatch is priced without its trunk discount (the engine finds
+    # its trunk itself; the seed headroom covers the spread).
+    spec_on = engine.spec_supported()
+
+    def _shared_cost(meta):
+        return sched_mod.bucket_cost(
+            meta["n"], meta["bucket"], B, new_tokens + conf_tokens,
+            fused_decode=fused_dec, spec_decode=spec_on)
 
     def _plain_shared(meta):
         full_items = meta["full_items"]
-        fused, cfused = engine.decode_fused_shared(
-            [it.cell.binary_prompt for it in full_items],
-            [it.cell.confidence_prompt for it in full_items],
-            meta["t1"], meta["t2"], new_tokens=new_tokens,
-            conf_tokens=conf_tokens, early_stop=early_stop,
-            pretokenized_a=[it.bin_ids for it in full_items],
-            pretokenized_b=[it.conf_ids for it in full_items],
-            bucket=meta["bucket"], sfx_buckets_ab=meta["sfx_ab"],
-            reuse_cache=True, n_real=meta["n"])
+        stamp: dict = {}
+        fused, cfused = _dispatch_with_recovery(
+            engine, lambda: engine.decode_fused_shared(
+                [it.cell.binary_prompt for it in full_items],
+                [it.cell.confidence_prompt for it in full_items],
+                meta["t1"], meta["t2"], new_tokens=new_tokens,
+                conf_tokens=conf_tokens, early_stop=early_stop,
+                pretokenized_a=[it.bin_ids for it in full_items],
+                pretokenized_b=[it.conf_ids for it in full_items],
+                bucket=meta["bucket"], sfx_buckets_ab=meta["sfx_ab"],
+                reuse_cache=True, n_real=meta["n"]),
+            cost=_shared_cost(meta), stamp=stamp)
         spec_rec = None
         if record:
             spec_rec = ([it.bin_ids for it in full_items],
                         [it.conf_ids for it in full_items],
                         meta["bucket"], meta["n"])
-        _emit(meta["batch"], fused, cfused, meta["t1"], meta["t2"], spec_rec)
+        _emit(meta["batch"], fused, cfused, meta["t1"], meta["t2"], spec_rec,
+              stamp)
 
     def _redispatch_pending():
         """Broken chain: the parked dispatch is recomputed through the
-        plain path, which owes nothing to the chain."""
+        plain path, which owes nothing to the chain (once an abandoned
+        chain call has left the engine)."""
+        engine.watchdog.settle()
         meta, pending[0] = pending[0], None
         engine.piggy_abort()
         _plain_shared(meta)
@@ -587,9 +739,15 @@ def _run_pipelined(engine, model_name, todo, target_ids, results_path,
         if pending[0] is None:
             return
         meta = pending[0]
+        stamp: dict = {}
         try:
-            fused, cfused = engine.piggy_drain(meta["t1"], meta["t2"])
-        except (KeyboardInterrupt, SystemExit):
+            fused, cfused = _watched(
+                engine, lambda: engine.piggy_drain(meta["t1"], meta["t2"]),
+                cost=sched_mod.decode_floor(meta["n"], B,
+                                            new_tokens + conf_tokens,
+                                            fused_decode=fused_dec),
+                stamp=stamp)
+        except (KeyboardInterrupt, SystemExit, EnginePoisoned):
             raise
         except BaseException as err:  # noqa: BLE001 — plain-path fallback
             log.warning("piggyback drain failed (%r); re-dispatching the "
@@ -597,7 +755,8 @@ def _run_pipelined(engine, model_name, todo, target_ids, results_path,
             _redispatch_pending()
             return
         pending[0] = None
-        _emit(meta["batch"], fused, cfused, meta["t1"], meta["t2"])
+        _emit(meta["batch"], fused, cfused, meta["t1"], meta["t2"],
+              stamp=stamp)
 
     def _dispatch_ragged():
         for i, d in enumerate(dispatches):
@@ -625,21 +784,31 @@ def _run_pipelined(engine, model_name, todo, target_ids, results_path,
                     _plain_shared(meta)
                     continue
                 prev = pending[0]
+                cost = sched_mod.bucket_cost(
+                    n, d.bucket, B, new_tokens + conf_tokens,
+                    fused_decode=fused_dec)
+                if prev is not None:
+                    cost += sched_mod.decode_floor(
+                        prev["n"], B, new_tokens + conf_tokens,
+                        fused_decode=fused_dec)
+                stamp: dict = {}
                 try:
-                    out = engine.decode_fused_shared_piggy(
-                        [it.bin_ids for it in full_items],
-                        [it.conf_ids for it in full_items], new_tokens,
-                        conf_tokens, early_stop, d.bucket,
-                        (d.sfx_bucket_a, d.sfx_bucket_b),
-                        prev_yes=prev["t1"] if prev else None,
-                        prev_no=prev["t2"] if prev else None)
+                    out = _watched(
+                        engine, lambda: engine.decode_fused_shared_piggy(
+                            [it.bin_ids for it in full_items],
+                            [it.conf_ids for it in full_items], new_tokens,
+                            conf_tokens, early_stop, d.bucket,
+                            (d.sfx_bucket_a, d.sfx_bucket_b),
+                            prev_yes=prev["t1"] if prev else None,
+                            prev_no=prev["t2"] if prev else None), cost,
+                        stamp)
                 except PiggybackIneligible as err:
                     log.info("piggyback ineligible (%s); dispatching "
                              "plainly", err)
                     _drain_pending()
                     _plain_shared(meta)
                     continue
-                except (KeyboardInterrupt, SystemExit):
+                except (KeyboardInterrupt, SystemExit, EnginePoisoned):
                     raise
                 except BaseException as err:  # noqa: BLE001
                     log.warning("piggyback step failed (%r); falling back "
@@ -647,20 +816,30 @@ def _run_pipelined(engine, model_name, todo, target_ids, results_path,
                     if pending[0] is not None:
                         _redispatch_pending()
                     else:
+                        engine.watchdog.settle()
                         engine.piggy_abort()
                     _plain_shared(meta)
                     continue
                 if out is not None:
-                    _emit(prev["batch"], *out, prev["t1"], prev["t2"])
+                    _emit(prev["batch"], *out, prev["t1"], prev["t2"],
+                          stamp=stamp)
                 pending[0] = meta
                 continue
             else:
                 _drain_pending()   # grouped shapes never ride the chain
                 t1, t2 = _targets(batch)
-                out, m = engine.decode_fused_grouped(
-                    d.groups, t1, t2, new_tokens, conf_tokens, early_stop,
-                    d.bucket, max(d.sfx_bucket_a, d.sfx_bucket_b),
-                    reuse_cache=True)
+                stamp = {}
+                out, m = _dispatch_with_recovery(
+                    engine, lambda: engine.decode_fused_grouped(
+                        d.groups, t1, t2, new_tokens, conf_tokens,
+                        early_stop, d.bucket,
+                        max(d.sfx_bucket_a, d.sfx_bucket_b),
+                        reuse_cache=True),
+                    # Grouped dispatches run [bin, conf] member rows a
+                    # cell: the doubled row count is priced.
+                    cost=sched_mod.bucket_cost(
+                        2 * n, d.bucket, B, new_tokens + conf_tokens,
+                        fused_decode=fused_dec), stamp=stamp)
 
                 # Member rows are [bin, conf] per cell: even rows carry
                 # the binary readout, odd rows the confidence one. Both
@@ -681,7 +860,7 @@ def _run_pipelined(engine, model_name, todo, target_ids, results_path,
 
                 fused = _branch(0, new_tokens)
                 cfused = _branch(1, conf_tokens)
-            _emit(batch, fused, cfused, t1, t2)
+            _emit(batch, fused, cfused, t1, t2, stamp=stamp)
         _drain_pending()   # close the chain's last dispatch
 
     wt = threading.Thread(target=_writer, name="sweep-writer", daemon=True)

@@ -1,0 +1,30 @@
+"""Fault injection and the recovery primitives it proves out (port of
+``lir_tpu/faults``):
+
+- plan.FaultPlan: seeded per-site schedules wrapping the engine's
+  dispatches (``wrap_engine``), the serve batcher (``wrap_server``), the
+  speculative drafter (``corrupt_draft``) and the device-memory
+  governor (``wrap_governor``);
+- breaker.CircuitBreaker: the serve health flag as a closed / open /
+  half-open breaker (serve/server.py);
+- ladder.degrade_dispatch: bisect a failing batch to isolate poison rows
+  (serve/server.py).
+
+The sweep's own recovery (retry, reset, OOM reclaim) is
+``engine/sweep._dispatch_with_recovery``; counters land in
+``profiling.FaultStats`` and ``profiling.GuardStats``.
+"""
+
+from .breaker import CLOSED, HALF_OPEN, OPEN, CircuitBreaker
+from .ladder import degrade_dispatch
+from .plan import (KINDS, SITES, FaultPlan, InjectedFault,
+                   InjectedPreemption, SiteSchedule, corrupt_result_nan,
+                   tear_jsonl_tail, wrap_engine, wrap_governor, wrap_server)
+
+__all__ = [
+    "FaultPlan", "SiteSchedule", "InjectedFault", "InjectedPreemption",
+    "SITES", "KINDS", "wrap_engine", "wrap_server", "wrap_governor",
+    "tear_jsonl_tail", "corrupt_result_nan",
+    "CircuitBreaker", "CLOSED", "OPEN", "HALF_OPEN",
+    "degrade_dispatch",
+]

@@ -1,0 +1,358 @@
+"""Deterministic, seeded fault injection at the engine and serve
+boundaries. Port of ``lir_tpu/faults/plan.py``.
+
+A :class:`FaultPlan` holds per-SITE failure schedules (explicit call
+indices and an optional seeded Bernoulli rate) that raise
+:class:`InjectedFault` (a transient device error's stand-in) or
+:class:`InjectedPreemption` (a kill) at exactly the same calls on every
+run with the same seed. Sites are plain strings; ``SITES`` and
+``KINDS`` keep the JAX package's tuples.
+
+Kinds and where the port wires them:
+
+- ``fault`` / ``preempt``: raise before the call (any site;
+  :meth:`FaultPlan.check`, :meth:`FaultPlan.wrap`);
+- ``hang``: sleep ``hang_s`` BEFORE the real call, then raise on
+  release: a stall the dispatch watchdog must abandon. The sleep ends
+  early when the watchdog abandons the call (its worker holds the
+  engine's dispatch lock, which the retry waits for); the engine is
+  never touched either way (a real device-side hang is another matter:
+  guard/watchdog.py);
+- ``nan``: run the call, then NaN-corrupt its result rows ``nan_rows``
+  (:func:`corrupt_result_nan`: the engine's ``FusedDecodeOut`` tensors,
+  or serve payload dicts) for the numerics guard to quarantine;
+- ``draft_corrupt``: overwrite speculative drafts
+  (:meth:`FaultPlan.corrupt_draft`, called by ``engine/spec.build_plan``
+  through the engine's ``spec_fault_plan``);
+- ``hbm_squeeze``: shrink the device-memory governor's budget
+  (:func:`wrap_governor` over ``HbmGovernor.tick``).
+
+The replica, migration and tier kinds and sites (``replica_kill``,
+``replica_lag``, ``migration_*``, ``tier_corrupt``, ``disk_stall``;
+sites ``replica``, ``migrate``, ``tiers``) wait for the fleet server
+(ROADMAP A8b): a plan given one raises at construction rather than
+ignore it.
+
+``InjectedPreemption`` subclasses BaseException on purpose: a real kill
+does not flow through ``except Exception`` recovery, so neither may its
+simulation.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import random
+import threading
+import time
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from ..guard import watchdog
+from ..utils.profiling import FaultStats
+
+SITES = ("dispatch", "compile", "tokenize", "manifest_write",
+         "checkpoint_write", "preempt", "replica", "hbm", "migrate",
+         "tiers")
+
+KINDS = ("fault", "preempt", "hang", "nan", "replica_kill",
+         "replica_lag", "hbm_squeeze", "migration_stall",
+         "migration_corrupt", "tier_corrupt", "disk_stall")
+
+# What waits for the fleet server's wrappers (ROADMAP A8b).
+_A8B_KINDS = ("replica_kill", "replica_lag", "migration_stall",
+              "migration_corrupt", "tier_corrupt", "disk_stall")
+_A8B_SITES = ("replica", "migrate", "tiers")
+# Kinds that act on a result or a side channel, never before the call.
+_PASSIVE_KINDS = ("nan", "draft_corrupt", "hbm_squeeze")
+
+
+class InjectedFault(RuntimeError):
+    """A scheduled transient failure (device error stand-in)."""
+
+
+class InjectedPreemption(BaseException):
+    """A scheduled kill. BaseException so recovery code catching
+    Exception cannot 'survive' it."""
+
+
+@dataclasses.dataclass(frozen=True)
+class SiteSchedule:
+    """When one site fails.
+
+    - ``fail_calls``: explicit 0-based call indices that fail;
+    - ``rate``: also a seeded Bernoulli failure probability per call;
+    - ``max_failures``: a bound on injections at this site (a rate then
+      models a transient outage);
+    - ``kind``: see the module docstring; ``hang_s`` is the hang's
+      sleep, ``nan_rows`` the rows a ``nan`` or ``draft_corrupt``
+      corrupts, ``squeeze_frac`` / ``squeeze_calls`` the squeeze.
+    """
+
+    fail_calls: Tuple[int, ...] = ()
+    rate: float = 0.0
+    max_failures: Optional[int] = None
+    kind: str = "fault"
+    hang_s: float = 30.0
+    nan_rows: Tuple[int, ...] = (0,)
+    squeeze_frac: float = 0.5
+    squeeze_calls: int = 8
+
+    @classmethod
+    def outage(cls, start: int, length: int) -> "SiteSchedule":
+        """Every call in [start, start+length) fails."""
+        return cls(fail_calls=tuple(range(start, start + length)))
+
+    @classmethod
+    def kill_at(cls, call: int) -> "SiteSchedule":
+        """A simulated preemption at one call index."""
+        return cls(fail_calls=(call,), kind="preempt")
+
+    @classmethod
+    def hang_at(cls, call: int, seconds: float = 30.0) -> "SiteSchedule":
+        """A simulated stall at one call index: sleep ``seconds`` before
+        the real call, then raise. Pick ``seconds`` past the deadline
+        under test."""
+        return cls(fail_calls=(call,), kind="hang", hang_s=seconds)
+
+    @classmethod
+    def nan_at(cls, call: int,
+               rows: Tuple[int, ...] = (0,)) -> "SiteSchedule":
+        """NaN into the named result rows' measurement fields at one
+        call index (a silent-data-corruption stand-in)."""
+        return cls(fail_calls=(call,), kind="nan", nan_rows=rows)
+
+    @classmethod
+    def draft_corrupt_at(cls, call: int,
+                         rows: Tuple[int, ...] = (0,)) -> "SiteSchedule":
+        """Corrupt the named rows' speculative drafts at one
+        ``corrupt_draft`` call index (site "draft" by convention)."""
+        return cls(fail_calls=(call,), kind="draft_corrupt", nan_rows=rows)
+
+    @classmethod
+    def hbm_squeeze_at(cls, call: int, frac: float = 0.5,
+                       calls: int = 8) -> "SiteSchedule":
+        """Shrink the governor's budget to ``frac`` of its base at
+        governor tick ``call`` for the next ``calls`` ticks (site "hbm";
+        :func:`wrap_governor`)."""
+        return cls(fail_calls=(call,), kind="hbm_squeeze",
+                   squeeze_frac=frac, squeeze_calls=calls)
+
+
+class FaultPlan:
+    """Seeded per-site failure schedules and the counters they feed.
+    Thread-safe: call counters and per-site generators sit behind one
+    lock, so concurrent sites see one deterministic schedule."""
+
+    def __init__(self, seed: int = 0,
+                 schedules: Optional[Dict[str, SiteSchedule]] = None,
+                 stats: Optional[FaultStats] = None):
+        self.seed = int(seed)
+        self.schedules: Dict[str, SiteSchedule] = dict(schedules or {})
+        for site, sched in self.schedules.items():
+            if site in _A8B_SITES or sched.kind in _A8B_KINDS:
+                raise ValueError(
+                    f"fault schedule {site}:{sched.kind} needs the fleet "
+                    f"server's wrappers, which the port does not have yet "
+                    f"(ROADMAP A8b)")
+        self.stats = stats if stats is not None else FaultStats()
+        self._calls: Dict[str, int] = {}
+        self._injected: Dict[str, int] = {}
+        self._rngs: Dict[str, random.Random] = {}
+        self._lock = threading.Lock()
+
+    def calls(self, site: str) -> int:
+        with self._lock:
+            return self._calls.get(site, 0)
+
+    def _decide(self, site: str) -> Optional[SiteSchedule]:
+        """Advance the site's call counter; return its schedule when THIS
+        call should fail."""
+        with self._lock:
+            idx = self._calls.get(site, 0)
+            self._calls[site] = idx + 1
+            sched = self.schedules.get(site)
+            if sched is None:
+                return None
+            done = self._injected.get(site, 0)
+            if sched.max_failures is not None and done >= sched.max_failures:
+                return None
+            fail = idx in sched.fail_calls
+            if not fail and sched.rate > 0.0:
+                rng = self._rngs.get(site)
+                if rng is None:
+                    # Site-keyed stream: adding a site never perturbs
+                    # another site's draws.
+                    rng = random.Random(f"{self.seed}:{site}")
+                    self._rngs[site] = rng
+                fail = rng.random() < sched.rate
+            if not fail:
+                return None
+            self._injected[site] = done + 1
+        return sched
+
+    def _fire(self, sched: SiteSchedule, site: str) -> None:
+        """Raise the scheduled raise-style failure (fault, preempt,
+        hang)."""
+        idx = self.calls(site) - 1
+        if sched.kind == "preempt":
+            self.stats.inject(site, preemption=True)
+            raise InjectedPreemption(
+                f"injected preemption at {site} call {idx}")
+        self.stats.inject(site)
+        if sched.kind == "hang":
+            abandoned = watchdog.abandoned_event()
+            if abandoned is None:
+                time.sleep(sched.hang_s)
+            else:
+                abandoned.wait(sched.hang_s)
+            raise InjectedFault(
+                f"injected hang at {site} call {idx} released (at most "
+                f"{sched.hang_s:.2f}s)")
+        raise InjectedFault(f"injected fault at {site} call {idx}")
+
+    def check(self, site: str) -> None:
+        """The injection point: raise when the schedule says this call
+        fails, else return. A result or side-channel kind (nan,
+        draft_corrupt, hbm_squeeze) is a no-op here."""
+        sched = self._decide(site)
+        if sched is None or sched.kind in _PASSIVE_KINDS:
+            return
+        self._fire(sched, site)
+
+    def corrupt_draft(self, drafts, vocab_size: int,
+                      site: str = "draft") -> int:
+        """The speculative-decode injection point (engine/spec.
+        build_plan): when the ``site`` schedule fires with kind
+        "draft_corrupt", overwrite the scheduled rows' draft tokens
+        (``drafts``: a list of (tokens (B, T), lens (B,)) host arrays,
+        changed in place) with seeded IN-VOCAB garbage; a row without a
+        draft gains a short forced one, so the injection reaches the
+        verifier. Returns the tokens corrupted."""
+        sched = self._decide(site)
+        if sched is None or sched.kind != "draft_corrupt":
+            return 0
+        self.stats.inject(site)
+        idx = self.calls(site) - 1
+        rng = random.Random(f"{self.seed}:{site}:{idx}")
+        corrupted = 0
+        for toks, lens in drafts:
+            budget = toks.shape[1]
+            for r in sched.nan_rows:
+                if r >= toks.shape[0]:
+                    continue
+                if lens[r] == 0:
+                    lens[r] = min(2, budget)
+                for t in range(int(lens[r])):
+                    toks[r, t] = (int(toks[r, t]) + 1
+                                  + rng.randrange(max(vocab_size - 1, 1))
+                                  ) % vocab_size
+                    corrupted += 1
+        return corrupted
+
+    def wrap(self, site: str, fn: Callable) -> Callable:
+        """``fn`` under the site's schedule (indexed by the site's call
+        count, not by wrapper): raise-style kinds fire BEFORE the call;
+        "nan" runs the call and corrupts its result rows."""
+
+        def wrapped(*args, **kwargs):
+            sched = self._decide(site)
+            if sched is not None:
+                if sched.kind == "nan":
+                    self.stats.inject(site)
+                    return corrupt_result_nan(fn(*args, **kwargs),
+                                              sched.nan_rows)
+                if sched.kind not in _PASSIVE_KINDS:
+                    self._fire(sched, site)
+            return fn(*args, **kwargs)
+
+        wrapped.__wrapped__ = fn  # type: ignore[attr-defined]
+        return wrapped
+
+
+def wrap_engine(engine, plan: FaultPlan):
+    """The plan's ``dispatch`` site in front of the engine's shared and
+    grouped dispatches (the sweep's device boundary), and the plan handed
+    to the speculative drafter (site ``draft``). Instance attributes
+    only: the class and other engines stay clean. A wrapped
+    ``decode_fused_shared`` turns piggyback chains off
+    (``ScoringEngine.piggyback_supported``), as in the JAX engine."""
+    engine.decode_fused_shared = plan.wrap("dispatch",
+                                           engine.decode_fused_shared)
+    engine.decode_fused_grouped = plan.wrap("dispatch",
+                                            engine.decode_fused_grouped)
+    engine.spec_fault_plan = plan
+    return engine
+
+
+def wrap_server(server, plan: FaultPlan):
+    """The plan's ``dispatch`` site in front of the batcher's score call
+    (the serve device boundary, under the supervisor's retry, watchdog,
+    ladder and breaker)."""
+    server.batcher.score = plan.wrap("dispatch", server.batcher.score)
+    return server
+
+
+def wrap_governor(governor, plan: FaultPlan, site: str = "hbm"):
+    """The plan's ``site`` schedule in front of a device-memory
+    governor's tick (engine/hbm.HbmGovernor, one tick a dispatch). A
+    firing ``hbm_squeeze`` shrinks the budget to ``squeeze_frac`` of its
+    base for the next ``squeeze_calls`` ticks, then restores it. Other
+    raise-style kinds fire before the tick."""
+    inner = governor.tick
+
+    def wrapped(*args, **kwargs):
+        sched = plan._decide(site)
+        if sched is not None:
+            if sched.kind == "hbm_squeeze":
+                plan.stats.inject(site)
+                governor.squeeze(sched.squeeze_frac,
+                                 calls=sched.squeeze_calls)
+            elif sched.kind not in _PASSIVE_KINDS:
+                plan._fire(sched, site)
+        return inner(*args, **kwargs)
+
+    wrapped.__wrapped__ = inner  # type: ignore[attr-defined]
+    governor.tick = wrapped
+    return governor
+
+
+def corrupt_result_nan(result, rows: Tuple[int, ...]):
+    """NaN-corrupt the measurement fields of ``rows`` in a dispatch
+    result. Handles the engine's results (tuples of FusedDecodeOut: NaN
+    into p_yes / p_no / topk_logprobs / weighted_confidence at the given
+    batch rows, on new tensors: the call's own stay as they were) and
+    serve payload lists (NaN into the row's measurement dict). Anything
+    else passes through (the grouped dispatch's member count)."""
+    if isinstance(result, tuple):
+        return tuple(corrupt_result_nan(r, rows) for r in result)
+    if isinstance(result, list):
+        out = list(result)
+        for r in rows:
+            if 0 <= r < len(out) and isinstance(out[r], dict):
+                p = dict(out[r])
+                nan = float("nan")
+                p["token_1_prob"] = nan
+                p["token_2_prob"] = nan
+                p["weighted_confidence"] = nan
+                out[r] = p
+        return out
+    if dataclasses.is_dataclass(result) and hasattr(result, "p_yes"):
+        fields = {}
+        for name in ("p_yes", "p_no", "topk_logprobs",
+                     "weighted_confidence"):
+            t = getattr(result, name).clone()
+            for r in rows:
+                if 0 <= r < int(t.shape[0]):
+                    t[r] = torch.nan
+            fields[name] = t
+        return dataclasses.replace(result, **fields)
+    return result
+
+
+def tear_jsonl_tail(path, fragment: str = '{"model": "m", "orig') -> None:
+    """Append a torn (non-JSON, newline-free) fragment to a JSONL file:
+    the on-disk state a kill mid-append leaves behind."""
+    with open(path, "a") as f:
+        f.write(fragment)
+        f.flush()

@@ -1,7 +1,8 @@
 """Numerics guard: the validation boundary at score-extraction time.
 
-The part of ``lir_tpu/guard/numerics.py`` that the model-comparison
-sweep uses: :func:`check_values` and its epsilons. A corrupt kernel or
+Port of ``lir_tpu/guard/numerics.py``: :func:`check_values` and its
+epsilons (the sweeps' rows), and :func:`check_payload` (a serve
+payload). A corrupt kernel or
 card does not crash, it emits NaN/Inf logits, and those flow through
 the softmax readouts into the CSVs as plausible-looking numbers; every
 row crosses this check first. It rejects only what a valid softmax
@@ -18,6 +19,7 @@ Offending rows are quarantined as ``error:numerics`` by the caller.
 
 from __future__ import annotations
 
+import json
 import math
 from typing import Optional, Sequence
 
@@ -67,3 +69,21 @@ def check_values(token_1_prob, token_2_prob,
             if (arr > _P_EPS).any():
                 return "log-probability map contains positive logprobs"
     return None
+
+
+def check_payload(payload: dict) -> Optional[str]:
+    """:func:`check_values` over a serve measurement payload (the dict
+    ``serve.batcher.ContinuousBatcher.score`` returns a row). The
+    log-prob map's string is parsed back, so a NaN that reached only
+    the map is caught too."""
+    lp = None
+    s = payload.get("log_probabilities")
+    if s:
+        try:
+            lp = list(json.loads(s).values())
+        except ValueError:
+            return "log-probability map unparseable"
+    return check_values(payload.get("token_1_prob"),
+                        payload.get("token_2_prob"),
+                        payload.get("weighted_confidence"), lp,
+                        payload.get("confidence_value"))

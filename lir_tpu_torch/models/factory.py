@@ -7,6 +7,10 @@ Port of ``lir_tpu/models/factory.py``. The flow is
   read here, torch .bin fallback) -> loader.convert_decoder (convert_t5)
   onto the device -> optional int8 -> ScoringEngine
 
+With ``cache_root`` the converted tree goes through the parameter cache
+(models/cache.py): converted and written on the first load, read back
+on every later one with no conversion.
+
 with neither ``transformers`` nor ``safetensors``: the safetensors format
 is parsed here (an 8-byte little-endian header length, a JSON header of
 ``dtype`` / ``shape`` / ``data_offsets`` per tensor, the data after it)
@@ -32,7 +36,7 @@ from ..config import CascadeConfig, RuntimeConfig, SpecConfig
 from ..device import resolve_device
 from ..engine.runner import ScoringEngine
 from ..utils.logging import get_logger
-from . import loader, quant
+from . import cache as cache_mod, loader, quant
 
 log = get_logger(__name__)
 
@@ -173,6 +177,7 @@ def load_engine(
     device="cuda",
     kv_cache_int8: bool = False,
     governor_config=None,
+    cache_root: Optional[Path] = None,
 ) -> ScoringEngine:
     """Build a ready ScoringEngine from a local HF checkpoint directory
     on ``device`` (the card unless the CPU is asked for).
@@ -190,7 +195,11 @@ def load_engine(
     ``tokenizer=None`` loads the directory's tokenizer with
     ``transformers.AutoTokenizer``. ``governor_config``
     (config.GovernorConfig) configures the engine's device-memory
-    governor (engine/hbm.py)."""
+    governor (engine/hbm.py). ``cache_root`` keeps the converted tree in
+    the parameter cache (models/cache.py), keyed by the directory's
+    name: a cold load converts and writes the entry, a warm one reads
+    it (raising when its dtype is not ``dtype``); quantization runs
+    after either."""
     dev = resolve_device(device)
     model_dir = Path(model_dir)
     hf_cfg = json.loads((model_dir / "config.json").read_text())
@@ -199,14 +208,24 @@ def load_engine(
         tokenizer = _auto_tokenizer(model_dir)
     if dtype is None:
         dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
-    if encdec:
-        cfg = loader.t5_config_from_hf(hf_cfg, name=str(model_dir))
-        params = loader.convert_t5(load_state_dict(model_dir), cfg,
-                                   dtype=dtype, device=dev)
+    if (cache_root is not None
+            and cache_mod.has_cached(cache_root, model_dir.name)):
+        params, cfg = cache_mod.load_params(cache_root, model_dir.name,
+                                            dtype, dev)
     else:
-        cfg, family = loader.config_from_hf(hf_cfg, name=str(model_dir))
-        params = loader.convert_decoder(load_state_dict(model_dir), cfg,
-                                        family, dtype=dtype, device=dev)
+        if encdec:
+            cfg = loader.t5_config_from_hf(hf_cfg, name=str(model_dir))
+            params = loader.convert_t5(load_state_dict(model_dir), cfg,
+                                       dtype=dtype, device=dev)
+        else:
+            cfg, family = loader.config_from_hf(hf_cfg,
+                                                name=str(model_dir))
+            params = loader.convert_decoder(load_state_dict(model_dir),
+                                            cfg, family, dtype=dtype,
+                                            device=dev)
+        if cache_root is not None:
+            cache_mod.save_params(cache_root, model_dir.name, params, cfg,
+                                  dtype)
     if kv_cache_int8:
         if encdec:
             log.warning(
@@ -242,6 +261,7 @@ def engine_factory(
     device="cuda",
     kv_cache_int8: bool = False,
     governor_config=None,
+    cache_root: Optional[Path] = None,
 ):
     """EngineFactory for engine.multi: maps an HF repo id to
     ``checkpoint_root/<org>__<name>``, ``checkpoint_root/<name>`` or
@@ -265,7 +285,8 @@ def engine_factory(
                                    cascade_config=cascade_config,
                                    tokenizer=tokenizer, device=dev,
                                    kv_cache_int8=kv_cache_int8,
-                                   governor_config=governor_config)
+                                   governor_config=governor_config,
+                                   cache_root=cache_root)
         raise FileNotFoundError(
             f"no local checkpoint for {model_name} under {checkpoint_root} "
             f"(tried {[str(c) for c in candidates]})")

@@ -6,7 +6,10 @@ C interface, loaded with ``ctypes``. The library lands in
 ``build/lir_tpu_torch/`` at the root of the checkout, under a name keyed
 on a hash of its source, the headers and the flags, so an edited source
 rebuilds and an unchanged one is reused. A failed compile raises: there
-is no fallback.
+is no fallback. :func:`build_seconds` is the wall time spent compiling
+so far (a compile in progress included): the dispatch watchdog
+(guard/watchdog.py) takes it out of a dispatch's elapsed time, so a
+kernel built at first use neither trips nor calibrates a deadline.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
@@ -33,6 +37,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # Compiler output (ptxas register / shared-memory report) of each build.
 BUILD_LOGS: Dict[str, str] = {}
+# Wall seconds of finished compile rounds, and the start of each round
+# in progress (keyed by the building thread).
+_BUILD_LOCK = threading.Lock()
+_BUILD_DONE_S = 0.0
+_BUILD_ACTIVE: Dict[int, float] = {}
+
+
+def build_seconds() -> float:
+    """Wall seconds spent in compile rounds so far, a round in progress
+    counted up to now."""
+    now = time.monotonic()
+    with _BUILD_LOCK:
+        return _BUILD_DONE_S + sum(now - t for t in _BUILD_ACTIVE.values())
 
 
 def _nvcc() -> str:
@@ -60,6 +77,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     """Compile every library in ``names`` (default: all) that is not
     built yet: one ``nvcc`` per source, all started together. Returns
     the seconds each compile took (0.0 for a library already built)."""
+    global _BUILD_DONE_S
     names = list(SOURCES if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
@@ -75,6 +93,20 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         running.append((name, out, tmp, proc, time.perf_counter()))
+    if not running:
+        return seconds
+    me = threading.get_ident()
+    with _BUILD_LOCK:
+        _BUILD_ACTIVE[me] = time.monotonic()
+    try:
+        _wait(running, seconds)
+    finally:
+        with _BUILD_LOCK:
+            _BUILD_DONE_S += time.monotonic() - _BUILD_ACTIVE.pop(me)
+    return seconds
+
+
+def _wait(running, seconds: Dict[str, float]) -> None:
     failures = []
     for name, out, tmp, proc, t0 in running:
         log, _ = proc.communicate()
@@ -87,7 +119,6 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         os.replace(tmp, out)
     if failures:
         raise RuntimeError("\n".join(failures))
-    return seconds
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -7,8 +7,10 @@ Copies from the JAX package's ``utils/profiling.py``:
   stop's retire positions;
 - ``ThroughputMeter`` (prompts/sec/card, implied TFLOPS and MFU against
   the card's published peak) with ``scoring_step_flops``;
-- ``GuardStats``: the numerics guard's per-site counters (its
-  quarantine part);
+- ``GuardStats``: the guard layer's per-site counters (the dispatch
+  watchdog's and the numerics guard's);
+- ``ServeStats`` and ``FaultStats``: the serving layer's and the fault
+  machinery's counters (retry, ladder, breaker);
 - ``StreamStats``: the streaming-statistics sink's counters;
 - ``PrefixCacheStats``: the cross-request prefix cache's counters;
 - ``KernelStats``: the piggyback chain's counters (its ``phases``, which
@@ -262,18 +264,44 @@ class ThroughputMeter:
 
 @dataclasses.dataclass
 class GuardStats:
-    """The numerics guard's counters per SITE ("multi", ...), thread-safe:
-    ``checked`` rows validated, ``quarantined`` rows withheld, and
-    ``reasons`` histogramming the causes (NaN probs, a model that failed
-    to load, ...). The JAX package's watchdog, serve and multihost
-    counters wait for the guard layer (ROADMAP A7)."""
+    """Guard-layer counters per SITE ("sweep", "serve", "multi"),
+    thread-safe: the sweep's writer thread, the serve supervisor and the
+    watched dispatch threads all touch them.
 
+    - ``watched``: dispatches run under an enforced watchdog deadline
+      (uncalibrated observe-only runs are not counted: they cannot fire);
+    - ``stalls``: watchdog expiries per site, each a dispatch that would
+      have hung the run and instead cost one deadline; ``stall_dumps``
+      counts the all-thread stack dumps;
+    - ``checked`` / ``quarantined``: numerics-guard rows validated and
+      rows withheld as ``error:numerics``; ``reasons`` histograms the
+      causes (NaN probs, a model that failed to load, ...);
+    - ``inflight_cancelled``: serve rows resolved partial because their
+      deadline passed while their dispatch was still running (the
+      watched call's tick callback);
+    - ``poisoned``: recoveries refused because an abandoned dispatch
+      still held the engine past the watchdog's grace
+      (``guard.watchdog.EnginePoisoned``).
+
+    The JAX package's multihost counters (``barrier_timeouts``,
+    ``heartbeats``) wait for the port's multi-device item (ROADMAP A9).
+    """
+
+    watched: Dict[str, int] = dataclasses.field(default_factory=dict)
+    stalls: Dict[str, int] = dataclasses.field(default_factory=dict)
     checked: Dict[str, int] = dataclasses.field(default_factory=dict)
     quarantined: Dict[str, int] = dataclasses.field(default_factory=dict)
     reasons: Dict[str, int] = dataclasses.field(default_factory=dict)
+    stall_dumps: int = 0
+    inflight_cancelled: int = 0
+    poisoned: int = 0
 
     def __post_init__(self) -> None:
         self._lock = threading.Lock()
+
+    def count(self, field: str, n: int = 1) -> None:
+        with self._lock:
+            setattr(self, field, getattr(self, field) + n)
 
     def site(self, field: str, site: str, n: int = 1) -> None:
         with self._lock:
@@ -288,10 +316,183 @@ class GuardStats:
     def summary(self) -> Dict[str, object]:
         with self._lock:
             return {
+                "watched": dict(self.watched),
+                "stalls": dict(self.stalls),
+                "stalls_total": sum(self.stalls.values()),
+                "stall_dumps": self.stall_dumps,
                 "checked": dict(self.checked),
                 "quarantined": dict(self.quarantined),
                 "quarantined_total": sum(self.quarantined.values()),
                 "quarantine_reasons": dict(self.reasons),
+                "inflight_cancelled": self.inflight_cancelled,
+                "poisoned": self.poisoned,
+            }
+
+
+@dataclasses.dataclass
+class ServeStats:
+    """Online serving counters (serve/), thread-safe: the supervisor loop
+    and every submitting thread touch them. A copy of the JAX package's.
+
+    - ``submitted`` / ``admitted`` / ``shed``: admission accounting
+      (``shed`` counts refused newcomers and deadline-aware evictions);
+    - dedup hit rate = result-cache hits / lookups;
+    - ``expired``: rows whose deadline passed before their result (a
+      partial, confidence-free result); ``late``: rows completed past
+      their deadline;
+    - slot occupancy % = real rows / padded batch slots over every
+      dispatch; ``promoted`` counts rows the batcher moved into a bigger
+      bucket's queue;
+    - latency percentiles (p50/p95/p99) over submit -> result seconds.
+    """
+
+    submitted: int = 0
+    admitted: int = 0
+    shed: int = 0
+    completed: int = 0
+    expired: int = 0
+    errors: int = 0
+    late: int = 0
+    dedup_hits: int = 0
+    dedup_misses: int = 0
+    dispatches: int = 0
+    slots_used: int = 0
+    slots_paid: int = 0
+    promoted: int = 0
+    queue_depth_peak: int = 0
+    _latencies: list = dataclasses.field(default_factory=list)
+    _max_latencies: int = 100_000
+
+    def __post_init__(self) -> None:
+        self._lock = threading.Lock()
+
+    def count(self, field: str, n: int = 1) -> None:
+        with self._lock:
+            setattr(self, field, getattr(self, field) + n)
+
+    def note_queue_depth(self, depth: int) -> None:
+        with self._lock:
+            self.queue_depth_peak = max(self.queue_depth_peak, depth)
+
+    def add_dispatch(self, used: int, paid: int) -> None:
+        with self._lock:
+            self.dispatches += 1
+            self.slots_used += used
+            self.slots_paid += paid
+
+    def record_latency(self, seconds: float) -> None:
+        with self._lock:
+            if len(self._latencies) < self._max_latencies:
+                self._latencies.append(float(seconds))
+
+    @property
+    def dedup_hit_rate(self) -> float:
+        n = self.dedup_hits + self.dedup_misses
+        return self.dedup_hits / n if n else 0.0
+
+    @property
+    def slot_occupancy_pct(self) -> float:
+        return (100.0 * self.slots_used / self.slots_paid
+                if self.slots_paid else 0.0)
+
+    def latency_percentiles(self) -> Dict[str, float]:
+        with self._lock:
+            lat = sorted(self._latencies)
+        if not lat:
+            return {"p50_s": 0.0, "p95_s": 0.0, "p99_s": 0.0}
+
+        def pct(p: float) -> float:
+            i = min(len(lat) - 1, max(0, int(round(p * (len(lat) - 1)))))
+            return lat[i]
+
+        return {"p50_s": round(pct(0.50), 4), "p95_s": round(pct(0.95), 4),
+                "p99_s": round(pct(0.99), 4)}
+
+    def summary(self) -> Dict[str, object]:
+        out: Dict[str, object] = {
+            "submitted": self.submitted,
+            "admitted": self.admitted,
+            "shed": self.shed,
+            "completed": self.completed,
+            "expired": self.expired,
+            "errors": self.errors,
+            "late": self.late,
+            "dedup_hits": self.dedup_hits,
+            "dedup_misses": self.dedup_misses,
+            "dedup_hit_rate": round(self.dedup_hit_rate, 4),
+            "dispatches": self.dispatches,
+            "slot_occupancy_pct": round(self.slot_occupancy_pct, 2),
+            "promoted": self.promoted,
+            "queue_depth_peak": self.queue_depth_peak,
+        }
+        out.update(self.latency_percentiles())
+        return out
+
+
+@dataclasses.dataclass
+class FaultStats:
+    """Fault-injection and recovery counters (faults/, the sweep's
+    dispatch recovery, the serve supervisor), thread-safe. A copy of the
+    JAX package's.
+
+    - ``injected``: per-site injected-fault counts (the plan's ground
+      truth, so "recovered" reads against "thrown at");
+    - ``recovered_dispatches``: dispatches that failed at least once and
+      still resolved rows (retry, reset, ladder);
+    - ``degraded_dispatches`` / ``degraded_rows``: dispatches that
+      entered the degradation ladder, and the poison rows it resolved
+      as errors;
+    - breaker counters and ``transitions``: every circuit-breaker state
+      change in order.
+    """
+
+    injected: Dict[str, int] = dataclasses.field(default_factory=dict)
+    recovered_dispatches: int = 0
+    degraded_dispatches: int = 0
+    degraded_rows: int = 0
+    preemptions: int = 0
+    breaker_opens: int = 0
+    breaker_probes: int = 0
+    breaker_closes: int = 0
+    transitions: list = dataclasses.field(default_factory=list)
+
+    def __post_init__(self) -> None:
+        self._lock = threading.Lock()
+
+    def count(self, field: str, n: int = 1) -> None:
+        with self._lock:
+            setattr(self, field, getattr(self, field) + n)
+
+    def inject(self, site: str, preemption: bool = False) -> None:
+        with self._lock:
+            self.injected[site] = self.injected.get(site, 0) + 1
+            if preemption:
+                self.preemptions += 1
+
+    def transition(self, frm: str, to: str) -> None:
+        with self._lock:
+            self.transitions.append((frm, to))
+            if to == "open":
+                self.breaker_opens += 1
+            elif to == "half_open":
+                self.breaker_probes += 1
+            elif to == "closed":
+                self.breaker_closes += 1
+
+    def summary(self) -> Dict[str, object]:
+        with self._lock:
+            return {
+                "injected": dict(self.injected),
+                "injected_total": sum(self.injected.values()),
+                "recovered_dispatches": self.recovered_dispatches,
+                "degraded_dispatches": self.degraded_dispatches,
+                "degraded_rows": self.degraded_rows,
+                "preemptions": self.preemptions,
+                "breaker_opens": self.breaker_opens,
+                "breaker_probes": self.breaker_probes,
+                "breaker_closes": self.breaker_closes,
+                "breaker_transitions": [f"{a}->{b}"
+                                        for a, b in self.transitions],
             }
 
 
@@ -310,7 +511,9 @@ class StreamStats:
       finalize does copy);
     - ``checkpoints`` / ``merges``: lattice snapshots written at flush
       boundaries, and lattice merges;
-    - ``finalize_s``: seconds spent in grid -> CIs finalizes.
+    - ``finalize_s``: seconds spent in grid -> CIs finalizes;
+    - ``live_queries``: the serve ``stats`` endpoint's reads of the
+      serve ring (``ServeStreamSink.summary``).
     """
 
     rows_folded: int = 0
@@ -320,6 +523,7 @@ class StreamStats:
     checkpoints: int = 0
     merges: int = 0
     finalize_s: float = 0.0
+    live_queries: int = 0
 
     def __post_init__(self) -> None:
         self._lock = threading.Lock()
@@ -342,6 +546,7 @@ class StreamStats:
                 "checkpoints": self.checkpoints,
                 "merges": self.merges,
                 "finalize_s": round(self.finalize_s, 4),
+                "live_queries": self.live_queries,
             }
 
 

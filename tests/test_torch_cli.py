@@ -14,6 +14,16 @@ repro``) on the CPU.
   is refused.
 - Every ported flag lands in the config field the JAX parser fills
   (both parsers run with their engine factories replaced by a recorder).
+- ``--param-cache`` reaches ``engine_factory(cache_root=)`` on ``sweep``,
+  ``perturb`` and ``serve`` (as the JAX parser's), and the watchdog
+  flags reach RuntimeConfig and the engine's watchdog on all three
+  (``sweep``'s word-meaning batches run under it in the port).
+- ``serve`` on a tiny checkpoint round-trips JSONL (a ``{"op":
+  "stats"}`` line included) to the library server's results, cold and
+  then warm through ``--param-cache`` (no conversion the second time);
+  its flags land in the JAX ``ServeConfig`` / ``RuntimeConfig`` fields,
+  and the flags of the fleet server, router, migration, tiers, meshes
+  and tracing (ROADMAP A8b, A9, "Also open") are rejected.
 - A flag of a feature the port does not have yet is rejected, as are
   ``--int8-dynamic`` without ``--int8`` and ``--full-completions`` with a
   decode budget; the default device is the card.
@@ -32,6 +42,7 @@ repro``) on the CPU.
 """
 
 import dataclasses
+import json
 import inspect
 
 import pytest
@@ -315,12 +326,11 @@ def test_sweep_flags_land_in_the_jax_fields(monkeypatch, flags):
 # Flags of features the port does not have yet (ROADMAP names the item
 # that brings each).
 UNPORTED = [
-    ["--mesh", "1x8"], ["--param-cache", "x"],
+    ["--mesh", "1x8"],
     ["--lease-cells", "8"], ["--trace-buffer", "8"], ["--lease-shards"],
     ["--lease-ttl", "5"],
     ["--trace-out", "t.json"], ["--multihost"],
-    ["--watchdog-floor", "5"],
-    ["--watchdog-multiple", "2"], ["--dtype", "float32"],
+    ["--dtype", "float32"],
     ["--no-aot-precompile"], ["--barrier-timeout", "5"],
 ]
 
@@ -725,3 +735,216 @@ def test_survey_without_matplotlib_skips_figures(monkeypatch, tmp_path,
                in r.message for r in caplog.records)
     assert not list((tmp_path / "out").rglob("*.png"))
     assert (tmp_path / "out" / "proportion_analysis.json").exists()
+
+
+# ---------------------------------------------------------------------------
+# --param-cache, the watchdog flags and serve
+# ---------------------------------------------------------------------------
+
+_SWEEP = ["sweep", "--checkpoints", "ck", "--models", "a/b"]
+_SERVE = ["serve", "--checkpoints", "ck", "--model", "m"]
+
+
+def _capture_sweep(monkeypatch, where, argv):
+    seen = {}
+    monkeypatch.setattr(f"{where}.models.factory.engine_factory",
+                        lambda root, rt, *a, **kw: seen.update(rt=rt, kw=kw))
+
+    def run(*a, **kw):
+        raise _Stop
+
+    monkeypatch.setattr(f"{where}.engine.multi.run_model_comparison_sweep",
+                        run)
+    with pytest.raises(_Stop):
+        if where == "lir_tpu":
+            jcli.main(["--no-compile-cache"] + argv)
+        else:
+            cli.main(argv)
+    return seen
+
+
+@pytest.mark.parametrize("command", ["sweep", "perturb", "serve"])
+def test_param_cache_reaches_the_factory_as_in_jax(monkeypatch, command,
+                                                   tmp_path):
+    flags = ["--param-cache", str(tmp_path / "pc")]
+    if command == "sweep":
+        port = _capture_sweep(monkeypatch, "lir_tpu_torch", _SWEEP + flags)
+        ref = _capture_sweep(monkeypatch, "lir_tpu", _SWEEP + flags)
+        none = _capture_sweep(monkeypatch, "lir_tpu_torch", _SWEEP)
+    else:
+        argv = (_PERTURB if command == "perturb" else _SERVE) + flags
+        port = _capture(monkeypatch, "lir_tpu_torch", argv)
+        ref = _capture(monkeypatch, "lir_tpu", argv)
+        none = _capture(monkeypatch, "lir_tpu_torch", argv[:-2])
+    assert port["kw"]["cache_root"] == ref["kw"]["cache_root"] == \
+        tmp_path / "pc"
+    assert none["kw"]["cache_root"] is None
+
+
+@pytest.mark.parametrize("flag,value,field", [
+    ("--watchdog-floor", "5", "watchdog_floor_s"),
+    ("--watchdog-multiple", "2.5", "watchdog_multiple"),
+    ("--watchdog-multiple", "0", "watchdog_multiple"),
+])
+def test_watchdog_flags_set_the_engines_watchdog(monkeypatch, flag, value,
+                                                 field):
+    """Each watchdog flag lands in the JAX RuntimeConfig field (perturb,
+    serve; the JAX sweep has none) and an engine built from that runtime
+    watches with it."""
+    from lir_tpu_torch.backends.fake import FakeTokenizer
+    from lir_tpu_torch.engine.runner import ScoringEngine
+    from lir_tpu_torch.models import decoder, registry
+
+    cfg = registry.tiny("llama")
+    params = decoder.init_params(cfg, device="cpu")
+    for argv in (_PERTURB, _SERVE, _SWEEP):
+        if argv is _SWEEP:
+            rt = _capture_sweep(monkeypatch, "lir_tpu_torch",
+                                argv + [flag, value])["rt"]
+        else:
+            rt = _capture(monkeypatch, "lir_tpu_torch",
+                          argv + [flag, value])["rt"]
+            ref = _capture(monkeypatch, "lir_tpu", argv + [flag, value])["rt"]
+            assert getattr(rt, field) == getattr(ref, field)
+        assert getattr(rt, field) == float(value)
+        wd = ScoringEngine(params, cfg, FakeTokenizer(), rt,
+                           device="cpu").watchdog
+        assert (wd.floor_s if field == "watchdog_floor_s"
+                else wd.multiple) == float(value)
+        assert wd.enabled == (rt.watchdog_multiple > 0)
+
+
+SERVE_FLAGS = [
+    [], ["--batch-size", "8"], ["--sweep-decode-tokens", "2"],
+    ["--sweep-confidence-tokens", "5"], ["--queue-depth", "9"],
+    ["--linger-ms", "3"], ["--cache-entries", "0"],
+    ["--deadline", "interactive=2.5", "--deadline", "bulk=99"],
+    ["--breaker-cooldown", "1.5"], ["--no-prefix-cache"],
+    ["--prefix-cache-pages", "64"], ["--prefix-page-size", "32"],
+    ["--no-pad-full"], ["--no-degrade-ladder"],
+    ["--max-consecutive-failures", "5"], ["--stream-window", "0"],
+    ["--no-streaming-stats"], ["--no-numerics-guard"], ["--int8"],
+    ["--int8", "--int8-dynamic"], ["--kv-cache-int8"],
+    ["--hbm-budget-gb", "20"], ["--no-hbm-governor"],
+]
+
+
+def _capture_serve(monkeypatch, where, argv):
+    """(runtime, factory kwargs, ServeConfig) of a serve command line."""
+    seen = {}
+
+    def fake_factory(root, rt, *a, **kw):
+        seen.update(rt=rt, kw=kw)
+        return lambda name: object()
+
+    class Server:
+        def __init__(self, engine, name, config, **kw):
+            seen["serve"] = config
+            raise _Stop
+
+    monkeypatch.setattr(f"{where}.models.factory.engine_factory",
+                        fake_factory)
+    monkeypatch.setattr(f"{where}.serve.ScoringServer", Server)
+    with pytest.raises(_Stop):
+        if where == "lir_tpu":
+            jcli.main(["--no-compile-cache"] + argv)
+        else:
+            cli.main(argv)
+    return seen
+
+
+@pytest.mark.parametrize("flags", SERVE_FLAGS,
+                         ids=lambda f: " ".join(f) or "defaults")
+def test_serve_flags_land_in_the_jax_fields(monkeypatch, flags):
+    from lir_tpu_torch.config import GovernorConfig, ServeConfig
+
+    port = _capture_serve(monkeypatch, "lir_tpu_torch", _SERVE + flags)
+    ref = _capture_serve(monkeypatch, "lir_tpu", _SERVE + flags)
+    rt_names = [f.name for f in dataclasses.fields(RuntimeConfig)]
+    assert _fields(port["rt"], rt_names) == _fields(ref["rt"], rt_names)
+    assert dataclasses.asdict(port["serve"]) == \
+        dataclasses.asdict(ref["serve"])
+    assert [f.name for f in dataclasses.fields(ServeConfig)] == \
+        [f.name for f in dataclasses.fields(ref["serve"])]
+    gov = [f.name for f in dataclasses.fields(GovernorConfig)]
+    assert _fields(port["kw"]["governor_config"], gov) == \
+        _fields(ref["kw"]["governor_config"], gov)
+    for key in ("quantize_int8", "int8_dynamic", "kv_cache_int8"):
+        assert port["kw"][key] == ref["kw"][key], key
+    assert port["kw"]["device"] == "cuda"
+
+
+# Flags of the JAX serve command that wait for the fleet server, router,
+# migration and tiers (ROADMAP A8b), meshes (A9) and tracing ("Also
+# open").
+SERVE_UNPORTED = [
+    ["--mesh", "1x8"], ["--no-precompile"], ["--replicas", "2"],
+    ["--fleet-models", "a/b", "c/d"], ["--fleet-deadline", "5"],
+    ["--weight-cache-gb", "4"], ["--migrate-prefill-replicas", "1"],
+    ["--no-migrate"], ["--tiered"], ["--tier-host-mb", "64"],
+    ["--sentinels", "legal"], ["--router-tick", "0.1"],
+    ["--hedge-threshold", "2"], ["--trace-out", "t.json"],
+]
+
+
+@pytest.mark.parametrize("flag", SERVE_UNPORTED, ids=lambda f: f[0])
+def test_serve_rejects_the_flags_of_later_items(flag, capsys):
+    assert f'"{flag[0]}"' in inspect.getsource(jcli)   # a real JAX flag
+    with pytest.raises(SystemExit) as exc:
+        cli.main(_SERVE + flag + ["--device", "cpu"])
+    assert exc.value.code == 2
+    assert "unrecognized arguments" in capsys.readouterr().err
+
+
+def test_serve_round_trips_jsonl_cold_then_warm(ckpt_root, tmp_path, capsys,
+                                                monkeypatch):
+    from lir_tpu_torch.config import ServeConfig
+    from lir_tpu_torch.data.prompts import LEGAL_PROMPTS
+    from lir_tpu_torch.models import loader
+    from lir_tpu_torch.serve import ScoringServer, ServeRequest
+
+    reqs = tmp_path / "reqs.jsonl"
+    lines = [{"id": f"r{i}", "prompt": f"Is a tomato a vegetable {i} ?",
+              "class": "interactive"} for i in range(5)]
+    lines.insert(3, {"op": "stats"})
+    reqs.write_text("\n".join(json.dumps(x) for x in lines) + "\n")
+    argv = ["serve", "--checkpoints", str(ckpt_root), "--model", CHAT,
+            "--requests", str(reqs), "--device", "cpu", "--batch-size", "4",
+            "--linger-ms", "0", "--param-cache", str(tmp_path / "pc")]
+    outs = []
+    with monkeypatch.context() as m:
+        for run in ("cold", "warm"):
+            if run == "warm":
+                m.setattr(loader, "convert_decoder", _no_convert)
+            cli.main(argv)
+            outs.append([{k: v for k, v in json.loads(x).items()
+                          if k != "latency_s"}
+                         for x in capsys.readouterr().out.strip().split("\n")])
+    assert (tmp_path / "pc" / CHAT.replace("/", "__") / "cfg.json").exists()
+    cold, warm = outs
+    assert cold == warm
+    assert cold[0]["op"] == "stats" and "kappa" in cold[0]["stats"]
+    results = cold[1:]
+    assert [r["request_id"] for r in results] == [f"r{i}" for i in range(5)]
+    assert all(r["status"] == "ok" for r in results)
+    eng = factory.engine_factory(ckpt_root, RuntimeConfig(batch_size=4),
+                                 device="cpu")(CHAT)
+    lp = LEGAL_PROMPTS[0]
+    server = ScoringServer(eng, CHAT, ServeConfig(linger_s=0.0))
+    futs = [server.submit(ServeRequest(
+        binary_prompt=f"{x['prompt']} {lp.response_format}",
+        confidence_prompt=f"{x['prompt']} {lp.confidence_format}",
+        klass="interactive", request_id=x["id"]))
+        for x in lines if "prompt" in x]
+    server.start()
+    try:
+        lib = [f.result(timeout=120) for f in futs]
+    finally:
+        server.stop()
+    for a, b in zip(lib, results):
+        assert (a.token_1_prob, a.model_response, a.log_probabilities) == \
+            (b["token_1_prob"], b["model_response"], b["log_probabilities"])
+
+
+def _no_convert(*a, **kw):
+    raise AssertionError("a warm --param-cache load converted the checkpoint")

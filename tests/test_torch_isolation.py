@@ -30,6 +30,13 @@ import lir_tpu_torch.engine.multi, lir_tpu_torch.engine.rephrase
 import lir_tpu_torch.engine.hbm, lir_tpu_torch.engine.fleet
 import lir_tpu_torch.models.weights
 import lir_tpu_torch.guard.numerics, lir_tpu_torch.utils.logging
+import lir_tpu_torch.guard.watchdog, lir_tpu_torch.utils.retry
+import lir_tpu_torch.faults, lir_tpu_torch.faults.breaker
+import lir_tpu_torch.faults.ladder, lir_tpu_torch.faults.plan
+import lir_tpu_torch.models.cache
+import lir_tpu_torch.serve, lir_tpu_torch.serve.queue
+import lir_tpu_torch.serve.cache, lir_tpu_torch.serve.batcher
+import lir_tpu_torch.serve.server
 import lir_tpu_torch.cli
 import lir_tpu_torch.stats, lir_tpu_torch.stats.core, lir_tpu_torch.stats.kappa
 import lir_tpu_torch.stats.bootstrap, lir_tpu_torch.stats.correlations

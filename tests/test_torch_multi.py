@@ -63,8 +63,8 @@ def _forcing(make):
         if name == CHAT:
             score = eng.score_prompts
 
-            def forced(prompts):
-                rows = score(prompts)
+            def forced(prompts, **kw):
+                rows = score(prompts, **kw)
                 rows[FORCED_NAN] = dataclasses.replace(
                     rows[FORCED_NAN], yes_prob=float("nan"))
                 return rows
