@@ -282,7 +282,27 @@ Phases (each raises on failure, so the script exits non-zero):
    peak memory and launches; drills on a server (a fault, a hang, a
    poison row, the breaker opening and closing on its probe, a
    checkpoint and resume bitwise the direct dispatch); and ``python -m
-   lir_tpu_torch serve --requests`` on the small model.
+   lir_tpu_torch serve --requests`` on the small model. The router phase
+   (``run_router_phase``, serve/router.py): two replica ScoringServers
+   on phase 3's read-only tree behind a ``ReplicaRouter``, (a) the serve
+   phase's 128 Poisson requests, prefix off, every payload bitwise the
+   direct dispatch of the dispatch that carried it, placements,
+   requests/s, per-class latency, launches; (b) drills through
+   ``faults.wrap_replica``: a replica kill mid-run (re-admitted, each
+   request resolved once, zombie payloads dropped), revive and the
+   half-open probe, a lagging replica hedged (the hedge wins, the
+   straggler dropped), a faulting replica (failovers, its breaker
+   open); (c) prefix on: a shared trunk placed on its holder by page
+   residency, payloads within the prefix phase's bars. The fleet-serve
+   phase (``run_fleet_serve_phase``): a ``FleetScoringServer`` over phase
+   3's tree and a second seeded llama-2-7b under a one-model weight
+   budget, 32 ``fleet_score`` requests (every per-model payload bitwise
+   a single-model ScoringServer on the same engine, kappa and
+   disagreement the CPU recomputation's, swaps with seconds hidden and
+   exposed), then a squeeze of the shared governor through
+   ``batch_down`` (rows within the prefix phase's bars) and ``shed``
+   and back; and ``serve --replicas 2`` / ``serve --fleet-models`` as
+   subprocesses on the small model.
    The T5 phase (the encoder-decoder branch, ``models/encdec.py``): part
    (a), after the small sweep check, a small gated untied T5 and a small
    ReLU tied (v1.0) T5 in float32 through ``t5_greedy_decode``
@@ -325,6 +345,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -334,7 +355,7 @@ import torch.nn.functional as F
 from lir_tpu_torch import faults, ops
 from lir_tpu_torch.backends.fake import FakeTokenizer
 from lir_tpu_torch.config import (CascadeConfig, GovernorConfig, RetryConfig,
-                                  RuntimeConfig, ServeConfig)
+                                  RouterConfig, RuntimeConfig, ServeConfig)
 from lir_tpu_torch.data import (LEGAL_PROMPTS, WORD_MEANING_QUESTIONS,
                                 format_base_prompt, format_instruct_prompt,
                                 schemas)
@@ -376,7 +397,8 @@ from lir_tpu_torch.ops.kv_int8_attention import (kv_int8_attention_plain,
 from lir_tpu_torch.ops.kv_int8_attention import plan as kv8_plan
 from lir_tpu_torch.engine import stream_stats
 from lir_tpu_torch.guard import numerics
-from lir_tpu_torch.serve import ScoringServer, ServeRequest
+from lir_tpu_torch.serve import (FleetScoringServer, ReplicaRouter,
+                                 ScoringServer, ServeRequest, fleet_decision)
 from lir_tpu_torch.stats import streaming
 from lir_tpu_torch.stats.core import generator_for, resample_indices
 from lir_tpu_torch.stats.correlations import bootstrap_correlation_matrix
@@ -6092,6 +6114,7 @@ def run_serve_phase(engine, rt, grids, tmp: Path, bars) -> dict:
             row["bitwise_rows"] = check_payloads_bitwise(
                 "serve", results, direct_payloads(ref_engine, dlog))
             off = results
+            out["off_results"] = results
         else:
             budget = gov.budget_bytes
             if (budget is None or "kv_pages:" + eng.cfg.name not in
@@ -6178,6 +6201,638 @@ def serve_cli_check(small, tmp: Path) -> dict:
                  stats_line=stats_lines[0]["stats"])
     log(json.dumps({"phase": "serve_cli", **stats}))
     return stats
+
+
+# ---------------------------------------------------------------------------
+# The router phase (serve/router.py, faults.wrap_replica) and the
+# fleet-serve phase (FleetScoringServer over a ModelFleet), on phase 3's
+# llama-2-7b bf16 params at B = 32.
+# ---------------------------------------------------------------------------
+
+# The lag drill's router hedges a request within ROUTER_HEDGE_S of its
+# deadline; its request's deadline is ROUTER_HEDGE_DEADLINE_S, so it is
+# hedged once it has waited 1 s (a 7B dispatch takes under one).
+ROUTER_HEDGE_S = 30.0
+ROUTER_HEDGE_DEADLINE_S = 31.0
+ROUTER_LAG_S = 4.0
+ROUTER_COOLDOWN_S = 2.0
+ROUTER_DRILL_REQUESTS = 32
+ROUTER_PREFIX_REQUESTS = 6
+ROUTER_KERNELS = ("flash_decode_mq", "row_gemm", "row_add_norm")
+FAST_RETRY = RetryConfig(max_retries=1, initial_delay=0.01, max_delay=0.02,
+                         full_jitter=True, max_elapsed=120.0)
+
+
+def payload_of(r) -> dict:
+    return {f: getattr(r, f) for f in PAYLOAD_FIELDS}
+
+
+def check_routed_bitwise(label, results: dict, refs) -> int:
+    """Every result ok, its payload bitwise the direct dispatch of one of
+    the dispatches that carried its request (``refs``: one
+    :func:`direct_payloads` a replica's dispatch log). Returns the rows
+    checked."""
+    for rid, r in results.items():
+        if r.status != "ok":
+            raise AssertionError(f"{label}: request {rid} {r.status}: "
+                                 f"{r.note}")
+        got = payload_of(r)
+        if not any(rid in ref and got == {f: ref[rid][f]
+                                          for f in PAYLOAD_FIELDS}
+                   for ref in refs):
+            raise AssertionError(f"{label}: request {rid} {got} is no "
+                                 f"direct dispatch's")
+    return len(results)
+
+
+def wait_for(cond, seconds: float = 60.0) -> bool:
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > seconds:
+            return False
+        time.sleep(0.01)
+    return True
+
+
+def router_replicas(engine, prefix_cache: bool) -> tuple:
+    """Two replica ScoringServers over engines on ``engine``'s params
+    (one read-only tree, a pool each with the prefix cache on), and a
+    dispatch log each."""
+    servers = {rid: ScoringServer(engine_with(engine), SWEEP_MODEL,
+                                  serve_config(prefix_cache=prefix_cache,
+                                               cache_entries=0,
+                                               retry=FAST_RETRY))
+               for rid in ("r0", "r1")}
+    return servers, {rid: record_dispatches(s) for rid, s in servers.items()}
+
+
+def router_drills(router, servers, logs, requests, ref) -> dict:
+    """(b) through ``faults.wrap_replica``, on the router of (a):
+
+    - kill: ``replica_kill`` at r0's first dispatch of
+      ROUTER_DRILL_REQUESTS Poisson requests: re-admitted >= 1, each
+      request resolved once, the killed server's retried dispatch
+      counted as zombie payloads, every payload bitwise a direct
+      dispatch;
+    - revive: ``revive_replica``, then after the cooldown a request
+      lands on r0 as the half-open probe and closes its breaker;
+    - lag: on a fresh router over the same servers with ``hedge_s``
+      (its first pick of two idle replicas is r1), ``replica_lag`` of
+      ROUTER_LAG_S on r1 and a request whose deadline is inside the
+      whisker: hedged onto r0, the hedge wins, the straggler's payload
+      dropped as a hedge loss;
+    - fault (:func:`router_fault_drill`, last): every r1 dispatch
+      faults: failovers, r1's router-side breaker opens, every request
+      served by r0."""
+    st = router.stats
+    out = {}
+
+    def idle():
+        return wait_for(lambda: all(s.queue_depth == 0 and not s._inflight
+                                    for s in servers.values()))
+
+    drill = [dataclasses.replace(r, request_id=f"kill{i}")
+             for i, r in enumerate(requests[:ROUTER_DRILL_REQUESTS])]
+    plan = faults.FaultPlan(0, {"replica": faults.SiteSchedule.replica_kill_at(
+        0, "r0")})
+    faults.wrap_replica(router, "r0", plan)
+    before = st.summary()
+    n_logged = {rid: len(logs[rid]) for rid in logs}
+    results, wall = poisson_run(router, drill)
+    idle()
+    after = st.summary()
+    delta = {k: after[k] - before[k] for k in after if k != "per_replica"}
+    refs = [direct_payloads(ref, logs[rid][n_logged[rid]:]) for rid in logs]
+    out["kill"] = dict(
+        requests=len(drill), seconds=wall, injected=plan.injected("replica"),
+        resolved_once=len({r.request_id for r in results.values()}),
+        bitwise_rows=check_routed_bitwise("router kill", results, refs),
+        server_faults=servers["r0"].faults.summary(), **{
+            k: delta[k] for k in ("re_admitted", "zombie_payloads", "kills",
+                                  "completed", "errors")})
+    if (out["kill"]["injected"] != 1 or delta["re_admitted"] < 1
+            or delta["zombie_payloads"] < 1 or delta["kills"] != 1
+            or delta["completed"] != len(drill)
+            or out["kill"]["resolved_once"] != len(drill)
+            or not servers["r0"].healthy):
+        raise AssertionError(f"router kill drill: {out['kill']}")
+    # Revive: the probe after the cooldown closes r0's breaker.
+    router.revive_replica("r0")
+    time.sleep(ROUTER_COOLDOWN_S + 0.1)
+    probes = []
+    for i, r in enumerate(requests[ROUTER_DRILL_REQUESTS:
+                                   ROUTER_DRILL_REQUESTS + 4]):
+        n0 = st.summary()["per_replica"].get("r0", 0)
+        probes.append(router.submit(dataclasses.replace(
+            r, request_id=f"probe{i}")).result(timeout=600).status)
+        if st.summary()["per_replica"].get("r0", 0) > n0:
+            break
+    out["revive"] = dict(probes=probes, breaker=router.breaker_of(
+        "r0").state, revives=st.revives)
+    if out["revive"]["breaker"] != "closed" or set(probes) != {"ok"}:
+        raise AssertionError(f"router revive: {out['revive']}")
+    return out
+
+
+def router_fault_drill(router, servers, logs, requests, ref) -> dict:
+    """The fault drill of :func:`router_drills` (last: it leaves r1's
+    server breaker open)."""
+    st = router.stats
+    plan = faults.FaultPlan(0, {"replica": faults.SiteSchedule(rate=1.0)})
+    faults.wrap_replica(router, "r1", plan)
+    wait_for(lambda: all(s.queue_depth == 0 and not s._inflight
+                         for s in servers.values()))
+    before = st.summary()
+    n_logged = {rid: len(logs[rid]) for rid in logs}
+    fres, states = {}, set()
+    for i, r in enumerate(requests[48:56]):
+        res = router.submit(dataclasses.replace(
+            r, request_id=f"fault{i}")).result(timeout=600)
+        fres[res.request_id] = res
+        states.add(router.breaker_of("r1").state)
+    after = st.summary()
+    refs = [direct_payloads(ref, logs[rid][n_logged[rid]:]) for rid in logs]
+    out = dict(
+        requests=len(fres), injected=plan.injected("replica"),
+        breaker_states=sorted(states),
+        bitwise_rows=check_routed_bitwise("router fault", fres, refs),
+        **{k: after[k] - before[k] for k in ("failovers", "replica_errors",
+                                             "replica_sheds", "completed")})
+    if (out["failovers"] < 1 or "open" not in states
+            or out["completed"] != len(fres)):
+        raise AssertionError(f"router fault drill: {out}")
+    return out
+
+
+def router_lag_drill(servers, requests) -> dict:
+    """The lag drill of :func:`router_drills`, on its own router over the
+    same servers, healthy and idle."""
+    router = ReplicaRouter(list(servers.items()), config=RouterConfig(
+        hedge_s=ROUTER_HEDGE_S, cache_entries=0)).start()
+    try:
+        plan = faults.FaultPlan(0, {
+            "replica": faults.SiteSchedule.replica_lag_at(0, ROUTER_LAG_S,
+                                                          "r1")})
+        faults.wrap_replica(router, "r1", plan)
+        st = router.stats
+        t0 = time.perf_counter()
+        res = router.submit(dataclasses.replace(
+            requests[40], request_id="lag0",
+            deadline_s=ROUTER_HEDGE_DEADLINE_S)).result(timeout=600)
+        seconds = time.perf_counter() - t0
+        wait_for(lambda: st.hedge_losses >= 1, ROUTER_LAG_S + 60)
+        out = dict(status=res.status, seconds=seconds,
+                   injected=plan.injected("replica"),
+                   placements=dict(st.per_replica), **{
+                       k: getattr(st, k) for k in (
+                           "hedged", "hedge_wins", "hedge_losses",
+                           "completed")})
+    finally:
+        router.stop()
+    if (out["status"] != "ok" or out["injected"] != 1 or out["hedged"] != 1
+            or out["hedge_wins"] != 1 or out["hedge_losses"] != 1
+            or out["completed"] != 1 or seconds >= ROUTER_LAG_S):
+        raise AssertionError(f"router lag drill: {out}")
+    return out
+
+
+def prefix_key(engine, r) -> tuple:
+    """(bucket, shared prefix ids) of a request, as admission computes
+    them."""
+    t = engine.tokenizer
+    a = list(t(r.binary_prompt).input_ids)
+    lcp = tok.shared_prefix_len(a, t(r.confidence_prompt).input_ids)
+    return tok.assign_bucket(max(lcp, 1), engine.buckets), tuple(a[:lcp])
+
+
+def router_prefix(engine, serve_off, requests, bars) -> dict:
+    """(c) Prefix on: ROUTER_PREFIX_REQUESTS requests of one bucket whose
+    shared prefixes agree for their first 64 tokens, one at a time: after
+    the first lands, the rest go to its replica by page residency (the
+    tree's listener -> the cluster index -> ``_pick``'s page bonus);
+    payloads within ``bars`` of the prefix-off serve run's."""
+    servers, _ = router_replicas(engine, prefix_cache=True)
+    router = ReplicaRouter(list(servers.items()),
+                           config=RouterConfig(cache_entries=0))
+    groups = {}
+    for r in requests:
+        bucket, ids = prefix_key(engine, r)
+        if len(ids) >= 64:
+            groups.setdefault((bucket, ids[:64]), []).append(r)
+    group = max(groups.values(), key=len)[:ROUTER_PREFIX_REQUESTS]
+    for s in servers.values():
+        s.start()
+    try:
+        placed, results, pages = [], {}, []
+        for r in group:
+            pages.append(router.cluster_tree.match_pages(
+                *prefix_key(engine, r)))
+            before = dict(router.stats.per_replica)
+            results[r.request_id] = router.submit(r).result(timeout=600)
+            placed += [rid for rid, n in router.stats.per_replica.items()
+                       if n > before.get(rid, 0)]
+    finally:
+        for s in servers.values():
+            s.stop()
+    out = dict(requests=len(group), placements=placed,
+               cluster_pages_at_submit=pages,
+               prefix_stats={rid: s.engine.prefix_stats.summary()
+                             for rid, s in servers.items()},
+               vs_prefix_off=compare_d6(
+                   "router prefix on", as_d6(serve_off, requests),
+                   as_d6(results, requests), engine, bars))
+    if (len(group) < 2 or len(placed) != len(group)
+            or set(placed) != {placed[0]}
+            or not all(p.get(placed[0], 0) > 0 for p in pages[1:])):
+        raise AssertionError(f"router prefix: not placed by page residency "
+                             f"{out}")
+    return out
+
+
+def run_router_phase(engine, grids, serve_off, bars) -> dict:
+    """``ReplicaRouter`` at llama-2-7b width, bf16, B = 32: two replica
+    ScoringServers on one read-only parameter tree. (a) The serve phase's
+    SERVE_REQUESTS Poisson requests, prefix off, ``pad_full``: every
+    payload bitwise the direct dispatch of the dispatch that carried it
+    (the serve phase's check), and within ``bars`` of the serve phase's
+    payloads (other batch compositions: the first position's readout
+    bitwise, later greedy ids may flip at near ties); placements per replica,
+    requests/s, p50 / p99 a class, launches. (b) The drills
+    (:func:`router_drills`, :func:`router_lag_drill`). (c) Prefix on
+    (:func:`router_prefix`)."""
+    requests = serve_requests(grids)
+    ref = engine_with(engine, watchdog_multiple=0.0)
+    servers, logs = router_replicas(engine, prefix_cache=False)
+    router = ReplicaRouter(
+        list(servers.items()),
+        config=RouterConfig(replica_cooldown_s=ROUTER_COOLDOWN_S,
+                            cache_entries=0))
+    for s in servers.values():
+        s.start()
+    router.start()
+    out = {}
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        results, wall = poisson_run(router, requests)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        st = router.stats.summary()
+        missing = [k for k in ROUTER_KERNELS if launches[k] <= 0]
+        if (missing or st["completed"] != len(requests)
+                or len(st["per_replica"]) != 2):
+            raise AssertionError(f"router: never launched {missing}, or not "
+                                 f"every request served on two replicas: "
+                                 f"{st}")
+        refs = [direct_payloads(ref, logs[rid]) for rid in servers]
+        row = dict(requests=len(requests), seconds=wall,
+                   requests_per_s=len(requests) / wall,
+                   latency=latency_by_class(results, requests),
+                   placements=st["per_replica"],
+                   dispatches={rid: len(logs[rid]) for rid in logs},
+                   launches=launches,
+                   max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+                   bitwise_rows=check_routed_bitwise("router", results,
+                                                     refs),
+                   vs_serve_phase=compare_d6(
+                       "router vs serve phase", as_d6(serve_off, requests),
+                       as_d6(results, requests), engine, bars))
+        out["a"] = row
+        log(json.dumps({"phase": "router_a", "card": card_line(), **row}))
+        out["drills"] = router_drills(router, servers, logs, requests, ref)
+        out["drills"]["lag"] = router_lag_drill(servers, requests)
+        out["drills"]["fault"] = router_fault_drill(router, servers, logs,
+                                                    requests, ref)
+        out["summary"] = router.stats_summary()
+    finally:
+        router.stop()
+        for s in servers.values():
+            s.stop()
+    log(json.dumps({"phase": "router_drills", **out["drills"]}))
+    out["prefix"] = router_prefix(engine, serve_off, requests, bars)
+    log(json.dumps({"phase": "router_prefix", **out["prefix"]}))
+    del servers, router, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    GOVERNOR_ENGAGED.clear()
+    return out
+
+
+FLEET_SERVE_WAVES = 4
+FLEET_SERVE_WAVE = 8
+FLEET_SQUEEZE_REQUESTS = 24
+
+
+def fleet_serve_requests(engine, grids) -> list:
+    """FLEET_SERVE_WAVES x FLEET_SERVE_WAVE requests of one bucket (so a
+    model's wave is one dispatch, whatever server forms it)."""
+    by_bucket = {}
+    for r in serve_requests(grids):
+        by_bucket.setdefault(prefix_key(engine, r)[0], []).append(r)
+    group = max(by_bucket.values(), key=len)
+    n = FLEET_SERVE_WAVES * FLEET_SERVE_WAVE
+    if len(group) < n:
+        raise AssertionError(f"fleet serve: {len(group)} requests share a "
+                             f"bucket, {n} needed")
+    return [dataclasses.replace(r, request_id=f"f{i}", klass="batch")
+            for i, r in enumerate(group[:n])]
+
+
+def fleet_kappa_check(res) -> dict:
+    """A fan-out's kappa and disagreement against the CPU recomputation
+    from its probabilities (the fold's decision rule, then
+    ``stats.kappa.within_group_kappa``), exactly."""
+    from lir_tpu_torch.stats.kappa import within_group_kappa
+
+    decs = [fleet_decision(m["token_1_prob"], m["token_2_prob"])
+            for m in res["per_model"].values()]
+    decs = [d for d in decs if d is not None]
+    ref = within_group_kappa(np.asarray(decs, int),
+                             np.zeros(len(decs), int))
+    want = {k: float(ref[k]) for k in ("kappa", "observed_agreement",
+                                       "expected_agreement")}
+    dis = 1.0 - want["observed_agreement"] if len(decs) > 1 else math.nan
+
+    def same(a, b):
+        return a == b or (math.isnan(a) and math.isnan(b))
+
+    if not (all(same(res["kappa"][k], v) for k, v in want.items())
+            and same(res["disagreement"], dis)):
+        raise AssertionError(f"fleet kappa {res['kappa']} / "
+                             f"{res['disagreement']} != CPU {want} / {dis}")
+    return dict(decisions=decs, **want)
+
+
+def record_payloads(server) -> dict:
+    """Wrap each model batcher's score of a fleet server: payloads by
+    sub-request id (``"<id>#<model>"``) and the dispatches' row counts."""
+    rec = {"payloads": {}, "rows": []}
+    for b in server.batcher.batchers.values():
+        inner = b.score
+
+        def score(bucket, rows, inner=inner):
+            out = inner(bucket, rows)
+            rec["rows"].append(len(rows))
+            for p, payload in zip(rows, out):
+                rec["payloads"][p.request.request_id] = payload
+            return out
+
+        b.score = score
+    return rec
+
+
+def fleet_single_replays(fleet, waves, payloads) -> int:
+    """Each wave's per-model payloads against a single-model ScoringServer
+    (prefix off) on the same engine, the wave's sub-requests submitted
+    together (one dispatch, as in the fleet): bitwise, every field.
+    Returns the rows held."""
+    n = 0
+    for mid in fleet.model_ids:
+        eng = fleet.acquire(mid)
+        try:
+            for wave in waves:
+                server = ScoringServer(eng, mid, serve_config(
+                    prefix_cache=False, cache_entries=0))
+                futs = [server.submit(dataclasses.replace(
+                    r, request_id=f"{r.request_id}#{mid}")) for r in wave]
+                server.start()
+                try:
+                    got = [f.result(timeout=600) for f in futs]
+                finally:
+                    server.stop()
+                for single in got:
+                    want = payloads[single.request_id]
+                    if single.status != "ok" or payload_of(single) != want:
+                        raise AssertionError(
+                            f"fleet {single.request_id}: {want} is not the "
+                            f"single-model server's {single}")
+                    n += 1
+        finally:
+            fleet.release(mid)
+    return n
+
+
+def fleet_squeeze(server, fleet, requests, rec, bars) -> dict:
+    """The shared governor squeezed (its budget to 1 %, a ballast of 5 %
+    of it held under the ledger): ticked (no dispatch) until
+    ``batch_down`` engages, FLEET_SQUEEZE_REQUESTS fan-outs served with
+    every dispatch at most half the batch, each row within ``bars`` of
+    its full-batch payload (``rec``'s); ticked on until ``shed`` engages,
+    when a single-model ScoringServer on a fleet engine (the same
+    governor) refuses a submit; then the squeeze ends, the ladder walks
+    back to none, and a fan-out is served."""
+    gov = fleet.governor
+
+    def tick_to(level: int) -> None:
+        for _ in range(8 * len(hbm.RUNGS)):
+            if gov.level >= level:
+                return
+            gov.tick()
+        raise AssertionError(f"fleet squeeze: level {gov.level}, {level} "
+                             f"wanted")
+
+    # A ballast on the card under the ledger keeps the pressure up once
+    # the evict_weights rung has dropped the idle model (the fleet's
+    # ledger is otherwise its evictable weights).
+    ballast = torch.empty(int(0.05 * gov.budget_bytes), dtype=torch.uint8,
+                          device=DEV)
+    gov.register("ballast:fleet_squeeze", ballast.numel())
+    gov.squeeze(0.01, calls=100_000)
+    tick_to(hbm.RUNGS.index("batch_down") + 1)
+    cap = gov.batch_cap(BATCH)
+    n_rows = len(rec["rows"])
+    squeezed = [dataclasses.replace(r, request_id=f"sq{i}")
+                for i, r in enumerate(requests[:FLEET_SQUEEZE_REQUESTS])]
+    got = [f.result(timeout=600)
+           for f in [server.submit_fleet(r) for r in squeezed]]
+    rows = rec["rows"][n_rows:]
+    keyed, ref, got_rows = [], {}, {}
+    for r, q in zip(requests, squeezed):
+        for mid in fleet.model_ids:
+            key = f"{r.request_id}#{mid}"
+            keyed.append(dataclasses.replace(r, request_id=key))
+            ref[key] = types.SimpleNamespace(
+                **rec["payloads"][key])
+            got_rows[key] = types.SimpleNamespace(
+                **rec["payloads"][f"{q.request_id}#{mid}"])
+    vs_full = compare_d6("fleet batch_down", as_d6(ref, keyed),
+                         as_d6(got_rows, keyed),
+                         fleet.engine(fleet.model_ids[0]), bars)
+    tick_to(hbm.RUNGS.index("shed") + 1)
+    mid = fleet.model_ids[0]
+    eng = fleet.acquire(mid)
+    try:
+        shed = ScoringServer(eng, mid, serve_config(
+            prefix_cache=False, cache_entries=0)).submit(
+            requests[0]).result(timeout=60)
+    finally:
+        fleet.release(mid)
+    gov.unregister("ballast:fleet_squeeze")
+    del ballast
+    gov.squeeze(1.0, calls=1)
+    for _ in range(8 * len(hbm.RUNGS)):
+        if gov.level == 0:
+            break
+        gov.tick()
+    after = server.submit_fleet(dataclasses.replace(
+        requests[0], request_id="sq_after")).result(timeout=600)
+    out = dict(batch_cap=cap, dispatch_rows=rows,
+               statuses=sorted({r["status"] for r in got}),
+               vs_full_batch=vs_full, shed=shed.status, shed_note=shed.note,
+               level_after=gov.level, after=after["status"],
+               governor=gov.summary())
+    if (cap != BATCH // 2 or not rows or max(rows) > cap
+            or out["statuses"] != ["ok"] or shed.status != "shed"
+            or gov.level != 0 or after["status"] != "ok"):
+        raise AssertionError(f"fleet squeeze: {out}")
+    GOVERNOR_ENGAGED.clear()
+    return out
+
+
+def run_fleet_serve_phase(engine, grids, bars) -> dict:
+    """``FleetScoringServer`` at llama-2-7b width, bf16, B = 32: a
+    ModelFleet of phase 3's tree and a second llama-2-7b tree seeded on
+    the card, under a weight budget of one model (FLEET_BUDGET_FACTOR x
+    its bytes: a switch evicts one and streams the other back from
+    pinned staging). FLEET_SERVE_WAVES waves of FLEET_SERVE_WAVE
+    ``fleet_score`` requests: each per-model payload bitwise a
+    single-model ScoringServer on the same engine, each kappa and
+    disagreement the CPU recomputation's; swaps with the seconds hidden
+    and exposed, peak memory, launches. Then the governor squeeze
+    (:func:`fleet_squeeze`)."""
+    cfg = engine.cfg
+    second = decoder.init_params(cfg, seed=1, device=DEV,
+                                 dtype=torch.bfloat16)
+    nbytes = quant.param_bytes(engine.params)
+    fleet = ModelFleet.from_engines(
+        [("llama-2-7b/a", engine_with(engine)),
+         ("llama-2-7b/b", ScoringEngine(second, cfg, engine.tokenizer,
+                                        engine.rt, device=DEV))],
+        cache_budget_bytes=int(FLEET_BUDGET_FACTOR * nbytes))
+    del second
+    requests = fleet_serve_requests(engine, grids)
+    waves = [requests[i:i + FLEET_SERVE_WAVE]
+             for i in range(0, len(requests), FLEET_SERVE_WAVE)]
+    server = FleetScoringServer(fleet, serve_config(cache_entries=0),
+                                fleet_deadline_s=600.0)
+    rec = record_payloads(server)
+    server.start()
+    out = {}
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        results = {}
+        for wave in waves:
+            futs = [server.submit_fleet(r) for r in wave]
+            for r, f in zip(wave, futs):
+                results[r.request_id] = f.result(timeout=600)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        missing = [k for k in ROUTER_KERNELS if launches[k] <= 0]
+        if missing or {r["status"] for r in results.values()} != {"ok"}:
+            raise AssertionError(f"fleet serve: never launched {missing} or "
+                                 f"not all ok")
+        kappas = {rid: fleet_kappa_check(r) for rid, r in results.items()}
+        fst = fleet.stats.summary()
+        if fst["evictions"] < 1 or fst["loads"] < 1:
+            raise AssertionError(f"fleet serve: no swap under a one-model "
+                                 f"budget {fst}")
+        row = dict(requests=len(requests), rows=len(requests) * 2,
+                   seconds=wall, requests_per_s=len(requests) / wall,
+                   dispatch_rows=list(rec["rows"]), launches=launches,
+                   fleet=fst, serve=server.stats.summary(),
+                   max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+                   kappa_equal_cpu=len(kappas),
+                   models_agree=sum(k["observed_agreement"] == 1.0
+                                    for k in kappas.values()),
+                   bitwise_rows=fleet_single_replays(fleet, waves,
+                                                     rec["payloads"]))
+        out["serve"] = row
+        log(json.dumps({"phase": "fleet_serve", "card": card_line(), **row}))
+        out["squeeze"] = fleet_squeeze(server, fleet, requests, rec, bars)
+        log(json.dumps({"phase": "fleet_serve_squeeze", **out["squeeze"]}))
+    finally:
+        server.stop()
+        fleet.shutdown()
+    del fleet, server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_cli_run(tmp: Path, root: Path, label: str, args: list,
+                  lines: list) -> tuple:
+    """``python -m lir_tpu_torch serve`` as a subprocess on checkpoints
+    under ``root``, with the stub ``transformers`` on its path: (output
+    objects, seconds). Fails on a non-zero exit."""
+    stub = tmp / "serve_cli_stub" / "transformers"
+    if not stub.exists():
+        stub.mkdir(parents=True)
+        (stub / "__init__.py").write_text(TRANSFORMERS_STUB)
+    reqs = tmp / f"serve_cli_{label}.jsonl"
+    reqs.write_text("\n".join(json.dumps(x) for x in lines) + "\n")
+    repo = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(stub.parent), str(repo)]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "lir_tpu_torch", "serve", "--checkpoints",
+         str(root), "--requests", str(reqs), "--batch-size", "8",
+         "--linger-ms", "0"] + args,
+        cwd=repo, env=env, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"serve CLI ({label}) exit {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    return [json.loads(x) for x in proc.stdout.strip().splitlines()], seconds
+
+
+def serve_cli_router_fleet(small, tmp: Path) -> dict:
+    """``serve --replicas 2`` and ``serve --fleet-models a,b`` on the
+    small model (two exported copies): eight requests and a stats line
+    each; every request ok, probabilities in [0, 1], the router's stats
+    line its two replicas, the fleet's answers fan-outs of two models
+    and a single-model line."""
+    cfg, _, params = small
+    root = tmp / "serve_cli"
+    names = ["smoke/tiny-llama", "smoke/tiny-llama-b"]
+    for name in names:
+        if not (root / name.replace("/", "__")).exists():
+            export_hf_llama(params, cfg, root / name.replace("/", "__"))
+    lines = [{"id": f"c{i}", "prompt": f"{LEGAL_PROMPTS[i % 5].main[:200]}",
+              "class": "interactive"} for i in range(8)]
+    out = {}
+    got, secs = serve_cli_run(
+        tmp, root, "replicas", ["--model", names[0], "--replicas", "2"],
+        lines[:4] + [{"op": "stats"}] + lines[4:])
+    stats = [o for o in got if o.get("op") == "stats"]
+    results = [o for o in got if "request_id" in o]
+    if (len(stats) != 1 or set(stats[0]["replicas"]) != {"r0", "r1"}
+            or [r["request_id"] for r in results] != [x["id"] for x in lines]
+            or any(r["status"] != "ok" or not 0.0 <= r["token_1_prob"] <= 1.0
+                   for r in results)):
+        raise AssertionError(f"serve --replicas output: {got}")
+    out["replicas"] = dict(seconds=secs, results=len(results),
+                           placements=stats[0]["router"]["per_replica"])
+    fleet_lines = lines[:4] + [dict(lines[4], model=names[1]),
+                               {"op": "stats"}]
+    got, secs = serve_cli_run(
+        tmp, root, "fleet", ["--fleet-models", ",".join(names)], fleet_lines)
+    stats = [o for o in got if o.get("op") == "stats"]
+    fans = [o for o in got if "per_model" in o]
+    single = [o for o in got if "request_id" in o and "per_model" not in o]
+    if (len(stats) != 1 or len(fans) != 4 or len(single) != 1
+            or any(f["status"] != "ok" or f["n_models"] != 2 for f in fans)
+            or single[0]["status"] != "ok"):
+        raise AssertionError(f"serve --fleet-models output: {got}")
+    out["fleet"] = dict(seconds=secs, fan_outs=len(fans),
+                        fleet=stats[0]["fleet"])
+    log(json.dumps({"phase": "serve_cli_router_fleet", **out}))
+    return out
 
 
 def kernel_label(mangled: str) -> str:
@@ -6522,6 +7177,20 @@ def main() -> int:
         serve["cli"] = serve_cli_check(small, Path(tmp))
         governor_check("serve", engine)
         elapsed("serve")
+        # The router phase and the fleet-serve phase on phase 3's params.
+        router = run_router_phase(engine, grids, serve.pop("off_results"),
+                                  prefix["control"]["bars"])
+        for name, n in router["a"]["launches"].items():
+            launches[name] += n
+        governor_check("router", engine)
+        elapsed("router")
+        fleet_serve = run_fleet_serve_phase(engine, grids,
+                                            prefix["control"]["bars"])
+        for name, n in fleet_serve["serve"]["launches"].items():
+            launches[name] += n
+        fleet_serve["cli"] = serve_cli_router_fleet(small, Path(tmp))
+        governor_check("fleet_serve", engine)
+        elapsed("fleet_serve")
     survey["loader"] = loader_stats["survey"]
     survey["stream_accum"] = {name: sweeps["bf16"][name]["stream"][
         "survey_estimates"] for name in grids}

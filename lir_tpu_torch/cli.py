@@ -6,20 +6,22 @@
   survey       the human-survey pipeline (D3 + D1/D2 -> D7/D8/D9, C38-C43)
   repro        the survey pipeline and every analysis from a data directory
   rephrase     generate perturbations.json with a local rephraser model
-  serve        the online scoring service over one model (JSONL in/out)
+  serve        the online scoring service: one model, N replicas behind a
+               router, or a fleet of models (JSONL in/out)
 
 Port of the ``sweep``, ``perturb``, ``analyze``, ``survey``, ``repro``,
-``rephrase`` and (single-model) ``serve`` commands of ``lir_tpu/cli.py``.
+``rephrase`` and ``serve`` commands of ``lir_tpu/cli.py``.
 Each flag lands in the same ``RuntimeConfig`` / ``SpecConfig`` /
 ``CascadeConfig`` / ``GovernorConfig`` / ``ServeConfig`` field as there
 (``--kv-cache-int8`` and ``--param-cache`` in
 ``models.factory.load_engine(kv_cache_int8=, cache_root=)``;
 ``--weight-cache-gb`` and ``--no-weight-prefetch`` in
-``run_model_comparison_sweep``). The watchdog flags also reach ``sweep``,
-whose word-meaning batches run under the watchdog in the port. A flag of
-a feature the port does not have yet (meshes, leased shards, serving's
-fleet, router, migration and tiers, tracing) is not defined, so
-argparse rejects it. ``--device`` (default ``cuda``) says where the models and the
+``run_model_comparison_sweep`` and the serving fleet's ``ModelFleet``;
+the router flags in ``RouterConfig``). The watchdog flags also reach
+``sweep``, whose word-meaning batches run under the watchdog in the
+port. A flag of a feature the port does not have yet (meshes, leased
+shards, serving's page migration and tiers, the sentinels, the metrics
+op, tracing) is not defined, so argparse rejects it. ``--device`` (default ``cuda``) says where the models and the
 statistics run; the CPU must be asked for. Where matplotlib is absent,
 ``analyze``, ``survey`` and ``repro`` log that figures were skipped and
 write everything else; ``repro --no-figures`` also reaches the survey
@@ -106,9 +108,22 @@ def _add_sweep(sub) -> None:
     _add_fleet_flags(p)
 
 
-def _add_fleet_flags(p) -> None:
+def _add_fleet_flags(p, with_models: bool = False) -> None:
     """The fleet's knobs (config.FleetConfig; engine/fleet.py over
-    models/weights.py)."""
+    models/weights.py); ``with_models`` adds serving's fleet flags."""
+    if with_models:
+        p.add_argument("--fleet-models", default=None,
+                       help="comma-separated model ids served as a FLEET: "
+                            "per-model dispatch queues under one weight "
+                            "budget, and the {\"op\": \"fleet_score\"} "
+                            "request class (a line without \"model\"): "
+                            "one question under every model, answered with "
+                            "per-model P(yes)/P(no), kappa and "
+                            "disagreement")
+        p.add_argument("--fleet-deadline", type=float, default=None,
+                       help="default deadline in seconds of a fleet_score "
+                            "fan-out (default 60; a request's "
+                            "\"deadline_s\" overrides)")
     p.add_argument("--weight-cache-gb", type=float, default=None,
                    help="device budget for co-resident model weights in the "
                         "fleet's LRU weight cache (default 0 = unbounded; "
@@ -117,6 +132,61 @@ def _add_fleet_flags(p) -> None:
                    help="disable async weight streaming: every model swap "
                         "then loads inline, after the previous model's "
                         "dispatches (measurement baseline)")
+
+
+def _add_router_flags(p) -> None:
+    """The replica router's knobs (config.RouterConfig;
+    serve/router.py)."""
+    p.add_argument("--replicas", type=int, default=None,
+                   help="N in-process replica servers behind the failover "
+                        "router (single-model serving; default 1 = no "
+                        "router)")
+    p.add_argument("--hedge-threshold", type=float, default=None,
+                   help="hedge whisker in seconds: a request this close to "
+                        "its deadline is duplicated onto a second replica, "
+                        "first payload wins (default 0 = off)")
+    p.add_argument("--replica-failure-threshold", type=int, default=None,
+                   help="error results in a row from one replica before "
+                        "its router-side breaker opens (default 2)")
+    p.add_argument("--replica-cooldown", type=float, default=None,
+                   help="router-side breaker open -> half-open cooldown in "
+                        "seconds (default 5)")
+    p.add_argument("--residency-bonus", type=float, default=None,
+                   help="placement bonus (queue rows) for a replica holding "
+                        "the request's model (default 8)")
+    p.add_argument("--pressure-weight", type=float, default=None,
+                   help="placement penalty (queue rows) per unit of a "
+                        "replica's governor pressure (default 6; 0 off)")
+    p.add_argument("--slo-wait-weight", type=float, default=None,
+                   help="weight on a replica's oldest queued-row wait "
+                        "against the request's remaining deadline "
+                        "(default 4; 0 off)")
+    p.add_argument("--router-tick", type=float, default=None,
+                   help="router tick in seconds (hedging, breaker "
+                        "promotion; default 0.02)")
+    p.add_argument("--router-cache-entries", type=int, default=None,
+                   help="router dedup cache capacity, the exactly-once "
+                        "backstop (default 4096; 0 off)")
+
+
+def _router_cfg(args):
+    """RouterConfig from the flags (an unset flag keeps the default)."""
+    from .config import RouterConfig
+
+    kw = {}
+    for flag, field in (("replicas", "replicas"),
+                        ("hedge_threshold", "hedge_s"),
+                        ("replica_failure_threshold",
+                         "replica_failure_threshold"),
+                        ("replica_cooldown", "replica_cooldown_s"),
+                        ("residency_bonus", "residency_bonus"),
+                        ("slo_wait_weight", "slo_wait_weight"),
+                        ("pressure_weight", "pressure_weight"),
+                        ("router_tick", "tick_s"),
+                        ("router_cache_entries", "cache_entries")):
+        if getattr(args, flag, None) is not None:
+            kw[field] = getattr(args, flag)
+    return RouterConfig(**kw)
 
 
 def _add_governor_flags(p) -> None:
@@ -300,17 +370,19 @@ def _add_perturb(sub) -> None:
 def _add_serve(sub) -> None:
     p = sub.add_parser(
         "serve",
-        help="online scoring service over one model: continuous batching "
-             "over the bucket ladder (lir_tpu_torch/serve). Reads JSONL "
-             "requests from --requests (default stdin), writes one JSONL "
-             "result a line to stdout. Request lines: {\"id\", "
-             "\"binary_prompt\", \"confidence_prompt\"} or {\"prompt\"} "
-             "with optional \"response_format\"/\"confidence_format\", "
-             "plus optional \"targets\": [t1, t2], \"class\", "
-             "\"deadline_s\"; {\"op\": \"stats\"} answers the live "
-             "statistics")
+        help="online scoring service: continuous batching over the bucket "
+             "ladder (lir_tpu_torch/serve), over one model (--model), N "
+             "replicas of it behind a router (--replicas) or a fleet "
+             "(--fleet-models). Reads JSONL requests from --requests "
+             "(default stdin), writes one JSONL result a line to stdout. "
+             "Request lines: {\"id\", \"binary_prompt\", "
+             "\"confidence_prompt\"} or {\"prompt\"} with optional "
+             "\"response_format\"/\"confidence_format\", plus optional "
+             "\"targets\": [t1, t2], \"class\", \"deadline_s\" (and "
+             "\"model\" on a fleet); {\"op\": \"stats\"} answers the "
+             "live statistics")
     p.add_argument("--checkpoints", type=Path, required=True)
-    p.add_argument("--model", required=True,
+    p.add_argument("--model", default=None,
                    help="the served model (single-model serving: breaker, "
                         "ladder, checkpoint)")
     p.add_argument("--batch-size", type=int, default=32)
@@ -372,6 +444,8 @@ def _add_serve(sub) -> None:
                    help="where the model runs (default cuda)")
     _add_watchdog_flags(p)
     _add_governor_flags(p)
+    _add_fleet_flags(p, with_models=True)
+    _add_router_flags(p)
 
 
 def _add_analyze(sub) -> None:
@@ -586,18 +660,18 @@ def _fleet_draft(factory, model_id: str, engine):
 
 
 def cmd_serve(args) -> None:
-    """The single-model path of the JAX ``serve`` command: JSONL requests
-    in, one JSONL result a request out (in request order, after the
-    input ends), the ``{"op": "stats"}`` line answered at once, and with
+    """The JAX ``serve`` command: JSONL requests in, one JSONL result a
+    request out (in request order, after the input ends), the ``{"op":
+    "stats"}`` line answered at once. One model (``--model``), with
     ``--state-checkpoint`` SIGTERM checkpointing every unresolved
-    request (re-submitted on the next start)."""
+    request (re-submitted on the next start); N replicas of it behind
+    the router (``--replicas``); or a fleet (``--fleet-models``)."""
     import json
     import signal
 
     from .config import RuntimeConfig, ServeConfig
-    from .data.prompts import LEGAL_PROMPTS
     from .models.factory import engine_factory
-    from .serve import ScoringServer, ServeRequest
+    from .serve import ScoringServer
 
     rt_kw = dict(batch_size=args.batch_size)
     for name in ("sweep_decode_tokens", "sweep_confidence_tokens",
@@ -631,11 +705,27 @@ def cmd_serve(args) -> None:
         prefix_cache=not args.no_prefix_cache,
         pad_full=not args.no_pad_full,
         degrade_ladder=not args.no_degrade_ladder, **serve_kw)
+    if bool(args.model) == bool(args.fleet_models):
+        raise SystemExit("serve needs exactly one of --model (single-"
+                         "model) or --fleet-models (multiplexed fleet)")
+    n_replicas = args.replicas if args.replicas is not None else 1
+    if n_replicas > 1 and args.fleet_models:
+        raise SystemExit("--replicas fronts single-model replica servers; "
+                         "combine it with --model")
+    if n_replicas > 1 and args.state_checkpoint is not None:
+        raise SystemExit("--state-checkpoint is per-server state; with "
+                         "--replicas the router's failover replaces it")
     factory = engine_factory(
         args.checkpoints, RuntimeConfig(**rt_kw), quantize_int8=args.int8,
         int8_dynamic=args.int8_dynamic, device=args.device,
         kv_cache_int8=args.kv_cache_int8,
         governor_config=_governor_cfg(args), cache_root=args.param_cache)
+    if args.fleet_models:
+        _run_fleet_serve(args, serve_cfg, factory)
+        return
+    if n_replicas > 1:
+        _run_router_serve(args, serve_cfg, factory, n_replicas)
+        return
     engine = factory(args.model)
     server = ScoringServer(engine, args.model, serve_cfg).start()
 
@@ -653,39 +743,14 @@ def cmd_serve(args) -> None:
             futures.extend(server.resume_from_checkpoint(
                 args.state_checkpoint))
 
-    # Default formats: the canonical legal-prompt pair, so a bare
-    # {"prompt": ...} line scores like a sweep cell.
-    default_rf = LEGAL_PROMPTS[0].response_format
-    default_cf = LEGAL_PROMPTS[0].confidence_format
-    stream = (sys.stdin if args.requests == "-"
-              else open(args.requests, encoding="utf-8"))
-    try:
-        for i, line in enumerate(stream):
-            line = line.strip()
-            if not line:
-                continue
-            obj = json.loads(line)
-            if obj.get("op") == "stats":
-                print(json.dumps({"op": "stats",
-                                  "stats": server.stream_summary()}),
-                      flush=True)
-                continue
-            prompt = obj.get("prompt")
-            req = ServeRequest(
-                binary_prompt=obj.get(
-                    "binary_prompt",
-                    f"{prompt} {obj.get('response_format', default_rf)}"),
-                confidence_prompt=obj.get(
-                    "confidence_prompt",
-                    f"{prompt} {obj.get('confidence_format', default_cf)}"),
-                targets=tuple(obj.get("targets", ("Yes", "No"))),
-                klass=obj.get("class", serve_cfg.default_class),
-                deadline_s=obj.get("deadline_s"),
-                request_id=str(obj.get("id", i)))
-            futures.append(server.submit(req))
-    finally:
-        if stream is not sys.stdin:
-            stream.close()
+    for i, obj in _jsonl_lines(args.requests):
+        if obj.get("op") == "stats":
+            print(json.dumps({"op": "stats",
+                              "stats": server.stream_summary()}),
+                  flush=True)
+            continue
+        futures.append(server.submit(
+            _request_of(obj, i, serve_cfg.default_class)))
     for fut in futures:
         r = fut.result()
         print(json.dumps({k: v for k, v in vars(r).items()
@@ -697,6 +762,130 @@ def cmd_serve(args) -> None:
     log.info("serve faults: %s", json.dumps(server.faults.summary()))
     log.info("serve guard: %s",
              json.dumps(engine.guard_stats.summary()))
+
+
+def _request_of(obj: dict, i: int, default_class: str):
+    """A ServeRequest from one JSONL request line (a bare ``prompt``
+    takes the canonical legal-prompt formats, so it scores like a sweep
+    cell)."""
+    from .data.prompts import LEGAL_PROMPTS
+    from .serve import ServeRequest
+
+    prompt = obj.get("prompt")
+    rf = obj.get("response_format", LEGAL_PROMPTS[0].response_format)
+    cf = obj.get("confidence_format", LEGAL_PROMPTS[0].confidence_format)
+    return ServeRequest(
+        binary_prompt=obj.get("binary_prompt", f"{prompt} {rf}"),
+        confidence_prompt=obj.get("confidence_prompt", f"{prompt} {cf}"),
+        targets=tuple(obj.get("targets", ("Yes", "No"))),
+        klass=obj.get("class", default_class),
+        deadline_s=obj.get("deadline_s"),
+        request_id=str(obj.get("id", i)))
+
+
+def _jsonl_lines(path: str):
+    """(index, parsed object) of each non-empty line of ``path`` ('-':
+    stdin)."""
+    import json
+
+    stream = sys.stdin if path == "-" else open(path, encoding="utf-8")
+    try:
+        for i, line in enumerate(stream):
+            line = line.strip()
+            if line:
+                yield i, json.loads(line)
+    finally:
+        if stream is not sys.stdin:
+            stream.close()
+
+
+def _run_router_serve(args, serve_cfg, factory, n_replicas: int) -> None:
+    """``serve --model X --replicas N``: N in-process replica
+    ScoringServers (an engine each) behind a ReplicaRouter. The JSONL
+    surface is the single-model one; ``{"op": "stats"}`` answers the
+    router's per-replica health view. Exits 1 when no replica is alive
+    at the end. (Each replica's disk-tier directory comes with the
+    memory tiers, ROADMAP A8c.)"""
+    import json
+
+    from .serve import ReplicaRouter, ScoringServer
+
+    servers = [ScoringServer(factory(args.model), args.model,
+                             serve_cfg).start()
+               for _ in range(n_replicas)]
+    router = ReplicaRouter([(f"r{i}", s) for i, s in enumerate(servers)],
+                           config=_router_cfg(args)).start()
+    log.info("router: %d replica servers for %s", n_replicas, args.model)
+    futures = []
+    for i, obj in _jsonl_lines(args.requests):
+        if obj.get("op") == "stats":
+            print(json.dumps({"op": "stats", **router.stats_summary()}),
+                  flush=True)
+            continue
+        futures.append(router.submit(
+            _request_of(obj, i, serve_cfg.default_class)))
+    for fut in futures:
+        r = fut.result()
+        print(json.dumps({k: v for k, v in vars(r).items()
+                          if not k.startswith("_")}), flush=True)
+    router.stop()
+    for s in servers:
+        s.stop()
+    log.info("router stats: %s", json.dumps(router.stats_summary()))
+    if not router.alive_replicas():
+        sys.exit(1)
+
+
+def _run_fleet_serve(args, serve_cfg, factory) -> None:
+    """``serve --fleet-models a,b``: a line without a "model" key fans
+    across every fleet model and prints one agreement payload (per-model
+    P(yes)/P(no)/decision, kappa, disagreement); a "model" key routes the
+    line to that model's queue. ``{"op": "stats"}`` answers the serve
+    counters and the fleet's swap accounting."""
+    import json
+
+    from .engine.fleet import ModelFleet
+    from .serve import FleetScoringServer
+
+    if args.state_checkpoint is not None:
+        raise SystemExit(
+            "--state-checkpoint is not supported with --fleet-models; "
+            "run fleet serving behind an external retry layer")
+    models = [m for m in args.fleet_models.split(",") if m]
+    if not models:
+        raise SystemExit("--fleet-models needs at least one model id")
+    # Engines load at boot (tokenizers and buckets are submit-time
+    # state); weight residency is the cache's from here on.
+    fleet = ModelFleet.from_engines(
+        [(m, factory(m)) for m in models],
+        cache_budget_bytes=(int(args.weight_cache_gb * 2**30)
+                            if args.weight_cache_gb else None),
+        prefetch=not args.no_weight_prefetch)
+    server = FleetScoringServer(
+        fleet, serve_cfg,
+        fleet_deadline_s=(args.fleet_deadline
+                          if args.fleet_deadline is not None else 60.0),
+    ).start()
+    futures = []
+    for i, obj in _jsonl_lines(args.requests):
+        if obj.get("op") == "stats":
+            print(json.dumps({"op": "stats", **server.stats_summary()}),
+                  flush=True)
+            continue
+        req = _request_of(obj, i, serve_cfg.default_class)
+        if obj.get("model"):
+            futures.append(("single", server.submit(req, obj["model"])))
+        else:
+            futures.append(("fleet", server.submit_fleet(req)))
+    for kind, fut in futures:
+        r = fut.result()
+        print(json.dumps(r if kind == "fleet"
+                         else {k: v for k, v in vars(r).items()
+                               if not k.startswith("_")}), flush=True)
+    server.stop()
+    fleet.shutdown()
+    log.info("serve stats: %s", json.dumps(server.stats.summary()))
+    log.info("fleet stats: %s", json.dumps(server.fleet_summary()))
 
 
 def cmd_rephrase(args) -> None:

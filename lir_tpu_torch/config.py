@@ -247,8 +247,8 @@ class GovernorConfig:
 class FleetConfig:
     """Multi-model fleet knobs (engine/fleet.py over models/weights.py).
 
-    - ``fleet_models``: the model ids a fleet serves (the fleet
-      server's flag, not ported yet: ROADMAP A8b).
+    - ``fleet_models``: the model ids a fleet serves (``serve
+      --fleet-models``; serve/server.FleetScoringServer).
     - ``weight_cache_gb``: device budget for co-resident model weights;
       0 = unbounded. When a model would not fit, the LRU model with no
       in-flight dispatch is evicted; a budget smaller than the largest
@@ -291,8 +291,7 @@ class RetryConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
-    """Online serving knobs (serve/), the JAX package's less the fleet
-    and router fields, which wait for the fleet server (ROADMAP A8b).
+    """Online serving knobs (serve/), the JAX package's fields.
 
     - ``queue_depth``: admission bound; a submit into a full queue sheds
       the newcomer, or the queued request with the latest deadline when
@@ -342,6 +341,62 @@ class ServeConfig:
             return table[klass]
         return table.get(self.default_class,
                          max(table.values()) if table else 300.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class RouterConfig:
+    """Multi-replica serving knobs (serve/router.py), the JAX package's.
+
+    The router spreads one request stream over N replica servers.
+    Placement reads per replica its queue depth, its router-side circuit
+    breaker, for fleet replicas its weight residency (WeightCache
+    listener events), its prefix-page residency (the cluster prefix
+    index), its oldest queued row against the request's remaining
+    deadline, and its device-memory pressure. A dead or erroring
+    replica's requests are re-admitted to survivors exactly once, and a
+    request close to its deadline is hedged onto a second replica (first
+    payload wins).
+
+    - ``replicas``: in-process replica servers of ``serve --replicas``
+      (1: no router).
+    - ``hedge_s``: hedge a request whose deadline is closer than this
+      (0: no hedging).
+    - ``replica_failure_threshold`` / ``replica_cooldown_s``: a
+      replica's router-side breaker opens after that many error results
+      in a row and probes again after the cooldown (monotonic clock).
+    - ``residency_bonus``: placement bonus, in queue rows, for a replica
+      already holding the request's model.
+    - ``pressure_weight``: placement penalty, in queue rows, per unit of
+      the replica's governor pressure (0: off).
+    - ``slo_wait_weight``: weight on a replica's oldest queued-row wait
+      relative to the request's remaining deadline (0: off).
+    - ``tick_s``: the router's tick (hedging scans, breaker promotion).
+    - ``cache_entries``: the router's content-addressed dedup cache, the
+      exactly-once backstop against zombie payloads (0: off).
+    """
+
+    replicas: int = 1
+    hedge_s: float = 0.0
+    replica_failure_threshold: int = 2
+    replica_cooldown_s: float = 5.0
+    residency_bonus: float = 8.0
+    pressure_weight: float = 6.0
+    slo_wait_weight: float = 4.0
+    tick_s: float = 0.02
+    cache_entries: int = 4096
+
+
+@dataclasses.dataclass(frozen=True)
+class MigrationConfig:
+    """Disaggregated prefill/decode knobs: the two fields of the JAX
+    package's that the port's router reads. ``page_bonus`` is the
+    placement bonus, in queue rows, per prefix page a replica already
+    holds; ``prefill_replicas > 0`` (prefill-role replicas) is refused.
+    Page migration and its other knobs (chunking, checksums, the chain's
+    deadline) wait for ROADMAP A8c."""
+
+    prefill_replicas: int = 0
+    page_bonus: float = 0.5
 
 
 @dataclasses.dataclass(frozen=True)

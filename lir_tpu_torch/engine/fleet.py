@@ -17,9 +17,11 @@ Port of ``lir_tpu/engine/fleet.py``:
   scoring model is loaded again inline at ``acquire``, after the idle
   models have left (the JAX fleet has no such retry).
 
-The JAX fleet's ``sweep`` helper, whose one caller is the JAX
-benchmark, and the memory tiers' ``attach_tiers`` / ``reseed_weights``
-come with the port's benchmark and the fleet server (ROADMAP A8b).
+The fleet server (``serve/server.FleetScoringServer``) and the router's
+residency map (``serve/router.py``) ride this fleet. The JAX fleet's
+``sweep`` helper, whose one caller is the JAX benchmark, comes with the
+port's benchmark; the memory tiers' ``attach_tiers`` /
+``reseed_weights`` wait for ROADMAP A8c.
 
 Engines are built once (tokenizer, buckets and counters persist); only
 the param tree moves. A re-streamed tree is bitwise its staged

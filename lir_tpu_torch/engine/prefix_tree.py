@@ -32,18 +32,30 @@ and eviction counters (``utils/profiling.PrefixCacheStats``).
   main thread). :meth:`match_len` and :meth:`continuation` are
   read-only probes that take no references.
 
-The JAX module's router-side ``ClusterPrefixIndex``, its page listeners
-and the migration / tier hooks (``forget_tail``, ``evict_tail``,
-``coldest_leaves``) belong to the fleet server and migration, not
-ported yet (ROADMAP A8b).
+- **Page listeners.** :meth:`RadixPrefixCache.add_listener` subscribes
+  to page insert and evict events (fired on the dispatching thread);
+  the router's :class:`ClusterPrefixIndex` rides them to know which
+  replica holds which prefix pages.
+
+The migration and tier hooks of the JAX module (``forget_tail``,
+``evict_tail``, ``coldest_leaves``) wait for ROADMAP A8c.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+import threading
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+from ..utils.logging import get_logger
 from ..utils.profiling import PrefixCacheStats
+
+log = get_logger(__name__)
+
+# A page listener: fn(event, bucket, ids), event "insert" (ids: the
+# whole page-aligned prefix now cached) or "evict" (ids: the removed
+# node's full token path; that page and everything under it are gone).
+PageListener = Callable[[str, int, Tuple[int, ...]], None]
 
 
 class _Node:
@@ -91,10 +103,41 @@ class RadixPrefixCache:
         self._roots: Dict[int, _Node] = {}
         self._clock = 0
         self._nodes = 0
+        self._listeners: List[PageListener] = []
         self.stats.gauge_pages(pool.pages_in_use, pool.n_pages - 1)
 
     def __len__(self) -> int:
         return self._nodes
+
+    def add_listener(self, fn: PageListener) -> None:
+        """Subscribe to page insert and evict events, fired on the
+        tree's dispatching thread: listeners do cheap bookkeeping only
+        (the cluster index takes its own lock)."""
+        self._listeners.append(fn)
+
+    def _notify(self, event: str, bucket: int,
+                ids: Tuple[int, ...]) -> None:
+        for fn in list(self._listeners):
+            try:
+                fn(event, int(bucket), ids)
+            except Exception:  # noqa: BLE001 — an index listener must
+                # never take the serving tree down with it.
+                log.exception("prefix-tree listener failed (%s)", event)
+
+    def _node_ids(self, node: _Node) -> Tuple[int, ...]:
+        """The node's full token path (namespace root excluded)."""
+        keys: List[Tuple[int, ...]] = []
+        n: Optional[_Node] = node
+        while n is not None and n.key != ():
+            keys.append(n.key)
+            n = n.parent
+        return tuple(t for k in reversed(keys) for t in k)
+
+    def _node_bucket(self, node: _Node) -> int:
+        n = node
+        while n.parent is not None:
+            n = n.parent
+        return int(n.bucket if n.bucket is not None else 0)
 
     def _root(self, bucket: int) -> _Node:
         root = self._roots.get(int(bucket))
@@ -249,6 +292,9 @@ class RadixPrefixCache:
             node = child
         if new_pages:
             self.stats.count("inserted_pages", len(new_pages))
+            covered = (start + len(new_pages)) * self.page_size
+            self._notify("insert", bucket,
+                         tuple(int(t) for t in ids[:covered]))
         self.stats.gauge_pages(self.pool.pages_in_use,
                                self.pool.n_pages - 1)
         return start * self.page_size, new_pages
@@ -286,6 +332,8 @@ class RadixPrefixCache:
         while freed < n_pages and candidates:
             node = candidates.pop(0)
             parent = node.parent
+            self._notify("evict", self._node_bucket(node),
+                         self._node_ids(node))
             del parent.children[node.key]
             self._nodes -= 1
             self.pool.decref((node.page,))
@@ -303,3 +351,118 @@ class RadixPrefixCache:
             self.stats.gauge_pages(self.pool.pages_in_use,
                                    self.pool.n_pages - 1)
         return freed
+
+
+# ---------------------------------------------------------------------------
+# The cluster-wide prefix index (router side)
+# ---------------------------------------------------------------------------
+
+
+class ClusterPrefixIndex:
+    """Which REPLICA holds which prefix pages: a router-side index fed by
+    every replica tree's :meth:`RadixPrefixCache.add_listener` events
+    (and, with the memory tiers of ROADMAP A8c, by each replica's tier
+    store under a tier dimension). Placement reads :meth:`match_pages`.
+
+    It stores token chunks only (a dict node a page, no pool references,
+    no device memory) and is advisory: a stale entry costs a shorter
+    match, never a wrong answer. Thread-safe: events arrive on each
+    replica's supervisor thread while the router matches.
+    """
+
+    def __init__(self, page_size: int = 16):
+        self.page_size = int(page_size)
+        self._lock = threading.Lock()
+        # (replica id, bucket, tier) -> nested {chunk tuple: child dict}.
+        self._tries: Dict[Tuple[str, int, str], Dict] = {}
+
+    def _chunks(self, ids: Sequence[int]) -> List[Tuple[int, ...]]:
+        ps = self.page_size
+        return [tuple(int(t) for t in ids[k * ps:(k + 1) * ps])
+                for k in range(len(ids) // ps)]
+
+    def on_event(self, replica_id: str, event: str, bucket: int,
+                 ids: Sequence[int], tier: str = "hbm") -> None:
+        """One replica tree's page event (wire with ``tree.add_listener(
+        functools.partial(index.on_event, rid))``)."""
+        chunks = self._chunks(ids)
+        if not chunks:
+            return
+        with self._lock:
+            trie = self._tries.setdefault(
+                (str(replica_id), int(bucket), str(tier)), {})
+            if event == "insert":
+                node = trie
+                for ck in chunks:
+                    node = node.setdefault(ck, {})
+            elif event == "evict":
+                node, hops = trie, []
+                for ck in chunks:
+                    child = node.get(ck)
+                    if child is None:
+                        return          # already pruned (advisory index)
+                    hops.append((node, ck))
+                    node = child
+                parent, key = hops[-1]
+                del parent[key]         # the page and its whole subtree
+
+    def on_tier_event(self, replica_id: str, event: str, tier: str,
+                      bucket: int, ids: Sequence[int]) -> None:
+        """A tier store's movement event (its producer comes with the
+        memory tiers, ROADMAP A8c): a tier entry covers a whole prefix,
+        so an evict prunes the full path."""
+        self.on_event(replica_id, event, bucket, ids, tier=tier)
+
+    def drop_replica(self, replica_id: str) -> None:
+        """Forget a replica's device pages (its pool died with it); its
+        host and disk tier entries survive."""
+        with self._lock:
+            for key in [k for k in self._tries
+                        if k[0] == replica_id and k[2] == "hbm"]:
+                del self._tries[key]
+
+    def match_pages(self, bucket: int, ids: Sequence[int],
+                    tier: str = "hbm") -> Dict[str, int]:
+        """Pages of ``ids``' leading prefix each replica holds in the
+        ``bucket`` namespace at ``tier`` now (tokens = pages x
+        page_size)."""
+        chunks = self._chunks(ids)
+        out: Dict[str, int] = {}
+        with self._lock:
+            for (rid, b, t), trie in self._tries.items():
+                if b != int(bucket) or t != str(tier):
+                    continue
+                node, n = trie, 0
+                for ck in chunks:
+                    node = node.get(ck)
+                    if node is None:
+                        break
+                    n += 1
+                if n:
+                    out[rid] = max(out.get(rid, 0), n)
+        return out
+
+    def match_tiers(self, bucket: int, ids: Sequence[int]
+                    ) -> Dict[str, Dict[str, int]]:
+        """Every tier's match depth per replica: {replica id: {tier:
+        pages}}."""
+        with self._lock:
+            tiers = sorted({k[2] for k in self._tries})
+        out: Dict[str, Dict[str, int]] = {}
+        for t in tiers:
+            for rid, pages in self.match_pages(bucket, ids, tier=t).items():
+                out.setdefault(rid, {})[t] = pages
+        return out
+
+    def best_holder(self, bucket: int, ids: Sequence[int],
+                    exclude: Optional[Sequence[str]] = None
+                    ) -> Tuple[Optional[str], int]:
+        """(the replica with the deepest match, its pages), or (None, 0)
+        when nothing matches."""
+        matches = self.match_pages(bucket, ids)
+        for rid in (exclude or ()):
+            matches.pop(rid, None)
+        if not matches:
+            return None, 0
+        rid = max(matches, key=lambda r: matches[r])
+        return rid, matches[rid]

@@ -2,8 +2,9 @@
 ``lir_tpu/faults``):
 
 - plan.FaultPlan: seeded per-site schedules wrapping the engine's
-  dispatches (``wrap_engine``), the serve batcher (``wrap_server``), the
-  speculative drafter (``corrupt_draft``) and the device-memory
+  dispatches (``wrap_engine``), the serve batcher (``wrap_server``), a
+  router replica's dispatches (``wrap_replica``: replica kill and lag),
+  the speculative drafter (``corrupt_draft``) and the device-memory
   governor (``wrap_governor``);
 - breaker.CircuitBreaker: the serve health flag as a closed / open /
   half-open breaker (serve/server.py);
@@ -18,12 +19,14 @@ The sweep's own recovery (retry, reset, OOM reclaim) is
 from .breaker import CLOSED, HALF_OPEN, OPEN, CircuitBreaker
 from .ladder import degrade_dispatch
 from .plan import (KINDS, SITES, FaultPlan, InjectedFault,
-                   InjectedPreemption, SiteSchedule, corrupt_result_nan,
-                   tear_jsonl_tail, wrap_engine, wrap_governor, wrap_server)
+                   InjectedPreemption, InjectedReplicaKill, SiteSchedule,
+                   corrupt_result_nan, tear_jsonl_tail, wrap_engine,
+                   wrap_governor, wrap_replica, wrap_server)
 
 __all__ = [
     "FaultPlan", "SiteSchedule", "InjectedFault", "InjectedPreemption",
-    "SITES", "KINDS", "wrap_engine", "wrap_server", "wrap_governor",
+    "InjectedReplicaKill", "SITES", "KINDS", "wrap_engine", "wrap_server",
+    "wrap_replica", "wrap_governor",
     "tear_jsonl_tail", "corrupt_result_nan",
     "CircuitBreaker", "CLOSED", "OPEN", "HALF_OPEN",
     "degrade_dispatch",

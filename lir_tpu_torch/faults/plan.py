@@ -27,10 +27,17 @@ Kinds and where the port wires them:
 - ``hbm_squeeze``: shrink the device-memory governor's budget
   (:func:`wrap_governor` over ``HbmGovernor.tick``).
 
-The replica, migration and tier kinds and sites (``replica_kill``,
-``replica_lag``, ``migration_*``, ``tier_corrupt``, ``disk_stall``;
-sites ``replica``, ``migrate``, ``tiers``) wait for the fleet server
-(ROADMAP A8b): a plan given one raises at construction rather than
+- ``replica_kill``: through :func:`wrap_replica`, the router marks
+  the replica dead (``kill_replica``: breaker tripped, in-flight
+  requests re-admitted), then the dispatch raises
+  :class:`InjectedReplicaKill`; elsewhere it raises that error;
+- ``replica_lag``: sleep ``lag_s``, then run the call to completion (a
+  straggler whose late payload must lose the hedge race).
+
+The migration and tier kinds and sites (``migration_stall``,
+``migration_corrupt``, ``tier_corrupt``, ``disk_stall``; sites
+``migrate``, ``tiers``) wait for page migration and the memory tiers
+(ROADMAP A8c): a plan given one raises at construction rather than
 ignore it.
 
 ``InjectedPreemption`` subclasses BaseException on purpose: a real kill
@@ -59,16 +66,27 @@ KINDS = ("fault", "preempt", "hang", "nan", "replica_kill",
          "replica_lag", "hbm_squeeze", "migration_stall",
          "migration_corrupt", "tier_corrupt", "disk_stall")
 
-# What waits for the fleet server's wrappers (ROADMAP A8b).
-_A8B_KINDS = ("replica_kill", "replica_lag", "migration_stall",
-              "migration_corrupt", "tier_corrupt", "disk_stall")
-_A8B_SITES = ("replica", "migrate", "tiers")
+# What waits for page migration and the memory tiers (ROADMAP A8c).
+_A8C_KINDS = ("migration_stall", "migration_corrupt", "tier_corrupt",
+              "disk_stall")
+_A8C_SITES = ("migrate", "tiers")
 # Kinds that act on a result or a side channel, never before the call.
 _PASSIVE_KINDS = ("nan", "draft_corrupt", "hbm_squeeze")
 
 
 class InjectedFault(RuntimeError):
     """A scheduled transient failure (device error stand-in)."""
+
+
+class InjectedReplicaKill(InjectedFault):
+    """A scheduled replica death: the replica's dispatch dies and the
+    router marks the replica dead, as an abrupt host loss looks from the
+    front. An ordinary Exception: the router is the recovery under test
+    and must survive the death."""
+
+    def __init__(self, msg: str, replica_id: str = ""):
+        super().__init__(msg)
+        self.replica_id = replica_id
 
 
 class InjectedPreemption(BaseException):
@@ -86,7 +104,9 @@ class SiteSchedule:
       models a transient outage);
     - ``kind``: see the module docstring; ``hang_s`` is the hang's
       sleep, ``nan_rows`` the rows a ``nan`` or ``draft_corrupt``
-      corrupts, ``squeeze_frac`` / ``squeeze_calls`` the squeeze.
+      corrupts, ``squeeze_frac`` / ``squeeze_calls`` the squeeze,
+      ``replica_id`` the replica a ``replica_kill`` names and ``lag_s``
+      a ``replica_lag``'s sleep.
     """
 
     fail_calls: Tuple[int, ...] = ()
@@ -95,6 +115,8 @@ class SiteSchedule:
     kind: str = "fault"
     hang_s: float = 30.0
     nan_rows: Tuple[int, ...] = (0,)
+    replica_id: str = ""
+    lag_s: float = 1.0
     squeeze_frac: float = 0.5
     squeeze_calls: int = 8
 
@@ -138,6 +160,23 @@ class SiteSchedule:
         return cls(fail_calls=(call,), kind="hbm_squeeze",
                    squeeze_frac=frac, squeeze_calls=calls)
 
+    @classmethod
+    def replica_kill_at(cls, call: int,
+                        replica_id: str = "") -> "SiteSchedule":
+        """A replica's death at one call index (through
+        :func:`wrap_replica` the router observes it and re-admits the
+        in-flight work)."""
+        return cls(fail_calls=(call,), kind="replica_kill",
+                   replica_id=replica_id)
+
+    @classmethod
+    def replica_lag_at(cls, call: int, seconds: float,
+                       replica_id: str = "") -> "SiteSchedule":
+        """A straggler: the dispatch at ``call`` sleeps ``seconds``, then
+        completes (the hedge should win; the late payload is dropped)."""
+        return cls(fail_calls=(call,), kind="replica_lag", lag_s=seconds,
+                   replica_id=replica_id)
+
 
 class FaultPlan:
     """Seeded per-site failure schedules and the counters they feed.
@@ -150,11 +189,11 @@ class FaultPlan:
         self.seed = int(seed)
         self.schedules: Dict[str, SiteSchedule] = dict(schedules or {})
         for site, sched in self.schedules.items():
-            if site in _A8B_SITES or sched.kind in _A8B_KINDS:
+            if site in _A8C_SITES or sched.kind in _A8C_KINDS:
                 raise ValueError(
-                    f"fault schedule {site}:{sched.kind} needs the fleet "
-                    f"server's wrappers, which the port does not have yet "
-                    f"(ROADMAP A8b)")
+                    f"fault schedule {site}:{sched.kind} needs page "
+                    f"migration or the memory tiers, which the port does "
+                    f"not have yet (ROADMAP A8c)")
         self.stats = stats if stats is not None else FaultStats()
         self._calls: Dict[str, int] = {}
         self._injected: Dict[str, int] = {}
@@ -164,6 +203,10 @@ class FaultPlan:
     def calls(self, site: str) -> int:
         with self._lock:
             return self._calls.get(site, 0)
+
+    def injected(self, site: str) -> int:
+        with self._lock:
+            return self._injected.get(site, 0)
 
     def _decide(self, site: str) -> Optional[SiteSchedule]:
         """Advance the site's call counter; return its schedule when THIS
@@ -209,14 +252,25 @@ class FaultPlan:
             raise InjectedFault(
                 f"injected hang at {site} call {idx} released (at most "
                 f"{sched.hang_s:.2f}s)")
+        if sched.kind == "replica_kill":
+            raise InjectedReplicaKill(
+                f"injected replica kill at {site} call {idx}"
+                + (f" (replica {sched.replica_id})"
+                   if sched.replica_id else ""),
+                replica_id=sched.replica_id)
         raise InjectedFault(f"injected fault at {site} call {idx}")
 
     def check(self, site: str) -> None:
         """The injection point: raise when the schedule says this call
         fails, else return. A result or side-channel kind (nan,
-        draft_corrupt, hbm_squeeze) is a no-op here."""
+        draft_corrupt, hbm_squeeze) is a no-op here; ``replica_lag``
+        sleeps in place, then returns."""
         sched = self._decide(site)
         if sched is None or sched.kind in _PASSIVE_KINDS:
+            return
+        if sched.kind == "replica_lag":
+            self.stats.inject(site)
+            time.sleep(sched.lag_s)
             return
         self._fire(sched, site)
 
@@ -253,7 +307,8 @@ class FaultPlan:
     def wrap(self, site: str, fn: Callable) -> Callable:
         """``fn`` under the site's schedule (indexed by the site's call
         count, not by wrapper): raise-style kinds fire BEFORE the call;
-        "nan" runs the call and corrupts its result rows."""
+        "nan" runs the call and corrupts its result rows; "replica_lag"
+        sleeps, then runs the call to completion."""
 
         def wrapped(*args, **kwargs):
             sched = self._decide(site)
@@ -262,6 +317,10 @@ class FaultPlan:
                     self.stats.inject(site)
                     return corrupt_result_nan(fn(*args, **kwargs),
                                               sched.nan_rows)
+                if sched.kind == "replica_lag":
+                    self.stats.inject(site)
+                    time.sleep(sched.lag_s)
+                    return fn(*args, **kwargs)
                 if sched.kind not in _PASSIVE_KINDS:
                     self._fire(sched, site)
             return fn(*args, **kwargs)
@@ -291,6 +350,48 @@ def wrap_server(server, plan: FaultPlan):
     ladder and breaker)."""
     server.batcher.score = plan.wrap("dispatch", server.batcher.score)
     return server
+
+
+def wrap_replica(router, replica_id: str, plan: FaultPlan,
+                 site: str = "replica"):
+    """The plan's ``site`` schedule in front of ONE router replica's
+    dispatch boundary (its batcher's score call, under the replica
+    server's retry and watchdog):
+
+    - ``replica_kill``: the router observes the death first
+      (``kill_replica``: breaker tripped, in-flight requests
+      re-admitted), then the dispatch raises InjectedReplicaKill, the
+      order an abrupt host loss presents;
+    - ``replica_lag``: the dispatch sleeps ``lag_s``, then completes;
+    - ``nan`` corrupts the result rows; other kinds fire as in
+      :meth:`FaultPlan.wrap`."""
+    handle = router.handle(replica_id)
+    inner = handle.server.batcher.score
+
+    def wrapped(*args, **kwargs):
+        sched = plan._decide(site)
+        if sched is not None:
+            if sched.kind == "replica_kill":
+                plan.stats.inject(site)
+                router.kill_replica(replica_id)
+                raise InjectedReplicaKill(
+                    f"injected replica kill on {replica_id}",
+                    replica_id=replica_id)
+            if sched.kind == "replica_lag":
+                plan.stats.inject(site)
+                time.sleep(sched.lag_s)
+                return inner(*args, **kwargs)
+            if sched.kind == "nan":
+                plan.stats.inject(site)
+                return corrupt_result_nan(inner(*args, **kwargs),
+                                          sched.nan_rows)
+            if sched.kind not in _PASSIVE_KINDS:
+                plan._fire(sched, site)
+        return inner(*args, **kwargs)
+
+    wrapped.__wrapped__ = inner  # type: ignore[attr-defined]
+    handle.server.batcher.score = wrapped
+    return router
 
 
 def wrap_governor(governor, plan: FaultPlan, site: str = "hbm"):

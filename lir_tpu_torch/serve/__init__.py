@@ -1,29 +1,42 @@
-"""Online serving over one engine (port of ``lir_tpu/serve``'s
-single-model part; the fleet server, router, page migration and memory
-tiers wait for ROADMAP A8b):
+"""Online serving (port of ``lir_tpu/serve`` less page migration and
+the memory tiers, which wait for ROADMAP A8c):
 
 - queue.RequestQueue: bounded admission with per-class deadlines and
   deadline-aware shedding;
 - cache.ResultCache: content-addressed dedup of repeated probes;
 - batcher.ContinuousBatcher: bucket snapping, slot refill and
-  price-model dispatch selection over the engine's ladder;
+  price-model dispatch selection over the engine's ladder (rows halved
+  under the governor's batch_down rung); batcher.FleetBatcher: per-model
+  queues over a ModelFleet, resident first, the next model prefetched;
 - server.ScoringServer: the supervisor loop under the dispatch
   watchdog, retry, degradation ladder and circuit breaker, with
-  partial results on deadline expiry and a SIGTERM checkpoint.
+  partial results on deadline expiry, the governor's shed rung and a
+  SIGTERM checkpoint;
+- server.FleetScoringServer: the ``fleet_score`` request class, one
+  question across every fleet model with per-model P(yes)/P(no), kappa
+  and disagreement (``aggregate_fleet``, ``fleet_decision``);
+- router.ReplicaRouter: N replica servers behind one front with
+  queue-depth, breaker, weight-residency, page-residency, SLO and
+  pressure placement, exactly-once failover of a dead replica's
+  requests and deadline-whisker hedging.
 
 Surface: ``python -m lir_tpu_torch serve`` (JSONL over stdin or
-``--requests``).
+``--requests``; ``--replicas N``; ``--fleet-models a,b``).
 """
 
-from .batcher import ContinuousBatcher
+from .batcher import ContinuousBatcher, FleetBatcher
 from .cache import ResultCache, content_key, engine_key
 from .queue import (STATUS_ERROR, STATUS_EXPIRED, STATUS_OK, STATUS_SHED,
                     RequestQueue, ServeFuture, ServeRequest, ServeResult)
-from .server import ScoringServer
+from .router import ReplicaRouter
+from .server import (FleetScoreFuture, FleetScoringServer, ScoringServer,
+                     aggregate_fleet, fleet_decision)
 
 __all__ = [
-    "ContinuousBatcher", "ResultCache", "content_key", "engine_key",
-    "RequestQueue", "ServeFuture", "ServeRequest", "ServeResult",
-    "ScoringServer",
+    "ContinuousBatcher", "FleetBatcher", "ResultCache", "content_key",
+    "engine_key", "RequestQueue", "ServeFuture", "ServeRequest",
+    "ServeResult", "ScoringServer", "FleetScoringServer",
+    "FleetScoreFuture", "ReplicaRouter", "aggregate_fleet",
+    "fleet_decision",
     "STATUS_OK", "STATUS_EXPIRED", "STATUS_SHED", "STATUS_ERROR",
 ]

@@ -20,7 +20,12 @@ bucket and price machinery incrementally, between dispatches:
 A served row is the sweep's row for the same cell: the dispatch is the
 sweep's shared ``decode_fused_shared`` call with the same pretokenized
 ids, bucket, suffix buckets and budgets. The engine ticks its
-device-memory governor once a dispatch; the batcher adds no tick.
+device-memory governor once a dispatch; the batcher adds no tick, and
+halves its dispatch rows while the governor's ``batch_down`` rung is
+engaged.
+
+:class:`FleetBatcher` keeps one ContinuousBatcher per model of a
+``ModelFleet`` (the fleet server's batcher).
 """
 
 from __future__ import annotations
@@ -83,6 +88,13 @@ class ContinuousBatcher:
     def pending_rows(self) -> int:
         return sum(len(q) for q in self._queues.values())
 
+    def oldest_wait(self, now: float) -> float:
+        """Seconds the oldest bucketed row has waited (0 when none): the
+        router's SLO signal."""
+        oldest = min((q[0].t_submit for q in self._queues.values() if q),
+                     default=None)
+        return 0.0 if oldest is None else max(now - oldest, 0.0)
+
     def snapshot(self) -> List[Pending]:
         """A copy of every bucketed entry, bucket order (the shutdown
         checkpoint reads it once the supervisor has stopped)."""
@@ -98,12 +110,19 @@ class ContinuousBatcher:
                  f"(waited {now - p.t_submit:.3f}s)",
             latency_s=now - p.t_submit))
 
+    def _batch_cap(self) -> int:
+        """Dispatch-row cap: the batch, halved while the governor's
+        batch_down rung is engaged (a row's readout does not depend on
+        its neighbours, only on the dispatch's row count: ROADMAP R1).
+        The full batch for an engine without a governor."""
+        gov = getattr(self.engine, "governor", None)
+        return self.batch if gov is None else gov.batch_cap(self.batch)
+
     def _dispatch_rows(self, n: int) -> int:
-        """Padded rows a dispatch of ``n`` real rows pays for: the full
-        batch under ``pad_full``, else the sweep's power-of-two tail.
-        (The JAX batcher halves the batch under the governor's
-        batch_down rung; that caller waits for ROADMAP A8b.)"""
-        return self.batch if self.pad_full else _tail_batch(n, self.batch)
+        """Padded rows a dispatch of ``n`` real rows pays for: the row
+        cap under ``pad_full``, else the sweep's power-of-two tail."""
+        cap = self._batch_cap()
+        return cap if self.pad_full else _tail_batch(n, cap)
 
     def _trunk(self, fn, rows: List[Pending], bucket: int) -> int:
         """Shared-trunk tokens the engine's cascade prefill
@@ -166,7 +185,8 @@ class ContinuousBatcher:
                     self.stats.count("promoted", n)
                     continue    # re-select (promotion may cascade)
             rows: List[Pending] = []
-            while q and len(rows) < self.batch:
+            cap = self._batch_cap()
+            while q and len(rows) < cap:
                 p = q.popleft()
                 if now >= p.t_deadline:
                     self._expire(p, now)  # the slot refills from the queue
@@ -255,3 +275,89 @@ class ContinuousBatcher:
             ))
         self.stats.add_dispatch(n, bsz)
         return payloads
+
+
+class FleetBatcher:
+    """Per-model dispatch queues over a ``ModelFleet``: one
+    ContinuousBatcher a model (prefix cache off, as in the JAX fleet
+    server), plus
+
+    - **resident-first selection**: among models with a ripe bucket, one
+      whose weights are resident dispatches before one that would pay a
+      swap; the resident scan rotates each call, so equally loaded
+      resident models take turns;
+    - **swap overlap**: once a dispatch is chosen, the next non-resident
+      model with waiting rows starts streaming its weights
+      (``fleet.prefetch``) behind this dispatch;
+    - ``score`` under fleet ``acquire`` / ``release`` (the refcount
+      keeps the model's weights, and a fleet draft model's, resident for
+      the dispatch).
+    """
+
+    def __init__(self, fleet, stats: ServeStats, linger_s: float,
+                 clock: Callable[[], float] = time.monotonic,
+                 pad_full: bool = True):
+        self.fleet = fleet
+        self.stats = stats
+        self.clock = clock
+        self.batchers: Dict[str, ContinuousBatcher] = {
+            mid: ContinuousBatcher(fleet.engine(mid), stats, linger_s,
+                                   clock, pad_full=pad_full,
+                                   prefix_cache=False)
+            for mid in fleet.model_ids}
+        self._rr = 0
+
+    def admit(self, pending: Pending) -> None:
+        self.batchers[pending.model_id].admit(pending)
+
+    @property
+    def pending_rows(self) -> int:
+        return sum(b.pending_rows for b in self.batchers.values())
+
+    def oldest_wait(self, now: float) -> float:
+        return max((b.oldest_wait(now) for b in self.batchers.values()),
+                   default=0.0)
+
+    def snapshot(self) -> List[Pending]:
+        return [p for mid in sorted(self.batchers)
+                for p in self.batchers[mid].snapshot()]
+
+    def next_dispatch(self, now: float, flush: bool = False
+                      ) -> Optional[Tuple[str, int, List[Pending]]]:
+        """(model id, bucket, rows) of the next dispatch, or None when no
+        model has a ripe bucket."""
+        mids = list(self.batchers)
+        resident = [m for m in mids if self.fleet.resident(m)]
+        if resident:
+            self._rr = (self._rr + 1) % len(resident)
+            resident = resident[self._rr:] + resident[:self._rr]
+        rest = [m for m in mids if not self.fleet.resident(m)]
+        for mid in resident + rest:
+            d = self.batchers[mid].next_dispatch(now, flush=flush)
+            if d is None:
+                continue
+            bucket, rows = d
+            for nxt in mids:
+                if (nxt != mid and not self.fleet.resident(nxt)
+                        and self.batchers[nxt].pending_rows):
+                    self.fleet.prefetch(nxt)
+                    break
+            return mid, bucket, rows
+        return None
+
+    def flush_all(self, status: str, note: str) -> int:
+        return sum(b.flush_all(status, note)
+                   for b in self.batchers.values())
+
+    def score(self, model_id: str, bucket: int,
+              rows: List[Pending]) -> List[Dict]:
+        """One dispatch on ``model_id``'s engine with its weights held
+        resident for the call, and a co-resident draft model's too when
+        ``RuntimeConfig.spec_draft_model`` names one (fleet drafting)."""
+        engine = self.fleet.acquire(model_id)
+        draft_id = self.fleet.acquire_spec_draft(engine, model_id)
+        try:
+            return self.batchers[model_id].score(bucket, rows)
+        finally:
+            self.fleet.release_spec_draft(engine, draft_id)
+            self.fleet.release(model_id)

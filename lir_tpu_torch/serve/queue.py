@@ -80,19 +80,42 @@ class ServeResult:
 class ServeFuture:
     """Completion handle: the submitter blocks in :meth:`result`, the
     supervisor resolves it once (first resolution wins). Every admitted
-    request resolves with SOME status."""
+    request resolves with SOME status.
+
+    ``add_done_callback`` is the router's seam (serve/router.py): the
+    router reacts to a replica's resolution (forward the payload, fail
+    over, drop a zombie or a hedge's loser) without a waiting thread per
+    attempt. A callback added after resolution fires at once, on the
+    caller's thread, with the winning result; a late ``resolve`` is
+    dropped and fires nothing."""
 
     def __init__(self) -> None:
         self._done = threading.Event()
         self._result: Optional[ServeResult] = None
         self._lock = threading.Lock()
+        self._callbacks: List[Callable[[ServeResult], None]] = []
 
     def resolve(self, result: ServeResult) -> None:
         with self._lock:
-            if self._done.is_set():
+            if self._done.is_set():    # first resolution wins
                 return
             self._result = result
             self._done.set()
+            callbacks, self._callbacks = self._callbacks, []
+        for fn in callbacks:           # outside the lock: a callback may
+            fn(result)                 # resolve OTHER futures
+
+    def add_done_callback(self, fn: Callable[[ServeResult], None]) -> None:
+        """Run ``fn(result)`` when this future resolves (at once if it
+        has). Callbacks run on the resolving thread: keep them short and
+        never wait on another future inside one."""
+        with self._lock:
+            if not self._done.is_set():
+                self._callbacks.append(fn)
+                return
+            result = self._result
+        assert result is not None
+        fn(result)
 
     def done(self) -> bool:
         return self._done.is_set()
@@ -111,7 +134,8 @@ class Pending:
     shared-prefix split, the ladder bucket, the target ids, the result
     cache's content address, and the radix-cached prefix tokens at
     submit (advisory: the batcher's pricing; the dispatch looks up
-    again with a pin)."""
+    again with a pin). ``model_id`` routes a fleet server's row to its
+    model's batcher ("" on a single-model server)."""
 
     request: ServeRequest
     future: ServeFuture
@@ -125,6 +149,7 @@ class Pending:
     t2: int = 0
     cache_key: str = ""
     cached_hint: int = 0
+    model_id: str = ""
 
 
 class RequestQueue:

@@ -1,8 +1,10 @@
-"""Scoring server: the supervisor loop tying queue, cache and batcher
-into a long-running service over one engine. Port of
-``lir_tpu/serve/server.py``'s ``ScoringServer`` (single-model serving;
-the fleet server, the router, page migration, memory tiers, the metrics
-registry and tracing spans wait for ROADMAP A8b and "Also open").
+"""Scoring servers: the supervisor loop tying queue, cache and batcher
+into a long-running service. Port of ``lir_tpu/serve/server.py``:
+``ScoringServer`` over one engine and ``FleetScoringServer`` over a
+``ModelFleet`` (the ``fleet_score`` request class: one question across
+every model, with kappa and disagreement). Page operations for
+migration and the memory tiers wait for ROADMAP A8c; the metrics
+registry, the sentinel observatory and tracing spans for "Also open".
 
 The graceful-degradation contract:
 
@@ -31,6 +33,9 @@ The graceful-degradation contract:
 - On SIGTERM :meth:`shutdown_checkpoint` stops the supervisor without
   working off the backlog and writes every unresolved request to an
   atomic JSON checkpoint; :meth:`resume_from_checkpoint` re-submits them.
+- The governor's last rung, ``shed``, refuses submits while engaged
+  (memory is not coming back this tick); ``batch_down`` halves the
+  batcher's dispatch rows.
 
 The result cache answers a repeated probe without a dispatch; with
 ``ServeConfig.prefix_cache`` (on by default) the engine's radix prefix
@@ -39,11 +44,15 @@ cache over its paged pool serves shared prefixes across requests.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import threading
 import time
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
 
 from ..config import ServeConfig
 from ..engine import scheduler as sched_mod
@@ -52,11 +61,12 @@ from ..engine import tokens as tok
 from ..faults import CLOSED, HALF_OPEN, CircuitBreaker, degrade_dispatch
 from ..guard import numerics
 from ..guard.watchdog import EnginePoisoned
+from ..stats import streaming
 from ..utils.logging import get_logger
 from ..utils.manifest import atomic_write_json
 from ..utils.profiling import FaultStats, ServeStats, is_oom_error
 from ..utils.retry import retry_with_exponential_backoff
-from .batcher import ContinuousBatcher
+from .batcher import ContinuousBatcher, FleetBatcher
 from .cache import ResultCache, content_key, engine_key
 from .queue import (STATUS_ERROR, STATUS_EXPIRED, STATUS_OK, STATUS_SHED,
                     Pending, RequestQueue, ServeFuture, ServeRequest,
@@ -76,13 +86,26 @@ class _OomSignal(BaseException):
         self.err = err
 
 
+def _refuse_tiers(tiers) -> None:
+    """The JAX servers' ``tiers=`` (a TierConfig): an enabled one waits
+    for the memory tiers (ROADMAP A8c) and is refused, never ignored."""
+    if tiers is not None and getattr(tiers, "enabled", False):
+        raise NotImplementedError(
+            "tiered KV and weight memory (tiers= with enabled) is not "
+            "ported yet (ROADMAP A8c)")
+
+
 class ScoringServer:
-    """Continuous-batching scoring service over one ScoringEngine."""
+    """Continuous-batching scoring service over one ScoringEngine.
+    ``tiers=`` is accepted for the JAX signature; an enabled one raises
+    (ROADMAP A8c)."""
 
     def __init__(self, engine, model_name: str,
                  config: Optional[ServeConfig] = None,
                  stats: Optional[ServeStats] = None,
-                 clock: Callable[[], float] = time.monotonic):
+                 clock: Callable[[], float] = time.monotonic,
+                 tiers=None):
+        _refuse_tiers(tiers)
         self.engine = engine
         self.model_name = model_name
         self.config = config or ServeConfig()
@@ -126,6 +149,24 @@ class ScoringServer:
         but already admits traffic)."""
         return self.breaker.state == CLOSED
 
+    @property
+    def queue_depth(self) -> int:
+        """Admitted, undispatched rows (queue + buckets): the router's
+        load signal. Best effort while the supervisor runs."""
+        return len(self.queue) + self.batcher.pending_rows
+
+    def oldest_wait(self, now: Optional[float] = None) -> float:
+        """The oldest bucketed row's wait in seconds (the router's SLO
+        signal)."""
+        return self.batcher.oldest_wait(self.clock() if now is None
+                                        else now)
+
+    @property
+    def hbm_pressure(self) -> float:
+        """The governor's ledger pressure (a router placement signal; 0
+        without a budget)."""
+        return float(self.engine.governor.pressure())
+
     # -- client side ---------------------------------------------------------
 
     def _target_ids(self, targets: Tuple[str, str]) -> Tuple[int, int]:
@@ -164,6 +205,17 @@ class ScoringServer:
                 request_id=request.request_id, status=STATUS_SHED,
                 note="server unhealthy — circuit breaker open "
                      f"(cooldown {self.config.breaker_cooldown_s:.1f}s)"))
+            return fut
+        gov = self.engine.governor
+        if gov.should_shed():
+            # The ladder's last rung: memory is not coming back this
+            # tick, so refuse at once instead of queueing behind it.
+            self.stats.count("shed")
+            fut.resolve(ServeResult(
+                request_id=request.request_id, status=STATUS_SHED,
+                note=f"memory pressure — HBM governor shedding "
+                     f"(pressure {gov.pressure():.2f}, engaged rungs: "
+                     f"{','.join(gov.engaged_rungs())})"))
             return fut
         with self.engine._tok_lock:
             bin_ids = tuple(int(i) for i in self.engine.tokenizer(
@@ -515,3 +567,318 @@ class ScoringServer:
         log.info("serve: resuming %d checkpointed requests from %s",
                  len(reqs), path)
         return [self.submit(r) for r in reqs]
+
+
+# ---------------------------------------------------------------------------
+# Fleet serving: one question across every model (the agreement axis as
+# a request class)
+# ---------------------------------------------------------------------------
+
+
+def fleet_decision(token_1_prob, token_2_prob) -> Optional[int]:
+    """The binary decision the agreement statistic counts: the streaming
+    fold's rule exactly (yes / (yes + no) > 0.5), or None for a row
+    without both probabilities, with a non-finite sum or a zero total."""
+    if token_1_prob is None or token_2_prob is None:
+        return None
+    t1, t2 = float(token_1_prob), float(token_2_prob)
+    total = t1 + t2
+    if not math.isfinite(total) or total <= 0:
+        return None
+    return 1 if t1 / total > 0.5 else 0
+
+
+def aggregate_fleet(request_id: str, results: Dict[str, ServeResult],
+                    latency_s: float) -> Dict:
+    """One ``fleet_score`` fan-out's per-model results folded into the
+    agreement payload: each model's P(yes), P(no) and decision, the
+    within-question kappa over the valid decisions (through
+    ``stats/streaming.group_counts`` and ``kappa_from_counts``, the
+    contingency path of the streaming sink and the CSV pipeline), and the
+    pairwise disagreement (1 - observed agreement; NaN under two valid
+    decisions). Status: ok when every model answered ok, "partial" when
+    some did, error when none did."""
+    per_model: Dict[str, Dict] = {}
+    decisions = []
+    for mid in sorted(results):
+        r = results[mid]
+        dec = (fleet_decision(r.token_1_prob, r.token_2_prob)
+               if r.status == STATUS_OK else None)
+        per_model[mid] = {
+            "status": r.status,
+            "token_1_prob": r.token_1_prob,
+            "token_2_prob": r.token_2_prob,
+            "weighted_confidence": r.weighted_confidence,
+            "confidence_value": r.confidence_value,
+            "decision": dec,
+            "cached": r.cached,
+        }
+        if r.note:
+            per_model[mid]["note"] = r.note
+        if dec is not None:
+            decisions.append(dec)
+    n_ok = sum(1 for m in per_model.values() if m["status"] == STATUS_OK)
+    if decisions:
+        n_g, s_g = streaming.group_counts(
+            np.zeros(len(decisions), dtype=np.int64),
+            np.asarray(decisions, dtype=np.int64))
+        kap = streaming.kappa_from_counts(n_g, s_g)
+    else:
+        kap = {"kappa": float("nan"), "observed_agreement": float("nan"),
+               "expected_agreement": float("nan")}
+    n = len(decisions)
+    disagreement = (1.0 - float(kap["observed_agreement"])
+                    if n * (n - 1) // 2 > 0 else float("nan"))
+    status = (STATUS_OK if n_ok == len(per_model) and per_model
+              else "partial" if n_ok else STATUS_ERROR)
+    return {
+        "request_id": request_id,
+        "status": status,
+        "n_models": len(per_model),
+        "n_valid": n,
+        "per_model": per_model,
+        "kappa": {k: float(v) for k, v in kap.items()},
+        "disagreement": disagreement,
+        "latency_s": latency_s,
+    }
+
+
+class FleetScoreFuture:
+    """Completion handle of one fan-out: resolves once every per-model
+    future has (each with SOME status), then aggregates."""
+
+    def __init__(self, request_id: str, futures: Dict[str, ServeFuture],
+                 t_submit: float,
+                 clock: Callable[[], float] = time.monotonic):
+        self.request_id = request_id
+        self._futures = futures
+        self._t_submit = t_submit
+        self._clock = clock
+
+    def done(self) -> bool:
+        return all(f.done() for f in self._futures.values())
+
+    def result(self, timeout: Optional[float] = None) -> Dict:
+        deadline = None if timeout is None else self._clock() + timeout
+        results: Dict[str, ServeResult] = {}
+        for mid, fut in self._futures.items():
+            left = (None if deadline is None
+                    else max(deadline - self._clock(), 0.0))
+            results[mid] = fut.result(left)
+        return aggregate_fleet(self.request_id, results,
+                               self._clock() - self._t_submit)
+
+
+class FleetScoringServer:
+    """Multiplexed scoring service over a ``ModelFleet``: per-model
+    dispatch queues (serve/batcher.FleetBatcher), resident-first
+    selection with a background prefetch of the next model, and the
+    ``fleet_score`` request class (:meth:`submit_fleet`).
+
+    Leaner than :class:`ScoringServer`, as in the JAX package: it keeps
+    the retry policy, deadline expiry (the batcher's) and the numerics
+    guard's quarantine, and has no breaker, ladder or checkpoint. A
+    per-model result is bitwise what the same request on a single-model
+    ScoringServer over the same engine returns with its prefix cache off
+    (the fleet batchers run without one): the dispatch is the same
+    ``ContinuousBatcher.score`` on the same engine.
+
+    The fleet adopts the first member engine's governor and every member
+    engine reports into it: one ledger. Left out: ``tiers=`` with
+    ``enabled`` (ROADMAP A8c) and :meth:`attach_observatory` (the
+    sentinel observatory and metrics registry, "Also open") raise; the
+    JAX server's ``fresh_handoff`` per engine is XLA buffer donation and
+    has no counterpart here (``reset_dispatch_state`` drops a parked
+    chain instead).
+    """
+
+    def __init__(self, fleet, config: Optional[ServeConfig] = None,
+                 fleet_deadline_s: float = 60.0,
+                 stats: Optional[ServeStats] = None,
+                 clock: Callable[[], float] = time.monotonic,
+                 tiers=None):
+        _refuse_tiers(tiers)
+        self.fleet = fleet
+        self.config = config or ServeConfig()
+        self.fleet_deadline_s = float(fleet_deadline_s)
+        self.stats = stats if stats is not None else ServeStats()
+        self.clock = clock
+        self.queue = RequestQueue(self.config.queue_depth, self.stats,
+                                  clock)
+        self.batcher = FleetBatcher(fleet, self.stats,
+                                    self.config.linger_s, clock,
+                                    pad_full=self.config.pad_full)
+        engines = [e for e in (fleet.engine(m) for m in fleet.model_ids)
+                   if e is not None]
+        for eng in engines:
+            eng.reset_dispatch_state()
+        if fleet.governor is None and engines:
+            fleet.attach_governor(engines[0].governor)
+        if fleet.governor is not None:
+            for eng in engines:
+                eng.governor = fleet.governor
+        self._thread: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+
+    @property
+    def model_ids(self) -> List[str]:
+        return self.fleet.model_ids
+
+    @property
+    def queue_depth(self) -> int:
+        """The router's load signal (see ScoringServer.queue_depth)."""
+        return len(self.queue) + self.batcher.pending_rows
+
+    def oldest_wait(self, now: Optional[float] = None) -> float:
+        return self.batcher.oldest_wait(self.clock() if now is None
+                                        else now)
+
+    @property
+    def hbm_pressure(self) -> float:
+        """The shared ledger's pressure (0 ungoverned or unbounded)."""
+        gov = self.fleet.governor
+        return 0.0 if gov is None else float(gov.pressure())
+
+    def resident_models(self) -> List[str]:
+        """Models whose weights are in the fleet's WeightCache now (the
+        router's residency seed)."""
+        return [m for m in self.fleet.model_ids if self.fleet.resident(m)]
+
+    # -- client side ---------------------------------------------------------
+
+    def submit(self, request: ServeRequest, model_id: str) -> ServeFuture:
+        """Admit one request for ONE fleet model, tokenized here with that
+        model's tokenizer."""
+        self.stats.count("submitted")
+        engine = self.fleet.engine(model_id)
+        assert engine is not None, f"unknown fleet model {model_id}"
+        fut = ServeFuture()
+        now = self.clock()
+        with engine._tok_lock:
+            bin_ids = tuple(int(i) for i in engine.tokenizer(
+                request.binary_prompt).input_ids)
+            conf_ids = tuple(int(i) for i in engine.tokenizer(
+                request.confidence_prompt).input_ids)
+            t1, t2 = tok.target_token_ids(
+                engine.tokenizer, tuple(request.targets),
+                encoder_decoder=engine.encoder_decoder)
+        lcp = tok.shared_prefix_len(bin_ids, conf_ids)
+        deadline = (request.deadline_s if request.deadline_s is not None
+                    else self.fleet_deadline_s)
+        bucket = tok.assign_bucket(max(lcp, 1), engine.buckets)
+        self.queue.offer(Pending(
+            request=request, future=fut, t_submit=now,
+            t_deadline=now + deadline, bin_ids=bin_ids, conf_ids=conf_ids,
+            lcp=lcp, bucket=bucket, t1=int(t1), t2=int(t2),
+            model_id=model_id))
+        return fut
+
+    def submit_fleet(self, request: ServeRequest,
+                     models: Optional[List[str]] = None
+                     ) -> FleetScoreFuture:
+        """The fleet request class: ``request`` across every fleet model
+        (or ``models``), aggregated into agreement."""
+        mids = list(models) if models is not None else self.fleet.model_ids
+        self.fleet.stats.count("fleet_requests")
+        self.fleet.stats.count("fleet_rows", len(mids))
+        t0 = self.clock()
+        futures = {mid: self.submit(dataclasses_replace_id(request, mid),
+                                    mid)
+                   for mid in mids}
+        return FleetScoreFuture(request.request_id, futures, t0,
+                                self.clock)
+
+    # -- supervisor side -----------------------------------------------------
+
+    def start(self) -> "FleetScoringServer":
+        assert self._thread is None, "server already started"
+        self._thread = threading.Thread(target=self._loop,
+                                        name="fleet-supervisor",
+                                        daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self, timeout: Optional[float] = None) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout)
+            self._thread = None
+
+    def _loop(self) -> None:
+        while True:
+            stopping = self._stop.is_set()
+            for p in self.queue.drain():
+                self.batcher.admit(p)
+            d = self.batcher.next_dispatch(self.clock(), flush=stopping)
+            if d is None:
+                if (stopping and len(self.queue) == 0
+                        and self.batcher.pending_rows == 0):
+                    return
+                self.queue.wait_nonempty(
+                    0.005 if self.batcher.pending_rows else 0.05)
+                continue
+            self._dispatch(*d)
+
+    def attach_observatory(self, scheduler) -> None:
+        raise NotImplementedError(
+            "the sentinel observatory and the metrics registry are not "
+            "ported yet (ROADMAP \"Also open\")")
+
+    def stats_summary(self) -> Dict:
+        """The ``stats`` endpoint: serve counters and the fleet's swap
+        accounting."""
+        return {"serve": self.stats.summary(),
+                "fleet": self.fleet.stats.summary()}
+
+    def fleet_summary(self) -> Dict:
+        return self.fleet.stats.summary()
+
+    def _dispatch(self, model_id: str, bucket: int, rows) -> None:
+        engine = self.fleet.engine(model_id)
+        try:
+            payloads = retry_with_exponential_backoff(
+                lambda: self.batcher.score(model_id, bucket, rows),
+                retry_on=(Exception,), config=self.config.retry,
+                log=lambda m: log.warning("fleet dispatch retry (%s): %s",
+                                          model_id, m),
+                clock=self.clock)
+        except (KeyboardInterrupt, SystemExit):
+            raise
+        except Exception as err:  # noqa: BLE001 — resolve, never crash
+            now = self.clock()
+            self.stats.count("errors", len(rows))
+            for p in rows:
+                p.future.resolve(ServeResult(
+                    request_id=p.request.request_id, status=STATUS_ERROR,
+                    note=f"device error after retries on {model_id}: "
+                         f"{err!r}",
+                    latency_s=now - p.t_submit))
+            return
+        now = self.clock()
+        for p, payload in zip(rows, payloads):
+            reason = None
+            if engine.rt.numerics_guard:
+                engine.guard_stats.site("checked", "fleet")
+                reason = numerics.check_payload(payload)
+            if reason is not None:
+                engine.guard_stats.quarantine("fleet", reason)
+                self.stats.count("errors")
+                p.future.resolve(ServeResult(
+                    request_id=p.request.request_id, status=STATUS_ERROR,
+                    note=f"{numerics.NUMERICS_ERROR} — {reason} "
+                         f"(row quarantined by the numerics guard)",
+                    latency_s=now - p.t_submit))
+                continue
+            self.stats.count("completed")
+            self.stats.record_latency(now - p.t_submit)
+            p.future.resolve(ServeResult(
+                request_id=p.request.request_id, status=STATUS_OK,
+                latency_s=now - p.t_submit, **payload))
+
+
+def dataclasses_replace_id(request: ServeRequest,
+                           model_id: str) -> ServeRequest:
+    """A fan-out's per-model sub-request: the same prompts and targets,
+    the request id suffixed with the model."""
+    return dataclasses.replace(
+        request, request_id=f"{request.request_id}#{model_id}")

@@ -16,6 +16,7 @@ Copies from the JAX package's ``utils/profiling.py``:
 - ``KernelStats``: the piggyback chain's counters (its ``phases``, which
   only the JAX package's benchmark fills, are left out);
 - ``FleetStats``: the model fleet's swap and weight-cache counters;
+- ``RouterStats``: the replica router's placement and failover counters;
 - ``MemStats``: the device-memory governor's ledger gauges and ladder
   counters;
 - ``device_memory_stats``: per-device memory from
@@ -644,8 +645,8 @@ class FleetStats:
     - ``evictions``, ``resident_models`` / ``resident_bytes``: the LRU
       cache's evictions and occupancy gauges.
     - ``model_swaps``: acquires that changed the active model;
-      ``fleet_requests`` / ``fleet_rows``: serving's fan-outs (not
-      ported yet).
+      ``fleet_requests`` / ``fleet_rows``: serving's ``fleet_score``
+      fan-outs and the per-model rows they made.
     """
 
     swap_s_hidden: float = 0.0
@@ -762,6 +763,67 @@ class MemStats:
                 "squeezes": self.squeezes,
                 "sheds": self.sheds,
             }
+
+
+@dataclasses.dataclass
+class RouterStats:
+    """The replica router's counters (serve/router.py). Thread-safe:
+    submitting threads, the replicas' supervisor threads (future
+    callbacks) and the router's tick all count.
+
+    - ``routed``: requests placed (dedup hits excluded);
+      ``routed_resident``: placements that followed weight residency;
+      ``per_replica``: placements (every attempt) by replica.
+    - ``dedup_hits``: requests answered from the router's own cache.
+    - ``failovers``: attempts moved to another replica after an error or
+      shed result; ``re_admitted``: in-flight requests moved because
+      their replica was killed.
+    - ``hedged`` / ``hedge_wins`` / ``hedge_losses``: requests duplicated
+      inside the deadline whisker, and which copy won.
+    - ``zombie_payloads``: payloads from a dead replica after the request
+      resolved elsewhere, dropped.
+    - ``replica_errors`` / ``replica_sheds``: attempt outcomes that
+      started a failover; ``no_replica_sheds``: requests no live replica
+      would take.
+    - ``kills`` / ``revives``: replica deaths and rejoins.
+    """
+
+    routed: int = 0
+    routed_resident: int = 0
+    dedup_hits: int = 0
+    completed: int = 0
+    errors: int = 0
+    failovers: int = 0
+    re_admitted: int = 0
+    hedged: int = 0
+    hedge_wins: int = 0
+    hedge_losses: int = 0
+    zombie_payloads: int = 0
+    replica_errors: int = 0
+    replica_sheds: int = 0
+    no_replica_sheds: int = 0
+    kills: int = 0
+    revives: int = 0
+    per_replica: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+    def __post_init__(self) -> None:
+        self._lock = threading.Lock()
+
+    def count(self, field: str, n: int = 1) -> None:
+        with self._lock:
+            setattr(self, field, getattr(self, field) + n)
+
+    def placed(self, replica_id: str) -> None:
+        with self._lock:
+            self.per_replica[replica_id] = (
+                self.per_replica.get(replica_id, 0) + 1)
+
+    def summary(self) -> Dict[str, object]:
+        with self._lock:
+            out = {f.name: getattr(self, f.name)
+                   for f in dataclasses.fields(self)}
+            out["per_replica"] = dict(self.per_replica)
+            return out
 
 
 def is_oom_error(err) -> bool:

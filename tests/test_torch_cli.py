@@ -21,9 +21,14 @@ repro``) on the CPU.
 - ``serve`` on a tiny checkpoint round-trips JSONL (a ``{"op":
   "stats"}`` line included) to the library server's results, cold and
   then warm through ``--param-cache`` (no conversion the second time);
-  its flags land in the JAX ``ServeConfig`` / ``RuntimeConfig`` fields,
-  and the flags of the fleet server, router, migration, tiers, meshes
-  and tracing (ROADMAP A8b, A9, "Also open") are rejected.
+  ``serve --replicas 2`` to a direct single-server dispatch, bitwise;
+  ``serve --fleet-models a,b`` answers ``fleet_score`` lines and
+  single-model lines as the library's ``FleetScoringServer``. Its flags
+  land in the JAX ``ServeConfig`` / ``RuntimeConfig`` / ``RouterConfig``
+  fields and the fleet's arguments, the JAX command's refused
+  combinations are refused, and the flags of page migration, tiers,
+  meshes, the sentinels and tracing (ROADMAP A8c, A9, "Also open") are
+  rejected.
 - A flag of a feature the port does not have yet is rejected, as are
   ``--int8-dynamic`` without ``--int8`` and ``--full-completions`` with a
   decode budget; the default device is the card.
@@ -874,16 +879,14 @@ def test_serve_flags_land_in_the_jax_fields(monkeypatch, flags):
     assert port["kw"]["device"] == "cuda"
 
 
-# Flags of the JAX serve command that wait for the fleet server, router,
-# migration and tiers (ROADMAP A8b), meshes (A9) and tracing ("Also
-# open").
+# Flags of the JAX serve command that wait for page migration and the
+# memory tiers (ROADMAP A8c), meshes (A9), the sentinels and tracing
+# ("Also open").
 SERVE_UNPORTED = [
-    ["--mesh", "1x8"], ["--no-precompile"], ["--replicas", "2"],
-    ["--fleet-models", "a/b", "c/d"], ["--fleet-deadline", "5"],
-    ["--weight-cache-gb", "4"], ["--migrate-prefill-replicas", "1"],
-    ["--no-migrate"], ["--tiered"], ["--tier-host-mb", "64"],
-    ["--sentinels", "legal"], ["--router-tick", "0.1"],
-    ["--hedge-threshold", "2"], ["--trace-out", "t.json"],
+    ["--mesh", "1x8"], ["--no-precompile"],
+    ["--migrate-prefill-replicas", "1"], ["--no-migrate"], ["--tiered"],
+    ["--tier-host-mb", "64"], ["--sentinels", "legal"],
+    ["--trace-out", "t.json"],
 ]
 
 
@@ -948,3 +951,226 @@ def test_serve_round_trips_jsonl_cold_then_warm(ckpt_root, tmp_path, capsys,
 
 def _no_convert(*a, **kw):
     raise AssertionError("a warm --param-cache load converted the checkpoint")
+
+
+# ---------------------------------------------------------------------------
+# serve --replicas and --fleet-models
+# ---------------------------------------------------------------------------
+
+ROUTER_FLAGS = [
+    [], ["--replicas", "3"], ["--hedge-threshold", "2.5"],
+    ["--replica-failure-threshold", "4"], ["--replica-cooldown", "1.5"],
+    ["--residency-bonus", "3"], ["--pressure-weight", "0"],
+    ["--slo-wait-weight", "2"], ["--router-tick", "0.1"],
+    ["--router-cache-entries", "0"],
+]
+
+
+def _capture_router(monkeypatch, where, argv):
+    """(RouterConfig, replicas, ServeConfig) a serve command line gives
+    its router loop."""
+    mod = jcli if where == "lir_tpu" else cli
+    seen = {}
+    monkeypatch.setattr(f"{where}.models.factory.engine_factory",
+                        lambda root, rt, *a, **kw: (lambda name: object()))
+
+    def run(args, serve_cfg, factory, n_replicas):
+        seen.update(router=mod._router_cfg(args), n=n_replicas,
+                    serve=serve_cfg)
+        raise _Stop
+
+    monkeypatch.setattr(mod, "_run_router_serve", run)
+    with pytest.raises(_Stop):
+        if where == "lir_tpu":
+            jcli.main(["--no-compile-cache"] + argv)
+        else:
+            cli.main(argv)
+    return seen
+
+
+@pytest.mark.parametrize("flags", ROUTER_FLAGS,
+                         ids=lambda f: " ".join(f) or "defaults")
+def test_router_flags_land_in_the_jax_fields(monkeypatch, flags):
+    from lir_tpu_torch.config import RouterConfig
+
+    if "--replicas" not in flags:
+        flags = ["--replicas", "2"] + flags
+    port = _capture_router(monkeypatch, "lir_tpu_torch", _SERVE + flags)
+    ref = _capture_router(monkeypatch, "lir_tpu", _SERVE + flags)
+    assert dataclasses.asdict(port["router"]) == \
+        dataclasses.asdict(ref["router"])
+    assert [f.name for f in dataclasses.fields(RouterConfig)] == \
+        [f.name for f in dataclasses.fields(ref["router"])]
+    assert port["n"] == ref["n"] == port["router"].replicas
+    assert dataclasses.asdict(port["serve"]) == \
+        dataclasses.asdict(ref["serve"])
+
+
+FLEET_FLAGS = [[], ["--fleet-deadline", "5"], ["--weight-cache-gb", "4"],
+               ["--no-weight-prefetch"]]
+
+
+def _capture_fleet(monkeypatch, where, argv):
+    """The model ids, ``ModelFleet.from_engines`` keywords and fleet
+    server keywords a ``serve --fleet-models`` line gives."""
+    seen = {}
+    monkeypatch.setattr(f"{where}.models.factory.engine_factory",
+                        lambda root, rt, *a, **kw: (lambda name: name))
+
+    def from_engines(engines, **kw):
+        seen.update(models=[m for m, _ in engines], fleet=kw)
+        return object()
+
+    def server(fleet, config, **kw):
+        seen.update(server={k: v for k, v in kw.items() if k != "tiers"})
+        raise _Stop
+
+    monkeypatch.setattr(f"{where}.engine.fleet.ModelFleet.from_engines",
+                        from_engines)
+    monkeypatch.setattr(f"{where}.serve.FleetScoringServer", server)
+    with pytest.raises(_Stop):
+        if where == "lir_tpu":
+            jcli.main(["--no-compile-cache"] + argv)
+        else:
+            cli.main(argv)
+    return seen
+
+
+@pytest.mark.parametrize("flags", FLEET_FLAGS,
+                         ids=lambda f: " ".join(f) or "defaults")
+def test_fleet_serve_flags_reach_the_fleet_as_in_jax(monkeypatch, flags):
+    argv = ["serve", "--checkpoints", "ck", "--fleet-models", "a/b,c/d"]
+    port = _capture_fleet(monkeypatch, "lir_tpu_torch", argv + flags)
+    ref = _capture_fleet(monkeypatch, "lir_tpu", argv + flags)
+    assert port == ref
+    assert port["models"] == ["a/b", "c/d"]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--model", "m", "--fleet-models", "a,b"],
+    ["--replicas", "2", "--fleet-models", "a,b"],
+    ["--model", "m", "--replicas", "2", "--state-checkpoint", "s.json"],
+    ["--fleet-models", "a,b", "--state-checkpoint", "s.json"],
+    ["--fleet-models", ","],
+    [],
+], ids=["model-and-fleet", "replicas-fleet", "replicas-checkpoint",
+        "fleet-checkpoint", "fleet-empty", "neither"])
+def test_serve_refuses_the_jax_combinations(monkeypatch, flags):
+    for where in ("lir_tpu_torch", "lir_tpu"):
+        monkeypatch.setattr(f"{where}.models.factory.engine_factory",
+                            lambda root, rt, *a, **kw: (lambda name: name))
+        argv = ["serve", "--checkpoints", "ck"] + flags
+        with pytest.raises(SystemExit) as exc:
+            if where == "lir_tpu":
+                jcli.main(["--no-compile-cache"] + argv)
+            else:
+                cli.main(argv)
+        assert isinstance(exc.value.code, str), (where, exc.value.code)
+
+
+def _request_lines(tmp_path, lines):
+    reqs = tmp_path / "reqs.jsonl"
+    reqs.write_text("\n".join(json.dumps(x) for x in lines) + "\n")
+    return reqs
+
+
+def _out_lines(capsys):
+    return [json.loads(x) for x in capsys.readouterr().out.strip().split("\n")]
+
+
+def test_serve_replicas_round_trips_jsonl_bitwise(ckpt_root, tmp_path,
+                                                  capsys):
+    """``serve --replicas 2`` (prefix cache off): every payload bitwise a
+    direct single-server dispatch of the same request, the stats line the
+    router's health view, every request resolved once."""
+    from lir_tpu_torch.config import ServeConfig
+    from lir_tpu_torch.data.prompts import LEGAL_PROMPTS
+    from lir_tpu_torch.serve import ScoringServer, ServeRequest
+
+    lines = [{"id": f"r{i}", "prompt": f"Is a tomato a vegetable {i} ?",
+              "class": "interactive"} for i in range(6)]
+    lines.insert(2, {"op": "stats"})
+    reqs = _request_lines(tmp_path, lines)
+    cli.main(["serve", "--checkpoints", str(ckpt_root), "--model", CHAT,
+              "--replicas", "2", "--requests", str(reqs), "--device", "cpu",
+              "--batch-size", "4", "--linger-ms", "0", "--no-prefix-cache",
+              "--router-cache-entries", "0"])
+    out = _out_lines(capsys)
+    stats = out[0]
+    assert stats["op"] == "stats" and set(stats["replicas"]) == {"r0", "r1"}
+    assert "migrate" not in stats
+    results = out[1:]
+    assert [r["request_id"] for r in results] == [f"r{i}" for i in range(6)]
+    assert all(r["status"] == "ok" for r in results)
+    eng = factory.engine_factory(ckpt_root, RuntimeConfig(batch_size=4),
+                                 device="cpu")(CHAT)
+    lp = LEGAL_PROMPTS[0]
+    server = ScoringServer(eng, CHAT, ServeConfig(linger_s=0.0,
+                                                  prefix_cache=False))
+    server.start()
+    try:
+        for x, got in zip([x for x in lines if "prompt" in x], results):
+            want = server.submit(ServeRequest(
+                binary_prompt=f"{x['prompt']} {lp.response_format}",
+                confidence_prompt=f"{x['prompt']} {lp.confidence_format}",
+                klass="interactive", request_id=x["id"])).result(120)
+            for f in ("model_response", "model_confidence_response",
+                      "token_1_prob", "token_2_prob", "log_probabilities",
+                      "confidence_value", "weighted_confidence"):
+                assert got[f] == getattr(want, f), f
+    finally:
+        server.stop()
+
+
+def test_serve_fleet_models_answers_fleet_and_single_lines(ckpt_root,
+                                                           tmp_path, capsys):
+    """``serve --fleet-models`` on two checkpoints: a line without
+    "model" is a fleet_score fan-out, one with "model" a single-model
+    request; both as the library's FleetScoringServer answers them."""
+    from lir_tpu_torch.config import ServeConfig
+    from lir_tpu_torch.data.prompts import LEGAL_PROMPTS
+    from lir_tpu_torch.engine.fleet import ModelFleet
+    from lir_tpu_torch.serve import FleetScoringServer, ServeRequest
+
+    lines = [{"id": f"f{i}", "prompt": f"Is a whale a fish {i} ?"}
+             for i in range(3)]
+    lines.append({"id": "s0", "prompt": "Is a whale a fish 9 ?",
+                  "model": CHAT})
+    lines.append({"op": "stats"})
+    reqs = _request_lines(tmp_path, lines)
+    cli.main(["serve", "--checkpoints", str(ckpt_root), "--fleet-models",
+              f"{CHAT},{BASE}", "--requests", str(reqs), "--device", "cpu",
+              "--batch-size", "4", "--linger-ms", "0",
+              "--fleet-deadline", "600"])
+    out = _out_lines(capsys)
+    stats = out[0]
+    assert stats["op"] == "stats" and set(stats) == {"op", "serve", "fleet"}
+    fleet_out, single = out[1:4], out[4]
+    assert [r["request_id"] for r in fleet_out] == ["f0", "f1", "f2"]
+    assert all(r["status"] == "ok" and r["n_models"] == 2
+               for r in fleet_out)
+    assert single["request_id"] == "s0" and single["status"] == "ok"
+    make = factory.engine_factory(ckpt_root, RuntimeConfig(batch_size=4),
+                                  device="cpu")
+    fleet = ModelFleet.from_engines([(m, make(m)) for m in (CHAT, BASE)])
+    server = FleetScoringServer(fleet, ServeConfig(linger_s=0.0),
+                                fleet_deadline_s=600.0).start()
+    lp = LEGAL_PROMPTS[0]
+
+    def req(x):
+        return ServeRequest(
+            binary_prompt=f"{x['prompt']} {lp.response_format}",
+            confidence_prompt=f"{x['prompt']} {lp.confidence_format}",
+            klass="batch", request_id=x["id"])
+
+    try:
+        for x, got in zip(lines[:3], fleet_out):
+            want = server.submit_fleet(req(x)).result(120)
+            assert got["per_model"] == want["per_model"]
+            assert got["kappa"] == want["kappa"]
+        want = server.submit(req(lines[3]), CHAT).result(120)
+        assert (single["token_1_prob"], single["model_response"]) == \
+            (want.token_1_prob, want.model_response)
+    finally:
+        server.stop()
+        fleet.shutdown()

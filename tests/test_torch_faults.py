@@ -11,8 +11,10 @@ package's, on the same inputs (no model: milliseconds a test).
   ``watchdog_seed_headroom``.
 - ``FaultPlan``: the same seed and schedules fire the same kinds at the
   same calls of each site as JAX's (``check``, ``wrap``,
-  ``corrupt_draft``, ``wrap_governor``); a replica/migration/tier
-  schedule is refused; ``corrupt_result_nan`` gives JAX's values.
+  ``corrupt_draft``, ``wrap_governor``, ``wrap_replica``: a replica
+  kill marks the router's replica dead and raises, a lag sleeps and
+  completes); a migration or tier schedule is refused (ROADMAP A8c);
+  ``corrupt_result_nan`` gives JAX's values.
 - ``CircuitBreaker``, ``degrade_dispatch`` and the retry loop make
   JAX's transitions, calls and waits under the same clock and draws.
 - ``RequestQueue``, ``ResultCache`` / ``content_key``,
@@ -309,12 +311,107 @@ def test_fault_plan_wrap_nan_squeeze_and_refusals():
         gr.tick()
     assert gp.calls == gr.calls
     assert ("squeeze", 0.25, 3) in gp.calls
-    for site, kind in (("replica", "fault"), ("dispatch", "replica_kill"),
-                       ("migrate", "fault"), ("dispatch", "tier_corrupt"),
-                       ("tiers", "disk_stall")):
-        with pytest.raises(ValueError, match="A8b"):
+    for site, kind in (("migrate", "fault"), ("dispatch", "tier_corrupt"),
+                       ("tiers", "disk_stall"),
+                       ("dispatch", "migration_stall"),
+                       ("dispatch", "migration_corrupt")):
+        with pytest.raises(ValueError, match="A8c"):
             faults.FaultPlan(0, {site: faults.SiteSchedule(kind=kind)})
+    for site, kind in (("replica", "fault"), ("dispatch", "replica_kill"),
+                       ("replica", "replica_lag")):
+        faults.FaultPlan(0, {site: faults.SiteSchedule(kind=kind)})
     assert faults.SITES == jfaults.SITES and faults.KINDS == jfaults.KINDS
+
+
+class _FakeRouter:
+    """A router with one replica whose batcher's score returns payloads;
+    ``kill_replica`` is recorded."""
+
+    def __init__(self, log):
+        self.log = log
+        batcher = type("B", (), {})()
+        batcher.score = lambda bucket, rows: [
+            dict(token_1_prob=0.3, token_2_prob=0.6,
+                 weighted_confidence=40.0) for _ in rows]
+        server = type("S", (), {})()
+        server.batcher = batcher
+        self._handle = type("H", (), {})()
+        self._handle.server = server
+
+    def handle(self, replica_id):
+        return self._handle
+
+    def kill_replica(self, replica_id):
+        self.log.append(f"kill:{replica_id}")
+        return 0
+
+
+def _replica_outcomes(mod, sched_kw, n=12):
+    log = []
+    router = _FakeRouter(log)
+    plan = mod.FaultPlan(5, {"replica": mod.SiteSchedule(**sched_kw)})
+    mod.wrap_replica(router, "r0", plan)
+    score = router.handle("r0").server.batcher.score
+    for _ in range(n):
+        try:
+            out = score(64, [0, 1, 2])
+            log.append("nan" if any(np.isnan(p["token_1_prob"])
+                                    for p in out) else "ok")
+        except mod.InjectedReplicaKill as err:
+            log.append(f"killed:{err.replica_id}")
+        except mod.InjectedFault as err:
+            log.append(f"fault:{err}")
+    return log, plan.stats.summary(), plan.calls("replica")
+
+
+REPLICA_SCHEDULES = [
+    dict(fail_calls=(3,), kind="replica_kill"),
+    dict(fail_calls=(1, 4), kind="replica_lag", lag_s=0.01),
+    dict(fail_calls=(2,), kind="nan", nan_rows=(1,)),
+    dict(fail_calls=(0, 1, 2)),
+    dict(rate=0.4, max_failures=3, kind="replica_kill"),
+]
+
+
+@pytest.mark.parametrize("sched_kw", REPLICA_SCHEDULES,
+                         ids=["kill", "lag", "nan", "outage", "kill-rate"])
+def test_wrap_replica_fires_where_jax_fires(sched_kw):
+    """One seeded replica schedule through ``wrap_replica`` in both
+    packages: the same calls kill (the router's ``kill_replica`` first,
+    then InjectedReplicaKill), lag then complete, corrupt or fault."""
+    got = _replica_outcomes(faults, sched_kw)
+    want = _replica_outcomes(jfaults, sched_kw)
+    assert got == want
+    assert got[2] == 12
+
+
+def test_replica_kinds_through_check_and_wrap_match_jax():
+    for kind, extra in (("replica_kill", dict(replica_id="r1")),
+                        ("replica_lag", dict(lag_s=0.01))):
+        outs = []
+        for mod in (faults, jfaults):
+            plan = mod.FaultPlan(0, {"replica": mod.SiteSchedule(
+                fail_calls=(1,), kind=kind, **extra)})
+            wrapped = plan.wrap("replica", lambda: "done")
+            seen = []
+            for _ in range(3):
+                try:
+                    seen.append(wrapped())
+                except mod.InjectedReplicaKill as err:
+                    seen.append(f"killed:{err.replica_id}:{err}")
+            plan2 = mod.FaultPlan(0, {"replica": mod.SiteSchedule(
+                fail_calls=(0,), kind=kind, **extra)})
+            try:
+                plan2.check("replica")
+                seen.append("check:ok")
+            except mod.InjectedReplicaKill as err:
+                seen.append(f"check:killed:{err.replica_id}")
+            outs.append((seen, plan.stats.summary(), plan2.stats.summary()))
+        assert outs[0] == outs[1]
+    assert (faults.SiteSchedule.replica_kill_at(2, "r0") ==
+            faults.SiteSchedule(fail_calls=(2,), kind="replica_kill",
+                                replica_id="r0"))
+    assert faults.SiteSchedule.replica_lag_at(1, 0.5).lag_s == 0.5
 
 
 def test_corrupt_draft_matches_jax():
