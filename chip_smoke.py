@@ -302,7 +302,21 @@ Phases (each raises on failure, so the script exits non-zero):
    exposed), then a squeeze of the shared governor through
    ``batch_down`` (rows within the prefix phase's bars) and ``shed``
    and back; and ``serve --replicas 2`` / ``serve --fleet-models`` as
-   subprocesses on the small model.
+   subprocesses on the small model. The migrate phase
+   (``run_migrate_phase``, serve/migrate.py): two replica servers on
+   the one tree, r0 prefill-role and r1 decode-role, prefix on: (a)
+   MIGRATE_CHAINS requests one at a time, each through prefill ->
+   export -> import -> score (r1's pool pages byte-equal to r0's after
+   each import; every payload bitwise the direct replay of its carrying
+   dispatch on a third engine that imported the same exports, and
+   within the prefix phase's bars of the prefix-off serve payloads),
+   the legs timed alone (``migrate_legs``); (b) pure pulls of prefixes
+   scored on r0 first; (c) drills through ``faults.wrap_migrator``
+   (a stall past a short chain deadline, a corrupt chunk with r1's tree
+   unchanged at the refusal, a kill of r0 mid-chain), each request
+   resolved once by a local re-prefill; (d) one int8-KV chain, pages
+   byte-equal with their scales; (e) ``serve --replicas 2
+   --migrate-prefill-replicas 1`` as a subprocess on the small model.
    The T5 phase (the encoder-decoder branch, ``models/encdec.py``): part
    (a), after the small sweep check, a small gated untied T5 and a small
    ReLU tied (v1.0) T5 in float32 through ``t5_greedy_decode``
@@ -354,8 +368,9 @@ import torch.nn.functional as F
 
 from lir_tpu_torch import faults, ops
 from lir_tpu_torch.backends.fake import FakeTokenizer
-from lir_tpu_torch.config import (CascadeConfig, GovernorConfig, RetryConfig,
-                                  RouterConfig, RuntimeConfig, ServeConfig)
+from lir_tpu_torch.config import (CascadeConfig, GovernorConfig,
+                                  MigrationConfig, RetryConfig, RouterConfig,
+                                  RuntimeConfig, ServeConfig)
 from lir_tpu_torch.data import (LEGAL_PROMPTS, WORD_MEANING_QUESTIONS,
                                 format_base_prompt, format_instruct_prompt,
                                 schemas)
@@ -399,6 +414,7 @@ from lir_tpu_torch.engine import stream_stats
 from lir_tpu_torch.guard import numerics
 from lir_tpu_torch.serve import (FleetScoringServer, ReplicaRouter,
                                  ScoringServer, ServeRequest, fleet_decision)
+from lir_tpu_torch.serve import migrate
 from lir_tpu_torch.stats import streaming
 from lir_tpu_torch.stats.core import generator_for, resample_indices
 from lir_tpu_torch.stats.correlations import bootstrap_correlation_matrix
@@ -5844,13 +5860,14 @@ def latency_by_class(results, requests) -> dict:
     return out
 
 
-def direct_payloads(engine, dispatch_log) -> dict:
+def direct_payloads(engine, dispatch_log,
+                    use_prefix_cache: bool = False) -> dict:
     """The logged dispatches' rows dispatched again directly on
     ``engine``, with no server, batcher or watchdog thread: for each
     logged (bucket, rows), this script tokenizes the requests, pads to
     the full batch with the last row (``pad_full``), picks the suffix
-    buckets, calls ``decode_fused_shared`` (prefix cache off) at the
-    logged bucket, records the drafts as a serving engine does, reads
+    buckets, calls ``decode_fused_shared`` (prefix cache off, or on with
+    ``use_prefix_cache``: the engine's own pool) at the logged bucket, records the drafts as a serving engine does, reads
     position 0 with ``score.readout_from_fused`` and maps the readouts
     to payload fields itself. Payloads by request id."""
     rt, B = engine.rt, engine.rt.batch_size
@@ -5879,7 +5896,8 @@ def direct_payloads(engine, dispatch_log) -> dict:
             [r.confidence_prompt for r in full], t1, t2, new_tokens=new,
             conf_tokens=conf, early_stop=early, pretokenized_a=ids_a,
             pretokenized_b=ids_b, bucket=bucket, sfx_buckets_ab=sfx,
-            reuse_cache=True, use_prefix_cache=False, n_real=n)
+            reuse_cache=True, use_prefix_cache=use_prefix_cache,
+            n_real=n)
         res = score_mod.readout_from_fused(
             fused, engine._t(t1), engine._t(t2), scan_positions=1)
         yes, no, lp_v, lp_i, gen, wconf, cgen = (t.cpu().numpy() for t in (
@@ -6519,6 +6537,515 @@ def run_router_phase(engine, grids, serve_off, bars) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The migrate phase (serve/migrate.py, the router's chain,
+# faults.wrap_migrator), on phase 3's llama-2-7b bf16 params at B = 32.
+# ---------------------------------------------------------------------------
+
+MIGRATE_MIN_PREFIX = 64
+MIGRATE_CHAINS = 12
+MIGRATE_PULLS = 4
+MIGRATE_STALL_TIMEOUT_S = 1.5
+MIGRATE_STALL_S = 4.0
+MIGRATE_KILL_HOLD_S = 1.5
+MIGRATE_KERNELS = ("flash_decode_mq", "row_gemm", "row_add_norm")
+
+
+def host_pages(server, bucket, ids) -> list:
+    """The pool pages of ``ids``' cached prefix on ``server``, copied to
+    the host by a page op on its supervisor thread (every leaf, scales
+    included on int8)."""
+    def grab(eng):
+        tree = eng.prefix_cache
+        m = tree.lookup(bucket, ids, record=False)
+        try:
+            return [a.cpu() for a in decoder.cache_leaves(
+                tree.pool.extract(list(m.pages)))], len(m.pages)
+        finally:
+            tree.release(m)
+
+    leaves, n = server.submit_page_op(grab).result(timeout=600)
+    return [a[:, :, :n] for a in leaves]
+
+
+def pages_equal(label, src, dst, bucket, ids) -> int:
+    """r1's pool pages for the prefix byte-equal to r0's (torch.equal,
+    every leaf); returns the pages compared."""
+    a, b = host_pages(src, bucket, ids), host_pages(dst, bucket, ids)
+    n = min(x.shape[2] for x in a + b)
+    if n == 0 or not all(torch.equal(x[:, :, :n], y[:, :, :n])
+                         for x, y in zip(a, b)):
+        raise AssertionError(f"{label}: destination pages are not the "
+                             f"source's ({n} pages)")
+    return n
+
+
+def tree_state(server) -> tuple:
+    def read(eng):
+        tree = eng.prefix_cache
+        return (len(tree), tree.pool.pages_in_use,
+                int(tree.pool.refcount[1:].sum()))
+
+    return server.submit_page_op(read).result(timeout=600)
+
+
+def migrate_replicas(engine, kv8: bool = False) -> tuple:
+    """(servers {r0, r1}, dispatch logs): two replica servers (prefix on)
+    over engines on ``engine``'s params."""
+    make = kv8_engine if kv8 else engine_with
+    servers = {rid: ScoringServer(make(engine), SWEEP_MODEL,
+                                  serve_config(prefix_cache=True,
+                                               cache_entries=0,
+                                               retry=FAST_RETRY))
+               for rid in ("r0", "r1")}
+    return servers, {rid: record_dispatches(s) for rid, s in servers.items()}
+
+
+def replay_engine(engine, kv8: bool = False):
+    """A third engine on ``engine``'s params, prefix on, that the checks
+    import the chains' exports into (:func:`replay_chain`). Made after a
+    phase's launches and peak memory are read, so its pool counts in
+    neither."""
+    replay = (kv8_engine if kv8 else engine_with)(engine)
+    replay.enable_prefix_cache()
+    return replay
+
+
+def record_transfers(router) -> list:
+    """Wrap the router's migrator: every export that crosses the wire
+    hop (until :func:`chain_one` takes it), and the legs' seconds,
+    checksum seconds and bytes of every accounted chain."""
+    seen = {"exports": [], "accounted": []}
+    inner, account = router.migrator.transfer, router.migrator.account
+
+    def transfer(export):
+        seen["exports"].append(export)
+        return inner(export)
+
+    def acc(export, imp):
+        seen["accounted"].append(dict(
+            export_s=export.wall_s, export_crc_s=export.crc_s,
+            import_s=imp.wall_s, verify_crc_s=imp.crc_s, bytes=imp.nbytes))
+        return account(export, imp)
+
+    router.migrator.transfer = transfer
+    router.migrator.account = acc
+    return seen
+
+
+def chain_one(label, router, logs, seen, r) -> tuple:
+    """One request through the router. Returns (result, seconds, the
+    chain's replay: its exports and r1's dispatches while it ran, for
+    :func:`replay_chain` once the phase's launches are read). The
+    exports' chunks are copied into pageable memory and the originals
+    dropped, so the next chain reuses their pinned buffers."""
+    k0, d0 = len(seen["exports"]), len(logs["r1"])
+    t0 = time.perf_counter()
+    res = router.submit(r).result(timeout=600)
+    secs = time.perf_counter() - t0
+    if res.status != "ok":
+        raise AssertionError(f"{label}: {r.request_id} {res.status} "
+                             f"{res.note}")
+    exports = [dataclasses.replace(e, chunks=[
+        (decoder.cache_map(lambda a: torch.empty(
+            a.shape, dtype=a.dtype).copy_(a), host), n)
+        for host, n in e.chunks]) for e in seen["exports"][k0:]]
+    del seen["exports"][k0:]
+    return res, secs, (exports, logs["r1"][d0:])
+
+
+def replay_chain(replay, chain, refs) -> None:
+    """A chain's exports imported into the replay engine, its carrying
+    dispatches replayed over those pages; fills ``refs`` with the
+    replay's payloads."""
+    exports, dispatches = chain
+    for e in exports:
+        migrate.import_prefix(replay, e)
+    refs.update(direct_payloads(replay, dispatches, use_prefix_cache=True))
+
+
+def migrate_leg(servers, bucket, ids, cfg) -> dict:
+    """One export from r0 and its import into r1 (whose pages of the
+    prefix are forgotten first), each a page op timed between
+    synchronizes; the export is dropped on return, so its pinned buffers
+    go back to the host allocator's cache."""
+    def export(eng):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e = migrate.export_prefix(eng, bucket, ids, config=cfg)
+        torch.cuda.synchronize()
+        return e, time.perf_counter() - t0
+
+    e, t_exp = servers["r0"].submit_page_op(export).result(timeout=600)
+
+    def land(eng):
+        tree = eng.prefix_cache
+        m = tree.lookup(bucket, ids, record=False)
+        tree.release(m)
+        gone = tree.forget_tail(bucket, ids, len(m.pages))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        imp = migrate.import_prefix(eng, e, config=cfg)
+        torch.cuda.synchronize()
+        return imp, time.perf_counter() - t0, gone
+
+    imp, t_imp, gone = servers["r1"].submit_page_op(land).result(
+        timeout=600)
+    if imp.pages != e.n_pages or gone != e.n_pages:
+        raise AssertionError(f"migrate leg: forgot {gone}, landed "
+                             f"{imp.pages} of {e.n_pages}")
+    return dict(
+        pages=e.n_pages, chunks=len(e.chunks), bytes=e.nbytes,
+        export_s=t_exp, export_crc_s=e.crc_s,
+        d2h_gb_per_s=e.nbytes / max(t_exp - e.crc_s, 1e-9) / 1e9,
+        verify_crc_s=imp.crc_s, import_s=t_imp,
+        h2d_gb_per_s=e.nbytes / max(t_imp - imp.crc_s, 1e-9) / 1e9,
+        crc_gb_per_s=e.nbytes / max(e.crc_s, 1e-9) / 1e9,
+        exposed_s=e.wall_s + imp.wall_s,
+        hidden_s=(max(e.serial_s - e.wall_s, 0.0)
+                  + max(imp.serial_s - imp.wall_s, 0.0)))
+
+
+def migrate_legs(servers, router, bucket, ids) -> dict:
+    """The two legs alone on one prefix resident on r0
+    (:func:`migrate_leg`), at the default chunking and at 2 pages a
+    chunk (the in-flight window over several chunks), each twice: the
+    first of a chunk size may allocate pinned buffers (cudaHostAlloc),
+    the second reuses them."""
+    chunk2 = dataclasses.replace(router.migrate_config, chunk_pages=2)
+    return {label: migrate_leg(servers, bucket, ids, cfg)
+            for label, cfg in (("default", router.migrate_config),
+                               ("default_again", router.migrate_config),
+                               ("chunk2", chunk2),
+                               ("chunk2_again", chunk2))}
+
+
+def migrate_drills(router, servers, logs, requests, off, bars,
+                   engine) -> dict:
+    """(c) Each drill a fresh request through ``faults.wrap_migrator`` on
+    the chain router: a stall past a short deadline (the tick falls back;
+    the stall holds r0's supervisor, whose queue wait is timed by a page
+    op submitted during it), a corrupt chunk (refused; r1's tree at the
+    refusal as before the request), a kill of r0 with the chain's prefill
+    queued behind a held op. Every request resolves once, ok, through a
+    local re-prefill, within ``bars`` of the prefix-off payloads: each
+    drill places one attempt (``RouterStats.per_replica``) and takes one
+    refetch fallback, and its request is a row of exactly one scoring
+    dispatch across r0's and r1's dispatch logs."""
+    st = router.migrate_stats
+    out, results = {}, {}
+    stall, corrupt, kill = requests
+    n0 = {rid: len(lg) for rid, lg in logs.items()}
+
+    def placed():
+        return sum(router.stats.per_replica.values())
+
+    # Stall.
+    base, p0 = st.summary(), placed()
+    router.migrator.config = router.migrate_config = dataclasses.replace(
+        router.migrate_config, timeout_s=MIGRATE_STALL_TIMEOUT_S)
+    plan = faults.FaultPlan(11, {"migrate": faults.SiteSchedule(
+        fail_calls=(0,), kind="migration_stall", hang_s=MIGRATE_STALL_S)})
+    wrapped = router.migrator.transfer
+    faults.wrap_migrator(router.migrator, plan)
+    t0 = time.perf_counter()
+    fut = router.submit(stall)
+    wait_for(lambda: plan.injected("migrate") >= 1, 600)
+    t_q = time.perf_counter()
+    servers["r0"].submit_page_op(lambda eng: None).result(timeout=600)
+    queue_wait = time.perf_counter() - t_q
+    res = fut.result(timeout=600)
+    results[stall.request_id] = res
+    out["stall"] = dict(status=res.status, seconds=time.perf_counter() - t0,
+                        injected=plan.injected("migrate"),
+                        source_queue_wait_s=queue_wait,
+                        timeout_s=MIGRATE_STALL_TIMEOUT_S,
+                        stall_s=MIGRATE_STALL_S)
+    wait_for(lambda: st.summary()["stalls"] - base["stalls"] >= 2,
+             MIGRATE_STALL_S + 60)
+    out["stall"].update({k: st.summary()[k] - base[k]
+                         for k in ("stalls", "refetch_fallbacks",
+                                   "migrations")}, placements=placed() - p0)
+    router.migrator.transfer = wrapped
+    router.migrator.config = router.migrate_config = dataclasses.replace(
+        router.migrate_config, timeout_s=MigrationConfig().timeout_s)
+    # Corrupt.
+    base, p0 = st.summary(), placed()
+    plan = faults.FaultPlan(12, {"migrate": faults.SiteSchedule.
+                                 migration_corrupt_at(0)})
+    faults.wrap_migrator(router.migrator, plan)
+    before = tree_state(servers["r1"])
+    at_refusal = []
+    inner_fallback = router._mig_fallback
+
+    def fallback(mig, reason):
+        if reason.startswith("import failed"):
+            tree = mig.dst.server.engine.prefix_cache
+            at_refusal.append((len(tree), tree.pool.pages_in_use,
+                               int(tree.pool.refcount[1:].sum())))
+        return inner_fallback(mig, reason)
+
+    router._mig_fallback = fallback
+    res = router.submit(corrupt).result(timeout=600)
+    router._mig_fallback = inner_fallback
+    router.migrator.transfer = wrapped
+    results[corrupt.request_id] = res
+    out["corrupt"] = dict(status=res.status, injected=plan.injected(
+        "migrate"), r1_tree_before=before, r1_tree_at_refusal=at_refusal,
+        placements=placed() - p0,
+        **{k: st.summary()[k] - base[k]
+           for k in ("corrupt_chunks", "refetch_fallbacks", "migrations")})
+    # Kill r0 with the chain's prefill queued behind a held op.
+    base, p0 = st.summary(), placed()
+    hold = servers["r0"].submit_page_op(
+        lambda eng: time.sleep(MIGRATE_KILL_HOLD_S))
+    fut = router.submit(kill)
+    router.kill_replica("r0")
+    res = fut.result(timeout=600)
+    hold.result(timeout=600)
+    results[kill.request_id] = res
+    # Every op queued on either supervisor (r0's late prefill too) has
+    # run once this one has.
+    for s in servers.values():
+        s.submit_page_op(lambda eng: None).result(timeout=600)
+    out["kill"] = dict(status=res.status, placements=placed() - p0, **{
+        k: st.summary()[k] - base[k]
+        for k in ("refetch_fallbacks", "prefill_ops", "migrations")})
+    out["dispatch_rows"] = {
+        r.request_id: sum(p.request.request_id == r.request_id
+                          for rid, lg in logs.items()
+                          for _, rows in lg[n0[rid]:] for p in rows)
+        for r in requests}
+    ok = (out["stall"]["status"] == out["corrupt"]["status"]
+          == out["kill"]["status"] == "ok"
+          and out["stall"]["injected"] == 1
+          and out["stall"]["refetch_fallbacks"] == 1
+          and out["stall"]["stalls"] >= 1
+          and out["stall"]["source_queue_wait_s"] > 0.5
+          and out["corrupt"]["injected"] == 1
+          and out["corrupt"]["corrupt_chunks"] == 1
+          and out["corrupt"]["refetch_fallbacks"] == 1
+          and at_refusal == [before]
+          and out["kill"]["refetch_fallbacks"] == 1
+          and out["kill"]["migrations"] == 0
+          and all(out[k]["placements"] == 1
+                  for k in ("stall", "corrupt", "kill"))
+          and list(out["dispatch_rows"].values()) == [1, 1, 1])
+    out["vs_prefix_off"] = compare_d6(
+        "migrate drills vs prefix off",
+        as_d6({rid: off[rid] for rid in results}, requests),
+        as_d6(results, requests), engine, bars)
+    if not ok:
+        raise AssertionError(f"migrate drills: {out}")
+    return out
+
+
+def migrate_kv8_chain(engine, request) -> dict:
+    """(d) One chain on int8-KV replicas: r1's pages byte-equal to r0's,
+    int8 payloads and float32 scales, and the payload bitwise the replay
+    over the same imported pages."""
+    servers, logs = migrate_replicas(engine, kv8=True)
+    router = ReplicaRouter(list(servers.items()),
+                           config=RouterConfig(cache_entries=0),
+                           roles={"r0": "prefill", "r1": "decode"})
+    seen = record_transfers(router)
+    for s in servers.values():
+        s.start()
+    router.start()
+    try:
+        refs = {}
+        res, secs, chain = chain_one("migrate kv8", router, logs, seen,
+                                     request)
+        replay = replay_engine(engine, kv8=True)
+        replay_chain(replay, chain, refs)
+        bucket, ids = prefix_key(engine, request)
+        leaves = host_pages(servers["r1"], bucket, ids)
+        pages = pages_equal("migrate kv8", servers["r0"], servers["r1"],
+                            bucket, ids)
+        st = router.migrate_stats.summary()
+        bitwise = check_routed_bitwise("migrate kv8", {res.request_id: res},
+                                       [refs])
+    finally:
+        router.stop()
+        for s in servers.values():
+            s.stop()
+    out = dict(seconds=secs, pages_equal=pages, bitwise_rows=bitwise,
+               leaf_dtypes=[str(a.dtype) for a in leaves], migrate=st)
+    if (len(leaves) != 4 or st["migrations"] != 1
+            or [str(a.dtype) for a in leaves] != ["torch.int8",
+                                                  "torch.float32"] * 2):
+        raise AssertionError(f"migrate kv8: {out}")
+    del servers, router, replay
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_migrate_phase(engine, grids, serve_off, bars) -> dict:
+    """Page migration and disaggregated prefill / decode at llama-2-7b
+    width, bf16, B = 32, prefix on: r0 prefill-role, r1 decode-role, on
+    the one parameter tree (see the module docstring's migrate phase).
+    The serve phase's requests whose shared prefix is at least
+    MIGRATE_MIN_PREFIX tokens, one at a time (each chain's pages and
+    payload checked before the next)."""
+    requests = serve_requests(grids)
+    eligible = [r for r in requests
+                if len(prefix_key(engine, r)[1]) >= MIGRATE_MIN_PREFIX]
+    need = MIGRATE_CHAINS + MIGRATE_PULLS + 4
+    if len(eligible) < need:
+        raise AssertionError(f"migrate: {len(eligible)} requests with a "
+                             f"{MIGRATE_MIN_PREFIX}-token prefix, {need} "
+                             f"needed")
+    chains = eligible[:MIGRATE_CHAINS]
+    pulls = eligible[MIGRATE_CHAINS:MIGRATE_CHAINS + MIGRATE_PULLS]
+    drills = eligible[MIGRATE_CHAINS + MIGRATE_PULLS:need - 1]
+    kv8_req = eligible[need - 1]
+    servers, logs = migrate_replicas(engine)
+    router = ReplicaRouter(list(servers.items()),
+                           config=RouterConfig(cache_entries=0),
+                           roles={"r0": "prefill", "r1": "decode"})
+    seen = record_transfers(router)
+    for s in servers.values():
+        s.start()
+    router.start()
+    out = {}
+    try:
+        # (a) Chains.
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        results, refs, lat, pages, replays = {}, {}, [], 0, []
+        t0 = time.perf_counter()
+        for r in chains:
+            res, secs, chain = chain_one("migrate chain", router, logs,
+                                         seen, r)
+            results[r.request_id] = res
+            lat.append(secs)
+            replays.append(chain)
+            pages += pages_equal("migrate chain", servers["r0"],
+                                 servers["r1"], *prefix_key(engine, r))
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        # The checks' replays, after the chains' launches and peak.
+        replay = replay_engine(engine)
+        for chain in replays:
+            replay_chain(replay, chain, refs)
+        del replays
+        st = router.migrate_stats.summary()
+        missing = [k for k in MIGRATE_KERNELS if launches[k] <= 0]
+        if (missing or st["migrations"] < 1 or st["refetch_fallbacks"]
+                or st["prefill_ops"] != len(chains)
+                or router.stats.per_replica.get("r0", 0)):
+            raise AssertionError(f"migrate chains: never launched "
+                                 f"{missing}, or {st}, placements "
+                                 f"{router.stats.per_replica}")
+        acc = seen["accounted"]
+        row = dict(
+            requests=len(chains), chain_seconds=sum(lat),
+            loop_seconds_with_checks=wall,
+            requests_per_s=len(chains) / sum(lat),
+            p50_s=float(np.percentile(lat, 50)),
+            p99_s=float(np.percentile(lat, 99)),
+            migrate=st, pages_compared_equal=pages,
+            legs_in_chains={k: sum(a[k] for a in acc)
+                            for k in ("export_s", "export_crc_s",
+                                      "import_s", "verify_crc_s", "bytes")},
+            bitwise_rows=check_routed_bitwise("migrate chain", results,
+                                              [refs]),
+            vs_prefix_off=compare_d6(
+                "migrate chains vs prefix off", as_d6(serve_off, requests),
+                as_d6(results, requests), engine, bars),
+            launches=launches, max_memory_allocated_bytes=peak)
+        out["a"] = row
+        log(json.dumps({"phase": "migrate_a", "card": card_line(), **row}))
+        bucket, ids = max((prefix_key(engine, r) for r in chains),
+                          key=lambda k: len(k[1]))
+        out["legs"] = migrate_legs(servers, router, bucket, ids)
+        log(json.dumps({"phase": "migrate_legs", **out["legs"]}))
+        # (b) Pure pulls: each prefix scored on r0 first.
+        base = router.migrate_stats.summary()
+        presults, prefs = {}, {}
+        for r in pulls:
+            servers["r0"].submit(dataclasses.replace(
+                r, request_id=f"warm{r.request_id}")).result(timeout=600)
+            res, _, chain = chain_one("migrate pull", router, logs, seen, r)
+            replay_chain(replay, chain, prefs)
+            presults[r.request_id] = res
+            pages_equal("migrate pull", servers["r0"], servers["r1"],
+                        *prefix_key(engine, r))
+        st = router.migrate_stats.summary()
+        out["b"] = dict(
+            requests=len(pulls), **{k: st[k] - base[k] for k in (
+                "migrations", "prefill_ops", "pages_migrated",
+                "refetch_fallbacks")},
+            bitwise_rows=check_routed_bitwise("migrate pull", presults,
+                                              [prefs]),
+            vs_prefix_off=compare_d6(
+                "migrate pulls vs prefix off", as_d6(serve_off, requests),
+                as_d6(presults, requests), engine, bars))
+        if (out["b"]["migrations"] != len(pulls) or out["b"]["prefill_ops"]
+                or out["b"]["refetch_fallbacks"]):
+            raise AssertionError(f"migrate pulls: {out['b']}")
+        log(json.dumps({"phase": "migrate_b", **out["b"]}))
+        # (c) Drills.
+        out["drills"] = migrate_drills(router, servers, logs, drills,
+                                       serve_off, bars, engine)
+        log(json.dumps({"phase": "migrate_drills", **out["drills"]}))
+        out["summary"] = router.stats_summary()
+    finally:
+        router.stop()
+        for s in servers.values():
+            s.stop()
+    leftover = {rid: [k for k in s.engine.governor.ledger()
+                      if k.startswith("migrate_buf:")]
+                for rid, s in servers.items()}
+    if any(leftover.values()):
+        raise AssertionError(f"migrate: ledger entries left {leftover}")
+    del servers, router, replay
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["kv8"] = migrate_kv8_chain(engine, kv8_req)
+    log(json.dumps({"phase": "migrate_kv8", **out["kv8"]}))
+    return out
+
+
+def serve_cli_migrate(small, tmp: Path) -> dict:
+    """(e) ``serve --replicas 2 --migrate-prefill-replicas 1`` on the
+    small model: four requests sharing a long prompt and a stats line;
+    every request ok, r0 the prefill role, the stats line's "migrate"
+    block with the chains under way."""
+    cfg, _, params = small
+    root = tmp / "serve_cli"
+    name = "smoke/tiny-llama"
+    if not (root / name.replace("/", "__")).exists():
+        export_hf_llama(params, cfg, root / name.replace("/", "__"))
+    lines = [{"id": f"m{i}", "prompt": f"{LEGAL_PROMPTS[0].main[:300]} "
+                                       f"(case {i})",
+              "class": "interactive"} for i in range(4)]
+    got, secs = serve_cli_run(
+        tmp, root, "migrate", ["--model", name, "--replicas", "2",
+                               "--migrate-prefill-replicas", "1",
+                               "--migrate-min-prefix", "16"],
+        lines + [{"op": "stats"}])
+    stats = [o for o in got if o.get("op") == "stats"]
+    results = [o for o in got if "request_id" in o]
+    if (len(stats) != 1 or stats[0]["replicas"]["r0"]["role"] != "prefill"
+            or stats[0]["replicas"]["r1"]["role"] != "decode"
+            or stats[0]["migrate"]["prefill_ops"] < 1
+            or [r["request_id"] for r in results] != [x["id"] for x in lines]
+            or any(r["status"] != "ok" or not 0.0 <= r["token_1_prob"] <= 1.0
+                   for r in results)):
+        raise AssertionError(f"serve --migrate-prefill-replicas output: "
+                             f"{got}")
+    out = dict(seconds=secs, results=len(results),
+               migrate=stats[0]["migrate"],
+               placements=stats[0]["router"]["per_replica"])
+    log(json.dumps({"phase": "serve_cli_migrate", **out}))
+    return out
+
+
 FLEET_SERVE_WAVES = 4
 FLEET_SERVE_WAVE = 8
 FLEET_SQUEEZE_REQUESTS = 24
@@ -6839,15 +7366,21 @@ def kernel_label(mangled: str) -> str:
     """A kernel's name and raw template arguments from its mangled name,
     e.g. ``prefix_wgmma_kernel<Li128>``."""
     # Every start of a digit run: a length prefix may follow other digits
-    # (an anonymous namespace's hash ends in digits).
+    # (an anonymous namespace's hash ends in digits). Digits inside that
+    # hash can also read as a length that ends at the kernel's name, so
+    # the shortest such name is the kernel's own.
+    found = []
     for m in re.finditer(r"(?=(\d+))", mangled):
         for n in range(len(m.group(1)), 0, -1):
             end = m.start() + n
             name = mangled[end:end + int(m.group(1)[:n])]
             if name.endswith("kernel") and name.isidentifier():
-                args = re.match(r"I(.*?)EE", mangled[end + len(name):])
-                return f"{name}<{args.group(1)}>" if args else name
-    return mangled
+                found.append((len(name), end, name))
+    if not found:
+        return mangled
+    _, end, name = min(found)
+    args = re.match(r"I(.*?)EE", mangled[end + len(name):])
+    return f"{name}<{args.group(1)}>" if args else name
 
 
 def ptxas_report(name: str, text: str):
@@ -7178,12 +7711,22 @@ def main() -> int:
         governor_check("serve", engine)
         elapsed("serve")
         # The router phase and the fleet-serve phase on phase 3's params.
-        router = run_router_phase(engine, grids, serve.pop("off_results"),
+        serve_off = serve.pop("off_results")
+        router = run_router_phase(engine, grids, serve_off,
                                   prefix["control"]["bars"])
         for name, n in router["a"]["launches"].items():
             launches[name] += n
         governor_check("router", engine)
         elapsed("router")
+        # The migrate phase: disaggregated prefill and decode.
+        migrate_stats = run_migrate_phase(engine, grids, serve_off,
+                                          prefix["control"]["bars"])
+        for name, n in migrate_stats["a"]["launches"].items():
+            launches[name] += n
+        migrate_stats["cli"] = serve_cli_migrate(small, Path(tmp))
+        del serve_off
+        governor_check("migrate", engine)
+        elapsed("migrate")
         fleet_serve = run_fleet_serve_phase(engine, grids,
                                             prefix["control"]["bars"])
         for name, n in fleet_serve["serve"]["launches"].items():

@@ -19,9 +19,11 @@ Each flag lands in the same ``RuntimeConfig`` / ``SpecConfig`` /
 ``run_model_comparison_sweep`` and the serving fleet's ``ModelFleet``;
 the router flags in ``RouterConfig``). The watchdog flags also reach
 ``sweep``, whose word-meaning batches run under the watchdog in the
-port. A flag of a feature the port does not have yet (meshes, leased
-shards, serving's page migration and tiers, the sentinels, the metrics
-op, tracing) is not defined, so argparse rejects it. ``--device`` (default ``cuda``) says where the models and the
+port. The migration flags (``--no-migrate``, ``--migrate-*``) land in
+``MigrationConfig`` for the router's disaggregated prefill and decode.
+A flag of a feature the port does not have yet (meshes, leased
+shards, serving's memory tiers, the sentinels, the metrics op, tracing)
+is not defined, so argparse rejects it. ``--device`` (default ``cuda``) says where the models and the
 statistics run; the CPU must be asked for. Where matplotlib is absent,
 ``analyze``, ``survey`` and ``repro`` log that figures were skipped and
 write everything else; ``repro --no-figures`` also reaches the survey
@@ -167,6 +169,59 @@ def _add_router_flags(p) -> None:
     p.add_argument("--router-cache-entries", type=int, default=None,
                    help="router dedup cache capacity, the exactly-once "
                         "backstop (default 4096; 0 off)")
+
+
+def _add_migrate_flags(p) -> None:
+    """Disaggregated prefill and decode (config.MigrationConfig;
+    serve/migrate.py)."""
+    p.add_argument("--no-migrate", action="store_true",
+                   help="disable KV-page migration and disaggregated "
+                        "placement (MigrationConfig.enabled; the role-less "
+                        "replica router)")
+    p.add_argument("--migrate-prefill-replicas", type=int, default=None,
+                   help="of --replicas N, the first K take the PREFILL "
+                        "role: long prompts prefill there and their KV "
+                        "pages migrate to decode-role replicas (default 0 "
+                        "= colocated)")
+    p.add_argument("--migrate-chunk-pages", type=int, default=None,
+                   help="KV pages a transfer chunk (default 8)")
+    p.add_argument("--migrate-inflight-chunks", type=int, default=None,
+                   help="transfer chunks in flight a leg (default 2)")
+    p.add_argument("--migrate-min-prefix", type=int, default=None,
+                   help="shortest tokenized shared prefix worth a remote "
+                        "prefill and a migration; shorter prompts score "
+                        "colocated (default 32)")
+    p.add_argument("--migrate-page-bonus", type=float, default=None,
+                   help="placement bonus (queue rows) per prefix page a "
+                        "replica already holds (default 0.5)")
+    p.add_argument("--no-migrate-verify", action="store_true",
+                   help="skip the per-chunk transfer checksums "
+                        "(MigrationConfig.verify); measurement only")
+    p.add_argument("--migrate-timeout", type=float, default=None,
+                   help="seconds one migration chain may take before the "
+                        "router falls back to a local re-prefill "
+                        "(default 30)")
+
+
+def _migrate_cfg(args):
+    """MigrationConfig from the flags (an unset flag keeps the
+    default)."""
+    from .config import MigrationConfig
+
+    kw = {}
+    if getattr(args, "no_migrate", False):
+        kw["enabled"] = False
+    for flag, field in (("migrate_prefill_replicas", "prefill_replicas"),
+                        ("migrate_chunk_pages", "chunk_pages"),
+                        ("migrate_inflight_chunks", "inflight_chunks"),
+                        ("migrate_min_prefix", "min_prefix_tokens"),
+                        ("migrate_page_bonus", "page_bonus"),
+                        ("migrate_timeout", "timeout_s")):
+        if getattr(args, flag, None) is not None:
+            kw[field] = getattr(args, flag)
+    if getattr(args, "no_migrate_verify", False):
+        kw["verify"] = False
+    return MigrationConfig(**kw)
 
 
 def _router_cfg(args):
@@ -446,6 +501,7 @@ def _add_serve(sub) -> None:
     _add_governor_flags(p)
     _add_fleet_flags(p, with_models=True)
     _add_router_flags(p)
+    _add_migrate_flags(p)
 
 
 def _add_analyze(sub) -> None:
@@ -801,11 +857,14 @@ def _jsonl_lines(path: str):
 
 def _run_router_serve(args, serve_cfg, factory, n_replicas: int) -> None:
     """``serve --model X --replicas N``: N in-process replica
-    ScoringServers (an engine each) behind a ReplicaRouter. The JSONL
-    surface is the single-model one; ``{"op": "stats"}`` answers the
-    router's per-replica health view. Exits 1 when no replica is alive
-    at the end. (Each replica's disk-tier directory comes with the
-    memory tiers, ROADMAP A8c.)"""
+    ScoringServers (an engine each) behind a ReplicaRouter. With
+    ``--migrate-prefill-replicas K`` the first K replicas take the
+    prefill role and the rest decode (disaggregated serving; 0 keeps
+    every replica "both"). The JSONL surface is the single-model one;
+    ``{"op": "stats"}`` answers the router's counters, its ``"migrate"``
+    block and the per-replica health view. Exits 1 when no replica is
+    alive at the end. (Each replica's disk-tier directory comes with the
+    memory tiers, ROADMAP A8d.)"""
     import json
 
     from .serve import ReplicaRouter, ScoringServer
@@ -813,9 +872,14 @@ def _run_router_serve(args, serve_cfg, factory, n_replicas: int) -> None:
     servers = [ScoringServer(factory(args.model), args.model,
                              serve_cfg).start()
                for _ in range(n_replicas)]
+    n_prefill = getattr(args, "migrate_prefill_replicas", None) or 0
+    roles = ({f"r{i}": ("prefill" if i < n_prefill else "decode")
+              for i in range(n_replicas)} if n_prefill else None)
     router = ReplicaRouter([(f"r{i}", s) for i, s in enumerate(servers)],
-                           config=_router_cfg(args)).start()
-    log.info("router: %d replica servers for %s", n_replicas, args.model)
+                           config=_router_cfg(args), roles=roles,
+                           migrate=_migrate_cfg(args)).start()
+    log.info("router: %d replica servers for %s (%d prefill-role)",
+             n_replicas, args.model, n_prefill)
     futures = []
     for i, obj in _jsonl_lines(args.requests):
         if obj.get("op") == "stats":

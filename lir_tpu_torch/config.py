@@ -388,15 +388,35 @@ class RouterConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MigrationConfig:
-    """Disaggregated prefill/decode knobs: the two fields of the JAX
-    package's that the port's router reads. ``page_bonus`` is the
-    placement bonus, in queue rows, per prefix page a replica already
-    holds; ``prefill_replicas > 0`` (prefill-role replicas) is refused.
-    Page migration and its other knobs (chunking, checksums, the chain's
-    deadline) wait for ROADMAP A8c."""
+    """Disaggregated prefill and decode serving (serve/migrate.py), every
+    field and default of the JAX package's.
 
+    - ``enabled``: page migration and disaggregated placement; False
+      gives the role-less router.
+    - ``prefill_replicas``: of ``--replicas N``, the first K take the
+      PREFILL role (long prompts prefill there, their KV pages migrate to
+      a decode replica); 0 keeps every replica colocated.
+    - ``chunk_pages``: KV pages a transfer chunk (``paged.kv_page_bytes``
+      a page).
+    - ``inflight_chunks``: chunks in flight a leg (2: double buffering).
+    - ``min_prefix_tokens``: the shortest tokenized shared prefix worth a
+      remote prefill and a migration; shorter prompts score colocated.
+    - ``page_bonus``: placement bonus, in queue rows, per prefix page a
+      replica already holds.
+    - ``verify``: check each chunk's CRC32 before any page lands.
+    - ``timeout_s``: one chain's wall-clock budget (prefill, export,
+      transfer, import); past it the router falls back to a local
+      re-prefill.
+    """
+
+    enabled: bool = True
     prefill_replicas: int = 0
+    chunk_pages: int = 8
+    inflight_chunks: int = 2
+    min_prefix_tokens: int = 32
     page_bonus: float = 0.5
+    verify: bool = True
+    timeout_s: float = 30.0
 
 
 @dataclasses.dataclass(frozen=True)

@@ -21,7 +21,7 @@ The fleet server (``serve/server.FleetScoringServer``) and the router's
 residency map (``serve/router.py``) ride this fleet. The JAX fleet's
 ``sweep`` helper, whose one caller is the JAX benchmark, comes with the
 port's benchmark; the memory tiers' ``attach_tiers`` /
-``reseed_weights`` wait for ROADMAP A8c.
+``reseed_weights`` wait for ROADMAP A8d.
 
 Engines are built once (tokenizer, buckets and counters persist); only
 the param tree moves. A re-streamed tree is bitwise its staged

@@ -37,8 +37,12 @@ and eviction counters (``utils/profiling.PrefixCacheStats``).
   the router's :class:`ClusterPrefixIndex` rides them to know which
   replica holds which prefix pages.
 
-The migration and tier hooks of the JAX module (``forget_tail``,
-``evict_tail``, ``coldest_leaves``) wait for ROADMAP A8c.
+- **Rollback.** :meth:`RadixPrefixCache.forget_tail` removes the
+  childless tail nodes a failed page import created (serve/migrate.py),
+  firing ``"evict"`` so the cluster index unlearns them.
+
+The tier hooks of the JAX module (``evict_tail``, ``coldest_leaves``)
+wait for the memory tiers (ROADMAP A8d).
 """
 
 from __future__ import annotations
@@ -299,6 +303,29 @@ class RadixPrefixCache:
                                self.pool.n_pages - 1)
         return start * self.page_size, new_pages
 
+    def forget_tail(self, bucket: int, ids: Sequence[int],
+                    n_pages: int) -> int:
+        """Remove the deepest ``n_pages`` nodes along ``ids``' cached path
+        and drop the tree's page references: the ROLLBACK of a cancelled
+        or corrupt page import (serve/migrate.py), so that no dispatch
+        gathers pages that were never filled. Only childless tail nodes
+        go (what a fresh plan_insert created); each fires ``"evict"``.
+        Returns how many were removed."""
+        path = self._walk(bucket, ids, touch=False)
+        removed = 0
+        for node in reversed(path[-n_pages:] if n_pages else []):
+            if node.children:
+                break           # the path was extended past us: keep it
+            self._notify("evict", int(bucket), self._node_ids(node))
+            del node.parent.children[node.key]
+            self._nodes -= 1
+            self.pool.decref((node.page,))
+            removed += 1
+        if removed:
+            self.stats.gauge_pages(self.pool.pages_in_use,
+                                   self.pool.n_pages - 1)
+        return removed
+
     def _alloc_with_evict(self) -> Optional[int]:
         page = self.pool.alloc()
         if page is None and self.evict(1):
@@ -361,7 +388,7 @@ class RadixPrefixCache:
 class ClusterPrefixIndex:
     """Which REPLICA holds which prefix pages: a router-side index fed by
     every replica tree's :meth:`RadixPrefixCache.add_listener` events
-    (and, with the memory tiers of ROADMAP A8c, by each replica's tier
+    (and, with the memory tiers of ROADMAP A8d, by each replica's tier
     store under a tier dimension). Placement reads :meth:`match_pages`.
 
     It stores token chunks only (a dict node a page, no pool references,
@@ -409,7 +436,7 @@ class ClusterPrefixIndex:
     def on_tier_event(self, replica_id: str, event: str, tier: str,
                       bucket: int, ids: Sequence[int]) -> None:
         """A tier store's movement event (its producer comes with the
-        memory tiers, ROADMAP A8c): a tier entry covers a whole prefix,
+        memory tiers, ROADMAP A8d): a tier entry covers a whole prefix,
         so an evict prunes the full path."""
         self.on_event(replica_id, event, bucket, ids, tier=tier)
 

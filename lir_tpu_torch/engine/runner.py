@@ -24,7 +24,10 @@ slot gather from the pool plus one window extension (the ``*_paged``
 variants in engine/generate.py; the cascade's trunk in its own
 trunk-extent namespace), and afterwards the dispatch's new full prefix
 pages are copied into the pool from its final cache. The
-speculative drafts then also come from the tree's token history. The
+speculative drafts then also come from the tree's token history.
+:meth:`ScoringEngine.prefill_insert` is the prefill-only dispatch of
+disaggregated serving (serve/migrate.py): it fills pool pages and
+decodes nothing. The
 kernels run on CUDA tensors and their plain PyTorch versions on CPU
 tensors, so the engine routes the same way on both; the JAX engine
 routes to its kernels only on a TPU (or under its interpreter hooks).
@@ -571,6 +574,51 @@ class ScoringEngine:
         inserting (there is no final cache to read pages from)."""
         for m in plan.matches:
             self.prefix_cache.release(m)
+
+    def prefill_insert(self, bucket: int,
+                       prefix_ids: List[Sequence[int]]) -> int:
+        """PREFILL-ONLY dispatch (disaggregated serving, serve/migrate.py):
+        compute the rows' prefix KV at the ``bucket`` extent on the
+        canonical right-padded layout (slot == token position) and copy
+        every full page into the pool and the radix tree, decoding
+        nothing. The prefill is ``decoder.prefill`` over the rows as the
+        shared dispatch runs it, so at the same bucket and row count the
+        pages are bitwise those a scoring dispatch inserts.
+
+        Rows whose full pages are already cached are skipped (a repeat
+        costs nothing); callers pad the rows as the scoring dispatch pads
+        (``ContinuousBatcher.prefill``). Fresh pages stay pinned until
+        their copy is issued. Returns the page-aligned tokens cached for
+        the FIRST row (the migration chain's request row)."""
+        self._decoder_only("prefill_insert")
+        tree = self.prefix_cache
+        assert tree is not None, \
+            "prefill_insert needs the prefix cache enabled"
+        ps = tree.page_size
+        rows = [list(ids)[:bucket] for ids in prefix_ids]
+        aligned0 = (len(rows[0]) // ps) * ps
+        todo = [ids for ids in rows
+                if tree.match_len(bucket, ids) < (len(ids) // ps) * ps]
+        if todo:
+            toks, mask = tok.right_pad_ids(todo, bucket,
+                                           tok.pad_token_id(self.tokenizer))
+            with torch.inference_mode():
+                _, cache, _ = decoder.prefill(self.params, self.cfg,
+                                              self._t(toks), self._t(mask),
+                                              bucket)
+            writes: List[Tuple[int, int, int]] = []
+            fresh: List[int] = []
+            for r, ids in enumerate(todo):
+                start, new_pages = tree.plan_insert(bucket, ids)
+                if not new_pages:
+                    continue
+                tree.pool.incref(new_pages)
+                fresh.extend(new_pages)
+                for j, pg in enumerate(new_pages):
+                    writes.append((pg, r, start + j * ps))
+            tree.pool.scatter(cache, writes)
+            tree.pool.decref(fresh)
+        return min(tree.match_len(bucket, rows[0]), aligned0)
 
     def _prefix_plan_or_none(self, bucket: int,
                              prefix_ids: List[Sequence[int]],

@@ -34,11 +34,17 @@ Kinds and where the port wires them:
 - ``replica_lag``: sleep ``lag_s``, then run the call to completion (a
   straggler whose late payload must lose the hedge race).
 
-The migration and tier kinds and sites (``migration_stall``,
-``migration_corrupt``, ``tier_corrupt``, ``disk_stall``; sites
-``migrate``, ``tiers``) wait for page migration and the memory tiers
-(ROADMAP A8c): a plan given one raises at construction rather than
-ignore it.
+- ``migration_stall``: through :func:`wrap_migrator` at the router
+  migrator's wire hop (site ``migrate``), sleep ``hang_s`` (past the
+  chain's ``timeout_s``), then raise: the router falls back to a local
+  re-prefill;
+- ``migration_corrupt``: through :func:`wrap_migrator`, flip bytes of
+  the export's first chunk in place under its checksums
+  (:func:`corrupt_export_chunks`): the import's verify refuses it.
+
+The tier kinds and site (``tier_corrupt``, ``disk_stall``; site
+``tiers``) wait for the memory tiers (ROADMAP A8d): a plan given one
+raises at construction rather than ignore it.
 
 ``InjectedPreemption`` subclasses BaseException on purpose: a real kill
 does not flow through ``except Exception`` recovery, so neither may its
@@ -66,12 +72,13 @@ KINDS = ("fault", "preempt", "hang", "nan", "replica_kill",
          "replica_lag", "hbm_squeeze", "migration_stall",
          "migration_corrupt", "tier_corrupt", "disk_stall")
 
-# What waits for page migration and the memory tiers (ROADMAP A8c).
-_A8C_KINDS = ("migration_stall", "migration_corrupt", "tier_corrupt",
-              "disk_stall")
-_A8C_SITES = ("migrate", "tiers")
+# What waits for the memory tiers (ROADMAP A8d).
+_A8D_KINDS = ("tier_corrupt", "disk_stall")
+_A8D_SITES = ("tiers",)
 # Kinds that act on a result or a side channel, never before the call.
 _PASSIVE_KINDS = ("nan", "draft_corrupt", "hbm_squeeze")
+# Kinds only the migrator's hop injects: a no-op at :meth:`FaultPlan.check`.
+_MIGRATION_KINDS = ("migration_stall", "migration_corrupt")
 
 
 class InjectedFault(RuntimeError):
@@ -161,6 +168,23 @@ class SiteSchedule:
                    squeeze_frac=frac, squeeze_calls=calls)
 
     @classmethod
+    def migration_stall_at(cls, call: int,
+                           seconds: float = 30.0) -> "SiteSchedule":
+        """Stall one page-migration transfer (site "migrate";
+        :func:`wrap_migrator`): the wire hop sleeps ``seconds`` (pick it
+        past ``MigrationConfig.timeout_s``), then raises. The router must
+        abandon the chain and re-prefill locally."""
+        return cls(fail_calls=(call,), kind="migration_stall",
+                   hang_s=seconds)
+
+    @classmethod
+    def migration_corrupt_at(cls, call: int) -> "SiteSchedule":
+        """Corrupt one page-migration transfer in flight (site "migrate";
+        :func:`wrap_migrator`): chunk bytes flipped under the export's
+        checksums, so the import refuses every page and rolls back."""
+        return cls(fail_calls=(call,), kind="migration_corrupt")
+
+    @classmethod
     def replica_kill_at(cls, call: int,
                         replica_id: str = "") -> "SiteSchedule":
         """A replica's death at one call index (through
@@ -189,11 +213,11 @@ class FaultPlan:
         self.seed = int(seed)
         self.schedules: Dict[str, SiteSchedule] = dict(schedules or {})
         for site, sched in self.schedules.items():
-            if site in _A8C_SITES or sched.kind in _A8C_KINDS:
+            if site in _A8D_SITES or sched.kind in _A8D_KINDS:
                 raise ValueError(
-                    f"fault schedule {site}:{sched.kind} needs page "
-                    f"migration or the memory tiers, which the port does "
-                    f"not have yet (ROADMAP A8c)")
+                    f"fault schedule {site}:{sched.kind} needs the memory "
+                    f"tiers, which the port does not have yet (ROADMAP "
+                    f"A8d)")
         self.stats = stats if stats is not None else FaultStats()
         self._calls: Dict[str, int] = {}
         self._injected: Dict[str, int] = {}
@@ -263,10 +287,10 @@ class FaultPlan:
     def check(self, site: str) -> None:
         """The injection point: raise when the schedule says this call
         fails, else return. A result or side-channel kind (nan,
-        draft_corrupt, hbm_squeeze) is a no-op here; ``replica_lag``
-        sleeps in place, then returns."""
+        draft_corrupt, hbm_squeeze) and a migration kind are no-ops
+        here; ``replica_lag`` sleeps in place, then returns."""
         sched = self._decide(site)
-        if sched is None or sched.kind in _PASSIVE_KINDS:
+        if sched is None or sched.kind in _PASSIVE_KINDS + _MIGRATION_KINDS:
             return
         if sched.kind == "replica_lag":
             self.stats.inject(site)
@@ -392,6 +416,69 @@ def wrap_replica(router, replica_id: str, plan: FaultPlan,
     wrapped.__wrapped__ = inner  # type: ignore[attr-defined]
     handle.server.batcher.score = wrapped
     return router
+
+
+def wrap_migrator(migrator, plan: FaultPlan, site: str = "migrate"):
+    """The plan's ``site`` schedule at a router migrator's wire hop
+    (``serve/migrate.PageMigrator.transfer``, between page export and
+    page import), which runs on the source replica's supervisor thread:
+
+    - ``migration_stall``: sleep ``hang_s`` (holding that thread, as in
+      the JAX package), then raise: the router's chain deadline or the
+      raise ends in a local re-prefill;
+    - ``migration_corrupt``: flip the export's chunk bytes in place
+      under its checksums (seeded by the plan's seed, the site and the
+      call index); the import's verify must refuse them.
+
+    Other raise-style kinds fire before the hop (a transport error)."""
+    inner = migrator.transfer
+
+    def wrapped(export):
+        sched = plan._decide(site)
+        if sched is not None:
+            if sched.kind == "migration_stall":
+                plan.stats.inject(site)
+                idx = plan.calls(site) - 1
+                time.sleep(sched.hang_s)
+                raise InjectedFault(
+                    f"injected migration stall at {site} call {idx} "
+                    f"released after {sched.hang_s:.2f}s")
+            if sched.kind == "migration_corrupt":
+                plan.stats.inject(site)
+                idx = plan.calls(site) - 1
+                corrupt_export_chunks(export,
+                                      seed=f"{plan.seed}:{site}:{idx}")
+                return inner(export)
+            if sched.kind not in _PASSIVE_KINDS:
+                plan._fire(sched, site)
+        return inner(export)
+
+    wrapped.__wrapped__ = inner  # type: ignore[attr-defined]
+    migrator.transfer = wrapped
+    return migrator
+
+
+def corrupt_export_chunks(export, seed: str = "0") -> int:
+    """Flip bytes of a PageExport's FIRST host chunk without touching its
+    checksums: the in-flight corruption the import's verify exists to
+    catch. Each leaf (leaf order) gets min(8, its bytes) seeded offsets
+    XOR 0xFF, in place: the offsets of the JAX package's under the same
+    seed. Returns the bytes flipped."""
+    from ..models.decoder import cache_leaves
+
+    rng = random.Random(seed)
+    flipped = 0
+    for host, _n in export.chunks:
+        for leaf in cache_leaves(host):
+            flat = leaf.reshape(-1).view(torch.uint8).numpy()
+            if flat.size == 0:
+                continue
+            for _ in range(min(8, flat.size)):
+                j = rng.randrange(flat.size)
+                flat[j] ^= 0xFF
+                flipped += 1
+        break            # one chunk is enough: any mismatch aborts
+    return flipped
 
 
 def wrap_governor(governor, plan: FaultPlan, site: str = "hbm"):

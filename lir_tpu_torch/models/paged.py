@@ -32,9 +32,13 @@ Page 0 is reserved as the trash page: slot-table entries that carry no
 cached KV point at it (their slots are masked, and a masked key adds an
 exact zero to the softmax), and the scatter's padding writes land there.
 
-Left for later: migration (``extract_pages`` / ``insert_pages``) and
-``CacheHandoff`` (XLA buffer donation, which eager PyTorch has no use
-for).
+- **Migration legs.** :func:`extract_pages` gathers whole pages out of
+  the pool (the export leg of serve/migrate.py) and :func:`insert_pages`
+  writes blocks that arrived from another pool (the import leg), both
+  in the pool's leaf order and layout (L, K, N, ps[, hd]).
+
+Left out: ``CacheHandoff`` (XLA buffer donation, which eager PyTorch has
+no use for).
 """
 
 from __future__ import annotations
@@ -140,6 +144,27 @@ def scatter_pages(pool, cache, page_ids: torch.Tensor, rows: torch.Tensor,
         p[:, :, page_ids.long()] = blocks.to(p.dtype)   # (L, K, N, ps[, hd])
 
 
+def extract_pages(pool, page_ids: torch.Tensor):
+    """Whole pages out of the pool for migration: (L, K, N, ps[, hd])
+    blocks a leaf (a copy, in the pool's nesting), ``page_ids`` (N,).
+    Padding entries (callers pad to a stable chunk shape) target the
+    trash page 0: dead bytes the import drops. Read-only on the pool."""
+    idx = page_ids.long()
+    return cache_map(lambda p: p.index_select(2, idx), pool)
+
+
+def insert_pages(pool, blocks, page_ids: torch.Tensor) -> None:
+    """Write migrated page blocks into the pool in place: page
+    ``page_ids[j]`` receives ``blocks[:, :, j]`` in every leaf (the
+    import's sibling of :func:`scatter_pages`). Padding entries target
+    the trash page 0, which every gather masks (their writes may land
+    in any order)."""
+    idx = page_ids.long()
+    for p, b in zip(cache_leaves(pool), cache_leaves(blocks)):
+        p.index_copy_(2, idx, b.to(device=p.device, dtype=p.dtype,
+                                   non_blocking=True))
+
+
 def _pow2(n: int) -> int:
     b = 1
     while b < n:
@@ -223,6 +248,32 @@ class KVPagePool:
         scatter_pages(self.leaves, cache, torch.from_numpy(pages).to(dev),
                       torch.from_numpy(rows).to(dev),
                       torch.from_numpy(slot_idx).to(dev))
+
+    def extract(self, page_ids: Sequence[int], pad_to: int = 0):
+        """Device blocks of ``page_ids`` (the migration export leg), the
+        id list padded to ``pad_to`` (or the next power of two) with
+        trash-page entries, so every chunk of an export has one shape.
+        Enqueued on the current stream: the caller overlaps the copy to
+        the host."""
+        assert self.leaves is not None, "extract before ensure()"
+        n = max(int(pad_to), _pow2(len(page_ids)))
+        ids = np.zeros((n,), np.int64)
+        ids[:len(page_ids)] = np.asarray(page_ids, np.int64)
+        dev = cache_leaves(self.leaves)[0].device
+        return extract_pages(self.leaves, torch.from_numpy(ids).to(dev))
+
+    def insert(self, blocks, page_ids: Sequence[int]) -> None:
+        """Land migrated blocks at ``page_ids`` (the import leg), on the
+        current stream. ``blocks`` may be wider than the id list (the
+        export's stable chunk width): the extra entries go to the trash
+        page."""
+        assert self.leaves is not None, "insert before ensure()"
+        n = int(cache_leaves(blocks)[0].shape[2])
+        assert n >= len(page_ids), "blocks narrower than the id list"
+        ids = np.zeros((n,), np.int64)
+        ids[:len(page_ids)] = np.asarray(page_ids, np.int64)
+        dev = cache_leaves(self.leaves)[0].device
+        insert_pages(self.leaves, blocks, torch.from_numpy(ids).to(dev))
 
     def page_nbytes(self) -> int:
         """Device bytes of ONE page across every leaf (0 before

@@ -1,5 +1,5 @@
-"""Online serving (port of ``lir_tpu/serve`` less page migration and
-the memory tiers, which wait for ROADMAP A8c):
+"""Online serving (port of ``lir_tpu/serve`` less the memory tiers,
+which wait for ROADMAP A8d):
 
 - queue.RequestQueue: bounded admission with per-class deadlines and
   deadline-aware shedding;
@@ -18,14 +18,22 @@ the memory tiers, which wait for ROADMAP A8c):
 - router.ReplicaRouter: N replica servers behind one front with
   queue-depth, breaker, weight-residency, page-residency, SLO and
   pressure placement, exactly-once failover of a dead replica's
-  requests and deadline-whisker hedging.
+  requests and deadline-whisker hedging;
+- migrate (with the router's roles): disaggregated prefill and decode,
+  KV pages exported from one replica's pool and imported into another's
+  (chunked, checksummed, rolled back on failure) on the replicas'
+  supervisor threads (``ScoringServer.submit_page_op`` /
+  ``submit_prefill``).
 
 Surface: ``python -m lir_tpu_torch serve`` (JSONL over stdin or
-``--requests``; ``--replicas N``; ``--fleet-models a,b``).
+``--requests``; ``--replicas N [--migrate-prefill-replicas K]``;
+``--fleet-models a,b``).
 """
 
 from .batcher import ContinuousBatcher, FleetBatcher
 from .cache import ResultCache, content_key, engine_key
+from .migrate import (MigrationError, PageExport, PageMigrator,
+                      export_prefix, import_prefix)
 from .queue import (STATUS_ERROR, STATUS_EXPIRED, STATUS_OK, STATUS_SHED,
                     RequestQueue, ServeFuture, ServeRequest, ServeResult)
 from .router import ReplicaRouter
@@ -37,6 +45,7 @@ __all__ = [
     "engine_key", "RequestQueue", "ServeFuture", "ServeRequest",
     "ServeResult", "ScoringServer", "FleetScoringServer",
     "FleetScoreFuture", "ReplicaRouter", "aggregate_fleet",
-    "fleet_decision",
+    "fleet_decision", "MigrationError", "PageExport", "PageMigrator",
+    "export_prefix", "import_prefix",
     "STATUS_OK", "STATUS_EXPIRED", "STATUS_SHED", "STATUS_ERROR",
 ]

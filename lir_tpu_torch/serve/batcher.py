@@ -196,6 +196,22 @@ class ContinuousBatcher:
                 return edge, rows
             # every candidate row expired: re-scan the other buckets
 
+    def prefill(self, bucket: int,
+                prefix_rows: List[Tuple[int, ...]]) -> int:
+        """PREFILL-ONLY dispatch (disaggregated serving, serve/migrate.py):
+        the rows' prefix KV at ``bucket`` into this engine's pool and
+        radix tree, decoding nothing (``ScoringEngine.prefill_insert``).
+        The rows are padded as :meth:`score` pads its batch (the row cap
+        under ``pad_full`` or the power-of-two tail, the last row
+        repeated), so the pages are those a scoring dispatch of as many
+        rows would insert. Returns the page-aligned tokens cached for the
+        first row."""
+        n = len(prefix_rows)
+        bsz = max(self._dispatch_rows(n), _tail_batch(n, self.batch))
+        full = [list(r) for r in prefix_rows]
+        full += [list(prefix_rows[-1])] * (bsz - n)
+        return self.engine.prefill_insert(bucket, full)
+
     def flush_all(self, status: str, note: str) -> int:
         """Resolve every bucketed request with ``status`` (the breaker's
         drain); returns how many were flushed."""

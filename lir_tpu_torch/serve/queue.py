@@ -218,6 +218,13 @@ class RequestQueue:
                 return True
             return self._nonempty.wait(timeout)
 
+    def kick(self) -> None:
+        """Wake a supervisor parked in :meth:`wait_nonempty` without
+        queueing anything: out-of-band work (a page op, serve/migrate.py)
+        arrived that the loop should see now, not a poll later."""
+        with self._nonempty:
+            self._nonempty.notify()
+
     def flush(self, status: str, note: str) -> int:
         """Resolve every queued request with ``status`` (the breaker's
         drain); returns how many were flushed."""

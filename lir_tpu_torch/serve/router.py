@@ -1,5 +1,5 @@
-"""Multi-replica serving: the failover router. Port of
-``lir_tpu/serve/router.py`` less its migration chain.
+"""Multi-replica serving: the failover router and the disaggregated
+migration chain. Port of ``lir_tpu/serve/router.py``.
 
 A :class:`ReplicaRouter` spreads one request stream over N replica
 servers (``ScoringServer`` or ``FleetScoringServer``), each behind its
@@ -42,12 +42,24 @@ The replicas share one engine configuration, so the winning payload is
 the payload any replica would give where they dispatch at the same row
 count (prefix cache off, ``pad_full``: bitwise; ROADMAP R1 otherwise).
 
-Left out, and refused: disaggregated prefill and decode. A ``roles`` map
-naming a ``"prefill"`` replica, or a ``MigrationConfig`` with
-``prefill_replicas > 0``, raises ``NotImplementedError`` (ROADMAP A8c);
-without migration :meth:`ReplicaRouter.stats_summary` has no
-``"migrate"`` block and a replica's ``"tiers"`` entry is None. The
-metrics registry and tracing spans wait for "Also open".
+Disaggregated prefill and decode (serve/migrate.py): with ``roles``
+splitting the replicas into PREFILL-role and DECODE-role ones and
+``MigrationConfig.enabled``, a request whose prefix is not already on
+its decode replica PULLS the pages from the replica that holds them
+(export, transfer, import), or, with a prefix of at least
+``min_prefix_tokens``, prefills on a prefill replica first; the decode
+replica then scores it over the imported pages. Each hop is a page op
+on the owning replica's supervisor thread, chained by callbacks; a
+stall past ``timeout_s`` (policed by the tick), a corrupt chunk, a dead
+replica or any failed hop falls back to a local re-prefill on a decode
+replica (``refetch_fallbacks``), never a wrong or dropped answer.
+Imported pages hold the bits of the prefill replica's dispatch shape
+(ROADMAP R1). ``stats_summary`` carries the ``"migrate"`` block
+(``MigrationStats``).
+
+Left out: the memory tiers (ROADMAP A8d: a replica's ``"tiers"`` entry
+is None and :meth:`ReplicaRouter._tier_priced` returns the device
+match), the metrics registry and tracing spans ("Also open").
 """
 
 from __future__ import annotations
@@ -63,7 +75,8 @@ from ..engine import prefix_tree
 from ..engine import tokens as tok
 from ..faults import CircuitBreaker
 from ..utils.logging import get_logger
-from ..utils.profiling import RouterStats, ServeStats
+from ..utils.profiling import MigrationStats, RouterStats, ServeStats
+from . import migrate as migrate_mod
 from .cache import ResultCache, content_key
 from .queue import (STATUS_ERROR, STATUS_OK, STATUS_SHED, ServeFuture,
                     ServeRequest, ServeResult)
@@ -76,8 +89,6 @@ PAYLOAD_FIELDS = ("model_response", "model_confidence_response",
                   "token_1_prob", "token_2_prob", "log_probabilities",
                   "confidence_value", "weighted_confidence")
 
-_A8C = "ROADMAP A8c"
-
 
 def _payload_of(res: ServeResult) -> Dict:
     return {f: getattr(res, f) for f in PAYLOAD_FIELDS}
@@ -88,11 +99,13 @@ class _Replica:
 
     def __init__(self, replica_id: str, server, breaker: CircuitBreaker,
                  role: str = "both"):
-        assert role in ("decode", "both"), role
+        assert role in ("prefill", "decode", "both"), role
         self.replica_id = replica_id
         self.server = server
         self.breaker = breaker
         self.alive = True
+        # "prefill" replicas take prefill-only dispatches, and scoring
+        # only when no decode-capable replica survives.
         self.role = role
         self.is_fleet = hasattr(server, "fleet")
         self._lock = threading.Lock()
@@ -187,14 +200,55 @@ class _Pending:
             return True
 
 
+class _Migration:
+    """One disaggregated chain's life (prefill -> export -> transfer ->
+    import -> score), claimable exactly once: whichever of chain
+    completion, failure fallback, tick timeout or replica kill claims
+    first decides where the request scores; the others become no-ops (a
+    late import merely warms the pool with verified pages)."""
+
+    __slots__ = ("pending", "dst", "src", "bucket", "prefix_ids",
+                 "dst_tokens", "t_deadline", "_claimed", "_lock")
+
+    def __init__(self, pending: _Pending, dst: _Replica, src: _Replica,
+                 bucket: int, prefix_ids: Tuple[int, ...], dst_tokens: int,
+                 t_deadline: float):
+        self.pending = pending
+        self.dst = dst
+        self.src = src
+        self.bucket = int(bucket)
+        self.prefix_ids = prefix_ids
+        self.dst_tokens = int(dst_tokens)
+        self.t_deadline = t_deadline
+        self._claimed = False
+        self._lock = threading.Lock()
+
+    @property
+    def claimed(self) -> bool:
+        with self._lock:
+            return self._claimed
+
+    def claim(self) -> bool:
+        with self._lock:
+            if self._claimed:
+                return False
+            self._claimed = True
+            return True
+
+
 class ReplicaRouter:
     """Failover router over N replica servers (module docstring).
 
     ``replicas`` is ``[(replica_id, server), ...]``: the caller starts
     and stops the servers; :meth:`start` / :meth:`stop` own only the
-    router's tick thread (hedging and breaker promotion). ``roles`` and
-    ``migrate`` are accepted for the JAX signature; a prefill role or
-    ``prefill_replicas > 0`` raises (ROADMAP A8c).
+    router's tick thread (hedging, breaker promotion, migration
+    deadlines). ``roles`` maps replica ids to "prefill" / "decode" /
+    "both" (default "both": the role-less router). With a live
+    prefill-role and a live decode-capable replica, a page index and
+    ``migrate.enabled``, the router serves disaggregated (module
+    docstring); ``migrator`` (``serve/migrate.PageMigrator``) holds the
+    chain's config, its ``MigrationStats`` and the wire hop the fault
+    plans wrap.
     """
 
     def __init__(self, replicas: Sequence[Tuple[str, object]],
@@ -202,26 +256,22 @@ class ReplicaRouter:
                  stats: Optional[RouterStats] = None,
                  clock: Callable[[], float] = time.monotonic,
                  roles: Optional[Dict[str, str]] = None,
-                 migrate: Optional[MigrationConfig] = None):
+                 migrate: Optional[MigrationConfig] = None,
+                 migrate_stats: Optional[MigrationStats] = None):
         assert replicas, "a router needs at least one replica"
         roles = dict(roles or {})
-        prefill = sorted(r for r, role in roles.items() if role == "prefill")
-        if prefill:
-            raise NotImplementedError(
-                f"prefill-role replicas {prefill}: disaggregated prefill "
-                f"and decode (page migration) is not ported yet ({_A8C})")
-        self.migrate_config = migrate or MigrationConfig()
-        if self.migrate_config.prefill_replicas > 0:
-            raise NotImplementedError(
-                f"MigrationConfig(prefill_replicas="
-                f"{self.migrate_config.prefill_replicas}): page migration "
-                f"is not ported yet ({_A8C})")
         self.config = config or RouterConfig()
         self.stats = stats if stats is not None else RouterStats()
+        self.migrate_config = migrate or MigrationConfig()
+        self.migrate_stats = (migrate_stats if migrate_stats is not None
+                              else MigrationStats())
+        self.migrator = migrate_mod.PageMigrator(
+            self.migrate_config, self.migrate_stats, clock=clock)
         self.clock = clock
         self._lock = threading.Lock()
         self._handles: Dict[str, _Replica] = {}
         self._pending: Dict[int, _Pending] = {}
+        self._migrations: Dict[int, _Migration] = {}
         self._rr = 0
         for rid, server in replicas:
             assert rid not in self._handles, f"duplicate replica {rid}"
@@ -254,7 +304,7 @@ class ReplicaRouter:
                 tree.add_listener(
                     functools.partial(self.cluster_tree.on_event, rid))
         # Host and disk tier pages' placement discounts; no tier store
-        # feeds the index until the memory tiers (ROADMAP A8c).
+        # feeds the index until the memory tiers (ROADMAP A8d).
         self._tier_bonus: Dict[str, float] = {"host": 0.5, "disk": 0.25}
         # The router's content-addressed dedup: the exactly-once backstop.
         self.cache = ResultCache(self.config.cache_entries, ServeStats())
@@ -310,11 +360,13 @@ class ReplicaRouter:
         return [rid for rid, h in self._handles.items() if h.alive]
 
     def stats_summary(self) -> Dict:
-        """The router's counters and each replica's health view (the JAX
-        summary less its ``"migrate"`` block: no migration here)."""
+        """The router's counters, the migration counters and each
+        replica's health view (the JAX summary; no tier store, so every
+        ``"tiers"`` is None)."""
         now = self.clock()
         return {
             "router": self.stats.summary(),
+            "migrate": self.migrate_stats.summary(),
             "replicas": {
                 rid: {
                     "alive": h.alive,
@@ -354,7 +406,9 @@ class ReplicaRouter:
         that are not in ``exclude``, the lowest score: queue depth, less
         the residency bonus where the model's weights are, less the page
         bonus per prefix page the replica holds, plus the SLO term and
-        the pressure penalty. Round-robin rotation breaks ties."""
+        the pressure penalty. A prefill-role replica takes scoring only
+        when no decode-capable one is a candidate (never a dropped
+        request over role purity). Round-robin rotation breaks ties."""
         now = self.clock()
         with self._lock:
             self._rr += 1
@@ -364,6 +418,7 @@ class ReplicaRouter:
         cands = [h for h in order
                  if h.alive and h.replica_id not in exclude
                  and h.breaker.allow()]
+        cands = [h for h in cands if h.role != "prefill"] or cands
         if not cands:
             return None
 
@@ -382,6 +437,30 @@ class ReplicaRouter:
             return s
 
         return min(cands, key=score)
+
+    def _pick_prefill(self, exclude: Set[str]) -> Optional[_Replica]:
+        """The least-loaded live prefill-role replica with a page pool to
+        export from, or None: the chain's prefill leg."""
+        cands = [h for h in self._handles.values()
+                 if h.alive and h.role == "prefill"
+                 and h.replica_id not in exclude and h.breaker.allow()
+                 and getattr(getattr(h.server, "engine", None),
+                             "prefix_cache", None) is not None]
+        if not cands:
+            return None
+        return min(cands, key=lambda h: h.depth)
+
+    def _disagg_active(self) -> bool:
+        """Disaggregated placement is live: migration enabled, a page
+        index, and both a live prefill-role and a live decode-capable
+        replica."""
+        if not (self.migrate_config.enabled and self._have_page_index):
+            return False
+        have_prefill = any(h.alive and h.role == "prefill"
+                           for h in self._handles.values())
+        have_decode = any(h.alive and h.role != "prefill"
+                          for h in self._handles.values())
+        return have_prefill and have_decode
 
     def _tokenize_prefix(self, request: ServeRequest
                          ) -> Optional[Tuple[Tuple[int, ...], int]]:
@@ -443,16 +522,20 @@ class ReplicaRouter:
         pending = _Pending(request, model_id, key, now, now + deadline_s)
         # The cluster index's probe: which replicas hold this prompt's
         # prefix pages (single-model traffic; a fleet keeps its own).
-        page_match: Dict[str, float] = {}
+        # Placement prices tier pages (none yet); the migration decision
+        # keeps the exact device match.
+        prefix: Optional[Tuple[int, ...]] = None
+        bucket = 0
+        page_match: Dict[str, int] = {}
+        pick_match: Dict[str, float] = {}
         if self._have_page_index and not model_id:
             info = self._tokenize_prefix(request)
             if info is not None:
                 prefix, bucket = info
-                page_match = self._tier_priced(
-                    bucket, prefix,
-                    self.cluster_tree.match_pages(bucket, prefix))
+                page_match = self.cluster_tree.match_pages(bucket, prefix)
+                pick_match = self._tier_priced(bucket, prefix, page_match)
         handle = self._pick(model_id, exclude=set(), remaining_s=deadline_s,
-                            page_match=page_match)
+                            page_match=pick_match or page_match)
         if handle is None:
             self.stats.count("no_replica_sheds")
             pending.claim_resolution()
@@ -466,8 +549,55 @@ class ReplicaRouter:
             self.stats.count("routed_resident")
         with self._lock:
             self._pending[id(pending)] = pending
+        if (prefix is not None and self._disagg_active()
+                and handle.role != "prefill"
+                and self._route_disaggregated(pending, handle, bucket,
+                                              prefix, page_match)):
+            return pending.future
         self._attempt(pending, handle, "primary")
         return pending.future
+
+    def _route_disaggregated(self, pending: _Pending, dst: _Replica,
+                             bucket: int, prefix: Tuple[int, ...],
+                             page_match: Dict[str, int]) -> bool:
+        """The disaggregation decision for one request (True: a chain
+        owns it now):
+
+        - the prefix's full pages are all on the chosen decode replica:
+          score there (``cluster_tree_hits``);
+        - another replica holds at least as many pages as the prompt
+          needs: PULL them (export, transfer, import), no prefill;
+        - the prefix is at least ``min_prefix_tokens`` long and a prefill
+          replica lives: prefill THERE, then pull;
+        - otherwise score colocated on the decode replica (the handoff
+          would cost more than the prefill it saves)."""
+        ps = self.cluster_tree.page_size
+        want_pages = len(prefix) // ps
+        have = page_match.get(dst.replica_id, 0)
+        if want_pages <= 0:
+            return False
+        if have >= want_pages:
+            self.migrate_stats.count("cluster_tree_hits")
+            return False
+        src: Optional[_Replica] = None
+        need_prefill = False
+        src_rid, src_pages = self.cluster_tree.best_holder(
+            bucket, prefix, exclude=(dst.replica_id,))
+        if (src_rid is not None and src_pages >= want_pages
+                and self._handles[src_rid].alive
+                and getattr(getattr(self._handles[src_rid].server,
+                                    "engine", None),
+                            "prefix_cache", None) is not None):
+            src = self._handles[src_rid]      # warm elsewhere: a pure pull
+        elif len(prefix) >= self.migrate_config.min_prefix_tokens:
+            src = self._pick_prefill(exclude={dst.replica_id})
+            need_prefill = src is not None
+        if src is None:
+            return False
+        self._start_migration(pending, dst, src, bucket, prefix,
+                              dst_tokens=have * ps,
+                              need_prefill=need_prefill)
+        return True
 
     # -- attempt machinery ---------------------------------------------------
 
@@ -565,6 +695,124 @@ class ReplicaRouter:
             pending.future.resolve(res)
             self._forget(pending)
 
+    # -- the migration chain (serve/migrate.py) ------------------------------
+
+    def _start_migration(self, pending: _Pending, dst: _Replica,
+                         src: _Replica, bucket: int,
+                         prefix: Tuple[int, ...], dst_tokens: int,
+                         need_prefill: bool) -> None:
+        """Start one chain: [prefill on src ->] export(src) -> transfer
+        -> import(dst) -> score(dst). Every hop is a page op on the owning
+        replica's supervisor thread, linked by completion callbacks; the
+        chain's deadline (``timeout_s``, policed by the tick) and every
+        failure end in :meth:`_mig_fallback`."""
+        mig = _Migration(pending, dst, src, bucket, prefix, dst_tokens,
+                         self.clock() + self.migrate_config.timeout_s)
+        with self._lock:
+            self._migrations[id(mig)] = mig
+        if need_prefill:
+            self.migrate_stats.count("prefill_ops")
+            fut = src.server.submit_prefill(bucket, prefix)
+            fut.add_done_callback(
+                lambda f, m=mig: self._mig_prefilled(m, f))
+        else:
+            self._mig_export(mig)
+
+    def _mig_prefilled(self, mig: _Migration,
+                       fut: migrate_mod.OpFuture) -> None:
+        if mig.claimed:
+            return
+        if fut.error is not None:
+            self._mig_fallback(mig, f"prefill failed: {fut.error!r}")
+            return
+        self._mig_export(mig)
+
+    def _mig_export(self, mig: _Migration) -> None:
+        cfg, clock = self.migrate_config, self.clock
+        fut = mig.src.server.submit_page_op(
+            lambda eng, m=mig: migrate_mod.export_prefix(
+                eng, m.bucket, m.prefix_ids, from_token=m.dst_tokens,
+                config=cfg, clock=clock))
+        fut.add_done_callback(lambda f, m=mig: self._mig_exported(m, f))
+
+    def _mig_exported(self, mig: _Migration,
+                      fut: migrate_mod.OpFuture) -> None:
+        if mig.claimed:
+            return
+        if fut.error is not None:
+            self._mig_fallback(mig, f"export failed: {fut.error!r}")
+            return
+        export = fut.value
+        if export is None:
+            self._mig_fallback(
+                mig, f"nothing cached to export on {mig.src.replica_id}")
+            return
+        try:
+            # The wire hop: the fault seam (migration_stall sleeps here,
+            # migration_corrupt flips chunk bytes under the checksums).
+            export = self.migrator.transfer(export)
+        except Exception as err:  # noqa: BLE001 — any wire failure has
+            # the same answer: a local re-prefill.
+            self.migrate_stats.count("stalls")
+            self._mig_fallback(mig, f"transfer failed: {err!r}")
+            return
+        cfg, clock = self.migrate_config, self.clock
+        fut2 = mig.dst.server.submit_page_op(
+            lambda eng, e=export: migrate_mod.import_prefix(
+                eng, e, config=cfg, clock=clock))
+        fut2.add_done_callback(
+            lambda f, m=mig, e=export: self._mig_imported(m, e, f))
+
+    def _mig_imported(self, mig: _Migration,
+                      export: migrate_mod.PageExport,
+                      fut: migrate_mod.OpFuture) -> None:
+        if fut.error is not None:
+            if (isinstance(fut.error, migrate_mod.MigrationError)
+                    and "checksum" in str(fut.error)):
+                self.migrate_stats.count("corrupt_chunks")
+            self._mig_fallback(mig, f"import failed: {fut.error!r}")
+            return
+        if not mig.claim():
+            return      # timed out meanwhile; the verified pages landed
+        with self._lock:
+            self._migrations.pop(id(mig), None)
+        imp = fut.value
+        if imp.pages > 0:
+            self.migrator.account(export, imp)
+        else:
+            self.migrate_stats.count("cluster_tree_hits")
+        self._attempt(mig.pending, mig.dst, "migrated")
+
+    def _mig_fallback(self, mig: _Migration, reason: str) -> None:
+        """Abandon a chain: the request scores with a LOCAL re-prefill on
+        the decode replica (or any survivor): the failed transfer cost
+        latency, never correctness."""
+        if not mig.claim():
+            return
+        with self._lock:
+            self._migrations.pop(id(mig), None)
+        self.migrate_stats.count("refetch_fallbacks")
+        log.warning("router: migration abandoned for request %s (%s); "
+                    "falling back to local re-prefill",
+                    mig.pending.request.request_id, reason)
+        dst: Optional[_Replica] = mig.dst
+        if not (dst.alive and dst.breaker.allow()):
+            dst = self._pick(
+                mig.pending.model_id, exclude={mig.dst.replica_id},
+                remaining_s=max(mig.pending.t_deadline - self.clock(),
+                                0.0))
+        if dst is None:
+            if mig.pending.claim_resolution():
+                self.stats.count("errors")
+                mig.pending.future.resolve(ServeResult(
+                    request_id=mig.pending.request.request_id,
+                    status=STATUS_ERROR,
+                    note=f"migration failed ({reason}) and no replica "
+                         f"survives to re-prefill locally"))
+                self._forget(mig.pending)
+            return
+        self._attempt(mig.pending, dst, "refetch")
+
     # -- failover ------------------------------------------------------------
 
     def kill_replica(self, replica_id: str) -> int:
@@ -576,6 +824,15 @@ class ReplicaRouter:
         handle.alive = False
         handle.breaker.trip()
         self.stats.count("kills")
+        # Chains touching the dead replica fall back NOW: their requests
+        # re-prefill locally on a survivor instead of waiting out the
+        # chain's deadline.
+        with self._lock:
+            migs = [m for m in self._migrations.values()
+                    if replica_id in (m.src.replica_id, m.dst.replica_id)]
+        for m in migs:
+            self._mig_fallback(m, f"replica {replica_id} died "
+                                  f"mid-migration")
         victims = handle.take_inflight()
         n = 0
         t0 = self.clock()
@@ -611,13 +868,24 @@ class ReplicaRouter:
         log.info("router: replica %s revived (breaker %s; probe after "
                  "cooldown)", replica_id, handle.breaker.state)
 
-    # -- the tick (hedging) --------------------------------------------------
+    # -- the tick (hedging, migration deadlines) -----------------------------
 
     def _tick(self) -> None:
         now = self.clock()
         # Reading the state promotes an OPEN breaker past its cooldown.
         for h in self._handles.values():
             h.breaker.state  # noqa: B018 — promotion side effect
+        # Chains past their deadline fall back to a local re-prefill (a
+        # stalled transfer costs one timeout, not the request).
+        with self._lock:
+            stale = [m for m in self._migrations.values()
+                     if now >= m.t_deadline]
+        for m in stale:
+            if not m.claimed:
+                self.migrate_stats.count("stalls")
+                self._mig_fallback(
+                    m, f"chain exceeded "
+                       f"{self.migrate_config.timeout_s:.1f}s deadline")
         if self.config.hedge_s <= 0:
             return
         with self._lock:

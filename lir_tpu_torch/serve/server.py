@@ -2,9 +2,11 @@
 into a long-running service. Port of ``lir_tpu/serve/server.py``:
 ``ScoringServer`` over one engine and ``FleetScoringServer`` over a
 ``ModelFleet`` (the ``fleet_score`` request class: one question across
-every model, with kappa and disagreement). Page operations for
-migration and the memory tiers wait for ROADMAP A8c; the metrics
-registry, the sentinel observatory and tracing spans for "Also open".
+every model, with kappa and disagreement). ``ScoringServer`` also runs
+page operations for the migration chain (``submit_page_op``,
+``submit_prefill``; serve/migrate.py) on its supervisor thread. The
+memory tiers wait for ROADMAP A8d; the metrics registry, the sentinel
+observatory and tracing spans for "Also open".
 
 The graceful-degradation contract:
 
@@ -44,13 +46,14 @@ cache over its paged pool serves shared prefixes across requests.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -66,6 +69,7 @@ from ..utils.logging import get_logger
 from ..utils.manifest import atomic_write_json
 from ..utils.profiling import FaultStats, ServeStats, is_oom_error
 from ..utils.retry import retry_with_exponential_backoff
+from . import migrate as migrate_mod
 from .batcher import ContinuousBatcher, FleetBatcher
 from .cache import ResultCache, content_key, engine_key
 from .queue import (STATUS_ERROR, STATUS_EXPIRED, STATUS_OK, STATUS_SHED,
@@ -88,17 +92,27 @@ class _OomSignal(BaseException):
 
 def _refuse_tiers(tiers) -> None:
     """The JAX servers' ``tiers=`` (a TierConfig): an enabled one waits
-    for the memory tiers (ROADMAP A8c) and is refused, never ignored."""
+    for the memory tiers (ROADMAP A8d) and is refused, never ignored."""
     if tiers is not None and getattr(tiers, "enabled", False):
         raise NotImplementedError(
             "tiered KV and weight memory (tiers= with enabled) is not "
-            "ported yet (ROADMAP A8c)")
+            "ported yet (ROADMAP A8d)")
 
 
 class ScoringServer:
     """Continuous-batching scoring service over one ScoringEngine.
     ``tiers=`` is accepted for the JAX signature; an enabled one raises
-    (ROADMAP A8c)."""
+    (ROADMAP A8d).
+
+    Page ops (serve/migrate.py): :meth:`submit_page_op` queues
+    ``fn(engine)`` for the supervisor thread, which drains the queue each
+    loop turn ahead of dispatch formation and runs each op under the
+    engine's ``DispatchWatchdog.dispatch_lock`` (``exclusive``: an
+    abandoned call still inside after its grace fails the op with
+    ``EnginePoisoned`` instead of blocking it); :meth:`submit_prefill`
+    queues a prefill-only dispatch, run watched like a scoring
+    dispatch. Their futures' callbacks fire on the supervisor
+    thread."""
 
     def __init__(self, engine, model_name: str,
                  config: Optional[ServeConfig] = None,
@@ -141,6 +155,8 @@ class ScoringServer:
         self._stop = threading.Event()
         self._abort = False          # stop WITHOUT draining (checkpoint)
         self._inflight: List[Pending] = []
+        # Appended by any thread, popped by the supervisor (both atomic).
+        self._page_ops: Deque[migrate_mod.PageOp] = collections.deque()
         engine.reset_dispatch_state()
 
     @property
@@ -264,6 +280,7 @@ class ScoringServer:
             stopping = self._stop.is_set()
             if stopping and self._abort:
                 return           # checkpoint path: leave the backlog be
+            self._drain_page_ops()
             for p in self.queue.drain():
                 self.batcher.admit(p)
             d = self.batcher.next_dispatch(self.clock(), flush=stopping)
@@ -284,6 +301,62 @@ class ScoringServer:
         if self.stream is None:
             return {}
         return self.stream.summary()
+
+    # -- page ops (disaggregated serving, serve/migrate.py) -----------------
+
+    def _queue_op(self, fn) -> migrate_mod.OpFuture:
+        op = migrate_mod.PageOp(fn)
+        self._page_ops.append(op)
+        self.queue.kick()            # wake an idle supervisor now
+        return op.future
+
+    def submit_page_op(self, fn) -> migrate_mod.OpFuture:
+        """Queue ``fn(engine)`` for the supervisor thread, run under the
+        engine's dispatch lock: the seam the router's migration chain
+        runs its exports and imports through, so every tree and pool
+        change happens on this server's dispatch thread. Returns the op's
+        future (callbacks fire on the supervisor thread)."""
+
+        def exclusive(engine):
+            with engine.watchdog.exclusive():
+                return fn(engine)
+
+        return self._queue_op(exclusive)
+
+    def submit_prefill(self, bucket: int,
+                       prefix_ids) -> migrate_mod.OpFuture:
+        """Queue a PREFILL-ONLY dispatch over one token prefix (the
+        prefill-role replica's unit of work, ``batcher.prefill``): its
+        full pages land in this replica's pool and tree. It runs under
+        the dispatch watchdog like a scoring dispatch (a stall fails the
+        op). The future resolves with the page-aligned tokens cached."""
+        ids = tuple(int(t) for t in prefix_ids)
+        return self._queue_op(
+            lambda engine: self._watched_prefill(int(bucket), [ids]))
+
+    def _watched_prefill(self, bucket: int, rows) -> int:
+        wd = self.engine.watchdog
+
+        def call():
+            return self.batcher.prefill(bucket, rows)
+
+        if not wd.enabled:
+            with wd.exclusive():
+                return call()
+        cost = sched_mod.bucket_cost(
+            self.batcher._dispatch_rows(len(rows)), bucket,
+            self.engine.rt.batch_size, 0,
+            fused_decode=self.batcher.fused_decode)
+        # Prefill-only seconds do not calibrate the scoring deadlines.
+        return wd.watch(call, cost=cost, site="prefill", calibrate=False)
+
+    def _drain_page_ops(self) -> None:
+        while True:
+            try:
+                op = self._page_ops.popleft()
+            except IndexError:
+                return
+            op.run(self.engine)
 
     def _resolve_ok(self, p: Pending, payload: Dict, now: float) -> None:
         self.cache.put(p.cache_key, payload)
@@ -685,7 +758,7 @@ class FleetScoringServer:
 
     The fleet adopts the first member engine's governor and every member
     engine reports into it: one ledger. Left out: ``tiers=`` with
-    ``enabled`` (ROADMAP A8c) and :meth:`attach_observatory` (the
+    ``enabled`` (ROADMAP A8d) and :meth:`attach_observatory` (the
     sentinel observatory and metrics registry, "Also open") raise; the
     JAX server's ``fresh_handoff`` per engine is XLA buffer donation and
     has no counterpart here (``reset_dispatch_state`` drops a parked

@@ -826,6 +826,68 @@ class RouterStats:
             return out
 
 
+
+@dataclasses.dataclass
+class MigrationStats:
+    """Disaggregated-serving counters (serve/migrate.py and the router's
+    migration chain), the JAX package's fields. Thread-safe: replica
+    supervisor threads (page ops and chain callbacks), the router's tick
+    (timeouts) and submitting threads all count.
+
+    - ``migrations``: completed chains (pages exported from one replica's
+      pool and imported, checksum-verified, into another's);
+      ``prefill_ops``: prefill-only dispatches asked of prefill-role
+      replicas.
+    - ``pages_migrated`` / ``bytes_streamed`` / ``chunks_streamed``: the
+      transfer volume (device bytes of the pages landed).
+    - ``migration_s_exposed``: the legs' wall seconds before the decode
+      dispatch could be admitted; ``migration_s_hidden``: in-flight
+      seconds the chunk window overlapped away (serial sum less wall, a
+      leg).
+    - ``refetch_fallbacks``: chains abandoned (stall, corrupt chunk, a
+      replica died) whose request re-prefilled locally; ``stalls`` /
+      ``corrupt_chunks`` say why.
+    - ``cluster_tree_hits``: requests whose prefix the cluster index
+      found already on the chosen decode replica.
+    """
+
+    migrations: int = 0
+    prefill_ops: int = 0
+    pages_migrated: int = 0
+    bytes_streamed: int = 0
+    chunks_streamed: int = 0
+    migration_s_exposed: float = 0.0
+    migration_s_hidden: float = 0.0
+    refetch_fallbacks: int = 0
+    stalls: int = 0
+    corrupt_chunks: int = 0
+    cluster_tree_hits: int = 0
+
+    def __post_init__(self) -> None:
+        self._lock = threading.Lock()
+
+    def count(self, field: str, n: int = 1) -> None:
+        with self._lock:
+            setattr(self, field, getattr(self, field) + n)
+
+    def add_transfer(self, pages: int, nbytes: int, chunks: int,
+                     exposed_s: float, hidden_s: float) -> None:
+        with self._lock:
+            self.migrations += 1
+            self.pages_migrated += pages
+            self.bytes_streamed += nbytes
+            self.chunks_streamed += chunks
+            self.migration_s_exposed += exposed_s
+            self.migration_s_hidden += hidden_s
+
+    def summary(self) -> Dict[str, object]:
+        with self._lock:
+            out = {f.name: getattr(self, f.name)
+                   for f in dataclasses.fields(self)}
+            for name in ("migration_s_exposed", "migration_s_hidden"):
+                out[name] = round(out[name], 4)
+            return out
+
 def is_oom_error(err) -> bool:
     """True when an exception (or its text) is a device out-of-memory:
     ``torch.cuda.OutOfMemoryError``, or the JAX package's text rules

@@ -22,12 +22,15 @@ repro``) on the CPU.
   "stats"}`` line included) to the library server's results, cold and
   then warm through ``--param-cache`` (no conversion the second time);
   ``serve --replicas 2`` to a direct single-server dispatch, bitwise;
+  ``serve --replicas 2 --migrate-prefill-replicas 1`` (with and without
+  ``--no-migrate``) to the library server within the bars, its stats
+  line holding the ``"migrate"`` block;
   ``serve --fleet-models a,b`` answers ``fleet_score`` lines and
   single-model lines as the library's ``FleetScoringServer``. Its flags
   land in the JAX ``ServeConfig`` / ``RuntimeConfig`` / ``RouterConfig``
   fields and the fleet's arguments, the JAX command's refused
-  combinations are refused, and the flags of page migration, tiers,
-  meshes, the sentinels and tracing (ROADMAP A8c, A9, "Also open") are
+  combinations are refused, and the flags of tiers, meshes, the
+  sentinels and tracing (ROADMAP A8d, A9, "Also open") are
   rejected.
 - A flag of a feature the port does not have yet is rejected, as are
   ``--int8-dynamic`` without ``--int8`` and ``--full-completions`` with a
@@ -50,6 +53,7 @@ import dataclasses
 import json
 import inspect
 
+import numpy as np
 import pytest
 import torch
 
@@ -879,12 +883,10 @@ def test_serve_flags_land_in_the_jax_fields(monkeypatch, flags):
     assert port["kw"]["device"] == "cuda"
 
 
-# Flags of the JAX serve command that wait for page migration and the
-# memory tiers (ROADMAP A8c), meshes (A9), the sentinels and tracing
-# ("Also open").
+# Flags of the JAX serve command that wait for the memory tiers
+# (ROADMAP A8d), meshes (A9), the sentinels and tracing ("Also open").
 SERVE_UNPORTED = [
-    ["--mesh", "1x8"], ["--no-precompile"],
-    ["--migrate-prefill-replicas", "1"], ["--no-migrate"], ["--tiered"],
+    ["--mesh", "1x8"], ["--no-precompile"], ["--tiered"],
     ["--tier-host-mb", "64"], ["--sentinels", "legal"],
     ["--trace-out", "t.json"],
 ]
@@ -976,7 +978,7 @@ def _capture_router(monkeypatch, where, argv):
 
     def run(args, serve_cfg, factory, n_replicas):
         seen.update(router=mod._router_cfg(args), n=n_replicas,
-                    serve=serve_cfg)
+                    serve=serve_cfg, migrate=mod._migrate_cfg(args))
         raise _Stop
 
     monkeypatch.setattr(mod, "_run_router_serve", run)
@@ -1004,6 +1006,30 @@ def test_router_flags_land_in_the_jax_fields(monkeypatch, flags):
     assert port["n"] == ref["n"] == port["router"].replicas
     assert dataclasses.asdict(port["serve"]) == \
         dataclasses.asdict(ref["serve"])
+
+
+MIGRATE_FLAGS = [
+    [], ["--no-migrate"], ["--migrate-prefill-replicas", "1"],
+    ["--migrate-chunk-pages", "4"], ["--migrate-inflight-chunks", "3"],
+    ["--migrate-min-prefix", "64"], ["--migrate-page-bonus", "1.5"],
+    ["--no-migrate-verify"], ["--migrate-timeout", "2.5"],
+]
+
+
+@pytest.mark.parametrize("flags", MIGRATE_FLAGS,
+                         ids=lambda f: " ".join(f) or "defaults")
+def test_migrate_flags_land_in_the_jax_fields(monkeypatch, flags):
+    from lir_tpu_torch.config import MigrationConfig
+
+    argv = _SERVE + ["--replicas", "2"] + flags
+    port = _capture_router(monkeypatch, "lir_tpu_torch", argv)
+    ref = _capture_router(monkeypatch, "lir_tpu", argv)
+    assert dataclasses.asdict(port["migrate"]) == \
+        dataclasses.asdict(ref["migrate"])
+    assert [f.name for f in dataclasses.fields(MigrationConfig)] == \
+        [f.name for f in dataclasses.fields(ref["migrate"])]
+    if flags:
+        assert port["migrate"] != MigrationConfig()
 
 
 FLEET_FLAGS = [[], ["--fleet-deadline", "5"], ["--weight-cache-gb", "4"],
@@ -1098,7 +1124,7 @@ def test_serve_replicas_round_trips_jsonl_bitwise(ckpt_root, tmp_path,
     out = _out_lines(capsys)
     stats = out[0]
     assert stats["op"] == "stats" and set(stats["replicas"]) == {"r0", "r1"}
-    assert "migrate" not in stats
+    assert set(stats["migrate"].values()) == {0}    # no page pool: no chain
     results = out[1:]
     assert [r["request_id"] for r in results] == [f"r{i}" for i in range(6)]
     assert all(r["status"] == "ok" for r in results)
@@ -1120,6 +1146,83 @@ def test_serve_replicas_round_trips_jsonl_bitwise(ckpt_root, tmp_path,
                 assert got[f] == getattr(want, f), f
     finally:
         server.stop()
+
+
+def _library_results(ckpt_root, lines, prefix_cache=True):
+    """The library ScoringServer's results for the prompt lines."""
+    from lir_tpu_torch.config import ServeConfig
+    from lir_tpu_torch.data.prompts import LEGAL_PROMPTS
+    from lir_tpu_torch.serve import ScoringServer, ServeRequest
+
+    eng = factory.engine_factory(ckpt_root, RuntimeConfig(batch_size=4),
+                                 device="cpu")(CHAT)
+    lp = LEGAL_PROMPTS[0]
+    server = ScoringServer(eng, CHAT, ServeConfig(
+        linger_s=0.0, prefix_cache=prefix_cache)).start()
+    try:
+        return [server.submit(ServeRequest(
+            binary_prompt=f"{x['prompt']} {lp.response_format}",
+            confidence_prompt=f"{x['prompt']} {lp.confidence_format}",
+            klass="interactive", request_id=x["id"])).result(120)
+            for x in lines if "prompt" in x]
+    finally:
+        server.stop()
+
+
+_TRUNK = ("Under the homeowner policy, a claim for water damage from a "
+          "burst pipe in the insured dwelling is covered unless the insured "
+          "failed to maintain heat in the building while it was vacant, and "
+          "the insurer bears the burden of proving that exclusion applies")
+
+
+@pytest.mark.parametrize("no_migrate", [False, True],
+                         ids=["migrate", "no-migrate"])
+def test_serve_migrate_prefill_replicas_round_trips_jsonl(
+        ckpt_root, tmp_path, capsys, caplog, no_migrate):
+    """``serve --replicas 2 --migrate-prefill-replicas 1``: r0 takes the
+    prefill role and r1 decodes; requests sharing a long trunk migrate
+    their pages from r0 to r1 (``--no-migrate``: none do, r1 scores
+    them colocated); every payload as the library server's, every
+    request resolved once, the stats line (answered at once, with the
+    chains under way) and the final router stats holding the "migrate"
+    block."""
+    lines = [{"id": f"m{i}", "prompt": f"{_TRUNK} (case {i}) ?",
+              "class": "interactive"} for i in range(4)]
+    lines.append({"op": "stats"})
+    reqs = _request_lines(tmp_path, lines)
+    argv = ["serve", "--checkpoints", str(ckpt_root), "--model", CHAT,
+            "--replicas", "2", "--migrate-prefill-replicas", "1",
+            "--migrate-min-prefix", "16", "--requests", str(reqs),
+            "--device", "cpu", "--batch-size", "4", "--linger-ms", "0",
+            "--router-cache-entries", "0"]
+    with caplog.at_level("INFO", logger="lir_tpu_torch.cli"):
+        cli.main(argv + (["--no-migrate"] if no_migrate else []))
+    final = json.loads(next(
+        r.getMessage() for r in caplog.records
+        if r.getMessage().startswith("router stats: "))[len("router stats: "):])
+    out = _out_lines(capsys)
+    stats, results = out[0], out[1:]
+    assert stats["op"] == "stats"
+    assert {r: v["role"] for r, v in stats["replicas"].items()} == \
+        {"r0": "prefill", "r1": "decode"}
+    mig = final["migrate"]
+    assert set(stats["migrate"]) == set(mig)
+    assert [r["request_id"] for r in results] == [f"m{i}" for i in range(4)]
+    assert all(r["status"] == "ok" for r in results)
+    assert final["router"]["per_replica"] == {"r1": 4}
+    if no_migrate:
+        assert set(mig.values()) == {0}
+    else:
+        assert stats["migrate"]["prefill_ops"] >= 1
+        assert mig["migrations"] >= 1 and mig["pages_migrated"] > 0
+        assert mig["refetch_fallbacks"] == 0
+    for want, got in zip(_library_results(ckpt_root, lines), results):
+        for f in ("model_response", "model_confidence_response",
+                  "confidence_value", "log_probabilities"):
+            assert got[f] == getattr(want, f), f
+        for f in ("token_1_prob", "token_2_prob", "weighted_confidence"):
+            np.testing.assert_allclose(got[f], getattr(want, f), rtol=1e-5,
+                                       atol=1e-6, err_msg=f)
 
 
 def test_serve_fleet_models_answers_fleet_and_single_lines(ckpt_root,

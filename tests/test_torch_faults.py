@@ -13,7 +13,7 @@ package's, on the same inputs (no model: milliseconds a test).
   same calls of each site as JAX's (``check``, ``wrap``,
   ``corrupt_draft``, ``wrap_governor``, ``wrap_replica``: a replica
   kill marks the router's replica dead and raises, a lag sleeps and
-  completes); a migration or tier schedule is refused (ROADMAP A8c);
+  completes); a tier schedule is refused (ROADMAP A8d);
   ``corrupt_result_nan`` gives JAX's values.
 - ``CircuitBreaker``, ``degrade_dispatch`` and the retry loop make
   JAX's transitions, calls and waits under the same clock and draws.
@@ -26,6 +26,7 @@ import dataclasses
 import random
 import threading
 import time
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -311,14 +312,14 @@ def test_fault_plan_wrap_nan_squeeze_and_refusals():
         gr.tick()
     assert gp.calls == gr.calls
     assert ("squeeze", 0.25, 3) in gp.calls
-    for site, kind in (("migrate", "fault"), ("dispatch", "tier_corrupt"),
-                       ("tiers", "disk_stall"),
-                       ("dispatch", "migration_stall"),
-                       ("dispatch", "migration_corrupt")):
-        with pytest.raises(ValueError, match="A8c"):
+    for site, kind in (("tiers", "fault"), ("dispatch", "tier_corrupt"),
+                       ("tiers", "disk_stall")):
+        with pytest.raises(ValueError, match="A8d"):
             faults.FaultPlan(0, {site: faults.SiteSchedule(kind=kind)})
     for site, kind in (("replica", "fault"), ("dispatch", "replica_kill"),
-                       ("replica", "replica_lag")):
+                       ("replica", "replica_lag"), ("migrate", "fault"),
+                       ("migrate", "migration_stall"),
+                       ("migrate", "migration_corrupt")):
         faults.FaultPlan(0, {site: faults.SiteSchedule(kind=kind)})
     assert faults.SITES == jfaults.SITES and faults.KINDS == jfaults.KINDS
 
@@ -412,6 +413,68 @@ def test_replica_kinds_through_check_and_wrap_match_jax():
             faults.SiteSchedule(fail_calls=(2,), kind="replica_kill",
                                 replica_id="r0"))
     assert faults.SiteSchedule.replica_lag_at(1, 0.5).lag_s == 0.5
+
+
+def _migrator_outcomes(mod, mig_mod, sched_kw, chunk):
+    """Four transfers of one export through a migrator wrapped with
+    ``sched_kw`` at site "migrate": what each returned or raised, the
+    chunk's bytes after each, the plan's counters; then what
+    ``FaultPlan.check`` does with the same schedule."""
+    migrator = types.SimpleNamespace(transfer=lambda e: e)
+    plan = mod.FaultPlan(9, {"migrate": mod.SiteSchedule(**sched_kw)})
+    mod.wrap_migrator(migrator, plan)
+    export = mig_mod.PageExport(
+        bucket=64, ids=(), start_tokens=0, page_size=4, n_pages=2,
+        chunk_pages=2, chunks=[(chunk, 2)], checksums=[0], nbytes=0)
+    seen = []
+    for _ in range(4):
+        try:
+            out = migrator.transfer(export)
+            seen.append(("ok", out is export))
+        except mod.InjectedFault as err:
+            seen.append(("raised", type(err).__name__, str(err)))
+        leaves = chunk if isinstance(chunk, tuple) else (chunk,)
+        seen.append([bytes(np.asarray(a).view(np.uint8).reshape(-1))
+                     if not isinstance(a, torch.Tensor) else
+                     bytes(a.reshape(-1).view(torch.uint8).numpy())
+                     for a in leaves])
+    check = mod.FaultPlan(9, {"migrate": mod.SiteSchedule(**sched_kw)})
+    for _ in range(3):
+        try:
+            check.check("migrate")
+            seen.append("check:ok")
+        except mod.InjectedFault as err:
+            seen.append(f"check:{err}")
+    return seen, plan.stats.summary(), plan.injected("migrate"), \
+        check.stats.summary()
+
+
+@pytest.mark.parametrize("sched_kw", [
+    dict(fail_calls=(1,), kind="migration_stall", hang_s=0.0),
+    dict(fail_calls=(0, 2), kind="migration_corrupt"),
+    dict(fail_calls=(1,), kind="fault"),
+    dict(rate=0.5, kind="migration_corrupt"),
+], ids=["stall", "corrupt", "fault", "corrupt-rate"])
+def test_wrap_migrator_fires_where_jax_fires(sched_kw):
+    """One seeded schedule at the migrator's wire hop in both packages:
+    the same transfers stall (raise), corrupt the same bytes, or fault;
+    ``check`` leaves the migration kinds to the hop."""
+    import lir_tpu.serve.migrate as jmig
+    import lir_tpu_torch.serve.migrate as tmig
+
+    rng = np.random.default_rng(12)
+    payload = rng.integers(-127, 128, (2, 2, 2, 4, 8), dtype=np.int8)
+    scales = rng.random((2, 2, 2, 4), dtype=np.float32)
+    got = _migrator_outcomes(faults, tmig, sched_kw, (
+        torch.from_numpy(payload.copy()), torch.from_numpy(scales.copy())))
+    want = _migrator_outcomes(jfaults, jmig, sched_kw,
+                              (payload.copy(), scales.copy()))
+    assert got == want
+    assert faults.SiteSchedule.migration_stall_at(3, 0.5) == \
+        faults.SiteSchedule(fail_calls=(3,), kind="migration_stall",
+                            hang_s=0.5)
+    assert faults.SiteSchedule.migration_corrupt_at(1).kind == \
+        jfaults.SiteSchedule.migration_corrupt_at(1).kind
 
 
 def test_corrupt_draft_matches_jax():

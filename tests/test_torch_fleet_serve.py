@@ -368,10 +368,10 @@ def test_fleet_server_shares_one_governor(trees):
 def test_fleet_refuses_what_waits_for_later_items(trees):
     fleet = _port_fleet(trees)
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP A8c"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A8d"):
             FleetScoringServer(fleet, tiers=types.SimpleNamespace(
                 enabled=True))
-        with pytest.raises(NotImplementedError, match="ROADMAP A8c"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A8d"):
             ScoringServer(fleet.engine("m0"), "m0",
                           tiers=types.SimpleNamespace(enabled=True))
         server = FleetScoringServer(

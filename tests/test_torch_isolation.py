@@ -37,6 +37,7 @@ import lir_tpu_torch.models.cache
 import lir_tpu_torch.serve, lir_tpu_torch.serve.queue
 import lir_tpu_torch.serve.cache, lir_tpu_torch.serve.batcher
 import lir_tpu_torch.serve.server, lir_tpu_torch.serve.router
+import lir_tpu_torch.serve.migrate
 import lir_tpu_torch.cli
 import lir_tpu_torch.stats, lir_tpu_torch.stats.core, lir_tpu_torch.stats.kappa
 import lir_tpu_torch.stats.bootstrap, lir_tpu_torch.stats.correlations

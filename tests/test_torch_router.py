@@ -11,14 +11,15 @@ prefix index on the CPU, against the JAX package's.
   the same requests on the same replicas in the same order, end with
   the same ``RouterStats`` counters and breaker states, and resolve
   every request with the same winning payload. Exact: no float is
-  computed by the router. The port's ``stats_summary`` has no
-  ``"migrate"`` block (no page migration, ROADMAP A8c); the compared
-  summaries drop JAX's.
+  computed by the router. The compared summaries include the
+  ``"migrate"`` block.
 - ``ClusterPrefixIndex`` against JAX's on the same seeded event streams,
   and the radix tree's page listeners against JAX's on the same
   insert / evict sequence (events exact).
-- A prefill-role replica or ``MigrationConfig(prefill_replicas > 0)``
-  raises ``NotImplementedError`` naming ROADMAP A8c.
+- A prefill-role replica, or the roles ``MigrationConfig(
+  prefill_replicas=1)`` gives (the CLI's: the first replicas prefill),
+  route a long prompt through a migration chain (the chain's scenarios
+  against JAX's are in ``tests/test_torch_migrate.py``).
 - With real engines: two tiny replica servers behind the port's router
   (prefix cache off, ``pad_full``), every payload bitwise a direct
   single-server dispatch; a kill mid-run re-admits and every request
@@ -138,7 +139,6 @@ def _payload(res):
 
 def _trace(router, placements, results):
     summary = router.stats_summary()
-    summary.pop("migrate", None)
     return {"placements": list(placements),
             "stats": router.stats.summary(),
             "summary": summary,
@@ -310,17 +310,16 @@ def test_router_host_logic_matches_jax(name):
     assert got == want
 
 
-def test_summary_has_no_migrate_block():
-    """The port's summary is JAX's less the "migrate" block (page
-    migration waits for ROADMAP A8c)."""
+def test_summary_matches_jax_with_migrate_block():
+    """The port's summary is JAX's, its "migrate" block (the
+    MigrationStats counters) included."""
     summaries = {}
     for k, ns in PKGS.items():
         router, *_ = _world(ns, [("a", 0, None), ("b", 2, None)])
         summaries[k] = router.stats_summary()
-    assert "migrate" in summaries["jax"]
-    assert "migrate" not in summaries["torch"]
-    summaries["jax"].pop("migrate")
+    assert "migrate" in summaries["jax"] and "migrate" in summaries["torch"]
     assert summaries["torch"] == summaries["jax"]
+    assert set(summaries["torch"]["migrate"].values()) == {0}
 
 
 def test_future_callbacks_fire_once_first_resolution_wins():
@@ -333,15 +332,63 @@ def test_future_callbacks_fire_once_first_resolution_wins():
         assert got == ["ok", "ok"] and fut.result(0).status == STATUS_OK
 
 
-@pytest.mark.parametrize("kw", [
-    {"roles": {"a": "prefill", "b": "decode"}},
-    {"migrate": tconfig.MigrationConfig(prefill_replicas=1)},
-], ids=["prefill-role", "prefill-replicas"])
-def test_migration_is_refused_naming_a8c(kw):
+class _PageReplica(FakeReplica):
+    """A fake replica with a real radix tree and pool of the port (tiny
+    leaves) and page ops run at once: enough for the chain."""
+
+    def __init__(self, ns, name, placements):
+        import torch
+        from lir_tpu_torch.backends.fake import FakeTokenizer
+        from lir_tpu_torch.serve import migrate
+
+        super().__init__(ns, name, placements)
+        pool = tpaged.KVPagePool(64, page_size=4)
+        pool.ensure((torch.zeros(1, 1, 8, 1, 2), torch.zeros(1, 1, 8, 1, 2)))
+        self.engine = types.SimpleNamespace(
+            prefix_cache=ttree.RadixPrefixCache(pool),
+            tokenizer=FakeTokenizer(), _tok_lock=threading.Lock(),
+            buckets=[16, 32, 64, 128, 256])
+        self._migrate = migrate
+
+    def submit_page_op(self, fn):
+        op = self._migrate.PageOp(fn)
+        op.run(self.engine)
+        return op.future
+
+    def submit_prefill(self, bucket, ids):
+        def prefill(eng):
+            eng.prefix_cache.plan_insert(bucket, ids)
+            return eng.prefix_cache.match_len(bucket, ids)
+
+        return self.submit_page_op(prefill)
+
+
+@pytest.mark.parametrize("how", ["prefill-role", "prefill-replicas"])
+def test_migration_routes_through_a_chain(how):
+    """A prefill-role replica, or ``MigrationConfig(prefill_replicas=1)``
+    with the roles the CLI gives it, route a long prompt through a
+    migration chain: a prefill on the prefill replica, its pages pulled
+    to the decode replica, the request scored there."""
     ns = PKGS["torch"]
-    reps = [(n, FakeReplica(ns, n, [])) for n in ("a", "b")]
-    with pytest.raises(NotImplementedError, match="ROADMAP A8c"):
-        ns.Router(reps, **kw)
+    placements = []
+    reps = [(n, _PageReplica(ns, n, placements)) for n in ("a", "b")]
+    if how == "prefill-role":
+        kw = dict(roles={"a": "prefill", "b": "decode"},
+                  migrate=ns.MigrationConfig(min_prefix_tokens=8))
+    else:
+        cfg = ns.MigrationConfig(prefill_replicas=1, min_prefix_tokens=8)
+        kw = dict(roles={rid: ("prefill" if i < cfg.prefill_replicas
+                               else "decode")
+                         for i, (rid, _) in enumerate(reps)},
+                  migrate=cfg)
+    router = ns.Router(reps, config=ns.RouterConfig(cache_entries=0), **kw)
+    res = router.submit(_req(ns, 0)).result(1)
+    st = router.stats_summary()
+    assert res.status == STATUS_OK
+    assert placements == [("b", res.request_id)]
+    assert st["replicas"]["a"]["role"] == "prefill"
+    assert st["migrate"]["prefill_ops"] == st["migrate"]["migrations"] == 1
+    assert st["migrate"]["pages_migrated"] > 0
 
 
 # ---------------------------------------------------------------------------
